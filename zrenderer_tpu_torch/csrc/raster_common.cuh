@@ -1,0 +1,197 @@
+// Shared pieces of the flat raster kernels (raster_small.cu, raster_hier.cu).
+//
+// Layout contract with zrenderer_tpu/ops/geometry.py: setup rows are
+// (R, NI32) int32 + (R, NF32) float32, row-major; bbox tables are (n, 8)
+// int32 [jmin, jmax, imin, imax, any_valid, 0, 0, 0].  Output planes are
+// (H, W) row-major: packed RGBA8 as u32 bits in int32, and f32 depth.
+//
+// One CUDA block rasterizes one 32x128 screen tile.  Its 256 threads each
+// own one column and 16 rows of the tile (rows r0, r0 + 2, ...), and keep
+// the tile state for those pixels in registers across the whole triangle
+// loop: depth, winning row id (K1 only) and the r/g/b/(1/w) numerators.
+// Every triangle is evaluated by all threads of the block (the loops and
+// their bbox skips are block-uniform), so the per-triangle setup reads are
+// broadcast loads.
+//
+// Numerics (docs/RASTER_SPEC.md §2-§5), the bits the plain torch version
+// produces:
+// * edge functions wrap like the reference's int32 arithmetic; signed
+//   overflow is undefined in C++, so they are computed in uint32_t;
+// * every interpolation is ((e0*c0 + e1*c1) + e2*c2), rounded after each
+//   op: __fmul_rn/__fadd_rn cannot be contracted into FMA (the build also
+//   passes -fmad=false);
+// * the resolve divides once per pixel with an IEEE-rounded 1/den.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace zr {
+
+constexpr int TILE_H = 32;
+constexpr int TILE_W = 128;
+constexpr int THREADS = 256;
+constexpr int ROW_STEP = THREADS / TILE_W;            // 2
+constexpr int PIX = TILE_H * TILE_W / THREADS;         // 16 pixels a thread
+constexpr int SUBPIXEL = 8;
+constexpr int HALF = SUBPIXEL / 2;
+constexpr int NI32 = 20;
+constexpr int NF32 = 40;
+constexpr int RASTER_BLOCK = 128;
+constexpr int SUPER_BLOCK = 32;
+constexpr int INT_MAX32 = 0x7fffffff;
+
+// Integer setup columns (geometry.I_*).
+enum : int {
+  I_X0 = 0, I_Y0, I_X1, I_Y1, I_X2, I_Y2,
+  I_DX0, I_DY0, I_DX1, I_DY1, I_DX2, I_DY2,
+  I_BIAS0, I_BIAS1, I_BIAS2,
+  I_JMIN, I_JMAX, I_IMIN, I_IMAX, I_VALID
+};
+// Float setup columns (geometry.F_*): three per interpolant.
+enum : int { F_ZA0 = 0, F_RW0 = 3, F_CR0 = 6, F_CG0 = 9, F_CB0 = 12 };
+
+__device__ __forceinline__ int edge_fn(int dx, int dy, int x, int y,
+                                       int px, int py) {
+  // dx*(py - y) - dy*(px - x) with int32 wrap-around.
+  uint32_t a = (uint32_t)dx * ((uint32_t)py - (uint32_t)y);
+  uint32_t b = (uint32_t)dy * ((uint32_t)px - (uint32_t)x);
+  return (int)(a - b);
+}
+
+__device__ __forceinline__ float interp3(float e0, float e1, float e2,
+                                         float c0, float c1, float c2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(e0, c0), __fmul_rn(e1, c1)),
+                   __fmul_rn(e2, c2));
+}
+
+__device__ __forceinline__ bool tile_overlap(int jmin, int jmax, int imin,
+                                             int imax, int row0, int col0) {
+  return jmax >= col0 && jmin < col0 + TILE_W && imax >= row0 &&
+         imin < row0 + TILE_H && jmin <= jmax && imin <= imax;
+}
+
+__device__ __forceinline__ uint32_t quantize(float numer, bool covered,
+                                             float inv) {
+  float c = covered ? __fmul_rn(numer, inv) : 0.0f;
+  c = fminf(fmaxf(c, 0.0f), 1.0f);
+  return (uint32_t)(int)floorf(__fadd_rn(__fmul_rn(c, 255.0f), 0.5f));
+}
+
+// Per-thread tile state.  TIE selects K1's order-free depth test
+// (z, row id) over K3's sequential strict-less test.
+template <bool TIE>
+struct TileState {
+  float z[PIX];
+  int tid[TIE ? PIX : 1];
+  float den[PIX], nr[PIX], ng[PIX], nb[PIX];
+  int px;   // this thread's pixel-centre x, in subpixels
+  int py0;  // pixel-centre y of its first row, in subpixels
+  int row0, col0;
+
+  __device__ __forceinline__ void init(int tile_row0, int tile_col0) {
+    row0 = tile_row0;
+    col0 = tile_col0;
+    px = (col0 + (int)(threadIdx.x % TILE_W)) * SUBPIXEL + HALF;
+    py0 = (row0 + (int)(threadIdx.x / TILE_W)) * SUBPIXEL + HALF;
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      z[k] = 1.0f;
+      if constexpr (TIE) tid[k] = INT_MAX32;
+      den[k] = nr[k] = ng[k] = nb[k] = 0.0f;
+    }
+  }
+
+  // Coverage, depth test and latch of setup row t at this thread's pixels.
+  __device__ __forceinline__ void eval(const int* __restrict__ ti,
+                                       const float* __restrict__ tf, int t) {
+    const int* r = ti + (size_t)t * NI32;
+    const float* f = tf + (size_t)t * NF32;
+    const int x0 = __ldg(r + I_X0), y0 = __ldg(r + I_Y0);
+    const int x1 = __ldg(r + I_X1), y1 = __ldg(r + I_Y1);
+    const int x2 = __ldg(r + I_X2), y2 = __ldg(r + I_Y2);
+    const int dx0 = __ldg(r + I_DX0), dy0 = __ldg(r + I_DY0);
+    const int dx1 = __ldg(r + I_DX1), dy1 = __ldg(r + I_DY1);
+    const int dx2 = __ldg(r + I_DX2), dy2 = __ldg(r + I_DY2);
+    const int b0 = __ldg(r + I_BIAS0), b1 = __ldg(r + I_BIAS1);
+    const int b2 = __ldg(r + I_BIAS2);
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      const int py = py0 + k * ROW_STEP * SUBPIXEL;
+      const int e0 = edge_fn(dx0, dy0, x1, y1, px, py);
+      const int e1 = edge_fn(dx1, dy1, x2, y2, px, py);
+      const int e2 = edge_fn(dx2, dy2, x0, y0, px, py);
+      if (e0 < b0 || e1 < b1 || e2 < b2) continue;
+      const float f0 = __int2float_rn(e0);
+      const float f1 = __int2float_rn(e1);
+      const float f2 = __int2float_rn(e2);
+      const float zz = interp3(f0, f1, f2, __ldg(f + F_ZA0),
+                               __ldg(f + F_ZA0 + 1), __ldg(f + F_ZA0 + 2));
+      bool ok;
+      if constexpr (TIE) {
+        ok = zz >= 0.0f && (zz < z[k] || (zz == z[k] && t < tid[k]));
+      } else {
+        ok = zz >= 0.0f && zz < z[k];
+      }
+      if (!ok) continue;
+      z[k] = zz;
+      if constexpr (TIE) tid[k] = t;
+      den[k] = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
+                       __ldg(f + F_RW0 + 2));
+      nr[k] = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
+                      __ldg(f + F_CR0 + 2));
+      ng[k] = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
+                      __ldg(f + F_CG0 + 2));
+      nb[k] = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
+                      __ldg(f + F_CB0 + 2));
+    }
+  }
+
+  // Superblock -> block -> row scan with block-uniform bbox skips, rows in
+  // submission order (the reference's _scan_groups over the tables).
+  __device__ __forceinline__ void scan_hierarchy(
+      const int* __restrict__ supers, int num_supers,
+      const int* __restrict__ blocks, const int* __restrict__ ti,
+      const float* __restrict__ tf) {
+    for (int s = 0; s < num_supers; ++s) {
+      const int* sb = supers + (size_t)s * 8;
+      if (!tile_overlap(__ldg(sb), __ldg(sb + 1), __ldg(sb + 2),
+                        __ldg(sb + 3), row0, col0))
+        continue;
+      for (int b = s * SUPER_BLOCK; b < (s + 1) * SUPER_BLOCK; ++b) {
+        const int* bb = blocks + (size_t)b * 8;
+        if (!tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2),
+                          __ldg(bb + 3), row0, col0))
+          continue;
+        for (int t = b * RASTER_BLOCK; t < (b + 1) * RASTER_BLOCK; ++t) {
+          const int* r = ti + (size_t)t * NI32;
+          if (tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
+                           __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0))
+            eval(ti, tf, t);
+        }
+      }
+    }
+  }
+
+  // Resolve: one IEEE divide per covered pixel, RGBA8 packed, alpha 255.
+  __device__ __forceinline__ void store(int* __restrict__ color,
+                                        float* __restrict__ depth,
+                                        int width) const {
+    const int col = col0 + (int)(threadIdx.x % TILE_W);
+    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      const bool covered = den[k] > 0.0f;
+      const float inv = covered ? __fdiv_rn(1.0f, den[k]) : 1.0f;
+      const uint32_t packed = quantize(nr[k], covered, inv) |
+                              (quantize(ng[k], covered, inv) << 8) |
+                              (quantize(nb[k], covered, inv) << 16) |
+                              0xFF000000u;
+      const size_t idx = (size_t)(rbase + k * ROW_STEP) * width + col;
+      color[idx] = (int)packed;
+      depth[idx] = z[k];
+    }
+  }
+};
+
+}  // namespace zr

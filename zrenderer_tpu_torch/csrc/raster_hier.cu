@@ -1,0 +1,56 @@
+// K3: hierarchy flat raster.
+//
+// Replaces rasterize_setup_pallas (zrenderer_tpu/ops/raster_pallas.py,
+// _raster_kernel, body _kernel_body).  Inputs are the outputs of
+// prepare_raster_inputs (zrenderer_tpu_torch/ops/raster.py): the live rows
+// stable-compacted to the front (submission order kept), padded to
+// RASTER_BLOCK, plus the block and superblock union-bbox tables.
+//
+// What it computes, per 32x128 tile (one CUDA block): the rows in
+// submission order, skipping a superblock (4096 rows), a block (128 rows)
+// or a row whose bbox misses the tile, with the sequential strict-less
+// depth test z >= 0 && z < zb; then one divide per pixel into packed RGBA8
+// + f32 depth.
+//
+// What bounds it on the H100: the per-tile triangle reads and the
+// instruction throughput of the per-pixel edge evaluation, not
+// device-memory bytes (the 1080p output planes are 16.7 MB).  Each tile
+// walks the bbox tables from the start (a few hundred broadcast loads for
+// 32K rows), then pays three edge functions and a depth test at 4096
+// pixels for every row whose bbox touches it.  The simple design keeps the
+// tile state in registers across the walk and reads setup rows through
+// broadcast loads; the order of the walk is fixed because the strict-less
+// test resolves exact depth ties in submission order.  Later work: stage
+// hit blocks' rows in shared memory, skip pixel rows outside a triangle's
+// bbox, persistent blocks.
+
+#include "raster_common.cuh"
+
+namespace zr {
+
+__global__ void __launch_bounds__(THREADS)
+    raster_hier_kernel(const int* __restrict__ supers, int num_supers,
+                       const int* __restrict__ blocks,
+                       const int* __restrict__ ti,
+                       const float* __restrict__ tf, int* __restrict__ color,
+                       float* __restrict__ depth, int width) {
+  const int tiles_x = width / TILE_W;
+  const int tile = blockIdx.x;
+  TileState<false> st;
+  st.init((tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
+  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
+  st.store(color, depth, width);
+}
+
+}  // namespace zr
+
+extern "C" int zr_raster_hier(const int* supers, int num_supers,
+                              const int* blocks, const int* ti,
+                              const float* tf, int* color, float* depth,
+                              int height, int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::raster_hier_kernel<<<num_tiles, zr::THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      supers, num_supers, blocks, ti, tf, color, depth, width);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,80 @@
+"""Renderer configuration for the port's flat pipeline.
+
+Counterpart of ``zrenderer_tpu/engine/config.py``, with the fields the
+flat path reads.  Options whose passes are not ported yet raise
+``NotImplementedError`` instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass, replace
+
+from zrenderer_tpu_torch.ops.raster import TILE_H, TILE_W
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    width: int = 1920
+    height: int = 1080
+    # Only "flat" is ported; lit/shadowed/deferred are ROADMAP Queue 1
+    # items 7-9.
+    pipeline: str = "flat"
+    # Raster binning: "auto" (K1 small-scene lists up to 1024 head rows,
+    # K3 hierarchy above), "small" (K1) or "hierarchy" (K3).
+    # "tile_lists" and frames above 32768 setup rows need kernels that are
+    # not ported yet and raise at render time (ops/raster.select_raster).
+    binning: str = "auto"
+    # The kernels resolve uncovered pixels to (0, 0, 0, 255): the default
+    # clear color is the only one the flat path produces.
+    clear_color: tuple = (0.0, 0.0, 0.0, 1.0)
+    # Ordered-grid supersampling: only 1 is ported (SSAA is ROADMAP Queue 1
+    # item 6).
+    supersample: int = 1
+    vert_align: int = 128
+    tri_align: int = 256
+    lod: int = 0  # mesh LOD drawn
+    # Per-frame host-staging budget for the per-draw constants; exhaustion
+    # stalls the device and retries (engine/upload_ring.py).
+    upload_heap_bytes: int = 18 * 2**20
+    # Host/device pipelining depth: present() fences only when the host is
+    # this many frames ahead.  1 = fully synchronous present.
+    frames_in_flight: int = 2
+
+    def __post_init__(self):
+        if self.pipeline != "flat":
+            raise NotImplementedError(
+                f"pipeline {self.pipeline!r}: only 'flat' is ported "
+                "(ROADMAP.md Queue 1 items 7-9)"
+            )
+        if self.supersample != 1:
+            raise NotImplementedError(
+                "supersample != 1: SSAA is not ported (ROADMAP.md Queue 1 "
+                "item 6)"
+            )
+        if tuple(self.clear_color) != (0.0, 0.0, 0.0, 1.0):
+            raise NotImplementedError(
+                "the flat kernels resolve uncovered pixels to the default "
+                "clear color (0, 0, 0, 1) only"
+            )
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError(f"bad frame size {self.width}x{self.height}")
+
+    @property
+    def pad_width(self) -> int:
+        return _round_up(self.width, TILE_W)
+
+    @property
+    def pad_height(self) -> int:
+        return _round_up(self.height, TILE_H)
+
+    def content_hash(self) -> int:
+        """Stable content hash for pipeline-cache keys."""
+        return zlib.adler32(repr(self).encode())
+
+    def with_(self, **kw) -> "RenderConfig":
+        return replace(self, **kw)

@@ -1,0 +1,122 @@
+"""Build and load the CUDA raster kernels (``zrenderer_tpu_torch/csrc``).
+
+``nvcc`` compiles each ``.cu`` file for ``sm_90a`` and links them into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+lands in ``build/zrenderer_tpu_torch/<hash>/`` beside the package, keyed by
+a hash of the sources and flags: the first call in a fresh checkout
+builds (seconds), later calls and processes reuse the library.  Nothing is
+built or loaded at import time.
+
+There is no fallback: without ``nvcc`` or with a failing build,
+``load_library`` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "zrenderer_tpu_torch"
+SOURCES = ("raster_small.cu", "raster_hier.cu")
+HEADERS = ("raster_common.cuh",)
+LIB_NAME = "libzr_raster.so"
+TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
+
+# No fast-math: IEEE division, and -fmad=false backs up the explicit
+# __fmul_rn/__fadd_rn pinning of every interpolation (RASTER_SPEC §5).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclass
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when an earlier build was reused
+    log: str  # nvcc/ptxas output of this build ("" when reused)
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and TOOLKIT_NVCC.exists():
+        nvcc = str(TOOLKIT_NVCC)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA raster kernels build only on a host "
+            "with the CUDA toolkit"
+        )
+    return nvcc
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> BuildInfo:
+    """Build the library unless this source hash was built already."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return BuildInfo(lib, 0.0, "")
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    logs = []
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = []
+        procs = []
+        for name in SOURCES:
+            obj = Path(tmp) / (name + ".o")
+            objs.append(str(obj))
+            procs.append((name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        failed = []
+        for name, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {name}\n{out}")
+            if p.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", *objs, "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(logs))
+        os.replace(tmp_lib, lib)  # atomic: readers see a whole library
+    return BuildInfo(lib, time.perf_counter() - t0, "\n".join(logs))
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the C signatures."""
+    lib = ctypes.CDLL(str(build_library().path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.zr_raster_small.argtypes = [p, p, i, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_small.restype = i
+    lib.zr_raster_hier.argtypes = [p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_hier.restype = i
+    lib.zr_error_string.argtypes = [i]
+    lib.zr_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,407 @@
+"""Column geometry stage in torch: transform -> capped clip -> snap -> setup.
+
+Counterpart of the column path of ``zrenderer_tpu/ops/geometry.py``
+(``geometry_pipeline_cols``, ``clip_triangles_cols``, ``_setup_cols``) and
+of its binning helpers (``compact_triangles``, ``block_bounds``,
+``super_bounds``), plus the setup-row layout, the size rules and the
+per-frame view-projection it depends on.
+
+Parity (docs/RASTER_SPEC.md §5): every f32 expression keeps the reference's
+association, and eager torch rounds after every op, so the port is
+bit-identical to the NumPy path on the CPU.  Rules that keep it so:
+
+* the vertex transform is written as explicit multiply-adds, never
+  ``matmul``/``einsum`` (the reduction order is part of the contract);
+* no fused torch ops (``addcmul``, ``lerp``) and no division of a tensor by
+  a Python scalar (CUDA turns that into a multiply by the reciprocal);
+  ``1/x`` is ``torch.reciprocal``;
+* Python-float constants are rounded to float32 first (``_f32``), so they
+  equal the reference's ``xp.float32(...)`` scalars.
+
+Where the reference shapes its code around TPU limits the port keeps the
+semantics and drops the workaround: the one-hot ``dot_general`` matrix
+expansion is a plain gather, and the clipper's chains of static-row
+selects are one gather (cyclic successor) and two scatters (compaction)
+over a (channel, slot, triangle) tensor.  Both only move values, so the
+results are the same bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zrenderer_tpu_torch.math import zmath as zm
+
+# --- Layout constants and size rules (docs/RASTER_SPEC.md §1-2) -------------
+# The same values as ``zrenderer_tpu/ops/geometry.py``, which the setup rows'
+# bit parity depends on; tests/test_torch_host.py holds the two equal.
+SUBPIXEL_BITS = 3
+SUBPIXEL = 1 << SUBPIXEL_BITS  # 8 subpixel positions per axis
+GUARD_PX = 960  # preferred guard band beyond each viewport edge, in pixels
+MAX_SPAN_PX = 4096  # (W + 2*guard) must stay <= this (int32 exactness)
+CLIP_MAX_VERTS = 8  # 3 verts + 5 planes (near + 4 guard)
+FAN_SLOTS = CLIP_MAX_VERTS - 2  # 6 triangles per input after full clipping
+CLIP_CAP_MIN = 1024
+ATTR_FLOATS = 16  # clip xyzw, color rgba, uv, normal, tangent.xyz
+RASTER_BLOCK = 128  # rows per raster block (block-skip granularity)
+SUPER_BLOCK = 32  # blocks per superblock (level-1 skip granularity)
+
+# Setup row integer columns (NI32): snapped corners, edge deltas, fill-rule
+# biases, pixel bbox, valid flag.
+I_X0, I_Y0, I_X1, I_Y1, I_X2, I_Y2 = range(6)
+I_DX0, I_DY0, I_DX1, I_DY1, I_DX2, I_DY2 = range(6, 12)
+I_BIAS0, I_BIAS1, I_BIAS2 = range(12, 15)
+I_JMIN, I_JMAX, I_IMIN, I_IMAX = range(15, 19)
+I_VALID = 19
+NI32 = 20
+
+# Setup row float columns (NF32): per-edge-function coefficients of z,
+# 1/w and the perspective-correct color numerators.  The flat path writes
+# only these 15; the rest of the row (the lit pipelines' interpolants and
+# material constants) stays zero.
+F_ZA0, F_ZA1, F_ZA2 = range(3)
+F_RW0, F_RW1, F_RW2 = range(3, 6)
+F_CR0, F_CR1, F_CR2 = range(6, 9)
+F_CG0, F_CG1, F_CG2 = range(9, 12)
+F_CB0, F_CB1, F_CB2 = range(12, 15)
+NF32 = 40
+
+_INT_MAX = 2**31 - 1
+F32 = torch.float32
+I32 = torch.int32
+
+
+def guard_px(extent: int) -> int:
+    """Guard band for a viewport extent: the preferred 960 px, shrunk so
+    the snapped span stays inside the exact-int32 budget."""
+    assert extent <= MAX_SPAN_PX - 64, f"viewport extent {extent} too large"
+    return min(GUARD_PX, (MAX_SPAN_PX - extent) // 2)
+
+
+def clip_cap_for(num_tris: int) -> int:
+    """Capacity of the capped clipper's subset of T triangles."""
+    return min(num_tris, max(CLIP_CAP_MIN, num_tris // 64))
+
+
+def capped_rows(num_tris: int) -> int:
+    """Setup rows of the capped layout for T input triangles."""
+    return num_tris + FAN_SLOTS * clip_cap_for(num_tris)
+
+
+def head_count(total_rows: int) -> int:
+    """Invert ``capped_rows`` (it is strictly increasing in T)."""
+    lo, hi = 1, total_rows
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if capped_rows(mid) < total_rows:
+            lo = mid + 1
+        else:
+            hi = mid
+    assert capped_rows(lo) == total_rows, (total_rows, lo)
+    return lo
+
+
+def view_proj_from_camera(camera, width: int, height: int) -> np.ndarray:
+    """Per-frame view-projection matrix (host f32): RH look-at toward
+    position + forward, RH perspective with the viewport's aspect, then
+    view @ proj."""
+    view = zm.look_at_rh(
+        zm.load_vec3(camera.position),
+        zm.load_vec3(np.asarray(camera.position) + np.asarray(camera.forward)),
+        zm.f32x4(0.0, 1.0, 0.0, 0.0),
+    )
+    zfar = camera.zfar if camera.zfar > camera.znear else 1000.0
+    proj = zm.perspective_fov_rh(
+        camera.yfov, float(width) / float(height), camera.znear, zfar
+    )
+    return zm.mul(view, proj)
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to float32 (the value ``np.float32(x)`` holds)."""
+    return float(np.float32(x))
+
+
+def _guard_scales(width: int, height: int):
+    gx = _f32(1.0 + 2.0 * guard_px(width) / float(width))
+    gy = _f32(1.0 + 2.0 * guard_px(height) / float(height))
+    return gx, gy
+
+
+def _plane_distance(x, y, z, w, plane: int, gx: float, gy: float):
+    """Signed inside-distance to clip plane ``plane`` (near, then the four
+    guard planes), the reference's ``_plane_distance_col``."""
+    if plane == 0:
+        return z
+    if plane == 1:
+        return gx * w - x
+    if plane == 2:
+        return gx * w + x
+    if plane == 3:
+        return gy * w - y
+    return gy * w + y
+
+
+def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
+                           height: int, clip_cap="auto"):
+    """Column-form per-corner geometry stage.
+
+    ``ccols``: (48, T) f32, row c*16+j = channel j of triangle corner c
+    (``FlatScene.expand_corner_cols``).  ``tri_node``: (T,) i32 draw of
+    each triangle.  ``matrices``: (D, 4, 4) f32 object_to_clip per draw
+    (row-vector convention).  All on one device.
+
+    Returns (tri_i32 (R, NI32) i32, tri_f32 (R, NF32) f32) with
+    R = capped_rows(T): T slot-0 rows in submission order, then
+    FAN_SLOTS * cap subset-fan rows, slot-major.
+    """
+    t = ccols.shape[1]
+    dev = ccols.device
+    cap = clip_cap_for(t) if clip_cap == "auto" else min(clip_cap, t)
+
+    # -- transform: m[i, j] is row i, column j of each triangle's matrix.
+    m = matrices.reshape(-1, 16)[tri_node.long()].T.reshape(4, 4, t)
+    cc = ccols.reshape(3, ATTR_FLOATS, t)
+    pos = cc[:, 0:4]  # (corner, i, T)
+    clip = ((pos[:, 0:1] * m[0] + pos[:, 1:2] * m[1])
+            + (pos[:, 2:3] * m[2] + pos[:, 3:4] * m[3]))  # (corner, j, T)
+    cols = torch.cat([clip, cc[:, 4:]], dim=1)  # (corner, channel, T)
+
+    # -- clip classification + capped subset selection.
+    gx, gy = _guard_scales(width, height)
+    x, y, z, w = clip[:, 0], clip[:, 1], clip[:, 2], clip[:, 3]
+    crossing = torch.zeros(t, dtype=torch.bool, device=dev)
+    fully_out = torch.zeros(t, dtype=torch.bool, device=dev)
+    for plane in range(5):
+        neg = _plane_distance(x, y, z, w, plane, gx, gy) < 0  # (corner, T)
+        any_neg = neg.any(dim=0)
+        all_neg = neg.all(dim=0)
+        fully_out = fully_out | all_neg
+        crossing = crossing | (any_neg & ~all_neg)
+    needs = crossing & ~fully_out
+    slot0_valid = ~(crossing | fully_out)
+
+    # First ``cap`` crossing triangles in ascending order: slot j takes
+    # the first i with cumsum(needs)[i] == j + 1 (no host sync).
+    c_ = torch.cumsum(needs.to(I32), dim=0, dtype=I32)
+    j_ = torch.arange(cap, dtype=I32, device=dev)
+    idx = torch.searchsorted(c_, j_ + 1, side="left").to(I32)
+    live = j_ < c_[-1]
+    idx = torch.where(live, torch.clamp_max(idx, t - 1), 0)
+
+    fan, valid_s = clip_triangles_cols(cols[:, :, idx.long()], width, height)
+    valid_s = valid_s & live.repeat(FAN_SLOTS)
+    valid = torch.cat([slot0_valid, valid_s])
+    return _setup_cols(torch.cat([cols, fan], dim=2), valid, width, height)
+
+
+def clip_triangles_cols(sub, width: int, height: int):
+    """Sutherland-Hodgman against near + 4 guard planes, vectorised.
+
+    ``sub``: (3, ATTR_FLOATS, cap) corner columns.  Returns
+    (fan (3, ATTR_FLOATS, FAN_SLOTS*cap), fan_valid (FAN_SLOTS*cap,) bool)
+    in the reference's slot-major order (fan slot j of every input first).
+    """
+    V = CLIP_MAX_VERTS  # = FAN_SLOTS + 2
+    A = sub.shape[1]
+    cap = sub.shape[2]
+    dev = sub.device
+    gx, gy = _guard_scales(width, height)
+
+    # Polygon state: ch[k, v, i] = channel k of polygon vertex v of input i.
+    ch = torch.zeros((A, V, cap), dtype=F32, device=dev)
+    ch[:, 0:3] = sub.permute(1, 0, 2)
+    counts = torch.full((cap,), 3, dtype=I32, device=dev)
+    slot = torch.arange(V, device=dev)[:, None]
+
+    for plane in range(5):
+        d = _plane_distance(ch[0], ch[1], ch[2], ch[3], plane, gx, gy)
+        in_poly = slot < counts[None, :]
+        # Cyclic successor: vertex v+1, or vertex 0 after the last valid one.
+        nxt = torch.where(counts[None, :] <= slot + 1, 0, (slot + 1) % V)
+        d_nxt = torch.gather(d, 0, nxt)
+        keep = (d >= 0) & in_poly
+        cross = ((d >= 0) != (d_nxt >= 0)) & in_poly
+        denom = d - d_nxt
+        safe = torch.where(denom == 0, 1.0, denom)
+        t = d / safe
+        v_nxt = torch.gather(ch, 1, nxt.expand(A, V, cap))
+        v_is = ch + t * (v_nxt - ch)
+
+        # Each slot emits [vertex if kept][intersection if crossing];
+        # prefix sums give disjoint targets, non-emitters hit trash lane V.
+        emit0 = keep.to(I32)
+        emit1 = cross.to(I32)
+        total = emit0 + emit1
+        ends = torch.cumsum(total, dim=0, dtype=I32)
+        starts = ends - total
+        tgt0 = torch.where(keep, starts, V).long().expand(A, V, cap)
+        tgt1 = torch.where(cross, starts + emit0, V).long().expand(A, V, cap)
+        out = torch.zeros((A, V + 1, cap), dtype=F32, device=dev)
+        out.scatter_(1, tgt0, ch)
+        out.scatter_(1, tgt1, v_is)
+        ch = out[:, :V]
+        counts = ends[-1]
+
+    # Fan: triangle j = (v0, v_{j+1}, v_{j+2}), valid while j+2 < count.
+    # Vertices j+1 and j+2 of fan slot j are polygon slots 1..6 and 2..7.
+    fan = torch.stack([
+        ch[:, 0:1].expand(A, FAN_SLOTS, cap),
+        ch[:, 1:FAN_SLOTS + 1],
+        ch[:, 2:FAN_SLOTS + 2],
+    ]).reshape(3, A, FAN_SLOTS * cap)
+    fan_j = torch.arange(FAN_SLOTS, dtype=I32, device=dev)[:, None]
+    fan_valid = (counts[None, :] >= fan_j + 3).reshape(-1)
+    return fan, fan_valid
+
+
+def _setup_sentinel(device) -> torch.Tensor:
+    """Dead-row i32 sentinel: empty bbox, bias = INT32_MAX (never covers)."""
+    s = torch.zeros(NI32, dtype=I32, device=device)
+    s[I_JMIN] = 1
+    s[I_IMIN] = 1
+    s[I_BIAS0] = s[I_BIAS1] = s[I_BIAS2] = _INT_MAX
+    return s
+
+
+def _setup_cols(cols, valid, width: int, height: int):
+    """Viewport transform, subpixel snap, facing/cull, edge and
+    interpolation setup.  ``cols``: (3, ATTR_FLOATS, R) post-clip corner
+    columns; ``valid``: (R,) bool.  Returns (tri_i32 (R, NI32) i32,
+    tri_f32 (R, NF32) f32); dead rows hold the sentinel and zeros."""
+    gpx = guard_px(width)
+    gpy = guard_px(height)
+    r = valid.shape[0]
+    dev = cols.device
+
+    w_ = cols[:, 3]
+    w_ = torch.where(w_ > 0, w_, 1.0)
+    inv_w = torch.reciprocal(w_)
+    ndc_x = cols[:, 0] * inv_w
+    ndc_y = cols[:, 1] * inv_w
+    xs = (ndc_x + 1.0) * _f32(0.5 * width)
+    ys = (1.0 - ndc_y) * _f32(0.5 * height)
+    X = torch.clamp(torch.floor(xs * float(SUBPIXEL) + 0.5),
+                    float(-gpx * SUBPIXEL), float((width + gpx) * SUBPIXEL))
+    Y = torch.clamp(torch.floor(ys * float(SUBPIXEL) + 0.5),
+                    float(-gpy * SUBPIXEL), float((height + gpy) * SUBPIXEL))
+    X = X.to(I32)
+    Y = Y.to(I32)
+
+    x0, x1, x2 = X[0], X[1], X[2]
+    y0, y1, y2 = Y[0], Y[1], Y[2]
+    area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    alive = valid & (area2 < 0)  # back faces and degenerates culled
+
+    # Canonicalize: swap v1 <-> v2 so interiors have positive edge values.
+    x1, x2 = x2, x1
+    y1, y2 = y2, y1
+    area2 = -area2
+
+    dx0, dy0 = x2 - x1, y2 - y1
+    dx1, dy1 = x0 - x2, y0 - y2
+    dx2, dy2 = x1 - x0, y1 - y0
+
+    def bias(dx, dy):
+        top_left = (dy < 0) | ((dy == 0) & (dx > 0))
+        return (~top_left).to(I32)
+
+    half = SUBPIXEL // 2
+    xmin = torch.minimum(torch.minimum(x0, x1), x2)
+    xmax = torch.maximum(torch.maximum(x0, x1), x2)
+    ymin = torch.minimum(torch.minimum(y0, y1), y2)
+    ymax = torch.maximum(torch.maximum(y0, y1), y2)
+    jmin = torch.clamp_min((xmin + (SUBPIXEL - 1 - half)) >> SUBPIXEL_BITS, 0)
+    jmax = torch.clamp_max((xmax - half) >> SUBPIXEL_BITS, width - 1)
+    imin = torch.clamp_min((ymin + (SUBPIXEL - 1 - half)) >> SUBPIXEL_BITS, 0)
+    imax = torch.clamp_max((ymax - half) >> SUBPIXEL_BITS, height - 1)
+
+    tri_i32 = torch.stack([
+        x0, y0, x1, y1, x2, y2,
+        dx0, dy0, dx1, dy1, dx2, dy2,
+        bias(dx0, dy0), bias(dx1, dy1), bias(dx2, dy2),
+        jmin, jmax, imin, imax,
+        alive.to(I32),
+    ], dim=1).to(I32)
+
+    # Interpolation constants in canonical vertex order (0, 2, 1).
+    safe_area = torch.where(area2 > 0, area2, 1)
+    inv_area = torch.reciprocal(safe_area.to(F32))
+    cv = torch.stack([cols[0], cols[2], cols[1]])
+    wc = torch.where(alive[None, :], cv[:, 3], 1.0)
+    rw = torch.reciprocal(wc)  # (vertex, R)
+    za = (cv[:, 2] * rw) * inv_area
+    # color rgb, uv, normal xyz: channels 4-6, 8-9, 10-12, each times 1/w.
+    numer = torch.cat([cv[:, 4:7], cv[:, 8:13]], dim=1) * rw[:, None]
+    f_rows = [za, rw] + [numer[:, k] for k in range(numer.shape[1])]
+    tri_f32 = torch.cat(
+        f_rows + [torch.zeros((NF32 - 30, r), dtype=F32, device=dev)], dim=0
+    ).T
+
+    mask = alive[:, None]
+    tri_i32 = torch.where(mask, tri_i32, _setup_sentinel(dev))
+    tri_f32 = torch.where(mask, tri_f32, 0.0).contiguous()
+    return tri_i32.contiguous(), tri_f32
+
+
+# ---------------------------------------------------------------------------
+# Compaction + block metadata (binning level 0 and 1)
+# ---------------------------------------------------------------------------
+
+
+def compact_triangles(tri_i32, tri_f32):
+    """Stable-partition live rows to the front (live order preserved, so
+    the depth-tie submission order is unchanged)."""
+    dead = (tri_i32[:, I_VALID] == 0).to(I32)
+    order = torch.argsort(dead, stable=True)
+    return tri_i32[order], tri_f32[order]
+
+
+def block_bounds(tri_i32, block: int = RASTER_BLOCK):
+    """Per-block union bbox: (num_blocks, 8) i32
+    [jmin, jmax, imin, imax, any_valid, 0, 0, 0]; all-dead blocks get an
+    empty bbox (jmin > jmax)."""
+    t = tri_i32.shape[0]
+    if t % block:
+        raise ValueError(f"{t} rows: pad to a multiple of {block}")
+    nb = t // block
+    valid = tri_i32[:, I_VALID].reshape(nb, block) > 0
+
+    def col(c):
+        return tri_i32[:, c].reshape(nb, block)
+
+    jmin = torch.where(valid, col(I_JMIN), _INT_MAX).amin(dim=1)
+    jmax = torch.where(valid, col(I_JMAX), -_INT_MAX).amax(dim=1)
+    imin = torch.where(valid, col(I_IMIN), _INT_MAX).amin(dim=1)
+    imax = torch.where(valid, col(I_IMAX), -_INT_MAX).amax(dim=1)
+    any_valid = valid.any(dim=1).to(I32)
+    zero = torch.zeros_like(jmin)
+    return torch.stack(
+        [jmin, jmax, imin, imax, any_valid, zero, zero, zero], dim=1
+    ).to(I32)
+
+
+def super_bounds(blocks, super_block: int = SUPER_BLOCK):
+    """Level-1 union bboxes over groups of ``super_block`` blocks.  Pads the
+    block table with empty blocks to a multiple; returns
+    (padded_blocks, supers), both (n, 8) i32."""
+    nb = blocks.shape[0]
+    pad = (-nb) % super_block
+    if pad:
+        empty = torch.zeros((pad, 8), dtype=I32, device=blocks.device)
+        empty[:, 0] = 1  # jmin > jmax: empty bbox
+        blocks = torch.cat([blocks, empty], dim=0)
+    ns = blocks.shape[0] // super_block
+    grp = blocks.reshape(ns, super_block, 8)
+    alive = grp[:, :, 4] > 0
+    jmin = torch.where(alive, grp[:, :, 0], _INT_MAX).amin(dim=1)
+    jmax = torch.where(alive, grp[:, :, 1], -_INT_MAX).amax(dim=1)
+    imin = torch.where(alive, grp[:, :, 2], _INT_MAX).amin(dim=1)
+    imax = torch.where(alive, grp[:, :, 3], -_INT_MAX).amax(dim=1)
+    any_valid = alive.any(dim=1).to(I32)
+    zero = torch.zeros_like(jmin)
+    supers = torch.stack(
+        [jmin, jmax, imin, imax, any_valid, zero, zero, zero], dim=1
+    ).to(I32)
+    return blocks, supers

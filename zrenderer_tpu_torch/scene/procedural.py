@@ -1,0 +1,154 @@
+"""Procedural scenes of the port: the cube-lattice stress scene and the
+random triangle soup, which ``chip_smoke.py`` drives through K3 and
+through the clipper.
+
+Copied from ``zrenderer_tpu/scene/procedural.py`` (only these fixtures) so
+the port and ``chip_smoke.py`` build them without the JAX package;
+``tests/test_torch_host.py`` holds each equal to the reference's.  Random
+draws come from ``numpy.random.default_rng(seed)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from zrenderer_tpu_torch.math import zmath as zm
+from zrenderer_tpu_torch.scene.mesh import MeshData, make_vertex
+from zrenderer_tpu_torch.scene.scene import Camera, Node, Scene
+
+_FACES = [
+    # (normal, tangent, four corners CCW seen from outside, color)
+    ((0, 0, 1), (1, 0, 0, 1), [(-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1)], (1, 0, 0, 1)),
+    ((0, 0, -1), (-1, 0, 0, 1), [(1, -1, -1), (-1, -1, -1), (-1, 1, -1), (1, 1, -1)], (0, 1, 0, 1)),
+    ((1, 0, 0), (0, 0, -1, 1), [(1, -1, 1), (1, -1, -1), (1, 1, -1), (1, 1, 1)], (0, 0, 1, 1)),
+    ((-1, 0, 0), (0, 0, 1, 1), [(-1, -1, -1), (-1, -1, 1), (-1, 1, 1), (-1, 1, -1)], (1, 1, 0, 1)),
+    ((0, 1, 0), (1, 0, 0, 1), [(-1, 1, 1), (1, 1, 1), (1, 1, -1), (-1, 1, -1)], (1, 0, 1, 1)),
+    ((0, -1, 0), (1, 0, 0, 1), [(-1, -1, -1), (1, -1, -1), (1, -1, 1), (-1, -1, 1)], (0, 1, 1, 1)),
+]
+
+
+def make_cube_mesh(mesh_data: MeshData, size: float = 1.0) -> int:
+    """Append a unit cube with one color per face (24 verts, 36
+    indices); returns the mesh index."""
+    verts = []
+    indices = []
+    uvs = [(0, 0), (1, 0), (1, 1), (0, 1)]
+    for normal, tangent, corners, color in _FACES:
+        base = len(verts)
+        for corner, uv in zip(corners, uvs):
+            pos = tuple(c * size for c in corner)
+            verts.append(make_vertex(pos, uv=uv, color=color, normal=normal, tangent=tangent))
+        indices += [base, base + 1, base + 2, base, base + 2, base + 3]
+    return mesh_data.append_mesh(
+        np.stack(verts), np.array(indices, np.uint32)
+    )
+
+
+def make_stress_scene(num_triangles: int = 1_000_000, seed: int = 0) -> tuple:
+    """A dense lattice of colored cubes baked into one mesh, about
+    ``num_triangles`` triangles, in Morton order so that consecutive raster
+    blocks stay spatially coherent (what the block/superblock bbox skips
+    exploit)."""
+    rng = np.random.default_rng(seed)
+    cubes = max(1, num_triangles // 12)
+    side = int(np.ceil(cubes ** (1.0 / 3.0)))
+    grid = np.stack(
+        np.meshgrid(np.arange(side), np.arange(side), np.arange(side),
+                    indexing="ij"),
+        axis=-1,
+    ).reshape(-1, 3)[:cubes]
+
+    def _spread(x):
+        x = x.astype(np.uint64)
+        x = (x | (x << 32)) & np.uint64(0x1F00000000FFFF)
+        x = (x | (x << 16)) & np.uint64(0x1F0000FF0000FF)
+        x = (x | (x << 8)) & np.uint64(0x100F00F00F00F00F)
+        x = (x | (x << 4)) & np.uint64(0x10C30C30C30C30C3)
+        x = (x | (x << 2)) & np.uint64(0x1249249249249249)
+        return x
+
+    morton = (
+        _spread(grid[:, 0]) | (_spread(grid[:, 1]) << np.uint64(1))
+        | (_spread(grid[:, 2]) << np.uint64(2))
+    )
+    grid = grid[np.argsort(morton)]
+
+    spacing = 2.6
+    centers = (grid - (side - 1) / 2.0) * spacing  # centered lattice
+
+    # One canonical cube (24 verts, 36 indices), tiled per cube.
+    base_md = MeshData()
+    make_cube_mesh(base_md, size=1.0)
+    base_verts = base_md.vertices_of(base_md.meshes[0])  # (24, 16)
+    base_idx = base_md.indices_of(base_md.meshes[0]).astype(np.int64)  # (36,)
+
+    verts = np.tile(base_verts, (cubes, 1)).reshape(cubes, 24, 16)
+    verts[:, :, 0:3] += centers[:, None, :].astype(np.float32)
+    colors = rng.uniform(0.1, 1.0, (cubes, 1, 3)).astype(np.float32)
+    verts[:, :, 5:8] = colors  # per-cube flat color
+    verts[:, :, 8] = 1.0
+    verts = verts.reshape(cubes * 24, 16)
+
+    idx = (base_idx[None, :] + (np.arange(cubes) * 24)[:, None]).reshape(-1)
+    mesh_data = MeshData()
+    mesh_data.append_mesh(verts, idx.astype(np.uint32))
+
+    scene = Scene()
+    scene.nodes.append(Node(mesh_indices=[0], transform_index=0, name="lattice"))
+    scene.transforms.append(zm.identity())
+    dist = side * spacing * 1.35
+    eye = np.array([dist * 0.55, dist * 0.4, dist], np.float32)
+    fwd = -eye / np.linalg.norm(eye)
+    scene.cameras.append(
+        Camera(
+            position=eye,
+            forward=fwd.astype(np.float32),
+            yfov=0.9,
+            znear=0.5,
+            zfar=float(6 * dist),
+            name="stress-cam",
+        )
+    )
+    return scene, mesh_data
+
+
+def make_triangle_soup(
+    num_triangles: int,
+    seed: int = 0,
+    extent: float = 4.0,
+    behind_camera_fraction: float = 0.0,
+    triangle_size: float = 1.0,
+) -> tuple:
+    """Random triangle soup.  ``behind_camera_fraction`` of the triangles
+    are pushed past the camera (clipping); ``triangle_size`` scales each
+    triangle around its center."""
+    rng = np.random.default_rng(seed)
+    n = num_triangles * 3
+    verts = np.zeros((n, 16), np.float32)
+    centers = rng.uniform(-extent, extent, size=(num_triangles, 1, 3))
+    offsets = rng.uniform(-1.0, 1.0, size=(num_triangles, 3, 3)) * triangle_size
+    pos = (centers + offsets).reshape(n, 3)
+    if behind_camera_fraction > 0:
+        k = int(num_triangles * behind_camera_fraction) * 3
+        pos[:k, 2] += 40.0  # push past the camera to exercise clipping
+    verts[:, 0:3] = pos
+    verts[:, 5:9] = rng.uniform(0, 1, size=(n, 4)).astype(np.float32)
+    verts[:, 8] = 1.0
+    indices = np.arange(n, dtype=np.uint32)
+
+    mesh_data = MeshData()
+    mesh = mesh_data.append_mesh(verts, indices)
+    scene = Scene()
+    scene.nodes.append(Node(mesh_indices=[mesh], transform_index=0, name="soup"))
+    scene.transforms.append(zm.identity())
+    scene.cameras.append(
+        Camera(
+            position=np.array([0, 0, 12], np.float32),
+            forward=np.array([0, 0, -1], np.float32),
+            yfov=0.8,
+            znear=0.1,
+            zfar=100.0,
+            name="soupcam",
+        )
+    )
+    return scene, mesh_data
