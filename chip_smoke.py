@@ -12,18 +12,41 @@ Phases, in order, each printing its own lines and seconds:
    fan rows, and exact depth ties between duplicated triangles;
 4. K3 (hierarchy raster) against its plain version, bit-exact: the
    20K-triangle lattice at 1080p and the soup;
+4b. K4 (record streaming), K4c (with the coarse class), K5 (streamed
+    hierarchy) and K6 (global pair lists) against their plain versions,
+    bit-exact: the 40K lattice at 1080p (above the 32768-row bound; K6 on
+    the 20K lattice), the clipped soup, the duplicated soup (every exact
+    depth tie to the first-submitted row) and the soup under small
+    cap/budgets so that the budget clamp and the coarse phase engage;
+    the plain K5's time at 40K and K6's at 20K are their plain_ms;
 5. the main path: ``Renderer.render_and_read`` at 1080p on the test scene
    (K1) and the lattice (K3), with the launch counts of that run, and the
    256x144 frame against the NumPy oracle (the port's geometry on CPU
    tensors, then the oracle's scalar loop);
-6. timing: ``render_animation`` ms/frame (CUDA events), a per-stage
-   breakdown (ms per call, host dispatch included, and device ops per
-   call), each kernel's device time
-   from a torch.profiler trace beside its plain version's time per call,
-   and a profiled ``render_animation`` run per scene: device-busy ms and
-   device ops per frame and the device's idle share;
+5b. the large-scene paths, each driven with every launch count set to 0
+    just before and read just after: the 1M-triangle lattice at 1080p
+    through ``auto`` (K4) and ``hierarchy`` (K5), the visible frames
+    bit-equal; a 1M soup through ``tile_lists`` (K4c), bit-equal to
+    ``auto`` (K4 without the coarse class); the 20K lattice through
+    ``tile_lists`` (K6); with each frame's pair count, longest and mean
+    span, peak memory and coverage.  K4 on the 1M lattice and K4c on the
+    1M soup (coarse class non-empty) are held bit-exact against their
+    plain versions on those main-path inputs, which time plain_ms;
+6. timing, traces first: each kernel's device time from a torch.profiler
+   trace at its main-path shape, and a profiled ``render_animation`` run
+   per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
+   K4c, 20K lattice K6) giving the kernel's time a launch there,
+   device-busy ms and device ops per frame and the device's idle share;
+   a kernel is timed only from a trace that holds every one of its
+   launches (at most three traces).  Then the
+   untraced loops: ``render_animation`` ms/frame (CUDA events) per path
+   and a per-stage breakdown (ms per call, host dispatch included);
 7. the app CLI writing PNGs;
 8. hygiene: neither jax nor the JAX package (``zrenderer_tpu``) loaded.
+
+Each kernel's bound is the larger of its inputs and outputs moved once
+at the card's memory rate and the (tile, triangle) pairs its frame needs,
+times 4096 pixels and OPS_PER_EVAL, at the CUDA-core rate.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The second-to-last line is the kernels' JSON record, the last line
@@ -49,6 +72,21 @@ WIDTH, HEIGHT = 1920, 1080
 PAD_W, PAD_H = 1920, 1088
 ANIM_FRAMES = 200
 PROFILE_FRAMES = 20  # frames of the profiled render_animation run
+LARGE_TRIS = 1_000_000  # the large-scene main path (BASELINE's stretch scene)
+MID_TRIS = 40_000  # above the 32768-row bound, small enough for the plain K5
+LARGE_FRAMES = 20  # render_animation frames of the 1M lattice
+SOUP_EXTENT = 6.0
+# Budgets small enough that the clipped soup at 1080p demotes listed rows
+# to the coarse class and coarse rows to the leftover hierarchy.
+SMALL_BUDGETS = dict(cap=8, pair_budget=200, coarse_cap=8, coarse_budget=20)
+
+# Bound inputs: NVIDIA's H100 SXM data sheet (memory 3.35 TB/s; 67 TFLOP/s
+# float32 outside the tensor cores, which issue int32 as well).  One pixel
+# evaluation is 3 edge functions (5 int ops each), 3 bias tests, 3 int ->
+# float conversions and the z interpolation (3 mul + 2 add): 26 ops.
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+OPS_PER_EVAL = 26
 
 # bench.py's parity threshold against the oracle at 256x144, and
 # RASTER_SPEC.md §5's full-pipeline depth bound.
@@ -102,7 +140,10 @@ def main() -> int:
     dev = torch.device(DEVICE)
     sync = torch.cuda.synchronize
     k1, k3 = raster.raster_small_kernel, raster.raster_hier_kernel
-    results = {"k1": {"err": 0.0}, "k3": {"err": 0.0}}
+    k4, k4c = raster.raster_binned_kernel, raster.raster_binned_coarse_kernel
+    k5, k6 = raster.raster_hbm_kernel, raster.raster_lists_kernel
+    results = {key: {"err": 0.0}
+               for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -143,14 +184,24 @@ def main() -> int:
             b["corner_cols"], b["tri_node"], torch.from_numpy(mats).to(dev),
             width, height)
 
-    def compare(key, label, kernel_fn, plain_fn, prepared, w, h):
+    def compare(key, label, kernel_fn, plain_fn, prepared, w, h,
+                plain_shape=None):
         """Kernel vs plain version on the same prepared inputs: packed
-        color and depth bits must be equal."""
+        color and depth bits must be equal.  ``plain_shape``: record the
+        plain call's time (CUDA events) as the kernel's plain_ms, at the
+        shape of that name."""
         sync()
         ck, dk = kernel_fn(*prepared, w, h)
         sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         cp, dp = plain_fn(*prepared, w, h)
+        end.record()
         sync()
+        if plain_shape is not None:
+            results[key]["plain_ms"] = start.elapsed_time(end)
+            results[key]["plain_shape"] = plain_shape
         err = max(
             (raster.unpack_rgba8(ck).int() - raster.unpack_rgba8(cp).int())
             .abs().max().item(),
@@ -167,6 +218,64 @@ def main() -> int:
             raise AssertionError(f"{label}: empty frame proves nothing")
         results[key]["err"] = max(results[key]["err"], float(err))
         return ck, dk
+
+    def tile_pairs(ti, w, h):
+        """(tile, triangle) pairs a frame needs: for every live row with a
+        non-empty bbox, the tiles of the (w, h) target its bbox touches."""
+        jmin, jmax, imin, imax = (ti[:, c].long() for c in (
+            tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX))
+        live = (ti[:, tg.I_VALID] > 0) & (jmin <= jmax) & (imin <= imax)
+        tx = ((jmax.clamp(max=w - 1) // raster.TILE_W)
+              - (jmin.clamp(min=0) // raster.TILE_W) + 1).clamp(min=0)
+        ty = ((imax.clamp(max=h - 1) // raster.TILE_H)
+              - (imin.clamp(min=0) // raster.TILE_H) + 1).clamp(min=0)
+        return int(torch.where(live, tx * ty, 0).sum().item())
+
+    def set_bound(key, inputs, pairs, w, h, shape):
+        """The least time the card could take: inputs read once and the
+        two output planes written once at HBM_BYTES_PER_S, or ``pairs``
+        tile evaluations at CUDA_CORE_OPS_PER_S, whichever is larger."""
+        nbytes = (sum(t.numel() * t.element_size() for t in inputs)
+                  + 2 * 4 * w * h)
+        ops = pairs * raster.TILE_H * raster.TILE_W * OPS_PER_EVAL
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+        res = results[key]
+        res.update(bound_ms=max(t_bytes, t_ops), pairs=pairs, shape=shape,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"  bound {key} at {shape}: {pairs} pairs, {ops:.4e} ops -> "
+              f"{t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms; bound "
+              f"{res['bound_ms']:.4f} ms by {res['bound_by']}")
+
+    def flat_inputs(prepared):
+        """The tensors a kernel reads of a prepared tuple: the coarse
+        triple unpacked, and of record or row-id arrays only the slots the
+        spans use (offsets[-1])."""
+        out = list(prepared)
+        if len(prepared) == 8:  # K4/K4c: offsets, rec_i, rec_f, ..., coarse
+            n = int(prepared[0][-1].item())
+            out[1:3] = [prepared[1][:n], prepared[2][:n]]
+            coarse = out.pop()
+            if coarse is not None:
+                cn = int(coarse[0][-1].item())
+                out += [coarse[0], coarse[1][:cn], coarse[2][:cn]]
+        elif len(prepared) == 6 and prepared[1].ndim == 1:  # K6 pair_tri
+            out[1] = prepared[1][:int(prepared[0][-1].item())]
+        return out
+
+    def visible_digest(img):
+        """frame_digest of the visible frame: the u32 sum of its packed
+        RGBA8 pixels.  (render_animation digests the padded plane, whose
+        rows 1080-1087 differ between kernels: K4, K4c and K6 list rows
+        whose bbox clamps to empty below row 1079 and draw them there, as
+        the reference's prepares do; K1, K3 and K5 skip them.)"""
+        return float(np.float32(
+            np.ascontiguousarray(img).view(np.uint32).astype(np.uint64).sum()))
+
+    def span_stats(offsets):
+        spans = (offsets[1:] - offsets[:-1]).float()
+        return (int(offsets[-1].item()), int(spans.max().item()),
+                float(spans.mean().item()))
 
     # -- 1. environment ---------------------------------------------------
     @phase("1 environment")
@@ -195,7 +304,8 @@ def main() -> int:
         print(f"  {info.path} built in {info.seconds:.2f} s "
               f"(flags: {' '.join(_build.NVCC_FLAGS)})")
         for line in info.log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "error")):
                 print(f"  ptxas: {line.strip()}")
         return info.seconds
 
@@ -206,7 +316,7 @@ def main() -> int:
         ti, tf = setup_rows(scene, md, WIDTH, HEIGHT, tri_align=256)
         main_prep = raster.prepare_binned_small(ti, tf, PAD_W, PAD_H)
         compare("k1", "(a) test scene", k1, raster.raster_small_plain,
-                main_prep, PAD_W, PAD_H)
+                main_prep, PAD_W, PAD_H, plain_shape="test scene")
 
         scene, md = clipped_soup()
         ti, tf = setup_rows(scene, md, WIDTH, HEIGHT)
@@ -239,8 +349,8 @@ def main() -> int:
         print(f"  lattice: {ti.shape[0]} rows, "
               f"{tg.head_count(ti.shape[0])} head rows")
         t0 = time.perf_counter()
-        compare("k3", "lattice", k3, raster.raster_hier_plain, main_prep,
-                PAD_W, PAD_H)
+        compare("k3", "lattice20k", k3, raster.raster_hier_plain, main_prep,
+                PAD_W, PAD_H, plain_shape="lattice20k")
         print(f"  (plain K3 included: {time.perf_counter() - t0:.1f} s)")
         ti, tf = setup_rows(*clipped_soup(), WIDTH, HEIGHT)
         compare("k3", "clipped soup (binning=hierarchy)", k3,
@@ -249,6 +359,96 @@ def main() -> int:
         return main_prep, lattice
 
     main_prep_k3, lattice = k3_inputs
+
+    # -- 4b. K4, K4c, K5, K6 vs plain ---------------------------------------
+    @phase("4b K4/K4c/K5/K6 kernels vs plain versions")
+    def streaming_inputs():
+        def binned(key, label, ti, tf, w, h, **kw):
+            kern = k4c if "coarse_cap" in kw else k4
+            prep = raster.prepare_binned_hbm_inputs(ti, tf, w, h, **kw)
+            n, longest, mean = span_stats(prep[0])
+            hier_live = int((prep[5][:, tg.I_VALID] > 0).sum().item())
+            extra = ""
+            if prep[7] is not None:
+                extra = f", coarse records {int(prep[7][0][-1].item())}"
+            print(f"  {label}: {ti.shape[0]} rows, {n} listed pairs (longest "
+                  f"span {longest}, mean {mean:.2f}), {hier_live} leftover "
+                  f"rows{extra}")
+            compare(key, label, kern, raster.raster_binned_plain, prep, w, h)
+            return prep
+
+        lattice_mid = make_stress_scene(MID_TRIS)
+        ti, tf = setup_rows(*lattice_mid, WIDTH, HEIGHT, tri_align=256)
+        if ti.shape[0] <= raster.MAX_RESIDENT_ROWS:
+            raise AssertionError("the mid lattice must exceed the row bound")
+        binned("k4", "lattice40k", ti, tf, PAD_W, PAD_H)
+        binned("k4_coarse", "lattice40k coarse_cap=8", ti, tf, PAD_W, PAD_H,
+               coarse_cap=raster.TILE_LISTS_COARSE_CAP)
+        t0 = time.perf_counter()
+        compare("k5", "lattice40k", k5, raster.raster_hier_plain,
+                raster.prepare_raster_inputs(ti, tf), PAD_W, PAD_H,
+                plain_shape="lattice40k")
+        print(f"  (plain K5 included: {time.perf_counter() - t0:.1f} s)")
+        ti20, tf20 = setup_rows(*lattice, WIDTH, HEIGHT, tri_align=256)
+        compare("k6", "lattice20k", k6, raster.raster_lists_plain,
+                raster.prepare_binned_inputs(ti20, tf20, PAD_W, PAD_H),
+                PAD_W, PAD_H, plain_shape="lattice20k")
+
+        ti, tf = setup_rows(*clipped_soup(), WIDTH, HEIGHT)
+        binned("k4", "clipped soup", ti, tf, PAD_W, PAD_H)
+        binned("k4_coarse", "clipped soup coarse_cap=8", ti, tf, PAD_W,
+               PAD_H, coarse_cap=raster.TILE_LISTS_COARSE_CAP)
+        compare("k5", "clipped soup", k5, raster.raster_hier_plain,
+                raster.prepare_raster_inputs(ti, tf), PAD_W, PAD_H)
+        compare("k6", "clipped soup", k6, raster.raster_lists_plain,
+                raster.prepare_binned_inputs(ti, tf, PAD_W, PAD_H),
+                PAD_W, PAD_H)
+
+        small = SMALL_BUDGETS
+        k4_kw = dict(cap=small["cap"], pair_budget=small["pair_budget"])
+        prep = binned("k4", "clipped soup, small budget", ti, tf, PAD_W,
+                      PAD_H, **k4_kw)
+        prep_c = binned("k4_coarse", "clipped soup, small budgets", ti, tf,
+                        PAD_W, PAD_H, **small)
+        # Without each budget, more rows would be listed.
+        free = raster.prepare_binned_hbm_inputs(ti, tf, PAD_W, PAD_H,
+                                                cap=small["cap"])
+        free_c = raster.prepare_binned_hbm_inputs(
+            ti, tf, PAD_W, PAD_H, cap=small["cap"],
+            pair_budget=small["pair_budget"], coarse_cap=small["coarse_cap"])
+        if not (span_stats(prep[0])[0] < span_stats(free[0])[0]
+                and 0 < span_stats(prep_c[7][0])[0]
+                < span_stats(free_c[7][0])[0]):
+            raise AssertionError("the budget clamps did not engage")
+        compare("k6", f"clipped soup, cap={small['cap']}", k6,
+                raster.raster_lists_plain,
+                raster.prepare_binned_inputs(ti, tf, PAD_W, PAD_H,
+                                             cap=small["cap"]),
+                PAD_W, PAD_H)
+
+        w, h = 1024, 512
+        ti, tf = setup_rows(*tie_soup(True), w, h)
+        ti1, tf1 = setup_rows(*tie_soup(False), w, h)
+        cases = (
+            ("k4", k4, raster.raster_binned_plain,
+             lambda a, b: raster.prepare_binned_hbm_inputs(a, b, w, h)),
+            ("k4_coarse", k4c, raster.raster_binned_plain,
+             lambda a, b: raster.prepare_binned_hbm_inputs(a, b, w, h,
+                                                           **small)),
+            ("k5", k5, raster.raster_hier_plain,
+             lambda a, b: raster.prepare_raster_inputs(a, b)),
+            ("k6", k6, raster.raster_lists_plain,
+             lambda a, b: raster.prepare_binned_inputs(a, b, w, h,
+                                                       cap=small["cap"])),
+        )
+        for key, kern, plain, prepare in cases:
+            c_dup, d_dup = compare(key, "duplicated triangles", kern, plain,
+                                   prepare(ti, tf), w, h)
+            c_one, d_one = kern(*prepare(ti1, tf1), w, h)
+            if not (torch.equal(c_dup, c_one) and torch.equal(d_dup, d_one)):
+                raise AssertionError(f"{key}: a duplicate won a depth tie")
+        print("  every exact depth tie went to the first-submitted row "
+              "(K4, K4c, K5, K6)")
 
     # -- 5. main path -----------------------------------------------------
     @phase("5 main path")
@@ -302,7 +502,120 @@ def main() -> int:
 
     counts, r_scene, r_lattice = launches
 
+    # -- 5b. large-scene paths ----------------------------------------------
+    kernel_of = {"k1": k1, "k3": k3, "k4": k4, "k4_coarse": k4c, "k5": k5,
+                 "k6": k6}
+
+    def drive(label, scene_md, binning, key):
+        """One frame through Renderer.render_and_read with every launch
+        count set to 0 just before and read just after; returns the
+        renderer, the frame, the frame's setup rows, the launch count of
+        ``key`` and the frame's pair-list prepare (None for K5)."""
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernel_of.values():
+            kern.launches = 0
+        r = Renderer(RenderConfig(width=WIDTH, height=HEIGHT,
+                                  binning=binning), device=DEVICE)
+        r.load_scene(*scene_md)
+        t0 = time.perf_counter()
+        img, depth = r.render_and_read()
+        wall = (time.perf_counter() - t0) * 1000.0
+        launched = {k: kern.launches for k, kern in kernel_of.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        b = r._buffers()
+        mats = torch.from_numpy(r.camera_matrices()).to(dev)
+        ti, tf = tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
+                                           mats, WIDTH, HEIGHT)
+        cov = (img[..., :3].sum(-1) > 0).mean()
+        print(f"  {label} {WIDTH}x{HEIGHT} binning={binning}: {ti.shape[0]} "
+              f"rows, {tile_pairs(ti, PAD_W, PAD_H)} (tile, triangle) pairs,"
+              f" coverage={cov:.4f}, digest {visible_digest(img):.6e}, "
+              f"peak memory {peak:.3f} GiB, first "
+              f"frame {wall:.1f} ms (host clock, build and warm-up "
+              f"included), launches {launched}")
+        if img.shape != (HEIGHT, WIDTH, 4) or not np.isfinite(depth).all():
+            raise AssertionError(f"{label}: bad frame")
+        if cov <= MIN_COVERAGE or launched[key] == 0:
+            raise AssertionError(f"{label}: frame empty or not via {key}")
+        prep = None
+        if binning != "hierarchy":  # the pair lists of the frame
+            if ti.shape[0] > raster.MAX_RESIDENT_ROWS:
+                kw = {}
+                if binning == "tile_lists":
+                    kw["coarse_cap"] = raster.TILE_LISTS_COARSE_CAP
+                prep = raster.prepare_binned_hbm_inputs(ti, tf, PAD_W, PAD_H,
+                                                        **kw)
+                hier, coarse = prep[5], prep[7]
+            else:
+                prep = raster.prepare_binned_inputs(ti, tf, PAD_W, PAD_H)
+                hier, coarse = prep[4], None
+            n, longest, mean = span_stats(prep[0])
+            print(f"    listed pairs {n} (offsets[-1]), longest span "
+                  f"{longest}, mean span {mean:.2f}, leftover-row pairs "
+                  f"{tile_pairs(hier, PAD_W, PAD_H)}")
+            if coarse is not None:
+                cn, clong, cmean = span_stats(coarse[0])
+                print(f"    coarse records {cn}, longest coarse span "
+                      f"{clong}, mean {cmean:.2f}")
+        return r, (img, depth), (ti, tf), launched[key], prep
+
+    @phase("5b large-scene paths")
+    def large():
+        lattice_big = make_stress_scene(LARGE_TRIS)
+        r4, f4, rows_lattice, counts["k4"], prep4 = drive(
+            "lattice1M", lattice_big, "auto", "k4")
+        # The main path's K4 inputs against the plain version; its time
+        # is K4's plain_ms (one step per record of the longest span).
+        compare("k4", "lattice1M", k4, raster.raster_binned_plain, prep4,
+                PAD_W, PAD_H, plain_shape="lattice1M")
+        del prep4
+        r5, f5, _, counts["k5"], _ = drive("lattice1M", lattice_big,
+                                           "hierarchy", "k5")
+        same = (np.array_equal(f4[0], f5[0])
+                and np.array_equal(f4[1].view(np.int32),
+                                   f5[1].view(np.int32))
+                and visible_digest(f4[0]) == visible_digest(f5[0]))
+        print(f"  lattice1M K4 frame == K5 frame (color, depth bits, "
+              f"digest): {same}")
+        if not same:
+            raise AssertionError("lattice1M: K4 and K5 frames differ")
+        del lattice_big
+
+        soup_big = make_triangle_soup(LARGE_TRIS, seed=1, extent=SOUP_EXTENT)
+        r4c, fc, rows_soup, counts["k4_coarse"], prepc = drive(
+            "soup1M", soup_big, "tile_lists", "k4_coarse")
+        # K4c's main-path inputs, coarse class included, against the plain
+        # version; its time is K4c's plain_ms.
+        if int(prepc[7][0][-1].item()) == 0:
+            raise AssertionError("soup1M: the coarse class is empty")
+        compare("k4_coarse", "soup1M", k4c, raster.raster_binned_plain,
+                prepc, PAD_W, PAD_H, plain_shape="soup1M")
+        del prepc
+        _, fp, _, _, _ = drive("soup1M", soup_big, "auto", "k4")
+        same = (np.array_equal(fc[0], fp[0])
+                and np.array_equal(fc[1].view(np.int32),
+                                   fp[1].view(np.int32))
+                and visible_digest(fc[0]) == visible_digest(fp[0]))
+        print(f"  soup1M K4c frame == K4 frame (color, depth bits, digest): "
+              f"{same}")
+        if not same:
+            raise AssertionError("soup1M: K4c and K4 frames differ")
+        del soup_big
+
+        r6, _, rows_k6, counts["k6"], _ = drive("lattice20k", lattice,
+                                                "tile_lists", "k6")
+        print(f"  launches in the large-scene runs: "
+              f"{ {k: counts[k] for k in ('k4', 'k5', 'k4_coarse', 'k6')} }")
+        return r4, r5, r4c, r6, rows_lattice, rows_soup, rows_k6
+
+    r_k4, r_k5, r_k4c, r_k6, rows_lattice, rows_soup, rows_k6 = large
+
     # -- 6. timing --------------------------------------------------------
+    # A trace can hold a launch call without its kernel record, rarely
+    # after a few untraced launches and in every trace after a million of
+    # them (zrenderer_tpu_torch/tools/profiler_probe.py).  So every trace
+    # comes before the untraced timing loops, and a kernel is timed only
+    # from a trace that holds every one of its launches.
     def event_ms(fn, reps):
         """Time per call from CUDA events around ``reps`` back-to-back
         calls: device time where the device is the bottleneck, host
@@ -319,9 +632,10 @@ def main() -> int:
         return start.elapsed_time(end) / reps
 
     def device_trace(fn):
-        """Run ``fn`` under torch.profiler; returns (device events, the
-        trace's window in us).  Device events are the kernels, copies and
-        memsets of the chrome trace as (name, start us, duration us)."""
+        """Run ``fn`` once as warm-up, then once under torch.profiler;
+        returns (device events, the trace's window in us).  Device events
+        are the kernels, copies and memsets of the chrome trace as (name,
+        start us, duration us)."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()  # warm-up outside the trace
@@ -339,8 +653,6 @@ def main() -> int:
         on_device = [(e["name"], float(e["ts"]), float(e["dur"]))
                      for e in timed
                      if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        if not on_device:
-            raise AssertionError("the profiler recorded no device activity")
         t0 = min(float(e["ts"]) for e in timed)
         t1 = max(float(e["ts"]) + float(e["dur"]) for e in timed)
         return on_device, t1 - t0
@@ -354,20 +666,114 @@ def main() -> int:
                 end = ts + dur
         return total
 
-    def kernel_device_ms(fn, kernel_name, reps):
-        """Mean device duration of ``kernel_name`` over ``reps`` calls."""
-        events, _ = device_trace(lambda: [fn() for _ in range(reps)])
-        durs = [d for name, _, d in events if kernel_name in name]
-        if len(durs) != reps:
-            raise AssertionError(f"{kernel_name}: {len(durs)} launches in "
-                                 f"the trace, expected {reps}")
-        return sum(durs) / len(durs) / 1000.0
+    # Kernel names in the profiler's trace.
+    kernel_names = {"k1": "raster_small_kernel", "k3": "raster_hier_kernel",
+                    "k4": "raster_records_kernel",
+                    "k4_coarse": "raster_records_coarse_kernel",
+                    "k5": "raster_hier_kernel", "k6": "raster_lists_kernel"}
+    raster_kernels = set(kernel_names.values())
+
+    def traced_kernel_ms(key, fn, attempts=3):
+        """Device events of ``fn``'s traced run and the mean duration (ms)
+        of kernel ``key`` in it, from the first of ``attempts`` traces that
+        holds every launch of its run (half the launches counted over
+        warm-up and trace); raises if none does."""
+        kern = kernel_of[key]
+        for attempt in range(1, attempts + 1):
+            before = kern.launches
+            events, window = device_trace(fn)
+            launched = (kern.launches - before) // 2
+            durs = [d for name, _, d in events if kernel_names[key] in name]
+            if launched > 0 and len(durs) == launched:
+                return events, window, sum(durs) / len(durs) / 1000.0
+            print(f"  {key}: trace {attempt} holds {len(durs)} of {launched}"
+                  " launches", flush=True)
+        raise AssertionError(f"{key}: no trace of {attempts} held every "
+                             "launch")
 
     @phase("6 timing")
     def timing():
-        frames = ANIM_FRAMES
-        for label, r in (("test scene (K1)", r_scene),
-                         ("lattice (K3)", r_lattice)):
+        # (label, renderer, kernel, frames timed, frames profiled)
+        animations = (
+            ("test scene (K1)", r_scene, "k1", ANIM_FRAMES, PROFILE_FRAMES),
+            ("lattice (K3)", r_lattice, "k3", ANIM_FRAMES, PROFILE_FRAMES),
+            ("lattice1M (K4)", r_k4, "k4", LARGE_FRAMES, 5),
+            ("lattice1M (K5)", r_k5, "k5", LARGE_FRAMES, 5),
+            ("soup1M tile_lists (K4c)", r_k4c, "k4_coarse", 5, 3),
+            ("lattice20k tile_lists (K6)", r_k6, "k6", ANIM_FRAMES,
+             PROFILE_FRAMES),
+        )
+        # A. Traces: each kernel alone at its main-path shape, a profiled
+        # render_animation per path, and the device ops of each stage.
+        cases = {
+            "k1": (k1_inputs, "test scene", 50),
+            "k3": (main_prep_k3, "lattice20k", 20),
+            "k4": (raster.prepare_binned_hbm_inputs(*rows_lattice, PAD_W,
+                                                    PAD_H), "lattice1M", 5),
+            "k5": (raster.prepare_raster_inputs(*rows_lattice), "lattice1M",
+                   3),
+            "k4_coarse": (raster.prepare_binned_hbm_inputs(
+                *rows_soup, PAD_W, PAD_H,
+                coarse_cap=raster.TILE_LISTS_COARSE_CAP), "soup1M", 3),
+            "k6": (raster.prepare_binned_inputs(*rows_k6, PAD_W, PAD_H),
+                   "lattice20k", 20),
+        }
+        for key, (prep_k, shape, reps) in cases.items():
+            kern = kernel_of[key]
+            _, _, results[key]["ms"] = traced_kernel_ms(
+                key, lambda: [kern(*prep_k, PAD_W, PAD_H)
+                              for _ in range(reps)])
+        for label, r, key, _, n in animations:
+            events, window, kms = traced_kernel_ms(
+                key, lambda r=r: r.render_animation(num_frames=n)[0].cpu())
+            results[key]["anim_ms"] = kms
+            busy = busy_us(events)
+            raster_us = sum(dur for name, _, dur in events
+                            if any(k in name for k in raster_kernels))
+            print(f"  profiled render_animation({n}) {label}: "
+                  f"{len(events) / n:.1f} device ops/frame, device busy "
+                  f"{busy / n / 1000.0:.4f} ms/frame (raster kernels "
+                  f"{raster_us / n / 1000.0:.4f}; {key} {kms:.4f} ms a "
+                  f"launch), idle share {1.0 - busy / window:.4f} of "
+                  f"{window / n / 1000.0:.4f} ms/frame traced (host slowed "
+                  f"by the profiler)")
+
+        # Stage breakdowns: one test-scene frame (K1) and one 1M-lattice
+        # frame (K4).
+        b = r_scene._buffers()
+        mats = torch.from_numpy(r_scene.camera_matrices()).to(dev)
+        cfg = r_scene.config
+        ti, tf = tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
+                                           mats, cfg.width, cfg.height)
+        prep = raster.prepare_binned_small(ti, tf, cfg.pad_width,
+                                           cfg.pad_height)
+        packed, _ = k1(*prep, cfg.pad_width, cfg.pad_height)
+        b4 = r_k4._buffers()
+        mats4 = torch.from_numpy(r_k4.camera_matrices()).to(dev)
+        prep4 = cases["k4"][0]
+        packed4, _ = k4(*prep4, PAD_W, PAD_H)
+        stages = {
+            "geometry": (lambda: tg.geometry_pipeline_cols(
+                b["corner_cols"], b["tri_node"], mats, cfg.width,
+                cfg.height), 50),
+            "prepare_binned_small": (lambda: raster.prepare_binned_small(
+                ti, tf, cfg.pad_width, cfg.pad_height), 50),
+            "K1 wrapper": (lambda: k1(*prep, cfg.pad_width, cfg.pad_height),
+                           50),
+            "digest": (lambda: frame_digest(packed), 50),
+            "lattice1M geometry": (lambda: tg.geometry_pipeline_cols(
+                b4["corner_cols"], b4["tri_node"], mats4, WIDTH, HEIGHT), 10),
+            "lattice1M prepare_binned_hbm_inputs":
+                (lambda: raster.prepare_binned_hbm_inputs(*rows_lattice,
+                                                          PAD_W, PAD_H), 10),
+            "lattice1M K4 launcher": (lambda: k4(*prep4, PAD_W, PAD_H), 10),
+            "lattice1M digest": (lambda: frame_digest(packed4), 10),
+        }
+        stage_ops = {name: len(device_trace(fn)[0])
+                     for name, (fn, _) in stages.items()}
+
+        # B. Untraced timing loops (no trace follows them).
+        for label, r, key, frames, _ in animations:
             digests, _ = r.render_animation(num_frames=frames)  # warm-up
             sync()
             start = torch.cuda.Event(enable_timing=True)
@@ -381,65 +787,37 @@ def main() -> int:
             dev_ms = start.elapsed_time(end) / frames
             if not (d > 0).all() or not (d == d[0]).all():
                 raise AssertionError(f"{label}: bad digests {d[:4]}")
-            print(f"  render_animation {WIDTH}x{HEIGHT} {label}: {dev_ms:.4f} ms/frame"
-                  f" (CUDA events), {1000.0 / dev_ms:.1f} FPS; host clock "
-                  f"{wall:.4f} ms/frame incl. digest read; digest {d[0]:.6e}")
+            print(f"  render_animation {WIDTH}x{HEIGHT} {label}: "
+                  f"{dev_ms:.4f} ms/frame (CUDA events), "
+                  f"{1000.0 / dev_ms:.1f} FPS; host clock {wall:.4f} "
+                  f"ms/frame incl. digest read; digest {d[0]:.6e}")
+        for name, (fn, reps) in stages.items():
+            print(f"  stage {name}: {event_ms(fn, reps):.4f} ms/call "
+                  f"(CUDA events, host dispatch included), "
+                  f"{stage_ops[name]} device ops/call (profiler)")
 
-            n = PROFILE_FRAMES
-            events, window = device_trace(
-                lambda r=r: r.render_animation(num_frames=n)[0].cpu())
-            busy = busy_us(events)
-            kernels = {"k1": "raster_small_kernel", "k3": "raster_hier_kernel"}
-            raster_us = sum(dur for name, _, dur in events
-                            if any(k in name for k in kernels.values()))
-            print(f"  profiled render_animation({n}) {label}: "
-                  f"{len(events) / n:.1f} device ops/frame, device busy "
-                  f"{busy / n / 1000.0:.4f} ms/frame (raster kernels "
-                  f"{raster_us / n / 1000.0:.4f}), idle share "
-                  f"{1.0 - busy / window:.4f} of {window / n / 1000.0:.4f} "
-                  f"ms/frame traced (host slowed by the profiler)")
-
-        # Stage breakdown of one test-scene frame (each stage in a loop).
-        b = r_scene._buffers()
-        mats = torch.from_numpy(r_scene.camera_matrices()).to(dev)
-        cfg = r_scene.config
-        ti, tf = tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
-                                           mats, cfg.width, cfg.height)
-        prep = raster.prepare_binned_small(ti, tf, cfg.pad_width,
-                                           cfg.pad_height)
-        packed, _ = k1(*prep, cfg.pad_width, cfg.pad_height)
-        stages = {
-            "geometry": lambda: tg.geometry_pipeline_cols(
-                b["corner_cols"], b["tri_node"], mats, cfg.width, cfg.height),
-            "prepare_binned_small": lambda: raster.prepare_binned_small(
-                ti, tf, cfg.pad_width, cfg.pad_height),
-            "K1 wrapper": lambda: k1(*prep, cfg.pad_width, cfg.pad_height),
-            "digest": lambda: frame_digest(packed),
-        }
-        for name, fn in stages.items():
-            ops = len(device_trace(fn)[0])
-            print(f"  stage {name}: {event_ms(fn, 50):.4f} ms/call "
-                  f"(CUDA events, host dispatch included), {ops} device "
-                  f"ops/call (profiler)")
-
-        for key, kname, prep_k, reps, plain_fn, plain_reps in (
-                ("k1", "raster_small_kernel", k1_inputs, 50,
-                 raster.raster_small_plain, 3),
-                ("k3", "raster_hier_kernel", main_prep_k3, 20,
-                 raster.raster_hier_plain, 1)):
-            kern = k1 if key == "k1" else k3
-            results[key]["ms"] = kernel_device_ms(
-                lambda: kern(*prep_k, PAD_W, PAD_H), kname, reps)
-            results[key]["wrapper_ms"] = event_ms(
-                lambda: kern(*prep_k, PAD_W, PAD_H), reps)
-            results[key]["plain_ms"] = event_ms(
-                lambda: plain_fn(*prep_k, PAD_W, PAD_H), plain_reps)
-        for key, label in (("k1", "K1 test scene"), ("k3", "K3 lattice")):
+        rows_of = {"k1": None, "k3": None, "k4": rows_lattice,
+                   "k5": rows_lattice, "k4_coarse": rows_soup,
+                   "k6": rows_k6}
+        for key, (prep_k, shape, reps) in cases.items():
+            kern = kernel_of[key]
             res = results[key]
-            print(f"  {label} {PAD_W}x{PAD_H}: kernel {res['ms']:.4f} ms "
-                  f"device time (profiler), wrapper {res['wrapper_ms']:.4f} "
-                  f"ms/call (CUDA events); plain version "
-                  f"{res['plain_ms']:.4f} ms/call (CUDA events)")
+            res["wrapper_ms"] = event_ms(lambda: kern(*prep_k, PAD_W, PAD_H),
+                                         reps)
+            if key == "k1":
+                pairs = (int(prep_k[0].sum().item())
+                         + tile_pairs(prep_k[4], PAD_W, PAD_H))
+            elif key == "k3":
+                pairs = tile_pairs(prep_k[2], PAD_W, PAD_H)
+            else:
+                pairs = tile_pairs(rows_of[key][0], PAD_W, PAD_H)
+            set_bound(key, flat_inputs(prep_k), pairs, PAD_W, PAD_H, shape)
+            print(f"  {key} {shape} {PAD_W}x{PAD_H}: kernel {res['ms']:.4f} "
+                  f"ms device time (profiler; {res['anim_ms']:.4f} ms a "
+                  f"launch in the profiled render_animation), launcher "
+                  f"{res['wrapper_ms']:.4f} ms/call (CUDA events); plain "
+                  f"version {res['plain_ms']:.4f} ms/call at "
+                  f"{res['plain_shape']} (CUDA events)")
 
     # -- 7. app -----------------------------------------------------------
     @phase("7 app")
@@ -463,18 +841,24 @@ def main() -> int:
             raise AssertionError(f"reference modules loaded: {loaded[:5]}")
         print("  neither jax nor the JAX package (zrenderer_tpu) loaded")
 
-    kernels = [
-        {"name": "k1_raster_small", "route": "cuda",
-         "source": "zrenderer_tpu_torch/csrc/raster_small.cu",
-         "replaces": "zrenderer_tpu/ops/raster_pallas.py:2915",
-         "launches": counts["k1"], "max_abs_err": results["k1"]["err"],
-         "ms": results["k1"]["ms"], "plain_ms": results["k1"]["plain_ms"]},
-        {"name": "k3_raster_hier", "route": "cuda",
-         "source": "zrenderer_tpu_torch/csrc/raster_hier.cu",
-         "replaces": "zrenderer_tpu/ops/raster_pallas.py:750",
-         "launches": counts["k3"], "max_abs_err": results["k3"]["err"],
-         "ms": results["k3"]["ms"], "plain_ms": results["k3"]["plain_ms"]},
-    ]
+    sources = {
+        "k1": ("raster_small.cu", 2915), "k3": ("raster_hier.cu", 750),
+        "k4": ("raster_binned.cu", 2253),
+        "k4_coarse": ("raster_binned.cu", 2239),
+        "k5": ("raster_hier.cu", 640), "k6": ("raster_binned.cu", 1520)}
+    kernels = []
+    for key, (src, line) in sources.items():
+        res = results[key]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": f"zrenderer_tpu_torch/csrc/{src}",
+            "replaces": f"zrenderer_tpu/ops/raster_pallas.py:{line}",
+            "launches": counts[key], "max_abs_err": res["err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": None, "ms_render_animation": res["anim_ms"],
+            "shape": res["shape"],
+            "plain_shape": res["plain_shape"], "pairs": res["pairs"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

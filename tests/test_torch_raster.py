@@ -178,29 +178,44 @@ def test_ties_resolve_to_the_first_submitted_row():
 
 
 def _expected_route(binning, rows):
+    """``render_frame_pallas``'s branches (raster_pallas.py:3060-3086),
+    each mapped to the port's wrapper of the same kernel."""
+    big = rows > rp.VMEM_RESIDENT_MAX_TRIS
+    if rp._use_tile_lists(binning, rows):
+        return (tr.rasterize_setup_binned_hbm_coarse if big
+                else tr.rasterize_setup_binned)
+    if big:
+        return (tr.rasterize_setup_hbm if binning == "hierarchy"
+                else tr.rasterize_setup_binned_hbm)
     if rp._use_small_bins(binning, rows):
         return tr.rasterize_setup_small
     return tr.rasterize_setup
 
 
 @pytest.mark.parametrize("binning", list(tr.BINNINGS))
-@pytest.mark.parametrize("tris", [120, 256, 1024, 1025, 4096, 20000])
+@pytest.mark.parametrize("tris", [120, 256, 1024, 1025, 4096, 20000, 26000,
+                                  40000, 1000000])
 def test_dispatch_routes_like_render_frame_pallas(tris, binning):
     rows = g.capped_rows(tris)
-    assert rows <= rp.VMEM_RESIDENT_MAX_TRIS
     assert tr.select_raster(binning, rows) is _expected_route(binning, rows)
 
 
 def test_dispatch_raises_for_unported_kernels():
-    with pytest.raises(NotImplementedError, match="K6"):
-        tr.select_raster("tile_lists", g.capped_rows(256))
-    big = g.capped_rows(40000)
-    assert big > tr.MAX_RESIDENT_ROWS == rp.VMEM_RESIDENT_MAX_TRIS
-    for binning in tr.BINNINGS:
-        with pytest.raises(NotImplementedError, match="K4"):
-            tr.select_raster(binning, big)
-    with pytest.raises(ValueError):
-        tr.select_raster("dist", g.capped_rows(256))
+    """Every binning of the flat dispatch routes at every size (the
+    26 000-triangle frame sits just below the row bound, 40 000 above);
+    only other names raise, among them "dist", the multi-device binning
+    whose kernels (K9) are not ported."""
+    assert g.capped_rows(26000) == 32144 <= tr.MAX_RESIDENT_ROWS
+    assert g.capped_rows(40000) > tr.MAX_RESIDENT_ROWS
+    assert (tr.select_raster("tile_lists", g.capped_rows(256))
+            is tr.rasterize_setup_binned)
+    assert (tr.select_raster("tile_lists", g.capped_rows(40000))
+            is tr.rasterize_setup_binned_hbm_coarse)
+    assert (tr.select_raster("small", g.capped_rows(40000))
+            is tr.rasterize_setup_binned_hbm)
+    for name in ("dist", "xla", "", "Auto"):
+        with pytest.raises(ValueError, match="unknown binning"):
+            tr.select_raster(name, g.capped_rows(256))
 
 
 def test_constants_match_reference():

@@ -60,15 +60,16 @@ def _moved_transforms(renderer):
     return t
 
 
-def _port_renderer(w, h):
-    r = Renderer(RenderConfig(width=w, height=h), device="cpu")
+def _port_renderer(w, h, binning="auto"):
+    r = Renderer(RenderConfig(width=w, height=h, binning=binning),
+                 device="cpu")
     r.load_scene(*_scene())
     return r
 
 
-def _jax_renderer(w, h):
+def _jax_renderer(w, h, binning="auto"):
     r = JaxRenderer(JaxConfig(width=w, height=h, backend="pallas",
-                              debug=True))
+                              debug=True, binning=binning))
     r.load_scene(*_scene())
     r.set_vertex_shader(lambda positions, attrs: (positions, attrs),
                         name="identity")
@@ -90,6 +91,17 @@ def test_renderer_matches_jax_pallas(moved):
     transforms = _moved_transforms(port) if moved else None
     img, depth = port.render_and_read(transforms=transforms)
     ref_img, ref_depth = ref.render_and_read(transforms=transforms)
+    _assert_frames_close(img, depth, np.asarray(ref_img),
+                         np.asarray(ref_depth))
+
+
+@pytest.mark.parametrize("binning", ["tile_lists", "hierarchy"])
+def test_renderer_binnings_match_jax_pallas(binning):
+    """Explicit binnings below the row bound: tile_lists runs K6 and
+    hierarchy K3 in both packages."""
+    w, h = 256, 64
+    img, depth = _port_renderer(w, h, binning).render_and_read()
+    ref_img, ref_depth = _jax_renderer(w, h, binning).render_and_read()
     _assert_frames_close(img, depth, np.asarray(ref_img),
                          np.asarray(ref_depth))
 

@@ -41,7 +41,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=None, help="PNG output folder")
     parser.add_argument("--binning", default="auto", choices=BINNINGS,
                         help="raster binning (auto: small-scene lists up to "
-                             "1024 head rows, hierarchy above)")
+                             "1024 head rows, hierarchy up to 32768 setup "
+                             "rows, record streaming above)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda, cuda:N or cpu")
     args = parser.parse_args(argv)

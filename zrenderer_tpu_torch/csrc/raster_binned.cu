@@ -1,0 +1,180 @@
+// K4, K4c and K6: binned flat raster over pair-sorted tile spans.
+//
+// Replaces, in zrenderer_tpu/ops/raster_pallas.py:
+//   K4   rasterize_setup_pallas_binned_hbm (_binned_hbm_kernel, body
+//        _binned_hbm_body): spans of setup records gathered in pair order;
+//   K4c  the same with coarse_cap (_binned_hbm_coarse_kernel): plus the
+//        coarse list class;
+//   K6   rasterize_setup_pallas_binned (_binned_kernel over global pair
+//        lists, body _binned_body): spans of row ids into the setup rows.
+// The Pallas functions differ in TPU memory placement (records streamed
+// from HBM in aligned slabs, or row ids into VMEM-resident rows); here all
+// read global memory, so one kernel body serves them, templated on the
+// span source (records or row ids) and on the coarse phase.  Inputs are
+// the outputs of prepare_binned_hbm_inputs / prepare_binned_inputs
+// (zrenderer_tpu_torch/ops/raster.py).
+//
+// What it computes, per 32x128 tile (one CUDA block, tile state in
+// registers, raster_common.cuh):
+//   phase 1:   every entry of [offsets[t], offsets[t+1]); each is a
+//              guaranteed bbox hit, so there is no bbox test.  Records are
+//              (NI32 + 1) ints (the row id last) + NF32 floats;
+//   phase 1.5: (K4c) every record of the tile's coarse bin
+//              (ty / COARSE_CB) * ctiles_x + tx / COARSE_CB, skipped when
+//              its bbox misses the tile (a block-uniform test);
+//   phase 2:   the leftover rows through superblock -> block -> row bbox
+//              skips;
+//   every phase tests z >= 0 && (z < zb || (z == zb && id < tb)), the
+//   order-free (z, row id) tie-break that equals sequential strict-less in
+//   submission order; then one divide per pixel into RGBA8 + f32 depth.
+//
+// What bounds it on the H100: the per-pixel edge evaluation over the
+// (tile, triangle) pairs, not device-memory bytes and not the tensor cores.
+// Each pair costs 3 edge functions, 3 bias tests and a z interpolation at
+// each of the tile's 4096 pixels, issued on the int32/fp32 CUDA cores; the
+// records a tile reads are contiguous and read once (a few MB per frame).
+// The simple design keeps the tile state in registers across all three
+// phases and has all 256 threads read each record through broadcast loads.
+// Later work: stage a tile's contiguous records in shared memory with
+// cp.async/TMA, skip pixel rows outside a triangle's bbox, and balance the
+// tiles' spans (they differ by orders of magnitude) with persistent blocks.
+
+#include "raster_common.cuh"
+
+namespace zr {
+
+constexpr int REC_I = NI32 + 1;  // record ints: the setup row + its row id
+// Coarse bins are COARSE_CB x COARSE_CB tiles (ops/raster.py COARSE_CB, the
+// reference's coarse_cb default).
+constexpr int COARSE_CB = 4;
+
+// Coarse records are bin residents: the reference's four-sided bbox test
+// against the tile.
+__device__ __forceinline__ bool record_hits(const int* __restrict__ r,
+                                            int row0, int col0) {
+  return __ldg(r + I_JMAX) >= col0 && __ldg(r + I_JMIN) < col0 + TILE_W &&
+         __ldg(r + I_IMAX) >= row0 && __ldg(r + I_IMIN) < row0 + TILE_H;
+}
+
+// The body of all three kernels.  RECORDS: spans of gathered records
+// (K4/K4c) or of row ids (K6).  COARSE: run phase 1.5 over the coarse
+// class.
+template <bool RECORDS, bool COARSE>
+__device__ __forceinline__ void binned_tile(
+    const int* __restrict__ offsets, const int* __restrict__ span_i,
+    const float* __restrict__ span_f, const int* __restrict__ coffsets,
+    const int* __restrict__ crec_i, const float* __restrict__ crec_f,
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const float* __restrict__ tf, int* __restrict__ color,
+    float* __restrict__ depth, int width) {
+  const int tiles_x = width / TILE_W;
+  const int tile = blockIdx.x;
+  const int ty = tile / tiles_x, tx = tile % tiles_x;
+  TileState<true> st;
+  st.init(ty * TILE_H, tx * TILE_W);
+
+  const int end = __ldg(offsets + tile + 1);
+  for (int k = __ldg(offsets + tile); k < end; ++k) {
+    if constexpr (RECORDS) {
+      const int* r = span_i + (size_t)k * REC_I;
+      st.eval_row(r, span_f + (size_t)k * NF32, __ldg(r + NI32));
+    } else {
+      st.eval(ti, tf, __ldg(span_i + k));
+    }
+  }
+
+  if constexpr (COARSE) {
+    const int ctiles_x = (tiles_x + COARSE_CB - 1) / COARSE_CB;
+    const int bin = (ty / COARSE_CB) * ctiles_x + tx / COARSE_CB;
+    const int cend = __ldg(coffsets + bin + 1);
+    for (int k = __ldg(coffsets + bin); k < cend; ++k) {
+      const int* r = crec_i + (size_t)k * REC_I;
+      if (record_hits(r, st.row0, st.col0))
+        st.eval_row(r, crec_f + (size_t)k * NF32, __ldg(r + NI32));
+    }
+  }
+
+  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
+  st.store(color, depth, width);
+}
+
+// One entry point per kernel, so each has its own name in a profile.
+__global__ void __launch_bounds__(THREADS)
+    raster_records_kernel(const int* __restrict__ offsets,
+                          const int* __restrict__ rec_i,
+                          const float* __restrict__ rec_f,
+                          const int* __restrict__ supers, int num_supers,
+                          const int* __restrict__ blocks,
+                          const int* __restrict__ ti,
+                          const float* __restrict__ tf,
+                          int* __restrict__ color, float* __restrict__ depth,
+                          int width) {
+  binned_tile<true, false>(offsets, rec_i, rec_f, nullptr, nullptr, nullptr,
+                           supers, num_supers, blocks, ti, tf, color, depth,
+                           width);
+}
+
+__global__ void __launch_bounds__(THREADS) raster_records_coarse_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ coffsets,
+    const int* __restrict__ crec_i, const float* __restrict__ crec_f,
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const float* __restrict__ tf, int* __restrict__ color,
+    float* __restrict__ depth, int width) {
+  binned_tile<true, true>(offsets, rec_i, rec_f, coffsets, crec_i, crec_f,
+                          supers, num_supers, blocks, ti, tf, color, depth,
+                          width);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    raster_lists_kernel(const int* __restrict__ offsets,
+                        const int* __restrict__ pair_tri,
+                        const int* __restrict__ supers, int num_supers,
+                        const int* __restrict__ blocks,
+                        const int* __restrict__ ti,
+                        const float* __restrict__ tf, int* __restrict__ color,
+                        float* __restrict__ depth, int width) {
+  binned_tile<false, false>(offsets, pair_tri, nullptr, nullptr, nullptr,
+                            nullptr, supers, num_supers, blocks, ti, tf,
+                            color, depth, width);
+}
+
+}  // namespace zr
+
+// K4 (coffsets == nullptr) or K4c.
+extern "C" int zr_raster_records(const int* offsets, const int* rec_i,
+                                 const float* rec_f, const int* coffsets,
+                                 const int* crec_i, const float* crec_f,
+                                 const int* supers, int num_supers,
+                                 const int* blocks, const int* ti,
+                                 const float* tf, int* color, float* depth,
+                                 int height, int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (coffsets == nullptr) {
+    zr::raster_records_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+        offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, color,
+        depth, width);
+  } else {
+    zr::raster_records_coarse_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+        offsets, rec_i, rec_f, coffsets, crec_i, crec_f, supers, num_supers,
+        blocks, ti, tf, color, depth, width);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K6.
+extern "C" int zr_raster_lists(const int* offsets, const int* pair_tri,
+                               const int* supers, int num_supers,
+                               const int* blocks, const int* ti,
+                               const float* tf, int* color, float* depth,
+                               int height, int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::raster_lists_kernel<<<num_tiles, zr::THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      offsets, pair_tri, supers, num_supers, blocks, ti, tf, color, depth,
+      width);
+  return (int)cudaGetLastError();
+}

@@ -1,4 +1,5 @@
-// Shared pieces of the flat raster kernels (raster_small.cu, raster_hier.cu).
+// Shared pieces of the flat raster kernels (raster_small.cu, raster_hier.cu,
+// raster_binned.cu).
 //
 // Layout contract with zrenderer_tpu/ops/geometry.py: setup rows are
 // (R, NI32) int32 + (R, NF32) float32, row-major; bbox tables are (n, 8)
@@ -78,8 +79,8 @@ __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
   return (uint32_t)(int)floorf(__fadd_rn(__fmul_rn(c, 255.0f), 0.5f));
 }
 
-// Per-thread tile state.  TIE selects K1's order-free depth test
-// (z, row id) over K3's sequential strict-less test.
+// Per-thread tile state.  TIE selects the order-free depth test
+// (z, row id) of K1/K4/K6 over K3/K5's sequential strict-less test.
 template <bool TIE>
 struct TileState {
   float z[PIX];
@@ -105,8 +106,14 @@ struct TileState {
   // Coverage, depth test and latch of setup row t at this thread's pixels.
   __device__ __forceinline__ void eval(const int* __restrict__ ti,
                                        const float* __restrict__ tf, int t) {
-    const int* r = ti + (size_t)t * NI32;
-    const float* f = tf + (size_t)t * NF32;
+    eval_row(ti + (size_t)t * NI32, tf + (size_t)t * NF32, t);
+  }
+
+  // The same for one setup record (r: NI32 ints, f: NF32 floats) whose
+  // tie-break id is t.
+  __device__ __forceinline__ void eval_row(const int* __restrict__ r,
+                                           const float* __restrict__ f,
+                                           int t) {
     const int x0 = __ldg(r + I_X0), y0 = __ldg(r + I_Y0);
     const int x1 = __ldg(r + I_X1), y1 = __ldg(r + I_Y1);
     const int x2 = __ldg(r + I_X2), y2 = __ldg(r + I_Y2);

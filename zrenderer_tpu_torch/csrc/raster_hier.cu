@@ -1,7 +1,11 @@
-// K3: hierarchy flat raster.
+// K3 and K5: hierarchy flat raster.
 //
-// Replaces rasterize_setup_pallas (zrenderer_tpu/ops/raster_pallas.py,
-// _raster_kernel, body _kernel_body).  Inputs are the outputs of
+// Replaces rasterize_setup_pallas (K3: zrenderer_tpu/ops/raster_pallas.py,
+// _raster_kernel, body _kernel_body) and rasterize_setup_pallas_hbm (K5:
+// _hbm_kernel, body _hbm_kernel_body).  The two differ only in TPU memory
+// placement (VMEM-resident rows, or rows streamed from HBM in block
+// slabs); this kernel reads its rows from global memory at any row count,
+// and the wrappers keep K3's 32768-row cap.  Inputs are the outputs of
 // prepare_raster_inputs (zrenderer_tpu_torch/ops/raster.py): the live rows
 // stable-compacted to the front (submission order kept), padded to
 // RASTER_BLOCK, plus the block and superblock union-bbox tables.

@@ -24,10 +24,12 @@ class RenderConfig:
     # Only "flat" is ported; lit/shadowed/deferred are ROADMAP Queue 1
     # items 7-9.
     pipeline: str = "flat"
-    # Raster binning: "auto" (K1 small-scene lists up to 1024 head rows,
-    # K3 hierarchy above), "small" (K1) or "hierarchy" (K3).
-    # "tile_lists" and frames above 32768 setup rows need kernels that are
-    # not ported yet and raise at render time (ops/raster.select_raster).
+    # Raster binning (ops/raster.select_raster).  Up to 32768 setup rows:
+    # "auto" (K1 small-scene lists up to 1024 head rows, K3 hierarchy
+    # above), "small" (K1), "hierarchy" (K3) or "tile_lists" (K6 global
+    # pair lists).  Above: "hierarchy" streams the hierarchy (K5),
+    # "tile_lists" streams records with the coarse class (K4c), and the
+    # others stream records (K4).
     binning: str = "auto"
     # The kernels resolve uncovered pixels to (0, 0, 0, 255): the default
     # clear color is the only one the flat path produces.

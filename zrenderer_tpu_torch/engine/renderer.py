@@ -6,9 +6,10 @@
 * ``render`` computes the per-draw object_to_clip matrices on the host,
   stages them in the pinned upload ring, copies them to the device without
   blocking and enqueues the frame: column geometry, the raster dispatch
-  (K1 or K3), the RGBA8 unpack and the crop.  It returns before the device
-  is done; ``present`` paces the host to ``frames_in_flight`` frames ahead
-  with CUDA events, ``read_frame`` copies the newest frame back.
+  (``raster.select_raster``: K1, K3, K4, K4c, K5 or K6), the RGBA8 unpack
+  and the crop.  It returns before the device is done; ``present`` paces
+  the host to ``frames_in_flight`` frames ahead with CUDA events,
+  ``read_frame`` copies the newest frame back.
 * ``render_animation`` renders N frames back to back with no host sync
   inside the loop, reducing each padded packed frame to a digest.
 

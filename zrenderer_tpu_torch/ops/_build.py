@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "zrenderer_tpu_torch"
-SOURCES = ("raster_small.cu", "raster_hier.cu")
+SOURCES = ("raster_small.cu", "raster_hier.cu", "raster_binned.cu")
 HEADERS = ("raster_common.cuh",)
 LIB_NAME = "libzr_raster.so"
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
@@ -117,6 +117,11 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_small.restype = i
     lib.zr_raster_hier.argtypes = [p, i, p, p, p, p, p, i, i, p]
     lib.zr_raster_hier.restype = i
+    lib.zr_raster_records.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p,
+                                      i, i, p]
+    lib.zr_raster_records.restype = i
+    lib.zr_raster_lists.argtypes = [p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_lists.restype = i
     lib.zr_error_string.argtypes = [i]
     lib.zr_error_string.restype = ctypes.c_char_p
     return lib

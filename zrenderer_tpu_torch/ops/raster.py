@@ -1,4 +1,4 @@
-"""Flat raster: prepares, the two CUDA kernels' wrappers, their plain torch
+"""Flat raster: prepares, the CUDA kernels' wrappers, their plain torch
 versions, the resolve/unpack, and the frame dispatch.
 
 Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
@@ -12,16 +12,31 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   ``prepare_raster_inputs`` compacts live rows and builds the block and
   superblock union bboxes; the kernel walks the hierarchy in submission
   order with the strict-less depth test.  CUDA: ``csrc/raster_hier.cu``.
+* K5, the streamed hierarchy (``rasterize_setup_pallas_hbm``): the K3
+  kernel without the 32768-row cap (K3 already reads its rows from
+  device memory on the card).
+* K4, the record-streaming binned raster
+  (``rasterize_setup_pallas_binned_hbm``): ``prepare_binned_hbm_inputs``
+  lists each small-footprint head row once per tile it touches, sorts the
+  (tile, row) pairs and gathers each pair's setup record in pair order;
+  the kernel evaluates its tile's contiguous record span (no bbox tests),
+  then the leftover rows through the hierarchy, with the (z, row id)
+  tie-break.  K4c adds the coarse class: rows too big for the fine lists
+  listed per 4x4-tile bin, tested against the tile's bbox.
+* K6, the global pair-list raster (``rasterize_setup_pallas_binned``):
+  ``prepare_binned_inputs`` sorts the same pairs but keeps row ids; the
+  kernel reads its tile's rows through them.  K4, K4c and K6 are one CUDA
+  kernel: ``csrc/raster_binned.cu``.
 
-Both produce a packed RGBA8 plane (u32 bits carried in an ``int32``
+All produce a packed RGBA8 plane (u32 bits carried in an ``int32``
 tensor; alpha 255 sets bit 31) and an f32 depth plane over the padded
 (H, W) frame, resolved with one divide per pixel (docs/RASTER_SPEC.md §4).
 
 Each kernel has a plain torch version beside it taking the same prepared
-inputs.  ``rasterize_setup_small`` and ``rasterize_setup`` take the plain
-version only for CPU tensors; for CUDA tensors they launch the kernel or
-raise.  Each kernel-launching function counts its launches in its
-``launches`` attribute.
+inputs.  The ``rasterize_setup*`` wrappers take the plain version only for
+CPU tensors; for CUDA tensors they launch the kernel or raise.  Each
+kernel-launching function counts its launches in its ``launches``
+attribute.
 """
 
 from __future__ import annotations
@@ -76,12 +91,22 @@ TILE_W = 128
 # reference's SMALL_BIN_MAX_ROWS; also the kernel's shared-memory list size.
 SMALL_BIN_MAX_ROWS = 1024
 
-# Largest setup-row count the ported kernels take (the reference's
-# VMEM_RESIDENT_MAX_TRIS).  Above it the reference streams records (K4,
-# K5); those kernels are not ported yet.
+# The reference's VMEM_RESIDENT_MAX_TRIS: the dispatch sends frames with
+# more setup rows to the streaming kernels (K4, K4c, K5), and K1/K3 take
+# at most this many.
 MAX_RESIDENT_ROWS = 32768
 
-BINNINGS = ("auto", "small", "hierarchy")
+# K6 pair lists: the auto cap trades pair count against leftover rows.
+BIN_PAIR_BUDGET = 1 << 20
+# K4 records: the static record-slot budget; listed rows past it are
+# demoted to the leftover hierarchy by an exact prefix clamp.
+HBM_PAIR_BUDGET = 1 << 20
+# K4c: coarse bins are COARSE_CB x COARSE_CB tiles; the tile_lists
+# dispatch lists a row in at most TILE_LISTS_COARSE_CAP of them.
+COARSE_CB = 4
+TILE_LISTS_COARSE_CAP = 8
+
+BINNINGS = ("auto", "small", "hierarchy", "tile_lists")
 
 _INT_MAX = 2**31 - 1
 _ALPHA_BITS = -(1 << 24)  # 0xFF000000 as int32
@@ -118,14 +143,38 @@ def _check_frame(width: int, height: int):
 
 
 def prepare_raster_inputs(tri_i32, tri_f32):
-    """K3 prepare: pad to RASTER_BLOCK, stable-compact live rows to the
-    front, and build the block/superblock union bboxes.
-    Returns (supers, blocks, tri_i32, tri_f32)."""
+    """K3/K5 prepare: pad to RASTER_BLOCK, stable-compact live rows to the
+    front, and build the block/superblock union bboxes.  Returns (supers,
+    blocks, tri_i32, tri_f32)."""
     tri_i32, tri_f32 = _pad_rows(tri_i32, tri_f32)
     tri_i32, tri_f32 = tg.compact_triangles(tri_i32, tri_f32)
     blocks = tg.block_bounds(tri_i32)
     blocks, supers = tg.super_bounds(blocks)
     return supers, blocks, tri_i32, tri_f32
+
+
+def _leftover_rows(tri_i32, listed):
+    """Empty the bbox and valid flag of the head rows flagged in ``listed``
+    (the first ``len(listed)`` rows), so the hierarchy skips the rows the
+    lists own.  Returns (supers, blocks, hier)."""
+    n = listed.shape[0]
+    hier = tri_i32.clone()
+    head = hier[:n]
+    head[:, I_JMIN] = torch.where(listed, 1, head[:, I_JMIN])
+    head[:, I_JMAX] = torch.where(listed, 0, head[:, I_JMAX])
+    head[:, I_VALID] = torch.where(listed, 0, head[:, I_VALID])
+    blocks = tg.block_bounds(hier)
+    blocks, supers = tg.super_bounds(blocks)
+    return supers, blocks, hier
+
+
+def _tile_span(head):
+    """Per head row: valid flag and the tile range of its bbox,
+    (valid, tj0, tj1, ty0, ty1), floor-divided like the reference (an
+    empty or off-screen bbox may give an empty or negative range)."""
+    return (head[:, I_VALID] > 0,
+            head[:, I_JMIN] // TILE_W, head[:, I_JMAX] // TILE_W,
+            head[:, I_IMIN] // TILE_H, head[:, I_IMAX] // TILE_H)
 
 
 def prepare_binned_small(tri_i32, tri_f32, width: int, height: int):
@@ -150,13 +199,9 @@ def prepare_binned_small(tri_i32, tri_f32, width: int, height: int):
     dev = tri_i32.device
 
     head = tri_i32[:n_head]
-    live = ((head[:, I_VALID] > 0)
-            & (head[:, I_JMIN] <= head[:, I_JMAX])
+    valid, tj0, tj1, ty0, ty1 = _tile_span(head)
+    live = (valid & (head[:, I_JMIN] <= head[:, I_JMAX])
             & (head[:, I_IMIN] <= head[:, I_IMAX]))
-    tj0 = head[:, I_JMIN] // TILE_W
-    tj1 = head[:, I_JMAX] // TILE_W
-    ty0 = head[:, I_IMIN] // TILE_H
-    ty1 = head[:, I_IMAX] // TILE_H
     rows = torch.arange(tiles_y, dtype=I32, device=dev)[:, None, None]
     cols = torch.arange(tiles_x, dtype=I32, device=dev)[None, :, None]
     hit = ((rows >= ty0) & (rows <= ty1)
@@ -166,14 +211,161 @@ def prepare_binned_small(tri_i32, tri_f32, width: int, height: int):
     ids = torch.arange(n_head, dtype=I32, device=dev)
     lists = torch.sort(torch.where(hit, ids, n_head), dim=1).values
 
-    hier = tri_i32.clone()
-    hier[:n_head, I_JMIN] = 1
-    hier[:n_head, I_JMAX] = 0
-    hier[:n_head, I_VALID] = 0
-    blocks = tg.block_bounds(hier)
-    blocks, supers = tg.super_bounds(blocks)
+    supers, blocks, hier = _leftover_rows(
+        tri_i32, torch.ones(n_head, dtype=torch.bool, device=dev))
     return (counts, lists.reshape(num_tiles * n_head, 1).to(I32), supers,
             blocks, hier, tri_f32)
+
+
+def bin_cap_for(n_rows: int) -> int:
+    """K6 auto cap: generous for small scenes, bounded by the pair budget
+    for large ones (the reference's ``bin_cap_for``)."""
+    return int(max(4, min(256, BIN_PAIR_BUDGET // max(n_rows, 1))))
+
+
+def _prefix_clamp(listed, foot, budget: int):
+    """Keep the longest prefix of listed rows whose summed footprint fits
+    ``budget`` (the reference's int32 cumsum; int64 here, equal while the
+    int32 sum cannot overflow, which n_rows * cap < 2**31 ensures).
+
+    A valid row whose bbox clamps to empty can have a negative footprint
+    and emits no pair, so it counts 0 here.  The reference sums it as
+    negative, which lets the listed pairs pass the budget and the kernel
+    read past the gathered records (ROADMAP Queue 3)."""
+    used = torch.cumsum(torch.where(listed, foot.clamp(min=0), 0), dim=0)
+    return listed & (used <= budget)
+
+
+def _pair_keys(listed, foot, nx, y0, x0, cap: int, stride: int,
+               sentinel: int):
+    """(row, slot) pair keys, row-major over ``cap`` slots: slot e of a
+    listed row with e < foot is bin (y0 + e // nx) * stride + x0 + e % nx,
+    any other slot is ``sentinel``.  Returns (n_rows * cap,) i32."""
+    e = torch.arange(cap, dtype=I32, device=listed.device)[None, :]
+    # A zero-width range has foot 0, so no key reads its quotient.
+    nx = torch.where(nx == 0, 1, nx)[:, None]
+    ok = listed[:, None] & (e < foot[:, None])
+    keys = torch.where(ok, (y0[:, None] + e // nx) * stride
+                       + (x0[:, None] + e % nx), sentinel)
+    return keys.reshape(-1)
+
+
+def pair_value_sort(keys, cap: int, num_tiles: int):
+    """Sort (bin, pair) keys by value; counterpart of ``_pair_value_sort``.
+
+    Pair p = row * cap + slot is packed below its key into one int64, so
+    every value is unique and one sort gives what the reference's packed
+    i32 and lexicographic branches both give: pairs grouped by bin,
+    ascending row ids within a bin.  Returns (sorted_tri (P,) i32 row ids,
+    offsets (num_tiles+1,) i32 bin span boundaries)."""
+    p0 = keys.shape[0]
+    idx_bits = max(1, (p0 - 1).bit_length())
+    dev = keys.device
+    packed = (keys.to(torch.int64) * (1 << idx_bits)
+              + torch.arange(p0, dtype=torch.int64, device=dev))
+    sp = torch.sort(packed).values
+    sorted_tri = ((sp & ((1 << idx_bits) - 1)) // cap).to(I32)
+    bounds = torch.arange(num_tiles + 1, dtype=torch.int64,
+                          device=dev) * (1 << idx_bits)
+    return sorted_tri, torch.searchsorted(sp, bounds).to(I32)
+
+
+def _coarse_grid(tiles_x: int, tiles_y: int):
+    """(bins per row, bins) of the COARSE_CB x COARSE_CB-tile bin grid."""
+    ctiles_x = -(-tiles_x // COARSE_CB)
+    return ctiles_x, ctiles_x * -(-tiles_y // COARSE_CB)
+
+
+def _gather_records(tri_i32, tri_f32, rows):
+    """Setup records of ``rows`` in order: (P, NI32 + 1) i32 whose last
+    column is the row id (the tie-break id), and (P, NF32) f32."""
+    idx = rows.long()
+    return torch.cat([tri_i32[idx], rows[:, None]], dim=1), tri_f32[idx]
+
+
+def prepare_binned_inputs(tri_i32, tri_f32, width: int, height: int,
+                          cap: int | None = None):
+    """K6 prepare: global (tile, row) pair lists of the head rows whose
+    bbox spans at most ``cap`` tiles, sorted by tile.
+
+    Returns (offsets (num_tiles+1,) i32, pair_tri (n_head*cap,) i32,
+    supers, blocks, hier, tri_f32): tile t owns pair_tri[offsets[t]:
+    offsets[t+1]], ascending row ids; ``hier`` is the padded setup with
+    the listed rows' bboxes emptied, for the leftover hierarchy."""
+    _check_frame(width, height)
+    tiles_x = width // TILE_W
+    num_tiles = tiles_x * (height // TILE_H)
+    n_head = head_count(tri_i32.shape[0])
+    if cap is None:
+        cap = bin_cap_for(n_head)
+    tri_i32, tri_f32 = _pad_rows(tri_i32, tri_f32)
+    valid, tj0, tj1, ty0, ty1 = _tile_span(tri_i32[:n_head])
+    ntx = tj1 - tj0 + 1
+    foot = ntx * (ty1 - ty0 + 1)
+    listed = valid & (foot <= cap)
+    keys = _pair_keys(listed, foot, ntx, ty0, tj0, cap, tiles_x, num_tiles)
+    pair_tri, offsets = pair_value_sort(keys, cap, num_tiles)
+    supers, blocks, hier = _leftover_rows(tri_i32, listed)
+    return offsets, pair_tri, supers, blocks, hier, tri_f32
+
+
+def prepare_binned_hbm_inputs(tri_i32, tri_f32, width: int, height: int,
+                              cap: int | None = None,
+                              pair_budget: int | None = None,
+                              coarse_cap: int | None = None,
+                              coarse_budget: int | None = None):
+    """K4 prepare: pair lists as in K6, clamped to a record budget, with
+    each pair's setup record gathered in pair order.
+
+    Returns (offsets, rec_i, rec_f, supers, blocks, hier, tri_f32,
+    coarse).  Tile t owns records [offsets[t], offsets[t+1]); rec_i is
+    (k_budget, NI32 + 1) i32 with the row id last, rec_f (k_budget, NF32)
+    f32.  ``hier`` is the padded setup (not compacted: row ids are the
+    input's) with every listed row's bbox emptied.  ``coarse`` is None,
+    or with ``coarse_cap`` the coarse class (coffsets, crec_i, crec_f):
+    rows that are not listed, whose bbox spans at most ``coarse_cap``
+    bins of COARSE_CB x COARSE_CB tiles, within their own budget."""
+    _check_frame(width, height)
+    tiles_x = width // TILE_W
+    tiles_y = height // TILE_H
+    num_tiles = tiles_x * tiles_y
+    n_input = head_count(tri_i32.shape[0])
+    if cap is None:
+        cap = int(min(256, max(4, (4 * HBM_PAIR_BUDGET) // max(n_input, 1))))
+    if pair_budget is None:
+        pair_budget = HBM_PAIR_BUDGET
+    tri_i32, tri_f32 = _pad_rows(tri_i32, tri_f32)
+    valid, tj0, tj1, ty0, ty1 = _tile_span(tri_i32[:n_input])
+    ntx = tj1 - tj0 + 1
+    foot = ntx * (ty1 - ty0 + 1)
+    k_budget = min(pair_budget, n_input * cap)
+    listed = _prefix_clamp(valid & (foot <= cap), foot, k_budget)
+    keys = _pair_keys(listed, foot, ntx, ty0, tj0, cap, tiles_x, num_tiles)
+    sorted_tri, offsets = pair_value_sort(keys, cap, num_tiles)
+    # Valid pairs sort first and number at most k_budget: only those
+    # slots need records.
+    rec_i, rec_f = _gather_records(tri_i32, tri_f32, sorted_tri[:k_budget])
+
+    coarse = None
+    owned = listed
+    if coarse_cap is not None:
+        ctiles_x, num_cbins = _coarse_grid(tiles_x, tiles_y)
+        cj0, cy0 = tj0 // COARSE_CB, ty0 // COARSE_CB
+        ncx = tj1 // COARSE_CB - cj0 + 1
+        cfoot = ncx * (ty1 // COARSE_CB - cy0 + 1)
+        if coarse_budget is None:
+            coarse_budget = pair_budget
+        ck_budget = min(coarse_budget, n_input * coarse_cap)
+        clisted = _prefix_clamp(valid & ~listed & (cfoot <= coarse_cap),
+                                cfoot, ck_budget)
+        ckeys = _pair_keys(clisted, cfoot, ncx, cy0, cj0, coarse_cap,
+                           ctiles_x, num_cbins)
+        sorted_ctri, coffsets = pair_value_sort(ckeys, coarse_cap, num_cbins)
+        coarse = (coffsets,
+                  *_gather_records(tri_i32, tri_f32, sorted_ctri[:ck_budget]))
+        owned = listed | clisted
+    supers, blocks, hier = _leftover_rows(tri_i32, owned)
+    return offsets, rec_i, rec_f, supers, blocks, hier, tri_f32, coarse
 
 
 # ---------------------------------------------------------------------------
@@ -319,21 +511,90 @@ def raster_hier_plain(supers, blocks, ti, tf, width: int, height: int):
     return _resolve_planes(planes)
 
 
-# ---------------------------------------------------------------------------
-# CUDA kernels (csrc/raster_small.cu, csrc/raster_hier.cu)
-# ---------------------------------------------------------------------------
+def _stream_spans(planes, py, px, offsets, bins, rec_i, rec_f,
+                  masked: bool):
+    """Each tile's record span [offsets[b], offsets[b + 1]), b = bins[ty,
+    tx], stepping the span position k over all tiles at once with the
+    (z, row id) tie-break.  ``masked``: test each record's bbox against
+    the tile (the coarse class; fine-list records always hit)."""
+    start = offsets[bins].long()
+    count = offsets[bins + 1].long() - start
+    everything = (slice(None), slice(None))
+    tiles_y, tiles_x = bins.shape
+    row0 = torch.arange(tiles_y, device=bins.device)[:, None] * TILE_H
+    col0 = torch.arange(tiles_x, device=bins.device)[None, :] * TILE_W
+    for k in range(int(count.max().item())):
+        active = count > k
+        idx = torch.where(active, start + k, 0)
+        ri, rf = rec_i[idx], rec_f[idx]
+        if masked:
+            active = (active
+                      & (ri[..., I_JMAX] >= col0)
+                      & (ri[..., I_JMIN] < col0 + TILE_W)
+                      & (ri[..., I_IMAX] >= row0)
+                      & (ri[..., I_IMIN] < row0 + TILE_H))
+        _eval_rows(planes, everything, py, px, ri, rf,
+                   ri[..., NI32, None, None], active[..., None, None], True)
 
 
-def _require_cuda(device, **tensors):
-    """Check the kernels' input contract; raise on anything else."""
-    want = {"counts": I32, "lists": I32, "supers": I32, "blocks": I32,
-            "ti": I32, "tf": F32}
+def raster_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                        coarse, width: int, height: int):
+    """Plain torch K4/K4c over ``prepare_binned_hbm_inputs``' outputs:
+    phase 1 the tiles' record spans, phase 1.5 (with ``coarse``) the
+    coarse bins' spans under a per-record bbox test, phase 2 the rows
+    left in ``hier``; every phase with the (z, row id) tie-break."""
+    del supers, blocks  # skip tables only; _scan_rows visits the same rows
+    _check_frame(width, height)
+    tiles_y, tiles_x = height // TILE_H, width // TILE_W
+    dev = hier.device
+    planes, py, px = _tile_planes(tiles_y, tiles_x, True, dev)
+    ty = torch.arange(tiles_y, device=dev)[:, None]
+    tx = torch.arange(tiles_x, device=dev)[None, :]
+    _stream_spans(planes, py, px, offsets, ty * tiles_x + tx, rec_i, rec_f,
+                  masked=False)
+    if coarse is not None:
+        coffsets, crec_i, crec_f = coarse
+        ctiles_x, num_cbins = _coarse_grid(tiles_x, tiles_y)
+        if coffsets.shape[0] != num_cbins + 1:
+            raise ValueError("coffsets do not match the coarse-bin grid")
+        _stream_spans(planes, py, px, coffsets,
+                      (ty // COARSE_CB) * ctiles_x + tx // COARSE_CB,
+                      crec_i, crec_f, masked=True)
+    _scan_rows(planes, py, px, hier, tf, tie=True)
+    return _resolve_planes(planes)
+
+
+def raster_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
+                       width: int, height: int):
+    """Plain torch K6 over ``prepare_binned_inputs``' outputs: the tiles'
+    row-id spans read through ``hier``/``tf`` (phase 1 has no bbox test,
+    so the emptied bboxes do not matter), then the leftover rows."""
+    rec_i, rec_f = _gather_records(hier, tf, pair_tri)
+    return raster_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier,
+                               tf, None, width, height)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/raster_small.cu, csrc/raster_hier.cu,
+# csrc/raster_binned.cu)
+# ---------------------------------------------------------------------------
+
+_DTYPES = {"counts": I32, "lists": I32, "supers": I32, "blocks": I32,
+           "ti": I32, "tf": F32, "offsets": I32, "pair_tri": I32,
+           "rec_i": I32, "rec_f": F32, "coffsets": I32, "crec_i": I32,
+           "crec_f": F32}
+
+
+def _require_cuda(device, max_rows: int | None, **tensors):
+    """Check the kernels' input contract; raise on anything else.
+    ``max_rows``: the kernel's setup-row cap (None: no cap)."""
     for name, t in tensors.items():
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name}: CUDA tensor on {device} expected, "
                              f"got {t.device}")
-        if t.dtype != want[name]:
-            raise TypeError(f"{name}: {want[name]} expected, got {t.dtype}")
+        if t.dtype != _DTYPES[name]:
+            raise TypeError(f"{name}: {_DTYPES[name]} expected, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: contiguous tensor expected")
     ti, tf = tensors["ti"], tensors["tf"]
@@ -343,13 +604,31 @@ def _require_cuda(device, **tensors):
     rows = ti.shape[0]
     if tuple(tf.shape) != (rows, NF32):
         raise ValueError(f"tf: ({rows}, {NF32}) expected")
-    if rows % RASTER_BLOCK or rows > MAX_RESIDENT_ROWS:
+    if rows % RASTER_BLOCK or (max_rows is not None and rows > max_rows):
         raise ValueError(f"ti: {rows} rows; need a multiple of "
-                         f"{RASTER_BLOCK}, at most {MAX_RESIDENT_ROWS}")
+                         f"{RASTER_BLOCK}, at most {max_rows}")
     if (blocks.shape[1:] != (8,) or supers.shape[1:] != (8,)
             or blocks.shape[0] != supers.shape[0] * SUPER_BLOCK
             or blocks.shape[0] * RASTER_BLOCK < rows):
         raise ValueError("blocks/supers do not match the setup rows")
+
+
+def _require_spans(offsets, bins: int, rec_i, rec_f=None):
+    """Span offsets over ``bins`` bins, and records (rec_i (P, NI32 + 1),
+    rec_f (P, NF32)) or row ids (rec_i (P,)) to index."""
+    if tuple(offsets.shape) != (bins + 1,):
+        raise ValueError(f"offsets: ({bins + 1},) expected, got "
+                         f"{tuple(offsets.shape)}")
+    if rec_f is None:
+        if rec_i.ndim != 1:
+            raise ValueError("pair_tri: 1-D row ids expected")
+        return
+    p = rec_i.shape[0]
+    if (tuple(rec_i.shape) != (p, NI32 + 1)
+            or tuple(rec_f.shape) != (p, NF32)):
+        raise ValueError(f"records: ({p}, {NI32 + 1}) i32 and ({p}, {NF32}) "
+                         f"f32 expected, got {tuple(rec_i.shape)} and "
+                         f"{tuple(rec_f.shape)}")
 
 
 def _launch(fn, *args):
@@ -364,51 +643,134 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _run(fn, dev, width: int, height: int, *args):
+    """Allocate the (color, depth) planes and launch
+    ``fn(*args, color, depth, height, width, stream)`` on the current
+    stream of ``dev``."""
+    color = torch.empty((height, width), dtype=I32, device=dev)
+    depth = torch.empty((height, width), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(fn, *args, _ptr(color), _ptr(depth), height, width,
+                ctypes.c_void_p(stream))
+    return color, depth
+
+
 def raster_small_kernel(counts, lists, supers, blocks, ti, tf,
                         width: int, height: int):
     """Launch K1 (``csrc/raster_small.cu``) on the current stream."""
     _check_frame(width, height)
     dev = ti.device
-    _require_cuda(dev, counts=counts, lists=lists, supers=supers,
-                  blocks=blocks, ti=ti, tf=tf)
+    _require_cuda(dev, MAX_RESIDENT_ROWS, counts=counts, lists=lists,
+                  supers=supers, blocks=blocks, ti=ti, tf=tf)
     num_tiles = (height // TILE_H) * (width // TILE_W)
     if counts.shape != (num_tiles,) or lists.numel() % num_tiles:
         raise ValueError("counts/lists do not match the tile grid")
     n_head = lists.numel() // num_tiles
     if n_head > SMALL_BIN_MAX_ROWS or n_head > ti.shape[0]:
         raise ValueError(f"n_head {n_head} > {SMALL_BIN_MAX_ROWS} or rows")
-    lib = _build.load_library()
-    color = torch.empty((height, width), dtype=I32, device=dev)
-    depth = torch.empty((height, width), dtype=F32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib.zr_raster_small, _ptr(counts), _ptr(lists), n_head,
-                _ptr(supers), supers.shape[0], _ptr(blocks), _ptr(ti),
-                _ptr(tf), _ptr(color), _ptr(depth), height, width,
-                ctypes.c_void_p(stream))
+    out = _run(_build.load_library().zr_raster_small, dev, width, height,
+               _ptr(counts), _ptr(lists), n_head, _ptr(supers),
+               supers.shape[0], _ptr(blocks), _ptr(ti), _ptr(tf))
     raster_small_kernel.launches += 1
-    return color, depth
+    return out
+
+
+def _launch_hier(supers, blocks, ti, tf, width: int, height: int,
+                 max_rows: int | None):
+    _check_frame(width, height)
+    dev = ti.device
+    _require_cuda(dev, max_rows, supers=supers, blocks=blocks, ti=ti, tf=tf)
+    return _run(_build.load_library().zr_raster_hier, dev, width, height,
+                _ptr(supers), supers.shape[0], _ptr(blocks), _ptr(ti),
+                _ptr(tf))
 
 
 def raster_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
     """Launch K3 (``csrc/raster_hier.cu``) on the current stream."""
-    _check_frame(width, height)
-    dev = ti.device
-    _require_cuda(dev, supers=supers, blocks=blocks, ti=ti, tf=tf)
-    lib = _build.load_library()
-    color = torch.empty((height, width), dtype=I32, device=dev)
-    depth = torch.empty((height, width), dtype=F32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(lib.zr_raster_hier, _ptr(supers), supers.shape[0],
-                _ptr(blocks), _ptr(ti), _ptr(tf), _ptr(color), _ptr(depth),
-                height, width, ctypes.c_void_p(stream))
+    out = _launch_hier(supers, blocks, ti, tf, width, height,
+                       MAX_RESIDENT_ROWS)
     raster_hier_kernel.launches += 1
-    return color, depth
+    return out
 
 
-raster_small_kernel.launches = 0
-raster_hier_kernel.launches = 0
+def raster_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
+    """Launch K5: the K3 kernel over any number of setup rows."""
+    out = _launch_hier(supers, blocks, ti, tf, width, height, None)
+    raster_hbm_kernel.launches += 1
+    return out
+
+
+def _launch_records(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                    coarse, width: int, height: int):
+    _check_frame(width, height)
+    dev = hier.device
+    tiles_x, tiles_y = width // TILE_W, height // TILE_H
+    tensors = dict(offsets=offsets, rec_i=rec_i, rec_f=rec_f, supers=supers,
+                   blocks=blocks, ti=hier, tf=tf)
+    _require_spans(offsets, tiles_x * tiles_y, rec_i, rec_f)
+    cptrs = (None, None, None)
+    if coarse is not None:
+        coffsets, crec_i, crec_f = coarse
+        tensors.update(coffsets=coffsets, crec_i=crec_i, crec_f=crec_f)
+        _require_spans(coffsets, _coarse_grid(tiles_x, tiles_y)[1], crec_i,
+                       crec_f)
+        cptrs = (_ptr(coffsets), _ptr(crec_i), _ptr(crec_f))
+    _require_cuda(dev, None, **tensors)
+    return _run(_build.load_library().zr_raster_records, dev, width, height,
+                _ptr(offsets), _ptr(rec_i), _ptr(rec_f), *cptrs,
+                _ptr(supers), supers.shape[0], _ptr(blocks), _ptr(hier),
+                _ptr(tf))
+
+
+def raster_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                         coarse, width: int, height: int):
+    """Launch K4 (``csrc/raster_binned.cu``, record spans) on the current
+    stream; ``coarse`` must be None (K4c takes the coarse class)."""
+    if coarse is not None:
+        raise ValueError("K4 takes no coarse class; use "
+                         "raster_binned_coarse_kernel")
+    out = _launch_records(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                          None, width, height)
+    raster_binned_kernel.launches += 1
+    return out
+
+
+def raster_binned_coarse_kernel(offsets, rec_i, rec_f, supers, blocks, hier,
+                                tf, coarse, width: int, height: int):
+    """Launch K4c (``csrc/raster_binned.cu``, record spans plus the coarse
+    class ``coarse`` = (coffsets, crec_i, crec_f)) on the current stream."""
+    if coarse is None:
+        raise ValueError("K4c needs the coarse class (coffsets, crec_i, "
+                         "crec_f)")
+    out = _launch_records(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                          coarse, width, height)
+    raster_binned_coarse_kernel.launches += 1
+    return out
+
+
+def raster_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
+                        width: int, height: int):
+    """Launch K6 (``csrc/raster_binned.cu``, row-id spans) on the current
+    stream."""
+    _check_frame(width, height)
+    dev = hier.device
+    _require_spans(offsets, (width // TILE_W) * (height // TILE_H), pair_tri)
+    _require_cuda(dev, None, offsets=offsets, pair_tri=pair_tri,
+                  supers=supers, blocks=blocks, ti=hier, tf=tf)
+    out = _run(_build.load_library().zr_raster_lists, dev, width, height,
+               _ptr(offsets), _ptr(pair_tri), _ptr(supers), supers.shape[0],
+               _ptr(blocks), _ptr(hier), _ptr(tf))
+    raster_lists_kernel.launches += 1
+    return out
+
+
+KERNELS = (raster_small_kernel, raster_hier_kernel, raster_hbm_kernel,
+           raster_binned_kernel, raster_binned_coarse_kernel,
+           raster_lists_kernel)
+for _kernel in KERNELS:
+    _kernel.launches = 0
+del _kernel
 
 
 def _on_cpu(t) -> bool:
@@ -440,6 +802,53 @@ def rasterize_setup(tri_i32, tri_f32, width: int, height: int):
     return raster_hier_kernel(*prepared, width, height)
 
 
+def rasterize_setup_hbm(tri_i32, tri_f32, width: int, height: int):
+    """K5 wrapper: ``prepare_raster_inputs`` (compacted) then the streamed
+    hierarchy, at any number of setup rows."""
+    _check_frame(width, height)
+    prepared = prepare_raster_inputs(tri_i32, tri_f32)
+    if _on_cpu(tri_i32):
+        return raster_hier_plain(*prepared, width, height)
+    return raster_hbm_kernel(*prepared, width, height)
+
+
+def rasterize_setup_binned_hbm(tri_i32, tri_f32, width: int, height: int,
+                               cap: int | None = None,
+                               pair_budget: int | None = None,
+                               coarse_cap: int | None = None,
+                               coarse_budget: int | None = None):
+    """K4 wrapper (K4c with ``coarse_cap``): ``prepare_binned_hbm_inputs``
+    then the kernel (CUDA tensors) or its plain version (CPU tensors)."""
+    _check_frame(width, height)
+    prepared = prepare_binned_hbm_inputs(
+        tri_i32, tri_f32, width, height, cap=cap, pair_budget=pair_budget,
+        coarse_cap=coarse_cap, coarse_budget=coarse_budget)
+    if _on_cpu(tri_i32):
+        return raster_binned_plain(*prepared, width, height)
+    if coarse_cap is None:
+        return raster_binned_kernel(*prepared, width, height)
+    return raster_binned_coarse_kernel(*prepared, width, height)
+
+
+def rasterize_setup_binned_hbm_coarse(tri_i32, tri_f32, width: int,
+                                      height: int):
+    """K4c as the tile_lists dispatch calls it: the coarse class with
+    ``coarse_cap = TILE_LISTS_COARSE_CAP``."""
+    return rasterize_setup_binned_hbm(tri_i32, tri_f32, width, height,
+                                      coarse_cap=TILE_LISTS_COARSE_CAP)
+
+
+def rasterize_setup_binned(tri_i32, tri_f32, width: int, height: int,
+                           cap: int | None = None):
+    """K6 wrapper: ``prepare_binned_inputs`` then the kernel (CUDA tensors)
+    or its plain version (CPU tensors)."""
+    _check_frame(width, height)
+    prepared = prepare_binned_inputs(tri_i32, tri_f32, width, height, cap=cap)
+    if _on_cpu(tri_i32):
+        return raster_lists_plain(*prepared, width, height)
+    return raster_lists_kernel(*prepared, width, height)
+
+
 def unpack_rgba8(packed):
     """(H, W) i32 packed RGBA8 -> (H, W, 4) u8 (channel order r, g, b, a)."""
     return torch.stack(
@@ -448,22 +857,22 @@ def unpack_rgba8(packed):
 
 
 def select_raster(binning: str, rows: int):
-    """The dispatch of ``render_frame_pallas``, for the ported kernels:
-    returns ``rasterize_setup_small`` (K1) or ``rasterize_setup`` (K3)."""
-    if binning == "tile_lists":
-        raise NotImplementedError(
-            "binning='tile_lists' needs the global pair-list kernels "
-            "(K6, and K4 above 32768 rows), not ported yet (ROADMAP.md "
-            "Queue 2)"
-        )
+    """The dispatch of ``render_frame_pallas``, branch for branch: returns
+    the wrapper that rasterizes a frame of ``rows`` setup rows.
+
+    * ``tile_lists``: K4c above MAX_RESIDENT_ROWS rows, else K6;
+    * above MAX_RESIDENT_ROWS rows: K5 for ``hierarchy``, else K4;
+    * below: K1 for ``small``, and for ``auto`` up to SMALL_BIN_MAX_ROWS
+      head rows; K3 otherwise."""
     if binning not in BINNINGS:
         raise ValueError(f"unknown binning {binning!r}; one of {BINNINGS}")
-    if rows > MAX_RESIDENT_ROWS:
-        raise NotImplementedError(
-            f"{rows} setup rows > {MAX_RESIDENT_ROWS}: needs the "
-            "record-streaming kernel (K4) or the streamed hierarchy (K5), "
-            "not ported yet (ROADMAP.md Queue 2)"
-        )
+    big = rows > MAX_RESIDENT_ROWS
+    if binning == "tile_lists":
+        return (rasterize_setup_binned_hbm_coarse if big
+                else rasterize_setup_binned)
+    if big:
+        return (rasterize_setup_hbm if binning == "hierarchy"
+                else rasterize_setup_binned_hbm)
     if binning == "small" or (
             binning == "auto" and head_count(rows) <= SMALL_BIN_MAX_ROWS):
         return rasterize_setup_small
