@@ -19,6 +19,14 @@ Phases, in order, each printing its own lines and seconds:
     depth tie to the first-submitted row) and the soup under small
     cap/budgets so that the budget clamp and the coarse phase engage;
     the plain K5's time at 40K and K6's at 20K are their plain_ms;
+4g. the G-buffer kernels K2g (small-scene lists), K3g (hierarchy), K4g
+    (record streaming) and K5g (streamed hierarchy) against their plain
+    versions, all 13 planes bitwise as int32 (so -0.0 and NaN count): K2g
+    on the test scene at 1080p, K3g on the 20K lattice, K4g and K5g on the
+    40K lattice, each on the clipped soup and the duplicated soup (exact
+    ties), each with random normal matrices and a random material table
+    (one row per triangle, so a wrong winner shows in the constant
+    planes); the plain K2g, K3g and K5g calls give their plain_ms;
 5. the main path: ``Renderer.render_and_read`` at 1080p on the test scene
    (K1) and the lattice (K3), with the launch counts of that run, and the
    256x144 frame against the NumPy oracle (the port's geometry on CPU
@@ -32,6 +40,17 @@ Phases, in order, each printing its own lines and seconds:
     span, peak memory and coverage.  K4 on the 1M lattice and K4c on the
     1M soup (coarse class non-empty) are held bit-exact against their
     plain versions on those main-path inputs, which time plain_ms;
+5l. the lit main path, ``Renderer(pipeline="lit")`` at 1080p, each run
+    with every launch count set to 0 just before and read just after: the
+    test scene with the 256x256 checker pattern (K2g, one launch a frame),
+    held against the port's CPU lit frame (coverage exact, u8 within 2
+    LSB); the showcase scene with its texture array; the 20K lattice (K3g);
+    the 1M lattice through ``auto`` (K4g) and ``hierarchy`` (K5g), whose
+    visible G-buffer planes are bitwise equal (K4g is held bit-exact
+    against its plain version on those main-path inputs, which time its
+    plain_ms); and the 160x96 lit frame of
+    the procedural test scene against ``tests/goldens/lit_160x96.png``
+    within 2 LSB;
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape, and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
@@ -40,13 +59,18 @@ Phases, in order, each printing its own lines and seconds:
    a kernel is timed only from a trace that holds every one of its
    launches (at most three traces).  Then the
    untraced loops: ``render_animation`` ms/frame (CUDA events) per path
-   and a per-stage breakdown (ms per call, host dispatch included);
-7. the app CLI writing PNGs;
+   (the lit paths included) and per-stage breakdowns (ms per call, host
+   dispatch included, beside each stage's device ops and device-busy ms
+   from its trace) of the flat test scene, the flat 1M lattice and the
+   lit test scene (geometry, prepare, K2g, crop, LOD, sampling, shading
+   plus tonemap, digest);
+7. the app CLI writing PNGs: the test scene flat, the showcase lit;
 8. hygiene: neither jax nor the JAX package (``zrenderer_tpu``) loaded.
 
-Each kernel's bound is the larger of its inputs and outputs moved once
-at the card's memory rate and the (tile, triangle) pairs its frame needs,
-times 4096 pixels and OPS_PER_EVAL, at the CUDA-core rate.
+Each kernel's bound is the larger of its inputs and outputs (2 planes
+flat, 13 G-buffer) moved once at the card's memory rate and the (tile,
+triangle) pairs its frame needs, times 4096 pixels and OPS_PER_EVAL, at
+the CUDA-core rate.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The second-to-last line is the kernels' JSON record, the last line
@@ -64,6 +88,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCENE_DIR = os.path.join(HERE, "content", "scenes", "test_scene")
+SHOWCASE_DIR = os.path.join(HERE, "content", "scenes", "showcase")
+LIT_GOLDEN = os.path.join(HERE, "tests", "goldens", "lit_160x96.png")
 
 # The main-path frame (the reference demo's 1080p) and its padded raster
 # target, the card, and the animation length of the timing phase.
@@ -94,6 +120,9 @@ PARITY_MAX_LSB = 1
 PARITY_MAX_PX = 50
 DEPTH_MAX_ULP = 2
 MIN_COVERAGE = 0.05
+# The lit frame on the card against the port's CPU frame and the stored
+# golden: CUDA's pow/log2/sqrt are not the CPU's, so u8 within 2 LSB.
+LIT_MAX_LSB = 2
 
 
 def phase(name):
@@ -121,17 +150,27 @@ def main() -> int:
 
     from zrenderer_tpu_torch.app.main import main as app_main
     from zrenderer_tpu_torch.engine.config import RenderConfig
-    from zrenderer_tpu_torch.engine.renderer import Renderer, frame_digest
+    from zrenderer_tpu_torch.engine.renderer import (
+        Renderer,
+        frame_digest,
+        rgba_digest,
+    )
+    from zrenderer_tpu_torch.engine.textures import (
+        Texture,
+        checkerboard,
+        textures_from_mesh_data,
+    )
     from zrenderer_tpu_torch.engine.upload import (
         flat_scene_to_device,
         flatten_scene,
     )
-    from zrenderer_tpu_torch.ops import _build, raster
+    from zrenderer_tpu_torch.ops import _build, raster, sampling, shading
     from zrenderer_tpu_torch.ops import geometry as tg
     from zrenderer_tpu_torch.raster_ref import raster_cpu
     from zrenderer_tpu_torch.scene.mesh import V_COLOR, MeshData
     from zrenderer_tpu_torch.scene.procedural import (
         make_stress_scene,
+        make_test_scene,
         make_triangle_soup,
     )
     from zrenderer_tpu_torch.scene.scene import Scene
@@ -142,8 +181,11 @@ def main() -> int:
     k1, k3 = raster.raster_small_kernel, raster.raster_hier_kernel
     k4, k4c = raster.raster_binned_kernel, raster.raster_binned_coarse_kernel
     k5, k6 = raster.raster_hbm_kernel, raster.raster_lists_kernel
+    k2g, k3g = raster.gbuffer_small_kernel, raster.gbuffer_hier_kernel
+    k4g, k5g = raster.gbuffer_binned_kernel, raster.gbuffer_hbm_kernel
     results = {key: {"err": 0.0}
-               for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6")}
+               for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6",
+                           "k2g", "k3g", "k4g", "k5g")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -183,6 +225,66 @@ def main() -> int:
         return tg.geometry_pipeline_cols(
             b["corner_cols"], b["tri_node"], torch.from_numpy(mats).to(dev),
             width, height)
+
+    def lit_rows(scene, md, width, height, tri_align=64, seed=0):
+        """Port geometry on the card with the lit inputs: random per-draw
+        normal matrices and a random material table with one row per
+        triangle (seeded), so every triangle carries its own constants."""
+        flat = flatten_scene(scene, md, pad=True, tri_align=tri_align)
+        b = flat_scene_to_device(flat.host_arrays(), dev)
+        vp = tg.view_proj_from_camera(scene.active_camera, width, height)
+        mats = np.einsum("nij,jk->nik", flat.node_to_world,
+                         vp).astype(np.float32)
+        rng = np.random.default_rng(seed)
+        nm = rng.standard_normal((len(mats), 3, 3)).astype(np.float32)
+        table = rng.random((len(flat.tri_vidx), tg.MATERIAL_COLS),
+                           dtype=np.float32)
+        return tg.geometry_pipeline_cols(
+            b["corner_cols"], b["tri_node"], torch.from_numpy(mats).to(dev),
+            width, height, normal_matrices=torch.from_numpy(nm).to(dev),
+            material_table=torch.from_numpy(table).to(dev))
+
+    def compare_gbuffer(key, label, kernel_fn, plain_fn, prepared, w, h,
+                        plain_shape=None):
+        """G-buffer kernel vs plain version on the same prepared inputs:
+        all GBUFFER_PLANES planes must be equal as int32 bits (so -0.0
+        and NaN count).  ``plain_shape``: record the plain call's time as
+        the kernel's plain_ms."""
+        sync()
+        gk = kernel_fn(*prepared, w, h)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gp = plain_fn(*prepared, w, h)
+        end.record()
+        sync()
+        if plain_shape is not None:
+            results[key]["plain_ms"] = start.elapsed_time(end)
+            results[key]["plain_shape"] = plain_shape
+        if len(gk) != raster.GBUFFER_PLANES or len(gp) != len(gk):
+            raise AssertionError(f"{label}: {len(gk)} planes")
+        same = [torch.equal(a.contiguous().view(torch.int32),
+                            b.contiguous().view(torch.int32))
+                for a, b in zip(gk, gp)]
+        err = max(
+            (raster.unpack_rgba8(gk[0]).int() - raster.unpack_rgba8(gp[0])
+             .int()).abs().max().item(),
+            max((torch.nan_to_num(a) - torch.nan_to_num(b)).abs().max().item()
+                for a, b in zip(gk[1:], gp[1:])))
+        covered = gp[1] < 1.0
+        cov = covered.float().mean().item()
+        layers = torch.unique(gp[12][covered]).numel()
+        print(f"  {label}: {w}x{h} bit-exact={all(same)} planes "
+              f"{sum(same)}/{len(same)} max_abs_err={err} coverage={cov:.4f}"
+              f" distinct layer constants {layers}", flush=True)
+        if not all(same):
+            raise AssertionError(f"{label}: kernel and plain version differ "
+                                 f"in planes {[i for i, x in enumerate(same) if not x]}")
+        if cov <= 0.0:
+            raise AssertionError(f"{label}: empty frame proves nothing")
+        results[key]["err"] = max(results[key]["err"], float(err))
+        return gk
 
     def compare(key, label, kernel_fn, plain_fn, prepared, w, h,
                 plain_shape=None):
@@ -231,12 +333,13 @@ def main() -> int:
               - (imin.clamp(min=0) // raster.TILE_H) + 1).clamp(min=0)
         return int(torch.where(live, tx * ty, 0).sum().item())
 
-    def set_bound(key, inputs, pairs, w, h, shape):
+    def set_bound(key, inputs, pairs, w, h, shape, planes=2):
         """The least time the card could take: inputs read once and the
-        two output planes written once at HBM_BYTES_PER_S, or ``pairs``
-        tile evaluations at CUDA_CORE_OPS_PER_S, whichever is larger."""
+        ``planes`` output planes written once at HBM_BYTES_PER_S, or
+        ``pairs`` tile evaluations at CUDA_CORE_OPS_PER_S, whichever is
+        larger."""
         nbytes = (sum(t.numel() * t.element_size() for t in inputs)
-                  + 2 * 4 * w * h)
+                  + planes * 4 * w * h)
         ops = pairs * raster.TILE_H * raster.TILE_W * OPS_PER_EVAL
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
@@ -450,6 +553,57 @@ def main() -> int:
         print("  every exact depth tie went to the first-submitted row "
               "(K4, K4c, K5, K6)")
 
+    # -- 4g. K2g, K3g, K4g, K5g vs plain ----------------------------------
+    @phase("4g K2g/K3g/K4g/K5g G-buffer kernels vs plain versions")
+    def gbuffer_inputs():
+        hier = lambda a, b, w, h: raster.prepare_raster_inputs(a, b)
+        cases = {  # key: (kernel, plain version, prepare)
+            "k2g": (k2g, raster.gbuffer_small_plain,
+                    raster.prepare_binned_small),
+            "k3g": (k3g, raster.gbuffer_hier_plain, hier),
+            "k4g": (k4g, raster.gbuffer_binned_plain,
+                    raster.prepare_binned_hbm_inputs),
+            "k5g": (k5g, raster.gbuffer_hbm_plain, hier),
+        }
+
+        def check(key, label, rows, w, h, plain_shape=None):
+            kern, plain, prepare = cases[key]
+            return compare_gbuffer(key, label, kern, plain,
+                                   prepare(*rows, w, h), w, h, plain_shape)
+
+        scene, md = load_test_scene()
+        check("k2g", "test scene", lit_rows(scene, md, WIDTH, HEIGHT, 256),
+              PAD_W, PAD_H, plain_shape="test scene")
+        t0 = time.perf_counter()
+        check("k3g", "lattice20k",
+              lit_rows(*lattice, WIDTH, HEIGHT, 256), PAD_W, PAD_H,
+              plain_shape="lattice20k")
+        print(f"  (plain K3g included: {time.perf_counter() - t0:.1f} s)")
+        rows_mid = lit_rows(*make_stress_scene(MID_TRIS), WIDTH, HEIGHT, 256)
+        if rows_mid[0].shape[0] <= raster.MAX_RESIDENT_ROWS:
+            raise AssertionError("the mid lattice must exceed the row bound")
+        check("k4g", "lattice40k", rows_mid, PAD_W, PAD_H)
+        t0 = time.perf_counter()
+        check("k5g", "lattice40k", rows_mid, PAD_W, PAD_H,
+              plain_shape="lattice40k")
+        print(f"  (plain K5g included: {time.perf_counter() - t0:.1f} s)")
+
+        soup = lit_rows(*clipped_soup(), WIDTH, HEIGHT)
+        w, h = 1024, 512
+        dup = lit_rows(*tie_soup(True), w, h)
+        one = lit_rows(*tie_soup(False), w, h)
+        for key in cases:
+            check(key, "clipped soup", soup, PAD_W, PAD_H)
+            g_dup = check(key, "duplicated triangles", dup, w, h)
+            kern, _, prepare = cases[key]
+            g_one = kern(*prepare(*one, w, h), w, h)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(g_dup, g_one)):
+                raise AssertionError(f"{key}: a duplicate won a depth tie")
+        print("  every exact depth tie went to the first-submitted row "
+              "(K2g, K3g, K4g, K5g; the duplicates carry other colors and "
+              "constants)")
+
     # -- 5. main path -----------------------------------------------------
     @phase("5 main path")
     def launches():
@@ -504,7 +658,7 @@ def main() -> int:
 
     # -- 5b. large-scene paths ----------------------------------------------
     kernel_of = {"k1": k1, "k3": k3, "k4": k4, "k4_coarse": k4c, "k5": k5,
-                 "k6": k6}
+                 "k6": k6, "k2g": k2g, "k3g": k3g, "k4g": k4g, "k5g": k5g}
 
     def drive(label, scene_md, binning, key):
         """One frame through Renderer.render_and_read with every launch
@@ -579,7 +733,6 @@ def main() -> int:
               f"digest): {same}")
         if not same:
             raise AssertionError("lattice1M: K4 and K5 frames differ")
-        del lattice_big
 
         soup_big = make_triangle_soup(LARGE_TRIS, seed=1, extent=SOUP_EXTENT)
         r4c, fc, rows_soup, counts["k4_coarse"], prepc = drive(
@@ -606,9 +759,140 @@ def main() -> int:
                                                 "tile_lists", "k6")
         print(f"  launches in the large-scene runs: "
               f"{ {k: counts[k] for k in ('k4', 'k5', 'k4_coarse', 'k6')} }")
-        return r4, r5, r4c, r6, rows_lattice, rows_soup, rows_k6
+        return (r4, r5, r4c, r6, rows_lattice, rows_soup, rows_k6,
+                lattice_big)
 
-    r_k4, r_k5, r_k4c, r_k6, rows_lattice, rows_soup, rows_k6 = large
+    (r_k4, r_k5, r_k4c, r_k6, rows_lattice, rows_soup, rows_k6,
+     lattice_big) = large
+
+    # -- 5l. lit main path --------------------------------------------------
+    def checker_texture(size=256):
+        """The 256x256 checker pattern of BASELINE's lit_1080p cell
+        (benchmarks/configs.py checker_texture), built here."""
+        y, x = np.mgrid[0:size, 0:size]
+        c = (((x // 16) ^ (y // 16)) & 1).astype(np.float32)
+        img = np.stack([c, 0.5 + 0.5 * c, 1.0 - 0.5 * c, np.ones_like(c)],
+                       axis=-1)
+        return Texture.from_array(img.astype(np.float32))
+
+    def lit_renderer(scene_md, binning="auto", device=DEVICE, width=WIDTH,
+                     height=HEIGHT, texture=None, tri_align=256):
+        r = Renderer(RenderConfig(width=width, height=height,
+                                  pipeline="lit", binning=binning,
+                                  tri_align=tri_align), device=device)
+        r.load_scene(*scene_md)
+        if texture is not None:
+            r.set_environment(texture=texture)
+        return r
+
+    def drive_lit(label, r, key):
+        """One lit frame through Renderer.render_and_read with every launch
+        count set to 0 just before and read just after."""
+        for kern in kernel_of.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        img, depth = r.render_and_read()
+        wall = (time.perf_counter() - t0) * 1000.0
+        launched = {k: kern.launches for k, kern in kernel_of.items()}
+        cov = (depth < 1.0).mean()
+        print(f"  lit {label} {img.shape[1]}x{img.shape[0]} binning="
+              f"{r.config.binning}: coverage={cov:.4f}, first frame "
+              f"{wall:.1f} ms (host clock, warm-up included), launches "
+              f"{ {k: n for k, n in launched.items() if n} }", flush=True)
+        if img.shape[:2] != (r.config.height, r.config.width):
+            raise AssertionError(f"lit {label}: bad frame shape")
+        if not np.isfinite(depth).all() or cov <= MIN_COVERAGE:
+            raise AssertionError(f"lit {label}: frame empty or not finite")
+        if launched[key] != 1 or sum(launched.values()) != 1:
+            raise AssertionError(f"lit {label}: expected one {key} launch, "
+                                 f"got {launched}")
+        return img, depth, launched[key]
+
+    def lit_frame_rows(r):
+        """The setup rows of a lit renderer's current frame on its device."""
+        b = r._buffers()
+        c = r._lit_constants()
+        return tg.geometry_pipeline_cols(
+            b["corner_cols"], b["tri_node"],
+            torch.from_numpy(c["matrices"]).to(dev), r.config.width,
+            r.config.height,
+            normal_matrices=torch.from_numpy(c["normal_mats"]).to(dev),
+            material_table=b["materials"])
+
+    def lsb_diff(a, b):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return int(d.max()), int((d > 1).any(-1).sum())
+
+    @phase("5l lit main path")
+    def lit():
+        scene_md = load_test_scene()
+        r = lit_renderer(scene_md, texture=checker_texture())
+        img, depth, counts["k2g"] = drive_lit("test scene (K2g)", r, "k2g")
+        rc = lit_renderer(scene_md, texture=checker_texture(), device="cpu")
+        img_c, depth_c = rc.render_and_read()
+        lsb, over1 = lsb_diff(img, img_c)
+        cov_same = np.array_equal(depth < 1.0, depth_c < 1.0)
+        print(f"  lit test scene card vs CPU frame: coverage equal "
+              f"{cov_same}, max {lsb} LSB, {over1} px over 1 LSB")
+        if not cov_same or lsb > LIT_MAX_LSB:
+            raise AssertionError("lit 1080p frame differs from the CPU frame")
+
+        md = MeshData.load(os.path.join(SHOWCASE_DIR, "meshes.bin"))
+        sc = Scene.load(os.path.join(SHOWCASE_DIR, "scene.bin"))
+        textures, mat_tex = textures_from_mesh_data(md, SHOWCASE_DIR)
+        if textures is None:
+            raise AssertionError("showcase textures did not load")
+        rs = lit_renderer((sc, md))
+        rs.set_environment(textures=textures, material_textures=mat_tex)
+        img_s, _, _ = drive_lit("showcase (K2g, texture array of "
+                             f"{rs.texture.num_layers} layers)", rs, "k2g")
+        spread = img_s[..., :3].reshape(-1, 3).std(axis=0)
+        print(f"  showcase channel spread {spread.round(2).tolist()}")
+        if not (spread > 5).all():
+            raise AssertionError("showcase: textures not sampled")
+
+        rl = lit_renderer(lattice, texture=checker_texture())
+        _, _, counts["k3g"] = drive_lit("lattice20k (K3g)", rl, "k3g")
+
+        r4 = lit_renderer(lattice_big, texture=checker_texture())
+        *f4, counts["k4g"] = drive_lit("lattice1M (K4g)", r4, "k4g")
+        r5 = lit_renderer(lattice_big, "hierarchy", texture=checker_texture())
+        *f5, counts["k5g"] = drive_lit("lattice1M (K5g)", r5, "k5g")
+        rows_big = lit_frame_rows(r4)
+        # The main path's K4g inputs against the plain version; its time
+        # is K4g's plain_ms.
+        g4 = compare_gbuffer(
+            "k4g", "lit lattice1M", k4g, raster.gbuffer_binned_plain,
+            raster.prepare_binned_hbm_inputs(*rows_big, PAD_W, PAD_H),
+            PAD_W, PAD_H, plain_shape="lattice1M")
+        g4 = [p[:HEIGHT, :WIDTH] for p in g4]
+        g5 = [p[:HEIGHT, :WIDTH] for p in raster.rasterize_gbuffer_hbm(
+            *rows_big, PAD_W, PAD_H)]
+        same = [torch.equal(a.contiguous().view(torch.int32),
+                            b.contiguous().view(torch.int32))
+                for a, b in zip(g4, g5)]
+        same_frame = (np.array_equal(f4[0], f5[0])
+                      and np.array_equal(f4[1].view(np.int32),
+                                         f5[1].view(np.int32)))
+        print(f"  lit lattice1M K4g == K5g: visible G-buffer planes "
+              f"{sum(same)}/{len(same)} bitwise equal, frames equal "
+              f"{same_frame}")
+        if not all(same) or not same_frame:
+            raise AssertionError("lattice1M: K4g and K5g differ")
+
+        rg = lit_renderer(make_test_scene(), width=160, height=96,
+                          texture=Texture.from_array(checkerboard(64, 8)),
+                          tri_align=64)
+        img_g, _ = rg.render_and_read()
+        lsb, over1 = lsb_diff(img_g, read_png(LIT_GOLDEN))
+        print(f"  lit 160x96 vs tests/goldens/lit_160x96.png: max {lsb} LSB,"
+              f" {over1} px over 1 LSB")
+        if lsb > LIT_MAX_LSB:
+            raise AssertionError("lit 160x96 frame differs from the golden")
+        return r, rl, r4, r5, rows_big
+
+    r_lit, r_lit3, r_lit4, r_lit5, rows_lit_big = lit
+    del lattice_big
 
     # -- 6. timing --------------------------------------------------------
     # A trace can hold a launch call without its kernel record, rarely
@@ -670,7 +954,11 @@ def main() -> int:
     kernel_names = {"k1": "raster_small_kernel", "k3": "raster_hier_kernel",
                     "k4": "raster_records_kernel",
                     "k4_coarse": "raster_records_coarse_kernel",
-                    "k5": "raster_hier_kernel", "k6": "raster_lists_kernel"}
+                    "k5": "raster_hier_kernel", "k6": "raster_lists_kernel",
+                    "k2g": "gbuffer_small_kernel",
+                    "k3g": "gbuffer_hier_kernel",
+                    "k4g": "gbuffer_records_kernel",
+                    "k5g": "gbuffer_hbm_kernel"}
     raster_kernels = set(kernel_names.values())
 
     def traced_kernel_ms(key, fn, attempts=3):
@@ -691,6 +979,76 @@ def main() -> int:
         raise AssertionError(f"{key}: no trace of {attempts} held every "
                              "launch")
 
+    def lit_stages():
+        """The lit 1080p test-scene frame split into its stages, each a
+        callable on the previous stage's outputs: {name: (fn, reps)}."""
+        r = r_lit
+        b = r._buffers()
+        c = {k: torch.from_numpy(v).to(dev)
+             for k, v in r._lit_constants().items()}
+        tex = r.texture
+        th, tw = tex.base_shape
+        levels = tex.num_levels
+
+        def geometry():
+            return tg.geometry_pipeline_cols(
+                b["corner_cols"], b["tri_node"], c["matrices"], WIDTH,
+                HEIGHT, normal_matrices=c["normal_mats"],
+                material_table=b["materials"])
+
+        ti, tf = geometry()
+        prep = raster.prepare_binned_small(ti, tf, PAD_W, PAD_H)
+        planes = k2g(*prep, PAD_W, PAD_H)
+
+        def crop():
+            return ([raster.unpack_rgba8(planes[0][:HEIGHT, :WIDTH])]
+                    + [p[:HEIGHT, :WIDTH] for p in planes[1:]])
+
+        g = crop()
+        uv = torch.stack([g[2], g[3]], dim=-1)
+
+        def lod():
+            return sampling.mip_level_from_derivatives(
+                torch.stack([g[2], g[3]], dim=-1), th, tw, levels)
+
+        level = lod()
+
+        def sample():
+            return sampling.sample_trilinear(tex.atlas_u32, th, tw, levels,
+                                             uv, level)
+
+        texel = sample()
+        albedo = (g[0][..., :3].to(torch.float32)
+                  / shading._const(texel, 255.0)) * texel[..., :3]
+
+        def shade():
+            world = shading.reconstruct_world_pos(g[1], c["inv_view_proj"],
+                                                  WIDTH, HEIGHT)
+            spec, shin = shading.blinn_params_from_material(g[7], g[8])
+            lit_rgb = shading.blinn_phong(
+                albedo, torch.stack(g[4:7], dim=-1), world, c["cam_pos"],
+                r.light_pos, r.light_color, specular=spec, shininess=shin)
+            lit_rgb = lit_rgb + torch.stack(g[9:12], dim=-1)
+            return shading.tonemap_and_pack(lit_rgb, g[1] < 1.0)
+
+        color = shade()
+        return {
+            "lit geometry": (geometry, 50),
+            "lit prepare_binned_small": (lambda: raster.prepare_binned_small(
+                ti, tf, PAD_W, PAD_H), 50),
+            "lit K2g launcher": (lambda: k2g(*prep, PAD_W, PAD_H), 50),
+            "lit crop": (crop, 50),
+            "lit LOD": (lod, 50),
+            "lit sampling": (sample, 50),
+            "lit shading + tonemap": (shade, 50),
+            "lit digest": (lambda: rgba_digest(color), 50),
+            "lit whole frame (passes.build_lit_frame)": (
+                lambda: r._frame_fn()(b, tex.atlas_u32, c["matrices"],
+                                      c["normal_mats"], c["inv_view_proj"],
+                                      c["cam_pos"], r.light_pos,
+                                      r.light_color), 50),
+        }
+
     @phase("6 timing")
     def timing():
         # (label, renderer, kernel, frames timed, frames profiled)
@@ -702,6 +1060,12 @@ def main() -> int:
             ("soup1M tile_lists (K4c)", r_k4c, "k4_coarse", 5, 3),
             ("lattice20k tile_lists (K6)", r_k6, "k6", ANIM_FRAMES,
              PROFILE_FRAMES),
+            ("lit test scene (K2g)", r_lit, "k2g", ANIM_FRAMES,
+             PROFILE_FRAMES),
+            ("lit lattice20k (K3g)", r_lit3, "k3g", ANIM_FRAMES,
+             PROFILE_FRAMES),
+            ("lit lattice1M (K4g)", r_lit4, "k4g", LARGE_FRAMES, 5),
+            ("lit lattice1M (K5g)", r_lit5, "k5g", LARGE_FRAMES, 5),
         )
         # A. Traces: each kernel alone at its main-path shape, a profiled
         # render_animation per path, and the device ops of each stage.
@@ -717,6 +1081,15 @@ def main() -> int:
                 coarse_cap=raster.TILE_LISTS_COARSE_CAP), "soup1M", 3),
             "k6": (raster.prepare_binned_inputs(*rows_k6, PAD_W, PAD_H),
                    "lattice20k", 20),
+            "k2g": (raster.prepare_binned_small(*lit_frame_rows(r_lit),
+                                                PAD_W, PAD_H),
+                    "test scene", 50),
+            "k3g": (raster.prepare_raster_inputs(*lit_frame_rows(r_lit3)),
+                    "lattice20k", 20),
+            "k4g": (raster.prepare_binned_hbm_inputs(*rows_lit_big, PAD_W,
+                                                     PAD_H), "lattice1M", 5),
+            "k5g": (raster.prepare_raster_inputs(*rows_lit_big), "lattice1M",
+                    3),
         }
         for key, (prep_k, shape, reps) in cases.items():
             kern = kernel_of[key]
@@ -769,8 +1142,9 @@ def main() -> int:
             "lattice1M K4 launcher": (lambda: k4(*prep4, PAD_W, PAD_H), 10),
             "lattice1M digest": (lambda: frame_digest(packed4), 10),
         }
-        stage_ops = {name: len(device_trace(fn)[0])
-                     for name, (fn, _) in stages.items()}
+        stages.update(lit_stages())
+        stage_events = {name: device_trace(fn)[0]
+                        for name, (fn, _) in stages.items()}
 
         # B. Untraced timing loops (no trace follows them).
         for label, r, key, frames, _ in animations:
@@ -792,26 +1166,30 @@ def main() -> int:
                   f"{1000.0 / dev_ms:.1f} FPS; host clock {wall:.4f} "
                   f"ms/frame incl. digest read; digest {d[0]:.6e}")
         for name, (fn, reps) in stages.items():
+            ev = stage_events[name]
             print(f"  stage {name}: {event_ms(fn, reps):.4f} ms/call "
-                  f"(CUDA events, host dispatch included), "
-                  f"{stage_ops[name]} device ops/call (profiler)")
+                  f"(CUDA events, host dispatch included), {len(ev)} device "
+                  f"ops/call, device busy {busy_us(ev) / 1000.0:.4f} "
+                  f"ms/call (profiler)")
 
-        rows_of = {"k1": None, "k3": None, "k4": rows_lattice,
-                   "k5": rows_lattice, "k4_coarse": rows_soup,
-                   "k6": rows_k6}
+        rows_of = {"k4": rows_lattice, "k5": rows_lattice,
+                   "k4_coarse": rows_soup, "k6": rows_k6,
+                   "k4g": rows_lit_big, "k5g": rows_lit_big}
         for key, (prep_k, shape, reps) in cases.items():
             kern = kernel_of[key]
             res = results[key]
             res["wrapper_ms"] = event_ms(lambda: kern(*prep_k, PAD_W, PAD_H),
                                          reps)
-            if key == "k1":
+            if key in ("k1", "k2g"):
                 pairs = (int(prep_k[0].sum().item())
                          + tile_pairs(prep_k[4], PAD_W, PAD_H))
-            elif key == "k3":
+            elif key in ("k3", "k3g"):
                 pairs = tile_pairs(prep_k[2], PAD_W, PAD_H)
             else:
                 pairs = tile_pairs(rows_of[key][0], PAD_W, PAD_H)
-            set_bound(key, flat_inputs(prep_k), pairs, PAD_W, PAD_H, shape)
+            set_bound(key, flat_inputs(prep_k), pairs, PAD_W, PAD_H, shape,
+                      planes=(raster.GBUFFER_PLANES if key.endswith("g")
+                              else 2))
             print(f"  {key} {shape} {PAD_W}x{PAD_H}: kernel {res['ms']:.4f} "
                   f"ms device time (profiler; {res['anim_ms']:.4f} ms a "
                   f"launch in the profiled render_animation), launcher "
@@ -822,15 +1200,20 @@ def main() -> int:
     # -- 7. app -----------------------------------------------------------
     @phase("7 app")
     def app():
-        with tempfile.TemporaryDirectory() as tmp:
-            rc = app_main(["--scene", SCENE_DIR, "--width", str(WIDTH),
-                           "--height", str(HEIGHT), "--frames", "2",
-                           "--out", tmp, "--device", DEVICE])
-            img = read_png(os.path.join(tmp, "frame_0001.png"))
-        cov = (img[..., :3].astype(np.int32).sum(-1) > 0).mean()
-        print(f"  app rc={rc}, frame_0001.png {img.shape} coverage={cov:.4f}")
-        if rc != 0 or img.shape[:2] != (HEIGHT, WIDTH) or cov <= MIN_COVERAGE:
-            raise AssertionError("app frame missing or empty")
+        for scene_dir, pipeline in ((SCENE_DIR, "flat"),
+                                    (SHOWCASE_DIR, "lit")):
+            with tempfile.TemporaryDirectory() as tmp:
+                rc = app_main(["--scene", scene_dir, "--width", str(WIDTH),
+                               "--height", str(HEIGHT), "--frames", "2",
+                               "--out", tmp, "--device", DEVICE,
+                               "--pipeline", pipeline])
+                img = read_png(os.path.join(tmp, "frame_0001.png"))
+            cov = (img[..., :3].astype(np.int32).sum(-1) > 0).mean()
+            print(f"  app {os.path.basename(scene_dir)} {pipeline}: rc={rc}, "
+                  f"frame_0001.png {img.shape} coverage={cov:.4f}")
+            if (rc != 0 or img.shape[:2] != (HEIGHT, WIDTH)
+                    or cov <= MIN_COVERAGE):
+                raise AssertionError("app frame missing or empty")
 
     # -- 8. hygiene -------------------------------------------------------
     @phase("8 hygiene")
@@ -845,7 +1228,9 @@ def main() -> int:
         "k1": ("raster_small.cu", 2915), "k3": ("raster_hier.cu", 750),
         "k4": ("raster_binned.cu", 2253),
         "k4_coarse": ("raster_binned.cu", 2239),
-        "k5": ("raster_hier.cu", 640), "k6": ("raster_binned.cu", 1520)}
+        "k5": ("raster_hier.cu", 640), "k6": ("raster_binned.cu", 1520),
+        "k2g": ("raster_small.cu", 2943), "k3g": ("raster_hier.cu", 1015),
+        "k4g": ("raster_binned.cu", 2334), "k5g": ("raster_hier.cu", 717)}
     kernels = []
     for key, (src, line) in sources.items():
         res = results[key]

@@ -69,6 +69,7 @@ CAMERAS = {
     "test_scene_file": lambda m: _scene_files(m[0], m[1])[0].active_camera,
     "lattice": lambda m: m[2].make_stress_scene(3000)[0].active_camera,
     "soup": lambda m: m[2].make_triangle_soup(10)[0].active_camera,
+    "procedural_test_scene": lambda m: m[2].make_test_scene()[0].active_camera,
 }
 PORT_MODS = (port_scene, port_mesh, proc)
 REF_MODS = (ref_scene, ref_mesh, ref_proc)
@@ -96,6 +97,12 @@ def test_zmath_matches_reference():
                            ref_zm.f32x4(0, 1, 0, 0))),
         (zm.perspective_fov_rh(0.7, 1.5, 0.1, 300.0),
          ref_zm.perspective_fov_rh(0.7, 1.5, 0.1, 300.0)),
+        (zm.translation(*v), ref_zm.translation(*v)),
+        (zm.qmul(q0, q0[::-1]), ref_zm.qmul(q0, q0[::-1])),
+        (zm.mat_from_quat(q0), ref_zm.mat_from_quat(q0)),
+        (zm.rotate_vec3(q0, v), ref_zm.rotate_vec3(q0, v)),
+        (np.float32(zm.quat_to_euler(q0)),
+         np.float32(ref_zm.quat_to_euler(q0))),
     ]
     for ours, ref in pairs:
         assert ours.dtype == ref.dtype == np.float32
@@ -116,6 +123,7 @@ PROCEDURAL = {
     "lattice3000": lambda p: p.make_stress_scene(3000, seed=2),
     "soup": lambda p: p.make_triangle_soup(
         60, seed=5, extent=2.0, behind_camera_fraction=0.1),
+    "test_scene": lambda p: p.make_test_scene(),
 }
 
 

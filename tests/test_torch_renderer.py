@@ -44,6 +44,7 @@ from zrenderer_tpu_torch.engine.upload_ring import UploadRing
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SCENE_DIR = os.path.join(ROOT, "content", "scenes", "test_scene")
+SHOWCASE_DIR = os.path.join(ROOT, "content", "scenes", "showcase")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
 
 
@@ -233,8 +234,10 @@ def test_frame_stats_line():
 
 
 def test_config_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        RenderConfig(pipeline="lit")
+    for pipeline in ("shadowed", "deferred"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            RenderConfig(pipeline=pipeline)
+    assert RenderConfig(pipeline="lit").pipeline == "lit"
     with pytest.raises(NotImplementedError):
         RenderConfig(supersample=2)
     with pytest.raises(NotImplementedError):
@@ -292,6 +295,8 @@ def test_port_never_imports_jax():
         "from zrenderer_tpu_torch.app.main import main\n"
         f"main(['--scene', {SCENE_DIR!r}, '--width', '128', '--height',"
         " '64', '--frames', '1', '--device', 'cpu'])\n"
+        f"main(['--scene', {SHOWCASE_DIR!r}, '--width', '128', '--height',"
+        " '64', '--frames', '1', '--device', 'cpu', '--pipeline', 'lit'])\n"
         "loaded = [m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'zrenderer_tpu')]\n"
         "assert not loaded, loaded\n"

@@ -1,11 +1,15 @@
-"""Headless renderer application, flat pipeline (counterpart of
+"""Headless renderer application, flat and lit pipelines (counterpart of
 ``zrenderer_tpu/app/main.py``).
 
 Loads a scene folder (scene.bin + meshes.bin), prints the scene outliner,
 renders frames on the chosen device and writes them as PNGs:
 
     python -m zrenderer_tpu_torch.app.main --scene content/scenes/test_scene \
-        --width 1920 --height 1080 --frames 60 --out out/ --device cuda
+        --width 1920 --height 1080 --frames 60 --out out/ --device cuda \
+        [--pipeline lit]
+
+The lit pipeline binds the scene's TEXS textures (PNG) where it has them,
+else a 256x256 checkerboard.
 """
 
 from __future__ import annotations
@@ -15,8 +19,13 @@ import logging
 import os
 import sys
 
-from zrenderer_tpu_torch.engine.config import RenderConfig
+from zrenderer_tpu_torch.engine.config import PIPELINES, RenderConfig
 from zrenderer_tpu_torch.engine.renderer import Renderer
+from zrenderer_tpu_torch.engine.textures import (
+    Texture,
+    checkerboard,
+    textures_from_mesh_data,
+)
 from zrenderer_tpu_torch.ops.raster import BINNINGS
 from zrenderer_tpu_torch.scene.mesh import MeshData
 from zrenderer_tpu_torch.scene.scene import Scene
@@ -43,6 +52,9 @@ def main(argv=None) -> int:
                         help="raster binning (auto: small-scene lists up to "
                              "1024 head rows, hierarchy up to 32768 setup "
                              "rows, record streaming above)")
+    parser.add_argument("--pipeline", default="flat", choices=PIPELINES,
+                        help="flat vertex color, or lit (textured "
+                             "Blinn-Phong, one point light)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda, cuda:N or cpu")
     args = parser.parse_args(argv)
@@ -52,9 +64,19 @@ def main(argv=None) -> int:
     scene = Scene.load(os.path.join(args.scene, "scene.bin"))
     mesh_data = MeshData.load(os.path.join(args.scene, "meshes.bin"))
     config = RenderConfig(width=args.width, height=args.height,
-                          binning=args.binning)
+                          binning=args.binning, pipeline=args.pipeline)
     renderer = Renderer(config, device=args.device)
     renderer.load_scene(scene, mesh_data)
+    if args.pipeline != "flat":
+        # Per-material textures from the scene's TEXS table when present,
+        # the checker otherwise.
+        tex_list, mat_tex = textures_from_mesh_data(mesh_data, args.scene)
+        if tex_list is not None:
+            renderer.set_environment(textures=tex_list,
+                                     material_textures=mat_tex)
+        else:
+            renderer.set_environment(
+                texture=Texture.from_array(checkerboard(256)))
     print(scene_outliner(scene))
 
     if args.out:

@@ -1,4 +1,5 @@
-// K4, K4c and K6: binned flat raster over pair-sorted tile spans.
+// K4, K4c and K6: binned flat raster over pair-sorted tile spans; K4g: the
+// G-buffer variant of K4.
 //
 // Replaces, in zrenderer_tpu/ops/raster_pallas.py:
 //   K4   rasterize_setup_pallas_binned_hbm (_binned_hbm_kernel, body
@@ -38,6 +39,20 @@
 // Later work: stage a tile's contiguous records in shared memory with
 // cp.async/TMA, skip pixel rows outside a triangle's bbox, and balance the
 // tiles' spans (they differ by orders of magnitude) with persistent blocks.
+//
+// K4g replaces rasterize_gbuffer_pallas_binned_hbm
+// (_binned_hbm_gbuffer_kernel, body _binned_hbm_body with the G-buffer
+// scratch, no coarse phase): K4's phases keeping z and the winning row id,
+// then the 13 planes resolved from the winner (raster_common.cuh
+// TileState::store_gbuffer, epilogue buf * (covered ? 1/den : 0)).  A
+// record's id (its last int, the reference's L_PID) and a leftover row's
+// id both index the padded, uncompacted setup rows that hier/tf hold
+// (prepare_binned_hbm_inputs gathers the records from them), so the
+// epilogue reads the winner from hier/tf whichever phase it came from;
+// hier differs from the records only in bbox and valid columns, which the
+// epilogue does not read.  Bound on the H100: as K4, plus the 13 output
+// planes (109 MB at 1920x1088, 0.032 ms at 3.35 TB/s).  ptxas (sm_90a, -O3
+// -fmad=false): K4g 112 registers against K4's 192, no spills.
 
 #include "raster_common.cuh"
 
@@ -56,22 +71,20 @@ __device__ __forceinline__ bool record_hits(const int* __restrict__ r,
          __ldg(r + I_IMAX) >= row0 && __ldg(r + I_IMIN) < row0 + TILE_H;
 }
 
-// The body of all three kernels.  RECORDS: spans of gathered records
-// (K4/K4c) or of row ids (K6).  COARSE: run phase 1.5 over the coarse
-// class.
-template <bool RECORDS, bool COARSE>
-__device__ __forceinline__ void binned_tile(
-    const int* __restrict__ offsets, const int* __restrict__ span_i,
-    const float* __restrict__ span_f, const int* __restrict__ coffsets,
-    const int* __restrict__ crec_i, const float* __restrict__ crec_f,
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
-    const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, int width) {
+// Phases 1, 1.5 and 2 of all four kernels.  RECORDS: spans of gathered
+// records (K4/K4c/K4g) or of row ids (K6).  COARSE: run phase 1.5 over the
+// coarse class.
+template <bool RECORDS, bool COARSE, class State>
+__device__ __forceinline__ void binned_scan(
+    State& st, const int* __restrict__ offsets,
+    const int* __restrict__ span_i, const float* __restrict__ span_f,
+    const int* __restrict__ coffsets, const int* __restrict__ crec_i,
+    const float* __restrict__ crec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf, int width) {
   const int tiles_x = width / TILE_W;
   const int tile = blockIdx.x;
   const int ty = tile / tiles_x, tx = tile % tiles_x;
-  TileState<true> st;
   st.init(ty * TILE_H, tx * TILE_W);
 
   const int end = __ldg(offsets + tile + 1);
@@ -96,6 +109,22 @@ __device__ __forceinline__ void binned_tile(
   }
 
   st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
+}
+
+// The body of the three flat kernels.
+template <bool RECORDS, bool COARSE>
+__device__ __forceinline__ void binned_tile(
+    const int* __restrict__ offsets, const int* __restrict__ span_i,
+    const float* __restrict__ span_f, const int* __restrict__ coffsets,
+    const int* __restrict__ crec_i, const float* __restrict__ crec_f,
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const float* __restrict__ tf, int* __restrict__ color,
+    float* __restrict__ depth, int width) {
+  TileState<true> st;
+  binned_scan<RECORDS, COARSE>(st, offsets, span_i, span_f, coffsets, crec_i,
+                               crec_f, supers, num_supers, blocks, ti, tf,
+                               width);
   st.store(color, depth, width);
 }
 
@@ -141,6 +170,22 @@ __global__ void __launch_bounds__(THREADS)
                             color, depth, width);
 }
 
+__global__ void __launch_bounds__(THREADS)
+    gbuffer_records_kernel(const int* __restrict__ offsets,
+                           const int* __restrict__ rec_i,
+                           const float* __restrict__ rec_f,
+                           const int* __restrict__ supers, int num_supers,
+                           const int* __restrict__ blocks,
+                           const int* __restrict__ ti,
+                           const float* __restrict__ tf,
+                           float* __restrict__ out, int width, int height) {
+  TileState<true, true> st;
+  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
+                           nullptr, supers, num_supers, blocks, ti, tf,
+                           width);
+  st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
+}
+
 }  // namespace zr
 
 // K4 (coffsets == nullptr) or K4c.
@@ -176,5 +221,19 @@ extern "C" int zr_raster_lists(const int* offsets, const int* pair_tri,
                             (cudaStream_t)stream>>>(
       offsets, pair_tri, supers, num_supers, blocks, ti, tf, color, depth,
       width);
+  return (int)cudaGetLastError();
+}
+
+// K4g.
+extern "C" int zr_gbuffer_records(const int* offsets, const int* rec_i,
+                                  const float* rec_f, const int* supers,
+                                  int num_supers, const int* blocks,
+                                  const int* ti, const float* tf, float* out,
+                                  int height, int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::gbuffer_records_kernel<<<num_tiles, zr::THREADS, 0,
+                               (cudaStream_t)stream>>>(
+      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, out, width,
+      height);
   return (int)cudaGetLastError();
 }

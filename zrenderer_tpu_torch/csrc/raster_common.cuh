@@ -1,15 +1,19 @@
-// Shared pieces of the flat raster kernels (raster_small.cu, raster_hier.cu,
-// raster_binned.cu).
+// Shared pieces of the flat and G-buffer raster kernels (raster_small.cu,
+// raster_hier.cu, raster_binned.cu).
 //
 // Layout contract with zrenderer_tpu/ops/geometry.py: setup rows are
 // (R, NI32) int32 + (R, NF32) float32, row-major; bbox tables are (n, 8)
 // int32 [jmin, jmax, imin, imax, any_valid, 0, 0, 0].  Output planes are
-// (H, W) row-major: packed RGBA8 as u32 bits in int32, and f32 depth.
+// (H, W) row-major: packed RGBA8 as u32 bits in int32, and f32 depth; a
+// G-buffer kernel writes GBUF_PLANES such planes back to back (color bits,
+// depth, u, v, nx, ny, nz, metallic, roughness, emissive r/g/b, layer).
 //
 // One CUDA block rasterizes one 32x128 screen tile.  Its 256 threads each
 // own one column and 16 rows of the tile (rows r0, r0 + 2, ...), and keep
 // the tile state for those pixels in registers across the whole triangle
 // loop: depth, winning row id (K1 only) and the r/g/b/(1/w) numerators.
+// The G-buffer kernels keep only depth and the winning row id, and
+// resolve every latch from the winner in the epilogue (TileState::GBUF).
 // Every triangle is evaluated by all threads of the block (the loops and
 // their bbox skips are block-uniform), so the per-triangle setup reads are
 // broadcast loads.
@@ -49,8 +53,15 @@ enum : int {
   I_BIAS0, I_BIAS1, I_BIAS2,
   I_JMIN, I_JMAX, I_IMIN, I_IMAX, I_VALID
 };
-// Float setup columns (geometry.F_*): three per interpolant.
-enum : int { F_ZA0 = 0, F_RW0 = 3, F_CR0 = 6, F_CG0 = 9, F_CB0 = 12 };
+// Float setup columns (geometry.F_*): three per interpolant, then the
+// per-triangle constants F_MET..F_TEX.
+enum : int {
+  F_ZA0 = 0, F_RW0 = 3, F_CR0 = 6, F_CG0 = 9, F_CB0 = 12,
+  F_U0 = 15, F_V0 = 18, F_NX0 = 21, F_NY0 = 24, F_NZ0 = 27, F_MET = 30
+};
+constexpr int GBUF_INTERP = 5;  // u, v, nx, ny, nz (from F_U0, 3 apart)
+constexpr int GBUF_CONSTS = 6;  // metallic, roughness, emissive rgb, layer
+constexpr int GBUF_PLANES = 2 + GBUF_INTERP + GBUF_CONSTS;
 
 __device__ __forceinline__ int edge_fn(int dx, int dy, int x, int y,
                                        int px, int py) {
@@ -81,11 +92,20 @@ __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
 
 // Per-thread tile state.  TIE selects the order-free depth test
 // (z, row id) of K1/K4/K6 over K3/K5's sequential strict-less test.
-template <bool TIE>
+//
+// GBUF: the G-buffer kernels (K2g, K3g, K4g, K5g).  Latching 11 more
+// planes the way the reference does would take 17 values a pixel, 272
+// registers a thread for 16 pixels: over the 255 cap.  Every latched value
+// is a pure function of (row, pixel), so the loops keep only z and the
+// winning row id (with strict-less order the last row that passed), and
+// store_gbuffer re-evaluates the winner's edge functions and interpolants
+// with the same interp3: the same bits, two values a pixel.
+template <bool TIE, bool GBUF = false>
 struct TileState {
   float z[PIX];
-  int tid[TIE ? PIX : 1];
-  float den[PIX], nr[PIX], ng[PIX], nb[PIX];
+  int tid[(TIE || GBUF) ? PIX : 1];
+  float den[GBUF ? 1 : PIX], nr[GBUF ? 1 : PIX], ng[GBUF ? 1 : PIX],
+      nb[GBUF ? 1 : PIX];
   int px;   // this thread's pixel-centre x, in subpixels
   int py0;  // pixel-centre y of its first row, in subpixels
   int row0, col0;
@@ -98,8 +118,8 @@ struct TileState {
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
       z[k] = 1.0f;
-      if constexpr (TIE) tid[k] = INT_MAX32;
-      den[k] = nr[k] = ng[k] = nb[k] = 0.0f;
+      if constexpr (TIE || GBUF) tid[k] = INT_MAX32;
+      if constexpr (!GBUF) den[k] = nr[k] = ng[k] = nb[k] = 0.0f;
     }
   }
 
@@ -142,15 +162,17 @@ struct TileState {
       }
       if (!ok) continue;
       z[k] = zz;
-      if constexpr (TIE) tid[k] = t;
-      den[k] = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
-                       __ldg(f + F_RW0 + 2));
-      nr[k] = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
-                      __ldg(f + F_CR0 + 2));
-      ng[k] = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
-                      __ldg(f + F_CG0 + 2));
-      nb[k] = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
-                      __ldg(f + F_CB0 + 2));
+      if constexpr (TIE || GBUF) tid[k] = t;
+      if constexpr (!GBUF) {
+        den[k] = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
+                         __ldg(f + F_RW0 + 2));
+        nr[k] = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
+                        __ldg(f + F_CR0 + 2));
+        ng[k] = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
+                        __ldg(f + F_CG0 + 2));
+        nb[k] = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
+                        __ldg(f + F_CB0 + 2));
+      }
     }
   }
 
@@ -197,6 +219,80 @@ struct TileState {
       const size_t idx = (size_t)(rbase + k * ROW_STEP) * width + col;
       color[idx] = (int)packed;
       depth[idx] = z[k];
+    }
+  }
+
+  // G-buffer resolve from the winning row (ti/tf: the rows tid indexes):
+  // re-evaluate its edge functions at the pixel, interpolate 1/w, color,
+  // uv and normal, copy its constants; then the flat resolve, and uv and
+  // normal times 1/den.  MASKED_INV picks the divide's form, which the
+  // reference's kernels differ in (sign of zero, NaN when a row passed
+  // with den <= 0): buf * (covered ? inv : 0) for K2g, K4g and K5g,
+  // covered ? buf * inv : 0 for K3g.  out holds GBUF_PLANES planes of
+  // plane floats each.
+  template <bool MASKED_INV>
+  __device__ __forceinline__ void store_gbuffer(
+      const int* __restrict__ ti, const float* __restrict__ tf,
+      float* __restrict__ out, int width, size_t plane) const {
+    static_assert(GBUF, "store_gbuffer needs the G-buffer state");
+    const int col = col0 + (int)(threadIdx.x % TILE_W);
+    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      float d = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
+      float g[GBUF_INTERP] = {}, c[GBUF_CONSTS] = {};
+      const int t = tid[k];
+      if (t != INT_MAX32) {
+        const int* r = ti + (size_t)t * NI32;
+        const float* f = tf + (size_t)t * NF32;
+        const int py = py0 + k * ROW_STEP * SUBPIXEL;
+        const float f0 = __int2float_rn(
+            edge_fn(__ldg(r + I_DX0), __ldg(r + I_DY0), __ldg(r + I_X1),
+                    __ldg(r + I_Y1), px, py));
+        const float f1 = __int2float_rn(
+            edge_fn(__ldg(r + I_DX1), __ldg(r + I_DY1), __ldg(r + I_X2),
+                    __ldg(r + I_Y2), px, py));
+        const float f2 = __int2float_rn(
+            edge_fn(__ldg(r + I_DX2), __ldg(r + I_DY2), __ldg(r + I_X0),
+                    __ldg(r + I_Y0), px, py));
+        d = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
+                    __ldg(f + F_RW0 + 2));
+        cr = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
+                     __ldg(f + F_CR0 + 2));
+        cg = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
+                     __ldg(f + F_CG0 + 2));
+        cb = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
+                     __ldg(f + F_CB0 + 2));
+#pragma unroll
+        for (int i = 0; i < GBUF_INTERP; ++i) {
+          const float* fc = f + F_U0 + 3 * i;
+          g[i] = interp3(f0, f1, f2, __ldg(fc), __ldg(fc + 1), __ldg(fc + 2));
+        }
+#pragma unroll
+        for (int i = 0; i < GBUF_CONSTS; ++i) c[i] = __ldg(f + F_MET + i);
+      }
+      const bool covered = d > 0.0f;
+      const float inv = covered ? __fdiv_rn(1.0f, d) : 1.0f;
+      const uint32_t packed = quantize(cr, covered, inv) |
+                              (quantize(cg, covered, inv) << 8) |
+                              (quantize(cb, covered, inv) << 16) |
+                              0xFF000000u;
+      const size_t idx = (size_t)(rbase + k * ROW_STEP) * width + col;
+      reinterpret_cast<int*>(out)[idx] = (int)packed;  // color bits
+      out[plane + idx] = z[k];
+#pragma unroll
+      for (int i = 0; i < GBUF_INTERP; ++i) {
+        float v;
+        if constexpr (MASKED_INV) {
+          v = __fmul_rn(g[i], covered ? inv : 0.0f);
+        } else {
+          v = covered ? __fmul_rn(g[i], inv) : 0.0f;
+        }
+        out[(2 + i) * plane + idx] = v;
+      }
+#pragma unroll
+      for (int i = 0; i < GBUF_CONSTS; ++i)
+        out[(2 + GBUF_INTERP + i) * plane + idx] = c[i];
     }
   }
 };

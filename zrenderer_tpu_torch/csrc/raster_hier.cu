@@ -1,4 +1,4 @@
-// K3 and K5: hierarchy flat raster.
+// K3 and K5: hierarchy flat raster; K3g and K5g: its G-buffer variants.
 //
 // Replaces rasterize_setup_pallas (K3: zrenderer_tpu/ops/raster_pallas.py,
 // _raster_kernel, body _kernel_body) and rasterize_setup_pallas_hbm (K5:
@@ -27,6 +27,20 @@
 // test resolves exact depth ties in submission order.  Later work: stage
 // hit blocks' rows in shared memory, skip pixel rows outside a triangle's
 // bbox, persistent blocks.
+//
+// K3g and K5g replace rasterize_gbuffer_pallas (K3g: _gbuffer_kernel, body
+// _kernel_body with the G-buffer scratch) and rasterize_gbuffer_pallas_hbm
+// (K5g: _hbm_gbuffer_kernel, body _hbm_kernel_body).  One tile body: the
+// same walk and strict-less test keeping z and the winning row id (the
+// last row that passed), then the 13 planes resolved from the winner
+// (raster_common.cuh TileState::store_gbuffer).  The two differ only in
+// the row cap (kept by the wrappers) and in the reference's epilogue:
+// K3g writes covered ? buf * inv : 0, K5g buf * (covered ? inv : 0); the
+// template flag keeps each one's bits (sign of zero, NaN).  Bound on the
+// H100: K3's per-pixel edge work over the (tile, triangle) pairs, or on a
+// sparse frame the 13 output planes (109 MB at 1920x1088, 0.032 ms at
+// 3.35 TB/s).  ptxas (sm_90a, -O3 -fmad=false): K3/K5 128 registers, K3g
+// 106, K5g 110, no spills.
 
 #include "raster_common.cuh"
 
@@ -46,6 +60,42 @@ __global__ void __launch_bounds__(THREADS)
   st.store(color, depth, width);
 }
 
+template <bool MASKED_INV>
+__device__ __forceinline__ void gbuffer_hier_tile(
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const float* __restrict__ tf, float* __restrict__ out, int width,
+    int height) {
+  const int tiles_x = width / TILE_W;
+  const int tile = blockIdx.x;
+  TileState<false, true> st;
+  st.init((tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
+  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
+  st.template store_gbuffer<MASKED_INV>(ti, tf, out, width,
+                                        (size_t)width * height);
+}
+
+// One entry point per kernel, so each has its own name in a profile.
+__global__ void __launch_bounds__(THREADS)
+    gbuffer_hier_kernel(const int* __restrict__ supers, int num_supers,
+                        const int* __restrict__ blocks,
+                        const int* __restrict__ ti,
+                        const float* __restrict__ tf,
+                        float* __restrict__ out, int width, int height) {
+  gbuffer_hier_tile<false>(supers, num_supers, blocks, ti, tf, out, width,
+                           height);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    gbuffer_hbm_kernel(const int* __restrict__ supers, int num_supers,
+                       const int* __restrict__ blocks,
+                       const int* __restrict__ ti,
+                       const float* __restrict__ tf, float* __restrict__ out,
+                       int width, int height) {
+  gbuffer_hier_tile<true>(supers, num_supers, blocks, ti, tf, out, width,
+                          height);
+}
+
 }  // namespace zr
 
 extern "C" int zr_raster_hier(const int* supers, int num_supers,
@@ -56,5 +106,29 @@ extern "C" int zr_raster_hier(const int* supers, int num_supers,
   zr::raster_hier_kernel<<<num_tiles, zr::THREADS, 0,
                            (cudaStream_t)stream>>>(
       supers, num_supers, blocks, ti, tf, color, depth, width);
+  return (int)cudaGetLastError();
+}
+
+// K3g.
+extern "C" int zr_gbuffer_hier(const int* supers, int num_supers,
+                               const int* blocks, const int* ti,
+                               const float* tf, float* out, int height,
+                               int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::gbuffer_hier_kernel<<<num_tiles, zr::THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      supers, num_supers, blocks, ti, tf, out, width, height);
+  return (int)cudaGetLastError();
+}
+
+// K5g.
+extern "C" int zr_gbuffer_hbm(const int* supers, int num_supers,
+                              const int* blocks, const int* ti,
+                              const float* tf, float* out, int height,
+                              int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::gbuffer_hbm_kernel<<<num_tiles, zr::THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      supers, num_supers, blocks, ti, tf, out, width, height);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-"""Renderer configuration for the port's flat pipeline.
+"""Renderer configuration for the port's flat and lit pipelines.
 
-Counterpart of ``zrenderer_tpu/engine/config.py``, with the fields the
-flat path reads.  Options whose passes are not ported yet raise
+Counterpart of ``zrenderer_tpu/engine/config.py``, with the fields those
+paths read.  Options whose passes are not ported yet raise
 ``NotImplementedError`` instead of being ignored.
 """
 
@@ -12,6 +12,8 @@ from dataclasses import dataclass, replace
 
 from zrenderer_tpu_torch.ops.raster import TILE_H, TILE_W
 
+PIPELINES = ("flat", "lit")
+
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -21,18 +23,20 @@ def _round_up(x: int, m: int) -> int:
 class RenderConfig:
     width: int = 1920
     height: int = 1080
-    # Only "flat" is ported; lit/shadowed/deferred are ROADMAP Queue 1
-    # items 7-9.
+    # "flat" (config 0) or "lit" (config 1, textured Blinn-Phong);
+    # shadowed and deferred are ROADMAP Queue 1 items 8-9.
     pipeline: str = "flat"
-    # Raster binning (ops/raster.select_raster).  Up to 32768 setup rows:
+    # Raster binning (ops/raster.select_raster; the lit pipeline's G-buffer
+    # dispatch, select_gbuffer_raster, differs above and with tile_lists).
+    # Up to 32768 setup rows:
     # "auto" (K1 small-scene lists up to 1024 head rows, K3 hierarchy
     # above), "small" (K1), "hierarchy" (K3) or "tile_lists" (K6 global
     # pair lists).  Above: "hierarchy" streams the hierarchy (K5),
     # "tile_lists" streams records with the coarse class (K4c), and the
     # others stream records (K4).
     binning: str = "auto"
-    # The kernels resolve uncovered pixels to (0, 0, 0, 255): the default
-    # clear color is the only one the flat path produces.
+    # The kernels and the lit tonemap resolve uncovered pixels to (0, 0, 0,
+    # 255): the default clear color is the only one the port produces.
     clear_color: tuple = (0.0, 0.0, 0.0, 1.0)
     # Ordered-grid supersampling: only 1 is ported (SSAA is ROADMAP Queue 1
     # item 6).
@@ -48,10 +52,10 @@ class RenderConfig:
     frames_in_flight: int = 2
 
     def __post_init__(self):
-        if self.pipeline != "flat":
+        if self.pipeline not in PIPELINES:
             raise NotImplementedError(
-                f"pipeline {self.pipeline!r}: only 'flat' is ported "
-                "(ROADMAP.md Queue 1 items 7-9)"
+                f"pipeline {self.pipeline!r}: only {PIPELINES} are ported "
+                "(shadowed and deferred: ROADMAP.md Queue 1 items 8-9)"
             )
         if self.supersample != 1:
             raise NotImplementedError(
@@ -60,8 +64,8 @@ class RenderConfig:
             )
         if tuple(self.clear_color) != (0.0, 0.0, 0.0, 1.0):
             raise NotImplementedError(
-                "the flat kernels resolve uncovered pixels to the default "
-                "clear color (0, 0, 0, 1) only"
+                "the port resolves uncovered pixels to the default clear "
+                "color (0, 0, 0, 1) only"
             )
         if self.width <= 0 or self.height <= 0:
             raise ValueError(f"bad frame size {self.width}x{self.height}")

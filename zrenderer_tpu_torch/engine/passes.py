@@ -1,0 +1,80 @@
+"""Render-pass composition of the lit pipeline (counterpart of
+``_gbuffer``, ``_sample_albedo`` and ``build_lit_frame`` in
+``zrenderer_tpu/engine/passes.py``).
+
+``build_lit_frame`` returns the frame function of BASELINE config 1:
+G-buffer raster (``raster.render_gbuffer``: K2g, K3g, K4g or K5g), then
+trilinear texture sampling, Blinn-Phong with one point light, emissive and
+the u8 tonemap, all on the device of the buffers it is given.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from zrenderer_tpu_torch.ops import raster, sampling, shading
+
+F32 = torch.float32
+
+
+def _gbuffer(b, matrices, normal_mats, width: int, height: int,
+             pad_height: int, pad_width: int, binning: str = "auto"):
+    """Returns (rgba u8 (H, W, 4), depth, u, v, nx, ny, nz, metallic,
+    roughness, emissive r/g/b, texture layer), cropped to (height, width).
+    The per-triangle material table rides the buffers as b['materials']."""
+    planes = raster.render_gbuffer(
+        b["corner_cols"], b["tri_node"], matrices, normal_mats,
+        b.get("materials"), width, height, pad_height, pad_width,
+        binning=binning)
+    return [raster.unpack_rgba8(planes[0])] + planes[1:]
+
+
+def _sample_albedo(rgba, atlas_u32, u, v, tex_layer, th: int, tw: int,
+                   levels: int, layered: bool):
+    """Vertex rgb times the trilinear texture sample; with a texture array
+    the per-pixel layer plane picks the draw's texture."""
+    base = rgba[..., :3].to(F32) / shading._const(u, 255.0)
+    if th == 1 and tw == 1 and not layered:
+        # The 1x1 default binding: one texel, a broadcast multiply.
+        return base * sampling._unpack_u32(atlas_u32[0, 0])[:3]
+    uv = torch.stack([u, v], dim=-1)
+    lod = sampling.mip_level_from_derivatives(uv, th, tw, levels)
+    layer = tex_layer.to(torch.int32) if layered else None
+    tex = sampling.sample_trilinear(atlas_u32, th, tw, levels, uv, lod,
+                                    layer=layer)
+    return base * tex[..., :3]
+
+
+def build_lit_frame(width: int, height: int, pad_height: int,
+                    pad_width: int, texture, binning: str = "auto"):
+    """Config 1: textured + Blinn-Phong point light, Z-buffered.
+
+    Materials modulate the Blinn-Phong knobs per pixel and emissive adds
+    after lighting; ``texture`` is a Texture or a TextureArray (per-draw
+    texture layers).  The returned ``frame(b, atlas_u32, matrices,
+    normal_mats, inv_view_proj, cam_pos, light_pos, light_color)`` gives
+    (rgba u8 (H, W, 4), depth (H, W))."""
+    th, tw = int(texture.base_shape[0]), int(texture.base_shape[1])
+    levels = texture.num_levels
+    layered = texture.num_layers > 1
+
+    def frame(b, atlas_u32, matrices, normal_mats, inv_view_proj, cam_pos,
+              light_pos, light_color):
+        (rgba, depth, u, v, nx, ny, nz,
+         met, rgh, emr, emg, emb, tex_layer) = _gbuffer(
+            b, matrices, normal_mats, width, height, pad_height, pad_width,
+            binning)
+        covered = depth < 1.0
+        albedo = _sample_albedo(rgba, atlas_u32, u, v, tex_layer, th, tw,
+                                levels, layered)
+        normal = torch.stack([nx, ny, nz], dim=-1)
+        world = shading.reconstruct_world_pos(depth, inv_view_proj, width,
+                                              height)
+        specular, shininess = shading.blinn_params_from_material(met, rgh)
+        lit = shading.blinn_phong(albedo, normal, world, cam_pos, light_pos,
+                                  light_color, specular=specular,
+                                  shininess=shininess)
+        lit = lit + torch.stack([emr, emg, emb], dim=-1)
+        return shading.tonemap_and_pack(lit, covered), depth
+
+    return frame

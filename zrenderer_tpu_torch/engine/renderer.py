@@ -1,17 +1,27 @@
-"""The Renderer, flat pipeline (counterpart of
+"""The Renderer, flat and lit pipelines (counterpart of
 ``zrenderer_tpu/engine/renderer.py``).
 
-* ``load_scene`` flattens the scene once and uploads the buffers to the
-  renderer's device, behind generational pool handles.
-* ``render`` computes the per-draw object_to_clip matrices on the host,
-  stages them in the pinned upload ring, copies them to the device without
-  blocking and enqueues the frame: column geometry, the raster dispatch
-  (``raster.select_raster``: K1, K3, K4, K4c, K5 or K6), the RGBA8 unpack
-  and the crop.  It returns before the device is done; ``present`` paces
-  the host to ``frames_in_flight`` frames ahead with CUDA events,
-  ``read_frame`` copies the newest frame back.
+* ``load_scene`` flattens the scene once (the lit pipeline folds material
+  base colors into the vertex colors) and uploads the buffers to the
+  renderer's device, behind generational pool handles, with the
+  per-triangle material table.
+* ``set_environment`` binds the lit pipeline's texture (a Texture, or
+  per-material textures stacked into a TextureArray) and point light; the
+  atlas is uploaded once here.
+* ``render`` computes the per-frame constants on the host (object_to_clip
+  matrices; for lit also normal matrices, the inverse view-projection and
+  the camera position), stages them in the pinned upload ring, copies them
+  to the device without blocking and enqueues the frame.  Flat: column
+  geometry, the raster dispatch (``raster.select_raster``: K1, K3, K4, K4c,
+  K5 or K6), the RGBA8 unpack and the crop.  Lit
+  (``passes.build_lit_frame``): the G-buffer dispatch
+  (``raster.select_gbuffer_raster``: K2g, K3g, K4g or K5g), sampling,
+  Blinn-Phong and the tonemap.  It returns before the device is done;
+  ``present`` paces the host to ``frames_in_flight`` frames ahead with
+  CUDA events, ``read_frame`` copies the newest frame back.
 * ``render_animation`` renders N frames back to back with no host sync
-  inside the loop, reducing each padded packed frame to a digest.
+  inside the loop, reducing each frame to a digest: flat frames as padded
+  packed planes, lit frames as the u8 sum of the visible frame.
 
 Everything runs on the one explicit ``device``; ``device="cuda"`` on a
 host without a card raises.
@@ -25,6 +35,7 @@ import numpy as np
 import torch
 
 from zrenderer_tpu_torch.device import resolve_device
+from zrenderer_tpu_torch.engine import passes
 from zrenderer_tpu_torch.engine.config import RenderConfig
 from zrenderer_tpu_torch.engine.pools import PipelineCache, ResourcePool
 from zrenderer_tpu_torch.engine.stats import FrameStats
@@ -34,8 +45,16 @@ from zrenderer_tpu_torch.engine.upload import (
     flatten_scene,
 )
 from zrenderer_tpu_torch.engine.upload_ring import UploadRing
+from zrenderer_tpu_torch.engine.textures import (
+    Texture,
+    TextureArray,
+    white_texture,
+)
 from zrenderer_tpu_torch.ops import raster
-from zrenderer_tpu_torch.ops.geometry import view_proj_from_camera
+from zrenderer_tpu_torch.ops.geometry import (
+    MATERIAL_COLS,
+    view_proj_from_camera,
+)
 
 log = logging.getLogger("zrenderer_torch.engine")
 
@@ -44,6 +63,12 @@ def frame_digest(packed) -> torch.Tensor:
     """Sum of a packed plane's u32 values (alpha sets bit 31, so the int32
     bits are masked to u32), exact in int64, returned as f32."""
     return (packed.to(torch.int64) & 0xFFFFFFFF).sum().to(torch.float32)
+
+
+def rgba_digest(rgba) -> torch.Tensor:
+    """Sum of a u8 frame's channel values, exact in int64, returned as f32
+    (the reference sums the f32 channels, within rtol 1e-5 of this)."""
+    return rgba.to(torch.int64).sum().to(torch.float32)
 
 
 class Renderer:
@@ -62,6 +87,8 @@ class Renderer:
         self.flat: FlatScene | None = None
         self._buffer_handles = {}  # name -> generational Handle
         self._pending = None  # newest enqueued frame (color, depth)
+        self._material_tex_layer = None  # material -> texture-array layer
+        self._white_layer = 0
         log.info("Renderer on %s", self.device)
 
     # -- resource upload ----------------------------------------------------
@@ -75,6 +102,7 @@ class Renderer:
         self.flat = flatten_scene(
             scene, mesh_data, pad=True, vert_align=cfg.vert_align,
             tri_align=cfg.tri_align, lod=cfg.lod,
+            apply_materials=cfg.pipeline != "flat",
         )
         for h in self._buffer_handles.values():
             self.resources.destroy(h)
@@ -82,12 +110,85 @@ class Renderer:
         buffers = flat_scene_to_device(self.flat.host_arrays(), self.device)
         for name, tensor in buffers.items():
             self._buffer_handles[name] = self.resources.add((name, tensor))
+        self._upload_material_table()
         f = self.flat
         log.info(
             "scene uploaded: %d draws, %d verts (%d padded), %d tris "
             "(%d padded)", f.draw_count, f.num_vertices, len(f.positions),
             f.num_triangles, len(f.tri_vidx),
         )
+
+    # -- environment (textures, light) ---------------------------------------
+
+    def set_environment(self, texture=None, light_pos=(4.0, 8.0, 6.0),
+                        light_color=(1.0, 1.0, 1.0), textures=None,
+                        material_textures=None):
+        """Bind the lit pipeline's resources: a Texture (None: 1x1 white)
+        and one point light.
+
+        Per-draw textures: ``textures`` (same-size Textures, stacked into a
+        TextureArray with an all-white layer appended) plus
+        ``material_textures`` mapping material index -> layer (-1 or
+        missing: the white layer).  Draws find their layer through their
+        mesh's material.  The atlas and the light go to the device here,
+        once."""
+        self._material_tex_layer = None
+        if textures is not None:
+            h, w = textures[0].base_shape
+            white = Texture.from_array(np.ones((h, w, 4), np.float32),
+                                       num_levels=textures[0].num_levels)
+            array = TextureArray.from_textures(list(textures) + [white])
+            white_layer = array.num_layers - 1
+            mats = getattr(self, "mesh_data", None)
+            num_materials = len(mats.materials) if mats else 0
+            mapping = np.full(max(num_materials, 1), white_layer, np.int32)
+            if material_textures is not None:
+                for mi, layer in enumerate(material_textures):
+                    if 0 <= mi < len(mapping) and layer >= 0:
+                        mapping[mi] = layer
+            self._material_tex_layer = mapping
+            self._white_layer = white_layer
+            texture = array
+        else:
+            self._white_layer = 0
+            texture = texture if texture is not None else white_texture()
+        self.texture = texture.to(self.device)
+        self.light_pos = torch.tensor(np.asarray(light_pos, np.float32),
+                                      device=self.device)
+        self.light_color = torch.tensor(np.asarray(light_color, np.float32),
+                                        device=self.device)
+        if self.flat is not None:
+            self._upload_material_table()
+
+    def _upload_material_table(self) -> None:
+        """Per-draw material constants (metallic, roughness, emissive rgb,
+        texture layer), expanded to per-triangle rows once on the host and
+        uploaded as the 'materials' buffer.  Draws without a material get
+        the Material defaults and the white layer."""
+        mats = getattr(self, "mesh_data", None)
+        tex_layer = self._material_tex_layer
+        table = np.zeros((self.flat.draw_count, MATERIAL_COLS), np.float32)
+        table[:, 1] = 0.5  # the Material dataclass's default roughness
+        table[:, 5] = float(self._white_layer)
+        for d, mesh_index in enumerate(self.flat.draw_mesh):
+            mi = -1
+            if mats is not None and mats.mesh_material:
+                mi = mats.mesh_material[mesh_index]
+            if mi is None or mi < 0:
+                continue
+            m = mats.materials[mi]
+            table[d, 0] = m.metallic
+            table[d, 1] = m.roughness
+            table[d, 2:5] = m.emissive
+            if tex_layer is not None and mi < len(tex_layer):
+                table[d, 5] = float(tex_layer[mi])
+        old = self._buffer_handles.pop("materials", None)
+        if old is not None:
+            self.resources.destroy(old)
+        tri_draw = self.flat.vert_node[self.flat.tri_vidx[:, 0]]
+        tensor = torch.from_numpy(np.ascontiguousarray(table[tri_draw]))
+        self._buffer_handles["materials"] = self.resources.add(
+            ("materials", tensor.to(self.device)))
 
     def _buffers(self) -> dict:
         """Resolve the scene's device buffers through their pool handles;
@@ -106,6 +207,15 @@ class Renderer:
         cfg = self.config
         key = (cfg.content_hash(), len(self.flat.positions),
                len(self.flat.tri_vidx), self.flat.draw_count)
+        if cfg.pipeline == "lit":
+            if not hasattr(self, "texture"):
+                self.set_environment()
+            tex = self.texture
+            key += (tuple(tex.base_shape), tex.num_levels, tex.num_layers)
+            return self.pipelines.get_or_create(
+                key, lambda: passes.build_lit_frame(
+                    cfg.width, cfg.height, cfg.pad_height, cfg.pad_width,
+                    tex, binning=cfg.binning))
 
         def build():
             def frame(ccols, tri_node, matrices):
@@ -129,6 +239,31 @@ class Renderer:
         if transforms is not None:
             node_to_world = np.asarray(transforms, np.float32)
         return np.einsum("nij,jk->nik", node_to_world, vp).astype(np.float32)
+
+    def _lit_constants(self, camera=None, transforms=None) -> dict:
+        """Per-frame constants of the lit pipeline (host f32): per-draw
+        object_to_clip matrices and normal matrices (inverse-transpose of
+        the node rotation), the inverse view-projection (inverted in f64)
+        for world-position reconstruction, and the camera position."""
+        camera = camera if camera is not None else self.scene.active_camera
+        vp = view_proj_from_camera(camera, self.config.width,
+                                   self.config.height)
+        node_to_world = self.flat.node_to_world
+        if transforms is not None:
+            node_to_world = np.asarray(transforms, np.float32)
+        matrices = np.einsum("nij,jk->nik", node_to_world,
+                             vp).astype(np.float32)
+        normal_mats = np.linalg.inv(
+            node_to_world[:, :3, :3]).transpose(0, 2, 1).astype(np.float32)
+        return {
+            "matrices": matrices,
+            "normal_mats": normal_mats,
+            "inv_view_proj": np.linalg.inv(
+                vp.astype(np.float64)).astype(np.float32),
+            "cam_pos": np.asarray(camera.position, np.float32),
+        }
+
+    _LIT_KEYS = ("matrices", "normal_mats", "inv_view_proj", "cam_pos")
 
     def _stage_constants(self, arrays):
         """Per-frame constants through the bounded staging ring; on
@@ -176,9 +311,15 @@ class Renderer:
         self._pace()
         frame = self._frame_fn()
         b = self._buffers()
-        (matrices,) = self._stage_constants(
-            [self.camera_matrices(camera, transforms)])
-        color, depth = frame(b["corner_cols"], b["tri_node"], matrices)
+        if self.config.pipeline == "lit":
+            c = self._lit_constants(camera, transforms)
+            staged = self._stage_constants([c[k] for k in self._LIT_KEYS])
+            color, depth = frame(b, self.texture.atlas_u32, *staged,
+                                 self.light_pos, self.light_color)
+        else:
+            (matrices,) = self._stage_constants(
+                [self.camera_matrices(camera, transforms)])
+            color, depth = frame(b["corner_cols"], b["tri_node"], matrices)
         self._pending = (color, depth)
         self._in_flight.append(self._fence())
         self.stats.update(
@@ -228,12 +369,14 @@ class Renderer:
                          transforms_seq=None):
         """Render a frame sequence back to back on the device.
 
-        Per-frame matrices for all N frames are computed on the host and
-        uploaded once; then every frame is rendered at the padded size
-        and reduced to a digest (``frame_digest``) with no host sync in
-        the loop.  The presented frame is rendered once more afterwards,
-        cropped and unpacked.  Returns ``(digests (N,) f32, (color,
-        depth))``; reading the digests is a true fence.
+        Per-frame constants for all N frames are computed on the host and
+        uploaded once; then every frame is rendered and reduced to a
+        digest with no host sync in the loop: flat frames at the padded
+        size as packed planes (``frame_digest``), then the presented frame
+        once more, cropped and unpacked; lit frames as the visible u8
+        frame (``rgba_digest``), the last one presented.  Returns
+        ``(digests (N,) f32, (color, depth))``; reading the digests is a
+        true fence.
         """
         if self.flat is None:
             raise RuntimeError("load_scene first")
@@ -241,28 +384,35 @@ class Renderer:
             num_frames = (len(transforms_seq) if transforms_seq is not None
                           else len(cameras))
         cfg = self.config
-        mats = np.stack([
-            self.camera_matrices(
-                cameras[i] if cameras is not None else None,
-                transforms_seq[i] if transforms_seq is not None else None)
-            for i in range(num_frames)
-        ])
-        mats = torch.from_numpy(mats)
-        if self.device.type == "cuda":
-            mats = mats.pin_memory()
-        mats = mats.to(self.device, non_blocking=True)
-        b = self._buffers()
-        ccols, tri_node = b["corner_cols"], b["tri_node"]
+
+        def per_frame(i):
+            return (cameras[i] if cameras is not None else None,
+                    transforms_seq[i] if transforms_seq is not None else None)
+
+        def upload(host):
+            t = torch.from_numpy(np.ascontiguousarray(host))
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
+
         digests = torch.empty(num_frames, dtype=torch.float32,
                               device=self.device)
-        for i in range(num_frames):
-            packed, _ = raster.render_frame(
-                ccols, tri_node, mats[i], cfg.width, cfg.height,
-                cfg.pad_height, cfg.pad_width, binning=cfg.binning,
-                raw_packed=True,
-            )
-            digests[i] = frame_digest(packed)
-        color, depth = self._frame_fn()(ccols, tri_node, mats[-1])
+        if cfg.pipeline == "lit":
+            frame = self._frame_fn()
+            per = [self._lit_constants(*per_frame(i))
+                   for i in range(num_frames)]
+            xs = [upload(np.stack([c[k] for c in per]))
+                  for k in self._LIT_KEYS]
+            b = self._buffers()
+            for i in range(num_frames):
+                color, depth = frame(b, self.texture.atlas_u32,
+                                     *(x[i] for x in xs), self.light_pos,
+                                     self.light_color)
+                digests[i] = rgba_digest(color)
+        else:
+            digests, (color, depth) = self._flat_animation(
+                digests, upload(np.stack([self.camera_matrices(*per_frame(i))
+                                          for i in range(num_frames)])))
         self._pending = (color, depth)
         self._in_flight.append(self._fence())
         self.stats.update(
@@ -270,3 +420,19 @@ class Renderer:
             pixels=cfg.width * cfg.height * num_frames,
         )
         return digests, (color, depth)
+
+    def _flat_animation(self, digests, mats):
+        """The flat frames of ``render_animation``: each padded packed
+        plane digested, then the presented frame rendered once more."""
+        cfg = self.config
+        num_frames = digests.shape[0]
+        b = self._buffers()
+        ccols, tri_node = b["corner_cols"], b["tri_node"]
+        for i in range(num_frames):
+            packed, _ = raster.render_frame(
+                ccols, tri_node, mats[i], cfg.width, cfg.height,
+                cfg.pad_height, cfg.pad_width, binning=cfg.binning,
+                raw_packed=True,
+            )
+            digests[i] = frame_digest(packed)
+        return digests, self._frame_fn()(ccols, tri_node, mats[-1])

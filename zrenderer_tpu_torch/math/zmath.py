@@ -1,6 +1,7 @@
 """Host camera and transform math of the port: the part of
-``zrenderer_tpu/math/zmath.py`` that the flat frame path's camera uses,
-copied so the port runs without the JAX package.
+``zrenderer_tpu/math/zmath.py`` that the frame paths' cameras and the
+procedural test scene use, copied so the port runs without the JAX
+package.
 
 Conventions (those of the reference's zmath): row-major matrices with
 row vectors (``v' = v @ M``; ``mul(A, B)`` applies A first), a
@@ -100,3 +101,67 @@ def perspective_fov_rh(fovy: float, aspect: float, near: float, far: float) -> n
     return np.array(
         [[w, 0, 0, 0], [0, h, 0, 0], [0, 0, r, -1], [0, 0, r * near, 0]], dtype=F32
     )
+
+
+def translation(x: float, y: float, z: float) -> np.ndarray:
+    m = identity()
+    m[3, 0] = x
+    m[3, 1] = y
+    m[3, 2] = z
+    return m
+
+
+def qmul(q0: np.ndarray, q1: np.ndarray) -> np.ndarray:
+    """Hamilton product q1 * q0 (applies q0's rotation first)."""
+    ax, ay, az, aw = (F32(v) for v in np.asarray(q1, dtype=F32))
+    bx, by, bz, bw = (F32(v) for v in np.asarray(q0, dtype=F32))
+    return np.array(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dtype=F32,
+    )
+
+
+def mat_from_quat(q: np.ndarray) -> np.ndarray:
+    """Rotation matrix for quaternion q, row-vector convention."""
+    x, y, z, w = (F32(v) for v in np.asarray(q, dtype=F32))
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    two = F32(2.0)
+    one = F32(1.0)
+    return np.array(
+        [
+            [one - two * (yy + zz), two * (xy + wz), two * (xz - wy), 0.0],
+            [two * (xy - wz), one - two * (xx + zz), two * (yz + wx), 0.0],
+            [two * (xz + wy), two * (yz - wx), one - two * (xx + yy), 0.0],
+            [0.0, 0.0, 0.0, 1.0],
+        ],
+        dtype=F32,
+    )
+
+
+def quat_to_euler(q: np.ndarray) -> tuple:
+    """(x=pitch, y=yaw, z=roll) Tait-Bryan angles of quaternion q."""
+    q = np.asarray(q, dtype=F32)
+    t0 = F32(2.0) * (q[3] * q[0] + q[1] * q[2])
+    t1 = F32(1.0) - F32(2.0) * (q[0] * q[0] + q[1] * q[1])
+    x = F32(np.arctan2(t0, t1))
+    t2 = F32(2.0) * (q[3] * q[1] - q[2] * q[0])
+    t2 = F32(np.clip(t2, -1.0, 1.0))
+    y = F32(np.arcsin(t2))
+    t3 = F32(2.0) * (q[3] * q[2] + q[0] * q[1])
+    t4 = F32(1.0) - F32(2.0) * (q[1] * q[1] + q[2] * q[2])
+    z = F32(np.arctan2(t3, t4))
+    return x, y, z
+
+
+def rotate_vec3(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Rotate a 3-vector by quaternion q (v @ mat_from_quat(q))."""
+    m = mat_from_quat(q)
+    v4 = np.array([v[0], v[1], v[2], 0.0], dtype=F32)
+    return (v4 @ m).astype(F32)

@@ -1,4 +1,5 @@
-"""Build and load the CUDA raster kernels (``zrenderer_tpu_torch/csrc``).
+"""Build and load the CUDA raster kernels (``zrenderer_tpu_torch/csrc``):
+the flat kernels K1-K6 and the G-buffer kernels K2g, K3g, K4g, K5g.
 
 ``nvcc`` compiles each ``.cu`` file for ``sm_90a`` and links them into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
@@ -122,6 +123,14 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_records.restype = i
     lib.zr_raster_lists.argtypes = [p, p, p, i, p, p, p, p, p, i, i, p]
     lib.zr_raster_lists.restype = i
+    lib.zr_gbuffer_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_small.restype = i
+    lib.zr_gbuffer_hier.argtypes = [p, i, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_hier.restype = i
+    lib.zr_gbuffer_hbm.argtypes = [p, i, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_hbm.restype = i
+    lib.zr_gbuffer_records.argtypes = [p, p, p, p, i, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_records.restype = i
     lib.zr_error_string.argtypes = [i]
     lib.zr_error_string.restype = ctypes.c_char_p
     return lib

@@ -57,14 +57,22 @@ I_VALID = 19
 NI32 = 20
 
 # Setup row float columns (NF32): per-edge-function coefficients of z,
-# 1/w and the perspective-correct color numerators.  The flat path writes
-# only these 15; the rest of the row (the lit pipelines' interpolants and
-# material constants) stays zero.
+# 1/w and the perspective-correct color, uv and normal numerators (the flat
+# kernels read the first 15), then the per-triangle constants the G-buffer
+# kernels latch without interpolation: metallic, roughness, emissive rgb
+# and texture layer (zero without a material table).  The rest is zero.
 F_ZA0, F_ZA1, F_ZA2 = range(3)
 F_RW0, F_RW1, F_RW2 = range(3, 6)
 F_CR0, F_CR1, F_CR2 = range(6, 9)
 F_CG0, F_CG1, F_CG2 = range(9, 12)
 F_CB0, F_CB1, F_CB2 = range(12, 15)
+F_U0, F_U1, F_U2 = range(15, 18)
+F_V0, F_V1, F_V2 = range(18, 21)
+F_NX0, F_NX1, F_NX2 = range(21, 24)
+F_NY0, F_NY1, F_NY2 = range(24, 27)
+F_NZ0, F_NZ1, F_NZ2 = range(27, 30)
+F_MET, F_RGH, F_EMR, F_EMG, F_EMB, F_TEX = range(30, 36)
+MATERIAL_COLS = 6  # metallic, roughness, emissive rgb, texture layer
 NF32 = 40
 
 _INT_MAX = 2**31 - 1
@@ -144,13 +152,18 @@ def _plane_distance(x, y, z, w, plane: int, gx: float, gy: float):
 
 
 def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
-                           height: int, clip_cap="auto"):
+                           height: int, normal_matrices=None,
+                           material_table=None, clip_cap="auto"):
     """Column-form per-corner geometry stage.
 
     ``ccols``: (48, T) f32, row c*16+j = channel j of triangle corner c
     (``FlatScene.expand_corner_cols``).  ``tri_node``: (T,) i32 draw of
     each triangle.  ``matrices``: (D, 4, 4) f32 object_to_clip per draw
-    (row-vector convention).  All on one device.
+    (row-vector convention).  ``normal_matrices``: optional (D, 3, 3) f32
+    per-draw normal transforms (row-vector convention).
+    ``material_table``: optional (T, MATERIAL_COLS) per-triangle or
+    (D, MATERIAL_COLS) per-draw f32 constants for columns F_MET..F_TEX.
+    All on one device.
 
     Returns (tri_i32 (R, NI32) i32, tri_f32 (R, NF32) f32) with
     R = capped_rows(T): T slot-0 rows in submission order, then
@@ -166,7 +179,14 @@ def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
     pos = cc[:, 0:4]  # (corner, i, T)
     clip = ((pos[:, 0:1] * m[0] + pos[:, 1:2] * m[1])
             + (pos[:, 2:3] * m[2] + pos[:, 3:4] * m[3]))  # (corner, j, T)
-    cols = torch.cat([clip, cc[:, 4:]], dim=1)  # (corner, channel, T)
+    attr = cc[:, 4:]
+    if normal_matrices is not None:
+        nm = normal_matrices.reshape(-1, 9)[tri_node.long()].T.reshape(3, 3, t)
+        n = attr[:, 6:9]  # (corner, i, T): channels 10-12
+        normal = ((n[:, 0:1] * nm[0] + n[:, 1:2] * nm[1])
+                  + n[:, 2:3] * nm[2])  # (corner, j, T)
+        attr = torch.cat([attr[:, :6], normal, attr[:, 9:]], dim=1)
+    cols = torch.cat([clip, attr], dim=1)  # (corner, channel, T)
 
     # -- clip classification + capped subset selection.
     gx, gy = _guard_scales(width, height)
@@ -193,7 +213,15 @@ def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
     fan, valid_s = clip_triangles_cols(cols[:, :, idx.long()], width, height)
     valid_s = valid_s & live.repeat(FAN_SLOTS)
     valid = torch.cat([slot0_valid, valid_s])
-    return _setup_cols(torch.cat([cols, fan], dim=2), valid, width, height)
+
+    consts = None
+    if material_table is not None:
+        per_tri = (material_table if material_table.shape[0] == t
+                   else material_table[tri_node.long()])
+        sub = per_tri[idx.long()]
+        consts = torch.cat([per_tri, sub.repeat(FAN_SLOTS, 1)]).T.to(F32)
+    return _setup_cols(torch.cat([cols, fan], dim=2), valid, width, height,
+                       consts)
 
 
 def clip_triangles_cols(sub, width: int, height: int):
@@ -265,11 +293,12 @@ def _setup_sentinel(device) -> torch.Tensor:
     return s
 
 
-def _setup_cols(cols, valid, width: int, height: int):
+def _setup_cols(cols, valid, width: int, height: int, consts=None):
     """Viewport transform, subpixel snap, facing/cull, edge and
     interpolation setup.  ``cols``: (3, ATTR_FLOATS, R) post-clip corner
-    columns; ``valid``: (R,) bool.  Returns (tri_i32 (R, NI32) i32,
-    tri_f32 (R, NF32) f32); dead rows hold the sentinel and zeros."""
+    columns; ``valid``: (R,) bool; ``consts``: None or (MATERIAL_COLS, R)
+    f32 per-row constants.  Returns (tri_i32 (R, NI32) i32, tri_f32
+    (R, NF32) f32); dead rows hold the sentinel and zeros."""
     gpx = guard_px(width)
     gpy = guard_px(height)
     r = valid.shape[0]
@@ -335,9 +364,10 @@ def _setup_cols(cols, valid, width: int, height: int):
     # color rgb, uv, normal xyz: channels 4-6, 8-9, 10-12, each times 1/w.
     numer = torch.cat([cv[:, 4:7], cv[:, 8:13]], dim=1) * rw[:, None]
     f_rows = [za, rw] + [numer[:, k] for k in range(numer.shape[1])]
-    tri_f32 = torch.cat(
-        f_rows + [torch.zeros((NF32 - 30, r), dtype=F32, device=dev)], dim=0
-    ).T
+    if consts is None:
+        consts = torch.zeros((MATERIAL_COLS, r), dtype=F32, device=dev)
+    tri_f32 = torch.cat(f_rows + [consts, torch.zeros(
+        (NF32 - 30 - MATERIAL_COLS, r), dtype=F32, device=dev)], dim=0).T
 
     mask = alive[:, None]
     tri_i32 = torch.where(mask, tri_i32, _setup_sentinel(dev))

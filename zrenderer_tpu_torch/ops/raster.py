@@ -49,7 +49,18 @@ from zrenderer_tpu_torch.ops.geometry import (
     F_CB0,
     F_CG0,
     F_CR0,
+    F_EMB,
+    F_EMG,
+    F_EMR,
+    F_MET,
+    F_NX0,
+    F_NY0,
+    F_NZ0,
+    F_RGH,
     F_RW0,
+    F_TEX,
+    F_U0,
+    F_V0,
     F_ZA0,
     I_BIAS0,
     I_BIAS1,
@@ -376,14 +387,25 @@ def prepare_binned_hbm_inputs(tri_i32, tri_f32, width: int, height: int,
 # the CUDA kernels must reproduce.
 
 _LATCHES = (("den", F_RW0), ("nr", F_CR0), ("ng", F_CG0), ("nb", F_CB0))
+# The G-buffer kernels latch five more interpolated numerators and copy six
+# per-triangle constants (no 1/w) on every passing row.
+_GBUF_LATCHES = (("u", F_U0), ("v", F_V0), ("nx", F_NX0), ("ny", F_NY0),
+                 ("nz", F_NZ0))
+_CONSTS = (("met", F_MET), ("rgh", F_RGH), ("emr", F_EMR), ("emg", F_EMG),
+           ("emb", F_EMB), ("tex", F_TEX))
+# Planes of a G-buffer raster: packed color (i32 bits), depth, u, v, nx, ny,
+# nz, metallic, roughness, emissive r/g/b, texture layer.
+GBUFFER_PLANES = 2 + len(_GBUF_LATCHES) + len(_CONSTS)
 
 
-def _tile_planes(tiles_y: int, tiles_x: int, tie: bool, device):
+def _tile_planes(tiles_y: int, tiles_x: int, tie: bool, device,
+                 gbuffer: bool = False):
     shape = (tiles_y, tiles_x, TILE_H, TILE_W)
     planes = {"z": torch.ones(shape, dtype=F32, device=device)}
     if tie:
         planes["tid"] = torch.full(shape, _INT_MAX, dtype=I32, device=device)
-    for name, _ in _LATCHES:
+    names = _LATCHES + (_GBUF_LATCHES + _CONSTS if gbuffer else ())
+    for name, _ in names:
         planes[name] = torch.zeros(shape, dtype=F32, device=device)
     half = SUBPIXEL // 2
     ty = torch.arange(tiles_y, dtype=I32, device=device)[:, None, None, None]
@@ -402,7 +424,8 @@ def _eval_rows(planes, sel, py, px, ri, rf, tid, emask, tie: bool):
     ((NI32,)/(NF32,) for one row, (ty, tx, N) for one row per tile);
     ``tid``: the row id(s), an int or a per-tile tensor; ``emask``: a
     per-tile write mask or None.  ``tie`` selects K1's (z, id) test over
-    K3's strict less."""
+    K3's strict less.  G-buffer planes (``u`` present) latch the uv and
+    normal numerators and the row's constants too."""
     def ic(c):
         return ri[..., c, None, None]
 
@@ -434,8 +457,12 @@ def _eval_rows(planes, sel, py, px, ri, rf, tid, emask, tie: bool):
     planes["z"][sel] = torch.where(ok, z, zb)
     if tie:
         planes["tid"][sel] = torch.where(ok, tid, tb)
-    for name, c in _LATCHES:
+    gbuffer = "u" in planes
+    for name, c in _LATCHES + (_GBUF_LATCHES if gbuffer else ()):
         planes[name][sel] = torch.where(ok, interp(c), planes[name][sel])
+    if gbuffer:
+        for name, c in _CONSTS:
+            planes[name][sel] = torch.where(ok, fc(c), planes[name][sel])
 
 
 def _scan_rows(planes, py, px, ti, tf, tie: bool):
@@ -456,6 +483,12 @@ def _scan_rows(planes, py, px, ti, tf, tie: bool):
         _eval_rows(planes, sel, py, px, ti[r], tf[r], r, None, tie)
 
 
+def _frame(p):
+    """(ty, tx, TILE_H, TILE_W) tile planes -> the (H, W) frame."""
+    ty, tx = p.shape[:2]
+    return p.permute(0, 2, 1, 3).reshape(ty * TILE_H, tx * TILE_W).contiguous()
+
+
 def _resolve_planes(planes):
     """One divide per pixel, RGBA8 packed into int32 bits; returns
     (packed (H, W) i32, depth (H, W) f32)."""
@@ -469,24 +502,40 @@ def _resolve_planes(planes):
 
     packed = (chan(planes["nr"]) | (chan(planes["ng"]) << 8)
               | (chan(planes["nb"]) << 16) | _ALPHA_BITS)
-    ty, tx = packed.shape[:2]
-
-    def frame(p):
-        return p.permute(0, 2, 1, 3).reshape(ty * TILE_H, tx * TILE_W)
-
-    return frame(packed).contiguous(), frame(planes["z"]).contiguous()
+    return _frame(packed), _frame(planes["z"])
 
 
-def raster_small_plain(counts, lists, supers, blocks, ti, tf,
-                       width: int, height: int):
-    """Plain torch K1 over ``prepare_binned_small``'s outputs: phase 1
-    steps the list position k over max(counts) for all tiles at once,
-    phase 2 runs the rows left in ``ti`` (the hierarchy's rows)."""
-    del supers, blocks  # skip tables only; _scan_rows visits the same rows
+def _resolve_gbuffer(planes, masked_inv: bool):
+    """The G-buffer epilogue: packed color and depth as ``_resolve_planes``,
+    the uv/normal numerators times 1/den, the constants as latched.
+
+    The kernels differ in the form of the divide, which shows in the sign
+    of zero and in NaN where a row passed with den <= 0: K3g writes
+    where(covered, buf * inv, 0) (``masked_inv=False``), K2g, K4g and K5g
+    buf * where(covered, inv, 0).  Returns the GBUFFER_PLANES (H, W)
+    planes."""
+    packed, depth = _resolve_planes(planes)
+    d = planes["den"]
+    covered = d > 0
+    inv = torch.reciprocal(torch.where(covered, d, 1.0))
+    scale = torch.where(covered, inv, 0.0)
+    out = [packed, depth]
+    for name, _ in _GBUF_LATCHES:
+        buf = planes[name]
+        out.append(_frame(buf * scale if masked_inv
+                          else torch.where(covered, buf * inv, 0.0)))
+    return out + [_frame(planes[name]) for name, _ in _CONSTS]
+
+
+def _small_planes(counts, lists, ti, tf, width: int, height: int,
+                  gbuffer: bool):
+    """K1/K2g tile planes: phase 1 steps the list position k over
+    max(counts) for all tiles at once, phase 2 runs the rows left in
+    ``ti`` (the hierarchy's rows)."""
     _check_frame(width, height)
     tiles_y, tiles_x = height // TILE_H, width // TILE_W
     num_tiles = tiles_y * tiles_x
-    planes, py, px = _tile_planes(tiles_y, tiles_x, True, ti.device)
+    planes, py, px = _tile_planes(tiles_y, tiles_x, True, ti.device, gbuffer)
     lists2d = lists.reshape(num_tiles, -1)
     everything = (slice(None), slice(None))
     for k in range(int(counts.max().item())):
@@ -497,18 +546,54 @@ def raster_small_plain(counts, lists, supers, blocks, ti, tf,
         active = (counts > k).reshape(tiles_y, tiles_x, 1, 1)
         _eval_rows(planes, everything, py, px, ri, rf, tid, active, True)
     _scan_rows(planes, py, px, ti, tf, tie=True)
-    return _resolve_planes(planes)
+    return planes
+
+
+def raster_small_plain(counts, lists, supers, blocks, ti, tf,
+                       width: int, height: int):
+    """Plain torch K1 over ``prepare_binned_small``'s outputs."""
+    del supers, blocks  # skip tables only; _scan_rows visits the same rows
+    return _resolve_planes(
+        _small_planes(counts, lists, ti, tf, width, height, False))
+
+
+def gbuffer_small_plain(counts, lists, supers, blocks, ti, tf,
+                        width: int, height: int):
+    """Plain torch K2g: K1's traversal with the G-buffer latches."""
+    del supers, blocks
+    return _resolve_gbuffer(
+        _small_planes(counts, lists, ti, tf, width, height, True),
+        masked_inv=True)
+
+
+def _hier_planes(ti, tf, width: int, height: int, gbuffer: bool):
+    """K3/K5/K3g/K5g tile planes: rows in submission order, strict-less
+    depth test, per-tile bbox masks."""
+    _check_frame(width, height)
+    planes, py, px = _tile_planes(height // TILE_H, width // TILE_W, False,
+                                  ti.device, gbuffer)
+    _scan_rows(planes, py, px, ti, tf, tie=False)
+    return planes
 
 
 def raster_hier_plain(supers, blocks, ti, tf, width: int, height: int):
-    """Plain torch K3 over ``prepare_raster_inputs``' outputs: rows in
-    submission order, strict-less depth test, per-tile bbox masks."""
+    """Plain torch K3 (and K5) over ``prepare_raster_inputs``' outputs."""
     del supers, blocks  # skip tables only; _scan_rows visits the same rows
-    _check_frame(width, height)
-    planes, py, px = _tile_planes(height // TILE_H, width // TILE_W, False,
-                                  ti.device)
-    _scan_rows(planes, py, px, ti, tf, tie=False)
-    return _resolve_planes(planes)
+    return _resolve_planes(_hier_planes(ti, tf, width, height, False))
+
+
+def gbuffer_hier_plain(supers, blocks, ti, tf, width: int, height: int):
+    """Plain torch K3g: K3's traversal, K3g's epilogue."""
+    del supers, blocks
+    return _resolve_gbuffer(_hier_planes(ti, tf, width, height, True),
+                            masked_inv=False)
+
+
+def gbuffer_hbm_plain(supers, blocks, ti, tf, width: int, height: int):
+    """Plain torch K5g: K3g's traversal, K5g's epilogue."""
+    del supers, blocks
+    return _resolve_gbuffer(_hier_planes(ti, tf, width, height, True),
+                            masked_inv=True)
 
 
 def _stream_spans(planes, py, px, offsets, bins, rec_i, rec_f,
@@ -537,17 +622,16 @@ def _stream_spans(planes, py, px, offsets, bins, rec_i, rec_f,
                    ri[..., NI32, None, None], active[..., None, None], True)
 
 
-def raster_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
-                        coarse, width: int, height: int):
-    """Plain torch K4/K4c over ``prepare_binned_hbm_inputs``' outputs:
-    phase 1 the tiles' record spans, phase 1.5 (with ``coarse``) the
-    coarse bins' spans under a per-record bbox test, phase 2 the rows
-    left in ``hier``; every phase with the (z, row id) tie-break."""
-    del supers, blocks  # skip tables only; _scan_rows visits the same rows
+def _binned_planes(offsets, rec_i, rec_f, hier, tf, coarse, width: int,
+                   height: int, gbuffer: bool):
+    """K4/K4c/K4g tile planes: phase 1 the tiles' record spans, phase 1.5
+    (with ``coarse``) the coarse bins' spans under a per-record bbox test,
+    phase 2 the rows left in ``hier``; every phase with the (z, row id)
+    tie-break."""
     _check_frame(width, height)
     tiles_y, tiles_x = height // TILE_H, width // TILE_W
     dev = hier.device
-    planes, py, px = _tile_planes(tiles_y, tiles_x, True, dev)
+    planes, py, px = _tile_planes(tiles_y, tiles_x, True, dev, gbuffer)
     ty = torch.arange(tiles_y, device=dev)[:, None]
     tx = torch.arange(tiles_x, device=dev)[None, :]
     _stream_spans(planes, py, px, offsets, ty * tiles_x + tx, rec_i, rec_f,
@@ -561,7 +645,27 @@ def raster_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
                       (ty // COARSE_CB) * ctiles_x + tx // COARSE_CB,
                       crec_i, crec_f, masked=True)
     _scan_rows(planes, py, px, hier, tf, tie=True)
-    return _resolve_planes(planes)
+    return planes
+
+
+def raster_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                        coarse, width: int, height: int):
+    """Plain torch K4/K4c over ``prepare_binned_hbm_inputs``' outputs."""
+    del supers, blocks  # skip tables only; _scan_rows visits the same rows
+    return _resolve_planes(_binned_planes(offsets, rec_i, rec_f, hier, tf,
+                                          coarse, width, height, False))
+
+
+def gbuffer_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                         coarse, width: int, height: int):
+    """Plain torch K4g: K4's traversal (no coarse class) with the G-buffer
+    latches."""
+    del supers, blocks
+    if coarse is not None:
+        raise ValueError("K4g takes no coarse class")
+    return _resolve_gbuffer(_binned_planes(offsets, rec_i, rec_f, hier, tf,
+                                           None, width, height, True),
+                            masked_inv=True)
 
 
 def raster_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
@@ -656,12 +760,12 @@ def _run(fn, dev, width: int, height: int, *args):
     return color, depth
 
 
-def raster_small_kernel(counts, lists, supers, blocks, ti, tf,
-                        width: int, height: int):
-    """Launch K1 (``csrc/raster_small.cu``) on the current stream."""
+def _small_args(counts, lists, supers, blocks, ti, tf, width: int,
+                height: int):
+    """Check K1/K2g inputs; returns the launch arguments before the
+    outputs."""
     _check_frame(width, height)
-    dev = ti.device
-    _require_cuda(dev, MAX_RESIDENT_ROWS, counts=counts, lists=lists,
+    _require_cuda(ti.device, MAX_RESIDENT_ROWS, counts=counts, lists=lists,
                   supers=supers, blocks=blocks, ti=ti, tf=tf)
     num_tiles = (height // TILE_H) * (width // TILE_W)
     if counts.shape != (num_tiles,) or lists.numel() % num_tiles:
@@ -669,42 +773,94 @@ def raster_small_kernel(counts, lists, supers, blocks, ti, tf,
     n_head = lists.numel() // num_tiles
     if n_head > SMALL_BIN_MAX_ROWS or n_head > ti.shape[0]:
         raise ValueError(f"n_head {n_head} > {SMALL_BIN_MAX_ROWS} or rows")
-    out = _run(_build.load_library().zr_raster_small, dev, width, height,
-               _ptr(counts), _ptr(lists), n_head, _ptr(supers),
-               supers.shape[0], _ptr(blocks), _ptr(ti), _ptr(tf))
+    return (_ptr(counts), _ptr(lists), n_head, _ptr(supers), supers.shape[0],
+            _ptr(blocks), _ptr(ti), _ptr(tf))
+
+
+def _run_gbuffer(fn, dev, width: int, height: int, *args):
+    """Allocate the G-buffer as one (GBUFFER_PLANES, H, W) f32 block and
+    launch ``fn(*args, out, height, width, stream)``; returns its planes,
+    the packed color plane viewed as int32."""
+    out = torch.empty((GBUFFER_PLANES, height, width), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(fn, *args, _ptr(out), height, width, ctypes.c_void_p(stream))
+    return [out[0].view(I32), *out[1:]]
+
+
+def raster_small_kernel(counts, lists, supers, blocks, ti, tf,
+                        width: int, height: int):
+    """Launch K1 (``csrc/raster_small.cu``) on the current stream."""
+    args = _small_args(counts, lists, supers, blocks, ti, tf, width, height)
+    out = _run(_build.load_library().zr_raster_small, ti.device, width,
+               height, *args)
     raster_small_kernel.launches += 1
     return out
 
 
-def _launch_hier(supers, blocks, ti, tf, width: int, height: int,
-                 max_rows: int | None):
+def gbuffer_small_kernel(counts, lists, supers, blocks, ti, tf,
+                         width: int, height: int):
+    """Launch K2g (``csrc/raster_small.cu``) on the current stream; returns
+    the GBUFFER_PLANES planes."""
+    args = _small_args(counts, lists, supers, blocks, ti, tf, width, height)
+    out = _run_gbuffer(_build.load_library().zr_gbuffer_small, ti.device,
+                       width, height, *args)
+    gbuffer_small_kernel.launches += 1
+    return out
+
+
+def _hier_args(supers, blocks, ti, tf, width: int, height: int,
+               max_rows: int | None):
     _check_frame(width, height)
-    dev = ti.device
-    _require_cuda(dev, max_rows, supers=supers, blocks=blocks, ti=ti, tf=tf)
-    return _run(_build.load_library().zr_raster_hier, dev, width, height,
-                _ptr(supers), supers.shape[0], _ptr(blocks), _ptr(ti),
-                _ptr(tf))
+    _require_cuda(ti.device, max_rows, supers=supers, blocks=blocks, ti=ti,
+                  tf=tf)
+    return (_ptr(supers), supers.shape[0], _ptr(blocks), _ptr(ti), _ptr(tf))
 
 
 def raster_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
     """Launch K3 (``csrc/raster_hier.cu``) on the current stream."""
-    out = _launch_hier(supers, blocks, ti, tf, width, height,
-                       MAX_RESIDENT_ROWS)
+    args = _hier_args(supers, blocks, ti, tf, width, height,
+                      MAX_RESIDENT_ROWS)
+    out = _run(_build.load_library().zr_raster_hier, ti.device, width,
+               height, *args)
     raster_hier_kernel.launches += 1
     return out
 
 
 def raster_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
     """Launch K5: the K3 kernel over any number of setup rows."""
-    out = _launch_hier(supers, blocks, ti, tf, width, height, None)
+    args = _hier_args(supers, blocks, ti, tf, width, height, None)
+    out = _run(_build.load_library().zr_raster_hier, ti.device, width,
+               height, *args)
     raster_hbm_kernel.launches += 1
     return out
 
 
-def _launch_records(offsets, rec_i, rec_f, supers, blocks, hier, tf,
-                    coarse, width: int, height: int):
+def gbuffer_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
+    """Launch K3g (``csrc/raster_hier.cu``) on the current stream."""
+    args = _hier_args(supers, blocks, ti, tf, width, height,
+                      MAX_RESIDENT_ROWS)
+    out = _run_gbuffer(_build.load_library().zr_gbuffer_hier, ti.device,
+                       width, height, *args)
+    gbuffer_hier_kernel.launches += 1
+    return out
+
+
+def gbuffer_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
+    """Launch K5g (``csrc/raster_hier.cu``, no row cap) on the current
+    stream."""
+    args = _hier_args(supers, blocks, ti, tf, width, height, None)
+    out = _run_gbuffer(_build.load_library().zr_gbuffer_hbm, ti.device,
+                       width, height, *args)
+    gbuffer_hbm_kernel.launches += 1
+    return out
+
+
+def _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
+                  width: int, height: int):
+    """Check K4/K4c/K4g inputs; returns the launch arguments before the
+    outputs (the coarse pointers None without ``coarse``)."""
     _check_frame(width, height)
-    dev = hier.device
     tiles_x, tiles_y = width // TILE_W, height // TILE_H
     tensors = dict(offsets=offsets, rec_i=rec_i, rec_f=rec_f, supers=supers,
                    blocks=blocks, ti=hier, tf=tf)
@@ -716,11 +872,17 @@ def _launch_records(offsets, rec_i, rec_f, supers, blocks, hier, tf,
         _require_spans(coffsets, _coarse_grid(tiles_x, tiles_y)[1], crec_i,
                        crec_f)
         cptrs = (_ptr(coffsets), _ptr(crec_i), _ptr(crec_f))
-    _require_cuda(dev, None, **tensors)
-    return _run(_build.load_library().zr_raster_records, dev, width, height,
-                _ptr(offsets), _ptr(rec_i), _ptr(rec_f), *cptrs,
-                _ptr(supers), supers.shape[0], _ptr(blocks), _ptr(hier),
-                _ptr(tf))
+    _require_cuda(hier.device, None, **tensors)
+    return (_ptr(offsets), _ptr(rec_i), _ptr(rec_f), *cptrs, _ptr(supers),
+            supers.shape[0], _ptr(blocks), _ptr(hier), _ptr(tf))
+
+
+def _launch_records(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                    coarse, width: int, height: int):
+    args = _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                         coarse, width, height)
+    return _run(_build.load_library().zr_raster_records, hier.device, width,
+                height, *args)
 
 
 def raster_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
@@ -765,10 +927,27 @@ def raster_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
     return out
 
 
+def gbuffer_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                          coarse, width: int, height: int):
+    """Launch K4g (``csrc/raster_binned.cu``, record spans, G-buffer) on
+    the current stream; ``coarse`` must be None."""
+    if coarse is not None:
+        raise ValueError("K4g takes no coarse class")
+    args = _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                         None, width, height)
+    # The G-buffer entry point takes no coarse pointers.
+    out = _run_gbuffer(_build.load_library().zr_gbuffer_records, hier.device,
+                       width, height, *args[:3], *args[6:])
+    gbuffer_binned_kernel.launches += 1
+    return out
+
+
 KERNELS = (raster_small_kernel, raster_hier_kernel, raster_hbm_kernel,
            raster_binned_kernel, raster_binned_coarse_kernel,
            raster_lists_kernel)
-for _kernel in KERNELS:
+GBUFFER_KERNELS = (gbuffer_small_kernel, gbuffer_hier_kernel,
+                   gbuffer_binned_kernel, gbuffer_hbm_kernel)
+for _kernel in KERNELS + GBUFFER_KERNELS:
     _kernel.launches = 0
 del _kernel
 
@@ -895,3 +1074,98 @@ def render_frame(ccols, tri_node, matrices, width: int, height: int,
     if raw_packed:
         return color, depth
     return color[:height, :width], depth[:height, :width]
+
+
+# ---------------------------------------------------------------------------
+# G-buffer raster (the lit pipelines' first pass)
+# ---------------------------------------------------------------------------
+
+
+def rasterize_gbuffer_small(tri_i32, tri_f32, width: int, height: int):
+    """K2g wrapper: ``prepare_binned_small`` then the kernel (CUDA tensors)
+    or its plain version (CPU tensors).  Returns the GBUFFER_PLANES
+    (height, width) padded planes."""
+    _check_frame(width, height)
+    prepared = prepare_binned_small(tri_i32, tri_f32, width, height)
+    if _on_cpu(tri_i32):
+        return gbuffer_small_plain(*prepared, width, height)
+    return gbuffer_small_kernel(*prepared, width, height)
+
+
+def rasterize_gbuffer(tri_i32, tri_f32, width: int, height: int):
+    """K3g wrapper: ``prepare_raster_inputs`` then the kernel or its plain
+    version."""
+    _check_frame(width, height)
+    prepared = prepare_raster_inputs(tri_i32, tri_f32)
+    if _on_cpu(tri_i32):
+        return gbuffer_hier_plain(*prepared, width, height)
+    return gbuffer_hier_kernel(*prepared, width, height)
+
+
+def rasterize_gbuffer_hbm(tri_i32, tri_f32, width: int, height: int):
+    """K5g wrapper: ``prepare_raster_inputs`` then the streamed hierarchy
+    G-buffer, at any number of setup rows."""
+    _check_frame(width, height)
+    prepared = prepare_raster_inputs(tri_i32, tri_f32)
+    if _on_cpu(tri_i32):
+        return gbuffer_hbm_plain(*prepared, width, height)
+    return gbuffer_hbm_kernel(*prepared, width, height)
+
+
+def rasterize_gbuffer_binned_hbm(tri_i32, tri_f32, width: int, height: int,
+                                 cap: int | None = None,
+                                 pair_budget: int | None = None):
+    """K4g wrapper: ``prepare_binned_hbm_inputs`` (no coarse class) then
+    the kernel or its plain version."""
+    _check_frame(width, height)
+    prepared = prepare_binned_hbm_inputs(tri_i32, tri_f32, width, height,
+                                         cap=cap, pair_budget=pair_budget)
+    if _on_cpu(tri_i32):
+        return gbuffer_binned_plain(*prepared, width, height)
+    return gbuffer_binned_kernel(*prepared, width, height)
+
+
+def select_gbuffer_raster(binning: str, rows: int):
+    """The dispatch of ``render_gbuffer_pallas``, branch for branch (not
+    the flat one): returns the wrapper that rasterizes a G-buffer of
+    ``rows`` setup rows.
+
+    * ``tile_lists``: K4g without the coarse class above MAX_RESIDENT_ROWS
+      rows; below, K6g, which is not ported (raises);
+    * above MAX_RESIDENT_ROWS rows: K5g for ``hierarchy``, else K4g;
+    * below: K2g for ``small``, and for ``auto`` up to SMALL_BIN_MAX_ROWS
+      head rows; K3g otherwise."""
+    if binning not in BINNINGS:
+        raise ValueError(f"unknown binning {binning!r}; one of {BINNINGS}")
+    big = rows > MAX_RESIDENT_ROWS
+    if binning == "tile_lists":
+        if big:
+            return rasterize_gbuffer_binned_hbm
+        raise NotImplementedError(
+            f"binning='tile_lists' at {rows} <= {MAX_RESIDENT_ROWS} rows "
+            "needs K6g (rasterize_gbuffer_pallas_binned), which is not "
+            "ported (ROADMAP.md Queue 2)")
+    if big:
+        return (rasterize_gbuffer_hbm if binning == "hierarchy"
+                else rasterize_gbuffer_binned_hbm)
+    if binning == "small" or (
+            binning == "auto" and head_count(rows) <= SMALL_BIN_MAX_ROWS):
+        return rasterize_gbuffer_small
+    return rasterize_gbuffer
+
+
+def render_gbuffer(ccols, tri_node, matrices, normal_matrices,
+                   material_table, width: int, height: int, pad_height: int,
+                   pad_width: int, binning: str = "auto"):
+    """Column geometry with normals and material constants at the true
+    (width, height) viewport, then the G-buffer raster over the padded
+    target, cropped to (height, width) like ``render_gbuffer_pallas``.
+
+    Returns the GBUFFER_PLANES planes: packed color (i32 bits), depth, u,
+    v, nx, ny, nz, metallic, roughness, emissive r/g/b, texture layer."""
+    tri_i32, tri_f32 = tg.geometry_pipeline_cols(
+        ccols, tri_node, matrices, width, height,
+        normal_matrices=normal_matrices, material_table=material_table)
+    raster = select_gbuffer_raster(binning, tri_i32.shape[0])
+    planes = raster(tri_i32, tri_f32, pad_width, pad_height)
+    return [p[:height, :width] for p in planes]

@@ -14,7 +14,16 @@ import numpy as np
 
 from zrenderer_tpu_torch.math import zmath as zm
 from zrenderer_tpu_torch.scene.mesh import MeshData, make_vertex
-from zrenderer_tpu_torch.scene.scene import Camera, Node, Scene
+from zrenderer_tpu_torch.scene.scene import Camera, Mobility, Node, Scene
+
+# Placement constants of the reference test scene (test.gltf nodes).
+CUBE2_TRANSLATION = (-2.2731475830078125, 0.9120144844055176, 2.2185516357421875)
+CAMERA_TRANSLATION = (-1.5, 3.0, 10.0)
+CAMERA_PARENT_QUAT = (0.6087614297866821, 0.0, 0.0, 0.7933533191680908)
+CAMERA_CHILD_QUAT = (-0.7071067690849304, 0.0, 0.0, 0.7071067690849304)
+CAMERA_YFOV = 0.39959652046304894
+CAMERA_ZNEAR = 0.10000000149011612
+CAMERA_ZFAR = 1000.0
 
 _FACES = [
     # (normal, tangent, four corners CCW seen from outside, color)
@@ -42,6 +51,43 @@ def make_cube_mesh(mesh_data: MeshData, size: float = 1.0) -> int:
     return mesh_data.append_mesh(
         np.stack(verts), np.array(indices, np.uint32)
     )
+
+
+def make_test_camera() -> Camera:
+    """The reference test scene's camera, forward derived from its
+    orientation."""
+    orientation = zm.qmul(
+        np.array(CAMERA_CHILD_QUAT, np.float32),
+        np.array(CAMERA_PARENT_QUAT, np.float32),
+    )
+    pitch, yaw, _ = zm.quat_to_euler(orientation)
+    return Camera(
+        position=np.array(CAMERA_TRANSLATION, np.float32),
+        forward=zm.rotate_vec3(orientation, (0.0, 0.0, -1.0))[:3],
+        pitch=float(pitch),
+        yaw=float(yaw),
+        yfov=CAMERA_YFOV,
+        znear=CAMERA_ZNEAR,
+        zfar=CAMERA_ZFAR,
+        name="Camera",
+    )
+
+
+def make_test_scene() -> tuple:
+    """Two cube nodes and one camera, the reference test scene's layout
+    (the scene of the stored 160x96 goldens)."""
+    mesh_data = MeshData()
+    cube = make_cube_mesh(mesh_data)
+
+    scene = Scene()
+    scene.nodes.append(Node(mesh_indices=[cube], transform_index=0,
+                            mobility=Mobility.STATIC, name="Cube"))
+    scene.transforms.append(zm.identity())
+    scene.nodes.append(Node(mesh_indices=[cube], transform_index=1,
+                            mobility=Mobility.STATIC, name="Cube.002"))
+    scene.transforms.append(zm.translation(*CUBE2_TRANSLATION))
+    scene.cameras.append(make_test_camera())
+    return scene, mesh_data
 
 
 def make_stress_scene(num_triangles: int = 1_000_000, seed: int = 0) -> tuple:
