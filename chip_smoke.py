@@ -27,6 +27,16 @@ Phases, in order, each printing its own lines and seconds:
     ties), each with random normal matrices and a random material table
     (one row per triangle, so a wrong winner shows in the constant
     planes); the plain K2g, K3g and K5g calls give their plain_ms;
+4d. the depth-only kernels of the shadow-map pass, K2d (small-scene
+    lists), K3d (hierarchy), K4d (record streaming) and K6d (global pair
+    lists), and K6g (the G-buffer over global pair lists) against their
+    plain versions, bitwise as int32: K2d on the test scene, K3d and K6d on
+    the 20K lattice, K4d on the 40K lattice, each from the light's view
+    into the 1024x1024 map; K6g on the 20K lattice at 1080p with a random
+    material table; each on the clipped soup, the duplicated soup and a
+    wide soup with rows whose bbox clamps to empty at the map's bottom and
+    right edges and past them, the depth planes of all four equal by
+    value; the plain K2d, K3d, K6d and K6g calls give their plain_ms;
 5. the main path: ``Renderer.render_and_read`` at 1080p on the test scene
    (K1) and the lattice (K3), with the launch counts of that run, and the
    256x144 frame against the NumPy oracle (the port's geometry on CPU
@@ -51,26 +61,43 @@ Phases, in order, each printing its own lines and seconds:
     plain_ms); and the 160x96 lit frame of
     the procedural test scene against ``tests/goldens/lit_160x96.png``
     within 2 LSB;
+5s. the shadowed main path, ``Renderer(pipeline="shadowed")`` at 1080p
+    with a 1024x1024 shadow map, each run with every launch count set to 0
+    just before and read just after: the test scene (K2d and K2g, one
+    launch each), held against the port's CPU frame (coverage exact, the
+    shadow map bit-equal, the PCF lit fraction equal but on a stated share
+    of pixels where whole taps flip, u8 within 2 LSB elsewhere); the 20K
+    lattice through ``auto`` (K3d, K3g) and ``tile_lists`` (K6d, K6g),
+    equal shadow maps and frames; the 1M lattice through ``auto`` (K4d,
+    K4g) and ``hierarchy`` (K5's depth plane, K5g), equal shadow maps and
+    frames, K4d held bit-exact against its plain version on those inputs,
+    which time its plain_ms; and the 160x96 frame against
+    ``tests/goldens/shadowed_160x96.png``;
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape, and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
-   K4c, 20K lattice K6) giving the kernel's time a launch there,
+   K4c, 20K lattice K6, the lit paths, and the shadowed test scene, 20K
+   lattice (K3d; K6d and K6g) and 1M lattice) giving each kernel's time a
+   launch there,
    device-busy ms and device ops per frame and the device's idle share;
    a kernel is timed only from a trace that holds every one of its
    launches (at most three traces).  Then the
    untraced loops: ``render_animation`` ms/frame (CUDA events) per path
    (the lit paths included) and per-stage breakdowns (ms per call, host
    dispatch included, beside each stage's device ops and device-busy ms
-   from its trace) of the flat test scene, the flat 1M lattice and the
-   lit test scene (geometry, prepare, K2g, crop, LOD, sampling, shading
-   plus tonemap, digest);
-7. the app CLI writing PNGs: the test scene flat, the showcase lit;
+   from its trace) of the flat test scene, the flat 1M lattice, the lit
+   test scene (geometry, prepare, K2g, crop, LOD, sampling, shading plus
+   tonemap, digest) and the shadowed test scene (depth-pass geometry,
+   prepare, K2d, G-buffer geometry, prepare, K2g, crop, sampling, PCF,
+   shading plus tonemap, digest);
+7. the app CLI writing PNGs: the test scene flat and shadowed, the
+   showcase lit;
 8. hygiene: neither jax nor the JAX package (``zrenderer_tpu``) loaded.
 
 Each kernel's bound is the larger of its inputs and outputs (2 planes
-flat, 13 G-buffer) moved once at the card's memory rate and the (tile,
-triangle) pairs its frame needs, times 4096 pixels and OPS_PER_EVAL, at
-the CUDA-core rate.
+flat, 13 G-buffer, 1 depth-only) moved once at the card's memory rate and
+the (tile, triangle) pairs its frame needs, times 4096 pixels and
+OPS_PER_EVAL, at the CUDA-core rate.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The second-to-last line is the kernels' JSON record, the last line
@@ -90,6 +117,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SCENE_DIR = os.path.join(HERE, "content", "scenes", "test_scene")
 SHOWCASE_DIR = os.path.join(HERE, "content", "scenes", "showcase")
 LIT_GOLDEN = os.path.join(HERE, "tests", "goldens", "lit_160x96.png")
+SHADOWED_GOLDEN = os.path.join(HERE, "tests", "goldens",
+                               "shadowed_160x96.png")
 
 # The main-path frame (the reference demo's 1080p) and its padded raster
 # target, the card, and the animation length of the timing phase.
@@ -123,6 +152,13 @@ MIN_COVERAGE = 0.05
 # The lit frame on the card against the port's CPU frame and the stored
 # golden: CUDA's pow/log2/sqrt are not the CPU's, so u8 within 2 LSB.
 LIT_MAX_LSB = 2
+# The shadowed frame (BASELINE config 2's default 1024^2 map): one PCF tap
+# of 9 moves a pixel by up to 255/9 LSB, and CUDA's sqrt and divide may
+# move a threshold across an integer, so whole taps may flip on at most
+# this share of the covered pixels; u8 within LIT_MAX_LSB elsewhere.
+SHADOW_SIZE = 1024
+SHADOW_MAX_FLIP_SHARE = 0.005
+TAP_MAX_LSB = 29
 
 
 def phase(name):
@@ -149,6 +185,7 @@ def main() -> int:
     import numpy as np
 
     from zrenderer_tpu_torch.app.main import main as app_main
+    from zrenderer_tpu_torch.engine import passes
     from zrenderer_tpu_torch.engine.config import RenderConfig
     from zrenderer_tpu_torch.engine.renderer import (
         Renderer,
@@ -183,9 +220,13 @@ def main() -> int:
     k5, k6 = raster.raster_hbm_kernel, raster.raster_lists_kernel
     k2g, k3g = raster.gbuffer_small_kernel, raster.gbuffer_hier_kernel
     k4g, k5g = raster.gbuffer_binned_kernel, raster.gbuffer_hbm_kernel
+    k6g = raster.gbuffer_lists_kernel
+    k2d, k3d = raster.depth_small_kernel, raster.depth_hier_kernel
+    k4d, k6d = raster.depth_binned_kernel, raster.depth_lists_kernel
     results = {key: {"err": 0.0}
                for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6",
-                           "k2g", "k3g", "k4g", "k5g")}
+                           "k2g", "k3g", "k4g", "k5g", "k6g",
+                           "k2d", "k3d", "k4d", "k6d")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -320,6 +361,35 @@ def main() -> int:
             raise AssertionError(f"{label}: empty frame proves nothing")
         results[key]["err"] = max(results[key]["err"], float(err))
         return ck, dk
+
+    def compare_depth(key, label, kernel_fn, plain_fn, prepared, w, h,
+                      plain_shape=None):
+        """Depth-only kernel vs plain version on the same prepared inputs:
+        the one f32 plane equal as int32 bits (so the sign of a zero z
+        counts).  ``plain_shape`` as in ``compare``."""
+        sync()
+        dk = kernel_fn(*prepared, w, h)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dp = plain_fn(*prepared, w, h)
+        end.record()
+        sync()
+        if plain_shape is not None:
+            results[key]["plain_ms"] = start.elapsed_time(end)
+            results[key]["plain_shape"] = plain_shape
+        same = torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+        err = (dk - dp).abs().max().item()
+        cov = (dk < 1.0).float().mean().item()
+        print(f"  {label}: {w}x{h} bit-exact={same} max_abs_err={err} "
+              f"coverage={cov:.4f}", flush=True)
+        if not same:
+            raise AssertionError(f"{label}: kernel and plain version differ")
+        if cov <= 0.0:
+            raise AssertionError(f"{label}: empty map proves nothing")
+        results[key]["err"] = max(results[key]["err"], float(err))
+        return dk
 
     def tile_pairs(ti, w, h):
         """(tile, triangle) pairs a frame needs: for every live row with a
@@ -604,6 +674,127 @@ def main() -> int:
               "(K2g, K3g, K4g, K5g; the duplicates carry other colors and "
               "constants)")
 
+    # -- 4d. K2d, K3d, K4d, K6d and K6g vs plain ---------------------------
+    def shadow_renderer(scene_md, binning="auto", device=DEVICE, width=WIDTH,
+                        height=HEIGHT, tri_align=256, shadow_size=SHADOW_SIZE):
+        r = Renderer(RenderConfig(width=width, height=height,
+                                  pipeline="shadowed", binning=binning,
+                                  shadow_size=shadow_size,
+                                  tri_align=tri_align), device=device)
+        r.load_scene(*scene_md)
+        r.set_environment()  # BASELINE config 2: white, default light
+        return r
+
+    def light_rows(r):
+        """The depth pass's setup rows of a shadowed renderer's current
+        frame: the geometry from the light's view into its map."""
+        b = r._buffers()
+        size = r.config.shadow_size
+        light = torch.from_numpy(r._lit_constants()["light_matrices"])
+        return tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
+                                         light.to(r.device), size, size)
+
+    def edge_soup():
+        """A wide soup whose rows, seen into a square map, include bboxes
+        clamped to empty at the bottom and right edges and past them."""
+        return make_triangle_soup(600, seed=3, extent=SOUP_EXTENT)
+
+    def edge_rows_count(ti, w, h):
+        """Live head rows whose bbox clamps to empty at the bottom or right
+        edge (imin >= h or jmin >= w): (at the edge, past it)."""
+        head = ti[:tg.head_count(ti.shape[0])]
+        live = head[:, tg.I_VALID] > 0
+        imin, jmin = head[:, tg.I_IMIN], head[:, tg.I_JMIN]
+        at = live & ((imin == h) | (jmin == w))
+        past = live & ((imin > h) | (jmin > w))
+        return int(at.sum().item()), int(past.sum().item())
+
+    @phase("4d K2d/K3d/K4d/K6d depth kernels and K6g vs plain versions")
+    def depth_inputs():
+        S = SHADOW_SIZE
+        hier = lambda a, b, w, h: raster.prepare_raster_inputs(a, b)
+        cases = {  # key: (kernel, plain version, prepare)
+            "k2d": (k2d, raster.depth_small_plain,
+                    raster.prepare_binned_small),
+            "k3d": (k3d, raster.depth_hier_plain, hier),
+            "k4d": (k4d, raster.depth_binned_plain,
+                    raster.prepare_binned_hbm_inputs),
+            "k6d": (k6d, raster.depth_lists_plain,
+                    raster.prepare_binned_inputs),
+        }
+
+        def check(key, label, rows, plain_shape=None):
+            kern, plain, prepare = cases[key]
+            return compare_depth(key, label, kern, plain,
+                                 prepare(*rows, S, S), S, S, plain_shape)
+
+        def same_value(label, planes):
+            if not all(torch.equal(p, planes[0]) for p in planes[1:]):
+                raise AssertionError(f"{label}: depth planes differ in value")
+
+        check("k2d", "test scene, light view",
+              light_rows(shadow_renderer(load_test_scene())),
+              plain_shape="test scene")
+        rows20 = light_rows(shadow_renderer(lattice))
+        t0 = time.perf_counter()
+        d3 = check("k3d", "lattice20k, light view", rows20,
+                   plain_shape="lattice20k")
+        print(f"  (plain K3d included: {time.perf_counter() - t0:.1f} s)")
+        d6 = check("k6d", "lattice20k, light view", rows20,
+                   plain_shape="lattice20k")
+        same_value("lattice20k K3d/K6d", [d3, d6])
+        rows40 = light_rows(shadow_renderer((make_stress_scene(MID_TRIS))))
+        if rows40[0].shape[0] <= raster.MAX_RESIDENT_ROWS:
+            raise AssertionError("the mid lattice must exceed the row bound")
+        same_value("lattice40k K4d/K5", [
+            check("k4d", "lattice40k, light view", rows40),
+            k5(*raster.prepare_raster_inputs(*rows40), S, S)[1]])
+
+        soup = setup_rows(*clipped_soup(), S, S)
+        edge = setup_rows(*edge_soup(), S, S)
+        at, past = edge_rows_count(edge[0], S, S)
+        print(f"  edge soup: {at} rows clamped to empty at the map's edge, "
+              f"{past} past it")
+        if at == 0 or past == 0:
+            raise AssertionError("edge soup: no edge-clamped rows")
+        for label, rows in (("clipped soup", soup), ("edge soup", edge)):
+            same_value(label, [check(key, label, rows) for key in cases])
+        dup = setup_rows(*tie_soup(True), S, S)
+        one = setup_rows(*tie_soup(False), S, S)
+        for key, (kern, _, prepare) in cases.items():
+            d_dup = check(key, "duplicated triangles", dup)
+            if not torch.equal(d_dup, kern(*prepare(*one, S, S), S, S)):
+                raise AssertionError(f"{key}: duplicates changed the map")
+        print("  duplicated triangles leave every map equal by value "
+              "(K2d, K3d, K4d, K6d)")
+
+        # K6g: the G-buffer over global pair lists, at the camera's frame.
+        gprep = raster.prepare_binned_inputs
+        compare_gbuffer("k6g", "lattice20k", k6g, raster.gbuffer_lists_plain,
+                        gprep(*lit_rows(*lattice, WIDTH, HEIGHT, 256), PAD_W,
+                              PAD_H), PAD_W, PAD_H, plain_shape="lattice20k")
+        for label, rows, w, h in (
+                ("clipped soup", lit_rows(*clipped_soup(), WIDTH, HEIGHT),
+                 PAD_W, PAD_H),
+                ("edge soup", lit_rows(*edge_soup(), S, S), S, S)):
+            g6 = compare_gbuffer("k6g", label, k6g, raster.gbuffer_lists_plain,
+                                 gprep(*rows, w, h), w, h)
+            g2 = k2g(*raster.prepare_binned_small(*rows, w, h), w, h)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(g6, g2)):
+                raise AssertionError(f"{label}: K6g and K2g differ")
+        w, h = 1024, 512
+        g_dup = compare_gbuffer("k6g", "duplicated triangles", k6g,
+                                raster.gbuffer_lists_plain,
+                                gprep(*lit_rows(*tie_soup(True), w, h), w, h),
+                                w, h)
+        g_one = k6g(*gprep(*lit_rows(*tie_soup(False), w, h), w, h), w, h)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(g_dup, g_one)):
+            raise AssertionError("k6g: a duplicate won a depth tie")
+        print("  K6g equals K2g bitwise on the soups; every exact depth tie "
+              "went to the first-submitted row")
+
     # -- 5. main path -----------------------------------------------------
     @phase("5 main path")
     def launches():
@@ -658,7 +849,8 @@ def main() -> int:
 
     # -- 5b. large-scene paths ----------------------------------------------
     kernel_of = {"k1": k1, "k3": k3, "k4": k4, "k4_coarse": k4c, "k5": k5,
-                 "k6": k6, "k2g": k2g, "k3g": k3g, "k4g": k4g, "k5g": k5g}
+                 "k6": k6, "k2g": k2g, "k3g": k3g, "k4g": k4g, "k5g": k5g,
+                 "k6g": k6g, "k2d": k2d, "k3d": k3d, "k4d": k4d, "k6d": k6d}
 
     def drive(label, scene_md, binning, key):
         """One frame through Renderer.render_and_read with every launch
@@ -892,6 +1084,158 @@ def main() -> int:
         return r, rl, r4, r5, rows_big
 
     r_lit, r_lit3, r_lit4, r_lit5, rows_lit_big = lit
+
+    # -- 5s. shadowed main path ---------------------------------------------
+    def drive_shadowed(label, r, keys):
+        """One shadowed frame through Renderer.render_and_read with every
+        launch count set to 0 just before and read just after: one launch
+        of each kernel of ``keys`` (depth pass, G-buffer) and no other."""
+        for kern in kernel_of.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        img, depth = r.render_and_read()
+        wall = (time.perf_counter() - t0) * 1000.0
+        launched = {k: kern.launches for k, kern in kernel_of.items()}
+        shadow = r._shadow_map
+        cov = (depth < 1.0).mean()
+        cov_map = (shadow < 1.0).float().mean().item()
+        print(f"  shadowed {label} {img.shape[1]}x{img.shape[0]} binning="
+              f"{r.config.binning}: coverage={cov:.4f}, shadow map "
+              f"{tuple(shadow.shape)} coverage={cov_map:.4f}, first frame "
+              f"{wall:.1f} ms (host clock, warm-up included), launches "
+              f"{ {k: n for k, n in launched.items() if n} }", flush=True)
+        if img.shape[:2] != (r.config.height, r.config.width):
+            raise AssertionError(f"shadowed {label}: bad frame shape")
+        if not np.isfinite(depth).all() or cov <= MIN_COVERAGE:
+            raise AssertionError(f"shadowed {label}: frame empty or not "
+                                 "finite")
+        if not torch.isfinite(shadow).all() or cov_map <= MIN_COVERAGE:
+            raise AssertionError(f"shadowed {label}: shadow map empty or "
+                                 "not finite")
+        if (any(launched[k] != 1 for k in keys)
+                or sum(launched.values()) != len(keys)):
+            raise AssertionError(f"shadowed {label}: expected one launch of "
+                                 f"each of {keys}, got {launched}")
+        return img, depth, shadow, {k: launched[k] for k in keys}
+
+    def lit_fraction(r):
+        """The PCF lit fraction of a shadowed renderer's current frame, on
+        its device, through the frame's own stages (build_shadowed_frame):
+        G-buffer, world position, normal, then the lookup in its map."""
+        cfg = r.config
+        c = {k: torch.from_numpy(v).to(r.device)
+             for k, v in r._lit_constants().items()}
+        g = passes._gbuffer(r._buffers(), c["matrices"], c["normal_mats"],
+                            cfg.width, cfg.height, cfg.pad_height,
+                            cfg.pad_width, cfg.binning)
+        normal = torch.stack(g[4:7], dim=-1)
+        n = normal / torch.clamp_min(shading._norm(normal),
+                                     shading._f32(1e-8))
+        world = shading.reconstruct_world_pos(g[1], c["inv_view_proj"],
+                                              cfg.width, cfg.height)
+        return shading.shadow_factor_pcf_strided(
+            r._shadow_map, world, c["light_vp"],
+            stride=cfg.shadow_lookup_stride, bias=cfg.shadow_bias,
+            taps=cfg.pcf_taps, normal=n, light_dir=r._light_dir_dev,
+            slope_bias=cfg.shadow_slope_bias)
+
+    def hold_shadowed(label, img, img_ref, covered, frac=None, frac_ref=None):
+        """Trouble 3's contract between two shadowed frames: pixels where
+        whole PCF taps flip (from the lit fractions when given, else those
+        over LIT_MAX_LSB) at most SHADOW_MAX_FLIP_SHARE of the covered
+        pixels and at most a tap's TAP_MAX_LSB each; u8 within LIT_MAX_LSB
+        on every other pixel.  Returns the flipped-pixel count."""
+        diff = np.abs(img.astype(np.int32)
+                      - img_ref.astype(np.int32)).max(axis=-1)
+        if frac is not None:
+            taps = (2 * RenderConfig().pcf_taps + 1) ** 2
+            steps = ((frac - frac_ref) * taps).cpu().numpy()
+            flipped = steps != 0
+            whole = np.abs(steps - np.round(steps)).max() < 1e-3
+        else:
+            flipped = diff > LIT_MAX_LSB
+            whole = True
+        n_flip = int(flipped.sum())
+        n_cov = int(covered.sum())
+        rest = int(diff[~flipped].max()) if (~flipped).any() else 0
+        worst = int(diff[flipped].max()) if n_flip else 0
+        print(f"  {label}: {n_flip} of {n_cov} covered px with flipped PCF "
+              f"taps ({n_flip / max(n_cov, 1):.6f}; whole taps {whole}, max "
+              f"{worst} LSB there), max {rest} LSB elsewhere", flush=True)
+        if (not whole or n_flip > SHADOW_MAX_FLIP_SHARE * n_cov
+                or worst > TAP_MAX_LSB or rest > LIT_MAX_LSB):
+            raise AssertionError(f"{label}: outside the shadowed contract")
+        return n_flip
+
+    def same_maps(label, a, b):
+        """Equal shadow maps by value (the sign of a zero z may differ) and
+        bit-equal visible frames."""
+        same_map = torch.equal(a[2], b[2])
+        same_frame = (np.array_equal(a[0], b[0])
+                      and np.array_equal(a[1].view(np.int32),
+                                         b[1].view(np.int32)))
+        print(f"  {label}: shadow maps equal {same_map}, frames equal "
+              f"{same_frame}")
+        if not (same_map and same_frame):
+            raise AssertionError(f"{label}: shadow maps or frames differ")
+
+    @phase("5s shadowed main path")
+    def shadowed():
+        S = SHADOW_SIZE
+        scene_md = load_test_scene()
+        r = shadow_renderer(scene_md)
+        img, depth, shadow, n = drive_shadowed("test scene (K2d, K2g)", r,
+                                               ("k2d", "k2g"))
+        counts["k2d"] = n["k2d"]
+        rc = shadow_renderer(scene_md, device="cpu")
+        img_c, depth_c = rc.render_and_read()
+        cov_same = np.array_equal(depth < 1.0, depth_c < 1.0)
+        map_same = torch.equal(shadow.cpu().view(torch.int32),
+                               rc._shadow_map.view(torch.int32))
+        print(f"  shadowed test scene card vs CPU frame: coverage equal "
+              f"{cov_same}, shadow map bit-equal {map_same}")
+        if not (cov_same and map_same):
+            raise AssertionError("shadowed 1080p frame: coverage or map "
+                                 "differs from the CPU's")
+        flips = hold_shadowed("shadowed test scene card vs CPU", img, img_c,
+                              depth < 1.0, lit_fraction(r).cpu(),
+                              lit_fraction(rc))
+
+        r3 = shadow_renderer(lattice)
+        f3 = drive_shadowed("lattice20k (K3d, K3g)", r3, ("k3d", "k3g"))
+        counts["k3d"] = f3[3]["k3d"]
+        r6 = shadow_renderer(lattice, "tile_lists")
+        f6 = drive_shadowed("lattice20k (K6d, K6g)", r6, ("k6d", "k6g"))
+        counts["k6d"], counts["k6g"] = f6[3]["k6d"], f6[3]["k6g"]
+        same_maps("shadowed lattice20k K3d+K3g == K6d+K6g", f3, f6)
+
+        r4 = shadow_renderer(lattice_big)
+        f4 = drive_shadowed("lattice1M (K4d, K4g)", r4, ("k4d", "k4g"))
+        counts["k4d"] = f4[3]["k4d"]
+        r5 = shadow_renderer(lattice_big, "hierarchy")
+        f5 = drive_shadowed("lattice1M (K5, K5g)", r5, ("k5", "k5g"))
+        same_maps("shadowed lattice1M K4d+K4g == K5+K5g", f4, f5)
+        rows_big = light_rows(r4)
+        # The main path's K4d inputs against the plain version; its time
+        # is K4d's plain_ms.
+        compare_depth("k4d", "shadowed lattice1M, light view", k4d,
+                      raster.depth_binned_plain,
+                      raster.prepare_binned_hbm_inputs(*rows_big, S, S),
+                      S, S, plain_shape="lattice1M")
+
+        # The golden's renderer: the default config, its 1024^2 map.
+        rg = shadow_renderer(make_test_scene(), width=160, height=96,
+                             tri_align=64,
+                             shadow_size=RenderConfig().shadow_size)
+        img_g, depth_g = rg.render_and_read()
+        hold_shadowed("shadowed 160x96 vs tests/goldens/shadowed_160x96.png",
+                      img_g, read_png(SHADOWED_GOLDEN), depth_g < 1.0)
+        print(f"  launches in the shadowed runs: "
+              f"{ {k: counts[k] for k in ('k2d', 'k3d', 'k4d', 'k6d', 'k6g')} }"
+              f"; flipped PCF pixels at 1080p: {flips}")
+        return r, r3, r6, r4, rows_big
+
+    r_sh, r_sh3, r_sh6, r_sh4, rows_sh_big = shadowed
     del lattice_big
 
     # -- 6. timing --------------------------------------------------------
@@ -958,25 +1302,34 @@ def main() -> int:
                     "k2g": "gbuffer_small_kernel",
                     "k3g": "gbuffer_hier_kernel",
                     "k4g": "gbuffer_records_kernel",
-                    "k5g": "gbuffer_hbm_kernel"}
+                    "k5g": "gbuffer_hbm_kernel",
+                    "k6g": "gbuffer_lists_kernel",
+                    "k2d": "depth_small_kernel", "k3d": "depth_hier_kernel",
+                    "k4d": "depth_records_kernel",
+                    "k6d": "depth_lists_kernel"}
     raster_kernels = set(kernel_names.values())
 
-    def traced_kernel_ms(key, fn, attempts=3):
-        """Device events of ``fn``'s traced run and the mean duration (ms)
-        of kernel ``key`` in it, from the first of ``attempts`` traces that
-        holds every launch of its run (half the launches counted over
-        warm-up and trace); raises if none does."""
-        kern = kernel_of[key]
+    def traced_kernel_ms(keys, fn, attempts=3):
+        """Device events of ``fn``'s traced run, its window, and the mean
+        duration (ms) of each kernel of ``keys`` in it, from the first of
+        ``attempts`` traces that holds every launch of each (half the
+        launches counted over warm-up and trace); raises if none does."""
         for attempt in range(1, attempts + 1):
-            before = kern.launches
+            before = {k: kernel_of[k].launches for k in keys}
             events, window = device_trace(fn)
-            launched = (kern.launches - before) // 2
-            durs = [d for name, _, d in events if kernel_names[key] in name]
-            if launched > 0 and len(durs) == launched:
-                return events, window, sum(durs) / len(durs) / 1000.0
-            print(f"  {key}: trace {attempt} holds {len(durs)} of {launched}"
-                  " launches", flush=True)
-        raise AssertionError(f"{key}: no trace of {attempts} held every "
+            ms, short = {}, []
+            for k in keys:
+                launched = (kernel_of[k].launches - before[k]) // 2
+                durs = [d for name, _, d in events if kernel_names[k] in name]
+                if launched > 0 and len(durs) == launched:
+                    ms[k] = sum(durs) / len(durs) / 1000.0
+                else:
+                    short.append(f"{k} {len(durs)} of {launched}")
+            if not short:
+                return events, window, ms
+            print(f"  trace {attempt} holds {', '.join(short)} launches",
+                  flush=True)
+        raise AssertionError(f"{keys}: no trace of {attempts} held every "
                              "launch")
 
     def lit_stages():
@@ -1049,26 +1402,129 @@ def main() -> int:
                                       r.light_color), 50),
         }
 
+    def shadow_stages():
+        """The shadowed 1080p test-scene frame (BASELINE config 2: the
+        default 1x1 white texture, a 1024^2 map) split into its stages as
+        in ``lit_stages``."""
+        r = r_sh
+        cfg = r.config
+        S = cfg.shadow_size
+        b = r._buffers()
+        c = {k: torch.from_numpy(v).to(dev)
+             for k, v in r._lit_constants().items()}
+        tex = r.texture
+        th, tw = tex.base_shape
+
+        def depth_geometry():
+            return tg.geometry_pipeline_cols(
+                b["corner_cols"], b["tri_node"], c["light_matrices"], S, S)
+
+        dti, dtf = depth_geometry()
+        dprep = raster.prepare_binned_small(dti, dtf, S, S)
+        shadow = k2d(*dprep, S, S)
+
+        def geometry():
+            return tg.geometry_pipeline_cols(
+                b["corner_cols"], b["tri_node"], c["matrices"], WIDTH,
+                HEIGHT, normal_matrices=c["normal_mats"],
+                material_table=b["materials"])
+
+        ti, tf = geometry()
+        prep = raster.prepare_binned_small(ti, tf, PAD_W, PAD_H)
+        planes = k2g(*prep, PAD_W, PAD_H)
+
+        def crop():
+            return ([raster.unpack_rgba8(planes[0][:HEIGHT, :WIDTH])]
+                    + [p[:HEIGHT, :WIDTH] for p in planes[1:]])
+
+        g = crop()
+        normal = torch.stack(g[4:7], dim=-1)
+        n = normal / torch.clamp_min(shading._norm(normal),
+                                     shading._f32(1e-8))
+
+        def sample():
+            return passes._sample_albedo(g[0], tex.atlas_u32, g[2], g[3],
+                                         g[12], th, tw, tex.num_levels,
+                                         tex.num_layers > 1)
+
+        albedo = sample()
+
+        def pcf():
+            world = shading.reconstruct_world_pos(g[1], c["inv_view_proj"],
+                                                  WIDTH, HEIGHT)
+            return shading.shadow_factor_pcf_strided(
+                shadow, world, c["light_vp"],
+                stride=cfg.shadow_lookup_stride, bias=cfg.shadow_bias,
+                taps=cfg.pcf_taps, normal=n, light_dir=r._light_dir_dev,
+                slope_bias=cfg.shadow_slope_bias)
+
+        lit_mask = pcf()
+
+        def shade():
+            ndotl = torch.clamp_min(shading._dot(n, -r._light_dir_dev), 0.0)
+            rgb = albedo * (shading._f32(0.10)
+                            + ndotl * lit_mask[..., None] * r.light_color)
+            rgb = rgb + torch.stack(g[9:12], dim=-1)
+            return shading.tonemap_and_pack(rgb, g[1] < 1.0)
+
+        color = shade()
+        return {
+            "shadowed depth geometry": (depth_geometry, 50),
+            "shadowed depth prepare_binned_small": (
+                lambda: raster.prepare_binned_small(dti, dtf, S, S), 50),
+            "shadowed K2d launcher": (lambda: k2d(*dprep, S, S), 50),
+            "shadowed geometry": (geometry, 50),
+            "shadowed prepare_binned_small": (
+                lambda: raster.prepare_binned_small(ti, tf, PAD_W, PAD_H), 50),
+            "shadowed K2g launcher": (lambda: k2g(*prep, PAD_W, PAD_H), 50),
+            "shadowed crop": (crop, 50),
+            "shadowed sampling": (sample, 50),
+            "shadowed PCF (world position + lookup)": (pcf, 50),
+            "shadowed shading + tonemap": (shade, 50),
+            "shadowed digest": (lambda: rgba_digest(color), 50),
+            "shadowed whole frame (passes.build_shadowed_frame)": (
+                lambda: r._frame_fn()(b, tex.atlas_u32, c["matrices"],
+                                      c["normal_mats"], c["inv_view_proj"],
+                                      c["cam_pos"], c["light_matrices"],
+                                      c["light_vp"], r._light_dir_dev,
+                                      r.light_color), 50),
+        }
+
     @phase("6 timing")
     def timing():
-        # (label, renderer, kernel, frames timed, frames profiled)
+        # (label, renderer, kernels timed in its trace, frames timed,
+        # frames profiled)
         animations = (
-            ("test scene (K1)", r_scene, "k1", ANIM_FRAMES, PROFILE_FRAMES),
-            ("lattice (K3)", r_lattice, "k3", ANIM_FRAMES, PROFILE_FRAMES),
-            ("lattice1M (K4)", r_k4, "k4", LARGE_FRAMES, 5),
-            ("lattice1M (K5)", r_k5, "k5", LARGE_FRAMES, 5),
-            ("soup1M tile_lists (K4c)", r_k4c, "k4_coarse", 5, 3),
-            ("lattice20k tile_lists (K6)", r_k6, "k6", ANIM_FRAMES,
+            ("test scene (K1)", r_scene, ("k1",), ANIM_FRAMES,
              PROFILE_FRAMES),
-            ("lit test scene (K2g)", r_lit, "k2g", ANIM_FRAMES,
+            ("lattice (K3)", r_lattice, ("k3",), ANIM_FRAMES, PROFILE_FRAMES),
+            ("lattice1M (K4)", r_k4, ("k4",), LARGE_FRAMES, 5),
+            ("lattice1M (K5)", r_k5, ("k5",), LARGE_FRAMES, 5),
+            ("soup1M tile_lists (K4c)", r_k4c, ("k4_coarse",), 5, 3),
+            ("lattice20k tile_lists (K6)", r_k6, ("k6",), ANIM_FRAMES,
              PROFILE_FRAMES),
-            ("lit lattice20k (K3g)", r_lit3, "k3g", ANIM_FRAMES,
+            ("lit test scene (K2g)", r_lit, ("k2g",), ANIM_FRAMES,
              PROFILE_FRAMES),
-            ("lit lattice1M (K4g)", r_lit4, "k4g", LARGE_FRAMES, 5),
-            ("lit lattice1M (K5g)", r_lit5, "k5g", LARGE_FRAMES, 5),
+            ("lit lattice20k (K3g)", r_lit3, ("k3g",), ANIM_FRAMES,
+             PROFILE_FRAMES),
+            ("lit lattice1M (K4g)", r_lit4, ("k4g",), LARGE_FRAMES, 5),
+            ("lit lattice1M (K5g)", r_lit5, ("k5g",), LARGE_FRAMES, 5),
+            ("shadowed test scene (K2d, K2g)", r_sh, ("k2d",), ANIM_FRAMES,
+             PROFILE_FRAMES),
+            ("shadowed lattice20k (K3d, K3g)", r_sh3, ("k3d",), ANIM_FRAMES,
+             PROFILE_FRAMES),
+            ("shadowed lattice20k tile_lists (K6d, K6g)", r_sh6,
+             ("k6d", "k6g"), ANIM_FRAMES, PROFILE_FRAMES),
+            ("shadowed lattice1M (K4d, K4g)", r_sh4, ("k4d",), LARGE_FRAMES,
+             5),
         )
         # A. Traces: each kernel alone at its main-path shape, a profiled
         # render_animation per path, and the device ops of each stage.
+        # The depth kernels run at the shadow map's size, the rest at the
+        # padded frame's.
+        S = SHADOW_SIZE
+        size_of = {k: (S, S) for k in ("k2d", "k3d", "k4d", "k6d")}
+        rows_k6g, rows_k6d = lit_frame_rows(r_sh6), light_rows(r_sh6)
         cases = {
             "k1": (k1_inputs, "test scene", 50),
             "k3": (main_prep_k3, "lattice20k", 20),
@@ -1090,23 +1546,36 @@ def main() -> int:
                                                      PAD_H), "lattice1M", 5),
             "k5g": (raster.prepare_raster_inputs(*rows_lit_big), "lattice1M",
                     3),
+            "k6g": (raster.prepare_binned_inputs(*rows_k6g, PAD_W, PAD_H),
+                    "lattice20k", 20),
+            "k2d": (raster.prepare_binned_small(*light_rows(r_sh), S, S),
+                    "test scene", 50),
+            "k3d": (raster.prepare_raster_inputs(*light_rows(r_sh3)),
+                    "lattice20k", 20),
+            "k4d": (raster.prepare_binned_hbm_inputs(*rows_sh_big, S, S),
+                    "lattice1M", 5),
+            "k6d": (raster.prepare_binned_inputs(*rows_k6d, S, S),
+                    "lattice20k", 20),
         }
         for key, (prep_k, shape, reps) in cases.items():
             kern = kernel_of[key]
-            _, _, results[key]["ms"] = traced_kernel_ms(
-                key, lambda: [kern(*prep_k, PAD_W, PAD_H)
-                              for _ in range(reps)])
-        for label, r, key, _, n in animations:
+            w, h = size_of.get(key, (PAD_W, PAD_H))
+            _, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*prep_k, w, h) for _ in range(reps)])
+            results[key]["ms"] = ms[key]
+        for label, r, keys, _, n in animations:
             events, window, kms = traced_kernel_ms(
-                key, lambda r=r: r.render_animation(num_frames=n)[0].cpu())
-            results[key]["anim_ms"] = kms
+                keys, lambda r=r: r.render_animation(num_frames=n)[0].cpu())
+            for key in keys:
+                results[key]["anim_ms"] = kms[key]
             busy = busy_us(events)
             raster_us = sum(dur for name, _, dur in events
                             if any(k in name for k in raster_kernels))
+            per_kernel = ", ".join(f"{k} {kms[k]:.4f}" for k in keys)
             print(f"  profiled render_animation({n}) {label}: "
                   f"{len(events) / n:.1f} device ops/frame, device busy "
                   f"{busy / n / 1000.0:.4f} ms/frame (raster kernels "
-                  f"{raster_us / n / 1000.0:.4f}; {key} {kms:.4f} ms a "
+                  f"{raster_us / n / 1000.0:.4f}; {per_kernel} ms a "
                   f"launch), idle share {1.0 - busy / window:.4f} of "
                   f"{window / n / 1000.0:.4f} ms/frame traced (host slowed "
                   f"by the profiler)")
@@ -1143,6 +1612,7 @@ def main() -> int:
             "lattice1M digest": (lambda: frame_digest(packed4), 10),
         }
         stages.update(lit_stages())
+        stages.update(shadow_stages())
         stage_events = {name: device_trace(fn)[0]
                         for name, (fn, _) in stages.items()}
 
@@ -1174,23 +1644,25 @@ def main() -> int:
 
         rows_of = {"k4": rows_lattice, "k5": rows_lattice,
                    "k4_coarse": rows_soup, "k6": rows_k6,
-                   "k4g": rows_lit_big, "k5g": rows_lit_big}
+                   "k4g": rows_lit_big, "k5g": rows_lit_big,
+                   "k4d": rows_sh_big, "k6g": rows_k6g, "k6d": rows_k6d}
         for key, (prep_k, shape, reps) in cases.items():
             kern = kernel_of[key]
             res = results[key]
-            res["wrapper_ms"] = event_ms(lambda: kern(*prep_k, PAD_W, PAD_H),
-                                         reps)
-            if key in ("k1", "k2g"):
+            w, h = size_of.get(key, (PAD_W, PAD_H))
+            res["wrapper_ms"] = event_ms(lambda: kern(*prep_k, w, h), reps)
+            if key in ("k1", "k2g", "k2d"):
                 pairs = (int(prep_k[0].sum().item())
-                         + tile_pairs(prep_k[4], PAD_W, PAD_H))
-            elif key in ("k3", "k3g"):
-                pairs = tile_pairs(prep_k[2], PAD_W, PAD_H)
+                         + tile_pairs(prep_k[4], w, h))
+            elif key in ("k3", "k3g", "k3d"):
+                pairs = tile_pairs(prep_k[2], w, h)
             else:
-                pairs = tile_pairs(rows_of[key][0], PAD_W, PAD_H)
-            set_bound(key, flat_inputs(prep_k), pairs, PAD_W, PAD_H, shape,
-                      planes=(raster.GBUFFER_PLANES if key.endswith("g")
-                              else 2))
-            print(f"  {key} {shape} {PAD_W}x{PAD_H}: kernel {res['ms']:.4f} "
+                pairs = tile_pairs(rows_of[key][0], w, h)
+            planes = (raster.GBUFFER_PLANES if key.endswith("g")
+                      else 1 if key.endswith("d") else 2)
+            set_bound(key, flat_inputs(prep_k), pairs, w, h, shape,
+                      planes=planes)
+            print(f"  {key} {shape} {w}x{h}: kernel {res['ms']:.4f} "
                   f"ms device time (profiler; {res['anim_ms']:.4f} ms a "
                   f"launch in the profiled render_animation), launcher "
                   f"{res['wrapper_ms']:.4f} ms/call (CUDA events); plain "
@@ -1201,7 +1673,8 @@ def main() -> int:
     @phase("7 app")
     def app():
         for scene_dir, pipeline in ((SCENE_DIR, "flat"),
-                                    (SHOWCASE_DIR, "lit")):
+                                    (SHOWCASE_DIR, "lit"),
+                                    (SCENE_DIR, "shadowed")):
             with tempfile.TemporaryDirectory() as tmp:
                 rc = app_main(["--scene", scene_dir, "--width", str(WIDTH),
                                "--height", str(HEIGHT), "--frames", "2",
@@ -1230,7 +1703,10 @@ def main() -> int:
         "k4_coarse": ("raster_binned.cu", 2239),
         "k5": ("raster_hier.cu", 640), "k6": ("raster_binned.cu", 1520),
         "k2g": ("raster_small.cu", 2943), "k3g": ("raster_hier.cu", 1015),
-        "k4g": ("raster_binned.cu", 2334), "k5g": ("raster_hier.cu", 717)}
+        "k4g": ("raster_binned.cu", 2334), "k5g": ("raster_hier.cu", 717),
+        "k6g": ("raster_binned.cu", 1554), "k2d": ("raster_small.cu", 2970),
+        "k3d": ("raster_hier.cu", 895), "k4d": ("raster_binned.cu", 2365),
+        "k6d": ("raster_binned.cu", 1582)}
     kernels = []
     for key, (src, line) in sources.items():
         res = results[key]

@@ -3,14 +3,14 @@ inputs of ops/geometry.py) against the JAX package on shared inputs.
 
 * The lit geometry columns (normal transform, material constants) are
   bit-exact against ``geometry_pipeline_cols(np, ...)``.
-* The plain K2g, K3g, K4g and K5g are held against
+* The plain K2g, K3g, K4g, K5g and K6g are held against
   ``raster_xla.rasterize_gbuffer_xla`` under the parity contract
   (docs/RASTER_SPEC.md §5): coverage and the six constant planes exact,
   u8 within 1 LSB, depth within 2e-6, u/v/normals within rtol 1e-5, atol
   1e-6.  The slack is XLA:CPU's: it may contract the f32 chains that eager
   torch rounds op by op.
 * ``select_gbuffer_raster`` follows ``render_gbuffer_pallas`` branch for
-  branch (not the flat dispatch), and K6g's branch raises.
+  branch (not the flat dispatch).
 
 Every material table is random per triangle, so a wrong winner shows in
 the constant planes.
@@ -73,7 +73,8 @@ def lit_setup(case, seed=0):
 # kind -> the port's wrapper (plain version on CPU tensors)
 WRAPPERS = {"k2g": tr.rasterize_gbuffer_small, "k3g": tr.rasterize_gbuffer,
             "k4g": tr.rasterize_gbuffer_binned_hbm,
-            "k5g": tr.rasterize_gbuffer_hbm}
+            "k5g": tr.rasterize_gbuffer_hbm,
+            "k6g": tr.rasterize_gbuffer_binned}
 
 
 def plain_gbuffer(kind, ti, tf, w, h, **kw):
@@ -158,12 +159,12 @@ def test_plain_gbuffer_matches_xla(kind, case):
 
 @pytest.mark.parametrize("case", list(LIT_CASES))
 def test_plain_gbuffer_kinds_agree(case):
-    """The four traversals give the same G-buffer (the two epilogue forms
+    """The five traversals give the same G-buffer (the two epilogue forms
     differ only where a row passed with den <= 0, which these scenes do
     not have)."""
     ti, tf, w, h = lit_setup(case, seed=1)
     base = plain_gbuffer("k3g", ti, tf, w, h)
-    for kind in ("k2g", "k4g", "k5g"):
+    for kind in ("k2g", "k4g", "k5g", "k6g"):
         for a, b in zip(plain_gbuffer(kind, ti, tf, w, h), base):
             np.testing.assert_array_equal(a, b)
 
@@ -183,7 +184,7 @@ def test_plain_k4g_under_small_budgets_matches_xla():
 
 def test_gbuffer_ties_resolve_to_the_first_submitted_row():
     """Every triangle duplicated with other colors and other constants:
-    the G-buffer equals that of the originals alone, through all four."""
+    the G-buffer equals that of the originals alone, through all five."""
     ti, tf, w, h = lit_setup("tie_soup_256x128", seed=3)
     ccols, tri_node, mats, nm, table, _, _ = lit_inputs("tie_soup_256x128",
                                                         seed=3)
@@ -223,11 +224,11 @@ def test_gbuffer_epilogue_forms():
 
 def _expected_route(binning, rows):
     """``render_gbuffer_pallas``'s branches (raster_pallas.py:1059-1077),
-    each mapped to the port's wrapper of the same kernel; None for K6g
-    (``rasterize_gbuffer_pallas_binned``), which is not ported."""
+    each mapped to the port's wrapper of the same kernel."""
     big = rows > rp.VMEM_RESIDENT_MAX_TRIS
     if rp._use_tile_lists(binning, rows):
-        return tr.rasterize_gbuffer_binned_hbm if big else None
+        return (tr.rasterize_gbuffer_binned_hbm if big
+                else tr.rasterize_gbuffer_binned)
     if big:
         return (tr.rasterize_gbuffer_hbm if binning == "hierarchy"
                 else tr.rasterize_gbuffer_binned_hbm)
@@ -241,12 +242,8 @@ def _expected_route(binning, rows):
                                   1000000])
 def test_gbuffer_dispatch_routes_like_render_gbuffer_pallas(tris, binning):
     rows = g.capped_rows(tris)
-    expected = _expected_route(binning, rows)
-    if expected is None:
-        with pytest.raises(NotImplementedError, match="K6g"):
-            tr.select_gbuffer_raster(binning, rows)
-    else:
-        assert tr.select_gbuffer_raster(binning, rows) is expected
+    assert (tr.select_gbuffer_raster(binning, rows)
+            is _expected_route(binning, rows))
 
 
 def test_gbuffer_dispatch_differs_from_flat():

@@ -109,6 +109,20 @@ def test_zmath_matches_reference():
         np.testing.assert_array_equal(ours.view(np.int32), ref.view(np.int32))
 
 
+def test_shadow_zmath_matches_reference():
+    """vec3 and orthographic_rh, which the shadow pass's light frustum
+    uses."""
+    pairs = [(zm.vec3(0.25, -1.5, 3.0), ref_zm.vec3(0.25, -1.5, 3.0))]
+    for w, h, near, far in ((4.4, 4.4, 0.1, 9.0), (13.7, 2.9, 0.1, 28.35),
+                            (2.2 * 7.123456, 2.2 * 7.123456, 0.1,
+                             4.5 * 7.123456)):
+        pairs.append((zm.orthographic_rh(w, h, near, far),
+                      ref_zm.orthographic_rh(w, h, near, far)))
+    for ours, ref in pairs:
+        assert ours.dtype == ref.dtype == np.float32
+        np.testing.assert_array_equal(ours.view(np.int32), ref.view(np.int32))
+
+
 def test_scene_files_load_like_reference():
     scene, md = _scene_files(port_scene, port_mesh)
     ref, ref_md = _scene_files(ref_scene, ref_mesh)

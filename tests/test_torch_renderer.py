@@ -234,10 +234,16 @@ def test_frame_stats_line():
 
 
 def test_config_rejects_unported_options():
-    for pipeline in ("shadowed", "deferred"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RenderConfig(pipeline=pipeline)
-    assert RenderConfig(pipeline="lit").pipeline == "lit"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RenderConfig(pipeline="deferred")
+    for pipeline in ("lit", "shadowed"):
+        assert RenderConfig(pipeline=pipeline).pipeline == pipeline
+    for size in (96, 160, 1000, 0):  # not a multiple of both 32 and 128
+        with pytest.raises(ValueError, match="shadow_size"):
+            RenderConfig(pipeline="shadowed", shadow_size=size)
+    assert RenderConfig(pipeline="shadowed", shadow_size=384).shadow_size
+    with pytest.raises(ValueError, match="stride"):
+        RenderConfig(pipeline="shadowed", shadow_lookup_stride=3)
     with pytest.raises(NotImplementedError):
         RenderConfig(supersample=2)
     with pytest.raises(NotImplementedError):

@@ -1,15 +1,15 @@
-"""Headless renderer application, flat and lit pipelines (counterpart of
-``zrenderer_tpu/app/main.py``).
+"""Headless renderer application, flat, lit and shadowed pipelines
+(counterpart of ``zrenderer_tpu/app/main.py``).
 
 Loads a scene folder (scene.bin + meshes.bin), prints the scene outliner,
 renders frames on the chosen device and writes them as PNGs:
 
     python -m zrenderer_tpu_torch.app.main --scene content/scenes/test_scene \
         --width 1920 --height 1080 --frames 60 --out out/ --device cuda \
-        [--pipeline lit]
+        [--pipeline lit|shadowed]
 
-The lit pipeline binds the scene's TEXS textures (PNG) where it has them,
-else a 256x256 checkerboard.
+The lit and shadowed pipelines bind the scene's TEXS textures (PNG) where
+it has them, else a 256x256 checkerboard.
 """
 
 from __future__ import annotations
@@ -53,8 +53,9 @@ def main(argv=None) -> int:
                              "1024 head rows, hierarchy up to 32768 setup "
                              "rows, record streaming above)")
     parser.add_argument("--pipeline", default="flat", choices=PIPELINES,
-                        help="flat vertex color, or lit (textured "
-                             "Blinn-Phong, one point light)")
+                        help="flat vertex color, lit (textured "
+                             "Blinn-Phong, one point light) or shadowed "
+                             "(directional shadow map with PCF)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda, cuda:N or cpu")
     args = parser.parse_args(argv)

@@ -1,5 +1,6 @@
-// K4, K4c and K6: binned flat raster over pair-sorted tile spans; K4g: the
-// G-buffer variant of K4.
+// K4, K4c and K6: binned flat raster over pair-sorted tile spans; K4g and
+// K6g: the G-buffer variants of K4 and K6; K4d and K6d: their depth-only
+// variants.
 //
 // Replaces, in zrenderer_tpu/ops/raster_pallas.py:
 //   K4   rasterize_setup_pallas_binned_hbm (_binned_hbm_kernel, body
@@ -53,6 +54,22 @@
 // epilogue does not read.  Bound on the H100: as K4, plus the 13 output
 // planes (109 MB at 1920x1088, 0.032 ms at 3.35 TB/s).  ptxas (sm_90a, -O3
 // -fmad=false): K4g 112 registers against K4's 192, no spills.
+//
+// K6g replaces rasterize_gbuffer_pallas_binned (_binned_gbuffer_kernel over
+// global pair lists, epilogue buf * where(covered, inv, 0) at :1452-1455):
+// K6's phases keeping z and the winning row id, the 13 planes resolved
+// from the winner in hier/tf (the rows pair_tri indexes), as K4g.
+//
+// K4d and K6d replace rasterize_depth_pallas_binned_hbm
+// (_binned_hbm_depth_kernel, body :1887 with depth_only, :1939-1944,
+// :2142-2144) and rasterize_depth_pallas_binned (_binned_depth_kernel over
+// global pair lists), the shadow-map pass under record streaming and tile
+// lists: the same phases, no coarse class, z alone under the strict-less
+// test (raster_common.cuh TileState::DEPTH), one f32 plane out.  Without a
+// row id an exact tie keeps the first row visited (span, then leftovers),
+// so their planes equal K3d's by value; only the sign of a zero z may
+// differ.  Bound on the H100: the per-pixel edge work over the shadow
+// map's (tile, triangle) pairs.
 
 #include "raster_common.cuh"
 
@@ -71,7 +88,7 @@ __device__ __forceinline__ bool record_hits(const int* __restrict__ r,
          __ldg(r + I_IMAX) >= row0 && __ldg(r + I_IMIN) < row0 + TILE_H;
 }
 
-// Phases 1, 1.5 and 2 of all four kernels.  RECORDS: spans of gathered
+// Phases 1, 1.5 and 2 of all eight kernels.  RECORDS: spans of gathered
 // records (K4/K4c/K4g) or of row ids (K6).  COARSE: run phase 1.5 over the
 // coarse class.
 template <bool RECORDS, bool COARSE, class State>
@@ -186,6 +203,52 @@ __global__ void __launch_bounds__(THREADS)
   st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
 }
 
+__global__ void __launch_bounds__(THREADS)
+    gbuffer_lists_kernel(const int* __restrict__ offsets,
+                         const int* __restrict__ pair_tri,
+                         const int* __restrict__ supers, int num_supers,
+                         const int* __restrict__ blocks,
+                         const int* __restrict__ ti,
+                         const float* __restrict__ tf,
+                         float* __restrict__ out, int width, int height) {
+  TileState<true, true> st;
+  binned_scan<false, false>(st, offsets, pair_tri, nullptr, nullptr, nullptr,
+                            nullptr, supers, num_supers, blocks, ti, tf,
+                            width);
+  st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    depth_records_kernel(const int* __restrict__ offsets,
+                         const int* __restrict__ rec_i,
+                         const float* __restrict__ rec_f,
+                         const int* __restrict__ supers, int num_supers,
+                         const int* __restrict__ blocks,
+                         const int* __restrict__ ti,
+                         const float* __restrict__ tf,
+                         float* __restrict__ depth, int width) {
+  TileState<false, false, true> st;
+  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
+                           nullptr, supers, num_supers, blocks, ti, tf,
+                           width);
+  st.store_depth(depth, width);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    depth_lists_kernel(const int* __restrict__ offsets,
+                       const int* __restrict__ pair_tri,
+                       const int* __restrict__ supers, int num_supers,
+                       const int* __restrict__ blocks,
+                       const int* __restrict__ ti,
+                       const float* __restrict__ tf,
+                       float* __restrict__ depth, int width) {
+  TileState<false, false, true> st;
+  binned_scan<false, false>(st, offsets, pair_tri, nullptr, nullptr, nullptr,
+                            nullptr, supers, num_supers, blocks, ti, tf,
+                            width);
+  st.store_depth(depth, width);
+}
+
 }  // namespace zr
 
 // K4 (coffsets == nullptr) or K4c.
@@ -235,5 +298,46 @@ extern "C" int zr_gbuffer_records(const int* offsets, const int* rec_i,
                                (cudaStream_t)stream>>>(
       offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, out, width,
       height);
+  return (int)cudaGetLastError();
+}
+
+// K6g.
+extern "C" int zr_gbuffer_lists(const int* offsets, const int* pair_tri,
+                                const int* supers, int num_supers,
+                                const int* blocks, const int* ti,
+                                const float* tf, float* out, int height,
+                                int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::gbuffer_lists_kernel<<<num_tiles, zr::THREADS, 0,
+                             (cudaStream_t)stream>>>(
+      offsets, pair_tri, supers, num_supers, blocks, ti, tf, out, width,
+      height);
+  return (int)cudaGetLastError();
+}
+
+// K4d.
+extern "C" int zr_depth_records(const int* offsets, const int* rec_i,
+                                const float* rec_f, const int* supers,
+                                int num_supers, const int* blocks,
+                                const int* ti, const float* tf, float* depth,
+                                int height, int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::depth_records_kernel<<<num_tiles, zr::THREADS, 0,
+                             (cudaStream_t)stream>>>(
+      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, depth,
+      width);
+  return (int)cudaGetLastError();
+}
+
+// K6d.
+extern "C" int zr_depth_lists(const int* offsets, const int* pair_tri,
+                              const int* supers, int num_supers,
+                              const int* blocks, const int* ti,
+                              const float* tf, float* depth, int height,
+                              int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::depth_lists_kernel<<<num_tiles, zr::THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      offsets, pair_tri, supers, num_supers, blocks, ti, tf, depth, width);
   return (int)cudaGetLastError();
 }

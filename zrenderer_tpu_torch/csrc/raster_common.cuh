@@ -6,14 +6,16 @@
 // int32 [jmin, jmax, imin, imax, any_valid, 0, 0, 0].  Output planes are
 // (H, W) row-major: packed RGBA8 as u32 bits in int32, and f32 depth; a
 // G-buffer kernel writes GBUF_PLANES such planes back to back (color bits,
-// depth, u, v, nx, ny, nz, metallic, roughness, emissive r/g/b, layer).
+// depth, u, v, nx, ny, nz, metallic, roughness, emissive r/g/b, layer); a
+// depth-only kernel (the shadow-map pass) writes the depth plane alone.
 //
 // One CUDA block rasterizes one 32x128 screen tile.  Its 256 threads each
 // own one column and 16 rows of the tile (rows r0, r0 + 2, ...), and keep
 // the tile state for those pixels in registers across the whole triangle
 // loop: depth, winning row id (K1 only) and the r/g/b/(1/w) numerators.
 // The G-buffer kernels keep only depth and the winning row id, and
-// resolve every latch from the winner in the epilogue (TileState::GBUF).
+// resolve every latch from the winner in the epilogue (TileState::GBUF);
+// the depth-only kernels keep depth alone (TileState::DEPTH).
 // Every triangle is evaluated by all threads of the block (the loops and
 // their bbox skips are block-uniform), so the per-triangle setup reads are
 // broadcast loads.
@@ -100,12 +102,20 @@ __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
 // winning row id (with strict-less order the last row that passed), and
 // store_gbuffer re-evaluates the winner's edge functions and interpolants
 // with the same interp3: the same bits, two values a pixel.
-template <bool TIE, bool GBUF = false>
+//
+// DEPTH: the depth-only kernels (K2d, K3d, K4d, K6d).  One value a pixel,
+// z, under the reference's strict-less test z >= 0 && z < zb in every
+// phase (no row id: on an exact tie the first row visited keeps the value,
+// which differs from a later one only in the sign of a zero z), and
+// store_depth writes the one plane.
+template <bool TIE, bool GBUF = false, bool DEPTH = false>
 struct TileState {
+  static_assert(!(DEPTH && (TIE || GBUF)), "depth-only state is strict-less");
+  static constexpr bool LATCH = !GBUF && !DEPTH;  // den/nr/ng/nb in the loop
   float z[PIX];
   int tid[(TIE || GBUF) ? PIX : 1];
-  float den[GBUF ? 1 : PIX], nr[GBUF ? 1 : PIX], ng[GBUF ? 1 : PIX],
-      nb[GBUF ? 1 : PIX];
+  float den[LATCH ? PIX : 1], nr[LATCH ? PIX : 1], ng[LATCH ? PIX : 1],
+      nb[LATCH ? PIX : 1];
   int px;   // this thread's pixel-centre x, in subpixels
   int py0;  // pixel-centre y of its first row, in subpixels
   int row0, col0;
@@ -119,7 +129,7 @@ struct TileState {
     for (int k = 0; k < PIX; ++k) {
       z[k] = 1.0f;
       if constexpr (TIE || GBUF) tid[k] = INT_MAX32;
-      if constexpr (!GBUF) den[k] = nr[k] = ng[k] = nb[k] = 0.0f;
+      if constexpr (LATCH) den[k] = nr[k] = ng[k] = nb[k] = 0.0f;
     }
   }
 
@@ -163,7 +173,7 @@ struct TileState {
       if (!ok) continue;
       z[k] = zz;
       if constexpr (TIE || GBUF) tid[k] = t;
-      if constexpr (!GBUF) {
+      if constexpr (LATCH) {
         den[k] = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
                          __ldg(f + F_RW0 + 2));
         nr[k] = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
@@ -220,6 +230,16 @@ struct TileState {
       color[idx] = (int)packed;
       depth[idx] = z[k];
     }
+  }
+
+  // The depth-only epilogue: the z plane as the loops left it.
+  __device__ __forceinline__ void store_depth(float* __restrict__ depth,
+                                              int width) const {
+    const int col = col0 + (int)(threadIdx.x % TILE_W);
+    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
+#pragma unroll
+    for (int k = 0; k < PIX; ++k)
+      depth[(size_t)(rbase + k * ROW_STEP) * width + col] = z[k];
   }
 
   // G-buffer resolve from the winning row (ti/tf: the rows tid indexes):

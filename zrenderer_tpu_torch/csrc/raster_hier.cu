@@ -1,4 +1,5 @@
-// K3 and K5: hierarchy flat raster; K3g and K5g: its G-buffer variants.
+// K3 and K5: hierarchy flat raster; K3g and K5g: its G-buffer variants;
+// K3d: its depth-only variant.
 //
 // Replaces rasterize_setup_pallas (K3: zrenderer_tpu/ops/raster_pallas.py,
 // _raster_kernel, body _kernel_body) and rasterize_setup_pallas_hbm (K5:
@@ -41,6 +42,12 @@
 // sparse frame the 13 output planes (109 MB at 1920x1088, 0.032 ms at
 // 3.35 TB/s).  ptxas (sm_90a, -O3 -fmad=false): K3/K5 128 registers, K3g
 // 106, K5g 110, no spills.
+//
+// K3d replaces rasterize_depth_pallas (_depth_kernel, :798), the shadow-map
+// pass up to 32768 rows: K3's walk and strict-less test keeping z alone
+// (raster_common.cuh TileState::DEPTH), one f32 plane out.  Bound on the
+// H100: K3's per-pixel edge work over the (tile, triangle) pairs of the
+// shadow map.
 
 #include "raster_common.cuh"
 
@@ -96,6 +103,20 @@ __global__ void __launch_bounds__(THREADS)
                           height);
 }
 
+__global__ void __launch_bounds__(THREADS)
+    depth_hier_kernel(const int* __restrict__ supers, int num_supers,
+                      const int* __restrict__ blocks,
+                      const int* __restrict__ ti,
+                      const float* __restrict__ tf,
+                      float* __restrict__ depth, int width) {
+  const int tiles_x = width / TILE_W;
+  const int tile = blockIdx.x;
+  TileState<false, false, true> st;
+  st.init((tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
+  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
+  st.store_depth(depth, width);
+}
+
 }  // namespace zr
 
 extern "C" int zr_raster_hier(const int* supers, int num_supers,
@@ -130,5 +151,17 @@ extern "C" int zr_gbuffer_hbm(const int* supers, int num_supers,
   zr::gbuffer_hbm_kernel<<<num_tiles, zr::THREADS, 0,
                            (cudaStream_t)stream>>>(
       supers, num_supers, blocks, ti, tf, out, width, height);
+  return (int)cudaGetLastError();
+}
+
+// K3d.
+extern "C" int zr_depth_hier(const int* supers, int num_supers,
+                             const int* blocks, const int* ti,
+                             const float* tf, float* depth, int height,
+                             int width, void* stream) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::depth_hier_kernel<<<num_tiles, zr::THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      supers, num_supers, blocks, ti, tf, depth, width);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K1: small-scene binned flat raster, and K2g, its G-buffer variant.
+// K1: small-scene binned flat raster; K2g and K2d, its G-buffer and
+// depth-only variants.
 //
 // Replaces rasterize_setup_pallas_small (K1: zrenderer_tpu/ops/
 // raster_pallas.py, the _binned_kernel with local_lists=True, body
@@ -40,6 +41,14 @@
 // 1080p test scene, NVIDIA H100 80GB HBM3 at 700 W); the resolve-from-
 // winner design is in raster_common.cuh.  ptxas (sm_90a, -O3
 // -fmad=false): K1 182 registers, K2g 109, no spills.
+//
+// K2d replaces rasterize_depth_pallas_small (the _binned_depth_kernel with
+// local_lists=True: _binned_body with depth_only, :1271-1273, :1431-1433),
+// the shadow-map pass of small scenes: the same two phases with z alone
+// under the strict-less test (raster_common.cuh TileState::DEPTH), list
+// rows in ascending id order, then the fan-tail hierarchy; one f32 plane
+// out.  On a shadow map the list walk and the edge evaluation bound it, as
+// K1; the output is 4 MB at 1024x1024.
 
 #include "raster_common.cuh"
 
@@ -95,6 +104,20 @@ __global__ void __launch_bounds__(THREADS)
   st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
 }
 
+__global__ void __launch_bounds__(THREADS)
+    depth_small_kernel(const int* __restrict__ counts,
+                       const int* __restrict__ lists, int n_head,
+                       const int* __restrict__ supers, int num_supers,
+                       const int* __restrict__ blocks,
+                       const int* __restrict__ ti,
+                       const float* __restrict__ tf,
+                       float* __restrict__ depth, int width) {
+  TileState<false, false, true> st;
+  small_scan(st, counts, lists, n_head, supers, num_supers, blocks, ti, tf,
+             width);
+  st.store_depth(depth, width);
+}
+
 }  // namespace zr
 
 extern "C" int zr_raster_small(const int* counts, const int* lists,
@@ -122,6 +145,21 @@ extern "C" int zr_gbuffer_small(const int* counts, const int* lists,
                              (cudaStream_t)stream>>>(
       counts, lists, n_head, supers, num_supers, blocks, ti, tf, out, width,
       height);
+  return (int)cudaGetLastError();
+}
+
+// K2d.
+extern "C" int zr_depth_small(const int* counts, const int* lists, int n_head,
+                              const int* supers, int num_supers,
+                              const int* blocks, const int* ti,
+                              const float* tf, float* depth, int height,
+                              int width, void* stream) {
+  if (n_head > zr::SMALL_MAX_LIST) return (int)cudaErrorInvalidValue;
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  zr::depth_small_kernel<<<num_tiles, zr::THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      counts, lists, n_head, supers, num_supers, blocks, ti, tf, depth,
+      width);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Renderer configuration for the port's flat and lit pipelines.
+"""Renderer configuration for the port's flat, lit and shadowed pipelines.
 
 Counterpart of ``zrenderer_tpu/engine/config.py``, with the fields those
 paths read.  Options whose passes are not ported yet raise
@@ -12,7 +12,7 @@ from dataclasses import dataclass, replace
 
 from zrenderer_tpu_torch.ops.raster import TILE_H, TILE_W
 
-PIPELINES = ("flat", "lit")
+PIPELINES = ("flat", "lit", "shadowed")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -23,8 +23,9 @@ def _round_up(x: int, m: int) -> int:
 class RenderConfig:
     width: int = 1920
     height: int = 1080
-    # "flat" (config 0) or "lit" (config 1, textured Blinn-Phong);
-    # shadowed and deferred are ROADMAP Queue 1 items 8-9.
+    # "flat" (config 0), "lit" (config 1, textured Blinn-Phong) or
+    # "shadowed" (config 2, directional shadow map + PCF); deferred is
+    # ROADMAP Queue 1 item 9.
     pipeline: str = "flat"
     # Raster binning (ops/raster.select_raster; the lit pipeline's G-buffer
     # dispatch, select_gbuffer_raster, differs above and with tile_lists).
@@ -35,6 +36,16 @@ class RenderConfig:
     # "tile_lists" streams records with the coarse class (K4c), and the
     # others stream records (K4).
     binning: str = "auto"
+    # The shadow map (config 2): shadow_size^2 texels, a multiple of the
+    # raster tile (no crop, no padding); constant + slope-scaled depth bias;
+    # PCF radius ((2*pcf_taps+1)^2 taps); shadow_lookup_stride 1 = PCF at
+    # every pixel, 2 = at every second pixel with a bilinear upsample of
+    # the lit fraction.
+    shadow_size: int = 1024
+    shadow_bias: float = 2e-3
+    shadow_slope_bias: float = 3e-3
+    pcf_taps: int = 1
+    shadow_lookup_stride: int = 1
     # The kernels and the lit tonemap resolve uncovered pixels to (0, 0, 0,
     # 255): the default clear color is the only one the port produces.
     clear_color: tuple = (0.0, 0.0, 0.0, 1.0)
@@ -55,7 +66,7 @@ class RenderConfig:
         if self.pipeline not in PIPELINES:
             raise NotImplementedError(
                 f"pipeline {self.pipeline!r}: only {PIPELINES} are ported "
-                "(shadowed and deferred: ROADMAP.md Queue 1 items 8-9)"
+                "(deferred: ROADMAP.md Queue 1 item 9)"
             )
         if self.supersample != 1:
             raise NotImplementedError(
@@ -69,6 +80,14 @@ class RenderConfig:
             )
         if self.width <= 0 or self.height <= 0:
             raise ValueError(f"bad frame size {self.width}x{self.height}")
+        if self.shadow_size <= 0 or self.shadow_size % TILE_W \
+                or self.shadow_size % TILE_H:
+            raise ValueError(
+                f"shadow_size {self.shadow_size}: a positive multiple of "
+                f"{TILE_W} and {TILE_H}")
+        if self.shadow_lookup_stride not in (1, 2):
+            raise ValueError(
+                f"shadow_lookup_stride {self.shadow_lookup_stride}: 1 or 2")
 
     @property
     def pad_width(self) -> int:

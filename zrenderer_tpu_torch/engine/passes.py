@@ -1,11 +1,16 @@
-"""Render-pass composition of the lit pipeline (counterpart of
-``_gbuffer``, ``_sample_albedo`` and ``build_lit_frame`` in
-``zrenderer_tpu/engine/passes.py``).
+"""Render-pass composition of the lit and shadowed pipelines (counterpart
+of ``_gbuffer``, ``_depth_only``, ``_sample_albedo``, ``build_lit_frame``
+and ``build_shadowed_frame`` in ``zrenderer_tpu/engine/passes.py``).
 
 ``build_lit_frame`` returns the frame function of BASELINE config 1:
-G-buffer raster (``raster.render_gbuffer``: K2g, K3g, K4g or K5g), then
-trilinear texture sampling, Blinn-Phong with one point light, emissive and
-the u8 tonemap, all on the device of the buffers it is given.
+G-buffer raster (``raster.render_gbuffer``: K2g, K3g, K4g, K5g or K6g),
+then trilinear texture sampling, Blinn-Phong with one point light,
+emissive and the u8 tonemap.  ``build_shadowed_frame`` returns that of
+config 2: a depth-only pass from a directional light into a square shadow
+map (``raster.render_depth``: K2d, K3d, K4d, K6d or K5's depth plane),
+the same G-buffer and sampling, PCF shadowing, N.L diffuse with ambient
+0.10, emissive and the tonemap.  Everything runs on the device of the
+buffers it is given.
 """
 
 from __future__ import annotations
@@ -27,6 +32,13 @@ def _gbuffer(b, matrices, normal_mats, width: int, height: int,
         b.get("materials"), width, height, pad_height, pad_width,
         binning=binning)
     return [raster.unpack_rgba8(planes[0])] + planes[1:]
+
+
+def _depth_only(b, light_matrices, size: int, binning: str = "auto"):
+    """Depth-only pass from the light's view (the shadow-map pass):
+    (size, size) f32."""
+    return raster.render_depth(b["corner_cols"], b["tri_node"],
+                               light_matrices, size, binning=binning)
 
 
 def _sample_albedo(rgba, atlas_u32, u, v, tex_layer, th: int, tw: int,
@@ -76,5 +88,52 @@ def build_lit_frame(width: int, height: int, pad_height: int,
                                   shininess=shininess)
         lit = lit + torch.stack([emr, emg, emb], dim=-1)
         return shading.tonemap_and_pack(lit, covered), depth
+
+    return frame
+
+
+def build_shadowed_frame(width: int, height: int, pad_height: int,
+                         pad_width: int, texture, shadow_size: int = 1024,
+                         shadow_bias: float = 2e-3,
+                         shadow_slope_bias: float = 3e-3, pcf_taps: int = 1,
+                         shadow_lookup_stride: int = 1,
+                         binning: str = "auto"):
+    """Config 2: directional-light shadow map (depth-only pass + PCF).
+
+    The returned ``frame(b, atlas_u32, matrices, normal_mats,
+    inv_view_proj, cam_pos, light_matrices, light_view_proj, light_dir,
+    light_color)`` gives (rgba u8 (H, W, 4), depth (H, W), shadow_depth
+    (shadow_size, shadow_size)); ``light_matrices`` are the per-draw
+    object-to-light-clip matrices, ``light_dir`` the unit direction from
+    the light."""
+    th, tw = int(texture.base_shape[0]), int(texture.base_shape[1])
+    levels = texture.num_levels
+    layered = texture.num_layers > 1
+
+    def frame(b, atlas_u32, matrices, normal_mats, inv_view_proj, cam_pos,
+              light_matrices, light_view_proj, light_dir, light_color):
+        del cam_pos  # the reference's frame takes it and reads it nowhere
+        shadow_depth = _depth_only(b, light_matrices, shadow_size, binning)
+        (rgba, depth, u, v, nx, ny, nz,
+         met, rgh, emr, emg, emb, tex_layer) = _gbuffer(
+            b, matrices, normal_mats, width, height, pad_height, pad_width,
+            binning)
+        covered = depth < 1.0
+        albedo = _sample_albedo(rgba, atlas_u32, u, v, tex_layer, th, tw,
+                                levels, layered)
+        normal = torch.stack([nx, ny, nz], dim=-1)
+        n = normal / torch.clamp_min(shading._norm(normal),
+                                     shading._f32(1e-8))
+        world = shading.reconstruct_world_pos(depth, inv_view_proj, width,
+                                              height)
+        lit_mask = shading.shadow_factor_pcf_strided(
+            shadow_depth, world, light_view_proj,
+            stride=shadow_lookup_stride, bias=shadow_bias, taps=pcf_taps,
+            normal=n, light_dir=light_dir, slope_bias=shadow_slope_bias)
+        ndotl = torch.clamp_min(shading._dot(n, -light_dir), 0.0)
+        rgb = albedo * (shading._f32(0.10)
+                        + ndotl * lit_mask[..., None] * light_color)
+        rgb = rgb + torch.stack([emr, emg, emb], dim=-1)
+        return shading.tonemap_and_pack(rgb, covered), depth, shadow_depth
 
     return frame

@@ -1,13 +1,15 @@
-"""The Renderer, flat and lit pipelines (counterpart of
+"""The Renderer, flat, lit and shadowed pipelines (counterpart of
 ``zrenderer_tpu/engine/renderer.py``).
 
-* ``load_scene`` flattens the scene once (the lit pipeline folds material
+* ``load_scene`` flattens the scene once (the lit pipelines fold material
   base colors into the vertex colors) and uploads the buffers to the
   renderer's device, behind generational pool handles, with the
-  per-triangle material table.
-* ``set_environment`` binds the lit pipeline's texture (a Texture, or
-  per-material textures stacked into a TextureArray) and point light; the
-  atlas is uploaded once here.
+  per-triangle material table; it caches each draw's local AABB corners
+  for the shadow pass's light frustum.
+* ``set_environment`` binds the lit pipelines' texture (a Texture, or
+  per-material textures stacked into a TextureArray), the point light
+  (lit) and the directional light (shadowed); the atlas is uploaded once
+  here.
 * ``render`` computes the per-frame constants on the host (object_to_clip
   matrices; for lit also normal matrices, the inverse view-projection and
   the camera position), stages them in the pinned upload ring, copies them
@@ -15,13 +17,19 @@
   geometry, the raster dispatch (``raster.select_raster``: K1, K3, K4, K4c,
   K5 or K6), the RGBA8 unpack and the crop.  Lit
   (``passes.build_lit_frame``): the G-buffer dispatch
-  (``raster.select_gbuffer_raster``: K2g, K3g, K4g or K5g), sampling,
-  Blinn-Phong and the tonemap.  It returns before the device is done;
+  (``raster.select_gbuffer_raster``: K2g, K3g, K4g, K5g or K6g), sampling,
+  Blinn-Phong and the tonemap.  Shadowed (``passes.build_shadowed_frame``)
+  adds per-draw object-to-light-clip matrices from an orthographic light
+  frustum fitted to the transformed draw bounds (``_light_view_proj``),
+  the depth-only pass (``raster.select_depth_raster``: K2d, K3d, K4d, K6d
+  or K5's depth plane) and PCF, and keeps the frame's shadow map in
+  ``_shadow_map``.  It returns before the device is done;
   ``present`` paces the host to ``frames_in_flight`` frames ahead with
   CUDA events, ``read_frame`` copies the newest frame back.
 * ``render_animation`` renders N frames back to back with no host sync
   inside the loop, reducing each frame to a digest: flat frames as padded
-  packed planes, lit frames as the u8 sum of the visible frame.
+  packed planes, lit and shadowed frames as the u8 sum of the visible
+  frame.
 
 Everything runs on the one explicit ``device``; ``device="cuda"`` on a
 host without a card raises.
@@ -44,12 +52,13 @@ from zrenderer_tpu_torch.engine.upload import (
     flat_scene_to_device,
     flatten_scene,
 )
-from zrenderer_tpu_torch.engine.upload_ring import UploadRing
 from zrenderer_tpu_torch.engine.textures import (
     Texture,
     TextureArray,
     white_texture,
 )
+from zrenderer_tpu_torch.engine.upload_ring import UploadRing
+from zrenderer_tpu_torch.math import zmath as zm
 from zrenderer_tpu_torch.ops import raster
 from zrenderer_tpu_torch.ops.geometry import (
     MATERIAL_COLS,
@@ -89,6 +98,9 @@ class Renderer:
         self._pending = None  # newest enqueued frame (color, depth)
         self._material_tex_layer = None  # material -> texture-array layer
         self._white_layer = 0
+        self._draw_corners = None  # (D, 8, 4) local AABB corners per draw
+        self._static_light_vp = None  # light frustum of the static scene
+        self._shadow_map = None  # the newest shadowed frame's map
         log.info("Renderer on %s", self.device)
 
     # -- resource upload ----------------------------------------------------
@@ -111,6 +123,8 @@ class Renderer:
         for name, tensor in buffers.items():
             self._buffer_handles[name] = self.resources.add((name, tensor))
         self._upload_material_table()
+        self._draw_corners = _draw_aabb_corners(self.flat)
+        self._static_light_vp = None
         f = self.flat
         log.info(
             "scene uploaded: %d draws, %d verts (%d padded), %d tris "
@@ -122,9 +136,11 @@ class Renderer:
 
     def set_environment(self, texture=None, light_pos=(4.0, 8.0, 6.0),
                         light_color=(1.0, 1.0, 1.0), textures=None,
-                        material_textures=None):
-        """Bind the lit pipeline's resources: a Texture (None: 1x1 white)
-        and one point light.
+                        material_textures=None,
+                        light_dir=(-0.5, -1.0, -0.35)):
+        """Bind the lit pipelines' resources: a Texture (None: 1x1 white),
+        one point light (lit) and one directional light (shadowed:
+        ``light_dir`` points from the light, normalized here).
 
         Per-draw textures: ``textures`` (same-size Textures, stacked into a
         TextureArray with an all-white layer appended) plus
@@ -157,6 +173,10 @@ class Renderer:
                                       device=self.device)
         self.light_color = torch.tensor(np.asarray(light_color, np.float32),
                                         device=self.device)
+        d = np.asarray(light_dir, np.float32)
+        self.light_dir = d / np.linalg.norm(d)  # host f32, for the frustum
+        self._light_dir_dev = torch.from_numpy(self.light_dir).to(self.device)
+        self._static_light_vp = None  # the frustum depends on light_dir
         if self.flat is not None:
             self._upload_material_table()
 
@@ -207,15 +227,24 @@ class Renderer:
         cfg = self.config
         key = (cfg.content_hash(), len(self.flat.positions),
                len(self.flat.tri_vidx), self.flat.draw_count)
-        if cfg.pipeline == "lit":
+        if cfg.pipeline != "flat":
             if not hasattr(self, "texture"):
                 self.set_environment()
             tex = self.texture
             key += (tuple(tex.base_shape), tex.num_levels, tex.num_layers)
+            args = (cfg.width, cfg.height, cfg.pad_height, cfg.pad_width, tex)
+            if cfg.pipeline == "lit":
+                return self.pipelines.get_or_create(
+                    key, lambda: passes.build_lit_frame(
+                        *args, binning=cfg.binning))
             return self.pipelines.get_or_create(
-                key, lambda: passes.build_lit_frame(
-                    cfg.width, cfg.height, cfg.pad_height, cfg.pad_width,
-                    tex, binning=cfg.binning))
+                key, lambda: passes.build_shadowed_frame(
+                    *args, shadow_size=cfg.shadow_size,
+                    shadow_bias=cfg.shadow_bias,
+                    shadow_slope_bias=cfg.shadow_slope_bias,
+                    pcf_taps=cfg.pcf_taps,
+                    shadow_lookup_stride=cfg.shadow_lookup_stride,
+                    binning=cfg.binning))
 
         def build():
             def frame(ccols, tri_node, matrices):
@@ -241,10 +270,12 @@ class Renderer:
         return np.einsum("nij,jk->nik", node_to_world, vp).astype(np.float32)
 
     def _lit_constants(self, camera=None, transforms=None) -> dict:
-        """Per-frame constants of the lit pipeline (host f32): per-draw
+        """Per-frame constants of the lit pipelines (host f32): per-draw
         object_to_clip matrices and normal matrices (inverse-transpose of
         the node rotation), the inverse view-projection (inverted in f64)
-        for world-position reconstruction, and the camera position."""
+        for world-position reconstruction, and the camera position;
+        shadowed adds the light's view-projection and the per-draw
+        object-to-light-clip matrices."""
         camera = camera if camera is not None else self.scene.active_camera
         vp = view_proj_from_camera(camera, self.config.width,
                                    self.config.height)
@@ -255,15 +286,61 @@ class Renderer:
                              vp).astype(np.float32)
         normal_mats = np.linalg.inv(
             node_to_world[:, :3, :3]).transpose(0, 2, 1).astype(np.float32)
-        return {
+        out = {
             "matrices": matrices,
             "normal_mats": normal_mats,
             "inv_view_proj": np.linalg.inv(
                 vp.astype(np.float64)).astype(np.float32),
             "cam_pos": np.asarray(camera.position, np.float32),
         }
+        if self.config.pipeline == "shadowed":
+            light_vp = self._light_view_proj(
+                None if transforms is None else node_to_world)
+            out["light_matrices"] = np.einsum(
+                "nij,jk->nik", node_to_world, light_vp).astype(np.float32)
+            out["light_vp"] = light_vp
+        return out
 
     _LIT_KEYS = ("matrices", "normal_mats", "inv_view_proj", "cam_pos")
+    _SHADOW_KEYS = _LIT_KEYS + ("light_matrices", "light_vp")
+
+    def _constant_keys(self):
+        """The per-frame constants the lit pipelines' frame takes, in its
+        argument order."""
+        return (self._SHADOW_KEYS if self.config.pipeline == "shadowed"
+                else self._LIT_KEYS)
+
+    def _lights(self):
+        """The frame's light arguments after the staged constants."""
+        if self.config.pipeline == "shadowed":
+            return self._light_dir_dev, self.light_color
+        return self.light_pos, self.light_color
+
+    def _light_view_proj(self, node_to_world=None) -> np.ndarray:
+        """Directional-light orthographic view-projection fitted to the
+        scene's world AABB: the per-draw local corners times the current
+        transforms (exact under rotation and scale, O(draws) a frame),
+        cached for the static transforms."""
+        static = node_to_world is None
+        if static and self._static_light_vp is not None:
+            return self._static_light_vp
+        mats = self.flat.node_to_world if static else node_to_world
+        world = np.einsum("dkj,dji->dki", self._draw_corners, mats)
+        pts = world.reshape(-1, 4)[:, :3]
+        lo = pts.min(axis=0)
+        hi = pts.max(axis=0)
+        center = (lo + hi) * 0.5
+        radius = 0.5 * float(np.linalg.norm(hi - lo)) + 1e-3
+        eye = center - self.light_dir * (2.0 * radius)
+        up = (0, 1, 0) if abs(self.light_dir[1]) < 0.95 else (1, 0, 0)
+        view = zm.look_at_rh(zm.load_vec3(eye), zm.load_vec3(center),
+                             zm.vec3(*up))
+        proj = zm.orthographic_rh(2.2 * radius, 2.2 * radius, 0.1,
+                                  4.5 * radius)
+        vp = zm.mul(view, proj)
+        if static:
+            self._static_light_vp = vp
+        return vp
 
     def _stage_constants(self, arrays):
         """Per-frame constants through the bounded staging ring; on
@@ -311,11 +388,14 @@ class Renderer:
         self._pace()
         frame = self._frame_fn()
         b = self._buffers()
-        if self.config.pipeline == "lit":
+        if self.config.pipeline != "flat":
             c = self._lit_constants(camera, transforms)
-            staged = self._stage_constants([c[k] for k in self._LIT_KEYS])
-            color, depth = frame(b, self.texture.atlas_u32, *staged,
-                                 self.light_pos, self.light_color)
+            staged = self._stage_constants(
+                [c[k] for k in self._constant_keys()])
+            color, depth, *shadow = frame(b, self.texture.atlas_u32, *staged,
+                                          *self._lights())
+            if shadow:
+                self._shadow_map = shadow[0]
         else:
             (matrices,) = self._stage_constants(
                 [self.camera_matrices(camera, transforms)])
@@ -373,8 +453,8 @@ class Renderer:
         uploaded once; then every frame is rendered and reduced to a
         digest with no host sync in the loop: flat frames at the padded
         size as packed planes (``frame_digest``), then the presented frame
-        once more, cropped and unpacked; lit frames as the visible u8
-        frame (``rgba_digest``), the last one presented.  Returns
+        once more, cropped and unpacked; lit and shadowed frames as the
+        visible u8 frame (``rgba_digest``), the last one presented.  Returns
         ``(digests (N,) f32, (color, depth))``; reading the digests is a
         true fence.
         """
@@ -397,18 +477,20 @@ class Renderer:
 
         digests = torch.empty(num_frames, dtype=torch.float32,
                               device=self.device)
-        if cfg.pipeline == "lit":
+        if cfg.pipeline != "flat":
             frame = self._frame_fn()
             per = [self._lit_constants(*per_frame(i))
                    for i in range(num_frames)]
             xs = [upload(np.stack([c[k] for c in per]))
-                  for k in self._LIT_KEYS]
+                  for k in self._constant_keys()]
             b = self._buffers()
             for i in range(num_frames):
-                color, depth = frame(b, self.texture.atlas_u32,
-                                     *(x[i] for x in xs), self.light_pos,
-                                     self.light_color)
+                color, depth, *shadow = frame(
+                    b, self.texture.atlas_u32, *(x[i] for x in xs),
+                    *self._lights())
                 digests[i] = rgba_digest(color)
+            if shadow:
+                self._shadow_map = shadow[0]
         else:
             digests, (color, depth) = self._flat_animation(
                 digests, upload(np.stack([self.camera_matrices(*per_frame(i))
@@ -436,3 +518,22 @@ class Renderer:
             )
             digests[i] = frame_digest(packed)
         return digests, self._frame_fn()(ccols, tri_node, mats[-1])
+
+
+def _draw_aabb_corners(flat: FlatScene) -> np.ndarray:
+    """(D, 8, 4) f32: the 8 corners (x outer, z inner; w = 1) of each
+    draw's local vertex AABB, over the unpadded vertices."""
+    n = flat.num_vertices
+    pts = flat.positions[:n, :3]
+    node = flat.vert_node[:n]
+    lo = np.full((flat.draw_count, 3), np.inf, np.float32)
+    hi = np.full((flat.draw_count, 3), -np.inf, np.float32)
+    np.minimum.at(lo, node, pts)
+    np.maximum.at(hi, node, pts)
+    bounds = np.stack([lo, hi], axis=1)  # (D, 2, 3)
+    pick = np.array([(i, j, k) for i in (0, 1) for j in (0, 1)
+                     for k in (0, 1)])
+    corners = np.ones((flat.draw_count, 8, 4), np.float32)
+    for axis in range(3):
+        corners[:, :, axis] = bounds[:, pick[:, axis], axis]
+    return corners

@@ -1,7 +1,7 @@
 """Host camera and transform math of the port: the part of
-``zrenderer_tpu/math/zmath.py`` that the frame paths' cameras and the
-procedural test scene use, copied so the port runs without the JAX
-package.
+``zrenderer_tpu/math/zmath.py`` that the frame paths' cameras, the
+shadow pass's light frustum and the procedural test scene use, copied so
+the port runs without the JAX package.
 
 Conventions (those of the reference's zmath): row-major matrices with
 row vectors (``v' = v @ M``; ``mul(A, B)`` applies A first), a
@@ -22,6 +22,11 @@ F32 = np.float32
 def f32x4(x: float, y: float, z: float, w: float) -> np.ndarray:
     """A 4-wide float32 vector (zmath ``f32x4``)."""
     return np.array([x, y, z, w], dtype=F32)
+
+
+def vec3(x: float, y: float, z: float) -> np.ndarray:
+    """A 3-component point/direction as an f32x4 with w = 0."""
+    return np.array([x, y, z, 0.0], dtype=F32)
 
 
 def load_vec3(mem, w: float = 0.0) -> np.ndarray:
@@ -100,6 +105,15 @@ def perspective_fov_rh(fovy: float, aspect: float, near: float, far: float) -> n
     r = F32(far / (near - far))
     return np.array(
         [[w, 0, 0, 0], [0, h, 0, 0], [0, 0, r, -1], [0, 0, r * near, 0]], dtype=F32
+    )
+
+
+def orthographic_rh(w: float, h: float, near: float, far: float) -> np.ndarray:
+    """zmath.orthographicRh: [0, 1] depth, 0 at z = -near, 1 at z = -far."""
+    r = F32(1.0 / (near - far))
+    return np.array(
+        [[2.0 / w, 0, 0, 0], [0, 2.0 / h, 0, 0], [0, 0, r, 0], [0, 0, r * near, 1]],
+        dtype=F32,
     )
 
 

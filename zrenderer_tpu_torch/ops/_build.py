@@ -1,5 +1,6 @@
 """Build and load the CUDA raster kernels (``zrenderer_tpu_torch/csrc``):
-the flat kernels K1-K6 and the G-buffer kernels K2g, K3g, K4g, K5g.
+the flat kernels K1-K6, the G-buffer kernels K2g, K3g, K4g, K5g, K6g and
+the depth-only kernels K2d, K3d, K4d, K6d.
 
 ``nvcc`` compiles each ``.cu`` file for ``sm_90a`` and links them into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
@@ -131,6 +132,16 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_hbm.restype = i
     lib.zr_gbuffer_records.argtypes = [p, p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_gbuffer_records.restype = i
+    lib.zr_gbuffer_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_lists.restype = i
+    lib.zr_depth_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
+    lib.zr_depth_small.restype = i
+    lib.zr_depth_hier.argtypes = [p, i, p, p, p, p, i, i, p]
+    lib.zr_depth_hier.restype = i
+    lib.zr_depth_records.argtypes = [p, p, p, p, i, p, p, p, p, i, i, p]
+    lib.zr_depth_records.restype = i
+    lib.zr_depth_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
+    lib.zr_depth_lists.restype = i
     lib.zr_error_string.argtypes = [i]
     lib.zr_error_string.restype = ctypes.c_char_p
     return lib

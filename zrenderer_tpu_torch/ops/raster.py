@@ -32,6 +32,12 @@ All produce a packed RGBA8 plane (u32 bits carried in an ``int32``
 tensor; alpha 255 sets bit 31) and an f32 depth plane over the padded
 (H, W) frame, resolved with one divide per pixel (docs/RASTER_SPEC.md §4).
 
+The G-buffer kernels (K2g, K3g, K4g, K5g, K6g) add the lit planes; the
+depth-only kernels of the shadow-map pass (K2d, K3d, K4d, K6d) keep z
+alone under the strict-less test and write one f32 plane (``render_depth``
+dispatches them, and takes K5's depth plane for ``hierarchy`` above the
+row bound).
+
 Each kernel has a plain torch version beside it taking the same prepared
 inputs.  The ``rasterize_setup*`` wrappers take the plain version only for
 CPU tensors; for CUDA tensors they launch the kernel or raise.  Each
@@ -399,12 +405,15 @@ GBUFFER_PLANES = 2 + len(_GBUF_LATCHES) + len(_CONSTS)
 
 
 def _tile_planes(tiles_y: int, tiles_x: int, tie: bool, device,
-                 gbuffer: bool = False):
+                 gbuffer: bool = False, depth: bool = False):
+    """Tile state: z, the row id with ``tie``, and the latches (none for
+    ``depth``, the depth-only kernels; the lit ones too for ``gbuffer``)."""
     shape = (tiles_y, tiles_x, TILE_H, TILE_W)
     planes = {"z": torch.ones(shape, dtype=F32, device=device)}
     if tie:
         planes["tid"] = torch.full(shape, _INT_MAX, dtype=I32, device=device)
-    names = _LATCHES + (_GBUF_LATCHES + _CONSTS if gbuffer else ())
+    names = () if depth else _LATCHES + (
+        _GBUF_LATCHES + _CONSTS if gbuffer else ())
     for name, _ in names:
         planes[name] = torch.zeros(shape, dtype=F32, device=device)
     half = SUBPIXEL // 2
@@ -425,7 +434,8 @@ def _eval_rows(planes, sel, py, px, ri, rf, tid, emask, tie: bool):
     ``tid``: the row id(s), an int or a per-tile tensor; ``emask``: a
     per-tile write mask or None.  ``tie`` selects K1's (z, id) test over
     K3's strict less.  G-buffer planes (``u`` present) latch the uv and
-    normal numerators and the row's constants too."""
+    normal numerators and the row's constants too; depth-only planes (z
+    alone) latch nothing."""
     def ic(c):
         return ri[..., c, None, None]
 
@@ -457,11 +467,11 @@ def _eval_rows(planes, sel, py, px, ri, rf, tid, emask, tie: bool):
     planes["z"][sel] = torch.where(ok, z, zb)
     if tie:
         planes["tid"][sel] = torch.where(ok, tid, tb)
-    gbuffer = "u" in planes
-    for name, c in _LATCHES + (_GBUF_LATCHES if gbuffer else ()):
-        planes[name][sel] = torch.where(ok, interp(c), planes[name][sel])
-    if gbuffer:
-        for name, c in _CONSTS:
+    for name, c in _LATCHES + _GBUF_LATCHES:
+        if name in planes:
+            planes[name][sel] = torch.where(ok, interp(c), planes[name][sel])
+    for name, c in _CONSTS:
+        if name in planes:
             planes[name][sel] = torch.where(ok, fc(c), planes[name][sel])
 
 
@@ -528,14 +538,17 @@ def _resolve_gbuffer(planes, masked_inv: bool):
 
 
 def _small_planes(counts, lists, ti, tf, width: int, height: int,
-                  gbuffer: bool):
-    """K1/K2g tile planes: phase 1 steps the list position k over
+                  gbuffer: bool, depth: bool = False):
+    """K1/K2g/K2d tile planes: phase 1 steps the list position k over
     max(counts) for all tiles at once, phase 2 runs the rows left in
-    ``ti`` (the hierarchy's rows)."""
+    ``ti`` (the hierarchy's rows); the (z, row id) tie-break, or with
+    ``depth`` the strict-less test in that order."""
     _check_frame(width, height)
     tiles_y, tiles_x = height // TILE_H, width // TILE_W
     num_tiles = tiles_y * tiles_x
-    planes, py, px = _tile_planes(tiles_y, tiles_x, True, ti.device, gbuffer)
+    tie = not depth
+    planes, py, px = _tile_planes(tiles_y, tiles_x, tie, ti.device, gbuffer,
+                                  depth)
     lists2d = lists.reshape(num_tiles, -1)
     everything = (slice(None), slice(None))
     for k in range(int(counts.max().item())):
@@ -544,8 +557,8 @@ def _small_planes(counts, lists, ti, tf, width: int, height: int,
         rf = tf[rid].reshape(tiles_y, tiles_x, NF32)
         tid = lists2d[:, k].reshape(tiles_y, tiles_x, 1, 1)
         active = (counts > k).reshape(tiles_y, tiles_x, 1, 1)
-        _eval_rows(planes, everything, py, px, ri, rf, tid, active, True)
-    _scan_rows(planes, py, px, ti, tf, tie=True)
+        _eval_rows(planes, everything, py, px, ri, rf, tid, active, tie)
+    _scan_rows(planes, py, px, ti, tf, tie=tie)
     return planes
 
 
@@ -566,12 +579,13 @@ def gbuffer_small_plain(counts, lists, supers, blocks, ti, tf,
         masked_inv=True)
 
 
-def _hier_planes(ti, tf, width: int, height: int, gbuffer: bool):
-    """K3/K5/K3g/K5g tile planes: rows in submission order, strict-less
+def _hier_planes(ti, tf, width: int, height: int, gbuffer: bool,
+                 depth: bool = False):
+    """K3/K5/K3g/K5g/K3d tile planes: rows in submission order, strict-less
     depth test, per-tile bbox masks."""
     _check_frame(width, height)
     planes, py, px = _tile_planes(height // TILE_H, width // TILE_W, False,
-                                  ti.device, gbuffer)
+                                  ti.device, gbuffer, depth)
     _scan_rows(planes, py, px, ti, tf, tie=False)
     return planes
 
@@ -597,11 +611,12 @@ def gbuffer_hbm_plain(supers, blocks, ti, tf, width: int, height: int):
 
 
 def _stream_spans(planes, py, px, offsets, bins, rec_i, rec_f,
-                  masked: bool):
+                  masked: bool, tie: bool = True):
     """Each tile's record span [offsets[b], offsets[b + 1]), b = bins[ty,
     tx], stepping the span position k over all tiles at once with the
-    (z, row id) tie-break.  ``masked``: test each record's bbox against
-    the tile (the coarse class; fine-list records always hit)."""
+    (z, row id) tie-break (``tie``) or the strict-less test.  ``masked``:
+    test each record's bbox against the tile (the coarse class; fine-list
+    records always hit)."""
     start = offsets[bins].long()
     count = offsets[bins + 1].long() - start
     everything = (slice(None), slice(None))
@@ -619,23 +634,24 @@ def _stream_spans(planes, py, px, offsets, bins, rec_i, rec_f,
                       & (ri[..., I_IMAX] >= row0)
                       & (ri[..., I_IMIN] < row0 + TILE_H))
         _eval_rows(planes, everything, py, px, ri, rf,
-                   ri[..., NI32, None, None], active[..., None, None], True)
+                   ri[..., NI32, None, None], active[..., None, None], tie)
 
 
 def _binned_planes(offsets, rec_i, rec_f, hier, tf, coarse, width: int,
-                   height: int, gbuffer: bool):
-    """K4/K4c/K4g tile planes: phase 1 the tiles' record spans, phase 1.5
-    (with ``coarse``) the coarse bins' spans under a per-record bbox test,
-    phase 2 the rows left in ``hier``; every phase with the (z, row id)
-    tie-break."""
+                   height: int, gbuffer: bool, depth: bool = False):
+    """K4/K4c/K4g/K4d tile planes: phase 1 the tiles' record spans, phase
+    1.5 (with ``coarse``) the coarse bins' spans under a per-record bbox
+    test, phase 2 the rows left in ``hier``; every phase with the (z, row
+    id) tie-break, or with ``depth`` the strict-less test in that order."""
     _check_frame(width, height)
     tiles_y, tiles_x = height // TILE_H, width // TILE_W
     dev = hier.device
-    planes, py, px = _tile_planes(tiles_y, tiles_x, True, dev, gbuffer)
+    tie = not depth
+    planes, py, px = _tile_planes(tiles_y, tiles_x, tie, dev, gbuffer, depth)
     ty = torch.arange(tiles_y, device=dev)[:, None]
     tx = torch.arange(tiles_x, device=dev)[None, :]
     _stream_spans(planes, py, px, offsets, ty * tiles_x + tx, rec_i, rec_f,
-                  masked=False)
+                  masked=False, tie=tie)
     if coarse is not None:
         coffsets, crec_i, crec_f = coarse
         ctiles_x, num_cbins = _coarse_grid(tiles_x, tiles_y)
@@ -643,8 +659,8 @@ def _binned_planes(offsets, rec_i, rec_f, hier, tf, coarse, width: int,
             raise ValueError("coffsets do not match the coarse-bin grid")
         _stream_spans(planes, py, px, coffsets,
                       (ty // COARSE_CB) * ctiles_x + tx // COARSE_CB,
-                      crec_i, crec_f, masked=True)
-    _scan_rows(planes, py, px, hier, tf, tie=True)
+                      crec_i, crec_f, masked=True, tie=tie)
+    _scan_rows(planes, py, px, hier, tf, tie=tie)
     return planes
 
 
@@ -676,6 +692,52 @@ def raster_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
     rec_i, rec_f = _gather_records(hier, tf, pair_tri)
     return raster_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier,
                                tf, None, width, height)
+
+
+def gbuffer_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
+                        width: int, height: int):
+    """Plain torch K6g: K6's traversal with the G-buffer latches and the
+    buf * where(covered, inv, 0) epilogue."""
+    rec_i, rec_f = _gather_records(hier, tf, pair_tri)
+    return gbuffer_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier,
+                                tf, None, width, height)
+
+
+# Depth-only plain versions: z alone, strict-less, rows in the kernel's
+# order; each returns the (H, W) f32 plane.
+
+
+def depth_small_plain(counts, lists, supers, blocks, ti, tf, width: int,
+                      height: int):
+    """Plain torch K2d: ascending list ids, then the fan-tail hierarchy."""
+    del supers, blocks
+    return _frame(_small_planes(counts, lists, ti, tf, width, height, False,
+                                depth=True)["z"])
+
+
+def depth_hier_plain(supers, blocks, ti, tf, width: int, height: int):
+    """Plain torch K3d: rows in submission order."""
+    del supers, blocks
+    return _frame(_hier_planes(ti, tf, width, height, False,
+                               depth=True)["z"])
+
+
+def depth_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                       coarse, width: int, height: int):
+    """Plain torch K4d: the record span, then the leftovers."""
+    del supers, blocks
+    if coarse is not None:
+        raise ValueError("K4d takes no coarse class")
+    return _frame(_binned_planes(offsets, rec_i, rec_f, hier, tf, None,
+                                 width, height, False, depth=True)["z"])
+
+
+def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
+                      width: int, height: int):
+    """Plain torch K6d: the pair span, then the leftovers."""
+    rec_i, rec_f = _gather_records(hier, tf, pair_tri)
+    return depth_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier,
+                              tf, None, width, height)
 
 
 # ---------------------------------------------------------------------------
@@ -915,14 +977,10 @@ def raster_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
                         width: int, height: int):
     """Launch K6 (``csrc/raster_binned.cu``, row-id spans) on the current
     stream."""
-    _check_frame(width, height)
-    dev = hier.device
-    _require_spans(offsets, (width // TILE_W) * (height // TILE_H), pair_tri)
-    _require_cuda(dev, None, offsets=offsets, pair_tri=pair_tri,
-                  supers=supers, blocks=blocks, ti=hier, tf=tf)
-    out = _run(_build.load_library().zr_raster_lists, dev, width, height,
-               _ptr(offsets), _ptr(pair_tri), _ptr(supers), supers.shape[0],
-               _ptr(blocks), _ptr(hier), _ptr(tf))
+    args = _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width,
+                       height)
+    out = _run(_build.load_library().zr_raster_lists, hier.device, width,
+               height, *args)
     raster_lists_kernel.launches += 1
     return out
 
@@ -942,12 +1000,98 @@ def gbuffer_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
     return out
 
 
+def _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width: int,
+                height: int):
+    """Check K6/K6g/K6d inputs; returns the launch arguments before the
+    outputs."""
+    _check_frame(width, height)
+    _require_spans(offsets, (width // TILE_W) * (height // TILE_H), pair_tri)
+    _require_cuda(hier.device, None, offsets=offsets, pair_tri=pair_tri,
+                  supers=supers, blocks=blocks, ti=hier, tf=tf)
+    return (_ptr(offsets), _ptr(pair_tri), _ptr(supers), supers.shape[0],
+            _ptr(blocks), _ptr(hier), _ptr(tf))
+
+
+def gbuffer_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
+                         width: int, height: int):
+    """Launch K6g (``csrc/raster_binned.cu``, row-id spans, G-buffer) on
+    the current stream."""
+    args = _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width,
+                       height)
+    out = _run_gbuffer(_build.load_library().zr_gbuffer_lists, hier.device,
+                       width, height, *args)
+    gbuffer_lists_kernel.launches += 1
+    return out
+
+
+def _run_depth(fn, dev, width: int, height: int, *args):
+    """Allocate the (H, W) f32 depth plane and launch ``fn(*args, depth,
+    height, width, stream)`` on the current stream of ``dev``."""
+    depth = torch.empty((height, width), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(fn, *args, _ptr(depth), height, width,
+                ctypes.c_void_p(stream))
+    return depth
+
+
+def depth_small_kernel(counts, lists, supers, blocks, ti, tf, width: int,
+                       height: int):
+    """Launch K2d (``csrc/raster_small.cu``) on the current stream;
+    returns the f32 depth plane."""
+    args = _small_args(counts, lists, supers, blocks, ti, tf, width, height)
+    out = _run_depth(_build.load_library().zr_depth_small, ti.device, width,
+                     height, *args)
+    depth_small_kernel.launches += 1
+    return out
+
+
+def depth_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
+    """Launch K3d (``csrc/raster_hier.cu``) on the current stream."""
+    args = _hier_args(supers, blocks, ti, tf, width, height,
+                      MAX_RESIDENT_ROWS)
+    out = _run_depth(_build.load_library().zr_depth_hier, ti.device, width,
+                     height, *args)
+    depth_hier_kernel.launches += 1
+    return out
+
+
+def depth_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                        coarse, width: int, height: int):
+    """Launch K4d (``csrc/raster_binned.cu``, record spans, depth only) on
+    the current stream; ``coarse`` must be None."""
+    if coarse is not None:
+        raise ValueError("K4d takes no coarse class")
+    args = _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                         None, width, height)
+    # The depth entry point takes no coarse pointers.
+    out = _run_depth(_build.load_library().zr_depth_records, hier.device,
+                     width, height, *args[:3], *args[6:])
+    depth_binned_kernel.launches += 1
+    return out
+
+
+def depth_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
+                       width: int, height: int):
+    """Launch K6d (``csrc/raster_binned.cu``, row-id spans, depth only) on
+    the current stream."""
+    args = _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width,
+                       height)
+    out = _run_depth(_build.load_library().zr_depth_lists, hier.device,
+                     width, height, *args)
+    depth_lists_kernel.launches += 1
+    return out
+
+
 KERNELS = (raster_small_kernel, raster_hier_kernel, raster_hbm_kernel,
            raster_binned_kernel, raster_binned_coarse_kernel,
            raster_lists_kernel)
 GBUFFER_KERNELS = (gbuffer_small_kernel, gbuffer_hier_kernel,
-                   gbuffer_binned_kernel, gbuffer_hbm_kernel)
-for _kernel in KERNELS + GBUFFER_KERNELS:
+                   gbuffer_binned_kernel, gbuffer_hbm_kernel,
+                   gbuffer_lists_kernel)
+DEPTH_KERNELS = (depth_small_kernel, depth_hier_kernel, depth_binned_kernel,
+                 depth_lists_kernel)
+for _kernel in KERNELS + GBUFFER_KERNELS + DEPTH_KERNELS:
     _kernel.launches = 0
 del _kernel
 
@@ -1125,13 +1269,24 @@ def rasterize_gbuffer_binned_hbm(tri_i32, tri_f32, width: int, height: int,
     return gbuffer_binned_kernel(*prepared, width, height)
 
 
+def rasterize_gbuffer_binned(tri_i32, tri_f32, width: int, height: int,
+                             cap: int | None = None):
+    """K6g wrapper: ``prepare_binned_inputs`` then the kernel or its plain
+    version."""
+    _check_frame(width, height)
+    prepared = prepare_binned_inputs(tri_i32, tri_f32, width, height, cap=cap)
+    if _on_cpu(tri_i32):
+        return gbuffer_lists_plain(*prepared, width, height)
+    return gbuffer_lists_kernel(*prepared, width, height)
+
+
 def select_gbuffer_raster(binning: str, rows: int):
     """The dispatch of ``render_gbuffer_pallas``, branch for branch (not
     the flat one): returns the wrapper that rasterizes a G-buffer of
     ``rows`` setup rows.
 
     * ``tile_lists``: K4g without the coarse class above MAX_RESIDENT_ROWS
-      rows; below, K6g, which is not ported (raises);
+      rows; below, K6g;
     * above MAX_RESIDENT_ROWS rows: K5g for ``hierarchy``, else K4g;
     * below: K2g for ``small``, and for ``auto`` up to SMALL_BIN_MAX_ROWS
       head rows; K3g otherwise."""
@@ -1139,12 +1294,8 @@ def select_gbuffer_raster(binning: str, rows: int):
         raise ValueError(f"unknown binning {binning!r}; one of {BINNINGS}")
     big = rows > MAX_RESIDENT_ROWS
     if binning == "tile_lists":
-        if big:
-            return rasterize_gbuffer_binned_hbm
-        raise NotImplementedError(
-            f"binning='tile_lists' at {rows} <= {MAX_RESIDENT_ROWS} rows "
-            "needs K6g (rasterize_gbuffer_pallas_binned), which is not "
-            "ported (ROADMAP.md Queue 2)")
+        return (rasterize_gbuffer_binned_hbm if big
+                else rasterize_gbuffer_binned)
     if big:
         return (rasterize_gbuffer_hbm if binning == "hierarchy"
                 else rasterize_gbuffer_binned_hbm)
@@ -1169,3 +1320,95 @@ def render_gbuffer(ccols, tri_node, matrices, normal_matrices,
     raster = select_gbuffer_raster(binning, tri_i32.shape[0])
     planes = raster(tri_i32, tri_f32, pad_width, pad_height)
     return [p[:height, :width] for p in planes]
+
+
+# ---------------------------------------------------------------------------
+# Depth-only raster (the shadow-map pass)
+# ---------------------------------------------------------------------------
+
+
+def rasterize_depth_small(tri_i32, tri_f32, width: int, height: int):
+    """K2d wrapper: ``prepare_binned_small`` then the kernel (CUDA tensors)
+    or its plain version (CPU tensors).  Returns the (height, width) f32
+    depth plane."""
+    _check_frame(width, height)
+    prepared = prepare_binned_small(tri_i32, tri_f32, width, height)
+    if _on_cpu(tri_i32):
+        return depth_small_plain(*prepared, width, height)
+    return depth_small_kernel(*prepared, width, height)
+
+
+def rasterize_depth(tri_i32, tri_f32, width: int, height: int):
+    """K3d wrapper: ``prepare_raster_inputs`` then the kernel or its plain
+    version."""
+    _check_frame(width, height)
+    prepared = prepare_raster_inputs(tri_i32, tri_f32)
+    if _on_cpu(tri_i32):
+        return depth_hier_plain(*prepared, width, height)
+    return depth_hier_kernel(*prepared, width, height)
+
+
+def rasterize_depth_hbm(tri_i32, tri_f32, width: int, height: int):
+    """The depth plane of K5 (``rasterize_setup_hbm``), as the reference's
+    depth dispatch takes it for ``hierarchy`` above MAX_RESIDENT_ROWS."""
+    return rasterize_setup_hbm(tri_i32, tri_f32, width, height)[1]
+
+
+def rasterize_depth_binned_hbm(tri_i32, tri_f32, width: int, height: int,
+                               cap: int | None = None,
+                               pair_budget: int | None = None):
+    """K4d wrapper: ``prepare_binned_hbm_inputs`` (no coarse class) then
+    the kernel or its plain version."""
+    _check_frame(width, height)
+    prepared = prepare_binned_hbm_inputs(tri_i32, tri_f32, width, height,
+                                         cap=cap, pair_budget=pair_budget)
+    if _on_cpu(tri_i32):
+        return depth_binned_plain(*prepared, width, height)
+    return depth_binned_kernel(*prepared, width, height)
+
+
+def rasterize_depth_binned(tri_i32, tri_f32, width: int, height: int,
+                           cap: int | None = None):
+    """K6d wrapper: ``prepare_binned_inputs`` then the kernel or its plain
+    version."""
+    _check_frame(width, height)
+    prepared = prepare_binned_inputs(tri_i32, tri_f32, width, height, cap=cap)
+    if _on_cpu(tri_i32):
+        return depth_lists_plain(*prepared, width, height)
+    return depth_lists_kernel(*prepared, width, height)
+
+
+def select_depth_raster(binning: str, rows: int):
+    """The dispatch of ``render_depth_pallas``, branch for branch: returns
+    the wrapper that rasterizes the depth of ``rows`` setup rows.
+
+    * ``tile_lists``: K4d above MAX_RESIDENT_ROWS rows, else K6d;
+    * above MAX_RESIDENT_ROWS rows: K5's depth plane for ``hierarchy``,
+      else K4d;
+    * below: K2d for ``small``, and for ``auto`` up to SMALL_BIN_MAX_ROWS
+      head rows; K3d otherwise."""
+    if binning not in BINNINGS:
+        raise ValueError(f"unknown binning {binning!r}; one of {BINNINGS}")
+    big = rows > MAX_RESIDENT_ROWS
+    if binning == "tile_lists":
+        return rasterize_depth_binned_hbm if big else rasterize_depth_binned
+    if big:
+        return (rasterize_depth_hbm if binning == "hierarchy"
+                else rasterize_depth_binned_hbm)
+    if binning == "small" or (
+            binning == "auto" and head_count(rows) <= SMALL_BIN_MAX_ROWS):
+        return rasterize_depth_small
+    return rasterize_depth
+
+
+def render_depth(ccols, tri_node, matrices, size: int,
+                 binning: str = "auto"):
+    """The shadow-map pass: column geometry (no normals, no material
+    table) at the (size, size) viewport, then the depth dispatch over the
+    same target, which has no crop and no padding: ``size`` must be a
+    multiple of TILE_W and TILE_H.  Returns the (size, size) f32 plane."""
+    _check_frame(size, size)
+    tri_i32, tri_f32 = tg.geometry_pipeline_cols(ccols, tri_node, matrices,
+                                                 size, size)
+    return select_depth_raster(binning, tri_i32.shape[0])(tri_i32, tri_f32,
+                                                          size, size)

@@ -1,6 +1,7 @@
-"""Blinn-Phong shading of the lit pipeline (counterpart of
-``reconstruct_world_pos``, ``blinn_params_from_material``, ``blinn_phong``
-and ``tonemap_and_pack`` in ``zrenderer_tpu/ops/shading.py``).
+"""Shading of the lit and shadowed pipelines (counterpart of
+``reconstruct_world_pos``, ``blinn_params_from_material``, ``blinn_phong``,
+``shadow_factor_pcf``, ``shadow_factor_pcf_strided`` and
+``tonemap_and_pack`` in ``zrenderer_tpu/ops/shading.py``).
 
 Plain torch ops over (H, W, ...) G-buffer planes, as the reference leaves
 them to XLA.  Each expression keeps the reference's association; Python
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 
@@ -92,6 +94,94 @@ def blinn_phong(albedo, normal, world_pos, cam_pos, light_pos, light_color,
     spec = specular * torch.pow(ndoth, shininess) * torch.sign(ndotl)
     return (_f32(ambient) * albedo
             + ((diffuse + spec) * light_color) * atten).to(F32)
+
+
+def shadow_factor_pcf(shadow_depth, world_pos, light_view_proj,
+                      bias: float = 2e-3, taps: int = 1, normal=None,
+                      light_dir=None, slope_bias: float = 3e-3,
+                      max_bias: float = 1.2e-2):
+    """Percentage-closer filtering against a depth-only shadow map.
+
+    ``shadow_depth`` (Sh, Sw) z in [0, 1] from the light's pass;
+    ``world_pos`` (H, W, 3); ``light_view_proj`` (4, 4) row-vector.
+    Returns (H, W) f32 in [0, 1], 1 fully lit, over the edge-clamped
+    (2*taps+1)^2 neighbourhood of the pixel's shadow-map texel; 1 outside
+    the light's frustum.  With ``normal`` (H, W, 3, unit) and ``light_dir``
+    (3,) pointing from the light, the bias is slope-scaled,
+    bias + slope_bias * tan(acos(N.L)), capped at ``max_bias``.
+
+    The map is compared as D16, floor(clip(d, 0, 1) * 65535 + 0.5),
+    against the integer threshold clip(ceil((z - bias) * 65535), 0, 65535),
+    as the reference does.  The reference packs two taps a u32 lane for its
+    TPU gather; here every tap is a column of one (Sh*Sw, taps) table of
+    the edge-clamped shifted maps, read by one gather: the same bits."""
+    sh, sw = shadow_depth.shape
+    wx, wy, wz = world_pos[..., 0], world_pos[..., 1], world_pos[..., 2]
+    m = light_view_proj
+    clip = [((wx * m[0, j] + wy * m[1, j]) + wz * m[2, j]) + m[3, j]
+            for j in range(4)]
+    w = torch.clamp_min(clip[3], _f32(1e-8))
+    ndc_x, ndc_y, z = clip[0] / w, clip[1] / w, clip[2] / w
+    sx = (ndc_x + 1.0) * _f32(sw * 0.5)
+    sy = (1.0 - ndc_y) * _f32(sh * 0.5)
+
+    total_bias = _f32(bias)
+    if normal is not None and light_dir is not None:
+        ndotl = torch.clamp(_dot(normal, -light_dir)[..., 0], _f32(1e-3), 1.0)
+        tan_theta = torch.sqrt(
+            torch.clamp_min(1.0 - ndotl * ndotl, 0.0)) / ndotl
+        total_bias = torch.clamp_max(
+            _f32(bias) + _f32(slope_bias) * tan_theta, _f32(max_bias))
+
+    # The reference truncates to int32, then clamps; clamping first gives
+    # the same index for every number (NaN, outside the frustum, reads 0).
+    ix = torch.clamp(torch.nan_to_num(sx), 0, sw - 1).to(torch.int32)
+    iy = torch.clamp(torch.nan_to_num(sy), 0, sh - 1).to(torch.int32)
+    d16 = torch.floor(torch.clamp(shadow_depth, 0.0, 1.0) * 65535.0 + 0.5)
+    k = 2 * taps + 1
+    padded = F.pad(d16[None, None], (taps, taps, taps, taps),
+                   mode="replicate")
+    # (Sh*Sw, k*k): one row a texel, its taps (dy, dx) in row-major order.
+    table = F.unfold(padded, k)[0].T.contiguous()
+    rows = table[(iy * sw + ix).long()]  # (H, W, k*k)
+    t16 = torch.clamp(torch.ceil((z - total_bias) * 65535.0), 0.0, 65535.0)
+    hits = (rows >= t16[..., None]).sum(dim=-1)
+    lit = hits.to(F32) / _const(hits, k * k)
+    inside = ((ndc_x >= -1) & (ndc_x <= 1) & (ndc_y >= -1) & (ndc_y <= 1)
+              & (z >= 0) & (z <= 1))
+    return torch.where(inside, lit, 1.0)
+
+
+def shadow_factor_pcf_strided(shadow_depth, world_pos, light_view_proj,
+                              stride: int = 1, normal=None, **kw):
+    """PCF at every ``stride``-th pixel.  ``stride=1`` is the per-pixel
+    ``shadow_factor_pcf``; ``stride=2`` evaluates it on 2x2 mean-pooled
+    world positions (and normals) and bilinearly upsamples the lit
+    fraction with edge-clamped neighbours, as the reference does (H and W
+    even)."""
+    if stride == 1:
+        return shadow_factor_pcf(shadow_depth, world_pos, light_view_proj,
+                                 normal=normal, **kw)
+    if stride != 2:
+        raise ValueError(f"shadow lookup stride {stride}: 1 or 2")
+    h, w = world_pos.shape[:2]
+
+    def pool(x):
+        return x.reshape(h // 2, 2, w // 2, 2, *x.shape[2:]).mean(dim=(1, 3))
+
+    sub = shadow_factor_pcf(shadow_depth, pool(world_pos), light_view_proj,
+                            normal=None if normal is None else pool(normal),
+                            **kw)
+    right = torch.cat([sub[:, 1:], sub[:, -1:]], dim=1)
+    down = torch.cat([sub[1:, :], sub[-1:, :]], dim=0)
+    diag = torch.cat([right[1:, :], right[-1:, :]], dim=0)
+    row_a = torch.stack([sub, (sub + right) * 0.5], dim=-1).reshape(
+        sub.shape[0], -1)
+    row_b = torch.stack([(sub + down) * 0.5,
+                         (((sub + right) + down) + diag) * 0.25],
+                        dim=-1).reshape(sub.shape[0], -1)
+    out = torch.stack([row_a, row_b], dim=1).reshape(-1, row_a.shape[1])
+    return out[:h, :w]
 
 
 def tonemap_and_pack(rgb, covered, clear_rgb=(0.0, 0.0, 0.0)):
