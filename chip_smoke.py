@@ -37,6 +37,13 @@ Phases, in order, each printing its own lines and seconds:
     wide soup with rows whose bbox clamps to empty at the map's bottom and
     right edges and past them, the depth planes of all four equal by
     value; the plain K2d, K3d, K6d and K6g calls give their plain_ms;
+4l. the tiled light kernel K7 against its plain version, the 3 output
+    planes bitwise as int32, f32 and bf16 planes: the 1080p deferred
+    G-buffer of the test scene (padded to 1920x1088) with BASELINE config
+    3's 256 "wide" and "r2" lights, random planes with lights behind the
+    camera, random planes with tiles that list no light, and a band at
+    rows 544-799 of a 1088-row frame (``row_offset``); the plain calls on
+    the test scene give K7's plain_ms;
 5. the main path: ``Renderer.render_and_read`` at 1080p on the test scene
    (K1) and the lattice (K3), with the launch counts of that run, and the
    256x144 frame against the NumPy oracle (the port's geometry on CPU
@@ -73,12 +80,26 @@ Phases, in order, each printing its own lines and seconds:
     frames, K4d held bit-exact against its plain version on those inputs,
     which time its plain_ms; and the 160x96 frame against
     ``tests/goldens/shadowed_160x96.png``;
+5dl. the deferred main path, ``Renderer(pipeline="deferred")`` at 1080p on
+    the test scene with the wide and the r2 lights (K2g and K7, one launch
+    each a frame) and with bf16 planes (K2g and K7's bf16 instantiation),
+    each run with every launch count set to 0 just before and read just
+    after; both light sets held against the port's CPU frame at 480x270
+    (coverage exact, u8 within 2 LSB), and the 160x96 frame of the
+    procedural test scene against ``tests/goldens/deferred_160x96.png``;
+5t. TAA: ``taa_resolve`` and ``taa_resolve_packed`` on 8 jittered 1080p
+    test-scene frames on the card, bit-equal to each other and to the
+    CPU's; ``tests/goldens/taa_converged_160x96.png`` bit-equal through 8
+    jittered flat frames; BASELINE config 4 on one card, the 1M lattice
+    through K4 and ``taa_resolve_packed`` with the history carried over 8
+    jittered frames, as ``benchmarks/config4.py`` composes them;
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape, and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
    K4c, 20K lattice K6, the lit paths, and the shadowed test scene, 20K
-   lattice (K3d; K6d and K6g) and 1M lattice) giving each kernel's time a
-   launch there,
+   lattice (K3d; K6d and K6g) and 1M lattice, the deferred test scene with
+   each light set and with bf16 planes, and config 4) giving each
+   kernel's time a launch there,
    device-busy ms and device ops per frame and the device's idle share;
    a kernel is timed only from a trace that holds every one of its
    launches (at most three traces).  Then the
@@ -89,15 +110,20 @@ Phases, in order, each printing its own lines and seconds:
    test scene (geometry, prepare, K2g, crop, LOD, sampling, shading plus
    tonemap, digest) and the shadowed test scene (depth-pass geometry,
    prepare, K2d, G-buffer geometry, prepare, K2g, crop, sampling, PCF,
-   shading plus tonemap, digest);
-7. the app CLI writing PNGs: the test scene flat and shadowed, the
-   showcase lit;
+   shading plus tonemap, digest) and the deferred test scene (geometry,
+   prepare, K2g, crop, world position, K7's prepass of planes and light
+   bounds, K7, emissive plus tonemap, digest), and config 4's ms/frame;
+7. the app CLI writing PNGs: the test scene flat, shadowed, deferred and
+   deferred with ``--taa``, the showcase lit;
 8. hygiene: neither jax nor the JAX package (``zrenderer_tpu``) loaded.
 
 Each kernel's bound is the larger of its inputs and outputs (2 planes
 flat, 13 G-buffer, 1 depth-only) moved once at the card's memory rate and
 the (tile, triangle) pairs its frame needs, times 4096 pixels and
-OPS_PER_EVAL, at the CUDA-core rate.
+OPS_PER_EVAL, at the CUDA-core rate.  K7's is the larger of its 11 planes,
+mask, bounds, lights and 3 output planes moved once and its (pixel,
+listed light) evaluations, each tile's light count times its covered
+pixels (uncovered pixels cost nothing), times OPS_PER_LIGHT.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The second-to-last line is the kernels' JSON record, the last line
@@ -119,6 +145,10 @@ SHOWCASE_DIR = os.path.join(HERE, "content", "scenes", "showcase")
 LIT_GOLDEN = os.path.join(HERE, "tests", "goldens", "lit_160x96.png")
 SHADOWED_GOLDEN = os.path.join(HERE, "tests", "goldens",
                                "shadowed_160x96.png")
+DEFERRED_GOLDEN = os.path.join(HERE, "tests", "goldens",
+                               "deferred_160x96.png")
+TAA_GOLDEN = os.path.join(HERE, "tests", "goldens",
+                          "taa_converged_160x96.png")
 
 # The main-path frame (the reference demo's 1080p) and its padded raster
 # target, the card, and the animation length of the timing phase.
@@ -142,6 +172,13 @@ SMALL_BUDGETS = dict(cap=8, pair_budget=200, coarse_cap=8, coarse_budget=20)
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 OPS_PER_EVAL = 26
+# K7, one (pixel, listed light) evaluation of csrc/light_tiled.cu's loop:
+# 3 sub and 3 dot products of 5 (18), 4 rsqrt/reciprocal of 2 (8: an
+# IEEE divide, a square root or a bf16 round trip), 8 max/min, the half
+# vector's and distribution's 2 + 2 + 3 + 3 products and sums, denom 4,
+# spec 1, t/t2/t5 4, rad 2, 3 Fresnel of 2, 3 accumulations of 6, and
+# the 3 normalized light components: 81 float operations.
+OPS_PER_LIGHT = 81
 
 # bench.py's parity threshold against the oracle at 256x144, and
 # RASTER_SPEC.md §5's full-pipeline depth bound.
@@ -159,6 +196,10 @@ LIT_MAX_LSB = 2
 SHADOW_SIZE = 1024
 SHADOW_MAX_FLIP_SHARE = 0.005
 TAP_MAX_LSB = 29
+# The deferred frame held against the port's CPU frame (the CPU plain K7
+# lights 256 lights at this size in seconds) and config 4's frames.
+DEFERRED_CPU_W, DEFERRED_CPU_H = 480, 270
+CONFIG4_FRAMES = 8
 
 
 def phase(name):
@@ -201,7 +242,14 @@ def main() -> int:
         flat_scene_to_device,
         flatten_scene,
     )
-    from zrenderer_tpu_torch.ops import _build, raster, sampling, shading
+    from zrenderer_tpu_torch.ops import (
+        _build,
+        light_kernel,
+        raster,
+        sampling,
+        shading,
+        taa,
+    )
     from zrenderer_tpu_torch.ops import geometry as tg
     from zrenderer_tpu_torch.raster_ref import raster_cpu
     from zrenderer_tpu_torch.scene.mesh import V_COLOR, MeshData
@@ -223,10 +271,12 @@ def main() -> int:
     k6g = raster.gbuffer_lists_kernel
     k2d, k3d = raster.depth_small_kernel, raster.depth_hier_kernel
     k4d, k6d = raster.depth_binned_kernel, raster.depth_lists_kernel
+    k7, k7b = (light_kernel.tiled_light_kernel,
+               light_kernel.tiled_light_bf16_kernel)
     results = {key: {"err": 0.0}
                for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6",
                            "k2g", "k3g", "k4g", "k5g", "k6g",
-                           "k2d", "k3d", "k4d", "k6d")}
+                           "k2d", "k3d", "k4d", "k6d", "k7", "k7_bf16")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -795,6 +845,179 @@ def main() -> int:
         print("  K6g equals K2g bitwise on the soups; every exact depth tie "
               "went to the first-submitted row")
 
+    # -- 4l. K7 vs plain ----------------------------------------------------
+    def baseline_lights(name):
+        """BASELINE config 3's 256 point lights (benchmarks/configs.py
+        :121-126): "wide" (every light's influence radius spans the scene)
+        or "r2" (colours x 0.008: a radius of about 2 units)."""
+        rng = np.random.default_rng(3)
+        pos = rng.uniform([-6, 0.5, -6], [6, 6, 6], (256, 3)).astype(
+            np.float32)
+        col = rng.uniform(0.1, 1.0, (256, 3)).astype(np.float32)
+        if name == "r2":
+            col = (col * 0.008).astype(np.float32)
+        return pos, col
+
+    def golden_lights():
+        """The 8 lights of tests/test_golden.py::test_png_golden_deferred."""
+        rng = np.random.default_rng(5)
+        pos = rng.uniform([-5, 0.5, -5], [5, 5, 5], (8, 3)).astype(np.float32)
+        col = rng.uniform(0.2, 2.0, (8, 3)).astype(np.float32)
+        return pos, col
+
+    def deferred_renderer(scene_md, lights, planes="f32", device=DEVICE,
+                          width=WIDTH, height=HEIGHT, tri_align=256):
+        r = Renderer(RenderConfig(width=width, height=height,
+                                  pipeline="deferred",
+                                  lighting_planes=planes,
+                                  tri_align=tri_align), device=device)
+        r.load_scene(*scene_md)
+        r.set_environment(lights=lights)  # as benchmarks/configs.py does
+        return r
+
+    def deferred_frame_inputs(r):
+        """K7's inputs of a deferred renderer's current frame on its
+        device, through the frame's own stages (build_deferred_frame)."""
+        cfg = r.config
+        c = {k: torch.from_numpy(v).to(r.device)
+             for k, v in r._lit_constants().items()}
+        g = passes._gbuffer(r._buffers(), c["matrices"], c["normal_mats"],
+                            cfg.width, cfg.height, cfg.pad_height,
+                            cfg.pad_width, cfg.binning)
+        world = shading.reconstruct_world_pos(g[1], c["inv_view_proj"],
+                                              cfg.width, cfg.height)
+        return passes.deferred_light_inputs(
+            g, world, c["cam_pos"], c["view_proj"], *r.lights, cfg.width,
+            cfg.height, cfg.pad_height, cfg.pad_width,
+            torch.bfloat16 if cfg.lighting_planes == "bf16" else torch.float32)
+
+    def random_light_inputs(seed, h, w, lights, planes=torch.float32,
+                            full_height=None):
+        """K7's inputs from seeded random planes of an (h, w) frame seen by
+        the test scene's camera at 1080p (coverage 0.8)."""
+        rng = np.random.default_rng(seed)
+        cam = load_test_scene()[0].active_camera
+        vp = tg.view_proj_from_camera(cam, WIDTH, HEIGHT)
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return light_kernel.light_inputs(
+            t(rng.random((h, w, 3), dtype=np.float32)),
+            t(rng.standard_normal((h, w, 3)).astype(np.float32)),
+            t(rng.uniform([-4, 0, -4], [4, 3, 4], (h, w, 3)).astype(
+                np.float32)),
+            t(rng.random((h, w)) < 0.8),
+            t(np.asarray(cam.position, np.float32)), t(lights[0]),
+            t(lights[1]), t(vp),
+            roughness=t(rng.uniform(0.05, 1.0, (h, w)).astype(np.float32)),
+            metallic=t(rng.random((h, w), dtype=np.float32)),
+            plane_dtype=planes, full_height=full_height)
+
+    def light_work(inputs, row_offset=0):
+        """(light-tile pairs, (pixel, light) evaluations K7 does: each
+        tile's light count times its covered pixels, tiles listing no
+        light) of K7's inputs."""
+        mask, bounds = inputs[1], inputs[2]
+        ty, tx = mask.shape[0] // raster.TILE_H, mask.shape[1] // raster.TILE_W
+        tiles, _ = light_kernel.tile_light_lists(bounds, ty, tx, row_offset)
+        covered = (mask > 0).view(ty, raster.TILE_H, tx, raster.TILE_W).sum(
+            dim=(1, 3)).flatten()
+        return (int(tiles.sum().item()),
+                int((tiles.long() * covered).sum().item()),
+                int((tiles == 0).sum().item()))
+
+    light_of = {"k7": k7, "k7_bf16": k7b}
+
+    def compare_light(key, label, inputs, row_offset=0, plain_key=None):
+        """K7 vs its plain version on the same inputs: the 3 output planes
+        equal as int32 bits.  ``plain_key``: record the plain call's time
+        (CUDA events) under that name."""
+        sync()
+        out_k = light_of[key](*inputs, row_offset)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_p = light_kernel.tiled_light_plain(*inputs, row_offset)
+        end.record()
+        sync()
+        if plain_key is not None:
+            results[key][plain_key] = start.elapsed_time(end)
+        same = torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+        err = (torch.nan_to_num(out_k) - torch.nan_to_num(out_p)).abs().max()
+        pairs, evals, empty = light_work(inputs, row_offset)
+        cov = (inputs[1] > 0).float().mean().item()
+        print(f"  {label}: {inputs[1].shape[1]}x{inputs[1].shape[0]} "
+              f"{inputs[0].dtype} planes, {inputs[2].shape[0]} lights, "
+              f"row_offset {row_offset}: bit-exact={same} max_abs_err="
+              f"{err.item()} coverage={cov:.4f}, {pairs} light-tile pairs, "
+              f"{evals} evaluations, {empty} tiles list no light, mean "
+              f"{out_k.mean().item():.6f}", flush=True)
+        if not same:
+            raise AssertionError(f"{label}: K7 and its plain version differ")
+        if cov <= 0.0 or pairs == 0:
+            raise AssertionError(f"{label}: nothing lit proves nothing")
+        results[key]["err"] = max(results[key]["err"], float(err.item()))
+        return pairs, evals, empty
+
+    @phase("4l K7 tiled light kernel vs plain version")
+    def light_cases():
+        scene_md = load_test_scene()
+        main = {}
+        for name in ("wide", "r2"):
+            for planes, key in (("f32", "k7"), ("bf16", "k7_bf16")):
+                inputs = deferred_frame_inputs(
+                    deferred_renderer(scene_md, baseline_lights(name), planes))
+                compare_light(key, f"test scene G-buffer, {name} lights",
+                              inputs, plain_key="plain_ms" if name == "wide"
+                              else "plain_ms_r2")
+                main[name, key] = inputs
+        cam = scene_md[0].active_camera
+        eye = np.asarray(cam.position, np.float32)
+        fwd = np.asarray(cam.forward, np.float32)
+        fwd = fwd / np.linalg.norm(fwd)
+        pos, col = baseline_lights("r2")
+        behind = (np.concatenate([eye - fwd * np.float32(d)
+                                  for d in (0.5, 3.0, 40.0)]
+                                 ).reshape(3, 3).astype(np.float32))
+        lights = (np.concatenate([behind, pos[:61]]),
+                  np.concatenate([col[:3] * np.float32(50.0), col[:61]]))
+        bounds = light_kernel.light_screen_bounds(
+            *(torch.from_numpy(x) for x in lights),
+            torch.from_numpy(tg.view_proj_from_camera(cam, WIDTH, HEIGHT)),
+            PAD_W, PAD_H)
+        whole = int((bounds == torch.tensor([0, PAD_W - 1, 0, PAD_H - 1],
+                                            dtype=torch.int32)).all(1).sum())
+        print(f"  {whole} of 64 lights get the whole frame (3 behind the "
+              "camera)")
+        if whole < 3:
+            raise AssertionError("the lights behind the camera were culled")
+        for key, planes in (("k7", torch.float32), ("k7_bf16",
+                                                    torch.bfloat16)):
+            compare_light(key, "random planes, lights behind the camera",
+                          random_light_inputs(1, PAD_H, PAD_W, lights,
+                                              planes))
+        # Two r2-sized lights off the right edge and one on screen.
+        side = np.cross(fwd, np.float32([0, 1, 0]))
+        side = (side / np.linalg.norm(side)).astype(np.float32)
+        off = np.stack([eye + fwd * np.float32(6) + side * np.float32(40),
+                        eye + fwd * np.float32(9) + side * np.float32(60)])
+        sparse = (np.concatenate([off, pos[1:2]]).astype(np.float32),
+                  col[:3])
+        empty = compare_light("k7", "random planes, 3 r2 lights, 2 of them "
+                              "off screen",
+                              random_light_inputs(2, PAD_H, PAD_W, sparse))[2]
+        if empty == 0:
+            raise AssertionError("no tile was culled to an empty list")
+        # A band: a quarter of the frame's rows, from the middle down.
+        rows = max(raster.TILE_H, PAD_H // 4 // raster.TILE_H * raster.TILE_H)
+        first = PAD_H // 2 // raster.TILE_H * raster.TILE_H
+        compare_light("k7", f"random planes, rows {first}-{first + rows - 1}"
+                      f" of {PAD_H}",
+                      random_light_inputs(3, rows, PAD_W,
+                                          baseline_lights("r2"),
+                                          full_height=PAD_H),
+                      row_offset=first)
+        return main
+
     # -- 5. main path -----------------------------------------------------
     @phase("5 main path")
     def launches():
@@ -850,7 +1073,8 @@ def main() -> int:
     # -- 5b. large-scene paths ----------------------------------------------
     kernel_of = {"k1": k1, "k3": k3, "k4": k4, "k4_coarse": k4c, "k5": k5,
                  "k6": k6, "k2g": k2g, "k3g": k3g, "k4g": k4g, "k5g": k5g,
-                 "k6g": k6g, "k2d": k2d, "k3d": k3d, "k4d": k4d, "k6d": k6d}
+                 "k6g": k6g, "k2d": k2d, "k3d": k3d, "k4d": k4d, "k6d": k6d,
+                 "k7": k7, "k7_bf16": k7b}
 
     def drive(label, scene_md, binning, key):
         """One frame through Renderer.render_and_read with every launch
@@ -1238,6 +1462,179 @@ def main() -> int:
     r_sh, r_sh3, r_sh6, r_sh4, rows_sh_big = shadowed
     del lattice_big
 
+    # -- 5dl. deferred main path ---------------------------------------------
+    def drive_deferred(label, r, keys):
+        """One deferred frame through Renderer.render_and_read with every
+        launch count set to 0 just before and read just after: one launch
+        of each kernel of ``keys`` (G-buffer, K7) and no other."""
+        for kern in kernel_of.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        img, depth = r.render_and_read()
+        wall = (time.perf_counter() - t0) * 1000.0
+        launched = {k: kern.launches for k, kern in kernel_of.items()}
+        cov = (depth < 1.0).mean()
+        lit = img[depth < 1.0][:, :3].astype(np.float64).mean()
+        print(f"  deferred {label} {img.shape[1]}x{img.shape[0]}: coverage="
+              f"{cov:.4f}, mean covered u8 {lit:.3f}, first frame {wall:.1f}"
+              f" ms (host clock, warm-up included), launches "
+              f"{ {k: n for k, n in launched.items() if n} }", flush=True)
+        if img.shape[:2] != (r.config.height, r.config.width):
+            raise AssertionError(f"deferred {label}: bad frame shape")
+        if not np.isfinite(depth).all() or cov <= MIN_COVERAGE or lit <= 0:
+            raise AssertionError(f"deferred {label}: frame empty or dark")
+        if (any(launched[k] != 1 for k in keys)
+                or sum(launched.values()) != len(keys)):
+            raise AssertionError(f"deferred {label}: expected one launch of "
+                                 f"each of {keys}, got {launched}")
+        return img, depth, {k: launched[k] for k in keys}
+
+    @phase("5dl deferred main path")
+    def deferred():
+        scene_md = load_test_scene()
+        runs = {}
+        for name in ("wide", "r2"):
+            r = deferred_renderer(scene_md, baseline_lights(name))
+            img, _, n = drive_deferred(f"test scene, {name} lights (K2g, K7)",
+                                       r, ("k2g", "k7"))
+            counts["k7"] = n["k7"]
+            runs[name] = (r, img)
+        rb = deferred_renderer(scene_md, baseline_lights("wide"), "bf16")
+        img_b, _, n = drive_deferred("test scene, wide lights, bf16 planes "
+                                     "(K2g, K7 bf16)", rb, ("k2g", "k7_bf16"))
+        counts["k7_bf16"] = n["k7_bf16"]
+        lsb, over1 = lsb_diff(img_b, runs["wide"][1])
+        print(f"  bf16 planes vs f32 planes at {WIDTH}x{HEIGHT}: max {lsb} "
+              f"LSB, {over1} px over 1 LSB (bf16 world positions move the "
+              "lights' 1/d^2 near surfaces)")
+
+        w, h = DEFERRED_CPU_W, DEFERRED_CPU_H
+        for name in ("wide", "r2"):
+            lights = baseline_lights(name)
+            img_d, depth_d = deferred_renderer(
+                scene_md, lights, width=w, height=h).render_and_read()
+            img_c, depth_c = deferred_renderer(
+                scene_md, lights, device="cpu", width=w,
+                height=h).render_and_read()
+            lsb, over1 = lsb_diff(img_d, img_c)
+            cov_same = np.array_equal(depth_d < 1.0, depth_c < 1.0)
+            print(f"  deferred {name} {w}x{h} card vs CPU frame: coverage "
+                  f"equal {cov_same}, max {lsb} LSB, {over1} px over 1 LSB, "
+                  f"equal px {(img_d == img_c).all(-1).mean():.6f}")
+            if not cov_same or lsb > LIT_MAX_LSB:
+                raise AssertionError(f"deferred {name}: card frame differs "
+                                     "from the CPU frame")
+
+        rg = deferred_renderer(make_test_scene(), golden_lights(), width=160,
+                               height=96, tri_align=64)
+        img_g, _ = rg.render_and_read()
+        lsb, over1 = lsb_diff(img_g, read_png(DEFERRED_GOLDEN))
+        print(f"  deferred 160x96 vs tests/goldens/deferred_160x96.png: max "
+              f"{lsb} LSB, {over1} px over 1 LSB")
+        if lsb > LIT_MAX_LSB:
+            raise AssertionError("deferred 160x96 frame differs from the "
+                                 "golden")
+        return runs["wide"][0], runs["r2"][0], rb
+
+    r_def, r_def_r2, r_def_bf16 = deferred
+
+    # -- 5t. TAA ------------------------------------------------------------
+    def config4(r, frames):
+        """BASELINE config 4 on one card, composed as benchmarks/config4.py
+        composes it: per frame the jittered column geometry, K4 over the
+        padded target (the large-scene default), the crop and
+        ``taa_resolve_packed`` into the history carried from the last
+        frame, seeded from a first frame; the digest sums each resolved
+        frame's centre pixel and depth.  Returns (digest, the history
+        before the last resolve, the last history, the last resolved
+        packed frame, the last packed frame)."""
+        b = r._buffers()
+        jitters = taa.jitter_sequence(8)
+        mats = torch.from_numpy(np.stack([
+            r.camera_matrices(jitter=jitters[k % 8]) for k in range(frames)
+        ])).to(dev)
+
+        def frame(m):
+            ti, tf = tg.geometry_pipeline_cols(b["corner_cols"],
+                                               b["tri_node"], m, WIDTH, HEIGHT)
+            color, depth = raster.rasterize_setup_binned_hbm(ti, tf, PAD_W,
+                                                             PAD_H)
+            return color[:HEIGHT, :WIDTH], depth
+
+        hist = taa.taa_init_history_packed(frame(mats[0])[0])
+        acc = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(frames):
+            packed, depth = frame(mats[i])
+            prev = hist
+            hist, resolved = taa.taa_resolve_packed(hist, packed)
+            centre = (resolved[HEIGHT // 2, WIDTH // 2].to(torch.int64)
+                      & 0xFFFFFFFF).to(torch.float32)
+            acc = acc + (centre + depth[HEIGHT // 2, WIDTH // 2])
+        return acc, prev, hist, resolved, packed
+
+    @phase("5t TAA")
+    def taa_checks():
+        b = r_scene._buffers()
+        jitters = taa.jitter_sequence(8)
+        hist = hist_p = hist_c = None
+        for j in jitters:
+            mats = torch.from_numpy(r_scene.camera_matrices(jitter=j)).to(dev)
+            packed, _ = raster.render_frame(b["corner_cols"], b["tri_node"],
+                                            mats, WIDTH, HEIGHT, PAD_H, PAD_W)
+            frame = raster.unpack_rgba8(packed)
+            if hist is None:
+                hist = taa.taa_init_history(frame)
+                hist_p = taa.taa_init_history_packed(packed)
+                hist_c = taa.taa_init_history(frame.cpu())
+            hist, res = taa.taa_resolve(hist, frame)
+            hist_p, res_p = taa.taa_resolve_packed(hist_p, packed)
+            hist_c, res_c = taa.taa_resolve(hist_c, frame.cpu())
+            same = (torch.equal(hist.cpu(), hist_c)
+                    and torch.equal(res.cpu(), res_c)
+                    and torch.equal(hist_p.permute(1, 2, 0), hist)
+                    and torch.equal(raster.unpack_rgba8(res_p), res))
+            if not same:
+                raise AssertionError("TAA resolves differ (card u8, card "
+                                     "packed, CPU)")
+        moved = (res[..., :3] != frame[..., :3]).any(-1).float().mean().item()
+        print(f"  taa_resolve == taa_resolve_packed on the card == "
+              f"taa_resolve on the CPU over 8 jittered {WIDTH}x{HEIGHT} "
+              f"frames; the last resolved frame differs from its input on "
+              f"{moved:.4f} of the pixels")
+
+        rg = Renderer(RenderConfig(width=160, height=96, tri_align=64),
+                      device=DEVICE)
+        rg.load_scene(*make_test_scene())
+        hist = None
+        for j in jitters:
+            color, _ = rg.render(jitter=j)
+            if hist is None:
+                hist = taa.taa_init_history(color)
+            hist, resolved = taa.taa_resolve(hist, color)
+        same = np.array_equal(resolved.cpu().numpy(), read_png(TAA_GOLDEN))
+        print(f"  TAA 160x96 vs tests/goldens/taa_converged_160x96.png: "
+              f"bit-equal {same}")
+        if not same:
+            raise AssertionError("TAA 160x96 frame differs from the golden")
+
+        for kern in kernel_of.values():
+            kern.launches = 0
+        acc, prev, hist, resolved, packed = config4(r_k4, CONFIG4_FRAMES)
+        launched = {k: kern.launches for k, kern in kernel_of.items() if
+                    kern.launches}
+        _, check = taa.taa_resolve(prev.permute(1, 2, 0),
+                                   raster.unpack_rgba8(packed))
+        same = torch.equal(raster.unpack_rgba8(resolved), check)
+        cov = (raster.unpack_rgba8(resolved)[..., :3].sum(-1) > 0).float()
+        print(f"  config 4 (lattice1M, K4 + taa_resolve_packed, "
+              f"{CONFIG4_FRAMES} jittered frames): digest {acc.item():.6e}, "
+              f"coverage {cov.mean().item():.4f}, last resolve == "
+              f"taa_resolve {same}, launches {launched}")
+        if (launched != {"k4": CONFIG4_FRAMES + 1} or not same
+                or not torch.isfinite(acc) or cov.mean().item() <= MIN_COVERAGE
+                or int(hist.min()) < 0 or int(hist.max()) > taa.FIXED_MAX):
+            raise AssertionError("config 4 did not render through K4 + TAA")
+
     # -- 6. timing --------------------------------------------------------
     # A trace can hold a launch call without its kernel record, rarely
     # after a few untraced launches and in every trace after a million of
@@ -1306,8 +1703,10 @@ def main() -> int:
                     "k6g": "gbuffer_lists_kernel",
                     "k2d": "depth_small_kernel", "k3d": "depth_hier_kernel",
                     "k4d": "depth_records_kernel",
-                    "k6d": "depth_lists_kernel"}
-    raster_kernels = set(kernel_names.values())
+                    "k6d": "depth_lists_kernel",
+                    "k7": "light_tiled_kernel<float>",
+                    "k7_bf16": "light_tiled_kernel<__nv_bfloat16>"}
+    port_kernels = set(kernel_names.values())
 
     def traced_kernel_ms(keys, fn, attempts=3):
         """Device events of ``fn``'s traced run, its window, and the mean
@@ -1490,6 +1889,69 @@ def main() -> int:
                                       r.light_color), 50),
         }
 
+    def deferred_stages():
+        """The deferred 1080p test-scene frame (BASELINE config 3, wide
+        lights) split into its stages as in ``lit_stages``."""
+        r = r_def
+        cfg = r.config
+        b = r._buffers()
+        c = {k: torch.from_numpy(v).to(dev)
+             for k, v in r._lit_constants().items()}
+
+        def geometry():
+            return tg.geometry_pipeline_cols(
+                b["corner_cols"], b["tri_node"], c["matrices"], WIDTH,
+                HEIGHT, normal_matrices=c["normal_mats"],
+                material_table=b["materials"])
+
+        ti, tf = geometry()
+        prep = raster.prepare_binned_small(ti, tf, PAD_W, PAD_H)
+        planes = k2g(*prep, PAD_W, PAD_H)
+
+        def crop():
+            return ([raster.unpack_rgba8(planes[0][:HEIGHT, :WIDTH])]
+                    + [p[:HEIGHT, :WIDTH] for p in planes[1:]])
+
+        g = crop()
+
+        def world():
+            return shading.reconstruct_world_pos(g[1], c["inv_view_proj"],
+                                                 WIDTH, HEIGHT)
+
+        wpos = world()
+
+        def prepass():
+            return passes.deferred_light_inputs(
+                g, wpos, c["cam_pos"], c["view_proj"], *r.lights, WIDTH,
+                HEIGHT, PAD_H, PAD_W)
+
+        inputs = prepass()
+        out = k7(*inputs)
+
+        def tonemap():
+            rgb = out.permute(1, 2, 0)[:HEIGHT, :WIDTH] + torch.stack(
+                g[9:12], dim=-1)
+            return shading.tonemap_and_pack(rgb, g[1] < 1.0)
+
+        color = tonemap()
+        return {
+            "deferred geometry": (geometry, 50),
+            "deferred prepare_binned_small": (
+                lambda: raster.prepare_binned_small(ti, tf, PAD_W, PAD_H), 50),
+            "deferred K2g launcher": (lambda: k2g(*prep, PAD_W, PAD_H), 50),
+            "deferred crop": (crop, 50),
+            "deferred world position": (world, 50),
+            "deferred K7 prepass (albedo, pad, planes, light bounds)": (
+                prepass, 50),
+            "deferred K7 launcher": (lambda: k7(*inputs), 20),
+            "deferred emissive + tonemap": (tonemap, 50),
+            "deferred digest": (lambda: rgba_digest(color), 50),
+            "deferred whole frame (passes.build_deferred_frame)": (
+                lambda: r._frame_fn()(b, c["matrices"], c["normal_mats"],
+                                      c["inv_view_proj"], c["cam_pos"],
+                                      c["view_proj"], *r.lights), 20),
+        }
+
     @phase("6 timing")
     def timing():
         # (label, renderer, kernels timed in its trace, frames timed,
@@ -1517,6 +1979,12 @@ def main() -> int:
              ("k6d", "k6g"), ANIM_FRAMES, PROFILE_FRAMES),
             ("shadowed lattice1M (K4d, K4g)", r_sh4, ("k4d",), LARGE_FRAMES,
              5),
+            ("deferred test scene wide (K2g, K7)", r_def, ("k7",),
+             ANIM_FRAMES, PROFILE_FRAMES),
+            ("deferred test scene r2 (K2g, K7)", r_def_r2, ("k7",),
+             ANIM_FRAMES, PROFILE_FRAMES),
+            ("deferred test scene wide bf16 planes (K2g, K7 bf16)",
+             r_def_bf16, ("k7_bf16",), ANIM_FRAMES, PROFILE_FRAMES),
         )
         # A. Traces: each kernel alone at its main-path shape, a profiled
         # render_animation per path, and the device ops of each stage.
@@ -1563,22 +2031,38 @@ def main() -> int:
             _, _, ms = traced_kernel_ms(
                 (key,), lambda: [kern(*prep_k, w, h) for _ in range(reps)])
             results[key]["ms"] = ms[key]
+        # K7 on the test scene's 1080p G-buffer: (key, light set, inputs).
+        light_runs = [(key, name, light_cases[name, key])
+                      for key in ("k7", "k7_bf16") for name in ("wide", "r2")]
+        for key, name, inputs in light_runs:
+            _, _, ms = traced_kernel_ms(
+                (key,), lambda: [light_of[key](*inputs) for _ in range(20)])
+            results[key]["ms" if name == "wide" else "ms_r2"] = ms[key]
         for label, r, keys, _, n in animations:
             events, window, kms = traced_kernel_ms(
                 keys, lambda r=r: r.render_animation(num_frames=n)[0].cpu())
-            for key in keys:
-                results[key]["anim_ms"] = kms[key]
+            for key in keys:  # the first path of a kernel is its main one
+                results[key].setdefault("anim_ms", kms[key])
             busy = busy_us(events)
             raster_us = sum(dur for name, _, dur in events
-                            if any(k in name for k in raster_kernels))
+                            if any(k in name for k in port_kernels))
             per_kernel = ", ".join(f"{k} {kms[k]:.4f}" for k in keys)
             print(f"  profiled render_animation({n}) {label}: "
                   f"{len(events) / n:.1f} device ops/frame, device busy "
-                  f"{busy / n / 1000.0:.4f} ms/frame (raster kernels "
+                  f"{busy / n / 1000.0:.4f} ms/frame (port kernels "
                   f"{raster_us / n / 1000.0:.4f}; {per_kernel} ms a "
                   f"launch), idle share {1.0 - busy / window:.4f} of "
                   f"{window / n / 1000.0:.4f} ms/frame traced (host slowed "
                   f"by the profiler)")
+        n = CONFIG4_FRAMES
+        events, window, kms = traced_kernel_ms(
+            ("k4",), lambda: config4(r_k4, n)[0].cpu())
+        busy = busy_us(events)
+        print(f"  profiled config 4 ({n} frames + the first): "
+              f"{len(events) / n:.1f} device ops/frame, device busy "
+              f"{busy / n / 1000.0:.4f} ms/frame (K4 {kms['k4']:.4f} ms a "
+              f"launch), idle share {1.0 - busy / window:.4f} of "
+              f"{window / n / 1000.0:.4f} ms/frame traced")
 
         # Stage breakdowns: one test-scene frame (K1) and one 1M-lattice
         # frame (K4).
@@ -1613,6 +2097,7 @@ def main() -> int:
         }
         stages.update(lit_stages())
         stages.update(shadow_stages())
+        stages.update(deferred_stages())
         stage_events = {name: device_trace(fn)[0]
                         for name, (fn, _) in stages.items()}
 
@@ -1635,6 +2120,19 @@ def main() -> int:
                   f"{dev_ms:.4f} ms/frame (CUDA events), "
                   f"{1000.0 / dev_ms:.1f} FPS; host clock {wall:.4f} "
                   f"ms/frame incl. digest read; digest {d[0]:.6e}")
+        config4(r_k4, CONFIG4_FRAMES)[0].cpu()  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        digest = config4(r_k4, CONFIG4_FRAMES)[0]
+        end.record()
+        end.synchronize()
+        ms4 = start.elapsed_time(end) / CONFIG4_FRAMES
+        print(f"  config 4 {WIDTH}x{HEIGHT} (lattice1M, K4 + "
+              f"taa_resolve_packed): {ms4:.4f} ms/frame (CUDA events over "
+              f"{CONFIG4_FRAMES} frames and the seeding frame, divided by "
+              f"{CONFIG4_FRAMES} as benchmarks/config4.py does), "
+              f"{1000.0 / ms4:.1f} FPS; digest {digest.item():.6e}")
         for name, (fn, reps) in stages.items():
             ev = stage_events[name]
             print(f"  stage {name}: {event_ms(fn, reps):.4f} ms/call "
@@ -1668,22 +2166,49 @@ def main() -> int:
                   f"{res['wrapper_ms']:.4f} ms/call (CUDA events); plain "
                   f"version {res['plain_ms']:.4f} ms/call at "
                   f"{res['plain_shape']} (CUDA events)")
+        for key, name, inputs in light_runs:
+            res = results[key]
+            sfx = "" if name == "wide" else "_r2"
+            wrapper = event_ms(lambda: light_of[key](*inputs), 20)
+            pairs, evals, _ = light_work(inputs)
+            mask = inputs[1]
+            nbytes = (sum(t.numel() * t.element_size() for t in inputs)
+                      + 3 * 4 * mask.numel())
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = evals * OPS_PER_LIGHT / CUDA_CORE_OPS_PER_S * 1e3
+            res.update({f"bound_ms{sfx}": max(t_bytes, t_ops),
+                        f"bound_by{sfx}": ("bytes" if t_bytes >= t_ops
+                                           else "operations"),
+                        f"pairs{sfx}": pairs, f"evals{sfx}": evals,
+                        f"wrapper_ms{sfx}": wrapper})
+            res["shape"] = res["plain_shape"] = "test scene, wide lights"
+            print(f"  {key} test scene, {name} lights {PAD_W}x{PAD_H}: "
+                  f"kernel {res['ms' + sfx]:.4f} ms device time (profiler), "
+                  f"launcher {wrapper:.4f} ms/call (CUDA events); plain "
+                  f"version {res['plain_ms' + sfx]:.4f} ms/call (CUDA "
+                  f"events); {pairs} light-tile pairs, {evals} evaluations "
+                  f"x {OPS_PER_LIGHT} ops -> {t_ops:.4f} ms; {nbytes} bytes "
+                  f"-> {t_bytes:.4f} ms; bound {res['bound_ms' + sfx]:.4f} "
+                  f"ms by {res['bound_by' + sfx]}")
 
     # -- 7. app -----------------------------------------------------------
     @phase("7 app")
     def app():
-        for scene_dir, pipeline in ((SCENE_DIR, "flat"),
-                                    (SHOWCASE_DIR, "lit"),
-                                    (SCENE_DIR, "shadowed")):
+        for scene_dir, pipeline, extra in ((SCENE_DIR, "flat", []),
+                                           (SHOWCASE_DIR, "lit", []),
+                                           (SCENE_DIR, "shadowed", []),
+                                           (SCENE_DIR, "deferred", []),
+                                           (SCENE_DIR, "deferred", ["--taa"])):
             with tempfile.TemporaryDirectory() as tmp:
                 rc = app_main(["--scene", scene_dir, "--width", str(WIDTH),
                                "--height", str(HEIGHT), "--frames", "2",
                                "--out", tmp, "--device", DEVICE,
-                               "--pipeline", pipeline])
+                               "--pipeline", pipeline, *extra])
                 img = read_png(os.path.join(tmp, "frame_0001.png"))
             cov = (img[..., :3].astype(np.int32).sum(-1) > 0).mean()
-            print(f"  app {os.path.basename(scene_dir)} {pipeline}: rc={rc}, "
-                  f"frame_0001.png {img.shape} coverage={cov:.4f}")
+            print(f"  app {os.path.basename(scene_dir)} {pipeline} "
+                  f"{' '.join(extra)}: rc={rc}, frame_0001.png {img.shape} "
+                  f"coverage={cov:.4f}")
             if (rc != 0 or img.shape[:2] != (HEIGHT, WIDTH)
                     or cov <= MIN_COVERAGE):
                 raise AssertionError("app frame missing or empty")
@@ -1706,20 +2231,27 @@ def main() -> int:
         "k4g": ("raster_binned.cu", 2334), "k5g": ("raster_hier.cu", 717),
         "k6g": ("raster_binned.cu", 1554), "k2d": ("raster_small.cu", 2970),
         "k3d": ("raster_hier.cu", 895), "k4d": ("raster_binned.cu", 2365),
-        "k6d": ("raster_binned.cu", 1582)}
+        "k6d": ("raster_binned.cu", 1582),
+        "k7": ("light_tiled.cu", "zrenderer_tpu/ops/light_kernel.py:227"),
+        "k7_bf16": ("light_tiled.cu",
+                    "zrenderer_tpu/ops/light_kernel.py:227")}
     kernels = []
     for key, (src, line) in sources.items():
         res = results[key]
+        if isinstance(line, int):
+            line = f"zrenderer_tpu/ops/raster_pallas.py:{line}"
         kernels.append({
             "name": key, "route": "cuda",
             "source": f"zrenderer_tpu_torch/csrc/{src}",
-            "replaces": f"zrenderer_tpu/ops/raster_pallas.py:{line}",
+            "replaces": line,
             "launches": counts[key], "max_abs_err": res["err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": None, "ms_render_animation": res["anim_ms"],
             "shape": res["shape"],
-            "plain_shape": res["plain_shape"], "pairs": res["pairs"]})
+            "plain_shape": res["plain_shape"], "pairs": res["pairs"],
+            **{k: v for k, v in res.items()
+               if k.endswith("_r2") or k == "evals"}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

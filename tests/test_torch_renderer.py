@@ -234,10 +234,12 @@ def test_frame_stats_line():
 
 
 def test_config_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RenderConfig(pipeline="deferred")
-    for pipeline in ("lit", "shadowed"):
+    with pytest.raises(ValueError, match="unknown pipeline"):
+        RenderConfig(pipeline="forward_plus")
+    for pipeline in ("lit", "shadowed", "deferred"):
         assert RenderConfig(pipeline=pipeline).pipeline == pipeline
+    with pytest.raises(ValueError, match="lighting_planes"):
+        RenderConfig(pipeline="deferred", lighting_planes="f16")
     for size in (96, 160, 1000, 0):  # not a multiple of both 32 and 128
         with pytest.raises(ValueError, match="shadow_size"):
             RenderConfig(pipeline="shadowed", shadow_size=size)

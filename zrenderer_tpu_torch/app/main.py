@@ -1,15 +1,18 @@
-"""Headless renderer application, flat, lit and shadowed pipelines
-(counterpart of ``zrenderer_tpu/app/main.py``).
+"""Headless renderer application, flat, lit, shadowed and deferred
+pipelines, with optional TAA (counterpart of ``zrenderer_tpu/app/main.py``).
 
 Loads a scene folder (scene.bin + meshes.bin), prints the scene outliner,
 renders frames on the chosen device and writes them as PNGs:
 
     python -m zrenderer_tpu_torch.app.main --scene content/scenes/test_scene \
         --width 1920 --height 1080 --frames 60 --out out/ --device cuda \
-        [--pipeline lit|shadowed]
+        [--pipeline lit|shadowed|deferred] [--taa]
 
 The lit and shadowed pipelines bind the scene's TEXS textures (PNG) where
-it has them, else a 256x256 checkerboard.
+it has them, else a 256x256 checkerboard; the deferred pipeline lights the
+frame with the default point light.  ``--taa`` jitters each frame's
+projection by the 8-frame Halton sequence and resolves it into a history
+carried from frame to frame.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from zrenderer_tpu_torch.engine.textures import (
     checkerboard,
     textures_from_mesh_data,
 )
+from zrenderer_tpu_torch.ops import taa
 from zrenderer_tpu_torch.ops.raster import BINNINGS
 from zrenderer_tpu_torch.scene.mesh import MeshData
 from zrenderer_tpu_torch.scene.scene import Scene
@@ -54,8 +58,12 @@ def main(argv=None) -> int:
                              "rows, record streaming above)")
     parser.add_argument("--pipeline", default="flat", choices=PIPELINES,
                         help="flat vertex color, lit (textured "
-                             "Blinn-Phong, one point light) or shadowed "
-                             "(directional shadow map with PCF)")
+                             "Blinn-Phong, one point light), shadowed "
+                             "(directional shadow map with PCF) or deferred "
+                             "(G-buffer + tiled GGX over point lights)")
+    parser.add_argument("--taa", action="store_true",
+                        help="temporal anti-aliasing (jitter + history "
+                             "resolve)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda, cuda:N or cpu")
     args = parser.parse_args(argv)
@@ -82,8 +90,17 @@ def main(argv=None) -> int:
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    jitters = taa.jitter_sequence(8) if args.taa else None
+    history = None
     for frame_i in range(args.frames):
-        renderer.render()
+        if args.taa:
+            color, depth = renderer.render(jitter=jitters[frame_i % 8])
+            if history is None:
+                history = taa.taa_init_history(color)
+            history, resolved = taa.taa_resolve(history, color)
+            renderer._pending = (resolved, depth)
+        else:
+            renderer.render()
         if args.out:
             img, _depth = renderer.read_frame()
             write_png(os.path.join(args.out, f"frame_{frame_i:04d}.png"), img)

@@ -1,4 +1,5 @@
-"""Renderer configuration for the port's flat, lit and shadowed pipelines.
+"""Renderer configuration for the port's flat, lit, shadowed and deferred
+pipelines.
 
 Counterpart of ``zrenderer_tpu/engine/config.py``, with the fields those
 paths read.  Options whose passes are not ported yet raise
@@ -12,7 +13,8 @@ from dataclasses import dataclass, replace
 
 from zrenderer_tpu_torch.ops.raster import TILE_H, TILE_W
 
-PIPELINES = ("flat", "lit", "shadowed")
+PIPELINES = ("flat", "lit", "shadowed", "deferred")
+LIGHTING_PLANES = ("f32", "bf16")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -23,9 +25,9 @@ def _round_up(x: int, m: int) -> int:
 class RenderConfig:
     width: int = 1920
     height: int = 1080
-    # "flat" (config 0), "lit" (config 1, textured Blinn-Phong) or
-    # "shadowed" (config 2, directional shadow map + PCF); deferred is
-    # ROADMAP Queue 1 item 9.
+    # "flat" (config 0), "lit" (config 1, textured Blinn-Phong),
+    # "shadowed" (config 2, directional shadow map + PCF) or "deferred"
+    # (config 3, G-buffer + tiled GGX over many point lights, K7).
     pipeline: str = "flat"
     # Raster binning (ops/raster.select_raster; the lit pipeline's G-buffer
     # dispatch, select_gbuffer_raster, differs above and with tile_lists).
@@ -46,6 +48,9 @@ class RenderConfig:
     shadow_slope_bias: float = 3e-3
     pcf_taps: int = 1
     shadow_lookup_stride: int = 1
+    # The deferred pipeline's G-buffer planes as K7 reads them: "f32", or
+    # "bf16" (half the bytes; the BRDF math and the sums stay f32).
+    lighting_planes: str = "f32"
     # The kernels and the lit tonemap resolve uncovered pixels to (0, 0, 0,
     # 255): the default clear color is the only one the port produces.
     clear_color: tuple = (0.0, 0.0, 0.0, 1.0)
@@ -64,10 +69,11 @@ class RenderConfig:
 
     def __post_init__(self):
         if self.pipeline not in PIPELINES:
-            raise NotImplementedError(
-                f"pipeline {self.pipeline!r}: only {PIPELINES} are ported "
-                "(deferred: ROADMAP.md Queue 1 item 9)"
-            )
+            raise ValueError(
+                f"unknown pipeline {self.pipeline!r}: one of {PIPELINES}")
+        if self.lighting_planes not in LIGHTING_PLANES:
+            raise ValueError(f"lighting_planes {self.lighting_planes!r}: one "
+                             f"of {LIGHTING_PLANES}")
         if self.supersample != 1:
             raise NotImplementedError(
                 "supersample != 1: SSAA is not ported (ROADMAP.md Queue 1 "

@@ -1,6 +1,7 @@
-"""Render-pass composition of the lit and shadowed pipelines (counterpart
-of ``_gbuffer``, ``_depth_only``, ``_sample_albedo``, ``build_lit_frame``
-and ``build_shadowed_frame`` in ``zrenderer_tpu/engine/passes.py``).
+"""Render-pass composition of the lit, shadowed and deferred pipelines
+(counterpart of ``_gbuffer``, ``_depth_only``, ``_sample_albedo``,
+``build_lit_frame``, ``build_shadowed_frame`` and ``build_deferred_frame``
+in ``zrenderer_tpu/engine/passes.py``).
 
 ``build_lit_frame`` returns the frame function of BASELINE config 1:
 G-buffer raster (``raster.render_gbuffer``: K2g, K3g, K4g, K5g or K6g),
@@ -9,15 +10,21 @@ emissive and the u8 tonemap.  ``build_shadowed_frame`` returns that of
 config 2: a depth-only pass from a directional light into a square shadow
 map (``raster.render_depth``: K2d, K3d, K4d, K6d or K5's depth plane),
 the same G-buffer and sampling, PCF shadowing, N.L diffuse with ambient
-0.10, emissive and the tonemap.  Everything runs on the device of the
-buffers it is given.
+0.10, emissive and the tonemap.  ``build_deferred_frame`` returns that
+of config 3: the G-buffer, albedo from the vertex colour alone (no
+texture), the world position, the tiled GGX light kernel K7 over many
+point lights (``light_kernel.tiled_light`` on the padded planes),
+emissive and the tonemap.  Everything runs on the device of the buffers
+it is given.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from zrenderer_tpu_torch.ops import raster, sampling, shading
+from zrenderer_tpu_torch.ops.light_kernel import light_inputs, tiled_light
 
 F32 = torch.float32
 
@@ -135,5 +142,61 @@ def build_shadowed_frame(width: int, height: int, pad_height: int,
                         + ndotl * lit_mask[..., None] * light_color)
         rgb = rgb + torch.stack([emr, emg, emb], dim=-1)
         return shading.tonemap_and_pack(rgb, covered), depth, shadow_depth
+
+    return frame
+
+
+def deferred_light_inputs(gbuffer, world, cam_pos, view_proj, light_pos,
+                          light_color, width: int, height: int,
+                          pad_height: int, pad_width: int,
+                          plane_dtype=F32):
+    """K7's inputs from the cropped G-buffer planes (``_gbuffer``) and the
+    world position: albedo (vertex colour / 255, no texture), normal,
+    world, coverage, metallic and roughness, padded with zeros back to the
+    (pad_height, pad_width) raster target as the reference pads them, so
+    the light bounds use the padded size.  Returns
+    ``light_kernel.light_inputs``' (planes, mask, bounds, lights,
+    consts)."""
+    rgba, depth, _, _, nx, ny, nz, met, rgh = gbuffer[:9]
+
+    def pad(x):
+        # (H, W, ...) -> (pad_height, pad_width, ...), zeros after.
+        tail = (0, 0) * (x.dim() - 2)
+        return F.pad(x, tail + (0, pad_width - width, 0, pad_height - height))
+
+    albedo = rgba[..., :3].to(F32) / shading._const(depth, 255.0)
+    normal = torch.stack([nx, ny, nz], dim=-1)
+    return light_inputs(pad(albedo), pad(normal), pad(world),
+                        pad(depth < 1.0), cam_pos, light_pos, light_color,
+                        view_proj, roughness=pad(rgh), metallic=pad(met),
+                        plane_dtype=plane_dtype)
+
+
+def build_deferred_frame(width: int, height: int, pad_height: int,
+                         pad_width: int, lighting_planes: str = "f32",
+                         binning: str = "auto"):
+    """Config 3: deferred G-buffer + GGX lighting with many point lights.
+
+    The returned ``frame(b, matrices, normal_mats, inv_view_proj, cam_pos,
+    view_proj, light_pos, light_color)`` gives (rgba u8 (H, W, 4), depth
+    (H, W)); light_pos/light_color are (L, 3).  Per-pixel metallic and
+    roughness from the G-buffer drive the BRDF; K7 lights the padded
+    planes (``deferred_light_inputs``), its output is cropped, and emissive
+    adds after the light loop."""
+    plane_dtype = torch.bfloat16 if lighting_planes == "bf16" else F32
+
+    def frame(b, matrices, normal_mats, inv_view_proj, cam_pos, view_proj,
+              light_pos, light_color):
+        g = _gbuffer(b, matrices, normal_mats, width, height, pad_height,
+                     pad_width, binning)
+        depth = g[1]
+        world = shading.reconstruct_world_pos(depth, inv_view_proj, width,
+                                              height)
+        inputs = deferred_light_inputs(g, world, cam_pos, view_proj,
+                                       light_pos, light_color, width, height,
+                                       pad_height, pad_width, plane_dtype)
+        rgb = tiled_light(*inputs).permute(1, 2, 0)[:height, :width]
+        rgb = rgb + torch.stack(g[9:12], dim=-1)
+        return shading.tonemap_and_pack(rgb, depth < 1.0), depth
 
     return frame

@@ -1,4 +1,4 @@
-"""The Renderer, flat, lit and shadowed pipelines (counterpart of
+"""The Renderer, flat, lit, shadowed and deferred pipelines (counterpart of
 ``zrenderer_tpu/engine/renderer.py``).
 
 * ``load_scene`` flattens the scene once (the lit pipelines fold material
@@ -8,8 +8,8 @@
   for the shadow pass's light frustum.
 * ``set_environment`` binds the lit pipelines' texture (a Texture, or
   per-material textures stacked into a TextureArray), the point light
-  (lit) and the directional light (shadowed); the atlas is uploaded once
-  here.
+  (lit), the directional light (shadowed) and the point-light array
+  (deferred); the atlas and the lights are uploaded once here.
 * ``render`` computes the per-frame constants on the host (object_to_clip
   matrices; for lit also normal matrices, the inverse view-projection and
   the camera position), stages them in the pinned upload ring, copies them
@@ -23,13 +23,15 @@
   frustum fitted to the transformed draw bounds (``_light_view_proj``),
   the depth-only pass (``raster.select_depth_raster``: K2d, K3d, K4d, K6d
   or K5's depth plane) and PCF, and keeps the frame's shadow map in
-  ``_shadow_map``.  It returns before the device is done;
+  ``_shadow_map``.  Deferred (``passes.build_deferred_frame``) takes the
+  G-buffer, the world position and the tiled light kernel K7 over the
+  light array.  ``jitter`` offsets the camera's projection by a sub-pixel
+  TAA offset (``ops/taa.py``).  It returns before the device is done;
   ``present`` paces the host to ``frames_in_flight`` frames ahead with
   CUDA events, ``read_frame`` copies the newest frame back.
 * ``render_animation`` renders N frames back to back with no host sync
   inside the loop, reducing each frame to a digest: flat frames as padded
-  packed planes, lit and shadowed frames as the u8 sum of the visible
-  frame.
+  packed planes, the other pipelines' as the u8 sum of the visible frame.
 
 Everything runs on the one explicit ``device``; ``device="cuda"`` on a
 host without a card raises.
@@ -64,6 +66,7 @@ from zrenderer_tpu_torch.ops.geometry import (
     MATERIAL_COLS,
     view_proj_from_camera,
 )
+from zrenderer_tpu_torch.ops.taa import jittered_view_proj
 
 log = logging.getLogger("zrenderer_torch.engine")
 
@@ -137,10 +140,12 @@ class Renderer:
     def set_environment(self, texture=None, light_pos=(4.0, 8.0, 6.0),
                         light_color=(1.0, 1.0, 1.0), textures=None,
                         material_textures=None,
-                        light_dir=(-0.5, -1.0, -0.35)):
+                        light_dir=(-0.5, -1.0, -0.35), lights=None):
         """Bind the lit pipelines' resources: a Texture (None: 1x1 white),
-        one point light (lit) and one directional light (shadowed:
-        ``light_dir`` points from the light, normalized here).
+        one point light (lit), one directional light (shadowed:
+        ``light_dir`` points from the light, normalized here) and a light
+        array (deferred: ``lights=(positions (L, 3), colors (L, 3))``;
+        None: the one point light).
 
         Per-draw textures: ``textures`` (same-size Textures, stacked into a
         TextureArray with an all-white layer appended) plus
@@ -176,6 +181,11 @@ class Renderer:
         d = np.asarray(light_dir, np.float32)
         self.light_dir = d / np.linalg.norm(d)  # host f32, for the frustum
         self._light_dir_dev = torch.from_numpy(self.light_dir).to(self.device)
+        if lights is None:
+            lights = ([light_pos], [light_color])
+        self.lights = tuple(
+            torch.tensor(np.asarray(x, np.float32).reshape(-1, 3),
+                         device=self.device) for x in lights)
         self._static_light_vp = None  # the frustum depends on light_dir
         if self.flat is not None:
             self._upload_material_table()
@@ -232,6 +242,12 @@ class Renderer:
                 self.set_environment()
             tex = self.texture
             key += (tuple(tex.base_shape), tex.num_levels, tex.num_layers)
+            if cfg.pipeline == "deferred":
+                return self.pipelines.get_or_create(
+                    key, lambda: passes.build_deferred_frame(
+                        cfg.width, cfg.height, cfg.pad_height, cfg.pad_width,
+                        lighting_planes=cfg.lighting_planes,
+                        binning=cfg.binning))
             args = (cfg.width, cfg.height, cfg.pad_height, cfg.pad_width, tex)
             if cfg.pipeline == "lit":
                 return self.pipelines.get_or_create(
@@ -258,27 +274,40 @@ class Renderer:
 
         return self.pipelines.get_or_create(key, build)
 
-    def camera_matrices(self, camera=None, transforms=None) -> np.ndarray:
-        """Host-side per-frame constants: object_to_clip per draw.
-        ``transforms``: optional (D, 4, 4) node_to_world overrides."""
+    def _view_proj(self, camera=None, jitter=None) -> np.ndarray:
+        """The camera's view-projection, offset by ``jitter`` (jx, jy)
+        pixels (the TAA sub-pixel offset) when given."""
         camera = camera if camera is not None else self.scene.active_camera
         vp = view_proj_from_camera(camera, self.config.width,
                                    self.config.height)
+        if jitter is not None:
+            vp = jittered_view_proj(vp, jitter, self.config.width,
+                                    self.config.height)
+        return vp
+
+    def camera_matrices(self, camera=None, transforms=None,
+                        jitter=None) -> np.ndarray:
+        """Host-side per-frame constants: object_to_clip per draw.
+        ``transforms``: optional (D, 4, 4) node_to_world overrides;
+        ``jitter``: optional (jx, jy) sub-pixel TAA offset."""
+        vp = self._view_proj(camera, jitter)
         node_to_world = self.flat.node_to_world
         if transforms is not None:
             node_to_world = np.asarray(transforms, np.float32)
         return np.einsum("nij,jk->nik", node_to_world, vp).astype(np.float32)
 
-    def _lit_constants(self, camera=None, transforms=None) -> dict:
+    def _lit_constants(self, camera=None, transforms=None,
+                       jitter=None) -> dict:
         """Per-frame constants of the lit pipelines (host f32): per-draw
         object_to_clip matrices and normal matrices (inverse-transpose of
-        the node rotation), the inverse view-projection (inverted in f64)
-        for world-position reconstruction, and the camera position;
+        the node rotation), the view-projection and its inverse (inverted
+        in f64) for world-position reconstruction, and the camera position;
         shadowed adds the light's view-projection and the per-draw
-        object-to-light-clip matrices."""
+        object-to-light-clip matrices.  ``jitter`` offsets the camera's
+        view-projection, and so its inverse; the light's stays
+        unjittered."""
         camera = camera if camera is not None else self.scene.active_camera
-        vp = view_proj_from_camera(camera, self.config.width,
-                                   self.config.height)
+        vp = self._view_proj(camera, jitter)
         node_to_world = self.flat.node_to_world
         if transforms is not None:
             node_to_world = np.asarray(transforms, np.float32)
@@ -289,6 +318,7 @@ class Renderer:
         out = {
             "matrices": matrices,
             "normal_mats": normal_mats,
+            "view_proj": vp.astype(np.float32),
             "inv_view_proj": np.linalg.inv(
                 vp.astype(np.float64)).astype(np.float32),
             "cam_pos": np.asarray(camera.position, np.float32),
@@ -303,17 +333,28 @@ class Renderer:
 
     _LIT_KEYS = ("matrices", "normal_mats", "inv_view_proj", "cam_pos")
     _SHADOW_KEYS = _LIT_KEYS + ("light_matrices", "light_vp")
+    _DEFERRED_KEYS = _LIT_KEYS + ("view_proj",)
 
     def _constant_keys(self):
         """The per-frame constants the lit pipelines' frame takes, in its
         argument order."""
-        return (self._SHADOW_KEYS if self.config.pipeline == "shadowed"
-                else self._LIT_KEYS)
+        return {"shadowed": self._SHADOW_KEYS,
+                "deferred": self._DEFERRED_KEYS}.get(self.config.pipeline,
+                                                     self._LIT_KEYS)
+
+    def _textures(self):
+        """The frame's texture argument before the staged constants (the
+        deferred frame samples none)."""
+        if self.config.pipeline == "deferred":
+            return ()
+        return (self.texture.atlas_u32,)
 
     def _lights(self):
         """The frame's light arguments after the staged constants."""
         if self.config.pipeline == "shadowed":
             return self._light_dir_dev, self.light_color
+        if self.config.pipeline == "deferred":
+            return self.lights
         return self.light_pos, self.light_color
 
     def _light_view_proj(self, node_to_world=None) -> np.ndarray:
@@ -380,25 +421,26 @@ class Renderer:
             if event is not None:
                 event.synchronize()
 
-    def render(self, camera=None, transforms=None):
+    def render(self, camera=None, transforms=None, jitter=None):
         """Enqueue one frame; returns the device frame
-        (rgba (H, W, 4) u8, depth (H, W) f32) without waiting for it."""
+        (rgba (H, W, 4) u8, depth (H, W) f32) without waiting for it.
+        ``jitter``: optional (jx, jy) sub-pixel TAA offset."""
         if self.flat is None:
             raise RuntimeError("load_scene first")
         self._pace()
         frame = self._frame_fn()
         b = self._buffers()
         if self.config.pipeline != "flat":
-            c = self._lit_constants(camera, transforms)
+            c = self._lit_constants(camera, transforms, jitter)
             staged = self._stage_constants(
                 [c[k] for k in self._constant_keys()])
-            color, depth, *shadow = frame(b, self.texture.atlas_u32, *staged,
+            color, depth, *shadow = frame(b, *self._textures(), *staged,
                                           *self._lights())
             if shadow:
                 self._shadow_map = shadow[0]
         else:
             (matrices,) = self._stage_constants(
-                [self.camera_matrices(camera, transforms)])
+                [self.camera_matrices(camera, transforms, jitter)])
             color, depth = frame(b["corner_cols"], b["tri_node"], matrices)
         self._pending = (color, depth)
         self._in_flight.append(self._fence())
@@ -428,8 +470,8 @@ class Renderer:
         self._in_flight.clear()
         return out
 
-    def render_and_read(self, camera=None, transforms=None):
-        self.render(camera, transforms)
+    def render_and_read(self, camera=None, transforms=None, jitter=None):
+        self.render(camera, transforms, jitter)
         return self.read_frame()
 
     def finish_gpu_commands(self) -> None:
@@ -446,28 +488,30 @@ class Renderer:
             self._pending[0][0, 0].cpu()
 
     def render_animation(self, num_frames: int | None = None, cameras=None,
-                         transforms_seq=None):
+                         transforms_seq=None, jitters=None):
         """Render a frame sequence back to back on the device.
 
         Per-frame constants for all N frames are computed on the host and
         uploaded once; then every frame is rendered and reduced to a
         digest with no host sync in the loop: flat frames at the padded
         size as packed planes (``frame_digest``), then the presented frame
-        once more, cropped and unpacked; lit and shadowed frames as the
-        visible u8 frame (``rgba_digest``), the last one presented.  Returns
+        once more, cropped and unpacked; the other pipelines' frames as the
+        visible u8 frame (``rgba_digest``), the last one presented.
+        ``jitters``: optional (N, 2) sub-pixel TAA offsets.  Returns
         ``(digests (N,) f32, (color, depth))``; reading the digests is a
         true fence.
         """
         if self.flat is None:
             raise RuntimeError("load_scene first")
         if num_frames is None:
-            num_frames = (len(transforms_seq) if transforms_seq is not None
-                          else len(cameras))
+            num_frames = len(next(x for x in (transforms_seq, cameras, jitters)
+                                  if x is not None))
         cfg = self.config
 
         def per_frame(i):
             return (cameras[i] if cameras is not None else None,
-                    transforms_seq[i] if transforms_seq is not None else None)
+                    transforms_seq[i] if transforms_seq is not None else None,
+                    jitters[i] if jitters is not None else None)
 
         def upload(host):
             t = torch.from_numpy(np.ascontiguousarray(host))
@@ -486,7 +530,7 @@ class Renderer:
             b = self._buffers()
             for i in range(num_frames):
                 color, depth, *shadow = frame(
-                    b, self.texture.atlas_u32, *(x[i] for x in xs),
+                    b, *self._textures(), *(x[i] for x in xs),
                     *self._lights())
                 digests[i] = rgba_digest(color)
             if shadow:

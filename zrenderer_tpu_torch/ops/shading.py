@@ -1,7 +1,8 @@
-"""Shading of the lit and shadowed pipelines (counterpart of
+"""Shading of the lit, shadowed and deferred pipelines (counterpart of
 ``reconstruct_world_pos``, ``blinn_params_from_material``, ``blinn_phong``,
-``shadow_factor_pcf``, ``shadow_factor_pcf_strided`` and
-``tonemap_and_pack`` in ``zrenderer_tpu/ops/shading.py``).
+``ggx_shade_many_lights``, ``shadow_factor_pcf``,
+``shadow_factor_pcf_strided`` and ``tonemap_and_pack`` in
+``zrenderer_tpu/ops/shading.py``).
 
 Plain torch ops over (H, W, ...) G-buffer planes, as the reference leaves
 them to XLA.  Each expression keeps the reference's association; Python
@@ -43,16 +44,18 @@ def _dot(a, b):
             + a[..., 2] * b[..., 2])[..., None]
 
 
-def reconstruct_world_pos(depth_ndc, inv_view_proj, width: int, height: int):
+def reconstruct_world_pos(depth_ndc, inv_view_proj, width: int, height: int,
+                          row_offset: int = 0):
     """World position from the depth plane: pixel centres (j+0.5, i+0.5)
     to NDC, times the (4, 4) row-vector inverse view-projection, divided by
-    w.  Returns (H, W, 3)."""
+    w.  Returns (H, W, 3).  ``row_offset``: the global row of the plane's
+    first row, for a band of a ``height``-tall frame."""
     h, w = depth_ndc.shape
     dev = depth_ndc.device
     ix = torch.arange(w, dtype=F32, device=dev)[None, :].expand(h, w)
     iy = torch.arange(h, dtype=F32, device=dev)[:, None].expand(h, w)
     xs = (ix + 0.5) * _f32(2.0 / w) - 1.0
-    ys = 1.0 - (iy + 0.5) * _f32(2.0 / height)
+    ys = 1.0 - ((iy + 0.5) + float(row_offset)) * _f32(2.0 / height)
     m = inv_view_proj
     out = [((xs * m[0, j] + ys * m[1, j]) + depth_ndc * m[2, j]) + m[3, j]
            for j in range(4)]
@@ -94,6 +97,74 @@ def blinn_phong(albedo, normal, world_pos, cam_pos, light_pos, light_color,
     spec = specular * torch.pow(ndoth, shininess) * torch.sign(ndotl)
     return (_f32(ambient) * albedo
             + ((diffuse + spec) * light_color) * atten).to(F32)
+
+
+def _fresnel_schlick(vdoth, f0):
+    return f0 + (1.0 - f0) * torch.pow(torch.clamp(1.0 - vdoth, 0.0, 1.0),
+                                       5.0)
+
+
+def ggx_shade_many_lights(albedo, normal, world_pos, cam_pos, light_pos,
+                          light_color, metallic=0.0, roughness=0.4,
+                          ambient=0.03, chunk: int = 32):
+    """Cook-Torrance GGX with L point lights and no culling, in chunks of
+    ``chunk`` lights ((H, W, chunk, 3) broadcasts): the reference's XLA
+    shade, the merged form K7 evaluates per tile.  light_pos/light_color
+    (L, 3); metallic/roughness scalars or (H, W) planes.  Returns
+    (H, W, 3)."""
+    dev = albedo.device
+    n = normal / torch.clamp_min(_norm(normal), _f32(1e-8))
+    v = cam_pos - world_pos
+    v = v / torch.clamp_min(_norm(v), _f32(1e-8))
+    nv_raw = _dot(n, v)
+    ndotv = torch.clamp_min(nv_raw, _f32(1e-4))
+    shape = albedo.shape[:2]
+    metallic = torch.as_tensor(metallic, dtype=F32, device=dev).expand(
+        shape)[..., None]
+    roughness = torch.as_tensor(roughness, dtype=F32, device=dev).expand(
+        shape)[..., None]
+    met_l = metallic[..., None, :]
+    f0 = _f32(0.04) * (1.0 - metallic) + albedo * metallic
+    a = roughness * roughness
+    a2 = a * a
+    k = (roughness + 1.0) ** 2 / _const(roughness, 8.0)
+    gv = ndotv / (ndotv * (1.0 - k) + k)
+    cs = a2 * gv * 0.25 / ndotv
+    a2m1 = a2[..., None, :] - 1.0
+    k_l = k[..., None, :]
+    cs_l = cs[..., None, :]
+    pi = _const(albedo, np.pi)
+
+    num_lights = light_pos.shape[0]
+    if num_lights % chunk:
+        chunk = num_lights  # small light counts: one chunk
+    acc = torch.zeros_like(albedo)
+    for c in range(num_lights // chunk):
+        lpos = light_pos[c * chunk:(c + 1) * chunk]
+        lcol = light_color[c * chunk:(c + 1) * chunk]
+        lvec = lpos - world_pos[..., None, :]  # (H, W, chunk, 3)
+        dist2 = _dot(lvec, lvec)
+        inv_d = _const(dist2, 1.0) / torch.sqrt(
+            torch.clamp_min(dist2, _f32(1e-12)))
+        l = lvec * inv_d
+        nl_raw = _dot(n[..., None, :], l)
+        ndotl = torch.clamp_min(nl_raw, 0.0)
+        ldotv = _dot(v[..., None, :], l)
+        inv_h = _const(ldotv, 1.0) / torch.sqrt(
+            torch.clamp_min(2.0 + 2.0 * ldotv, _f32(1e-12)))
+        ndoth = torch.clamp_min((nl_raw + nv_raw[..., None, :]) * inv_h, 0.0)
+        vdoth = torch.clamp_min((1.0 + ldotv) * inv_h, 0.0)
+        dterm = ndoth * ndoth * a2m1 + 1.0
+        denom = torch.clamp_min(_f32(np.pi) * dterm * dterm, _f32(1e-8)) * (
+            ndotl * (1.0 - k_l) + k_l)
+        spec = cs_l / denom
+        f = _fresnel_schlick(vdoth, f0[..., None, :])
+        kd = (1.0 - f) * (1.0 - met_l)
+        radiance = lcol * (inv_d * inv_d)
+        contrib = (kd * albedo[..., None, :] / pi + f * spec) \
+            * radiance * ndotl
+        acc = acc + contrib.sum(dim=-2)
+    return (_f32(ambient) * albedo + acc).to(F32)
 
 
 def shadow_factor_pcf(shadow_depth, world_pos, light_view_proj,
