@@ -6,7 +6,7 @@
 Phases, in order, each printing its own lines and seconds:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
-2. build: the CUDA raster kernels from ``zrenderer_tpu_torch/csrc``;
+2. build: the CUDA kernels from ``zrenderer_tpu_torch/csrc``;
 3. K1 (small-scene binned raster) against its plain torch version on the
    card, bit-exact: the test scene at 1080p, a triangle soup with clipped
    fan rows, and exact depth ties between duplicated triangles;
@@ -42,8 +42,17 @@ Phases, in order, each printing its own lines and seconds:
     G-buffer of the test scene (padded to 1920x1088) with BASELINE config
     3's 256 "wide" and "r2" lights, random planes with lights behind the
     camera, random planes with tiles that list no light, and a band at
-    rows 544-799 of a 1088-row frame (``row_offset``); the plain calls on
-    the test scene give K7's plain_ms;
+    rows 544-799 of a 1088-row frame (``row_offset``), and 1500 wide
+    lights on random planes (the light list staged in two chunks); the
+    plain calls on the test scene give K7's plain_ms;
+4o. the overlay kernels, K8 (layered raster) and K8b (atlas composite),
+    against their plain versions: K8's count, overflow and 3K layer planes
+    bitwise as int32, then K8b's u8 frame on K8's planes and a random
+    frame: the OverlayUI (--overlay) and ImguiOverlay (--ui) draw lists of
+    the test scene at 1080p (the --ui calls give both plain_ms), the
+    reference test's busy draw list scaled to 1080p, a random soup of 4096
+    translucent triangles with scissors (some pixels deeper than K), the
+    overflow stack for K = 8 and 2, and a 1000x517 frame;
 5. the main path: ``Renderer.render_and_read`` at 1080p on the test scene
    (K1) and the lattice (K3), with the launch counts of that run, and the
    256x144 frame against the NumPy oracle (the port's geometry on CPU
@@ -93,6 +102,12 @@ Phases, in order, each printing its own lines and seconds:
     jittered flat frames; BASELINE config 4 on one card, the 1M lattice
     through K4 and ``taa_resolve_packed`` with the history carried over 8
     jittered frames, as ``benchmarks/config4.py`` composes them;
+5o. the overlay main path: the 1080p test-scene frame (K1) through
+    ``OverlayUI.compose`` and through ``ImguiOverlay.compose``, launch
+    counts set to 0 just before and read just after (K1, K8 and K8b once a
+    frame), each held against the port's CPU composite of the same frame
+    (count and overflow exact, u8 within 1 LSB), and the 160x96 frame
+    against ``tests/goldens/overlay_160x96.png`` within 1 LSB;
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape, and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
@@ -113,8 +128,15 @@ Phases, in order, each printing its own lines and seconds:
    shading plus tonemap, digest) and the deferred test scene (geometry,
    prepare, K2g, crop, world position, K7's prepass of planes and light
    bounds, K7, emissive plus tonemap, digest), and config 4's ms/frame;
+   K8 and K8b on the --ui draw list at 1080p, and one app frame of the
+   test scene without and with --overlay and --ui (device ops, busy ms,
+   idle share from a trace; ms/frame on the host clock, read-back
+   included);
 7. the app CLI writing PNGs: the test scene flat, shadowed, deferred and
-   deferred with ``--taa``, the showcase lit;
+   deferred with ``--taa``, the showcase lit; the test scene flat with
+   ``--overlay``, ``--orbit`` and ``--ui --orbit``, the showcase lit with
+   ``--ui`` (each UI frame against the same run without the UI flag; the
+   orbit's frames 0 and 1 differ);
 8. hygiene: neither jax nor the JAX package (``zrenderer_tpu``) loaded.
 
 Each kernel's bound is the larger of its inputs and outputs (2 planes
@@ -123,7 +145,13 @@ the (tile, triangle) pairs its frame needs, times 4096 pixels and
 OPS_PER_EVAL, at the CUDA-core rate.  K7's is the larger of its 11 planes,
 mask, bounds, lights and 3 output planes moved once and its (pixel,
 listed light) evaluations, each tile's light count times its covered
-pixels (uncovered pixels cost nothing), times OPS_PER_LIGHT.
+pixels (uncovered pixels cost nothing), times OPS_PER_LIGHT.  K8's is
+the larger of its rows read and its 2 + 3K planes written once and the
+draw list's (tile, triangle) pairs times 4096 pixels times
+OPS_PER_OVERLAY_EVAL plus its covered (pixel, triangle) times
+OPS_PER_OVERLAY_HIT; K8b's the larger of the frame, the count, the output
+and the live layers (12 bytes each) moved once and the live layers times
+OPS_PER_COMPOSITE_LAYER.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The second-to-last line is the kernels' JSON record, the last line
@@ -147,6 +175,8 @@ SHADOWED_GOLDEN = os.path.join(HERE, "tests", "goldens",
                                "shadowed_160x96.png")
 DEFERRED_GOLDEN = os.path.join(HERE, "tests", "goldens",
                                "deferred_160x96.png")
+OVERLAY_GOLDEN = os.path.join(HERE, "tests", "goldens",
+                              "overlay_160x96.png")
 TAA_GOLDEN = os.path.join(HERE, "tests", "goldens",
                           "taa_converged_160x96.png")
 
@@ -179,6 +209,18 @@ OPS_PER_EVAL = 26
 # spec 1, t/t2/t5 4, rad 2, 3 Fresnel of 2, 3 accumulations of 6, and
 # the 3 normalized light components: 81 float operations.
 OPS_PER_LIGHT = 81
+# K8, csrc/overlay.cu's triangle loop: every (pixel, triangle) of a listed
+# (tile, triangle) pair costs 3 edge functions (5 int ops each), 3 bias and
+# 4 rect compares and 6 ands (28); a covered pixel with a free slot adds 3
+# int -> float conversions, 6 interpolations of 5, 4 quantizations of 6
+# (clamp 2, mul, add, floor, convert), the 6-op pack, the slot select and
+# the count (65).  K8b, a live layer of a pixel: the sample's coordinates,
+# floors and fractions (10), 4 wraps of 3, 16 texel unpacks of 4, 4
+# channels' bilinear lerp of 9, the colour's 4 unpacks of 4 and the blend
+# (2 + 3 x 4): 152 ops.
+OPS_PER_OVERLAY_EVAL = 28
+OPS_PER_OVERLAY_HIT = 65
+OPS_PER_COMPOSITE_LAYER = 152
 
 # bench.py's parity threshold against the oracle at 256x144, and
 # RASTER_SPEC.md §5's full-pipeline depth bound.
@@ -200,6 +242,13 @@ TAP_MAX_LSB = 29
 # lights 256 lights at this size in seconds) and config 4's frames.
 DEFERRED_CPU_W, DEFERRED_CPU_H = 480, 270
 CONFIG4_FRAMES = 8
+# The overlay frame on the card against the port's CPU composite: both
+# round every op the same way (IEEE), so 0 LSB is expected; the limit is
+# the reference's own rule for one blended layer.  The 160x96 frame against
+# overlay_160x96.png, which XLA:CPU's contracted interpolation wrote
+# (tests/test_torch_overlay.py): 1 LSB.
+OVERLAY_MAX_LSB = 1
+OVERLAY_FRAMES = 20  # frames of the untraced overlay timing loops
 
 
 def phase(name):
@@ -225,7 +274,15 @@ def main() -> int:
 
     import numpy as np
 
+    from zrenderer_tpu_torch.app.draw_list import DrawList, padded_count
     from zrenderer_tpu_torch.app.main import main as app_main
+    from zrenderer_tpu_torch.app.main import scene_outliner
+    from zrenderer_tpu_torch.app.overlay_ui import (
+        ImguiOverlay,
+        OverlayUI,
+        atlas_on,
+    )
+    from zrenderer_tpu_torch.app.font import UIAtlas
     from zrenderer_tpu_torch.engine import passes
     from zrenderer_tpu_torch.engine.config import RenderConfig
     from zrenderer_tpu_torch.engine.renderer import (
@@ -245,6 +302,7 @@ def main() -> int:
     from zrenderer_tpu_torch.ops import (
         _build,
         light_kernel,
+        overlay,
         raster,
         sampling,
         shading,
@@ -273,10 +331,12 @@ def main() -> int:
     k4d, k6d = raster.depth_binned_kernel, raster.depth_lists_kernel
     k7, k7b = (light_kernel.tiled_light_kernel,
                light_kernel.tiled_light_bf16_kernel)
+    k8, k8b = overlay.overlay_raster_kernel, overlay.overlay_composite_kernel
     results = {key: {"err": 0.0}
                for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6",
                            "k2g", "k3g", "k4g", "k5g", "k6g",
-                           "k2d", "k3d", "k4d", "k6d", "k7", "k7_bf16")}
+                           "k2d", "k3d", "k4d", "k6d", "k7", "k7_bf16",
+                           "k8", "k8b")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -1016,6 +1076,175 @@ def main() -> int:
                                           baseline_lights("r2"),
                                           full_height=PAD_H),
                       row_offset=first)
+        # More lights than a block stages at once (MAX_LIGHTS = 1024):
+        # 1500 wide lights go through shared memory in two chunks.
+        rng = np.random.default_rng(9)
+        many = (rng.uniform([-6, 0.5, -6], [6, 6, 6], (1500, 3)).astype(
+                    np.float32),
+                rng.uniform(0.1, 1.0, (1500, 3)).astype(np.float32))
+        for key, planes in (("k7", torch.float32), ("k7_bf16",
+                                                    torch.bfloat16)):
+            compare_light(key, "random planes, 1500 wide lights (two "
+                          "chunks of the light list)",
+                          random_light_inputs(4, PAD_H // 2, PAD_W, many,
+                                              planes, full_height=PAD_H))
+        return main
+
+    # -- 4o. K8/K8b vs plain ----------------------------------------------
+    atlas_dev = atlas_on(UIAtlas(), dev)
+    stats_text = ("FPS: 60.0  CPU time: 16.667 ms  0.01 Mtri/s  0.12 Gpix/s"
+                  " | zrenderer-tpu-torch")
+
+    def ui_lines(scene):
+        """The --overlay panel's lines: a stats line and the outliner."""
+        return [stats_text] + scene_outliner(scene).split("\n")
+
+    def overlay_rows(dl, device=dev):
+        """A draw list's setup rows as the overlay pass takes them: padded
+        to its power-of-two size, on ``device``."""
+        ti, tf = dl.setup(padded_count(len(dl)))
+        return (torch.from_numpy(ti).to(device),
+                torch.from_numpy(tf).to(device))
+
+    def busy_list(w, h, s):
+        """tests/test_overlay_raster.py's busy draw list, its coordinates
+        times ``s``: overlapping translucent panels, a rotated textured
+        quad, scissored text, a circle and a line."""
+        dl = DrawList(w, h)
+        dl.add_rect_filled(4 * s, 4 * s, 70 * s, 40 * s, (0.1, 0.1, 0.3, 0.8))
+        dl.add_rect(4 * s, 4 * s, 70 * s, 40 * s, (0.4, 0.9, 0.4, 1.0),
+                    thickness=s)
+        dl.add_rect_filled(30 * s, 20 * s, 100 * s, 58 * s,
+                           (0.8, 0.2, 0.1, 0.5))
+        dl.add_quad_filled((80 * s, 8 * s), (110 * s, 20 * s),
+                           (98 * s, 50 * s), (68 * s, 38 * s),
+                           (1.0, 1.0, 0.2, 0.9),
+                           uvs=[(0.0, 0.0), (0.5, 0.0), (0.5, 0.5),
+                                (0.0, 0.5)])
+        dl.push_clip_rect(10 * s, 10 * s, 52 * s, 34 * s)
+        dl.add_text(12 * s, 12 * s, "HELLO 123", (0.0, 0.9, 0.0, 1.0),
+                    scale=2 * s)
+        dl.pop_clip_rect()
+        dl.add_circle_filled(100 * s, 45 * s, 12 * s, (0.2, 0.6, 0.9, 0.65),
+                             segments=12)
+        dl.add_line((0, 60 * s), (127 * s, 30 * s), (1.0, 0.3, 0.8, 0.7),
+                    thickness=2 * s)
+        return dl
+
+    def overlay_soup(seed, n, w, h):
+        """n translucent 2D triangles up to 300 px across, random uv and
+        colours (some outside [0, 1]), a third with random scissors (some
+        empty), as setup rows on the card."""
+        rng = np.random.default_rng(seed)
+        verts = np.zeros((n, 3, 8), np.float32)
+        centre = rng.uniform([-50, -50], [w + 50, h + 50], (n, 1, 2))
+        verts[..., 0:2] = centre + rng.uniform(-150, 150, (n, 3, 2))
+        verts[..., 2:4] = rng.uniform(-1, 2, (n, 3, 2))
+        verts[..., 4:8] = rng.uniform(-0.2, 1.2, (n, 3, 4))
+        verts[..., 7] *= 0.5
+        sc = np.tile(np.int32([0, 0, w, h]), (n, 1))
+        x0, y0 = rng.integers(-10, w, n), rng.integers(-10, h, n)
+        some = np.stack([x0, y0, x0 + rng.integers(-4, w, n),
+                         y0 + rng.integers(-4, h, n)], axis=1)
+        sc[::3] = some[::3]
+        ti, tf = overlay.setup_overlay_triangles(verts, sc, w, h)
+        return torch.from_numpy(ti).to(dev), torch.from_numpy(tf).to(dev)
+
+    def random_frame(seed, w, h):
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(0, 256, (h, w, 4),
+                                             dtype=np.uint8)).to(dev)
+
+    def timed(fn):
+        """(fn's result, its ms between CUDA events)."""
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        sync()
+        return out, start.elapsed_time(end)
+
+    def compare_overlay(label, ti, tf, w, h, K=overlay.DEFAULT_K,
+                        plain_shape=None):
+        """K8 vs its plain version on the same rows (count, overflow and
+        the 3K layer planes equal as int32 bits), then K8b vs its plain
+        version on K8's planes and a random frame (the u8 frames equal).
+        ``plain_shape``: record both plain calls' times as plain_ms."""
+        sync()
+        ck, ok_, lk = k8(ti, tf, w, h, K)
+        (cp, op, lp), ms8 = timed(
+            lambda: overlay.rasterize_overlay_plain(ti, tf, w, h, K))
+        same = all(torch.equal(a.contiguous().view(torch.int32),
+                               b.contiguous().view(torch.int32))
+                   for a, b in zip((ck, ok_, *lk), (cp, op, *lp)))
+        err = max((a - b).abs().max().item() for a, b in zip(lk[:2],
+                                                             lp[:2]))
+        frame = random_frame(seed=w + K, w=w, h=h)
+        outk = k8b(frame, ck, lk, atlas_dev, K)
+        outp, ms8b = timed(
+            lambda: overlay.composite_layers_plain(frame, cp, lp, atlas_dev,
+                                                   K))
+        same_b = torch.equal(outk, outp)
+        err_b = (outk.int() - outp.int()).abs().max().item()
+        if plain_shape is not None:
+            results["k8"].update(plain_ms=ms8, plain_shape=plain_shape)
+            results["k8b"].update(plain_ms=ms8b, plain_shape=plain_shape)
+        live = int(ck.sum().item())
+        changed = (outk[..., :3] != frame[..., :3]).any(-1).float().mean()
+        print(f"  {label}: {w}x{h} K={K} {ti.shape[0]} rows "
+              f"({int((ti[:, tg.I_VALID] > 0).sum().item())} live): K8 "
+              f"bit-exact={same} (max_abs_err {err}), K8b bit-exact={same_b}"
+              f" (max {err_b} LSB); max count {int(cp.max().item())}, "
+              f"pixels over K {int((op > 0).sum().item())}, live layers "
+              f"{live}, pixels whose colour changed {changed.item():.4f}",
+              flush=True)
+        if not (same and same_b):
+            raise AssertionError(f"{label}: K8/K8b and their plain versions "
+                                 "differ")
+        if live == 0:
+            raise AssertionError(f"{label}: nothing drawn proves nothing")
+        results["k8"]["err"] = max(results["k8"]["err"], float(err))
+        results["k8b"]["err"] = max(results["k8b"]["err"], float(err_b))
+        return cp, op
+
+    @phase("4o K8/K8b overlay kernels vs plain versions")
+    def overlay_cases():
+        scene = load_test_scene()[0]
+        main = {
+            "OverlayUI": overlay_rows(OverlayUI(WIDTH, HEIGHT, device=dev)
+                                      .draw_list(ui_lines(scene))),
+            "ImguiOverlay": overlay_rows(ImguiOverlay(
+                WIDTH, HEIGHT, device=dev).draw_list(stats_text, scene)),
+        }
+        for name, rows in main.items():
+            compare_overlay(f"{name} draw list of the test scene", *rows,
+                            WIDTH, HEIGHT,
+                            plain_shape=("--ui windows" if name ==
+                                         "ImguiOverlay" else None))
+        compare_overlay("busy draw list x15", *overlay_rows(
+            busy_list(WIDTH, HEIGHT, 15)), WIDTH, HEIGHT)
+        _, over = compare_overlay("random soup of 4096 translucent "
+                                  "triangles with scissors",
+                                  *overlay_soup(1, 4096, WIDTH, HEIGHT),
+                                  WIDTH, HEIGHT)
+        if int(over.max().item()) == 0:
+            raise AssertionError("the soup never overflows K")
+        for k in overlay.KERNEL_K:
+            dl = DrawList(WIDTH, HEIGHT)
+            for _ in range(k + 3):
+                dl.add_rect_filled(WIDTH // 10, HEIGHT // 10, WIDTH // 2,
+                                   HEIGHT // 2, (1.0, 1.0, 1.0, 0.1))
+            cnt, over = compare_overlay(f"overflow stack of {k + 3} rects",
+                                        *overlay_rows(dl), WIDTH, HEIGHT,
+                                        K=k)
+            i, j = HEIGHT * 3 // 10, WIDTH * 3 // 10
+            if (int(cnt[i, j].item()), int(over[i, j].item())) != (k, 3):
+                raise AssertionError("overflow stack: count K, overflow 3 "
+                                     "expected")
+        compare_overlay("random soup, not a tile multiple",
+                        *overlay_soup(2, 300, 1000, 517), 1000, 517)
         return main
 
     # -- 5. main path -----------------------------------------------------
@@ -1074,7 +1303,7 @@ def main() -> int:
     kernel_of = {"k1": k1, "k3": k3, "k4": k4, "k4_coarse": k4c, "k5": k5,
                  "k6": k6, "k2g": k2g, "k3g": k3g, "k4g": k4g, "k5g": k5g,
                  "k6g": k6g, "k2d": k2d, "k3d": k3d, "k4d": k4d, "k6d": k6d,
-                 "k7": k7, "k7_bf16": k7b}
+                 "k7": k7, "k7_bf16": k7b, "k8": k8, "k8b": k8b}
 
     def drive(label, scene_md, binning, key):
         """One frame through Renderer.render_and_read with every launch
@@ -1635,6 +1864,82 @@ def main() -> int:
                 or int(hist.min()) < 0 or int(hist.max()) > taa.FIXED_MAX):
             raise AssertionError("config 4 did not render through K4 + TAA")
 
+    # -- 5o. overlay main path ---------------------------------------------
+    def overlay_frames(r, ui_o, ui_i, lines):
+        """The app's overlay frames on the flat renderer ``r``: one frame
+        through OverlayUI.compose (--overlay), one through
+        ImguiOverlay.compose (--ui), each composited on the card and read
+        back.  Returns the two host frames."""
+        color, _ = r.render()
+        out_o = ui_o.compose(color, lines)
+        color, _ = r.render()
+        out_i = ui_i.compose(color, stats_text, r.scene)
+        return out_o, out_i
+
+    @phase("5o overlay main path")
+    def overlay_main():
+        scene = r_scene.scene
+        lines = ui_lines(scene)
+        ui_o = OverlayUI(WIDTH, HEIGHT, device=DEVICE)
+        ui_i = ImguiOverlay(WIDTH, HEIGHT, device=DEVICE)
+        for kern in kernel_of.values():
+            kern.launches = 0
+        out_o, out_i = overlay_frames(r_scene, ui_o, ui_i, lines)
+        launched = {k: kern.launches for k, kern in kernel_of.items()
+                    if kern.launches}
+        print(f"  test scene {WIDTH}x{HEIGHT}, one --overlay frame and one "
+              f"--ui frame: launches {launched}")
+        if launched != {"k1": 2, "k8": 2, "k8b": 2}:
+            raise AssertionError("each overlay frame must launch K1, K8 and "
+                                 "K8b once")
+        counts["k8"], counts["k8b"] = launched["k8"], launched["k8b"]
+
+        img, _ = r_scene.read_frame()
+        cpu = {"--overlay": (OverlayUI(WIDTH, HEIGHT, device="cpu"),
+                             lambda ui: ui.draw_list(lines),
+                             lambda ui: ui.compose(img, lines), out_o),
+               "--ui": (ImguiOverlay(WIDTH, HEIGHT, device="cpu"),
+                        lambda ui: ui.draw_list(stats_text, scene),
+                        lambda ui: ui.compose(img, stats_text, scene), out_i)}
+        for name, (ui, draw, compose, out) in cpu.items():
+            ref = compose(ui)
+            rows = overlay_rows(draw(ui), "cpu")
+            cnt_c, over_c, _ = overlay.rasterize_overlay(*rows, WIDTH, HEIGHT)
+            cnt_d, over_d, _ = overlay.rasterize_overlay(
+                *(x.to(dev) for x in rows), WIDTH, HEIGHT)
+            same_cnt = (torch.equal(cnt_d.cpu(), cnt_c)
+                        and torch.equal(over_d.cpu(), over_c))
+            lsb, over1 = lsb_diff(out, ref)
+            ui_share = (out[..., :3] != img[..., :3]).any(-1).mean()
+            print(f"  {name} frame, card vs the port's CPU composite: count "
+                  f"and overflow equal {same_cnt}, max {lsb} LSB, "
+                  f"{over1} px over 1 LSB, equal px "
+                  f"{(out == ref).all(-1).mean():.6f}, max count "
+                  f"{int(cnt_c.max().item())}, UI pixels {ui_share:.4f}")
+            if not same_cnt or lsb > OVERLAY_MAX_LSB:
+                raise AssertionError(f"{name}: card frame differs from the "
+                                     "CPU composite")
+            if ui_share <= 0.001:
+                raise AssertionError(f"{name}: no UI on the frame")
+
+        rg = Renderer(RenderConfig(width=160, height=96, tri_align=64),
+                      device=DEVICE)
+        rg.load_scene(*make_test_scene())
+        img_g, _ = rg.render_and_read()
+        out_g = OverlayUI(160, 96, device=DEVICE).compose(
+            img_g, ["zrenderer-tpu golden", "nodes: Cube, Cube.002"])
+        lsb, _ = lsb_diff(out_g, read_png(OVERLAY_GOLDEN))
+        print(f"  overlay 160x96 vs tests/goldens/overlay_160x96.png: max "
+              f"{lsb} LSB, "
+              f"{int((out_g != read_png(OVERLAY_GOLDEN)).any(-1).sum())} px "
+              "differ")
+        if lsb > OVERLAY_MAX_LSB:
+            raise AssertionError("overlay 160x96 frame differs from the "
+                                 "golden")
+        return ui_o, ui_i, lines
+
+    ui_o, ui_i, ui_text = overlay_main
+
     # -- 6. timing --------------------------------------------------------
     # A trace can hold a launch call without its kernel record, rarely
     # after a few untraced launches and in every trace after a million of
@@ -1704,8 +2009,10 @@ def main() -> int:
                     "k2d": "depth_small_kernel", "k3d": "depth_hier_kernel",
                     "k4d": "depth_records_kernel",
                     "k6d": "depth_lists_kernel",
-                    "k7": "light_tiled_kernel<float>",
-                    "k7_bf16": "light_tiled_kernel<__nv_bfloat16>"}
+                    "k7": "light_tiled_kernel<float,",
+                    "k7_bf16": "light_tiled_kernel<__nv_bfloat16,",
+                    "k8": "overlay_raster_kernel<8>",
+                    "k8b": "overlay_composite_kernel"}
     port_kernels = set(kernel_names.values())
 
     def traced_kernel_ms(keys, fn, attempts=3):
@@ -2038,6 +2345,46 @@ def main() -> int:
             _, _, ms = traced_kernel_ms(
                 (key,), lambda: [light_of[key](*inputs) for _ in range(20)])
             results[key]["ms" if name == "wide" else "ms_r2"] = ms[key]
+        # K8 and K8b on the --ui windows' draw list of the 1080p test
+        # scene, then one app frame of the test scene without and with the
+        # overlay (rendered, composited on the card, read back).
+        ov_rows = overlay_cases["ImguiOverlay"]
+        _, _, ms = traced_kernel_ms(
+            ("k8",), lambda: [k8(*ov_rows, WIDTH, HEIGHT) for _ in range(20)])
+        results["k8"]["ms"] = ms["k8"]
+        cnt8, over8, lay8 = k8(*ov_rows, WIDTH, HEIGHT)
+        frame8 = r_scene.render()[0]
+        _, _, ms = traced_kernel_ms(
+            ("k8b",), lambda: [k8b(frame8, cnt8, lay8, atlas_dev)
+                               for _ in range(20)])
+        results["k8b"]["ms"] = ms["k8b"]
+        def plain_frame():
+            r_scene.render()
+            return r_scene.read_frame()
+
+        app_frames = {
+            "without --overlay/--ui": (plain_frame, ()),
+            "--overlay": (lambda: ui_o.compose(r_scene.render()[0], ui_text),
+                          ("k8", "k8b")),
+            "--ui": (lambda: ui_i.compose(r_scene.render()[0], stats_text,
+                                          r_scene.scene), ("k8", "k8b")),
+        }
+        for label, (fn, keys) in app_frames.items():
+            if keys:
+                events, window, kms = traced_kernel_ms(keys, fn)
+                if label == "--ui":  # the kernels' main shape
+                    for key in keys:
+                        results[key]["anim_ms"] = kms[key]
+                per_kernel = ", ".join(f"{k} {kms[k]:.4f} ms" for k in keys)
+            else:
+                events, window = device_trace(fn)
+                per_kernel = "no overlay kernel"
+            busy = busy_us(events)
+            print(f"  profiled app frame {WIDTH}x{HEIGHT} test scene "
+                  f"{label}: {len(events)} device ops, device busy "
+                  f"{busy / 1000.0:.4f} ms ({per_kernel} a launch), idle "
+                  f"share {1.0 - busy / window:.4f} of "
+                  f"{window / 1000.0:.4f} ms traced (read-back included)")
         for label, r, keys, _, n in animations:
             events, window, kms = traced_kernel_ms(
                 keys, lambda r=r: r.render_animation(num_frames=n)[0].cpu())
@@ -2133,6 +2480,17 @@ def main() -> int:
               f"{CONFIG4_FRAMES} frames and the seeding frame, divided by "
               f"{CONFIG4_FRAMES} as benchmarks/config4.py does), "
               f"{1000.0 / ms4:.1f} FPS; digest {digest.item():.6e}")
+        for label, (fn, _) in app_frames.items():
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(OVERLAY_FRAMES):
+                fn()
+            sync()
+            ms = (time.perf_counter() - t0) * 1000.0 / OVERLAY_FRAMES
+            print(f"  app frame {WIDTH}x{HEIGHT} test scene {label}: "
+                  f"{ms:.4f} ms/frame (host clock over {OVERLAY_FRAMES} "
+                  f"frames, each read back)")
         for name, (fn, reps) in stages.items():
             ev = stage_events[name]
             print(f"  stage {name}: {event_ms(fn, reps):.4f} ms/call "
@@ -2191,27 +2549,84 @@ def main() -> int:
                   f"-> {t_bytes:.4f} ms; bound {res['bound_ms' + sfx]:.4f} "
                   f"ms by {res['bound_by' + sfx]}")
 
+        # K8 and K8b: bytes and operations of the --ui frame's inputs.
+        ti8, tf8 = ov_rows
+        hits = int((cnt8 + over8).sum().item())
+        live = int(cnt8.sum().item())
+        pairs = tile_pairs(ti8, WIDTH, HEIGHT)
+        pix = WIDTH * HEIGHT
+        planes8 = 2 + 3 * overlay.DEFAULT_K
+        bound_inputs = {
+            "k8": ((ti8.numel() + tf8.numel()) * 4 + planes8 * 4 * pix,
+                   pairs * raster.TILE_H * raster.TILE_W
+                   * OPS_PER_OVERLAY_EVAL + hits * OPS_PER_OVERLAY_HIT,
+                   lambda: k8(*ov_rows, WIDTH, HEIGHT)),
+            "k8b": ((4 + 4 + 4) * pix + 12 * live
+                    + atlas_dev.numel() * 4,
+                    live * OPS_PER_COMPOSITE_LAYER,
+                    lambda: k8b(frame8, cnt8, lay8, atlas_dev)),
+        }
+        results["k8"].update(pairs=pairs, covered=hits)
+        results["k8b"].update(live_layers=live)
+        for key, (nbytes, ops, fn) in bound_inputs.items():
+            res = results[key]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+            res.update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       shape="--ui windows, test scene",
+                       wrapper_ms=event_ms(fn, 20))
+            print(f"  {key} --ui windows {WIDTH}x{HEIGHT}: kernel "
+                  f"{res['ms']:.4f} ms device time (profiler; "
+                  f"{res['anim_ms']:.4f} ms a launch in the profiled --ui "
+                  f"frame), launcher {res['wrapper_ms']:.4f} ms/call (CUDA "
+                  f"events); plain version {res['plain_ms']:.4f} ms/call "
+                  f"(CUDA events); {pairs} (tile, triangle) pairs, {hits} "
+                  f"covered (pixel, triangle), {live} live layers; {ops:.4e} "
+                  f"ops -> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} "
+                  f"ms; bound {res['bound_ms']:.4f} ms by {res['bound_by']}")
+
     # -- 7. app -----------------------------------------------------------
     @phase("7 app")
     def app():
+        ui_flags = {"--overlay", "--ui"}
+        frames = {}
         for scene_dir, pipeline, extra in ((SCENE_DIR, "flat", []),
                                            (SHOWCASE_DIR, "lit", []),
                                            (SCENE_DIR, "shadowed", []),
                                            (SCENE_DIR, "deferred", []),
-                                           (SCENE_DIR, "deferred", ["--taa"])):
+                                           (SCENE_DIR, "deferred", ["--taa"]),
+                                           (SCENE_DIR, "flat", ["--overlay"]),
+                                           (SCENE_DIR, "flat", ["--orbit"]),
+                                           (SCENE_DIR, "flat",
+                                            ["--ui", "--orbit"]),
+                                           (SHOWCASE_DIR, "lit", ["--ui"])):
             with tempfile.TemporaryDirectory() as tmp:
                 rc = app_main(["--scene", scene_dir, "--width", str(WIDTH),
                                "--height", str(HEIGHT), "--frames", "2",
                                "--out", tmp, "--device", DEVICE,
                                "--pipeline", pipeline, *extra])
                 img = read_png(os.path.join(tmp, "frame_0001.png"))
+                first = read_png(os.path.join(tmp, "frame_0000.png"))
+            frames[scene_dir, pipeline, tuple(extra)] = img
             cov = (img[..., :3].astype(np.int32).sum(-1) > 0).mean()
+            moved = bool((img != first).any())
+            # The same run without the UI flag: the pixels the UI covers.
+            base = frames.get((scene_dir, pipeline, tuple(
+                f for f in extra if f not in ui_flags)))
+            ui_share = (float((img != base).any(-1).mean())
+                        if ui_flags & set(extra) else 0.0)
             print(f"  app {os.path.basename(scene_dir)} {pipeline} "
                   f"{' '.join(extra)}: rc={rc}, frame_0001.png {img.shape} "
-                  f"coverage={cov:.4f}")
+                  f"coverage={cov:.4f}, frames 0 and 1 differ {moved}, UI "
+                  f"pixels {ui_share:.4f}")
             if (rc != 0 or img.shape[:2] != (HEIGHT, WIDTH)
                     or cov <= MIN_COVERAGE):
                 raise AssertionError("app frame missing or empty")
+            if ui_flags & set(extra) and ui_share <= 0.001:
+                raise AssertionError("app frame lacks the UI")
+            if "--orbit" in extra and not moved:
+                raise AssertionError("--orbit did not move the camera")
 
     # -- 8. hygiene -------------------------------------------------------
     @phase("8 hygiene")
@@ -2234,7 +2649,9 @@ def main() -> int:
         "k6d": ("raster_binned.cu", 1582),
         "k7": ("light_tiled.cu", "zrenderer_tpu/ops/light_kernel.py:227"),
         "k7_bf16": ("light_tiled.cu",
-                    "zrenderer_tpu/ops/light_kernel.py:227")}
+                    "zrenderer_tpu/ops/light_kernel.py:227"),
+        "k8": ("overlay.cu", "zrenderer_tpu/ops/overlay_raster.py:328"),
+        "k8b": ("overlay.cu", "zrenderer_tpu/ops/overlay_raster.py:467")}
     kernels = []
     for key, (src, line) in sources.items():
         res = results[key]
@@ -2249,9 +2666,10 @@ def main() -> int:
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": None, "ms_render_animation": res["anim_ms"],
             "shape": res["shape"],
-            "plain_shape": res["plain_shape"], "pairs": res["pairs"],
+            "plain_shape": res["plain_shape"],
             **{k: v for k, v in res.items()
-               if k.endswith("_r2") or k == "evals"}})
+               if k.endswith("_r2") or k in ("pairs", "evals", "covered",
+                                              "live_layers")}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

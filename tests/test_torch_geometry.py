@@ -183,3 +183,64 @@ def test_compact_and_bounds_match_numpy(case):
 def test_block_bounds_rejects_unpadded_rows():
     with pytest.raises(ValueError):
         tg.block_bounds(torch.zeros((100, g.NI32), dtype=torch.int32))
+
+
+def _overflowing_soup():
+    """1400 triangles, 1200 of them with one corner pushed through the near
+    plane: past clip_cap_for(1400) = 1024 crossing triangles."""
+    scene, md = make_triangle_soup(1400, seed=5, extent=2.0)
+    v = md.vertex_data.reshape(-1, 16)
+    for t in range(1200):
+        v[3 * t, 2] += 15.0
+    return scene, md
+
+
+@pytest.mark.parametrize("clip_cap", ["auto", 64, 5000])
+def test_clip_overflow_count_matches_reference(clip_cap):
+    """The capped clipper's drop count, max(n_crossing - cap, 0), equals the
+    reference's column-mode clip_overflow_count and the cumsum the
+    pipeline selects its subset with."""
+    scene, md = _overflowing_soup()
+    flat = flatten_scene(scene, md, pad=True, tri_align=64)
+    w, h = 256, 128
+    vp = g.view_proj_from_camera(scene.active_camera, w, h)
+    mats = np.einsum("nij,jk->nik", flat.node_to_world, vp).astype(np.float32)
+    ccols, tri_node = flat.expand_corner_cols()
+    ref = int(g.clip_overflow_count(np, ccols, None, None, mats, tri_node, w,
+                                    h, clip_cap=clip_cap))
+    ours = tg.clip_overflow_count(torch.from_numpy(ccols),
+                                  torch.from_numpy(tri_node),
+                                  torch.from_numpy(mats), w, h,
+                                  clip_cap=clip_cap)
+    assert ours.dtype == torch.int32 and int(ours) == ref
+    assert tg.clip_cap_for(ccols.shape[1]) == 1024
+    if clip_cap == "auto":
+        assert ref > 0
+    if clip_cap == 5000:
+        assert ref == 0
+
+
+def test_debug_renderer_reports_and_raises_on_clip_drops():
+    from zrenderer_tpu_torch.engine.config import RenderConfig
+    from zrenderer_tpu_torch.engine.renderer import Renderer
+
+    scene, md = _overflowing_soup()
+    r = Renderer(RenderConfig(width=256, height=128), device="cpu")
+    r.load_scene(scene, md)
+    r.render()  # no debug layer: no check, no signal
+    assert r.stats.clip_dropped == 0
+    dropped = r.clip_overflow(r.camera_matrices())
+    assert dropped > 0
+    rd = Renderer(RenderConfig(width=256, height=128, debug=True),
+                  device="cpu")
+    rd.load_scene(scene, md)
+    with pytest.raises(RuntimeError, match=f"dropped {dropped} "):
+        rd.render()
+    assert rd.stats.clip_dropped == dropped
+    assert f"clip_dropped={dropped}" in rd.stats.format_line()
+    ok = Renderer(RenderConfig(width=256, height=128, debug=True,
+                               pipeline="lit"), device="cpu")
+    ok.load_scene(*_content_scene())
+    ok.render()  # nothing crosses a plane: no drop, no raise
+    assert ok.stats.clip_dropped == 0
+    assert "clip_dropped" not in ok.stats.format_line()

@@ -104,6 +104,13 @@ def test_zmath_matches_reference():
         (np.float32(zm.quat_to_euler(q0)),
          np.float32(ref_zm.quat_to_euler(q0))),
     ]
+    for pitch, yaw, roll in ((0.0, 0.0, 0.0), (0.3, -1.2, 0.0),
+                             (-1.5, 2.9, 0.7), (1.55, 0.7, -3.0)):
+        pairs.append((zm.quat_from_roll_pitch_yaw(pitch, yaw, roll),
+                      ref_zm.quat_from_roll_pitch_yaw(pitch, yaw, roll)))
+        axis = (v / np.linalg.norm(v)).astype(np.float32)
+        pairs.append((zm.quat_from_norm_axis_angle(axis, yaw),
+                      ref_zm.quat_from_norm_axis_angle(axis, yaw)))
     for ours, ref in pairs:
         assert ours.dtype == ref.dtype == np.float32
         np.testing.assert_array_equal(ours.view(np.int32), ref.view(np.int32))

@@ -1,27 +1,37 @@
 """Headless renderer application, flat, lit, shadowed and deferred
-pipelines, with optional TAA (counterpart of ``zrenderer_tpu/app/main.py``).
+pipelines, with optional TAA, UI overlay and camera orbit (counterpart of
+``zrenderer_tpu/app/main.py``).
 
 Loads a scene folder (scene.bin + meshes.bin), prints the scene outliner,
 renders frames on the chosen device and writes them as PNGs:
 
     python -m zrenderer_tpu_torch.app.main --scene content/scenes/test_scene \
         --width 1920 --height 1080 --frames 60 --out out/ --device cuda \
-        [--pipeline lit|shadowed|deferred] [--taa]
+        [--pipeline lit|shadowed|deferred] [--taa] [--overlay|--ui] [--orbit]
 
 The lit and shadowed pipelines bind the scene's TEXS textures (PNG) where
 it has them, else a 256x256 checkerboard; the deferred pipeline lights the
 frame with the default point light.  ``--taa`` jitters each frame's
 projection by the 8-frame Halton sequence and resolves it into a history
-carried from frame to frame.
+carried from frame to frame.  ``--overlay`` burns the stats line and the
+scene outliner into each frame as one panel, ``--ui`` as the imgui Stats
+and Scene Outliner windows: the frame is composited on the renderer's
+device (K8 and K8b on a card), read back, and written or dropped.
+``--orbit`` moves the camera on a turntable around the scene.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
 import sys
 
+import numpy as np
+
+from zrenderer_tpu_torch.app.camera import CameraController
+from zrenderer_tpu_torch.app.overlay_ui import ImguiOverlay, OverlayUI
 from zrenderer_tpu_torch.engine.config import PIPELINES, RenderConfig
 from zrenderer_tpu_torch.engine.renderer import Renderer
 from zrenderer_tpu_torch.engine.textures import (
@@ -64,6 +74,14 @@ def main(argv=None) -> int:
     parser.add_argument("--taa", action="store_true",
                         help="temporal anti-aliasing (jitter + history "
                              "resolve)")
+    parser.add_argument("--orbit", action="store_true",
+                        help="animate the camera on a turntable orbit")
+    parser.add_argument("--overlay", action="store_true",
+                        help="rasterize the stats/outliner overlay into "
+                             "frames")
+    parser.add_argument("--ui", action="store_true",
+                        help="the imgui-window UI (stats and scene outliner "
+                             "windows) instead of the simple overlay panel")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda, cuda:N or cpu")
     args = parser.parse_args(argv)
@@ -86,25 +104,52 @@ def main(argv=None) -> int:
         else:
             renderer.set_environment(
                 texture=Texture.from_array(checkerboard(256)))
+    orbit_ctl = None
+    if args.orbit:
+        orbit_ctl = CameraController(scene.active_camera)
+        orbit_radius = float(np.linalg.norm(scene.active_camera.position))
     print(scene_outliner(scene))
+
+    overlay = None
+    if args.ui:
+        overlay = ImguiOverlay(config.width, config.height,
+                               device=renderer.device)
+    elif args.overlay:
+        overlay = OverlayUI(config.width, config.height,
+                            device=renderer.device)
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     jitters = taa.jitter_sequence(8) if args.taa else None
     history = None
     for frame_i in range(args.frames):
+        if orbit_ctl is not None:
+            orbit_ctl.orbit((0.0, 0.5, 0.0), orbit_radius,
+                            azimuth=2 * math.pi * frame_i / max(args.frames, 1),
+                            elevation=0.35)
         if args.taa:
             color, depth = renderer.render(jitter=jitters[frame_i % 8])
             if history is None:
                 history = taa.taa_init_history(color)
-            history, resolved = taa.taa_resolve(history, color)
-            renderer._pending = (resolved, depth)
+            history, color = taa.taa_resolve(history, color)
+            renderer._pending = (color, depth)
         else:
-            renderer.render()
+            color, _depth = renderer.render()
+        img = None
+        if overlay is not None:
+            # Composited on the renderer's device, then read back.
+            line = renderer.stats.format_line()
+            if args.ui:
+                img = overlay.compose(color, line, scene)
+            else:
+                img = overlay.compose(
+                    color, [line] + scene_outliner(scene).split("\n"))
+            renderer.present()
         if args.out:
-            img, _depth = renderer.read_frame()
+            if img is None:
+                img, _depth = renderer.read_frame()
             write_png(os.path.join(args.out, f"frame_{frame_i:04d}.png"), img)
-        else:
+        elif img is None:
             renderer.present()  # fence pacing only; the frame stays on device
         if frame_i % 30 == 0 or frame_i == args.frames - 1:
             print(renderer.stats.format_line())

@@ -13,15 +13,19 @@
 //   consts  (4,) f32 camera x, y, z and ambient.
 // Output (3, H, W) f32: where(mask > 0, acc, 0) per channel.
 //
-// One block a 32x128 tile.  The block builds its light list once in
-// shared memory: each pass tests 256 lights' boxes against the tile (its
-// first row is tile_i * 32 + row_offset, global rows for a band) and
-// compacts the hits with a warp ballot and a per-warp prefix, so the list
-// keeps light-id order; the listed lights' position and colour are staged
+// One block a 32x128 tile.  The block builds its light list in shared
+// memory: each pass tests 256 lights' boxes against the tile (its first
+// row is tile_i * 32 + row_offset, global rows for a band) and compacts
+// the hits with a warp ballot and a per-warp prefix, so the list keeps
+// light-id order; the listed lights' position and colour are staged
 // beside it.  No (tiles, L) list leaves the block.  Then each of the 256
 // threads takes 16 pixels (one column, every second row), computes the
 // per-pixel prologue and loops the list; an uncovered pixel writes 0 at
-// once (the reference's where(mask, acc, 0) gives the same bits).
+// once (the reference's where(mask, acc, 0) gives the same bits).  More
+// than MAX_LIGHTS lights are taken in chunks of MAX_LIGHTS ids, one list
+// each, in id order: a pixel's sums are stored to `out` after a chunk and
+// reloaded for the next (the prologue is recomputed), so the order of the
+// adds, and the bits, do not depend on the chunking.
 //
 // Numerics: the bits of the plain version, tiled_light_plain.  Every
 // product, sum and difference is pinned with __fmul_rn/__fadd_rn/
@@ -56,7 +60,7 @@ constexpr int TILE_W = 128;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int PIX = TILE_H * TILE_W / THREADS;  // 16 pixels a thread
-constexpr int MAX_LIGHTS = 1024;  // light_kernel.MAX_LIGHTS
+constexpr int MAX_LIGHTS = 1024;  // a chunk (light_kernel.MAX_LIGHTS)
 
 // float32 of the reference's constants (hex, so no decimal rounding).
 constexpr float PI_F = 0x1.921fb6p+1f;       // jnp.pi
@@ -86,7 +90,10 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
-template <class T>
+// CHUNKED: more than MAX_LIGHTS lights, taken in chunks.  The one-chunk
+// instantiation keeps the sums in registers from the ambient term on, with
+// no read of `out`.
+template <class T, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
     light_tiled_kernel(const T* __restrict__ planes,
                        const int* __restrict__ mask,
@@ -106,137 +113,162 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  // The tile's light list in id order: ballot, then a per-warp prefix.
-  int count = 0;
-  for (int base = 0; base < num_lights; base += THREADS) {
-    const int l = base + threadIdx.x;
-    bool hit = false;
-    if (l < num_lights) {
-      const int* b = bounds + 4 * l;
-      hit = b[1] >= col0 && b[0] < col0 + TILE_W && b[3] >= row0 &&
-            b[2] < row0 + TILE_H;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int slot = count, total = 0;
-    for (int w = 0; w < WARPS; ++w) {
-      const int n = s_warp[w];
-      slot += w < warp ? n : 0;
-      total += n;
-    }
-    if (hit) {
-      slot += __popc(ballot & ((1u << lane) - 1u));
-      const float* src = lights + 6 * l;
-      s_lx[slot] = src[0];
-      s_ly[slot] = src[1];
-      s_lz[slot] = src[2];
-      s_cr[slot] = src[3];
-      s_cg[slot] = src[4];
-      s_cb[slot] = src[5];
-    }
-    count += total;
-    __syncthreads();  // s_warp is rewritten by the next pass
-  }
-
   const float cam_x = consts[0], cam_y = consts[1], cam_z = consts[2];
   const float ambient = consts[3];
   const size_t plane = (size_t)width * height;
   const int col = col0 + (threadIdx.x % TILE_W);
   const int r_first = threadIdx.x / TILE_W;
 
-  for (int k = 0; k < PIX; ++k) {
-    const int row = tile_i * TILE_H + r_first + k * (THREADS / TILE_W);
-    const size_t idx = (size_t)row * width + col;
-    if (!(mask[idx] > 0)) {
-      out[idx] = 0.0f;
-      out[plane + idx] = 0.0f;
-      out[2 * plane + idx] = 0.0f;
-      continue;
+  // The lights go through shared memory in chunks of MAX_LIGHTS, in id
+  // order; between chunks each pixel's sums wait in `out` (an exact f32
+  // round trip), so every pixel adds its tile's lights in id order
+  // whatever the chunking.
+  const int num_chunks =
+      CHUNKED ? (num_lights + MAX_LIGHTS - 1) / MAX_LIGHTS : 1;
+  for (int chunk = 0; chunk < num_chunks; ++chunk) {
+    const int first = chunk * MAX_LIGHTS;
+    const int last = min(first + MAX_LIGHTS, num_lights);
+
+    // The chunk's lists in id order: ballot, then a per-warp prefix.
+    int count = 0;
+    for (int base = first; base < last; base += THREADS) {
+      const int l = base + threadIdx.x;
+      bool hit = false;
+      if (l < last) {
+        const int* b = bounds + 4 * l;
+        hit = b[1] >= col0 && b[0] < col0 + TILE_W && b[3] >= row0 &&
+              b[2] < row0 + TILE_H;
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) s_warp[warp] = __popc(ballot);
+      __syncthreads();
+      int slot = count, total = 0;
+      for (int w = 0; w < WARPS; ++w) {
+        const int n = s_warp[w];
+        slot += w < warp ? n : 0;
+        total += n;
+      }
+      if (hit) {
+        slot += __popc(ballot & ((1u << lane) - 1u));
+        const float* src = lights + 6 * l;
+        s_lx[slot] = src[0];
+        s_ly[slot] = src[1];
+        s_lz[slot] = src[2];
+        s_cr[slot] = src[3];
+        s_cg[slot] = src[4];
+        s_cb[slot] = src[5];
+      }
+      count += total;
+      __syncthreads();  // s_warp is rewritten by the next pass
     }
-    const float ar = load(planes, idx);
-    const float ag = load(planes, plane + idx);
-    const float ab = load(planes, 2 * plane + idx);
-    float nx = load(planes, 3 * plane + idx);
-    float ny = load(planes, 4 * plane + idx);
-    float nz = load(planes, 5 * plane + idx);
-    const float wx = load(planes, 6 * plane + idx);
-    const float wy = load(planes, 7 * plane + idx);
-    const float wz = load(planes, 8 * plane + idx);
-    const float mv = load(planes, 9 * plane + idx);
-    const float rv = load(planes, 10 * plane + idx);
 
-    // Per-pixel prologue (_tiled_light_kernel :106-150).
-    const float inv_nlen = rsqrt_rn(vmax(dot3(nx, nx, ny, ny, nz, nz), EPS_LEN));
-    nx = mul(nx, inv_nlen);
-    ny = mul(ny, inv_nlen);
-    nz = mul(nz, inv_nlen);
-    float vx = sub(cam_x, wx), vy = sub(cam_y, wy), vz = sub(cam_z, wz);
-    const float inv_vlen = rsqrt_rn(vmax(dot3(vx, vx, vy, vy, vz, vz), EPS_LEN));
-    vx = mul(vx, inv_vlen);
-    vy = mul(vy, inv_vlen);
-    vz = mul(vz, inv_vlen);
-    const float nv_raw = dot3(nx, vx, ny, vy, nz, vz);
-    const float ndotv = vmax(nv_raw, EPS_NV);
+    for (int k = 0; k < PIX; ++k) {
+      const int row = tile_i * TILE_H + r_first + k * (THREADS / TILE_W);
+      const size_t idx = (size_t)row * width + col;
+      if (!(mask[idx] > 0)) {
+        out[idx] = 0.0f;
+        out[plane + idx] = 0.0f;
+        out[2 * plane + idx] = 0.0f;
+        continue;
+      }
+      const float ar = load(planes, idx);
+      const float ag = load(planes, plane + idx);
+      const float ab = load(planes, 2 * plane + idx);
+      float nx = load(planes, 3 * plane + idx);
+      float ny = load(planes, 4 * plane + idx);
+      float nz = load(planes, 5 * plane + idx);
+      const float wx = load(planes, 6 * plane + idx);
+      const float wy = load(planes, 7 * plane + idx);
+      const float wz = load(planes, 8 * plane + idx);
+      const float mv = load(planes, 9 * plane + idx);
+      const float rv = load(planes, 10 * plane + idx);
 
-    const float one_minus_m = sub(1.0f, mv);
-    const float f0r = add(mul(F0_DIELECTRIC, one_minus_m), mul(ar, mv));
-    const float f0g = add(mul(F0_DIELECTRIC, one_minus_m), mul(ag, mv));
-    const float f0b = add(mul(F0_DIELECTRIC, one_minus_m), mul(ab, mv));
-    const float omf0r = sub(1.0f, f0r);
-    const float omf0g = sub(1.0f, f0g);
-    const float omf0b = sub(1.0f, f0b);
-    const float a = mul(rv, rv);
-    const float a2 = mul(a, a);
-    const float kk = mul(mul(add(rv, 1.0f), add(rv, 1.0f)), 0.125f);
-    const float one_minus_k = sub(1.0f, kk);
-    const float gv = div(ndotv, add(mul(ndotv, one_minus_k), kk));
-    const float cs = div(mul(mul(a2, gv), 0.25f), ndotv);
-    const float a2m1 = sub(a2, 1.0f);
-    const float dbr = mul(mul(one_minus_m, ar), INV_PI_F);
-    const float dbg = mul(mul(one_minus_m, ag), INV_PI_F);
-    const float dbb = mul(mul(one_minus_m, ab), INV_PI_F);
-    float acc_r = mul(ar, ambient);
-    float acc_g = mul(ag, ambient);
-    float acc_b = mul(ab, ambient);
+      // Per-pixel prologue (_tiled_light_kernel :106-150), recomputed for
+      // each chunk: the same bits every time.
+      const float inv_nlen =
+          rsqrt_rn(vmax(dot3(nx, nx, ny, ny, nz, nz), EPS_LEN));
+      nx = mul(nx, inv_nlen);
+      ny = mul(ny, inv_nlen);
+      nz = mul(nz, inv_nlen);
+      float vx = sub(cam_x, wx), vy = sub(cam_y, wy), vz = sub(cam_z, wz);
+      const float inv_vlen =
+          rsqrt_rn(vmax(dot3(vx, vx, vy, vy, vz, vz), EPS_LEN));
+      vx = mul(vx, inv_vlen);
+      vy = mul(vy, inv_vlen);
+      vz = mul(vz, inv_vlen);
+      const float nv_raw = dot3(nx, vx, ny, vy, nz, vz);
+      const float ndotv = vmax(nv_raw, EPS_NV);
 
-    // The tile's lights in id order (_tiled_light_kernel :161-201).
-    for (int s = 0; s < count; ++s) {
-      const float dx = sub(s_lx[s], wx);
-      const float dy = sub(s_ly[s], wy);
-      const float dz = sub(s_lz[s], wz);
-      const float inv_d = rsqrt_rn(vmax(dot3(dx, dx, dy, dy, dz, dz), EPS_LEN));
-      const float lxn = mul(dx, inv_d), lyn = mul(dy, inv_d);
-      const float lzn = mul(dz, inv_d);
-      const float nl_raw = dot3(nx, lxn, ny, lyn, nz, lzn);
-      const float ndotl = vmax(nl_raw, 0.0f);
-      const float ldotv = dot3(lxn, vx, lyn, vy, lzn, vz);
-      const float inv_h = rsqrt_rn(vmax(add(2.0f, mul(2.0f, ldotv)), EPS_LEN));
-      const float ndoth = vmax(mul(add(nl_raw, nv_raw), inv_h), 0.0f);
-      const float vdoth = vmax(mul(add(1.0f, ldotv), inv_h), 0.0f);
-      const float dterm = add(mul(mul(ndoth, ndoth), a2m1), 1.0f);
-      const float denom = mul(vmax(mul(mul(PI_F, dterm), dterm), EPS_D),
-                              add(mul(ndotl, one_minus_k), kk));
-      const float recip =
-          div(1.0f, __bfloat162float(__float2bfloat16_rn(denom)));
-      const float spec = mul(cs, recip);
-      const float t = vmin(vmax(sub(1.0f, vdoth), 0.0f), 1.0f);
-      const float t2 = mul(t, t);
-      const float t5 = mul(mul(t2, t2), t);
-      const float rad = mul(ndotl, mul(inv_d, inv_d));
-      const float fr = add(f0r, mul(omf0r, t5));
-      const float fg = add(f0g, mul(omf0g, t5));
-      const float fb = add(f0b, mul(omf0b, t5));
-      acc_r = add(acc_r, mul(add(dbr, mul(fr, sub(spec, dbr))),
-                             mul(s_cr[s], rad)));
-      acc_g = add(acc_g, mul(add(dbg, mul(fg, sub(spec, dbg))),
-                             mul(s_cg[s], rad)));
-      acc_b = add(acc_b, mul(add(dbb, mul(fb, sub(spec, dbb))),
-                             mul(s_cb[s], rad)));
+      const float one_minus_m = sub(1.0f, mv);
+      const float f0r = add(mul(F0_DIELECTRIC, one_minus_m), mul(ar, mv));
+      const float f0g = add(mul(F0_DIELECTRIC, one_minus_m), mul(ag, mv));
+      const float f0b = add(mul(F0_DIELECTRIC, one_minus_m), mul(ab, mv));
+      const float omf0r = sub(1.0f, f0r);
+      const float omf0g = sub(1.0f, f0g);
+      const float omf0b = sub(1.0f, f0b);
+      const float a = mul(rv, rv);
+      const float a2 = mul(a, a);
+      const float kk = mul(mul(add(rv, 1.0f), add(rv, 1.0f)), 0.125f);
+      const float one_minus_k = sub(1.0f, kk);
+      const float gv = div(ndotv, add(mul(ndotv, one_minus_k), kk));
+      const float cs = div(mul(mul(a2, gv), 0.25f), ndotv);
+      const float a2m1 = sub(a2, 1.0f);
+      const float dbr = mul(mul(one_minus_m, ar), INV_PI_F);
+      const float dbg = mul(mul(one_minus_m, ag), INV_PI_F);
+      const float dbb = mul(mul(one_minus_m, ab), INV_PI_F);
+      float acc_r, acc_g, acc_b;
+      if (!CHUNKED || chunk == 0) {
+        acc_r = mul(ar, ambient);
+        acc_g = mul(ag, ambient);
+        acc_b = mul(ab, ambient);
+      } else {
+        acc_r = out[idx];
+        acc_g = out[plane + idx];
+        acc_b = out[2 * plane + idx];
+      }
+
+      // The chunk's listed lights in id order (_tiled_light_kernel
+      // :161-201).
+      for (int s = 0; s < count; ++s) {
+        const float dx = sub(s_lx[s], wx);
+        const float dy = sub(s_ly[s], wy);
+        const float dz = sub(s_lz[s], wz);
+        const float inv_d =
+            rsqrt_rn(vmax(dot3(dx, dx, dy, dy, dz, dz), EPS_LEN));
+        const float lxn = mul(dx, inv_d), lyn = mul(dy, inv_d);
+        const float lzn = mul(dz, inv_d);
+        const float nl_raw = dot3(nx, lxn, ny, lyn, nz, lzn);
+        const float ndotl = vmax(nl_raw, 0.0f);
+        const float ldotv = dot3(lxn, vx, lyn, vy, lzn, vz);
+        const float inv_h =
+            rsqrt_rn(vmax(add(2.0f, mul(2.0f, ldotv)), EPS_LEN));
+        const float ndoth = vmax(mul(add(nl_raw, nv_raw), inv_h), 0.0f);
+        const float vdoth = vmax(mul(add(1.0f, ldotv), inv_h), 0.0f);
+        const float dterm = add(mul(mul(ndoth, ndoth), a2m1), 1.0f);
+        const float denom = mul(vmax(mul(mul(PI_F, dterm), dterm), EPS_D),
+                                add(mul(ndotl, one_minus_k), kk));
+        const float recip =
+            div(1.0f, __bfloat162float(__float2bfloat16_rn(denom)));
+        const float spec = mul(cs, recip);
+        const float t = vmin(vmax(sub(1.0f, vdoth), 0.0f), 1.0f);
+        const float t2 = mul(t, t);
+        const float t5 = mul(mul(t2, t2), t);
+        const float rad = mul(ndotl, mul(inv_d, inv_d));
+        const float fr = add(f0r, mul(omf0r, t5));
+        const float fg = add(f0g, mul(omf0g, t5));
+        const float fb = add(f0b, mul(omf0b, t5));
+        acc_r = add(acc_r, mul(add(dbr, mul(fr, sub(spec, dbr))),
+                               mul(s_cr[s], rad)));
+        acc_g = add(acc_g, mul(add(dbg, mul(fg, sub(spec, dbg))),
+                               mul(s_cg[s], rad)));
+        acc_b = add(acc_b, mul(add(dbb, mul(fb, sub(spec, dbb))),
+                               mul(s_cb[s], rad)));
+      }
+      out[idx] = acc_r;
+      out[plane + idx] = acc_g;
+      out[2 * plane + idx] = acc_b;
     }
-    out[idx] = acc_r;
-    out[plane + idx] = acc_g;
-    out[2 * plane + idx] = acc_b;
+    __syncthreads();  // the next chunk rewrites the staged lights
   }
 }
 
@@ -250,18 +282,22 @@ extern "C" int zr_light_tiled(const void* planes, int bf16, const int* mask,
                               int row_offset, float* out, int height,
                               int width, void* stream) {
   using namespace zr::light;
-  if (num_lights < 0 || num_lights > MAX_LIGHTS || height % TILE_H ||
-      width % TILE_W)
+  if (num_lights < 0 || height % TILE_H || width % TILE_W)
     return (int)cudaErrorInvalidValue;
   const int num_tiles = (height / TILE_H) * (width / TILE_W);
   if (num_tiles == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
+  const bool chunked = num_lights > MAX_LIGHTS;
   if (bf16) {
-    light_tiled_kernel<__nv_bfloat16><<<num_tiles, THREADS, 0, s>>>(
+    auto kernel = chunked ? light_tiled_kernel<__nv_bfloat16, true>
+                          : light_tiled_kernel<__nv_bfloat16, false>;
+    kernel<<<num_tiles, THREADS, 0, s>>>(
         (const __nv_bfloat16*)planes, mask, bounds, lights, num_lights,
         consts, row_offset, out, width, height);
   } else {
-    light_tiled_kernel<float><<<num_tiles, THREADS, 0, s>>>(
+    auto kernel = chunked ? light_tiled_kernel<float, true>
+                          : light_tiled_kernel<float, false>;
+    kernel<<<num_tiles, THREADS, 0, s>>>(
         (const float*)planes, mask, bounds, lights, num_lights, consts,
         row_offset, out, width, height);
   }

@@ -66,6 +66,10 @@ class RenderConfig:
     # Host/device pipelining depth: present() fences only when the host is
     # this many frames ahead.  1 = fully synchronous present.
     frames_in_flight: int = 2
+    # The debug layer: each frame counts the plane-crossing triangles the
+    # capped clipper dropped (a host sync), records them in
+    # stats.clip_dropped and raises on a drop.
+    debug: bool = False
 
     def __post_init__(self):
         if self.pipeline not in PIPELINES:

@@ -64,6 +64,7 @@ from zrenderer_tpu_torch.math import zmath as zm
 from zrenderer_tpu_torch.ops import raster
 from zrenderer_tpu_torch.ops.geometry import (
     MATERIAL_COLS,
+    clip_overflow_count,
     view_proj_from_camera,
 )
 from zrenderer_tpu_torch.ops.taa import jittered_view_proj
@@ -438,10 +439,19 @@ class Renderer:
                                           *self._lights())
             if shadow:
                 self._shadow_map = shadow[0]
+            matrices = staged[0]
         else:
             (matrices,) = self._stage_constants(
                 [self.camera_matrices(camera, transforms, jitter)])
             color, depth = frame(b["corner_cols"], b["tri_node"], matrices)
+        if self.config.debug:
+            dropped = self.clip_overflow(matrices)
+            self.stats.clip_dropped = dropped
+            if dropped:
+                raise RuntimeError(
+                    f"debug validation: capped clipper dropped {dropped} "
+                    "plane-crossing triangles this frame (raise the clip "
+                    "cap; see geometry.clip_cap_for)")
         self._pending = (color, depth)
         self._in_flight.append(self._fence())
         self.stats.update(
@@ -449,6 +459,16 @@ class Renderer:
             pixels=self.config.width * self.config.height,
         )
         return color, depth
+
+    def clip_overflow(self, matrices) -> int:
+        """Triangles the capped clipper drops for these per-draw
+        object_to_clip matrices ((D, 4, 4), host or device): run each frame
+        under ``config.debug``, or on demand.  Reads the count back."""
+        b = self._buffers()
+        mats = torch.as_tensor(matrices, dtype=torch.float32).to(self.device)
+        return int(clip_overflow_count(b["corner_cols"], b["tri_node"], mats,
+                                       self.config.width,
+                                       self.config.height).item())
 
     def present(self):
         """Fence pacing, then rotate the staging ring.  Returns the newest

@@ -19,6 +19,9 @@ class FrameStats:
         self.average_cpu_time_ms = 0.0
         self.mtri_per_s = 0.0
         self.gpix_per_s = 0.0
+        # Plane-crossing triangles the capped clipper dropped in the last
+        # frame checked (RenderConfig.debug or Renderer.clip_overflow).
+        self.clip_dropped = 0
         self._start = time.perf_counter()
         self._previous_time = 0.0
         self._refresh_time = 0.0
@@ -49,8 +52,10 @@ class FrameStats:
         self._pix_counter += pixels
 
     def format_line(self) -> str:
+        warn = (f"  clip_dropped={self.clip_dropped}"
+                if self.clip_dropped else "")
         return (
             f"FPS: {self.fps:.1f}  CPU time: {self.average_cpu_time_ms:.3f} ms  "
             f"{self.mtri_per_s:.2f} Mtri/s  {self.gpix_per_s:.2f} Gpix/s"
-            f" | {self.window_name}"
+            f"{warn} | {self.window_name}"
         )

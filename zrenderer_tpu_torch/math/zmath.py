@@ -140,6 +140,24 @@ def qmul(q0: np.ndarray, q1: np.ndarray) -> np.ndarray:
     )
 
 
+def quat_from_norm_axis_angle(axis, angle: float) -> np.ndarray:
+    """Rotation by ``angle`` about the unit ``axis``."""
+    axis = np.asarray(axis, dtype=F32)
+    half = F32(0.5 * angle)
+    s, c = F32(np.sin(half)), F32(np.cos(half))
+    return np.array([axis[0] * s, axis[1] * s, axis[2] * s, c], dtype=F32)
+
+
+def quat_from_roll_pitch_yaw(pitch: float, yaw: float,
+                             roll: float) -> np.ndarray:
+    """Intrinsic rotations roll (Z), then pitch (X), then yaw (Y) for row
+    vectors: qmul(qmul(q_roll, q_pitch), q_yaw)."""
+    qx = quat_from_norm_axis_angle((1.0, 0.0, 0.0), pitch)
+    qy = quat_from_norm_axis_angle((0.0, 1.0, 0.0), yaw)
+    qz = quat_from_norm_axis_angle((0.0, 0.0, 1.0), roll)
+    return qmul(qmul(qz, qx), qy)
+
+
 def mat_from_quat(q: np.ndarray) -> np.ndarray:
     """Rotation matrix for quaternion q, row-vector convention."""
     x, y, z, w = (F32(v) for v in np.asarray(q, dtype=F32))

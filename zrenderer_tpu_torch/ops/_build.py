@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels (``zrenderer_tpu_torch/csrc``): the flat
 raster kernels K1-K6, the G-buffer kernels K2g, K3g, K4g, K5g, K6g, the
-depth-only kernels K2d, K3d, K4d, K6d and the tiled light kernel K7.
+depth-only kernels K2d, K3d, K4d, K6d, the tiled light kernel K7 and the
+overlay kernels K8 (layered raster) and K8b (atlas composite).
 
 ``nvcc`` compiles each ``.cu`` file for ``sm_90a`` and links them into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
@@ -29,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "zrenderer_tpu_torch"
 SOURCES = ("raster_small.cu", "raster_hier.cu", "raster_binned.cu",
-           "light_tiled.cu")
+           "light_tiled.cu", "overlay.cu")
 HEADERS = ("raster_common.cuh",)
 LIB_NAME = "libzr_raster.so"
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
@@ -145,6 +146,11 @@ def load_library() -> ctypes.CDLL:
     lib.zr_depth_lists.restype = i
     lib.zr_light_tiled.argtypes = [p, i, p, p, p, i, p, i, p, i, i, p]
     lib.zr_light_tiled.restype = i
+    lib.zr_overlay_raster.argtypes = [p, p, i, i, p, p, p, p, p, i, i, p]
+    lib.zr_overlay_raster.restype = i
+    lib.zr_overlay_composite.argtypes = [p, p, p, p, p, i, p, i, i, p, i, i,
+                                         p]
+    lib.zr_overlay_composite.restype = i
     lib.zr_error_string.argtypes = [i]
     lib.zr_error_string.restype = ctypes.c_char_p
     return lib

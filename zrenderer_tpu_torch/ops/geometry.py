@@ -173,13 +173,8 @@ def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
     dev = ccols.device
     cap = clip_cap_for(t) if clip_cap == "auto" else min(clip_cap, t)
 
-    # -- transform: m[i, j] is row i, column j of each triangle's matrix.
-    m = matrices.reshape(-1, 16)[tri_node.long()].T.reshape(4, 4, t)
-    cc = ccols.reshape(3, ATTR_FLOATS, t)
-    pos = cc[:, 0:4]  # (corner, i, T)
-    clip = ((pos[:, 0:1] * m[0] + pos[:, 1:2] * m[1])
-            + (pos[:, 2:3] * m[2] + pos[:, 3:4] * m[3]))  # (corner, j, T)
-    attr = cc[:, 4:]
+    clip = _clip_positions(ccols, tri_node, matrices)  # (corner, j, T)
+    attr = ccols.reshape(3, ATTR_FLOATS, t)[:, 4:]
     if normal_matrices is not None:
         nm = normal_matrices.reshape(-1, 9)[tri_node.long()].T.reshape(3, 3, t)
         n = attr[:, 6:9]  # (corner, i, T): channels 10-12
@@ -189,18 +184,7 @@ def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
     cols = torch.cat([clip, attr], dim=1)  # (corner, channel, T)
 
     # -- clip classification + capped subset selection.
-    gx, gy = _guard_scales(width, height)
-    x, y, z, w = clip[:, 0], clip[:, 1], clip[:, 2], clip[:, 3]
-    crossing = torch.zeros(t, dtype=torch.bool, device=dev)
-    fully_out = torch.zeros(t, dtype=torch.bool, device=dev)
-    for plane in range(5):
-        neg = _plane_distance(x, y, z, w, plane, gx, gy) < 0  # (corner, T)
-        any_neg = neg.any(dim=0)
-        all_neg = neg.all(dim=0)
-        fully_out = fully_out | all_neg
-        crossing = crossing | (any_neg & ~all_neg)
-    needs = crossing & ~fully_out
-    slot0_valid = ~(crossing | fully_out)
+    needs, slot0_valid = _classify(clip, width, height)
 
     # First ``cap`` crossing triangles in ascending order: slot j takes
     # the first i with cumsum(needs)[i] == j + 1 (no host sync).
@@ -222,6 +206,48 @@ def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
         consts = torch.cat([per_tri, sub.repeat(FAN_SLOTS, 1)]).T.to(F32)
     return _setup_cols(torch.cat([cols, fan], dim=2), valid, width, height,
                        consts)
+
+
+def _clip_positions(ccols, tri_node, matrices):
+    """Clip-space corners (corner, j, T): each corner's position times its
+    draw's matrix, as explicit multiply-adds (m[i, j] is row i, column j)."""
+    t = ccols.shape[1]
+    m = matrices.reshape(-1, 16)[tri_node.long()].T.reshape(4, 4, t)
+    pos = ccols.reshape(3, ATTR_FLOATS, t)[:, 0:4]  # (corner, i, T)
+    return ((pos[:, 0:1] * m[0] + pos[:, 1:2] * m[1])
+            + (pos[:, 2:3] * m[2] + pos[:, 3:4] * m[3]))
+
+
+def _classify(clip, width: int, height: int):
+    """(needs, slot0_valid), each (T,) bool: a triangle crossing a plane
+    without lying wholly outside one needs the clipper; slot 0 keeps the
+    triangles inside every plane."""
+    gx, gy = _guard_scales(width, height)
+    x, y, z, w = clip[:, 0], clip[:, 1], clip[:, 2], clip[:, 3]
+    t = clip.shape[2]
+    crossing = torch.zeros(t, dtype=torch.bool, device=clip.device)
+    fully_out = torch.zeros(t, dtype=torch.bool, device=clip.device)
+    for plane in range(5):
+        neg = _plane_distance(x, y, z, w, plane, gx, gy) < 0  # (corner, T)
+        any_neg = neg.any(dim=0)
+        all_neg = neg.all(dim=0)
+        fully_out = fully_out | all_neg
+        crossing = crossing | (any_neg & ~all_neg)
+    return crossing & ~fully_out, ~(crossing | fully_out)
+
+
+def clip_overflow_count(ccols, tri_node, matrices, width: int, height: int,
+                        clip_cap="auto"):
+    """Crossing triangles the capped clipper drops this frame:
+    ``max(n_crossing - cap, 0)`` as an int32 device scalar (the
+    reference's ``clip_overflow_count`` in column mode).  It reruns the
+    transform and the plane classification only; ``geometry_pipeline_cols``
+    holds the same count as its cumsum's last entry."""
+    t = ccols.shape[1]
+    cap = clip_cap_for(t) if clip_cap == "auto" else min(clip_cap, t)
+    needs, _ = _classify(_clip_positions(ccols, tri_node, matrices), width,
+                         height)
+    return torch.clamp_min(needs.sum(dtype=I32) - cap, 0)
 
 
 def clip_triangles_cols(sub, width: int, height: int):

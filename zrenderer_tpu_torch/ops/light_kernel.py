@@ -60,8 +60,9 @@ BF16 = torch.bfloat16
 # world x/y/z, metallic, roughness.  The coverage mask is a separate int32
 # plane.
 NUM_PLANES = 11
-# Lights a block stages in shared memory (csrc/light_tiled.cu MAX_LIGHTS):
-# 1024 x 6 floats, 24 KB.  BASELINE config 3 has 256.
+# Lights a block stages in shared memory at a time (csrc/light_tiled.cu
+# MAX_LIGHTS): 1024 x 6 floats, 24 KB.  More lights go in chunks of this
+# many, in id order.  BASELINE config 3 has 256.
 MAX_LIGHTS = 1024
 PLANE_DTYPES = (F32, BF16)
 
@@ -264,9 +265,6 @@ def _check_light_inputs(planes, mask, bounds, lights, consts):
             or tuple(lights.shape) != (num, 6)):
         raise ValueError("bounds (L, 4) and lights (L, 6) expected, got "
                          f"{tuple(bounds.shape)} and {tuple(lights.shape)}")
-    if num > MAX_LIGHTS:
-        raise ValueError(f"{num} lights; the kernel stages at most "
-                         f"{MAX_LIGHTS}")
     if consts.numel() < 4:
         raise ValueError("consts: camera x, y, z and ambient expected")
 
