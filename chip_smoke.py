@@ -108,6 +108,42 @@ Phases, in order, each printing its own lines and seconds:
     frame), each held against the port's CPU composite of the same frame
     (count and overflow exact, u8 within 1 LSB), and the 160x96 frame
     against ``tests/goldens/overlay_160x96.png`` within 1 LSB;
+4s. the band kernels of the sharded frames against their plain versions,
+    bit-exact (int32 bits), on rows gathered from triangle shards (the
+    indexed geometry of every shard, then the canonical order): K3b on the
+    test scene from 2 shards at 1920x1088 (bands at rows 0 and 544) and
+    on the 20K lattice from 2 shards (32 512 rows; its plain call gives
+    K3b's plain_ms); K9 with band-local and global spans and K9g (13
+    planes, random normals and per-triangle materials) on the 40K lattice
+    from 4 shards at 1920x1024, every band; K9g on the deferred test
+    scene from 2 shards at 1920x1088, both bands (the main path's shape;
+    its plain_ms); K9 with both span forms on the 40K lattice from 2
+    shards at 1920x1088, both bands (band 0 its plain_ms); K9d on a
+    2048-triangle clipped soup under a 16-record slab (256 after
+    rounding), so that rows are demoted to the owner's hierarchy, with 2
+    and 4 sources (the script fails if none is), and on the 40K lattice
+    from 2 shards (its plain_ms); the all-to-all is the in-turn exchange
+    of ``parallel/tiles.py`` (``dist_exchange``), which stacks piece b of
+    every shard's ``prepare_binned_dist_local``, the tensor the collective
+    delivers;
+5m. the sharded frames, one card rendering every band in turn
+    (``parallel/tiles.py`` ``bands_in_turn``, ``deferred_bands_in_turn``,
+    ``taa_bands_in_turn``: the frames' own stages with the in-turn
+    exchange), each run with every launch count set to 0 just before and
+    read just after (the kernels line reports the counts of one main-path
+    frame: the test scene for K3b, the 1M lattice with 2 bands for K9, the
+    40K lattice's ``dist`` frame for K9d, the deferred test scene with the
+    wide lights for K9g); the bands laid side by side must equal
+    the single-device frame at the same size, RGBA and depth bits: the
+    flat test scene with 2 bands (K3b), the 1M lattice through ``auto``
+    with 2 bands at 1920x1088 and 4 at 1920x1024 (K9, against K4), the 40K
+    lattice through ``dist`` (K9d), the deferred test scene with the wide
+    and the r2 lights (K9g + K7 per band, against the deferred Renderer),
+    and config 4 with 2 bands (the 1M lattice over 8 jittered frames, the
+    halo-row resolve, against K4 + ``taa_resolve_packed``); then
+    ``make_sharded_frame``, ``_2d``, ``make_multihost_frame`` with
+    ``dist``, ``_deferred`` and ``_taa`` once each under a real one-rank
+    NCCL group, with ``gather_frame``;
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape, and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
@@ -131,7 +167,10 @@ Phases, in order, each printing its own lines and seconds:
    K8 and K8b on the --ui draw list at 1080p, and one app frame of the
    test scene without and with --overlay and --ui (device ops, busy ms,
    idle share from a trace; ms/frame on the host clock, read-back
-   included);
+   included); the band kernels K3b, K9, K9g and K9d at their bands and in
+   one traced sharded frame each, the per-band prepares and the sharded
+   frames' ms, every band rendered in turn on the one card (no multi-card
+   time);
 7. the app CLI writing PNGs: the test scene flat, shadowed, deferred and
    deferred with ``--taa``, the showcase lit; the test scene flat with
    ``--overlay``, ``--orbit`` and ``--ui --orbit``, the showcase lit with
@@ -154,7 +193,8 @@ and the live layers (12 bytes each) moved once and the live layers times
 OPS_PER_COMPOSITE_LAYER.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
-once.  The second-to-last line is the kernels' JSON record, the last line
+once.  The band kernels' bound counts the pairs and the output planes of
+their band.  The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -309,6 +349,7 @@ def main() -> int:
         taa,
     )
     from zrenderer_tpu_torch.ops import geometry as tg
+    from zrenderer_tpu_torch.parallel import multihost, tiles
     from zrenderer_tpu_torch.raster_ref import raster_cpu
     from zrenderer_tpu_torch.scene.mesh import V_COLOR, MeshData
     from zrenderer_tpu_torch.scene.procedural import (
@@ -332,11 +373,14 @@ def main() -> int:
     k7, k7b = (light_kernel.tiled_light_kernel,
                light_kernel.tiled_light_bf16_kernel)
     k8, k8b = overlay.overlay_raster_kernel, overlay.overlay_composite_kernel
+    k3b, k9 = raster.raster_hier_band_kernel, raster.raster_binned_band_kernel
+    k9g = raster.gbuffer_binned_band_kernel
+    k9d = raster.raster_binned_band_dist_kernel
     results = {key: {"err": 0.0}
                for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6",
                            "k2g", "k3g", "k4g", "k5g", "k6g",
                            "k2d", "k3d", "k4d", "k6d", "k7", "k7_bf16",
-                           "k8", "k8b")}
+                           "k8", "k8b", "k3b", "k9", "k9g", "k9d")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -1303,7 +1347,8 @@ def main() -> int:
     kernel_of = {"k1": k1, "k3": k3, "k4": k4, "k4_coarse": k4c, "k5": k5,
                  "k6": k6, "k2g": k2g, "k3g": k3g, "k4g": k4g, "k5g": k5g,
                  "k6g": k6g, "k2d": k2d, "k3d": k3d, "k4d": k4d, "k6d": k6d,
-                 "k7": k7, "k7_bf16": k7b, "k8": k8, "k8b": k8b}
+                 "k7": k7, "k7_bf16": k7b, "k8": k8, "k8b": k8b,
+                 "k3b": k3b, "k9": k9, "k9g": k9g, "k9d": k9d}
 
     def drive(label, scene_md, binning, key):
         """One frame through Renderer.render_and_read with every launch
@@ -2012,7 +2057,11 @@ def main() -> int:
                     "k7": "light_tiled_kernel<float,",
                     "k7_bf16": "light_tiled_kernel<__nv_bfloat16,",
                     "k8": "overlay_raster_kernel<8>",
-                    "k8b": "overlay_composite_kernel"}
+                    "k8b": "overlay_composite_kernel",
+                    "k3b": "raster_hier_band_kernel",
+                    "k9": "raster_records_band_kernel",
+                    "k9g": "gbuffer_records_band_kernel",
+                    "k9d": "raster_records_dist_kernel"}
     port_kernels = set(kernel_names.values())
 
     def traced_kernel_ms(keys, fn, attempts=3):
@@ -2259,6 +2308,362 @@ def main() -> int:
                                       c["view_proj"], *r.lights), 20),
         }
 
+    # -- 4s. band kernels vs plain ------------------------------------------
+    # The sharded frames render at a tile-aligned height: 1088 rows split
+    # into 2 bands of 544, 1024 rows into 4 bands of 256.
+    H2, H4 = 1088, 1024
+
+    def indexed_args(r, height, jitter=None):
+        """A renderer's indexed buffers on the card and its per-draw
+        matrices at (WIDTH, height): the sharded frames' inputs."""
+        b = r._buffers()
+        vp = tg.view_proj_from_camera(r.scene.active_camera, WIDTH, height)
+        if jitter is not None:
+            vp = taa.jittered_view_proj(vp, jitter, WIDTH, height)
+        mats = np.einsum("nij,jk->nik", r.flat.node_to_world,
+                         vp).astype(np.float32)
+        return (b["positions"], b["attrs"], b["tri_vidx"],
+                torch.from_numpy(mats).to(dev), b["vert_node"])
+
+    def scene_args(scene_md, height, tri_align=64, lit=False, seed=0):
+        """A scene's indexed buffers on the card at (WIDTH, height); with
+        ``lit`` random per-draw normal matrices and a random per-triangle
+        material table (seeded)."""
+        flat = flatten_scene(*scene_md, pad=True, tri_align=tri_align)
+        b = flat_scene_to_device(flat.host_arrays(), dev)
+        vp = tg.view_proj_from_camera(scene_md[0].active_camera, WIDTH,
+                                      height)
+        mats = np.einsum("nij,jk->nik", flat.node_to_world,
+                         vp).astype(np.float32)
+        args = (b["positions"], b["attrs"], b["tri_vidx"],
+                torch.from_numpy(mats).to(dev), b["vert_node"])
+        if not lit:
+            return args, {}
+        rng = np.random.default_rng(seed)
+        nm = rng.standard_normal((len(mats), 3, 3)).astype(np.float32)
+        table = rng.random((len(flat.tri_vidx), tg.MATERIAL_COLS),
+                           dtype=np.float32)
+        return args, dict(normal_matrices=torch.from_numpy(nm).to(dev),
+                          material_table=torch.from_numpy(table).to(dev))
+
+    def band_pairs(ti, row0, band_h):
+        """(tile, triangle) pairs of one band: tile_pairs over the band's
+        rows of the frame."""
+        shifted = ti.clone()
+        for c in (tg.I_IMIN, tg.I_IMAX):
+            shifted[:, c] = ti[:, c] - row0
+        return tile_pairs(shifted, PAD_W, band_h)
+
+    def dist_received(locals_, h, n, s, slab=None):
+        """Every band's (listed, rec_i, rec_f, offs) as the all-to-all of
+        ``binning="dist"`` delivers them, its ranks in turn."""
+        return tiles.dist_exchange(tiles.InTurnExchange(n), locals_, PAD_W,
+                                   h, s, slab_records=slab)
+
+    def deferred_args(name):
+        """The deferred test scene at (WIDTH, H2) with BASELINE's ``name``
+        lights: (renderer, its sharded deferred frame's inputs on the
+        card)."""
+        rd = deferred_renderer(load_test_scene(), baseline_lights(name),
+                               height=H2)
+        c = {k: torch.from_numpy(v).to(dev)
+             for k, v in rd._lit_constants().items()}
+        b = rd._buffers()
+        return rd, (b["positions"], b["attrs"], b["tri_vidx"],
+                    c["matrices"], b["vert_node"], c["normal_mats"],
+                    b["materials"], c["inv_view_proj"], c["cam_pos"],
+                    *(torch.as_tensor(x).to(dev) for x in rd.lights),
+                    c["view_proj"])
+
+    def band_fn(fn, row0, *extra):
+        """``fn(*prepared, w, band_h)`` -> ``fn(..., row0, *extra)``."""
+        return lambda *a: fn(*a, row0, *extra)
+
+    @phase("4s K3b/K9/K9g/K9d band kernels vs plain versions")
+    def band_cases():
+        cases = {}
+        # (a) the test scene from 2 shards: K3b at rows 0 and 544.
+        args, _ = scene_args(load_test_scene(), H2, tri_align=256)
+        _, ti, tf, s = tiles.setups_in_turn(2, *args, PAD_W, H2)
+        prep = raster.prepare_raster_inputs(ti, tf)
+        for b in range(2):
+            compare("k3b", f"(a) test scene band {b} of 2 (K3b)",
+                    band_fn(k3b, b * 544), band_fn(
+                        raster.raster_hier_band_plain, b * 544), prep,
+                    PAD_W, 544)
+        # (b) the 20K lattice from 2 shards: 32 288 gathered rows.
+        args, _ = scene_args(make_stress_scene(20000), H2, tri_align=256)
+        _, ti, tf, s = tiles.setups_in_turn(2, *args, PAD_W, H2)
+        prep = raster.prepare_raster_inputs(ti, tf)
+        print(f"  (b) lattice20k: {ti.shape[0]} gathered rows of 2 shards")
+        for b in range(2):
+            compare("k3b", f"(b) lattice20k band {b} of 2 (K3b)",
+                    band_fn(k3b, b * 544),
+                    band_fn(raster.raster_hier_band_plain, b * 544), prep,
+                    PAD_W, 544,
+                    plain_shape="lattice20k band 0 of 2" if b == 0 else None)
+        cases["k3b"] = (prep, 0, 544, "lattice20k band 0 of 2",
+                        band_pairs(ti, 0, 544))
+        # (c) the 40K lattice from 4 shards at 1920x1024: K9 with both span
+        # forms, K9g with random normals and per-triangle materials.
+        args, lit_kw = scene_args(make_stress_scene(MID_TRIS), H4, lit=True)
+        _, ti, tf, s = tiles.setups_in_turn(4, *args, PAD_W, H4, **lit_kw)
+        print(f"  (c) lattice40k: {ti.shape[0]} gathered rows of 4 shards")
+        for b in range(4):
+            row0 = b * 256
+            label = f"lattice40k band {b} of 4"
+            for local in (True, False):
+                band_kw = (dict(band_ty0=row0 // 32, band_tiles_y=8) if local
+                           else {})
+                prep = raster.prepare_binned_hbm_inputs(
+                    ti, tf, PAD_W, H4, n_head=4 * s,
+                    pair_budget=raster.band_pair_budget(4), **band_kw)
+                n, longest, mean = span_stats(prep[0])
+                print(f"  (c) {label}, {'band-local' if local else 'global'}"
+                      f" spans: {n} records (longest span {longest})")
+                compare("k9", f"(c) {label} (K9, band_local={local})",
+                        band_fn(k9, row0, local),
+                        band_fn(raster.raster_binned_band_plain, row0, local),
+                        prep, PAD_W, 256)
+            prep = raster.prepare_binned_hbm_inputs(
+                ti, tf, PAD_W, H4, n_head=4 * s,
+                pair_budget=raster.band_pair_budget(4), band_ty0=row0 // 32,
+                band_tiles_y=8)
+            compare_gbuffer("k9g", f"(c) {label} (K9g)", band_fn(k9g, row0),
+                            band_fn(raster.gbuffer_binned_band_plain, row0),
+                            prep, PAD_W, 256)
+        # (c2) the deferred test scene from 2 shards, its per-triangle
+        # materials: K9g at the main path's shape, bands at rows 0 and 544.
+        _, dargs = deferred_args("wide")
+        _, ti, tf, s = tiles.setups_in_turn(
+            2, *dargs[:5], PAD_W, H2, normal_matrices=dargs[5],
+            material_table=dargs[6])
+        for b in range(2):
+            prep = raster.prepare_binned_hbm_inputs(
+                ti, tf, PAD_W, H2, n_head=2 * s,
+                pair_budget=raster.band_pair_budget(2), band_ty0=b * 17,
+                band_tiles_y=17)
+            label = f"deferred test scene band {b} of 2"
+            compare_gbuffer("k9g", f"(c2) {label} (K9g)",
+                            band_fn(k9g, b * 544),
+                            band_fn(raster.gbuffer_binned_band_plain,
+                                    b * 544), prep, PAD_W, 544,
+                            plain_shape=label if b == 0 else None)
+        # (d) a 2048-triangle clipped soup under a 16-record slab (256
+        # after rounding), so that rows are demoted to the owners'
+        # hierarchies: K9d with 2 and 4 sources.
+        soup_md = make_triangle_soup(2048, seed=17, extent=2.0,
+                                     triangle_size=0.5,
+                                     behind_camera_fraction=0.1)
+        v = soup_md[1].vertex_data.reshape(-1, 16)
+        for t in range(40, 60):
+            v[3 * t, 2] += 15.0
+        for n, h in ((2, H2), (4, H4)):
+            args, _ = scene_args(soup_md, h)
+            locals_, ti, tf, s = tiles.setups_in_turn(n, *args, PAD_W, h)
+            band_h = h // n
+            demoted = False
+            small, whole = (dist_received(locals_, h, n, s, slab)
+                            for slab in (16, None))
+            for b in range(n):
+                sent = int(small[b][3][:, -1].sum().item())
+                wanted = int(whole[b][3][:, -1].sum().item())
+                demoted |= sent < wanted
+                prep = raster.prepare_binned_dist_owner(ti, tf, *small[b])
+                compare("k9d", f"(d) 2048-triangle clipped soup, slab 16, "
+                        f"band {b} of {n} (K9d, {sent} of {wanted} records "
+                        f"sent, the rest demoted)",
+                        band_fn(k9d, b * band_h),
+                        band_fn(raster.raster_binned_band_plain,
+                                b * band_h), prep, PAD_W, band_h)
+            if not demoted:
+                raise AssertionError(f"(d) {n} bands: the 16-record slab "
+                                     "demoted nothing")
+        # (e) the 40K lattice from 2 shards at 1920x1088, the main path's
+        # band shape: K9 with both span forms (plain K9 at 1M costs too
+        # much; phase 5m holds the 1M bands against K4), and K9d under the
+        # default slab.
+        args, _ = scene_args(make_stress_scene(MID_TRIS), H2)
+        locals_, ti, tf, s = tiles.setups_in_turn(2, *args, PAD_W, H2)
+        for b in range(2):
+            label = f"lattice40k band {b} of 2"
+            for local in (True, False):
+                band_kw = (dict(band_ty0=b * 17, band_tiles_y=17) if local
+                           else {})
+                prep = raster.prepare_binned_hbm_inputs(
+                    ti, tf, PAD_W, H2, n_head=2 * s,
+                    pair_budget=raster.band_pair_budget(2), **band_kw)
+                compare("k9", f"(e) {label} (K9, band_local={local})",
+                        band_fn(k9, b * 544, local),
+                        band_fn(raster.raster_binned_band_plain, b * 544,
+                                local), prep, PAD_W, 544,
+                        plain_shape=label if b == 0 and local else None)
+        prep = raster.prepare_binned_dist_owner(
+            ti, tf, *dist_received(locals_, H2, 2, s)[0])
+        compare("k9d", "(e) lattice40k band 0 of 2 (K9d)", band_fn(k9d, 0),
+                band_fn(raster.raster_binned_band_plain, 0), prep,
+                PAD_W, 544, plain_shape="lattice40k band 0 of 2")
+        cases["k9d"] = (prep, 0, 544, "lattice40k band 0 of 2",
+                        band_pairs(ti, 0, 544))
+        return cases
+
+    # -- 5m. the sharded frames, bands in turn -------------------------------
+    @phase("5m sharded frames (bands in turn, one-rank NCCL group)")
+    def bands_main():
+        band_keys = ("k3b", "k9", "k9g", "k9d")
+
+        def run(label, fn, key, ref_rgba, ref_depth, record=False):
+            """Drive ``fn`` (the bands of one frame) with every launch
+            count set to 0 just before and read just after; the bands laid
+            side by side must equal the single-device frame.  ``record``:
+            this frame is ``key``'s main path, whose count the kernels line
+            reports."""
+            sync()
+            for kern in kernel_of.values():
+                kern.launches = 0
+            bands = fn()
+            sync()
+            launched = {k: kern.launches for k, kern in kernel_of.items()
+                        if kern.launches}
+            rgba = torch.cat([x[0] for x in bands])
+            depth = torch.cat([x[1] for x in bands])
+            same = (torch.equal(rgba, ref_rgba) and torch.equal(
+                depth.view(torch.int32), ref_depth.view(torch.int32)))
+            cov = (depth < 1.0).float().mean().item()
+            shape = tuple(bands[0][0].shape)
+            print(f"  {label}: {len(bands)} bands of {shape}, equal to the "
+                  f"single-device frame {same}, coverage "
+                  f"{cov:.4f}, launches {launched}", flush=True)
+            if not same or cov <= MIN_COVERAGE or not launched.get(key):
+                raise AssertionError(f"{label}: bands differ from the "
+                                     f"single-device frame or skip {key}")
+            if record:
+                counts[key] = launched[key]
+            return bands
+
+        def single_flat(r, height, jitter=None):
+            """The single-device frame at (WIDTH, height): (rgba, depth,
+            packed)."""
+            b = r._buffers()
+            args = indexed_args(r, height, jitter)
+            packed, depth = raster.render_frame(
+                b["corner_cols"], b["tri_node"], args[3], WIDTH, height,
+                height, PAD_W)
+            return raster.unpack_rgba8(packed), depth, packed
+
+        ref2 = single_flat(r_scene, H2)[:2]
+        run("flat test scene, 2 bands, auto (K3b)",
+            lambda: tiles.bands_in_turn(2, WIDTH, H2,
+                                        *indexed_args(r_scene, H2)),
+            "k3b", *ref2, record=True)
+        for n, h in ((2, H2), (4, H4)):
+            ref = single_flat(r_k4, h)[:2]
+            run(f"lattice1M, {n} bands at {WIDTH}x{h}, auto (K9; "
+                "single-device K4)",
+                lambda n=n, h=h: tiles.bands_in_turn(
+                    n, WIDTH, h, *indexed_args(r_k4, h)), "k9", *ref,
+                record=n == 2)
+        r40 = Renderer(RenderConfig(width=WIDTH, height=H2), device=DEVICE)
+        r40.load_scene(*make_stress_scene(MID_TRIS))
+        run("lattice40k, 2 bands, dist (K9d)",
+            lambda: tiles.bands_in_turn(2, WIDTH, H2,
+                                        *indexed_args(r40, H2), "dist"),
+            "k9d", *single_flat(r40, H2)[:2], record=True)
+
+        deferred_refs = {}
+        for name in ("wide", "r2"):
+            rd, dargs = deferred_args(name)
+            img, depth = rd.render()
+            run(f"deferred test scene, {name} lights, 2 bands (K9g + K7)",
+                lambda dargs=dargs: tiles.deferred_bands_in_turn(
+                    2, WIDTH, H2, *dargs), "k9g", img, depth,
+                record=name == "wide")
+            deferred_refs[name] = (dargs, img, depth)
+
+        # Config 4 with 2 bands: the 1M lattice over 8 jittered frames,
+        # the halo-row resolve per band, against K4 + taa_resolve_packed.
+        jitters = taa.jitter_sequence(CONFIG4_FRAMES)
+        hist_p = None
+        hists = [None, None]
+        for k in range(CONFIG4_FRAMES):
+            rgba1, depth1, packed = single_flat(r_k4, H2, jitters[k])
+            if hist_p is None:
+                hist_p = taa.taa_init_history_packed(packed)
+            hist_p, res_p = taa.taa_resolve_packed(hist_p, packed)
+            bands = run(f"config 4 frame {k}: lattice1M, 2 bands (K9)",
+                        lambda k=k: tiles.bands_in_turn(
+                            2, WIDTH, H2, *indexed_args(r_k4, H2, jitters[k])),
+                        "k9", rgba1, depth1)
+            out = tiles.taa_bands_in_turn([x[0] for x in bands], hists)
+            hists = [x[0] for x in out]
+            same = (torch.equal(torch.cat([x[1] for x in out]),
+                                raster.unpack_rgba8(res_p))
+                    and torch.equal(torch.cat(hists),
+                                    hist_p.permute(1, 2, 0)))
+            if not same:
+                raise AssertionError(f"config 4 frame {k}: the banded "
+                                     "resolve differs from K4 + "
+                                     "taa_resolve_packed")
+        print(f"  config 4, 2 bands: {CONFIG4_FRAMES} resolved frames and "
+              "histories equal to K4 + taa_resolve_packed")
+
+        # The collective code on CUDA tensors: a real one-rank NCCL group.
+        import socket
+
+        import torch.distributed as torch_dist
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        multihost.initialize(f"127.0.0.1:{port}", 1, 0, device=DEVICE)
+        try:
+            group = multihost.global_tile_mesh()
+            flat_args = indexed_args(r_scene, H2)
+            for label, (fn, shard) in (
+                    ("make_sharded_frame", tiles.make_sharded_frame(
+                        group, WIDTH, H2, device=DEVICE)),
+                    ("make_sharded_frame_2d", tiles.make_sharded_frame_2d(
+                        group, 1, WIDTH, H2, device=DEVICE)),
+                    ("make_multihost_frame dist",
+                     multihost.make_multihost_frame(
+                         group, WIDTH, H2, "dist", device=DEVICE))):
+                rgba, depth = fn(*shard(*flat_args))
+                same = (torch.equal(rgba, ref2[0]) and torch.equal(
+                    depth.view(torch.int32), ref2[1].view(torch.int32)))
+                gathered = multihost.gather_frame(rgba, group)
+                print(f"  NCCL, 1 rank, {label}: equal to the single-device"
+                      f" frame {same}, gather_frame equal "
+                      f"{np.array_equal(gathered, rgba.cpu().numpy())}")
+                if not same or not np.array_equal(gathered,
+                                                  rgba.cpu().numpy()):
+                    raise AssertionError(f"NCCL {label} differs")
+            fn, shard = tiles.make_sharded_deferred_frame(group, WIDTH, H2,
+                                                          device=DEVICE)
+            dargs, img, depth_ref = deferred_refs["r2"]
+            rgba, depth = fn(*shard(*dargs))
+            same = (torch.equal(rgba, img) and torch.equal(
+                depth.view(torch.int32), depth_ref.view(torch.int32)))
+            print(f"  NCCL, 1 rank, make_sharded_deferred_frame (r2): equal "
+                  f"to the single-device frame {same}")
+            taa_fn, shard = tiles.make_sharded_taa_frame(group, WIDTH, H2,
+                                                         device=DEVICE)
+            resolved, _, hist = taa_fn(*shard(*flat_args))
+            want_h, want = taa.taa_resolve(taa.taa_init_history(ref2[0]),
+                                           ref2[0])
+            same_taa = (torch.equal(resolved, want)
+                        and torch.equal(hist, want_h))
+            print(f"  NCCL, 1 rank, make_sharded_taa_frame: equal to "
+                  f"taa_resolve of the single-device frame {same_taa}")
+            if not same or not same_taa:
+                raise AssertionError("NCCL deferred or TAA frame differs")
+        finally:
+            torch_dist.destroy_process_group()
+        print(f"  band kernel launches in one main-path frame: "
+              f"{ {k: counts[k] for k in band_keys} }")
+        return deferred_refs, r40
+
+    deferred_band_refs, r_lattice40 = bands_main
+
     @phase("6 timing")
     def timing():
         # (label, renderer, kernels timed in its trace, frames timed,
@@ -2338,6 +2743,68 @@ def main() -> int:
             _, _, ms = traced_kernel_ms(
                 (key,), lambda: [kern(*prep_k, w, h) for _ in range(reps)])
             results[key]["ms"] = ms[key]
+        # The band kernels (phase 4s/5m inputs): one launch's device time
+        # at each kernel's main-path band, one card rendering the bands in
+        # turn; K9 on band 0 of the 1M lattice's 2 bands, K9g on band 0 of
+        # the deferred test scene's, K3b on the 20K lattice's (the test
+        # scene's band is too small to show the walk), K9d on the 40K
+        # lattice's.
+        band_prep = dict(band_cases)
+        s_rows = {}
+        dargs = deferred_band_refs["wide"][0]
+        _, ti_d, tf_d, s_d = tiles.setups_in_turn(
+            2, *dargs[:5], PAD_W, H2, normal_matrices=dargs[5],
+            material_table=dargs[6])
+        _, ti_m, tf_m, s_m = tiles.setups_in_turn(
+            2, *indexed_args(r_k4, H2), PAD_W, H2)
+
+        def band_prepare(ti, tf, s):
+            return raster.prepare_binned_hbm_inputs(
+                ti, tf, PAD_W, H2, n_head=2 * s,
+                pair_budget=raster.band_pair_budget(2), band_ty0=0,
+                band_tiles_y=H2 // 2 // raster.TILE_H)
+
+        band_prep["k9"] = (band_prepare(ti_m, tf_m, s_m), 0, 544,
+                           "lattice1M band 0 of 2", band_pairs(ti_m, 0, 544))
+        band_prep["k9g"] = (band_prepare(ti_d, tf_d, s_d), 0, 544,
+                            "deferred test scene band 0 of 2",
+                            band_pairs(ti_d, 0, 544))
+        s_rows.update(k9=(ti_m, tf_m, s_m), k9g=(ti_d, tf_d, s_d))
+        band_reps = {"k3b": 20, "k9": 5, "k9g": 50, "k9d": 20}
+        for key, (prep_k, r0, bh, shape, _) in band_prep.items():
+            kern = kernel_of[key]
+            _, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*prep_k, PAD_W, bh, r0)
+                                 for _ in range(band_reps[key])])
+            results[key]["ms"] = ms[key]
+        # One sharded frame of each band kernel's main path, every band in
+        # turn on this card (not a multi-card time): device ops, busy and
+        # each kernel's time a launch.
+        band_frames = {
+            "k3b": ("flat test scene, 2 bands (K3b)",
+                    lambda: tiles.bands_in_turn(
+                        2, WIDTH, H2, *indexed_args(r_scene, H2))),
+            "k9": ("lattice1M, 2 bands (K9)",
+                   lambda: tiles.bands_in_turn(
+                       2, WIDTH, H2, *indexed_args(r_k4, H2))),
+            "k9g": ("deferred test scene wide, 2 bands (K9g + K7)",
+                    lambda: tiles.deferred_bands_in_turn(2, WIDTH, H2,
+                                                         *dargs)),
+            "k9d": ("lattice40k, 2 bands, dist (K9d)",
+                    lambda: tiles.bands_in_turn(
+                        2, WIDTH, H2, *indexed_args(r_lattice40, H2),
+                        "dist")),
+        }
+        for key, (label, fn) in band_frames.items():
+            events, window, kms = traced_kernel_ms((key,), fn)
+            results[key]["anim_ms"] = kms[key]
+            busy = busy_us(events)
+            print(f"  profiled sharded frame {WIDTH}x{H2} {label}, one card "
+                  f"rendering every band in turn: {len(events)} device ops, "
+                  f"device busy {busy / 1000.0:.4f} ms ({key} "
+                  f"{kms[key]:.4f} ms a launch), idle share "
+                  f"{1.0 - busy / window:.4f} of {window / 1000.0:.4f} ms "
+                  "traced")
         # K7 on the test scene's 1080p G-buffer: (key, light set, inputs).
         light_runs = [(key, name, light_cases[name, key])
                       for key in ("k7", "k7_bf16") for name in ("wide", "r2")]
@@ -2524,6 +2991,48 @@ def main() -> int:
                   f"{res['wrapper_ms']:.4f} ms/call (CUDA events); plain "
                   f"version {res['plain_ms']:.4f} ms/call at "
                   f"{res['plain_shape']} (CUDA events)")
+        # The band kernels: bounds, launcher times, the per-band prepares
+        # and the sharded frames' ms (bands in turn, CUDA events).
+        for key, (prep_k, r0, bh, shape, pairs) in band_prep.items():
+            kern = kernel_of[key]
+            res = results[key]
+            res["wrapper_ms"] = event_ms(
+                lambda: kern(*prep_k, PAD_W, bh, r0), band_reps[key])
+            if key == "k9d":  # records of every source's spans
+                offs = prep_k[0]
+                used = int((offs[:, -1] - offs[:, 0]).sum().item())
+                inputs = [offs, *prep_k[3:7], prep_k[1][:used],
+                          prep_k[2][:used]]
+            else:
+                inputs = flat_inputs(prep_k)
+            set_bound(key, inputs, pairs, PAD_W, bh, shape,
+                      planes=raster.GBUFFER_PLANES if key == "k9g" else 2)
+            print(f"  {key} {shape} {PAD_W}x{bh} at row {r0}: kernel "
+                  f"{res['ms']:.4f} ms device time (profiler; "
+                  f"{res['anim_ms']:.4f} ms a launch in the profiled sharded"
+                  f" frame), launcher {res['wrapper_ms']:.4f} ms/call (CUDA "
+                  f"events); plain version {res['plain_ms']:.4f} ms/call at "
+                  f"{res['plain_shape']} (CUDA events)")
+        ti_k, tf_k, s_k = s_rows["k9"]
+        print(f"  per-band prepare, lattice1M band 0 of 2 (band-local "
+              f"prepare_binned_hbm_inputs): "
+              f"{event_ms(lambda: band_prepare(ti_k, tf_k, s_k), 5):.4f} "
+              "ms/call (CUDA events)")
+        locals40, ti40, tf40, s40 = tiles.setups_in_turn(
+            2, *indexed_args(r_lattice40, H2), PAD_W, H2)
+        rec40 = dist_received(locals40, H2, 2, s40)[0]
+        local_ms = event_ms(lambda: raster.prepare_binned_dist_local(
+            *locals40[0], PAD_W, H2, 2, 0, s40), 5)
+        owner_ms = event_ms(lambda: raster.prepare_binned_dist_owner(
+            ti40, tf40, *rec40), 5)
+        print(f"  per-band prepare, lattice40k dist: one shard's "
+              f"prepare_binned_dist_local {local_ms:.4f} ms/call, the "
+              f"owner's prepare_binned_dist_owner {owner_ms:.4f} ms/call "
+              "(CUDA events)")
+        for key, (label, fn) in band_frames.items():
+            print(f"  sharded frame {WIDTH}x{H2} {label}, one card rendering "
+                  f"every band in turn: {event_ms(fn, 3):.4f} ms/frame (CUDA "
+                  "events, host dispatch included)")
         for key, name, inputs in light_runs:
             res = results[key]
             sfx = "" if name == "wide" else "_r2"
@@ -2651,7 +3160,9 @@ def main() -> int:
         "k7_bf16": ("light_tiled.cu",
                     "zrenderer_tpu/ops/light_kernel.py:227"),
         "k8": ("overlay.cu", "zrenderer_tpu/ops/overlay_raster.py:328"),
-        "k8b": ("overlay.cu", "zrenderer_tpu/ops/overlay_raster.py:467")}
+        "k8b": ("overlay.cu", "zrenderer_tpu/ops/overlay_raster.py:467"),
+        "k3b": ("raster_hier.cu", 976), "k9": ("raster_binned.cu", 2413),
+        "k9g": ("raster_binned.cu", 2501), "k9d": ("raster_binned.cu", 2701)}
     kernels = []
     for key, (src, line) in sources.items():
         res = results[key]

@@ -71,6 +71,25 @@
 // differ.  Bound on the H100: the per-pixel edge work over the shadow
 // map's (tile, triangle) pairs.
 
+// K9, K9g and K9d, the band kernels of the sharded frames, replace
+//   K9   rasterize_setup_pallas_binned_band (:2413; _binned_hbm_band_kernel
+//        :2388 and _binned_hbm_band_local_kernel :2400);
+//   K9g  rasterize_gbuffer_pallas_binned_band (:2501,
+//        _binned_hbm_gbuffer_band_kernel :2478);
+//   K9d  rasterize_setup_pallas_binned_band_dist (:2701,
+//        _binned_hbm_band_dist_kernel_factory :2686).
+// Each is K4's (K9g: K4g's) tile body over one band: the grid is the band's
+// tiles, a tile's pixel rows start at row_base + i * 32, and the outputs are
+// band-local (band_h, W) planes.  K9's spans are indexed by band tile (the
+// band-local prepare) or, with band_local = 0, by global tile
+// (row_base / 32 + i) * tiles_x + j; one entry point takes the flag.  K9d
+// streams n_src spans per tile, source by source, from offsets laid out
+// (n_src, band_tiles + 1) and rebased to the concatenated slabs, then the
+// leftover hierarchy.  The (z, row id) tie-break makes the order of the
+// spans free, so the bands equal the rows of K4's frame.  Bound on the
+// H100: as K4, the per-pixel edge work over the band's (tile, triangle)
+// pairs x 4096 x 26 ops; K9g adds its 13 output planes.
+
 #include "raster_common.cuh"
 
 namespace zr {
@@ -88,9 +107,11 @@ __device__ __forceinline__ bool record_hits(const int* __restrict__ r,
          __ldg(r + I_IMAX) >= row0 && __ldg(r + I_IMIN) < row0 + TILE_H;
 }
 
-// Phases 1, 1.5 and 2 of all eight kernels.  RECORDS: spans of gathered
-// records (K4/K4c/K4g) or of row ids (K6).  COARSE: run phase 1.5 over the
-// coarse class.
+// Phases 1, 1.5 and 2 of all twelve kernels.  RECORDS: spans of gathered
+// records (K4/K4c/K4g/K9/K9g/K9d) or of row ids (K6).  COARSE: run phase
+// 1.5 over the coarse class.  A band kernel passes row_base (its first
+// global row), list_base (the span index of its first tile: 0 for
+// band-local spans) and, for K9d, n_src span lists src_stride apart.
 template <bool RECORDS, bool COARSE, class State>
 __device__ __forceinline__ void binned_scan(
     State& st, const int* __restrict__ offsets,
@@ -98,19 +119,23 @@ __device__ __forceinline__ void binned_scan(
     const int* __restrict__ coffsets, const int* __restrict__ crec_i,
     const float* __restrict__ crec_f, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
-    const int* __restrict__ ti, const float* __restrict__ tf, int width) {
+    const int* __restrict__ ti, const float* __restrict__ tf, int width,
+    int row_base = 0, int list_base = 0, int n_src = 1, int src_stride = 0) {
   const int tiles_x = width / TILE_W;
   const int tile = blockIdx.x;
   const int ty = tile / tiles_x, tx = tile % tiles_x;
-  st.init(ty * TILE_H, tx * TILE_W);
+  st.init(row_base + ty * TILE_H, tx * TILE_W);
 
-  const int end = __ldg(offsets + tile + 1);
-  for (int k = __ldg(offsets + tile); k < end; ++k) {
-    if constexpr (RECORDS) {
-      const int* r = span_i + (size_t)k * REC_I;
-      st.eval_row(r, span_f + (size_t)k * NF32, __ldg(r + NI32));
-    } else {
-      st.eval(ti, tf, __ldg(span_i + k));
+  for (int s = 0; s < n_src; ++s) {
+    const int* offs = offsets + (size_t)s * src_stride + list_base + tile;
+    const int end = __ldg(offs + 1);
+    for (int k = __ldg(offs); k < end; ++k) {
+      if constexpr (RECORDS) {
+        const int* r = span_i + (size_t)k * REC_I;
+        st.eval_row(r, span_f + (size_t)k * NF32, __ldg(r + NI32));
+      } else {
+        st.eval(ti, tf, __ldg(span_i + k));
+      }
     }
   }
 
@@ -249,6 +274,53 @@ __global__ void __launch_bounds__(THREADS)
   st.store_depth(depth, width);
 }
 
+// K9: K4 over one band; list_base = 0 for band-local spans, else the
+// global span index of the band's first tile.
+__global__ void __launch_bounds__(THREADS) raster_records_band_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int row_base, int list_base) {
+  TileState<true> st;
+  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
+                           nullptr, supers, num_supers, blocks, ti, tf, width,
+                           row_base, list_base);
+  st.store(color, depth, width, row_base);
+}
+
+// K9g: K4g over one band (band-local spans); out holds GBUF_PLANES
+// (band_h, width) planes.
+__global__ void __launch_bounds__(THREADS) gbuffer_records_band_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    float* __restrict__ out, int width, int band_h, int row_base) {
+  TileState<true, true> st;
+  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
+                           nullptr, supers, num_supers, blocks, ti, tf, width,
+                           row_base);
+  st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * band_h,
+                         row_base);
+}
+
+// K9d: n_src band-local span lists, one per source shard.
+__global__ void __launch_bounds__(THREADS) raster_records_dist_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int row_base, int n_src) {
+  TileState<true> st;
+  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
+                           nullptr, supers, num_supers, blocks, ti, tf, width,
+                           row_base, 0, n_src, (int)gridDim.x + 1);
+  st.store(color, depth, width, row_base);
+}
+
 }  // namespace zr
 
 // K4 (coffsets == nullptr) or K4c.
@@ -339,5 +411,54 @@ extern "C" int zr_depth_lists(const int* offsets, const int* pair_tri,
   zr::depth_lists_kernel<<<num_tiles, zr::THREADS, 0,
                            (cudaStream_t)stream>>>(
       offsets, pair_tri, supers, num_supers, blocks, ti, tf, depth, width);
+  return (int)cudaGetLastError();
+}
+
+// K9: band_local = 1 for spans indexed by band tile, 0 for global tiles.
+extern "C" int zr_raster_records_band(const int* offsets, const int* rec_i,
+                                      const float* rec_f, const int* supers,
+                                      int num_supers, const int* blocks,
+                                      const int* ti, const float* tf,
+                                      int* color, float* depth, int band_h,
+                                      int width, int row_base, int band_local,
+                                      void* stream) {
+  const int tiles_x = width / zr::TILE_W;
+  const int num_tiles = (band_h / zr::TILE_H) * tiles_x;
+  const int list_base = band_local ? 0 : (row_base / zr::TILE_H) * tiles_x;
+  zr::raster_records_band_kernel<<<num_tiles, zr::THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, color, depth,
+      width, row_base, list_base);
+  return (int)cudaGetLastError();
+}
+
+// K9g.
+extern "C" int zr_gbuffer_records_band(const int* offsets, const int* rec_i,
+                                       const float* rec_f, const int* supers,
+                                       int num_supers, const int* blocks,
+                                       const int* ti, const float* tf,
+                                       float* out, int band_h, int width,
+                                       int row_base, void* stream) {
+  const int num_tiles = (band_h / zr::TILE_H) * (width / zr::TILE_W);
+  zr::gbuffer_records_band_kernel<<<num_tiles, zr::THREADS, 0,
+                                    (cudaStream_t)stream>>>(
+      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, out, width,
+      band_h, row_base);
+  return (int)cudaGetLastError();
+}
+
+// K9d: offsets (n_src, band_tiles + 1), rebased to the concatenated slabs.
+extern "C" int zr_raster_records_dist(const int* offsets, const int* rec_i,
+                                      const float* rec_f, const int* supers,
+                                      int num_supers, const int* blocks,
+                                      const int* ti, const float* tf,
+                                      int* color, float* depth, int band_h,
+                                      int width, int row_base, int n_src,
+                                      void* stream) {
+  const int num_tiles = (band_h / zr::TILE_H) * (width / zr::TILE_W);
+  zr::raster_records_dist_kernel<<<num_tiles, zr::THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, color, depth,
+      width, row_base, n_src);
   return (int)cudaGetLastError();
 }

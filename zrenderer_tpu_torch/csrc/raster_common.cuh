@@ -9,6 +9,10 @@
 // depth, u, v, nx, ny, nz, metallic, roughness, emissive r/g/b, layer); a
 // depth-only kernel (the shadow-map pass) writes the depth plane alone.
 //
+// A band kernel (K3b, K9, K9g, K9d) rasterizes the band_h rows from global
+// row row_base: the tile state's pixel math uses global rows, and the
+// stores write band-local rows (global row minus row_base).
+//
 // One CUDA block rasterizes one 32x128 screen tile.  Its 256 threads each
 // own one column and 16 rows of the tile (rows r0, r0 + 2, ...), and keep
 // the tile state for those pixels in registers across the whole triangle
@@ -213,11 +217,12 @@ struct TileState {
   }
 
   // Resolve: one IEEE divide per covered pixel, RGBA8 packed, alpha 255.
+  // The output's first row is global row row_base (a band's).
   __device__ __forceinline__ void store(int* __restrict__ color,
-                                        float* __restrict__ depth,
-                                        int width) const {
+                                        float* __restrict__ depth, int width,
+                                        int row_base = 0) const {
     const int col = col0 + (int)(threadIdx.x % TILE_W);
-    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
+    const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
       const bool covered = den[k] > 0.0f;
@@ -249,14 +254,15 @@ struct TileState {
   // reference's kernels differ in (sign of zero, NaN when a row passed
   // with den <= 0): buf * (covered ? inv : 0) for K2g, K4g and K5g,
   // covered ? buf * inv : 0 for K3g.  out holds GBUF_PLANES planes of
-  // plane floats each.
+  // plane floats each, its first row global row row_base.
   template <bool MASKED_INV>
   __device__ __forceinline__ void store_gbuffer(
       const int* __restrict__ ti, const float* __restrict__ tf,
-      float* __restrict__ out, int width, size_t plane) const {
+      float* __restrict__ out, int width, size_t plane,
+      int row_base = 0) const {
     static_assert(GBUF, "store_gbuffer needs the G-buffer state");
     const int col = col0 + (int)(threadIdx.x % TILE_W);
-    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
+    const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
       float d = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;

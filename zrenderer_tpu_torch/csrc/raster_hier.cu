@@ -49,6 +49,16 @@
 // H100: K3's per-pixel edge work over the (tile, triangle) pairs of the
 // shadow map.
 
+// K3b replaces rasterize_setup_pallas_band (:976, _band_kernel :967, body
+// _kernel_body with row_base): K3 over one horizontal band of a sharded
+// frame.  Its grid is the band's tiles; tile i's pixel rows start at
+// row_base + i * 32, so the edge functions see global rows, and the band's
+// (band_h, W) planes are stored band-local.  The same walk, test and
+// inputs as K3 (the gathered setup rows, compacted): its band equals rows
+// [row_base, row_base + band_h) of K3's frame.  Bound on the H100: as K3,
+// the per-pixel edge work over the band's (tile, triangle) pairs x 4096 x
+// 26 ops.
+
 #include "raster_common.cuh"
 
 namespace zr {
@@ -65,6 +75,22 @@ __global__ void __launch_bounds__(THREADS)
   st.init((tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
   st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
   st.store(color, depth, width);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    raster_hier_band_kernel(const int* __restrict__ supers, int num_supers,
+                            const int* __restrict__ blocks,
+                            const int* __restrict__ ti,
+                            const float* __restrict__ tf,
+                            int* __restrict__ color,
+                            float* __restrict__ depth, int width,
+                            int row_base) {
+  const int tiles_x = width / TILE_W;
+  const int tile = blockIdx.x;
+  TileState<false> st;
+  st.init(row_base + (tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
+  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
+  st.store(color, depth, width, row_base);
 }
 
 template <bool MASKED_INV>
@@ -163,5 +189,18 @@ extern "C" int zr_depth_hier(const int* supers, int num_supers,
   zr::depth_hier_kernel<<<num_tiles, zr::THREADS, 0,
                           (cudaStream_t)stream>>>(
       supers, num_supers, blocks, ti, tf, depth, width);
+  return (int)cudaGetLastError();
+}
+
+// K3b: the band_h rows from global row row_base.
+extern "C" int zr_raster_hier_band(const int* supers, int num_supers,
+                                   const int* blocks, const int* ti,
+                                   const float* tf, int* color, float* depth,
+                                   int band_h, int width, int row_base,
+                                   void* stream) {
+  const int num_tiles = (band_h / zr::TILE_H) * (width / zr::TILE_W);
+  zr::raster_hier_band_kernel<<<num_tiles, zr::THREADS, 0,
+                                (cudaStream_t)stream>>>(
+      supers, num_supers, blocks, ti, tf, color, depth, width, row_base);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels (``zrenderer_tpu_torch/csrc``): the flat
 raster kernels K1-K6, the G-buffer kernels K2g, K3g, K4g, K5g, K6g, the
-depth-only kernels K2d, K3d, K4d, K6d, the tiled light kernel K7 and the
-overlay kernels K8 (layered raster) and K8b (atlas composite).
+depth-only kernels K2d, K3d, K4d, K6d, the band kernels K3b, K9, K9g,
+K9d, the tiled light kernel K7 and the overlay kernels K8 (layered raster)
+and K8b (atlas composite).
 
 ``nvcc`` compiles each ``.cu`` file for ``sm_90a`` and links them into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
@@ -144,6 +145,17 @@ def load_library() -> ctypes.CDLL:
     lib.zr_depth_records.restype = i
     lib.zr_depth_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_depth_lists.restype = i
+    lib.zr_raster_hier_band.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
+    lib.zr_raster_hier_band.restype = i
+    lib.zr_raster_records_band.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
+                                           i, i, i, p]
+    lib.zr_raster_records_band.restype = i
+    lib.zr_gbuffer_records_band.argtypes = [p, p, p, p, i, p, p, p, p, i, i,
+                                            i, p]
+    lib.zr_gbuffer_records_band.restype = i
+    lib.zr_raster_records_dist.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
+                                           i, i, i, p]
+    lib.zr_raster_records_dist.restype = i
     lib.zr_light_tiled.argtypes = [p, i, p, p, p, i, p, i, p, i, i, p]
     lib.zr_light_tiled.restype = i
     lib.zr_overlay_raster.argtypes = [p, p, i, i, p, p, p, p, p, i, i, p]

@@ -1,10 +1,18 @@
-"""Column geometry stage in torch: transform -> capped clip -> snap -> setup.
+"""Geometry stage in torch: transform -> capped clip -> snap -> setup.
 
-Counterpart of the column path of ``zrenderer_tpu/ops/geometry.py``
-(``geometry_pipeline_cols``, ``clip_triangles_cols``, ``_setup_cols``) and
-of its binning helpers (``compact_triangles``, ``block_bounds``,
-``super_bounds``), plus the setup-row layout, the size rules and the
-per-frame view-projection it depends on.
+Counterpart of ``zrenderer_tpu/ops/geometry.py``: the column path
+(``geometry_pipeline_cols``, ``clip_triangles_cols``, ``_setup_cols``),
+the indexed path the sharded frames call (``geometry_pipeline`` with
+``transform_positions``, ``transform_normals``, ``assemble_triangles``, the
+capped and the dense clipper, the vertex-shader hook), the binning helpers
+(``compact_triangles``, ``block_bounds``, ``super_bounds``), plus the
+setup-row layout, the size rules and the per-frame view-projection they
+depend on.
+
+The indexed path transforms each vertex once, gathers the triangles'
+corners into the column form and shares the column path's clipper and
+setup: both only move the per-corner values, so its rows are the bits of
+the reference's indexed stage.
 
 Parity (docs/RASTER_SPEC.md §5): every f32 expression keeps the reference's
 association, and eager torch rounds after every op, so the port is
@@ -170,9 +178,6 @@ def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
     FAN_SLOTS * cap subset-fan rows, slot-major.
     """
     t = ccols.shape[1]
-    dev = ccols.device
-    cap = clip_cap_for(t) if clip_cap == "auto" else min(clip_cap, t)
-
     clip = _clip_positions(ccols, tri_node, matrices)  # (corner, j, T)
     attr = ccols.reshape(3, ATTR_FLOATS, t)[:, 4:]
     if normal_matrices is not None:
@@ -182,9 +187,29 @@ def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
                   + n[:, 2:3] * nm[2])  # (corner, j, T)
         attr = torch.cat([attr[:, :6], normal, attr[:, 9:]], dim=1)
     cols = torch.cat([clip, attr], dim=1)  # (corner, channel, T)
+    per_tri = None
+    if material_table is not None:
+        per_tri = (material_table if material_table.shape[0] == t
+                   else material_table[tri_node.long()])
+    return _clip_and_setup(cols, per_tri, width, height, clip_cap)
+
+
+def _clip_and_setup(cols, per_tri, width: int, height: int, clip_cap):
+    """Clip and set up (corner, channel, T) clip-space corner columns.
+    ``per_tri``: None or (T, MATERIAL_COLS) material constants.
+    ``clip_cap``: "auto", an int (the capped layout) or None (the dense
+    slot-major layout)."""
+    t = cols.shape[2]
+    dev = cols.device
+    if clip_cap is None:
+        fan, valid = clip_triangles_cols(cols, width, height)
+        consts = None if per_tri is None else per_tri.repeat(FAN_SLOTS, 1)
+        return _setup_cols(fan, valid, width, height,
+                           None if consts is None else consts.T.to(F32))
+    cap = clip_cap_for(t) if clip_cap == "auto" else min(clip_cap, t)
 
     # -- clip classification + capped subset selection.
-    needs, slot0_valid = _classify(clip, width, height)
+    needs, slot0_valid = _classify(cols[:, 0:4], width, height)
 
     # First ``cap`` crossing triangles in ascending order: slot j takes
     # the first i with cumsum(needs)[i] == j + 1 (no host sync).
@@ -199,13 +224,97 @@ def geometry_pipeline_cols(ccols, tri_node, matrices, width: int,
     valid = torch.cat([slot0_valid, valid_s])
 
     consts = None
-    if material_table is not None:
-        per_tri = (material_table if material_table.shape[0] == t
-                   else material_table[tri_node.long()])
+    if per_tri is not None:
         sub = per_tri[idx.long()]
         consts = torch.cat([per_tri, sub.repeat(FAN_SLOTS, 1)]).T.to(F32)
     return _setup_cols(torch.cat([cols, fan], dim=2), valid, width, height,
                        consts)
+
+
+# ---------------------------------------------------------------------------
+# Indexed geometry (per-vertex rows + triangle vertex indices)
+# ---------------------------------------------------------------------------
+
+
+def transform_positions(positions, matrices, node_ids):
+    """Object -> clip transform of (N, 4) positions by each vertex's draw
+    matrix (row-vector: p @ M), as explicit multiply-adds in the
+    reference's association.  ``node_ids``: (N,) i32."""
+    m = matrices.reshape(-1, 16)[node_ids.long()].reshape(-1, 4, 4)
+    p = positions
+    return ((p[:, 0:1] * m[:, 0] + p[:, 1:2] * m[:, 1])
+            + (p[:, 2:3] * m[:, 2] + p[:, 3:4] * m[:, 3]))
+
+
+def transform_normals(attrs, normal_matrices, node_ids):
+    """Rotate the (N, 12) attrs' normals (channels 6:9) by each vertex's
+    (3, 3) draw normal matrix (row-vector: n @ NM)."""
+    nm = normal_matrices.reshape(-1, 9)[node_ids.long()].reshape(-1, 3, 3)
+    n = attrs[:, 6:9]
+    out = (n[:, 0:1] * nm[:, 0] + n[:, 1:2] * nm[:, 1]) + n[:, 2:3] * nm[:, 2]
+    return torch.cat([attrs[:, 0:6], out, attrs[:, 9:]], dim=1)
+
+
+def assemble_triangles(clip_pos, attrs, tri_vidx):
+    """(T, 3, ATTR_FLOATS) corners: clip position in channels 0:4, then
+    the attrs, gathered by the (T, 3) vertex indices."""
+    merged = torch.cat([clip_pos, attrs], dim=-1)
+    return merged[tri_vidx.long()]
+
+
+def _indexed_corners(positions, attrs, tri_vidx, matrices, node_ids,
+                     normal_matrices=None, vertex_shader=None):
+    """(corner, channel, T) clip-space corner columns of the indexed
+    inputs: the vertex shader (object space), the transform, the normals,
+    the corner gather."""
+    if vertex_shader is not None:
+        positions, attrs = vertex_shader(positions, attrs)
+    clip_pos = transform_positions(positions, matrices, node_ids)
+    if normal_matrices is not None:
+        attrs = transform_normals(attrs, normal_matrices, node_ids)
+    return assemble_triangles(clip_pos, attrs, tri_vidx).permute(1, 2, 0)
+
+
+def geometry_pipeline(positions, attrs, tri_vidx, matrices, node_ids,
+                      width: int, height: int, normal_matrices=None,
+                      material_table=None, vertex_shader=None,
+                      clip_cap="auto"):
+    """Indexed geometry stage (the reference's ``geometry_pipeline`` with
+    per-vertex rows).
+
+    ``positions`` (N, 4) and ``attrs`` (N, 12) f32 per-vertex rows,
+    ``tri_vidx`` (T, 3) i32, ``matrices`` (D, 4, 4) f32 object_to_clip per
+    draw, ``node_ids`` (N,) i32 each vertex's draw.  ``normal_matrices``:
+    optional (D, 3, 3).  ``material_table``: optional (T, MATERIAL_COLS)
+    per-triangle or (D, MATERIAL_COLS) per-draw rows (a triangle takes its
+    vertex 0's draw).  ``vertex_shader``: optional ``fn(positions (N, 4),
+    attrs (N, 12)) -> (positions, attrs)`` on torch tensors, applied in
+    object space before the transform.  ``clip_cap``: "auto" or an int
+    for the capped layout (``capped_rows(T)`` rows: T slot-0 rows, then
+    FAN_SLOTS * cap subset-fan rows, slot-major), None for the dense
+    slot-major FAN_SLOTS * T layout.  Returns (tri_i32, tri_f32)."""
+    cols = _indexed_corners(positions, attrs, tri_vidx, matrices, node_ids,
+                            normal_matrices, vertex_shader)
+    per_tri = None
+    if material_table is not None:
+        t = tri_vidx.shape[0]
+        per_tri = (material_table if material_table.shape[0] == t
+                   else material_table[node_ids[tri_vidx[:, 0].long()].long()])
+    return _clip_and_setup(cols, per_tri, width, height, clip_cap)
+
+
+def clip_overflow_count_indexed(positions, attrs, tri_vidx, matrices,
+                                node_ids, width: int, height: int,
+                                clip_cap="auto", vertex_shader=None):
+    """``clip_overflow_count`` of the indexed inputs: the crossing
+    triangles the capped clipper drops, ``max(n_crossing - cap, 0)`` as an
+    int32 device scalar."""
+    t = tri_vidx.shape[0]
+    cap = clip_cap_for(t) if clip_cap == "auto" else min(clip_cap, t)
+    cols = _indexed_corners(positions, attrs, tri_vidx, matrices, node_ids,
+                            vertex_shader=vertex_shader)
+    needs, _ = _classify(cols[:, 0:4], width, height)
+    return torch.clamp_min(needs.sum(dtype=I32) - cap, 0)
 
 
 def _clip_positions(ccols, tri_node, matrices):

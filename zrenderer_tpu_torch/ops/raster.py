@@ -38,6 +38,21 @@ alone under the strict-less test and write one f32 plane (``render_depth``
 dispatches them, and takes K5's depth plane for ``hierarchy`` above the
 row bound).
 
+The band kernels of the sharded frames (``zrenderer_tpu_torch/parallel``)
+rasterize one horizontal band of ``band_h`` rows starting at global row
+``row0`` into a (band_h, W) output:
+
+* K3b (``rasterize_setup_pallas_band``): K3 over one band;
+* K9 (``rasterize_setup_pallas_binned_band``): K4 over one band, with the
+  band-local prepare (``band_ty0``/``band_tiles_y``: bboxes clamped to the
+  band, keys band-local) or the full-frame one (spans indexed by global
+  tile);
+* K9g (``rasterize_gbuffer_pallas_binned_band``): K4g over one band;
+* K9d (``rasterize_setup_pallas_binned_band_dist``): K4 over one band
+  whose records come from every triangle shard
+  (``prepare_binned_dist_local`` on each shard, one all-to-all), one span
+  per source, then the hierarchy over the rows no shard listed.
+
 Each kernel has a plain torch version beside it taking the same prepared
 inputs.  The ``rasterize_setup*`` wrappers take the plain version only for
 CPU tensors; for CUDA tensors they launch the kernel or raise.  Each
@@ -124,6 +139,14 @@ COARSE_CB = 4
 TILE_LISTS_COARSE_CAP = 8
 
 BINNINGS = ("auto", "small", "hierarchy", "tile_lists")
+
+# Sharded frames: the band prepare's pair budget shrinks with the band
+# count (``band_pair_budget``), and the distributed prepare sends each band
+# owner at most DIST_SLAB_RECORDS records per source shard, rounded up to
+# REC_ALIGN (the reference's slab granularity, which is part of the
+# budget's semantics).
+DIST_SLAB_RECORDS = 1 << 15
+REC_ALIGN = 256
 
 _INT_MAX = 2**31 - 1
 _ALPHA_BITS = -(1 << 24)  # 0xFF000000 as int32
@@ -326,13 +349,31 @@ def prepare_binned_inputs(tri_i32, tri_f32, width: int, height: int,
     return offsets, pair_tri, supers, blocks, hier, tri_f32
 
 
+def hbm_cap_for(n_head: int) -> int:
+    """The record prepares' auto cap for ``n_head`` head rows: more
+    generous than K6's, as the record budget clamps the listing."""
+    return int(min(256, max(4, (4 * HBM_PAIR_BUDGET) // max(n_head, 1))))
+
+
 def prepare_binned_hbm_inputs(tri_i32, tri_f32, width: int, height: int,
                               cap: int | None = None,
                               pair_budget: int | None = None,
                               coarse_cap: int | None = None,
-                              coarse_budget: int | None = None):
+                              coarse_budget: int | None = None,
+                              n_head: int | None = None,
+                              band_ty0: int | None = None,
+                              band_tiles_y: int | None = None):
     """K4 prepare: pair lists as in K6, clamped to a record budget, with
     each pair's setup record gathered in pair order.
+
+    ``n_head``: the leading head rows, by default ``head_count`` of the
+    rows; the sharded frames' gathered layout (n shards of
+    ``capped_rows(shard_tris)``) does not invert that way and passes its
+    true count.  ``band_ty0``/``band_tiles_y``: the band-local lists of K9
+    and K9g, for the ``band_tiles_y`` tile rows from tile row ``band_ty0``:
+    each bbox's tile rows are clamped to the band, keys are band-local, a
+    row whose in-band footprint fits ``cap`` is listed, and the offsets
+    span the band's tiles.  The coarse class is full-frame only.
 
     Returns (offsets, rec_i, rec_f, supers, blocks, hier, tri_f32,
     coarse).  Tile t owns records [offsets[t], offsets[t+1]); rec_i is
@@ -346,18 +387,31 @@ def prepare_binned_hbm_inputs(tri_i32, tri_f32, width: int, height: int,
     tiles_x = width // TILE_W
     tiles_y = height // TILE_H
     num_tiles = tiles_x * tiles_y
-    n_input = head_count(tri_i32.shape[0])
+    n_input = head_count(tri_i32.shape[0]) if n_head is None else n_head
     if cap is None:
-        cap = int(min(256, max(4, (4 * HBM_PAIR_BUDGET) // max(n_input, 1))))
+        cap = hbm_cap_for(n_input)
     if pair_budget is None:
         pair_budget = HBM_PAIR_BUDGET
     tri_i32, tri_f32 = _pad_rows(tri_i32, tri_f32)
     valid, tj0, tj1, ty0, ty1 = _tile_span(tri_i32[:n_input])
+    ty_key = ty0
+    if band_tiles_y is not None:
+        if coarse_cap is not None:
+            raise ValueError("the coarse class is full-frame only")
+        if not 0 <= band_ty0 <= tiles_y - band_tiles_y:
+            raise ValueError(f"band of {band_tiles_y} tile rows at tile row "
+                             f"{band_ty0} outside {tiles_y}")
+        num_tiles = tiles_x * band_tiles_y
+        ty0 = torch.clamp_min(ty0, band_ty0)
+        ty1 = torch.clamp_max(ty1, band_ty0 + band_tiles_y - 1)
+        valid = valid & (ty0 <= ty1)
+        ty_key = ty0 - band_ty0
     ntx = tj1 - tj0 + 1
     foot = ntx * (ty1 - ty0 + 1)
     k_budget = min(pair_budget, n_input * cap)
     listed = _prefix_clamp(valid & (foot <= cap), foot, k_budget)
-    keys = _pair_keys(listed, foot, ntx, ty0, tj0, cap, tiles_x, num_tiles)
+    keys = _pair_keys(listed, foot, ntx, ty_key, tj0, cap, tiles_x,
+                      num_tiles)
     sorted_tri, offsets = pair_value_sort(keys, cap, num_tiles)
     # Valid pairs sort first and number at most k_budget: only those
     # slots need records.
@@ -385,6 +439,119 @@ def prepare_binned_hbm_inputs(tri_i32, tri_f32, width: int, height: int,
     return offsets, rec_i, rec_f, supers, blocks, hier, tri_f32, coarse
 
 
+def band_pair_budget(n_bands: int) -> int:
+    """K9/K9g's per-band pair budget: the full-frame budget split across
+    the bands with 2x headroom for density imbalance, at least 65536."""
+    return max(2 * HBM_PAIR_BUDGET // max(n_bands, 1), 1 << 16)
+
+
+def dist_slab_rows(slab_records: int) -> int:
+    """Records a (source, band) slab holds: ``slab_records`` rounded up to
+    REC_ALIGN.  (The reference adds one streaming window of margin rows
+    for its DMA reads; no kernel here reads past a span.)"""
+    return -(-slab_records // REC_ALIGN) * REC_ALIGN
+
+
+def prepare_binned_dist_local(ti_local, tf_local, width: int, height: int,
+                              n_bands: int, shard_index: int,
+                              shard_head: int,
+                              slab_records: int | None = None):
+    """One triangle shard's half of K9d's prepare, before the all-to-all.
+
+    ``ti_local``/``tf_local``: the shard's capped-layout setup rows for
+    ``shard_head`` triangles; its head rows have canonical ids
+    ``shard_index * shard_head + row``.  A head row is listed when its
+    full-frame footprint fits the auto cap of the n_bands * shard_head
+    gathered head rows (``prepare_binned_hbm_inputs``'); it is sent to
+    band b when its whole footprint in b still fits b's slab (an exact
+    prefix over the shard's rows, whole triangles per band; a footprint
+    clamped empty counts 0).
+
+    Returns (rec_i (n_bands, R, NI32 + 1) i32 with the canonical id last,
+    rec_f (n_bands, R, NF32) f32, offs (n_bands, band_tiles + 1) i32 the
+    slab-local record spans, listed_send (n_bands, shard_head) bool), R =
+    ``dist_slab_rows(slab_records)``: piece b of each goes to band b's
+    owner."""
+    _check_frame(width, height)
+    tiles_x = width // TILE_W
+    tiles_y = height // TILE_H
+    num_tiles = tiles_x * tiles_y
+    if tiles_y % n_bands:
+        raise ValueError(f"{tiles_y} tile rows do not split into {n_bands} "
+                         "bands")
+    bty = tiles_y // n_bands
+    band_tiles = tiles_x * bty
+    slab = dist_slab_rows(DIST_SLAB_RECORDS if slab_records is None
+                          else slab_records)
+    cap = hbm_cap_for(shard_head * n_bands)
+    dev = ti_local.device
+    valid, tj0, tj1, ty0, ty1 = _tile_span(ti_local[:shard_head])
+    ntx = tj1 - tj0 + 1
+    foot = ntx * (ty1 - ty0 + 1)
+    listed = valid & (foot <= cap)
+
+    band_lo = torch.arange(n_bands, dtype=I32, device=dev) * bty
+    cty0 = torch.maximum(ty0[:, None], band_lo[None, :])
+    cty1 = torch.minimum(ty1[:, None], band_lo[None, :] + (bty - 1))
+    ntyb = cty1 - cty0 + 1
+    footb = torch.where(ntyb > 0, ntx[:, None] * ntyb, 0).clamp(min=0)
+    used = torch.cumsum(torch.where(listed[:, None], footb, 0), dim=0)
+    fits = used <= slab  # (shard_head, n_bands)
+    listed_send = (listed[:, None] & fits).T.contiguous()
+
+    # Pair keys over full-frame tiles; a cell is kept when its band's slab
+    # took the row.
+    e = torch.arange(cap, dtype=I32, device=dev)[None, :]
+    nx = torch.where(ntx == 0, 1, ntx)[:, None]
+    cell_ty = ty0[:, None] + e // nx
+    cell_b = cell_ty // bty
+    in_range = (cell_b >= 0) & (cell_b < n_bands)
+    fit_e = torch.gather(fits, 1, cell_b.clamp(0, n_bands - 1).long())
+    ok = listed[:, None] & (e < foot[:, None]) & in_range & fit_e
+    keys = torch.where(ok, cell_ty * tiles_x + (tj0[:, None] + e % nx),
+                       num_tiles).reshape(-1)
+    sorted_tri, offsets_full = pair_value_sort(keys, cap, num_tiles)
+
+    # The sorted pairs are band-contiguous: band b's slab is the next R
+    # pairs from its first (rows past its span repeat the last pair).
+    bands = torch.arange(n_bands, device=dev)
+    band_starts = offsets_full[bands * band_tiles].long()
+    seg = bands[:, None] * band_tiles + torch.arange(band_tiles + 1,
+                                                     device=dev)[None, :]
+    offs = (offsets_full[seg] - band_starts[:, None]).to(I32)
+    idx = torch.clamp(band_starts[:, None]
+                      + torch.arange(slab, device=dev)[None, :],
+                      0, keys.shape[0] - 1)
+    rows = sorted_tri[idx].long()  # (n_bands, R) local head rows
+    pid = (rows + shard_index * shard_head).to(I32)
+    rec_i = torch.cat([ti_local[rows], pid[..., None]], dim=-1)
+    return rec_i, tf_local[rows], offs, listed_send
+
+
+def prepare_binned_dist_owner(ti, tf, listed_mask, rec_i, rec_f, offs):
+    """The band owner's half of K9d's prepare, after the all-to-all.
+
+    ``ti``/``tf``: the gathered setup rows in canonical order;
+    ``listed_mask``: (n_head,) bool, the head rows some shard sent this
+    band; ``rec_i``/``rec_f``/``offs``: the received (n_src, R, ...) slabs
+    and (n_src, band_tiles + 1) spans, stacked by source shard.
+
+    Returns (offsets (n_src, band_tiles + 1) i32 rebased to the
+    concatenated records, rec_i (n_src * R, NI32 + 1), rec_f
+    (n_src * R, NF32), supers, blocks, hier, tf, None): ``hier`` the
+    padded rows with the listed rows' bboxes emptied, for the leftover
+    hierarchy; no coarse class, as ``prepare_binned_hbm_inputs``' band
+    lists."""
+    n_src, r = rec_i.shape[:2]
+    base = torch.arange(n_src, dtype=I32, device=offs.device)[:, None] * r
+    offsets = (offs + base).to(I32).contiguous()
+    ti, tf = _pad_rows(ti, tf)
+    supers, blocks, hier = _leftover_rows(ti, listed_mask)
+    return (offsets, rec_i.reshape(n_src * r, NI32 + 1).contiguous(),
+            rec_f.reshape(n_src * r, NF32).contiguous(), supers, blocks,
+            hier, tf, None)
+
+
 # ---------------------------------------------------------------------------
 # Plain torch versions of the kernels
 # ---------------------------------------------------------------------------
@@ -405,9 +572,12 @@ GBUFFER_PLANES = 2 + len(_GBUF_LATCHES) + len(_CONSTS)
 
 
 def _tile_planes(tiles_y: int, tiles_x: int, tie: bool, device,
-                 gbuffer: bool = False, depth: bool = False):
+                 gbuffer: bool = False, depth: bool = False,
+                 ty_base: int = 0):
     """Tile state: z, the row id with ``tie``, and the latches (none for
-    ``depth``, the depth-only kernels; the lit ones too for ``gbuffer``)."""
+    ``depth``, the depth-only kernels; the lit ones too for ``gbuffer``).
+    ``ty_base``: the global tile row of the planes' first tile row (a
+    band's)."""
     shape = (tiles_y, tiles_x, TILE_H, TILE_W)
     planes = {"z": torch.ones(shape, dtype=F32, device=device)}
     if tie:
@@ -421,7 +591,7 @@ def _tile_planes(tiles_y: int, tiles_x: int, tie: bool, device,
     tx = torch.arange(tiles_x, dtype=I32, device=device)[None, :, None, None]
     iy = torch.arange(TILE_H, dtype=I32, device=device)[:, None]
     ix = torch.arange(TILE_W, dtype=I32, device=device)[None, :]
-    py = (ty * TILE_H + iy) * SUBPIXEL + half  # (ty, 1, TILE_H, 1)
+    py = ((ty + ty_base) * TILE_H + iy) * SUBPIXEL + half  # (ty, 1, TILE_H, 1)
     px = (tx * TILE_W + ix) * SUBPIXEL + half  # (1, tx, 1, TILE_W)
     return planes, py, px
 
@@ -475,10 +645,11 @@ def _eval_rows(planes, sel, py, px, ri, rf, tid, emask, tie: bool):
             planes[name][sel] = torch.where(ok, fc(c), planes[name][sel])
 
 
-def _scan_rows(planes, py, px, ti, tf, tie: bool):
+def _scan_rows(planes, py, px, ti, tf, tie: bool, ty_base: int = 0):
     """Every row with a non-empty bbox, in row order, over the tiles its
     bbox touches (the kernels' superblock/block skips never drop such a
-    row: a row with a non-empty bbox is valid, so it is in both unions)."""
+    row: a row with a non-empty bbox is valid, so it is in both unions).
+    ``ty_base``: the planes' first global tile row."""
     tiles_y, tiles_x = py.shape[0], px.shape[1]
     bbox = ti[:, [I_JMIN, I_JMAX, I_IMIN, I_IMAX]].cpu()
     rows = torch.nonzero((bbox[:, 0] <= bbox[:, 1])
@@ -486,7 +657,8 @@ def _scan_rows(planes, py, px, ti, tf, tie: bool):
     for r in rows:
         jmin, jmax, imin, imax = bbox[r].tolist()
         tx0, tx1 = max(jmin // TILE_W, 0), min(jmax // TILE_W, tiles_x - 1)
-        ty0, ty1 = max(imin // TILE_H, 0), min(imax // TILE_H, tiles_y - 1)
+        ty0 = max(imin // TILE_H - ty_base, 0)
+        ty1 = min(imax // TILE_H - ty_base, tiles_y - 1)
         if tx0 > tx1 or ty0 > ty1:
             continue
         sel = (slice(ty0, ty1 + 1), slice(tx0, tx1 + 1))
@@ -580,13 +752,14 @@ def gbuffer_small_plain(counts, lists, supers, blocks, ti, tf,
 
 
 def _hier_planes(ti, tf, width: int, height: int, gbuffer: bool,
-                 depth: bool = False):
-    """K3/K5/K3g/K5g/K3d tile planes: rows in submission order, strict-less
-    depth test, per-tile bbox masks."""
+                 depth: bool = False, row0: int = 0):
+    """K3/K5/K3g/K5g/K3d tile planes (K3b: the ``height`` rows from global
+    row ``row0``): rows in submission order, strict-less depth test,
+    per-tile bbox masks."""
     _check_frame(width, height)
     planes, py, px = _tile_planes(height // TILE_H, width // TILE_W, False,
-                                  ti.device, gbuffer, depth)
-    _scan_rows(planes, py, px, ti, tf, tie=False)
+                                  ti.device, gbuffer, depth, row0 // TILE_H)
+    _scan_rows(planes, py, px, ti, tf, tie=False, ty_base=row0 // TILE_H)
     return planes
 
 
@@ -611,7 +784,7 @@ def gbuffer_hbm_plain(supers, blocks, ti, tf, width: int, height: int):
 
 
 def _stream_spans(planes, py, px, offsets, bins, rec_i, rec_f,
-                  masked: bool, tie: bool = True):
+                  masked: bool, tie: bool = True, ty_base: int = 0):
     """Each tile's record span [offsets[b], offsets[b + 1]), b = bins[ty,
     tx], stepping the span position k over all tiles at once with the
     (z, row id) tie-break (``tie``) or the strict-less test.  ``masked``:
@@ -621,7 +794,8 @@ def _stream_spans(planes, py, px, offsets, bins, rec_i, rec_f,
     count = offsets[bins + 1].long() - start
     everything = (slice(None), slice(None))
     tiles_y, tiles_x = bins.shape
-    row0 = torch.arange(tiles_y, device=bins.device)[:, None] * TILE_H
+    row0 = (torch.arange(tiles_y, device=bins.device)[:, None]
+            + ty_base) * TILE_H
     col0 = torch.arange(tiles_x, device=bins.device)[None, :] * TILE_W
     for k in range(int(count.max().item())):
         active = count > k
@@ -638,20 +812,30 @@ def _stream_spans(planes, py, px, offsets, bins, rec_i, rec_f,
 
 
 def _binned_planes(offsets, rec_i, rec_f, hier, tf, coarse, width: int,
-                   height: int, gbuffer: bool, depth: bool = False):
+                   height: int, gbuffer: bool, depth: bool = False,
+                   row0: int = 0, band_local: bool = True):
     """K4/K4c/K4g/K4d tile planes: phase 1 the tiles' record spans, phase
     1.5 (with ``coarse``) the coarse bins' spans under a per-record bbox
     test, phase 2 the rows left in ``hier``; every phase with the (z, row
-    id) tie-break, or with ``depth`` the strict-less test in that order."""
+    id) tie-break, or with ``depth`` the strict-less test in that order.
+
+    K9/K9g/K9d: the ``height`` rows from global row ``row0``; the offsets
+    index the band's tiles (``band_local``) or the frame's; 2-D offsets
+    (n_src, band_tiles + 1) are one span list per source, streamed in
+    source order (K9d)."""
     _check_frame(width, height)
     tiles_y, tiles_x = height // TILE_H, width // TILE_W
     dev = hier.device
     tie = not depth
-    planes, py, px = _tile_planes(tiles_y, tiles_x, tie, dev, gbuffer, depth)
+    ty_base = row0 // TILE_H
+    planes, py, px = _tile_planes(tiles_y, tiles_x, tie, dev, gbuffer, depth,
+                                  ty_base)
     ty = torch.arange(tiles_y, device=dev)[:, None]
     tx = torch.arange(tiles_x, device=dev)[None, :]
-    _stream_spans(planes, py, px, offsets, ty * tiles_x + tx, rec_i, rec_f,
-                  masked=False, tie=tie)
+    bins = (ty if band_local else ty + ty_base) * tiles_x + tx
+    for offs in (offsets if offsets.ndim == 2 else offsets[None]):
+        _stream_spans(planes, py, px, offs, bins, rec_i, rec_f, masked=False,
+                      tie=tie, ty_base=ty_base)
     if coarse is not None:
         coffsets, crec_i, crec_f = coarse
         ctiles_x, num_cbins = _coarse_grid(tiles_x, tiles_y)
@@ -660,7 +844,7 @@ def _binned_planes(offsets, rec_i, rec_f, hier, tf, coarse, width: int,
         _stream_spans(planes, py, px, coffsets,
                       (ty // COARSE_CB) * ctiles_x + tx // COARSE_CB,
                       crec_i, crec_f, masked=True, tie=tie)
-    _scan_rows(planes, py, px, hier, tf, tie=tie)
+    _scan_rows(planes, py, px, hier, tf, tie=tie, ty_base=ty_base)
     return planes
 
 
@@ -738,6 +922,43 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
     rec_i, rec_f = _gather_records(hier, tf, pair_tri)
     return depth_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier,
                               tf, None, width, height)
+
+
+# Band plain versions: the (band_h, W) rows from global row ``row0``.
+
+
+def raster_hier_band_plain(supers, blocks, ti, tf, width: int, band_h: int,
+                           row0: int):
+    """Plain torch K3b: K3 over one band."""
+    del supers, blocks
+    return _resolve_planes(_hier_planes(ti, tf, width, band_h, False,
+                                        row0=row0))
+
+
+def raster_binned_band_plain(offsets, rec_i, rec_f, supers, blocks, hier,
+                             tf, coarse, width: int, band_h: int, row0: int,
+                             band_local: bool = True):
+    """Plain torch K9: K4 over one band, spans indexed by band tile
+    (``band_local``) or by global tile.  Also plain K9d over
+    ``prepare_binned_dist_owner``'s outputs: its (n_src, band_tiles + 1)
+    offsets stream each tile's span from every source in source order."""
+    del supers, blocks
+    if coarse is not None:
+        raise ValueError("K9 takes no coarse class")
+    return _resolve_planes(_binned_planes(
+        offsets, rec_i, rec_f, hier, tf, None, width, band_h, False,
+        row0=row0, band_local=band_local))
+
+
+def gbuffer_binned_band_plain(offsets, rec_i, rec_f, supers, blocks, hier,
+                              tf, coarse, width: int, band_h: int, row0: int):
+    """Plain torch K9g: K4g over one band (band-local spans)."""
+    del supers, blocks
+    if coarse is not None:
+        raise ValueError("K9g takes no coarse class")
+    return _resolve_gbuffer(_binned_planes(
+        offsets, rec_i, rec_f, hier, tf, None, width, band_h, True,
+        row0=row0), masked_inv=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1083,6 +1304,132 @@ def depth_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
     return out
 
 
+def _check_band(width: int, band_h: int, row0: int,
+                full_height: int | None = None):
+    """A band of ``band_h`` rows from global row ``row0``: tile-aligned
+    and, with ``full_height``, inside the frame."""
+    _check_frame(width, band_h)
+    if row0 < 0 or row0 % TILE_H or (full_height is not None and (
+            full_height % TILE_H or row0 + band_h > full_height)):
+        raise ValueError(f"band of {band_h} rows at row {row0}: a multiple "
+                         f"of {TILE_H} inside the {full_height}-row frame")
+
+
+def _run_band(fn, dev, width: int, band_h: int, row0: int, *args,
+              gbuffer: bool = False, extra=()):
+    """Allocate a band's (color, depth) planes, or its GBUFFER_PLANES
+    planes, and launch ``fn(*args, outputs..., band_h, width, row0,
+    *extra, stream)`` on the current stream of ``dev``."""
+    if gbuffer:
+        outs = [torch.empty((GBUFFER_PLANES, band_h, width), dtype=F32,
+                            device=dev)]
+    else:
+        outs = [torch.empty((band_h, width), dtype=I32, device=dev),
+                torch.empty((band_h, width), dtype=F32, device=dev)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(fn, *args, *(_ptr(t) for t in outs), band_h, width, row0,
+                *extra, ctypes.c_void_p(stream))
+    if gbuffer:
+        return [outs[0][0].view(I32), *outs[0][1:]]
+    return tuple(outs)
+
+
+def raster_hier_band_kernel(supers, blocks, ti, tf, width: int, band_h: int,
+                            row0: int):
+    """Launch K3b (``csrc/raster_hier.cu``): K3 over the ``band_h`` rows
+    from global row ``row0``, at any row count (like K5); returns the
+    band's (color, depth)."""
+    _check_band(width, band_h, row0)
+    _require_cuda(ti.device, None, supers=supers, blocks=blocks, ti=ti,
+                  tf=tf)
+    out = _run_band(_build.load_library().zr_raster_hier_band, ti.device,
+                    width, band_h, row0, _ptr(supers), supers.shape[0],
+                    _ptr(blocks), _ptr(ti), _ptr(tf))
+    raster_hier_band_kernel.launches += 1
+    return out
+
+
+def _band_records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                       coarse, width: int, band_h: int, row0: int,
+                       band_local: bool = True):
+    """Check K9/K9g/K9d inputs; returns the launch arguments before the
+    outputs.  ``offsets``: (band_tiles + 1,) band-local spans, with
+    ``band_local=False`` (tiles_x * tiles_y + 1,) spans of a frame that
+    holds the band, or (n_src, band_tiles + 1) spans per source (K9d)."""
+    _check_band(width, band_h, row0)
+    if coarse is not None:
+        raise ValueError("the band kernels take no coarse class")
+    tiles_x = width // TILE_W
+    band_tiles = tiles_x * (band_h // TILE_H)
+    if offsets.ndim == 2:
+        if offsets.shape[1] != band_tiles + 1:
+            raise ValueError(f"offsets: (n_src, {band_tiles + 1}) expected, "
+                             f"got {tuple(offsets.shape)}")
+        _require_spans(offsets[0], band_tiles, rec_i, rec_f)
+    elif band_local:
+        _require_spans(offsets, band_tiles, rec_i, rec_f)
+    else:
+        bins = offsets.shape[0] - 1
+        if bins % tiles_x or bins < (row0 + band_h) // TILE_H * tiles_x:
+            raise ValueError(f"offsets: {bins} tiles do not hold the band "
+                             f"of {band_h} rows at row {row0}")
+        _require_spans(offsets, bins, rec_i, rec_f)
+    _require_cuda(hier.device, None, offsets=offsets, rec_i=rec_i,
+                  rec_f=rec_f, supers=supers, blocks=blocks, ti=hier, tf=tf)
+    return (_ptr(offsets), _ptr(rec_i), _ptr(rec_f), _ptr(supers),
+            supers.shape[0], _ptr(blocks), _ptr(hier), _ptr(tf))
+
+
+def raster_binned_band_kernel(offsets, rec_i, rec_f, supers, blocks, hier,
+                              tf, coarse, width: int, band_h: int, row0: int,
+                              band_local: bool = True):
+    """Launch K9 (``csrc/raster_binned.cu``): K4 over the ``band_h`` rows
+    from global row ``row0``, the spans indexed by band tile
+    (``band_local``) or by global tile."""
+    if offsets.ndim != 1:
+        raise ValueError("K9 takes one span list; K9d takes one per source")
+    args = _band_records_args(offsets, rec_i, rec_f, supers, blocks, hier,
+                              tf, coarse, width, band_h, row0, band_local)
+    out = _run_band(_build.load_library().zr_raster_records_band,
+                    hier.device, width, band_h, row0, *args,
+                    extra=(int(band_local),))
+    raster_binned_band_kernel.launches += 1
+    return out
+
+
+def gbuffer_binned_band_kernel(offsets, rec_i, rec_f, supers, blocks, hier,
+                               tf, coarse, width: int, band_h: int,
+                               row0: int):
+    """Launch K9g (``csrc/raster_binned.cu``): K4g over one band
+    (band-local spans); returns the GBUFFER_PLANES (band_h, W) planes."""
+    if offsets.ndim != 1:
+        raise ValueError("K9g takes one span list")
+    args = _band_records_args(offsets, rec_i, rec_f, supers, blocks, hier,
+                              tf, coarse, width, band_h, row0)
+    out = _run_band(_build.load_library().zr_gbuffer_records_band,
+                    hier.device, width, band_h, row0, *args, gbuffer=True)
+    gbuffer_binned_band_kernel.launches += 1
+    return out
+
+
+def raster_binned_band_dist_kernel(offsets, rec_i, rec_f, supers, blocks,
+                                   hier, tf, coarse, width: int, band_h: int,
+                                   row0: int):
+    """Launch K9d (``csrc/raster_binned.cu``) over
+    ``prepare_binned_dist_owner``'s outputs: every source's span of each
+    tile in source order, then the leftover hierarchy."""
+    if offsets.ndim != 2:
+        raise ValueError("K9d takes (n_src, band_tiles + 1) offsets")
+    args = _band_records_args(offsets, rec_i, rec_f, supers, blocks, hier,
+                              tf, coarse, width, band_h, row0)
+    out = _run_band(_build.load_library().zr_raster_records_dist,
+                    hier.device, width, band_h, row0, *args,
+                    extra=(offsets.shape[0],))
+    raster_binned_band_dist_kernel.launches += 1
+    return out
+
+
 KERNELS = (raster_small_kernel, raster_hier_kernel, raster_hbm_kernel,
            raster_binned_kernel, raster_binned_coarse_kernel,
            raster_lists_kernel)
@@ -1091,7 +1438,9 @@ GBUFFER_KERNELS = (gbuffer_small_kernel, gbuffer_hier_kernel,
                    gbuffer_lists_kernel)
 DEPTH_KERNELS = (depth_small_kernel, depth_hier_kernel, depth_binned_kernel,
                  depth_lists_kernel)
-for _kernel in KERNELS + GBUFFER_KERNELS + DEPTH_KERNELS:
+BAND_KERNELS = (raster_hier_band_kernel, raster_binned_band_kernel,
+                gbuffer_binned_band_kernel, raster_binned_band_dist_kernel)
+for _kernel in KERNELS + GBUFFER_KERNELS + DEPTH_KERNELS + BAND_KERNELS:
     _kernel.launches = 0
 del _kernel
 
@@ -1412,3 +1761,75 @@ def render_depth(ccols, tri_node, matrices, size: int,
                                                  size, size)
     return select_depth_raster(binning, tri_i32.shape[0])(tri_i32, tri_f32,
                                                           size, size)
+
+
+# ---------------------------------------------------------------------------
+# Band raster (one band of a sharded frame)
+# ---------------------------------------------------------------------------
+
+
+def rasterize_setup_band(tri_i32, tri_f32, width: int, band_h: int,
+                         row0: int):
+    """K3b wrapper: ``prepare_raster_inputs`` then K3 over the ``band_h``
+    rows from global row ``row0`` (CUDA tensors) or its plain version (CPU
+    tensors).  Returns the band's (packed i32, depth f32)."""
+    _check_band(width, band_h, row0)
+    prepared = prepare_raster_inputs(tri_i32, tri_f32)
+    if _on_cpu(tri_i32):
+        return raster_hier_band_plain(*prepared, width, band_h, row0)
+    return raster_hier_band_kernel(*prepared, width, band_h, row0)
+
+
+def rasterize_setup_binned_band(tri_i32, tri_f32, width: int,
+                                full_height: int, band_h: int, row0: int,
+                                cap: int | None = None,
+                                pair_budget: int | None = None,
+                                n_head: int | None = None,
+                                band_local: bool = True):
+    """K9 wrapper: the band-local ``prepare_binned_hbm_inputs`` (or, with
+    ``band_local=False``, the full-frame one of the ``full_height`` frame)
+    then K4 over the band.  Sharded callers pass ``n_head``."""
+    _check_band(width, band_h, row0, full_height)
+    band_kw = {}
+    if band_local:
+        band_kw = dict(band_ty0=row0 // TILE_H, band_tiles_y=band_h // TILE_H)
+    prepared = prepare_binned_hbm_inputs(
+        tri_i32, tri_f32, width, full_height, cap=cap,
+        pair_budget=pair_budget, n_head=n_head, **band_kw)
+    if _on_cpu(tri_i32):
+        return raster_binned_band_plain(*prepared, width, band_h, row0,
+                                        band_local)
+    return raster_binned_band_kernel(*prepared, width, band_h, row0,
+                                     band_local)
+
+
+def rasterize_gbuffer_binned_band(tri_i32, tri_f32, width: int,
+                                  full_height: int, band_h: int, row0: int,
+                                  cap: int | None = None,
+                                  pair_budget: int | None = None,
+                                  n_head: int | None = None):
+    """K9g wrapper: the band-local prepare then K4g over the band; returns
+    the GBUFFER_PLANES (band_h, W) planes."""
+    _check_band(width, band_h, row0, full_height)
+    prepared = prepare_binned_hbm_inputs(
+        tri_i32, tri_f32, width, full_height, cap=cap,
+        pair_budget=pair_budget, n_head=n_head, band_ty0=row0 // TILE_H,
+        band_tiles_y=band_h // TILE_H)
+    if _on_cpu(tri_i32):
+        return gbuffer_binned_band_plain(*prepared, width, band_h, row0)
+    return gbuffer_binned_band_kernel(*prepared, width, band_h, row0)
+
+
+def rasterize_setup_binned_band_dist(ti, tf, listed_mask, rec_i, rec_f, offs,
+                                     width: int, full_height: int,
+                                     band_h: int, row0: int):
+    """K9d wrapper: the owner's prepare over the received slabs
+    (``rec_i``/``rec_f`` (n_src, R, ...), ``offs`` (n_src, band_tiles + 1),
+    ``listed_mask`` the (n_head,) rows sent to this band) and the gathered
+    rows, then the kernel or its plain version."""
+    _check_band(width, band_h, row0, full_height)
+    prepared = prepare_binned_dist_owner(ti, tf, listed_mask, rec_i, rec_f,
+                                         offs)
+    if _on_cpu(ti):
+        return raster_binned_band_plain(*prepared, width, band_h, row0)
+    return raster_binned_band_dist_kernel(*prepared, width, band_h, row0)
