@@ -144,6 +144,32 @@ Phases, in order, each printing its own lines and seconds:
     ``make_sharded_frame``, ``_2d``, ``make_multihost_frame`` with
     ``dist``, ``_deferred`` and ``_taa`` once each under a real one-rank
     NCCL group, with ``gather_frame``;
+4x. the raster experiments, K10g8/K10g8g/K10g8d (group-tile lists, then
+    the leftover mega/super/block hierarchy) and K10vec/K10vecg
+    (lane-parallel subgroups), against their plain versions, every plane
+    bitwise as int32: K10g8 and K10vec on the 40K lattice at 1920x1088,
+    K10g8g and K10vecg on the test scene and the 40K lattice (random
+    normals and per-triangle materials), K10g8d on the 20K lattice's light
+    view into the 1024x1024 map (each path's shape; those plain calls give
+    plain_ms); every kernel on the clipped soup, the duplicated soup (each
+    exact tie to the first-submitted row), the reference test's blow-up
+    soup at 256x64 (group8's two phases each drawing alone, and a 32-row
+    list budget leaving the frame unchanged), the edge soup in the map
+    (rows clamped to an empty bbox past both edges; K10g8 and K10vec equal
+    K5) and an empty scene; each case prints the rows each phase holds;
+5x. the experiment entry points once each, launch counts set to 0 just
+    before and read just after (one launch each): K10g8 and K10vec on the
+    1M lattice at 1920x1088, the visible rows equal to K5's and K4's frames
+    (RGBA and depth bits), the padding rows 1080-1087 clear where K5 and K4
+    draw; then K10g8 and K10vec against their plain versions on one 1M
+    prepare, all 1088 rows bitwise (the plain versions' seconds printed);
+    the G-buffer kernels on the 40K lattice against K5g, K10g8d on the map
+    against K3d;
+6x. each experiment kernel's device time from a trace at its main shape
+    (the 1M lattice, the 40K lattice and the test scene, the map), its
+    entry point traced once, launcher times, the two prepares' times on
+    the 1M lattice and the bounds at each kernel's own granularity (8x128
+    tiles for group8, 8x128 chunks for vec);
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape, and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
@@ -190,11 +216,14 @@ draw list's (tile, triangle) pairs times 4096 pixels times
 OPS_PER_OVERLAY_EVAL plus its covered (pixel, triangle) times
 OPS_PER_OVERLAY_HIT; K8b's the larger of the frame, the count, the output
 and the live layers (12 bytes each) moved once and the live layers times
-OPS_PER_COMPOSITE_LAYER.
+OPS_PER_COMPOSITE_LAYER.  The group8 kernels' pairs are of their 8x128
+tiles, 1024 pixels each; the vec kernels' of 8x128 chunks, the
+granularity at which they gate a subgroup, 1024 pixels each.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The band kernels' bound counts the pairs and the output planes of
-their band.  The second-to-last line is the kernels' JSON record, the last line
+their band.  The second-to-last line is the kernels' JSON record (28
+kernels), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -219,6 +248,7 @@ OVERLAY_GOLDEN = os.path.join(HERE, "tests", "goldens",
                               "overlay_160x96.png")
 TAA_GOLDEN = os.path.join(HERE, "tests", "goldens",
                           "taa_converged_160x96.png")
+EXPERIMENTS = "zrenderer_tpu/ops/experiments"
 
 # The main-path frame (the reference demo's 1080p) and its padded raster
 # target, the card, and the animation length of the timing phase.
@@ -349,6 +379,8 @@ def main() -> int:
         taa,
     )
     from zrenderer_tpu_torch.ops import geometry as tg
+    from zrenderer_tpu_torch.ops.experiments import raster_group8 as group8
+    from zrenderer_tpu_torch.ops.experiments import raster_vec as vec
     from zrenderer_tpu_torch.parallel import multihost, tiles
     from zrenderer_tpu_torch.raster_ref import raster_cpu
     from zrenderer_tpu_torch.scene.mesh import V_COLOR, MeshData
@@ -376,11 +408,15 @@ def main() -> int:
     k3b, k9 = raster.raster_hier_band_kernel, raster.raster_binned_band_kernel
     k9g = raster.gbuffer_binned_band_kernel
     k9d = raster.raster_binned_band_dist_kernel
+    kx8, kx8g, kx8d = group8.KERNELS
+    kxv, kxvg = vec.KERNELS
     results = {key: {"err": 0.0}
                for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6",
                            "k2g", "k3g", "k4g", "k5g", "k6g",
                            "k2d", "k3d", "k4d", "k6d", "k7", "k7_bf16",
-                           "k8", "k8b", "k3b", "k9", "k9g", "k9d")}
+                           "k8", "k8b", "k3b", "k9", "k9g", "k9d",
+                           "k10g8", "k10g8g", "k10g8d", "k10vec",
+                           "k10vecg")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -545,26 +581,28 @@ def main() -> int:
         results[key]["err"] = max(results[key]["err"], float(err))
         return dk
 
-    def tile_pairs(ti, w, h):
+    def tile_pairs(ti, w, h, tile_h=raster.TILE_H, tile_w=raster.TILE_W):
         """(tile, triangle) pairs a frame needs: for every live row with a
-        non-empty bbox, the tiles of the (w, h) target its bbox touches."""
+        non-empty bbox, the tile_h x tile_w tiles of the (w, h) target its
+        bbox touches."""
         jmin, jmax, imin, imax = (ti[:, c].long() for c in (
             tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX))
         live = (ti[:, tg.I_VALID] > 0) & (jmin <= jmax) & (imin <= imax)
-        tx = ((jmax.clamp(max=w - 1) // raster.TILE_W)
-              - (jmin.clamp(min=0) // raster.TILE_W) + 1).clamp(min=0)
-        ty = ((imax.clamp(max=h - 1) // raster.TILE_H)
-              - (imin.clamp(min=0) // raster.TILE_H) + 1).clamp(min=0)
+        tx = ((jmax.clamp(max=w - 1) // tile_w)
+              - (jmin.clamp(min=0) // tile_w) + 1).clamp(min=0)
+        ty = ((imax.clamp(max=h - 1) // tile_h)
+              - (imin.clamp(min=0) // tile_h) + 1).clamp(min=0)
         return int(torch.where(live, tx * ty, 0).sum().item())
 
-    def set_bound(key, inputs, pairs, w, h, shape, planes=2):
+    def set_bound(key, inputs, pairs, w, h, shape, planes=2,
+                  tile_px=raster.TILE_H * raster.TILE_W):
         """The least time the card could take: inputs read once and the
         ``planes`` output planes written once at HBM_BYTES_PER_S, or
-        ``pairs`` tile evaluations at CUDA_CORE_OPS_PER_S, whichever is
-        larger."""
+        ``pairs`` tile evaluations of ``tile_px`` pixels each at
+        CUDA_CORE_OPS_PER_S, whichever is larger."""
         nbytes = (sum(t.numel() * t.element_size() for t in inputs)
                   + planes * 4 * w * h)
-        ops = pairs * raster.TILE_H * raster.TILE_W * OPS_PER_EVAL
+        ops = pairs * tile_px * OPS_PER_EVAL
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
         res = results[key]
@@ -1348,7 +1386,9 @@ def main() -> int:
                  "k6": k6, "k2g": k2g, "k3g": k3g, "k4g": k4g, "k5g": k5g,
                  "k6g": k6g, "k2d": k2d, "k3d": k3d, "k4d": k4d, "k6d": k6d,
                  "k7": k7, "k7_bf16": k7b, "k8": k8, "k8b": k8b,
-                 "k3b": k3b, "k9": k9, "k9g": k9g, "k9d": k9d}
+                 "k3b": k3b, "k9": k9, "k9g": k9g, "k9d": k9d,
+                 "k10g8": kx8, "k10g8g": kx8g, "k10g8d": kx8d,
+                 "k10vec": kxv, "k10vecg": kxvg}
 
     def drive(label, scene_md, binning, key):
         """One frame through Renderer.render_and_read with every launch
@@ -2061,7 +2101,12 @@ def main() -> int:
                     "k3b": "raster_hier_band_kernel",
                     "k9": "raster_records_band_kernel",
                     "k9g": "gbuffer_records_band_kernel",
-                    "k9d": "raster_records_dist_kernel"}
+                    "k9d": "raster_records_dist_kernel",
+                    "k10g8": "raster_group8_kernel",
+                    "k10g8g": "gbuffer_group8_kernel",
+                    "k10g8d": "depth_group8_kernel",
+                    "k10vec": "raster_vec_kernel",
+                    "k10vecg": "gbuffer_vec_kernel"}
     port_kernels = set(kernel_names.values())
 
     def traced_kernel_ms(keys, fn, attempts=3):
@@ -2664,6 +2709,388 @@ def main() -> int:
 
     deferred_band_refs, r_lattice40 = bands_main
 
+    # -- 4x. K10g8/K10g8g/K10g8d/K10vec/K10vecg vs plain ---------------------
+    def vec_prepare(ti, tf, w, h):
+        return vec.prepare_vec_inputs(ti, tf)
+
+    x_cases = {  # key: (kernel, plain version, prepare, comparison)
+        "k10g8": (kx8, group8.raster_group8_plain,
+                  group8.prepare_group8_inputs, compare),
+        "k10g8g": (kx8g, group8.gbuffer_group8_plain,
+                   group8.prepare_group8_inputs, compare_gbuffer),
+        "k10g8d": (kx8d, group8.depth_group8_plain,
+                   group8.prepare_group8_inputs, compare_depth),
+        "k10vec": (kxv, vec.raster_vec_plain, vec_prepare, compare),
+        "k10vecg": (kxvg, vec.gbuffer_vec_plain, vec_prepare,
+                    compare_gbuffer),
+    }
+
+    def leftover_rows(hier):
+        """Live rows a group8 prepare leaves to the hierarchy (phase 2)."""
+        return int(((hier[:, tg.I_VALID] > 0)
+                    & (hier[:, tg.I_JMIN] <= hier[:, tg.I_JMAX])
+                    & (hier[:, tg.I_IMIN] <= hier[:, tg.I_IMAX])).sum().item())
+
+    def x_rows(key, scene_md, w, h):
+        """Setup rows of ``scene_md`` at (w, h) for kernel ``key``: with
+        the lit columns (random normals, one random material per
+        triangle) for the G-buffer kernels."""
+        if key.endswith("g"):
+            return lit_rows(*scene_md, w, h)
+        return setup_rows(*scene_md, w, h)
+
+    def x_check(key, label, rows, w, h, plain_shape=None, **kw):
+        """Kernel ``key`` against its plain version on ``rows``: every
+        plane bitwise as int32; prints the rows each phase holds."""
+        kern, plain, prepare, cmp = x_cases[key]
+        prep = prepare(*rows, w, h, **kw)
+        if key.startswith("k10g8"):
+            print(f"  {label} ({key}, {w}x{h}, {kw or 'defaults'}): "
+                  f"{int(prep.offs[-1].item())} listed pairs (L "
+                  f"{prep.rows.shape[0]}), {leftover_rows(prep.hier)} "
+                  f"leftover rows, tile_any on "
+                  f"{int(prep.tile_any.sum().item())} of "
+                  f"{prep.tile_any.numel()} tiles")
+        else:
+            sg = prep[2][::vec.SUBGROUP, 24:28]
+            live = int(((sg[:, 0] <= sg[:, 1]) & (sg[:, 2] <= sg[:, 3]))
+                       .sum().item())
+            print(f"  {label} ({key}, {w}x{h}): {prep[2].shape[0]} records, "
+                  f"{live} of {sg.shape[0]} subgroups live")
+        return prep, cmp(key, f"{label} ({key})", kern, plain, prep, w, h,
+                         plain_shape)
+
+    def blow_up_soup():
+        """The reference experiment tests' soup (tests/test_raster_group8.py
+        ``_setup_soup``): 150 triangles, 20-29 scaled ten times (past
+        pair_cap), a corner of 30-39 through the near plane (fan rows)."""
+        scene, md = make_triangle_soup(150, seed=3, extent=2.0,
+                                       behind_camera_fraction=0.1)
+        v = md.vertex_data.reshape(-1, 16)
+        for t in range(20, 30):
+            tri = v[3 * t:3 * t + 3, 0:3]
+            c = tri.mean(axis=0)
+            v[3 * t:3 * t + 3, 0:3] = c + (tri - c) * 10.0
+        for t in range(30, 40):
+            v[3 * t, 2] += 15.0
+        return scene, md
+
+    def same_planes(a, b):
+        a, b = (list(x) if isinstance(x, (list, tuple)) else [x]
+                for x in (a, b))
+        return all(torch.equal(x.contiguous().view(torch.int32),
+                               y.contiguous().view(torch.int32))
+                   for x, y in zip(a, b))
+
+    @phase("4x K10g8/K10vec experiment kernels vs plain versions")
+    def experiment_cases():
+        S = SHADOW_SIZE
+        # (a) The path's shapes: 1920x1088, the 40K lattice; the G-buffer
+        # kernels also on the test scene; K10g8d on the 20K lattice's
+        # light view into the 1024x1024 map.
+        lattice_mid = make_stress_scene(MID_TRIS)
+        rows40 = setup_rows(*lattice_mid, WIDTH, HEIGHT, tri_align=256)
+        for key in ("k10g8", "k10vec"):
+            t0 = time.perf_counter()
+            x_check(key, "lattice40k", rows40, PAD_W, PAD_H,
+                    plain_shape="lattice40k")
+            print(f"  (plain {key} included: "
+                  f"{time.perf_counter() - t0:.1f} s)")
+        scene_rows = lit_rows(*load_test_scene(), WIDTH, HEIGHT, 256)
+        lit40 = lit_rows(*lattice_mid, WIDTH, HEIGHT, 256)
+        for key in ("k10g8g", "k10vecg"):
+            x_check(key, "test scene", scene_rows, PAD_W, PAD_H)
+            t0 = time.perf_counter()
+            x_check(key, "lattice40k", lit40, PAD_W, PAD_H,
+                    plain_shape="lattice40k")
+            print(f"  (plain {key} included: "
+                  f"{time.perf_counter() - t0:.1f} s)")
+        map20 = light_rows(shadow_renderer(lattice))
+        x_check("k10g8d", "lattice20k, light view", map20, S, S,
+                plain_shape="lattice20k map")
+
+        # (b) The soups, every kernel.
+        clipped = clipped_soup()
+        for key in x_cases:
+            x_check(key, "clipped soup", x_rows(key, clipped, WIDTH, HEIGHT),
+                    PAD_W, PAD_H)
+        w, h = 1024, 512
+        dup, one = tie_soup(True), tie_soup(False)
+        for key, (kern, _, prepare, _) in x_cases.items():
+            _, out_dup = x_check(key, "duplicated triangles",
+                                 x_rows(key, dup, w, h), w, h)
+            out_one = kern(*prepare(*x_rows(key, one, w, h), w, h), w, h)
+            if key == "k10g8d":
+                same = torch.equal(out_dup, out_one)  # by value
+            else:
+                same = same_planes(out_dup, out_one)
+            if not same:
+                raise AssertionError(f"{key}: a duplicate won a depth tie")
+        print("  every exact depth tie went to the first-submitted row "
+              "(K10g8, K10g8g, K10g8d by value, K10vec, K10vecg)")
+        # The blow-up soup at the reference test's 256x64: oversized rows
+        # past pair_cap and fan rows, so both of group8's phases draw (at
+        # 1080p its triangles span too many tiles to be listed); then a
+        # 32-row list budget.
+        blow = blow_up_soup()
+        w, h = 256, 64
+        for key in x_cases:
+            rows = x_rows(key, blow, w, h)
+            prep, full = x_check(key, "blow-up soup", rows, w, h)
+            if not key.startswith("k10g8"):
+                continue
+            kern = x_cases[key][0]
+            zero = torch.zeros_like(prep.tile_any)
+            only1 = kern(*prep._replace(tile_any=zero), w, h)
+            only2 = kern(*prep._replace(offs=torch.zeros_like(prep.offs)),
+                         w, h)
+            z1, z2, zf = ((x if key == "k10g8d" else x[1])
+                          for x in (only1, only2, full))
+            drawn1 = int((z1 < 1.0).sum().item())
+            drawn2 = int((z2 < 1.0).sum().item())
+            print(f"  blow-up soup ({key}): phase 1 alone draws {drawn1} "
+                  f"pixels, phase 2 alone {drawn2}, both "
+                  f"{int((zf < 1.0).sum().item())}")
+            if drawn1 == 0 or drawn2 == 0 or same_planes(only1, full) \
+                    or same_planes(only2, full):
+                raise AssertionError(f"{key}: a phase of the blow-up soup "
+                                     "draws nothing")
+            tiny = dict(list_budget=32, chunk=16)
+            prep_t, out_t = x_check(key, "blow-up soup, list_budget=32", rows,
+                                    w, h, **tiny)
+            if int(prep_t.offs[-1].item()) >= int(prep.offs[-1].item()):
+                raise AssertionError("the 32-row list budget demoted nothing")
+            if not same_planes(out_t, full):
+                raise AssertionError(f"{key}: the list budget changed the "
+                                     "frame")
+        print("  the 32-row list budget leaves every group8 frame unchanged")
+        # The edge-clamped rows: valid rows whose bbox clamps to empty at
+        # the map's edges and past them (both tile ranges reversed
+        # included), which the group8 prepare treats as dead.
+        for key in x_cases:
+            rows = x_rows(key, edge_soup(), S, S)
+            head = rows[0][:tg.head_count(rows[0].shape[0])]
+            valid = head[:, tg.I_VALID] > 0
+            ntx = (head[:, tg.I_JMAX] // group8.GT_W
+                   - head[:, tg.I_JMIN] // group8.GT_W + 1)
+            nty = (head[:, tg.I_IMAX] // group8.GT_H
+                   - head[:, tg.I_IMIN] // group8.GT_H + 1)
+            empty = valid & ((head[:, tg.I_JMIN] > head[:, tg.I_JMAX])
+                             | (head[:, tg.I_IMIN] > head[:, tg.I_IMAX]))
+            both = int((valid & (ntx < 0) & (nty < 0)).sum().item())
+            print(f"  edge soup ({key}): {int(empty.sum().item())} valid "
+                  f"rows clamped to an empty bbox, {both} with both 8x128 "
+                  "tile ranges reversed")
+            if both == 0:
+                raise AssertionError("edge soup: no row past both edges")
+            _, out = x_check(key, "edge soup", rows, S, S)
+            if key in ("k10g8", "k10vec"):
+                ref = k5(*raster.prepare_raster_inputs(*rows), S, S)
+                if not same_planes(out, ref):
+                    raise AssertionError(f"edge soup: {key} and K5 differ")
+        print("  edge soup: K10g8 and K10vec maps equal K5's bitwise")
+        # No live row at all: every plane the background.
+        t = tg.capped_rows(64)
+        ti = torch.zeros((t + (-t) % 64, tg.NI32), dtype=torch.int32,
+                         device=dev)
+        ti[:, tg.I_JMIN] = 1
+        ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
+        tf = torch.zeros((ti.shape[0], tg.NF32), device=dev)
+        for key, (kern, plain, prepare, _) in x_cases.items():
+            w, h = (S, S) if key == "k10g8d" else (PAD_W, PAD_H)
+            prep = prepare(ti, tf, w, h)
+            out, ref = kern(*prep, w, h), plain(*prep, w, h)
+            planes = [out] if key == "k10g8d" else out
+            background = bool((planes[0 if key == "k10g8d" else 1] == 1.0)
+                              .all().item())
+            if key != "k10g8d":
+                background &= bool((planes[0] == -(1 << 24)).all().item())
+                background &= not any(bool(p.any().item())
+                                      for p in planes[2:])
+            print(f"  empty scene ({key}): bit-exact={same_planes(out, ref)}"
+                  f", background only {background}")
+            if not (same_planes(out, ref) and background):
+                raise AssertionError(f"empty scene: {key} drew something")
+        return lit40, map20, scene_rows
+
+    x_lit40, x_map20, x_scene_rows = experiment_cases
+
+    # -- 5x. the experiment frames at 1M --------------------------------------
+    @phase("5x experiment frames at 1M")
+    def experiment_frames():
+        """K10g8 and K10vec on the 1M lattice at 1920x1088 through their
+        entry points, each with every launch count set to 0 just before
+        and read just after; their frames held against K5's and K4's (K4
+        is held against its plain version at 1M in phase 5b).  Then each
+        kernel against its own plain version on one 1M prepare, all 1088
+        rows bitwise, so that the padding rows' rule is the plain
+        version's too.  Then the G-buffer and depth entry points once each
+        at their main shapes (lattice40k, the 20K lattice's map), against
+        K5g and K3d."""
+        ti, tf = rows_lattice
+        c5, d5 = k5(*raster.prepare_raster_inputs(ti, tf), PAD_W, PAD_H)
+        c4, d4 = k4(*raster.prepare_binned_hbm_inputs(ti, tf, PAD_W, PAD_H),
+                    PAD_W, PAD_H)
+        vis, pad = slice(0, HEIGHT), slice(HEIGHT, PAD_H)
+
+        def drawn(d):
+            return int((d[pad] < 1.0).sum().item())
+
+        print(f"  lattice1M padding rows {HEIGHT}-{PAD_H - 1}: K5 draws "
+              f"{drawn(d5)} pixels, K4 {drawn(d4)}")
+
+        def entry(key, fn, *args):
+            sync()
+            for kern in kernel_of.values():
+                kern.launches = 0
+            out = fn(*args)
+            sync()
+            launched = {k: kern.launches for k, kern in kernel_of.items()
+                        if kern.launches}
+            if launched != {key: 1}:
+                raise AssertionError(f"{key}: launches {launched}, one "
+                                     f"{key} launch expected")
+            counts[key] = 1
+            return out
+
+        for key, fn in (("k10g8", group8.rasterize_setup_group8),
+                        ("k10vec", vec.rasterize_setup_vec)):
+            c, d = entry(key, fn, ti, tf, PAD_W, PAD_H)
+            same5 = same_planes((c[vis], d[vis]), (c5[vis], d5[vis]))
+            same4 = same_planes((c[vis], d[vis]), (c4[vis], d4[vis]))
+            pad5 = same_planes((c[pad], d[pad]), (c5[pad], d5[pad]))
+            clear = (bool((d[pad] == 1.0).all().item())
+                     and bool((c[pad] == -(1 << 24)).all().item()))
+            cov = (d[vis] < 1.0).float().mean().item()
+            print(f"  lattice1M {PAD_W}x{PAD_H} ({key}, one launch): "
+                  f"visible rows equal K5's {same5} and K4's {same4} "
+                  f"(RGBA and depth bits), coverage {cov:.4f}; padding rows "
+                  f"equal K5's {pad5}, clear {clear} ({drawn(d)} drawn)")
+            if not (same5 and same4) or cov <= MIN_COVERAGE:
+                raise AssertionError(f"lattice1M: {key} differs from K5/K4 "
+                                     "in the visible rows")
+            if not clear:
+                raise AssertionError(f"lattice1M: {key} drew padding rows")
+        for key in ("k10g8", "k10vec"):
+            kern, plain, prepare, _ = x_cases[key]
+            prep = prepare(ti, tf, PAD_W, PAD_H)
+            out = kern(*prep, PAD_W, PAD_H)
+            sync()
+            t0 = time.perf_counter()
+            ref = plain(*prep, PAD_W, PAD_H)
+            sync()
+            secs = time.perf_counter() - t0
+            same = same_planes(out, ref)
+            results[key]["plain_s_1m"] = secs
+            print(f"  lattice1M {PAD_W}x{PAD_H} ({key}): kernel and plain "
+                  f"version bit-exact in all {PAD_H} rows {same} (RGBA and "
+                  f"depth bits; plain version {secs:.1f} s)", flush=True)
+            if not same:
+                raise AssertionError(f"lattice1M: {key} and its plain "
+                                     "version differ")
+        g5 = k5g(*raster.prepare_raster_inputs(*x_lit40), PAD_W, PAD_H)
+        for key, fn in (("k10g8g", group8.rasterize_gbuffer_group8),
+                        ("k10vecg", vec.rasterize_gbuffer_vec)):
+            out = entry(key, fn, *x_lit40, PAD_W, PAD_H)
+            same = same_planes([p[vis] for p in out], [p[vis] for p in g5])
+            print(f"  lattice40k G-buffer ({key}, one launch): the 13 "
+                  f"visible planes equal K5g's {same}")
+            if not same:
+                raise AssertionError(f"lattice40k: {key} differs from K5g")
+        S = SHADOW_SIZE
+        dmap = entry("k10g8d", group8.rasterize_depth_group8, *x_map20, S, S)
+        same = torch.equal(dmap, k3d(*raster.prepare_raster_inputs(*x_map20),
+                                     S, S))
+        print(f"  lattice20k map ({S}x{S}, k10g8d, one launch): equal to "
+              f"K3d's by value {same}")
+        if not same:
+            raise AssertionError("lattice20k map: K10g8d differs from K3d")
+        print(f"  launches in one main-path frame: "
+              f"{ {k: counts[k] for k in x_cases} }")
+
+    # -- 6x. the experiment kernels' times ------------------------------------
+    @phase("6x experiment kernel timing")
+    def experiment_timing():
+        """Each kernel's device time from a trace holding all its launches
+        at its main shape (the 1M lattice for the flat kernels, the 40K
+        lattice and the test scene for the G-buffer ones, the 20K
+        lattice's map for K10g8d), its entry point traced once (prepare
+        and launch: device ops, busy, idle share), then the untraced
+        launcher and prepare loops and the bounds."""
+        S = SHADOW_SIZE
+        main = {  # key: (rows, shape, (w, h), reps, entry point)
+            "k10g8": (rows_lattice, "lattice1M", (PAD_W, PAD_H), 5,
+                      group8.rasterize_setup_group8),
+            "k10vec": (rows_lattice, "lattice1M", (PAD_W, PAD_H), 5,
+                       vec.rasterize_setup_vec),
+            "k10g8g": (x_lit40, "lattice40k", (PAD_W, PAD_H), 20,
+                       group8.rasterize_gbuffer_group8),
+            "k10vecg": (x_lit40, "lattice40k", (PAD_W, PAD_H), 20,
+                        vec.rasterize_gbuffer_vec),
+            "k10g8d": (x_map20, "lattice20k map", (S, S), 20,
+                       group8.rasterize_depth_group8),
+        }
+        preps = {}
+        for key, (rows, shape, (w, h), reps, fn) in main.items():
+            kern, _, prepare, _ = x_cases[key]
+            prep = preps[key] = prepare(*rows, w, h)
+            _, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*prep, w, h) for _ in range(reps)])
+            results[key]["ms"] = ms[key]
+            events, window, kms = traced_kernel_ms(
+                (key,), lambda: fn(*rows, w, h))
+            results[key]["anim_ms"] = kms[key]
+            busy = busy_us(events)
+            print(f"  profiled entry point {fn.__name__} on {shape} {w}x{h}:"
+                  f" {len(events)} device ops, device busy "
+                  f"{busy / 1000.0:.4f} ms ({key} {kms[key]:.4f} ms), idle "
+                  f"share {1.0 - busy / window:.4f} of "
+                  f"{window / 1000.0:.4f} ms traced", flush=True)
+        for key in ("k10g8g", "k10vecg"):
+            kern, _, prepare, _ = x_cases[key]
+            prep = prepare(*x_scene_rows, PAD_W, PAD_H)
+            _, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*prep, PAD_W, PAD_H)
+                                 for _ in range(50)])
+            results[key]["ms_test_scene"] = ms[key]
+        # Untraced: launchers, prepares, bounds.
+        for key, (rows, shape, (w, h), reps, _) in main.items():
+            kern = x_cases[key][0]
+            prep = preps[key]
+            res = results[key]
+            res["wrapper_ms"] = event_ms(lambda: kern(*prep, w, h), reps)
+            if key.startswith("k10g8"):
+                used = int(prep.offs[-1].item())
+                inputs = [prep.offs, prep.tile_any, prep.rows[:used],
+                          prep.megas, prep.supers, prep.blocks, prep.hier,
+                          prep.hier_f]
+                tile = (group8.GT_H, group8.GT_W)
+            else:  # each subgroup is gated per 8-row chunk of a tile
+                inputs, tile = list(prep), (vec.CHUNK_H, raster.TILE_W)
+            planes = (raster.GBUFFER_PLANES if key.endswith("g")
+                      else 1 if key.endswith("d") else 2)
+            set_bound(key, inputs, tile_pairs(rows[0], w, h, *tile), w, h,
+                      shape, planes=planes, tile_px=tile[0] * tile[1])
+            extra = ""
+            if "ms_test_scene" in res:
+                extra = f", test scene {res['ms_test_scene']:.4f} ms"
+            print(f"  {key} {shape} {w}x{h} ({tile[0]}x{tile[1]} pairs): "
+                  f"kernel {res['ms']:.4f} ms device time (profiler{extra};"
+                  f" {res['anim_ms']:.4f} ms in the traced entry point), "
+                  f"launcher {res['wrapper_ms']:.4f} ms/call (CUDA events);"
+                  f" plain version {res['plain_ms']:.4f} ms/call at "
+                  f"{res['plain_shape']} (CUDA events)")
+        ti, tf = rows_lattice
+        g8_ms = event_ms(lambda: group8.prepare_group8_inputs(
+            ti, tf, PAD_W, PAD_H), 5)
+        vec_ms = event_ms(lambda: vec.prepare_vec_inputs(ti, tf), 5)
+        results["k10g8"]["prepare_ms"] = g8_ms
+        results["k10vec"]["prepare_ms"] = vec_ms
+        print(f"  prepares on lattice1M ({ti.shape[0]} rows): "
+              f"prepare_group8_inputs (sort, gather, tables) {g8_ms:.4f} "
+              f"ms/call, prepare_vec_inputs (record build) {vec_ms:.4f} "
+              "ms/call (CUDA events, host dispatch included)")
+
     @phase("6 timing")
     def timing():
         # (label, renderer, kernels timed in its trace, frames timed,
@@ -3162,7 +3589,12 @@ def main() -> int:
         "k8": ("overlay.cu", "zrenderer_tpu/ops/overlay_raster.py:328"),
         "k8b": ("overlay.cu", "zrenderer_tpu/ops/overlay_raster.py:467"),
         "k3b": ("raster_hier.cu", 976), "k9": ("raster_binned.cu", 2413),
-        "k9g": ("raster_binned.cu", 2501), "k9d": ("raster_binned.cu", 2701)}
+        "k9g": ("raster_binned.cu", 2501), "k9d": ("raster_binned.cu", 2701),
+        "k10g8": ("raster_group8.cu", f"{EXPERIMENTS}/raster_group8.py:692"),
+        "k10g8g": ("raster_group8.cu", f"{EXPERIMENTS}/raster_group8.py:704"),
+        "k10g8d": ("raster_group8.cu", f"{EXPERIMENTS}/raster_group8.py:716"),
+        "k10vec": ("raster_vec.cu", f"{EXPERIMENTS}/raster_vec.py:347"),
+        "k10vecg": ("raster_vec.cu", f"{EXPERIMENTS}/raster_vec.py:384")}
     kernels = []
     for key, (src, line) in sources.items():
         res = results[key]
@@ -3180,7 +3612,9 @@ def main() -> int:
             "plain_shape": res["plain_shape"],
             **{k: v for k, v in res.items()
                if k.endswith("_r2") or k in ("pairs", "evals", "covered",
-                                              "live_layers")}})
+                                              "live_layers", "ms_test_scene",
+                                              "prepare_ms",
+                                              "plain_s_1m")}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Shared pieces of the flat and G-buffer raster kernels (raster_small.cu,
-// raster_hier.cu, raster_binned.cu).
+// raster_hier.cu, raster_binned.cu, and the experiments raster_group8.cu
+// and raster_vec.cu).
 //
 // Layout contract with zrenderer_tpu/ops/geometry.py: setup rows are
 // (R, NI32) int32 + (R, NF32) float32, row-major; bbox tables are (n, 8)
@@ -13,10 +14,11 @@
 // row row_base: the tile state's pixel math uses global rows, and the
 // stores write band-local rows (global row minus row_base).
 //
-// One CUDA block rasterizes one 32x128 screen tile.  Its 256 threads each
-// own one column and 16 rows of the tile (rows r0, r0 + 2, ...), and keep
-// the tile state for those pixels in registers across the whole triangle
-// loop: depth, winning row id (K1 only) and the r/g/b/(1/w) numerators.
+// One CUDA block rasterizes one 32x128 screen tile (group8: 8x128).  Its
+// 256 threads each own one column and 16 rows of the tile (rows r0, r0 +
+// 2, ...; group8: 4), and keep the tile state for those pixels in
+// registers across the whole triangle loop: depth, winning row id (K1
+// only) and the r/g/b/(1/w) numerators.
 // The G-buffer kernels keep only depth and the winning row id, and
 // resolve every latch from the winner in the epilogue (TileState::GBUF);
 // the depth-only kernels keep depth alone (TileState::DEPTH).
@@ -84,9 +86,10 @@ __device__ __forceinline__ float interp3(float e0, float e1, float e2,
 }
 
 __device__ __forceinline__ bool tile_overlap(int jmin, int jmax, int imin,
-                                             int imax, int row0, int col0) {
+                                             int imax, int row0, int col0,
+                                             int tile_h = TILE_H) {
   return jmax >= col0 && jmin < col0 + TILE_W && imax >= row0 &&
-         imin < row0 + TILE_H && jmin <= jmax && imin <= imax;
+         imin < row0 + tile_h && jmin <= jmax && imin <= imax;
 }
 
 __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
@@ -104,22 +107,31 @@ __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
 // registers a thread for 16 pixels: over the 255 cap.  Every latched value
 // is a pure function of (row, pixel), so the loops keep only z and the
 // winning row id (with strict-less order the last row that passed), and
-// store_gbuffer re-evaluates the winner's edge functions and interpolants
-// with the same interp3: the same bits, two values a pixel.
+// resolve re-evaluates the winner's edge functions and interpolants with
+// the same interp3: the same bits, two values a pixel.  The raster
+// experiments (raster_group8.cu, raster_vec.cu) keep this state for their
+// flat kernels too, and resolve their colour from the winner.
 //
 // DEPTH: the depth-only kernels (K2d, K3d, K4d, K6d).  One value a pixel,
 // z, under the reference's strict-less test z >= 0 && z < zb in every
 // phase (no row id: on an exact tie the first row visited keeps the value,
 // which differs from a later one only in the sign of a zero z), and
 // store_depth writes the one plane.
-template <bool TIE, bool GBUF = false, bool DEPTH = false>
+//
+// TH: the tile's height (8 for the group8 experiment's tiles).  RI and RF:
+// the int and float strides of the setup rows that eval and resolve index
+// by row id (the lane-parallel experiment's records hold both, REC_LANES
+// lanes apart).
+template <bool TIE, bool GBUF = false, bool DEPTH = false, int TH = TILE_H,
+          int RI = NI32, int RF = NF32>
 struct TileState {
   static_assert(!(DEPTH && (TIE || GBUF)), "depth-only state is strict-less");
   static constexpr bool LATCH = !GBUF && !DEPTH;  // den/nr/ng/nb in the loop
-  float z[PIX];
-  int tid[(TIE || GBUF) ? PIX : 1];
-  float den[LATCH ? PIX : 1], nr[LATCH ? PIX : 1], ng[LATCH ? PIX : 1],
-      nb[LATCH ? PIX : 1];
+  static constexpr int NPIX = TH * TILE_W / THREADS;  // pixels a thread
+  float z[NPIX];
+  int tid[(TIE || GBUF) ? NPIX : 1];
+  float den[LATCH ? NPIX : 1], nr[LATCH ? NPIX : 1], ng[LATCH ? NPIX : 1],
+      nb[LATCH ? NPIX : 1];
   int px;   // this thread's pixel-centre x, in subpixels
   int py0;  // pixel-centre y of its first row, in subpixels
   int row0, col0;
@@ -130,17 +142,37 @@ struct TileState {
     px = (col0 + (int)(threadIdx.x % TILE_W)) * SUBPIXEL + HALF;
     py0 = (row0 + (int)(threadIdx.x / TILE_W)) * SUBPIXEL + HALF;
 #pragma unroll
-    for (int k = 0; k < PIX; ++k) {
+    for (int k = 0; k < NPIX; ++k) {
       z[k] = 1.0f;
       if constexpr (TIE || GBUF) tid[k] = INT_MAX32;
       if constexpr (LATCH) den[k] = nr[k] = ng[k] = nb[k] = 0.0f;
     }
   }
 
+  // Pixel-centre y of this thread's pixel k, in subpixels.
+  __device__ __forceinline__ int py(int k) const {
+    return py0 + k * ROW_STEP * SUBPIXEL;
+  }
+
+  // The depth test of row t at covered pixel k with depth zz; on a pass
+  // it keeps zz (and t).
+  __device__ __forceinline__ bool depth_test(int k, float zz, int t) {
+    bool ok;
+    if constexpr (TIE) {
+      ok = zz >= 0.0f && (zz < z[k] || (zz == z[k] && t < tid[k]));
+    } else {
+      ok = zz >= 0.0f && zz < z[k];
+    }
+    if (!ok) return false;
+    z[k] = zz;
+    if constexpr (TIE || GBUF) tid[k] = t;
+    return true;
+  }
+
   // Coverage, depth test and latch of setup row t at this thread's pixels.
   __device__ __forceinline__ void eval(const int* __restrict__ ti,
                                        const float* __restrict__ tf, int t) {
-    eval_row(ti + (size_t)t * NI32, tf + (size_t)t * NF32, t);
+    eval_row(ti + (size_t)t * RI, tf + (size_t)t * RF, t);
   }
 
   // The same for one setup record (r: NI32 ints, f: NF32 floats) whose
@@ -157,26 +189,17 @@ struct TileState {
     const int b0 = __ldg(r + I_BIAS0), b1 = __ldg(r + I_BIAS1);
     const int b2 = __ldg(r + I_BIAS2);
 #pragma unroll
-    for (int k = 0; k < PIX; ++k) {
-      const int py = py0 + k * ROW_STEP * SUBPIXEL;
-      const int e0 = edge_fn(dx0, dy0, x1, y1, px, py);
-      const int e1 = edge_fn(dx1, dy1, x2, y2, px, py);
-      const int e2 = edge_fn(dx2, dy2, x0, y0, px, py);
+    for (int k = 0; k < NPIX; ++k) {
+      const int e0 = edge_fn(dx0, dy0, x1, y1, px, py(k));
+      const int e1 = edge_fn(dx1, dy1, x2, y2, px, py(k));
+      const int e2 = edge_fn(dx2, dy2, x0, y0, px, py(k));
       if (e0 < b0 || e1 < b1 || e2 < b2) continue;
       const float f0 = __int2float_rn(e0);
       const float f1 = __int2float_rn(e1);
       const float f2 = __int2float_rn(e2);
       const float zz = interp3(f0, f1, f2, __ldg(f + F_ZA0),
                                __ldg(f + F_ZA0 + 1), __ldg(f + F_ZA0 + 2));
-      bool ok;
-      if constexpr (TIE) {
-        ok = zz >= 0.0f && (zz < z[k] || (zz == z[k] && t < tid[k]));
-      } else {
-        ok = zz >= 0.0f && zz < z[k];
-      }
-      if (!ok) continue;
-      z[k] = zz;
-      if constexpr (TIE || GBUF) tid[k] = t;
+      if (!depth_test(k, zz, t)) continue;
       if constexpr (LATCH) {
         den[k] = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
                          __ldg(f + F_RW0 + 2));
@@ -191,25 +214,27 @@ struct TileState {
   }
 
   // Superblock -> block -> row scan with block-uniform bbox skips, rows in
-  // submission order (the reference's _scan_groups over the tables).
+  // submission order (the reference's _scan_groups over the tables), over
+  // superblocks [s_begin, s_end).
   __device__ __forceinline__ void scan_hierarchy(
-      const int* __restrict__ supers, int num_supers,
+      const int* __restrict__ supers, int s_end,
       const int* __restrict__ blocks, const int* __restrict__ ti,
-      const float* __restrict__ tf) {
-    for (int s = 0; s < num_supers; ++s) {
+      const float* __restrict__ tf, int s_begin = 0) {
+    for (int s = s_begin; s < s_end; ++s) {
       const int* sb = supers + (size_t)s * 8;
       if (!tile_overlap(__ldg(sb), __ldg(sb + 1), __ldg(sb + 2),
-                        __ldg(sb + 3), row0, col0))
+                        __ldg(sb + 3), row0, col0, TH))
         continue;
       for (int b = s * SUPER_BLOCK; b < (s + 1) * SUPER_BLOCK; ++b) {
         const int* bb = blocks + (size_t)b * 8;
         if (!tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2),
-                          __ldg(bb + 3), row0, col0))
+                          __ldg(bb + 3), row0, col0, TH))
           continue;
         for (int t = b * RASTER_BLOCK; t < (b + 1) * RASTER_BLOCK; ++t) {
-          const int* r = ti + (size_t)t * NI32;
+          const int* r = ti + (size_t)t * RI;
           if (tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
-                           __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0))
+                           __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0,
+                           TH))
             eval(ti, tf, t);
         }
       }
@@ -224,7 +249,7 @@ struct TileState {
     const int col = col0 + (int)(threadIdx.x % TILE_W);
     const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
 #pragma unroll
-    for (int k = 0; k < PIX; ++k) {
+    for (int k = 0; k < NPIX; ++k) {
       const bool covered = den[k] > 0.0f;
       const float inv = covered ? __fdiv_rn(1.0f, den[k]) : 1.0f;
       const uint32_t packed = quantize(nr[k], covered, inv) |
@@ -243,44 +268,45 @@ struct TileState {
     const int col = col0 + (int)(threadIdx.x % TILE_W);
     const int rbase = row0 + (int)(threadIdx.x / TILE_W);
 #pragma unroll
-    for (int k = 0; k < PIX; ++k)
+    for (int k = 0; k < NPIX; ++k)
       depth[(size_t)(rbase + k * ROW_STEP) * width + col] = z[k];
   }
 
-  // G-buffer resolve from the winning row (ti/tf: the rows tid indexes):
-  // re-evaluate its edge functions at the pixel, interpolate 1/w, color,
-  // uv and normal, copy its constants; then the flat resolve, and uv and
-  // normal times 1/den.  MASKED_INV picks the divide's form, which the
-  // reference's kernels differ in (sign of zero, NaN when a row passed
-  // with den <= 0): buf * (covered ? inv : 0) for K2g, K4g and K5g,
-  // covered ? buf * inv : 0 for K3g.  out holds GBUF_PLANES planes of
-  // plane floats each, its first row global row row_base.
-  template <bool MASKED_INV>
-  __device__ __forceinline__ void store_gbuffer(
+  // Winner resolve (ti/tf: the rows tid indexes): re-evaluate its edge
+  // functions at the pixel, interpolate 1/w and color, and the flat
+  // resolve into color (int bits) and depth; with PLANES also uv and
+  // normal times 1/den and its constants into the GBUF_PLANES - 2 planes
+  // from extra, plane floats apart.  MASKED_INV picks the divide's form,
+  // which the reference's kernels differ in (sign of zero, NaN when a row
+  // passed with den <= 0): buf * (covered ? inv : 0) for K2g, K4g, K5g and
+  // K10g8g, covered ? buf * inv : 0 for K3g and K10vecg.  The output's
+  // first row is global row row_base.
+  template <bool MASKED_INV, bool PLANES = true>
+  __device__ __forceinline__ void resolve(
       const int* __restrict__ ti, const float* __restrict__ tf,
-      float* __restrict__ out, int width, size_t plane,
+      int* __restrict__ color, float* __restrict__ depth,
+      float* __restrict__ extra, int width, size_t plane,
       int row_base = 0) const {
-    static_assert(GBUF, "store_gbuffer needs the G-buffer state");
+    static_assert(GBUF, "resolve needs the winner's row id");
     const int col = col0 + (int)(threadIdx.x % TILE_W);
     const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
 #pragma unroll
-    for (int k = 0; k < PIX; ++k) {
+    for (int k = 0; k < NPIX; ++k) {
       float d = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
       float g[GBUF_INTERP] = {}, c[GBUF_CONSTS] = {};
       const int t = tid[k];
       if (t != INT_MAX32) {
-        const int* r = ti + (size_t)t * NI32;
-        const float* f = tf + (size_t)t * NF32;
-        const int py = py0 + k * ROW_STEP * SUBPIXEL;
+        const int* r = ti + (size_t)t * RI;
+        const float* f = tf + (size_t)t * RF;
         const float f0 = __int2float_rn(
             edge_fn(__ldg(r + I_DX0), __ldg(r + I_DY0), __ldg(r + I_X1),
-                    __ldg(r + I_Y1), px, py));
+                    __ldg(r + I_Y1), px, py(k)));
         const float f1 = __int2float_rn(
             edge_fn(__ldg(r + I_DX1), __ldg(r + I_DY1), __ldg(r + I_X2),
-                    __ldg(r + I_Y2), px, py));
+                    __ldg(r + I_Y2), px, py(k)));
         const float f2 = __int2float_rn(
             edge_fn(__ldg(r + I_DX2), __ldg(r + I_DY2), __ldg(r + I_X0),
-                    __ldg(r + I_Y0), px, py));
+                    __ldg(r + I_Y0), px, py(k)));
         d = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
                     __ldg(f + F_RW0 + 2));
         cr = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
@@ -289,13 +315,16 @@ struct TileState {
                      __ldg(f + F_CG0 + 2));
         cb = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
                      __ldg(f + F_CB0 + 2));
+        if constexpr (PLANES) {
 #pragma unroll
-        for (int i = 0; i < GBUF_INTERP; ++i) {
-          const float* fc = f + F_U0 + 3 * i;
-          g[i] = interp3(f0, f1, f2, __ldg(fc), __ldg(fc + 1), __ldg(fc + 2));
+          for (int i = 0; i < GBUF_INTERP; ++i) {
+            const float* fc = f + F_U0 + 3 * i;
+            g[i] = interp3(f0, f1, f2, __ldg(fc), __ldg(fc + 1),
+                           __ldg(fc + 2));
+          }
+#pragma unroll
+          for (int i = 0; i < GBUF_CONSTS; ++i) c[i] = __ldg(f + F_MET + i);
         }
-#pragma unroll
-        for (int i = 0; i < GBUF_CONSTS; ++i) c[i] = __ldg(f + F_MET + i);
       }
       const bool covered = d > 0.0f;
       const float inv = covered ? __fdiv_rn(1.0f, d) : 1.0f;
@@ -304,22 +333,35 @@ struct TileState {
                               (quantize(cb, covered, inv) << 16) |
                               0xFF000000u;
       const size_t idx = (size_t)(rbase + k * ROW_STEP) * width + col;
-      reinterpret_cast<int*>(out)[idx] = (int)packed;  // color bits
-      out[plane + idx] = z[k];
+      color[idx] = (int)packed;
+      depth[idx] = z[k];
+      if constexpr (PLANES) {
 #pragma unroll
-      for (int i = 0; i < GBUF_INTERP; ++i) {
-        float v;
-        if constexpr (MASKED_INV) {
-          v = __fmul_rn(g[i], covered ? inv : 0.0f);
-        } else {
-          v = covered ? __fmul_rn(g[i], inv) : 0.0f;
+        for (int i = 0; i < GBUF_INTERP; ++i) {
+          float v;
+          if constexpr (MASKED_INV) {
+            v = __fmul_rn(g[i], covered ? inv : 0.0f);
+          } else {
+            v = covered ? __fmul_rn(g[i], inv) : 0.0f;
+          }
+          extra[i * plane + idx] = v;
         }
-        out[(2 + i) * plane + idx] = v;
-      }
 #pragma unroll
-      for (int i = 0; i < GBUF_CONSTS; ++i)
-        out[(2 + GBUF_INTERP + i) * plane + idx] = c[i];
+        for (int i = 0; i < GBUF_CONSTS; ++i)
+          extra[(GBUF_INTERP + i) * plane + idx] = c[i];
+      }
     }
+  }
+
+  // The G-buffer resolve into out's GBUF_PLANES planes of plane floats
+  // each (color bits, depth, then the rest).
+  template <bool MASKED_INV>
+  __device__ __forceinline__ void store_gbuffer(
+      const int* __restrict__ ti, const float* __restrict__ tf,
+      float* __restrict__ out, int width, size_t plane,
+      int row_base = 0) const {
+    resolve<MASKED_INV>(ti, tf, reinterpret_cast<int*>(out), out + plane,
+                        out + 2 * plane, width, plane, row_base);
   }
 };
 

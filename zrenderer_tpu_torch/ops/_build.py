@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels (``zrenderer_tpu_torch/csrc``): the flat
 raster kernels K1-K6, the G-buffer kernels K2g, K3g, K4g, K5g, K6g, the
 depth-only kernels K2d, K3d, K4d, K6d, the band kernels K3b, K9, K9g,
-K9d, the tiled light kernel K7 and the overlay kernels K8 (layered raster)
-and K8b (atlas composite).
+K9d, the tiled light kernel K7, the overlay kernels K8 (layered raster)
+and K8b (atlas composite), and the raster experiments K10g8, K10g8g,
+K10g8d (``raster_group8.cu``) and K10vec, K10vecg (``raster_vec.cu``).
 
 ``nvcc`` compiles each ``.cu`` file for ``sm_90a`` and links them into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
@@ -31,7 +32,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "zrenderer_tpu_torch"
 SOURCES = ("raster_small.cu", "raster_hier.cu", "raster_binned.cu",
-           "light_tiled.cu", "overlay.cu")
+           "light_tiled.cu", "overlay.cu", "raster_group8.cu",
+           "raster_vec.cu")
 HEADERS = ("raster_common.cuh",)
 LIB_NAME = "libzr_raster.so"
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
@@ -163,6 +165,17 @@ def load_library() -> ctypes.CDLL:
     lib.zr_overlay_composite.argtypes = [p, p, p, p, p, i, p, i, i, p, i, i,
                                          p]
     lib.zr_overlay_composite.restype = i
+    lib.zr_raster_group8.argtypes = [p, p, p, p, i, p, p, p, p, p, p, i, i,
+                                     p]
+    lib.zr_raster_group8.restype = i
+    lib.zr_gbuffer_group8.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_group8.restype = i
+    lib.zr_depth_group8.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_depth_group8.restype = i
+    lib.zr_raster_vec.argtypes = [p, i, p, p, p, p, i, i, p]
+    lib.zr_raster_vec.restype = i
+    lib.zr_gbuffer_vec.argtypes = [p, i, p, p, p, i, i, p]
+    lib.zr_gbuffer_vec.restype = i
     lib.zr_error_string.argtypes = [i]
     lib.zr_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,16 @@
+"""The reference's quarantined raster experiments, ported.
+
+``zrenderer_tpu/ops/experiments/`` keeps alternative raster designs that
+are bit-identical to the production kernels and measured slower on the
+TPU; they render no production frame.  The port carries them as CUDA
+kernels with plain torch versions, each held to the same oracle:
+
+* ``raster_group8`` (K10g8, K10g8g, K10g8d): 8x128 group tiles, per-tile
+  sorted triangle lists, then the leftover mega/super/block hierarchy;
+* ``raster_vec`` (K10vec, K10vecg): lane-parallel 32-triangle subgroups
+  over the block/superblock skip tables.
+
+No Renderer path or ``binning`` selects them, as in the reference: their
+entry points (``rasterize_setup_group8``, ``rasterize_setup_vec`` and the
+G-buffer and depth variants) are called directly.
+"""

@@ -573,12 +573,14 @@ GBUFFER_PLANES = 2 + len(_GBUF_LATCHES) + len(_CONSTS)
 
 def _tile_planes(tiles_y: int, tiles_x: int, tie: bool, device,
                  gbuffer: bool = False, depth: bool = False,
-                 ty_base: int = 0):
+                 ty_base: int = 0, tile_h: int = TILE_H,
+                 tile_w: int = TILE_W):
     """Tile state: z, the row id with ``tie``, and the latches (none for
     ``depth``, the depth-only kernels; the lit ones too for ``gbuffer``).
     ``ty_base``: the global tile row of the planes' first tile row (a
-    band's)."""
-    shape = (tiles_y, tiles_x, TILE_H, TILE_W)
+    band's); ``tile_h``/``tile_w``: the tile of a kernel whose tiles are
+    not 32x128."""
+    shape = (tiles_y, tiles_x, tile_h, tile_w)
     planes = {"z": torch.ones(shape, dtype=F32, device=device)}
     if tie:
         planes["tid"] = torch.full(shape, _INT_MAX, dtype=I32, device=device)
@@ -589,10 +591,10 @@ def _tile_planes(tiles_y: int, tiles_x: int, tie: bool, device,
     half = SUBPIXEL // 2
     ty = torch.arange(tiles_y, dtype=I32, device=device)[:, None, None, None]
     tx = torch.arange(tiles_x, dtype=I32, device=device)[None, :, None, None]
-    iy = torch.arange(TILE_H, dtype=I32, device=device)[:, None]
-    ix = torch.arange(TILE_W, dtype=I32, device=device)[None, :]
-    py = ((ty + ty_base) * TILE_H + iy) * SUBPIXEL + half  # (ty, 1, TILE_H, 1)
-    px = (tx * TILE_W + ix) * SUBPIXEL + half  # (1, tx, 1, TILE_W)
+    iy = torch.arange(tile_h, dtype=I32, device=device)[:, None]
+    ix = torch.arange(tile_w, dtype=I32, device=device)[None, :]
+    py = ((ty + ty_base) * tile_h + iy) * SUBPIXEL + half  # (ty, 1, th, 1)
+    px = (tx * tile_w + ix) * SUBPIXEL + half  # (1, tx, 1, tw)
     return planes, py, px
 
 
@@ -649,16 +651,18 @@ def _scan_rows(planes, py, px, ti, tf, tie: bool, ty_base: int = 0):
     """Every row with a non-empty bbox, in row order, over the tiles its
     bbox touches (the kernels' superblock/block skips never drop such a
     row: a row with a non-empty bbox is valid, so it is in both unions).
-    ``ty_base``: the planes' first global tile row."""
-    tiles_y, tiles_x = py.shape[0], px.shape[1]
+    ``ty_base``: the planes' first global tile row.  The tile size is the
+    planes' (``py``/``px``)."""
+    tiles_y, tile_h = py.shape[0], py.shape[2]
+    tiles_x, tile_w = px.shape[1], px.shape[3]
     bbox = ti[:, [I_JMIN, I_JMAX, I_IMIN, I_IMAX]].cpu()
     rows = torch.nonzero((bbox[:, 0] <= bbox[:, 1])
                          & (bbox[:, 2] <= bbox[:, 3])).flatten().tolist()
     for r in rows:
         jmin, jmax, imin, imax = bbox[r].tolist()
-        tx0, tx1 = max(jmin // TILE_W, 0), min(jmax // TILE_W, tiles_x - 1)
-        ty0 = max(imin // TILE_H - ty_base, 0)
-        ty1 = min(imax // TILE_H - ty_base, tiles_y - 1)
+        tx0, tx1 = max(jmin // tile_w, 0), min(jmax // tile_w, tiles_x - 1)
+        ty0 = max(imin // tile_h - ty_base, 0)
+        ty1 = min(imax // tile_h - ty_base, tiles_y - 1)
         if tx0 > tx1 or ty0 > ty1:
             continue
         sel = (slice(ty0, ty1 + 1), slice(tx0, tx1 + 1))
@@ -666,9 +670,9 @@ def _scan_rows(planes, py, px, ti, tf, tie: bool, ty_base: int = 0):
 
 
 def _frame(p):
-    """(ty, tx, TILE_H, TILE_W) tile planes -> the (H, W) frame."""
-    ty, tx = p.shape[:2]
-    return p.permute(0, 2, 1, 3).reshape(ty * TILE_H, tx * TILE_W).contiguous()
+    """(ty, tx, tile_h, tile_w) tile planes -> the (H, W) frame."""
+    ty, tx, th, tw = p.shape
+    return p.permute(0, 2, 1, 3).reshape(ty * th, tx * tw).contiguous()
 
 
 def _resolve_planes(planes):
