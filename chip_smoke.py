@@ -170,6 +170,12 @@ Phases, in order, each printing its own lines and seconds:
     entry point traced once, launcher times, the two prepares' times on
     the 1M lattice and the bounds at each kernel's own granularity (8x128
     tiles for group8, 8x128 chunks for vec);
+6xv. the visibility-buffer experiments' traces, taken before phase 6's
+    untraced loops and their own plain versions (a trace after about 1.2M
+    untraced launches loses a kernel record): K10vis and K10trans on the
+    1M lattice at 1920x1088 (five launches each), each entry point traced
+    once (device ops, busy ms, idle share) and the colour resolve
+    (``resolve_flat_vis``, torch ops) traced once;
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape, and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
@@ -197,6 +203,23 @@ Phases, in order, each printing its own lines and seconds:
    one traced sharded frame each, the per-band prepares and the sharded
    frames' ms, every band rendered in turn on the one card (no multi-card
    time);
+4xv. (after phase 6) K10vis (hit bitmap of 8-row groups) and K10trans
+    (8-row groups over 4-row chunks) against their plain versions: depth
+    bits and the winning row id equal, the colour resolved on the card
+    equal to the same resolve on the CPU: the 40K lattice at 1920x1088
+    (its plain calls give plain_ms), the test scene, the clipped soup, the
+    duplicated soup (its resolved frame equal to the soup's without the
+    duplicates: ties to the first row), the soup at 128x64 with geometry
+    at 128x56 (rows 56-63 drawn by each kernel's own extent, all 64 rows
+    held) and an empty scene; the visible rows of each frame equal K5's;
+5xv. the two entry points once each on the 1M lattice at 1920x1088,
+    launch counts set to 0 just before and read just after (one launch
+    each), rows 0-1079 equal K5's frame (RGBA and depth bits); then each
+    kernel against its plain version on one 1M prepare, all 1088 rows,
+    unless the plain version's 40K time scaled to 1M rows exceeds 60 s;
+6xv (untraced). the launchers, the resolve and the two prepares between
+    CUDA events at 1M, and the bounds (the (4x128 chunk, triangle) pairs,
+    K10trans's gate, for both kernels; the resolve by its bytes);
 7. the app CLI writing PNGs: the test scene flat, shadowed, deferred and
    deferred with ``--taa``, the showcase lit; the test scene flat with
    ``--overlay``, ``--orbit`` and ``--ui --orbit``, the showcase lit with
@@ -218,11 +241,12 @@ OPS_PER_OVERLAY_HIT; K8b's the larger of the frame, the count, the output
 and the live layers (12 bytes each) moved once and the live layers times
 OPS_PER_COMPOSITE_LAYER.  The group8 kernels' pairs are of their 8x128
 tiles, 1024 pixels each; the vec kernels' of 8x128 chunks, the
-granularity at which they gate a subgroup, 1024 pixels each.
+granularity at which they gate a subgroup, 1024 pixels each; K10vis's and
+K10trans's of 4x128 chunks, 512 pixels each, times OPS_PER_VIS_PAIR.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The band kernels' bound counts the pairs and the output planes of
-their band.  The second-to-last line is the kernels' JSON record (28
+their band.  The second-to-last line is the kernels' JSON record (30
 kernels), the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -291,6 +315,17 @@ OPS_PER_LIGHT = 81
 OPS_PER_OVERLAY_EVAL = 28
 OPS_PER_OVERLAY_HIT = 65
 OPS_PER_COMPOSITE_LAYER = 152
+# K10vis and K10trans, one (pixel, row) of their z + id body: the 26 ops of
+# OPS_PER_EVAL (3 edge functions of 5 int ops, 3 bias tests, 3 int ->
+# float conversions, the z plane's 3 mul + 2 add), the depth test z >= 0
+# && z < zb (2) and the latch of z and the row id (2): 30 ops.
+OPS_PER_VIS_PAIR = 30
+# The resolve of a visibility buffer: one table row of 24 int32 gathered
+# per covered pixel.
+VIS_TABLE_BYTES = 24 * 4
+# A plain version held at 1M only when its 40K time, scaled by the rows,
+# stays under this.
+PLAIN_1M_MAX_S = 60.0
 
 # bench.py's parity threshold against the oracle at 256x144, and
 # RASTER_SPEC.md §5's full-pipeline depth bound.
@@ -381,6 +416,9 @@ def main() -> int:
     from zrenderer_tpu_torch.ops import geometry as tg
     from zrenderer_tpu_torch.ops.experiments import raster_group8 as group8
     from zrenderer_tpu_torch.ops.experiments import raster_vec as vec
+    from zrenderer_tpu_torch.ops.experiments import (
+        raster_vis_trans as vis_trans,
+    )
     from zrenderer_tpu_torch.parallel import multihost, tiles
     from zrenderer_tpu_torch.raster_ref import raster_cpu
     from zrenderer_tpu_torch.scene.mesh import V_COLOR, MeshData
@@ -410,13 +448,14 @@ def main() -> int:
     k9d = raster.raster_binned_band_dist_kernel
     kx8, kx8g, kx8d = group8.KERNELS
     kxv, kxvg = vec.KERNELS
+    kxvis, kxtrans = vis_trans.KERNELS
     results = {key: {"err": 0.0}
                for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6",
                            "k2g", "k3g", "k4g", "k5g", "k6g",
                            "k2d", "k3d", "k4d", "k6d", "k7", "k7_bf16",
                            "k8", "k8b", "k3b", "k9", "k9g", "k9d",
                            "k10g8", "k10g8g", "k10g8d", "k10vec",
-                           "k10vecg")}
+                           "k10vecg", "k10vis", "k10trans")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -595,14 +634,16 @@ def main() -> int:
         return int(torch.where(live, tx * ty, 0).sum().item())
 
     def set_bound(key, inputs, pairs, w, h, shape, planes=2,
-                  tile_px=raster.TILE_H * raster.TILE_W):
+                  tile_px=raster.TILE_H * raster.TILE_W,
+                  ops_per_px=OPS_PER_EVAL):
         """The least time the card could take: inputs read once and the
         ``planes`` output planes written once at HBM_BYTES_PER_S, or
-        ``pairs`` tile evaluations of ``tile_px`` pixels each at
-        CUDA_CORE_OPS_PER_S, whichever is larger."""
+        ``pairs`` tile evaluations of ``tile_px`` pixels each, at
+        ``ops_per_px`` ops a pixel, at CUDA_CORE_OPS_PER_S, whichever is
+        larger."""
         nbytes = (sum(t.numel() * t.element_size() for t in inputs)
                   + planes * 4 * w * h)
-        ops = pairs * tile_px * OPS_PER_EVAL
+        ops = pairs * tile_px * ops_per_px
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
         res = results[key]
@@ -1388,7 +1429,8 @@ def main() -> int:
                  "k7": k7, "k7_bf16": k7b, "k8": k8, "k8b": k8b,
                  "k3b": k3b, "k9": k9, "k9g": k9g, "k9d": k9d,
                  "k10g8": kx8, "k10g8g": kx8g, "k10g8d": kx8d,
-                 "k10vec": kxv, "k10vecg": kxvg}
+                 "k10vec": kxv, "k10vecg": kxvg, "k10vis": kxvis,
+                 "k10trans": kxtrans}
 
     def drive(label, scene_md, binning, key):
         """One frame through Renderer.render_and_read with every launch
@@ -2106,7 +2148,9 @@ def main() -> int:
                     "k10g8g": "gbuffer_group8_kernel",
                     "k10g8d": "depth_group8_kernel",
                     "k10vec": "raster_vec_kernel",
-                    "k10vecg": "gbuffer_vec_kernel"}
+                    "k10vecg": "gbuffer_vec_kernel",
+                    "k10vis": "raster_vis_kernel",
+                    "k10trans": "raster_trans_kernel"}
     port_kernels = set(kernel_names.values())
 
     def traced_kernel_ms(keys, fn, attempts=3):
@@ -3091,6 +3135,57 @@ def main() -> int:
               f"ms/call, prepare_vec_inputs (record build) {vec_ms:.4f} "
               "ms/call (CUDA events, host dispatch included)")
 
+    # -- 6xv. the visibility-buffer traces ----------------------------------
+    # Taken here, before phase 6's untraced loops and the plain versions of
+    # 4xv and 5xv: a trace after about 1.2M untraced launches loses one
+    # kernel record (tools/profiler_probe.py), and traced_kernel_ms then
+    # refuses it.
+    vt_cases = {  # key: (kernel, plain version, entry point, prepare)
+        "k10vis": (kxvis, vis_trans.raster_vis_plain,
+                   vis_trans.rasterize_setup_vis,
+                   vis_trans.prepare_vis_inputs),
+        "k10trans": (kxtrans, vis_trans.raster_trans_plain,
+                     vis_trans.rasterize_setup_trans,
+                     lambda ti, tf, w, h: vis_trans.prepare_trans_inputs(
+                         ti, tf)),
+    }
+
+    @phase("6xv K10vis/K10trans traces")
+    def vis_traces():
+        """Each kernel's device time from a trace at 1M (five launches),
+        each entry point traced once (device ops, busy, idle share) and
+        the resolve traced once.  Returns the 1M prepares and the
+        resolve's busy ms."""
+        ti, tf = rows_lattice
+        w, h = PAD_W, PAD_H
+        preps = {}
+        for key, (kern, _, fn, prepare) in vt_cases.items():
+            *args, table = preps[key] = prepare(ti, tf, w, h)
+            _, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*args, w, h) for _ in range(5)])
+            results[key]["ms"] = ms[key]
+            events, window, kms = traced_kernel_ms((key,),
+                                                   lambda: fn(ti, tf, w, h))
+            results[key]["anim_ms"] = kms[key]
+            busy = busy_us(events)
+            print(f"  profiled entry point {fn.__name__} on lattice1M {w}x"
+                  f"{h}: {len(events)} device ops, device busy "
+                  f"{busy / 1000.0:.4f} ms ({key} {kms[key]:.4f} ms), idle "
+                  f"share {1.0 - busy / window:.4f} of "
+                  f"{window / 1000.0:.4f} ms traced; kernel alone "
+                  f"{ms[key]:.4f} ms", flush=True)
+        *args, table = preps["k10vis"]
+        depth, idx = kxvis(*args, w, h)
+        events, window = device_trace(
+            lambda: vis_trans.resolve_flat_vis(depth, idx, table))
+        busy = busy_us(events)
+        print(f"  resolve_flat_vis on lattice1M {w}x{h}: {len(events)} "
+              f"device ops, device busy {busy / 1000.0:.4f} ms of "
+              f"{window / 1000.0:.4f} ms traced")
+        return preps, (depth, idx, table), busy / 1000.0
+
+    vt_preps, vt_planes, vt_resolve_busy = vis_traces
+
     @phase("6 timing")
     def timing():
         # (label, renderer, kernels timed in its trace, frames timed,
@@ -3522,6 +3617,205 @@ def main() -> int:
                   f"ops -> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} "
                   f"ms; bound {res['bound_ms']:.4f} ms by {res['bound_by']}")
 
+    # -- 4xv. K10vis/K10trans vs plain ----------------------------------------
+    def vt_check(key, label, rows, w, h, visible, plain_shape=None,
+                 empty=False):
+        """Kernel ``key`` against its plain version on ``rows``: depth
+        bits and row ids equal; the colour resolved on the card equal to
+        the same resolve on the CPU; rows [0, visible) of the frame equal
+        to K5's (RGBA and depth bits).  Returns (color, depth, idx)."""
+        kern, plain, _, prepare = vt_cases[key]
+        *args, table = prepare(*rows, w, h)
+        sync()
+        dk, ik = kern(*args, w, h)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dp, ip = plain(*args, w, h)
+        end.record()
+        sync()
+        if plain_shape is not None:
+            results[key]["plain_ms"] = start.elapsed_time(end)
+            results[key]["plain_shape"] = plain_shape
+        same = (torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+                and torch.equal(ik, ip))
+        ids_off = int((ik != ip).sum().item())
+        err = (dk - dp).abs().max().item()
+        ck = vis_trans.resolve_flat_vis(dk, ik, table)
+        same_c = torch.equal(ck.cpu(), vis_trans.resolve_flat_vis(
+            dk.cpu(), ik.cpu(), table.cpu()))
+        c5, d5 = k5(*raster.prepare_raster_inputs(*rows), w, h)
+        vis = slice(0, visible)
+        same5 = same_planes((ck[vis], dk[vis]), (c5[vis], d5[vis]))
+        cov = (dk < 1.0).float().mean().item()
+        print(f"  {label} ({key}, {w}x{h}): {args[2].shape[0]} rows, "
+              f"bit-exact={same} (depth bits and ids; {ids_off} ids "
+              f"differ, max_abs_err={err}), card resolve equal to the "
+              f"CPU's {same_c}, rows 0-{visible - 1} equal K5's {same5}, "
+              f"coverage={cov:.4f}", flush=True)
+        if not (same and same_c):
+            raise AssertionError(f"{label}: {key} and its plain version "
+                                 "or the two resolves differ")
+        if not same5:
+            raise AssertionError(f"{label}: {key} differs from K5 in the "
+                                 "visible rows")
+        if (cov <= 0.0) != empty:
+            raise AssertionError(f"{label}: coverage {cov}")
+        results[key]["err"] = max(results[key]["err"], float(err))
+        return ck, dk, ik
+
+    @phase("4xv K10vis/K10trans experiment kernels vs plain versions")
+    def vis_cases():
+        rows40 = setup_rows(*make_stress_scene(MID_TRIS), WIDTH, HEIGHT,
+                            tri_align=256)
+        for key in vt_cases:
+            t0 = time.perf_counter()
+            vt_check(key, "lattice40k", rows40, PAD_W, PAD_H, HEIGHT,
+                     plain_shape="lattice40k")
+            print(f"  (plain {key} included: "
+                  f"{time.perf_counter() - t0:.1f} s)")
+        scene_rows = setup_rows(*load_test_scene(), WIDTH, HEIGHT)
+        clipped = setup_rows(*clipped_soup(), WIDTH, HEIGHT)
+        w, h = 1024, 512
+        dup = setup_rows(*tie_soup(True), w, h)
+        one = setup_rows(*tie_soup(False), w, h)
+        # Geometry at 128x56, raster at 128x64: rows 56-63 are padding.
+        padded = setup_rows(*make_triangle_soup(1500, seed=5, extent=6.0),
+                            128, 56)
+        c5, d5 = k5(*raster.prepare_raster_inputs(*padded), 128, 64)
+        pad = slice(56, 64)
+        print(f"  padded soup 128x64: K5 draws {int((d5[pad] < 1.0).sum())} "
+              "pixels in rows 56-63")
+        t = tg.capped_rows(64)
+        ti = torch.zeros((t + (-t) % 64, tg.NI32), dtype=torch.int32,
+                         device=dev)
+        ti[:, tg.I_JMIN] = 1
+        ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
+        empty = (ti, torch.zeros((ti.shape[0], tg.NF32), device=dev))
+        for key in vt_cases:
+            vt_check(key, "test scene", scene_rows, PAD_W, PAD_H, HEIGHT)
+            vt_check(key, "clipped soup", clipped, PAD_W, PAD_H, HEIGHT)
+            c_dup, d_dup, _ = vt_check(key, "duplicated triangles", dup, w,
+                                       h, h)
+            c_one, d_one, _ = vt_check(key, "duplicates removed", one, w, h,
+                                       h)
+            if not same_planes((c_dup, d_dup), (c_one, d_one)):
+                raise AssertionError(f"{key}: a duplicate won a depth tie")
+            c, d, _ = vt_check(key, "padded soup", padded, 128, 64, 56)
+            drawn = int((d[pad] < 1.0).sum().item())
+            other = int(((d[pad] != d5[pad]) | (c[pad] != c5[pad])).sum()
+                        .item())
+            print(f"  padded soup ({key}): {drawn} pixels drawn in rows "
+                  f"56-63, {other} of them differ from K5's")
+            c, d, i = vt_check(key, "empty scene", empty, PAD_W, PAD_H,
+                               PAD_H, empty=True)
+            if not (bool((i == -1).all().item())
+                    and bool((c == -(1 << 24)).all().item())):
+                raise AssertionError(f"empty scene: {key} drew something")
+        print("  every exact depth tie went to the first-submitted row "
+              "(K10vis, K10trans)")
+
+    # -- 5xv. the visibility-buffer frames at 1M ------------------------------
+    @phase("5xv K10vis/K10trans frames at 1M")
+    def vis_frames():
+        """Each entry point once on the 1M lattice at 1920x1088, with every
+        launch count set to 0 just before and read just after; rows
+        0-1079 against K5's frame.  Then each kernel against its plain
+        version on one 1M prepare, all 1088 rows, where the plain
+        version's 40K time scaled to 1M rows stays under PLAIN_1M_MAX_S."""
+        ti, tf = rows_lattice
+        c5, d5 = k5(*raster.prepare_raster_inputs(ti, tf), PAD_W, PAD_H)
+        vis, pad = slice(0, HEIGHT), slice(HEIGHT, PAD_H)
+        for key, (_, _, fn, _) in vt_cases.items():
+            sync()
+            for kern in kernel_of.values():
+                kern.launches = 0
+            c, d = fn(ti, tf, PAD_W, PAD_H)
+            sync()
+            launched = {k: kern.launches for k, kern in kernel_of.items()
+                        if kern.launches}
+            if launched != {key: 1}:
+                raise AssertionError(f"{key}: launches {launched}, one "
+                                     f"{key} launch expected")
+            counts[key] = 1
+            same5 = same_planes((c[vis], d[vis]), (c5[vis], d5[vis]))
+            cov = (d[vis] < 1.0).float().mean().item()
+            print(f"  lattice1M {PAD_W}x{PAD_H} ({key}, one launch): rows "
+                  f"0-{HEIGHT - 1} equal K5's {same5} (RGBA and depth bits),"
+                  f" coverage {cov:.4f}; rows {HEIGHT}-{PAD_H - 1}: "
+                  f"{int((d[pad] < 1.0).sum().item())} pixels drawn, K5 "
+                  f"{int((d5[pad] < 1.0).sum().item())}")
+            if not same5 or cov <= MIN_COVERAGE:
+                raise AssertionError(f"lattice1M: {key} differs from K5 in "
+                                     "the visible rows")
+        for key, (kern, plain, _, _) in vt_cases.items():
+            *args, _ = vt_preps[key]
+            scale = ti.shape[0] / MID_TRIS
+            predicted = results[key]["plain_ms"] / 1e3 * scale
+            if predicted > PLAIN_1M_MAX_S:
+                print(f"  lattice1M ({key}): plain version not run, its "
+                      f"40K time scaled by the rows predicts {predicted:.1f}"
+                      f" s > {PLAIN_1M_MAX_S:.0f} s; held at 40K only")
+                continue
+            out = kern(*args, PAD_W, PAD_H)
+            sync()
+            t0 = time.perf_counter()
+            ref = plain(*args, PAD_W, PAD_H)
+            sync()
+            secs = time.perf_counter() - t0
+            results[key]["plain_s_1m"] = secs
+            same = same_planes(out, ref)
+            print(f"  lattice1M {PAD_W}x{PAD_H} ({key}): kernel and plain "
+                  f"version bit-exact in all {PAD_H} rows {same} (depth "
+                  f"bits and ids; plain version {secs:.1f} s, predicted "
+                  f"{predicted:.1f} s)", flush=True)
+            if not same:
+                raise AssertionError(f"lattice1M: {key} and its plain "
+                                     "version differ")
+        print(f"  launches in one main-path frame: "
+              f"{ {k: counts[k] for k in vt_cases} }")
+
+    # -- 6xv (untraced). launcher, resolve and prepare times; bounds ----------
+    @phase("6xv K10vis/K10trans untraced times and bounds")
+    def vis_timing():
+        """The launchers, the resolve and the prepares between CUDA
+        events at 1M, and the bounds: (4x128 chunk, triangle) pairs,
+        K10trans's gate, for both kernels; the resolve by its bytes."""
+        ti, tf = rows_lattice
+        w, h = PAD_W, PAD_H
+        depth, idx, table = vt_planes
+        res_ms = event_ms(
+            lambda: vis_trans.resolve_flat_vis(depth, idx, table), 20)
+        covered = int((idx >= 0).sum().item())
+        nbytes = 3 * 4 * w * h + VIS_TABLE_BYTES * covered
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        for key in vt_cases:
+            results[key].update(resolve_ms=res_ms,
+                                resolve_busy_ms=vt_resolve_busy,
+                                resolve_bound_ms=bound)
+        print(f"  resolve_flat_vis on lattice1M {w}x{h}: device busy "
+              f"{vt_resolve_busy:.4f} ms (6xv's trace); {res_ms:.4f} ms/call "
+              f"(CUDA events, host dispatch included); bound {bound:.4f} ms "
+              f"by bytes ({nbytes} bytes: depth, id and colour planes, "
+              f"{covered} table rows)")
+        pairs = tile_pairs(ti, w, h, 4, raster.TILE_W)
+        for key, (kern, _, _, prepare) in vt_cases.items():
+            *args, _ = vt_preps[key]
+            res = results[key]
+            res["wrapper_ms"] = event_ms(lambda: kern(*args, w, h), 5)
+            set_bound(key, args, pairs, w, h, "lattice1M", planes=2,
+                      tile_px=4 * raster.TILE_W, ops_per_px=OPS_PER_VIS_PAIR)
+            res["prepare_ms"] = event_ms(lambda: prepare(ti, tf, w, h), 5)
+            print(f"  {key} lattice1M {w}x{h} (4x128 pairs): kernel "
+                  f"{res['ms']:.4f} ms device time (profiler; "
+                  f"{res['anim_ms']:.4f} ms in the traced entry point), "
+                  f"launcher {res['wrapper_ms']:.4f} ms/call (CUDA events); "
+                  f"plain version {res['plain_ms']:.4f} ms/call at "
+                  f"{res['plain_shape']} (CUDA events); prepare "
+                  f"{res['prepare_ms']:.4f} ms/call (CUDA events, host "
+                  "dispatch included)")
+
     # -- 7. app -----------------------------------------------------------
     @phase("7 app")
     def app():
@@ -3594,7 +3888,10 @@ def main() -> int:
         "k10g8g": ("raster_group8.cu", f"{EXPERIMENTS}/raster_group8.py:704"),
         "k10g8d": ("raster_group8.cu", f"{EXPERIMENTS}/raster_group8.py:716"),
         "k10vec": ("raster_vec.cu", f"{EXPERIMENTS}/raster_vec.py:347"),
-        "k10vecg": ("raster_vec.cu", f"{EXPERIMENTS}/raster_vec.py:384")}
+        "k10vecg": ("raster_vec.cu", f"{EXPERIMENTS}/raster_vec.py:384"),
+        "k10vis": ("raster_vis.cu", f"{EXPERIMENTS}/raster_vis_trans.py:393"),
+        "k10trans": ("raster_vis.cu",
+                     f"{EXPERIMENTS}/raster_vis_trans.py:654")}
     kernels = []
     for key, (src, line) in sources.items():
         res = results[key]
@@ -3614,7 +3911,9 @@ def main() -> int:
                if k.endswith("_r2") or k in ("pairs", "evals", "covered",
                                               "live_layers", "ms_test_scene",
                                               "prepare_ms",
-                                              "plain_s_1m")}})
+                                              "plain_s_1m", "resolve_ms",
+                                              "resolve_busy_ms",
+                                              "resolve_bound_ms")}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Shared pieces of the flat and G-buffer raster kernels (raster_small.cu,
-// raster_hier.cu, raster_binned.cu, and the experiments raster_group8.cu
-// and raster_vec.cu).
+// raster_hier.cu, raster_binned.cu, and the experiments raster_group8.cu,
+// raster_vec.cu and raster_vis.cu).
 //
 // Layout contract with zrenderer_tpu/ops/geometry.py: setup rows are
 // (R, NI32) int32 + (R, NF32) float32, row-major; bbox tables are (n, 8)
@@ -122,14 +122,22 @@ __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
 // the int and float strides of the setup rows that eval and resolve index
 // by row id (the lane-parallel experiment's records hold both, REC_LANES
 // lanes apart).
+//
+// VIS: the visibility-buffer experiments (K10vis, K10trans).  z and the
+// winning row id under the strict-less test, as GBUF, but no resolve:
+// store_vis writes the depth and id planes, and the colour is resolved
+// outside the kernel.
 template <bool TIE, bool GBUF = false, bool DEPTH = false, int TH = TILE_H,
-          int RI = NI32, int RF = NF32>
+          int RI = NI32, int RF = NF32, bool VIS = false>
 struct TileState {
   static_assert(!(DEPTH && (TIE || GBUF)), "depth-only state is strict-less");
-  static constexpr bool LATCH = !GBUF && !DEPTH;  // den/nr/ng/nb in the loop
+  static_assert(!(VIS && (TIE || GBUF || DEPTH)),
+                "the visibility state is strict-less z and row id");
+  static constexpr bool LATCH = !GBUF && !DEPTH && !VIS;  // den/nr/ng/nb
+  static constexpr bool ROW_ID = TIE || GBUF || VIS;  // keeps the winner
   static constexpr int NPIX = TH * TILE_W / THREADS;  // pixels a thread
   float z[NPIX];
-  int tid[(TIE || GBUF) ? NPIX : 1];
+  int tid[ROW_ID ? NPIX : 1];
   float den[LATCH ? NPIX : 1], nr[LATCH ? NPIX : 1], ng[LATCH ? NPIX : 1],
       nb[LATCH ? NPIX : 1];
   int px;   // this thread's pixel-centre x, in subpixels
@@ -144,7 +152,7 @@ struct TileState {
 #pragma unroll
     for (int k = 0; k < NPIX; ++k) {
       z[k] = 1.0f;
-      if constexpr (TIE || GBUF) tid[k] = INT_MAX32;
+      if constexpr (ROW_ID) tid[k] = INT_MAX32;
       if constexpr (LATCH) den[k] = nr[k] = ng[k] = nb[k] = 0.0f;
     }
   }
@@ -165,7 +173,7 @@ struct TileState {
     }
     if (!ok) return false;
     z[k] = zz;
-    if constexpr (TIE || GBUF) tid[k] = t;
+    if constexpr (ROW_ID) tid[k] = t;
     return true;
   }
 
@@ -259,6 +267,22 @@ struct TileState {
       const size_t idx = (size_t)(rbase + k * ROW_STEP) * width + col;
       color[idx] = (int)packed;
       depth[idx] = z[k];
+    }
+  }
+
+  // The visibility epilogue: z, and the winning row id (-1 where no row
+  // passed).
+  __device__ __forceinline__ void store_vis(float* __restrict__ depth,
+                                            int* __restrict__ idx,
+                                            int width) const {
+    static_assert(VIS, "store_vis needs the visibility state");
+    const int col = col0 + (int)(threadIdx.x % TILE_W);
+    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
+#pragma unroll
+    for (int k = 0; k < NPIX; ++k) {
+      const size_t i = (size_t)(rbase + k * ROW_STEP) * width + col;
+      depth[i] = z[k];
+      idx[i] = tid[k] == INT_MAX32 ? -1 : tid[k];
     }
   }
 

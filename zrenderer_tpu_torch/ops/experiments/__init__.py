@@ -8,9 +8,13 @@ kernels with plain torch versions, each held to the same oracle:
 * ``raster_group8`` (K10g8, K10g8g, K10g8d): 8x128 group tiles, per-tile
   sorted triangle lists, then the leftover mega/super/block hierarchy;
 * ``raster_vec`` (K10vec, K10vecg): lane-parallel 32-triangle subgroups
-  over the block/superblock skip tables.
+  over the block/superblock skip tables;
+* ``raster_vis_trans`` (K10vis, K10trans): visibility buffers (depth and
+  winning row id) from 8-row groups, gated by a per-tile hit bitmap or by
+  the groups' bboxes over 4-row chunks, and the exact colour resolve.
 
 No Renderer path or ``binning`` selects them, as in the reference: their
-entry points (``rasterize_setup_group8``, ``rasterize_setup_vec`` and the
-G-buffer and depth variants) are called directly.
+entry points (``rasterize_setup_group8``, ``rasterize_setup_vec``,
+``rasterize_setup_vis``, ``rasterize_setup_trans`` and the G-buffer and
+depth variants) are called directly.
 """
