@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (zrenderer_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 4h,5h,6h]
 
-Phases, in order, each printing its own lines and seconds:
+With no argument every phase runs.  ``--phases`` takes comma-separated
+prefixes of phase names: phases 1 and 2 run, then only the phases whose
+names start with one of them (a phase that needs a skipped phase's result
+fails), a line names the skipped phases, and the kernels line lists only
+the kernels the phases reached.  Phases, in order, each printing its own
+lines and seconds:
 
 1. environment: torch/CUDA/nvcc versions, the card's name and power limit;
 2. build: the CUDA kernels from ``zrenderer_tpu_torch/csrc``;
@@ -176,6 +181,10 @@ Phases, in order, each printing its own lines and seconds:
     1M lattice at 1920x1088 (five launches each), each entry point traced
     once (device ops, busy ms, idle share) and the colour resolve
     (``resolve_flat_vis``, torch ops) traced once;
+6h. the two-class experiments' traces, before phase 6's untraced loops
+    too: K10hbm2 and K10scan on the 1M lattice at 1920x1088 (five launches
+    each) and each entry point traced once (device ops, busy ms, idle
+    share);
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape, and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
@@ -220,6 +229,31 @@ Phases, in order, each printing its own lines and seconds:
 6xv (untraced). the launchers, the resolve and the two prepares between
     CUDA events at 1M, and the bounds (the (4x128 chunk, triangle) pairs,
     K10trans's gate, for both kernels; the resolve by its bytes);
+4h. K10hbm2 (short rows on an 8-row window, tall rows over the tile) and
+    K10scan (the tall pass, then row-sorted wide records of the short
+    rows) against their plain versions, colour and depth bits in every
+    row, and the visible rows of each frame against K5's: the 40K lattice
+    at 1920x1088 (its plain calls give plain_ms), the test scene, the
+    clipped soup, the duplicated soup (its frame equal to the soup's
+    without the duplicates), the 1536-triangle stress mix at 256x64, the
+    soup at 128x64 with geometry at 128x56 (the pixels each draws in rows
+    56-63 printed), the reference test's cross-class exact tie (the tall
+    row wins), its z == 1.0 case (one pixel latched that K5 leaves clear),
+    its short row at z == -0.0 (K10hbm2 keeps -0.0 as K5 does, K10scan
+    stores +0.0) and an empty scene;
+5h. the two entry points once each on the 1M lattice at 1920x1088,
+    launch counts set to 0 just before and read just after (one launch
+    each), rows 0-1079 equal to K5's frame (RGBA and depth bits) but for
+    pixels latched at z == 1.0 or a -0.0 stored +0.0 (both counted), the
+    pixels drawn in rows 1080-1087 and the short share of the live rows;
+    then each kernel against its plain version on one 1M prepare, all
+    1088 rows, unless its 40K time scaled to 1M rows exceeds 60 s;
+6h (untraced). the launchers and the prepares between CUDA events at 1M,
+    and the bounds: each (tile, row) pair's bbox pixels in the tile, or in
+    the tiles of the padding rows the kernel's own extent (the tile for a
+    tall row, K10hbm2's 8-row window), x OPS_PER_EVAL; then where
+    the time goes: each kernel with one view's superblocks emptied (each
+    pass alone), and K5 over the same padded rows compacted and not;
 7. the app CLI writing PNGs: the test scene flat, shadowed, deferred and
    deferred with ``--taa``, the showcase lit; the test scene flat with
    ``--overlay``, ``--orbit`` and ``--ui --orbit``, the showcase lit with
@@ -246,7 +280,7 @@ K10trans's of 4x128 chunks, 512 pixels each, times OPS_PER_VIS_PAIR.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The band kernels' bound counts the pairs and the output planes of
-their band.  The second-to-last line is the kernels' JSON record (30
+their band.  The second-to-last line is the kernels' JSON record (32
 kernels), the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -356,10 +390,21 @@ OVERLAY_MAX_LSB = 1
 OVERLAY_FRAMES = 20  # frames of the untraced overlay timing loops
 
 
+# ``--phases``: the name prefixes of the phases to run after phases 1 and
+# 2 (None: every phase), and the names of the phases it skipped.
+PHASE_PREFIXES = None
+SKIPPED_PHASES = []
+
+
 def phase(name):
     """Decorator: run the phase at once, print its seconds, return its
-    result.  Exceptions propagate (the script exits non-zero)."""
+    result.  Exceptions propagate (the script exits non-zero).  A phase
+    that ``--phases`` leaves out returns None."""
     def run(fn):
+        if (PHASE_PREFIXES is not None and name.split()[0] not in ("1", "2")
+                and not name.startswith(PHASE_PREFIXES)):
+            SKIPPED_PHASES.append(name)
+            return None
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
         out = fn()
@@ -369,7 +414,20 @@ def phase(name):
     return run
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Chip smoke test of the "
+                                     "PyTorch port on one CUDA card.")
+    parser.add_argument("--phases", help="comma-separated phase name "
+                        "prefixes (e.g. 4h,5h,6h) to run after phases 1 "
+                        "and 2; default: every phase")
+    args = parser.parse_args(argv)
+    global PHASE_PREFIXES
+    PHASE_PREFIXES = (tuple(p for p in args.phases.split(",") if p)
+                      if args.phases else None)
+    SKIPPED_PHASES.clear()
+
     import torch
 
     if not torch.cuda.is_available():
@@ -419,6 +477,8 @@ def main() -> int:
     from zrenderer_tpu_torch.ops.experiments import (
         raster_vis_trans as vis_trans,
     )
+    from zrenderer_tpu_torch.ops.experiments import raster_hbm2 as hbm2
+    from zrenderer_tpu_torch.ops.experiments import raster_scanline as scanline
     from zrenderer_tpu_torch.parallel import multihost, tiles
     from zrenderer_tpu_torch.raster_ref import raster_cpu
     from zrenderer_tpu_torch.scene.mesh import V_COLOR, MeshData
@@ -449,13 +509,16 @@ def main() -> int:
     kx8, kx8g, kx8d = group8.KERNELS
     kxv, kxvg = vec.KERNELS
     kxvis, kxtrans = vis_trans.KERNELS
+    kxh2, = hbm2.KERNELS
+    kxscan, = scanline.KERNELS
     results = {key: {"err": 0.0}
                for key in ("k1", "k3", "k4", "k4_coarse", "k5", "k6",
                            "k2g", "k3g", "k4g", "k5g", "k6g",
                            "k2d", "k3d", "k4d", "k6d", "k7", "k7_bf16",
                            "k8", "k8b", "k3b", "k9", "k9g", "k9d",
                            "k10g8", "k10g8g", "k10g8d", "k10vec",
-                           "k10vecg", "k10vis", "k10trans")}
+                           "k10vecg", "k10vis", "k10trans", "k10hbm2",
+                           "k10scan")}
 
     def load_test_scene():
         return (Scene.load(os.path.join(SCENE_DIR, "scene.bin")),
@@ -764,7 +827,7 @@ def main() -> int:
                 PAD_W, PAD_H)
         return main_prep, lattice
 
-    main_prep_k3, lattice = k3_inputs
+    main_prep_k3, lattice = k3_inputs or (None,) * 2
 
     # -- 4b. K4, K4c, K5, K6 vs plain ---------------------------------------
     @phase("4b K4/K4c/K5/K6 kernels vs plain versions")
@@ -1371,6 +1434,7 @@ def main() -> int:
         return main
 
     # -- 5. main path -----------------------------------------------------
+    counts = {}  # launches of each kernel in its main-path run
     @phase("5 main path")
     def launches():
         scene, md = load_test_scene()
@@ -1416,11 +1480,11 @@ def main() -> int:
               f"{k3.launches - k3_before}")
         if cov_l <= MIN_COVERAGE or k3.launches == k3_before:
             raise AssertionError("lattice frame empty or not via K3")
-        counts = {"k1": k1.launches, "k3": k3.launches}
+        counts.update(k1=k1.launches, k3=k3.launches)
         print(f"  launches in the main-path run: {counts}")
-        return counts, r, rl
+        return r, rl
 
-    counts, r_scene, r_lattice = launches
+    r_scene, r_lattice = launches or (None,) * 2
 
     # -- 5b. large-scene paths ----------------------------------------------
     kernel_of = {"k1": k1, "k3": k3, "k4": k4, "k4_coarse": k4c, "k5": k5,
@@ -1430,7 +1494,7 @@ def main() -> int:
                  "k3b": k3b, "k9": k9, "k9g": k9g, "k9d": k9d,
                  "k10g8": kx8, "k10g8g": kx8g, "k10g8d": kx8d,
                  "k10vec": kxv, "k10vecg": kxvg, "k10vis": kxvis,
-                 "k10trans": kxtrans}
+                 "k10trans": kxtrans, "k10hbm2": kxh2, "k10scan": kxscan}
 
     def drive(label, scene_md, binning, key):
         """One frame through Renderer.render_and_read with every launch
@@ -1535,7 +1599,7 @@ def main() -> int:
                 lattice_big)
 
     (r_k4, r_k5, r_k4c, r_k6, rows_lattice, rows_soup, rows_k6,
-     lattice_big) = large
+     lattice_big) = large or (None,) * 8
 
     # -- 5l. lit main path --------------------------------------------------
     def checker_texture(size=256):
@@ -1663,7 +1727,7 @@ def main() -> int:
             raise AssertionError("lit 160x96 frame differs from the golden")
         return r, rl, r4, r5, rows_big
 
-    r_lit, r_lit3, r_lit4, r_lit5, rows_lit_big = lit
+    r_lit, r_lit3, r_lit4, r_lit5, rows_lit_big = lit or (None,) * 5
 
     # -- 5s. shadowed main path ---------------------------------------------
     def drive_shadowed(label, r, keys):
@@ -1815,7 +1879,7 @@ def main() -> int:
               f"; flipped PCF pixels at 1080p: {flips}")
         return r, r3, r6, r4, rows_big
 
-    r_sh, r_sh3, r_sh6, r_sh4, rows_sh_big = shadowed
+    r_sh, r_sh3, r_sh6, r_sh4, rows_sh_big = shadowed or (None,) * 5
     del lattice_big
 
     # -- 5dl. deferred main path ---------------------------------------------
@@ -1892,7 +1956,7 @@ def main() -> int:
                                  "golden")
         return runs["wide"][0], runs["r2"][0], rb
 
-    r_def, r_def_r2, r_def_bf16 = deferred
+    r_def, r_def_r2, r_def_bf16 = deferred or (None,) * 3
 
     # -- 5t. TAA ------------------------------------------------------------
     def config4(r, frames):
@@ -2065,7 +2129,7 @@ def main() -> int:
                                  "golden")
         return ui_o, ui_i, lines
 
-    ui_o, ui_i, ui_text = overlay_main
+    ui_o, ui_i, ui_text = overlay_main or (None,) * 3
 
     # -- 6. timing --------------------------------------------------------
     # A trace can hold a launch call without its kernel record, rarely
@@ -2150,7 +2214,9 @@ def main() -> int:
                     "k10vec": "raster_vec_kernel",
                     "k10vecg": "gbuffer_vec_kernel",
                     "k10vis": "raster_vis_kernel",
-                    "k10trans": "raster_trans_kernel"}
+                    "k10trans": "raster_trans_kernel",
+                    "k10hbm2": "raster_hbm2_kernel",
+                    "k10scan": "raster_scan_kernel"}
     port_kernels = set(kernel_names.values())
 
     def traced_kernel_ms(keys, fn, attempts=3):
@@ -2751,7 +2817,7 @@ def main() -> int:
               f"{ {k: counts[k] for k in band_keys} }")
         return deferred_refs, r40
 
-    deferred_band_refs, r_lattice40 = bands_main
+    deferred_band_refs, r_lattice40 = bands_main or (None,) * 2
 
     # -- 4x. K10g8/K10g8g/K10g8d/K10vec/K10vecg vs plain ---------------------
     def vec_prepare(ti, tf, w, h):
@@ -2957,7 +3023,7 @@ def main() -> int:
                 raise AssertionError(f"empty scene: {key} drew something")
         return lit40, map20, scene_rows
 
-    x_lit40, x_map20, x_scene_rows = experiment_cases
+    x_lit40, x_map20, x_scene_rows = experiment_cases or (None,) * 3
 
     # -- 5x. the experiment frames at 1M --------------------------------------
     @phase("5x experiment frames at 1M")
@@ -3184,7 +3250,53 @@ def main() -> int:
               f"{window / 1000.0:.4f} ms traced")
         return preps, (depth, idx, table), busy / 1000.0
 
-    vt_preps, vt_planes, vt_resolve_busy = vis_traces
+    vt_preps, vt_planes, vt_resolve_busy = vis_traces or (None,) * 3
+
+    # -- 6h. the two-class traces -------------------------------------------
+    # Before phase 6's untraced loops and the plain versions, as 6xv's.
+    th_cases = {  # key: (kernel, plain version, entry point, prepare)
+        "k10hbm2": (kxh2, hbm2.raster_hbm2_plain, hbm2.rasterize_setup_hbm2,
+                    lambda ti, tf, h: hbm2.prepare_raster_inputs_2class(
+                        ti, tf)),
+        "k10scan": (kxscan, scanline.raster_scanline_plain,
+                    scanline.rasterize_setup_scanline,
+                    scanline.prepare_scanline_inputs),
+    }
+    # The 1M lattice's rows at 1080p: phase 5b's, or where ``--phases``
+    # skipped 5b, the port's geometry on the card.
+    rows_1m = rows_lattice or setup_rows(*make_stress_scene(LARGE_TRIS),
+                                         WIDTH, HEIGHT)
+
+    @phase("6h K10hbm2/K10scan traces")
+    def twoclass_traces():
+        """Each kernel's device time from a trace at 1M (five launches) and
+        each entry point traced once (device ops, busy, idle share).
+        Returns the 1M prepares."""
+        ti, tf = rows_1m
+        w, h = PAD_W, PAD_H
+        preps = {}
+        for key, (kern, _, fn, prepare) in th_cases.items():
+            args = preps[key] = prepare(ti, tf, h)
+            _, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*args, w, h) for _ in range(5)])
+            results[key]["ms"] = ms[key]
+            events, window, kms = traced_kernel_ms((key,),
+                                                   lambda: fn(ti, tf, w, h))
+            busy = busy_us(events)
+            results[key].update(anim_ms=kms[key], entry_ops=len(events),
+                                entry_busy_ms=busy / 1000.0,
+                                entry_idle_share=1.0 - busy / window)
+            print(f"  profiled entry point {fn.__name__} on lattice1M {w}x"
+                  f"{h}: {len(events)} device ops, device busy "
+                  f"{busy / 1000.0:.4f} ms ({key} {kms[key]:.4f} ms), idle "
+                  f"share {1.0 - busy / window:.4f} of "
+                  f"{window / 1000.0:.4f} ms traced; kernel alone "
+                  f"{ms[key]:.4f} ms", flush=True)
+        return preps
+
+    # The 1M prepares: 6h's, or where ``--phases`` skipped it, new ones.
+    th_preps = twoclass_traces or {
+        key: case[3](*rows_1m, PAD_H) for key, case in th_cases.items()}
 
     @phase("6 timing")
     def timing():
@@ -3816,6 +3928,349 @@ def main() -> int:
                   f"{res['prepare_ms']:.4f} ms/call (CUDA events, host "
                   "dispatch included)")
 
+    # -- 4h. K10hbm2/K10scan vs plain --------------------------------------
+    def vs_k5(key, c, d, c5, d5, visible):
+        """Rows [0, visible) of kernel ``key``'s (c, d) against K5's (c5,
+        d5), RGBA and depth bits.  Returns (equal but for the kernel's
+        rules, pixels latched at z == 1.0 that K5 leaves clear, pixels
+        whose -0.0 depth is +0.0 here).  Both kernels may latch z == 1.0;
+        only K10scan may store -0.0 as +0.0, K10hbm2 keeps it."""
+        vis = slice(0, visible)
+        c, d, c5, d5 = c[vis], d[vis], c5[vis], d5[vis]
+        diff = (c != c5) | (d.view(torch.int32) != d5.view(torch.int32))
+        z1 = diff & (d == 1.0) & (d5 == 1.0)
+        neg = (diff & (c == c5) & (d5 == 0.0) & torch.signbit(d5)
+               & ~torch.signbit(d))
+        allowed = z1 | neg if key == "k10scan" else z1
+        return (not bool((diff & ~allowed).any().item()),
+                int(z1.sum().item()), int(neg.sum().item()))
+
+    def th_check(key, label, rows, w, h, visible, plain_shape=None,
+                 empty=False):
+        """Kernel ``key`` against its plain version on ``rows``: packed
+        colour and depth bits equal in every row; rows [0, visible)
+        against K5's frame (``vs_k5``).  Returns (color, depth, K5's color
+        and depth, the z == 1.0 pixels)."""
+        kern, plain, _, prepare = th_cases[key]
+        args = prepare(*rows, h)
+        sync()
+        ck, dk = kern(*args, w, h)
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cp, dp = plain(*args, w, h)
+        end.record()
+        sync()
+        if plain_shape is not None:
+            results[key]["plain_ms"] = start.elapsed_time(end)
+            results[key]["plain_shape"] = plain_shape
+        same = (torch.equal(ck, cp)
+                and torch.equal(dk.view(torch.int32), dp.view(torch.int32)))
+        err = max(
+            (raster.unpack_rgba8(ck).int() - raster.unpack_rgba8(cp).int())
+            .abs().max().item(), (dk - dp).abs().max().item())
+        c5, d5 = k5(*raster.prepare_raster_inputs(*rows), w, h)
+        same5, z1, neg = vs_k5(key, ck, dk, c5, d5, visible)
+        cov = (dk < 1.0).float().mean().item()
+        print(f"  {label} ({key}, {w}x{h}): {args[2].shape[0]} rows, "
+              f"bit-exact={same} (colour and depth bits, all {h} rows; "
+              f"max_abs_err={err}), rows 0-{visible - 1} equal K5's "
+              f"{same5} (z == 1.0 latched on {z1} pixels, -0.0 stored "
+              f"+0.0 on {neg}), coverage={cov:.4f}", flush=True)
+        if not same:
+            raise AssertionError(f"{label}: {key} and its plain version "
+                                 "differ")
+        if not same5:
+            raise AssertionError(f"{label}: {key} differs from K5 in the "
+                                 "visible rows")
+        if (cov <= 0.0) != empty:
+            raise AssertionError(f"{label}: coverage {cov}")
+        results[key]["err"] = max(results[key]["err"], float(err))
+        return ck, dk, c5, d5, z1
+
+    def pair_rows(za_a=None, za_b=None, w=128, h=32):
+        """tests/test_raster_pallas.py :556-606 on the card: a tall
+        triangle A and a short triangle B inside it, submitted after A,
+        through the identity matrix; ``za_a``/``za_b`` replace a row's
+        z-plane coefficients."""
+        positions = torch.tensor([
+            [-0.8, -0.8, 0.5, 1.0], [0.8, -0.8, 0.5, 1.0],
+            [0.0, 0.8, 0.5, 1.0], [-0.2, -0.1, 0.3, 1.0],
+            [0.2, -0.1, 0.3, 1.0], [0.0, 0.1, 0.3, 1.0]], device=dev)
+        attrs = torch.zeros((6, 12), device=dev)
+        attrs[:3, 0] = 1.0  # A red
+        attrs[3:, 1] = 1.0  # B green
+        ti, tf = tg.geometry_pipeline(
+            positions, attrs,
+            torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32,
+                         device=dev),
+            torch.eye(4, device=dev)[None],
+            torch.zeros(6, dtype=torch.int32, device=dev), w, h)
+        a, b = torch.nonzero(ti[:, tg.I_VALID] > 0).flatten().tolist()
+        for row, za in ((a, za_a), (b, za_b)):
+            if za is not None:
+                tf[row, tg.F_ZA0:tg.F_ZA0 + 3] = torch.tensor(za, device=dev)
+        return ti, tf
+
+    @phase("4h K10hbm2/K10scan experiment kernels vs plain versions")
+    def twoclass_cases():
+        rows40 = setup_rows(*make_stress_scene(MID_TRIS), WIDTH, HEIGHT,
+                            tri_align=256)
+        for key in th_cases:
+            t0 = time.perf_counter()
+            th_check(key, "lattice40k", rows40, PAD_W, PAD_H, HEIGHT,
+                     plain_shape="lattice40k")
+            print(f"  (plain {key} included: "
+                  f"{time.perf_counter() - t0:.1f} s)")
+        scene_rows = setup_rows(*load_test_scene(), WIDTH, HEIGHT)
+        clipped = setup_rows(*clipped_soup(), WIDTH, HEIGHT)
+        w, h = 1024, 512
+        dup = setup_rows(*tie_soup(True), w, h)
+        one = setup_rows(*tie_soup(False), w, h)
+        stress = setup_rows(*make_stress_scene(1536), 256, 64)
+        # Geometry at 128x56, raster at 128x64: rows 56-63 are padding.
+        padded = setup_rows(*make_triangle_soup(1500, seed=5, extent=6.0),
+                            128, 56)
+        tie = pair_rows(za_a=(0.0, 0.0, 0.0), za_b=(0.0, 0.0, 0.0))
+        z_one = pair_rows(za_a=(0.25, 0.0, 0.0))
+        neg_zero = pair_rows(za_b=(-0.0, -0.0, -0.0))
+        t = tg.capped_rows(64)
+        ti = torch.zeros((t + (-t) % 64, tg.NI32), dtype=torch.int32,
+                         device=dev)
+        ti[:, tg.I_JMIN] = 1
+        ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
+        empty = (ti, torch.zeros((ti.shape[0], tg.NF32), device=dev))
+        short = raster.classify_short(stress[0])
+        live = stress[0][:, tg.I_VALID] > 0
+        print(f"  stress mix 256x64: {int(live.sum().item())} live rows, "
+              f"{int(short.sum().item())} short")
+        pad = slice(56, 64)
+        for key in th_cases:
+            th_check(key, "test scene", scene_rows, PAD_W, PAD_H, HEIGHT)
+            th_check(key, "clipped soup", clipped, PAD_W, PAD_H, HEIGHT)
+            c_dup, d_dup, *_ = th_check(key, "duplicated triangles", dup, w,
+                                        h, h)
+            c_one, d_one, *_ = th_check(key, "duplicates removed", one, w,
+                                        h, h)
+            if not same_planes((c_dup, d_dup), (c_one, d_one)):
+                raise AssertionError(f"{key}: a duplicate won a depth tie")
+            th_check(key, "stress mix", stress, 256, 64, 64)
+            c, d, c5, d5, _ = th_check(key, "padded soup", padded, 128, 64,
+                                       56)
+            drawn = int((d[pad] < 1.0).sum().item())
+            other = int(((d[pad] != d5[pad]) | (c[pad] != c5[pad])).sum()
+                        .item())
+            print(f"  padded soup ({key}): rows 56-63: {drawn} pixels drawn,"
+                  f" {other} differ from K5's, K5 "
+                  f"{int((d5[pad] < 1.0).sum().item())}")
+            c, d, _, _, _ = th_check(key, "cross-class exact tie", tie, 128,
+                                     32, 32)
+            red = -(1 << 24) | 255
+            if not bool((c[d == 0.0] == red).all().item()):
+                raise AssertionError(f"{key}: the short row won a tie")
+            *_, z1 = th_check(key, "z == 1.0", z_one, 128, 32, 32)
+            if z1 != 1:
+                raise AssertionError(f"{key}: {z1} pixels latched at z == "
+                                     "1.0, 1 expected")
+            # The short row's z is -0.0: K5 and K10hbm2 store it, K10scan
+            # stores +0.0.
+            c, d, c5, d5, _ = th_check(key, "short row at z == -0.0",
+                                       neg_zero, 128, 32, 32)
+            neg = int((torch.signbit(d) & (d == 0.0)).sum().item())
+            neg5 = int((torch.signbit(d5) & (d5 == 0.0)).sum().item())
+            if neg5 == 0 or neg != (neg5 if key == "k10hbm2" else 0):
+                raise AssertionError(f"{key}: {neg} pixels at -0.0, K5 "
+                                     f"{neg5}")
+            c, d, *_ = th_check(key, "empty scene", empty, PAD_W, PAD_H,
+                                PAD_H, empty=True)
+            if not bool((c == -(1 << 24)).all().item()):
+                raise AssertionError(f"empty scene: {key} drew something")
+        print("  every exact depth tie went to the first-submitted row "
+              "(K10hbm2, K10scan)")
+
+    # -- 5h. the two-class frames at 1M ---------------------------------------
+    @phase("5h K10hbm2/K10scan frames at 1M")
+    def twoclass_frames():
+        """Each entry point once on the 1M lattice at 1920x1088, with every
+        launch count set to 0 just before and read just after; rows
+        0-1079 against K5's frame.  Then each kernel against its plain
+        version on one 1M prepare, all 1088 rows, where the plain
+        version's 40K time scaled to 1M rows stays under PLAIN_1M_MAX_S."""
+        ti, tf = rows_1m
+        c5, d5 = k5(*raster.prepare_raster_inputs(ti, tf), PAD_W, PAD_H)
+        pad = slice(HEIGHT, PAD_H)
+        live = ti[:, tg.I_VALID] > 0
+        n_short = int(raster.classify_short(ti).sum().item())
+        n_live = int(live.sum().item())
+        print(f"  lattice1M: {ti.shape[0]} rows, {n_live} live, {n_short} "
+              f"short ({n_short / n_live:.4f} of the live rows)")
+        for key, (_, _, fn, _) in th_cases.items():
+            results[key]["short_share"] = n_short / n_live
+            sync()
+            for kern in kernel_of.values():
+                kern.launches = 0
+            c, d = fn(ti, tf, PAD_W, PAD_H)
+            sync()
+            launched = {k: kern.launches for k, kern in kernel_of.items()
+                        if kern.launches}
+            if launched != {key: 1}:
+                raise AssertionError(f"{key}: launches {launched}, one "
+                                     f"{key} launch expected")
+            counts[key] = 1
+            same5, z1, neg = vs_k5(key, c, d, c5, d5, HEIGHT)
+            cov = (d[:HEIGHT] < 1.0).float().mean().item()
+            drawn = int((d[pad] < 1.0).sum().item())
+            results[key].update(z_one_pixels_1m=z1, pad_pixels_1m=drawn)
+            print(f"  lattice1M {PAD_W}x{PAD_H} ({key}, one launch): rows "
+                  f"0-{HEIGHT - 1} equal K5's {same5} (RGBA and depth bits; "
+                  f"z == 1.0 latched on {z1} pixels, -0.0 stored +0.0 on "
+                  f"{neg}), coverage {cov:.4f}; rows {HEIGHT}-{PAD_H - 1}: "
+                  f"{drawn} pixels drawn, K5 "
+                  f"{int((d5[pad] < 1.0).sum().item())}")
+            # The lattice has no pixel at z == 1.0 and no depth of -0.0,
+            # so neither of the kernels' departures from K5 may show.
+            if not same5 or z1 or neg or cov <= MIN_COVERAGE:
+                raise AssertionError(f"lattice1M: {key} differs from K5 in "
+                                     f"the visible rows ({z1} pixels at z "
+                                     f"== 1.0, {neg} -0.0 stored +0.0)")
+        for key, (kern, plain, _, _) in th_cases.items():
+            args = th_preps[key]
+            plain_ms = results[key].get("plain_ms")
+            predicted = (None if plain_ms is None
+                         else plain_ms / 1e3 * ti.shape[0] / MID_TRIS)
+            if predicted is not None and predicted > PLAIN_1M_MAX_S:
+                print(f"  lattice1M ({key}): plain version not run, its "
+                      f"40K time scaled by the rows predicts {predicted:.1f}"
+                      f" s > {PLAIN_1M_MAX_S:.0f} s; held at 40K only")
+                continue
+            out = kern(*args, PAD_W, PAD_H)
+            sync()
+            t0 = time.perf_counter()
+            ref = plain(*args, PAD_W, PAD_H)
+            sync()
+            secs = time.perf_counter() - t0
+            results[key]["plain_s_1m"] = secs
+            same = same_planes(out, ref)
+            print(f"  lattice1M {PAD_W}x{PAD_H} ({key}): kernel and plain "
+                  f"version bit-exact in all {PAD_H} rows {same} (colour "
+                  f"and depth bits; plain version {secs:.1f} s, predicted "
+                  f"{predicted} s)", flush=True)
+            if not same:
+                raise AssertionError(f"lattice1M: {key} and its plain "
+                                     "version differ")
+        print(f"  launches in one main-path frame: "
+              f"{ {k: counts[k] for k in th_cases} }")
+
+    # -- 6h (untraced). launcher and prepare times; bounds --------------------
+    def twoclass_work(key, args, w, h, visible):
+        """The (pixel, row) evaluations that kernel ``key``'s frame needs on
+        ``args``: (tall (tile, row) pairs, short pairs, the tall pairs'
+        evaluations, the short pairs').  Inside rows [0, visible) a row
+        covers no pixel outside its bbox, so a pair there needs the bbox's
+        pixels in the tile.  In a tile that reaches the padding rows the
+        kernel's own extent decides the frame, so there a tall pair needs
+        the whole tile (4096) and a K10hbm2 short pair its 8-row window
+        (1024).  A K10scan short pair needs its record's rows imin..imin +
+        min(h, P - 1) and columns jmin..jmax in the tile in every tile: that
+        is its extent.  (The frame's width is a multiple of TILE_W.)"""
+        supers_s, blocks_s, short_rows, supers_t, blocks_t, ti_t, _ = args
+        box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
+
+        def evals(rect, blocks, supers, padded_extent):
+            rec, ty, tx = hbm2.rect_pairs(rect, blocks, supers, w, h)
+            jmin, jmax, imin, imax = rect[rec].to(torch.int64).unbind(1)
+            r0, c0 = ty * raster.TILE_H, tx * raster.TILE_W
+            n = ((torch.minimum(imax, r0 + raster.TILE_H - 1)
+                  - torch.maximum(imin, r0) + 1)
+                 * (torch.minimum(jmax, c0 + raster.TILE_W - 1)
+                    - torch.maximum(jmin, c0) + 1))
+            if padded_extent is not None:
+                n = torch.where(r0 + raster.TILE_H > visible, padded_extent,
+                                n)
+            return rec.numel(), int(n.sum().item())
+
+        tall, tall_evals = evals(ti_t[:, box], blocks_t, supers_t,
+                                 raster.TILE_H * raster.TILE_W)
+        if key == "k10hbm2":
+            short, short_evals = evals(short_rows[:, box], blocks_s, supers_s,
+                                       raster.SHORT_ROWS * raster.TILE_W)
+        else:
+            short, short_evals = evals(
+                scanline.record_rects(blocks_s, short_rows), blocks_s,
+                supers_s, None)
+        return tall, short, tall_evals, short_evals
+
+    @phase("6h K10hbm2/K10scan untraced times and bounds")
+    def twoclass_timing():
+        """The launchers and the prepares between CUDA events at 1M, and
+        the bounds: the evaluations each kernel's frame needs
+        (``twoclass_work``: each row's bbox in each tile it reaches, the
+        kernel's extent in the tiles of the padding rows) x OPS_PER_EVAL,
+        or the inputs and the two planes' bytes."""
+        ti, tf = rows_1m
+        w, h = PAD_W, PAD_H
+        for key, (kern, _, _, prepare) in th_cases.items():
+            args = th_preps[key]
+            res = results[key]
+            res["wrapper_ms"] = event_ms(lambda: kern(*args, w, h), 5)
+            res["prepare_ms"] = event_ms(lambda: prepare(ti, tf, h), 5)
+            tall, short, tall_evals, short_evals = twoclass_work(
+                key, args, w, h, HEIGHT)
+            evals = tall_evals + short_evals
+            nbytes = (sum(t.numel() * t.element_size() for t in args)
+                      + 2 * 4 * w * h)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = evals * OPS_PER_EVAL / CUDA_CORE_OPS_PER_S * 1e3
+            res.update(tall_pairs=tall, short_pairs=short,
+                       tall_evals=tall_evals, short_evals=short_evals,
+                       evals=evals,
+                       bound_ms=max(t_bytes, t_ops), shape="lattice1M",
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations")
+            print(f"  {key} lattice1M {w}x{h}: {tall} tall (tile, row) "
+                  f"pairs, {short} short; (pixel, row) evaluations the "
+                  f"frame needs: {tall_evals} tall, {short_evals} short, "
+                  f"{evals} in all "
+                  f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms; "
+                  f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}; "
+                  f"kernel {res['ms']:.4f} ms device time (profiler; "
+                  f"{res['anim_ms']:.4f} ms in the traced entry point), "
+                  f"launcher {res['wrapper_ms']:.4f} ms/call (CUDA events);"
+                  f" plain version {res.get('plain_ms')} ms/call at "
+                  f"{res.get('plain_shape')} (CUDA events); prepare "
+                  f"{res['prepare_ms']:.4f} ms/call (CUDA events, host "
+                  "dispatch included)")
+        # Where the time goes: each kernel with one view's superblocks
+        # emptied (the other pass alone), and K5 over the same padded rows
+        # uncompacted beside its own compacted ones.
+        def emptied(supers):
+            out = supers.clone()
+            out[:, 0], out[:, 1] = 1, 0
+            return out
+
+        for key, (kern, _, _, _) in th_cases.items():
+            sup_s, blk_s, rec_s, sup_t, blk_t, ti_t, tf_t = th_preps[key]
+            e_s, e_t = emptied(sup_s), emptied(sup_t)
+            short_ms = event_ms(lambda: kern(sup_s, blk_s, rec_s, e_t, blk_t,
+                                             ti_t, tf_t, w, h), 5)
+            tall_ms = event_ms(lambda: kern(e_s, blk_s, rec_s, sup_t, blk_t,
+                                            ti_t, tf_t, w, h), 5)
+            results[key].update(short_pass_ms=short_ms, tall_pass_ms=tall_ms)
+            print(f"  {key} lattice1M: short pass alone {short_ms:.4f} "
+                  f"ms/call, tall pass alone {tall_ms:.4f} ms/call (CUDA "
+                  "events)")
+        ti_p, tf_p = raster._pad_rows(ti, tf)
+        blk_p, sup_p = tg.super_bounds(tg.block_bounds(ti_p))
+        compacted = raster.prepare_raster_inputs(ti, tf)
+        k5_ms = event_ms(lambda: k5(*compacted, w, h), 5)
+        k5_unc = event_ms(lambda: k5(sup_p, blk_p, ti_p, tf_p, w, h), 5)
+        for key in th_cases:
+            results[key].update(k5_ms=k5_ms, k5_uncompacted_ms=k5_unc)
+        print(f"  K5 on lattice1M's {ti_p.shape[0]} padded rows: live rows "
+              f"compacted to the front {k5_ms:.4f} ms/call, uncompacted "
+              f"{k5_unc:.4f} ms/call (CUDA events)")
+
     # -- 7. app -----------------------------------------------------------
     @phase("7 app")
     def app():
@@ -3891,29 +4346,50 @@ def main() -> int:
         "k10vecg": ("raster_vec.cu", f"{EXPERIMENTS}/raster_vec.py:384"),
         "k10vis": ("raster_vis.cu", f"{EXPERIMENTS}/raster_vis_trans.py:393"),
         "k10trans": ("raster_vis.cu",
-                     f"{EXPERIMENTS}/raster_vis_trans.py:654")}
+                     f"{EXPERIMENTS}/raster_vis_trans.py:654"),
+        "k10hbm2": ("raster_twoclass.cu", f"{EXPERIMENTS}/raster_hbm2.py:254"),
+        "k10scan": ("raster_twoclass.cu",
+                    f"{EXPERIMENTS}/raster_scanline.py:487")}
+    # The kernels the phases reached (every kernel, in a full run).
+    measured = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                "ms_render_animation", "shape", "plain_shape")
     kernels = []
     for key, (src, line) in sources.items():
         res = results[key]
+        if set(res) == {"err"}:
+            continue
         if isinstance(line, int):
             line = f"zrenderer_tpu/ops/raster_pallas.py:{line}"
         kernels.append({
             "name": key, "route": "cuda",
             "source": f"zrenderer_tpu_torch/csrc/{src}",
             "replaces": line,
-            "launches": counts[key], "max_abs_err": res["err"],
-            "ms": res["ms"], "plain_ms": res["plain_ms"],
-            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": None, "ms_render_animation": res["anim_ms"],
-            "shape": res["shape"],
-            "plain_shape": res["plain_shape"],
+            "launches": counts.get(key), "max_abs_err": res["err"],
+            "ms": res.get("ms"), "plain_ms": res.get("plain_ms"),
+            "bound_ms": res.get("bound_ms"), "bound_by": res.get("bound_by"),
+            "library_ms": None, "ms_render_animation": res.get("anim_ms"),
+            "shape": res.get("shape"),
+            "plain_shape": res.get("plain_shape"),
             **{k: v for k, v in res.items()
-               if k.endswith("_r2") or k in ("pairs", "evals", "covered",
-                                              "live_layers", "ms_test_scene",
-                                              "prepare_ms",
-                                              "plain_s_1m", "resolve_ms",
-                                              "resolve_busy_ms",
-                                              "resolve_bound_ms")}})
+               if k.endswith("_r2") or k in (
+                   "pairs", "evals", "covered", "live_layers",
+                   "ms_test_scene", "prepare_ms", "plain_s_1m", "resolve_ms",
+                   "resolve_busy_ms", "resolve_bound_ms", "tall_pairs",
+                   "short_pairs", "short_share", "entry_ops",
+                   "entry_busy_ms", "entry_idle_share", "z_one_pixels_1m",
+                   "tall_evals", "short_evals", "pad_pixels_1m",
+                   "short_pass_ms", "tall_pass_ms", "k5_ms",
+                   "k5_uncompacted_ms")}})
+    if PHASE_PREFIXES is None:
+        missing = [(k["name"], f) for k in kernels for f in measured
+                   if k[f] is None]
+        if missing or len(kernels) != len(sources):
+            raise AssertionError(f"kernels line: {len(kernels)} of "
+                                 f"{len(sources)} kernels, unmeasured "
+                                 f"{missing}")
+    else:
+        print(f"skipped phases (--phases {','.join(PHASE_PREFIXES)}): "
+              f"{'; '.join(SKIPPED_PHASES) or 'none'}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Shared pieces of the flat and G-buffer raster kernels (raster_small.cu,
 // raster_hier.cu, raster_binned.cu, and the experiments raster_group8.cu,
-// raster_vec.cu and raster_vis.cu).
+// raster_vec.cu, raster_vis.cu and raster_twoclass.cu).
 //
 // Layout contract with zrenderer_tpu/ops/geometry.py: setup rows are
 // (R, NI32) int32 + (R, NF32) float32, row-major; bbox tables are (n, 8)
@@ -53,6 +53,11 @@ constexpr int NF32 = 40;
 constexpr int RASTER_BLOCK = 128;
 constexpr int SUPER_BLOCK = 32;
 constexpr int INT_MAX32 = 0x7fffffff;
+constexpr int SHORT_ROWS = 8;  // the two-class experiments' short-row span
+// A scanline wide record's int32 lanes (raster_scanline.py WL_*): edge k's
+// value A at (row imin, column 0), its per-column step D (8*dy) and per-row
+// step S (8*dx), and its coverage bias.
+constexpr int WL_A0 = 0, WL_D0 = 3, WL_S0 = 6, WL_B0 = 9;
 
 // Integer setup columns (geometry.I_*).
 enum : int {
@@ -177,36 +182,69 @@ struct TileState {
     return true;
   }
 
-  // Coverage, depth test and latch of setup row t at this thread's pixels.
+  // Global pixel row of this thread's pixel k.
+  __device__ __forceinline__ int row(int k) const {
+    return row0 + (int)(threadIdx.x / TILE_W) + k * ROW_STEP;
+  }
+
+  // Coverage, depth test and latch of setup row t at this thread's pixels;
+  // WINDOW as eval_row's.
+  template <bool WINDOW = false>
   __device__ __forceinline__ void eval(const int* __restrict__ ti,
-                                       const float* __restrict__ tf, int t) {
-    eval_row(ti + (size_t)t * RI, tf + (size_t)t * RF, t);
+                                       const float* __restrict__ tf, int t,
+                                       int r_lo = 0, int r_hi = 0,
+                                       int c_lo = 0, int c_hi = 0) {
+    eval_row<WINDOW>(ti + (size_t)t * RI, tf + (size_t)t * RF, t, r_lo,
+                     r_hi, c_lo, c_hi);
   }
 
   // The same for one setup record (r: NI32 ints, f: NF32 floats) whose
-  // tie-break id is t.
+  // tie-break id is t.  WINDOW: only at the pixels of global rows [r_lo,
+  // r_hi] and columns [c_lo, c_hi] (the two-class experiments' short
+  // rows).  WIDE: r is a scanline wide record instead (its int32 lanes
+  // WL_*; f its coefficients from WL_ZA0, at the F_ZA0..F_CB0 + 2
+  // offsets), whose first row is imin: edge k at a pixel is A + S*(row -
+  // imin) - D*column with int32 wrap, equal to edge_fn, and its z is
+  // stored plus 0.0f (-0.0 as +0.0, as the reference's one-hot sum).
+  template <bool WINDOW = false, bool WIDE = false>
   __device__ __forceinline__ void eval_row(const int* __restrict__ r,
                                            const float* __restrict__ f,
-                                           int t) {
+                                           int t, int r_lo = 0, int r_hi = 0,
+                                           int c_lo = 0, int c_hi = 0,
+                                           int imin = 0) {
     const int x0 = __ldg(r + I_X0), y0 = __ldg(r + I_Y0);
     const int x1 = __ldg(r + I_X1), y1 = __ldg(r + I_Y1);
     const int x2 = __ldg(r + I_X2), y2 = __ldg(r + I_Y2);
     const int dx0 = __ldg(r + I_DX0), dy0 = __ldg(r + I_DY0);
     const int dx1 = __ldg(r + I_DX1), dy1 = __ldg(r + I_DY1);
     const int dx2 = __ldg(r + I_DX2), dy2 = __ldg(r + I_DY2);
-    const int b0 = __ldg(r + I_BIAS0), b1 = __ldg(r + I_BIAS1);
-    const int b2 = __ldg(r + I_BIAS2);
+    const int b0 = __ldg(r + (WIDE ? WL_B0 : I_BIAS0));
+    const int b1 = __ldg(r + (WIDE ? WL_B0 + 1 : I_BIAS1));
+    const int b2 = __ldg(r + (WIDE ? WL_B0 + 2 : I_BIAS2));
+    const int col = col0 + (int)(threadIdx.x % TILE_W);
 #pragma unroll
     for (int k = 0; k < NPIX; ++k) {
-      const int e0 = edge_fn(dx0, dy0, x1, y1, px, py(k));
-      const int e1 = edge_fn(dx1, dy1, x2, y2, px, py(k));
-      const int e2 = edge_fn(dx2, dy2, x0, y0, px, py(k));
+      if constexpr (WINDOW) {
+        if (row(k) < r_lo || row(k) > r_hi || col < c_lo || col > c_hi)
+          continue;
+      }
+      int e0, e1, e2;
+      if constexpr (WIDE) {
+        e0 = wide_edge(r, 0, row(k) - imin, col);
+        e1 = wide_edge(r, 1, row(k) - imin, col);
+        e2 = wide_edge(r, 2, row(k) - imin, col);
+      } else {
+        e0 = edge_fn(dx0, dy0, x1, y1, px, py(k));
+        e1 = edge_fn(dx1, dy1, x2, y2, px, py(k));
+        e2 = edge_fn(dx2, dy2, x0, y0, px, py(k));
+      }
       if (e0 < b0 || e1 < b1 || e2 < b2) continue;
       const float f0 = __int2float_rn(e0);
       const float f1 = __int2float_rn(e1);
       const float f2 = __int2float_rn(e2);
-      const float zz = interp3(f0, f1, f2, __ldg(f + F_ZA0),
-                               __ldg(f + F_ZA0 + 1), __ldg(f + F_ZA0 + 2));
+      float zz = interp3(f0, f1, f2, __ldg(f + F_ZA0), __ldg(f + F_ZA0 + 1),
+                         __ldg(f + F_ZA0 + 2));
+      if constexpr (WIDE) zz = __fadd_rn(zz, 0.0f);
       if (!depth_test(k, zz, t)) continue;
       if constexpr (LATCH) {
         den[k] = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
@@ -221,9 +259,20 @@ struct TileState {
     }
   }
 
+  // Edge k of wide record r at row offset dh and column x.
+  static __device__ __forceinline__ int wide_edge(const int* __restrict__ r,
+                                                  int k, int dh, int x) {
+    return (int)((uint32_t)__ldg(r + WL_A0 + k) +
+                 (uint32_t)__ldg(r + WL_S0 + k) * (uint32_t)dh -
+                 (uint32_t)__ldg(r + WL_D0 + k) * (uint32_t)x);
+  }
+
   // Superblock -> block -> row scan with block-uniform bbox skips, rows in
   // submission order (the reference's _scan_groups over the tables), over
-  // superblocks [s_begin, s_end).
+  // superblocks [s_begin, s_end).  SHORT_WINDOW: each hit row only on the
+  // SHORT_ROWS tile rows from clamp(imin - row0, 0, TH - SHORT_ROWS)
+  // (K10hbm2's short rows).
+  template <bool SHORT_WINDOW = false>
   __device__ __forceinline__ void scan_hierarchy(
       const int* __restrict__ supers, int s_end,
       const int* __restrict__ blocks, const int* __restrict__ ti,
@@ -242,8 +291,16 @@ struct TileState {
           const int* r = ti + (size_t)t * RI;
           if (tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
                            __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0,
-                           TH))
-            eval(ti, tf, t);
+                           TH)) {
+            if constexpr (SHORT_WINDOW) {
+              const int rb = row0 + min(max(__ldg(r + I_IMIN) - row0, 0),
+                                        TH - SHORT_ROWS);
+              eval<true>(ti, tf, t, rb, rb + SHORT_ROWS - 1, col0,
+                         col0 + TILE_W - 1);
+            } else {
+              eval(ti, tf, t);
+            }
+          }
         }
       }
     }

@@ -3,8 +3,9 @@ raster kernels K1-K6, the G-buffer kernels K2g, K3g, K4g, K5g, K6g, the
 depth-only kernels K2d, K3d, K4d, K6d, the band kernels K3b, K9, K9g,
 K9d, the tiled light kernel K7, the overlay kernels K8 (layered raster)
 and K8b (atlas composite), and the raster experiments K10g8, K10g8g,
-K10g8d (``raster_group8.cu``), K10vec, K10vecg (``raster_vec.cu``) and
-K10vis, K10trans (``raster_vis.cu``).
+K10g8d (``raster_group8.cu``), K10vec, K10vecg (``raster_vec.cu``),
+K10vis, K10trans (``raster_vis.cu``) and K10hbm2, K10scan
+(``raster_twoclass.cu``).
 
 ``nvcc`` compiles each ``.cu`` file for ``sm_90a`` and links them into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
@@ -34,7 +35,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "zrenderer_tpu_torch"
 SOURCES = ("raster_small.cu", "raster_hier.cu", "raster_binned.cu",
            "light_tiled.cu", "overlay.cu", "raster_group8.cu",
-           "raster_vec.cu", "raster_vis.cu")
+           "raster_vec.cu", "raster_vis.cu", "raster_twoclass.cu")
 HEADERS = ("raster_common.cuh",)
 LIB_NAME = "libzr_raster.so"
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
@@ -181,6 +182,10 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_vis.restype = i
     lib.zr_raster_trans.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
     lib.zr_raster_trans.restype = i
+    lib.zr_raster_hbm2.argtypes = [p, i, p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_hbm2.restype = i
+    lib.zr_raster_scan.argtypes = [p, i, p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_scan.restype = i
     lib.zr_error_string.argtypes = [i]
     lib.zr_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,10 +11,18 @@ kernels with plain torch versions, each held to the same oracle:
   over the block/superblock skip tables;
 * ``raster_vis_trans`` (K10vis, K10trans): visibility buffers (depth and
   winning row id) from 8-row groups, gated by a per-tile hit bitmap or by
-  the groups' bboxes over 4-row chunks, and the exact colour resolve.
+  the groups' bboxes over 4-row chunks, and the exact colour resolve;
+* ``raster_hbm2`` (K10hbm2): two views of the rows, short (bbox within 8
+  pixel rows) and tall, each with its own skip tables; short rows on an
+  8-row window of the tile, tall rows over the whole tile, depth by
+  (z, row id);
+* ``raster_scanline`` (K10scan): K10hbm2's tall pass, then the short rows
+  as row-sorted wide records in 32-record groups with per-group pass
+  counts, each evaluated inside its bbox rows and columns.
 
 No Renderer path or ``binning`` selects them, as in the reference: their
 entry points (``rasterize_setup_group8``, ``rasterize_setup_vec``,
-``rasterize_setup_vis``, ``rasterize_setup_trans`` and the G-buffer and
-depth variants) are called directly.
+``rasterize_setup_vis``, ``rasterize_setup_trans``,
+``rasterize_setup_hbm2``, ``rasterize_setup_scanline`` and the G-buffer
+and depth variants) are called directly.
 """

@@ -228,19 +228,6 @@ def prepare_trans_inputs(tri_i32, tri_f32):
 # ---------------------------------------------------------------------------
 
 
-def _tile_hits(bounds, tiles_y: int, tiles_x: int):
-    """(tiles, n) bool: bbox n of ``bounds`` (n, >= 4) [jmin, jmax, imin,
-    imax] meets tile t (the kernels' tile_overlap)."""
-    dev = bounds.device
-    r0 = (torch.arange(tiles_y, dtype=I32, device=dev) * tr.TILE_H)[:, None]
-    c0 = (torch.arange(tiles_x, dtype=I32, device=dev) * tr.TILE_W)[:, None]
-    jmin, jmax, imin, imax = (bounds[:, k] for k in range(4))
-    cols = (jmax >= c0) & (jmin < c0 + tr.TILE_W) & (jmin <= jmax)
-    rows = (imax >= r0) & (imin < r0 + tr.TILE_H) & (imin <= imax)
-    return (rows[:, None, :] & cols[None, :, :]).reshape(tiles_y * tiles_x,
-                                                         -1)
-
-
 def _visit_lists(hit):
     """Per tile, the groups of ``hit`` (tiles, G) in order: (lists (tiles,
     K) i64 group ids, -1 past a tile's count)."""
@@ -305,7 +292,7 @@ def raster_vis_plain(supers, bits, ti, tf, width: int, height: int):
     ng = ti.shape[0] // GROUP
     shifts = torch.arange(32, dtype=I32, device=ti.device)
     hit = ((bits[:, :, None] >> shifts) & 1).bool().reshape(ty * tx, -1)
-    sup = _tile_hits(supers, ty, tx)
+    sup = tr._tile_hits(supers, ty, tx)
     groups = torch.arange(ng, device=ti.device)
     hit = hit[:, :ng] & sup[:, groups // (SUPER_BLOCK * RASTER_BLOCK // GROUP)]
     whole = torch.ones((ty * tx, tr.TILE_H), dtype=torch.bool,
@@ -322,8 +309,9 @@ def raster_trans_plain(supers, blocks, rec, gbounds, width: int,
     dev = rec.device
     groups = torch.arange(gbounds.shape[0], device=dev)
     block = groups // (RASTER_BLOCK // TRANS_GROUP)
-    hit = (_tile_hits(gbounds, ty, tx) & _tile_hits(blocks, ty, tx)[:, block]
-           & _tile_hits(supers, ty, tx)[:, block // SUPER_BLOCK])
+    hit = (tr._tile_hits(gbounds, ty, tx)
+           & tr._tile_hits(blocks, ty, tx)[:, block]
+           & tr._tile_hits(supers, ty, tx)[:, block // SUPER_BLOCK])
     lists = _visit_lists(hit)
     row0 = (torch.arange(ty * tx, device=dev) // tx * tr.TILE_H)[:, None]
     tile_row = torch.arange(tr.TILE_H, device=dev)

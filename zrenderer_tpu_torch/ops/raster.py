@@ -193,6 +193,28 @@ def prepare_raster_inputs(tri_i32, tri_f32):
     return supers, blocks, tri_i32, tri_f32
 
 
+# Short-row class of the two-class raster experiments: a live row whose
+# bbox spans at most SHORT_ROWS pixel rows (imax - imin < SHORT_ROWS).
+SHORT_ROWS = 8
+
+
+def classify_short(tri_i32):
+    """(T,) bool: live rows whose bbox fits a SHORT_ROWS-row window."""
+    span = tri_i32[:, I_IMAX] - tri_i32[:, I_IMIN]
+    return (tri_i32[:, I_VALID] > 0) & (span < SHORT_ROWS)
+
+
+def kill_rows(tri_i32, mask):
+    """Empty the bbox (jmin 1 > jmax 0) and clear I_VALID of the rows in
+    ``mask``: they drop out of the block tables and the per-row bbox tests
+    but keep their place (a copy; the input is not changed)."""
+    ti = tri_i32.clone()
+    ti[:, I_JMIN] = torch.where(mask, 1, ti[:, I_JMIN])
+    ti[:, I_JMAX] = torch.where(mask, 0, ti[:, I_JMAX])
+    ti[:, I_VALID] = torch.where(mask, 0, ti[:, I_VALID])
+    return ti
+
+
 def _leftover_rows(tri_i32, listed):
     """Empty the bbox and valid flag of the head rows flagged in ``listed``
     (the first ``len(listed)`` rows), so the hierarchy skips the rows the
@@ -667,6 +689,19 @@ def _scan_rows(planes, py, px, ti, tf, tie: bool, ty_base: int = 0):
             continue
         sel = (slice(ty0, ty1 + 1), slice(tx0, tx1 + 1))
         _eval_rows(planes, sel, py, px, ti[r], tf[r], r, None, tie)
+
+
+def _tile_hits(bounds, tiles_y: int, tiles_x: int):
+    """(tiles, n) bool: bbox n of ``bounds`` (n, >= 4) [jmin, jmax, imin,
+    imax] meets tile t (the kernels' tile_overlap)."""
+    dev = bounds.device
+    r0 = (torch.arange(tiles_y, dtype=I32, device=dev) * TILE_H)[:, None]
+    c0 = (torch.arange(tiles_x, dtype=I32, device=dev) * TILE_W)[:, None]
+    jmin, jmax, imin, imax = (bounds[:, k] for k in range(4))
+    cols = (jmax >= c0) & (jmin < c0 + TILE_W) & (jmin <= jmax)
+    rows = (imax >= r0) & (imin < r0 + TILE_H) & (imin <= imax)
+    return (rows[:, None, :] & cols[None, :, :]).reshape(tiles_y * tiles_x,
+                                                         -1)
 
 
 def _frame(p):
