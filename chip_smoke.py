@@ -23,7 +23,13 @@ lines and seconds:
     the 20K lattice), the clipped soup, the duplicated soup (every exact
     depth tie to the first-submitted row) and the soup under small
     cap/budgets so that the budget clamp and the coarse phase engage;
-    the plain K5's time at 40K and K6's at 20K are their plain_ms;
+    the plain K5's time at 40K and K6's at 20K are their plain_ms; then
+    K4's keyed body (``keyed_cases``), every row bit-exact at the default
+    work-item size and at 16 records: a soup packed into one 128x32 tile
+    (a span of over 100 items), the duplicated soup (exact ties split
+    across items), a row at z == 1.0 (one pixel latched), -0.0 ties both
+    ways, a triangle over whole 1024x512 tiles, the clipped soup and an
+    empty scene;
 4g. the G-buffer kernels K2g (small-scene lists), K3g (hierarchy), K4g
     (record streaming) and K5g (streamed hierarchy) against their plain
     versions, all 13 planes bitwise as int32 (so -0.0 and NaN count): K2g
@@ -42,6 +48,8 @@ lines and seconds:
     wide soup with rows whose bbox clamps to empty at the map's bottom and
     right edges and past them, the depth planes of all four equal by
     value; the plain K2d, K3d, K6d and K6g calls give their plain_ms;
+    then ``keyed_cases`` for K4d (no pixel latched at z == 1.0, the first
+    visited row's zero sign kept);
 4l. the tiled light kernel K7 against its plain version, the 3 output
     planes bitwise as int32, f32 and bf16 planes: the 1080p deferred
     G-buffer of the test scene (padded to 1920x1088) with BASELINE config
@@ -70,7 +78,8 @@ lines and seconds:
     ``tile_lists`` (K6); with each frame's pair count, longest and mean
     span, peak memory and coverage.  K4 on the 1M lattice and K4c on the
     1M soup (coarse class non-empty) are held bit-exact against their
-    plain versions on those main-path inputs, which time plain_ms;
+    plain versions on those main-path inputs, which time plain_ms, and
+    K4's pixels in the padding rows 1080-1087 are counted;
 5l. the lit main path, ``Renderer(pipeline="lit")`` at 1080p, each run
     with every launch count set to 0 just before and read just after: the
     test scene with the 256x256 checker pattern (K2g, one launch a frame),
@@ -186,7 +195,9 @@ lines and seconds:
     each) and each entry point traced once (device ops, busy ms, idle
     share);
 6. timing, traces first: each kernel's device time from a torch.profiler
-   trace at its main-path shape, and a profiled ``render_animation`` run
+   trace at its main-path shape (K4 and K4d: the sum of a call's three
+   device operations, the memset, the item kernel and the resolve; K4
+   also on soup1M through ``auto``), and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
    K4c, 20K lattice K6, the lit paths, and the shadowed test scene, 20K
    lattice (K3d; K6d and K6g) and 1M lattice, the deferred test scene with
@@ -264,7 +275,11 @@ lines and seconds:
 Each kernel's bound is the larger of its inputs and outputs (2 planes
 flat, 13 G-buffer, 1 depth-only) moved once at the card's memory rate and
 the (tile, triangle) pairs its frame needs, times 4096 pixels and
-OPS_PER_EVAL, at the CUDA-core rate.  K7's is the larger of its 11 planes,
+OPS_PER_EVAL, at the CUDA-core rate; K4's and K4d's count each record's
+and leftover row's bbox pixels in each tile instead (in the padding rows'
+tiles the kernel's extent, ``window_evals``, the counter phase 6h uses
+too), with the whole-tile figure kept as bound_ms_tiles; phase 6 also
+times both against the work-item size.  K7's is the larger of its 11 planes,
 mask, bounds, lights and 3 output planes moved once and its (pixel,
 listed light) evaluations, each tile's light count times its covered
 pixels (uncovered pixels cost nothing), times OPS_PER_LIGHT.  K8's is
@@ -698,23 +713,77 @@ def main(argv=None) -> int:
 
     def set_bound(key, inputs, pairs, w, h, shape, planes=2,
                   tile_px=raster.TILE_H * raster.TILE_W,
-                  ops_per_px=OPS_PER_EVAL):
+                  ops_per_px=OPS_PER_EVAL, evals=None):
         """The least time the card could take: inputs read once and the
         ``planes`` output planes written once at HBM_BYTES_PER_S, or
-        ``pairs`` tile evaluations of ``tile_px`` pixels each, at
-        ``ops_per_px`` ops a pixel, at CUDA_CORE_OPS_PER_S, whichever is
-        larger."""
+        ``pairs`` tile evaluations of ``tile_px`` pixels each (or, given,
+        ``evals`` pixel evaluations, the whole-tile figure kept as
+        bound_ms_tiles), at ``ops_per_px`` ops a pixel, at
+        CUDA_CORE_OPS_PER_S, whichever is larger."""
         nbytes = (sum(t.numel() * t.element_size() for t in inputs)
                   + planes * 4 * w * h)
-        ops = pairs * tile_px * ops_per_px
+        ops = (pairs * tile_px if evals is None else evals) * ops_per_px
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
         res = results[key]
         res.update(bound_ms=max(t_bytes, t_ops), pairs=pairs, shape=shape,
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if evals is not None:
+            t_tiles = pairs * tile_px * ops_per_px / CUDA_CORE_OPS_PER_S * 1e3
+            res.update(evals=evals, bound_ms_tiles=max(t_bytes, t_tiles))
+            print(f"  bound {key} at {shape}: {evals} window pixel "
+                  f"evaluations; whole tiles {pairs * tile_px}, "
+                  f"{res['bound_ms_tiles']:.4f} ms")
         print(f"  bound {key} at {shape}: {pairs} pairs, {ops:.4e} ops -> "
               f"{t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms; bound "
               f"{res['bound_ms']:.4f} ms by {res['bound_by']}")
+
+    def window_evals(rect, ty, tx, visible, padded=None):
+        """The (pixel, row) evaluations that (tile, row) pairs need:
+        ``rect`` (P, 4) [jmin, jmax, imin, imax] of each pair's row, (ty,
+        tx) (P,) its tile.  Inside rows [0, visible) a row covers no pixel
+        outside its bbox, so a pair there needs the bbox's pixels in the
+        tile.  In a tile that reaches the padding rows the kernel's own
+        extent decides the frame: ``padded`` pixels a pair (an int), a
+        (P, 4) extent rect's pixels in the tile, or None (the bbox).  (The
+        frame's width is a multiple of TILE_W.)"""
+        r0, c0 = ty * raster.TILE_H, tx * raster.TILE_W
+
+        def in_tile(r):
+            jmin, jmax, imin, imax = r.to(torch.int64).unbind(1)
+            return ((torch.minimum(imax, r0 + raster.TILE_H - 1)
+                     - torch.maximum(imin, r0) + 1).clamp(min=0)
+                    * (torch.minimum(jmax, c0 + raster.TILE_W - 1)
+                       - torch.maximum(jmin, c0) + 1).clamp(min=0))
+
+        n = in_tile(rect)
+        if padded is not None:
+            n = torch.where(r0 + raster.TILE_H > visible,
+                            padded if isinstance(padded, int)
+                            else in_tile(padded), n)
+        return int(n.sum().item())
+
+    def keyed_evals(prep, w, h, visible):
+        """K4's and K4d's evaluations on a record prepare: every span
+        record and every leftover (tile, row) pair of the walk, at its
+        bbox's pixels in the tile, or in the padding rows' tiles at the
+        keyed body's extent (``raster.vertex_bbox``)."""
+        offsets, rec_i, _, supers, blocks, hier = prep[:6]
+        # Records before offsets[0] sort below tile 0 (off-screen rows'
+        # keys) and belong to no span.
+        first, end = int(offsets[0].item()), int(offsets[-1].item())
+        span = (offsets[1:] - offsets[:-1]).long()
+        tile = torch.repeat_interleave(
+            torch.arange(span.numel(), device=span.device), span)
+        tiles_x = w // raster.TILE_W
+        box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
+        recs = rec_i[first:end, :tg.NI32].long()
+        evals = window_evals(recs[:, box], tile // tiles_x, tile % tiles_x,
+                             visible, raster.vertex_bbox(recs))
+        rec, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w, h)
+        rows = hier[rec].long()
+        return evals + window_evals(rows[:, box], ty, tx, visible,
+                                    raster.vertex_bbox(rows))
 
     def flat_inputs(prepared):
         """The tensors a kernel reads of a prepared tuple: the coarse
@@ -776,6 +845,12 @@ def main(argv=None) -> int:
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "error")):
                 print(f"  ptxas: {line.strip()}")
+        smem = _build.load_library().zr_keyed_smem_bytes()
+        for key in ("k4", "k4d"):
+            results[key]["smem_bytes"] = smem
+        print(f"  K4/K4d keyed body: {smem} bytes of dynamic shared memory "
+              "a block (raster_records_kernel, depth_records_kernel; the "
+              "resolve kernels none)")
         return info.seconds
 
     # -- 3. K1 vs plain ---------------------------------------------------
@@ -828,6 +903,124 @@ def main(argv=None) -> int:
         return main_prep, lattice
 
     main_prep_k3, lattice = k3_inputs or (None,) * 2
+
+    def pair_rows(za_a=None, za_b=None, w=128, h=32):
+        """tests/test_raster_pallas.py :556-606 on the card: a tall
+        triangle A and a short triangle B inside it, submitted after A,
+        through the identity matrix; ``za_a``/``za_b`` replace a row's
+        z-plane coefficients."""
+        positions = torch.tensor([
+            [-0.8, -0.8, 0.5, 1.0], [0.8, -0.8, 0.5, 1.0],
+            [0.0, 0.8, 0.5, 1.0], [-0.2, -0.1, 0.3, 1.0],
+            [0.2, -0.1, 0.3, 1.0], [0.0, 0.1, 0.3, 1.0]], device=dev)
+        attrs = torch.zeros((6, 12), device=dev)
+        attrs[:3, 0] = 1.0  # A red
+        attrs[3:, 1] = 1.0  # B green
+        ti, tf = tg.geometry_pipeline(
+            positions, attrs,
+            torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32,
+                         device=dev),
+            torch.eye(4, device=dev)[None],
+            torch.zeros(6, dtype=torch.int32, device=dev), w, h)
+        a, b = torch.nonzero(ti[:, tg.I_VALID] > 0).flatten().tolist()
+        for row, za in ((a, za_a), (b, za_b)):
+            if za is not None:
+                tf[row, tg.F_ZA0:tg.F_ZA0 + 3] = torch.tensor(za, device=dev)
+        return ti, tf
+
+    # K4's and K4d's keyed body: small work items, so that spans and exact
+    # ties split across items.
+    KEYED_SMALL_ITEMS = 16
+
+    def with_items(kern, item_records):
+        def run(*args):
+            return kern(*args, item_records=item_records)
+        return run
+
+    def keyed_cases(key):
+        """The keyed body's own cases for K4 (``key`` "k4") or K4d ("k4d"),
+        each bit-exact against the plain version in every row, at the
+        default item size and at KEYED_SMALL_ITEMS records: one tile whose
+        span is many items long, exact ties split across items, a row at z
+        == 1.0 (K4 latches it, K4d does not), -0.0 ties (K4 keeps the
+        lower row id's z, K4d the first visited row's sign), triangles
+        that cover whole tiles, and an empty scene."""
+        depth = key == "k4d"
+        kern = k4d if depth else k4
+        plain = (raster.depth_binned_plain if depth
+                 else raster.raster_binned_plain)
+
+        def check(label, rows, w, h, **kw):
+            prep = raster.prepare_binned_hbm_inputs(*rows, w, h, **kw)
+            n, longest, _ = span_stats(prep[0])
+            items = raster.keyed_work_items(prep[0], KEYED_SMALL_ITEMS,
+                                            prep[3].shape[0])
+            print(f"  {label}: {n} records, longest span {longest}, "
+                  f"{items.shape[0]} items of {KEYED_SMALL_ITEMS} records "
+                  f"(most in a tile {int(items[:, 2].max().item())})")
+            outs = []
+            for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS):
+                fn = with_items(kern, item)
+                lab = f"{label}, items of {item}"
+                if depth:
+                    outs.append(compare_depth(key, lab, fn, plain, prep, w,
+                                              h))
+                else:
+                    outs.append(compare(key, lab, fn, plain, prep, w, h))
+            return outs[-1], int(items[:, 2].max().item())
+
+        packed = setup_rows(*make_triangle_soup(4000, seed=5, extent=2.0),
+                            128, 32)
+        _, most = check("soup packed into one 128x32 tile", packed, 128, 32)
+        if most < 100:
+            raise AssertionError(f"packed soup: {most} items in the tile")
+        w, h = 1024, 512
+        dup = setup_rows(*tie_soup(True), w, h)
+        got = check("duplicated triangles", dup, w, h)[0]
+        one = kern(*raster.prepare_binned_hbm_inputs(
+            *setup_rows(*tie_soup(False), w, h), w, h), w, h)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got if not depth else (got,),
+                                   one if not depth else (one,))):
+            raise AssertionError(f"{key}: a duplicate won a depth tie "
+                                 "across items")
+        out = check("z == 1.0 (A's z is 1.0 at one pixel)",
+                    pair_rows(za_a=(0.25, 0.0, 0.0)), 128, 32)[0]
+        if not depth:
+            c, d = out
+            latched = int(((d == 1.0) & (c != -(1 << 24))).sum().item())
+            print(f"    K4 latched {latched} pixel(s) at z == 1.0")
+            if latched != 1:
+                raise AssertionError(f"k4: {latched} pixels latched at z "
+                                     "== 1.0, 1 expected")
+        for za_a, za_b in (((-0.0,) * 3, (0.0,) * 3),
+                           ((0.0,) * 3, (-0.0,) * 3)):
+            out = check(f"-0.0 tie (A {za_a[0]}, B {za_b[0]})",
+                        pair_rows(za_a=za_a, za_b=za_b), 128, 32)[0]
+            d = out if depth else out[1]
+            neg = int((torch.signbit(d) & (d == 0.0)).sum().item())
+            print(f"    {neg} pixels at -0.0")
+            if (neg > 0) != bool(np.signbit(za_a[0])):
+                raise AssertionError(f"{key}: the first row's zero sign "
+                                     "was not kept")
+        check("whole tiles (A over 1024x512)", pair_rows(w=w, h=h), w, h)
+        check("clipped soup (whole tiles near the camera)",
+              setup_rows(*clipped_soup(), WIDTH, HEIGHT), PAD_W, PAD_H)
+        t = tg.capped_rows(64)
+        ti = torch.zeros((t + (-t) % 64, tg.NI32), dtype=torch.int32,
+                         device=dev)
+        ti[:, tg.I_JMIN] = 1
+        ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
+        prep = raster.prepare_binned_hbm_inputs(
+            ti, torch.zeros((ti.shape[0], tg.NF32), device=dev), w, h)
+        for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS):
+            got = with_items(kern, item)(*prep, w, h)
+            ref = plain(*prep, w, h)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got if not depth else (got,),
+                                       ref if not depth else (ref,))):
+                raise AssertionError(f"{key}: empty scene differs")
+        print(f"  empty scene: {key} equals its plain version (clear)")
 
     # -- 4b. K4, K4c, K5, K6 vs plain ---------------------------------------
     @phase("4b K4/K4c/K5/K6 kernels vs plain versions")
@@ -918,6 +1111,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{key}: a duplicate won a depth tie")
         print("  every exact depth tie went to the first-submitted row "
               "(K4, K4c, K5, K6)")
+        keyed_cases("k4")
 
     # -- 4g. K2g, K3g, K4g, K5g vs plain ----------------------------------
     @phase("4g K2g/K3g/K4g/K5g G-buffer kernels vs plain versions")
@@ -1063,6 +1257,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{key}: duplicates changed the map")
         print("  duplicated triangles leave every map equal by value "
               "(K2d, K3d, K4d, K6d)")
+        keyed_cases("k4d")
 
         # K6g: the G-buffer over global pair lists, at the camera's frame.
         gprep = raster.prepare_binned_inputs
@@ -1556,8 +1751,14 @@ def main(argv=None) -> int:
             "lattice1M", lattice_big, "auto", "k4")
         # The main path's K4 inputs against the plain version; its time
         # is K4's plain_ms (one step per record of the longest span).
-        compare("k4", "lattice1M", k4, raster.raster_binned_plain, prep4,
-                PAD_W, PAD_H, plain_shape="lattice1M")
+        _, d4 = compare("k4", "lattice1M", k4, raster.raster_binned_plain,
+                        prep4, PAD_W, PAD_H, plain_shape="lattice1M")
+        pad4 = int((d4[HEIGHT:] < 1.0).sum().item())
+        results["k4"]["pad_pixels_1m"] = pad4
+        print(f"  lattice1M K4: {pad4} pixels drawn in rows "
+              f"{HEIGHT}-{PAD_H - 1} (the padding rows)")
+        if pad4 == 0:
+            raise AssertionError("lattice1M: K4 drew no padding-row pixel")
         del prep4
         r5, f5, _, counts["k5"], _ = drive("lattice1M", lattice_big,
                                            "hierarchy", "k5")
@@ -2217,7 +2418,30 @@ def main(argv=None) -> int:
                     "k10trans": "raster_trans_kernel",
                     "k10hbm2": "raster_hbm2_kernel",
                     "k10scan": "raster_scan_kernel"}
-    port_kernels = set(kernel_names.values())
+    # K4 and K4d issue three device operations a call: the key plane's
+    # memset, the item kernel (kernel_names) and the resolve kernel.
+    resolve_names = {"k4": "raster_records_resolve_kernel",
+                     "k4d": "depth_records_resolve_kernel"}
+    port_kernels = set(kernel_names.values()) | set(resolve_names.values())
+
+    def call_durations(key, events):
+        """Device us of each call of kernel ``key`` in a trace's events:
+        its kernel's duration, and for K4/K4d the memset just before the
+        item kernel and the next resolve kernel added."""
+        name = kernel_names[key]
+        if key not in resolve_names:
+            return [d for n, _, d in events if name in n]
+        ev = sorted(events, key=lambda e: e[1])
+        out = []
+        for i, (n, _, d) in enumerate(ev):
+            if name not in n:
+                continue
+            memset = ev[i - 1][2] if i and "Memset" in ev[i - 1][0] else 0.0
+            resolve = next((r for m, _, r in ev[i + 1:]
+                            if resolve_names[key] in m), None)
+            if resolve is not None:
+                out.append(memset + d + resolve)
+        return out
 
     def traced_kernel_ms(keys, fn, attempts=3):
         """Device events of ``fn``'s traced run, its window, and the mean
@@ -2230,7 +2454,7 @@ def main(argv=None) -> int:
             ms, short = {}, []
             for k in keys:
                 launched = (kernel_of[k].launches - before[k]) // 2
-                durs = [d for name, _, d in events if kernel_names[k] in name]
+                durs = call_durations(k, events)
                 if launched > 0 and len(durs) == launched:
                     ms[k] = sum(durs) / len(durs) / 1000.0
                 else:
@@ -3374,9 +3598,22 @@ def main(argv=None) -> int:
         for key, (prep_k, shape, reps) in cases.items():
             kern = kernel_of[key]
             w, h = size_of.get(key, (PAD_W, PAD_H))
-            _, _, ms = traced_kernel_ms(
+            events, _, ms = traced_kernel_ms(
                 (key,), lambda: [kern(*prep_k, w, h) for _ in range(reps)])
             results[key]["ms"] = ms[key]
+            if key in resolve_names:
+                names = sorted({n.split("(")[0] for n, _, _ in events})
+                print(f"  {key}: {len(events)} device ops for {reps} calls "
+                      f"in its trace: {names}")
+        # K4 on soup1M through `auto`: large triangles, and the rows past
+        # the record budget in the leftover walk.
+        prep_soup = raster.prepare_binned_hbm_inputs(*rows_soup, PAD_W,
+                                                     PAD_H)
+        _, _, ms = traced_kernel_ms(
+            ("k4",), lambda: [k4(*prep_soup, PAD_W, PAD_H) for _ in range(3)])
+        results["k4"]["ms_soup1m"] = ms["k4"]
+        for key in resolve_names:
+            results[key]["device_ops_per_call"] = 3
         # The band kernels (phase 4s/5m inputs): one launch's device time
         # at each kernel's main-path band, one card rendering the bands in
         # turn; K9 on band 0 of the 1M lattice's 2 bands, K9g on band 0 of
@@ -3599,6 +3836,33 @@ def main(argv=None) -> int:
                   f"ops/call, device busy {busy_us(ev) / 1000.0:.4f} "
                   f"ms/call (profiler)")
 
+        # K4 and K4d against the work-item size (CUDA events, one card).
+        for key, prep_k in (("k4", cases["k4"][0]), ("k4d", cases["k4d"][0]),
+                            ("k4 soup1M", prep_soup)):
+            kern = kernel_of[key.split()[0]]
+            w, h = size_of.get(key, (PAD_W, PAD_H))
+            sweep = {item: event_ms(lambda: with_items(kern, item)(
+                *prep_k, w, h), 5) for item in (256, 512, 1024, 2048, 4096)}
+            results[key.split()[0]][
+                "item_sweep_soup1m" if "soup" in key else "item_sweep"] = sweep
+            print(f"  {key}: ms/call by work-item size (CUDA events) "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()))
+        soup_evals = keyed_evals(prep_soup, PAD_W, PAD_H, HEIGHT)
+        results["k4"].update(
+            evals_soup1m=soup_evals,
+            bound_ms_soup1m=max(
+                sum(t.numel() * t.element_size()
+                    for t in flat_inputs(prep_soup)) / HBM_BYTES_PER_S * 1e3
+                + 2 * 4 * PAD_W * PAD_H / HBM_BYTES_PER_S * 1e3,
+                soup_evals * OPS_PER_EVAL / CUDA_CORE_OPS_PER_S * 1e3),
+            wrapper_ms_soup1m=event_ms(lambda: k4(*prep_soup, PAD_W, PAD_H),
+                                       3))
+        print(f"  k4 soup1M {PAD_W}x{PAD_H}: kernel "
+              f"{results['k4']['ms_soup1m']:.4f} ms a call (profiler: memset,"
+              f" item and resolve kernels), launcher "
+              f"{results['k4']['wrapper_ms_soup1m']:.4f} ms/call (CUDA "
+              f"events); {soup_evals} window pixel evaluations; bound "
+              f"{results['k4']['bound_ms_soup1m']:.4f} ms")
         rows_of = {"k4": rows_lattice, "k5": rows_lattice,
                    "k4_coarse": rows_soup, "k6": rows_k6,
                    "k4g": rows_lit_big, "k5g": rows_lit_big,
@@ -3617,8 +3881,10 @@ def main(argv=None) -> int:
                 pairs = tile_pairs(rows_of[key][0], w, h)
             planes = (raster.GBUFFER_PLANES if key.endswith("g")
                       else 1 if key.endswith("d") else 2)
+            evals = (keyed_evals(prep_k, w, h, HEIGHT if h == PAD_H else h)
+                     if key in ("k4", "k4d") else None)
             set_bound(key, flat_inputs(prep_k), pairs, w, h, shape,
-                      planes=planes)
+                      planes=planes, evals=evals)
             print(f"  {key} {shape} {w}x{h}: kernel {res['ms']:.4f} "
                   f"ms device time (profiler; {res['anim_ms']:.4f} ms a "
                   f"launch in the profiled render_animation), launcher "
@@ -3989,30 +4255,6 @@ def main(argv=None) -> int:
         results[key]["err"] = max(results[key]["err"], float(err))
         return ck, dk, c5, d5, z1
 
-    def pair_rows(za_a=None, za_b=None, w=128, h=32):
-        """tests/test_raster_pallas.py :556-606 on the card: a tall
-        triangle A and a short triangle B inside it, submitted after A,
-        through the identity matrix; ``za_a``/``za_b`` replace a row's
-        z-plane coefficients."""
-        positions = torch.tensor([
-            [-0.8, -0.8, 0.5, 1.0], [0.8, -0.8, 0.5, 1.0],
-            [0.0, 0.8, 0.5, 1.0], [-0.2, -0.1, 0.3, 1.0],
-            [0.2, -0.1, 0.3, 1.0], [0.0, 0.1, 0.3, 1.0]], device=dev)
-        attrs = torch.zeros((6, 12), device=dev)
-        attrs[:3, 0] = 1.0  # A red
-        attrs[3:, 1] = 1.0  # B green
-        ti, tf = tg.geometry_pipeline(
-            positions, attrs,
-            torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32,
-                         device=dev),
-            torch.eye(4, device=dev)[None],
-            torch.zeros(6, dtype=torch.int32, device=dev), w, h)
-        a, b = torch.nonzero(ti[:, tg.I_VALID] > 0).flatten().tolist()
-        for row, za in ((a, za_a), (b, za_b)):
-            if za is not None:
-                tf[row, tg.F_ZA0:tg.F_ZA0 + 3] = torch.tensor(za, device=dev)
-        return ti, tf
-
     @phase("4h K10hbm2/K10scan experiment kernels vs plain versions")
     def twoclass_cases():
         rows40 = setup_rows(*make_stress_scene(MID_TRIS), WIDTH, HEIGHT,
@@ -4179,16 +4421,8 @@ def main(argv=None) -> int:
 
         def evals(rect, blocks, supers, padded_extent):
             rec, ty, tx = hbm2.rect_pairs(rect, blocks, supers, w, h)
-            jmin, jmax, imin, imax = rect[rec].to(torch.int64).unbind(1)
-            r0, c0 = ty * raster.TILE_H, tx * raster.TILE_W
-            n = ((torch.minimum(imax, r0 + raster.TILE_H - 1)
-                  - torch.maximum(imin, r0) + 1)
-                 * (torch.minimum(jmax, c0 + raster.TILE_W - 1)
-                    - torch.maximum(jmin, c0) + 1))
-            if padded_extent is not None:
-                n = torch.where(r0 + raster.TILE_H > visible, padded_extent,
-                                n)
-            return rec.numel(), int(n.sum().item())
+            return rec.numel(), window_evals(rect[rec], ty, tx, visible,
+                                             padded_extent)
 
         tall, tall_evals = evals(ti_t[:, box], blocks_t, supers_t,
                                  raster.TILE_H * raster.TILE_W)
@@ -4379,7 +4613,10 @@ def main(argv=None) -> int:
                    "entry_busy_ms", "entry_idle_share", "z_one_pixels_1m",
                    "tall_evals", "short_evals", "pad_pixels_1m",
                    "short_pass_ms", "tall_pass_ms", "k5_ms",
-                   "k5_uncompacted_ms")}})
+                   "k5_uncompacted_ms", "bound_ms_tiles", "smem_bytes",
+                   "device_ops_per_call", "ms_soup1m", "evals_soup1m",
+                   "bound_ms_soup1m", "wrapper_ms_soup1m", "item_sweep",
+                   "item_sweep_soup1m")}})
     if PHASE_PREFIXES is None:
         missing = [(k["name"], f) for k in kernels for f in measured
                    if k[f] is None]

@@ -11,13 +11,14 @@
 //        lists, body _binned_body): spans of row ids into the setup rows.
 // The Pallas functions differ in TPU memory placement (records streamed
 // from HBM in aligned slabs, or row ids into VMEM-resident rows); here all
-// read global memory, so one kernel body serves them, templated on the
-// span source (records or row ids) and on the coarse phase.  Inputs are
-// the outputs of prepare_binned_hbm_inputs / prepare_binned_inputs
+// read global memory, so one register body (binned_scan) serves K4c, K6
+// and their variants, templated on the span source (records or row ids)
+// and on the coarse phase; K4 and K4d run the keyed body (below).  Inputs
+// are the outputs of prepare_binned_hbm_inputs / prepare_binned_inputs
 // (zrenderer_tpu_torch/ops/raster.py).
 //
-// What it computes, per 32x128 tile (one CUDA block, tile state in
-// registers, raster_common.cuh):
+// What the register body computes, per 32x128 tile (one CUDA block, tile
+// state in registers, raster_common.cuh), and the keyed body too:
 //   phase 1:   every entry of [offsets[t], offsets[t+1]); each is a
 //              guaranteed bbox hit, so there is no bbox test.  Records are
 //              (NI32 + 1) ints (the row id last) + NF32 floats;
@@ -30,16 +31,51 @@
 //   order-free (z, row id) tie-break that equals sequential strict-less in
 //   submission order; then one divide per pixel into RGBA8 + f32 depth.
 //
-// What bounds it on the H100: the per-pixel edge evaluation over the
-// (tile, triangle) pairs, not device-memory bytes and not the tensor cores.
-// Each pair costs 3 edge functions, 3 bias tests and a z interpolation at
-// each of the tile's 4096 pixels, issued on the int32/fp32 CUDA cores; the
-// records a tile reads are contiguous and read once (a few MB per frame).
-// The simple design keeps the tile state in registers across all three
-// phases and has all 256 threads read each record through broadcast loads.
-// Later work: stage a tile's contiguous records in shared memory with
-// cp.async/TMA, skip pixel rows outside a triangle's bbox, and balance the
-// tiles' spans (they differ by orders of magnitude) with persistent blocks.
+// What bounds that body on the H100 is pixel work no pixel needs: each
+// record of a span is evaluated at all 4096 pixels of its tile (3 edge
+// functions, 3 bias tests, a z interpolation each), while a record's bbox
+// in the tile, the pixels it can draw, is about 1/40 of that at 1M
+// triangles; all 256 threads read each record through broadcast loads; K4's
+// six values a pixel take 183 registers, one block an SM; and one block
+// walks a tile's whole span, whose lengths differ by orders of magnitude
+// (K4d's 1024^2 map has 256 tiles for 132 SMs).
+//
+// K4 and K4d run the keyed body instead (keyed_records below), with the
+// same planes bit for bit:
+// * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
+//   atomicMin.  K4: (order bits of z, row id), whose minimum is the (z, row
+//   id) tie-break.  K4d: (order bits of z, visit index, sign of z), whose
+//   minimum is the strict-less test in visit order with the first visited
+//   row kept: a span record's visit index is its record index, a leftover
+//   row's is the span's end plus its row id.  -0.0 and +0.0 share order
+//   bits; z >= 0 filters first (NaN and negative z never compete).  K4's
+//   clear key (1.0, INT32_MAX) lets a row at z == 1.0 latch, as the
+//   register body does; K4d's (1.0, 0) never loses to one.
+// * Work in proportion to each record's window: its vertices' pixel bbox in
+//   the tile.  A pixel a row covers lies in the closed triangle (exact int32
+//   edge functions inside the guard band), so in that bbox, wherever the
+//   bbox columns were clamped: the padding rows get every pixel the
+//   whole-tile evaluation drew.  A batch of up to KEY_BATCH records is
+//   flattened into (record, pixel) evaluations that the 256 threads take in
+//   turn (a prefix sum over the windows' areas, a binary search a thread),
+//   so a record that covers the tile and one of 3 pixels share the block
+//   alike.  The edge functions step from the window's origin (int32 wrap,
+//   the same bits as edge_fn), then the same bias tests and interp3.
+// * Records staged in shared memory with cp.async, double-buffered;
+//   leftover rows of the superblock -> block -> row walk are compacted into
+//   the same batches.  The body is templated on the key (FlatKeys,
+//   DepthKeys), which holds the tags and the resolve: K4g, K4c and K9 can
+//   move onto it as instantiations (a G-buffer resolve, a coarse producer,
+//   a band's row base).
+// * A tile's span is cut into work items of at most item_records records,
+//   one block each, which share the tile's leftover superblocks too.  A
+//   tile of one item resolves its keys in place; otherwise each item
+//   atomicMins the keys it lowered into a frame-sized key plane (8 bytes a
+//   pixel, set to all ones by a memset) and a second kernel resolves the
+//   plane's minimum, which is order-free.  Three device operations a call.
+// The resolve re-evaluates the winner from hier/tf: K4 its z (-0.0 kept)
+// and colour with the same interp3 bits, as K4g's; K4d decodes z from the
+// key.  Nothing moves the tensor cores; the records are read once.
 //
 // K4g replaces rasterize_gbuffer_pallas_binned_hbm
 // (_binned_hbm_gbuffer_kernel, body _binned_hbm_body with the G-buffer
@@ -89,6 +125,8 @@
 // spans free, so the bands equal the rows of K4's frame.  Bound on the
 // H100: as K4, the per-pixel edge work over the band's (tile, triangle)
 // pairs x 4096 x 26 ops; K9g adds its 13 output planes.
+
+#include <cuda_pipeline.h>
 
 #include "raster_common.cuh"
 
@@ -171,21 +209,6 @@ __device__ __forceinline__ void binned_tile(
 }
 
 // One entry point per kernel, so each has its own name in a profile.
-__global__ void __launch_bounds__(THREADS)
-    raster_records_kernel(const int* __restrict__ offsets,
-                          const int* __restrict__ rec_i,
-                          const float* __restrict__ rec_f,
-                          const int* __restrict__ supers, int num_supers,
-                          const int* __restrict__ blocks,
-                          const int* __restrict__ ti,
-                          const float* __restrict__ tf,
-                          int* __restrict__ color, float* __restrict__ depth,
-                          int width) {
-  binned_tile<true, false>(offsets, rec_i, rec_f, nullptr, nullptr, nullptr,
-                           supers, num_supers, blocks, ti, tf, color, depth,
-                           width);
-}
-
 __global__ void __launch_bounds__(THREADS) raster_records_coarse_kernel(
     const int* __restrict__ offsets, const int* __restrict__ rec_i,
     const float* __restrict__ rec_f, const int* __restrict__ coffsets,
@@ -244,22 +267,6 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 __global__ void __launch_bounds__(THREADS)
-    depth_records_kernel(const int* __restrict__ offsets,
-                         const int* __restrict__ rec_i,
-                         const float* __restrict__ rec_f,
-                         const int* __restrict__ supers, int num_supers,
-                         const int* __restrict__ blocks,
-                         const int* __restrict__ ti,
-                         const float* __restrict__ tf,
-                         float* __restrict__ depth, int width) {
-  TileState<false, false, true> st;
-  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
-                           nullptr, supers, num_supers, blocks, ti, tf,
-                           width);
-  st.store_depth(depth, width);
-}
-
-__global__ void __launch_bounds__(THREADS)
     depth_lists_kernel(const int* __restrict__ offsets,
                        const int* __restrict__ pair_tri,
                        const int* __restrict__ supers, int num_supers,
@@ -272,6 +279,495 @@ __global__ void __launch_bounds__(THREADS)
                             nullptr, supers, num_supers, blocks, ti, tf,
                             width);
   st.store_depth(depth, width);
+}
+
+// ---------------------------------------------------------------------------
+// The keyed record raster (K4, K4d); see the note at the top of the file.
+// ---------------------------------------------------------------------------
+
+constexpr int SUBPIXEL_BITS = 3;
+static_assert(1 << SUBPIXEL_BITS == SUBPIXEL, "SUBPIXEL is 8");
+constexpr int TILE_PIX = TILE_H * TILE_W;  // keys a tile
+constexpr int KEY_BATCH = 128;             // records flattened together
+constexpr int KEY_PENDING = 2 * KEY_BATCH;  // leftover rows awaiting a batch
+constexpr int WARPS = THREADS / 32;
+static_assert(KEY_BATCH == RASTER_BLOCK, "a block's rows fit one batch");
+static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
+
+// K4's key: the order bits of z (the sign cleared, so -0.0 ties +0.0) over
+// the row id.  A span record's id is its last int, a leftover row's its
+// index in hier.
+struct FlatKeys {
+  static constexpr unsigned long long CLEAR =
+      (0x3f800000ull << 32) | (unsigned long long)INT_MAX32;
+  static __device__ __forceinline__ uint32_t span_tag(const int* r, int) {
+    return (uint32_t)r[NI32];
+  }
+  static __device__ __forceinline__ uint32_t row_tag(int t, int) {
+    return (uint32_t)t;
+  }
+  static __device__ __forceinline__ unsigned long long key(uint32_t zbits,
+                                                           uint32_t tag) {
+    return ((unsigned long long)(zbits & 0x7fffffffu) << 32) | tag;
+  }
+  // Pixel (row, col) of the frame from its key: the winner re-evaluated
+  // from hier/tf (ti/tf), one IEEE divide, RGBA8 packed; z 1.0 and alpha
+  // alone where no row latched.
+  static __device__ __forceinline__ void store(
+      unsigned long long k, int row, int col, const int* __restrict__ ti,
+      const float* __restrict__ tf, int* __restrict__ color,
+      float* __restrict__ depth, int width) {
+    float z = 1.0f, d = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
+    if (k != CLEAR) {
+      const int t = (int)(uint32_t)k;
+      const int* r = ti + (size_t)t * NI32;
+      const float* f = tf + (size_t)t * NF32;
+      const int px = col * SUBPIXEL + HALF, py = row * SUBPIXEL + HALF;
+      const float f0 = __int2float_rn(
+          edge_fn(__ldg(r + I_DX0), __ldg(r + I_DY0), __ldg(r + I_X1),
+                  __ldg(r + I_Y1), px, py));
+      const float f1 = __int2float_rn(
+          edge_fn(__ldg(r + I_DX1), __ldg(r + I_DY1), __ldg(r + I_X2),
+                  __ldg(r + I_Y2), px, py));
+      const float f2 = __int2float_rn(
+          edge_fn(__ldg(r + I_DX2), __ldg(r + I_DY2), __ldg(r + I_X0),
+                  __ldg(r + I_Y0), px, py));
+      z = interp3(f0, f1, f2, __ldg(f + F_ZA0), __ldg(f + F_ZA0 + 1),
+                  __ldg(f + F_ZA0 + 2));
+      d = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
+                  __ldg(f + F_RW0 + 2));
+      cr = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
+                   __ldg(f + F_CR0 + 2));
+      cg = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
+                   __ldg(f + F_CG0 + 2));
+      cb = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
+                   __ldg(f + F_CB0 + 2));
+    }
+    const bool covered = d > 0.0f;
+    const float inv = covered ? __fdiv_rn(1.0f, d) : 1.0f;
+    const uint32_t packed = quantize(cr, covered, inv) |
+                            (quantize(cg, covered, inv) << 8) |
+                            (quantize(cb, covered, inv) << 16) | 0xFF000000u;
+    const size_t idx = (size_t)row * width + col;
+    color[idx] = (int)packed;
+    depth[idx] = z;
+  }
+};
+
+// K4d's key: the order bits of z over the visit index over the sign of z.
+// The visit index of span record k is k; of leftover row t, the span's end
+// plus t: both below 2^31, so the key holds them shifted by one.
+struct DepthKeys {
+  static constexpr unsigned long long CLEAR = 0x3f800000ull << 32;
+  static __device__ __forceinline__ uint32_t span_tag(const int*, int k) {
+    return (uint32_t)k;
+  }
+  static __device__ __forceinline__ uint32_t row_tag(int t, int span_end) {
+    return (uint32_t)(span_end + t);
+  }
+  static __device__ __forceinline__ unsigned long long key(uint32_t zbits,
+                                                           uint32_t tag) {
+    return ((unsigned long long)(zbits & 0x7fffffffu) << 32) |
+           ((unsigned long long)tag << 1) | (zbits >> 31);
+  }
+  static __device__ __forceinline__ void store(
+      unsigned long long k, int row, int col, const int* __restrict__,
+      const float* __restrict__, int* __restrict__, float* __restrict__ depth,
+      int width) {
+    const uint32_t bits = (uint32_t)(k >> 32) | ((uint32_t)k << 31);
+    depth[(size_t)row * width + col] =
+        k == CLEAR ? 1.0f : __uint_as_float(bits);
+  }
+};
+
+// Shared memory of one work item (dynamic: above the 48 KB static limit).
+struct KeyedSmem {
+  unsigned long long key[TILE_PIX];
+  int raw_i[2][KEY_BATCH * REC_I];  // staged records, double-buffered
+  float raw_z[2][KEY_BATCH * 3];    // their z coefficients
+  // The batch, one column a record: edge values at the window's origin,
+  // their steps a column and a row, biases, z coefficients, the origin's
+  // pixel in the tile, the window's width and its reciprocal, the key's tag.
+  int e[3][KEY_BATCH], cstep[3][KEY_BATCH], rstep[3][KEY_BATCH];
+  int bias[3][KEY_BATCH];
+  float za[3][KEY_BATCH];
+  int origin[KEY_BATCH], wide[KEY_BATCH];
+  float inv_wide[KEY_BATCH];
+  uint32_t tag[KEY_BATCH];
+  int prefix[KEY_BATCH + 1];  // evaluations before each record
+  int pending[KEY_PENDING];
+  int scan[WARPS];
+  int item[3];  // tile, item index within the tile, items of the tile
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  __pipeline_memcpy_async(dst, src, 4);
+}
+
+// Exclusive prefix of v over the block's threads; total gets the sum.
+// Every thread calls it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
+                                                    int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int c = warp_sums[w];
+    before += w < warp ? c : 0;
+    sum += c;
+  }
+  __syncthreads();
+  total = sum;
+  return before + x - v;
+}
+
+// Work items of tile u: its span in pieces of at most item_records, and
+// one item for an empty span (the leftovers and the resolve).
+__device__ __forceinline__ int tile_items(const int* __restrict__ offsets,
+                                          int u, int item_records) {
+  const int n = __ldg(offsets + u + 1) - __ldg(offsets + u);
+  return max(1, (n + item_records - 1) / item_records);
+}
+
+// Items are numbered tile by tile.  Each block finds its own (tile, index,
+// count) in s.item, tile -1 past the last item.
+__device__ __forceinline__ void find_item(KeyedSmem& s,
+                                          const int* __restrict__ offsets,
+                                          int num_tiles, int item_records) {
+  const int per = (num_tiles + THREADS - 1) / THREADS;
+  const int u0 = min((int)threadIdx.x * per, num_tiles);
+  const int u1 = min(u0 + per, num_tiles);
+  int local = 0;
+  for (int u = u0; u < u1; ++u) local += tile_items(offsets, u, item_records);
+  if (threadIdx.x == 0) s.item[0] = -1;
+  int total;
+  int acc = block_exclusive_scan(local, s.scan, total);
+  const int b = (int)blockIdx.x;
+  for (int u = u0; u < u1; ++u) {
+    const int n = tile_items(offsets, u, item_records);
+    if (b >= acc && b < acc + n) {
+      s.item[0] = u;
+      s.item[1] = b - acc;
+      s.item[2] = n;
+    }
+    acc += n;
+  }
+  __syncthreads();
+}
+
+// Batch column j from setup row r (NI32 ints) and its z coefficients zc:
+// the window (the vertices' pixel bbox in the tile), the edge values at
+// its origin and their steps.  Returns the window's area (0: empty).
+__device__ __forceinline__ int prepare_record(KeyedSmem& s, int j,
+                                              const int* r, const float* zc,
+                                              uint32_t tag, int row0,
+                                              int col0) {
+  const int x0 = r[I_X0], y0 = r[I_Y0], x1 = r[I_X1], y1 = r[I_Y1];
+  const int x2 = r[I_X2], y2 = r[I_Y2];
+  const int c_lo =
+      max((min(min(x0, x1), x2) + (SUBPIXEL - 1 - HALF)) >> SUBPIXEL_BITS,
+          col0);
+  const int c_hi =
+      min((max(max(x0, x1), x2) - HALF) >> SUBPIXEL_BITS, col0 + TILE_W - 1);
+  const int r_lo =
+      max((min(min(y0, y1), y2) + (SUBPIXEL - 1 - HALF)) >> SUBPIXEL_BITS,
+          row0);
+  const int r_hi =
+      min((max(max(y0, y1), y2) - HALF) >> SUBPIXEL_BITS, row0 + TILE_H - 1);
+  const int w = c_hi - c_lo + 1, h = r_hi - r_lo + 1;
+  if (w <= 0 || h <= 0) return 0;
+  const int px = c_lo * SUBPIXEL + HALF, py = r_lo * SUBPIXEL + HALF;
+  const int dx[3] = {r[I_DX0], r[I_DX1], r[I_DX2]};
+  const int dy[3] = {r[I_DY0], r[I_DY1], r[I_DY2]};
+  const int ex[3] = {x1, x2, x0}, ey[3] = {y1, y2, y0};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    s.e[i][j] = edge_fn(dx[i], dy[i], ex[i], ey[i], px, py);
+    s.cstep[i][j] = (int)(0u - (uint32_t)dy[i] * (uint32_t)SUBPIXEL);
+    s.rstep[i][j] = (int)((uint32_t)dx[i] * (uint32_t)SUBPIXEL);
+    s.bias[i][j] = r[I_BIAS0 + i];
+    s.za[i][j] = zc[i];
+  }
+  s.origin[j] = (r_lo - row0) * TILE_W + (c_lo - col0);
+  s.wide[j] = w;
+  s.inv_wide[j] = __fdiv_rn(1.0f, __int2float_rn(w));
+  s.tag[j] = tag;
+  return w * h;
+}
+
+// Every (record, pixel) of the prepared batch, threads striding over the
+// flattened evaluations; area is this thread's record's (0 for threads
+// that prepared none).  Pixel q of a window of width w is row q / w,
+// column q % w: floor((q + 0.5) / w) by one rounded product, exact as the
+// quotient's fraction stays 0.5 / w from an integer and q < 4096.
+template <class Mode>
+__device__ __forceinline__ void eval_batch(KeyedSmem& s, int area) {
+  int total;
+  const int before = block_exclusive_scan(area, s.scan, total);
+  if (threadIdx.x < KEY_BATCH) s.prefix[threadIdx.x] = before;
+  if (threadIdx.x == 0) s.prefix[KEY_BATCH] = total;
+  __syncthreads();
+  int k = 0;
+  for (int f = threadIdx.x; f < total; f += THREADS) {
+    if (f >= s.prefix[k + 1]) {  // the last record whose prefix <= f
+      int lo = k;
+#pragma unroll
+      for (int step = KEY_BATCH / 2; step > 0; step >>= 1)
+        if (lo + step < KEY_BATCH && s.prefix[lo + step] <= f) lo += step;
+      k = lo;
+    }
+    const int q = f - s.prefix[k];
+    const int w = s.wide[k];
+    const int dr = __float2int_rz(
+        __fmul_rn(__fadd_rn(__int2float_rn(q), 0.5f), s.inv_wide[k]));
+    const int dc = q - dr * w;
+    int e[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      e[i] = (int)((uint32_t)s.e[i][k] +
+                   (uint32_t)dr * (uint32_t)s.rstep[i][k] +
+                   (uint32_t)dc * (uint32_t)s.cstep[i][k]);
+    if (e[0] < s.bias[0][k] || e[1] < s.bias[1][k] || e[2] < s.bias[2][k])
+      continue;
+    const float z = interp3(__int2float_rn(e[0]), __int2float_rn(e[1]),
+                            __int2float_rn(e[2]), s.za[0][k], s.za[1][k],
+                            s.za[2][k]);
+    if (!(z >= 0.0f)) continue;
+    const unsigned long long key = Mode::key(__float_as_uint(z), s.tag[k]);
+    unsigned long long* slot = &s.key[s.origin[k] + dr * TILE_W + dc];
+    if (key < *slot) atomicMin(slot, key);
+  }
+  __syncthreads();
+}
+
+// Records [k0, k0 + n) into staging buffer buf by cp.async, one commit.
+__device__ __forceinline__ void stage_records(KeyedSmem& s, int buf,
+                                              const int* __restrict__ rec_i,
+                                              const float* __restrict__ rec_f,
+                                              int k0, int n) {
+  const int* src = rec_i + (size_t)k0 * REC_I;
+  for (int w = threadIdx.x; w < n * REC_I; w += THREADS)
+    cp_async4(&s.raw_i[buf][w], src + w);
+  for (int w = threadIdx.x; w < n * 3; w += THREADS)
+    cp_async4(&s.raw_z[buf][w],
+              rec_f + (size_t)(k0 + w / 3) * NF32 + F_ZA0 + w % 3);
+  __pipeline_commit();
+}
+
+// Records [k_begin, k_end) of the span, KEY_BATCH at a time: the next
+// batch's copies fly while this one is evaluated.
+template <class Mode>
+__device__ __forceinline__ void keyed_span(KeyedSmem& s,
+                                           const int* __restrict__ rec_i,
+                                           const float* __restrict__ rec_f,
+                                           int k_begin, int k_end, int row0,
+                                           int col0) {
+  const int batches = (k_end - k_begin + KEY_BATCH - 1) / KEY_BATCH;
+  if (batches > 0)
+    stage_records(s, 0, rec_i, rec_f, k_begin,
+                  min(KEY_BATCH, k_end - k_begin));
+  for (int b = 0; b < batches; ++b) {
+    const int k0 = k_begin + b * KEY_BATCH;
+    const int nb = min(KEY_BATCH, k_end - k0);
+    if (b + 1 < batches) {
+      stage_records(s, (b + 1) & 1, rec_i, rec_f, k0 + KEY_BATCH,
+                    min(KEY_BATCH, k_end - k0 - KEY_BATCH));
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    int area = 0;
+    const int j = threadIdx.x;
+    if (j < nb) {
+      const int* r = s.raw_i[b & 1] + j * REC_I;
+      area = prepare_record(s, j, r, s.raw_z[b & 1] + j * 3,
+                            Mode::span_tag(r, k0 + j), row0, col0);
+    }
+    eval_batch<Mode>(s, area);
+  }
+}
+
+// The first n rows of s.pending as one batch, read from hier/tf.
+template <class Mode>
+__device__ __forceinline__ void flush_rows(KeyedSmem& s, int n,
+                                           const int* __restrict__ ti,
+                                           const float* __restrict__ tf,
+                                           int span_end, int row0, int col0) {
+  int area = 0;
+  const int j = threadIdx.x;
+  if (j < n) {
+    const int t = s.pending[j];
+    area = prepare_record(s, j, ti + (size_t)t * NI32,
+                          tf + (size_t)t * NF32 + F_ZA0,
+                          Mode::row_tag(t, span_end), row0, col0);
+  }
+  eval_batch<Mode>(s, area);
+}
+
+// The leftover rows of superblocks [s_begin, s_end): the register body's
+// superblock -> block -> row bbox walk, each block's hit rows compacted
+// into s.pending and evaluated KEY_BATCH at a time.
+template <class Mode>
+__device__ __forceinline__ void keyed_leftovers(
+    KeyedSmem& s, const int* __restrict__ supers, int s_begin, int s_end,
+    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const float* __restrict__ tf, int span_end, int row0, int col0) {
+  int pending = 0;  // block-uniform
+  for (int sb = s_begin; sb < s_end; ++sb) {
+    const int* sp = supers + (size_t)sb * 8;
+    if (!tile_overlap(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3),
+                      row0, col0))
+      continue;
+    for (int b = sb * SUPER_BLOCK; b < (sb + 1) * SUPER_BLOCK; ++b) {
+      const int* bb = blocks + (size_t)b * 8;
+      if (!tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2),
+                        __ldg(bb + 3), row0, col0))
+        continue;
+      const int t = b * RASTER_BLOCK + (int)threadIdx.x;
+      bool hit = false;
+      if (threadIdx.x < RASTER_BLOCK) {
+        const int* r = ti + (size_t)t * NI32;
+        hit = tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
+                           __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0);
+      }
+      int hits;
+      const int pos = block_exclusive_scan(hit ? 1 : 0, s.scan, hits);
+      if (hit) s.pending[pending + pos] = t;
+      pending += hits;
+      if (pending >= KEY_BATCH) {
+        __syncthreads();
+        flush_rows<Mode>(s, KEY_BATCH, ti, tf, span_end, row0, col0);
+        const int rest = pending - KEY_BATCH;
+        if ((int)threadIdx.x < rest)
+          s.pending[threadIdx.x] = s.pending[KEY_BATCH + threadIdx.x];
+        pending = rest;
+      }
+    }
+  }
+  if (pending > 0) {
+    __syncthreads();
+    flush_rows<Mode>(s, pending, ti, tf, span_end, row0, col0);
+  }
+}
+
+// Work item blockIdx.x: its share of the tile's span and of the leftover
+// superblocks into the shared keys, then the tile's planes (one item) or
+// an atomicMin of the keys it lowered into the frame's key plane, which
+// starts all ones (several).  Mode: FlatKeys (K4) or DepthKeys (K4d).
+template <class Mode>
+__device__ __forceinline__ void keyed_records(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int item_records, unsigned long long* __restrict__ plane,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height) {
+  extern __shared__ __align__(16) unsigned char keyed_smem[];
+  KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
+  const int tiles_x = width / TILE_W;
+  find_item(s, offsets, tiles_x * (height / TILE_H), item_records);
+  const int tile = s.item[0], idx = s.item[1], n_items = s.item[2];
+  if (tile < 0) return;  // past the last item
+  const int row0 = (tile / tiles_x) * TILE_H;
+  const int col0 = (tile % tiles_x) * TILE_W;
+  for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) s.key[p] = Mode::CLEAR;
+  const int span_end = __ldg(offsets + tile + 1);
+  const int k_begin =
+      min(__ldg(offsets + tile) + idx * item_records, span_end);
+  const int k_end = min(k_begin + item_records, span_end);
+  __syncthreads();
+  keyed_span<Mode>(s, rec_i, rec_f, k_begin, k_end, row0, col0);
+  keyed_leftovers<Mode>(
+      s, supers, (int)((long long)idx * num_supers / n_items),
+      (int)((long long)(idx + 1) * num_supers / n_items), blocks, ti, tf,
+      span_end, row0, col0);
+  __syncthreads();
+  if (n_items == 1) {
+    for (int p = threadIdx.x; p < TILE_PIX; p += THREADS)
+      Mode::store(s.key[p], row0 + p / TILE_W, col0 + p % TILE_W, ti, tf,
+                  color, depth, width);
+  } else {
+    for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
+      const unsigned long long k = s.key[p];
+      if (k != Mode::CLEAR)
+        atomicMin(plane + (size_t)(row0 + p / TILE_W) * width + col0 +
+                      p % TILE_W,
+                  k);
+    }
+  }
+}
+
+// The tiles of several items: their merged keys in the plane, resolved
+// (a pixel no item lowered holds all ones: the clear key).
+template <class Mode>
+__device__ __forceinline__ void keyed_resolve(
+    const int* __restrict__ offsets, int item_records,
+    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
+    const float* __restrict__ tf, int* __restrict__ color,
+    float* __restrict__ depth, int width) {
+  const int tile = blockIdx.x, tiles_x = width / TILE_W;
+  if (tile_items(offsets, tile, item_records) == 1) return;
+  const int row0 = (tile / tiles_x) * TILE_H;
+  const int col0 = (tile % tiles_x) * TILE_W;
+  for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
+    const int row = row0 + p / TILE_W, col = col0 + p % TILE_W;
+    Mode::store(min(plane[(size_t)row * width + col], Mode::CLEAR), row, col,
+                ti, tf, color, depth, width);
+  }
+}
+
+// K4: the keyed body over record spans, flat planes.
+__global__ void __launch_bounds__(THREADS) raster_records_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int item_records, unsigned long long* __restrict__ plane,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height) {
+  keyed_records<FlatKeys>(offsets, rec_i, rec_f, supers, num_supers, blocks,
+                          ti, tf, item_records, plane, color, depth, width,
+                          height);
+}
+
+__global__ void __launch_bounds__(THREADS) raster_records_resolve_kernel(
+    const int* __restrict__ offsets, int item_records,
+    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
+    const float* __restrict__ tf, int* __restrict__ color,
+    float* __restrict__ depth, int width) {
+  keyed_resolve<FlatKeys>(offsets, item_records, plane, ti, tf, color, depth,
+                          width);
+}
+
+// K4d: the keyed body, the depth plane alone.
+__global__ void __launch_bounds__(THREADS) depth_records_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int item_records, unsigned long long* __restrict__ plane,
+    float* __restrict__ depth, int width, int height) {
+  keyed_records<DepthKeys>(offsets, rec_i, rec_f, supers, num_supers, blocks,
+                           ti, tf, item_records, plane, nullptr, depth, width,
+                           height);
+}
+
+__global__ void __launch_bounds__(THREADS) depth_records_resolve_kernel(
+    const int* __restrict__ offsets, int item_records,
+    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
+    const float* __restrict__ tf, float* __restrict__ depth, int width) {
+  keyed_resolve<DepthKeys>(offsets, item_records, plane, ti, tf, nullptr,
+                           depth, width);
 }
 
 // K9: K4 over one band; list_base = 0 for band-local spans, else the
@@ -323,7 +819,7 @@ __global__ void __launch_bounds__(THREADS) raster_records_dist_kernel(
 
 }  // namespace zr
 
-// K4 (coffsets == nullptr) or K4c.
+// K4c.
 extern "C" int zr_raster_records(const int* offsets, const int* rec_i,
                                  const float* rec_f, const int* coffsets,
                                  const int* crec_i, const float* crec_f,
@@ -332,17 +828,54 @@ extern "C" int zr_raster_records(const int* offsets, const int* rec_i,
                                  const float* tf, int* color, float* depth,
                                  int height, int width, void* stream) {
   const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (coffsets == nullptr) {
-    zr::raster_records_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
-        offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, color,
-        depth, width);
-  } else {
-    zr::raster_records_coarse_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
-        offsets, rec_i, rec_f, coffsets, crec_i, crec_f, supers, num_supers,
-        blocks, ti, tf, color, depth, width);
-  }
+  zr::raster_records_coarse_kernel<<<num_tiles, zr::THREADS, 0,
+                                     (cudaStream_t)stream>>>(
+      offsets, rec_i, rec_f, coffsets, crec_i, crec_f, supers, num_supers,
+      blocks, ti, tf, color, depth, width);
   return (int)cudaGetLastError();
+}
+
+// K4 and K4d launch the keyed body: the key plane (height * width keys)
+// set to all ones, `items` blocks (tiles plus ceil(records /
+// item_records), a bound on the work items), then the resolve over the
+// tiles.
+template <class Items, class Resolve, class... Out>
+static int launch_keyed(Items items_kernel, Resolve resolve_kernel,
+                        const int* offsets, const int* rec_i,
+                        const float* rec_f, const int* supers, int num_supers,
+                        const int* blocks, const int* ti, const float* tf,
+                        int item_records, int items, unsigned long long* plane,
+                        int height, int width, void* stream, Out... out) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int smem = (int)sizeof(zr::KeyedSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      items_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(plane, 0xff,
+                          (size_t)height * width * sizeof(*plane), s);
+  if (err != cudaSuccess) return (int)err;
+  items_kernel<<<items, zr::THREADS, smem, s>>>(
+      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, item_records,
+      plane, out..., width, height);
+  resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+      offsets, item_records, plane, ti, tf, out..., width);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a K4/K4d work item, in bytes.
+extern "C" int zr_keyed_smem_bytes() { return (int)sizeof(zr::KeyedSmem); }
+
+// K4.
+extern "C" int zr_raster_records_keyed(
+    const int* offsets, const int* rec_i, const float* rec_f,
+    const int* supers, int num_supers, const int* blocks, const int* ti,
+    const float* tf, int item_records, int items, unsigned long long* plane,
+    int* color, float* depth, int height, int width, void* stream) {
+  return launch_keyed(zr::raster_records_kernel,
+                      zr::raster_records_resolve_kernel, offsets, rec_i,
+                      rec_f, supers, num_supers, blocks, ti, tf, item_records,
+                      items, plane, height, width, stream, color, depth);
 }
 
 // K6.
@@ -388,17 +921,15 @@ extern "C" int zr_gbuffer_lists(const int* offsets, const int* pair_tri,
 }
 
 // K4d.
-extern "C" int zr_depth_records(const int* offsets, const int* rec_i,
-                                const float* rec_f, const int* supers,
-                                int num_supers, const int* blocks,
-                                const int* ti, const float* tf, float* depth,
-                                int height, int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::depth_records_kernel<<<num_tiles, zr::THREADS, 0,
-                             (cudaStream_t)stream>>>(
-      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, depth,
-      width);
-  return (int)cudaGetLastError();
+extern "C" int zr_depth_records_keyed(
+    const int* offsets, const int* rec_i, const float* rec_f,
+    const int* supers, int num_supers, const int* blocks, const int* ti,
+    const float* tf, int item_records, int items, unsigned long long* plane,
+    float* depth, int height, int width, void* stream) {
+  return launch_keyed(zr::depth_records_kernel,
+                      zr::depth_records_resolve_kernel, offsets, rec_i, rec_f,
+                      supers, num_supers, blocks, ti, tf, item_records, items,
+                      plane, height, width, stream, depth);
 }
 
 // K6d.

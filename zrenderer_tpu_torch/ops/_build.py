@@ -129,6 +129,11 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_records.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p,
                                       i, i, p]
     lib.zr_raster_records.restype = i
+    lib.zr_raster_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
+                                            p, p, i, i, p]
+    lib.zr_raster_records_keyed.restype = i
+    lib.zr_keyed_smem_bytes.argtypes = []
+    lib.zr_keyed_smem_bytes.restype = i
     lib.zr_raster_lists.argtypes = [p, p, p, i, p, p, p, p, p, i, i, p]
     lib.zr_raster_lists.restype = i
     lib.zr_gbuffer_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
@@ -145,8 +150,9 @@ def load_library() -> ctypes.CDLL:
     lib.zr_depth_small.restype = i
     lib.zr_depth_hier.argtypes = [p, i, p, p, p, p, i, i, p]
     lib.zr_depth_hier.restype = i
-    lib.zr_depth_records.argtypes = [p, p, p, p, i, p, p, p, p, i, i, p]
-    lib.zr_depth_records.restype = i
+    lib.zr_depth_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
+                                           p, i, i, p]
+    lib.zr_depth_records_keyed.restype = i
     lib.zr_depth_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_depth_lists.restype = i
     lib.zr_raster_hier_band.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
