@@ -278,8 +278,11 @@ the (tile, triangle) pairs its frame needs, times 4096 pixels and
 OPS_PER_EVAL, at the CUDA-core rate; K4's and K4d's count each record's
 and leftover row's bbox pixels in each tile instead (in the padding rows'
 tiles the kernel's extent, ``window_evals``, the counter phase 6h uses
-too), with the whole-tile figure kept as bound_ms_tiles; phase 6 also
-times both against the work-item size.  K7's is the larger of its 11 planes,
+too), with the whole-tile figure kept as bound_ms_tiles, and the bytes
+their keyed body needs (``keyed_work``: each span record's ints and z
+coefficients, each leftover row's once, for K4 each distinct winning
+row's edge and colour coefficients, the output planes), with every input
+read once kept as bound_ms_inputs.  K7's is the larger of its 11 planes,
 mask, bounds, lights and 3 output planes moved once and its (pixel,
 listed light) evaluations, each tile's light count times its covered
 pixels (uncovered pixels cost nothing), times OPS_PER_LIGHT.  K8's is
@@ -427,6 +430,77 @@ def phase(name):
               flush=True)
         return out
     return run
+
+
+# Builders that chip_ab.py shares (module level, so that it can run them
+# against another checkout's package).
+
+
+def frame_rows(r):
+    """The setup rows of a flat renderer's current frame on its device."""
+    import torch
+
+    from zrenderer_tpu_torch.ops import geometry as tg
+
+    b = r._buffers()
+    mats = torch.from_numpy(r.camera_matrices()).to(r.device)
+    return tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"], mats,
+                                     r.config.width, r.config.height)
+
+
+def light_rows(r):
+    """The depth pass's setup rows of a shadowed renderer's current frame:
+    the geometry from the light's view into its map."""
+    import torch
+
+    from zrenderer_tpu_torch.ops import geometry as tg
+
+    b = r._buffers()
+    size = r.config.shadow_size
+    light = torch.from_numpy(r._lit_constants()["light_matrices"])
+    return tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
+                                     light.to(r.device), size, size)
+
+
+def config4(r, frames):
+    """BASELINE config 4 on one card, composed as benchmarks/config4.py
+    composes it: per frame the jittered column geometry, K4 over the
+    padded target (the large-scene default), the crop and
+    ``taa_resolve_packed`` into the history carried from the last frame,
+    seeded from a first frame; the digest sums each resolved frame's
+    centre pixel and depth.  Returns (digest, the history before the last
+    resolve, the last history, the last resolved packed frame, the last
+    packed frame)."""
+    import numpy as np
+    import torch
+
+    from zrenderer_tpu_torch.ops import geometry as tg
+    from zrenderer_tpu_torch.ops import raster, taa
+
+    dev = r.device
+    b = r._buffers()
+    jitters = taa.jitter_sequence(8)
+    mats = torch.from_numpy(np.stack([
+        r.camera_matrices(jitter=jitters[k % 8]) for k in range(frames)
+    ])).to(dev)
+
+    def frame(m):
+        ti, tf = tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
+                                           m, WIDTH, HEIGHT)
+        color, depth = raster.rasterize_setup_binned_hbm(ti, tf, PAD_W,
+                                                         PAD_H)
+        return color[:HEIGHT, :WIDTH], depth
+
+    hist = taa.taa_init_history_packed(frame(mats[0])[0])
+    acc = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(frames):
+        packed, depth = frame(mats[i])
+        prev = hist
+        hist, resolved = taa.taa_resolve_packed(hist, packed)
+        centre = (resolved[HEIGHT // 2, WIDTH // 2].to(torch.int64)
+                  & 0xFFFFFFFF).to(torch.float32)
+        acc = acc + (centre + depth[HEIGHT // 2, WIDTH // 2])
+    return acc, prev, hist, resolved, packed
 
 
 def main(argv=None) -> int:
@@ -713,27 +787,35 @@ def main(argv=None) -> int:
 
     def set_bound(key, inputs, pairs, w, h, shape, planes=2,
                   tile_px=raster.TILE_H * raster.TILE_W,
-                  ops_per_px=OPS_PER_EVAL, evals=None):
+                  ops_per_px=OPS_PER_EVAL, evals=None, nbytes=None):
         """The least time the card could take: inputs read once and the
-        ``planes`` output planes written once at HBM_BYTES_PER_S, or
-        ``pairs`` tile evaluations of ``tile_px`` pixels each (or, given,
-        ``evals`` pixel evaluations, the whole-tile figure kept as
-        bound_ms_tiles), at ``ops_per_px`` ops a pixel, at
-        CUDA_CORE_OPS_PER_S, whichever is larger."""
-        nbytes = (sum(t.numel() * t.element_size() for t in inputs)
-                  + planes * 4 * w * h)
+        ``planes`` output planes written once at HBM_BYTES_PER_S (or,
+        given, the ``nbytes`` the kernel needs, that figure kept as
+        bound_ms_inputs), or ``pairs`` tile evaluations of ``tile_px``
+        pixels each (or, given, ``evals`` pixel evaluations, the
+        whole-tile figure kept as bound_ms_tiles), at ``ops_per_px`` ops a
+        pixel, at CUDA_CORE_OPS_PER_S, whichever is larger."""
+        all_bytes = (sum(t.numel() * t.element_size() for t in inputs)
+                     + planes * 4 * w * h)
         ops = (pairs * tile_px if evals is None else evals) * ops_per_px
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_all = all_bytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = t_all if nbytes is None else nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
         res = results[key]
         res.update(bound_ms=max(t_bytes, t_ops), pairs=pairs, shape=shape,
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         if evals is not None:
             t_tiles = pairs * tile_px * ops_per_px / CUDA_CORE_OPS_PER_S * 1e3
-            res.update(evals=evals, bound_ms_tiles=max(t_bytes, t_tiles))
+            res.update(evals=evals, bound_ms_tiles=max(t_all, t_tiles))
             print(f"  bound {key} at {shape}: {evals} window pixel "
                   f"evaluations; whole tiles {pairs * tile_px}, "
                   f"{res['bound_ms_tiles']:.4f} ms")
+        if nbytes is not None:
+            res.update(bytes=nbytes, bound_ms_inputs=max(t_all, t_ops))
+            print(f"  bound {key} at {shape}: {nbytes} bytes needed; every "
+                  f"input once {all_bytes} bytes, "
+                  f"{res['bound_ms_inputs']:.4f} ms")
+        nbytes = all_bytes if nbytes is None else nbytes
         print(f"  bound {key} at {shape}: {pairs} pairs, {ops:.4e} ops -> "
               f"{t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms; bound "
               f"{res['bound_ms']:.4f} ms by {res['bound_by']}")
@@ -763,12 +845,13 @@ def main(argv=None) -> int:
                             else in_tile(padded), n)
         return int(n.sum().item())
 
-    def keyed_evals(prep, w, h, visible):
-        """K4's and K4d's evaluations on a record prepare: every span
-        record and every leftover (tile, row) pair of the walk, at its
-        bbox's pixels in the tile, or in the padding rows' tiles at the
-        keyed body's extent (``raster.vertex_bbox``)."""
-        offsets, rec_i, _, supers, blocks, hier = prep[:6]
+    def keyed_pairs(prep, w, h):
+        """The (tile, row) pairs K4's and K4d's keyed body evaluates on a
+        record prepare: every span record, then every leftover (tile, row)
+        pair of the walk.  Returns their setup rows (P, NI32), z
+        coefficients (P, 3), row ids, tile rows and tile columns (P,), the
+        number of span records and the leftover pairs' rows."""
+        offsets, rec_i, rec_f, supers, blocks, hier, tf = prep[:7]
         # Records before offsets[0] sort below tile 0 (off-screen rows'
         # keys) and belong to no span.
         first, end = int(offsets[0].item()), int(offsets[-1].item())
@@ -777,13 +860,93 @@ def main(argv=None) -> int:
             torch.arange(span.numel(), device=span.device), span)
         tiles_x = w // raster.TILE_W
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
-        recs = rec_i[first:end, :tg.NI32].long()
-        evals = window_evals(recs[:, box], tile // tiles_x, tile % tiles_x,
-                             visible, raster.vertex_bbox(recs))
-        rec, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w, h)
-        rows = hier[rec].long()
-        return evals + window_evals(rows[:, box], ty, tx, visible,
-                                    raster.vertex_bbox(rows))
+        rows, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w, h)
+        za = slice(tg.F_ZA0, tg.F_ZA0 + 3)
+        return (torch.cat([rec_i[first:end, :tg.NI32], hier[rows]]),
+                torch.cat([rec_f[first:end, za], tf[rows, za]]),
+                torch.cat([rec_i[first:end, tg.NI32].long(), rows]),
+                torch.cat([tile // tiles_x, ty]),
+                torch.cat([tile % tiles_x, tx]), end - first, rows)
+
+    # Evaluations a chunk of k4_winners' scatter (a few hundred MB).
+    WINNER_CHUNK = 1 << 22
+
+    def k4_winners(pairs, w, h, depth):
+        """The distinct rows that win a pixel of K4's frame, whose edge and
+        colour coefficients its resolve reads: each pair of ``keyed_pairs``
+        at its window's pixels (raster.vertex_bbox in the tile) under the
+        kernels' edge functions and z, reduced per pixel to the least
+        (z order bits, row id) key.  Raises unless the keys' z is K4's
+        ``depth`` plane, up to the sign of a zero."""
+        ri, za, ids, ty, tx = pairs[:5]
+        jmin, jmax, imin, imax = raster.vertex_bbox(ri.long()).unbind(1)
+        r0, c0 = ty * raster.TILE_H, tx * raster.TILE_W
+        r_lo, c_lo = torch.maximum(imin, r0), torch.maximum(jmin, c0)
+        wide = (torch.minimum(jmax, c0 + raster.TILE_W - 1) - c_lo
+                + 1).clamp(min=0)
+        area = wide * (torch.minimum(imax, r0 + raster.TILE_H - 1) - r_lo
+                       + 1).clamp(min=0)
+        ends = torch.cumsum(area, 0)
+        keys = torch.full((h * w,), hbm2.KEY_CLEAR, dtype=torch.int64,
+                          device=ri.device)
+        p0, n = 0, area.numel()
+        while p0 < n:
+            base = int(ends[p0 - 1].item()) if p0 else 0
+            p1 = min(n, max(p0 + 1, int(torch.searchsorted(
+                ends, base + WINNER_CHUNK, right=True).item())))
+            pair = p0 + torch.repeat_interleave(
+                torch.arange(p1 - p0, device=ri.device), area[p0:p1])
+            q = (torch.arange(pair.numel(), device=ri.device)
+                 - (ends[pair] - area[pair] - base))
+            row = r_lo[pair] + q // wide[pair]
+            col = c_lo[pair] + q % wide[pair]
+            r = ri[pair]
+            e = hbm2.edge_windows(r, row, col)[0]
+            ok = (e >= r[:, tg.I_BIAS0:tg.I_BIAS0 + 3]).all(1)
+            ef, zc = e.to(torch.float32), za[pair]
+            z = ((ef[:, 0] * zc[:, 0] + ef[:, 1] * zc[:, 1])
+                 + ef[:, 2] * zc[:, 2])
+            ok &= z >= 0.0
+            key = (((z.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) << 32)
+                   | ids[pair])
+            keys.scatter_reduce_(0, row * w + col,
+                                 torch.where(ok, key, hbm2.KEY_CLEAR),
+                                 reduce="amin")
+            p0 = p1
+        won = keys != hbm2.KEY_CLEAR
+        zbits = torch.where(won, (keys >> 32).to(torch.int32),
+                            0x3F800000)
+        if not torch.equal(zbits, depth.reshape(-1).abs().view(torch.int32)):
+            raise AssertionError("K4's keys do not give its depth plane")
+        return int(torch.unique(keys[won] & 0xFFFFFFFF).numel())
+
+    # Bytes of a winning row that K4's resolve reads: 12 edge ints and the
+    # z, 1/w and colour coefficients (15 floats).
+    WINNER_BYTES = 12 * 4 + 15 * 4
+
+    def keyed_work(prep, w, h, visible, planes, depth=None):
+        """K4's (given its ``depth`` plane) or K4d's work on a record
+        prepare: (window pixel evaluations, bytes needed).  The
+        evaluations: each pair of ``keyed_pairs`` at its bbox's pixels in
+        the tile, or in the padding rows' tiles at the keyed body's extent
+        (raster.vertex_bbox).  The bytes: each span record's ints and 3 z
+        floats, each leftover row's NI32 ints and 3 z floats once, each
+        distinct winner's WINNER_BYTES (K4; K4d reads z from its key) and
+        the ``planes`` output planes."""
+        pairs = keyed_pairs(prep, w, h)
+        ri, ty, tx = pairs[0].long(), pairs[3], pairs[4]
+        box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
+        evals = window_evals(ri[:, box], ty, tx, visible,
+                             raster.vertex_bbox(ri))
+        winners = 0 if depth is None else k4_winners(pairs, w, h, depth)
+        nbytes = (pairs[5] * (prep[1].shape[1] * 4 + 12)
+                  + torch.unique(pairs[6]).numel() * (tg.NI32 * 4 + 12)
+                  + winners * WINNER_BYTES + planes * 4 * w * h)
+        print(f"  keyed work at {w}x{h}: {pairs[5]} span records, "
+              f"{pairs[6].numel()} leftover pairs of "
+              f"{torch.unique(pairs[6]).numel()} rows, {winners} winning "
+              f"rows; {evals} window pixel evaluations, {nbytes} bytes")
+        return evals, nbytes
 
     def flat_inputs(prepared):
         """The tensors a kernel reads of a prepared tuple: the coarse
@@ -933,8 +1096,15 @@ def main(argv=None) -> int:
     KEYED_SMALL_ITEMS = 16
 
     def with_items(kern, item_records):
+        """``kern`` run with raster.ITEM_RECORDS set to ``item_records``
+        for the call (the wrappers read it at call time)."""
         def run(*args):
-            return kern(*args, item_records=item_records)
+            saved = raster.ITEM_RECORDS
+            raster.ITEM_RECORDS = item_records
+            try:
+                return kern(*args)
+            finally:
+                raster.ITEM_RECORDS = saved
         return run
 
     def keyed_cases(key):
@@ -1174,15 +1344,6 @@ def main(argv=None) -> int:
         r.load_scene(*scene_md)
         r.set_environment()  # BASELINE config 2: white, default light
         return r
-
-    def light_rows(r):
-        """The depth pass's setup rows of a shadowed renderer's current
-        frame: the geometry from the light's view into its map."""
-        b = r._buffers()
-        size = r.config.shadow_size
-        light = torch.from_numpy(r._lit_constants()["light_matrices"])
-        return tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
-                                         light.to(r.device), size, size)
 
     def edge_soup():
         """A wide soup whose rows, seen into a square map, include bboxes
@@ -1707,10 +1868,7 @@ def main(argv=None) -> int:
         wall = (time.perf_counter() - t0) * 1000.0
         launched = {k: kern.launches for k, kern in kernel_of.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
-        b = r._buffers()
-        mats = torch.from_numpy(r.camera_matrices()).to(dev)
-        ti, tf = tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
-                                           mats, WIDTH, HEIGHT)
+        ti, tf = frame_rows(r)
         cov = (img[..., :3].sum(-1) > 0).mean()
         print(f"  {label} {WIDTH}x{HEIGHT} binning={binning}: {ti.shape[0]} "
               f"rows, {tile_pairs(ti, PAD_W, PAD_H)} (tile, triangle) pairs,"
@@ -2160,39 +2318,6 @@ def main(argv=None) -> int:
     r_def, r_def_r2, r_def_bf16 = deferred or (None,) * 3
 
     # -- 5t. TAA ------------------------------------------------------------
-    def config4(r, frames):
-        """BASELINE config 4 on one card, composed as benchmarks/config4.py
-        composes it: per frame the jittered column geometry, K4 over the
-        padded target (the large-scene default), the crop and
-        ``taa_resolve_packed`` into the history carried from the last
-        frame, seeded from a first frame; the digest sums each resolved
-        frame's centre pixel and depth.  Returns (digest, the history
-        before the last resolve, the last history, the last resolved
-        packed frame, the last packed frame)."""
-        b = r._buffers()
-        jitters = taa.jitter_sequence(8)
-        mats = torch.from_numpy(np.stack([
-            r.camera_matrices(jitter=jitters[k % 8]) for k in range(frames)
-        ])).to(dev)
-
-        def frame(m):
-            ti, tf = tg.geometry_pipeline_cols(b["corner_cols"],
-                                               b["tri_node"], m, WIDTH, HEIGHT)
-            color, depth = raster.rasterize_setup_binned_hbm(ti, tf, PAD_W,
-                                                             PAD_H)
-            return color[:HEIGHT, :WIDTH], depth
-
-        hist = taa.taa_init_history_packed(frame(mats[0])[0])
-        acc = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(frames):
-            packed, depth = frame(mats[i])
-            prev = hist
-            hist, resolved = taa.taa_resolve_packed(hist, packed)
-            centre = (resolved[HEIGHT // 2, WIDTH // 2].to(torch.int64)
-                      & 0xFFFFFFFF).to(torch.float32)
-            acc = acc + (centre + depth[HEIGHT // 2, WIDTH // 2])
-        return acc, prev, hist, resolved, packed
-
     @phase("5t TAA")
     def taa_checks():
         b = r_scene._buffers()
@@ -2426,21 +2551,20 @@ def main(argv=None) -> int:
 
     def call_durations(key, events):
         """Device us of each call of kernel ``key`` in a trace's events:
-        its kernel's duration, and for K4/K4d the memset just before the
-        item kernel and the next resolve kernel added."""
+        its kernel's duration, and for K4/K4d the sum of a call's three
+        device operations, the memset just before the item kernel, the
+        item kernel and the resolve kernel just after it.  A K4/K4d call
+        without all three counts as no call, so the trace reads short."""
         name = kernel_names[key]
         if key not in resolve_names:
             return [d for n, _, d in events if name in n]
         ev = sorted(events, key=lambda e: e[1])
         out = []
         for i, (n, _, d) in enumerate(ev):
-            if name not in n:
-                continue
-            memset = ev[i - 1][2] if i and "Memset" in ev[i - 1][0] else 0.0
-            resolve = next((r for m, _, r in ev[i + 1:]
-                            if resolve_names[key] in m), None)
-            if resolve is not None:
-                out.append(memset + d + resolve)
+            if (name in n and 0 < i < len(ev) - 1
+                    and "Memset" in ev[i - 1][0]
+                    and resolve_names[key] in ev[i + 1][0]):
+                out.append(ev[i - 1][2] + d + ev[i + 1][2])
         return out
 
     def traced_kernel_ms(keys, fn, attempts=3):
@@ -3605,6 +3729,9 @@ def main(argv=None) -> int:
                 names = sorted({n.split("(")[0] for n, _, _ in events})
                 print(f"  {key}: {len(events)} device ops for {reps} calls "
                       f"in its trace: {names}")
+                if len(events) != 3 * reps:
+                    raise AssertionError(f"{key}: {len(events)} device ops "
+                                         f"for {reps} calls, not 3 a call")
         # K4 on soup1M through `auto`: large triangles, and the rows past
         # the record budget in the leftover walk.
         prep_soup = raster.prepare_binned_hbm_inputs(*rows_soup, PAD_W,
@@ -3836,24 +3963,14 @@ def main(argv=None) -> int:
                   f"ops/call, device busy {busy_us(ev) / 1000.0:.4f} "
                   f"ms/call (profiler)")
 
-        # K4 and K4d against the work-item size (CUDA events, one card).
-        for key, prep_k in (("k4", cases["k4"][0]), ("k4d", cases["k4d"][0]),
-                            ("k4 soup1M", prep_soup)):
-            kern = kernel_of[key.split()[0]]
-            w, h = size_of.get(key, (PAD_W, PAD_H))
-            sweep = {item: event_ms(lambda: with_items(kern, item)(
-                *prep_k, w, h), 5) for item in (256, 512, 1024, 2048, 4096)}
-            results[key.split()[0]][
-                "item_sweep_soup1m" if "soup" in key else "item_sweep"] = sweep
-            print(f"  {key}: ms/call by work-item size (CUDA events) "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()))
-        soup_evals = keyed_evals(prep_soup, PAD_W, PAD_H, HEIGHT)
+        # K4 on soup1M: its bound by window pixels and needed bytes.
+        soup_evals, soup_bytes = keyed_work(
+            prep_soup, PAD_W, PAD_H, HEIGHT, 2,
+            k4(*prep_soup, PAD_W, PAD_H)[1])
         results["k4"].update(
-            evals_soup1m=soup_evals,
+            evals_soup1m=soup_evals, bytes_soup1m=soup_bytes,
             bound_ms_soup1m=max(
-                sum(t.numel() * t.element_size()
-                    for t in flat_inputs(prep_soup)) / HBM_BYTES_PER_S * 1e3
-                + 2 * 4 * PAD_W * PAD_H / HBM_BYTES_PER_S * 1e3,
+                soup_bytes / HBM_BYTES_PER_S * 1e3,
                 soup_evals * OPS_PER_EVAL / CUDA_CORE_OPS_PER_S * 1e3),
             wrapper_ms_soup1m=event_ms(lambda: k4(*prep_soup, PAD_W, PAD_H),
                                        3))
@@ -3861,7 +3978,8 @@ def main(argv=None) -> int:
               f"{results['k4']['ms_soup1m']:.4f} ms a call (profiler: memset,"
               f" item and resolve kernels), launcher "
               f"{results['k4']['wrapper_ms_soup1m']:.4f} ms/call (CUDA "
-              f"events); {soup_evals} window pixel evaluations; bound "
+              f"events); {soup_evals} window pixel evaluations, "
+              f"{soup_bytes} bytes; bound "
               f"{results['k4']['bound_ms_soup1m']:.4f} ms")
         rows_of = {"k4": rows_lattice, "k5": rows_lattice,
                    "k4_coarse": rows_soup, "k6": rows_k6,
@@ -3881,10 +3999,13 @@ def main(argv=None) -> int:
                 pairs = tile_pairs(rows_of[key][0], w, h)
             planes = (raster.GBUFFER_PLANES if key.endswith("g")
                       else 1 if key.endswith("d") else 2)
-            evals = (keyed_evals(prep_k, w, h, HEIGHT if h == PAD_H else h)
-                     if key in ("k4", "k4d") else None)
+            evals = nbytes = None
+            if key in ("k4", "k4d"):
+                evals, nbytes = keyed_work(
+                    prep_k, w, h, HEIGHT if h == PAD_H else h, planes,
+                    kern(*prep_k, w, h)[1] if key == "k4" else None)
             set_bound(key, flat_inputs(prep_k), pairs, w, h, shape,
-                      planes=planes, evals=evals)
+                      planes=planes, evals=evals, nbytes=nbytes)
             print(f"  {key} {shape} {w}x{h}: kernel {res['ms']:.4f} "
                   f"ms device time (profiler; {res['anim_ms']:.4f} ms a "
                   f"launch in the profiled render_animation), launcher "
@@ -4615,8 +4736,8 @@ def main(argv=None) -> int:
                    "short_pass_ms", "tall_pass_ms", "k5_ms",
                    "k5_uncompacted_ms", "bound_ms_tiles", "smem_bytes",
                    "device_ops_per_call", "ms_soup1m", "evals_soup1m",
-                   "bound_ms_soup1m", "wrapper_ms_soup1m", "item_sweep",
-                   "item_sweep_soup1m")}})
+                   "bound_ms_soup1m", "wrapper_ms_soup1m", "bytes",
+                   "bound_ms_inputs", "bytes_soup1m")}})
     if PHASE_PREFIXES is None:
         missing = [(k["name"], f) for k in kernels for f in measured
                    if k[f] is None]

@@ -1,6 +1,7 @@
 """The keyed K4/K4d body's rules (zrenderer_tpu_torch/csrc/raster_binned.cu
-``keyed_records``), through their mirrors in zrenderer_tpu_torch/ops/raster.py,
-on setup rows from the JAX package's NumPy geometry:
+``keyed_records``), through their mirrors below and the window and work-item
+helpers of zrenderer_tpu_torch/ops/raster.py, on setup rows from the JAX
+package's NumPy geometry:
 
 * (a) keys: the minimum of K4's (z order bits, row id) keys is the (z, row
   id) tie-break, and of K4d's (z order bits, visit index, sign) keys the
@@ -28,6 +29,7 @@ from zrenderer_tpu.ops import geometry as g
 from zrenderer_tpu.scene.procedural import make_stress_scene
 from zrenderer_tpu.scene.procedural import make_triangle_soup as make_jax_soup
 from zrenderer_tpu_torch.engine.upload import flatten_scene
+from zrenderer_tpu_torch.ops import geometry as tg
 from zrenderer_tpu_torch.ops import raster as tr
 
 F32_SPECIALS = np.array(
@@ -44,6 +46,149 @@ def _rows(scene, md, w, h, tri_align=64):
     ti, tf = g.geometry_pipeline_cols(np, *flat.expand_corner_cols(), mats,
                                       w, h)
     return torch.from_numpy(ti), torch.from_numpy(tf)
+
+
+# Mirrors of the keyed body: its per-pixel keys, each record's window, and
+# a plain evaluation cut into its work items.
+
+# Clear keys: K4's (1.0, INT32_MAX) lets a row at z == 1.0 latch; K4d's
+# (1.0, visit 0, +) is below every row at z == 1.0.
+FLAT_CLEAR_KEY = (0x3F800000 << 32) | tr._INT_MAX
+DEPTH_CLEAR_KEY = 0x3F800000 << 32
+
+
+def _z_bits(z):
+    """f32 z -> its bits as int64 (0 .. 2**32 - 1)."""
+    return z.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def flat_keys(z, ids):
+    """K4's keys of z (f32, z >= 0) and row ids: the order bits of z (the
+    sign cleared: -0.0 ties +0.0) over the id."""
+    return ((_z_bits(z) & 0x7FFFFFFF) << 32) | ids.to(torch.int64)
+
+
+def depth_keys(z, visits):
+    """K4d's keys of z (f32, z >= 0) and visit indices: the order bits of
+    z over the visit index over the sign of z."""
+    bits = _z_bits(z)
+    return (((bits & 0x7FFFFFFF) << 32) | (visits.to(torch.int64) << 1)
+            | (bits >> 31))
+
+
+def depth_key_z(keys):
+    """The z plane of K4d's keys: the winner's z bits, 1.0 where clear."""
+    bits = ((keys >> 32) | ((keys & 1) << 31)).to(torch.int64)
+    z = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+    return torch.where(keys == DEPTH_CLEAR_KEY, 1.0, z.view(torch.float32))
+
+
+def record_windows(ri, row0, col0):
+    """The keyed body's window of setup rows ``ri`` in the tile at (row0,
+    col0): ``tr.vertex_bbox`` clipped to the tile.  Returns (r_lo, r_hi,
+    c_lo, c_hi); empty where lo > hi."""
+    jmin, jmax, imin, imax = tr.vertex_bbox(ri).unbind(-1)
+    return (torch.maximum(imin, row0),
+            torch.minimum(imax, row0 + tr.TILE_H - 1),
+            torch.maximum(jmin, col0),
+            torch.minimum(jmax, col0 + tr.TILE_W - 1))
+
+
+def _window_pixels(ri, row0, col0):
+    """Every pixel of each row's window: (pair, global row, global col),
+    pairs indexing ``ri``'s rows."""
+    r_lo, r_hi, c_lo, c_hi = record_windows(ri, row0, col0)
+    h = torch.clamp_min(r_hi - r_lo + 1, 0)
+    w = torch.clamp_min(c_hi - c_lo + 1, 0)
+    area = torch.where(w > 0, h * w, 0)
+    pair = torch.repeat_interleave(torch.arange(area.numel()), area)
+    q = torch.arange(pair.numel()) - (torch.cumsum(area, 0) - area)[pair]
+    return (pair, r_lo[pair] + q // w[pair], c_lo[pair] + q % w[pair])
+
+
+def _cover_z(ri, rf, row, col):
+    """Setup rows (P, NI32)/(P, NF32) at pixels (row, col) (P,), with the
+    kernels' int32 edge functions and interp3: (coverage, the
+    interpolation of float column c as a function of c, z)."""
+    py = (row * tg.SUBPIXEL + tg.SUBPIXEL // 2).to(torch.int32)
+    px = (col * tg.SUBPIXEL + tg.SUBPIXEL // 2).to(torch.int32)
+    e = [ri[:, dx] * (py - ri[:, y]) - ri[:, dy] * (px - ri[:, x])
+         for dx, dy, x, y in ((tg.I_DX0, tg.I_DY0, tg.I_X1, tg.I_Y1),
+                              (tg.I_DX1, tg.I_DY1, tg.I_X2, tg.I_Y2),
+                              (tg.I_DX2, tg.I_DY2, tg.I_X0, tg.I_Y0))]
+    cov = ((e[0] >= ri[:, tg.I_BIAS0]) & (e[1] >= ri[:, tg.I_BIAS1])
+           & (e[2] >= ri[:, tg.I_BIAS2]))
+    ef = [x.to(torch.float32) for x in e]
+
+    def interp(c):
+        return (ef[0] * rf[:, c] + ef[1] * rf[:, c + 1]) + ef[2] * rf[:, c + 2]
+
+    return cov, interp, interp(tg.F_ZA0)
+
+
+def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                       width: int, height: int, depth: bool,
+                       item_records: int):
+    """K4 (or with ``depth`` K4d) as the keyed body computes it: each work
+    item's keys over its records' and leftover rows' windows (a scatter
+    min), the items' keys merged by their minimum, then the resolve from
+    the winner."""
+    del blocks  # a row that meets a tile is in its block's union
+    th, tw = tr.TILE_H, tr.TILE_W
+    tiles_x = width // tw
+    num_tiles = tiles_x * (height // th)
+    items = tr.keyed_work_items(offsets, item_records, supers.shape[0])
+    per_super = tg.RASTER_BLOCK * tg.SUPER_BLOCK
+    box = hier[:, [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]]
+    hits = tr._tile_hits(box, height // th, tiles_x)  # (tiles, rows)
+    src_i, src_f, tags, owner = [], [], [], []
+    span_end = offsets[1:].long()
+    for it, (t, _, _, k0, k1, s0, s1) in enumerate(items.tolist()):
+        k = torch.arange(k0, k1)
+        rows = torch.nonzero(hits[t]).flatten()
+        rows = rows[(rows >= s0 * per_super) & (rows < s1 * per_super)]
+        src_i += [rec_i[k, :tg.NI32], hier[rows]]
+        src_f += [rec_f[k], tf[rows]]
+        if depth:
+            tags += [k, span_end[t] + rows]
+        else:
+            tags += [rec_i[k, tg.NI32].long(), rows]
+        owner.append(torch.full((k.numel() + rows.numel(),), it))
+    ri, rf = torch.cat(src_i), torch.cat(src_f)
+    tag, owner = torch.cat(tags), torch.cat(owner)
+    tile = items[owner, 0]
+    row0, col0 = (tile // tiles_x) * th, (tile % tiles_x) * tw
+    pair, row, col = _window_pixels(ri.long(), row0, col0)
+    cov, _, z = _cover_z(ri[pair], rf[pair], row, col)
+    ok = cov & (z >= 0.0)
+    key = (depth_keys if depth else flat_keys)(z[ok], tag[pair][ok])
+    clear = DEPTH_CLEAR_KEY if depth else FLAT_CLEAR_KEY
+    slot = (owner[pair][ok] * (th * tw)
+            + (row[ok] - row0[pair][ok]) * tw + col[ok] - col0[pair][ok])
+    planes = torch.full((items.shape[0] * th * tw,), clear,
+                        dtype=torch.int64)
+    planes.scatter_reduce_(0, slot, key, "amin")
+    # The items' minimum per tile, laid out as the (H, W) frame.
+    merged = torch.full((num_tiles, th * tw), clear, dtype=torch.int64)
+    merged.scatter_reduce_(0, items[:, :1].expand(-1, th * tw),
+                           planes.reshape(-1, th * tw), "amin")
+    keys = tr._frame(merged.reshape(height // th, tiles_x, th, tw))
+    if depth:
+        return depth_key_z(keys)
+    won = keys != FLAT_CLEAR_KEY
+    ids = (keys & 0xFFFFFFFF)[won]
+    row, col = torch.nonzero(won, as_tuple=True)
+    _, interp, zw = _cover_z(hier[ids], tf[ids], row, col)
+    out = {name: torch.zeros((height, width), dtype=torch.float32)
+           for name, _ in tr._LATCHES}
+    out["z"] = torch.ones((height, width), dtype=torch.float32)
+    out["z"][won] = zw
+    for name, c in tr._LATCHES:
+        out[name][won] = interp(c)
+    planes = {name: p.reshape(height // th, th, tiles_x,
+                              tw).permute(0, 2, 1, 3)
+              for name, p in out.items()}
+    return tr._resolve_planes(planes)
 
 
 # (name, rows at the geometry's size, the raster target (w, h))
@@ -104,17 +249,17 @@ def test_key_minimum_is_the_sequential_test(seed):
             z[rng.integers(n)] = z[rng.integers(n)]
         ok = z >= 0
         zt = torch.from_numpy(z)
-        flat = tr.flat_keys(zt, torch.from_numpy(ids))[torch.from_numpy(ok)]
-        k = min([tr.FLAT_CLEAR_KEY] + flat.tolist())
+        flat = flat_keys(zt, torch.from_numpy(ids))[torch.from_numpy(ok)]
+        k = min([FLAT_CLEAR_KEY] + flat.tolist())
         zbits, tb = _sequential_flat(z, ids)
         assert (k >> 32, k & 0xFFFFFFFF) == (zbits & 0x7FFFFFFF, tb)
         # K4 re-evaluates the winner's z, so its sign is the winner's.
         if tb != tr._INT_MAX:
             assert z[list(ids).index(tb)].view(np.uint32) == zbits
         visits = torch.arange(n)
-        deep = tr.depth_keys(zt, visits)[torch.from_numpy(ok)]
-        kd = torch.tensor(min([tr.DEPTH_CLEAR_KEY] + deep.tolist()))
-        assert (tr.depth_key_z(kd).numpy().view(np.uint32)
+        deep = depth_keys(zt, visits)[torch.from_numpy(ok)]
+        kd = torch.tensor(min([DEPTH_CLEAR_KEY] + deep.tolist()))
+        assert (depth_key_z(kd).numpy().view(np.uint32)
                 == _sequential_depth(z))
 
 
@@ -122,14 +267,14 @@ def test_key_clear_values():
     """A row at exactly z == 1.0 latches in K4 (the register body's tie
     with the clear id) and never in K4d; -0.0 ties +0.0 by id or visit."""
     one = torch.tensor([1.0])
-    assert tr.flat_keys(one, torch.tensor([7]))[0] < tr.FLAT_CLEAR_KEY
-    assert tr.depth_keys(one, torch.tensor([0]))[0] >= tr.DEPTH_CLEAR_KEY
+    assert flat_keys(one, torch.tensor([7]))[0] < FLAT_CLEAR_KEY
+    assert depth_keys(one, torch.tensor([0]))[0] >= DEPTH_CLEAR_KEY
     zeros = torch.tensor([-0.0, 0.0])
-    fk = tr.flat_keys(zeros, torch.tensor([5, 3]))
+    fk = flat_keys(zeros, torch.tensor([5, 3]))
     assert fk[1] < fk[0]
-    dk = tr.depth_keys(zeros, torch.tensor([0, 1]))
+    dk = depth_keys(zeros, torch.tensor([0, 1]))
     assert dk[0] < dk[1]
-    assert tr.depth_key_z(dk[:1]).view(torch.int32).item() == -(1 << 31)
+    assert depth_key_z(dk[:1]).view(torch.int32).item() == -(1 << 31)
 
 
 def _visited_pairs(prep, w, h):
@@ -154,7 +299,7 @@ def test_windows_hold_every_covered_pixel(name):
     tiles_x = w // tr.TILE_W
     row0 = (tile // tiles_x) * tr.TILE_H
     col0 = (tile % tiles_x) * tr.TILE_W
-    r_lo, r_hi, c_lo, c_hi = tr.record_windows(ri, row0, col0)
+    r_lo, r_hi, c_lo, c_hi = record_windows(ri, row0, col0)
     iy = torch.arange(tr.TILE_H)[:, None]
     ix = torch.arange(tr.TILE_W)[None, :]
     covered = outside = 0
@@ -211,8 +356,8 @@ def test_items_merged_equal_the_plain_versions(name):
     prep = tr.prepare_binned_hbm_inputs(ti, tf, w, h, **kw)
     color, depth = tr.raster_binned_plain(*prep, w, h)
     z = tr.depth_binned_plain(*prep, w, h)
-    kc, kd = tr.keyed_binned_plain(*prep[:7], w, h, False, item)
-    kz = tr.keyed_binned_plain(*prep[:7], w, h, True, item)
+    kc, kd = keyed_binned_plain(*prep[:7], w, h, False, item)
+    kz = keyed_binned_plain(*prep[:7], w, h, True, item)
     np.testing.assert_array_equal(kc.numpy(), color.numpy())
     _bits(kd.numpy(), depth.numpy())
     _bits(kz.numpy(), z.numpy())

@@ -317,10 +317,9 @@ def test_port_never_imports_jax():
     assert "no-jax-ok" in out.stdout
 
 
-def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py runs on a machine without jax: none of its imports
-    names jax or the JAX package."""
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+def _imported_names(filename):
+    """Every module a root script's import statements name."""
+    with open(os.path.join(ROOT, filename)) as f:
         tree = ast.parse(f.read())
     names = []
     for node in ast.walk(tree):
@@ -328,5 +327,20 @@ def test_chip_smoke_imports_only_the_port():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
+    return names
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py runs on a machine without jax: none of its imports
+    names jax or the JAX package."""
+    names = _imported_names("chip_smoke.py")
     assert "zrenderer_tpu_torch.engine.renderer" in names
+    assert not [n for n in names if _reference_module(n)], names
+
+
+def test_chip_ab_imports_only_the_port():
+    """chip_ab.py runs beside chip_smoke.py on the card's machine: none of
+    its imports names jax or the JAX package."""
+    names = _imported_names("chip_ab.py")
+    assert "chip_smoke" in names
     assert not [n for n in names if _reference_module(n)], names

@@ -24,8 +24,7 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   On the card K4 (and K4d) run the keyed body: per-pixel (z, id) keys in
   shared memory, each record over its window (its vertices' pixel bbox in
   the tile), a tile's span cut into work items of ITEM_RECORDS
-  (``keyed_binned_plain`` and the rules beside it mirror it for the
-  tests).  K4c adds the coarse class: rows too big for the fine lists
+  records.  K4c adds the coarse class: rows too big for the fine lists
   listed per 4x4-tile bin, tested against the tile's bbox.
 * K6, the global pair-list raster (``rasterize_setup_pallas_binned``):
   ``prepare_binned_inputs`` sorts the same pairs but keeps row ids; the
@@ -138,9 +137,10 @@ BIN_PAIR_BUDGET = 1 << 20
 # demoted to the leftover hierarchy by an exact prefix clamp.
 HBM_PAIR_BUDGET = 1 << 20
 # K4/K4d: a tile's record span is cut into work items of at most this many
-# records, one CUDA block each (csrc/raster_binned.cu, the keyed body).  At
-# 1M triangles on the H100, 256 ran K4 in 0.64 ms against 0.75 for 1024
-# and K4d in 0.40 against 0.42 (PERF.md §6).
+# records, one CUDA block each (csrc/raster_binned.cu, the keyed body); the
+# wrappers read it at call time.  At 1M triangles on the H100, 256 ran K4
+# in 0.64 ms against 0.75 for 1024 and K4d in 0.40 against 0.42 (PERF.md
+# §6).
 ITEM_RECORDS = 256
 # K4c: coarse bins are COARSE_CB x COARSE_CB tiles; the tile_lists
 # dispatch lists a row in at most TILE_LISTS_COARSE_CAP of them.
@@ -972,42 +972,8 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
                               tf, None, width, height)
 
 
-# The keyed K4/K4d body's rules (csrc/raster_binned.cu keyed_records), for
-# the tests: its per-pixel keys, each record's window and the work items,
-# and a plain evaluation cut into those items.
-
-# Clear keys: K4's (1.0, INT32_MAX) lets a row at z == 1.0 latch; K4d's
-# (1.0, visit 0, +) is below every row at z == 1.0.
-FLAT_CLEAR_KEY = (0x3F800000 << 32) | _INT_MAX
-DEPTH_CLEAR_KEY = 0x3F800000 << 32
-
-
-def _z_bits(z):
-    """f32 z -> its bits as int64 (0 .. 2**32 - 1)."""
-    return z.contiguous().view(I32).to(torch.int64) & 0xFFFFFFFF
-
-
-def flat_keys(z, ids):
-    """K4's keys of z (f32, z >= 0) and row ids: the order bits of z (the
-    sign cleared: -0.0 ties +0.0) over the id.  Their minimum is the
-    (z, row id) tie-break."""
-    return ((_z_bits(z) & 0x7FFFFFFF) << 32) | ids.to(torch.int64)
-
-
-def depth_keys(z, visits):
-    """K4d's keys of z (f32, z >= 0) and visit indices: the order bits of
-    z over the visit index over the sign of z.  Their minimum is the
-    strict-less test in visit order, the first visited row kept."""
-    bits = _z_bits(z)
-    return (((bits & 0x7FFFFFFF) << 32) | (visits.to(torch.int64) << 1)
-            | (bits >> 31))
-
-
-def depth_key_z(keys):
-    """The z plane of K4d's keys: the winner's z bits, 1.0 where clear."""
-    bits = ((keys >> 32) | ((keys & 1) << 31)).to(torch.int64)
-    z = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(I32)
-    return torch.where(keys == DEPTH_CLEAR_KEY, 1.0, z.view(F32))
+# The keyed K4/K4d body's extent and work items (csrc/raster_binned.cu
+# keyed_records), for the bounds in chip_smoke.py and for the tests.
 
 
 def vertex_bbox(ri):
@@ -1023,15 +989,6 @@ def vertex_bbox(ri):
                         (xs.amax(-1) - half) // SUBPIXEL,
                         (ys.amin(-1) + lo) // SUBPIXEL,
                         (ys.amax(-1) - half) // SUBPIXEL], dim=-1)
-
-
-def record_windows(ri, row0, col0):
-    """The keyed body's window of setup rows ``ri`` in the tile at (row0,
-    col0): ``vertex_bbox`` clipped to the tile.  Returns (r_lo, r_hi,
-    c_lo, c_hi); empty where lo > hi."""
-    jmin, jmax, imin, imax = vertex_bbox(ri).unbind(-1)
-    return (torch.maximum(imin, row0), torch.minimum(imax, row0 + TILE_H - 1),
-            torch.maximum(jmin, col0), torch.minimum(jmax, col0 + TILE_W - 1))
 
 
 def keyed_work_items(offsets, item_records: int, num_supers: int):
@@ -1052,107 +1009,6 @@ def keyed_work_items(offsets, item_records: int, num_supers: int):
     return torch.stack([tile, idx, count, begin, end,
                         idx * num_supers // count,
                         (idx + 1) * num_supers // count], dim=1)
-
-
-def _window_pixels(ri, row0, col0):
-    """Every pixel of each row's window: (pair, global row, global col),
-    pairs indexing ``ri``'s rows."""
-    r_lo, r_hi, c_lo, c_hi = record_windows(ri, row0, col0)
-    h = torch.clamp_min(r_hi - r_lo + 1, 0)
-    w = torch.clamp_min(c_hi - c_lo + 1, 0)
-    area = torch.where(w > 0, h * w, 0)
-    pair = torch.repeat_interleave(torch.arange(area.numel()), area)
-    q = torch.arange(pair.numel()) - (torch.cumsum(area, 0) - area)[pair]
-    return (pair, r_lo[pair] + q // w[pair], c_lo[pair] + q % w[pair])
-
-
-def _cover_z(ri, rf, row, col):
-    """Setup rows (P, NI32)/(P, NF32) at pixels (row, col) (P,), with the
-    kernels' int32 edge functions and interp3: (coverage, the
-    interpolation of float column c as a function of c, z)."""
-    py = (row * SUBPIXEL + SUBPIXEL // 2).to(I32)
-    px = (col * SUBPIXEL + SUBPIXEL // 2).to(I32)
-    e = [ri[:, dx] * (py - ri[:, y]) - ri[:, dy] * (px - ri[:, x])
-         for dx, dy, x, y in ((I_DX0, I_DY0, I_X1, I_Y1),
-                              (I_DX1, I_DY1, I_X2, I_Y2),
-                              (I_DX2, I_DY2, I_X0, I_Y0))]
-    cov = ((e[0] >= ri[:, I_BIAS0]) & (e[1] >= ri[:, I_BIAS1])
-           & (e[2] >= ri[:, I_BIAS2]))
-    ef = [x.to(F32) for x in e]
-
-    def interp(c):
-        return (ef[0] * rf[:, c] + ef[1] * rf[:, c + 1]) + ef[2] * rf[:, c + 2]
-
-    return cov, interp, interp(F_ZA0)
-
-
-def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
-                       width: int, height: int, depth: bool,
-                       item_records: int):
-    """K4 (or with ``depth`` K4d) as the keyed body computes it: each work
-    item's keys over its records' and leftover rows' windows (a scatter
-    min), the items' keys merged by their minimum, then the resolve from
-    the winner.  Equals ``raster_binned_plain`` (``depth_binned_plain``)
-    bit for bit."""
-    del blocks  # a row that meets a tile is in its block's union
-    _check_frame(width, height)
-    tiles_x = width // TILE_W
-    num_tiles = tiles_x * (height // TILE_H)
-    items = keyed_work_items(offsets, item_records, supers.shape[0])
-    per_super = RASTER_BLOCK * SUPER_BLOCK
-    box = hier[:, [I_JMIN, I_JMAX, I_IMIN, I_IMAX]].cpu()
-    hits = _tile_hits(box, height // TILE_H, tiles_x)  # (tiles, rows)
-    src_i, src_f, tags, owner = [], [], [], []
-    span_end = offsets[1:].long().cpu()
-    for it, (t, _, _, k0, k1, s0, s1) in enumerate(items.tolist()):
-        k = torch.arange(k0, k1)
-        rows = torch.nonzero(hits[t]).flatten()
-        rows = rows[(rows >= s0 * per_super) & (rows < s1 * per_super)]
-        src_i += [rec_i[k, :NI32], hier[rows]]
-        src_f += [rec_f[k], tf[rows]]
-        if depth:
-            tags += [k, span_end[t] + rows]
-        else:
-            tags += [rec_i[k, NI32].long().cpu(), rows]
-        owner.append(torch.full((k.numel() + rows.numel(),), it))
-    ri, rf = torch.cat(src_i).cpu(), torch.cat(src_f).cpu()
-    tag, owner = torch.cat(tags), torch.cat(owner)
-    tile = items[owner, 0]
-    row0, col0 = (tile // tiles_x) * TILE_H, (tile % tiles_x) * TILE_W
-    pair, row, col = _window_pixels(ri.long(), row0, col0)
-    cov, _, z = _cover_z(ri[pair], rf[pair], row, col)
-    ok = cov & (z >= 0.0)
-    key = (depth_keys if depth else flat_keys)(z[ok], tag[pair][ok])
-    clear = DEPTH_CLEAR_KEY if depth else FLAT_CLEAR_KEY
-    slot = (owner[pair][ok] * (TILE_H * TILE_W)
-            + (row[ok] - row0[pair][ok]) * TILE_W + col[ok] - col0[pair][ok])
-    planes = torch.full((items.shape[0] * TILE_H * TILE_W,), clear,
-                        dtype=torch.int64)
-    planes.scatter_reduce_(0, slot, key, "amin")
-    # The items' minimum per tile, laid out as the (H, W) frame.
-    merged = torch.full((num_tiles, TILE_H * TILE_W), clear,
-                        dtype=torch.int64)
-    merged.scatter_reduce_(
-        0, items[:, :1].expand(-1, TILE_H * TILE_W),
-        planes.reshape(-1, TILE_H * TILE_W), "amin")
-    keys = _frame(merged.reshape(height // TILE_H, tiles_x, TILE_H, TILE_W))
-    dev = hier.device
-    if depth:
-        return depth_key_z(keys).to(dev)
-    won = keys != FLAT_CLEAR_KEY
-    ids = (keys & 0xFFFFFFFF)[won]
-    row, col = torch.nonzero(won, as_tuple=True)
-    _, interp, zw = _cover_z(hier.cpu()[ids], tf.cpu()[ids], row, col)
-    out = {name: torch.zeros((height, width), dtype=F32)
-           for name, _ in _LATCHES}
-    out["z"] = torch.ones((height, width), dtype=F32)
-    out["z"][won] = zw
-    for name, c in _LATCHES:
-        out[name][won] = interp(c)
-    planes = {name: p.reshape(height // TILE_H, TILE_H, tiles_x,
-                              TILE_W).permute(0, 2, 1, 3)
-              for name, p in out.items()}
-    return tuple(x.to(dev) for x in _resolve_planes(planes))
 
 
 # Band plain versions: the (band_h, W) rows from global row ``row0``.
@@ -1400,15 +1256,16 @@ def keyed_items(width: int, height: int, records: int,
 
 
 def _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, width: int,
-                height: int, item_records: int):
+                height: int):
     """Check K4/K4d inputs; returns the launch arguments before the
-    outputs (the records' arguments, the item size and count, the key
-    plane) and the plane, which the call must hold until it has
-    launched."""
+    outputs (the records' arguments, the item size ITEM_RECORDS and the
+    item count, the key plane) and the plane, which the call must hold
+    until it has launched."""
     args = _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
                          None, width, height)
+    item_records = ITEM_RECORDS
     if item_records < 1:
-        raise ValueError(f"item_records must be positive, got {item_records}")
+        raise ValueError(f"ITEM_RECORDS must be positive, got {item_records}")
     items = keyed_items(width, height, rec_i.shape[0], item_records)
     # Freed after the launch: the caching allocator hands the memory to
     # later work on the same stream only, which runs after both kernels.
@@ -1417,17 +1274,16 @@ def _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, width: int,
 
 
 def raster_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
-                         coarse, width: int, height: int,
-                         item_records: int = ITEM_RECORDS):
+                         coarse, width: int, height: int):
     """Launch K4 (``csrc/raster_binned.cu``, the keyed body over record
-    spans: work items of at most ``item_records`` records, then the
-    resolve) on the current stream; ``coarse`` must be None (K4c takes the
+    spans: work items of at most ITEM_RECORDS records, then the resolve)
+    on the current stream; ``coarse`` must be None (K4c takes the
     coarse class)."""
     if coarse is not None:
         raise ValueError("K4 takes no coarse class; use "
                          "raster_binned_coarse_kernel")
     args, _plane = _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier,
-                                tf, width, height, item_records)
+                                tf, width, height)
     out = _run(_build.load_library().zr_raster_records_keyed, hier.device,
                width, height, *args)
     raster_binned_kernel.launches += 1
@@ -1533,14 +1389,13 @@ def depth_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
 
 
 def depth_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
-                        coarse, width: int, height: int,
-                        item_records: int = ITEM_RECORDS):
+                        coarse, width: int, height: int):
     """Launch K4d (``csrc/raster_binned.cu``, the keyed body over record
     spans, depth only) on the current stream; ``coarse`` must be None."""
     if coarse is not None:
         raise ValueError("K4d takes no coarse class")
     args, _plane = _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier,
-                                tf, width, height, item_records)
+                                tf, width, height)
     out = _run_depth(_build.load_library().zr_depth_records_keyed,
                      hier.device, width, height, *args)
     depth_binned_kernel.launches += 1
