@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the record-streaming rasters K4 and K4d, and of the
-frames whose pace they set, between this tree and another checkout (for
-example a parent commit unpacked with ``git archive``) on one CUDA card.
+"""Same-call A/B of the G-buffer raster K4g and the tiled light kernel K7,
+and of the frames whose pace they set, between this tree and another
+checkout (for example a parent commit unpacked with ``git archive``) on
+one CUDA card.
 
     python3 chip_ab.py --other path/to/checkout
 
 Each tree runs in a process of its own, which builds that tree's kernels,
 in turns: other, this, this, other.  Every run uses chip_smoke.py's sizes
-and builders (``frame_rows``, ``light_rows``, ``config4``) from this tree
-on the tree's own package.  A run times, with CUDA events after a
-warm-up: K4 on the 1M lattice and on the 1M soup (``auto``'s inputs at
-the padded 1080p target), K4d on the 1M lattice's shadow map, and
-``render_animation`` ms/frame of the flat and the shadowed 1M lattice at
-1080p and of config 4 (K4 and ``taa_resolve_packed`` over
-CONFIG4_FRAMES jittered frames).  Every run must give the same planes
-(their digests are compared).  Prints the card's name and power limit
-first, then one JSON line per run.
+and builders (``lit_frame_rows``, ``deferred_frame_inputs``,
+``baseline_lights``, ``checker_texture``) from this tree on the tree's own
+package.  A run times, with CUDA events after a warm-up: K4g on the lit 1M
+lattice's inputs (``auto``, the padded 1080p target), K7 on the deferred
+test scene's 1080p G-buffer with BASELINE config 3's wide and r2 lights
+(f32 planes), and ``render_animation`` ms/frame of the lit and the
+shadowed 1M lattice and of the deferred test scene with the wide lights
+at 1080p.  Every run must give the same planes (their digests are
+compared).  Prints the card's name and power limit first, then one JSON
+line per run.
 """
 
 from __future__ import annotations
@@ -37,11 +39,10 @@ def measure() -> dict:
 
     from zrenderer_tpu_torch.engine.config import RenderConfig
     from zrenderer_tpu_torch.engine.renderer import Renderer
-    from zrenderer_tpu_torch.ops import raster
-    from zrenderer_tpu_torch.scene.procedural import (
-        make_stress_scene,
-        make_triangle_soup,
-    )
+    from zrenderer_tpu_torch.ops import light_kernel, raster
+    from zrenderer_tpu_torch.scene.mesh import MeshData
+    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+    from zrenderer_tpu_torch.scene.scene import Scene
 
     def event_ms(fn, reps):
         fn()
@@ -60,47 +61,56 @@ def measure() -> dict:
                            .sum().item()) for p in planes))
 
     def renderer(scene_md, **kw):
-        r = Renderer(RenderConfig(width=cs.WIDTH, height=cs.HEIGHT, **kw),
-                     device="cuda")
+        r = Renderer(RenderConfig(width=cs.WIDTH, height=cs.HEIGHT,
+                                  tri_align=256, **kw), device="cuda")
         r.load_scene(*scene_md)
         return r
 
-    def anim_ms(r):
-        frames = cs.LARGE_FRAMES
+    def anim_ms(r, frames):
         r.render_animation(num_frames=frames)
         torch.cuda.synchronize()
         return event_ms(lambda: r.render_animation(num_frames=frames),
                         1) / frames
 
     w, h = cs.PAD_W, cs.PAD_H
-    out = {"root": imported_root(), "k4": {}, "frames": {}, "digests": {}}
+    out = {"root": imported_root(), "k4g": {}, "k7": {}, "frames": {},
+           "digests": {}}
     lattice = make_stress_scene(cs.LARGE_TRIS)
-    r4 = renderer(lattice)
-    prep = raster.prepare_binned_hbm_inputs(*cs.frame_rows(r4), w, h)
-    k4 = raster.raster_binned_kernel
-    out["k4"]["lattice1M"] = event_ms(lambda: k4(*prep, w, h), 10)
-    out["digests"]["k4 lattice1M"] = digest(*k4(*prep, w, h))
-    out["frames"]["flat lattice1M"] = anim_ms(r4)
-    frames = cs.CONFIG4_FRAMES
-    out["frames"]["config 4"] = event_ms(
-        lambda: cs.config4(r4, frames), 1) / frames
-    del prep, r4
+    r = renderer(lattice, pipeline="lit")
+    r.set_environment(texture=cs.checker_texture())
+    prep = raster.prepare_binned_hbm_inputs(*cs.lit_frame_rows(r), w, h)
+    k4g = raster.gbuffer_binned_kernel
+    out["k4g"]["lit lattice1M"] = event_ms(lambda: k4g(*prep, w, h), 10)
+    out["digests"]["k4g lit lattice1M"] = digest(*k4g(*prep, w, h))
+    out["frames"]["lit lattice1M"] = anim_ms(r, cs.LARGE_FRAMES)
+    del prep, r
+    r = renderer(lattice, pipeline="shadowed", shadow_size=cs.SHADOW_SIZE)
+    r.set_environment()
+    out["frames"]["shadowed lattice1M"] = anim_ms(r, cs.LARGE_FRAMES)
+    out["digests"]["shadowed lattice1M"] = digest(r.render()[0])
+    del r, lattice
 
-    rs = renderer(lattice, pipeline="shadowed", shadow_size=cs.SHADOW_SIZE)
-    rs.set_environment()
-    s = cs.SHADOW_SIZE
-    prep = raster.prepare_binned_hbm_inputs(*cs.light_rows(rs), s, s)
-    k4d = raster.depth_binned_kernel
-    out["k4d"] = {"lattice1M map": event_ms(lambda: k4d(*prep, s, s), 10)}
-    out["digests"]["k4d lattice1M map"] = digest(k4d(*prep, s, s))
-    out["frames"]["shadowed lattice1M"] = anim_ms(rs)
-    del prep, rs, lattice
-
-    soup = make_triangle_soup(cs.LARGE_TRIS, seed=1, extent=cs.SOUP_EXTENT)
-    prep = raster.prepare_binned_hbm_inputs(
-        *cs.frame_rows(renderer(soup)), w, h)
-    out["k4"]["soup1M"] = event_ms(lambda: k4(*prep, w, h), 3)
-    out["digests"]["k4 soup1M"] = digest(*k4(*prep, w, h))
+    scene_md = (Scene.load(os.path.join(cs.SCENE_DIR, "scene.bin")),
+                MeshData.load(os.path.join(cs.SCENE_DIR, "meshes.bin")))
+    k7 = light_kernel.tiled_light_kernel
+    for name in ("wide", "r2"):
+        r = renderer(scene_md, pipeline="deferred")
+        r.set_environment(lights=cs.baseline_lights(name))
+        inputs = cs.deferred_frame_inputs(r)
+        out["k7"][name] = event_ms(lambda: k7(*inputs), 20)
+        out["digests"][f"k7 {name}"] = digest(k7(*inputs))
+        if name == "wide":
+            out["frames"]["deferred test scene wide"] = anim_ms(
+                r, cs.ANIM_FRAMES)
+        if hasattr(light_kernel, "ITEM_PIXELS"):  # the work-item sweep
+            saved = light_kernel.ITEM_PIXELS
+            sweep = out.setdefault("k7_item_pixels", {})
+            for p in (64, 128, 256, 512, 1024, 2048, 4096):
+                light_kernel.ITEM_PIXELS = p
+                sweep[f"{name} {p}"] = event_ms(lambda: k7(*inputs), 20)
+                if digest(k7(*inputs)) != out["digests"][f"k7 {name}"]:
+                    raise AssertionError(f"K7 at {p} pixels an item differs")
+            light_kernel.ITEM_PIXELS = saved
     return out
 
 
@@ -148,7 +158,7 @@ def main(argv=None) -> int:
     if any(r["digests"] != runs[0]["digests"] for r in runs):
         print("the trees' planes differ", file=sys.stderr)
         return 1
-    print("every run gave the same K4 and K4d planes")
+    print("every run gave the same K4g, K7 and frame planes")
     return 0
 
 

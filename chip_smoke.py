@@ -37,7 +37,9 @@ lines and seconds:
     40K lattice, each on the clipped soup and the duplicated soup (exact
     ties), each with random normal matrices and a random material table
     (one row per triangle, so a wrong winner shows in the constant
-    planes); the plain K2g, K3g and K5g calls give their plain_ms;
+    planes); the plain K2g, K3g and K5g calls give their plain_ms; then
+    ``keyed_cases`` for K4g on lit rows, all 13 planes bitwise at the
+    default work-item size and at 16 records;
 4d. the depth-only kernels of the shadow-map pass, K2d (small-scene
     lists), K3d (hierarchy), K4d (record streaming) and K6d (global pair
     lists), and K6g (the G-buffer over global pair lists) against their
@@ -57,7 +59,11 @@ lines and seconds:
     camera, random planes with tiles that list no light, and a band at
     rows 544-799 of a 1088-row frame (``row_offset``), and 1500 wide
     lights on random planes (the light list staged in two chunks); the
-    plain calls on the test scene give K7's plain_ms;
+    work-item cut on random planes with the wide lights under five masks:
+    one covered pixel in a tile, a checkerboard, every pixel, none (K7
+    writes zeros), and tiles of exactly ITEM_PIXELS, ITEM_PIXELS + 1 and
+    2 ITEM_PIXELS + 1 covered pixels; the plain calls on the test scene
+    give K7's plain_ms;
 4o. the overlay kernels, K8 (layered raster) and K8b (atlas composite),
     against their plain versions: K8's count, overflow and 3K layer planes
     bitwise as int32, then K8b's u8 frame on K8's planes and a random
@@ -195,8 +201,8 @@ lines and seconds:
     each) and each entry point traced once (device ops, busy ms, idle
     share);
 6. timing, traces first: each kernel's device time from a torch.profiler
-   trace at its main-path shape (K4 and K4d: the sum of a call's three
-   device operations, the memset, the item kernel and the resolve; K4
+   trace at its main-path shape (K4, K4g and K4d: the sum of a call's
+   three device operations, the memset, the item kernel and the resolve; K4
    also on soup1M through ``auto``), and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
    K4c, 20K lattice K6, the lit paths, and the shadowed test scene, 20K
@@ -275,14 +281,16 @@ lines and seconds:
 Each kernel's bound is the larger of its inputs and outputs (2 planes
 flat, 13 G-buffer, 1 depth-only) moved once at the card's memory rate and
 the (tile, triangle) pairs its frame needs, times 4096 pixels and
-OPS_PER_EVAL, at the CUDA-core rate; K4's and K4d's count each record's
-and leftover row's bbox pixels in each tile instead (in the padding rows'
+OPS_PER_EVAL, at the card's instruction rate (phase 1: SMs x 128 lanes x
+the maximum SM clock); K4's, K4g's and K4d's count each record's and
+leftover row's bbox pixels in each tile instead (in the padding rows'
 tiles the kernel's extent, ``window_evals``, the counter phase 6h uses
 too), with the whole-tile figure kept as bound_ms_tiles, and the bytes
 their keyed body needs (``keyed_work``: each span record's ints and z
 coefficients, each leftover row's once, for K4 each distinct winning
-row's edge and colour coefficients, the output planes), with every input
-read once kept as bound_ms_inputs.  K7's is the larger of its 11 planes,
+row's edge and colour coefficients, for K4g also its uv, normal and
+constant ones, the output planes), with every input read once kept as
+bound_ms_inputs.  K7's is the larger of its 11 planes,
 mask, bounds, lights and 3 output planes moved once and its (pixel,
 listed light) evaluations, each tile's light count times its covered
 pixels (uncovered pixels cost nothing), times OPS_PER_LIGHT.  K8's is
@@ -341,20 +349,31 @@ SOUP_EXTENT = 6.0
 # to the coarse class and coarse rows to the leftover hierarchy.
 SMALL_BUDGETS = dict(cap=8, pair_budget=200, coarse_cap=8, coarse_budget=20)
 
-# Bound inputs: NVIDIA's H100 SXM data sheet (memory 3.35 TB/s; 67 TFLOP/s
-# float32 outside the tensor cores, which issue int32 as well).  One pixel
-# evaluation is 3 edge functions (5 int ops each), 3 bias tests, 3 int ->
-# float conversions and the z interpolation (3 mul + 2 add): 26 ops.
+# Bound inputs.  Memory: NVIDIA's H100 SXM data sheet, 3.35 TB/s.
+# Instructions: the card's own issue rate, set in phase 1 from
+# torch.cuda.get_device_properties(0).multi_processor_count x 128 lanes x
+# the maximum SM clock that nvidia-smi --query-gpu=clocks.max.sm reports
+# (132 x 128 x 1.98 GHz = 33.5e12 a second on an H100 SXM).  Every kernel
+# is built with -fmad=false (ops/_build.py), so it issues no FMA and each
+# counted op is one instruction; int32 instructions issue at half this
+# rate, which the bounds do not charge.  One pixel evaluation is 3 edge
+# functions (5 int ops each), 3 bias tests, 3 int -> float conversions and
+# the z interpolation (3 mul + 2 add): 26 ops.
 HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
+CUDA_CORE_OPS_PER_S = None  # set by phase 1 from the card
+CUDA_LANES_PER_SM = 128
 OPS_PER_EVAL = 26
 # K7, one (pixel, listed light) evaluation of csrc/light_tiled.cu's loop:
-# 3 sub and 3 dot products of 5 (18), 4 rsqrt/reciprocal of 2 (8: an
-# IEEE divide, a square root or a bf16 round trip), 8 max/min, the half
-# vector's and distribution's 2 + 2 + 3 + 3 products and sums, denom 4,
-# spec 1, t/t2/t5 4, rad 2, 3 Fresnel of 2, 3 accumulations of 6, and
-# the 3 normalized light components: 81 float operations.
-OPS_PER_LIGHT = 81
+# the SASS instructions it issues, counted in `cuobjdump -sass` of the
+# built library (sm_90a, -O3 -fmad=false; NVIDIA H100 80GB HBM3).  The
+# compiler unrolls the loop of light_tiled_kernel<float, false> twice: 335
+# instructions from its label to its backward branch, of which 12 (the 10
+# CALLs of the divide and square-root slow paths and 2 branches only those
+# paths take) run only for operands out of the fast path's range; 323
+# for two evaluations, 161.5 each (89 FMUL, 56 FADD, 38 FFMA of the
+# divide and square-root sequences, 10 MUFU, the branches around the slow
+# paths; the bf16 instantiation 163).
+OPS_PER_LIGHT = 161.5
 # K8, csrc/overlay.cu's triangle loop: every (pixel, triangle) of a listed
 # (tile, triangle) pair costs 3 edge functions (5 int ops each), 3 bias and
 # 4 rect compares and 6 ands (28); a covered pixel with a free slot adds 3
@@ -460,6 +479,72 @@ def light_rows(r):
     light = torch.from_numpy(r._lit_constants()["light_matrices"])
     return tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
                                      light.to(r.device), size, size)
+
+
+def lit_frame_rows(r):
+    """The setup rows of a lit renderer's current frame on its device."""
+    import torch
+
+    from zrenderer_tpu_torch.ops import geometry as tg
+
+    b = r._buffers()
+    c = r._lit_constants()
+    return tg.geometry_pipeline_cols(
+        b["corner_cols"], b["tri_node"],
+        torch.from_numpy(c["matrices"]).to(r.device), r.config.width,
+        r.config.height,
+        normal_matrices=torch.from_numpy(c["normal_mats"]).to(r.device),
+        material_table=b["materials"])
+
+
+def deferred_frame_inputs(r):
+    """K7's inputs of a deferred renderer's current frame on its device,
+    through the frame's own stages (build_deferred_frame)."""
+    import torch
+
+    from zrenderer_tpu_torch.engine import passes
+    from zrenderer_tpu_torch.ops import shading
+
+    cfg = r.config
+    c = {k: torch.from_numpy(v).to(r.device)
+         for k, v in r._lit_constants().items()}
+    g = passes._gbuffer(r._buffers(), c["matrices"], c["normal_mats"],
+                        cfg.width, cfg.height, cfg.pad_height,
+                        cfg.pad_width, cfg.binning)
+    world = shading.reconstruct_world_pos(g[1], c["inv_view_proj"],
+                                          cfg.width, cfg.height)
+    return passes.deferred_light_inputs(
+        g, world, c["cam_pos"], c["view_proj"], *r.lights, cfg.width,
+        cfg.height, cfg.pad_height, cfg.pad_width,
+        torch.bfloat16 if cfg.lighting_planes == "bf16" else torch.float32)
+
+
+def baseline_lights(name):
+    """BASELINE config 3's 256 point lights (benchmarks/configs.py
+    :121-126): "wide" (every light's influence radius spans the scene) or
+    "r2" (colours x 0.008: a radius of about 2 units)."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    pos = rng.uniform([-6, 0.5, -6], [6, 6, 6], (256, 3)).astype(np.float32)
+    col = rng.uniform(0.1, 1.0, (256, 3)).astype(np.float32)
+    if name == "r2":
+        col = (col * 0.008).astype(np.float32)
+    return pos, col
+
+
+def checker_texture(size=256):
+    """The 256x256 checker pattern of BASELINE's lit_1080p cell
+    (benchmarks/configs.py checker_texture), built here."""
+    import numpy as np
+
+    from zrenderer_tpu_torch.engine.textures import Texture
+
+    y, x = np.mgrid[0:size, 0:size]
+    c = (((x // 16) ^ (y // 16)) & 1).astype(np.float32)
+    img = np.stack([c, 0.5 + 0.5 * c, 1.0 - 0.5 * c, np.ones_like(c)],
+                   axis=-1)
+    return Texture.from_array(img.astype(np.float32))
 
 
 def config4(r, frames):
@@ -921,18 +1006,21 @@ def main(argv=None) -> int:
         return int(torch.unique(keys[won] & 0xFFFFFFFF).numel())
 
     # Bytes of a winning row that K4's resolve reads: 12 edge ints and the
-    # z, 1/w and colour coefficients (15 floats).
+    # z, 1/w and colour coefficients (15 floats); K4g's also its uv and
+    # normal coefficients (15 floats) and 6 constants.
     WINNER_BYTES = 12 * 4 + 15 * 4
+    WINNER_GBUF_BYTES = WINNER_BYTES + 15 * 4 + 6 * 4
 
-    def keyed_work(prep, w, h, visible, planes, depth=None):
-        """K4's (given its ``depth`` plane) or K4d's work on a record
-        prepare: (window pixel evaluations, bytes needed).  The
+    def keyed_work(prep, w, h, visible, planes, depth=None,
+                   winner_bytes=WINNER_BYTES):
+        """K4's or K4g's (given its ``depth`` plane) or K4d's work on a
+        record prepare: (window pixel evaluations, bytes needed).  The
         evaluations: each pair of ``keyed_pairs`` at its bbox's pixels in
         the tile, or in the padding rows' tiles at the keyed body's extent
         (raster.vertex_bbox).  The bytes: each span record's ints and 3 z
         floats, each leftover row's NI32 ints and 3 z floats once, each
-        distinct winner's WINNER_BYTES (K4; K4d reads z from its key) and
-        the ``planes`` output planes."""
+        distinct winner's ``winner_bytes`` (K4, K4g; K4d reads z from its
+        key) and the ``planes`` output planes."""
         pairs = keyed_pairs(prep, w, h)
         ri, ty, tx = pairs[0].long(), pairs[3], pairs[4]
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
@@ -941,7 +1029,7 @@ def main(argv=None) -> int:
         winners = 0 if depth is None else k4_winners(pairs, w, h, depth)
         nbytes = (pairs[5] * (prep[1].shape[1] * 4 + 12)
                   + torch.unique(pairs[6]).numel() * (tg.NI32 * 4 + 12)
-                  + winners * WINNER_BYTES + planes * 4 * w * h)
+                  + winners * winner_bytes + planes * 4 * w * h)
         print(f"  keyed work at {w}x{h}: {pairs[5]} span records, "
               f"{pairs[6].numel()} leftover pairs of "
               f"{torch.unique(pairs[6]).numel()} rows, {winners} winning "
@@ -995,6 +1083,17 @@ def main(argv=None) -> int:
               f"{torch.cuda.get_device_name(0)}")
         print(f"  nvcc: {nvcc_ver.strip().splitlines()[-1]}")
         print(f"  card (name, power limit): {smi}")
+        global CUDA_CORE_OPS_PER_S
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        CUDA_CORE_OPS_PER_S = sms * CUDA_LANES_PER_SM * mhz * 1e6
+        print(f"  instruction rate: {sms} SMs x {CUDA_LANES_PER_SM} lanes x "
+              f"{mhz:.0f} MHz (clocks.max.sm) = "
+              f"{CUDA_CORE_OPS_PER_S:.4e} a second")
         return smi
 
     # -- 2. build ---------------------------------------------------------
@@ -1009,10 +1108,11 @@ def main(argv=None) -> int:
                                        "spill", "error")):
                 print(f"  ptxas: {line.strip()}")
         smem = _build.load_library().zr_keyed_smem_bytes()
-        for key in ("k4", "k4d"):
+        for key in ("k4", "k4g", "k4d"):
             results[key]["smem_bytes"] = smem
-        print(f"  K4/K4d keyed body: {smem} bytes of dynamic shared memory "
-              "a block (raster_records_kernel, depth_records_kernel; the "
+        print(f"  K4/K4g/K4d keyed body: {smem} bytes of dynamic shared "
+              "memory a block (raster_records_kernel, "
+              "gbuffer_records_keyed_kernel, depth_records_kernel; the "
               "resolve kernels none)")
         return info.seconds
 
@@ -1067,16 +1167,27 @@ def main(argv=None) -> int:
 
     main_prep_k3, lattice = k3_inputs or (None,) * 2
 
-    def pair_rows(za_a=None, za_b=None, w=128, h=32):
+    def pair_rows(za_a=None, za_b=None, w=128, h=32, lit=False):
         """tests/test_raster_pallas.py :556-606 on the card: a tall
         triangle A and a short triangle B inside it, submitted after A,
         through the identity matrix; ``za_a``/``za_b`` replace a row's
-        z-plane coefficients."""
+        z-plane coefficients.  ``lit``: seeded random uv and normals, a
+        random normal matrix and a material each."""
         positions = torch.tensor([
             [-0.8, -0.8, 0.5, 1.0], [0.8, -0.8, 0.5, 1.0],
             [0.0, 0.8, 0.5, 1.0], [-0.2, -0.1, 0.3, 1.0],
             [0.2, -0.1, 0.3, 1.0], [0.0, 0.1, 0.3, 1.0]], device=dev)
         attrs = torch.zeros((6, 12), device=dev)
+        kw = {}
+        if lit:
+            rng = np.random.default_rng(6)
+            attrs = torch.from_numpy(
+                rng.random((6, 12), dtype=np.float32)).to(dev)
+            kw = dict(
+                normal_matrices=torch.from_numpy(rng.standard_normal(
+                    (1, 3, 3)).astype(np.float32)).to(dev),
+                material_table=torch.from_numpy(rng.random(
+                    (2, tg.MATERIAL_COLS), dtype=np.float32)).to(dev))
         attrs[:3, 0] = 1.0  # A red
         attrs[3:, 1] = 1.0  # B green
         ti, tf = tg.geometry_pipeline(
@@ -1084,7 +1195,7 @@ def main(argv=None) -> int:
             torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32,
                          device=dev),
             torch.eye(4, device=dev)[None],
-            torch.zeros(6, dtype=torch.int32, device=dev), w, h)
+            torch.zeros(6, dtype=torch.int32, device=dev), w, h, **kw)
         a, b = torch.nonzero(ti[:, tg.I_VALID] > 0).flatten().tolist()
         for row, za in ((a, za_a), (b, za_b)):
             if za is not None:
@@ -1108,17 +1219,30 @@ def main(argv=None) -> int:
         return run
 
     def keyed_cases(key):
-        """The keyed body's own cases for K4 (``key`` "k4") or K4d ("k4d"),
-        each bit-exact against the plain version in every row, at the
-        default item size and at KEYED_SMALL_ITEMS records: one tile whose
-        span is many items long, exact ties split across items, a row at z
-        == 1.0 (K4 latches it, K4d does not), -0.0 ties (K4 keeps the
-        lower row id's z, K4d the first visited row's sign), triangles
-        that cover whole tiles, and an empty scene."""
-        depth = key == "k4d"
-        kern = k4d if depth else k4
-        plain = (raster.depth_binned_plain if depth
-                 else raster.raster_binned_plain)
+        """The keyed body's own cases for K4 (``key`` "k4"), K4g ("k4g",
+        on lit rows, all 13 planes) or K4d ("k4d"), each bit-exact against
+        the plain version in every row, at the default item size and at
+        KEYED_SMALL_ITEMS records: one tile whose span is many items long,
+        exact ties split across items, a row at z == 1.0 (K4 and K4g latch
+        it, K4d does not), -0.0 ties (K4 and K4g keep the lower row id's
+        z, K4d the first visited row's sign), triangles that cover whole
+        tiles, and an empty scene."""
+        depth, lit = key == "k4d", key == "k4g"
+        kern = {"k4": k4, "k4g": k4g, "k4d": k4d}[key]
+        plain = {"k4": raster.raster_binned_plain,
+                 "k4g": raster.gbuffer_binned_plain,
+                 "k4d": raster.depth_binned_plain}[key]
+        cmp = {"k4": compare, "k4g": compare_gbuffer,
+               "k4d": compare_depth}[key]
+        rows_of = lit_rows if lit else setup_rows
+
+        def planes(out):
+            return [out] if depth else list(out)
+
+        def same(a, b):
+            return all(torch.equal(x.contiguous().view(torch.int32),
+                                   y.contiguous().view(torch.int32))
+                       for x, y in zip(planes(a), planes(b)))
 
         def check(label, rows, w, h, **kw):
             prep = raster.prepare_binned_hbm_inputs(*rows, w, h, **kw)
@@ -1128,54 +1252,49 @@ def main(argv=None) -> int:
             print(f"  {label}: {n} records, longest span {longest}, "
                   f"{items.shape[0]} items of {KEYED_SMALL_ITEMS} records "
                   f"(most in a tile {int(items[:, 2].max().item())})")
-            outs = []
-            for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS):
-                fn = with_items(kern, item)
-                lab = f"{label}, items of {item}"
-                if depth:
-                    outs.append(compare_depth(key, lab, fn, plain, prep, w,
-                                              h))
-                else:
-                    outs.append(compare(key, lab, fn, plain, prep, w, h))
+            outs = [cmp(key, f"{label}, items of {item}",
+                        with_items(kern, item), plain, prep, w, h)
+                    for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS)]
             return outs[-1], int(items[:, 2].max().item())
 
-        packed = setup_rows(*make_triangle_soup(4000, seed=5, extent=2.0),
-                            128, 32)
+        packed = rows_of(*make_triangle_soup(4000, seed=5, extent=2.0),
+                         128, 32)
         _, most = check("soup packed into one 128x32 tile", packed, 128, 32)
         if most < 100:
             raise AssertionError(f"packed soup: {most} items in the tile")
         w, h = 1024, 512
-        dup = setup_rows(*tie_soup(True), w, h)
-        got = check("duplicated triangles", dup, w, h)[0]
+        got = check("duplicated triangles", rows_of(*tie_soup(True), w, h),
+                    w, h)[0]
         one = kern(*raster.prepare_binned_hbm_inputs(
-            *setup_rows(*tie_soup(False), w, h), w, h), w, h)
-        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                   for a, b in zip(got if not depth else (got,),
-                                   one if not depth else (one,))):
+            *rows_of(*tie_soup(False), w, h), w, h), w, h)
+        if not same(got, one):
             raise AssertionError(f"{key}: a duplicate won a depth tie "
                                  "across items")
-        out = check("z == 1.0 (A's z is 1.0 at one pixel)",
-                    pair_rows(za_a=(0.25, 0.0, 0.0)), 128, 32)[0]
+        out = planes(check("z == 1.0 (A's z is 1.0 at one pixel)",
+                           pair_rows(za_a=(0.25, 0.0, 0.0), lit=lit),
+                           128, 32)[0])
         if not depth:
-            c, d = out
+            c, d = out[0], out[1]
             latched = int(((d == 1.0) & (c != -(1 << 24))).sum().item())
-            print(f"    K4 latched {latched} pixel(s) at z == 1.0")
+            print(f"    {key} latched {latched} pixel(s) at z == 1.0")
             if latched != 1:
-                raise AssertionError(f"k4: {latched} pixels latched at z "
-                                     "== 1.0, 1 expected")
+                raise AssertionError(f"{key}: {latched} pixels latched at "
+                                     "z == 1.0, 1 expected")
         for za_a, za_b in (((-0.0,) * 3, (0.0,) * 3),
                            ((0.0,) * 3, (-0.0,) * 3)):
-            out = check(f"-0.0 tie (A {za_a[0]}, B {za_b[0]})",
-                        pair_rows(za_a=za_a, za_b=za_b), 128, 32)[0]
-            d = out if depth else out[1]
+            out = planes(check(f"-0.0 tie (A {za_a[0]}, B {za_b[0]})",
+                               pair_rows(za_a=za_a, za_b=za_b, lit=lit),
+                               128, 32)[0])
+            d = out[0] if depth else out[1]
             neg = int((torch.signbit(d) & (d == 0.0)).sum().item())
             print(f"    {neg} pixels at -0.0")
             if (neg > 0) != bool(np.signbit(za_a[0])):
                 raise AssertionError(f"{key}: the first row's zero sign "
                                      "was not kept")
-        check("whole tiles (A over 1024x512)", pair_rows(w=w, h=h), w, h)
+        check("whole tiles (A over 1024x512)",
+              pair_rows(w=w, h=h, lit=lit), w, h)
         check("clipped soup (whole tiles near the camera)",
-              setup_rows(*clipped_soup(), WIDTH, HEIGHT), PAD_W, PAD_H)
+              rows_of(*clipped_soup(), WIDTH, HEIGHT), PAD_W, PAD_H)
         t = tg.capped_rows(64)
         ti = torch.zeros((t + (-t) % 64, tg.NI32), dtype=torch.int32,
                          device=dev)
@@ -1184,11 +1303,8 @@ def main(argv=None) -> int:
         prep = raster.prepare_binned_hbm_inputs(
             ti, torch.zeros((ti.shape[0], tg.NF32), device=dev), w, h)
         for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS):
-            got = with_items(kern, item)(*prep, w, h)
-            ref = plain(*prep, w, h)
-            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                       for a, b in zip(got if not depth else (got,),
-                                       ref if not depth else (ref,))):
+            if not same(with_items(kern, item)(*prep, w, h),
+                        plain(*prep, w, h)):
                 raise AssertionError(f"{key}: empty scene differs")
         print(f"  empty scene: {key} equals its plain version (clear)")
 
@@ -1333,6 +1449,7 @@ def main(argv=None) -> int:
         print("  every exact depth tie went to the first-submitted row "
               "(K2g, K3g, K4g, K5g; the duplicates carry other colors and "
               "constants)")
+        keyed_cases("k4g")
 
     # -- 4d. K2d, K3d, K4d, K6d and K6g vs plain ---------------------------
     def shadow_renderer(scene_md, binning="auto", device=DEVICE, width=WIDTH,
@@ -1448,18 +1565,6 @@ def main(argv=None) -> int:
               "went to the first-submitted row")
 
     # -- 4l. K7 vs plain ----------------------------------------------------
-    def baseline_lights(name):
-        """BASELINE config 3's 256 point lights (benchmarks/configs.py
-        :121-126): "wide" (every light's influence radius spans the scene)
-        or "r2" (colours x 0.008: a radius of about 2 units)."""
-        rng = np.random.default_rng(3)
-        pos = rng.uniform([-6, 0.5, -6], [6, 6, 6], (256, 3)).astype(
-            np.float32)
-        col = rng.uniform(0.1, 1.0, (256, 3)).astype(np.float32)
-        if name == "r2":
-            col = (col * 0.008).astype(np.float32)
-        return pos, col
-
     def golden_lights():
         """The 8 lights of tests/test_golden.py::test_png_golden_deferred."""
         rng = np.random.default_rng(5)
@@ -1477,26 +1582,11 @@ def main(argv=None) -> int:
         r.set_environment(lights=lights)  # as benchmarks/configs.py does
         return r
 
-    def deferred_frame_inputs(r):
-        """K7's inputs of a deferred renderer's current frame on its
-        device, through the frame's own stages (build_deferred_frame)."""
-        cfg = r.config
-        c = {k: torch.from_numpy(v).to(r.device)
-             for k, v in r._lit_constants().items()}
-        g = passes._gbuffer(r._buffers(), c["matrices"], c["normal_mats"],
-                            cfg.width, cfg.height, cfg.pad_height,
-                            cfg.pad_width, cfg.binning)
-        world = shading.reconstruct_world_pos(g[1], c["inv_view_proj"],
-                                              cfg.width, cfg.height)
-        return passes.deferred_light_inputs(
-            g, world, c["cam_pos"], c["view_proj"], *r.lights, cfg.width,
-            cfg.height, cfg.pad_height, cfg.pad_width,
-            torch.bfloat16 if cfg.lighting_planes == "bf16" else torch.float32)
-
     def random_light_inputs(seed, h, w, lights, planes=torch.float32,
-                            full_height=None):
+                            full_height=None, mask=None):
         """K7's inputs from seeded random planes of an (h, w) frame seen by
-        the test scene's camera at 1080p (coverage 0.8)."""
+        the test scene's camera at 1080p (coverage 0.8, or the (h, w) bool
+        ``mask``)."""
         rng = np.random.default_rng(seed)
         cam = load_test_scene()[0].active_camera
         vp = tg.view_proj_from_camera(cam, WIDTH, HEIGHT)
@@ -1506,7 +1596,7 @@ def main(argv=None) -> int:
             t(rng.standard_normal((h, w, 3)).astype(np.float32)),
             t(rng.uniform([-4, 0, -4], [4, 3, 4], (h, w, 3)).astype(
                 np.float32)),
-            t(rng.random((h, w)) < 0.8),
+            t(rng.random((h, w)) < 0.8) if mask is None else t(mask),
             t(np.asarray(cam.position, np.float32)), t(lights[0]),
             t(lights[1]), t(vp),
             roughness=t(rng.uniform(0.05, 1.0, (h, w)).astype(np.float32)),
@@ -1528,10 +1618,12 @@ def main(argv=None) -> int:
 
     light_of = {"k7": k7, "k7_bf16": k7b}
 
-    def compare_light(key, label, inputs, row_offset=0, plain_key=None):
+    def compare_light(key, label, inputs, row_offset=0, plain_key=None,
+                      uncovered=False):
         """K7 vs its plain version on the same inputs: the 3 output planes
         equal as int32 bits.  ``plain_key``: record the plain call's time
-        (CUDA events) under that name."""
+        (CUDA events) under that name.  ``uncovered``: the frame covers no
+        pixel (K7 must write zeros)."""
         sync()
         out_k = light_of[key](*inputs, row_offset)
         sync()
@@ -1555,8 +1647,10 @@ def main(argv=None) -> int:
               f"{out_k.mean().item():.6f}", flush=True)
         if not same:
             raise AssertionError(f"{label}: K7 and its plain version differ")
-        if cov <= 0.0 or pairs == 0:
+        if (cov <= 0.0) != uncovered or pairs == 0:
             raise AssertionError(f"{label}: nothing lit proves nothing")
+        if uncovered and out_k.view(torch.int32).any():
+            raise AssertionError(f"{label}: an uncovered pixel is not 0")
         results[key]["err"] = max(results[key]["err"], float(err.item()))
         return pairs, evals, empty
 
@@ -1597,6 +1691,43 @@ def main(argv=None) -> int:
             compare_light(key, "random planes, lights behind the camera",
                           random_light_inputs(1, PAD_H, PAD_W, lights,
                                               planes))
+        # The work-item cut (light_kernel.ITEM_PIXELS covered pixels an
+        # item, light_kernel.light_work_items): one covered pixel in a tile,
+        # a checkerboard, every pixel, none, and tiles of exactly P and
+        # P + 1 covered pixels, f32 and bf16 planes, the wide lights.
+        P = light_kernel.ITEM_PIXELS
+        th, tw = raster.TILE_H, raster.TILE_W
+        one = np.zeros((PAD_H, PAD_W), bool)
+        one[th + 5, tw + 70] = True
+        edge = np.zeros((PAD_H, PAD_W), bool)
+        for (ty, tx), n in (((0, 0), P), ((1, 1), P + 1),
+                            ((2, 3), min(2 * P + 1, th * tw))):
+            tile = np.zeros(th * tw, bool)
+            tile[:n] = True
+            edge[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw] = \
+                tile.reshape(th, tw)
+        masks = {
+            "one covered pixel": one,
+            "checkerboard": (np.arange(PAD_H)[:, None]
+                             + np.arange(PAD_W)[None, :]) % 2 == 1,
+            "fully covered": np.ones((PAD_H, PAD_W), bool),
+            "empty": np.zeros((PAD_H, PAD_W), bool),
+            f"tiles of exactly {P}, {P + 1} and {min(2 * P + 1, th * tw)} "
+            "covered pixels": edge,
+        }
+        items, grid = light_kernel.light_work_items(
+            torch.from_numpy(edge), P)
+        print(f"  work items of {P} covered pixels: the last mask's "
+              f"{torch.unique(items[:, 0] * grid + items[:, 1]).numel()} "
+              f"items in a grid of {grid} blocks")
+        for name, mask in masks.items():
+            for key, planes in (("k7", torch.float32), ("k7_bf16",
+                                                        torch.bfloat16)):
+                compare_light(key, f"random planes, {name}, wide lights",
+                              random_light_inputs(5, PAD_H, PAD_W,
+                                                  baseline_lights("wide"),
+                                                  planes, mask=mask),
+                              uncovered=name == "empty")
         # Two r2-sized lights off the right edge and one on screen.
         side = np.cross(fwd, np.float32([0, 1, 0]))
         side = (side / np.linalg.norm(side)).astype(np.float32)
@@ -1961,15 +2092,6 @@ def main(argv=None) -> int:
      lattice_big) = large or (None,) * 8
 
     # -- 5l. lit main path --------------------------------------------------
-    def checker_texture(size=256):
-        """The 256x256 checker pattern of BASELINE's lit_1080p cell
-        (benchmarks/configs.py checker_texture), built here."""
-        y, x = np.mgrid[0:size, 0:size]
-        c = (((x // 16) ^ (y // 16)) & 1).astype(np.float32)
-        img = np.stack([c, 0.5 + 0.5 * c, 1.0 - 0.5 * c, np.ones_like(c)],
-                       axis=-1)
-        return Texture.from_array(img.astype(np.float32))
-
     def lit_renderer(scene_md, binning="auto", device=DEVICE, width=WIDTH,
                      height=HEIGHT, texture=None, tri_align=256):
         r = Renderer(RenderConfig(width=width, height=height,
@@ -2002,17 +2124,6 @@ def main(argv=None) -> int:
             raise AssertionError(f"lit {label}: expected one {key} launch, "
                                  f"got {launched}")
         return img, depth, launched[key]
-
-    def lit_frame_rows(r):
-        """The setup rows of a lit renderer's current frame on its device."""
-        b = r._buffers()
-        c = r._lit_constants()
-        return tg.geometry_pipeline_cols(
-            b["corner_cols"], b["tri_node"],
-            torch.from_numpy(c["matrices"]).to(dev), r.config.width,
-            r.config.height,
-            normal_matrices=torch.from_numpy(c["normal_mats"]).to(dev),
-            material_table=b["materials"])
 
     def lsb_diff(a, b):
         d = np.abs(a.astype(np.int32) - b.astype(np.int32))
@@ -2520,7 +2631,7 @@ def main(argv=None) -> int:
                     "k5": "raster_hier_kernel", "k6": "raster_lists_kernel",
                     "k2g": "gbuffer_small_kernel",
                     "k3g": "gbuffer_hier_kernel",
-                    "k4g": "gbuffer_records_kernel",
+                    "k4g": "gbuffer_records_keyed_kernel",
                     "k5g": "gbuffer_hbm_kernel",
                     "k6g": "gbuffer_lists_kernel",
                     "k2d": "depth_small_kernel", "k3d": "depth_hier_kernel",
@@ -2543,17 +2654,18 @@ def main(argv=None) -> int:
                     "k10trans": "raster_trans_kernel",
                     "k10hbm2": "raster_hbm2_kernel",
                     "k10scan": "raster_scan_kernel"}
-    # K4 and K4d issue three device operations a call: the key plane's
-    # memset, the item kernel (kernel_names) and the resolve kernel.
+    # K4, K4g and K4d issue three device operations a call: the key
+    # plane's memset, the item kernel (kernel_names) and the resolve kernel.
     resolve_names = {"k4": "raster_records_resolve_kernel",
+                     "k4g": "gbuffer_records_resolve_kernel",
                      "k4d": "depth_records_resolve_kernel"}
     port_kernels = set(kernel_names.values()) | set(resolve_names.values())
 
     def call_durations(key, events):
         """Device us of each call of kernel ``key`` in a trace's events:
-        its kernel's duration, and for K4/K4d the sum of a call's three
+        its kernel's duration, and for K4/K4g/K4d the sum of a call's three
         device operations, the memset just before the item kernel, the
-        item kernel and the resolve kernel just after it.  A K4/K4d call
+        item kernel and the resolve kernel just after it.  Such a call
         without all three counts as no call, so the trace reads short."""
         name = kernel_names[key]
         if key not in resolve_names:
@@ -4000,10 +4112,11 @@ def main(argv=None) -> int:
             planes = (raster.GBUFFER_PLANES if key.endswith("g")
                       else 1 if key.endswith("d") else 2)
             evals = nbytes = None
-            if key in ("k4", "k4d"):
+            if key in resolve_names:  # the keyed body
                 evals, nbytes = keyed_work(
                     prep_k, w, h, HEIGHT if h == PAD_H else h, planes,
-                    kern(*prep_k, w, h)[1] if key == "k4" else None)
+                    None if key == "k4d" else kern(*prep_k, w, h)[1],
+                    WINNER_GBUF_BYTES if key == "k4g" else WINNER_BYTES)
             set_bound(key, flat_inputs(prep_k), pairs, w, h, shape,
                       planes=planes, evals=evals, nbytes=nbytes)
             print(f"  {key} {shape} {w}x{h}: kernel {res['ms']:.4f} "

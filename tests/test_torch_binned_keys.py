@@ -13,11 +13,16 @@ package's NumPy geometry:
 * (c) work items: the plain evaluation cut into work items, each into its
   own key plane, merged by the minimum and resolved, equals
   ``raster_binned_plain`` and ``depth_binned_plain`` bit for bit, with
-  items small enough to split exact ties;
+  items small enough to split exact ties; in the G-buffer mode (K4g: K4's
+  keys, the winner resolved into 13 planes) it equals
+  ``gbuffer_binned_plain`` in all 13 planes as int32 on lit rows (random
+  uv, normals and per-triangle materials): the padded soup, the duplicated
+  soup at 16-record items (ties split across items), a row at z == 1.0 and
+  -0.0 ties both ways;
 * (d) the work-item table covers each span and the leftover superblocks once.
 
 The CUDA kernels are held against the plain versions on the card by
-chip_smoke.py (phases 4b, 4d, 5b and 5s).
+chip_smoke.py (phases 4b, 4g, 4d, 5b, 5l and 5s).
 """
 
 import numpy as np
@@ -38,13 +43,27 @@ F32_SPECIALS = np.array(
      np.nan, -1e-45, -0.5, 2.0], dtype=np.float32)
 
 
-def _rows(scene, md, w, h, tri_align=64):
-    """Setup rows of the JAX package's NumPy geometry at (w, h)."""
+def _rows(scene, md, w, h, tri_align=64, lit=False, seed=0):
+    """Setup rows of the JAX package's NumPy geometry at (w, h); ``lit``:
+    with random uv and normals per corner, random normal matrices per draw
+    and a random material table per triangle (seeded), so that a wrong
+    winner shows in the G-buffer planes."""
     flat = flatten_scene(scene, md, pad=True, tri_align=tri_align)
     vp = g.view_proj_from_camera(scene.active_camera, w, h)
     mats = np.einsum("nij,jk->nik", flat.node_to_world, vp).astype(np.float32)
-    ti, tf = g.geometry_pipeline_cols(np, *flat.expand_corner_cols(), mats,
-                                      w, h)
+    ccols, tri_node = flat.expand_corner_cols()
+    kw = {}
+    if lit:
+        rng = np.random.default_rng(seed)
+        uv_normal = np.array([c * 16 + j for c in range(3)
+                              for j in range(8, 13)])
+        ccols[uv_normal] = rng.standard_normal(
+            (len(uv_normal), ccols.shape[1])).astype(np.float32)
+        kw = dict(normal_matrices=rng.standard_normal(
+                      (len(mats), 3, 3)).astype(np.float32),
+                  material_table=rng.random(
+                      (ccols.shape[1], g.MATERIAL_COLS), dtype=np.float32))
+    ti, tf = g.geometry_pipeline_cols(np, ccols, tri_node, mats, w, h, **kw)
     return torch.from_numpy(ti), torch.from_numpy(tf)
 
 
@@ -128,11 +147,12 @@ def _cover_z(ri, rf, row, col):
 
 def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
                        width: int, height: int, depth: bool,
-                       item_records: int):
-    """K4 (or with ``depth`` K4d) as the keyed body computes it: each work
-    item's keys over its records' and leftover rows' windows (a scatter
-    min), the items' keys merged by their minimum, then the resolve from
-    the winner."""
+                       item_records: int, gbuffer: bool = False):
+    """K4 (or with ``depth`` K4d, with ``gbuffer`` K4g) as the keyed body
+    computes it: each work item's keys over its records' and leftover
+    rows' windows (a scatter min), the items' keys merged by their
+    minimum, then the resolve from the winner (K4g: K4's keys, the 13
+    planes under the buf * (covered ? 1/den : 0) epilogue)."""
     del blocks  # a row that meets a tile is in its block's union
     th, tw = tr.TILE_H, tr.TILE_W
     tiles_x = width // tw
@@ -179,15 +199,21 @@ def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
     ids = (keys & 0xFFFFFFFF)[won]
     row, col = torch.nonzero(won, as_tuple=True)
     _, interp, zw = _cover_z(hier[ids], tf[ids], row, col)
+    latches = tr._LATCHES + (tr._GBUF_LATCHES if gbuffer else ())
+    consts = tr._CONSTS if gbuffer else ()
     out = {name: torch.zeros((height, width), dtype=torch.float32)
-           for name, _ in tr._LATCHES}
+           for name, _ in latches + consts}
     out["z"] = torch.ones((height, width), dtype=torch.float32)
     out["z"][won] = zw
-    for name, c in tr._LATCHES:
+    for name, c in latches:
         out[name][won] = interp(c)
+    for name, c in consts:
+        out[name][won] = tf[ids, c]
     planes = {name: p.reshape(height // th, th, tiles_x,
                               tw).permute(0, 2, 1, 3)
               for name, p in out.items()}
+    if gbuffer:
+        return tr._resolve_gbuffer(planes, masked_inv=True)
     return tr._resolve_planes(planes)
 
 
@@ -339,6 +365,22 @@ def test_windows_hold_every_covered_pixel(name):
         assert int(clamped.sum()) > 0
 
 
+def _ties_split_across_items(prep, items):
+    """Span records that meet a record with the same vertices (a duplicate,
+    another id) in one tile from another work item: exact ties that the
+    items' merge must break."""
+    item_of = torch.repeat_interleave(
+        torch.arange(items.shape[0]), items[:, 4] - items[:, 3])
+    verts = prep[1][int(prep[0][0]):int(prep[0][-1]), :6].tolist()
+    pos = {}
+    split = 0
+    for it, v in zip(item_of.tolist(), verts):
+        key = (int(items[it, 0]), *v)
+        split += key in pos and pos[key] != it
+        pos[key] = it
+    return split
+
+
 ITEM_CASES = {
     "duplicated_soup_item3": (_duplicated_soup, {}, 3),
     "padding_soup_item2": (_padding_soup, {}, 2),
@@ -365,18 +407,7 @@ def test_items_merged_equal_the_plain_versions(name):
     items = tr.keyed_work_items(prep[0], item, prep[3].shape[0])
     assert int((items[:, 2] > 1).sum()) > 0  # some tile is split
     if name.startswith("duplicated"):
-        # Some record and its duplicate (the same vertices, another id)
-        # meet in one tile from different items: the tie crosses items.
-        item_of = torch.repeat_interleave(
-            torch.arange(items.shape[0]), items[:, 4] - items[:, 3])
-        verts = prep[1][int(prep[0][0]):int(prep[0][-1]), :6].tolist()
-        pos = {}
-        split = 0
-        for k, (it, v) in enumerate(zip(item_of.tolist(), verts)):
-            key = (int(items[it, 0]), *v)
-            split += key in pos and pos[key] != it
-            pos[key] = it
-        assert split > 0
+        assert _ties_split_across_items(prep, items) > 0
     if "budget" in name:
         assert int((prep[5][:, g.I_VALID] > 0).sum()) > 0  # leftover rows
 
@@ -411,3 +442,85 @@ def test_work_items_cover_each_span_once(seed):
         assert (mine[1:, 5] == mine[:-1, 6]).all()
     # Numbered tile by tile.
     assert (items[1:, 0] >= items[:-1, 0]).all()
+
+
+def _lit_padding_soup():
+    """The padding-row soup with the lit columns."""
+    return (_rows(*make_jax_soup(200, seed=2, extent=6.0), 256, 80,
+                  lit=True, seed=4), (256, 96))
+
+
+def _lit_duplicated_soup():
+    """200 soup triangles and their duplicates (the same vertices, later
+    rows) with their own materials: every duplicate ties its original."""
+    scene, md = make_jax_soup(200, seed=3, extent=2.0)
+    v = md.vertex_data.reshape(-1, 16)
+    md2 = type(md)()
+    v = np.concatenate([v, v])
+    md2.append_mesh(v, np.arange(len(v), dtype=np.uint32))
+    return _rows(scene, md2, 256, 128, lit=True, seed=5), (256, 128)
+
+
+def _lit_pair(za_a=None, za_b=None, w=128, h=32, seed=6):
+    """A tall triangle A and a short triangle B inside it, submitted after
+    A (tests/test_raster_pallas.py :556-606), through the port's geometry
+    on the CPU with random uv, normals and per-triangle materials;
+    ``za_a``/``za_b`` replace a row's z-plane coefficients."""
+    rng = np.random.default_rng(seed)
+    positions = torch.tensor([
+        [-0.8, -0.8, 0.5, 1.0], [0.8, -0.8, 0.5, 1.0], [0.0, 0.8, 0.5, 1.0],
+        [-0.2, -0.1, 0.3, 1.0], [0.2, -0.1, 0.3, 1.0], [0.0, 0.1, 0.3, 1.0]])
+    attrs = torch.from_numpy(rng.random((6, 12), dtype=np.float32))
+    ti, tf = tg.geometry_pipeline(
+        positions, attrs, torch.tensor([[0, 1, 2], [3, 4, 5]],
+                                       dtype=torch.int32),
+        torch.eye(4)[None], torch.zeros(6, dtype=torch.int32), w, h,
+        normal_matrices=torch.from_numpy(
+            rng.standard_normal((1, 3, 3)).astype(np.float32)),
+        material_table=torch.from_numpy(
+            rng.random((2, g.MATERIAL_COLS), dtype=np.float32)))
+    a, b = torch.nonzero(ti[:, g.I_VALID] > 0).flatten().tolist()
+    for row, za in ((a, za_a), (b, za_b)):
+        if za is not None:
+            tf[row, g.F_ZA0:g.F_ZA0 + 3] = torch.tensor(za)
+    return (ti, tf), (w, h)
+
+
+# name: (rows, item size, what the frame must show)
+GBUFFER_ITEM_CASES = {
+    "padding_soup_item2": (_lit_padding_soup, 2, "padding"),
+    "duplicated_soup_item16": (_lit_duplicated_soup, 16, "split_ties"),
+    "z_one_item1": (lambda: _lit_pair(za_a=(0.25, 0.0, 0.0)), 1, "z_one"),
+    "neg_zero_first_item1": (
+        lambda: _lit_pair(za_a=(-0.0,) * 3, za_b=(0.0,) * 3), 1, "neg_zero"),
+    "pos_zero_first_item1": (
+        lambda: _lit_pair(za_a=(0.0,) * 3, za_b=(-0.0,) * 3), 1, "pos_zero"),
+}
+
+
+@pytest.mark.parametrize("name", list(GBUFFER_ITEM_CASES))
+def test_gbuffer_items_merged_equal_the_plain_version(name):
+    build, item, shows = GBUFFER_ITEM_CASES[name]
+    (ti, tf), (w, h) = build()
+    prep = tr.prepare_binned_hbm_inputs(ti, tf, w, h)
+    ref = tr.gbuffer_binned_plain(*prep, w, h)
+    got = keyed_binned_plain(*prep[:7], w, h, False, item, gbuffer=True)
+    assert len(got) == len(ref) == tr.GBUFFER_PLANES
+    for a, b in zip(got, ref):
+        _bits(a.numpy(), b.numpy())
+    depth = ref[1]
+    assert int((depth < 1.0).sum()) > 0
+    items = tr.keyed_work_items(prep[0], item, prep[3].shape[0])
+    if shows in ("padding", "split_ties"):  # many winners' materials
+        assert torch.unique(ref[12][depth < 1.0]).numel() > 50
+    if shows == "padding":
+        assert (depth[80:] < 1.0).sum() > 0  # rows below the geometry
+        assert int((items[:, 2] > 1).sum()) > 0
+    elif shows == "split_ties":
+        assert _ties_split_across_items(prep, items) > 0
+    elif shows == "z_one":
+        latched = int(((depth == 1.0) & (ref[0] != -(1 << 24))).sum())
+        assert latched == 1
+    else:
+        neg = int((torch.signbit(depth) & (depth == 0.0)).sum())
+        assert (neg > 0) == (shows == "neg_zero")

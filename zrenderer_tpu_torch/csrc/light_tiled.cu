@@ -13,19 +13,28 @@
 //   consts  (4,) f32 camera x, y, z and ambient.
 // Output (3, H, W) f32: where(mask > 0, acc, 0) per channel.
 //
-// One block a 32x128 tile.  The block builds its light list in shared
-// memory: each pass tests 256 lights' boxes against the tile (its first
-// row is tile_i * 32 + row_offset, global rows for a band) and compacts
-// the hits with a warp ballot and a per-warp prefix, so the list keeps
-// light-id order; the listed lights' position and colour are staged
-// beside it.  No (tiles, L) list leaves the block.  Then each of the 256
-// threads takes 16 pixels (one column, every second row), computes the
-// per-pixel prologue and loops the list; an uncovered pixel writes 0 at
-// once (the reference's where(mask, acc, 0) gives the same bits).  More
-// than MAX_LIGHTS lights are taken in chunks of MAX_LIGHTS ids, one list
-// each, in id order: a pixel's sums are stored to `out` after a chunk and
-// reloaded for the next (the prologue is recomputed), so the order of the
-// adds, and the bits, do not depend on the chunking.
+// The lights are listed per 32x128 tile, and a tile's covered pixels are
+// cut into work items of at most item_pixels (light_kernel.ITEM_PIXELS),
+// one block of 256 threads each.  The grid is an upper bound, tiles x
+// ceil(4096 / item_pixels) blocks, so the host never waits for a count:
+// every block of a tile compacts the tile's covered pixels in row-major
+// order (a warp ballot over 32 columns and a per-warp prefix, as the
+// light list) and keeps the indices of its own share in shared memory; a
+// block past the tile's covered count exits there, and the tile's first
+// block writes 0 to its uncovered pixels in that pass (the reference's
+// where(mask, acc, 0) gives the same bits).  A block then builds its
+// tile's light list in shared memory: each pass tests 256 lights' boxes
+// against the tile (its first row is tile_i * 32 + row_offset, global rows
+// for a band) and compacts the hits the same way, so the list keeps
+// light-id order; each listed light is staged as one float4 (x, y, z, r)
+// and one float2 (g, b), two vector loads in the loop.  No (tiles, L) list
+// leaves the block.  Then the threads take the item's pixels in turn, the
+// 32 lanes of a warp 32 covered pixels, each computing the per-pixel
+// prologue and looping the list.  More than MAX_LIGHTS lights are taken in
+// chunks of MAX_LIGHTS ids, one list each, in id order: a pixel's sums are
+// stored to `out` after a chunk and reloaded for the next by the same
+// thread (the prologue is recomputed), so the order of the adds, and the
+// bits, do not depend on the chunking or on the items.
 //
 // Numerics: the bits of the plain version, tiled_light_plain.  Every
 // product, sum and difference is pinned with __fmul_rn/__fadd_rn/
@@ -35,19 +44,18 @@
 // __float2bfloat16_rn, its interpret-mode form; jnp.maximum(x, c) is
 // x < c ? c : x, so a NaN stays NaN.
 //
-// What bounds it on the H100: operations.  Each (pixel, listed light)
-// evaluation is 81 float operations (chip_smoke.py OPS_PER_LIGHT), four
-// of them IEEE divides and three square roots or bf16 round trips, the
-// divides and roots each a multi-instruction sequence; at 1920x1088 with
-// all 256 lights listed in every tile that is up to 535 M evaluations,
-// against 100 MB of device memory in (f32 planes and the mask) and 25 MB
-// out.  The simple design keeps a pixel's prologue (22 values) in
-// registers across the light loop, reads the lights from shared memory as
-// broadcasts (every thread of a warp reads the same light) and skips
-// uncovered pixels.  ptxas (sm_90a, -O3 -fmad=false): 64 registers, 24.6
-// KB of shared memory, both instantiations.  Later work: several pixels a
-// thread per light to reuse the light's loads, the fast approximate
-// reciprocal where parity allows it.
+// What bounds it on the H100: operations, the instructions of each (pixel,
+// listed light) evaluation (chip_smoke.py OPS_PER_LIGHT, counted in the
+// built library's SASS), four IEEE divides and three square roots or bf16
+// round trips among them, each a multi-instruction sequence; at 1920x1088
+// with all 256 lights listed in every tile that is up to 535 M
+// evaluations, against 100 MB of device memory in (f32 planes and the
+// mask) and 25 MB out.  The first port ran one block a tile over all its
+// pixels: one wave of 510 blocks whose time the SMs that drew the most
+// covered tiles set, with the lanes of uncovered pixels idle through the
+// light loop of their warp.  Cutting the covered pixels into items of
+// equal size balances the SMs and keeps every lane of a warp busy.  The
+// pixel's prologue (22 values) stays in registers across the light loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,9 +65,9 @@ namespace light {
 
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
+constexpr int TILE_PIX = TILE_H * TILE_W;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int PIX = TILE_H * TILE_W / THREADS;  // 16 pixels a thread
 constexpr int MAX_LIGHTS = 1024;  // a chunk (light_kernel.MAX_LIGHTS)
 
 // float32 of the reference's constants (hex, so no decimal rounding).
@@ -90,6 +98,27 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
 }
 
+// Exclusive prefix of this thread's flag over the block's threads in
+// thread order (a ballot a warp, then the warps' counts); total gets the
+// count.  Every thread calls it; it ends with the block synchronised.
+__device__ __forceinline__ int block_rank(bool flag, int* warp_counts,
+                                          int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+  if (lane == 0) warp_counts[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int n = warp_counts[w];
+    before += w < warp ? n : 0;
+    total += n;
+  }
+  __syncthreads();  // warp_counts is rewritten by the next call
+  return before + __popc(ballot & ((1u << lane) - 1u));
+}
+
 // CHUNKED: more than MAX_LIGHTS lights, taken in chunks.  The one-chunk
 // instantiation keeps the sums in registers from the ambient term on, with
 // no read of `out`.
@@ -100,24 +129,47 @@ __global__ void __launch_bounds__(THREADS)
                        const int* __restrict__ bounds,
                        const float* __restrict__ lights, int num_lights,
                        const float* __restrict__ consts, int row_offset,
-                       float* __restrict__ out, int width, int height) {
-  __shared__ float s_lx[MAX_LIGHTS], s_ly[MAX_LIGHTS], s_lz[MAX_LIGHTS];
-  __shared__ float s_cr[MAX_LIGHTS], s_cg[MAX_LIGHTS], s_cb[MAX_LIGHTS];
+                       int item_pixels, float* __restrict__ out, int width,
+                       int height) {
+  __shared__ float4 s_pos[MAX_LIGHTS];  // x, y, z and red of each light
+  __shared__ float2 s_gb[MAX_LIGHTS];   // its green and blue
+  __shared__ unsigned short s_pix[TILE_PIX];  // the item's tile pixels
   __shared__ int s_warp[WARPS];
 
+  const int items_per_tile = (TILE_PIX + item_pixels - 1) / item_pixels;
+  const int tile = blockIdx.x / items_per_tile;
+  const int item = blockIdx.x % items_per_tile;
   const int tiles_x = width / TILE_W;
-  const int tile_i = blockIdx.x / tiles_x;
-  const int tile_j = blockIdx.x % tiles_x;
+  const int tile_i = tile / tiles_x;
   const int row0 = tile_i * TILE_H + row_offset;  // global first row
-  const int col0 = tile_j * TILE_W;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int col0 = (tile % tiles_x) * TILE_W;
+  const size_t plane = (size_t)width * height;
+
+  // The tile's covered pixels in row-major order; this item's are ranks
+  // [first, first + item_pixels).  The first item zeroes the uncovered.
+  const int first = item * item_pixels;
+  int covered = 0;
+  for (int base = 0; base < TILE_PIX; base += THREADS) {
+    const int p = base + threadIdx.x;
+    const size_t idx =
+        (size_t)(tile_i * TILE_H + p / TILE_W) * width + col0 + p % TILE_W;
+    const bool cov = mask[idx] > 0;
+    if (!cov && item == 0) {
+      out[idx] = 0.0f;
+      out[plane + idx] = 0.0f;
+      out[2 * plane + idx] = 0.0f;
+    }
+    int total;
+    const int rank = covered + block_rank(cov, s_warp, total);
+    if (cov && rank >= first && rank - first < item_pixels)
+      s_pix[rank - first] = (unsigned short)p;
+    covered += total;
+  }
+  const int n = min(covered - first, item_pixels);  // block-uniform
+  if (n <= 0) return;
 
   const float cam_x = consts[0], cam_y = consts[1], cam_z = consts[2];
   const float ambient = consts[3];
-  const size_t plane = (size_t)width * height;
-  const int col = col0 + (threadIdx.x % TILE_W);
-  const int r_first = threadIdx.x / TILE_W;
 
   // The lights go through shared memory in chunks of MAX_LIGHTS, in id
   // order; between chunks each pixel's sums wait in `out` (an exact f32
@@ -126,51 +178,34 @@ __global__ void __launch_bounds__(THREADS)
   const int num_chunks =
       CHUNKED ? (num_lights + MAX_LIGHTS - 1) / MAX_LIGHTS : 1;
   for (int chunk = 0; chunk < num_chunks; ++chunk) {
-    const int first = chunk * MAX_LIGHTS;
-    const int last = min(first + MAX_LIGHTS, num_lights);
+    const int l_first = chunk * MAX_LIGHTS;
+    const int l_last = min(l_first + MAX_LIGHTS, num_lights);
 
-    // The chunk's lists in id order: ballot, then a per-warp prefix.
+    // The chunk's list in id order.
     int count = 0;
-    for (int base = first; base < last; base += THREADS) {
+    for (int base = l_first; base < l_last; base += THREADS) {
       const int l = base + threadIdx.x;
       bool hit = false;
-      if (l < last) {
+      if (l < l_last) {
         const int* b = bounds + 4 * l;
         hit = b[1] >= col0 && b[0] < col0 + TILE_W && b[3] >= row0 &&
               b[2] < row0 + TILE_H;
       }
-      const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-      if (lane == 0) s_warp[warp] = __popc(ballot);
-      __syncthreads();
-      int slot = count, total = 0;
-      for (int w = 0; w < WARPS; ++w) {
-        const int n = s_warp[w];
-        slot += w < warp ? n : 0;
-        total += n;
-      }
+      int total;
+      const int slot = count + block_rank(hit, s_warp, total);
       if (hit) {
-        slot += __popc(ballot & ((1u << lane) - 1u));
         const float* src = lights + 6 * l;
-        s_lx[slot] = src[0];
-        s_ly[slot] = src[1];
-        s_lz[slot] = src[2];
-        s_cr[slot] = src[3];
-        s_cg[slot] = src[4];
-        s_cb[slot] = src[5];
+        s_pos[slot] = make_float4(src[0], src[1], src[2], src[3]);
+        s_gb[slot] = make_float2(src[4], src[5]);
       }
       count += total;
-      __syncthreads();  // s_warp is rewritten by the next pass
     }
+    __syncthreads();  // the staged lights
 
-    for (int k = 0; k < PIX; ++k) {
-      const int row = tile_i * TILE_H + r_first + k * (THREADS / TILE_W);
-      const size_t idx = (size_t)row * width + col;
-      if (!(mask[idx] > 0)) {
-        out[idx] = 0.0f;
-        out[plane + idx] = 0.0f;
-        out[2 * plane + idx] = 0.0f;
-        continue;
-      }
+    for (int j = threadIdx.x; j < n; j += THREADS) {
+      const int p = s_pix[j];
+      const size_t idx = (size_t)(tile_i * TILE_H + p / TILE_W) * width +
+                         col0 + p % TILE_W;
       const float ar = load(planes, idx);
       const float ag = load(planes, plane + idx);
       const float ab = load(planes, 2 * plane + idx);
@@ -230,9 +265,11 @@ __global__ void __launch_bounds__(THREADS)
       // The chunk's listed lights in id order (_tiled_light_kernel
       // :161-201).
       for (int s = 0; s < count; ++s) {
-        const float dx = sub(s_lx[s], wx);
-        const float dy = sub(s_ly[s], wy);
-        const float dz = sub(s_lz[s], wz);
+        const float4 lp = s_pos[s];
+        const float2 lc = s_gb[s];
+        const float dx = sub(lp.x, wx);
+        const float dy = sub(lp.y, wy);
+        const float dz = sub(lp.z, wz);
         const float inv_d =
             rsqrt_rn(vmax(dot3(dx, dx, dy, dy, dz, dz), EPS_LEN));
         const float lxn = mul(dx, inv_d), lyn = mul(dy, inv_d);
@@ -257,12 +294,12 @@ __global__ void __launch_bounds__(THREADS)
         const float fr = add(f0r, mul(omf0r, t5));
         const float fg = add(f0g, mul(omf0g, t5));
         const float fb = add(f0b, mul(omf0b, t5));
-        acc_r = add(acc_r, mul(add(dbr, mul(fr, sub(spec, dbr))),
-                               mul(s_cr[s], rad)));
-        acc_g = add(acc_g, mul(add(dbg, mul(fg, sub(spec, dbg))),
-                               mul(s_cg[s], rad)));
-        acc_b = add(acc_b, mul(add(dbb, mul(fb, sub(spec, dbb))),
-                               mul(s_cb[s], rad)));
+        acc_r = add(acc_r,
+                    mul(add(dbr, mul(fr, sub(spec, dbr))), mul(lp.w, rad)));
+        acc_g = add(acc_g,
+                    mul(add(dbg, mul(fg, sub(spec, dbg))), mul(lc.x, rad)));
+        acc_b = add(acc_b,
+                    mul(add(dbb, mul(fb, sub(spec, dbb))), mul(lc.y, rad)));
       }
       out[idx] = acc_r;
       out[plane + idx] = acc_g;
@@ -276,30 +313,34 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace zr
 
 // K7 on the current stream.  bf16 != 0: the planes are bfloat16.
+// item_pixels: the covered pixels of a work item, 1..4096.
 extern "C" int zr_light_tiled(const void* planes, int bf16, const int* mask,
                               const int* bounds, const float* lights,
                               int num_lights, const float* consts,
-                              int row_offset, float* out, int height,
-                              int width, void* stream) {
+                              int row_offset, int item_pixels, float* out,
+                              int height, int width, void* stream) {
   using namespace zr::light;
-  if (num_lights < 0 || height % TILE_H || width % TILE_W)
+  if (num_lights < 0 || height % TILE_H || width % TILE_W ||
+      item_pixels < 1 || item_pixels > TILE_PIX)
     return (int)cudaErrorInvalidValue;
   const int num_tiles = (height / TILE_H) * (width / TILE_W);
   if (num_tiles == 0) return (int)cudaSuccess;
+  const int blocks =
+      num_tiles * ((TILE_PIX + item_pixels - 1) / item_pixels);
   cudaStream_t s = (cudaStream_t)stream;
   const bool chunked = num_lights > MAX_LIGHTS;
   if (bf16) {
     auto kernel = chunked ? light_tiled_kernel<__nv_bfloat16, true>
                           : light_tiled_kernel<__nv_bfloat16, false>;
-    kernel<<<num_tiles, THREADS, 0, s>>>(
+    kernel<<<blocks, THREADS, 0, s>>>(
         (const __nv_bfloat16*)planes, mask, bounds, lights, num_lights,
-        consts, row_offset, out, width, height);
+        consts, row_offset, item_pixels, out, width, height);
   } else {
     auto kernel = chunked ? light_tiled_kernel<float, true>
                           : light_tiled_kernel<float, false>;
-    kernel<<<num_tiles, THREADS, 0, s>>>(
+    kernel<<<blocks, THREADS, 0, s>>>(
         (const float*)planes, mask, bounds, lights, num_lights, consts,
-        row_offset, out, width, height);
+        row_offset, item_pixels, out, width, height);
   }
   return (int)cudaGetLastError();
 }

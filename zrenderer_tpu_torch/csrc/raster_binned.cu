@@ -13,9 +13,9 @@
 // from HBM in aligned slabs, or row ids into VMEM-resident rows); here all
 // read global memory, so one register body (binned_scan) serves K4c, K6
 // and their variants, templated on the span source (records or row ids)
-// and on the coarse phase; K4 and K4d run the keyed body (below).  Inputs
-// are the outputs of prepare_binned_hbm_inputs / prepare_binned_inputs
-// (zrenderer_tpu_torch/ops/raster.py).
+// and on the coarse phase; K4, K4g and K4d run the keyed body (below).
+// Inputs are the outputs of prepare_binned_hbm_inputs /
+// prepare_binned_inputs (zrenderer_tpu_torch/ops/raster.py).
 //
 // What the register body computes, per 32x128 tile (one CUDA block, tile
 // state in registers, raster_common.cuh), and the keyed body too:
@@ -40,17 +40,18 @@
 // walks a tile's whole span, whose lengths differ by orders of magnitude
 // (K4d's 1024^2 map has 256 tiles for 132 SMs).
 //
-// K4 and K4d run the keyed body instead (keyed_records below), with the
-// same planes bit for bit:
+// K4, K4g and K4d run the keyed body instead (keyed_records below), with
+// the same planes bit for bit:
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
-//   atomicMin.  K4: (order bits of z, row id), whose minimum is the (z, row
-//   id) tie-break.  K4d: (order bits of z, visit index, sign of z), whose
-//   minimum is the strict-less test in visit order with the first visited
-//   row kept: a span record's visit index is its record index, a leftover
-//   row's is the span's end plus its row id.  -0.0 and +0.0 share order
-//   bits; z >= 0 filters first (NaN and negative z never compete).  K4's
-//   clear key (1.0, INT32_MAX) lets a row at z == 1.0 latch, as the
-//   register body does; K4d's (1.0, 0) never loses to one.
+//   atomicMin.  K4 and K4g: (order bits of z, row id), whose minimum is
+//   the (z, row id) tie-break.  K4d: (order bits of z, visit index, sign
+//   of z), whose minimum is the strict-less test in visit order with the
+//   first visited row kept: a span record's visit index is its record
+//   index, a leftover row's is the span's end plus its row id.  -0.0 and
+//   +0.0 share order bits; z >= 0 filters first (NaN and negative z never
+//   compete).  K4's and K4g's clear key (1.0, INT32_MAX) lets a row at z ==
+//   1.0 latch, as the register body does; K4d's (1.0, 0) never loses to
+//   one.
 // * Work in proportion to each record's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -64,32 +65,33 @@
 // * Records staged in shared memory with cp.async, double-buffered;
 //   leftover rows of the superblock -> block -> row walk are compacted into
 //   the same batches.  The body is templated on the key (FlatKeys,
-//   DepthKeys), which holds the tags and the resolve: K4g, K4c and K9 can
-//   move onto it as instantiations (a G-buffer resolve, a coarse producer,
-//   a band's row base).
+//   GbufKeys, DepthKeys), which holds the tags and the resolve: K4c and K9
+//   can move onto it as instantiations (a coarse producer, a band's row
+//   base).
 // * A tile's span is cut into work items of at most item_records records,
 //   one block each, which share the tile's leftover superblocks too.  A
 //   tile of one item resolves its keys in place; otherwise each item
 //   atomicMins the keys it lowered into a frame-sized key plane (8 bytes a
 //   pixel, set to all ones by a memset) and a second kernel resolves the
 //   plane's minimum, which is order-free.  Three device operations a call.
-// The resolve re-evaluates the winner from hier/tf: K4 its z (-0.0 kept)
-// and colour with the same interp3 bits, as K4g's; K4d decodes z from the
-// key.  Nothing moves the tensor cores; the records are read once.
+// The resolve re-evaluates the winner from hier/tf through
+// raster_common.cuh's resolve_winner, the register bodies' epilogue: K4 its
+// z (-0.0 kept) and colour, K4g the same and its 11 further planes; K4d
+// decodes z from the key.  Nothing moves the tensor cores; the records are
+// read once.
 //
 // K4g replaces rasterize_gbuffer_pallas_binned_hbm
 // (_binned_hbm_gbuffer_kernel, body _binned_hbm_body with the G-buffer
-// scratch, no coarse phase): K4's phases keeping z and the winning row id,
-// then the 13 planes resolved from the winner (raster_common.cuh
-// TileState::store_gbuffer, epilogue buf * (covered ? 1/den : 0)).  A
-// record's id (its last int, the reference's L_PID) and a leftover row's
-// id both index the padded, uncompacted setup rows that hier/tf hold
-// (prepare_binned_hbm_inputs gathers the records from them), so the
-// epilogue reads the winner from hier/tf whichever phase it came from;
-// hier differs from the records only in bbox and valid columns, which the
-// epilogue does not read.  Bound on the H100: as K4, plus the 13 output
-// planes (109 MB at 1920x1088, 0.032 ms at 3.35 TB/s).  ptxas (sm_90a, -O3
-// -fmad=false): K4g 112 registers against K4's 192, no spills.
+// scratch, no coarse phase): K4's key (GbufKeys, K4's FlatKeys with the
+// planes) and its work items, then the 13 planes resolved from the winner
+// (epilogue buf * (covered ? 1/den : 0)).  A record's id (its last int,
+// the reference's L_PID) and a leftover row's id both index the padded,
+// uncompacted setup rows that hier/tf hold (prepare_binned_hbm_inputs
+// gathers the records from them), so the resolve reads the winner from
+// hier/tf whichever phase it came from; hier differs from the records only
+// in bbox and valid columns, which the resolve does not read.  Bound on the
+// H100: as K4's, plus 11 more output planes (92 MB at 1920x1088) and the
+// winners' uv, normal and constant coefficients.
 //
 // K6g replaces rasterize_gbuffer_pallas_binned (_binned_gbuffer_kernel over
 // global pair lists, epilogue buf * where(covered, inv, 0) at :1452-1455):
@@ -114,11 +116,12 @@
 //        _binned_hbm_gbuffer_band_kernel :2478);
 //   K9d  rasterize_setup_pallas_binned_band_dist (:2701,
 //        _binned_hbm_band_dist_kernel_factory :2686).
-// Each is K4's (K9g: K4g's) tile body over one band: the grid is the band's
-// tiles, a tile's pixel rows start at row_base + i * 32, and the outputs are
-// band-local (band_h, W) planes.  K9's spans are indexed by band tile (the
-// band-local prepare) or, with band_local = 0, by global tile
-// (row_base / 32 + i) * tiles_x + j; one entry point takes the flag.  K9d
+// Each is the register tile body of K4 (K9g: of K4g) over one band: the
+// grid is the band's tiles, a tile's pixel rows start at row_base + i * 32,
+// and the outputs are band-local (band_h, W) planes.  K9's spans are
+// indexed by band tile (the band-local prepare) or, with band_local = 0,
+// by global tile (row_base / 32 + i) * tiles_x + j; one entry point takes
+// the flag.  K9d
 // streams n_src spans per tile, source by source, from offsets laid out
 // (n_src, band_tiles + 1) and rebased to the concatenated slabs, then the
 // leftover hierarchy.  The (z, row id) tie-break makes the order of the
@@ -145,8 +148,8 @@ __device__ __forceinline__ bool record_hits(const int* __restrict__ r,
          __ldg(r + I_IMAX) >= row0 && __ldg(r + I_IMIN) < row0 + TILE_H;
 }
 
-// Phases 1, 1.5 and 2 of all twelve kernels.  RECORDS: spans of gathered
-// records (K4/K4c/K4g/K9/K9g/K9d) or of row ids (K6).  COARSE: run phase
+// Phases 1, 1.5 and 2 of the register kernels.  RECORDS: spans of gathered
+// records (K4c/K9/K9g/K9d) or of row ids (K6, K6g, K6d).  COARSE: run phase
 // 1.5 over the coarse class.  A band kernel passes row_base (its first
 // global row), list_base (the span index of its first tile: 0 for
 // band-local spans) and, for K9d, n_src span lists src_stride apart.
@@ -236,22 +239,6 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 __global__ void __launch_bounds__(THREADS)
-    gbuffer_records_kernel(const int* __restrict__ offsets,
-                           const int* __restrict__ rec_i,
-                           const float* __restrict__ rec_f,
-                           const int* __restrict__ supers, int num_supers,
-                           const int* __restrict__ blocks,
-                           const int* __restrict__ ti,
-                           const float* __restrict__ tf,
-                           float* __restrict__ out, int width, int height) {
-  TileState<true, true> st;
-  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
-                           nullptr, supers, num_supers, blocks, ti, tf,
-                           width);
-  st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
-}
-
-__global__ void __launch_bounds__(THREADS)
     gbuffer_lists_kernel(const int* __restrict__ offsets,
                          const int* __restrict__ pair_tri,
                          const int* __restrict__ supers, int num_supers,
@@ -294,10 +281,16 @@ constexpr int WARPS = THREADS / 32;
 static_assert(KEY_BATCH == RASTER_BLOCK, "a block's rows fit one batch");
 static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
 
-// K4's key: the order bits of z (the sign cleared, so -0.0 ties +0.0) over
-// the row id.  A span record's id is its last int, a leftover row's its
-// index in hier.
-struct FlatKeys {
+// K4's and K4g's key: the order bits of z (the sign cleared, so -0.0 ties
+// +0.0) over the row id.  A span record's id is its last int, a leftover
+// row's its index in hier.  The store resolves pixel (row, col) of the
+// frame from its key: the winner re-evaluated from hier/tf (ti/tf) by
+// raster_common.cuh's resolve_winner, z included (its -0.0 kept), one
+// IEEE divide, RGBA8 packed; z 1.0 and alpha alone where no row latched.
+// PLANES (K4g): also the 11 further G-buffer planes from extra, frame
+// floats apart, under the buf * (covered ? 1/den : 0) epilogue.
+template <bool PLANES>
+struct WinnerKeys {
   static constexpr unsigned long long CLEAR =
       (0x3f800000ull << 32) | (unsigned long long)INT_MAX32;
   static __device__ __forceinline__ uint32_t span_tag(const int* r, int) {
@@ -310,49 +303,19 @@ struct FlatKeys {
                                                            uint32_t tag) {
     return ((unsigned long long)(zbits & 0x7fffffffu) << 32) | tag;
   }
-  // Pixel (row, col) of the frame from its key: the winner re-evaluated
-  // from hier/tf (ti/tf), one IEEE divide, RGBA8 packed; z 1.0 and alpha
-  // alone where no row latched.
   static __device__ __forceinline__ void store(
       unsigned long long k, int row, int col, const int* __restrict__ ti,
       const float* __restrict__ tf, int* __restrict__ color,
-      float* __restrict__ depth, int width) {
-    float z = 1.0f, d = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
-    if (k != CLEAR) {
-      const int t = (int)(uint32_t)k;
-      const int* r = ti + (size_t)t * NI32;
-      const float* f = tf + (size_t)t * NF32;
-      const int px = col * SUBPIXEL + HALF, py = row * SUBPIXEL + HALF;
-      const float f0 = __int2float_rn(
-          edge_fn(__ldg(r + I_DX0), __ldg(r + I_DY0), __ldg(r + I_X1),
-                  __ldg(r + I_Y1), px, py));
-      const float f1 = __int2float_rn(
-          edge_fn(__ldg(r + I_DX1), __ldg(r + I_DY1), __ldg(r + I_X2),
-                  __ldg(r + I_Y2), px, py));
-      const float f2 = __int2float_rn(
-          edge_fn(__ldg(r + I_DX2), __ldg(r + I_DY2), __ldg(r + I_X0),
-                  __ldg(r + I_Y0), px, py));
-      z = interp3(f0, f1, f2, __ldg(f + F_ZA0), __ldg(f + F_ZA0 + 1),
-                  __ldg(f + F_ZA0 + 2));
-      d = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
-                  __ldg(f + F_RW0 + 2));
-      cr = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
-                   __ldg(f + F_CR0 + 2));
-      cg = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
-                   __ldg(f + F_CG0 + 2));
-      cb = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
-                   __ldg(f + F_CB0 + 2));
-    }
-    const bool covered = d > 0.0f;
-    const float inv = covered ? __fdiv_rn(1.0f, d) : 1.0f;
-    const uint32_t packed = quantize(cr, covered, inv) |
-                            (quantize(cg, covered, inv) << 8) |
-                            (quantize(cb, covered, inv) << 16) | 0xFF000000u;
-    const size_t idx = (size_t)row * width + col;
-    color[idx] = (int)packed;
-    depth[idx] = z;
+      float* __restrict__ depth, float* __restrict__ extra, int width,
+      size_t frame) {
+    resolve_winner<true, PLANES, true>(
+        ti, tf, k == CLEAR ? INT_MAX32 : (int)(uint32_t)k, 1.0f,
+        col * SUBPIXEL + HALF, row * SUBPIXEL + HALF, color, depth, extra,
+        (size_t)row * width + col, frame);
   }
 };
+using FlatKeys = WinnerKeys<false>;
+using GbufKeys = WinnerKeys<true>;
 
 // K4d's key: the order bits of z over the visit index over the sign of z.
 // The visit index of span record k is k; of leftover row t, the span's end
@@ -373,7 +336,7 @@ struct DepthKeys {
   static __device__ __forceinline__ void store(
       unsigned long long k, int row, int col, const int* __restrict__,
       const float* __restrict__, int* __restrict__, float* __restrict__ depth,
-      int width) {
+      float* __restrict__, int width, size_t) {
     const uint32_t bits = (uint32_t)(k >> 32) | ((uint32_t)k << 31);
     depth[(size_t)row * width + col] =
         k == CLEAR ? 1.0f : __uint_as_float(bits);
@@ -662,7 +625,8 @@ __device__ __forceinline__ void keyed_leftovers(
 // Work item blockIdx.x: its share of the tile's span and of the leftover
 // superblocks into the shared keys, then the tile's planes (one item) or
 // an atomicMin of the keys it lowered into the frame's key plane, which
-// starts all ones (several).  Mode: FlatKeys (K4) or DepthKeys (K4d).
+// starts all ones (several).  Mode: FlatKeys (K4), GbufKeys (K4g; extra:
+// its 11 further planes) or DepthKeys (K4d).
 template <class Mode>
 __device__ __forceinline__ void keyed_records(
     const int* __restrict__ offsets, const int* __restrict__ rec_i,
@@ -670,8 +634,8 @@ __device__ __forceinline__ void keyed_records(
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
     int item_records, unsigned long long* __restrict__ plane,
-    int* __restrict__ color, float* __restrict__ depth, int width,
-    int height) {
+    int* __restrict__ color, float* __restrict__ depth,
+    float* __restrict__ extra, int width, int height) {
   extern __shared__ __align__(16) unsigned char keyed_smem[];
   KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
   const int tiles_x = width / TILE_W;
@@ -695,7 +659,7 @@ __device__ __forceinline__ void keyed_records(
   if (n_items == 1) {
     for (int p = threadIdx.x; p < TILE_PIX; p += THREADS)
       Mode::store(s.key[p], row0 + p / TILE_W, col0 + p % TILE_W, ti, tf,
-                  color, depth, width);
+                  color, depth, extra, width, (size_t)width * height);
   } else {
     for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
       const unsigned long long k = s.key[p];
@@ -714,7 +678,8 @@ __device__ __forceinline__ void keyed_resolve(
     const int* __restrict__ offsets, int item_records,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, int width) {
+    float* __restrict__ depth, float* __restrict__ extra, int width,
+    int height) {
   const int tile = blockIdx.x, tiles_x = width / TILE_W;
   if (tile_items(offsets, tile, item_records) == 1) return;
   const int row0 = (tile / tiles_x) * TILE_H;
@@ -722,7 +687,7 @@ __device__ __forceinline__ void keyed_resolve(
   for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
     const int row = row0 + p / TILE_W, col = col0 + p % TILE_W;
     Mode::store(min(plane[(size_t)row * width + col], Mode::CLEAR), row, col,
-                ti, tf, color, depth, width);
+                ti, tf, color, depth, extra, width, (size_t)width * height);
   }
 }
 
@@ -736,17 +701,44 @@ __global__ void __launch_bounds__(THREADS) raster_records_kernel(
     int* __restrict__ color, float* __restrict__ depth, int width,
     int height) {
   keyed_records<FlatKeys>(offsets, rec_i, rec_f, supers, num_supers, blocks,
-                          ti, tf, item_records, plane, color, depth, width,
-                          height);
+                          ti, tf, item_records, plane, color, depth, nullptr,
+                          width, height);
 }
 
 __global__ void __launch_bounds__(THREADS) raster_records_resolve_kernel(
     const int* __restrict__ offsets, int item_records,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, int width) {
+    float* __restrict__ depth, int width, int height) {
   keyed_resolve<FlatKeys>(offsets, item_records, plane, ti, tf, color, depth,
-                          width);
+                          nullptr, width, height);
+}
+
+// K4g: the keyed body, the GBUF_PLANES planes of out (color bits, depth,
+// then the rest), width * height floats apart.
+__global__ void __launch_bounds__(THREADS) gbuffer_records_keyed_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int item_records, unsigned long long* __restrict__ plane,
+    float* __restrict__ out, int width, int height) {
+  const size_t frame = (size_t)width * height;
+  keyed_records<GbufKeys>(offsets, rec_i, rec_f, supers, num_supers, blocks,
+                          ti, tf, item_records, plane,
+                          reinterpret_cast<int*>(out), out + frame,
+                          out + 2 * frame, width, height);
+}
+
+__global__ void __launch_bounds__(THREADS) gbuffer_records_resolve_kernel(
+    const int* __restrict__ offsets, int item_records,
+    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
+    const float* __restrict__ tf, float* __restrict__ out, int width,
+    int height) {
+  const size_t frame = (size_t)width * height;
+  keyed_resolve<GbufKeys>(offsets, item_records, plane, ti, tf,
+                          reinterpret_cast<int*>(out), out + frame,
+                          out + 2 * frame, width, height);
 }
 
 // K4d: the keyed body, the depth plane alone.
@@ -758,16 +750,17 @@ __global__ void __launch_bounds__(THREADS) depth_records_kernel(
     int item_records, unsigned long long* __restrict__ plane,
     float* __restrict__ depth, int width, int height) {
   keyed_records<DepthKeys>(offsets, rec_i, rec_f, supers, num_supers, blocks,
-                           ti, tf, item_records, plane, nullptr, depth, width,
-                           height);
+                           ti, tf, item_records, plane, nullptr, depth,
+                           nullptr, width, height);
 }
 
 __global__ void __launch_bounds__(THREADS) depth_records_resolve_kernel(
     const int* __restrict__ offsets, int item_records,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
-    const float* __restrict__ tf, float* __restrict__ depth, int width) {
+    const float* __restrict__ tf, float* __restrict__ depth, int width,
+    int height) {
   keyed_resolve<DepthKeys>(offsets, item_records, plane, ti, tf, nullptr,
-                           depth, width);
+                           depth, nullptr, width, height);
 }
 
 // K9: K4 over one band; list_base = 0 for band-local spans, else the
@@ -786,8 +779,8 @@ __global__ void __launch_bounds__(THREADS) raster_records_band_kernel(
   st.store(color, depth, width, row_base);
 }
 
-// K9g: K4g over one band (band-local spans); out holds GBUF_PLANES
-// (band_h, width) planes.
+// K9g: K4g's register body over one band (band-local spans); out holds
+// GBUF_PLANES (band_h, width) planes.
 __global__ void __launch_bounds__(THREADS) gbuffer_records_band_kernel(
     const int* __restrict__ offsets, const int* __restrict__ rec_i,
     const float* __restrict__ rec_f, const int* __restrict__ supers,
@@ -835,7 +828,7 @@ extern "C" int zr_raster_records(const int* offsets, const int* rec_i,
   return (int)cudaGetLastError();
 }
 
-// K4 and K4d launch the keyed body: the key plane (height * width keys)
+// K4, K4g and K4d launch the keyed body: the key plane (height * width keys)
 // set to all ones, `items` blocks (tiles plus ceil(records /
 // item_records), a bound on the work items), then the resolve over the
 // tiles.
@@ -859,11 +852,11 @@ static int launch_keyed(Items items_kernel, Resolve resolve_kernel,
       offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, item_records,
       plane, out..., width, height);
   resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
-      offsets, item_records, plane, ti, tf, out..., width);
+      offsets, item_records, plane, ti, tf, out..., width, height);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a K4/K4d work item, in bytes.
+// Dynamic shared memory of a K4/K4g/K4d work item, in bytes.
 extern "C" int zr_keyed_smem_bytes() { return (int)sizeof(zr::KeyedSmem); }
 
 // K4.
@@ -893,17 +886,15 @@ extern "C" int zr_raster_lists(const int* offsets, const int* pair_tri,
 }
 
 // K4g.
-extern "C" int zr_gbuffer_records(const int* offsets, const int* rec_i,
-                                  const float* rec_f, const int* supers,
-                                  int num_supers, const int* blocks,
-                                  const int* ti, const float* tf, float* out,
-                                  int height, int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::gbuffer_records_kernel<<<num_tiles, zr::THREADS, 0,
-                               (cudaStream_t)stream>>>(
-      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, out, width,
-      height);
-  return (int)cudaGetLastError();
+extern "C" int zr_gbuffer_records_keyed(
+    const int* offsets, const int* rec_i, const float* rec_f,
+    const int* supers, int num_supers, const int* blocks, const int* ti,
+    const float* tf, int item_records, int items, unsigned long long* plane,
+    float* out, int height, int width, void* stream) {
+  return launch_keyed(zr::gbuffer_records_keyed_kernel,
+                      zr::gbuffer_records_resolve_kernel, offsets, rec_i,
+                      rec_f, supers, num_supers, blocks, ti, tf, item_records,
+                      items, plane, height, width, stream, out);
 }
 
 // K6g.

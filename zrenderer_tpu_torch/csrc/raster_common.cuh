@@ -104,10 +104,89 @@ __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
   return (uint32_t)(int)floorf(__fadd_rn(__fmul_rn(c, 255.0f), 0.5f));
 }
 
+// The winner resolve of one pixel, shared by TileState::resolve (the
+// register bodies' epilogue) and the keyed body's store (raster_binned.cu
+// WinnerKeys): row t of ti/tf (strides RI and RF; INT_MAX32 where no row
+// won) re-evaluated at the pixel centre (px, py) in subpixels, its edge
+// functions, 1/w and colour interpolated, one IEEE divide, RGBA8 packed
+// into color[idx] and z into depth[idx]: the given z, or with EVAL_Z the
+// winner's z re-evaluated (its -0.0 kept; z stays as given where none
+// won).  With PLANES also uv and normal times 1/den and the row's
+// constants into the GBUF_PLANES - 2 planes from extra, plane floats
+// apart.  MASKED_INV picks the divide's form, which the reference's
+// kernels differ in (sign of zero, NaN when a row passed with den <= 0):
+// buf * (covered ? inv : 0) for K2g, K4g, K5g and K10g8g, covered ? buf *
+// inv : 0 for K3g and K10vecg.
+template <bool MASKED_INV, bool PLANES, bool EVAL_Z = false, int RI = NI32,
+          int RF = NF32>
+__device__ __forceinline__ void resolve_winner(
+    const int* __restrict__ ti, const float* __restrict__ tf, int t, float z,
+    int px, int py, int* __restrict__ color, float* __restrict__ depth,
+    float* __restrict__ extra, size_t idx, size_t plane) {
+  float d = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  float g[GBUF_INTERP] = {}, c[GBUF_CONSTS] = {};
+  if (t != INT_MAX32) {
+    const int* r = ti + (size_t)t * RI;
+    const float* f = tf + (size_t)t * RF;
+    const float f0 = __int2float_rn(
+        edge_fn(__ldg(r + I_DX0), __ldg(r + I_DY0), __ldg(r + I_X1),
+                __ldg(r + I_Y1), px, py));
+    const float f1 = __int2float_rn(
+        edge_fn(__ldg(r + I_DX1), __ldg(r + I_DY1), __ldg(r + I_X2),
+                __ldg(r + I_Y2), px, py));
+    const float f2 = __int2float_rn(
+        edge_fn(__ldg(r + I_DX2), __ldg(r + I_DY2), __ldg(r + I_X0),
+                __ldg(r + I_Y0), px, py));
+    if constexpr (EVAL_Z)
+      z = interp3(f0, f1, f2, __ldg(f + F_ZA0), __ldg(f + F_ZA0 + 1),
+                  __ldg(f + F_ZA0 + 2));
+    d = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
+                __ldg(f + F_RW0 + 2));
+    cr = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
+                 __ldg(f + F_CR0 + 2));
+    cg = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
+                 __ldg(f + F_CG0 + 2));
+    cb = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
+                 __ldg(f + F_CB0 + 2));
+    if constexpr (PLANES) {
+#pragma unroll
+      for (int i = 0; i < GBUF_INTERP; ++i) {
+        const float* fc = f + F_U0 + 3 * i;
+        g[i] = interp3(f0, f1, f2, __ldg(fc), __ldg(fc + 1), __ldg(fc + 2));
+      }
+#pragma unroll
+      for (int i = 0; i < GBUF_CONSTS; ++i) c[i] = __ldg(f + F_MET + i);
+    }
+  }
+  const bool covered = d > 0.0f;
+  const float inv = covered ? __fdiv_rn(1.0f, d) : 1.0f;
+  const uint32_t packed = quantize(cr, covered, inv) |
+                          (quantize(cg, covered, inv) << 8) |
+                          (quantize(cb, covered, inv) << 16) | 0xFF000000u;
+  color[idx] = (int)packed;
+  depth[idx] = z;
+  if constexpr (PLANES) {
+#pragma unroll
+    for (int i = 0; i < GBUF_INTERP; ++i) {
+      float v;
+      if constexpr (MASKED_INV) {
+        v = __fmul_rn(g[i], covered ? inv : 0.0f);
+      } else {
+        v = covered ? __fmul_rn(g[i], inv) : 0.0f;
+      }
+      extra[i * plane + idx] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < GBUF_CONSTS; ++i)
+      extra[(GBUF_INTERP + i) * plane + idx] = c[i];
+  }
+}
+
 // Per-thread tile state.  TIE selects the order-free depth test
 // (z, row id) of K1/K4/K6 over K3/K5's sequential strict-less test.
 //
-// GBUF: the G-buffer kernels (K2g, K3g, K4g, K5g).  Latching 11 more
+// GBUF: the register G-buffer kernels (K2g, K3g, K5g, K6g, K9g; K4g runs
+// the keyed body, raster_binned.cu, with the same resolve).  Latching 11 more
 // planes the way the reference does would take 17 values a pixel, 272
 // registers a thread for 16 pixels: over the 255 cap.  Every latched value
 // is a pure function of (row, pixel), so the loops keep only z and the
@@ -353,15 +432,9 @@ struct TileState {
       depth[(size_t)(rbase + k * ROW_STEP) * width + col] = z[k];
   }
 
-  // Winner resolve (ti/tf: the rows tid indexes): re-evaluate its edge
-  // functions at the pixel, interpolate 1/w and color, and the flat
-  // resolve into color (int bits) and depth; with PLANES also uv and
-  // normal times 1/den and its constants into the GBUF_PLANES - 2 planes
-  // from extra, plane floats apart.  MASKED_INV picks the divide's form,
-  // which the reference's kernels differ in (sign of zero, NaN when a row
-  // passed with den <= 0): buf * (covered ? inv : 0) for K2g, K4g, K5g and
-  // K10g8g, covered ? buf * inv : 0 for K3g and K10vecg.  The output's
-  // first row is global row row_base.
+  // Winner resolve (ti/tf: the rows tid indexes) of this thread's pixels
+  // through resolve_winner, z as the loops left it.  The output's first
+  // row is global row row_base.
   template <bool MASKED_INV, bool PLANES = true>
   __device__ __forceinline__ void resolve(
       const int* __restrict__ ti, const float* __restrict__ tf,
@@ -372,66 +445,10 @@ struct TileState {
     const int col = col0 + (int)(threadIdx.x % TILE_W);
     const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
 #pragma unroll
-    for (int k = 0; k < NPIX; ++k) {
-      float d = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
-      float g[GBUF_INTERP] = {}, c[GBUF_CONSTS] = {};
-      const int t = tid[k];
-      if (t != INT_MAX32) {
-        const int* r = ti + (size_t)t * RI;
-        const float* f = tf + (size_t)t * RF;
-        const float f0 = __int2float_rn(
-            edge_fn(__ldg(r + I_DX0), __ldg(r + I_DY0), __ldg(r + I_X1),
-                    __ldg(r + I_Y1), px, py(k)));
-        const float f1 = __int2float_rn(
-            edge_fn(__ldg(r + I_DX1), __ldg(r + I_DY1), __ldg(r + I_X2),
-                    __ldg(r + I_Y2), px, py(k)));
-        const float f2 = __int2float_rn(
-            edge_fn(__ldg(r + I_DX2), __ldg(r + I_DY2), __ldg(r + I_X0),
-                    __ldg(r + I_Y0), px, py(k)));
-        d = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
-                    __ldg(f + F_RW0 + 2));
-        cr = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
-                     __ldg(f + F_CR0 + 2));
-        cg = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
-                     __ldg(f + F_CG0 + 2));
-        cb = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
-                     __ldg(f + F_CB0 + 2));
-        if constexpr (PLANES) {
-#pragma unroll
-          for (int i = 0; i < GBUF_INTERP; ++i) {
-            const float* fc = f + F_U0 + 3 * i;
-            g[i] = interp3(f0, f1, f2, __ldg(fc), __ldg(fc + 1),
-                           __ldg(fc + 2));
-          }
-#pragma unroll
-          for (int i = 0; i < GBUF_CONSTS; ++i) c[i] = __ldg(f + F_MET + i);
-        }
-      }
-      const bool covered = d > 0.0f;
-      const float inv = covered ? __fdiv_rn(1.0f, d) : 1.0f;
-      const uint32_t packed = quantize(cr, covered, inv) |
-                              (quantize(cg, covered, inv) << 8) |
-                              (quantize(cb, covered, inv) << 16) |
-                              0xFF000000u;
-      const size_t idx = (size_t)(rbase + k * ROW_STEP) * width + col;
-      color[idx] = (int)packed;
-      depth[idx] = z[k];
-      if constexpr (PLANES) {
-#pragma unroll
-        for (int i = 0; i < GBUF_INTERP; ++i) {
-          float v;
-          if constexpr (MASKED_INV) {
-            v = __fmul_rn(g[i], covered ? inv : 0.0f);
-          } else {
-            v = covered ? __fmul_rn(g[i], inv) : 0.0f;
-          }
-          extra[i * plane + idx] = v;
-        }
-#pragma unroll
-        for (int i = 0; i < GBUF_CONSTS; ++i)
-          extra[(GBUF_INTERP + i) * plane + idx] = c[i];
-      }
-    }
+    for (int k = 0; k < NPIX; ++k)
+      resolve_winner<MASKED_INV, PLANES, false, RI, RF>(
+          ti, tf, tid[k], z[k], px, py(k), color, depth, extra,
+          (size_t)(rbase + k * ROW_STEP) * width + col, plane);
   }
 
   // The G-buffer resolve into out's GBUF_PLANES planes of plane floats

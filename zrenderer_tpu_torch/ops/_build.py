@@ -142,8 +142,9 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_hier.restype = i
     lib.zr_gbuffer_hbm.argtypes = [p, i, p, p, p, p, i, i, p]
     lib.zr_gbuffer_hbm.restype = i
-    lib.zr_gbuffer_records.argtypes = [p, p, p, p, i, p, p, p, p, i, i, p]
-    lib.zr_gbuffer_records.restype = i
+    lib.zr_gbuffer_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
+                                             p, i, i, p]
+    lib.zr_gbuffer_records_keyed.restype = i
     lib.zr_gbuffer_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_gbuffer_lists.restype = i
     lib.zr_depth_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
@@ -166,7 +167,7 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_records_dist.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
                                            i, i, i, p]
     lib.zr_raster_records_dist.restype = i
-    lib.zr_light_tiled.argtypes = [p, i, p, p, p, i, p, i, p, i, i, p]
+    lib.zr_light_tiled.argtypes = [p, i, p, p, p, i, p, i, i, p, i, i, p]
     lib.zr_light_tiled.restype = i
     lib.zr_overlay_raster.argtypes = [p, p, i, i, p, p, p, p, p, i, i, p]
     lib.zr_overlay_raster.restype = i

@@ -21,7 +21,7 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   (tile, row) pairs and gathers each pair's setup record in pair order;
   the kernel evaluates its tile's contiguous record span, then the
   leftover rows through the hierarchy, with the (z, row id) tie-break.
-  On the card K4 (and K4d) run the keyed body: per-pixel (z, id) keys in
+  On the card K4 (and K4g, K4d) run the keyed body: per-pixel keys in
   shared memory, each record over its window (its vertices' pixel bbox in
   the tile), a tile's span cut into work items of ITEM_RECORDS
   records.  K4c adds the coarse class: rows too big for the fine lists
@@ -136,9 +136,9 @@ BIN_PAIR_BUDGET = 1 << 20
 # K4 records: the static record-slot budget; listed rows past it are
 # demoted to the leftover hierarchy by an exact prefix clamp.
 HBM_PAIR_BUDGET = 1 << 20
-# K4/K4d: a tile's record span is cut into work items of at most this many
-# records, one CUDA block each (csrc/raster_binned.cu, the keyed body); the
-# wrappers read it at call time.  At 1M triangles on the H100, 256 ran K4
+# K4/K4g/K4d: a tile's record span is cut into work items of at most this
+# many records, one CUDA block each (csrc/raster_binned.cu, the keyed
+# body); the wrappers read it at call time.  At 1M triangles on the H100, 256 ran K4
 # in 0.64 ms against 0.75 for 1024 and K4d in 0.40 against 0.42 (PERF.md
 # §6).
 ITEM_RECORDS = 256
@@ -972,7 +972,7 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
                               tf, None, width, height)
 
 
-# The keyed K4/K4d body's extent and work items (csrc/raster_binned.cu
+# The keyed K4/K4g/K4d body's extent and work items (csrc/raster_binned.cu
 # keyed_records), for the bounds in chip_smoke.py and for the tests.
 
 
@@ -1249,7 +1249,7 @@ def _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
 
 def keyed_items(width: int, height: int, records: int,
                 item_records: int) -> int:
-    """Blocks of a keyed K4/K4d launch: a bound on the work items, one per
+    """Blocks of a keyed K4/K4g/K4d launch: a bound on the work items, one per
     tile plus one per ``item_records`` records (``tile_items``)."""
     return ((width // TILE_W) * (height // TILE_H)
             + -(-records // item_records))
@@ -1257,7 +1257,7 @@ def keyed_items(width: int, height: int, records: int,
 
 def _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, width: int,
                 height: int):
-    """Check K4/K4d inputs; returns the launch arguments before the
+    """Check K4/K4g/K4d inputs; returns the launch arguments before the
     outputs (the records' arguments, the item size ITEM_RECORDS and the
     item count, the key plane) and the plane, which the call must hold
     until it has launched."""
@@ -1319,15 +1319,15 @@ def raster_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
 
 def gbuffer_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
                           coarse, width: int, height: int):
-    """Launch K4g (``csrc/raster_binned.cu``, record spans, G-buffer) on
-    the current stream; ``coarse`` must be None."""
+    """Launch K4g (``csrc/raster_binned.cu``, the keyed body over record
+    spans with the G-buffer resolve) on the current stream; ``coarse``
+    must be None."""
     if coarse is not None:
         raise ValueError("K4g takes no coarse class")
-    args = _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
-                         None, width, height)
-    # The G-buffer entry point takes no coarse pointers.
-    out = _run_gbuffer(_build.load_library().zr_gbuffer_records, hier.device,
-                       width, height, *args[:3], *args[6:])
+    args, _plane = _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier,
+                                tf, width, height)
+    out = _run_gbuffer(_build.load_library().zr_gbuffer_records_keyed,
+                       hier.device, width, height, *args)
     gbuffer_binned_kernel.launches += 1
     return out
 
