@@ -102,15 +102,6 @@ def measure() -> dict:
         if name == "wide":
             out["frames"]["deferred test scene wide"] = anim_ms(
                 r, cs.ANIM_FRAMES)
-        if hasattr(light_kernel, "ITEM_PIXELS"):  # the work-item sweep
-            saved = light_kernel.ITEM_PIXELS
-            sweep = out.setdefault("k7_item_pixels", {})
-            for p in (64, 128, 256, 512, 1024, 2048, 4096):
-                light_kernel.ITEM_PIXELS = p
-                sweep[f"{name} {p}"] = event_ms(lambda: k7(*inputs), 20)
-                if digest(k7(*inputs)) != out["digests"][f"k7 {name}"]:
-                    raise AssertionError(f"K7 at {p} pixels an item differs")
-            light_kernel.ITEM_PIXELS = saved
     return out
 
 

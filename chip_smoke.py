@@ -365,7 +365,8 @@ CUDA_LANES_PER_SM = 128
 OPS_PER_EVAL = 26
 # K7, one (pixel, listed light) evaluation of csrc/light_tiled.cu's loop:
 # the SASS instructions it issues, counted in `cuobjdump -sass` of the
-# built library (sm_90a, -O3 -fmad=false; NVIDIA H100 80GB HBM3).  The
+# built library by `python -m zrenderer_tpu_torch.tools.sass_count`
+# (sm_90a, -O3 -fmad=false; NVIDIA H100 80GB HBM3).  The
 # compiler unrolls the loop of light_tiled_kernel<float, false> twice: 335
 # instructions from its label to its backward branch, of which 12 (the 10
 # CALLs of the divide and square-root slow paths and 2 branches only those

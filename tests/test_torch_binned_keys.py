@@ -31,6 +31,7 @@ import torch
 
 from test_torch_raster import _bits, _setup
 from zrenderer_tpu.ops import geometry as g
+from zrenderer_tpu.scene.mesh import MeshData
 from zrenderer_tpu.scene.procedural import make_stress_scene
 from zrenderer_tpu.scene.procedural import make_triangle_soup as make_jax_soup
 from zrenderer_tpu_torch.engine.upload import flatten_scene
@@ -455,7 +456,7 @@ def _lit_duplicated_soup():
     rows) with their own materials: every duplicate ties its original."""
     scene, md = make_jax_soup(200, seed=3, extent=2.0)
     v = md.vertex_data.reshape(-1, 16)
-    md2 = type(md)()
+    md2 = MeshData()
     v = np.concatenate([v, v])
     md2.append_mesh(v, np.arange(len(v), dtype=np.uint32))
     return _rows(scene, md2, 256, 128, lit=True, seed=5), (256, 128)

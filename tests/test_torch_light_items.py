@@ -11,7 +11,10 @@ mirror of the cut in zrenderer_tpu_torch/ops/light_kernel.py:
   per-pixel prologue and its tile's listed lights in id order) equals
   ``tiled_light_plain`` bit for bit, uncovered pixels 0, for f32 and bf16
   planes, culled and whole-frame lights, a band and more lights than a
-  chunk.
+  chunk;
+* ``tools/sass_count.py``, which counts the instructions of K7's light
+  loop for chip_smoke.py's bound, finds the innermost loop and leaves the
+  slow paths out, on a hand-written disassembly.
 
 ``tiled_light_plain`` is held against the reference's Pallas kernel in
 interpret mode by test_torch_deferred_interpret.py, and the CUDA kernel
@@ -171,3 +174,28 @@ def test_plain_k7_item_by_item_equals_plain(name):
         assert int(hits.sum(1).max()) > tl.MAX_LIGHTS  # two chunks
     else:
         assert 0 < int(hits.sum()) < hits.numel()  # culled, not empty
+
+
+def test_sass_count_takes_the_innermost_light_loop():
+    """tools/sass_count.py on a hand-written disassembly: an outer loop
+    and an inner loop unrolled twice, whose slow-path CALLs (and the branch
+    after one) are left out of the count an evaluation."""
+    from zrenderer_tpu_torch.tools import sass_count
+
+    body = ["S2R R0, SR_TID.X", "LDS.128 R4, [R2]", "MUFU.RSQ R8, R7",
+            "@!P0 BRA 0x90", "CALL.REL.NOINC 0x200", "BRA 0xa0",
+            "FMUL R9, R8, R8", "LDS.128 R4, [R2+0x10]", "FADD R9, R9, R4",
+            "@!P1 BRA 0xd0", "CALL.REL.NOINC 0x300", "FMUL R9, R9, R9",
+            "@P2 BRA 0x10", "@P3 BRA 0x0", "EXIT"]
+    text = "\n".join(
+        ["        Function : _ZN2zr5light18light_tiled_kernelIfLb0EEEvPKT_"]
+        + [f"        /*{16 * i:04x}*/  {ins} ;  /* 0x0 */"
+           for i, ins in enumerate(body)]
+        + ["        Function : _ZN2zr7overlay21overlay_raster_kernel",
+           "        /*0000*/  LDS.128 R4, [R2] ;"])
+    fn = sass_count.function_sass(text, sass_count.KERNELS[False])
+    assert len(fn) == len(body)
+    loop = sass_count.light_loop(fn)
+    assert (loop["first"], loop["last"]) == (0x10, 0xc0)
+    assert loop["instructions"] == 12 and loop["slow_path_only"] == 3
+    assert loop["unroll"] == 2 and loop["per_evaluation"] == 4.5

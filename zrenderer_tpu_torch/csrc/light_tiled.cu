@@ -46,16 +46,16 @@
 //
 // What bounds it on the H100: operations, the instructions of each (pixel,
 // listed light) evaluation (chip_smoke.py OPS_PER_LIGHT, counted in the
-// built library's SASS), four IEEE divides and three square roots or bf16
-// round trips among them, each a multi-instruction sequence; at 1920x1088
-// with all 256 lights listed in every tile that is up to 535 M
-// evaluations, against 100 MB of device memory in (f32 planes and the
-// mask) and 25 MB out.  The first port ran one block a tile over all its
-// pixels: one wave of 510 blocks whose time the SMs that drew the most
-// covered tiles set, with the lanes of uncovered pixels idle through the
-// light loop of their warp.  Cutting the covered pixels into items of
-// equal size balances the SMs and keeps every lane of a warp busy.  The
-// pixel's prologue (22 values) stays in registers across the light loop.
+// built library's SASS), three IEEE divides, two square roots and a bf16
+// round trip among them, the divides and roots each a multi-instruction
+// sequence; at 1920x1088 with all 256 lights listed in every tile that is
+// up to 535 M evaluations, against 100 MB of device memory in (f32 planes
+// and the mask) and 25 MB out.  A block a tile would be one wave of 510
+// blocks whose time the SMs with the most covered tiles set, and a warp
+// of one tile row would run the light loop for its uncovered lanes too;
+// items of equal size balance the SMs, and compacted pixels keep every
+// lane of a warp busy.  The pixel's prologue (22 values) stays in
+// registers across the light loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

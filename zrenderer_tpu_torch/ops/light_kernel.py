@@ -67,8 +67,10 @@ NUM_PLANES = 11
 MAX_LIGHTS = 1024
 # K7 cuts each tile's covered pixels into work items of at most this many,
 # one CUDA block each (csrc/light_tiled.cu); the wrappers read it at call
-# time.  Chosen by a sweep on the H100 (PERF.md §6, PR 13).
-ITEM_PIXELS = 256
+# time.  On the H100 at 1080p, 512 ran the 256 wide lights in 1.34 ms
+# (256: 1.34, 1024: 1.43, 4096: 2.22) and the r2 lights in 0.21 (256:
+# 0.27, 1024: 0.18) (PERF.md §6).
+ITEM_PIXELS = 512
 TILE_PIX = TILE_H * TILE_W
 PLANE_DTYPES = (F32, BF16)
 

@@ -138,9 +138,9 @@ BIN_PAIR_BUDGET = 1 << 20
 HBM_PAIR_BUDGET = 1 << 20
 # K4/K4g/K4d: a tile's record span is cut into work items of at most this
 # many records, one CUDA block each (csrc/raster_binned.cu, the keyed
-# body); the wrappers read it at call time.  At 1M triangles on the H100, 256 ran K4
-# in 0.64 ms against 0.75 for 1024 and K4d in 0.40 against 0.42 (PERF.md
-# §6).
+# body); the wrappers read it at call time.  At 1M triangles on the H100,
+# 256 ran K4 in 0.64 ms against 0.75 for 1024 and K4d in 0.40 against
+# 0.42 (PERF.md §6).
 ITEM_RECORDS = 256
 # K4c: coarse bins are COARSE_CB x COARSE_CB tiles; the tile_lists
 # dispatch lists a row in at most TILE_LISTS_COARSE_CAP of them.
@@ -1249,8 +1249,8 @@ def _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
 
 def keyed_items(width: int, height: int, records: int,
                 item_records: int) -> int:
-    """Blocks of a keyed K4/K4g/K4d launch: a bound on the work items, one per
-    tile plus one per ``item_records`` records (``tile_items``)."""
+    """Blocks of a keyed K4/K4g/K4d launch: a bound on the work items, one
+    per tile plus one per ``item_records`` records (``tile_items``)."""
     return ((width // TILE_W) * (height // TILE_H)
             + -(-records // item_records))
 
