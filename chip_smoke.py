@@ -315,6 +315,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -364,17 +365,28 @@ CUDA_CORE_OPS_PER_S = None  # set by phase 1 from the card
 CUDA_LANES_PER_SM = 128
 OPS_PER_EVAL = 26
 # K7, one (pixel, listed light) evaluation of csrc/light_tiled.cu's loop:
-# the SASS instructions it issues, counted in `cuobjdump -sass` of the
-# built library by `python -m zrenderer_tpu_torch.tools.sass_count`
-# (sm_90a, -O3 -fmad=false; NVIDIA H100 80GB HBM3).  The
-# compiler unrolls the loop of light_tiled_kernel<float, false> twice: 335
-# instructions from its label to its backward branch, of which 12 (the 10
-# CALLs of the divide and square-root slow paths and 2 branches only those
-# paths take) run only for operands out of the fast path's range; 323
-# for two evaluations, 161.5 each (89 FMUL, 56 FADD, 38 FFMA of the
-# divide and square-root sequences, 10 MUFU, the branches around the slow
-# paths; the bf16 instantiation 163).
-OPS_PER_LIGHT = 161.5
+# the arithmetic instructions it issues, counted by phase 2 in `cuobjdump
+# -sass` of the built library, each instantiation on its own
+# (``light_loop_ops``): the one-chunk kernel's light loop, the innermost
+# backward branch whose body holds the light's LDS.128 and a MUFU, from its
+# label to its branch, divided by the passes the compiler unrolled into it
+# (its LDS.128 count).  Counted: LIGHT_ARITH_OPCODES, the fp32 adds and
+# multiplies, the divide and square-root sequences (MUFU, FFMA, FCHK), the
+# clamps and selects (FMNMX, FSETP, FSEL) and the bf16 rounding (F2F).
+# Left out, as the kernel's own overhead and not the function's work:
+# moves (MOV, UMOV, the HFMA2.MMA constant loads), convergence barriers
+# and branches (BSSY, BSYNC, BRA), the slow paths' CALLs, the loop's and
+# the addresses' integer ops (IMAD, IADD3, ISETP, LEA, SHF, ULEA, S2UR,
+# UIADD3, VIADD; the bf16 widening, a 16-bit shift, among them) and the
+# shared loads (LDS).  sm_90a, -O3 -fmad=false gave 112.5 for both
+# instantiations on the H100 (PERF.md §6).
+LIGHT_LOOP_FUNCTIONS = {
+    "k7": "_ZN2zr5light18light_tiled_kernelIfLb0EE",
+    "k7_bf16": "_ZN2zr5light18light_tiled_kernelI13__nv_bfloat16Lb0EE",
+}
+LIGHT_ARITH_OPCODES = frozenset({"FADD", "FMUL", "FFMA", "MUFU", "FCHK",
+                                 "FMNMX", "FSETP", "FSEL", "F2F"})
+OPS_PER_LIGHT = {}  # "k7", "k7_bf16": set by phase 2
 # K8, csrc/overlay.cu's triangle loop: every (pixel, triangle) of a listed
 # (tile, triangle) pair costs 3 edge functions (5 int ops each), 3 bias and
 # 4 rect compares and 6 ands (28); a covered pixel with a free slot adds 3
@@ -432,6 +444,48 @@ OVERLAY_FRAMES = 20  # frames of the untraced overlay timing loops
 # 2 (None: every phase), and the names of the phases it skipped.
 PHASE_PREFIXES = None
 SKIPPED_PHASES = []
+
+
+def light_loop_ops(sass: str, prefix: str):
+    """K7's light loop in ``cuobjdump -sass`` output, in the function whose
+    mangled name starts with ``prefix``: (arithmetic instructions an
+    evaluation, the unroll, Counter of the counted opcodes, Counter of the
+    left-out ones)."""
+    from collections import Counter
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip().startswith(prefix)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2).strip()))
+    if not body:
+        raise RuntimeError(f"no function {prefix} in the disassembly")
+    at = {addr: i for i, (addr, _) in enumerate(body)}
+
+    def opcode(ins):
+        word = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+        return word.split(".")[0]
+
+    loop = None
+    for i, (addr, ins) in enumerate(body):
+        m = re.search(r"\bBRA (0x[0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        span = body[at[int(m.group(1), 16)]:i + 1]
+        if (any(opcode(t) == "MUFU" for _, t in span)
+                and any("LDS.128" in t for _, t in span)
+                and (loop is None or len(span) < len(loop))):
+            loop = span
+    if loop is None:
+        raise RuntimeError(f"{prefix}: no loop with the light's loads")
+    ops = Counter(opcode(t) for _, t in loop)
+    unroll = sum("LDS.128" in t for _, t in loop)
+    counted = Counter({k: n for k, n in ops.items()
+                       if k in LIGHT_ARITH_OPCODES})
+    left_out = ops - counted
+    return sum(counted.values()) / unroll, unroll, counted, left_out
 
 
 def phase(name):
@@ -1108,6 +1162,20 @@ def main(argv=None) -> int:
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "error")):
                 print(f"  ptxas: {line.strip()}")
+        cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                                 "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", str(info.path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for key, prefix in LIGHT_LOOP_FUNCTIONS.items():
+            per_eval, unroll, counted, left_out = light_loop_ops(sass, prefix)
+            OPS_PER_LIGHT[key] = per_eval
+            print(f"  {key} light loop (cuobjdump -sass, {prefix}...): "
+                  f"unrolled {unroll}x, {per_eval} arithmetic instructions "
+                  "an evaluation ("
+                  + ", ".join(f"{k} {n}" for k, n in counted.most_common())
+                  + "); left out: "
+                  + ", ".join(f"{k} {n}" for k, n in left_out.most_common()))
         smem = _build.load_library().zr_keyed_smem_bytes()
         for key in ("k4", "k4g", "k4d"):
             results[key]["smem_bytes"] = smem
@@ -4177,7 +4245,7 @@ def main(argv=None) -> int:
             nbytes = (sum(t.numel() * t.element_size() for t in inputs)
                       + 3 * 4 * mask.numel())
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = evals * OPS_PER_LIGHT / CUDA_CORE_OPS_PER_S * 1e3
+            t_ops = evals * OPS_PER_LIGHT[key] / CUDA_CORE_OPS_PER_S * 1e3
             res.update({f"bound_ms{sfx}": max(t_bytes, t_ops),
                         f"bound_by{sfx}": ("bytes" if t_bytes >= t_ops
                                            else "operations"),
@@ -4189,7 +4257,7 @@ def main(argv=None) -> int:
                   f"launcher {wrapper:.4f} ms/call (CUDA events); plain "
                   f"version {res['plain_ms' + sfx]:.4f} ms/call (CUDA "
                   f"events); {pairs} light-tile pairs, {evals} evaluations "
-                  f"x {OPS_PER_LIGHT} ops -> {t_ops:.4f} ms; {nbytes} bytes "
+                  f"x {OPS_PER_LIGHT[key]} ops -> {t_ops:.4f} ms; {nbytes} bytes "
                   f"-> {t_bytes:.4f} ms; bound {res['bound_ms' + sfx]:.4f} "
                   f"ms by {res['bound_by' + sfx]}")
 

@@ -7,19 +7,18 @@ mirror of the cut in zrenderer_tpu_torch/ops/light_kernel.py:
 * the items cover each covered pixel of the frame exactly once, none
   holds more than the item size or a pixel of another tile, and every
   item fits the grid;
-* the plain K7 evaluated item by item (each item's pixels through the
-  per-pixel prologue and its tile's listed lights in id order) equals
-  ``tiled_light_plain`` bit for bit, uncovered pixels 0, for f32 and bf16
-  planes, culled and whole-frame lights, a band and more lights than a
-  chunk;
-* ``tools/sass_count.py``, which counts the instructions of K7's light
-  loop for chip_smoke.py's bound, finds the innermost loop and leaves the
-  slow paths out, on a hand-written disassembly.
+* the plain K7 evaluated item by item (each item's pixels alone in the
+  mask) equals ``tiled_light_plain`` over the whole mask bit for bit;
+* the constants the kernel is compiled with equal their mirrors in
+  ``light_kernel``.
 
 ``tiled_light_plain`` is held against the reference's Pallas kernel in
 interpret mode by test_torch_deferred_interpret.py, and the CUDA kernel
 against the plain version on the card by chip_smoke.py (phase 4l).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -121,81 +120,49 @@ def _inputs(seed, h, w, mask, lights=64, planes=torch.float32,
 
 def items_plain(planes, mask, bounds, lights, consts, row_offset=0,
                 item_pixels=tl.ITEM_PIXELS):
-    """The plain K7 item by item: each item's pixels through the prologue
-    and its tile's listed lights in id order, the rest of the frame 0."""
+    """The plain K7 item by item: each item's pixels lit alone (the mask
+    cleared elsewhere), the rest of the frame 0."""
     h, w = mask.shape
     items, _ = tl.light_work_items(mask, item_pixels)
-    hits = tl.tile_light_hits(bounds, h // tl.TILE_H, w // tl.TILE_W,
-                              row_offset)
-    flat = planes.reshape(tl.NUM_PLANES, -1)
     out = torch.zeros((3, h * w), dtype=torch.float32)
     keys = items[:, 0] * tl.TILE_PIX + items[:, 1]
     for key in torch.unique(keys).tolist():
-        sel = items[keys == key]
-        tile, pix = int(sel[0, 0]), sel[:, 2]
-        assert pix.numel() <= item_pixels
-        px, acc = tl._prologue(flat[:, pix], consts)
-        for light in torch.nonzero(hits[tile]).flatten().tolist():
-            acc = tl._light_sums(px, acc, lights[light])
-        out[:, pix] = torch.stack(acc)
+        pix = items[keys == key][:, 2]
+        assert 0 < pix.numel() <= item_pixels
+        alone = torch.zeros(h * w, dtype=mask.dtype)
+        alone[pix] = mask.reshape(-1)[pix]
+        lit = tl.tiled_light_plain(planes, alone.reshape(h, w), bounds,
+                                   lights, consts, row_offset)
+        out[:, pix] = lit.reshape(3, -1)[:, pix]
     return out.reshape(3, h, w)
 
 
-# name: (frame (h, w), mask, inputs' keywords, row_offset, item size)
-ITEM_LIGHT_CASES = {
-    "random_f32": ((64, 256), "random", {}, 0, 256),
-    "random_bf16": ((64, 256), "random", dict(planes=torch.bfloat16), 0,
-                    256),
-    "checkerboard_p100": ((64, 256), "checkerboard", {}, 0, 100),
-    "full_p4096": ((64, 256), "full", dict(spread=2.0), 0, 4096),
-    "exact_p_and_p_plus_1": ((64, 256), "exact_p_and_p_plus_1", {}, 0, 256),
-    "one_pixel": ((64, 256), "one_pixel", {}, 0, 256),
-    "band_rows_32_95_of_128": ((64, 256), "random",
-                               dict(full_height=128), 32, 256),
-    "chunked_1100_lights": ((32, 128), "random", dict(lights=1100), 0, 512),
-}
-
-
-@pytest.mark.parametrize("name", list(ITEM_LIGHT_CASES))
-def test_plain_k7_item_by_item_equals_plain(name):
-    (h, w), mask_name, kw, row_offset, p = ITEM_LIGHT_CASES[name]
-    mask = _mask(mask_name, h, w, p)
-    inputs = _inputs(1, h, w, mask, **kw)
-    ref = tl.tiled_light_plain(*inputs, row_offset)
-    got = items_plain(*inputs, row_offset, item_pixels=p)
+def test_plain_k7_item_by_item_equals_plain():
+    h, w, p = 64, 256, 256
+    mask = _mask("random", h, w, p)
+    inputs = _inputs(1, h, w, mask)
+    ref = tl.tiled_light_plain(*inputs)
+    got = items_plain(*inputs, item_pixels=p)
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   ref.numpy().view(np.uint32))
     covered = torch.from_numpy(mask > 0)
     assert (ref[:, ~covered] == 0).all()
     assert (ref[:, covered] != 0).any()
-    hits = tl.tile_light_hits(inputs[2], h // tl.TILE_H, w // tl.TILE_W,
-                              row_offset)
-    if name.startswith("chunked"):
-        assert int(hits.sum(1).max()) > tl.MAX_LIGHTS  # two chunks
-    else:
-        assert 0 < int(hits.sum()) < hits.numel()  # culled, not empty
+    hits = tl.tile_light_hits(inputs[2], h // tl.TILE_H, w // tl.TILE_W)
+    assert 0 < int(hits.sum()) < hits.numel()  # culled, not empty
 
 
-def test_sass_count_takes_the_innermost_light_loop():
-    """tools/sass_count.py on a hand-written disassembly: an outer loop
-    and an inner loop unrolled twice, whose slow-path CALLs (and the branch
-    after one) are left out of the count an evaluation."""
-    from zrenderer_tpu_torch.tools import sass_count
+CU_SOURCE = (Path(tl.__file__).resolve().parent.parent / "csrc"
+             / "light_tiled.cu")
 
-    body = ["S2R R0, SR_TID.X", "LDS.128 R4, [R2]", "MUFU.RSQ R8, R7",
-            "@!P0 BRA 0x90", "CALL.REL.NOINC 0x200", "BRA 0xa0",
-            "FMUL R9, R8, R8", "LDS.128 R4, [R2+0x10]", "FADD R9, R9, R4",
-            "@!P1 BRA 0xd0", "CALL.REL.NOINC 0x300", "FMUL R9, R9, R9",
-            "@P2 BRA 0x10", "@P3 BRA 0x0", "EXIT"]
-    text = "\n".join(
-        ["        Function : _ZN2zr5light18light_tiled_kernelIfLb0EEEvPKT_"]
-        + [f"        /*{16 * i:04x}*/  {ins} ;  /* 0x0 */"
-           for i, ins in enumerate(body)]
-        + ["        Function : _ZN2zr7overlay21overlay_raster_kernel",
-           "        /*0000*/  LDS.128 R4, [R2] ;"])
-    fn = sass_count.function_sass(text, sass_count.KERNELS[False])
-    assert len(fn) == len(body)
-    loop = sass_count.light_loop(fn)
-    assert (loop["first"], loop["last"]) == (0x10, 0xc0)
-    assert loop["instructions"] == 12 and loop["slow_path_only"] == 3
-    assert loop["unroll"] == 2 and loop["per_evaluation"] == 4.5
+
+@pytest.mark.parametrize("name", ["TILE_H", "TILE_W", "MAX_LIGHTS",
+                                  "ITEM_PIXELS"])
+def test_kernel_constants_equal_their_mirrors(name):
+    """csrc/light_tiled.cu's constexpr ints, which the kernel is compiled
+    with, against the Python constants that the wrappers, the plain
+    version and the cut use."""
+    found = re.findall(rf"constexpr int {name} = (\d+);",
+                       CU_SOURCE.read_text())
+    assert len(found) == 1
+    assert int(found[0]) == getattr(tl, name)

@@ -14,9 +14,9 @@
 // Output (3, H, W) f32: where(mask > 0, acc, 0) per channel.
 //
 // The lights are listed per 32x128 tile, and a tile's covered pixels are
-// cut into work items of at most item_pixels (light_kernel.ITEM_PIXELS),
+// cut into work items of at most ITEM_PIXELS (light_kernel.ITEM_PIXELS),
 // one block of 256 threads each.  The grid is an upper bound, tiles x
-// ceil(4096 / item_pixels) blocks, so the host never waits for a count:
+// ceil(4096 / ITEM_PIXELS) blocks, so the host never waits for a count:
 // every block of a tile compacts the tile's covered pixels in row-major
 // order (a warp ballot over 32 columns and a per-warp prefix, as the
 // light list) and keeps the indices of its own share in shared memory; a
@@ -44,11 +44,11 @@
 // __float2bfloat16_rn, its interpret-mode form; jnp.maximum(x, c) is
 // x < c ? c : x, so a NaN stays NaN.
 //
-// What bounds it on the H100: operations, the instructions of each (pixel,
-// listed light) evaluation (chip_smoke.py OPS_PER_LIGHT, counted in the
-// built library's SASS), three IEEE divides, two square roots and a bf16
-// round trip among them, the divides and roots each a multi-instruction
-// sequence; at 1920x1088 with all 256 lights listed in every tile that is
+// What bounds it on the H100: operations, the arithmetic instructions of
+// each (pixel, listed light) evaluation (chip_smoke.py's OPS_PER_LIGHT,
+// counted in the built library's SASS), three IEEE divides, two square
+// roots and a bf16 round trip among them, the divides and roots each a
+// multi-instruction sequence; at 1920x1088 with all 256 lights listed in every tile that is
 // up to 535 M evaluations, against 100 MB of device memory in (f32 planes
 // and the mask) and 25 MB out.  A block a tile would be one wave of 510
 // blocks whose time the SMs with the most covered tiles set, and a warp
@@ -69,6 +69,12 @@ constexpr int TILE_PIX = TILE_H * TILE_W;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_LIGHTS = 1024;  // a chunk (light_kernel.MAX_LIGHTS)
+// Covered pixels of a work item (light_kernel.ITEM_PIXELS): on the H100 at
+// 1080p, 512 was best for the wide and r2 lights together.
+constexpr int ITEM_PIXELS = 512;
+constexpr int ITEMS_PER_TILE = (TILE_PIX + ITEM_PIXELS - 1) / ITEM_PIXELS;
+static_assert(ITEM_PIXELS >= 1 && ITEM_PIXELS <= TILE_PIX,
+              "a work item holds 1..TILE_PIX pixels");
 
 // float32 of the reference's constants (hex, so no decimal rounding).
 constexpr float PI_F = 0x1.921fb6p+1f;       // jnp.pi
@@ -129,16 +135,14 @@ __global__ void __launch_bounds__(THREADS)
                        const int* __restrict__ bounds,
                        const float* __restrict__ lights, int num_lights,
                        const float* __restrict__ consts, int row_offset,
-                       int item_pixels, float* __restrict__ out, int width,
-                       int height) {
+                       float* __restrict__ out, int width, int height) {
   __shared__ float4 s_pos[MAX_LIGHTS];  // x, y, z and red of each light
   __shared__ float2 s_gb[MAX_LIGHTS];   // its green and blue
-  __shared__ unsigned short s_pix[TILE_PIX];  // the item's tile pixels
+  __shared__ unsigned short s_pix[ITEM_PIXELS];  // the item's tile pixels
   __shared__ int s_warp[WARPS];
 
-  const int items_per_tile = (TILE_PIX + item_pixels - 1) / item_pixels;
-  const int tile = blockIdx.x / items_per_tile;
-  const int item = blockIdx.x % items_per_tile;
+  const int tile = blockIdx.x / ITEMS_PER_TILE;
+  const int item = blockIdx.x % ITEMS_PER_TILE;
   const int tiles_x = width / TILE_W;
   const int tile_i = tile / tiles_x;
   const int row0 = tile_i * TILE_H + row_offset;  // global first row
@@ -146,8 +150,8 @@ __global__ void __launch_bounds__(THREADS)
   const size_t plane = (size_t)width * height;
 
   // The tile's covered pixels in row-major order; this item's are ranks
-  // [first, first + item_pixels).  The first item zeroes the uncovered.
-  const int first = item * item_pixels;
+  // [first, first + ITEM_PIXELS).  The first item zeroes the uncovered.
+  const int first = item * ITEM_PIXELS;
   int covered = 0;
   for (int base = 0; base < TILE_PIX; base += THREADS) {
     const int p = base + threadIdx.x;
@@ -161,11 +165,11 @@ __global__ void __launch_bounds__(THREADS)
     }
     int total;
     const int rank = covered + block_rank(cov, s_warp, total);
-    if (cov && rank >= first && rank - first < item_pixels)
+    if (cov && rank >= first && rank - first < ITEM_PIXELS)
       s_pix[rank - first] = (unsigned short)p;
     covered += total;
   }
-  const int n = min(covered - first, item_pixels);  // block-uniform
+  const int n = min(covered - first, ITEM_PIXELS);  // block-uniform
   if (n <= 0) return;
 
   const float cam_x = consts[0], cam_y = consts[1], cam_z = consts[2];
@@ -313,20 +317,17 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace zr
 
 // K7 on the current stream.  bf16 != 0: the planes are bfloat16.
-// item_pixels: the covered pixels of a work item, 1..4096.
 extern "C" int zr_light_tiled(const void* planes, int bf16, const int* mask,
                               const int* bounds, const float* lights,
                               int num_lights, const float* consts,
-                              int row_offset, int item_pixels, float* out,
-                              int height, int width, void* stream) {
+                              int row_offset, float* out, int height,
+                              int width, void* stream) {
   using namespace zr::light;
-  if (num_lights < 0 || height % TILE_H || width % TILE_W ||
-      item_pixels < 1 || item_pixels > TILE_PIX)
+  if (num_lights < 0 || height % TILE_H || width % TILE_W)
     return (int)cudaErrorInvalidValue;
   const int num_tiles = (height / TILE_H) * (width / TILE_W);
   if (num_tiles == 0) return (int)cudaSuccess;
-  const int blocks =
-      num_tiles * ((TILE_PIX + item_pixels - 1) / item_pixels);
+  const int blocks = num_tiles * ITEMS_PER_TILE;
   cudaStream_t s = (cudaStream_t)stream;
   const bool chunked = num_lights > MAX_LIGHTS;
   if (bf16) {
@@ -334,13 +335,13 @@ extern "C" int zr_light_tiled(const void* planes, int bf16, const int* mask,
                           : light_tiled_kernel<__nv_bfloat16, false>;
     kernel<<<blocks, THREADS, 0, s>>>(
         (const __nv_bfloat16*)planes, mask, bounds, lights, num_lights,
-        consts, row_offset, item_pixels, out, width, height);
+        consts, row_offset, out, width, height);
   } else {
     auto kernel = chunked ? light_tiled_kernel<float, true>
                           : light_tiled_kernel<float, false>;
     kernel<<<blocks, THREADS, 0, s>>>(
         (const float*)planes, mask, bounds, lights, num_lights, consts,
-        row_offset, item_pixels, out, width, height);
+        row_offset, out, width, height);
   }
   return (int)cudaGetLastError();
 }

@@ -167,7 +167,7 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_records_dist.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
                                            i, i, i, p]
     lib.zr_raster_records_dist.restype = i
-    lib.zr_light_tiled.argtypes = [p, i, p, p, p, i, p, i, i, p, i, i, p]
+    lib.zr_light_tiled.argtypes = [p, i, p, p, p, i, p, i, p, i, i, p]
     lib.zr_light_tiled.restype = i
     lib.zr_overlay_raster.argtypes = [p, p, i, i, p, p, p, p, p, i, i, p]
     lib.zr_overlay_raster.restype = i

@@ -66,8 +66,8 @@ NUM_PLANES = 11
 # many, in id order.  BASELINE config 3 has 256.
 MAX_LIGHTS = 1024
 # K7 cuts each tile's covered pixels into work items of at most this many,
-# one CUDA block each (csrc/light_tiled.cu); the wrappers read it at call
-# time.  On the H100 at 1080p, 512 ran the 256 wide lights in 1.34 ms
+# one CUDA block each: a mirror of csrc/light_tiled.cu's ITEM_PIXELS, which
+# the kernel is compiled with.  On the H100 at 1080p, 512 ran the 256 wide lights in 1.34 ms
 # (256: 1.34, 1024: 1.43, 4096: 2.22) and the r2 lights in 0.21 (256:
 # 0.27, 1024: 0.18) (PERF.md §6).
 ITEM_PIXELS = 512
@@ -171,10 +171,17 @@ def tile_light_lists(bounds, tiles_y: int, tiles_x: int, row_offset: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def _prologue(planes, consts):
-    """The per-pixel prologue of ``_tiled_light_kernel`` (:106-150) over
-    11 planes of any common shape: (the values the light loop reads, the
-    ambient sums (r, g, b))."""
+def tiled_light_plain(planes, mask, bounds, lights, consts,
+                      row_offset: int = 0):
+    """The plain torch version of K7: ``planes`` (11, H, W) f32 or bf16,
+    ``mask`` (H, W) int32, ``bounds`` (L, 4) int32, ``lights`` (L, 6) f32
+    (x, y, z, r, g, b), ``consts`` (4,) f32 (camera x, y, z, ambient).
+    Returns (3, H, W) f32: ``where(mask > 0, acc, 0)`` per channel.
+
+    Each light is evaluated over the whole frame and added only where its
+    tile lists it, lights in id order: every pixel sees the adds of its
+    tile's list in the kernel's order."""
+    h, w = mask.shape
     ar, ag, ab, nx, ny, nz, wx, wy, wz, mv, rv = (p.to(F32) for p in planes)
     cam_x, cam_y, cam_z, ambient = consts[0], consts[1], consts[2], consts[3]
 
@@ -188,64 +195,17 @@ def _prologue(planes, consts):
 
     one_minus_m = 1.0 - mv
     f0 = [_f32(0.04) * one_minus_m + a * mv for a in (ar, ag, ab)]
+    omf0 = [1.0 - f for f in f0]
     a = rv * rv
     a2 = a * a
     k = ((rv + 1.0) * (rv + 1.0)) * 0.125
     one_minus_k = 1.0 - k
     gv = ndotv / (ndotv * one_minus_k + k)
-    px = dict(w=(wx, wy, wz), n=(nx, ny, nz), v=(vx, vy, vz), nv_raw=nv_raw,
-              f0=f0, omf0=[1.0 - f for f in f0], k=k, one_minus_k=one_minus_k,
-              cs=((a2 * gv) * 0.25) / ndotv, a2m1=a2 - 1.0,
-              db=[(one_minus_m * a) * _f32(1.0 / np.pi) for a in (ar, ag, ab)])
-    return px, [a * ambient for a in (ar, ag, ab)]
+    cs = ((a2 * gv) * 0.25) / ndotv
+    a2m1 = a2 - 1.0
+    db = [(one_minus_m * a) * _f32(1.0 / np.pi) for a in (ar, ag, ab)]
+    acc = [a * ambient for a in (ar, ag, ab)]
 
-
-def _light_sums(px, acc, light):
-    """The sums ``acc`` plus one light's term (``_tiled_light_kernel``
-    :161-201) at the pixels of ``px``; ``light`` (6,) f32 (x, y, z, r, g,
-    b)."""
-    lx, ly, lz, cr, cg, cb = light.unbind(0)
-    wx, wy, wz = px["w"]
-    nx, ny, nz = px["n"]
-    vx, vy, vz = px["v"]
-    dx, dy, dz = lx - wx, ly - wy, lz - wz
-    d2 = (dx * dx + dy * dy) + dz * dz
-    inv_d = _rsqrt(_max(d2, 1e-12))
-    lxn, lyn, lzn = dx * inv_d, dy * inv_d, dz * inv_d
-    nl_raw = (nx * lxn + ny * lyn) + nz * lzn
-    ndotl = _max(nl_raw, 0.0)
-    ldotv = (lxn * vx + lyn * vy) + lzn * vz
-    inv_h = _rsqrt(_max(2.0 + 2.0 * ldotv, 1e-12))
-    ndoth = _max((nl_raw + px["nv_raw"]) * inv_h, 0.0)
-    vdoth = _max((1.0 + ldotv) * inv_h, 0.0)
-    dterm = (ndoth * ndoth) * px["a2m1"] + 1.0
-    denom = (_max((_f32(np.pi) * dterm) * dterm, 1e-8)
-             * (ndotl * px["one_minus_k"] + px["k"]))
-    spec = px["cs"] * _recip_bf16(denom)
-    t = _min(_max(1.0 - vdoth, 0.0), 1.0)
-    t2 = t * t
-    t5 = (t2 * t2) * t
-    rad = ndotl * (inv_d * inv_d)
-    out = []
-    for ch, c in enumerate((cr, cg, cb)):
-        fres = px["f0"][ch] + px["omf0"][ch] * t5
-        db = px["db"][ch]
-        out.append(acc[ch] + (db + fres * (spec - db)) * (c * rad))
-    return out
-
-
-def tiled_light_plain(planes, mask, bounds, lights, consts,
-                      row_offset: int = 0):
-    """The plain torch version of K7: ``planes`` (11, H, W) f32 or bf16,
-    ``mask`` (H, W) int32, ``bounds`` (L, 4) int32, ``lights`` (L, 6) f32
-    (x, y, z, r, g, b), ``consts`` (4,) f32 (camera x, y, z, ambient).
-    Returns (3, H, W) f32: ``where(mask > 0, acc, 0)`` per channel.
-
-    Each light is evaluated over the whole frame and added only where its
-    tile lists it, lights in id order: every pixel sees the adds of its
-    tile's list in the kernel's order."""
-    h, w = mask.shape
-    px, acc = _prologue(planes, consts)
     tiles_y, tiles_x = h // TILE_H, w // TILE_W
     hits = tile_light_hits(bounds, tiles_y, tiles_x, row_offset).T.reshape(
         -1, tiles_y, tiles_x)
@@ -255,9 +215,30 @@ def tiled_light_plain(planes, mask, bounds, lights, consts,
     for light in range(bounds.shape[0]):
         if not bool(listed[light]):
             continue
+        lx, ly, lz, cr, cg, cb = lights[light].unbind(0)
+        dx, dy, dz = lx - wx, ly - wy, lz - wz
+        d2 = (dx * dx + dy * dy) + dz * dz
+        inv_d = _rsqrt(_max(d2, 1e-12))
+        lxn, lyn, lzn = dx * inv_d, dy * inv_d, dz * inv_d
+        nl_raw = (nx * lxn + ny * lyn) + nz * lzn
+        ndotl = _max(nl_raw, 0.0)
+        ldotv = (lxn * vx + lyn * vy) + lzn * vz
+        inv_h = _rsqrt(_max(2.0 + 2.0 * ldotv, 1e-12))
+        ndoth = _max((nl_raw + nv_raw) * inv_h, 0.0)
+        vdoth = _max((1.0 + ldotv) * inv_h, 0.0)
+        dterm = (ndoth * ndoth) * a2m1 + 1.0
+        denom = (_max((_f32(np.pi) * dterm) * dterm, 1e-8)
+                 * (ndotl * one_minus_k + k))
+        spec = cs * _recip_bf16(denom)
+        t = _min(_max(1.0 - vdoth, 0.0), 1.0)
+        t2 = t * t
+        t5 = (t2 * t2) * t
+        rad = ndotl * (inv_d * inv_d)
         here = hits[light][rows[:, None], cols[None, :]]
-        acc = [torch.where(here, new, old)
-               for new, old in zip(_light_sums(px, acc, lights[light]), acc)]
+        for ch, c in enumerate((cr, cg, cb)):
+            fres = f0[ch] + omf0[ch] * t5
+            add = acc[ch] + (db[ch] + fres * (spec - db[ch])) * (c * rad)
+            acc[ch] = torch.where(here, add, acc[ch])
     covered = mask > 0
     return torch.stack([torch.where(covered, x, 0.0) for x in acc])
 
@@ -317,10 +298,6 @@ def _check_light_inputs(planes, mask, bounds, lights, consts):
 
 def _launch_light(planes, mask, bounds, lights, consts, row_offset: int):
     _check_light_inputs(planes, mask, bounds, lights, consts)
-    item_pixels = ITEM_PIXELS
-    if not 1 <= item_pixels <= TILE_PIX:
-        raise ValueError(f"ITEM_PIXELS must be in 1..{TILE_PIX}, got "
-                         f"{item_pixels}")
     h, w = mask.shape
     out = torch.empty((3, h, w), dtype=F32, device=planes.device)
     with torch.cuda.device(planes.device):
@@ -328,7 +305,7 @@ def _launch_light(planes, mask, bounds, lights, consts, row_offset: int):
         _launch(_build.load_library().zr_light_tiled, _ptr(planes),
                 int(planes.dtype == BF16), _ptr(mask), _ptr(bounds),
                 _ptr(lights), bounds.shape[0], _ptr(consts), int(row_offset),
-                item_pixels, _ptr(out), h, w, ctypes.c_void_p(stream))
+                _ptr(out), h, w, ctypes.c_void_p(stream))
     return out
 
 
