@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the G-buffer raster K4g and the tiled light kernel K7,
-and of the frames whose pace they set, between this tree and another
-checkout (for example a parent commit unpacked with ``git archive``) on
-one CUDA card.
+"""Same-call A/B of the raster kernels K3g, K3d and K4g and the tiled
+light kernel K7, and of the frames whose pace they set, between this tree
+and another checkout (for example a parent commit unpacked with ``git
+archive``) on one CUDA card.
 
     python3 chip_ab.py --other path/to/checkout
 
@@ -10,12 +10,13 @@ Each tree runs in a process of its own, which builds that tree's kernels,
 in turns: other, this, this, other.  Every run uses chip_smoke.py's sizes
 and builders (``lit_frame_rows``, ``deferred_frame_inputs``,
 ``baseline_lights``, ``checker_texture``) from this tree on the tree's own
-package.  A run times, with CUDA events after a warm-up: K4g on the lit 1M
-lattice's inputs (``auto``, the padded 1080p target), K7 on the deferred
-test scene's 1080p G-buffer with BASELINE config 3's wide and r2 lights
-(f32 planes), and ``render_animation`` ms/frame of the lit and the
-shadowed 1M lattice and of the deferred test scene with the wide lights
-at 1080p.  Every run must give the same planes (their digests are
+package.  A run times, with CUDA events after a warm-up: K3g on the lit
+20K lattice's inputs and K3d on its 1024x1024 shadow map (the hierarchy
+prepare), K4g on the lit 1M lattice's inputs (``auto``, the padded 1080p
+target), K7 on the deferred test scene's 1080p G-buffer with BASELINE
+config 3's wide and r2 lights (f32 planes), and ``render_animation``
+ms/frame of the lit and the shadowed 20K and 1M lattices and of the
+deferred test scene with the wide lights at 1080p.  Every run must give the same planes (their digests are
 compared).  Prints the card's name and power limit first, then one JSON
 line per run.
 """
@@ -73,8 +74,27 @@ def measure() -> dict:
                         1) / frames
 
     w, h = cs.PAD_W, cs.PAD_H
-    out = {"root": imported_root(), "k4g": {}, "k7": {}, "frames": {},
-           "digests": {}}
+    out = {"root": imported_root(), "k3g": {}, "k3d": {}, "k4g": {},
+           "k7": {}, "frames": {}, "digests": {}}
+    lattice = make_stress_scene(20000)
+    r = renderer(lattice, pipeline="lit")
+    r.set_environment(texture=cs.checker_texture())
+    prep = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
+    k3g = raster.gbuffer_hier_kernel
+    out["k3g"]["lit lattice20k"] = event_ms(lambda: k3g(*prep, w, h), 20)
+    out["digests"]["k3g lit lattice20k"] = digest(*k3g(*prep, w, h))
+    out["frames"]["lit lattice20k"] = anim_ms(r, cs.ANIM_FRAMES)
+    out["digests"]["lit lattice20k"] = digest(r.render()[0])
+    r = renderer(lattice, pipeline="shadowed", shadow_size=cs.SHADOW_SIZE)
+    r.set_environment()
+    prep = raster.prepare_raster_inputs(*cs.light_rows(r))
+    k3d, s = raster.depth_hier_kernel, cs.SHADOW_SIZE
+    out["k3d"]["lattice20k map"] = event_ms(lambda: k3d(*prep, s, s), 20)
+    out["digests"]["k3d lattice20k map"] = digest(k3d(*prep, s, s))
+    out["frames"]["shadowed lattice20k"] = anim_ms(r, cs.ANIM_FRAMES)
+    out["digests"]["shadowed lattice20k"] = digest(r.render()[0])
+    del prep, r
+
     lattice = make_stress_scene(cs.LARGE_TRIS)
     r = renderer(lattice, pipeline="lit")
     r.set_environment(texture=cs.checker_texture())
@@ -105,6 +125,48 @@ def measure() -> dict:
     return out
 
 
+def sweep(counts) -> dict:
+    """K3g and K3d by CUDA events at each work-item count of ``counts``
+    (raster.HIER_ITEMS), in turns, each twice."""
+    import torch
+
+    from zrenderer_tpu_torch.engine.config import RenderConfig
+    from zrenderer_tpu_torch.engine.renderer import Renderer
+    from zrenderer_tpu_torch.ops import raster
+    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+
+    def event_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    lattice = make_stress_scene(20000)
+    r = Renderer(RenderConfig(width=cs.WIDTH, height=cs.HEIGHT, tri_align=256,
+                              pipeline="shadowed",
+                              shadow_size=cs.SHADOW_SIZE), device="cuda")
+    r.load_scene(*lattice)
+    r.set_environment()
+    pg = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
+    pd = raster.prepare_raster_inputs(*cs.light_rows(r))
+    w, h, s = cs.PAD_W, cs.PAD_H, cs.SHADOW_SIZE
+    out = {}
+    for rep in range(2):
+        for n in counts:
+            raster.HIER_ITEMS = n
+            out.setdefault(f"k3g items {n}", []).append(event_ms(
+                lambda: raster.gbuffer_hier_kernel(*pg, w, h), 20))
+            out.setdefault(f"k3d items {n}", []).append(event_ms(
+                lambda: raster.depth_hier_kernel(*pd, s, s), 20))
+    return out
+
+
 def imported_root() -> str:
     """The checkout whose package this process imported."""
     import zrenderer_tpu_torch
@@ -117,7 +179,11 @@ def main(argv=None) -> int:
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--worker", help="(internal) measure the package of "
                     "this checkout root")
+    ap.add_argument("--sweep", help="work-item counts of K3g/K3d to time")
     args = ap.parse_args(argv)
+    if args.sweep:
+        print(json.dumps(sweep([int(n) for n in args.sweep.split(",")])))
+        return 0
     if args.worker:
         # The package from the given root, chip_smoke from this tree.
         root = os.path.abspath(args.worker)
@@ -149,7 +215,7 @@ def main(argv=None) -> int:
     if any(r["digests"] != runs[0]["digests"] for r in runs):
         print("the trees' planes differ", file=sys.stderr)
         return 1
-    print("every run gave the same K4g, K7 and frame planes")
+    print("every run gave the same K3g, K3d, K4g, K7 and frame planes")
     return 0
 
 

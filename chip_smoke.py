@@ -39,7 +39,11 @@ lines and seconds:
     (one row per triangle, so a wrong winner shows in the constant
     planes); the plain K2g, K3g and K5g calls give their plain_ms; then
     ``keyed_cases`` for K4g on lit rows, all 13 planes bitwise at the
-    default work-item size and at 16 records;
+    default work-item size and at 16 records, and ``hier_cases`` for K3g
+    on lit rows at HIER_ITEMS and at 64 work items a tile (exact ties
+    split across items, a row at z == 1.0 left clear, a subnormal and a
+    NaN z, -0.0 ties both ways, whole tiles, the clipped soup, an empty
+    scene);
 4d. the depth-only kernels of the shadow-map pass, K2d (small-scene
     lists), K3d (hierarchy), K4d (record streaming) and K6d (global pair
     lists), and K6g (the G-buffer over global pair lists) against their
@@ -51,7 +55,7 @@ lines and seconds:
     right edges and past them, the depth planes of all four equal by
     value; the plain K2d, K3d, K6d and K6g calls give their plain_ms;
     then ``keyed_cases`` for K4d (no pixel latched at z == 1.0, the first
-    visited row's zero sign kept);
+    visited row's zero sign kept) and ``hier_cases`` for K3d;
 4l. the tiled light kernel K7 against its plain version, the 3 output
     planes bitwise as int32, f32 and bf16 planes: the 1080p deferred
     G-buffer of the test scene (padded to 1920x1088) with BASELINE config
@@ -201,9 +205,10 @@ lines and seconds:
     each) and each entry point traced once (device ops, busy ms, idle
     share);
 6. timing, traces first: each kernel's device time from a torch.profiler
-   trace at its main-path shape (K4, K4g and K4d: the sum of a call's
-   three device operations, the memset, the item kernel and the resolve; K4
-   also on soup1M through ``auto``), and a profiled ``render_animation`` run
+   trace at its main-path shape (K4, K4g and K4d, and K3g and K3d with
+   more than one work item a tile: the sum of a call's three device
+   operations, the memset, the item kernel and the resolve; K4 also on
+   soup1M through ``auto``), and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
    K4c, 20K lattice K6, the lit paths, and the shadowed test scene, 20K
    lattice (K3d; K6d and K6g) and 1M lattice, the deferred test scene with
@@ -282,15 +287,15 @@ Each kernel's bound is the larger of its inputs and outputs (2 planes
 flat, 13 G-buffer, 1 depth-only) moved once at the card's memory rate and
 the (tile, triangle) pairs its frame needs, times 4096 pixels and
 OPS_PER_EVAL, at the card's instruction rate (phase 1: SMs x 128 lanes x
-the maximum SM clock); K4's, K4g's and K4d's count each record's and
-leftover row's bbox pixels in each tile instead (in the padding rows'
-tiles the kernel's extent, ``window_evals``, the counter phase 6h uses
-too), with the whole-tile figure kept as bound_ms_tiles, and the bytes
-their keyed body needs (``keyed_work``: each span record's ints and z
-coefficients, each leftover row's once, for K4 each distinct winning
-row's edge and colour coefficients, for K4g also its uv, normal and
-constant ones, the output planes), with every input read once kept as
-bound_ms_inputs.  K7's is the larger of its 11 planes,
+the maximum SM clock); the keyed kernels' (K4, K4g, K4d; K3g, K3d over
+the hierarchy alone) count each record's and leftover row's bbox pixels
+in each tile instead (in the padding rows' tiles the kernel's extent,
+``window_evals``, the counter phase 6h uses too), with the whole-tile
+figure kept as bound_ms_tiles, and the bytes their keyed body needs
+(``keyed_work``: each span record's ints and z coefficients, each
+leftover row's once, for K4 each distinct winning row's edge and colour
+coefficients, for K4g and K3g also its uv, normal and constant ones, the
+output planes), with every input read once kept as bound_ms_inputs.  K7's is the larger of its 11 planes,
 mask, bounds, lights and 3 output planes moved once and its (pixel,
 listed light) evaluations, each tile's light count times its covered
 pixels (uncovered pixels cost nothing), times OPS_PER_LIGHT.  K8's is
@@ -986,11 +991,20 @@ def main(argv=None) -> int:
         return int(n.sum().item())
 
     def keyed_pairs(prep, w, h):
-        """The (tile, row) pairs K4's and K4d's keyed body evaluates on a
-        record prepare: every span record, then every leftover (tile, row)
-        pair of the walk.  Returns their setup rows (P, NI32), z
-        coefficients (P, 3), row ids, tile rows and tile columns (P,), the
-        number of span records and the leftover pairs' rows."""
+        """The (tile, row) pairs the keyed body evaluates on a record
+        prepare (K4, K4g, K4d): every span record, then every leftover
+        (tile, row) pair of the walk; on a hierarchy prepare (K3g, K3d:
+        supers, blocks, rows, tf) the walk's pairs alone.  Returns their
+        setup rows (P, NI32), z coefficients (P, 3), row ids, tile rows and
+        tile columns (P,), the number of span records and the leftover
+        pairs' rows."""
+        box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
+        za = slice(tg.F_ZA0, tg.F_ZA0 + 3)
+        if len(prep) == 4:
+            supers, blocks, hier, tf = prep
+            rows, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w,
+                                           h)
+            return hier[rows], tf[rows, za], rows, ty, tx, 0, rows
         offsets, rec_i, rec_f, supers, blocks, hier, tf = prep[:7]
         # Records before offsets[0] sort below tile 0 (off-screen rows'
         # keys) and belong to no span.
@@ -999,9 +1013,7 @@ def main(argv=None) -> int:
         tile = torch.repeat_interleave(
             torch.arange(span.numel(), device=span.device), span)
         tiles_x = w // raster.TILE_W
-        box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
         rows, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w, h)
-        za = slice(tg.F_ZA0, tg.F_ZA0 + 3)
         return (torch.cat([rec_i[first:end, :tg.NI32], hier[rows]]),
                 torch.cat([rec_f[first:end, za], tf[rows, za]]),
                 torch.cat([rec_i[first:end, tg.NI32].long(), rows]),
@@ -1011,13 +1023,15 @@ def main(argv=None) -> int:
     # Evaluations a chunk of k4_winners' scatter (a few hundred MB).
     WINNER_CHUNK = 1 << 22
 
-    def k4_winners(pairs, w, h, depth):
-        """The distinct rows that win a pixel of K4's frame, whose edge and
-        colour coefficients its resolve reads: each pair of ``keyed_pairs``
-        at its window's pixels (raster.vertex_bbox in the tile) under the
-        kernels' edge functions and z, reduced per pixel to the least
-        (z order bits, row id) key.  Raises unless the keys' z is K4's
-        ``depth`` plane, up to the sign of a zero."""
+    def k4_winners(pairs, w, h, depth, strict=False):
+        """The distinct rows that win a pixel of K4's (K4g's, with
+        ``strict`` K3g's) frame, whose edge and colour coefficients its
+        resolve reads: each pair of ``keyed_pairs`` at its window's pixels
+        (raster.vertex_bbox in the tile) under the kernels' edge functions
+        and z, reduced per pixel to the least (z order bits, row id) key
+        (``strict``: of z below 1.0, the strict-less test's).  Raises
+        unless the keys' z is the kernel's ``depth`` plane, up to the sign
+        of a zero."""
         ri, za, ids, ty, tx = pairs[:5]
         jmin, jmax, imin, imax = raster.vertex_bbox(ri.long()).unbind(1)
         r0, c0 = ty * raster.TILE_H, tx * raster.TILE_W
@@ -1046,7 +1060,7 @@ def main(argv=None) -> int:
             ef, zc = e.to(torch.float32), za[pair]
             z = ((ef[:, 0] * zc[:, 0] + ef[:, 1] * zc[:, 1])
                  + ef[:, 2] * zc[:, 2])
-            ok &= z >= 0.0
+            ok &= (z >= 0.0) & (z < 1.0) if strict else z >= 0.0
             key = (((z.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) << 32)
                    | ids[pair])
             keys.scatter_reduce_(0, row * w + col,
@@ -1057,7 +1071,7 @@ def main(argv=None) -> int:
         zbits = torch.where(won, (keys >> 32).to(torch.int32),
                             0x3F800000)
         if not torch.equal(zbits, depth.reshape(-1).abs().view(torch.int32)):
-            raise AssertionError("K4's keys do not give its depth plane")
+            raise AssertionError("the keys do not give the depth plane")
         return int(torch.unique(keys[won] & 0xFFFFFFFF).numel())
 
     # Bytes of a winning row that K4's resolve reads: 12 edge ints and the
@@ -1067,9 +1081,10 @@ def main(argv=None) -> int:
     WINNER_GBUF_BYTES = WINNER_BYTES + 15 * 4 + 6 * 4
 
     def keyed_work(prep, w, h, visible, planes, depth=None,
-                   winner_bytes=WINNER_BYTES):
+                   winner_bytes=WINNER_BYTES, strict=False):
         """K4's or K4g's (given its ``depth`` plane) or K4d's work on a
-        record prepare: (window pixel evaluations, bytes needed).  The
+        record prepare, K3g's (given its plane; ``strict``) or K3d's on a
+        hierarchy prepare: (window pixel evaluations, bytes needed).  The
         evaluations: each pair of ``keyed_pairs`` at its bbox's pixels in
         the tile, or in the padding rows' tiles at the keyed body's extent
         (raster.vertex_bbox).  The bytes: each span record's ints and 3 z
@@ -1081,7 +1096,8 @@ def main(argv=None) -> int:
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
         evals = window_evals(ri[:, box], ty, tx, visible,
                              raster.vertex_bbox(ri))
-        winners = 0 if depth is None else k4_winners(pairs, w, h, depth)
+        winners = (0 if depth is None
+                   else k4_winners(pairs, w, h, depth, strict))
         nbytes = (pairs[5] * (prep[1].shape[1] * 4 + 12)
                   + torch.unique(pairs[6]).numel() * (tg.NI32 * 4 + 12)
                   + winners * winner_bytes + planes * 4 * w * h)
@@ -1183,6 +1199,12 @@ def main(argv=None) -> int:
               "memory a block (raster_records_kernel, "
               "gbuffer_records_keyed_kernel, depth_records_kernel; the "
               "resolve kernels none)")
+        smem = _build.load_library().zr_keyed_hier_smem_bytes()
+        for key in ("k3g", "k3d"):
+            results[key]["smem_bytes"] = smem
+        print(f"  K3g/K3d keyed body: {smem} bytes of dynamic shared memory "
+              "a block (gbuffer_hier_keyed_kernel, depth_hier_keyed_kernel; "
+              f"{raster.HIER_ITEMS} work item(s) a tile)")
         return info.seconds
 
     # -- 3. K1 vs plain ---------------------------------------------------
@@ -1234,7 +1256,7 @@ def main(argv=None) -> int:
                 PAD_W, PAD_H)
         return main_prep, lattice
 
-    main_prep_k3, lattice = k3_inputs or (None,) * 2
+    main_prep_k3, lattice = k3_inputs or (None, make_stress_scene(20000))
 
     def pair_rows(za_a=None, za_b=None, w=128, h=32, lit=False):
         """tests/test_raster_pallas.py :556-606 on the card: a tall
@@ -1373,6 +1395,111 @@ def main(argv=None) -> int:
             ti, torch.zeros((ti.shape[0], tg.NF32), device=dev), w, h)
         for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS):
             if not same(with_items(kern, item)(*prep, w, h),
+                        plain(*prep, w, h)):
+                raise AssertionError(f"{key}: empty scene differs")
+        print(f"  empty scene: {key} equals its plain version (clear)")
+
+    # K3g's and K3d's keyed body: a tile's walk cut into this many work
+    # items too, so that exact ties split across items.
+    HIER_SPLIT_ITEMS = 64
+
+    def with_hier_items(kern, items):
+        """``kern`` run with raster.HIER_ITEMS set to ``items`` for the
+        call (the wrappers read it at call time)."""
+        def run(*args):
+            saved = raster.HIER_ITEMS
+            raster.HIER_ITEMS = items
+            try:
+                return kern(*args)
+            finally:
+                raster.HIER_ITEMS = saved
+        return run
+
+    def hier_cases(key):
+        """The keyed hierarchy body's own cases for K3g (``key`` "k3g", on
+        lit rows, all 13 planes) or K3d ("k3d"), each bit-exact against the
+        plain version in every row at HIER_ITEMS and at HIER_SPLIT_ITEMS
+        work items a tile, the two equal: exact ties between duplicated
+        triangles (to the first row, split across items), a row at z ==
+        1.0 (no pixel latched), a subnormal and a NaN z, K3g's epilogue
+        where a row passed with den < 0, -0.0 ties both ways (the first
+        row's sign kept), triangles that cover whole tiles, the clipped
+        soup at the padded target, and an empty scene."""
+        depth = key == "k3d"
+        kern = {"k3g": k3g, "k3d": k3d}[key]
+        plain = {"k3g": raster.gbuffer_hier_plain,
+                 "k3d": raster.depth_hier_plain}[key]
+        cmp = compare_depth if depth else compare_gbuffer
+        rows_of = setup_rows if depth else lit_rows
+
+        def planes(out):
+            return [out] if depth else list(out)
+
+        def same(a, b):
+            return all(torch.equal(x.contiguous().view(torch.int32),
+                                   y.contiguous().view(torch.int32))
+                       for x, y in zip(planes(a), planes(b)))
+
+        def check(label, rows, w, h):
+            prep = raster.prepare_raster_inputs(*rows)
+            live = int((prep[2][:, tg.I_VALID] > 0).sum().item())
+            print(f"  {label}: {live} live rows, {prep[1].shape[0]} blocks")
+            outs = [cmp(key, f"{label}, {n} item(s) a tile",
+                        with_hier_items(kern, n), plain, prep, w, h)
+                    for n in (raster.HIER_ITEMS, HIER_SPLIT_ITEMS)]
+            if not same(*outs):
+                raise AssertionError(f"{key} {label}: the item counts differ")
+            return outs[-1]
+
+        w, h = 1024, 512
+        got = check("duplicated triangles", rows_of(*tie_soup(True), w, h),
+                    w, h)
+        one = kern(*raster.prepare_raster_inputs(
+            *rows_of(*tie_soup(False), w, h)), w, h)
+        if not same(got, one):
+            raise AssertionError(f"{key}: a duplicate won a depth tie")
+        out = planes(check("z == 1.0 (A's z is 1.0 at one pixel)",
+                           pair_rows(za_a=(0.25, 0.0, 0.0), lit=not depth),
+                           128, 32))
+        if not depth:
+            latched = int(((out[1] == 1.0)
+                           & (out[0] != -(1 << 24))).sum().item())
+            print(f"    {key} latched {latched} pixel(s) at z == 1.0")
+            if latched:
+                raise AssertionError(f"{key}: {latched} pixels latched at "
+                                     "z == 1.0, none expected")
+        check("subnormal z (A) and NaN z (B)",
+              pair_rows(za_a=(1e-45, 0.0, 0.0), za_b=(float("nan"),) * 3,
+                        lit=not depth), 128, 32)
+        if not depth:  # K3g's epilogue form where a row passed with den < 0
+            ti_n, tf_n = pair_rows(lit=True)
+            a = int(torch.nonzero(ti_n[:, tg.I_VALID] > 0)[0].item())
+            tf_n[a, tg.F_RW0:tg.F_RW0 + 3] *= -1.0
+            check("den < 0 (A's 1/w plane negated)", (ti_n, tf_n), 128, 32)
+        for za_a, za_b in (((-0.0,) * 3, (0.0,) * 3),
+                           ((0.0,) * 3, (-0.0,) * 3)):
+            out = planes(check(f"-0.0 tie (A {za_a[0]}, B {za_b[0]})",
+                               pair_rows(za_a=za_a, za_b=za_b,
+                                         lit=not depth), 128, 32))
+            d = out[0] if depth else out[1]
+            neg = int((torch.signbit(d) & (d == 0.0)).sum().item())
+            print(f"    {neg} pixels at -0.0")
+            if (neg > 0) != bool(np.signbit(za_a[0])):
+                raise AssertionError(f"{key}: the first row's zero sign "
+                                     "was not kept")
+        check("whole tiles (A over 1024x512)",
+              pair_rows(w=w, h=h, lit=not depth), w, h)
+        check("clipped soup (whole tiles near the camera)",
+              rows_of(*clipped_soup(), WIDTH, HEIGHT), PAD_W, PAD_H)
+        t = tg.capped_rows(64)
+        ti = torch.zeros((t + (-t) % 64, tg.NI32), dtype=torch.int32,
+                         device=dev)
+        ti[:, tg.I_JMIN] = 1
+        ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
+        prep = raster.prepare_raster_inputs(
+            ti, torch.zeros((ti.shape[0], tg.NF32), device=dev))
+        for n in (raster.HIER_ITEMS, HIER_SPLIT_ITEMS):
+            if not same(with_hier_items(kern, n)(*prep, w, h),
                         plain(*prep, w, h)):
                 raise AssertionError(f"{key}: empty scene differs")
         print(f"  empty scene: {key} equals its plain version (clear)")
@@ -1519,6 +1646,7 @@ def main(argv=None) -> int:
               "(K2g, K3g, K4g, K5g; the duplicates carry other colors and "
               "constants)")
         keyed_cases("k4g")
+        hier_cases("k3g")
 
     # -- 4d. K2d, K3d, K4d, K6d and K6g vs plain ---------------------------
     def shadow_renderer(scene_md, binning="auto", device=DEVICE, width=WIDTH,
@@ -1605,6 +1733,7 @@ def main(argv=None) -> int:
         print("  duplicated triangles leave every map equal by value "
               "(K2d, K3d, K4d, K6d)")
         keyed_cases("k4d")
+        hier_cases("k3d")
 
         # K6g: the G-buffer over global pair lists, at the camera's frame.
         gprep = raster.prepare_binned_inputs
@@ -2699,11 +2828,12 @@ def main(argv=None) -> int:
                     "k4_coarse": "raster_records_coarse_kernel",
                     "k5": "raster_hier_kernel", "k6": "raster_lists_kernel",
                     "k2g": "gbuffer_small_kernel",
-                    "k3g": "gbuffer_hier_kernel",
+                    "k3g": "gbuffer_hier_keyed_kernel",
                     "k4g": "gbuffer_records_keyed_kernel",
                     "k5g": "gbuffer_hbm_kernel",
                     "k6g": "gbuffer_lists_kernel",
-                    "k2d": "depth_small_kernel", "k3d": "depth_hier_kernel",
+                    "k2d": "depth_small_kernel",
+                    "k3d": "depth_hier_keyed_kernel",
                     "k4d": "depth_records_kernel",
                     "k6d": "depth_lists_kernel",
                     "k7": "light_tiled_kernel<float,",
@@ -2728,23 +2858,36 @@ def main(argv=None) -> int:
     resolve_names = {"k4": "raster_records_resolve_kernel",
                      "k4g": "gbuffer_records_resolve_kernel",
                      "k4d": "depth_records_resolve_kernel"}
-    port_kernels = set(kernel_names.values()) | set(resolve_names.values())
+    # K3g and K3d, with more than one work item a tile (raster.HIER_ITEMS),
+    # issue the same three; with one, the item kernel alone.
+    hier_resolve_names = {"k3g": "gbuffer_hier_resolve_kernel",
+                          "k3d": "depth_hier_resolve_kernel"}
+    port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
+                    | set(hier_resolve_names.values()))
+
+    def resolve_of(key):
+        """The resolve kernel of a call of kernel ``key``, or None for a
+        call of one device operation."""
+        if key in hier_resolve_names and raster.HIER_ITEMS > 1:
+            return hier_resolve_names[key]
+        return resolve_names.get(key)
 
     def call_durations(key, events):
         """Device us of each call of kernel ``key`` in a trace's events:
-        its kernel's duration, and for K4/K4g/K4d the sum of a call's three
-        device operations, the memset just before the item kernel, the
-        item kernel and the resolve kernel just after it.  Such a call
-        without all three counts as no call, so the trace reads short."""
-        name = kernel_names[key]
-        if key not in resolve_names:
+        its kernel's duration, and for K4/K4g/K4d (K3g/K3d with several
+        items a tile) the sum of a call's three device operations, the
+        memset just before the item kernel, the item kernel and the
+        resolve kernel just after it.  Such a call without all three
+        counts as no call, so the trace reads short."""
+        name, resolve = kernel_names[key], resolve_of(key)
+        if resolve is None:
             return [d for n, _, d in events if name in n]
         ev = sorted(events, key=lambda e: e[1])
         out = []
         for i, (n, _, d) in enumerate(ev):
             if (name in n and 0 < i < len(ev) - 1
                     and "Memset" in ev[i - 1][0]
-                    and resolve_names[key] in ev[i + 1][0]):
+                    and resolve in ev[i + 1][0]):
                 out.append(ev[i - 1][2] + d + ev[i + 1][2])
         return out
 
@@ -3906,13 +4049,16 @@ def main(argv=None) -> int:
             events, _, ms = traced_kernel_ms(
                 (key,), lambda: [kern(*prep_k, w, h) for _ in range(reps)])
             results[key]["ms"] = ms[key]
-            if key in resolve_names:
+            if key in resolve_names or key in hier_resolve_names:
+                ops = 1 if resolve_of(key) is None else 3
+                results[key]["device_ops_per_call"] = ops
                 names = sorted({n.split("(")[0] for n, _, _ in events})
                 print(f"  {key}: {len(events)} device ops for {reps} calls "
                       f"in its trace: {names}")
-                if len(events) != 3 * reps:
+                if len(events) != ops * reps:
                     raise AssertionError(f"{key}: {len(events)} device ops "
-                                         f"for {reps} calls, not 3 a call")
+                                         f"for {reps} calls, not {ops} a "
+                                         "call")
         # K4 on soup1M through `auto`: large triangles, and the rows past
         # the record budget in the leftover walk.
         prep_soup = raster.prepare_binned_hbm_inputs(*rows_soup, PAD_W,
@@ -3920,8 +4066,6 @@ def main(argv=None) -> int:
         _, _, ms = traced_kernel_ms(
             ("k4",), lambda: [k4(*prep_soup, PAD_W, PAD_H) for _ in range(3)])
         results["k4"]["ms_soup1m"] = ms["k4"]
-        for key in resolve_names:
-            results[key]["device_ops_per_call"] = 3
         # The band kernels (phase 4s/5m inputs): one launch's device time
         # at each kernel's main-path band, one card rendering the bands in
         # turn; K9 on band 0 of the 1M lattice's 2 bands, K9g on band 0 of
@@ -4181,11 +4325,13 @@ def main(argv=None) -> int:
             planes = (raster.GBUFFER_PLANES if key.endswith("g")
                       else 1 if key.endswith("d") else 2)
             evals = nbytes = None
-            if key in resolve_names:  # the keyed body
+            if key in resolve_names or key in hier_resolve_names:
+                # the keyed body
                 evals, nbytes = keyed_work(
                     prep_k, w, h, HEIGHT if h == PAD_H else h, planes,
-                    None if key == "k4d" else kern(*prep_k, w, h)[1],
-                    WINNER_GBUF_BYTES if key == "k4g" else WINNER_BYTES)
+                    None if key.endswith("d") else kern(*prep_k, w, h)[1],
+                    WINNER_GBUF_BYTES if key.endswith("g") else WINNER_BYTES,
+                    strict=key == "k3g")
             set_bound(key, flat_inputs(prep_k), pairs, w, h, shape,
                       planes=planes, evals=evals, nbytes=nbytes)
             print(f"  {key} {shape} {w}x{h}: kernel {res['ms']:.4f} "

@@ -1,0 +1,388 @@
+"""The keyed hierarchy body's rules (zrenderer_tpu_torch/csrc/raster_hier.cu
+``keyed_hier`` over csrc/raster_keyed.cuh: K3g and K3d), through the
+mirrors below, the work-item helpers ``hier_block_hits`` and
+``hier_work_items`` and the window helper ``vertex_bbox`` of
+zrenderer_tpu_torch/ops/raster.py, on setup rows from the JAX package's
+NumPy geometry:
+
+* (a) keys: the minimum of K3g's (z order bits, row id) keys under the
+  clear key (1.0, 0), and of K3d's (z order bits, row id, sign) keys, is
+  the strict-less test z >= 0 && z < zb from 1.0 in row order, over z
+  values with +-0.0, 1.0, subnormals, NaN, negatives and exact ties; a row
+  at z == 1.0 never goes below either clear key;
+* (b) windows: every pixel a row covers in a tile that the walk admits
+  (its clamped bbox meets the tile) lies in the kernel's window for it
+  (the vertices' pixel bbox in the tile), the padding rows included;
+* (c) work items: each tile's hit blocks cut into work items, each item's
+  keys over its rows' windows, merged by the minimum and resolved,
+  equals ``depth_hier_plain`` and, on lit rows (random uv, normals and
+  per-triangle materials), ``gbuffer_hier_plain`` in all 13 planes as
+  int32: the padded soup (its rows below the geometry), the duplicated
+  soup with items of one hit block (exact ties split across items), the 20K
+  lattice, the edge map, a row at z == 1.0 (stays clear in both), a
+  subnormal and a NaN z, and -0.0 ties both ways;
+* (d) the item table cuts each tile's hit blocks into consecutive shares,
+  as the kernel does.
+
+The CUDA kernels are held against the plain versions on the card by
+chip_smoke.py (phases 4g, 4d, 5l and 5s).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_binned_keys import (
+    DEPTH_CLEAR_KEY,
+    F32_SPECIALS,
+    _cover_z,
+    _duplicated_soup,
+    _edge_map,
+    _lattice_narrow,
+    _lit_duplicated_soup,
+    _lit_padding_soup,
+    _lit_pair,
+    _padding_soup,
+    _rows,
+    _sequential_depth,
+    _window_pixels,
+    depth_key_z,
+    depth_keys,
+    flat_keys,
+    record_windows,
+)
+from test_torch_raster import _bits
+from zrenderer_tpu.ops import geometry as g
+from zrenderer_tpu.scene.procedural import make_stress_scene
+from zrenderer_tpu_torch.ops import raster as tr
+
+# K3g's clear key: (1.0, row id 0), which no row at z == 1.0 goes below, as
+# the strict-less test never lets 1.0 pass.  K3d's is K4d's (1.0, visit 0).
+HIER_CLEAR_KEY = 0x3F800000 << 32
+
+
+def _walk_pairs(hier, blocks, supers, width: int, height: int):
+    """Every (tile, row) the hierarchy walk admits: rows whose clamped bbox
+    meets the tile (tile_overlap), in a block and superblock whose union
+    bboxes meet it too.  Returns (tile (P,), row (P,)), row order within
+    each tile."""
+    ty, tx = height // tr.TILE_H, width // tr.TILE_W
+    box = [g.I_JMIN, g.I_JMAX, g.I_IMIN, g.I_IMAX]
+    hits = tr._tile_hits(hier[:, box], ty, tx)
+    tile, row = torch.nonzero(hits, as_tuple=True)
+    block_hits = tr.hier_block_hits(supers, blocks, width, height)
+    # A row that meets a tile is in its block's and superblock's unions.
+    assert bool(block_hits[tile, row // tr.RASTER_BLOCK].all())
+    return tile, row
+
+
+def _resolve_winners(keys, ti, tf, width: int, height: int):
+    """K3g's store: the winner of each (H, W) key (its id; none where the
+    key is the clear one) re-evaluated at the pixel, its z (-0.0 kept),
+    colour, uv and normal numerators and constants, then K3g's epilogue
+    covered ? buf * 1/den : 0.  Returns the GBUFFER_PLANES planes."""
+    th, tw = tr.TILE_H, tr.TILE_W
+    tiles_x = width // tw
+    won = keys != HIER_CLEAR_KEY
+    ids = (keys & 0xFFFFFFFF)[won]
+    row, col = torch.nonzero(won, as_tuple=True)
+    _, interp, zw = _cover_z(ti[ids], tf[ids], row, col)
+    latches = tr._LATCHES + tr._GBUF_LATCHES
+    out = {name: torch.zeros((height, width), dtype=torch.float32)
+           for name, _ in latches + tr._CONSTS}
+    out["z"] = torch.ones((height, width), dtype=torch.float32)
+    out["z"][won] = zw
+    for name, c in latches:
+        out[name][won] = interp(c)
+    for name, c in tr._CONSTS:
+        out[name][won] = tf[ids, c]
+    planes = {name: p.reshape(height // th, th, tiles_x,
+                              tw).permute(0, 2, 1, 3)
+              for name, p in out.items()}
+    return tr._resolve_gbuffer(planes, masked_inv=False)
+
+
+def keyed_hier_plain(supers, blocks, ti, tf, width: int, height: int,
+                     depth: bool, items: int):
+    """K3g (or with ``depth`` K3d) as the keyed body computes it over the
+    hierarchy alone: each tile's hit blocks cut into ``items`` work items
+    (``tr.hier_work_items``), each item's keys over its rows' windows (a
+    scatter min; a key at or above the clear one lowers nothing), the
+    items' keys merged by their minimum, then the store."""
+    th, tw = tr.TILE_H, tr.TILE_W
+    tiles_x = width // tw
+    num_tiles = tiles_x * (height // th)
+    work = tr.hier_work_items(
+        tr.hier_block_hits(supers, blocks, width, height), items)
+    tile, rows = _walk_pairs(ti, blocks, supers, width, height)
+    item = work[tile, rows // tr.RASTER_BLOCK]
+    assert bool(((item >= 0) & (item < items)).all())
+    owner = tile * items + item
+    row0, col0 = (tile // tiles_x) * th, (tile % tiles_x) * tw
+    ri = ti[rows].long()
+    pair, row, col = _window_pixels(ri, row0, col0)
+    cov, _, z = _cover_z(ti[rows][pair], tf[rows][pair], row, col)
+    ok = cov & (z >= 0.0)
+    tag = rows[pair][ok]
+    key = depth_keys(z[ok], tag) if depth else flat_keys(z[ok], tag)
+    clear = DEPTH_CLEAR_KEY if depth else HIER_CLEAR_KEY
+    slot = (owner[pair][ok] * (th * tw) + (row[ok] - row0[pair][ok]) * tw
+            + col[ok] - col0[pair][ok])
+    per_item = torch.full((num_tiles * items * th * tw,), clear,
+                          dtype=torch.int64)
+    per_item.scatter_reduce_(0, slot, key, "amin")
+    merged = per_item.reshape(num_tiles, items, th * tw).amin(1)
+    keys = tr._frame(merged.reshape(height // th, tiles_x, th, tw))
+    if depth:
+        return depth_key_z(keys)
+    return _resolve_winners(keys, ti, tf, width, height)
+
+
+# (a) keys
+
+
+def _sequential_strict(z):
+    """K3g's register loop over rows in order: z >= 0 && z < zb from 1.0,
+    keeping the last row that passed; returns (z bits, row) or (1.0's
+    bits, None)."""
+    zb, tb = np.float32(1.0), None
+    for t, zz in enumerate(z):
+        if zz >= 0 and zz < zb:
+            zb, tb = zz, t
+    return np.float32(zb).view(np.uint32), tb
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_key_minimum_is_the_strict_less_test(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(40):
+        n = int(rng.integers(1, 12))
+        z = rng.choice(F32_SPECIALS, n)
+        if n > 1 and rng.random() < 0.5:  # an exact tie, a later row
+            z[rng.integers(n)] = z[rng.integers(n)]
+        ok = torch.from_numpy(z >= 0)
+        zt, ids = torch.from_numpy(z), torch.arange(n)
+        keys = flat_keys(zt, ids)[ok].tolist()
+        k = min([HIER_CLEAR_KEY] + [x for x in keys if x < HIER_CLEAR_KEY])
+        zbits, tb = _sequential_strict(z)
+        if tb is None:
+            assert k == HIER_CLEAR_KEY
+        else:
+            assert (k >> 32, k & 0xFFFFFFFF) == (zbits & 0x7FFFFFFF, tb)
+            # The store re-evaluates the winner's z: its sign is kept.
+            assert z[tb].view(np.uint32) == zbits
+        deep = depth_keys(zt, ids)[ok]
+        kd = torch.tensor(min([DEPTH_CLEAR_KEY] + deep.tolist()))
+        assert (depth_key_z(kd).numpy().view(np.uint32)
+                == _sequential_depth(z))
+
+
+def test_key_clear_values():
+    """A row at z == 1.0 goes below neither clear key, whatever its id;
+    -0.0 ties +0.0 and the lower row id wins."""
+    one = torch.tensor([1.0, 1.0])
+    assert (flat_keys(one, torch.tensor([0, 7])) >= HIER_CLEAR_KEY).all()
+    assert (depth_keys(one, torch.tensor([0, 7])) >= DEPTH_CLEAR_KEY).all()
+    below = torch.tensor([np.nextafter(np.float32(1.0), np.float32(0.0))])
+    assert flat_keys(below, torch.tensor([2**31 - 1]))[0] < HIER_CLEAR_KEY
+    zeros = torch.tensor([-0.0, 0.0])
+    for first in (0, 1):
+        ids = torch.tensor([first, 1 - first])
+        fk = flat_keys(zeros, ids)
+        assert int(fk.argmin()) == int(ids.argmin())
+        dk = depth_keys(zeros, ids)
+        winner = depth_key_z(dk.min().reshape(1))
+        assert bool(torch.signbit(winner)) == (first == 0)
+
+
+# (b) windows
+
+HIER_INPUTS = {"padding_soup": _padding_soup,
+               "duplicated_soup": _duplicated_soup,
+               "lattice20k_256x128": _lattice_narrow, "edge_map": _edge_map}
+
+
+@pytest.mark.parametrize("name", list(HIER_INPUTS))
+def test_windows_hold_every_covered_pixel(name):
+    (ti, tf), (w, h) = HIER_INPUTS[name]()
+    supers, blocks, hier, tf_c = tr.prepare_raster_inputs(ti, tf)
+    tile, rows = _walk_pairs(hier, blocks, supers, w, h)
+    tiles_x = w // tr.TILE_W
+    row0 = (tile // tiles_x) * tr.TILE_H
+    col0 = (tile % tiles_x) * tr.TILE_W
+    ri = hier[rows].long()
+    r_lo, r_hi, c_lo, c_hi = record_windows(ri, row0, col0)
+    iy = torch.arange(tr.TILE_H)[:, None]
+    ix = torch.arange(tr.TILE_W)[None, :]
+    covered = outside = 0
+    for s in range(0, ri.shape[0], 1024):
+        sl = slice(s, s + 1024)
+        r = ri[sl].to(torch.int32)
+        rr = (row0[sl, None, None] + iy).to(torch.int32)
+        cc = (col0[sl, None, None] + ix).to(torch.int32)
+        py, px = rr * 8 + 4, cc * 8 + 4
+
+        def c(k):
+            return r[:, k, None, None]
+
+        cov = ((c(g.I_DX0) * (py - c(g.I_Y1)) - c(g.I_DY0) * (px - c(g.I_X1))
+                >= c(g.I_BIAS0))
+               & (c(g.I_DX1) * (py - c(g.I_Y2)) - c(g.I_DY1) * (px - c(g.I_X2))
+                  >= c(g.I_BIAS1))
+               & (c(g.I_DX2) * (py - c(g.I_Y0)) - c(g.I_DY2) * (px - c(g.I_X0))
+                  >= c(g.I_BIAS2)))
+        inside = ((rr >= r_lo[sl, None, None]) & (rr <= r_hi[sl, None, None])
+                  & (cc >= c_lo[sl, None, None])
+                  & (cc <= c_hi[sl, None, None]))
+        covered += int(cov.sum())
+        outside += int((cov & ~inside).sum())
+    assert covered > 0
+    assert outside == 0
+    if name == "padding_soup":
+        # The walk's rows draw into the padding rows 80-95 by their window,
+        # as the whole-tile evaluation drew them.
+        z = tr.depth_hier_plain(supers, blocks, hier, tf_c, w, h)
+        assert (z[80:] < 1.0).sum() > 0
+
+
+# (c) work items merged
+
+
+def _ties_split_across_items(supers, blocks, hier, w, h, items):
+    """(tile, row) pairs of the walk whose row repeats the vertices of an
+    earlier row of the tile from another work item: exact ties that the
+    items' merge must break."""
+    work = tr.hier_work_items(tr.hier_block_hits(supers, blocks, w, h),
+                              items)
+    tile, rows = _walk_pairs(hier, blocks, supers, w, h)
+    item = work[tile, rows // tr.RASTER_BLOCK]
+    first, split = {}, 0
+    for t, r, it in zip(tile.tolist(), rows.tolist(), item.tolist()):
+        v = (t, *hier[r, :6].tolist())
+        split += v in first and first[v] != it
+        first.setdefault(v, it)
+    return split
+
+
+# name: (lit rows, items a tile, what the frame must show)
+HIER_ITEM_CASES = {
+    "padding_soup_items1": (_lit_padding_soup, 1, "padding"),
+    "padding_soup_items3": (_lit_padding_soup, 3, "padding"),
+    "duplicated_soup_items32": (_lit_duplicated_soup, 32, "split_ties"),
+    "lattice20k_items5": (
+        lambda: (_rows(*make_stress_scene(20000), 256, 128, tri_align=256,
+                       lit=True, seed=7), (256, 128)), 5, "frame"),
+    "edge_map_items2": (
+        lambda: (_rows(*_edge_scene(), 256, 256, lit=True, seed=8),
+                 (256, 256)), 2, "frame"),
+    "z_one_items1": (lambda: _lit_pair(za_a=(0.25, 0.0, 0.0)), 1, "z_one"),
+    "subnormal_nan_items2": (
+        lambda: _lit_pair(za_a=(1e-45, 0.0, 0.0), za_b=(np.nan,) * 3), 2,
+        "subnormal"),
+    "neg_zero_first_items1": (
+        lambda: _lit_pair(za_a=(-0.0,) * 3, za_b=(0.0,) * 3), 1, "neg_zero"),
+    "pos_zero_first_items2": (
+        lambda: _lit_pair(za_a=(0.0,) * 3, za_b=(-0.0,) * 3), 2, "pos_zero"),
+    "den_negative_items1": (lambda: _negative_den_pair(), 1, "den_negative"),
+}
+
+
+def _negative_den_pair():
+    """The lit pair with A's 1/w plane negated: where A wins, its den < 0,
+    so K3g's epilogue (covered ? buf * 1/den : 0) writes +0.0 where
+    buf * (covered ? 1/den : 0) would write -0.0 or NaN."""
+    (ti, tf), wh = _lit_pair()
+    a = int(torch.nonzero(ti[:, g.I_VALID] > 0)[0])
+    tf[a, g.F_RW0:g.F_RW0 + 3] = -tf[a, g.F_RW0:g.F_RW0 + 3]
+    return (ti, tf), wh
+
+
+def _edge_scene():
+    from zrenderer_tpu.scene.procedural import make_triangle_soup
+    return make_triangle_soup(600, seed=3, extent=6.0)
+
+
+@pytest.mark.parametrize("kernel", ["k3g", "k3d"])
+@pytest.mark.parametrize("name", list(HIER_ITEM_CASES))
+def test_items_merged_equal_the_plain_versions(name, kernel):
+    build, items, shows = HIER_ITEM_CASES[name]
+    (ti, tf), (w, h) = build()
+    prep = tr.prepare_raster_inputs(ti, tf)
+    depth = kernel == "k3d"
+    got = keyed_hier_plain(*prep, w, h, depth, items)
+    if depth:
+        ref = tr.depth_hier_plain(*prep, w, h)
+        _bits(got.numpy(), ref.numpy())
+        z, color = ref, None
+    else:
+        ref = tr.gbuffer_hier_plain(*prep, w, h)
+        assert len(got) == len(ref) == tr.GBUFFER_PLANES
+        for a, b in zip(got, ref):
+            _bits(a.numpy(), b.numpy())
+        z, color = ref[1], ref[0]
+    assert int((z < 1.0).sum()) > 0
+    if shows == "padding":
+        assert (z[80:] < 1.0).sum() > 0  # rows below the geometry
+    elif shows == "split_ties":
+        assert _ties_split_across_items(*prep[:3], w, h, items) > 0
+        if not depth:  # many winners' materials
+            assert torch.unique(ref[12][z < 1.0]).numel() > 50
+    elif shows == "z_one":
+        # A (row 0) covers a pixel at z == 1.0, which the strict-less
+        # test leaves clear.
+        row, col = torch.nonzero(torch.ones(h, w, dtype=torch.bool),
+                                 as_tuple=True)
+        cov, _, za = _cover_z(prep[2][:1], prep[3][:1], row, col)
+        assert int((cov & (za == 1.0)).sum()) == 1
+        if color is not None:
+            latched = int(((z == 1.0) & (color != -(1 << 24))).sum())
+            assert latched == 0
+    elif shows == "subnormal":
+        sub = (z > 0.0) & (z < np.float32(np.finfo(np.float32).tiny))
+        assert int(sub.sum()) > 0
+    elif shows == "den_negative" and color is not None:
+        uncovered = (z < 1.0) & (color == -(1 << 24))
+        assert int(uncovered.sum()) > 0
+        for p in ref[2:7]:  # uv and normal: +0.0 where den <= 0
+            assert not bool(torch.signbit(p[uncovered]).any())
+    elif shows in ("neg_zero", "pos_zero"):
+        neg = int((torch.signbit(z) & (z == 0.0)).sum())
+        assert (neg > 0) == (shows == "neg_zero")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_work_items_cut_each_tiles_hit_blocks(seed):
+    rng = np.random.default_rng(seed)
+    tiles = int(rng.integers(1, 30))
+    blocks = tr.SUPER_BLOCK * int(rng.integers(1, 9))
+    hits = torch.from_numpy(rng.random((tiles, blocks))
+                            < rng.choice([0.0, 0.02, 0.3, 1.0]))
+    hits[0] = False  # a tile no row meets
+    items = int(rng.integers(1, 80))
+    work = tr.hier_work_items(hits, items)
+    assert (work[~hits] == -1).all()
+    for t in range(tiles):
+        mine = work[t][hits[t]].tolist()
+        n = len(mine)
+        # As the kernel cuts: item i takes hit blocks [i n / items,
+        # (i + 1) n / items), in row order.
+        want = [i for i in range(items)
+                for _ in range(i * n // items, (i + 1) * n // items)]
+        assert mine == want
+        if n:
+            sizes = np.bincount(mine, minlength=items)
+            assert int(sizes.max() - sizes.min()) <= 1
+
+
+def test_hit_blocks_match_the_walk():
+    """On the 20K lattice at 256x128, every block that holds a row the
+    walk admits in a tile is one of the tile's hit blocks."""
+    (ti, tf), (w, h) = _lattice_narrow()
+    supers, blocks, hier, _ = tr.prepare_raster_inputs(ti, tf)
+    hits = tr.hier_block_hits(supers, blocks, w, h)
+    tile, rows = _walk_pairs(hier, blocks, supers, w, h)
+    held = torch.zeros_like(hits)
+    held[tile, rows // tr.RASTER_BLOCK] = True
+    assert bool((hits | ~held).all())
+    assert int(held.sum()) > 0
+    assert int(hits.sum()) >= int(held.sum())

@@ -40,45 +40,26 @@
 // walks a tile's whole span, whose lengths differ by orders of magnitude
 // (K4d's 1024^2 map has 256 tiles for 132 SMs).
 //
-// K4, K4g and K4d run the keyed body instead (keyed_records below), with
-// the same planes bit for bit:
-// * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
-//   atomicMin.  K4 and K4g: (order bits of z, row id), whose minimum is
-//   the (z, row id) tie-break.  K4d: (order bits of z, visit index, sign
-//   of z), whose minimum is the strict-less test in visit order with the
-//   first visited row kept: a span record's visit index is its record
-//   index, a leftover row's is the span's end plus its row id.  -0.0 and
-//   +0.0 share order bits; z >= 0 filters first (NaN and negative z never
-//   compete).  K4's and K4g's clear key (1.0, INT32_MAX) lets a row at z ==
-//   1.0 latch, as the register body does; K4d's (1.0, 0) never loses to
-//   one.
-// * Work in proportion to each record's window: its vertices' pixel bbox in
-//   the tile.  A pixel a row covers lies in the closed triangle (exact int32
-//   edge functions inside the guard band), so in that bbox, wherever the
-//   bbox columns were clamped: the padding rows get every pixel the
-//   whole-tile evaluation drew.  A batch of up to KEY_BATCH records is
-//   flattened into (record, pixel) evaluations that the 256 threads take in
-//   turn (a prefix sum over the windows' areas, a binary search a thread),
-//   so a record that covers the tile and one of 3 pixels share the block
-//   alike.  The edge functions step from the window's origin (int32 wrap,
-//   the same bits as edge_fn), then the same bias tests and interp3.
-// * Records staged in shared memory with cp.async, double-buffered;
-//   leftover rows of the superblock -> block -> row walk are compacted into
-//   the same batches.  The body is templated on the key (FlatKeys,
-//   GbufKeys, DepthKeys), which holds the tags and the resolve: K4c and K9
-//   can move onto it as instantiations (a coarse producer, a band's row
-//   base).
+// K4, K4g and K4d run the keyed body of raster_keyed.cuh instead
+// (keyed_records below), with the same planes bit for bit: one 64-bit key
+// a pixel in shared memory lowered by atomicMin (K4 and K4g FlatKeys and
+// GbufKeys, (order bits of z, row id), whose minimum is the (z, row id)
+// tie-break; K4d DepthKeys, (order bits of z, visit index, sign of z), a
+// span record's visit index its record index, a leftover row's the span's
+// end plus its row id), each record evaluated over its window (its
+// vertices' pixel bbox in the tile), the leftover rows compacted into the
+// same batches by the hierarchy walk.  Here:
+// * Records staged in shared memory with cp.async, double-buffered.  K4c
+//   and K9 can move onto the body as instantiations (a coarse producer, a
+//   band's row base).
 // * A tile's span is cut into work items of at most item_records records,
 //   one block each, which share the tile's leftover superblocks too.  A
-//   tile of one item resolves its keys in place; otherwise each item
-//   atomicMins the keys it lowered into a frame-sized key plane (8 bytes a
-//   pixel, set to all ones by a memset) and a second kernel resolves the
-//   plane's minimum, which is order-free.  Three device operations a call.
-// The resolve re-evaluates the winner from hier/tf through
-// raster_common.cuh's resolve_winner, the register bodies' epilogue: K4 its
-// z (-0.0 kept) and colour, K4g the same and its 11 further planes; K4d
-// decodes z from the key.  Nothing moves the tensor cores; the records are
-// read once.
+//   tile of one item resolves its keys in place; otherwise the items merge
+//   through the frame's key plane and a second kernel resolves it.  Three
+//   device operations a call (memset, items, resolve).
+// The resolve re-evaluates the winner from hier/tf: K4 its z (-0.0 kept)
+// and colour, K4g the same and its 11 further planes; K4d decodes z from
+// the key.  The records are read once.
 //
 // K4g replaces rasterize_gbuffer_pallas_binned_hbm
 // (_binned_hbm_gbuffer_kernel, body _binned_hbm_body with the G-buffer
@@ -129,13 +110,10 @@
 // H100: as K4, the per-pixel edge work over the band's (tile, triangle)
 // pairs x 4096 x 26 ops; K9g adds its 13 output planes.
 
-#include <cuda_pipeline.h>
-
-#include "raster_common.cuh"
+#include "raster_keyed.cuh"
 
 namespace zr {
 
-constexpr int REC_I = NI32 + 1;  // record ints: the setup row + its row id
 // Coarse bins are COARSE_CB x COARSE_CB tiles (ops/raster.py COARSE_CB, the
 // reference's coarse_cb default).
 constexpr int COARSE_CB = 4;
@@ -269,127 +247,19 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The keyed record raster (K4, K4d); see the note at the top of the file.
+// The keyed record raster (K4, K4g, K4d): the body of raster_keyed.cuh over
+// a tile's record span, then the leftover rows.
 // ---------------------------------------------------------------------------
 
-constexpr int SUBPIXEL_BITS = 3;
-static_assert(1 << SUBPIXEL_BITS == SUBPIXEL, "SUBPIXEL is 8");
-constexpr int TILE_PIX = TILE_H * TILE_W;  // keys a tile
-constexpr int KEY_BATCH = 128;             // records flattened together
-constexpr int KEY_PENDING = 2 * KEY_BATCH;  // leftover rows awaiting a batch
-constexpr int WARPS = THREADS / 32;
-static_assert(KEY_BATCH == RASTER_BLOCK, "a block's rows fit one batch");
-static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
-
-// K4's and K4g's key: the order bits of z (the sign cleared, so -0.0 ties
-// +0.0) over the row id.  A span record's id is its last int, a leftover
-// row's its index in hier.  The store resolves pixel (row, col) of the
-// frame from its key: the winner re-evaluated from hier/tf (ti/tf) by
-// raster_common.cuh's resolve_winner, z included (its -0.0 kept), one
-// IEEE divide, RGBA8 packed; z 1.0 and alpha alone where no row latched.
-// PLANES (K4g): also the 11 further G-buffer planes from extra, frame
-// floats apart, under the buf * (covered ? 1/den : 0) epilogue.
-template <bool PLANES>
-struct WinnerKeys {
-  static constexpr unsigned long long CLEAR =
-      (0x3f800000ull << 32) | (unsigned long long)INT_MAX32;
-  static __device__ __forceinline__ uint32_t span_tag(const int* r, int) {
-    return (uint32_t)r[NI32];
-  }
-  static __device__ __forceinline__ uint32_t row_tag(int t, int) {
-    return (uint32_t)t;
-  }
-  static __device__ __forceinline__ unsigned long long key(uint32_t zbits,
-                                                           uint32_t tag) {
-    return ((unsigned long long)(zbits & 0x7fffffffu) << 32) | tag;
-  }
-  static __device__ __forceinline__ void store(
-      unsigned long long k, int row, int col, const int* __restrict__ ti,
-      const float* __restrict__ tf, int* __restrict__ color,
-      float* __restrict__ depth, float* __restrict__ extra, int width,
-      size_t frame) {
-    resolve_winner<true, PLANES, true>(
-        ti, tf, k == CLEAR ? INT_MAX32 : (int)(uint32_t)k, 1.0f,
-        col * SUBPIXEL + HALF, row * SUBPIXEL + HALF, color, depth, extra,
-        (size_t)row * width + col, frame);
-  }
-};
-using FlatKeys = WinnerKeys<false>;
-using GbufKeys = WinnerKeys<true>;
-
-// K4d's key: the order bits of z over the visit index over the sign of z.
-// The visit index of span record k is k; of leftover row t, the span's end
-// plus t: both below 2^31, so the key holds them shifted by one.
-struct DepthKeys {
-  static constexpr unsigned long long CLEAR = 0x3f800000ull << 32;
-  static __device__ __forceinline__ uint32_t span_tag(const int*, int k) {
-    return (uint32_t)k;
-  }
-  static __device__ __forceinline__ uint32_t row_tag(int t, int span_end) {
-    return (uint32_t)(span_end + t);
-  }
-  static __device__ __forceinline__ unsigned long long key(uint32_t zbits,
-                                                           uint32_t tag) {
-    return ((unsigned long long)(zbits & 0x7fffffffu) << 32) |
-           ((unsigned long long)tag << 1) | (zbits >> 31);
-  }
-  static __device__ __forceinline__ void store(
-      unsigned long long k, int row, int col, const int* __restrict__,
-      const float* __restrict__, int* __restrict__, float* __restrict__ depth,
-      float* __restrict__, int width, size_t) {
-    const uint32_t bits = (uint32_t)(k >> 32) | ((uint32_t)k << 31);
-    depth[(size_t)row * width + col] =
-        k == CLEAR ? 1.0f : __uint_as_float(bits);
-  }
-};
-
-// Shared memory of one work item (dynamic: above the 48 KB static limit).
-struct KeyedSmem {
-  unsigned long long key[TILE_PIX];
+// Shared memory of a K4/K4g/K4d work item (dynamic: above the 48 KB static
+// limit): the keyed body's, and the span's records staged by cp.async.
+struct KeyedSpanSmem : KeyedSmem {
   int raw_i[2][KEY_BATCH * REC_I];  // staged records, double-buffered
   float raw_z[2][KEY_BATCH * 3];    // their z coefficients
-  // The batch, one column a record: edge values at the window's origin,
-  // their steps a column and a row, biases, z coefficients, the origin's
-  // pixel in the tile, the window's width and its reciprocal, the key's tag.
-  int e[3][KEY_BATCH], cstep[3][KEY_BATCH], rstep[3][KEY_BATCH];
-  int bias[3][KEY_BATCH];
-  float za[3][KEY_BATCH];
-  int origin[KEY_BATCH], wide[KEY_BATCH];
-  float inv_wide[KEY_BATCH];
-  uint32_t tag[KEY_BATCH];
-  int prefix[KEY_BATCH + 1];  // evaluations before each record
-  int pending[KEY_PENDING];
-  int scan[WARPS];
-  int item[3];  // tile, item index within the tile, items of the tile
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   __pipeline_memcpy_async(dst, src, 4);
-}
-
-// Exclusive prefix of v over the block's threads; total gets the sum.
-// Every thread calls it.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
-                                                    int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  int before = 0, sum = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const int c = warp_sums[w];
-    before += w < warp ? c : 0;
-    sum += c;
-  }
-  __syncthreads();
-  total = sum;
-  return before + x - v;
 }
 
 // Work items of tile u: its span in pieces of at most item_records, and
@@ -426,93 +296,8 @@ __device__ __forceinline__ void find_item(KeyedSmem& s,
   __syncthreads();
 }
 
-// Batch column j from setup row r (NI32 ints) and its z coefficients zc:
-// the window (the vertices' pixel bbox in the tile), the edge values at
-// its origin and their steps.  Returns the window's area (0: empty).
-__device__ __forceinline__ int prepare_record(KeyedSmem& s, int j,
-                                              const int* r, const float* zc,
-                                              uint32_t tag, int row0,
-                                              int col0) {
-  const int x0 = r[I_X0], y0 = r[I_Y0], x1 = r[I_X1], y1 = r[I_Y1];
-  const int x2 = r[I_X2], y2 = r[I_Y2];
-  const int c_lo =
-      max((min(min(x0, x1), x2) + (SUBPIXEL - 1 - HALF)) >> SUBPIXEL_BITS,
-          col0);
-  const int c_hi =
-      min((max(max(x0, x1), x2) - HALF) >> SUBPIXEL_BITS, col0 + TILE_W - 1);
-  const int r_lo =
-      max((min(min(y0, y1), y2) + (SUBPIXEL - 1 - HALF)) >> SUBPIXEL_BITS,
-          row0);
-  const int r_hi =
-      min((max(max(y0, y1), y2) - HALF) >> SUBPIXEL_BITS, row0 + TILE_H - 1);
-  const int w = c_hi - c_lo + 1, h = r_hi - r_lo + 1;
-  if (w <= 0 || h <= 0) return 0;
-  const int px = c_lo * SUBPIXEL + HALF, py = r_lo * SUBPIXEL + HALF;
-  const int dx[3] = {r[I_DX0], r[I_DX1], r[I_DX2]};
-  const int dy[3] = {r[I_DY0], r[I_DY1], r[I_DY2]};
-  const int ex[3] = {x1, x2, x0}, ey[3] = {y1, y2, y0};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    s.e[i][j] = edge_fn(dx[i], dy[i], ex[i], ey[i], px, py);
-    s.cstep[i][j] = (int)(0u - (uint32_t)dy[i] * (uint32_t)SUBPIXEL);
-    s.rstep[i][j] = (int)((uint32_t)dx[i] * (uint32_t)SUBPIXEL);
-    s.bias[i][j] = r[I_BIAS0 + i];
-    s.za[i][j] = zc[i];
-  }
-  s.origin[j] = (r_lo - row0) * TILE_W + (c_lo - col0);
-  s.wide[j] = w;
-  s.inv_wide[j] = __fdiv_rn(1.0f, __int2float_rn(w));
-  s.tag[j] = tag;
-  return w * h;
-}
-
-// Every (record, pixel) of the prepared batch, threads striding over the
-// flattened evaluations; area is this thread's record's (0 for threads
-// that prepared none).  Pixel q of a window of width w is row q / w,
-// column q % w: floor((q + 0.5) / w) by one rounded product, exact as the
-// quotient's fraction stays 0.5 / w from an integer and q < 4096.
-template <class Mode>
-__device__ __forceinline__ void eval_batch(KeyedSmem& s, int area) {
-  int total;
-  const int before = block_exclusive_scan(area, s.scan, total);
-  if (threadIdx.x < KEY_BATCH) s.prefix[threadIdx.x] = before;
-  if (threadIdx.x == 0) s.prefix[KEY_BATCH] = total;
-  __syncthreads();
-  int k = 0;
-  for (int f = threadIdx.x; f < total; f += THREADS) {
-    if (f >= s.prefix[k + 1]) {  // the last record whose prefix <= f
-      int lo = k;
-#pragma unroll
-      for (int step = KEY_BATCH / 2; step > 0; step >>= 1)
-        if (lo + step < KEY_BATCH && s.prefix[lo + step] <= f) lo += step;
-      k = lo;
-    }
-    const int q = f - s.prefix[k];
-    const int w = s.wide[k];
-    const int dr = __float2int_rz(
-        __fmul_rn(__fadd_rn(__int2float_rn(q), 0.5f), s.inv_wide[k]));
-    const int dc = q - dr * w;
-    int e[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      e[i] = (int)((uint32_t)s.e[i][k] +
-                   (uint32_t)dr * (uint32_t)s.rstep[i][k] +
-                   (uint32_t)dc * (uint32_t)s.cstep[i][k]);
-    if (e[0] < s.bias[0][k] || e[1] < s.bias[1][k] || e[2] < s.bias[2][k])
-      continue;
-    const float z = interp3(__int2float_rn(e[0]), __int2float_rn(e[1]),
-                            __int2float_rn(e[2]), s.za[0][k], s.za[1][k],
-                            s.za[2][k]);
-    if (!(z >= 0.0f)) continue;
-    const unsigned long long key = Mode::key(__float_as_uint(z), s.tag[k]);
-    unsigned long long* slot = &s.key[s.origin[k] + dr * TILE_W + dc];
-    if (key < *slot) atomicMin(slot, key);
-  }
-  __syncthreads();
-}
-
 // Records [k0, k0 + n) into staging buffer buf by cp.async, one commit.
-__device__ __forceinline__ void stage_records(KeyedSmem& s, int buf,
+__device__ __forceinline__ void stage_records(KeyedSpanSmem& s, int buf,
                                               const int* __restrict__ rec_i,
                                               const float* __restrict__ rec_f,
                                               int k0, int n) {
@@ -528,7 +313,7 @@ __device__ __forceinline__ void stage_records(KeyedSmem& s, int buf,
 // Records [k_begin, k_end) of the span, KEY_BATCH at a time: the next
 // batch's copies fly while this one is evaluated.
 template <class Mode>
-__device__ __forceinline__ void keyed_span(KeyedSmem& s,
+__device__ __forceinline__ void keyed_span(KeyedSpanSmem& s,
                                            const int* __restrict__ rec_i,
                                            const float* __restrict__ rec_f,
                                            int k_begin, int k_end, int row0,
@@ -559,74 +344,10 @@ __device__ __forceinline__ void keyed_span(KeyedSmem& s,
   }
 }
 
-// The first n rows of s.pending as one batch, read from hier/tf.
-template <class Mode>
-__device__ __forceinline__ void flush_rows(KeyedSmem& s, int n,
-                                           const int* __restrict__ ti,
-                                           const float* __restrict__ tf,
-                                           int span_end, int row0, int col0) {
-  int area = 0;
-  const int j = threadIdx.x;
-  if (j < n) {
-    const int t = s.pending[j];
-    area = prepare_record(s, j, ti + (size_t)t * NI32,
-                          tf + (size_t)t * NF32 + F_ZA0,
-                          Mode::row_tag(t, span_end), row0, col0);
-  }
-  eval_batch<Mode>(s, area);
-}
-
-// The leftover rows of superblocks [s_begin, s_end): the register body's
-// superblock -> block -> row bbox walk, each block's hit rows compacted
-// into s.pending and evaluated KEY_BATCH at a time.
-template <class Mode>
-__device__ __forceinline__ void keyed_leftovers(
-    KeyedSmem& s, const int* __restrict__ supers, int s_begin, int s_end,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
-    const float* __restrict__ tf, int span_end, int row0, int col0) {
-  int pending = 0;  // block-uniform
-  for (int sb = s_begin; sb < s_end; ++sb) {
-    const int* sp = supers + (size_t)sb * 8;
-    if (!tile_overlap(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3),
-                      row0, col0))
-      continue;
-    for (int b = sb * SUPER_BLOCK; b < (sb + 1) * SUPER_BLOCK; ++b) {
-      const int* bb = blocks + (size_t)b * 8;
-      if (!tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2),
-                        __ldg(bb + 3), row0, col0))
-        continue;
-      const int t = b * RASTER_BLOCK + (int)threadIdx.x;
-      bool hit = false;
-      if (threadIdx.x < RASTER_BLOCK) {
-        const int* r = ti + (size_t)t * NI32;
-        hit = tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
-                           __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0);
-      }
-      int hits;
-      const int pos = block_exclusive_scan(hit ? 1 : 0, s.scan, hits);
-      if (hit) s.pending[pending + pos] = t;
-      pending += hits;
-      if (pending >= KEY_BATCH) {
-        __syncthreads();
-        flush_rows<Mode>(s, KEY_BATCH, ti, tf, span_end, row0, col0);
-        const int rest = pending - KEY_BATCH;
-        if ((int)threadIdx.x < rest)
-          s.pending[threadIdx.x] = s.pending[KEY_BATCH + threadIdx.x];
-        pending = rest;
-      }
-    }
-  }
-  if (pending > 0) {
-    __syncthreads();
-    flush_rows<Mode>(s, pending, ti, tf, span_end, row0, col0);
-  }
-}
-
 // Work item blockIdx.x: its share of the tile's span and of the leftover
-// superblocks into the shared keys, then the tile's planes (one item) or
-// an atomicMin of the keys it lowered into the frame's key plane, which
-// starts all ones (several).  Mode: FlatKeys (K4), GbufKeys (K4g; extra:
-// its 11 further planes) or DepthKeys (K4d).
+// superblocks into the shared keys, then out (raster_keyed.cuh keyed_out).
+// Mode: FlatKeys (K4), GbufKeys (K4g; extra: its 11 further planes) or
+// DepthKeys (K4d).
 template <class Mode>
 __device__ __forceinline__ void keyed_records(
     const int* __restrict__ offsets, const int* __restrict__ rec_i,
@@ -637,7 +358,7 @@ __device__ __forceinline__ void keyed_records(
     int* __restrict__ color, float* __restrict__ depth,
     float* __restrict__ extra, int width, int height) {
   extern __shared__ __align__(16) unsigned char keyed_smem[];
-  KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
+  KeyedSpanSmem& s = *reinterpret_cast<KeyedSpanSmem*>(keyed_smem);
   const int tiles_x = width / TILE_W;
   find_item(s, offsets, tiles_x * (height / TILE_H), item_records);
   const int tile = s.item[0], idx = s.item[1], n_items = s.item[2];
@@ -656,23 +377,11 @@ __device__ __forceinline__ void keyed_records(
       (int)((long long)(idx + 1) * num_supers / n_items), blocks, ti, tf,
       span_end, row0, col0);
   __syncthreads();
-  if (n_items == 1) {
-    for (int p = threadIdx.x; p < TILE_PIX; p += THREADS)
-      Mode::store(s.key[p], row0 + p / TILE_W, col0 + p % TILE_W, ti, tf,
-                  color, depth, extra, width, (size_t)width * height);
-  } else {
-    for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
-      const unsigned long long k = s.key[p];
-      if (k != Mode::CLEAR)
-        atomicMin(plane + (size_t)(row0 + p / TILE_W) * width + col0 +
-                      p % TILE_W,
-                  k);
-    }
-  }
+  keyed_out<Mode>(s, n_items == 1, plane, row0, col0, ti, tf, color, depth,
+                  extra, width, height);
 }
 
-// The tiles of several items: their merged keys in the plane, resolved
-// (a pixel no item lowered holds all ones: the clear key).
+// The tiles of several items: their merged keys in the plane, resolved.
 template <class Mode>
 __device__ __forceinline__ void keyed_resolve(
     const int* __restrict__ offsets, int item_records,
@@ -682,13 +391,9 @@ __device__ __forceinline__ void keyed_resolve(
     int height) {
   const int tile = blockIdx.x, tiles_x = width / TILE_W;
   if (tile_items(offsets, tile, item_records) == 1) return;
-  const int row0 = (tile / tiles_x) * TILE_H;
-  const int col0 = (tile % tiles_x) * TILE_W;
-  for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
-    const int row = row0 + p / TILE_W, col = col0 + p % TILE_W;
-    Mode::store(min(plane[(size_t)row * width + col], Mode::CLEAR), row, col,
-                ti, tf, color, depth, extra, width, (size_t)width * height);
-  }
+  resolve_tile<Mode>(plane, (tile / tiles_x) * TILE_H,
+                     (tile % tiles_x) * TILE_W, ti, tf, color, depth, extra,
+                     width, height);
 }
 
 // K4: the keyed body over record spans, flat planes.
@@ -841,7 +546,7 @@ static int launch_keyed(Items items_kernel, Resolve resolve_kernel,
                         int height, int width, void* stream, Out... out) {
   const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
   const cudaStream_t s = (cudaStream_t)stream;
-  const int smem = (int)sizeof(zr::KeyedSmem);
+  const int smem = (int)sizeof(zr::KeyedSpanSmem);
   cudaError_t err = cudaFuncSetAttribute(
       items_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
@@ -857,7 +562,9 @@ static int launch_keyed(Items items_kernel, Resolve resolve_kernel,
 }
 
 // Dynamic shared memory of a K4/K4g/K4d work item, in bytes.
-extern "C" int zr_keyed_smem_bytes() { return (int)sizeof(zr::KeyedSmem); }
+extern "C" int zr_keyed_smem_bytes() {
+  return (int)sizeof(zr::KeyedSpanSmem);
+}
 
 // K4.
 extern "C" int zr_raster_records_keyed(

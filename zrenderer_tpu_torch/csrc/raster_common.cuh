@@ -105,7 +105,7 @@ __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
 }
 
 // The winner resolve of one pixel, shared by TileState::resolve (the
-// register bodies' epilogue) and the keyed body's store (raster_binned.cu
+// register bodies' epilogue) and the keyed body's store (raster_keyed.cuh
 // WinnerKeys): row t of ti/tf (strides RI and RF; INT_MAX32 where no row
 // won) re-evaluated at the pixel centre (px, py) in subpixels, its edge
 // functions, 1/w and colour interpolated, one IEEE divide, RGBA8 packed
@@ -185,8 +185,8 @@ __device__ __forceinline__ void resolve_winner(
 // Per-thread tile state.  TIE selects the order-free depth test
 // (z, row id) of K1/K4/K6 over K3/K5's sequential strict-less test.
 //
-// GBUF: the register G-buffer kernels (K2g, K3g, K5g, K6g, K9g; K4g runs
-// the keyed body, raster_binned.cu, with the same resolve).  Latching 11 more
+// GBUF: the register G-buffer kernels (K2g, K5g, K6g, K9g; K4g and K3g run
+// the keyed body, raster_keyed.cuh, with the same resolve).  Latching 11 more
 // planes the way the reference does would take 17 values a pixel, 272
 // registers a thread for 16 pixels: over the 255 cap.  Every latched value
 // is a pure function of (row, pixel), so the loops keep only z and the
@@ -196,7 +196,8 @@ __device__ __forceinline__ void resolve_winner(
 // experiments (raster_group8.cu, raster_vec.cu) keep this state for their
 // flat kernels too, and resolve their colour from the winner.
 //
-// DEPTH: the depth-only kernels (K2d, K3d, K4d, K6d).  One value a pixel,
+// DEPTH: the depth-only register kernels (K2d, K6d; K4d and K3d run the
+// keyed body, with the same planes).  One value a pixel,
 // z, under the reference's strict-less test z >= 0 && z < zb in every
 // phase (no row id: on an exact tie the first row visited keeps the value,
 // which differs from a later one only in the sign of a zero z), and

@@ -36,7 +36,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "zrenderer_tpu_torc
 SOURCES = ("raster_small.cu", "raster_hier.cu", "raster_binned.cu",
            "light_tiled.cu", "overlay.cu", "raster_group8.cu",
            "raster_vec.cu", "raster_vis.cu", "raster_twoclass.cu")
-HEADERS = ("raster_common.cuh",)
+HEADERS = ("raster_common.cuh", "raster_keyed.cuh")
 LIB_NAME = "libzr_raster.so"
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # when nvcc is not on PATH
 
@@ -134,11 +134,13 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_records_keyed.restype = i
     lib.zr_keyed_smem_bytes.argtypes = []
     lib.zr_keyed_smem_bytes.restype = i
+    lib.zr_keyed_hier_smem_bytes.argtypes = []
+    lib.zr_keyed_hier_smem_bytes.restype = i
     lib.zr_raster_lists.argtypes = [p, p, p, i, p, p, p, p, p, i, i, p]
     lib.zr_raster_lists.restype = i
     lib.zr_gbuffer_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
     lib.zr_gbuffer_small.restype = i
-    lib.zr_gbuffer_hier.argtypes = [p, i, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_hier.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
     lib.zr_gbuffer_hier.restype = i
     lib.zr_gbuffer_hbm.argtypes = [p, i, p, p, p, p, i, i, p]
     lib.zr_gbuffer_hbm.restype = i
@@ -149,7 +151,7 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_lists.restype = i
     lib.zr_depth_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
     lib.zr_depth_small.restype = i
-    lib.zr_depth_hier.argtypes = [p, i, p, p, p, p, i, i, p]
+    lib.zr_depth_hier.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
     lib.zr_depth_hier.restype = i
     lib.zr_depth_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
                                            p, i, i, p]

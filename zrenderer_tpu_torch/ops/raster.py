@@ -24,7 +24,8 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   On the card K4 (and K4g, K4d) run the keyed body: per-pixel keys in
   shared memory, each record over its window (its vertices' pixel bbox in
   the tile), a tile's span cut into work items of ITEM_RECORDS
-  records.  K4c adds the coarse class: rows too big for the fine lists
+  records; K3g and K3d run it over the hierarchy alone, a tile's blocks
+  cut into HIER_ITEMS work items.  K4c adds the coarse class: rows too big for the fine lists
   listed per 4x4-tile bin, tested against the tile's bbox.
 * K6, the global pair-list raster (``rasterize_setup_pallas_binned``):
   ``prepare_binned_inputs`` sorts the same pairs but keeps row ids; the
@@ -142,6 +143,13 @@ HBM_PAIR_BUDGET = 1 << 20
 # 256 ran K4 in 0.64 ms against 0.75 for 1024 and K4d in 0.40 against
 # 0.42 (PERF.md §6).
 ITEM_RECORDS = 256
+# K3g/K3d: the blocks of the hierarchy that meet a tile are cut into this
+# many work items, one CUDA block each (csrc/raster_hier.cu, the keyed
+# body; ``hier_work_items``).  One item a tile resolves in place (one
+# device operation a call); several merge through the frame's key plane
+# (memset, items, resolve), except in tiles whose rows lie in at most one
+# block.  The wrappers read it at call time.
+HIER_ITEMS = 1
 # K4c: coarse bins are COARSE_CB x COARSE_CB tiles; the tile_lists
 # dispatch lists a row in at most TILE_LISTS_COARSE_CAP of them.
 COARSE_CB = 4
@@ -972,8 +980,8 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
                               tf, None, width, height)
 
 
-# The keyed K4/K4g/K4d body's extent and work items (csrc/raster_binned.cu
-# keyed_records), for the bounds in chip_smoke.py and for the tests.
+# The keyed body's extent and work items (csrc/raster_keyed.cuh: K4, K4g,
+# K4d and K3g, K3d), for the bounds in chip_smoke.py and for the tests.
 
 
 def vertex_bbox(ri):
@@ -1009,6 +1017,28 @@ def keyed_work_items(offsets, item_records: int, num_supers: int):
     return torch.stack([tile, idx, count, begin, end,
                         idx * num_supers // count,
                         (idx + 1) * num_supers // count], dim=1)
+
+
+def hier_block_hits(supers, blocks, width: int, height: int):
+    """(tiles, B) bool: block b's bbox and its superblock's meet tile t
+    (the keyed hierarchy walk's hit blocks, csrc/raster_hier.cu
+    hier_hit_blocks)."""
+    ty, tx = height // TILE_H, width // TILE_W
+    return (_tile_hits(blocks, ty, tx)
+            & _tile_hits(supers, ty, tx).repeat_interleave(SUPER_BLOCK, 1))
+
+
+def hier_work_items(block_hits, items: int):
+    """The keyed hierarchy walk's work items (K3g, K3d): (tiles, B) i64,
+    the item of each of a tile's hit blocks (``block_hits``), -1 elsewhere.
+    A tile's H hit blocks, in row order, are cut into ``items`` shares:
+    item i takes hit blocks [i * H // n, (i + 1) * H // n), so hit block k
+    falls to item ceil((k + 1) * n / H) - 1."""
+    h = block_hits.to(torch.int64)
+    rank = torch.cumsum(h, 1) - h
+    total = h.sum(1, keepdim=True).clamp(min=1)
+    item = ((rank + 1) * items + total - 1) // total - 1
+    return torch.where(block_hits, item, -1)
 
 
 # Band plain versions: the (band_h, W) rows from global row ``row0``.
@@ -1206,10 +1236,30 @@ def raster_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
     return out
 
 
-def gbuffer_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
-    """Launch K3g (``csrc/raster_hier.cu``) on the current stream."""
+def _keyed_hier_args(supers, blocks, ti, tf, width: int, height: int):
+    """Check K3g/K3d inputs; returns the launch arguments before the
+    outputs (the hierarchy's, the item count HIER_ITEMS, the key plane or
+    NULL with one item a tile) and the plane, which the call must hold
+    until it has launched."""
     args = _hier_args(supers, blocks, ti, tf, width, height,
                       MAX_RESIDENT_ROWS)
+    if supers.shape[0] * SUPER_BLOCK * RASTER_BLOCK > MAX_RESIDENT_ROWS:
+        raise ValueError(f"{supers.shape[0]} superblocks: the keyed "
+                         f"hierarchy takes at most {MAX_RESIDENT_ROWS} rows")
+    items = HIER_ITEMS
+    if items < 1:
+        raise ValueError(f"HIER_ITEMS must be positive, got {items}")
+    plane = None
+    if items > 1:  # freed after the launch, as _keyed_args' plane
+        plane = torch.empty(height * width, dtype=torch.int64,
+                            device=ti.device)
+    return (*args, items, None if plane is None else _ptr(plane)), plane
+
+
+def gbuffer_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
+    """Launch K3g (``csrc/raster_hier.cu``, the keyed body over the
+    hierarchy in HIER_ITEMS work items a tile) on the current stream."""
+    args, _plane = _keyed_hier_args(supers, blocks, ti, tf, width, height)
     out = _run_gbuffer(_build.load_library().zr_gbuffer_hier, ti.device,
                        width, height, *args)
     gbuffer_hier_kernel.launches += 1
@@ -1379,9 +1429,9 @@ def depth_small_kernel(counts, lists, supers, blocks, ti, tf, width: int,
 
 
 def depth_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
-    """Launch K3d (``csrc/raster_hier.cu``) on the current stream."""
-    args = _hier_args(supers, blocks, ti, tf, width, height,
-                      MAX_RESIDENT_ROWS)
+    """Launch K3d (``csrc/raster_hier.cu``, the keyed body over the
+    hierarchy in HIER_ITEMS work items a tile) on the current stream."""
+    args, _plane = _keyed_hier_args(supers, blocks, ti, tf, width, height)
     out = _run_depth(_build.load_library().zr_depth_hier, ti.device, width,
                      height, *args)
     depth_hier_kernel.launches += 1
