@@ -125,48 +125,6 @@ def measure() -> dict:
     return out
 
 
-def sweep(counts) -> dict:
-    """K3g and K3d by CUDA events at each work-item count of ``counts``
-    (raster.HIER_ITEMS), in turns, each twice."""
-    import torch
-
-    from zrenderer_tpu_torch.engine.config import RenderConfig
-    from zrenderer_tpu_torch.engine.renderer import Renderer
-    from zrenderer_tpu_torch.ops import raster
-    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
-
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    lattice = make_stress_scene(20000)
-    r = Renderer(RenderConfig(width=cs.WIDTH, height=cs.HEIGHT, tri_align=256,
-                              pipeline="shadowed",
-                              shadow_size=cs.SHADOW_SIZE), device="cuda")
-    r.load_scene(*lattice)
-    r.set_environment()
-    pg = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
-    pd = raster.prepare_raster_inputs(*cs.light_rows(r))
-    w, h, s = cs.PAD_W, cs.PAD_H, cs.SHADOW_SIZE
-    out = {}
-    for rep in range(2):
-        for n in counts:
-            raster.HIER_ITEMS = n
-            out.setdefault(f"k3g items {n}", []).append(event_ms(
-                lambda: raster.gbuffer_hier_kernel(*pg, w, h), 20))
-            out.setdefault(f"k3d items {n}", []).append(event_ms(
-                lambda: raster.depth_hier_kernel(*pd, s, s), 20))
-    return out
-
-
 def imported_root() -> str:
     """The checkout whose package this process imported."""
     import zrenderer_tpu_torch
@@ -179,11 +137,7 @@ def main(argv=None) -> int:
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--worker", help="(internal) measure the package of "
                     "this checkout root")
-    ap.add_argument("--sweep", help="work-item counts of K3g/K3d to time")
     args = ap.parse_args(argv)
-    if args.sweep:
-        print(json.dumps(sweep([int(n) for n in args.sweep.split(",")])))
-        return 0
     if args.worker:
         # The package from the given root, chip_smoke from this tree.
         root = os.path.abspath(args.worker)

@@ -56,13 +56,16 @@
 // HierGbufKeys ((order bits of z, row id), clear (1.0, 0), whose minimum
 // is the strict-less test in row order; the store resolves the winner
 // under K3g's epilogue), K3d DepthKeys (visit index = row id: the first
-// row of an exact tie keeps its sign).  A tile's walk over the hierarchy's
-// B blocks is cut into `items` work items, item i taking blocks [i * B /
-// items, (i + 1) * B / items), one CUDA block each: with one item a tile
-// resolves in place (one device operation a call), with several the items
-// merge through the frame's key plane (memset, items, resolve).  Bound on
-// the H100: the window pixels' edge work, or for K3g the 13 output planes
-// (109 MB at 1920x1088, 0.032 ms at 3.35 TB/s).
+// row of an exact tie keeps its sign).  A tile's hit blocks (those whose
+// bbox and superblock's bbox meet it) are cut into `items` work items of
+// about equal counts, one CUDA block each, so that the busiest tile's rows
+// spread over several SMs: with one item a tile resolves in place (one
+// device operation a call), with several the items merge through the
+// frame's key plane (memset, items, resolve; a tile of at most one hit
+// block still resolves in place).  ops/raster.py HIER_ITEMS holds the
+// count, from a sweep on the H100.  Bound on the H100: the window pixels'
+// edge work, or for K3g the 13 output planes (109 MB at 1920x1088, 0.032
+// ms at 3.35 TB/s).
 
 // K3b replaces rasterize_setup_pallas_band (:976, _band_kernel :967, body
 // _kernel_body with row_base): K3 over one horizontal band of a sharded
@@ -127,6 +130,8 @@ __global__ void __launch_bounds__(THREADS)
 // K3g and K3d take at most 32768 rows (MAX_RESIDENT_ROWS): 256 blocks in 8
 // superblocks, one block's bbox a thread.
 constexpr int HIER_MAX_SUPERS = THREADS / SUPER_BLOCK;
+static_assert(SUPER_BLOCK == 32 && HIER_MAX_SUPERS == WARPS,
+              "a warp tests a superblock's blocks");
 
 // The blocks of the hierarchy that meet the tile at (row0, col0), their
 // superblock too: warp w tests superblock w and its 32 blocks at once, bit

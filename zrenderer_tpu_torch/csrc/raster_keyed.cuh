@@ -27,12 +27,12 @@
 //   so a row that covers the tile and one of 3 pixels share the block
 //   alike.  The edge functions step from the window's origin (int32 wrap,
 //   the same bits as edge_fn), then the same bias tests and interp3.
-// * The hierarchy walk (keyed_leftovers): superblock -> block -> row bbox
-//   skips, as the register body's, but a superblock's 32 block bboxes are
-//   tested by one warp at once and a block's 128 row bboxes by 128 threads
-//   at once; the hit rows are compacted into batches.  A row is admitted
-//   by its clamped bbox (tile_overlap): a row whose bbox clamped to empty
-//   is skipped, as before.
+// * The hierarchy walk: superblock -> block -> row bbox skips, as the
+//   register body's (keyed_leftovers; K3g and K3d test all 8 superblocks'
+//   blocks at once, raster_hier.cu), a hit block's 128 row bboxes tested
+//   by 128 threads at once (keyed_block_rows) and the hit rows compacted
+//   into batches.  A row is admitted by its clamped bbox (tile_overlap): a
+//   row whose bbox clamped to empty is skipped, as before.
 // * Several work items of one tile merge their keys by atomicMin into a
 //   frame-sized key plane (8 bytes a pixel, set to all ones by a memset),
 //   and a second kernel resolves the plane's minimum, which is order-free;
@@ -59,7 +59,6 @@ constexpr int KEY_PENDING = 2 * KEY_BATCH;  // leftover rows awaiting a batch
 constexpr int WARPS = THREADS / 32;
 static_assert(KEY_BATCH == RASTER_BLOCK, "a block's rows fit one batch");
 static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
-static_assert(SUPER_BLOCK == 32, "one warp tests a superblock's blocks");
 
 // The (order bits of z, row id) key (the sign cleared, so -0.0 ties +0.0).
 // A span record's id is its last int, a leftover row's its index in the
@@ -144,7 +143,7 @@ struct KeyedSmem {
   int pending[KEY_PENDING];
   int scan[WARPS];
   int item[3];  // tile, item index within the tile, items of the tile
-  unsigned hits[WARPS];  // blocks that meet the tile, a bit each
+  unsigned hits[WARPS];  // K3g/K3d: blocks that meet the tile, a bit each
 };
 
 // Exclusive prefix of v over the block's threads; total gets the sum.
@@ -317,8 +316,8 @@ __device__ __forceinline__ void flush_pending(KeyedSmem& s, int pending,
 }
 
 // The rows of superblocks [s_begin, s_end) through the superblock -> block
-// -> row bbox walk: each hit superblock's blocks tested by warp 0 at once,
-// then each hit block's rows (keyed_block_rows).
+// -> row bbox walk, one superblock and block after another, each hit
+// block's rows by keyed_block_rows.
 template <class Mode>
 __device__ __forceinline__ void keyed_leftovers(
     KeyedSmem& s, const int* __restrict__ supers, int s_begin, int s_end,
@@ -330,19 +329,12 @@ __device__ __forceinline__ void keyed_leftovers(
     if (!tile_overlap(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3),
                       row0, col0))
       continue;
-    if (threadIdx.x < SUPER_BLOCK) {
-      const int* bb = blocks + ((size_t)sb * SUPER_BLOCK + threadIdx.x) * 8;
-      const unsigned m = __ballot_sync(
-          0xffffffffu, tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2),
-                                    __ldg(bb + 3), row0, col0));
-      if (threadIdx.x == 0) s.hits[0] = m;
+    for (int b = sb * SUPER_BLOCK; b < (sb + 1) * SUPER_BLOCK; ++b) {
+      const int* bb = blocks + (size_t)b * 8;
+      if (tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2), __ldg(bb + 3),
+                       row0, col0))
+        keyed_block_rows<Mode>(s, b, pending, ti, tf, span_end, row0, col0);
     }
-    __syncthreads();
-    unsigned hit_blocks = s.hits[0];
-    __syncthreads();  // read before the next superblock writes it
-    for (; hit_blocks; hit_blocks &= hit_blocks - 1)
-      keyed_block_rows<Mode>(s, sb * SUPER_BLOCK + __ffs(hit_blocks) - 1,
-                             pending, ti, tf, span_end, row0, col0);
   }
   flush_pending<Mode>(s, pending, ti, tf, span_end, row0, col0);
 }

@@ -148,8 +148,11 @@ ITEM_RECORDS = 256
 # body; ``hier_work_items``).  One item a tile resolves in place (one
 # device operation a call); several merge through the frame's key plane
 # (memset, items, resolve), except in tiles whose rows lie in at most one
-# block.  The wrappers read it at call time.
-HIER_ITEMS = 1
+# block.  The wrappers read it at call time.  On the H100 at lattice20k,
+# 16 ran K3d on its 1024^2 map in 0.098 ms against 0.29 for 1, 0.15 for 4
+# and 0.11 for 64, and K3g in 0.161 against 0.30, 0.19 and 0.20 (PERF.md
+# §6).
+HIER_ITEMS = 16
 # K4c: coarse bins are COARSE_CB x COARSE_CB tiles; the tile_lists
 # dispatch lists a row in at most TILE_LISTS_COARSE_CAP of them.
 COARSE_CB = 4
