@@ -46,7 +46,7 @@
 //
 // K3g and K3d run the keyed body (raster_keyed.cuh) over the hierarchy
 // alone, with the planes of the register body bit for bit.  What bound
-// that body on the H100 (PR 4-13: 1.10 ms each at 1080p and on the 1024^2
+// that body on the H100 (1.10 ms each at 1080p and on the 1024^2
 // map): each tile walked superblock -> block -> row one dependent load at
 // a time, then evaluated every row that meets it at all 4096 pixels, 8.6x
 // (10.2x on the map) the pixels of the rows' bboxes; under half the tiles
