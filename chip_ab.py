@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the raster kernels K3g, K3d and K4g and the tiled
-light kernel K7, and of the frames whose pace they set, between this tree
-and another checkout (for example a parent commit unpacked with ``git
-archive``) on one CUDA card.
+"""Same-call A/B of the raster kernels K3, K3b, K3g, K3d, K4, K4g, K4d,
+K5 and K5g and the tiled light kernel K7, and of the frames whose pace
+they set, between this tree and another checkout (for example a parent
+commit unpacked with ``git archive``) on one CUDA card.
 
     python3 chip_ab.py --other path/to/checkout
 
@@ -10,13 +10,21 @@ Each tree runs in a process of its own, which builds that tree's kernels,
 in turns: other, this, this, other.  Every run uses chip_smoke.py's sizes
 and builders (``lit_frame_rows``, ``deferred_frame_inputs``,
 ``baseline_lights``, ``checker_texture``) from this tree on the tree's own
-package.  A run times, with CUDA events after a warm-up: K3g on the lit
-20K lattice's inputs and K3d on its 1024x1024 shadow map (the hierarchy
-prepare), K4g on the lit 1M lattice's inputs (``auto``, the padded 1080p
-target), K7 on the deferred test scene's 1080p G-buffer with BASELINE
-config 3's wide and r2 lights (f32 planes), and ``render_animation``
-ms/frame of the lit and the shadowed 20K and 1M lattices and of the
-deferred test scene with the wide lights at 1080p.  Every run must give the same planes (their digests are
+package.  A run times, with CUDA events after a warm-up: K3 on the flat
+20K lattice's inputs (the hierarchy prepare, the padded 1080p target), K3b
+on band 0 of its 2 bands at 1920x544 (the rows gathered from 2 shards),
+K3g on the lit 20K lattice's inputs and K3d on its 1024x1024 shadow map,
+K5 on the flat 40K lattice (the register body), K4 on the flat and K4g on
+the lit 1M lattice's inputs (``auto``), K4d on the 1M lattice's shadow
+map, K5g on the lit 1M lattice (``hierarchy``), K7 on the deferred test
+scene's 1080p G-buffer with BASELINE config 3's wide and r2 lights (f32
+planes), and ms/frame of ``render_animation`` on the flat, the lit and
+the shadowed 20K lattice, the lit and the shadowed 1M lattice and the
+deferred test scene with the wide lights at 1080p, and of the flat 20K
+lattice in 2 bands rendered in turn (``tiles.bands_in_turn``, 1920x1088),
+and the device busy ms per frame of those two flat frames (one traced run
+each: ``chip_smoke.device_trace``, the union of the device operations'
+intervals).  Every run must give the same planes (their digests are
 compared).  Prints the card's name and power limit first, then one JSON
 line per run.
 """
@@ -38,9 +46,13 @@ def measure() -> dict:
     """One run in the tree that ``zrenderer_tpu_torch`` imports from."""
     import torch
 
+    import numpy as np
+
     from zrenderer_tpu_torch.engine.config import RenderConfig
     from zrenderer_tpu_torch.engine.renderer import Renderer
+    from zrenderer_tpu_torch.ops import geometry as tg
     from zrenderer_tpu_torch.ops import light_kernel, raster
+    from zrenderer_tpu_torch.parallel import tiles
     from zrenderer_tpu_torch.scene.mesh import MeshData
     from zrenderer_tpu_torch.scene.procedural import make_stress_scene
     from zrenderer_tpu_torch.scene.scene import Scene
@@ -73,10 +85,54 @@ def measure() -> dict:
         return event_ms(lambda: r.render_animation(num_frames=frames),
                         1) / frames
 
+    def busy_ms(fn, frames=1):
+        """Device busy ms per frame of one traced run of ``fn``."""
+        events, _ = cs.device_trace(fn)
+        return cs.busy_us(events) / 1000.0 / frames
+
+    def indexed_args(r, height):
+        """The renderer's indexed buffers and per-draw matrices at
+        (WIDTH, height): a sharded frame's inputs."""
+        b = r._buffers()
+        vp = tg.view_proj_from_camera(r.scene.active_camera, cs.WIDTH,
+                                      height)
+        mats = np.einsum("nij,jk->nik", r.flat.node_to_world,
+                         vp).astype(np.float32)
+        return (b["positions"], b["attrs"], b["tri_vidx"],
+                torch.from_numpy(mats).to("cuda"), b["vert_node"])
+
     w, h = cs.PAD_W, cs.PAD_H
-    out = {"root": imported_root(), "k3g": {}, "k3d": {}, "k4g": {},
-           "k7": {}, "frames": {}, "digests": {}}
+    h2, band_h = 1088, 544
+    out = {"root": imported_root(), "k3": {}, "k3b": {}, "k3g": {},
+           "k3d": {}, "k4": {}, "k4d": {}, "k4g": {}, "k5": {}, "k5g": {},
+           "k7": {}, "frames": {}, "busy": {}, "digests": {}}
     lattice = make_stress_scene(20000)
+    r = renderer(lattice)
+    prep = raster.prepare_raster_inputs(*cs.frame_rows(r))
+    k3 = raster.raster_hier_kernel
+    out["k3"]["lattice20k"] = event_ms(lambda: k3(*prep, w, h), 20)
+    out["digests"]["k3 lattice20k"] = digest(*k3(*prep, w, h))
+    out["frames"]["lattice20k"] = anim_ms(r, cs.ANIM_FRAMES)
+    out["busy"]["lattice20k"] = busy_ms(
+        lambda: r.render_animation(num_frames=cs.PROFILE_FRAMES),
+        cs.PROFILE_FRAMES)
+    out["digests"]["lattice20k"] = digest(r.render()[0])
+    args = indexed_args(r, h2)
+    _, ti, tf, _ = tiles.setups_in_turn(2, *args, w, h2)
+    prep = raster.prepare_raster_inputs(ti, tf)
+    k3b = raster.raster_hier_band_kernel
+    out["k3b"]["lattice20k band 0 of 2"] = event_ms(
+        lambda: k3b(*prep, w, band_h, 0), 20)
+    out["digests"]["k3b lattice20k band 0 of 2"] = digest(
+        *k3b(*prep, w, band_h, 0))
+    out["frames"]["lattice20k, 2 bands in turn"] = event_ms(
+        lambda: tiles.bands_in_turn(2, cs.WIDTH, h2, *args), 10)
+    out["busy"]["lattice20k, 2 bands in turn"] = busy_ms(
+        lambda: tiles.bands_in_turn(2, cs.WIDTH, h2, *args))
+    out["digests"]["lattice20k, 2 bands in turn"] = digest(
+        *(p for band in tiles.bands_in_turn(2, cs.WIDTH, h2, *args)
+          for p in band))
+    del prep, args, r
     r = renderer(lattice, pipeline="lit")
     r.set_environment(texture=cs.checker_texture())
     prep = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
@@ -95,17 +151,42 @@ def measure() -> dict:
     out["digests"]["shadowed lattice20k"] = digest(r.render()[0])
     del prep, r
 
+    r = renderer(make_stress_scene(cs.MID_TRIS))
+    prep = raster.prepare_raster_inputs(*cs.frame_rows(r))
+    k5 = raster.raster_hbm_kernel
+    out["k5"]["lattice40k"] = event_ms(lambda: k5(*prep, w, h), 20)
+    out["digests"]["k5 lattice40k"] = digest(*k5(*prep, w, h))
+    del prep, r
+
     lattice = make_stress_scene(cs.LARGE_TRIS)
+    r = renderer(lattice)
+    prep = raster.prepare_binned_hbm_inputs(*cs.frame_rows(r), w, h)
+    k4 = raster.raster_binned_kernel
+    out["k4"]["lattice1M"] = event_ms(lambda: k4(*prep, w, h), 10)
+    out["digests"]["k4 lattice1M"] = digest(*k4(*prep, w, h))
+    del prep, r
     r = renderer(lattice, pipeline="lit")
     r.set_environment(texture=cs.checker_texture())
-    prep = raster.prepare_binned_hbm_inputs(*cs.lit_frame_rows(r), w, h)
+    rows = cs.lit_frame_rows(r)
+    prep = raster.prepare_binned_hbm_inputs(*rows, w, h)
     k4g = raster.gbuffer_binned_kernel
     out["k4g"]["lit lattice1M"] = event_ms(lambda: k4g(*prep, w, h), 10)
     out["digests"]["k4g lit lattice1M"] = digest(*k4g(*prep, w, h))
+    prep = raster.prepare_raster_inputs(*rows)
+    k5g = raster.gbuffer_hbm_kernel
+    out["k5g"]["lit lattice1M"] = event_ms(lambda: k5g(*prep, w, h), 5)
+    out["digests"]["k5g lit lattice1M"] = digest(*k5g(*prep, w, h))
+    del prep, rows
     out["frames"]["lit lattice1M"] = anim_ms(r, cs.LARGE_FRAMES)
-    del prep, r
+    del r
     r = renderer(lattice, pipeline="shadowed", shadow_size=cs.SHADOW_SIZE)
     r.set_environment()
+    s = cs.SHADOW_SIZE
+    prep = raster.prepare_binned_hbm_inputs(*cs.light_rows(r), s, s)
+    k4d = raster.depth_binned_kernel
+    out["k4d"]["lattice1M map"] = event_ms(lambda: k4d(*prep, s, s), 10)
+    out["digests"]["k4d lattice1M map"] = digest(k4d(*prep, s, s))
+    del prep
     out["frames"]["shadowed lattice1M"] = anim_ms(r, cs.LARGE_FRAMES)
     out["digests"]["shadowed lattice1M"] = digest(r.render()[0])
     del r, lattice
@@ -169,7 +250,8 @@ def main(argv=None) -> int:
     if any(r["digests"] != runs[0]["digests"] for r in runs):
         print("the trees' planes differ", file=sys.stderr)
         return 1
-    print("every run gave the same K3g, K3d, K4g, K7 and frame planes")
+    print("every run gave the same K3, K3b, K3g, K3d, K4, K4g, K4d, K5, "
+          "K5g, K7 and frame planes")
     return 0
 
 

@@ -17,6 +17,13 @@ lines and seconds:
    fan rows, and exact depth ties between duplicated triangles;
 4. K3 (hierarchy raster) against its plain version, bit-exact: the
    20K-triangle lattice at 1080p and the soup;
+4k. ``hier_cases`` for K3 and K3b (the keyed body over the hierarchy):
+    every plane bit-exact against the plain version at HIER_ITEMS and at
+    64 work items a tile, the two equal (exact ties split across items, a
+    row at z == 1.0 left clear, a subnormal and a NaN z, -0.0 ties both
+    ways, whole tiles, the clipped soup, an empty scene); K3b's cases at
+    1088 rows with its bands at rows 0 and 544, laid side by side equal to
+    K3's frame;
 4b. K4 (record streaming), K4c (with the coarse class), K5 (streamed
     hierarchy) and K6 (global pair lists) against their plain versions,
     bit-exact: the 40K lattice at 1080p (above the 32768-row bound; K6 on
@@ -137,7 +144,12 @@ lines and seconds:
     indexed geometry of every shard, then the canonical order): K3b on the
     test scene from 2 shards at 1920x1088 (bands at rows 0 and 544) and
     on the 20K lattice from 2 shards (32 512 rows; its plain call gives
-    K3b's plain_ms); K9 with band-local and global spans and K9g (13
+    K3b's plain_ms); K3b above 32768 rows, the ``hierarchy`` band of the
+    40K lattice from 2 shards at 1920x1088 (two groups of the keyed walk),
+    both bands at HIER_ITEMS and 64 items a tile against the plain K3b
+    (unless the 20K time, scaled by the rows, predicts over 60 s) and laid
+    side by side against K5's frame; K9 with band-local and global spans
+    and K9g (13
     planes, random normals and per-triangle materials) on the 40K lattice
     from 4 shards at 1920x1024, every band; K9g on the deferred test
     scene from 2 shards at 1920x1088, both bands (the main path's shape;
@@ -205,9 +217,9 @@ lines and seconds:
     each) and each entry point traced once (device ops, busy ms, idle
     share);
 6. timing, traces first: each kernel's device time from a torch.profiler
-   trace at its main-path shape (K4, K4g and K4d, and K3g and K3d with
-   more than one work item a tile: the sum of a call's three device
-   operations, the memset, the item kernel and the resolve; K4 also on
+   trace at its main-path shape (K4, K4g and K4d, and K3, K3b, K3g and
+   K3d with more than one work item a tile: the sum of a call's three
+   device operations, the memset, the item kernel and the resolve; K4 also on
    soup1M through ``auto``), and a profiled ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
    K4c, 20K lattice K6, the lit paths, and the shadowed test scene, 20K
@@ -287,15 +299,16 @@ Each kernel's bound is the larger of its inputs and outputs (2 planes
 flat, 13 G-buffer, 1 depth-only) moved once at the card's memory rate and
 the (tile, triangle) pairs its frame needs, times 4096 pixels and
 OPS_PER_EVAL, at the card's instruction rate (phase 1: SMs x 128 lanes x
-the maximum SM clock); the keyed kernels' (K4, K4g, K4d; K3g, K3d over
-the hierarchy alone) count each record's and leftover row's bbox pixels
-in each tile instead (in the padding rows' tiles the kernel's extent,
-``window_evals``, the counter phase 6h uses too), with the whole-tile
-figure kept as bound_ms_tiles, and the bytes their keyed body needs
-(``keyed_work``: each span record's ints and z coefficients, each
-leftover row's once, for K4 each distinct winning row's edge and colour
-coefficients, for K4g and K3g also its uv, normal and constant ones, the
-output planes), with every input read once kept as bound_ms_inputs.  K7's is the larger of its 11 planes,
+the maximum SM clock); the keyed kernels' (K4, K4g, K4d; K3, K3b, K3g,
+K3d over the hierarchy alone) count each record's and leftover row's
+bbox pixels in each tile instead (in the padding rows' tiles the
+kernel's extent, ``window_evals``, the counter phase 6h uses too), with
+the whole-tile figure kept as bound_ms_tiles, and the bytes their keyed
+body needs (``keyed_work``: each span record's ints and z coefficients, each
+leftover row's once, for K4, K3 and K3b each distinct winning row's edge
+and colour coefficients, for K4g and K3g also its uv, normal and constant
+ones, the output planes; K3b's over its band's tiles), with every input
+read once kept as bound_ms_inputs.  K7's is the larger of its 11 planes,
 mask, bounds, lights and 3 output planes moved once and its (pixel,
 listed light) evaluations, each tile's light count times its covered
 pixels (uncovered pixels cost nothing), times OPS_PER_LIGHT.  K8's is
@@ -511,8 +524,47 @@ def phase(name):
     return run
 
 
-# Builders that chip_ab.py shares (module level, so that it can run them
-# against another checkout's package).
+# Trace helpers and the frames' row and input helpers that chip_ab.py
+# shares (module level, so that it can run them against another checkout's
+# package).
+
+
+def device_trace(fn):
+    """Run ``fn`` once as warm-up, then once under torch.profiler;
+    returns (device events, the trace's window in us).  Device events
+    are the kernels, copies and memsets of the chrome trace as (name,
+    start us, duration us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    on_device = [(e["name"], float(e["ts"]), float(e["dur"]))
+                 for e in timed
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(float(e["ts"]) for e in timed)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in timed)
+    return on_device, t1 - t0
+
+
+def busy_us(events):
+    """Union of the device events' intervals, in us."""
+    total, end = 0.0, float("-inf")
+    for _, ts, dur in sorted(events, key=lambda e: e[1]):
+        if ts + dur > end:
+            total += ts + dur - max(ts, end)
+            end = ts + dur
+    return total
 
 
 def frame_rows(r):
@@ -990,20 +1042,23 @@ def main(argv=None) -> int:
                             else in_tile(padded), n)
         return int(n.sum().item())
 
-    def keyed_pairs(prep, w, h):
+    def keyed_pairs(prep, w, h, row0=0):
         """The (tile, row) pairs the keyed body evaluates on a record
         prepare (K4, K4g, K4d): every span record, then every leftover
-        (tile, row) pair of the walk; on a hierarchy prepare (K3g, K3d:
-        supers, blocks, rows, tf) the walk's pairs alone.  Returns their
-        setup rows (P, NI32), z coefficients (P, 3), row ids, tile rows and
-        tile columns (P,), the number of span records and the leftover
-        pairs' rows."""
+        (tile, row) pair of the walk; on a hierarchy prepare (K3, K3b,
+        K3g, K3d: supers, blocks, rows, tf) the walk's pairs alone, over
+        the tiles of the h rows from global row ``row0`` (K3b's band).
+        Returns their setup rows (P, NI32), z coefficients (P, 3), row ids,
+        global tile rows and tile columns (P,), the number of span records
+        and the leftover pairs' rows."""
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
         za = slice(tg.F_ZA0, tg.F_ZA0 + 3)
         if len(prep) == 4:
             supers, blocks, hier, tf = prep
             rows, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w,
-                                           h)
+                                           row0 + h)
+            band = ty >= row0 // raster.TILE_H
+            rows, ty, tx = rows[band], ty[band], tx[band]
             return hier[rows], tf[rows, za], rows, ty, tx, 0, rows
         offsets, rec_i, rec_f, supers, blocks, hier, tf = prep[:7]
         # Records before offsets[0] sort below tile 0 (off-screen rows'
@@ -1023,15 +1078,15 @@ def main(argv=None) -> int:
     # Evaluations a chunk of k4_winners' scatter (a few hundred MB).
     WINNER_CHUNK = 1 << 22
 
-    def k4_winners(pairs, w, h, depth, strict=False):
+    def k4_winners(pairs, w, h, depth, strict=False, row0=0):
         """The distinct rows that win a pixel of K4's (K4g's, with
-        ``strict`` K3g's) frame, whose edge and colour coefficients its
-        resolve reads: each pair of ``keyed_pairs`` at its window's pixels
-        (raster.vertex_bbox in the tile) under the kernels' edge functions
-        and z, reduced per pixel to the least (z order bits, row id) key
-        (``strict``: of z below 1.0, the strict-less test's).  Raises
-        unless the keys' z is the kernel's ``depth`` plane, up to the sign
-        of a zero."""
+        ``strict`` K3's, K3b's or K3g's) frame, whose edge and colour
+        coefficients its resolve reads: each pair of ``keyed_pairs`` at its
+        window's pixels (raster.vertex_bbox in the tile) under the kernels'
+        edge functions and z, reduced per pixel to the least (z order bits,
+        row id) key (``strict``: of z below 1.0, the strict-less test's).
+        Raises unless the keys' z is the kernel's ``depth`` plane (the h
+        rows from global row ``row0``), up to the sign of a zero."""
         ri, za, ids, ty, tx = pairs[:5]
         jmin, jmax, imin, imax = raster.vertex_bbox(ri.long()).unbind(1)
         r0, c0 = ty * raster.TILE_H, tx * raster.TILE_W
@@ -1063,7 +1118,7 @@ def main(argv=None) -> int:
             ok &= (z >= 0.0) & (z < 1.0) if strict else z >= 0.0
             key = (((z.view(torch.int32).to(torch.int64) & 0x7FFFFFFF) << 32)
                    | ids[pair])
-            keys.scatter_reduce_(0, row * w + col,
+            keys.scatter_reduce_(0, (row - row0) * w + col,
                                  torch.where(ok, key, hbm2.KEY_CLEAR),
                                  reduce="amin")
             p0 = p1
@@ -1081,23 +1136,25 @@ def main(argv=None) -> int:
     WINNER_GBUF_BYTES = WINNER_BYTES + 15 * 4 + 6 * 4
 
     def keyed_work(prep, w, h, visible, planes, depth=None,
-                   winner_bytes=WINNER_BYTES, strict=False):
+                   winner_bytes=WINNER_BYTES, strict=False, row0=0):
         """K4's or K4g's (given its ``depth`` plane) or K4d's work on a
-        record prepare, K3g's (given its plane; ``strict``) or K3d's on a
-        hierarchy prepare: (window pixel evaluations, bytes needed).  The
-        evaluations: each pair of ``keyed_pairs`` at its bbox's pixels in
-        the tile, or in the padding rows' tiles at the keyed body's extent
+        record prepare, K3's, K3b's or K3g's (given its plane; ``strict``)
+        or K3d's on a hierarchy prepare: (window pixel evaluations, bytes
+        needed); K3b's over its band, the h rows from global row ``row0``
+        (``visible``: the frame's visible rows, global).  The evaluations:
+        each pair of ``keyed_pairs`` at its bbox's pixels in the tile, or
+        in the padding rows' tiles at the keyed body's extent
         (raster.vertex_bbox).  The bytes: each span record's ints and 3 z
         floats, each leftover row's NI32 ints and 3 z floats once, each
-        distinct winner's ``winner_bytes`` (K4, K4g; K4d reads z from its
-        key) and the ``planes`` output planes."""
-        pairs = keyed_pairs(prep, w, h)
+        distinct winner's ``winner_bytes`` (K4, K4g, K3, K3b, K3g; K4d and
+        K3d read z from the key) and the ``planes`` output planes."""
+        pairs = keyed_pairs(prep, w, h, row0)
         ri, ty, tx = pairs[0].long(), pairs[3], pairs[4]
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
         evals = window_evals(ri[:, box], ty, tx, visible,
                              raster.vertex_bbox(ri))
         winners = (0 if depth is None
-                   else k4_winners(pairs, w, h, depth, strict))
+                   else k4_winners(pairs, w, h, depth, strict, row0))
         nbytes = (pairs[5] * (prep[1].shape[1] * 4 + 12)
                   + torch.unique(pairs[6]).numel() * (tg.NI32 * 4 + 12)
                   + winners * winner_bytes + planes * 4 * w * h)
@@ -1200,11 +1257,13 @@ def main(argv=None) -> int:
               "gbuffer_records_keyed_kernel, depth_records_kernel; the "
               "resolve kernels none)")
         smem = _build.load_library().zr_keyed_hier_smem_bytes()
-        for key in ("k3g", "k3d"):
+        for key in ("k3", "k3b", "k3g", "k3d"):
             results[key]["smem_bytes"] = smem
-        print(f"  K3g/K3d keyed body: {smem} bytes of dynamic shared memory "
-              "a block (gbuffer_hier_keyed_kernel, depth_hier_keyed_kernel; "
-              f"{raster.HIER_ITEMS} work item(s) a tile)")
+        print(f"  K3/K3b/K3g/K3d keyed body: {smem} bytes of dynamic shared "
+              "memory a block (raster_hier_keyed_kernel, "
+              "raster_hier_band_keyed_kernel, gbuffer_hier_keyed_kernel, "
+              f"depth_hier_keyed_kernel; {raster.HIER_ITEMS} work item(s) "
+              "a tile)")
         return info.seconds
 
     # -- 3. K1 vs plain ---------------------------------------------------
@@ -1416,21 +1475,27 @@ def main(argv=None) -> int:
         return run
 
     def hier_cases(key):
-        """The keyed hierarchy body's own cases for K3g (``key`` "k3g", on
-        lit rows, all 13 planes) or K3d ("k3d"), each bit-exact against the
-        plain version in every row at HIER_ITEMS and at HIER_SPLIT_ITEMS
-        work items a tile, the two equal: exact ties between duplicated
+        """The keyed hierarchy body's own cases for K3 (``key`` "k3"), K3b
+        ("k3b": each case at 1088 rows, its bands at rows 0 and 544), K3g
+        ("k3g", on lit rows, all 13 planes) or K3d ("k3d"), each bit-exact
+        against the plain version in every row at HIER_ITEMS and at
+        HIER_SPLIT_ITEMS work items a tile, the two equal (K3b's bands laid
+        side by side also equal K3's frame): exact ties between duplicated
         triangles (to the first row, split across items), a row at z ==
         1.0 (no pixel latched), a subnormal and a NaN z, K3g's epilogue
         where a row passed with den < 0, -0.0 ties both ways (the first
         row's sign kept), triangles that cover whole tiles, the clipped
         soup at the padded target, and an empty scene."""
-        depth = key == "k3d"
-        kern = {"k3g": k3g, "k3d": k3d}[key]
-        plain = {"k3g": raster.gbuffer_hier_plain,
+        depth, band = key == "k3d", key == "k3b"
+        kern = {"k3": k3, "k3b": k3b, "k3g": k3g, "k3d": k3d}[key]
+        plain = {"k3": raster.raster_hier_plain,
+                 "k3b": raster.raster_hier_band_plain,
+                 "k3g": raster.gbuffer_hier_plain,
                  "k3d": raster.depth_hier_plain}[key]
-        cmp = compare_depth if depth else compare_gbuffer
-        rows_of = setup_rows if depth else lit_rows
+        cmp = {"k3": compare, "k3b": compare, "k3g": compare_gbuffer,
+               "k3d": compare_depth}[key]
+        rows_of = lit_rows if key == "k3g" else setup_rows
+        lit = key == "k3g"
 
         def planes(out):
             return [out] if depth else list(out)
@@ -1440,27 +1505,54 @@ def main(argv=None) -> int:
                                    y.contiguous().view(torch.int32))
                        for x, y in zip(planes(a), planes(b)))
 
+        def frame(n, prep, w, h):
+            """The kernel's planes of the (w, h) frame at n items a tile:
+            K3b's two bands laid side by side."""
+            run = with_hier_items(kern, n)
+            if not band:
+                return run(*prep, w, h)
+            bands = [run(*prep, w, h // 2, r0) for r0 in (0, h // 2)]
+            return tuple(torch.cat(p) for p in zip(*bands))
+
+        def at_row(fn, r0):
+            return lambda *a: fn(*a, r0)
+
         def check(label, rows, w, h):
             prep = raster.prepare_raster_inputs(*rows)
             live = int((prep[2][:, tg.I_VALID] > 0).sum().item())
             print(f"  {label}: {live} live rows, {prep[1].shape[0]} blocks")
-            outs = [cmp(key, f"{label}, {n} item(s) a tile",
+            if band:
+                for n in (raster.HIER_ITEMS, HIER_SPLIT_ITEMS):
+                    for r0 in (0, h // 2):
+                        cmp(key, f"{label}, band at row {r0}, {n} item(s) "
+                            "a tile", at_row(with_hier_items(kern, n), r0),
+                            at_row(plain, r0), prep, w, h // 2)
+            else:
+                for n in (raster.HIER_ITEMS, HIER_SPLIT_ITEMS):
+                    cmp(key, f"{label}, {n} item(s) a tile",
                         with_hier_items(kern, n), plain, prep, w, h)
+            outs = [frame(n, prep, w, h)
                     for n in (raster.HIER_ITEMS, HIER_SPLIT_ITEMS)]
             if not same(*outs):
                 raise AssertionError(f"{key} {label}: the item counts differ")
+            if band and not same(outs[0], k3(*prep, w, h)):
+                raise AssertionError(f"{label}: K3b's bands differ from "
+                                     "K3's frame")
             return outs[-1]
 
-        w, h = 1024, 512
+        # K3b's cases fill both of its bands, at rows 0 and 544.
+        tall = PAD_H if band else None
+        w, h = 1024, tall or 512
         got = check("duplicated triangles", rows_of(*tie_soup(True), w, h),
                     w, h)
-        one = kern(*raster.prepare_raster_inputs(
+        one = frame(raster.HIER_ITEMS, raster.prepare_raster_inputs(
             *rows_of(*tie_soup(False), w, h)), w, h)
         if not same(got, one):
             raise AssertionError(f"{key}: a duplicate won a depth tie")
+        ph = tall or 32
         out = planes(check("z == 1.0 (A's z is 1.0 at one pixel)",
-                           pair_rows(za_a=(0.25, 0.0, 0.0), lit=not depth),
-                           128, 32))
+                           pair_rows(za_a=(0.25, 0.0, 0.0), h=ph, lit=lit),
+                           128, ph))
         if not depth:
             latched = int(((out[1] == 1.0)
                            & (out[0] != -(1 << 24))).sum().item())
@@ -1470,8 +1562,8 @@ def main(argv=None) -> int:
                                      "z == 1.0, none expected")
         check("subnormal z (A) and NaN z (B)",
               pair_rows(za_a=(1e-45, 0.0, 0.0), za_b=(float("nan"),) * 3,
-                        lit=not depth), 128, 32)
-        if not depth:  # K3g's epilogue form where a row passed with den < 0
+                        h=ph, lit=lit), 128, ph)
+        if lit:  # K3g's epilogue form where a row passed with den < 0
             ti_n, tf_n = pair_rows(lit=True)
             a = int(torch.nonzero(ti_n[:, tg.I_VALID] > 0)[0].item())
             tf_n[a, tg.F_RW0:tg.F_RW0 + 3] *= -1.0
@@ -1479,16 +1571,16 @@ def main(argv=None) -> int:
         for za_a, za_b in (((-0.0,) * 3, (0.0,) * 3),
                            ((0.0,) * 3, (-0.0,) * 3)):
             out = planes(check(f"-0.0 tie (A {za_a[0]}, B {za_b[0]})",
-                               pair_rows(za_a=za_a, za_b=za_b,
-                                         lit=not depth), 128, 32))
+                               pair_rows(za_a=za_a, za_b=za_b, h=ph,
+                                         lit=lit), 128, ph))
             d = out[0] if depth else out[1]
             neg = int((torch.signbit(d) & (d == 0.0)).sum().item())
             print(f"    {neg} pixels at -0.0")
             if (neg > 0) != bool(np.signbit(za_a[0])):
                 raise AssertionError(f"{key}: the first row's zero sign "
                                      "was not kept")
-        check("whole tiles (A over 1024x512)",
-              pair_rows(w=w, h=h, lit=not depth), w, h)
+        check(f"whole tiles (A over {w}x{h})",
+              pair_rows(w=w, h=h, lit=lit), w, h)
         check("clipped soup (whole tiles near the camera)",
               rows_of(*clipped_soup(), WIDTH, HEIGHT), PAD_W, PAD_H)
         t = tg.capped_rows(64)
@@ -1498,11 +1590,19 @@ def main(argv=None) -> int:
         ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
         prep = raster.prepare_raster_inputs(
             ti, torch.zeros((ti.shape[0], tg.NF32), device=dev))
+        ref = (tuple(torch.cat(p) for p in zip(
+            *[plain(*prep, w, h // 2, r0) for r0 in (0, h // 2)]))
+            if band else plain(*prep, w, h))
         for n in (raster.HIER_ITEMS, HIER_SPLIT_ITEMS):
-            if not same(with_hier_items(kern, n)(*prep, w, h),
-                        plain(*prep, w, h)):
+            if not same(frame(n, prep, w, h), ref):
                 raise AssertionError(f"{key}: empty scene differs")
         print(f"  empty scene: {key} equals its plain version (clear)")
+
+    # -- 4k. K3's and K3b's keyed cases --------------------------------------
+    @phase("4k K3/K3b keyed hierarchy cases")
+    def k3_keyed_cases():
+        hier_cases("k3")
+        hier_cases("k3b")
 
     # -- 4b. K4, K4c, K5, K6 vs plain ---------------------------------------
     @phase("4b K4/K4c/K5/K6 kernels vs plain versions")
@@ -2787,43 +2887,9 @@ def main(argv=None) -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def device_trace(fn):
-        """Run ``fn`` once as warm-up, then once under torch.profiler;
-        returns (device events, the trace's window in us).  Device events
-        are the kernels, copies and memsets of the chrome trace as (name,
-        start us, duration us)."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()  # warm-up outside the trace
-        sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            sync()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
-        on_device = [(e["name"], float(e["ts"]), float(e["dur"]))
-                     for e in timed
-                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        t0 = min(float(e["ts"]) for e in timed)
-        t1 = max(float(e["ts"]) + float(e["dur"]) for e in timed)
-        return on_device, t1 - t0
-
-    def busy_us(events):
-        """Union of the device events' intervals, in us."""
-        total, end = 0.0, float("-inf")
-        for _, ts, dur in sorted(events, key=lambda e: e[1]):
-            if ts + dur > end:
-                total += ts + dur - max(ts, end)
-                end = ts + dur
-        return total
-
     # Kernel names in the profiler's trace.
-    kernel_names = {"k1": "raster_small_kernel", "k3": "raster_hier_kernel",
+    kernel_names = {"k1": "raster_small_kernel",
+                    "k3": "raster_hier_keyed_kernel",
                     "k4": "raster_records_kernel",
                     "k4_coarse": "raster_records_coarse_kernel",
                     "k5": "raster_hier_kernel", "k6": "raster_lists_kernel",
@@ -2840,7 +2906,7 @@ def main(argv=None) -> int:
                     "k7_bf16": "light_tiled_kernel<__nv_bfloat16,",
                     "k8": "overlay_raster_kernel<8>",
                     "k8b": "overlay_composite_kernel",
-                    "k3b": "raster_hier_band_kernel",
+                    "k3b": "raster_hier_band_keyed_kernel",
                     "k9": "raster_records_band_kernel",
                     "k9g": "gbuffer_records_band_kernel",
                     "k9d": "raster_records_dist_kernel",
@@ -2858,9 +2924,12 @@ def main(argv=None) -> int:
     resolve_names = {"k4": "raster_records_resolve_kernel",
                      "k4g": "gbuffer_records_resolve_kernel",
                      "k4d": "depth_records_resolve_kernel"}
-    # K3g and K3d, with more than one work item a tile (raster.HIER_ITEMS),
-    # issue the same three; with one, the item kernel alone.
-    hier_resolve_names = {"k3g": "gbuffer_hier_resolve_kernel",
+    # K3, K3b, K3g and K3d, with more than one work item a tile
+    # (raster.HIER_ITEMS), issue the same three; with one, the item kernel
+    # alone.
+    hier_resolve_names = {"k3": "raster_hier_resolve_kernel",
+                          "k3b": "raster_hier_band_resolve_kernel",
+                          "k3g": "gbuffer_hier_resolve_kernel",
                           "k3d": "depth_hier_resolve_kernel"}
     port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
                     | set(hier_resolve_names.values()))
@@ -2874,8 +2943,8 @@ def main(argv=None) -> int:
 
     def call_durations(key, events):
         """Device us of each call of kernel ``key`` in a trace's events:
-        its kernel's duration, and for K4/K4g/K4d (K3g/K3d with several
-        items a tile) the sum of a call's three device operations, the
+        its kernel's duration, and for K4/K4g/K4d (K3/K3b/K3g/K3d with
+        several items a tile) the sum of a call's three device operations, the
         memset just before the item kernel, the item kernel and the
         resolve kernel just after it.  Such a call without all three
         counts as no call, so the trace reads short."""
@@ -3231,6 +3300,7 @@ def main(argv=None) -> int:
                     plain_shape="lattice20k band 0 of 2" if b == 0 else None)
         cases["k3b"] = (prep, 0, 544, "lattice20k band 0 of 2",
                         band_pairs(ti, 0, 544))
+        rows20, plain20_s = ti.shape[0], results["k3b"]["plain_ms"] / 1e3
         # (c) the 40K lattice from 4 shards at 1920x1024: K9 with both span
         # forms, K9g with random normals and per-triangle materials.
         args, lit_kw = scene_args(make_stress_scene(MID_TRIS), H4, lit=True)
@@ -3276,7 +3346,46 @@ def main(argv=None) -> int:
                             band_fn(raster.gbuffer_binned_band_plain,
                                     b * 544), prep, PAD_W, 544,
                             plain_shape=label if b == 0 else None)
-        # (d) a 2048-triangle clipped soup under a 16-record slab (256
+        # (d) binning="hierarchy" above 32768 rows: the 40K lattice from 2
+        # shards through K3b (two groups of its walk), both bands at
+        # HIER_ITEMS and HIER_SPLIT_ITEMS items a tile against the plain
+        # K3b (unless (b)'s time, scaled by the rows, predicts more than
+        # PLAIN_1M_MAX_S) and laid side by side against K5's frame.
+        args40, _ = scene_args(make_stress_scene(MID_TRIS), H2)
+        _, ti, tf, s = tiles.setups_in_turn(2, *args40, PAD_W, H2)
+        prep = raster.prepare_raster_inputs(ti, tf)
+        n_supers = prep[0].shape[0]
+        print(f"  (d) lattice40k: {ti.shape[0]} gathered rows of 2 shards, "
+              f"{n_supers} superblocks")
+        if ti.shape[0] <= raster.MAX_RESIDENT_ROWS or n_supers <= 8:
+            raise AssertionError("(d) does not pass the 32768-row bound")
+        predicted = plain20_s * ti.shape[0] / rows20
+        bands = {}
+        for b in range(2):
+            outs = [with_hier_items(k3b, n)(*prep, PAD_W, 544, b * 544)
+                    for n in (raster.HIER_ITEMS, HIER_SPLIT_ITEMS)]
+            sync()
+            if not all(torch.equal(x, y) for x, y in zip(*outs)):
+                raise AssertionError(f"(d) band {b}: the item counts differ")
+            bands[b] = outs[0]
+            label = f"(d) lattice40k band {b} of 2 (K3b, hierarchy)"
+            if predicted > PLAIN_1M_MAX_S:
+                print(f"  {label}: plain K3b skipped, {predicted:.1f} s "
+                      f"predicted from (b) (limit {PLAIN_1M_MAX_S} s)")
+                continue
+            t0 = time.perf_counter()
+            compare("k3b", label, band_fn(k3b, b * 544),
+                    band_fn(raster.raster_hier_band_plain, b * 544), prep,
+                    PAD_W, 544)
+            print(f"    plain K3b {time.perf_counter() - t0:.1f} s "
+                  f"(predicted {predicted:.1f} s)")
+        c5, d5 = k5(*prep, PAD_W, H2)
+        cb, db = (torch.cat([bands[0][i], bands[1][i]]) for i in range(2))
+        if not (torch.equal(cb, c5) and torch.equal(
+                db.view(torch.int32), d5.view(torch.int32))):
+            raise AssertionError("(d) K3b's bands differ from K5's frame")
+        print("  (d) both bands at both item counts equal K5's frame")
+        # (e) a 2048-triangle clipped soup under a 16-record slab (256
         # after rounding), so that rows are demoted to the owners'
         # hierarchies: K9d with 2 and 4 sources.
         soup_md = make_triangle_soup(2048, seed=17, extent=2.0,
@@ -3297,21 +3406,20 @@ def main(argv=None) -> int:
                 wanted = int(whole[b][3][:, -1].sum().item())
                 demoted |= sent < wanted
                 prep = raster.prepare_binned_dist_owner(ti, tf, *small[b])
-                compare("k9d", f"(d) 2048-triangle clipped soup, slab 16, "
+                compare("k9d", f"(e) 2048-triangle clipped soup, slab 16, "
                         f"band {b} of {n} (K9d, {sent} of {wanted} records "
                         f"sent, the rest demoted)",
                         band_fn(k9d, b * band_h),
                         band_fn(raster.raster_binned_band_plain,
                                 b * band_h), prep, PAD_W, band_h)
             if not demoted:
-                raise AssertionError(f"(d) {n} bands: the 16-record slab "
+                raise AssertionError(f"(e) {n} bands: the 16-record slab "
                                      "demoted nothing")
-        # (e) the 40K lattice from 2 shards at 1920x1088, the main path's
+        # (f) the 40K lattice from 2 shards at 1920x1088, the main path's
         # band shape: K9 with both span forms (plain K9 at 1M costs too
         # much; phase 5m holds the 1M bands against K4), and K9d under the
         # default slab.
-        args, _ = scene_args(make_stress_scene(MID_TRIS), H2)
-        locals_, ti, tf, s = tiles.setups_in_turn(2, *args, PAD_W, H2)
+        locals_, ti, tf, s = tiles.setups_in_turn(2, *args40, PAD_W, H2)
         for b in range(2):
             label = f"lattice40k band {b} of 2"
             for local in (True, False):
@@ -3320,14 +3428,14 @@ def main(argv=None) -> int:
                 prep = raster.prepare_binned_hbm_inputs(
                     ti, tf, PAD_W, H2, n_head=2 * s,
                     pair_budget=raster.band_pair_budget(2), **band_kw)
-                compare("k9", f"(e) {label} (K9, band_local={local})",
+                compare("k9", f"(f) {label} (K9, band_local={local})",
                         band_fn(k9, b * 544, local),
                         band_fn(raster.raster_binned_band_plain, b * 544,
                                 local), prep, PAD_W, 544,
                         plain_shape=label if b == 0 and local else None)
         prep = raster.prepare_binned_dist_owner(
             ti, tf, *dist_received(locals_, H2, 2, s)[0])
-        compare("k9d", "(e) lattice40k band 0 of 2 (K9d)", band_fn(k9d, 0),
+        compare("k9d", "(f) lattice40k band 0 of 2 (K9d)", band_fn(k9d, 0),
                 band_fn(raster.raster_binned_band_plain, 0), prep,
                 PAD_W, 544, plain_shape="lattice40k band 0 of 2")
         cases["k9d"] = (prep, 0, 544, "lattice40k band 0 of 2",
@@ -4331,7 +4439,7 @@ def main(argv=None) -> int:
                     prep_k, w, h, HEIGHT if h == PAD_H else h, planes,
                     None if key.endswith("d") else kern(*prep_k, w, h)[1],
                     WINNER_GBUF_BYTES if key.endswith("g") else WINNER_BYTES,
-                    strict=key == "k3g")
+                    strict=key in ("k3", "k3g"))
             set_bound(key, flat_inputs(prep_k), pairs, w, h, shape,
                       planes=planes, evals=evals, nbytes=nbytes)
             print(f"  {key} {shape} {w}x{h}: kernel {res['ms']:.4f} "
@@ -4354,8 +4462,15 @@ def main(argv=None) -> int:
                           prep_k[2][:used]]
             else:
                 inputs = flat_inputs(prep_k)
+            evals = nbytes = None
+            if key == "k3b":  # the keyed body over the band
+                evals, nbytes = keyed_work(
+                    prep_k, PAD_W, bh, HEIGHT, 2,
+                    kern(*prep_k, PAD_W, bh, r0)[1], WINNER_BYTES,
+                    strict=True, row0=r0)
             set_bound(key, inputs, pairs, PAD_W, bh, shape,
-                      planes=raster.GBUFFER_PLANES if key == "k9g" else 2)
+                      planes=raster.GBUFFER_PLANES if key == "k9g" else 2,
+                      evals=evals, nbytes=nbytes)
             print(f"  {key} {shape} {PAD_W}x{bh} at row {r0}: kernel "
                   f"{res['ms']:.4f} ms device time (profiler; "
                   f"{res['anim_ms']:.4f} ms a launch in the profiled sharded"

@@ -38,7 +38,10 @@ from zrenderer_tpu_torch.ops import geometry as tg
 from zrenderer_tpu_torch.ops import raster as tr
 from zrenderer_tpu_torch.ops import taa
 from zrenderer_tpu_torch.parallel import tiles
-from zrenderer_tpu_torch.scene.procedural import make_triangle_soup
+from zrenderer_tpu_torch.scene.procedural import (
+    make_stress_scene,
+    make_triangle_soup,
+)
 
 torch.set_num_threads(1)
 
@@ -367,6 +370,35 @@ def test_plain_bands_assemble_the_single_device_frame(case, kind):
     _bits(depth, ref_d)
     assert np.abs(_u8(color).astype(np.int32)
                   - raster_cpu.pack_u8(rgba).astype(np.int32)).max() <= 1
+
+
+def test_hierarchy_band_above_the_row_bound_equals_the_frame(monkeypatch):
+    """``binning="hierarchy"`` sends every band to K3b, whatever its row
+    count: the 40K lattice from 2 shards at 256x128 (above 32768 gathered
+    rows, 12 superblocks), each band of the in-turn band stage equal to the
+    same rows of the whole-frame plain K3 frame (K5's, above the bound)."""
+    w, h = 256, 128
+    scene, md = make_stress_scene(40000)
+    flat = flatten_scene(scene, md, pad=True, tri_align=256)
+    vp = g.view_proj_from_camera(scene.active_camera, w, h)
+    mats = np.einsum("nij,jk->nik", flat.node_to_world, vp).astype(np.float32)
+    _, ti, tf, s = tiles.setups_in_turn(
+        2, *map(_t, _indexed_args(flat, mats)), w, h)
+    prep = tr.prepare_raster_inputs(ti, tf)
+    assert ti.shape[0] > tr.MAX_RESIDENT_ROWS and prep[0].shape[0] > 8
+    color, depth = tr.raster_hier_plain(*prep, w, h)
+    assert (depth < 1.0).float().mean() > 0.1
+    calls = []
+    k3b = tr.rasterize_setup_band
+    monkeypatch.setattr(tr, "rasterize_setup_band",
+                        lambda *a: calls.append(a[3:]) or k3b(*a))
+    for b in range(2):
+        rgba, d = tiles.band_raster(ti, tf, w, h, 2, b, 2 * s,
+                                    binning="hierarchy")
+        rows = slice(b * h // 2, (b + 1) * h // 2)
+        assert torch.equal(rgba, tr.unpack_rgba8(color[rows]))
+        _bits(d.numpy(), depth[rows].numpy())
+    assert calls == [(h // 2, 0), (h // 2, h // 2)]
 
 
 @pytest.mark.parametrize("case", list(SCENES))

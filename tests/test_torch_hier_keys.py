@@ -1,28 +1,33 @@
 """The keyed hierarchy body's rules (zrenderer_tpu_torch/csrc/raster_hier.cu
-``keyed_hier`` over csrc/raster_keyed.cuh: K3g and K3d), through the
-mirrors below, the work-item helpers ``hier_block_hits`` and
+``keyed_hier`` over csrc/raster_keyed.cuh: K3, K3b, K3g and K3d), through
+the mirrors below, the work-item helpers ``hier_block_hits`` and
 ``hier_work_items`` and the window helper ``vertex_bbox`` of
 zrenderer_tpu_torch/ops/raster.py, on setup rows from the JAX package's
 NumPy geometry:
 
-* (a) keys: the minimum of K3g's (z order bits, row id) keys under the
-  clear key (1.0, 0), and of K3d's (z order bits, row id, sign) keys, is
-  the strict-less test z >= 0 && z < zb from 1.0 in row order, over z
-  values with +-0.0, 1.0, subnormals, NaN, negatives and exact ties; a row
-  at z == 1.0 never goes below either clear key;
+* (a) keys: the minimum of K3's, K3b's and K3g's (z order bits, row id)
+  keys under the clear key (1.0, 0), and of K3d's (z order bits, row id,
+  sign) keys, is the strict-less test z >= 0 && z < zb from 1.0 in row
+  order, over z values with +-0.0, 1.0, subnormals, NaN, negatives and
+  exact ties; a row at z == 1.0 never goes below either clear key;
 * (b) windows: every pixel a row covers in a tile that the walk admits
   (its clamped bbox meets the tile) lies in the kernel's window for it
   (the vertices' pixel bbox in the tile), the padding rows included;
 * (c) work items: each tile's hit blocks cut into work items, each item's
   keys over its rows' windows, merged by the minimum and resolved,
-  equals ``depth_hier_plain`` and, on lit rows (random uv, normals and
-  per-triangle materials), ``gbuffer_hier_plain`` in all 13 planes as
-  int32: the padded soup (its rows below the geometry), the duplicated
-  soup with items of one hit block (exact ties split across items), the 20K
-  lattice, the edge map, a row at z == 1.0 (stays clear in both), a
-  subnormal and a NaN z, and -0.0 ties both ways;
+  equals ``raster_hier_plain`` (K3: colour and depth as int32),
+  ``raster_hier_band_plain`` (K3b: two bands at two row bases, the
+  tiles' rows global and the planes band-local), ``depth_hier_plain`` and,
+  on lit rows (random uv, normals and per-triangle materials),
+  ``gbuffer_hier_plain`` in all 13 planes as int32: the padded soup (its
+  rows below the geometry), the duplicated soup with items of one hit
+  block (exact ties split across items), the 20K lattice, the edge map, a
+  row at z == 1.0 (stays clear), a subnormal and a NaN z, and -0.0 ties
+  both ways;
 * (d) the item table cuts each tile's hit blocks into consecutive shares,
-  as the kernel does.
+  as the kernel's walk does over groups of 8 superblocks at any
+  superblock count, and the hit blocks hold every row the walk admits, on
+  a prepare above 32768 rows too.
 
 The CUDA kernels are held against the plain versions on the card by
 chip_smoke.py (phases 4g, 4d, 5l and 5s).
@@ -61,73 +66,85 @@ from zrenderer_tpu_torch.ops import raster as tr
 HIER_CLEAR_KEY = 0x3F800000 << 32
 
 
-def _walk_pairs(hier, blocks, supers, width: int, height: int):
+def _walk_pairs(hier, blocks, supers, width: int, height: int,
+                row0: int = 0):
     """Every (tile, row) the hierarchy walk admits: rows whose clamped bbox
     meets the tile (tile_overlap), in a block and superblock whose union
-    bboxes meet it too.  Returns (tile (P,), row (P,)), row order within
+    bboxes meet it too.  The tiles are those of the ``height`` rows from
+    global row ``row0``.  Returns (tile (P,), row (P,)), row order within
     each tile."""
     ty, tx = height // tr.TILE_H, width // tr.TILE_W
     box = [g.I_JMIN, g.I_JMAX, g.I_IMIN, g.I_IMAX]
-    hits = tr._tile_hits(hier[:, box], ty, tx)
+    hits = tr._tile_hits(hier[:, box], ty, tx, row0)
     tile, row = torch.nonzero(hits, as_tuple=True)
-    block_hits = tr.hier_block_hits(supers, blocks, width, height)
+    block_hits = tr.hier_block_hits(supers, blocks, width, height, row0)
     # A row that meets a tile is in its block's and superblock's unions.
     assert bool(block_hits[tile, row // tr.RASTER_BLOCK].all())
     return tile, row
 
 
-def _resolve_winners(keys, ti, tf, width: int, height: int):
+def _resolve_winners(keys, ti, tf, width: int, height: int,
+                     gbuffer: bool = True, row0: int = 0):
     """K3g's store: the winner of each (H, W) key (its id; none where the
     key is the clear one) re-evaluated at the pixel, its z (-0.0 kept),
     colour, uv and normal numerators and constants, then K3g's epilogue
-    covered ? buf * 1/den : 0.  Returns the GBUFFER_PLANES planes."""
+    covered ? buf * 1/den : 0.  Returns the GBUFFER_PLANES planes; without
+    ``gbuffer`` K3's store, the packed colour and depth planes.  The keys'
+    first row is global row ``row0`` (a band's)."""
     th, tw = tr.TILE_H, tr.TILE_W
     tiles_x = width // tw
     won = keys != HIER_CLEAR_KEY
     ids = (keys & 0xFFFFFFFF)[won]
     row, col = torch.nonzero(won, as_tuple=True)
-    _, interp, zw = _cover_z(ti[ids], tf[ids], row, col)
-    latches = tr._LATCHES + tr._GBUF_LATCHES
+    _, interp, zw = _cover_z(ti[ids], tf[ids], row + row0, col)
+    latches = tr._LATCHES + (tr._GBUF_LATCHES if gbuffer else ())
+    consts = tr._CONSTS if gbuffer else ()
     out = {name: torch.zeros((height, width), dtype=torch.float32)
-           for name, _ in latches + tr._CONSTS}
+           for name, _ in latches + consts}
     out["z"] = torch.ones((height, width), dtype=torch.float32)
     out["z"][won] = zw
     for name, c in latches:
         out[name][won] = interp(c)
-    for name, c in tr._CONSTS:
+    for name, c in consts:
         out[name][won] = tf[ids, c]
     planes = {name: p.reshape(height // th, th, tiles_x,
                               tw).permute(0, 2, 1, 3)
               for name, p in out.items()}
+    if not gbuffer:
+        return tr._resolve_planes(planes)
     return tr._resolve_gbuffer(planes, masked_inv=False)
 
 
 def keyed_hier_plain(supers, blocks, ti, tf, width: int, height: int,
-                     depth: bool, items: int):
-    """K3g (or with ``depth`` K3d) as the keyed body computes it over the
-    hierarchy alone: each tile's hit blocks cut into ``items`` work items
-    (``tr.hier_work_items``), each item's keys over its rows' windows (a
-    scatter min; a key at or above the clear one lowers nothing), the
-    items' keys merged by their minimum, then the store."""
+                     depth: bool, items: int, gbuffer: bool = True,
+                     row0: int = 0):
+    """K3g (or with ``depth`` K3d, without ``gbuffer`` K3) as the keyed
+    body computes it over the hierarchy alone: each tile's hit blocks cut
+    into ``items`` work items (``tr.hier_work_items``), each item's keys
+    over its rows' windows (a scatter min; a key at or above the clear one
+    lowers nothing), the items' keys merged by their minimum, then the
+    store.  ``row0``: K3b, the ``height`` rows from global row ``row0``
+    (tiles, windows and edge functions at global rows, the keys and planes
+    band-local)."""
     th, tw = tr.TILE_H, tr.TILE_W
     tiles_x = width // tw
     num_tiles = tiles_x * (height // th)
     work = tr.hier_work_items(
-        tr.hier_block_hits(supers, blocks, width, height), items)
-    tile, rows = _walk_pairs(ti, blocks, supers, width, height)
+        tr.hier_block_hits(supers, blocks, width, height, row0), items)
+    tile, rows = _walk_pairs(ti, blocks, supers, width, height, row0)
     item = work[tile, rows // tr.RASTER_BLOCK]
     assert bool(((item >= 0) & (item < items)).all())
     owner = tile * items + item
-    row0, col0 = (tile // tiles_x) * th, (tile % tiles_x) * tw
+    r0, c0 = row0 + (tile // tiles_x) * th, (tile % tiles_x) * tw
     ri = ti[rows].long()
-    pair, row, col = _window_pixels(ri, row0, col0)
+    pair, row, col = _window_pixels(ri, r0, c0)
     cov, _, z = _cover_z(ti[rows][pair], tf[rows][pair], row, col)
     ok = cov & (z >= 0.0)
     tag = rows[pair][ok]
     key = depth_keys(z[ok], tag) if depth else flat_keys(z[ok], tag)
     clear = DEPTH_CLEAR_KEY if depth else HIER_CLEAR_KEY
-    slot = (owner[pair][ok] * (th * tw) + (row[ok] - row0[pair][ok]) * tw
-            + col[ok] - col0[pair][ok])
+    slot = (owner[pair][ok] * (th * tw) + (row[ok] - r0[pair][ok]) * tw
+            + col[ok] - c0[pair][ok])
     per_item = torch.full((num_tiles * items * th * tw,), clear,
                           dtype=torch.int64)
     per_item.scatter_reduce_(0, slot, key, "amin")
@@ -135,7 +152,7 @@ def keyed_hier_plain(supers, blocks, ti, tf, width: int, height: int,
     keys = tr._frame(merged.reshape(height // th, tiles_x, th, tw))
     if depth:
         return depth_key_z(keys)
-    return _resolve_winners(keys, ti, tf, width, height)
+    return _resolve_winners(keys, ti, tf, width, height, gbuffer, row0)
 
 
 # (a) keys
@@ -302,30 +319,60 @@ def _edge_scene():
     return make_triangle_soup(600, seed=3, extent=6.0)
 
 
-@pytest.mark.parametrize("kernel", ["k3g", "k3d"])
+def _bands(h: int):
+    """K3b's two bands of a frame of ``h`` rows: rows [0, r) and [r, h),
+    r the middle tile row; one tile row past the frame (clear) when the
+    frame is one tile high.  (row0, band_h) each."""
+    r = max(tr.TILE_H, h // 2 // tr.TILE_H * tr.TILE_H)
+    return [(0, r), (r, max(h - r, tr.TILE_H))]
+
+
+@pytest.mark.parametrize("kernel", ["k3", "k3b", "k3g", "k3d"])
 @pytest.mark.parametrize("name", list(HIER_ITEM_CASES))
 def test_items_merged_equal_the_plain_versions(name, kernel):
     build, items, shows = HIER_ITEM_CASES[name]
     (ti, tf), (w, h) = build()
     prep = tr.prepare_raster_inputs(ti, tf)
-    depth = kernel == "k3d"
-    got = keyed_hier_plain(*prep, w, h, depth, items)
+    depth, gbuffer = kernel == "k3d", kernel == "k3g"
     if depth:
+        got = keyed_hier_plain(*prep, w, h, True, items)
         ref = tr.depth_hier_plain(*prep, w, h)
         _bits(got.numpy(), ref.numpy())
         z, color = ref, None
-    else:
+    elif gbuffer:
+        got = keyed_hier_plain(*prep, w, h, False, items)
         ref = tr.gbuffer_hier_plain(*prep, w, h)
         assert len(got) == len(ref) == tr.GBUFFER_PLANES
         for a, b in zip(got, ref):
             _bits(a.numpy(), b.numpy())
         z, color = ref[1], ref[0]
+    else:
+        # K3, or K3b's two bands: colour and depth as int32, each band
+        # against the plain K3b at its row base, laid side by side equal
+        # to the plain K3 frame.
+        bands = [(0, h)] if kernel == "k3" else _bands(h)
+        outs = []
+        for row0, band_h in bands:
+            got = keyed_hier_plain(*prep, w, band_h, False, items,
+                                   gbuffer=False, row0=row0)
+            ref = (tr.raster_hier_plain(*prep, w, h) if kernel == "k3"
+                   else tr.raster_hier_band_plain(*prep, w, band_h, row0))
+            assert tuple(got[0].shape) == (band_h, w)
+            for a, b in zip(got, ref):
+                _bits(a.numpy(), b.numpy())
+            outs.append(ref)
+        color = torch.cat([c for c, _ in outs])[:h]
+        z = torch.cat([d for _, d in outs])[:h]
+        if kernel == "k3b":
+            frame = tr.raster_hier_plain(*prep, w, h)
+            _bits(color.numpy(), frame[0].numpy())
+            _bits(z.numpy(), frame[1].numpy())
     assert int((z < 1.0).sum()) > 0
     if shows == "padding":
         assert (z[80:] < 1.0).sum() > 0  # rows below the geometry
     elif shows == "split_ties":
         assert _ties_split_across_items(*prep[:3], w, h, items) > 0
-        if not depth:  # many winners' materials
+        if gbuffer:  # many winners' materials
             assert torch.unique(ref[12][z < 1.0]).numel() > 50
     elif shows == "z_one":
         # A (row 0) covers a pixel at z == 1.0, which the strict-less
@@ -343,18 +390,54 @@ def test_items_merged_equal_the_plain_versions(name, kernel):
     elif shows == "den_negative" and color is not None:
         uncovered = (z < 1.0) & (color == -(1 << 24))
         assert int(uncovered.sum()) > 0
-        for p in ref[2:7]:  # uv and normal: +0.0 where den <= 0
-            assert not bool(torch.signbit(p[uncovered]).any())
+        if gbuffer:
+            for p in ref[2:7]:  # uv and normal: +0.0 where den <= 0
+                assert not bool(torch.signbit(p[uncovered]).any())
     elif shows in ("neg_zero", "pos_zero"):
         neg = int((torch.signbit(z) & (z == 0.0)).sum())
         assert (neg > 0) == (shows == "neg_zero")
 
 
-@pytest.mark.parametrize("seed", range(4))
+# The kernel's walk tests the superblocks in groups of this many, one a
+# warp (csrc/raster_hier.cu hier_group_hits: THREADS / SUPER_BLOCK).
+GROUP_SUPERS = 8
+
+
+def _grouped_walk(hits, items: int):
+    """The kernel's walk of one tile's hit blocks (``hits`` (B,) bool):
+    the count over every group of GROUP_SUPERS superblocks, then each
+    item's share [h0, h1) of the count walked group by group in row order,
+    a group skipped whole when the share starts past it.  Returns the item
+    of each block (-1 where no row meets the tile)."""
+    group = GROUP_SUPERS * tr.SUPER_BLOCK
+    words = [hits[k:k + group] for k in range(0, len(hits), group)]
+    total = sum(int(w.sum()) for w in words)
+    out = [-1] * len(hits)
+    for i in range(items):
+        h0, h1 = i * total // items, (i + 1) * total // items
+        h = 0
+        for gi, w in enumerate(words):
+            n = int(w.sum())
+            if h >= h1:
+                break
+            if h + n <= h0:
+                h += n
+                continue
+            for j in np.flatnonzero(w):
+                if h >= h1:
+                    break
+                if h >= h0:
+                    out[gi * group + int(j)] = i
+                h += 1
+    return out
+
+
+@pytest.mark.parametrize("seed", range(8))
 def test_work_items_cut_each_tiles_hit_blocks(seed):
     rng = np.random.default_rng(seed)
     tiles = int(rng.integers(1, 30))
-    blocks = tr.SUPER_BLOCK * int(rng.integers(1, 9))
+    # Up to 24 superblocks: three groups of the kernel's walk.
+    blocks = tr.SUPER_BLOCK * int(rng.integers(1, 3 * GROUP_SUPERS + 1))
     hits = torch.from_numpy(rng.random((tiles, blocks))
                             < rng.choice([0.0, 0.02, 0.3, 1.0]))
     hits[0] = False  # a tile no row meets
@@ -365,20 +448,34 @@ def test_work_items_cut_each_tiles_hit_blocks(seed):
         mine = work[t][hits[t]].tolist()
         n = len(mine)
         # As the kernel cuts: item i takes hit blocks [i n / items,
-        # (i + 1) n / items), in row order.
+        # (i + 1) n / items), in row order over every group.
         want = [i for i in range(items)
                 for _ in range(i * n // items, (i + 1) * n // items)]
         assert mine == want
+        assert work[t].tolist() == _grouped_walk(hits[t].numpy(), items)
         if n:
             sizes = np.bincount(mine, minlength=items)
             assert int(sizes.max() - sizes.min()) <= 1
 
 
-def test_hit_blocks_match_the_walk():
-    """On the 20K lattice at 256x128, every block that holds a row the
-    walk admits in a tile is one of the tile's hit blocks."""
-    (ti, tf), (w, h) = _lattice_narrow()
+def _lattice40k_narrow():
+    """The 40K lattice at 256x128: above 32768 rows, 12 superblocks (two
+    groups of the kernel's walk)."""
+    return (_rows(*make_stress_scene(40000), 256, 128, tri_align=256),
+            (256, 128))
+
+
+@pytest.mark.parametrize("build", [_lattice_narrow, _lattice40k_narrow],
+                         ids=["lattice20k_256x128", "lattice40k_256x128"])
+def test_hit_blocks_match_the_walk(build):
+    """On the 20K lattice, and above 32768 rows on the 40K lattice, at
+    256x128: every block that holds a row the walk admits in a tile is one
+    of the tile's hit blocks, and so in a band's tiles."""
+    (ti, tf), (w, h) = build()
     supers, blocks, hier, _ = tr.prepare_raster_inputs(ti, tf)
+    if build is _lattice40k_narrow:
+        assert hier.shape[0] > tr.MAX_RESIDENT_ROWS
+        assert supers.shape[0] > GROUP_SUPERS
     hits = tr.hier_block_hits(supers, blocks, w, h)
     tile, rows = _walk_pairs(hier, blocks, supers, w, h)
     held = torch.zeros_like(hits)
@@ -386,3 +483,6 @@ def test_hit_blocks_match_the_walk():
     assert bool((hits | ~held).all())
     assert int(held.sum()) > 0
     assert int(hits.sum()) >= int(held.sum())
+    # A band's tiles are the frame's tile rows from its row base.
+    band = tr.hier_block_hits(supers, blocks, w, h // 2, h // 2)
+    assert torch.equal(band, hits[hits.shape[0] // 2:])

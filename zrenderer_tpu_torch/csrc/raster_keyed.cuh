@@ -1,13 +1,13 @@
 // The keyed raster body, shared by raster_binned.cu (K4, K4g, K4d: a
 // tile's record span, then the leftover rows of the hierarchy) and
-// raster_hier.cu (K3g, K3d: the hierarchy alone).
+// raster_hier.cu (K3, K3b, K3g, K3d: the hierarchy alone).
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
 //   atomicMin.  K4 and K4g: (order bits of z, row id), whose minimum is the
-//   (z, row id) tie-break.  K3g: the same key, whose minimum is the
-//   strict-less test z >= 0 && z < zb from 1.0 in row order (the first row
-//   of the least z wins, and prepare_raster_inputs compacts stably, so a
-//   row's id is its submission order).  K4d and K3d: (order bits of z,
+//   (z, row id) tie-break.  K3, K3b and K3g: the same key, whose minimum is
+//   the strict-less test z >= 0 && z < zb from 1.0 in row order (the first
+//   row of the least z wins, and prepare_raster_inputs compacts stably, so
+//   a row's id is its submission order).  K4d and K3d: (order bits of z,
 //   visit index, sign of z), whose minimum is the strict-less test in visit
 //   order with the first visited row kept: a span record's visit index is
 //   its record index, a leftover row's is the span's end plus its row id
@@ -15,8 +15,8 @@
 //   filters first (NaN and negative z never compete).  The clear key is z
 //   1.0 over the largest id for K4 and K4g, so that a row at z == 1.0
 //   latches as their register body's (z, row id) test lets it; over id 0
-//   (over visit 0) for K3g (K3d, K4d), which no row at z == 1.0 goes below,
-//   as the strict-less test never lets 1.0 pass.
+//   (over visit 0) for K3, K3b and K3g (K3d, K4d), which no row at z == 1.0
+//   goes below, as the strict-less test never lets 1.0 pass.
 // * Work in proportion to each row's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -28,20 +28,25 @@
 //   alike.  The edge functions step from the window's origin (int32 wrap,
 //   the same bits as edge_fn), then the same bias tests and interp3.
 // * The hierarchy walk: superblock -> block -> row bbox skips, as the
-//   register body's (keyed_leftovers; K3g and K3d test all 8 superblocks'
-//   blocks at once, raster_hier.cu), a hit block's 128 row bboxes tested
-//   by 128 threads at once (keyed_block_rows) and the hit rows compacted
-//   into batches.  A row is admitted by its clamped bbox (tile_overlap): a
-//   row whose bbox clamped to empty is skipped, as before.
+//   register body's (keyed_leftovers; K3, K3b, K3g and K3d test a group of
+//   8 superblocks' blocks at once, raster_hier.cu), a hit block's 128 row
+//   bboxes tested by 128 threads at once (keyed_block_rows) and the hit
+//   rows compacted into batches.  A row is admitted by its clamped bbox
+//   (tile_overlap): a row whose bbox clamped to empty is skipped, as
+//   before.
 // * Several work items of one tile merge their keys by atomicMin into a
-//   frame-sized key plane (8 bytes a pixel, set to all ones by a memset),
-//   and a second kernel resolves the plane's minimum, which is order-free;
-//   a tile of one item resolves its keys in place.
+//   key plane of the output's size (8 bytes a pixel, set to all ones by a
+//   memset), and a second kernel resolves the plane's minimum, which is
+//   order-free; a tile of one item resolves its keys in place.
+// * A band (K3b): tiles, windows and edge functions use global rows; the
+//   planes and the key plane are the band's, a pixel of global row r
+//   stored at row r - row_base (keyed_out, resolve_tile).
 // The store re-evaluates the winner from the setup rows through
-// raster_common.cuh's resolve_winner, the register bodies' epilogue: K4 and
-// K4g their z (-0.0 kept) and colour, K4g and K3g also the 11 further
-// planes (K4g buf * (covered ? 1/den : 0), K3g covered ? buf * 1/den : 0);
-// K4d and K3d decode z from the key.  Nothing moves the tensor cores.
+// raster_common.cuh's resolve_winner, the register bodies' epilogue: K4,
+// K4g, K3, K3b and K3g their z (-0.0 kept) and colour, K4g and K3g also
+// the 11 further planes (K4g buf * (covered ? 1/den : 0), K3g covered ?
+// buf * 1/den : 0); K4d and K3d decode z from the key.  Nothing moves the
+// tensor cores.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -62,14 +67,15 @@ static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
 
 // The (order bits of z, row id) key (the sign cleared, so -0.0 ties +0.0).
 // A span record's id is its last int, a leftover row's its index in the
-// setup rows.  The store resolves pixel (row, col) of the frame from its
-// key: the winner re-evaluated from ti/tf by raster_common.cuh's
-// resolve_winner, z included (its -0.0 kept), one IEEE divide, RGBA8
-// packed; z 1.0 and alpha alone where no row latched.  PLANES: also the 11
-// further G-buffer planes from extra, frame floats apart.  STRICT (K3g):
-// the clear key (1.0, 0), and the epilogue covered ? buf * 1/den : 0;
-// otherwise (K4, K4g) the clear key (1.0, INT32_MAX) and buf * (covered ?
-// 1/den : 0).
+// setup rows.  The store resolves the pixel at global (row, col), element
+// idx of the planes, from its key: the winner re-evaluated from ti/tf by
+// raster_common.cuh's resolve_winner, z included (its -0.0 kept), one IEEE
+// divide, RGBA8 packed; z 1.0 and alpha alone where no row latched.
+// PLANES: also the 11 further G-buffer planes from extra, frame floats
+// apart.  STRICT (K3, K3b, K3g): the clear key (1.0, 0), and the epilogue
+// covered ? buf * 1/den : 0; otherwise (K4, K4g) the clear key (1.0,
+// INT32_MAX) and buf * (covered ? 1/den : 0).  Without PLANES the two
+// epilogues are one: the colour's quantize is the same either way.
 template <bool PLANES, bool STRICT = false>
 struct WinnerKeys {
   static constexpr unsigned long long CLEAR =
@@ -87,16 +93,17 @@ struct WinnerKeys {
   static __device__ __forceinline__ void store(
       unsigned long long k, int row, int col, const int* __restrict__ ti,
       const float* __restrict__ tf, int* __restrict__ color,
-      float* __restrict__ depth, float* __restrict__ extra, int width,
+      float* __restrict__ depth, float* __restrict__ extra, size_t idx,
       size_t frame) {
     resolve_winner<!STRICT, PLANES, true>(
         ti, tf, k == CLEAR ? INT_MAX32 : (int)(uint32_t)k, 1.0f,
         col * SUBPIXEL + HALF, row * SUBPIXEL + HALF, color, depth, extra,
-        (size_t)row * width + col, frame);
+        idx, frame);
   }
 };
 using FlatKeys = WinnerKeys<false>;
 using GbufKeys = WinnerKeys<true>;
+using HierFlatKeys = WinnerKeys<false, true>;
 using HierGbufKeys = WinnerKeys<true, true>;
 
 // The depth key: the order bits of z over the visit index over the sign of
@@ -117,12 +124,11 @@ struct DepthKeys {
            ((unsigned long long)tag << 1) | (zbits >> 31);
   }
   static __device__ __forceinline__ void store(
-      unsigned long long k, int row, int col, const int* __restrict__,
+      unsigned long long k, int, int, const int* __restrict__,
       const float* __restrict__, int* __restrict__, float* __restrict__ depth,
-      float* __restrict__, int width, size_t) {
+      float* __restrict__, size_t idx, size_t) {
     const uint32_t bits = (uint32_t)(k >> 32) | ((uint32_t)k << 31);
-    depth[(size_t)row * width + col] =
-        k == CLEAR ? 1.0f : __uint_as_float(bits);
+    depth[idx] = k == CLEAR ? 1.0f : __uint_as_float(bits);
   }
 };
 
@@ -143,7 +149,9 @@ struct KeyedSmem {
   int pending[KEY_PENDING];
   int scan[WARPS];
   int item[3];  // tile, item index within the tile, items of the tile
-  unsigned hits[WARPS];  // K3g/K3d: blocks that meet the tile, a bit each
+  // K3, K3b, K3g, K3d: the blocks of one group of WARPS superblocks that
+  // meet the tile, a bit each (raster_hier.cu hier_group_hits).
+  unsigned hits[WARPS];
 };
 
 // Exclusive prefix of v over the block's threads; total gets the sum.
@@ -341,42 +349,50 @@ __device__ __forceinline__ void keyed_leftovers(
 
 // A work item's keys out, after the block's last batch: the tile's planes
 // when the item is its tile's only one (alone), else an atomicMin of each
-// key it lowered into the frame's key plane, which starts all ones.  extra:
-// a G-buffer key's further planes.
+// key it lowered into the key plane, which starts all ones.  extra: a
+// G-buffer key's further planes.  The planes and the key plane hold the
+// height rows from global row row_base (a band's; 0 for a frame): the
+// tile's global pixel row r is their row r - row_base.
 template <class Mode>
 __device__ __forceinline__ void keyed_out(
     const KeyedSmem& s, bool alone, unsigned long long* __restrict__ plane,
     int row0, int col0, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
     float* __restrict__ depth, float* __restrict__ extra, int width,
-    int height) {
+    int height, int row_base = 0) {
+  const size_t frame = (size_t)width * height;
   if (alone) {
-    for (int p = threadIdx.x; p < TILE_PIX; p += THREADS)
-      Mode::store(s.key[p], row0 + p / TILE_W, col0 + p % TILE_W, ti, tf,
-                  color, depth, extra, width, (size_t)width * height);
+    for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
+      const int row = row0 + p / TILE_W, col = col0 + p % TILE_W;
+      Mode::store(s.key[p], row, col, ti, tf, color, depth, extra,
+                  (size_t)(row - row_base) * width + col, frame);
+    }
   } else {
     for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
       const unsigned long long k = s.key[p];
       if (k != Mode::CLEAR)
-        atomicMin(plane + (size_t)(row0 + p / TILE_W) * width + col0 +
-                      p % TILE_W,
+        atomicMin(plane + (size_t)(row0 - row_base + p / TILE_W) * width +
+                      col0 + p % TILE_W,
                   k);
     }
   }
 }
 
 // One tile of several items: the merged keys in the plane, resolved (a
-// pixel no item lowered holds all ones: the clear key).
+// pixel no item lowered holds all ones: the clear key).  row_base as
+// keyed_out's.
 template <class Mode>
 __device__ __forceinline__ void resolve_tile(
     const unsigned long long* __restrict__ plane, int row0, int col0,
     const int* __restrict__ ti, const float* __restrict__ tf,
     int* __restrict__ color, float* __restrict__ depth,
-    float* __restrict__ extra, int width, int height) {
+    float* __restrict__ extra, int width, int height, int row_base = 0) {
+  const size_t frame = (size_t)width * height;
   for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) {
     const int row = row0 + p / TILE_W, col = col0 + p % TILE_W;
-    Mode::store(min(plane[(size_t)row * width + col], Mode::CLEAR), row, col,
-                ti, tf, color, depth, extra, width, (size_t)width * height);
+    const size_t idx = (size_t)(row - row_base) * width + col;
+    Mode::store(min(plane[idx], Mode::CLEAR), row, col, ti, tf, color, depth,
+                extra, idx, frame);
   }
 }
 

@@ -126,6 +126,8 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_small.restype = i
     lib.zr_raster_hier.argtypes = [p, i, p, p, p, p, p, i, i, p]
     lib.zr_raster_hier.restype = i
+    lib.zr_raster_hier_keyed.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
+    lib.zr_raster_hier_keyed.restype = i
     lib.zr_raster_records.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p,
                                       i, i, p]
     lib.zr_raster_records.restype = i
@@ -158,8 +160,9 @@ def load_library() -> ctypes.CDLL:
     lib.zr_depth_records_keyed.restype = i
     lib.zr_depth_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_depth_lists.restype = i
-    lib.zr_raster_hier_band.argtypes = [p, i, p, p, p, p, p, i, i, i, p]
-    lib.zr_raster_hier_band.restype = i
+    lib.zr_raster_hier_band_keyed.argtypes = [p, i, p, p, p, i, p, p, p, i,
+                                              i, i, p]
+    lib.zr_raster_hier_band_keyed.restype = i
     lib.zr_raster_records_band.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
                                            i, i, i, p]
     lib.zr_raster_records_band.restype = i

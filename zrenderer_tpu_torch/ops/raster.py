@@ -12,9 +12,9 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   ``prepare_raster_inputs`` compacts live rows and builds the block and
   superblock union bboxes; the kernel walks the hierarchy in submission
   order with the strict-less depth test.  CUDA: ``csrc/raster_hier.cu``.
-* K5, the streamed hierarchy (``rasterize_setup_pallas_hbm``): the K3
-  kernel without the 32768-row cap (K3 already reads its rows from
-  device memory on the card).
+* K5, the streamed hierarchy (``rasterize_setup_pallas_hbm``): K3's
+  walk and test without the 32768-row cap, on the register body (every
+  kernel reads its rows from device memory on the card).
 * K4, the record-streaming binned raster
   (``rasterize_setup_pallas_binned_hbm``): ``prepare_binned_hbm_inputs``
   lists each small-footprint head row once per tile it touches, sorts the
@@ -24,8 +24,9 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   On the card K4 (and K4g, K4d) run the keyed body: per-pixel keys in
   shared memory, each record over its window (its vertices' pixel bbox in
   the tile), a tile's span cut into work items of ITEM_RECORDS
-  records; K3g and K3d run it over the hierarchy alone, a tile's blocks
-  cut into HIER_ITEMS work items.  K4c adds the coarse class: rows too big for the fine lists
+  records; K3, K3b, K3g and K3d run it over the hierarchy alone, a
+  tile's blocks cut into HIER_ITEMS work items; K5 and K5g keep the
+  register body.  K4c adds the coarse class: rows too big for the fine lists
   listed per 4x4-tile bin, tested against the tile's bbox.
 * K6, the global pair-list raster (``rasterize_setup_pallas_binned``):
   ``prepare_binned_inputs`` sorts the same pairs but keeps row ids; the
@@ -143,10 +144,10 @@ HBM_PAIR_BUDGET = 1 << 20
 # 256 ran K4 in 0.64 ms against 0.75 for 1024 and K4d in 0.40 against
 # 0.42 (PERF.md §6).
 ITEM_RECORDS = 256
-# K3g/K3d: the blocks of the hierarchy that meet a tile are cut into this
-# many work items, one CUDA block each (csrc/raster_hier.cu, the keyed
-# body; ``hier_work_items``).  One item a tile resolves in place (one
-# device operation a call); several merge through the frame's key plane
+# K3/K3b/K3g/K3d: the blocks of the hierarchy that meet a tile are cut
+# into this many work items, one CUDA block each (csrc/raster_hier.cu, the
+# keyed body; ``hier_work_items``).  One item a tile resolves in place (one
+# device operation a call); several merge through the output's key plane
 # (memset, items, resolve), except in tiles whose rows lie in at most one
 # block.  The wrappers read it at call time.  On the H100 at lattice20k,
 # 16 ran K3d on its 1024^2 map in 0.098 ms against 0.29 for 1, 0.15 for 4
@@ -711,11 +712,13 @@ def _scan_rows(planes, py, px, ti, tf, tie: bool, ty_base: int = 0):
         _eval_rows(planes, sel, py, px, ti[r], tf[r], r, None, tie)
 
 
-def _tile_hits(bounds, tiles_y: int, tiles_x: int):
+def _tile_hits(bounds, tiles_y: int, tiles_x: int, row0: int = 0):
     """(tiles, n) bool: bbox n of ``bounds`` (n, >= 4) [jmin, jmax, imin,
-    imax] meets tile t (the kernels' tile_overlap)."""
+    imax] meets tile t (the kernels' tile_overlap).  The tiles are those
+    of the tiles_y tile rows from global row ``row0`` (a band's)."""
     dev = bounds.device
-    r0 = (torch.arange(tiles_y, dtype=I32, device=dev) * TILE_H)[:, None]
+    r0 = (torch.arange(tiles_y, dtype=I32, device=dev) * TILE_H
+          + row0)[:, None]
     c0 = (torch.arange(tiles_x, dtype=I32, device=dev) * TILE_W)[:, None]
     jmin, jmax, imin, imax = (bounds[:, k] for k in range(4))
     cols = (jmax >= c0) & (jmin < c0 + TILE_W) & (jmin <= jmax)
@@ -984,7 +987,8 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
 
 
 # The keyed body's extent and work items (csrc/raster_keyed.cuh: K4, K4g,
-# K4d and K3g, K3d), for the bounds in chip_smoke.py and for the tests.
+# K4d and K3, K3b, K3g, K3d), for the bounds in chip_smoke.py and for the
+# tests.
 
 
 def vertex_bbox(ri):
@@ -1022,21 +1026,26 @@ def keyed_work_items(offsets, item_records: int, num_supers: int):
                         (idx + 1) * num_supers // count], dim=1)
 
 
-def hier_block_hits(supers, blocks, width: int, height: int):
-    """(tiles, B) bool: block b's bbox and its superblock's meet tile t
-    (the keyed hierarchy walk's hit blocks, csrc/raster_hier.cu
-    hier_hit_blocks)."""
+def hier_block_hits(supers, blocks, width: int, height: int,
+                    row0: int = 0):
+    """(tiles, B) bool: block b's bbox and its superblock's meet tile t of
+    the ``height`` rows from global row ``row0`` (a band's), at any number
+    of superblocks (the keyed hierarchy walk's hit blocks,
+    csrc/raster_hier.cu hier_group_hits, which tests them in groups of 8
+    superblocks)."""
     ty, tx = height // TILE_H, width // TILE_W
-    return (_tile_hits(blocks, ty, tx)
-            & _tile_hits(supers, ty, tx).repeat_interleave(SUPER_BLOCK, 1))
+    return (_tile_hits(blocks, ty, tx, row0)
+            & _tile_hits(supers, ty, tx, row0).repeat_interleave(SUPER_BLOCK,
+                                                                  1))
 
 
 def hier_work_items(block_hits, items: int):
-    """The keyed hierarchy walk's work items (K3g, K3d): (tiles, B) i64,
-    the item of each of a tile's hit blocks (``block_hits``), -1 elsewhere.
-    A tile's H hit blocks, in row order, are cut into ``items`` shares:
-    item i takes hit blocks [i * H // n, (i + 1) * H // n), so hit block k
-    falls to item ceil((k + 1) * n / H) - 1."""
+    """The keyed hierarchy walk's work items (K3, K3b, K3g, K3d): (tiles,
+    B) i64, the item of each of a tile's hit blocks (``block_hits``), -1
+    elsewhere.  A tile's H hit blocks, in row order over every superblock
+    group, are cut into ``items`` shares: item i takes hit blocks [i * H //
+    n, (i + 1) * H // n), so hit block k falls to item ceil((k + 1) * n /
+    H) - 1."""
     h = block_hits.to(torch.int64)
     rank = torch.cumsum(h, 1) - h
     total = h.sum(1, keepdim=True).clamp(min=1)
@@ -1221,17 +1230,18 @@ def _hier_args(supers, blocks, ti, tf, width: int, height: int,
 
 
 def raster_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
-    """Launch K3 (``csrc/raster_hier.cu``) on the current stream."""
-    args = _hier_args(supers, blocks, ti, tf, width, height,
-                      MAX_RESIDENT_ROWS)
-    out = _run(_build.load_library().zr_raster_hier, ti.device, width,
+    """Launch K3 (``csrc/raster_hier.cu``, the keyed body over the
+    hierarchy in HIER_ITEMS work items a tile) on the current stream."""
+    args, _plane = _keyed_hier_args(supers, blocks, ti, tf, width, height)
+    out = _run(_build.load_library().zr_raster_hier_keyed, ti.device, width,
                height, *args)
     raster_hier_kernel.launches += 1
     return out
 
 
 def raster_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
-    """Launch K5: the K3 kernel over any number of setup rows."""
+    """Launch K5 (``csrc/raster_hier.cu``, the register body) over any
+    number of setup rows."""
     args = _hier_args(supers, blocks, ti, tf, width, height, None)
     out = _run(_build.load_library().zr_raster_hier, ti.device, width,
                height, *args)
@@ -1239,16 +1249,15 @@ def raster_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
     return out
 
 
-def _keyed_hier_args(supers, blocks, ti, tf, width: int, height: int):
-    """Check K3g/K3d inputs; returns the launch arguments before the
-    outputs (the hierarchy's, the item count HIER_ITEMS, the key plane or
-    NULL with one item a tile) and the plane, which the call must hold
-    until it has launched."""
-    args = _hier_args(supers, blocks, ti, tf, width, height,
-                      MAX_RESIDENT_ROWS)
-    if supers.shape[0] * SUPER_BLOCK * RASTER_BLOCK > MAX_RESIDENT_ROWS:
-        raise ValueError(f"{supers.shape[0]} superblocks: the keyed "
-                         f"hierarchy takes at most {MAX_RESIDENT_ROWS} rows")
+def _keyed_hier_args(supers, blocks, ti, tf, width: int, height: int,
+                     max_rows: int | None = MAX_RESIDENT_ROWS):
+    """Check K3/K3b/K3g/K3d inputs (``height``: the output's rows, a
+    band's for K3b, whose ``max_rows`` is None); returns the launch
+    arguments before the outputs (the hierarchy's, the item count
+    HIER_ITEMS, the key plane of the output's size or NULL with one item a
+    tile) and the plane, which the call must hold until it has
+    launched."""
+    args = _hier_args(supers, blocks, ti, tf, width, height, max_rows)
     items = HIER_ITEMS
     if items < 1:
         raise ValueError(f"HIER_ITEMS must be positive, got {items}")
@@ -1500,15 +1509,14 @@ def _run_band(fn, dev, width: int, band_h: int, row0: int, *args,
 
 def raster_hier_band_kernel(supers, blocks, ti, tf, width: int, band_h: int,
                             row0: int):
-    """Launch K3b (``csrc/raster_hier.cu``): K3 over the ``band_h`` rows
-    from global row ``row0``, at any row count (like K5); returns the
-    band's (color, depth)."""
+    """Launch K3b (``csrc/raster_hier.cu``, K3's keyed body over the
+    ``band_h`` rows from global row ``row0``, a band-sized key plane) at
+    any row count (like K5); returns the band's (color, depth)."""
     _check_band(width, band_h, row0)
-    _require_cuda(ti.device, None, supers=supers, blocks=blocks, ti=ti,
-                  tf=tf)
-    out = _run_band(_build.load_library().zr_raster_hier_band, ti.device,
-                    width, band_h, row0, _ptr(supers), supers.shape[0],
-                    _ptr(blocks), _ptr(ti), _ptr(tf))
+    args, _plane = _keyed_hier_args(supers, blocks, ti, tf, width, band_h,
+                                    None)
+    out = _run_band(_build.load_library().zr_raster_hier_band_keyed,
+                    ti.device, width, band_h, row0, *args)
     raster_hier_band_kernel.launches += 1
     return out
 
