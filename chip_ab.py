@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the raster kernels K3, K3b, K3g, K3d, K4, K4g, K4d,
-K5 and K5g and the tiled light kernel K7, and of the frames whose pace
-they set, between this tree and another checkout (for example a parent
-commit unpacked with ``git archive``) on one CUDA card.
+"""Same-call A/B of the raster kernels K3, K3b, K3g, K3d, K4, K4c, K4g,
+K4d, K5, K5g and K9 and the tiled light kernel K7, and of the frames whose
+pace they set, between this tree and another checkout (for example a
+parent commit unpacked with ``git archive``) on one CUDA card.
 
     python3 chip_ab.py --other path/to/checkout
 
@@ -15,15 +15,19 @@ package.  A run times, with CUDA events after a warm-up: K3 on the flat
 on band 0 of its 2 bands at 1920x544 (the rows gathered from 2 shards),
 K3g on the lit 20K lattice's inputs and K3d on its 1024x1024 shadow map,
 K5 on the flat 40K lattice (the register body), K4 on the flat and K4g on
-the lit 1M lattice's inputs (``auto``), K4d on the 1M lattice's shadow
-map, K5g on the lit 1M lattice (``hierarchy``), K7 on the deferred test
-scene's 1080p G-buffer with BASELINE config 3's wide and r2 lights (f32
-planes), and ms/frame of ``render_animation`` on the flat, the lit and
-the shadowed 20K lattice, the lit and the shadowed 1M lattice and the
+the lit 1M lattice's inputs (``auto``), K9 on band 0 of the flat 1M
+lattice's 2 bands at 1920x544 (the rows gathered from 2 shards, the
+band-local prepare, as ``tiles.band_raster`` makes it), K4c on the 1M
+soup's ``tile_lists`` inputs (the coarse class), K4d on the 1M lattice's
+shadow map, K5g on the lit 1M lattice (``hierarchy``), K7 on the deferred
+test scene's 1080p G-buffer with BASELINE config 3's wide and r2 lights
+(f32 planes), and ms/frame of ``render_animation`` on the flat, the lit
+and the shadowed 20K lattice, the lit and the shadowed 1M lattice and the
 deferred test scene with the wide lights at 1080p, and of the flat 20K
-lattice in 2 bands rendered in turn (``tiles.bands_in_turn``, 1920x1088),
-and the device busy ms per frame of those two flat frames (one traced run
-each: ``chip_smoke.device_trace``, the union of the device operations'
+and 1M lattices in 2 bands rendered in turn (``tiles.bands_in_turn``,
+1920x1088), and the device busy ms per frame of the flat 20K frame and of
+those two banded frames (one traced run each:
+``chip_smoke.device_trace``, the union of the device operations'
 intervals).  Every run must give the same planes (their digests are
 compared).  Prints the card's name and power limit first, then one JSON
 line per run.
@@ -54,7 +58,8 @@ def measure() -> dict:
     from zrenderer_tpu_torch.ops import light_kernel, raster
     from zrenderer_tpu_torch.parallel import tiles
     from zrenderer_tpu_torch.scene.mesh import MeshData
-    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+    from zrenderer_tpu_torch.scene.procedural import (make_stress_scene,
+                                                      make_triangle_soup)
     from zrenderer_tpu_torch.scene.scene import Scene
 
     def event_ms(fn, reps):
@@ -104,8 +109,9 @@ def measure() -> dict:
     w, h = cs.PAD_W, cs.PAD_H
     h2, band_h = 1088, 544
     out = {"root": imported_root(), "k3": {}, "k3b": {}, "k3g": {},
-           "k3d": {}, "k4": {}, "k4d": {}, "k4g": {}, "k5": {}, "k5g": {},
-           "k7": {}, "frames": {}, "busy": {}, "digests": {}}
+           "k3d": {}, "k4": {}, "k4c": {}, "k4d": {}, "k4g": {}, "k5": {},
+           "k5g": {}, "k7": {}, "k9": {}, "frames": {}, "busy": {},
+           "digests": {}}
     lattice = make_stress_scene(20000)
     r = renderer(lattice)
     prep = raster.prepare_raster_inputs(*cs.frame_rows(r))
@@ -164,6 +170,33 @@ def measure() -> dict:
     k4 = raster.raster_binned_kernel
     out["k4"]["lattice1M"] = event_ms(lambda: k4(*prep, w, h), 10)
     out["digests"]["k4 lattice1M"] = digest(*k4(*prep, w, h))
+    args = indexed_args(r, h2)
+    _, ti, tf, s = tiles.setups_in_turn(2, *args, w, h2)
+    prep = raster.prepare_binned_hbm_inputs(
+        ti, tf, w, h2, n_head=2 * s, pair_budget=raster.band_pair_budget(2),
+        band_ty0=0, band_tiles_y=band_h // raster.TILE_H)
+    k9 = raster.raster_binned_band_kernel
+    out["k9"]["lattice1M band 0 of 2"] = event_ms(
+        lambda: k9(*prep, w, band_h, 0), 10)
+    out["digests"]["k9 lattice1M band 0 of 2"] = digest(
+        *k9(*prep, w, band_h, 0))
+    del prep, ti, tf
+    out["frames"]["lattice1M, 2 bands in turn"] = event_ms(
+        lambda: tiles.bands_in_turn(2, cs.WIDTH, h2, *args), 5)
+    out["busy"]["lattice1M, 2 bands in turn"] = busy_ms(
+        lambda: tiles.bands_in_turn(2, cs.WIDTH, h2, *args))
+    out["digests"]["lattice1M, 2 bands in turn"] = digest(
+        *(p for band in tiles.bands_in_turn(2, cs.WIDTH, h2, *args)
+          for p in band))
+    del args, r
+    r = renderer(make_triangle_soup(cs.LARGE_TRIS, seed=1,
+                                    extent=cs.SOUP_EXTENT),
+                 binning="tile_lists")
+    prep = raster.prepare_binned_hbm_inputs(
+        *cs.frame_rows(r), w, h, coarse_cap=raster.TILE_LISTS_COARSE_CAP)
+    k4c = raster.raster_binned_coarse_kernel
+    out["k4c"]["soup1M"] = event_ms(lambda: k4c(*prep, w, h), 3)
+    out["digests"]["k4c soup1M"] = digest(*k4c(*prep, w, h))
     del prep, r
     r = renderer(lattice, pipeline="lit")
     r.set_environment(texture=cs.checker_texture())
@@ -250,8 +283,8 @@ def main(argv=None) -> int:
     if any(r["digests"] != runs[0]["digests"] for r in runs):
         print("the trees' planes differ", file=sys.stderr)
         return 1
-    print("every run gave the same K3, K3b, K3g, K3d, K4, K4g, K4d, K5, "
-          "K5g, K7 and frame planes")
+    print("every run gave the same K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, "
+          "K5, K5g, K7, K9 and frame planes")
     return 0
 
 

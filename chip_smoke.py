@@ -31,12 +31,15 @@ lines and seconds:
     depth tie to the first-submitted row) and the soup under small
     cap/budgets so that the budget clamp and the coarse phase engage;
     the plain K5's time at 40K and K6's at 20K are their plain_ms; then
-    K4's keyed body (``keyed_cases``), every row bit-exact at the default
-    work-item size and at 16 records: a soup packed into one 128x32 tile
-    (a span of over 100 items), the duplicated soup (exact ties split
-    across items), a row at z == 1.0 (one pixel latched), -0.0 ties both
-    ways, a triangle over whole 1024x512 tiles, the clipped soup and an
-    empty scene;
+    K4's and K4c's keyed body (``keyed_cases``; K4c with cap 1, so that
+    every row over more than one tile is a coarse record), every row
+    bit-exact at the default work-item size and at 16 records: a soup
+    packed into one 128x32 tile (a span of over 100 items), the duplicated
+    soup (exact ties split across items), a row at z == 1.0 (one pixel
+    latched), -0.0 ties both ways, a triangle over whole 1024x512 tiles,
+    the clipped soup and an empty scene; K4c also a 6000-triangle soup in
+    one 512x128 coarse bin, every tile cut into several items at the
+    default size;
 4g. the G-buffer kernels K2g (small-scene lists), K3g (hierarchy), K4g
     (record streaming) and K5g (streamed hierarchy) against their plain
     versions, all 13 planes bitwise as int32 (so -0.0 and NaN count): K2g
@@ -95,8 +98,9 @@ lines and seconds:
     ``tile_lists`` (K6); with each frame's pair count, longest and mean
     span, peak memory and coverage.  K4 on the 1M lattice and K4c on the
     1M soup (coarse class non-empty) are held bit-exact against their
-    plain versions on those main-path inputs, which time plain_ms, and
-    K4's pixels in the padding rows 1080-1087 are counted;
+    plain versions on those main-path inputs, which time plain_ms (K4c
+    also at 16 records an item, equal to its default), and K4's pixels in
+    the padding rows 1080-1087 are counted;
 5l. the lit main path, ``Renderer(pipeline="lit")`` at 1080p, each run
     with every launch count set to 0 just before and read just after: the
     test scene with the 256x256 checker pattern (K2g, one launch a frame),
@@ -148,8 +152,9 @@ lines and seconds:
     40K lattice from 2 shards at 1920x1088 (two groups of the keyed walk),
     both bands at HIER_ITEMS and 64 items a tile against the plain K3b
     (unless the 20K time, scaled by the rows, predicts over 60 s) and laid
-    side by side against K5's frame; K9 with band-local and global spans
-    and K9g (13
+    side by side against K5's frame; K9 (here at the default work-item
+    size and at 16 records an item, the two equal) with band-local and
+    global spans and K9g (13
     planes, random normals and per-triangle materials) on the 40K lattice
     from 4 shards at 1920x1024, every band; K9g on the deferred test
     scene from 2 shards at 1920x1088, both bands (the main path's shape;
@@ -217,10 +222,12 @@ lines and seconds:
     each) and each entry point traced once (device ops, busy ms, idle
     share);
 6. timing, traces first: each kernel's device time from a torch.profiler
-   trace at its main-path shape (K4, K4g and K4d, and K3, K3b, K3g and
-   K3d with more than one work item a tile: the sum of a call's three
-   device operations, the memset, the item kernel and the resolve; K4 also on
-   soup1M through ``auto``), and a profiled ``render_animation`` run
+   trace at its main-path shape (K4, K4c, K4g, K4d and K9, and K3, K3b,
+   K3g and K3d with more than one work item a tile: the sum of a call's
+   three device operations, the memset, the item kernel and the resolve;
+   K4 also on soup1M through ``auto``; the keyed kernels bounded by their
+   window pixel evaluations and bytes, ``keyed_work``), and a profiled
+   ``render_animation`` run
    per path (test scene K1, 20K lattice K3, 1M lattice K4 and K5, 1M soup
    K4c, 20K lattice K6, the lit paths, and the shadowed test scene, 20K
    lattice (K3d; K6d and K6g) and 1M lattice, the deferred test scene with
@@ -1042,38 +1049,81 @@ def main(argv=None) -> int:
                             else in_tile(padded), n)
         return int(n.sum().item())
 
+    def coarse_pairs(coarse, w, h):
+        """K4c's (tile, coarse record) pairs: each record of a tile's bin
+        whose bbox meets the tile (raster_binned.cu record_hits).  Returns
+        the records' indices into crec_i/crec_f and their tiles."""
+        coffsets, crec_i, _ = coarse
+        tiles_x = w // raster.TILE_W
+        t = torch.arange(tiles_x * (h // raster.TILE_H), device=dev)
+        ctiles_x = -(-tiles_x // raster.COARSE_CB)
+        b = ((t // tiles_x // raster.COARSE_CB) * ctiles_x
+             + t % tiles_x // raster.COARSE_CB)
+        n = (coffsets[b + 1] - coffsets[b]).long()
+        tile = torch.repeat_interleave(t, n)
+        k = (coffsets[b].long()[tile]
+             + torch.arange(tile.numel(), device=dev)
+             - (torch.cumsum(n, 0) - n)[tile])
+        box = crec_i[:, [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]][k]
+        r0 = (tile // tiles_x) * raster.TILE_H
+        c0 = (tile % tiles_x) * raster.TILE_W
+        hit = ((box[:, 1] >= c0) & (box[:, 0] < c0 + raster.TILE_W)
+               & (box[:, 3] >= r0) & (box[:, 2] < r0 + raster.TILE_H))
+        return k[hit], tile[hit]
+
     def keyed_pairs(prep, w, h, row0=0):
         """The (tile, row) pairs the keyed body evaluates on a record
-        prepare (K4, K4g, K4d): every span record, then every leftover
-        (tile, row) pair of the walk; on a hierarchy prepare (K3, K3b,
-        K3g, K3d: supers, blocks, rows, tf) the walk's pairs alone, over
-        the tiles of the h rows from global row ``row0`` (K3b's band).
-        Returns their setup rows (P, NI32), z coefficients (P, 3), row ids,
-        global tile rows and tile columns (P,), the number of span records
-        and the leftover pairs' rows."""
+        prepare (K4, K4c, K4g, K4d; K9 over the h rows from global row
+        ``row0``, its spans band-local or the frame's): every span record
+        of the tiles, K4c's (tile, coarse record) pairs (``coarse_pairs``),
+        then every leftover (tile, row) pair of the walk; on a hierarchy
+        prepare (K3, K3b, K3g, K3d: supers, blocks, rows, tf) the walk's
+        pairs alone.  Returns their setup rows (P, NI32), z coefficients
+        (P, 3), row ids, global tile rows and tile columns (P,), the number
+        of records read (span and coarse, each once) and the leftover
+        pairs' rows."""
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
         za = slice(tg.F_ZA0, tg.F_ZA0 + 3)
+        ty0 = row0 // raster.TILE_H
         if len(prep) == 4:
             supers, blocks, hier, tf = prep
             rows, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w,
                                            row0 + h)
-            band = ty >= row0 // raster.TILE_H
+            band = ty >= ty0
             rows, ty, tx = rows[band], ty[band], tx[band]
             return hier[rows], tf[rows, za], rows, ty, tx, 0, rows
         offsets, rec_i, rec_f, supers, blocks, hier, tf = prep[:7]
+        tiles_x = w // raster.TILE_W
+        tiles = tiles_x * (h // raster.TILE_H)
+        if offsets.numel() != tiles + 1:  # K9's global spans: the band's
+            offsets = offsets[ty0 * tiles_x:(ty0 * tiles_x) + tiles + 1]
         # Records before offsets[0] sort below tile 0 (off-screen rows'
         # keys) and belong to no span.
         first, end = int(offsets[0].item()), int(offsets[-1].item())
         span = (offsets[1:] - offsets[:-1]).long()
         tile = torch.repeat_interleave(
             torch.arange(span.numel(), device=span.device), span)
-        tiles_x = w // raster.TILE_W
-        rows, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w, h)
-        return (torch.cat([rec_i[first:end, :tg.NI32], hier[rows]]),
-                torch.cat([rec_f[first:end, za], tf[rows, za]]),
-                torch.cat([rec_i[first:end, tg.NI32].long(), rows]),
-                torch.cat([tile // tiles_x, ty]),
-                torch.cat([tile % tiles_x, tx]), end - first, rows)
+        rows, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w,
+                                       row0 + h)
+        band = ty >= ty0
+        rows, ty, tx = rows[band], ty[band], tx[band]
+        ri = [rec_i[first:end, :tg.NI32]]
+        zs = [rec_f[first:end, za]]
+        ids = [rec_i[first:end, tg.NI32].long()]
+        tys, txs = [tile // tiles_x + ty0], [tile % tiles_x]
+        records = end - first
+        if len(prep) == 8 and prep[7] is not None:  # K4c: a frame
+            coffsets, crec_i, crec_f = prep[7]
+            k, ctile = coarse_pairs(prep[7], w, h)
+            ri.append(crec_i[k, :tg.NI32])
+            zs.append(crec_f[k, za])
+            ids.append(crec_i[k, tg.NI32].long())
+            tys.append(ctile // tiles_x)
+            txs.append(ctile % tiles_x)
+            records += int((coffsets[-1] - coffsets[0]).item())
+        return (torch.cat(ri + [hier[rows]]), torch.cat(zs + [tf[rows, za]]),
+                torch.cat(ids + [rows]), torch.cat(tys + [ty]),
+                torch.cat(txs + [tx]), records, rows)
 
     # Evaluations a chunk of k4_winners' scatter (a few hundred MB).
     WINNER_CHUNK = 1 << 22
@@ -1137,17 +1187,19 @@ def main(argv=None) -> int:
 
     def keyed_work(prep, w, h, visible, planes, depth=None,
                    winner_bytes=WINNER_BYTES, strict=False, row0=0):
-        """K4's or K4g's (given its ``depth`` plane) or K4d's work on a
-        record prepare, K3's, K3b's or K3g's (given its plane; ``strict``)
-        or K3d's on a hierarchy prepare: (window pixel evaluations, bytes
-        needed); K3b's over its band, the h rows from global row ``row0``
-        (``visible``: the frame's visible rows, global).  The evaluations:
-        each pair of ``keyed_pairs`` at its bbox's pixels in the tile, or
-        in the padding rows' tiles at the keyed body's extent
-        (raster.vertex_bbox).  The bytes: each span record's ints and 3 z
-        floats, each leftover row's NI32 ints and 3 z floats once, each
-        distinct winner's ``winner_bytes`` (K4, K4g, K3, K3b, K3g; K4d and
-        K3d read z from the key) and the ``planes`` output planes."""
+        """K4's, K4c's, K9's or K4g's (given its ``depth`` plane) or K4d's
+        work on a record prepare, K3's, K3b's or K3g's (given its plane;
+        ``strict``) or K3d's on a hierarchy prepare: (window pixel
+        evaluations, bytes needed); K3b's and K9's over the band, the h
+        rows from global row ``row0`` (``visible``: the frame's visible
+        rows, global).  The evaluations: each pair of ``keyed_pairs`` (K4c:
+        a coarse record in each tile of its bin that its bbox meets) at its
+        bbox's pixels in the tile, or in the padding rows' tiles at the
+        keyed body's extent (raster.vertex_bbox).  The bytes: each span
+        and coarse record's ints and 3 z floats, each leftover row's NI32
+        ints and 3 z floats once, each distinct winner's ``winner_bytes``
+        (K4, K4c, K9, K4g, K3, K3b, K3g; K4d and K3d read z from the key)
+        and the ``planes`` output planes."""
         pairs = keyed_pairs(prep, w, h, row0)
         ri, ty, tx = pairs[0].long(), pairs[3], pairs[4]
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
@@ -1158,7 +1210,8 @@ def main(argv=None) -> int:
         nbytes = (pairs[5] * (prep[1].shape[1] * 4 + 12)
                   + torch.unique(pairs[6]).numel() * (tg.NI32 * 4 + 12)
                   + winners * winner_bytes + planes * 4 * w * h)
-        print(f"  keyed work at {w}x{h}: {pairs[5]} span records, "
+        print(f"  keyed work at {w}x{h} from row {row0}: {pairs[5]} "
+              f"span and coarse records, "
               f"{pairs[6].numel()} leftover pairs of "
               f"{torch.unique(pairs[6]).numel()} rows, {winners} winning "
               f"rows; {evals} window pixel evaluations, {nbytes} bytes")
@@ -1250,12 +1303,14 @@ def main(argv=None) -> int:
                   + "); left out: "
                   + ", ".join(f"{k} {n}" for k, n in left_out.most_common()))
         smem = _build.load_library().zr_keyed_smem_bytes()
-        for key in ("k4", "k4g", "k4d"):
+        for key in ("k4", "k4_coarse", "k4g", "k4d", "k9"):
             results[key]["smem_bytes"] = smem
-        print(f"  K4/K4g/K4d keyed body: {smem} bytes of dynamic shared "
-              "memory a block (raster_records_kernel, "
-              "gbuffer_records_keyed_kernel, depth_records_kernel; the "
-              "resolve kernels none)")
+        print(f"  K4/K4c/K4g/K4d/K9 keyed body: {smem} bytes of dynamic "
+              "shared memory a block (raster_records_kernel, "
+              "raster_records_coarse_keyed_kernel, "
+              "gbuffer_records_keyed_kernel, depth_records_kernel, "
+              "raster_records_band_keyed_kernel; the resolve kernels "
+              "none)")
         smem = _build.load_library().zr_keyed_hier_smem_bytes()
         for key in ("k3", "k3b", "k3g", "k3d"):
             results[key]["smem_bytes"] = smem
@@ -1369,22 +1424,32 @@ def main(argv=None) -> int:
         return run
 
     def keyed_cases(key):
-        """The keyed body's own cases for K4 (``key`` "k4"), K4g ("k4g",
-        on lit rows, all 13 planes) or K4d ("k4d"), each bit-exact against
-        the plain version in every row, at the default item size and at
-        KEYED_SMALL_ITEMS records: one tile whose span is many items long,
-        exact ties split across items, a row at z == 1.0 (K4 and K4g latch
-        it, K4d does not), -0.0 ties (K4 and K4g keep the lower row id's
-        z, K4d the first visited row's sign), triangles that cover whole
-        tiles, and an empty scene."""
+        """The keyed body's own cases for K4 (``key`` "k4"), K4c
+        ("k4_coarse": cap 1, so that every row over more than one tile
+        falls to the coarse class), K4g ("k4g", on lit rows, all 13
+        planes) or K4d ("k4d"), each bit-exact against the plain version in
+        every row, at the default item size and at KEYED_SMALL_ITEMS
+        records: one tile whose span is many items long, exact ties split
+        across items, a row at z == 1.0 (K4, K4c and K4g latch it, K4d
+        does not), -0.0 ties (K4, K4c and K4g keep the lower row id's z,
+        K4d the first visited row's sign), triangles that cover whole
+        tiles, and an empty scene; K4c also a coarse bin busy enough to
+        cut each of its tiles into several items at the default size."""
         depth, lit = key == "k4d", key == "k4g"
-        kern = {"k4": k4, "k4g": k4g, "k4d": k4d}[key]
+        kern = {"k4": k4, "k4_coarse": k4c, "k4g": k4g, "k4d": k4d}[key]
         plain = {"k4": raster.raster_binned_plain,
+                 "k4_coarse": raster.raster_binned_plain,
                  "k4g": raster.gbuffer_binned_plain,
                  "k4d": raster.depth_binned_plain}[key]
-        cmp = {"k4": compare, "k4g": compare_gbuffer,
+        cmp = {"k4": compare, "k4_coarse": compare, "k4g": compare_gbuffer,
                "k4d": compare_depth}[key]
         rows_of = lit_rows if lit else setup_rows
+        prep_kw = (dict(cap=1, coarse_cap=raster.TILE_LISTS_COARSE_CAP)
+                   if key == "k4_coarse" else {})
+
+        def prepare(rows, w, h, **kw):
+            return raster.prepare_binned_hbm_inputs(*rows, w, h,
+                                                    **{**prep_kw, **kw})
 
         def planes(out):
             return [out] if depth else list(out)
@@ -1395,28 +1460,37 @@ def main(argv=None) -> int:
                        for x, y in zip(planes(a), planes(b)))
 
         def check(label, rows, w, h, **kw):
-            prep = raster.prepare_binned_hbm_inputs(*rows, w, h, **kw)
+            prep = prepare(rows, w, h, **kw)
             n, longest, _ = span_stats(prep[0])
-            items = raster.keyed_work_items(prep[0], KEYED_SMALL_ITEMS,
-                                            prep[3].shape[0])
-            print(f"  {label}: {n} records, longest span {longest}, "
-                  f"{items.shape[0]} items of {KEYED_SMALL_ITEMS} records "
-                  f"(most in a tile {int(items[:, 2].max().item())})")
+            cls = ()
+            extra = ""
+            if prep[7] is not None:
+                cls = (prep[7][0], w // raster.TILE_W)
+                extra = f", {span_stats(prep[7][0])[0]} coarse records"
+            items = [raster.keyed_work_items(prep[0], item,
+                                             prep[3].shape[0], *cls)
+                     for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS)]
+            print(f"  {label}: {n} records, longest span {longest}{extra}, "
+                  f"{items[1].shape[0]} items of {KEYED_SMALL_ITEMS} records "
+                  f"(most in a tile {int(items[1][:, 2].max().item())}; "
+                  f"{int(items[0][:, 2].max().item())} of "
+                  f"{raster.ITEM_RECORDS})")
             outs = [cmp(key, f"{label}, items of {item}",
                         with_items(kern, item), plain, prep, w, h)
                     for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS)]
-            return outs[-1], int(items[:, 2].max().item())
+            return (outs[-1], int(items[1][:, 2].max().item()),
+                    int(items[0][:, 2].min().item()))
 
         packed = rows_of(*make_triangle_soup(4000, seed=5, extent=2.0),
                          128, 32)
-        _, most = check("soup packed into one 128x32 tile", packed, 128, 32)
+        _, most, _ = check("soup packed into one 128x32 tile", packed, 128,
+                           32)
         if most < 100:
             raise AssertionError(f"packed soup: {most} items in the tile")
         w, h = 1024, 512
         got = check("duplicated triangles", rows_of(*tie_soup(True), w, h),
                     w, h)[0]
-        one = kern(*raster.prepare_binned_hbm_inputs(
-            *rows_of(*tie_soup(False), w, h), w, h), w, h)
+        one = kern(*prepare(rows_of(*tie_soup(False), w, h), w, h), w, h)
         if not same(got, one):
             raise AssertionError(f"{key}: a duplicate won a depth tie "
                                  "across items")
@@ -1450,13 +1524,24 @@ def main(argv=None) -> int:
                          device=dev)
         ti[:, tg.I_JMIN] = 1
         ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
-        prep = raster.prepare_binned_hbm_inputs(
-            ti, torch.zeros((ti.shape[0], tg.NF32), device=dev), w, h)
+        prep = prepare((ti, torch.zeros((ti.shape[0], tg.NF32),
+                                        device=dev)), w, h)
         for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS):
             if not same(with_items(kern, item)(*prep, w, h),
                         plain(*prep, w, h)):
                 raise AssertionError(f"{key}: empty scene differs")
         print(f"  empty scene: {key} equals its plain version (clear)")
+        if key == "k4_coarse":
+            # 6000 triangles of a 512x128 frame (4 x 4 tiles, one coarse
+            # bin): thousands of coarse records, so each tile's bin cuts
+            # into several items at the default size too.
+            _, _, fewest = check(
+                "busy coarse bin (6000 triangles, 512x128)",
+                rows_of(*make_triangle_soup(6000, seed=11, extent=3.0),
+                        512, 128), 512, 128)
+            if fewest < 2:
+                raise AssertionError(f"busy coarse bin: a tile of {fewest} "
+                                     "item(s) at the default size")
 
     # K3g's and K3d's keyed body: a tile's walk cut into this many work
     # items too, so that exact ties split across items.
@@ -1694,6 +1779,7 @@ def main(argv=None) -> int:
         print("  every exact depth tie went to the first-submitted row "
               "(K4, K4c, K5, K6)")
         keyed_cases("k4")
+        keyed_cases("k4_coarse")
 
     # -- 4g. K2g, K3g, K4g, K5g vs plain ----------------------------------
     @phase("4g K2g/K3g/K4g/K5g G-buffer kernels vs plain versions")
@@ -2365,9 +2451,19 @@ def main(argv=None) -> int:
         # version; its time is K4c's plain_ms.
         if int(prepc[7][0][-1].item()) == 0:
             raise AssertionError("soup1M: the coarse class is empty")
-        compare("k4_coarse", "soup1M", k4c, raster.raster_binned_plain,
-                prepc, PAD_W, PAD_H, plain_shape="soup1M")
-        del prepc
+        cc, dc = compare("k4_coarse", "soup1M", k4c,
+                         raster.raster_binned_plain, prepc, PAD_W, PAD_H,
+                         plain_shape="soup1M")
+        cs, ds = with_items(k4c, KEYED_SMALL_ITEMS)(*prepc, PAD_W, PAD_H)
+        sync()
+        same = (torch.equal(cs, cc)
+                and torch.equal(ds.view(torch.int32), dc.view(torch.int32)))
+        print(f"  soup1M K4c at {KEYED_SMALL_ITEMS} records an item: "
+              f"bit-exact {same}")
+        if not same:
+            raise AssertionError(f"soup1M: K4c at {KEYED_SMALL_ITEMS} "
+                                 "records an item differs")
+        del prepc, cc, dc, cs, ds
         _, fp, _, _, _ = drive("soup1M", soup_big, "auto", "k4")
         same = (np.array_equal(fc[0], fp[0])
                 and np.array_equal(fc[1].view(np.int32),
@@ -2891,7 +2987,7 @@ def main(argv=None) -> int:
     kernel_names = {"k1": "raster_small_kernel",
                     "k3": "raster_hier_keyed_kernel",
                     "k4": "raster_records_kernel",
-                    "k4_coarse": "raster_records_coarse_kernel",
+                    "k4_coarse": "raster_records_coarse_keyed_kernel",
                     "k5": "raster_hier_kernel", "k6": "raster_lists_kernel",
                     "k2g": "gbuffer_small_kernel",
                     "k3g": "gbuffer_hier_keyed_kernel",
@@ -2907,7 +3003,7 @@ def main(argv=None) -> int:
                     "k8": "overlay_raster_kernel<8>",
                     "k8b": "overlay_composite_kernel",
                     "k3b": "raster_hier_band_keyed_kernel",
-                    "k9": "raster_records_band_kernel",
+                    "k9": "raster_records_band_keyed_kernel",
                     "k9g": "gbuffer_records_band_kernel",
                     "k9d": "raster_records_dist_kernel",
                     "k10g8": "raster_group8_kernel",
@@ -2919,11 +3015,14 @@ def main(argv=None) -> int:
                     "k10trans": "raster_trans_kernel",
                     "k10hbm2": "raster_hbm2_kernel",
                     "k10scan": "raster_scan_kernel"}
-    # K4, K4g and K4d issue three device operations a call: the key
-    # plane's memset, the item kernel (kernel_names) and the resolve kernel.
+    # K4, K4c, K4g, K4d and K9 make three device operations a call: the
+    # key plane's memset, the item kernel (kernel_names) and the resolve
+    # kernel.
     resolve_names = {"k4": "raster_records_resolve_kernel",
+                     "k4_coarse": "raster_records_coarse_resolve_kernel",
                      "k4g": "gbuffer_records_resolve_kernel",
-                     "k4d": "depth_records_resolve_kernel"}
+                     "k4d": "depth_records_resolve_kernel",
+                     "k9": "raster_records_band_resolve_kernel"}
     # K3, K3b, K3g and K3d, with more than one work item a tile
     # (raster.HIER_ITEMS), issue the same three; with one, the item kernel
     # alone.
@@ -3275,6 +3374,32 @@ def main(argv=None) -> int:
         """``fn(*prepared, w, band_h)`` -> ``fn(..., row0, *extra)``."""
         return lambda *a: fn(*a, row0, *extra)
 
+    def compare_k9(label, prep, row0, band_h, local, plain_shape=None):
+        """K9 against its plain version at ITEM_RECORDS records an item,
+        then at KEYED_SMALL_ITEMS, whose planes must equal the first's
+        bit for bit."""
+        ck, dk = compare("k9", f"{label} (K9, band_local={local})",
+                         band_fn(k9, row0, local),
+                         band_fn(raster.raster_binned_band_plain, row0,
+                                 local), prep, PAD_W, band_h,
+                         plain_shape=plain_shape)
+        cs, ds = with_items(k9, KEYED_SMALL_ITEMS)(*prep, PAD_W, band_h,
+                                                   row0, local)
+        sync()
+        same = (torch.equal(cs, ck) and torch.equal(ds.view(torch.int32),
+                                                    dk.view(torch.int32)))
+        tiles_x = PAD_W // raster.TILE_W
+        base = 0 if local else row0 // raster.TILE_H * tiles_x
+        items = raster.keyed_work_items(
+            prep[0][base:base + band_h // raster.TILE_H * tiles_x + 1],
+            KEYED_SMALL_ITEMS, prep[3].shape[0])
+        print(f"    items of {KEYED_SMALL_ITEMS} (at most "
+              f"{int(items[:, 2].max().item())} a tile): bit-exact {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{label}: K9 at {KEYED_SMALL_ITEMS} "
+                                 "records an item differs")
+
     @phase("4s K3b/K9/K9g/K9d band kernels vs plain versions")
     def band_cases():
         cases = {}
@@ -3318,10 +3443,7 @@ def main(argv=None) -> int:
                 n, longest, mean = span_stats(prep[0])
                 print(f"  (c) {label}, {'band-local' if local else 'global'}"
                       f" spans: {n} records (longest span {longest})")
-                compare("k9", f"(c) {label} (K9, band_local={local})",
-                        band_fn(k9, row0, local),
-                        band_fn(raster.raster_binned_band_plain, row0, local),
-                        prep, PAD_W, 256)
+                compare_k9(f"(c) {label}", prep, row0, 256, local)
             prep = raster.prepare_binned_hbm_inputs(
                 ti, tf, PAD_W, H4, n_head=4 * s,
                 pair_budget=raster.band_pair_budget(4), band_ty0=row0 // 32,
@@ -3428,11 +3550,8 @@ def main(argv=None) -> int:
                 prep = raster.prepare_binned_hbm_inputs(
                     ti, tf, PAD_W, H2, n_head=2 * s,
                     pair_budget=raster.band_pair_budget(2), **band_kw)
-                compare("k9", f"(f) {label} (K9, band_local={local})",
-                        band_fn(k9, b * 544, local),
-                        band_fn(raster.raster_binned_band_plain, b * 544,
-                                local), prep, PAD_W, 544,
-                        plain_shape=label if b == 0 and local else None)
+                compare_k9(f"(f) {label}", prep, b * 544, 544, local,
+                           plain_shape=label if b == 0 and local else None)
         prep = raster.prepare_binned_dist_owner(
             ti, tf, *dist_received(locals_, H2, 2, s)[0])
         compare("k9d", "(f) lattice40k band 0 of 2 (K9d)", band_fn(k9d, 0),
@@ -4463,11 +4582,11 @@ def main(argv=None) -> int:
             else:
                 inputs = flat_inputs(prep_k)
             evals = nbytes = None
-            if key == "k3b":  # the keyed body over the band
+            if key in ("k3b", "k9"):  # the keyed body over the band
                 evals, nbytes = keyed_work(
                     prep_k, PAD_W, bh, HEIGHT, 2,
                     kern(*prep_k, PAD_W, bh, r0)[1], WINNER_BYTES,
-                    strict=True, row0=r0)
+                    strict=key == "k3b", row0=r0)
             set_bound(key, inputs, pairs, PAD_W, bh, shape,
                       planes=raster.GBUFFER_PLANES if key == "k9g" else 2,
                       evals=evals, nbytes=nbytes)

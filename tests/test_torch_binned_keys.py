@@ -19,7 +19,14 @@ package's NumPy geometry:
   uv, normals and per-triangle materials): the padded soup, the duplicated
   soup at 16-record items (ties split across items), a row at z == 1.0 and
   -0.0 ties both ways;
-* (d) the work-item table covers each span and the leftover superblocks once.
+* (d) the work-item table covers each span and the leftover superblocks once;
+* (e) K4c (K4's keys over each tile's span, then its coarse bin's records,
+  one list cut into items; a coarse record whose bbox misses the tile
+  skipped): every pixel a coarse record draws lies in its window, the
+  items merged equal ``raster_binned_plain`` with the coarse class (and
+  K4's frame in the geometry's rows) on soups whose rows fall to the
+  coarse class, and the item table covers each span, each tile's bin and
+  the leftover superblocks once.
 
 The CUDA kernels are held against the plain versions on the card by
 chip_smoke.py (phases 4b, 4g, 4d, 5b, 5l and 5s).
@@ -114,6 +121,16 @@ def record_windows(ri, row0, col0):
             torch.minimum(jmax, col0 + tr.TILE_W - 1))
 
 
+def record_hits(ri, row0, col0):
+    """K4c's test of coarse records ``ri`` against the tile at (row0,
+    col0): the reference's four-sided bbox test (csrc/raster_binned.cu
+    record_hits, the plain version's ``masked`` spans)."""
+    return ((ri[..., tg.I_JMAX] >= col0)
+            & (ri[..., tg.I_JMIN] < col0 + tr.TILE_W)
+            & (ri[..., tg.I_IMAX] >= row0)
+            & (ri[..., tg.I_IMIN] < row0 + tr.TILE_H))
+
+
 def _window_pixels(ri, row0, col0):
     """Every pixel of each row's window: (pair, global row, global col),
     pairs indexing ``ri``'s rows."""
@@ -148,23 +165,36 @@ def _cover_z(ri, rf, row, col):
 
 def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
                        width: int, height: int, depth: bool,
-                       item_records: int, gbuffer: bool = False):
-    """K4 (or with ``depth`` K4d, with ``gbuffer`` K4g) as the keyed body
-    computes it: each work item's keys over its records' and leftover
-    rows' windows (a scatter min), the items' keys merged by their
-    minimum, then the resolve from the winner (K4g: K4's keys, the 13
-    planes under the buf * (covered ? 1/den : 0) epilogue)."""
+                       item_records: int, gbuffer: bool = False,
+                       coarse=None, row0: int = 0, band_local: bool = True):
+    """K4 (or with ``depth`` K4d, with ``gbuffer`` K4g, with ``coarse`` K4c,
+    with ``row0`` K9) as the keyed body computes it: each work item's keys
+    over its records' and leftover rows' windows (a scatter min), the
+    items' keys merged by their minimum, then the resolve from the winner
+    (K4g: K4's keys, the 13 planes under the buf * (covered ? 1/den : 0)
+    epilogue).  ``coarse`` = (coffsets, crec_i, crec_f): each tile's items
+    also walk its bin's records, a record whose bbox misses the tile
+    skipped (record_hits).  ``row0``: the ``height`` rows from global row
+    ``row0`` (a band's; tiles, windows and edge functions global, the
+    planes band-local), the spans indexed by band tile (``band_local``) or
+    by frame tile."""
     del blocks  # a row that meets a tile is in its block's union
     th, tw = tr.TILE_H, tr.TILE_W
     tiles_x = width // tw
     num_tiles = tiles_x * (height // th)
-    items = tr.keyed_work_items(offsets, item_records, supers.shape[0])
+    if not band_local:  # the band's tiles of the frame's spans
+        base = (row0 // th) * tiles_x
+        offsets = offsets[base:base + num_tiles + 1]
+    coffsets = None if coarse is None else coarse[0]
+    items = tr.keyed_work_items(offsets, item_records, supers.shape[0],
+                                coffsets, tiles_x)
     per_super = tg.RASTER_BLOCK * tg.SUPER_BLOCK
-    box = hier[:, [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]]
-    hits = tr._tile_hits(box, height // th, tiles_x)  # (tiles, rows)
+    box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
+    hits = tr._tile_hits(hier[:, box], height // th, tiles_x,
+                         row0)  # (tiles, rows)
     src_i, src_f, tags, owner = [], [], [], []
     span_end = offsets[1:].long()
-    for it, (t, _, _, k0, k1, s0, s1) in enumerate(items.tolist()):
+    for it, (t, _, _, k0, k1, s0, s1, c0, c1) in enumerate(items.tolist()):
         k = torch.arange(k0, k1)
         rows = torch.nonzero(hits[t]).flatten()
         rows = rows[(rows >= s0 * per_super) & (rows < s1 * per_super)]
@@ -174,18 +204,28 @@ def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
             tags += [k, span_end[t] + rows]
         else:
             tags += [rec_i[k, tg.NI32].long(), rows]
-        owner.append(torch.full((k.numel() + rows.numel(),), it))
+        n = k.numel() + rows.numel()
+        if coarse is not None:
+            kc = torch.arange(c0, c1)
+            kc = kc[record_hits(coarse[1][kc], row0 + (t // tiles_x) * th,
+                                (t % tiles_x) * tw)]
+            src_i.append(coarse[1][kc, :tg.NI32])
+            src_f.append(coarse[2][kc])
+            tags.append(coarse[1][kc, tg.NI32].long())
+            n += kc.numel()
+        owner.append(torch.full((n,), it))
     ri, rf = torch.cat(src_i), torch.cat(src_f)
     tag, owner = torch.cat(tags), torch.cat(owner)
     tile = items[owner, 0]
-    row0, col0 = (tile // tiles_x) * th, (tile % tiles_x) * tw
-    pair, row, col = _window_pixels(ri.long(), row0, col0)
+    t_row0 = row0 + (tile // tiles_x) * th
+    col0 = (tile % tiles_x) * tw
+    pair, row, col = _window_pixels(ri.long(), t_row0, col0)
     cov, _, z = _cover_z(ri[pair], rf[pair], row, col)
     ok = cov & (z >= 0.0)
     key = (depth_keys if depth else flat_keys)(z[ok], tag[pair][ok])
     clear = DEPTH_CLEAR_KEY if depth else FLAT_CLEAR_KEY
     slot = (owner[pair][ok] * (th * tw)
-            + (row[ok] - row0[pair][ok]) * tw + col[ok] - col0[pair][ok])
+            + (row[ok] - t_row0[pair][ok]) * tw + col[ok] - col0[pair][ok])
     planes = torch.full((items.shape[0] * th * tw,), clear,
                         dtype=torch.int64)
     planes.scatter_reduce_(0, slot, key, "amin")
@@ -199,7 +239,7 @@ def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
     won = keys != FLAT_CLEAR_KEY
     ids = (keys & 0xFFFFFFFF)[won]
     row, col = torch.nonzero(won, as_tuple=True)
-    _, interp, zw = _cover_z(hier[ids], tf[ids], row, col)
+    _, interp, zw = _cover_z(hier[ids], tf[ids], row + row0, col)
     latches = tr._LATCHES + (tr._GBUF_LATCHES if gbuffer else ())
     consts = tr._CONSTS if gbuffer else ()
     out = {name: torch.zeros((height, width), dtype=torch.float32)
@@ -318,11 +358,10 @@ def _visited_pairs(prep, w, h):
     return torch.cat([spans, hier[lr]]).long(), torch.cat([tiles, lt])
 
 
-@pytest.mark.parametrize("name", list(INPUTS))
-def test_windows_hold_every_covered_pixel(name):
-    (ti, tf), (w, h) = INPUTS[name]()
-    prep = tr.prepare_binned_hbm_inputs(ti, tf, w, h)
-    ri, tile = _visited_pairs(prep, w, h)
+def _covered_outside(ri, tile, w):
+    """(pixels covered, covered pixels outside the window) of setup rows
+    ``ri`` (P, NI32) over the whole of their tiles ``tile`` (P,) of a
+    ``w``-wide frame, under the kernels' int32 edge functions."""
     tiles_x = w // tr.TILE_W
     row0 = (tile // tiles_x) * tr.TILE_H
     col0 = (tile % tiles_x) * tr.TILE_W
@@ -352,6 +391,15 @@ def test_windows_hold_every_covered_pixel(name):
                   & (cols <= c_hi[sl, None, None]))
         covered += int(cov.sum())
         outside += int((cov & ~inside).sum())
+    return covered, outside
+
+
+@pytest.mark.parametrize("name", list(INPUTS))
+def test_windows_hold_every_covered_pixel(name):
+    (ti, tf), (w, h) = INPUTS[name]()
+    prep = tr.prepare_binned_hbm_inputs(ti, tf, w, h)
+    ri, tile = _visited_pairs(prep, w, h)
+    covered, outside = _covered_outside(ri, tile, w)
     assert covered > 0
     assert outside == 0
     if name in ("padding_soup", "edge_map"):
@@ -525,3 +573,146 @@ def test_gbuffer_items_merged_equal_the_plain_version(name):
     else:
         neg = int((torch.signbit(depth) & (depth == 0.0)).sum())
         assert (neg > 0) == (shows == "neg_zero")
+
+
+# K4c: K4's keyed body with the coarse class.  A tile's items cut its span
+# and then its coarse bin's records as one list; a coarse record whose bbox
+# misses the tile adds nothing (record_hits), and one that meets it draws
+# over its window.
+
+
+def _wide_soup():
+    """A wide soup at 640x256: 5 x 8 tiles, so 2 x 2 coarse bins with a
+    partial column and the bins' tile index in play."""
+    return _rows(*make_jax_soup(600, seed=3, extent=6.0), 640, 256), (640,
+                                                                       256)
+
+
+def _coarse_pairs(coarse, w, h):
+    """Every (tile, coarse record) K4c evaluates: each record of a tile's
+    bin whose bbox meets the tile.  Returns (the records' setup rows (P,
+    NI32), tile (P,))."""
+    coffsets, crec_i, _ = coarse
+    tiles_x = w // tr.TILE_W
+    t = torch.arange(tiles_x * (h // tr.TILE_H))
+    ctiles_x = -(-tiles_x // tr.COARSE_CB)
+    b = ((t // tiles_x // tr.COARSE_CB) * ctiles_x
+         + t % tiles_x // tr.COARSE_CB)
+    n = (coffsets[b + 1] - coffsets[b]).long()
+    tile = torch.repeat_interleave(t, n)
+    k = (coffsets[b].long()[tile] + torch.arange(tile.numel())
+         - (torch.cumsum(n, 0) - n)[tile])
+    ri = crec_i[k]
+    keep = record_hits(ri, (tile // tiles_x) * tr.TILE_H,
+                       (tile % tiles_x) * tr.TILE_W)
+    return ri[keep, :g.NI32].long(), tile[keep]
+
+
+# name: (rows, prepare arguments beside coarse_cap, item size)
+COARSE_CASES = {
+    "padding_soup_cap1_item16": (_padding_soup, dict(cap=1), 16),
+    "duplicated_soup_cap1_item16": (_duplicated_soup, dict(cap=1), 16),
+    "duplicated_soup_cap1_item3": (_duplicated_soup, dict(cap=1), 3),
+    "wide_soup_cap2_item16": (_wide_soup, dict(cap=2), 16),
+    "padding_soup_budgets_item5": (_padding_soup,
+                                   dict(cap=2, pair_budget=40,
+                                        coarse_budget=30), 5),
+}
+
+
+def _coarse_prep(name):
+    build, kw, item = COARSE_CASES[name]
+    (ti, tf), (w, h) = build()
+    prep = tr.prepare_binned_hbm_inputs(
+        ti, tf, w, h, coarse_cap=tr.TILE_LISTS_COARSE_CAP, **kw)
+    return prep, (ti, tf), (w, h), item
+
+
+@pytest.mark.parametrize("name", list(COARSE_CASES))
+def test_coarse_windows_hold_every_drawn_pixel(name):
+    prep, _, (w, h), _ = _coarse_prep(name)
+    ri, tile = _coarse_pairs(prep[7], w, h)
+    covered, outside = _covered_outside(ri, tile, w)
+    assert covered > 0
+    assert outside == 0
+
+
+@pytest.mark.parametrize("name", list(COARSE_CASES))
+def test_coarse_items_merged_equal_the_plain_version(name):
+    prep, (ti, tf), (w, h), item = _coarse_prep(name)
+    coarse = prep[7]
+    assert int(coarse[0][-1] - coarse[0][0]) > 0  # a coarse class
+    color, depth = tr.raster_binned_plain(*prep, w, h)
+    kc, kd = keyed_binned_plain(*prep[:7], w, h, False, item, coarse=coarse)
+    np.testing.assert_array_equal(kc.numpy(), color.numpy())
+    _bits(kd.numpy(), depth.numpy())
+    # The (z, row id) minimum is order-free: K4's frame in the geometry's
+    # rows.  (Below them, in the padding soup's rows 80-95, a row draws as
+    # its class lets it: listed, by its window; coarse, where its clamped
+    # bbox meets the tile; leftover, not at all.)
+    c4, d4 = tr.raster_binned_plain(
+        *tr.prepare_binned_hbm_inputs(ti, tf, w, h), w, h)
+    geo_h = 80 if name.startswith("padding") else h
+    np.testing.assert_array_equal(kc[:geo_h].numpy(), c4[:geo_h].numpy())
+    _bits(kd[:geo_h].numpy(), d4[:geo_h].numpy())
+    assert (depth < 1.0).float().mean() > 0.02
+    items = tr.keyed_work_items(prep[0], item, prep[3].shape[0], coarse[0],
+                                w // tr.TILE_W)
+    in_coarse = items[:, 8] > items[:, 7]
+    # Some tile's coarse records span several items.
+    split = items[in_coarse, 0].bincount(minlength=1)
+    assert int(split.max()) > 1
+    if name.startswith("duplicated"):
+        # Duplicates share a bin: exact ties across the coarse items.
+        assert int(in_coarse.sum()) > 1
+    if "budgets" in name:
+        assert int((prep[5][:, g.I_VALID] > 0).sum()) > 0  # leftover rows
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_coarse_work_items_cover_each_list_once(seed):
+    rng = np.random.default_rng(10 + seed)
+    tiles_x, tiles_y = (int(x) for x in rng.integers(1, 10, 2))
+    tiles = tiles_x * tiles_y
+    ctiles_x = -(-tiles_x // tr.COARSE_CB)
+    bins = ctiles_x * -(-tiles_y // tr.COARSE_CB)
+    spans = rng.integers(0, 30, tiles)
+    spans[rng.random(tiles) < 0.3] = 0
+    cspans = rng.integers(0, 60, bins)
+    cspans[rng.random(bins) < 0.3] = 0
+    offsets = torch.from_numpy((int(rng.integers(0, 5)) + np.concatenate(
+        [[0], np.cumsum(spans)])).astype(np.int32))
+    coffsets = torch.from_numpy((int(rng.integers(0, 5)) + np.concatenate(
+        [[0], np.cumsum(cspans)])).astype(np.int32))
+    item = int(rng.integers(1, 20))
+    supers = int(rng.integers(0, 9))
+    items = tr.keyed_work_items(offsets, item, supers, coffsets, tiles_x)
+    assert items.shape[0] <= tr.keyed_items(
+        tr.TILE_W * tiles_x, tr.TILE_H * tiles_y, int(offsets[-1]), item,
+        int(coffsets[-1]))
+    for t in range(tiles):
+        b = (t // tiles_x // tr.COARSE_CB) * ctiles_x + (
+            t % tiles_x // tr.COARSE_CB)
+        mine = items[items[:, 0] == t]
+        n = int(spans[t]) + int(cspans[b])
+        assert mine.shape[0] == max(1, -(-n // item))
+        assert (mine[:, 1] == torch.arange(mine.shape[0])).all()
+        assert (mine[:, 2] == mine.shape[0]).all()
+        # The span, then the bin's records, consecutive pieces of at most
+        # `item` records together, every piece but the last full.
+        sizes = (mine[:, 4] - mine[:, 3]) + (mine[:, 8] - mine[:, 7])
+        assert int(sizes.sum()) == n
+        assert (sizes[:-1] == item).all() and (sizes <= item).all()
+        assert int(mine[0, 3]) == int(offsets[t])
+        assert int(mine[-1, 4]) == int(offsets[t + 1])
+        assert (mine[1:, 3] == mine[:-1, 4]).all()
+        assert int(mine[0, 7]) == int(coffsets[b])
+        assert int(mine[-1, 8]) == int(coffsets[b + 1])
+        assert (mine[1:, 7] == mine[:-1, 8]).all()
+        # An item reads the bin only after the span's end.
+        starts_bin = mine[:, 8] > mine[:, 7]
+        assert (mine[starts_bin, 4] == int(offsets[t + 1])).all()
+        # Superblocks: consecutive ranges covering [0, supers).
+        assert int(mine[0, 5]) == 0 and int(mine[-1, 6]) == supers
+        assert (mine[1:, 5] == mine[:-1, 6]).all()
+    assert (items[1:, 0] >= items[:-1, 0]).all()

@@ -1,114 +1,100 @@
-// K4, K4c and K6: binned flat raster over pair-sorted tile spans; K4g and
-// K6g: the G-buffer variants of K4 and K6; K4d and K6d: their depth-only
-// variants.
+// The record and pair-list rasters: K4, K4c and K6 (flat), K4g and K6g
+// (G-buffer), K4d and K6d (depth only), and the band kernels K9, K9g and
+// K9d of the sharded frames.
 //
 // Replaces, in zrenderer_tpu/ops/raster_pallas.py:
 //   K4   rasterize_setup_pallas_binned_hbm (_binned_hbm_kernel, body
 //        _binned_hbm_body): spans of setup records gathered in pair order;
-//   K4c  the same with coarse_cap (_binned_hbm_coarse_kernel): plus the
-//        coarse list class;
+//   K4c  the same with coarse_cap (_binned_hbm_coarse_kernel :2239): plus
+//        the coarse list class;
 //   K6   rasterize_setup_pallas_binned (_binned_kernel over global pair
-//        lists, body _binned_body): spans of row ids into the setup rows.
-// The Pallas functions differ in TPU memory placement (records streamed
-// from HBM in aligned slabs, or row ids into VMEM-resident rows); here all
-// read global memory, so one register body (binned_scan) serves K4c, K6
-// and their variants, templated on the span source (records or row ids)
-// and on the coarse phase; K4, K4g and K4d run the keyed body (below).
-// Inputs are the outputs of prepare_binned_hbm_inputs /
-// prepare_binned_inputs (zrenderer_tpu_torch/ops/raster.py).
-//
-// What the register body computes, per 32x128 tile (one CUDA block, tile
-// state in registers, raster_common.cuh), and the keyed body too:
-//   phase 1:   every entry of [offsets[t], offsets[t+1]); each is a
-//              guaranteed bbox hit, so there is no bbox test.  Records are
-//              (NI32 + 1) ints (the row id last) + NF32 floats;
-//   phase 1.5: (K4c) every record of the tile's coarse bin
-//              (ty / COARSE_CB) * ctiles_x + tx / COARSE_CB, skipped when
-//              its bbox misses the tile (a block-uniform test);
-//   phase 2:   the leftover rows through superblock -> block -> row bbox
-//              skips;
-//   every phase tests z >= 0 && (z < zb || (z == zb && id < tb)), the
-//   order-free (z, row id) tie-break that equals sequential strict-less in
-//   submission order; then one divide per pixel into RGBA8 + f32 depth.
-//
-// What bounds that body on the H100 is pixel work no pixel needs: each
-// record of a span is evaluated at all 4096 pixels of its tile (3 edge
-// functions, 3 bias tests, a z interpolation each), while a record's bbox
-// in the tile, the pixels it can draw, is about 1/40 of that at 1M
-// triangles; all 256 threads read each record through broadcast loads; K4's
-// six values a pixel take 183 registers, one block an SM; and one block
-// walks a tile's whole span, whose lengths differ by orders of magnitude
-// (K4d's 1024^2 map has 256 tiles for 132 SMs).
-//
-// K4, K4g and K4d run the keyed body of raster_keyed.cuh instead
-// (keyed_records below), with the same planes bit for bit: one 64-bit key
-// a pixel in shared memory lowered by atomicMin (K4 and K4g FlatKeys and
-// GbufKeys, (order bits of z, row id), whose minimum is the (z, row id)
-// tie-break; K4d DepthKeys, (order bits of z, visit index, sign of z), a
-// span record's visit index its record index, a leftover row's the span's
-// end plus its row id), each record evaluated over its window (its
-// vertices' pixel bbox in the tile), the leftover rows compacted into the
-// same batches by the hierarchy walk.  Here:
-// * Records staged in shared memory with cp.async, double-buffered.  K4c
-//   and K9 can move onto the body as instantiations (a coarse producer, a
-//   band's row base).
-// * A tile's span is cut into work items of at most item_records records,
-//   one block each, which share the tile's leftover superblocks too.  A
-//   tile of one item resolves its keys in place; otherwise the items merge
-//   through the frame's key plane and a second kernel resolves it.  Three
-//   device operations a call (memset, items, resolve).
-// The resolve re-evaluates the winner from hier/tf: K4 its z (-0.0 kept)
-// and colour, K4g the same and its 11 further planes; K4d decodes z from
-// the key.  The records are read once.
-//
-// K4g replaces rasterize_gbuffer_pallas_binned_hbm
-// (_binned_hbm_gbuffer_kernel, body _binned_hbm_body with the G-buffer
-// scratch, no coarse phase): K4's key (GbufKeys, K4's FlatKeys with the
-// planes) and its work items, then the 13 planes resolved from the winner
-// (epilogue buf * (covered ? 1/den : 0)).  A record's id (its last int,
-// the reference's L_PID) and a leftover row's id both index the padded,
-// uncompacted setup rows that hier/tf hold (prepare_binned_hbm_inputs
-// gathers the records from them), so the resolve reads the winner from
-// hier/tf whichever phase it came from; hier differs from the records only
-// in bbox and valid columns, which the resolve does not read.  Bound on the
-// H100: as K4's, plus 11 more output planes (92 MB at 1920x1088) and the
-// winners' uv, normal and constant coefficients.
-//
-// K6g replaces rasterize_gbuffer_pallas_binned (_binned_gbuffer_kernel over
-// global pair lists, epilogue buf * where(covered, inv, 0) at :1452-1455):
-// K6's phases keeping z and the winning row id, the 13 planes resolved
-// from the winner in hier/tf (the rows pair_tri indexes), as K4g.
-//
-// K4d and K6d replace rasterize_depth_pallas_binned_hbm
-// (_binned_hbm_depth_kernel, body :1887 with depth_only, :1939-1944,
-// :2142-2144) and rasterize_depth_pallas_binned (_binned_depth_kernel over
-// global pair lists), the shadow-map pass under record streaming and tile
-// lists: the same phases, no coarse class, z alone under the strict-less
-// test (raster_common.cuh TileState::DEPTH), one f32 plane out.  Without a
-// row id an exact tie keeps the first row visited (span, then leftovers),
-// so their planes equal K3d's by value; only the sign of a zero z may
-// differ.  Bound on the H100: the per-pixel edge work over the shadow
-// map's (tile, triangle) pairs.
-
-// K9, K9g and K9d, the band kernels of the sharded frames, replace
+//        lists, body _binned_body): spans of row ids into the setup rows;
+//   K4g  rasterize_gbuffer_pallas_binned_hbm (_binned_hbm_gbuffer_kernel,
+//        body _binned_hbm_body with the G-buffer scratch, no coarse phase);
+//   K6g  rasterize_gbuffer_pallas_binned (_binned_gbuffer_kernel, epilogue
+//        buf * where(covered, inv, 0) at :1452-1455);
+//   K4d, K6d  rasterize_depth_pallas_binned_hbm (_binned_hbm_depth_kernel,
+//        body :1887 with depth_only, :1939-1944, :2142-2144) and
+//        rasterize_depth_pallas_binned (_binned_depth_kernel);
 //   K9   rasterize_setup_pallas_binned_band (:2413; _binned_hbm_band_kernel
-//        :2388 and _binned_hbm_band_local_kernel :2400);
+//        :2388, global spans, and _binned_hbm_band_local_kernel :2400,
+//        band-local spans);
 //   K9g  rasterize_gbuffer_pallas_binned_band (:2501,
 //        _binned_hbm_gbuffer_band_kernel :2478);
 //   K9d  rasterize_setup_pallas_binned_band_dist (:2701,
 //        _binned_hbm_band_dist_kernel_factory :2686).
-// Each is the register tile body of K4 (K9g: of K4g) over one band: the
-// grid is the band's tiles, a tile's pixel rows start at row_base + i * 32,
-// and the outputs are band-local (band_h, W) planes.  K9's spans are
-// indexed by band tile (the band-local prepare) or, with band_local = 0,
-// by global tile (row_base / 32 + i) * tiles_x + j; one entry point takes
-// the flag.  K9d
-// streams n_src spans per tile, source by source, from offsets laid out
-// (n_src, band_tiles + 1) and rebased to the concatenated slabs, then the
-// leftover hierarchy.  The (z, row id) tie-break makes the order of the
-// spans free, so the bands equal the rows of K4's frame.  Bound on the
-// H100: as K4, the per-pixel edge work over the band's (tile, triangle)
-// pairs x 4096 x 26 ops; K9g adds its 13 output planes.
+// The Pallas functions differ in TPU memory placement (records streamed
+// from HBM in aligned slabs, or row ids into VMEM-resident rows); here all
+// read global memory.  Inputs are the outputs of prepare_binned_hbm_inputs,
+// prepare_binned_inputs and prepare_binned_dist_owner
+// (zrenderer_tpu_torch/ops/raster.py).
+//
+// What every kernel here computes, per 32x128 tile:
+//   phase 1:   every entry of [offsets[t], offsets[t+1]); each is a
+//              guaranteed bbox hit, so there is no bbox test.  Records are
+//              (NI32 + 1) ints (the row id last) + NF32 floats;
+//   phase 1.5: (K4c) every record of the tile's coarse bin
+//              (ty / COARSE_CB) * ctiles_x + tx / COARSE_CB whose bbox
+//              meets the tile (record_hits, the reference's four-sided
+//              test);
+//   phase 2:   the leftover rows through superblock -> block -> row bbox
+//              skips;
+//   every phase tests z >= 0 && (z < zb || (z == zb && id < tb)), the
+//   order-free (z, row id) tie-break that equals sequential strict-less in
+//   submission order (K4d, K6d: z alone, strict-less, the first visited
+//   row kept); then one divide per pixel into RGBA8 + f32 depth.
+//
+// Two bodies compute it.
+//
+// The keyed body (raster_keyed.cuh; keyed_records below) runs K4, K4c,
+// K4g, K4d and K9: one 64-bit key a pixel in shared memory lowered by
+// atomicMin (K4, K4c, K9: FlatKeys, K4g: GbufKeys, (order bits of z, row
+// id), whose minimum is the (z, row id) tie-break; K4d: DepthKeys, (order
+// bits of z, visit index, sign of z), a span record's visit index its
+// record index, a leftover row's the span's end plus its row id), each
+// record evaluated over its window (its vertices' pixel bbox in the tile),
+// the leftover rows compacted into the same batches by the hierarchy walk.
+// * Records staged in shared memory with cp.async, double-buffered.
+// * A tile's record lists are cut into work items of at most item_records
+//   records, one block each, which share the tile's leftover superblocks
+//   too.  K4, K4g, K4d and K9 walk one list, the tile's span; K4c two, its
+//   span and then its coarse bin's records, a coarse record kept by
+//   record_hits before its window is prepared (the window alone would let
+//   a record whose bbox was clamped away from the tile draw there).  A
+//   tile of one item resolves its keys in place; otherwise the items merge
+//   through a key plane of the output's size and a second kernel resolves
+//   it.  Three device operations a call (memset, items, resolve).
+// * K9 is K4's entry over one band: the band's tiles (row_base, its first
+//   global row), band-local planes and key plane (band_h * width keys),
+//   global tiles, windows and edge functions, as K3b's (raster_hier.cu).
+//   Band-local spans are indexed by band tile; global spans (band_local =
+//   0) by frame tile, which the launch passes as offsets from the band's
+//   first tile (list_base).
+// The resolve re-evaluates the winner from hier/tf: K4, K4c and K9 its z
+// (-0.0 kept) and colour, K4g the same and its 11 further planes under
+// buf * (covered ? 1/den : 0); K4d decodes z from the key.  A record's id
+// (its last int, the reference's L_PID) and a leftover row's id both index
+// the padded, uncompacted setup rows that hier/tf hold (the prepares
+// gather the records from them), so the resolve reads the winner from
+// hier/tf whichever list it came from.
+//
+// The register body (binned_scan below; raster_common.cuh TileState: the
+// tile's state in registers, each record of a span evaluated at all 4096
+// pixels of its tile, one block a tile) runs K6, K6g, K6d, K9g and K9d.
+// K6g keeps z and the winning row id and resolves its 13 planes from the
+// winner in hier/tf, as K4g; K6d keeps z alone under the strict-less test,
+// so its planes equal K3d's by value (the sign of a zero z may differ).
+// K9g (K4g over one band, band-local spans) and K9d (n_src band-local span
+// lists, one per source shard, from offsets laid out (n_src, band_tiles +
+// 1) and rebased to the concatenated slabs) start a tile's pixel rows at
+// row_base + i * 32 and write band-local (band_h, W) planes.  The (z, row
+// id) tie-break makes the order of the spans free, so every band equals
+// the rows of K4's frame.
+//
+// Bound on the H100: the keyed kernels by their window pixel evaluations
+// x 26 ops or the bytes they need (chip_smoke.py keyed_work), the register
+// kernels by the per-pixel edge work over their (tile, triangle) pairs x
+// 4096 x 26 ops; the G-buffer kernels add their 13 output planes.
 
 #include "raster_keyed.cuh"
 
@@ -118,35 +104,25 @@ namespace zr {
 // reference's coarse_cb default).
 constexpr int COARSE_CB = 4;
 
-// Coarse records are bin residents: the reference's four-sided bbox test
-// against the tile.
-__device__ __forceinline__ bool record_hits(const int* __restrict__ r,
-                                            int row0, int col0) {
-  return __ldg(r + I_JMAX) >= col0 && __ldg(r + I_JMIN) < col0 + TILE_W &&
-         __ldg(r + I_IMAX) >= row0 && __ldg(r + I_IMIN) < row0 + TILE_H;
-}
-
-// Phases 1, 1.5 and 2 of the register kernels.  RECORDS: spans of gathered
-// records (K4c/K9/K9g/K9d) or of row ids (K6, K6g, K6d).  COARSE: run phase
-// 1.5 over the coarse class.  A band kernel passes row_base (its first
-// global row), list_base (the span index of its first tile: 0 for
-// band-local spans) and, for K9d, n_src span lists src_stride apart.
-template <bool RECORDS, bool COARSE, class State>
+// Phases 1 and 2 of the register kernels.  RECORDS: spans of gathered
+// records (K9g/K9d) or of row ids (K6, K6g, K6d).  A band kernel passes
+// row_base (its first global row) and, for K9d, n_src span lists
+// src_stride apart.
+template <bool RECORDS, class State>
 __device__ __forceinline__ void binned_scan(
     State& st, const int* __restrict__ offsets,
     const int* __restrict__ span_i, const float* __restrict__ span_f,
-    const int* __restrict__ coffsets, const int* __restrict__ crec_i,
-    const float* __restrict__ crec_f, const int* __restrict__ supers,
-    int num_supers, const int* __restrict__ blocks,
-    const int* __restrict__ ti, const float* __restrict__ tf, int width,
-    int row_base = 0, int list_base = 0, int n_src = 1, int src_stride = 0) {
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const float* __restrict__ tf, int width, int row_base = 0,
+    int n_src = 1, int src_stride = 0) {
   const int tiles_x = width / TILE_W;
   const int tile = blockIdx.x;
   const int ty = tile / tiles_x, tx = tile % tiles_x;
   st.init(row_base + ty * TILE_H, tx * TILE_W);
 
   for (int s = 0; s < n_src; ++s) {
-    const int* offs = offsets + (size_t)s * src_stride + list_base + tile;
+    const int* offs = offsets + (size_t)s * src_stride + tile;
     const int end = __ldg(offs + 1);
     for (int k = __ldg(offs); k < end; ++k) {
       if constexpr (RECORDS) {
@@ -158,51 +134,10 @@ __device__ __forceinline__ void binned_scan(
     }
   }
 
-  if constexpr (COARSE) {
-    const int ctiles_x = (tiles_x + COARSE_CB - 1) / COARSE_CB;
-    const int bin = (ty / COARSE_CB) * ctiles_x + tx / COARSE_CB;
-    const int cend = __ldg(coffsets + bin + 1);
-    for (int k = __ldg(coffsets + bin); k < cend; ++k) {
-      const int* r = crec_i + (size_t)k * REC_I;
-      if (record_hits(r, st.row0, st.col0))
-        st.eval_row(r, crec_f + (size_t)k * NF32, __ldg(r + NI32));
-    }
-  }
-
   st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
 }
 
-// The body of the three flat kernels.
-template <bool RECORDS, bool COARSE>
-__device__ __forceinline__ void binned_tile(
-    const int* __restrict__ offsets, const int* __restrict__ span_i,
-    const float* __restrict__ span_f, const int* __restrict__ coffsets,
-    const int* __restrict__ crec_i, const float* __restrict__ crec_f,
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
-    const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, int width) {
-  TileState<true> st;
-  binned_scan<RECORDS, COARSE>(st, offsets, span_i, span_f, coffsets, crec_i,
-                               crec_f, supers, num_supers, blocks, ti, tf,
-                               width);
-  st.store(color, depth, width);
-}
-
 // One entry point per kernel, so each has its own name in a profile.
-__global__ void __launch_bounds__(THREADS) raster_records_coarse_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ coffsets,
-    const int* __restrict__ crec_i, const float* __restrict__ crec_f,
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
-    const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, int width) {
-  binned_tile<true, true>(offsets, rec_i, rec_f, coffsets, crec_i, crec_f,
-                          supers, num_supers, blocks, ti, tf, color, depth,
-                          width);
-}
-
 __global__ void __launch_bounds__(THREADS)
     raster_lists_kernel(const int* __restrict__ offsets,
                         const int* __restrict__ pair_tri,
@@ -211,9 +146,10 @@ __global__ void __launch_bounds__(THREADS)
                         const int* __restrict__ ti,
                         const float* __restrict__ tf, int* __restrict__ color,
                         float* __restrict__ depth, int width) {
-  binned_tile<false, false>(offsets, pair_tri, nullptr, nullptr, nullptr,
-                            nullptr, supers, num_supers, blocks, ti, tf,
-                            color, depth, width);
+  TileState<true> st;
+  binned_scan<false>(st, offsets, pair_tri, nullptr, supers, num_supers,
+                     blocks, ti, tf, width);
+  st.store(color, depth, width);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -225,9 +161,8 @@ __global__ void __launch_bounds__(THREADS)
                          const float* __restrict__ tf,
                          float* __restrict__ out, int width, int height) {
   TileState<true, true> st;
-  binned_scan<false, false>(st, offsets, pair_tri, nullptr, nullptr, nullptr,
-                            nullptr, supers, num_supers, blocks, ti, tf,
-                            width);
+  binned_scan<false>(st, offsets, pair_tri, nullptr, supers, num_supers,
+                     blocks, ti, tf, width);
   st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
 }
 
@@ -240,52 +175,113 @@ __global__ void __launch_bounds__(THREADS)
                        const float* __restrict__ tf,
                        float* __restrict__ depth, int width) {
   TileState<false, false, true> st;
-  binned_scan<false, false>(st, offsets, pair_tri, nullptr, nullptr, nullptr,
-                            nullptr, supers, num_supers, blocks, ti, tf,
-                            width);
+  binned_scan<false>(st, offsets, pair_tri, nullptr, supers, num_supers,
+                     blocks, ti, tf, width);
   st.store_depth(depth, width);
 }
 
+// K9g: K4g's register body over one band (band-local spans); out holds
+// GBUF_PLANES (band_h, width) planes.
+__global__ void __launch_bounds__(THREADS) gbuffer_records_band_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    float* __restrict__ out, int width, int band_h, int row_base) {
+  TileState<true, true> st;
+  binned_scan<true>(st, offsets, rec_i, rec_f, supers, num_supers, blocks,
+                    ti, tf, width, row_base);
+  st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * band_h,
+                         row_base);
+}
+
+// K9d: n_src band-local span lists, one per source shard.
+__global__ void __launch_bounds__(THREADS) raster_records_dist_kernel(
+    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int row_base, int n_src) {
+  TileState<true> st;
+  binned_scan<true>(st, offsets, rec_i, rec_f, supers, num_supers, blocks,
+                    ti, tf, width, row_base, n_src, (int)gridDim.x + 1);
+  st.store(color, depth, width, row_base);
+}
+
 // ---------------------------------------------------------------------------
-// The keyed record raster (K4, K4g, K4d): the body of raster_keyed.cuh over
-// a tile's record span, then the leftover rows.
+// The keyed record raster (K4, K4c, K4g, K4d, K9): the body of
+// raster_keyed.cuh over a tile's record lists, then the leftover rows.
 // ---------------------------------------------------------------------------
 
-// Shared memory of a K4/K4g/K4d work item (dynamic: above the 48 KB static
-// limit): the keyed body's, and the span's records staged by cp.async.
+// Shared memory of a keyed record work item (dynamic: above the 48 KB
+// static limit): the keyed body's, and the records staged by cp.async.
 struct KeyedSpanSmem : KeyedSmem {
   int raw_i[2][KEY_BATCH * REC_I];  // staged records, double-buffered
   float raw_z[2][KEY_BATCH * 3];    // their z coefficients
 };
 
+// The record lists of a keyed launch.  Tile u of the launch (for K9 the
+// band's tile) owns span records [offsets[u], offsets[u + 1]) of
+// rec_i/rec_f.  K4c: bin b of the coarse class owns records [coffsets[b],
+// coffsets[b + 1]) of crec_i/crec_f (unused elsewhere).
+struct RecordLists {
+  const int* offsets;
+  const int* coffsets;
+  const int* crec_i;
+  const float* crec_f;
+};
+
+// The coarse bin of frame tile u.
+__device__ __forceinline__ int coarse_bin(int u, int tiles_x) {
+  const int ctiles_x = (tiles_x + COARSE_CB - 1) / COARSE_CB;
+  return (u / tiles_x / COARSE_CB) * ctiles_x + u % tiles_x / COARSE_CB;
+}
+
+// Coarse records are bin residents: the reference's four-sided bbox test
+// against the tile, on a staged record.
+__device__ __forceinline__ bool record_hits(const int* r, int row0,
+                                            int col0) {
+  return r[I_JMAX] >= col0 && r[I_JMIN] < col0 + TILE_W &&
+         r[I_IMAX] >= row0 && r[I_IMIN] < row0 + TILE_H;
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   __pipeline_memcpy_async(dst, src, 4);
 }
 
-// Work items of tile u: its span in pieces of at most item_records, and
-// one item for an empty span (the leftovers and the resolve).
-__device__ __forceinline__ int tile_items(const int* __restrict__ offsets,
-                                          int u, int item_records) {
-  const int n = __ldg(offsets + u + 1) - __ldg(offsets + u);
+// Work items of tile u: its records (its span, and with COARSE its bin's)
+// in pieces of at most item_records, and one item for none (the leftovers
+// and the resolve).
+template <bool COARSE>
+__device__ __forceinline__ int tile_items(const RecordLists& l, int u,
+                                          int tiles_x, int item_records) {
+  int n = __ldg(l.offsets + u + 1) - __ldg(l.offsets + u);
+  if constexpr (COARSE) {
+    const int b = coarse_bin(u, tiles_x);
+    n += __ldg(l.coffsets + b + 1) - __ldg(l.coffsets + b);
+  }
   return max(1, (n + item_records - 1) / item_records);
 }
 
 // Items are numbered tile by tile.  Each block finds its own (tile, index,
 // count) in s.item, tile -1 past the last item.
-__device__ __forceinline__ void find_item(KeyedSmem& s,
-                                          const int* __restrict__ offsets,
-                                          int num_tiles, int item_records) {
+template <bool COARSE>
+__device__ __forceinline__ void find_item(KeyedSmem& s, const RecordLists& l,
+                                          int num_tiles, int tiles_x,
+                                          int item_records) {
   const int per = (num_tiles + THREADS - 1) / THREADS;
   const int u0 = min((int)threadIdx.x * per, num_tiles);
   const int u1 = min(u0 + per, num_tiles);
   int local = 0;
-  for (int u = u0; u < u1; ++u) local += tile_items(offsets, u, item_records);
+  for (int u = u0; u < u1; ++u)
+    local += tile_items<COARSE>(l, u, tiles_x, item_records);
   if (threadIdx.x == 0) s.item[0] = -1;
   int total;
   int acc = block_exclusive_scan(local, s.scan, total);
   const int b = (int)blockIdx.x;
   for (int u = u0; u < u1; ++u) {
-    const int n = tile_items(offsets, u, item_records);
+    const int n = tile_items<COARSE>(l, u, tiles_x, item_records);
     if (b >= acc && b < acc + n) {
       s.item[0] = u;
       s.item[1] = b - acc;
@@ -310,9 +306,10 @@ __device__ __forceinline__ void stage_records(KeyedSpanSmem& s, int buf,
   __pipeline_commit();
 }
 
-// Records [k_begin, k_end) of the span, KEY_BATCH at a time: the next
-// batch's copies fly while this one is evaluated.
-template <class Mode>
+// Records [k_begin, k_end) of one list, KEY_BATCH at a time: the next
+// batch's copies fly while this one is evaluated.  MASKED (K4c's coarse
+// records): a record whose bbox misses the tile adds nothing.
+template <class Mode, bool MASKED = false>
 __device__ __forceinline__ void keyed_span(KeyedSpanSmem& s,
                                            const int* __restrict__ rec_i,
                                            const float* __restrict__ rec_f,
@@ -337,213 +334,214 @@ __device__ __forceinline__ void keyed_span(KeyedSpanSmem& s,
     const int j = threadIdx.x;
     if (j < nb) {
       const int* r = s.raw_i[b & 1] + j * REC_I;
-      area = prepare_record(s, j, r, s.raw_z[b & 1] + j * 3,
-                            Mode::span_tag(r, k0 + j), row0, col0);
+      if (!MASKED || record_hits(r, row0, col0))
+        area = prepare_record(s, j, r, s.raw_z[b & 1] + j * 3,
+                              Mode::span_tag(r, k0 + j), row0, col0);
     }
     eval_batch<Mode>(s, area);
   }
 }
 
-// Work item blockIdx.x: its share of the tile's span and of the leftover
-// superblocks into the shared keys, then out (raster_keyed.cuh keyed_out).
-// Mode: FlatKeys (K4), GbufKeys (K4g; extra: its 11 further planes) or
-// DepthKeys (K4d).
-template <class Mode>
+// Work item blockIdx.x: its share of the tile's record lists and of the
+// leftover superblocks into the shared keys, then out (raster_keyed.cuh
+// keyed_out).  Mode: FlatKeys (K4, K4c, K9), GbufKeys (K4g; extra: its 11
+// further planes) or DepthKeys (K4d).  COARSE (K4c): the tile's span, then
+// its bin's records, as one list cut into items.  The tiles are those of
+// the height rows from global row row_base (a band's; 0 for a frame).
+template <class Mode, bool COARSE = false>
 __device__ __forceinline__ void keyed_records(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    const RecordLists& l, const int* __restrict__ rec_i,
     const float* __restrict__ rec_f, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
     int item_records, unsigned long long* __restrict__ plane,
     int* __restrict__ color, float* __restrict__ depth,
-    float* __restrict__ extra, int width, int height) {
+    float* __restrict__ extra, int width, int height, int row_base) {
   extern __shared__ __align__(16) unsigned char keyed_smem[];
   KeyedSpanSmem& s = *reinterpret_cast<KeyedSpanSmem*>(keyed_smem);
   const int tiles_x = width / TILE_W;
-  find_item(s, offsets, tiles_x * (height / TILE_H), item_records);
+  find_item<COARSE>(s, l, tiles_x * (height / TILE_H), tiles_x,
+                    item_records);
   const int tile = s.item[0], idx = s.item[1], n_items = s.item[2];
   if (tile < 0) return;  // past the last item
-  const int row0 = (tile / tiles_x) * TILE_H;
+  const int row0 = row_base + (tile / tiles_x) * TILE_H;
   const int col0 = (tile % tiles_x) * TILE_W;
   for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) s.key[p] = Mode::CLEAR;
-  const int span_end = __ldg(offsets + tile + 1);
-  const int k_begin =
-      min(__ldg(offsets + tile) + idx * item_records, span_end);
+  // The item's records: [q0, q0 + item_records) of the tile's lists.
+  const int q0 = idx * item_records;
+  const int span_begin = __ldg(l.offsets + tile);
+  const int span_end = __ldg(l.offsets + tile + 1);
+  const int k_begin = min(span_begin + q0, span_end);
   const int k_end = min(k_begin + item_records, span_end);
   __syncthreads();
   keyed_span<Mode>(s, rec_i, rec_f, k_begin, k_end, row0, col0);
+  if constexpr (COARSE) {
+    const int b = coarse_bin(tile, tiles_x);
+    const int c0 = __ldg(l.coffsets + b), n = __ldg(l.coffsets + b + 1) - c0;
+    const int skip = q0 - (span_end - span_begin);  // < 0: starts in the span
+    keyed_span<Mode, true>(s, l.crec_i, l.crec_f, c0 + min(max(skip, 0), n),
+                           c0 + min(max(skip + item_records, 0), n), row0,
+                           col0);
+  }
   keyed_leftovers<Mode>(
       s, supers, (int)((long long)idx * num_supers / n_items),
       (int)((long long)(idx + 1) * num_supers / n_items), blocks, ti, tf,
       span_end, row0, col0);
   __syncthreads();
   keyed_out<Mode>(s, n_items == 1, plane, row0, col0, ti, tf, color, depth,
-                  extra, width, height);
+                  extra, width, height, row_base);
 }
 
 // The tiles of several items: their merged keys in the plane, resolved.
-template <class Mode>
+template <class Mode, bool COARSE = false>
 __device__ __forceinline__ void keyed_resolve(
-    const int* __restrict__ offsets, int item_records,
+    const RecordLists& l, int item_records,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
     float* __restrict__ depth, float* __restrict__ extra, int width,
-    int height) {
+    int height, int row_base) {
   const int tile = blockIdx.x, tiles_x = width / TILE_W;
-  if (tile_items(offsets, tile, item_records) == 1) return;
-  resolve_tile<Mode>(plane, (tile / tiles_x) * TILE_H,
+  if (tile_items<COARSE>(l, tile, tiles_x, item_records) == 1) return;
+  resolve_tile<Mode>(plane, row_base + (tile / tiles_x) * TILE_H,
                      (tile % tiles_x) * TILE_W, ti, tf, color, depth, extra,
-                     width, height);
+                     width, height, row_base);
 }
 
-// K4: the keyed body over record spans, flat planes.
+// One item kernel and one resolve kernel a keyed kernel.  Each takes (...,
+// width, height, row_base); all but K9 draw a frame (row_base 0).
+// K4: flat planes.
 __global__ void __launch_bounds__(THREADS) raster_records_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    RecordLists l, const int* __restrict__ rec_i,
     const float* __restrict__ rec_f, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
     int item_records, unsigned long long* __restrict__ plane,
     int* __restrict__ color, float* __restrict__ depth, int width,
-    int height) {
-  keyed_records<FlatKeys>(offsets, rec_i, rec_f, supers, num_supers, blocks,
-                          ti, tf, item_records, plane, color, depth, nullptr,
-                          width, height);
+    int height, int row_base) {
+  keyed_records<FlatKeys>(l, rec_i, rec_f, supers, num_supers, blocks, ti,
+                          tf, item_records, plane, color, depth, nullptr,
+                          width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) raster_records_resolve_kernel(
-    const int* __restrict__ offsets, int item_records,
+    RecordLists l, int item_records,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, int width, int height) {
-  keyed_resolve<FlatKeys>(offsets, item_records, plane, ti, tf, color, depth,
-                          nullptr, width, height);
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_resolve<FlatKeys>(l, item_records, plane, ti, tf, color, depth,
+                          nullptr, width, height, row_base);
 }
 
-// K4g: the keyed body, the GBUF_PLANES planes of out (color bits, depth,
-// then the rest), width * height floats apart.
-__global__ void __launch_bounds__(THREADS) gbuffer_records_keyed_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+// K4c: K4 with the coarse class.
+__global__ void __launch_bounds__(THREADS) raster_records_coarse_keyed_kernel(
+    RecordLists l, const int* __restrict__ rec_i,
     const float* __restrict__ rec_f, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
     int item_records, unsigned long long* __restrict__ plane,
-    float* __restrict__ out, int width, int height) {
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height, int row_base) {
+  keyed_records<FlatKeys, true>(l, rec_i, rec_f, supers, num_supers, blocks,
+                                ti, tf, item_records, plane, color, depth,
+                                nullptr, width, height, row_base);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    raster_records_coarse_resolve_kernel(
+        RecordLists l, int item_records,
+        const unsigned long long* __restrict__ plane,
+        const int* __restrict__ ti, const float* __restrict__ tf,
+        int* __restrict__ color, float* __restrict__ depth, int width,
+        int height, int row_base) {
+  keyed_resolve<FlatKeys, true>(l, item_records, plane, ti, tf, color, depth,
+                                nullptr, width, height, row_base);
+}
+
+// K9: K4 over the band of height rows from global row row_base.
+__global__ void __launch_bounds__(THREADS) raster_records_band_keyed_kernel(
+    RecordLists l, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int item_records, unsigned long long* __restrict__ plane,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height, int row_base) {
+  keyed_records<FlatKeys>(l, rec_i, rec_f, supers, num_supers, blocks, ti,
+                          tf, item_records, plane, color, depth, nullptr,
+                          width, height, row_base);
+}
+
+__global__ void __launch_bounds__(THREADS) raster_records_band_resolve_kernel(
+    RecordLists l, int item_records,
+    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
+    const float* __restrict__ tf, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_resolve<FlatKeys>(l, item_records, plane, ti, tf, color, depth,
+                          nullptr, width, height, row_base);
+}
+
+// K4g: the GBUF_PLANES planes of out (color bits, depth, then the rest),
+// width * height floats apart.
+__global__ void __launch_bounds__(THREADS) gbuffer_records_keyed_kernel(
+    RecordLists l, const int* __restrict__ rec_i,
+    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int item_records, unsigned long long* __restrict__ plane,
+    float* __restrict__ out, int width, int height, int row_base) {
   const size_t frame = (size_t)width * height;
-  keyed_records<GbufKeys>(offsets, rec_i, rec_f, supers, num_supers, blocks,
-                          ti, tf, item_records, plane,
+  keyed_records<GbufKeys>(l, rec_i, rec_f, supers, num_supers, blocks, ti,
+                          tf, item_records, plane,
                           reinterpret_cast<int*>(out), out + frame,
-                          out + 2 * frame, width, height);
+                          out + 2 * frame, width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) gbuffer_records_resolve_kernel(
-    const int* __restrict__ offsets, int item_records,
+    RecordLists l, int item_records,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, float* __restrict__ out, int width,
-    int height) {
+    int height, int row_base) {
   const size_t frame = (size_t)width * height;
-  keyed_resolve<GbufKeys>(offsets, item_records, plane, ti, tf,
+  keyed_resolve<GbufKeys>(l, item_records, plane, ti, tf,
                           reinterpret_cast<int*>(out), out + frame,
-                          out + 2 * frame, width, height);
+                          out + 2 * frame, width, height, row_base);
 }
 
-// K4d: the keyed body, the depth plane alone.
+// K4d: the depth plane alone.
 __global__ void __launch_bounds__(THREADS) depth_records_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
+    RecordLists l, const int* __restrict__ rec_i,
     const float* __restrict__ rec_f, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
     int item_records, unsigned long long* __restrict__ plane,
-    float* __restrict__ depth, int width, int height) {
-  keyed_records<DepthKeys>(offsets, rec_i, rec_f, supers, num_supers, blocks,
-                           ti, tf, item_records, plane, nullptr, depth,
-                           nullptr, width, height);
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_records<DepthKeys>(l, rec_i, rec_f, supers, num_supers, blocks, ti,
+                           tf, item_records, plane, nullptr, depth, nullptr,
+                           width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) depth_records_resolve_kernel(
-    const int* __restrict__ offsets, int item_records,
+    RecordLists l, int item_records,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, float* __restrict__ depth, int width,
-    int height) {
-  keyed_resolve<DepthKeys>(offsets, item_records, plane, ti, tf, nullptr,
-                           depth, nullptr, width, height);
-}
-
-// K9: K4 over one band; list_base = 0 for band-local spans, else the
-// global span index of the band's first tile.
-__global__ void __launch_bounds__(THREADS) raster_records_band_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
-    int num_supers, const int* __restrict__ blocks,
-    const int* __restrict__ ti, const float* __restrict__ tf,
-    int* __restrict__ color, float* __restrict__ depth, int width,
-    int row_base, int list_base) {
-  TileState<true> st;
-  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
-                           nullptr, supers, num_supers, blocks, ti, tf, width,
-                           row_base, list_base);
-  st.store(color, depth, width, row_base);
-}
-
-// K9g: K4g's register body over one band (band-local spans); out holds
-// GBUF_PLANES (band_h, width) planes.
-__global__ void __launch_bounds__(THREADS) gbuffer_records_band_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
-    int num_supers, const int* __restrict__ blocks,
-    const int* __restrict__ ti, const float* __restrict__ tf,
-    float* __restrict__ out, int width, int band_h, int row_base) {
-  TileState<true, true> st;
-  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
-                           nullptr, supers, num_supers, blocks, ti, tf, width,
-                           row_base);
-  st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * band_h,
-                         row_base);
-}
-
-// K9d: n_src band-local span lists, one per source shard.
-__global__ void __launch_bounds__(THREADS) raster_records_dist_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
-    int num_supers, const int* __restrict__ blocks,
-    const int* __restrict__ ti, const float* __restrict__ tf,
-    int* __restrict__ color, float* __restrict__ depth, int width,
-    int row_base, int n_src) {
-  TileState<true> st;
-  binned_scan<true, false>(st, offsets, rec_i, rec_f, nullptr, nullptr,
-                           nullptr, supers, num_supers, blocks, ti, tf, width,
-                           row_base, 0, n_src, (int)gridDim.x + 1);
-  st.store(color, depth, width, row_base);
+    int height, int row_base) {
+  keyed_resolve<DepthKeys>(l, item_records, plane, ti, tf, nullptr, depth,
+                           nullptr, width, height, row_base);
 }
 
 }  // namespace zr
 
-// K4c.
-extern "C" int zr_raster_records(const int* offsets, const int* rec_i,
-                                 const float* rec_f, const int* coffsets,
-                                 const int* crec_i, const float* crec_f,
-                                 const int* supers, int num_supers,
-                                 const int* blocks, const int* ti,
-                                 const float* tf, int* color, float* depth,
-                                 int height, int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::raster_records_coarse_kernel<<<num_tiles, zr::THREADS, 0,
-                                     (cudaStream_t)stream>>>(
-      offsets, rec_i, rec_f, coffsets, crec_i, crec_f, supers, num_supers,
-      blocks, ti, tf, color, depth, width);
-  return (int)cudaGetLastError();
-}
-
-// K4, K4g and K4d launch the keyed body: the key plane (height * width keys)
-// set to all ones, `items` blocks (tiles plus ceil(records /
-// item_records), a bound on the work items), then the resolve over the
-// tiles.
+// The keyed launches (K4, K4c, K4g, K4d, K9): the key plane (height * width
+// keys, a band's for K9) set to all ones, `items` blocks (a bound on the
+// work items: ops/raster.py keyed_items), then the resolve over the tiles.
 template <class Items, class Resolve, class... Out>
 static int launch_keyed(Items items_kernel, Resolve resolve_kernel,
-                        const int* offsets, const int* rec_i,
+                        zr::RecordLists lists, const int* rec_i,
                         const float* rec_f, const int* supers, int num_supers,
                         const int* blocks, const int* ti, const float* tf,
                         int item_records, int items, unsigned long long* plane,
-                        int height, int width, void* stream, Out... out) {
+                        int height, int width, int row_base, void* stream,
+                        Out... out) {
   const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
   const cudaStream_t s = (cudaStream_t)stream;
   const int smem = (int)sizeof(zr::KeyedSpanSmem);
@@ -554,14 +552,14 @@ static int launch_keyed(Items items_kernel, Resolve resolve_kernel,
                           (size_t)height * width * sizeof(*plane), s);
   if (err != cudaSuccess) return (int)err;
   items_kernel<<<items, zr::THREADS, smem, s>>>(
-      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, item_records,
-      plane, out..., width, height);
+      lists, rec_i, rec_f, supers, num_supers, blocks, ti, tf, item_records,
+      plane, out..., width, height, row_base);
   resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
-      offsets, item_records, plane, ti, tf, out..., width, height);
+      lists, item_records, plane, ti, tf, out..., width, height, row_base);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a K4/K4g/K4d work item, in bytes.
+// Dynamic shared memory of a keyed record work item, in bytes.
 extern "C" int zr_keyed_smem_bytes() {
   return (int)sizeof(zr::KeyedSpanSmem);
 }
@@ -573,9 +571,26 @@ extern "C" int zr_raster_records_keyed(
     const float* tf, int item_records, int items, unsigned long long* plane,
     int* color, float* depth, int height, int width, void* stream) {
   return launch_keyed(zr::raster_records_kernel,
-                      zr::raster_records_resolve_kernel, offsets, rec_i,
-                      rec_f, supers, num_supers, blocks, ti, tf, item_records,
-                      items, plane, height, width, stream, color, depth);
+                      zr::raster_records_resolve_kernel,
+                      zr::RecordLists{offsets, nullptr, nullptr, nullptr},
+                      rec_i, rec_f, supers, num_supers, blocks, ti, tf,
+                      item_records, items, plane, height, width, 0, stream,
+                      color, depth);
+}
+
+// K4c: K4's lists and the coarse class (coffsets, crec_i, crec_f).
+extern "C" int zr_raster_records(
+    const int* offsets, const int* rec_i, const float* rec_f,
+    const int* coffsets, const int* crec_i, const float* crec_f,
+    const int* supers, int num_supers, const int* blocks, const int* ti,
+    const float* tf, int item_records, int items, unsigned long long* plane,
+    int* color, float* depth, int height, int width, void* stream) {
+  return launch_keyed(zr::raster_records_coarse_keyed_kernel,
+                      zr::raster_records_coarse_resolve_kernel,
+                      zr::RecordLists{offsets, coffsets, crec_i, crec_f},
+                      rec_i, rec_f, supers, num_supers, blocks, ti, tf,
+                      item_records, items, plane, height, width, 0, stream,
+                      color, depth);
 }
 
 // K6.
@@ -599,9 +614,11 @@ extern "C" int zr_gbuffer_records_keyed(
     const float* tf, int item_records, int items, unsigned long long* plane,
     float* out, int height, int width, void* stream) {
   return launch_keyed(zr::gbuffer_records_keyed_kernel,
-                      zr::gbuffer_records_resolve_kernel, offsets, rec_i,
-                      rec_f, supers, num_supers, blocks, ti, tf, item_records,
-                      items, plane, height, width, stream, out);
+                      zr::gbuffer_records_resolve_kernel,
+                      zr::RecordLists{offsets, nullptr, nullptr, nullptr},
+                      rec_i, rec_f, supers, num_supers, blocks, ti, tf,
+                      item_records, items, plane, height, width, 0, stream,
+                      out);
 }
 
 // K6g.
@@ -625,9 +642,11 @@ extern "C" int zr_depth_records_keyed(
     const float* tf, int item_records, int items, unsigned long long* plane,
     float* depth, int height, int width, void* stream) {
   return launch_keyed(zr::depth_records_kernel,
-                      zr::depth_records_resolve_kernel, offsets, rec_i, rec_f,
-                      supers, num_supers, blocks, ti, tf, item_records, items,
-                      plane, height, width, stream, depth);
+                      zr::depth_records_resolve_kernel,
+                      zr::RecordLists{offsets, nullptr, nullptr, nullptr},
+                      rec_i, rec_f, supers, num_supers, blocks, ti, tf,
+                      item_records, items, plane, height, width, 0, stream,
+                      depth);
 }
 
 // K6d.
@@ -643,22 +662,23 @@ extern "C" int zr_depth_lists(const int* offsets, const int* pair_tri,
   return (int)cudaGetLastError();
 }
 
-// K9: band_local = 1 for spans indexed by band tile, 0 for global tiles.
-extern "C" int zr_raster_records_band(const int* offsets, const int* rec_i,
-                                      const float* rec_f, const int* supers,
-                                      int num_supers, const int* blocks,
-                                      const int* ti, const float* tf,
-                                      int* color, float* depth, int band_h,
-                                      int width, int row_base, int band_local,
-                                      void* stream) {
-  const int tiles_x = width / zr::TILE_W;
-  const int num_tiles = (band_h / zr::TILE_H) * tiles_x;
-  const int list_base = band_local ? 0 : (row_base / zr::TILE_H) * tiles_x;
-  zr::raster_records_band_kernel<<<num_tiles, zr::THREADS, 0,
-                                   (cudaStream_t)stream>>>(
-      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, color, depth,
-      width, row_base, list_base);
-  return (int)cudaGetLastError();
+// K9: the band_h rows from global row row_base, a band-sized key plane;
+// band_local = 1 for spans indexed by band tile, 0 for global tiles (the
+// offsets passed on from the band's first tile, list_base).
+extern "C" int zr_raster_records_band(
+    const int* offsets, const int* rec_i, const float* rec_f,
+    const int* supers, int num_supers, const int* blocks, const int* ti,
+    const float* tf, int item_records, int items, unsigned long long* plane,
+    int* color, float* depth, int band_h, int width, int row_base,
+    int band_local, void* stream) {
+  const int list_base =
+      band_local ? 0 : (row_base / zr::TILE_H) * (width / zr::TILE_W);
+  return launch_keyed(
+      zr::raster_records_band_keyed_kernel,
+      zr::raster_records_band_resolve_kernel,
+      zr::RecordLists{offsets + list_base, nullptr, nullptr, nullptr}, rec_i,
+      rec_f, supers, num_supers, blocks, ti, tf, item_records, items, plane,
+      band_h, width, row_base, stream, color, depth);
 }
 
 // K9g.

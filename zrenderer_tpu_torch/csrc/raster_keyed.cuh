@@ -1,22 +1,24 @@
-// The keyed raster body, shared by raster_binned.cu (K4, K4g, K4d: a
-// tile's record span, then the leftover rows of the hierarchy) and
-// raster_hier.cu (K3, K3b, K3g, K3d: the hierarchy alone).
+// The keyed raster body, shared by raster_binned.cu (K4, K4c, K4g, K4d,
+// K9: a tile's record span, K4c's coarse bin too, then the leftover rows
+// of the hierarchy) and raster_hier.cu (K3, K3b, K3g, K3d: the hierarchy
+// alone).
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
-//   atomicMin.  K4 and K4g: (order bits of z, row id), whose minimum is the
-//   (z, row id) tie-break.  K3, K3b and K3g: the same key, whose minimum is
-//   the strict-less test z >= 0 && z < zb from 1.0 in row order (the first
-//   row of the least z wins, and prepare_raster_inputs compacts stably, so
-//   a row's id is its submission order).  K4d and K3d: (order bits of z,
-//   visit index, sign of z), whose minimum is the strict-less test in visit
-//   order with the first visited row kept: a span record's visit index is
-//   its record index, a leftover row's is the span's end plus its row id
-//   (K3d: no span, so its row id).  -0.0 and +0.0 share order bits; z >= 0
-//   filters first (NaN and negative z never compete).  The clear key is z
-//   1.0 over the largest id for K4 and K4g, so that a row at z == 1.0
-//   latches as their register body's (z, row id) test lets it; over id 0
-//   (over visit 0) for K3, K3b and K3g (K3d, K4d), which no row at z == 1.0
-//   goes below, as the strict-less test never lets 1.0 pass.
+//   atomicMin.  K4, K4c, K9 and K4g: (order bits of z, row id), whose
+//   minimum is the (z, row id) tie-break.  K3, K3b and K3g: the same key,
+//   whose minimum is the strict-less test z >= 0 && z < zb from 1.0 in
+//   row order (the first row of the least z wins, and
+//   prepare_raster_inputs compacts stably, so a row's id is its submission
+//   order).  K4d and K3d: (order bits of z, visit index, sign of z), whose
+//   minimum is the strict-less test in visit order with the first visited
+//   row kept: a span record's visit index is its record index, a leftover
+//   row's is the span's end plus its row id (K3d: no span, so its row id).
+//   -0.0 and +0.0 share order bits; z >= 0 filters first (NaN and negative
+//   z never compete).  The clear key is z 1.0 over the largest id for K4,
+//   K4c, K9 and K4g, so that a row at z == 1.0 latches as the (z, row id)
+//   test lets it; over id 0 (over visit 0) for K3, K3b and K3g (K3d, K4d),
+//   which no row at z == 1.0 goes below, as the strict-less test never
+//   lets 1.0 pass.
 // * Work in proportion to each row's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -38,15 +40,15 @@
 //   key plane of the output's size (8 bytes a pixel, set to all ones by a
 //   memset), and a second kernel resolves the plane's minimum, which is
 //   order-free; a tile of one item resolves its keys in place.
-// * A band (K3b): tiles, windows and edge functions use global rows; the
-//   planes and the key plane are the band's, a pixel of global row r
+// * A band (K3b, K9): tiles, windows and edge functions use global rows;
+//   the planes and the key plane are the band's, a pixel of global row r
 //   stored at row r - row_base (keyed_out, resolve_tile).
 // The store re-evaluates the winner from the setup rows through
 // raster_common.cuh's resolve_winner, the register bodies' epilogue: K4,
-// K4g, K3, K3b and K3g their z (-0.0 kept) and colour, K4g and K3g also
-// the 11 further planes (K4g buf * (covered ? 1/den : 0), K3g covered ?
-// buf * 1/den : 0); K4d and K3d decode z from the key.  Nothing moves the
-// tensor cores.
+// K4c, K9, K4g, K3, K3b and K3g their z (-0.0 kept) and colour, K4g and
+// K3g also the 11 further planes (K4g buf * (covered ? 1/den : 0), K3g
+// covered ? buf * 1/den : 0); K4d and K3d decode z from the key.  Nothing
+// moves the tensor cores.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -73,8 +75,8 @@ static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
 // divide, RGBA8 packed; z 1.0 and alpha alone where no row latched.
 // PLANES: also the 11 further G-buffer planes from extra, frame floats
 // apart.  STRICT (K3, K3b, K3g): the clear key (1.0, 0), and the epilogue
-// covered ? buf * 1/den : 0; otherwise (K4, K4g) the clear key (1.0,
-// INT32_MAX) and buf * (covered ? 1/den : 0).  Without PLANES the two
+// covered ? buf * 1/den : 0; otherwise (K4, K4c, K9, K4g) the clear key
+// (1.0, INT32_MAX) and buf * (covered ? 1/den : 0).  Without PLANES the two
 // epilogues are one: the colour's quantize is the same either way.
 template <bool PLANES, bool STRICT = false>
 struct WinnerKeys {
@@ -132,8 +134,8 @@ struct DepthKeys {
   }
 };
 
-// Shared memory of one work item (dynamic; K4's adds its record staging,
-// raster_binned.cu KeyedSpanSmem).
+// Shared memory of one work item (dynamic; the record kernels add their
+// record staging, raster_binned.cu KeyedSpanSmem).
 struct KeyedSmem {
   unsigned long long key[TILE_PIX];
   // The batch, one column a row: edge values at the window's origin,

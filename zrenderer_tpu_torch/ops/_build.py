@@ -128,8 +128,8 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_hier.restype = i
     lib.zr_raster_hier_keyed.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_raster_hier_keyed.restype = i
-    lib.zr_raster_records.argtypes = [p, p, p, p, p, p, p, i, p, p, p, p, p,
-                                      i, i, p]
+    lib.zr_raster_records.argtypes = [p, p, p, p, p, p, p, i, p, p, p, i, i,
+                                      p, p, p, i, i, p]
     lib.zr_raster_records.restype = i
     lib.zr_raster_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
                                             p, p, i, i, p]
@@ -163,8 +163,8 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_hier_band_keyed.argtypes = [p, i, p, p, p, i, p, p, p, i,
                                               i, i, p]
     lib.zr_raster_hier_band_keyed.restype = i
-    lib.zr_raster_records_band.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
-                                           i, i, i, p]
+    lib.zr_raster_records_band.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
+                                           p, p, i, i, i, i, p]
     lib.zr_raster_records_band.restype = i
     lib.zr_gbuffer_records_band.argtypes = [p, p, p, p, i, p, p, p, p, i, i,
                                             i, p]

@@ -27,11 +27,13 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   records; K3, K3b, K3g and K3d run it over the hierarchy alone, a
   tile's blocks cut into HIER_ITEMS work items; K5 and K5g keep the
   register body.  K4c adds the coarse class: rows too big for the fine lists
-  listed per 4x4-tile bin, tested against the tile's bbox.
+  listed per 4x4-tile bin, tested against the tile's bbox; on the card it
+  runs K4's keyed body over the tile's span and then its bin's records,
+  cut into work items together.
 * K6, the global pair-list raster (``rasterize_setup_pallas_binned``):
   ``prepare_binned_inputs`` sorts the same pairs but keeps row ids; the
-  kernel reads its tile's rows through them.  K4, K4c and K6 are one CUDA
-  kernel: ``csrc/raster_binned.cu``.
+  kernel reads its tile's rows through them.  K4, K4c and K6 live in
+  ``csrc/raster_binned.cu``.
 
 All produce a packed RGBA8 plane (u32 bits carried in an ``int32``
 tensor; alpha 255 sets bit 31) and an f32 depth plane over the padded
@@ -51,7 +53,7 @@ rasterize one horizontal band of ``band_h`` rows starting at global row
 * K9 (``rasterize_setup_pallas_binned_band``): K4 over one band, with the
   band-local prepare (``band_ty0``/``band_tiles_y``: bboxes clamped to the
   band, keys band-local) or the full-frame one (spans indexed by global
-  tile);
+  tile); on the card K4's keyed body with a band-sized key plane;
 * K9g (``rasterize_gbuffer_pallas_binned_band``): K4g over one band;
 * K9d (``rasterize_setup_pallas_binned_band_dist``): K4 over one band
   whose records come from every triangle shard
@@ -986,9 +988,9 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
                               tf, None, width, height)
 
 
-# The keyed body's extent and work items (csrc/raster_keyed.cuh: K4, K4g,
-# K4d and K3, K3b, K3g, K3d), for the bounds in chip_smoke.py and for the
-# tests.
+# The keyed body's extent and work items (csrc/raster_keyed.cuh: K4, K4c,
+# K4g, K4d, K9 and K3, K3b, K3g, K3d), for the bounds in chip_smoke.py and
+# for the tests.
 
 
 def vertex_bbox(ri):
@@ -1006,24 +1008,43 @@ def vertex_bbox(ri):
                         (ys.amax(-1) - half) // SUBPIXEL], dim=-1)
 
 
-def keyed_work_items(offsets, item_records: int, num_supers: int):
-    """The keyed body's work items, numbered tile by tile: (items, 7) i64
+def keyed_work_items(offsets, item_records: int, num_supers: int,
+                     coffsets=None, tiles_x: int | None = None):
+    """The keyed body's work items, numbered tile by tile: (items, 9) i64
     rows (tile, index, items of the tile, first record, end record, first
-    superblock, end superblock).  A tile's span is cut into pieces of at
-    most ``item_records`` (one item for an empty span), and item i of n
-    takes superblocks [i * S / n, (i + 1) * S / n) of the leftover walk."""
+    superblock, end superblock, first coarse record, end coarse record).
+    A tile's records, its span and then (K4c, given ``coffsets`` and the
+    frame's ``tiles_x``) its coarse bin's records, are cut into pieces of
+    at most ``item_records`` (one item for none), and item i of n takes
+    superblocks [i * S / n, (i + 1) * S / n) of the leftover walk.
+    Without ``coffsets`` the coarse ranges are empty."""
     offs = offsets.to(torch.int64).cpu()
     span = offs[1:] - offs[:-1]
-    n = torch.clamp_min(-(-span // item_records), 1)
+    cstart = torch.zeros_like(span)
+    ccount = torch.zeros_like(span)
+    if coffsets is not None:
+        coffs = coffsets.to(torch.int64).cpu()
+        u = torch.arange(span.numel())
+        ctiles_x = -(-tiles_x // COARSE_CB)
+        b = (u // tiles_x // COARSE_CB) * ctiles_x + u % tiles_x // COARSE_CB
+        cstart, ccount = coffs[b], coffs[b + 1] - coffs[b]
+    n = torch.clamp_min(-(-(span + ccount) // item_records), 1)
     tile = torch.repeat_interleave(torch.arange(n.numel()), n)
     first = torch.cumsum(n, 0) - n
     idx = torch.arange(tile.numel()) - first[tile]
     count = n[tile]
-    begin = torch.minimum(offs[tile] + idx * item_records, offs[tile + 1])
+    q0 = idx * item_records
+    begin = torch.minimum(offs[tile] + q0, offs[tile + 1])
     end = torch.minimum(begin + item_records, offs[tile + 1])
+    skip = q0 - span[tile]  # < 0: the item starts in the span
+    cn = ccount[tile]
+    cbegin = cstart[tile] + torch.minimum(skip.clamp(min=0), cn)
+    cend = cstart[tile] + torch.minimum((skip + item_records).clamp(min=0),
+                                        cn)
     return torch.stack([tile, idx, count, begin, end,
                         idx * num_supers // count,
-                        (idx + 1) * num_supers // count], dim=1)
+                        (idx + 1) * num_supers // count, cbegin, cend],
+                       dim=1)
 
 
 def hier_block_hits(supers, blocks, width: int, height: int,
@@ -1262,7 +1283,7 @@ def _keyed_hier_args(supers, blocks, ti, tf, width: int, height: int,
     if items < 1:
         raise ValueError(f"HIER_ITEMS must be positive, got {items}")
     plane = None
-    if items > 1:  # freed after the launch, as _keyed_args' plane
+    if items > 1:  # freed after the launch, as _keyed_launch's plane
         plane = torch.empty(height * width, dtype=torch.int64,
                             device=ti.device)
     return (*args, items, None if plane is None else _ptr(plane)), plane
@@ -1309,30 +1330,48 @@ def _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
             supers.shape[0], _ptr(blocks), _ptr(hier), _ptr(tf))
 
 
-def keyed_items(width: int, height: int, records: int,
-                item_records: int) -> int:
-    """Blocks of a keyed K4/K4g/K4d launch: a bound on the work items, one
-    per tile plus one per ``item_records`` records (``tile_items``)."""
+def keyed_items(width: int, height: int, records: int, item_records: int,
+                coarse_records: int = 0) -> int:
+    """Blocks of a keyed K4/K4c/K4g/K4d/K9 launch over the ``height`` rows
+    of its output: a bound on the work items, one per tile plus one per
+    ``item_records`` records (``tile_items``).  A tile's records are its
+    span and, for K4c, its coarse bin's; a bin serves at most COARSE_CB**2
+    tiles, so the tiles read at most that many times ``coarse_records``.
+    Sizes alone: no host sync."""
     return ((width // TILE_W) * (height // TILE_H)
-            + -(-records // item_records))
+            + -(-(records + COARSE_CB**2 * coarse_records) // item_records))
 
 
-def _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, width: int,
-                height: int):
-    """Check K4/K4g/K4d inputs; returns the launch arguments before the
-    outputs (the records' arguments, the item size ITEM_RECORDS and the
-    item count, the key plane) and the plane, which the call must hold
+def _keyed_launch(device, width: int, height: int, records: int,
+                  coarse_records: int = 0):
+    """The keyed record launches' last arguments before the outputs: the
+    item size ITEM_RECORDS (read at call time), the item count and the key
+    plane of the ``height`` rows; and the plane, which the call must hold
     until it has launched."""
-    args = _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
-                         None, width, height)
     item_records = ITEM_RECORDS
     if item_records < 1:
         raise ValueError(f"ITEM_RECORDS must be positive, got {item_records}")
-    items = keyed_items(width, height, rec_i.shape[0], item_records)
+    items = keyed_items(width, height, records, item_records, coarse_records)
     # Freed after the launch: the caching allocator hands the memory to
     # later work on the same stream only, which runs after both kernels.
-    plane = torch.empty(height * width, dtype=torch.int64, device=hier.device)
-    return (*args[:3], *args[6:], item_records, items, _ptr(plane)), plane
+    plane = torch.empty(height * width, dtype=torch.int64, device=device)
+    return (item_records, items, _ptr(plane)), plane
+
+
+def _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
+                width: int, height: int):
+    """Check K4/K4c/K4g/K4d inputs; returns the launch arguments before the
+    outputs (the records' arguments, K4c's coarse class among them, then
+    ``_keyed_launch``'s) and the key plane, which the call must hold until
+    it has launched."""
+    args = _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
+                         coarse, width, height)
+    if coarse is None:
+        args = (*args[:3], *args[6:])
+    launch, plane = _keyed_launch(
+        hier.device, width, height, rec_i.shape[0],
+        0 if coarse is None else coarse[1].shape[0])
+    return (*args, *launch), plane
 
 
 def raster_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
@@ -1345,7 +1384,7 @@ def raster_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
         raise ValueError("K4 takes no coarse class; use "
                          "raster_binned_coarse_kernel")
     args, _plane = _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier,
-                                tf, width, height)
+                                tf, None, width, height)
     out = _run(_build.load_library().zr_raster_records_keyed, hier.device,
                width, height, *args)
     raster_binned_kernel.launches += 1
@@ -1354,13 +1393,15 @@ def raster_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
 
 def raster_binned_coarse_kernel(offsets, rec_i, rec_f, supers, blocks, hier,
                                 tf, coarse, width: int, height: int):
-    """Launch K4c (``csrc/raster_binned.cu``, record spans plus the coarse
-    class ``coarse`` = (coffsets, crec_i, crec_f)) on the current stream."""
+    """Launch K4c (``csrc/raster_binned.cu``, K4's keyed body over each
+    tile's record span and then its bin's records of the coarse class
+    ``coarse`` = (coffsets, crec_i, crec_f), in work items of at most
+    ITEM_RECORDS records, then the resolve) on the current stream."""
     if coarse is None:
         raise ValueError("K4c needs the coarse class (coffsets, crec_i, "
                          "crec_f)")
-    args = _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
-                         coarse, width, height)
+    args, _plane = _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier,
+                                tf, coarse, width, height)
     out = _run(_build.load_library().zr_raster_records, hier.device, width,
                height, *args)
     raster_binned_coarse_kernel.launches += 1
@@ -1387,7 +1428,7 @@ def gbuffer_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
     if coarse is not None:
         raise ValueError("K4g takes no coarse class")
     args, _plane = _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier,
-                                tf, width, height)
+                                tf, None, width, height)
     out = _run_gbuffer(_build.load_library().zr_gbuffer_records_keyed,
                        hier.device, width, height, *args)
     gbuffer_binned_kernel.launches += 1
@@ -1457,7 +1498,7 @@ def depth_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
     if coarse is not None:
         raise ValueError("K4d takes no coarse class")
     args, _plane = _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier,
-                                tf, width, height)
+                                tf, None, width, height)
     out = _run_depth(_build.load_library().zr_depth_records_keyed,
                      hier.device, width, height, *args)
     depth_binned_kernel.launches += 1
@@ -1555,15 +1596,17 @@ def _band_records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf,
 def raster_binned_band_kernel(offsets, rec_i, rec_f, supers, blocks, hier,
                               tf, coarse, width: int, band_h: int, row0: int,
                               band_local: bool = True):
-    """Launch K9 (``csrc/raster_binned.cu``): K4 over the ``band_h`` rows
-    from global row ``row0``, the spans indexed by band tile
-    (``band_local``) or by global tile."""
+    """Launch K9 (``csrc/raster_binned.cu``): K4's keyed body over the
+    ``band_h`` rows from global row ``row0`` with a band-sized key plane,
+    the spans indexed by band tile (``band_local``) or by global tile."""
     if offsets.ndim != 1:
         raise ValueError("K9 takes one span list; K9d takes one per source")
     args = _band_records_args(offsets, rec_i, rec_f, supers, blocks, hier,
                               tf, coarse, width, band_h, row0, band_local)
+    launch, _plane = _keyed_launch(hier.device, width, band_h,
+                                   rec_i.shape[0])
     out = _run_band(_build.load_library().zr_raster_records_band,
-                    hier.device, width, band_h, row0, *args,
+                    hier.device, width, band_h, row0, *args, *launch,
                     extra=(int(band_local),))
     raster_binned_band_kernel.launches += 1
     return out
