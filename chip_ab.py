@@ -2,9 +2,14 @@
 """Same-call A/B of the raster kernels K3, K3b, K3g, K3d, K4, K4c, K4g,
 K4d, K5, K5g and K9 and the tiled light kernel K7, and of the frames whose
 pace they set, between this tree and another checkout (for example a
-parent commit unpacked with ``git archive``) on one CUDA card.
+parent commit unpacked with ``git archive``) on one CUDA card; or, with
+``--sweep``, this tree's K5 and K5g on the 1M lattice at each work-item
+count of SWEEP_ITEMS; or, with ``--walk``, how their time splits between
+the hierarchy walk, the row tests and the window evaluations (WALK_CUTS).
 
     python3 chip_ab.py --other path/to/checkout
+    python3 chip_ab.py --sweep
+    python3 chip_ab.py --walk
 
 Each tree runs in a process of its own, which builds that tree's kernels,
 in turns: other, this, this, other.  Every run uses chip_smoke.py's sizes
@@ -14,7 +19,8 @@ package.  A run times, with CUDA events after a warm-up: K3 on the flat
 20K lattice's inputs (the hierarchy prepare, the padded 1080p target), K3b
 on band 0 of its 2 bands at 1920x544 (the rows gathered from 2 shards),
 K3g on the lit 20K lattice's inputs and K3d on its 1024x1024 shadow map,
-K5 on the flat 40K lattice (the register body), K4 on the flat and K4g on
+K5 on the flat 40K and 1M lattices' and the 1M lattice's shadow map's
+hierarchy inputs, K4 on the flat and K4g on
 the lit 1M lattice's inputs (``auto``), K9 on band 0 of the flat 1M
 lattice's 2 bands at 1920x544 (the rows gathered from 2 shards, the
 band-local prepare, as ``tiles.band_raster`` makes it), K4c on the 1M
@@ -23,14 +29,15 @@ shadow map, K5g on the lit 1M lattice (``hierarchy``), K7 on the deferred
 test scene's 1080p G-buffer with BASELINE config 3's wide and r2 lights
 (f32 planes), and ms/frame of ``render_animation`` on the flat, the lit
 and the shadowed 20K lattice, the lit and the shadowed 1M lattice and the
-deferred test scene with the wide lights at 1080p, and of the flat 20K
-and 1M lattices in 2 bands rendered in turn (``tiles.bands_in_turn``,
-1920x1088), and the device busy ms per frame of the flat 20K frame and of
-those two banded frames (one traced run each:
-``chip_smoke.device_trace``, the union of the device operations'
-intervals).  Every run must give the same planes (their digests are
-compared).  Prints the card's name and power limit first, then one JSON
-line per run.
+deferred test scene with the wide lights at 1080p, of the flat, lit and
+shadowed 1M lattice through ``binning="hierarchy"`` (K5, K5g, K5 on the
+map), and of the flat 20K and 1M lattices in 2 bands rendered in turn
+(``tiles.bands_in_turn``, 1920x1088), and the device busy ms per frame of
+the flat 20K frame, of the three ``hierarchy`` 1M frames and of those two
+banded frames (one traced run each: ``chip_smoke.device_trace``, the
+union of the device operations' intervals).  Every run must give the
+same planes (their digests are compared).  Prints the card's name and
+power limit first, then one JSON line per run.
 """
 
 from __future__ import annotations
@@ -44,6 +51,163 @@ import sys
 import chip_smoke as cs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# Work items a tile that ``--sweep`` times K5 and K5g at.
+SWEEP_ITEMS = (1, 4, 8, 16, 32, 64)
+# Frames of each traced 1M ``hierarchy`` run.
+BUSY_FRAMES_1M = 5
+# ``--walk``: copies of this tree's package under build/walk/<name>/ whose
+# csrc/raster_keyed.cuh has these edits (text, replacement): "noeval"
+# evaluates no window pixel (rows still tested and prepared), "norows"
+# tests no row of a hit block (the walk, the key clear, the memset, out
+# and resolve remain).  Their planes are wrong; only their times count.
+WALK_CUTS = {
+    "full": (),
+    "noeval": (("for (int f = threadIdx.x; f < total; f += THREADS) {",
+                "for (int f = threadIdx.x; f < 0; f += THREADS) {"),),
+    "norows": (("  const int t = b * RASTER_BLOCK + (int)threadIdx.x;\n",
+                "  if (b >= 0) return;\n"
+                "  const int t = b * RASTER_BLOCK + (int)threadIdx.x;\n"),),
+}
+
+
+def event_ms(fn, reps):
+    """ms per call from CUDA events around ``reps`` calls, after one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def digest(*planes):
+    """The planes' int32 sum: equal planes, equal digests."""
+    import torch
+
+    return int(sum(int(p.contiguous().view(torch.int32).to(torch.int64)
+                       .sum().item()) for p in planes))
+
+
+def renderer(scene_md, **kw):
+    """A 1080p Renderer on the card with ``scene_md`` loaded."""
+    from zrenderer_tpu_torch.engine.config import RenderConfig
+    from zrenderer_tpu_torch.engine.renderer import Renderer
+
+    r = Renderer(RenderConfig(width=cs.WIDTH, height=cs.HEIGHT,
+                              tri_align=256, **kw), device="cuda")
+    r.load_scene(*scene_md)
+    return r
+
+
+def sweep() -> dict:
+    """K5 on the flat and K5g on the lit 1M lattice's hierarchy inputs at
+    each item count of SWEEP_ITEMS (ms a call, CUDA events), every count's
+    planes equal."""
+    from zrenderer_tpu_torch.ops import raster
+    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+
+    w, h = cs.PAD_W, cs.PAD_H
+    lattice = make_stress_scene(cs.LARGE_TRIS)
+    out = {"root": imported_root(), "k5": {}, "k5g": {}}
+    r = renderer(lattice)
+    flat = raster.prepare_raster_inputs(*cs.frame_rows(r))
+    del r
+    r = renderer(lattice, pipeline="lit")
+    r.set_environment(texture=cs.checker_texture())
+    lit = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
+    del r
+    saved = raster.HIER_ITEMS
+    for key, kern, prep in (("k5", raster.raster_hbm_kernel, flat),
+                            ("k5g", raster.gbuffer_hbm_kernel, lit)):
+        ref = None
+        for n in SWEEP_ITEMS:
+            raster.HIER_ITEMS = n
+            out[key][n] = event_ms(lambda: kern(*prep, w, h), 10)
+            d = digest(*kern(*prep, w, h))
+            if ref is not None and d != ref:
+                raise AssertionError(f"{key}: {n} items a tile changed the "
+                                     "planes")
+            ref = d
+    raster.HIER_ITEMS = saved
+    return out
+
+
+def walk() -> dict:
+    """K5 and K5g on the 1M lattice's hierarchy inputs through their hit
+    words, and through K3's and K3g's group walk with the row cap lifted
+    (the same keys; K3g's epilogue): ms a call (CUDA events) and each
+    device operation's ms a call (one trace of 5 calls)."""
+    from zrenderer_tpu_torch.ops import _build, raster
+    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+
+    w, h = cs.PAD_W, cs.PAD_H
+    lib = _build.load_library()
+    lattice = make_stress_scene(cs.LARGE_TRIS)
+    r = renderer(lattice)
+    flat = raster.prepare_raster_inputs(*cs.frame_rows(r))
+    del r
+    r = renderer(lattice, pipeline="lit")
+    r.set_environment(texture=cs.checker_texture())
+    lit = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
+    del r
+
+    def grouped(fn, run, prep):
+        args, _plane = raster._keyed_hier_args(*prep, w, h, max_rows=None)
+        return run(fn, prep[2].device, w, h, *args)
+
+    calls = {
+        "k5 words": lambda: raster.raster_hbm_kernel(*flat, w, h),
+        "k5 groups": lambda: grouped(lib.zr_raster_hier_keyed, raster._run,
+                                     flat),
+        "k5g words": lambda: raster.gbuffer_hbm_kernel(*lit, w, h),
+        "k5g groups": lambda: grouped(lib.zr_gbuffer_hier,
+                                      raster._run_gbuffer, lit),
+    }
+    out = {"root": imported_root()}
+    for name, fn in calls.items():
+        events, _ = cs.device_trace(lambda: [fn() for _ in range(5)])
+        ops = {}
+        for n, _, d in events:
+            ops[n.split("(")[0]] = ops.get(n.split("(")[0], 0.0) + d / 5e3
+        out[name] = {"ms": event_ms(fn, 10), "ops_ms": ops}
+    return out
+
+
+def walk_roots() -> list:
+    """The package copies of WALK_CUTS under build/walk/, built at once."""
+    import shutil
+
+    roots = []
+    for name, cuts in WALK_CUTS.items():
+        root = os.path.join(HERE, "build", "walk", name)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(os.path.join(HERE, "zrenderer_tpu_torch"),
+                        os.path.join(root, "zrenderer_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        path = os.path.join(root, "zrenderer_tpu_torch", "csrc",
+                            "raster_keyed.cuh")
+        with open(path) as f:
+            text = f.read()
+        for old, new in cuts:
+            if old not in text:
+                raise RuntimeError(f"{name}: {old!r} not in {path}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+        roots.append(root)
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from zrenderer_tpu_torch.ops import _build;"
+         " _build.build_library()", root]) for root in roots]
+    if any(b.wait() for b in builds):
+        raise RuntimeError("a --walk variant did not build")
+    return roots
 
 
 def measure() -> dict:
@@ -52,8 +216,6 @@ def measure() -> dict:
 
     import numpy as np
 
-    from zrenderer_tpu_torch.engine.config import RenderConfig
-    from zrenderer_tpu_torch.engine.renderer import Renderer
     from zrenderer_tpu_torch.ops import geometry as tg
     from zrenderer_tpu_torch.ops import light_kernel, raster
     from zrenderer_tpu_torch.parallel import tiles
@@ -61,28 +223,6 @@ def measure() -> dict:
     from zrenderer_tpu_torch.scene.procedural import (make_stress_scene,
                                                       make_triangle_soup)
     from zrenderer_tpu_torch.scene.scene import Scene
-
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def digest(*planes):
-        return int(sum(int(p.contiguous().view(torch.int32).to(torch.int64)
-                           .sum().item()) for p in planes))
-
-    def renderer(scene_md, **kw):
-        r = Renderer(RenderConfig(width=cs.WIDTH, height=cs.HEIGHT,
-                                  tri_align=256, **kw), device="cuda")
-        r.load_scene(*scene_md)
-        return r
 
     def anim_ms(r, frames):
         r.render_animation(num_frames=frames)
@@ -166,10 +306,15 @@ def measure() -> dict:
 
     lattice = make_stress_scene(cs.LARGE_TRIS)
     r = renderer(lattice)
-    prep = raster.prepare_binned_hbm_inputs(*cs.frame_rows(r), w, h)
+    rows = cs.frame_rows(r)
+    prep = raster.prepare_binned_hbm_inputs(*rows, w, h)
     k4 = raster.raster_binned_kernel
     out["k4"]["lattice1M"] = event_ms(lambda: k4(*prep, w, h), 10)
     out["digests"]["k4 lattice1M"] = digest(*k4(*prep, w, h))
+    prep = raster.prepare_raster_inputs(*rows)
+    out["k5"]["lattice1M"] = event_ms(lambda: k5(*prep, w, h), 5)
+    out["digests"]["k5 lattice1M"] = digest(*k5(*prep, w, h))
+    del rows
     args = indexed_args(r, h2)
     _, ti, tf, s = tiles.setups_in_turn(2, *args, w, h2)
     prep = raster.prepare_binned_hbm_inputs(
@@ -222,7 +367,31 @@ def measure() -> dict:
     del prep
     out["frames"]["shadowed lattice1M"] = anim_ms(r, cs.LARGE_FRAMES)
     out["digests"]["shadowed lattice1M"] = digest(r.render()[0])
-    del r, lattice
+    del r
+    # The 1M lattice's frames through `hierarchy`: K5, K5g, K5's depth
+    # plane as the shadow map.
+    hier = dict(binning="hierarchy")
+    paths = {"lattice1M hierarchy": dict(hier),
+             "lit lattice1M hierarchy": dict(hier, pipeline="lit"),
+             "shadowed lattice1M hierarchy": dict(
+                 hier, pipeline="shadowed", shadow_size=cs.SHADOW_SIZE)}
+    for label, kw in paths.items():
+        r = renderer(lattice, **kw)
+        if kw.get("pipeline") == "lit":
+            r.set_environment(texture=cs.checker_texture())
+        elif kw.get("pipeline") == "shadowed":
+            r.set_environment()
+            prep = raster.prepare_raster_inputs(*cs.light_rows(r))
+            out["k5"]["lattice1M map"] = event_ms(lambda: k5(*prep, s, s), 5)
+            out["digests"]["k5 lattice1M map"] = digest(k5(*prep, s, s)[1])
+            del prep
+        out["frames"][label] = anim_ms(r, cs.LARGE_FRAMES)
+        out["busy"][label] = busy_ms(
+            lambda: r.render_animation(num_frames=BUSY_FRAMES_1M),
+            BUSY_FRAMES_1M)
+        out["digests"][label] = digest(r.render()[0])
+        del r
+    del lattice
 
     scene_md = (Scene.load(os.path.join(cs.SCENE_DIR, "scene.bin")),
                 MeshData.load(os.path.join(cs.SCENE_DIR, "meshes.bin")))
@@ -249,24 +418,48 @@ def imported_root() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="root of the other checkout")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time this tree's K5 and K5g at each item count "
+                    "of SWEEP_ITEMS instead")
+    ap.add_argument("--walk", action="store_true",
+                    help="split this tree's K5 and K5g time by the parts "
+                    "WALK_CUTS leaves out, instead")
     ap.add_argument("--worker", help="(internal) measure the package of "
                     "this checkout root")
+    ap.add_argument("--walk-worker", action="store_true",
+                    help="(internal) the worker runs walk(), not measure()")
     args = ap.parse_args(argv)
     if args.worker:
         # The package from the given root, chip_smoke from this tree.
         root = os.path.abspath(args.worker)
         sys.path[:] = [root] + [p for p in sys.path
                                 if os.path.abspath(p or ".") != HERE]
-        res = measure()
+        res = walk() if args.walk_worker else measure()
         if os.path.abspath(res["root"]) != root:
             raise RuntimeError(f"imported {res['root']}, not {root}")
         print(json.dumps(res), flush=True)
         return 0
-    other = os.path.abspath(args.other)
+    if not (args.sweep or args.walk or args.other):
+        ap.error("give --other, --sweep or --walk")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card (name, power limit): {smi}", flush=True)
+    if args.sweep:
+        print(json.dumps(sweep()), flush=True)
+        return 0
+    if args.walk:
+        for name, root in zip(WALK_CUTS, walk_roots()):
+            res = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--worker", root,
+                 "--walk-worker"], capture_output=True, text=True)
+            if res.returncode != 0:
+                print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
+                return res.returncode
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+            print(json.dumps({"variant": name, **line}), flush=True)
+        return 0
+    other = os.path.abspath(args.other)
     runs = []
     for label, root in (("other", other), ("this", HERE), ("this", HERE),
                         ("other", other)):

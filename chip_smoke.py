@@ -17,13 +17,16 @@ lines and seconds:
    fan rows, and exact depth ties between duplicated triangles;
 4. K3 (hierarchy raster) against its plain version, bit-exact: the
    20K-triangle lattice at 1080p and the soup;
-4k. ``hier_cases`` for K3 and K3b (the keyed body over the hierarchy):
-    every plane bit-exact against the plain version at HIER_ITEMS and at
-    64 work items a tile, the two equal (exact ties split across items, a
-    row at z == 1.0 left clear, a subnormal and a NaN z, -0.0 ties both
-    ways, whole tiles, the clipped soup, an empty scene); K3b's cases at
-    1088 rows with its bands at rows 0 and 544, laid side by side equal to
-    K3's frame;
+4k. ``hier_cases`` for K3, K3b, K5 and K5g (the keyed body over the
+    hierarchy): every plane bit-exact against the plain version at
+    HIER_ITEMS and at 64 work items a tile, the two equal (exact ties split
+    across items, a row at z == 1.0 left clear, a subnormal and a NaN z,
+    -0.0 ties both ways, whole tiles, the clipped soup, an empty scene);
+    K3b's cases at 1088 rows with its bands at rows 0 and 544, laid side
+    by side equal to K3's frame; K5g's on lit rows in all 13 planes, with
+    its epilogue where a row passed with den < 0 (-0.0 where K3g's writes
+    +0.0); K5's and K5g's also a soup spread over 300 superblocks
+    (1 228 800 rows);
 4b. K4 (record streaming), K4c (with the coarse class), K5 (streamed
     hierarchy) and K6 (global pair lists) against their plain versions,
     bit-exact: the 40K lattice at 1080p (above the 32768-row bound; K6 on
@@ -225,6 +228,7 @@ lines and seconds:
    trace at its main-path shape (K4, K4c, K4g, K4d and K9, and K3, K3b,
    K3g and K3d with more than one work item a tile: the sum of a call's
    three device operations, the memset, the item kernel and the resolve;
+   K5 and K5g four, the hit words' kernel first;
    K4 also on soup1M through ``auto``; the keyed kernels bounded by their
    window pixel evaluations and bytes, ``keyed_work``), and a profiled
    ``render_animation`` run
@@ -870,6 +874,36 @@ def main(argv=None) -> int:
             width, height, normal_matrices=torch.from_numpy(nm).to(dev),
             material_table=torch.from_numpy(table).to(dev))
 
+    # Blocks that hold the rows of many_supers_rows: in superblock groups 0,
+    # 2, 3, 4, 17 and 33 (none in group 1; superblocks 3-35, 150 and 299).
+    MANY_SUPERS_BLOCKS = (3, 40, 200, 520, 530, 600, 700, 760, 767, 800, 900,
+                          1000, 1029, 1140, 4800, 4805, 9590, 9599)
+
+    def many_supers_rows(lit, w, h, supers=300):
+        """A 2000-triangle soup's live rows at (w, h) spread in order over
+        the blocks MANY_SUPERS_BLOCKS of ``supers`` superblocks (1 228 800
+        rows: 38 groups of K3's walk, past K5's count chunk of 256
+        superblocks and its word chunks of 32), every other row live with
+        an empty bbox, so the plain versions visit the soup's rows alone."""
+        ti, tf = (lit_rows if lit else setup_rows)(
+            *make_triangle_soup(2000, seed=13, extent=4.0), w, h)
+        live = torch.nonzero(ti[:, tg.I_VALID] > 0).flatten()
+        rows = supers * raster.SUPER_BLOCK * raster.RASTER_BLOCK
+        big_i = torch.zeros((rows, tg.NI32), dtype=torch.int32, device=dev)
+        big_i[:, tg.I_VALID] = 1
+        big_i[:, [tg.I_JMIN, tg.I_IMIN]] = 1 << 30
+        big_i[:, [tg.I_JMAX, tg.I_IMAX]] = -(1 << 30)
+        big_i[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
+        big_f = torch.zeros((rows, tg.NF32), dtype=torch.float32, device=dev)
+        parts = torch.tensor_split(live, len(MANY_SUPERS_BLOCKS))
+        for b, part in zip(MANY_SUPERS_BLOCKS, parts):
+            if len(part) > raster.RASTER_BLOCK:
+                raise AssertionError("many_supers_rows: a block overflows")
+            dst = b * raster.RASTER_BLOCK + torch.arange(len(part),
+                                                         device=dev)
+            big_i[dst], big_f[dst] = ti[part], tf[part]
+        return big_i, big_f
+
     def compare_gbuffer(key, label, kernel_fn, plain_fn, prepared, w, h,
                         plain_shape=None):
         """G-buffer kernel vs plain version on the same prepared inputs:
@@ -1312,13 +1346,14 @@ def main(argv=None) -> int:
               "raster_records_band_keyed_kernel; the resolve kernels "
               "none)")
         smem = _build.load_library().zr_keyed_hier_smem_bytes()
-        for key in ("k3", "k3b", "k3g", "k3d"):
+        for key in ("k3", "k3b", "k3g", "k3d", "k5", "k5g"):
             results[key]["smem_bytes"] = smem
-        print(f"  K3/K3b/K3g/K3d keyed body: {smem} bytes of dynamic shared "
-              "memory a block (raster_hier_keyed_kernel, "
+        print(f"  K3/K3b/K3g/K3d/K5/K5g keyed body: {smem} bytes of dynamic "
+              "shared memory a block (raster_hier_keyed_kernel, "
               "raster_hier_band_keyed_kernel, gbuffer_hier_keyed_kernel, "
-              f"depth_hier_keyed_kernel; {raster.HIER_ITEMS} work item(s) "
-              "a tile)")
+              "depth_hier_keyed_kernel, raster_hbm_keyed_kernel, "
+              f"gbuffer_hbm_keyed_kernel; {raster.HIER_ITEMS} work item(s) "
+              "a tile; hier_hit_words_kernel and the resolve kernels none)")
         return info.seconds
 
     # -- 3. K1 vs plain ---------------------------------------------------
@@ -1562,25 +1597,31 @@ def main(argv=None) -> int:
     def hier_cases(key):
         """The keyed hierarchy body's own cases for K3 (``key`` "k3"), K3b
         ("k3b": each case at 1088 rows, its bands at rows 0 and 544), K3g
-        ("k3g", on lit rows, all 13 planes) or K3d ("k3d"), each bit-exact
-        against the plain version in every row at HIER_ITEMS and at
-        HIER_SPLIT_ITEMS work items a tile, the two equal (K3b's bands laid
-        side by side also equal K3's frame): exact ties between duplicated
-        triangles (to the first row, split across items), a row at z ==
-        1.0 (no pixel latched), a subnormal and a NaN z, K3g's epilogue
-        where a row passed with den < 0, -0.0 ties both ways (the first
-        row's sign kept), triangles that cover whole tiles, the clipped
-        soup at the padded target, and an empty scene."""
+        ("k3g", on lit rows, all 13 planes), K3d ("k3d"), K5 ("k5") or K5g
+        ("k5g", on lit rows, all 13 planes), each bit-exact against the
+        plain version in every row at HIER_ITEMS and at HIER_SPLIT_ITEMS
+        work items a tile, the two equal (K3b's bands laid side by side
+        also equal K3's frame): exact ties between duplicated triangles (to
+        the first row, split across items), a row at z == 1.0 (no pixel
+        latched), a subnormal and a NaN z, K3g's and K5g's epilogues where
+        a row passed with den < 0, -0.0 ties both ways (the first row's
+        sign kept), triangles that cover whole tiles, the clipped soup at
+        the padded target, an empty scene, and for K5 and K5g a soup spread
+        over 300 superblocks (``many_supers_rows``)."""
         depth, band = key == "k3d", key == "k3b"
-        kern = {"k3": k3, "k3b": k3b, "k3g": k3g, "k3d": k3d}[key]
+        kern = {"k3": k3, "k3b": k3b, "k3g": k3g, "k3d": k3d, "k5": k5,
+                "k5g": k5g}[key]
         plain = {"k3": raster.raster_hier_plain,
                  "k3b": raster.raster_hier_band_plain,
                  "k3g": raster.gbuffer_hier_plain,
-                 "k3d": raster.depth_hier_plain}[key]
+                 "k3d": raster.depth_hier_plain,
+                 "k5": raster.raster_hier_plain,
+                 "k5g": raster.gbuffer_hbm_plain}[key]
         cmp = {"k3": compare, "k3b": compare, "k3g": compare_gbuffer,
-               "k3d": compare_depth}[key]
-        rows_of = lit_rows if key == "k3g" else setup_rows
-        lit = key == "k3g"
+               "k3d": compare_depth, "k5": compare,
+               "k5g": compare_gbuffer}[key]
+        lit = key in ("k3g", "k5g")
+        rows_of = lit_rows if lit else setup_rows
 
         def planes(out):
             return [out] if depth else list(out)
@@ -1648,11 +1689,18 @@ def main(argv=None) -> int:
         check("subnormal z (A) and NaN z (B)",
               pair_rows(za_a=(1e-45, 0.0, 0.0), za_b=(float("nan"),) * 3,
                         h=ph, lit=lit), 128, ph)
-        if lit:  # K3g's epilogue form where a row passed with den < 0
+        if lit:  # K3g's or K5g's epilogue where a row passed with den < 0
             ti_n, tf_n = pair_rows(lit=True)
             a = int(torch.nonzero(ti_n[:, tg.I_VALID] > 0)[0].item())
             tf_n[a, tg.F_RW0:tg.F_RW0 + 3] *= -1.0
-            check("den < 0 (A's 1/w plane negated)", (ti_n, tf_n), 128, 32)
+            out = check("den < 0 (A's 1/w plane negated)", (ti_n, tf_n), 128,
+                        32)
+            uncovered = (out[1] < 1.0) & (out[0] == -(1 << 24))
+            neg = sum(int(torch.signbit(p[uncovered]).sum().item())
+                      for p in out[2:7])
+            print(f"    {neg} uv/normal values at -0.0 where den < 0")
+            if (neg > 0) != (key == "k5g"):
+                raise AssertionError(f"{key}: the epilogue's form")
         for za_a, za_b in (((-0.0,) * 3, (0.0,) * 3),
                            ((0.0,) * 3, (-0.0,) * 3)):
             out = planes(check(f"-0.0 tie (A {za_a[0]}, B {za_b[0]})",
@@ -1668,6 +1716,9 @@ def main(argv=None) -> int:
               pair_rows(w=w, h=h, lit=lit), w, h)
         check("clipped soup (whole tiles near the camera)",
               rows_of(*clipped_soup(), WIDTH, HEIGHT), PAD_W, PAD_H)
+        if key in ("k5", "k5g"):
+            check("soup over 300 superblocks",
+                  many_supers_rows(lit, w, h), w, h)
         t = tg.capped_rows(64)
         ti = torch.zeros((t + (-t) % 64, tg.NI32), dtype=torch.int32,
                          device=dev)
@@ -1683,11 +1734,13 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{key}: empty scene differs")
         print(f"  empty scene: {key} equals its plain version (clear)")
 
-    # -- 4k. K3's and K3b's keyed cases --------------------------------------
-    @phase("4k K3/K3b keyed hierarchy cases")
+    # -- 4k. K3's, K3b's, K5's and K5g's keyed cases -------------------------
+    @phase("4k K3/K3b/K5/K5g keyed hierarchy cases")
     def k3_keyed_cases():
         hier_cases("k3")
         hier_cases("k3b")
+        hier_cases("k5")
+        hier_cases("k5g")
 
     # -- 4b. K4, K4c, K5, K6 vs plain ---------------------------------------
     @phase("4b K4/K4c/K5/K6 kernels vs plain versions")
@@ -2988,11 +3041,12 @@ def main(argv=None) -> int:
                     "k3": "raster_hier_keyed_kernel",
                     "k4": "raster_records_kernel",
                     "k4_coarse": "raster_records_coarse_keyed_kernel",
-                    "k5": "raster_hier_kernel", "k6": "raster_lists_kernel",
+                    "k5": "raster_hbm_keyed_kernel",
+                    "k6": "raster_lists_kernel",
                     "k2g": "gbuffer_small_kernel",
                     "k3g": "gbuffer_hier_keyed_kernel",
                     "k4g": "gbuffer_records_keyed_kernel",
-                    "k5g": "gbuffer_hbm_kernel",
+                    "k5g": "gbuffer_hbm_keyed_kernel",
                     "k6g": "gbuffer_lists_kernel",
                     "k2d": "depth_small_kernel",
                     "k3d": "depth_hier_keyed_kernel",
@@ -3023,40 +3077,55 @@ def main(argv=None) -> int:
                      "k4g": "gbuffer_records_resolve_kernel",
                      "k4d": "depth_records_resolve_kernel",
                      "k9": "raster_records_band_resolve_kernel"}
-    # K3, K3b, K3g and K3d, with more than one work item a tile
+    # K3, K3b, K3g, K3d, K5 and K5g, with more than one work item a tile
     # (raster.HIER_ITEMS), issue the same three; with one, the item kernel
     # alone.
     hier_resolve_names = {"k3": "raster_hier_resolve_kernel",
                           "k3b": "raster_hier_band_resolve_kernel",
                           "k3g": "gbuffer_hier_resolve_kernel",
-                          "k3d": "depth_hier_resolve_kernel"}
+                          "k3d": "depth_hier_resolve_kernel",
+                          "k5": "raster_hbm_resolve_kernel",
+                          "k5g": "gbuffer_hbm_resolve_kernel"}
+    # K5 and K5g first write the tiles' hit words: one more device
+    # operation a call, before the others.
+    HIT_WORDS_KERNEL = "hier_hit_words_kernel"
     port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
-                    | set(hier_resolve_names.values()))
+                    | set(hier_resolve_names.values()) | {HIT_WORDS_KERNEL})
 
     def resolve_of(key):
         """The resolve kernel of a call of kernel ``key``, or None for a
-        call of one device operation."""
+        call without one."""
         if key in hier_resolve_names and raster.HIER_ITEMS > 1:
             return hier_resolve_names[key]
         return resolve_names.get(key)
 
+    def call_ops(key):
+        """The device operations of a call of kernel ``key``, in order:
+        K5's and K5g's hit words, the key plane's memset where a resolve
+        follows, the item kernel (kernel_names), the resolve."""
+        resolve = resolve_of(key)
+        ops = [HIT_WORDS_KERNEL] if key in ("k5", "k5g") else []
+        ops += ["Memset"] if resolve else []
+        return ops + [kernel_names[key]] + ([resolve] if resolve else [])
+
     def call_durations(key, events):
         """Device us of each call of kernel ``key`` in a trace's events:
-        its kernel's duration, and for K4/K4g/K4d (K3/K3b/K3g/K3d with
-        several items a tile) the sum of a call's three device operations, the
-        memset just before the item kernel, the item kernel and the
-        resolve kernel just after it.  Such a call without all three
+        the sum of its ``call_ops``, adjacent in time order (for K1 its
+        kernel alone; for K4/K4g/K4d, or K3/K3b/K3g/K3d with several items
+        a tile, the memset, the item kernel and the resolve kernel; K5 and
+        K5g the hit words' kernel before them).  A call without all of them
         counts as no call, so the trace reads short."""
-        name, resolve = kernel_names[key], resolve_of(key)
-        if resolve is None:
-            return [d for n, _, d in events if name in n]
+        ops = call_ops(key)
+        if len(ops) == 1:
+            return [d for n, _, d in events if ops[0] in n]
         ev = sorted(events, key=lambda e: e[1])
+        k = ops.index(kernel_names[key])
         out = []
         for i, (n, _, d) in enumerate(ev):
-            if (name in n and 0 < i < len(ev) - 1
-                    and "Memset" in ev[i - 1][0]
-                    and resolve in ev[i + 1][0]):
-                out.append(ev[i - 1][2] + d + ev[i + 1][2])
+            run = ev[i - k:i - k + len(ops)] if i >= k else []
+            if (ops[k] in n and len(run) == len(ops)
+                    and all(o in e[0] for o, e in zip(ops, run))):
+                out.append(sum(e[2] for e in run))
         return out
 
     def traced_kernel_ms(keys, fn, attempts=3):
@@ -4244,7 +4313,7 @@ def main(argv=None) -> int:
             "k4": (raster.prepare_binned_hbm_inputs(*rows_lattice, PAD_W,
                                                     PAD_H), "lattice1M", 5),
             "k5": (raster.prepare_raster_inputs(*rows_lattice), "lattice1M",
-                   3),
+                   10),
             "k4_coarse": (raster.prepare_binned_hbm_inputs(
                 *rows_soup, PAD_W, PAD_H,
                 coarse_cap=raster.TILE_LISTS_COARSE_CAP), "soup1M", 3),
@@ -4258,7 +4327,7 @@ def main(argv=None) -> int:
             "k4g": (raster.prepare_binned_hbm_inputs(*rows_lit_big, PAD_W,
                                                      PAD_H), "lattice1M", 5),
             "k5g": (raster.prepare_raster_inputs(*rows_lit_big), "lattice1M",
-                    3),
+                    10),
             "k6g": (raster.prepare_binned_inputs(*rows_k6g, PAD_W, PAD_H),
                     "lattice20k", 20),
             "k2d": (raster.prepare_binned_small(*light_rows(r_sh), S, S),
@@ -4277,7 +4346,7 @@ def main(argv=None) -> int:
                 (key,), lambda: [kern(*prep_k, w, h) for _ in range(reps)])
             results[key]["ms"] = ms[key]
             if key in resolve_names or key in hier_resolve_names:
-                ops = 1 if resolve_of(key) is None else 3
+                ops = len(call_ops(key))
                 results[key]["device_ops_per_call"] = ops
                 names = sorted({n.split("(")[0] for n, _, _ in events})
                 print(f"  {key}: {len(events)} device ops for {reps} calls "
@@ -4545,7 +4614,7 @@ def main(argv=None) -> int:
             if key in ("k1", "k2g", "k2d"):
                 pairs = (int(prep_k[0].sum().item())
                          + tile_pairs(prep_k[4], w, h))
-            elif key in ("k3", "k3g", "k3d"):
+            elif key in ("k3", "k3g", "k3d", "k5", "k5g"):
                 pairs = tile_pairs(prep_k[2], w, h)
             else:
                 pairs = tile_pairs(rows_of[key][0], w, h)
@@ -4558,7 +4627,7 @@ def main(argv=None) -> int:
                     prep_k, w, h, HEIGHT if h == PAD_H else h, planes,
                     None if key.endswith("d") else kern(*prep_k, w, h)[1],
                     WINNER_GBUF_BYTES if key.endswith("g") else WINNER_BYTES,
-                    strict=key in ("k3", "k3g"))
+                    strict=key in ("k3", "k3g", "k5", "k5g"))
             set_bound(key, flat_inputs(prep_k), pairs, w, h, shape,
                       planes=planes, evals=evals, nbytes=nbytes)
             print(f"  {key} {shape} {w}x{h}: kernel {res['ms']:.4f} "

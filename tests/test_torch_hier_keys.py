@@ -1,9 +1,9 @@
 """The keyed hierarchy body's rules (zrenderer_tpu_torch/csrc/raster_hier.cu
-``keyed_hier`` over csrc/raster_keyed.cuh: K3, K3b, K3g and K3d), through
-the mirrors below, the work-item helpers ``hier_block_hits`` and
-``hier_work_items`` and the window helper ``vertex_bbox`` of
-zrenderer_tpu_torch/ops/raster.py, on setup rows from the JAX package's
-NumPy geometry:
+``keyed_hier`` and ``keyed_hier_words`` over csrc/raster_keyed.cuh: K3,
+K3b, K3g, K3d, K5 and K5g), through the mirrors below, the work-item
+helpers ``hier_block_hits``, ``hier_work_items`` and ``hier_hit_words``
+and the window helper ``vertex_bbox`` of zrenderer_tpu_torch/ops/raster.py,
+on setup rows from the JAX package's NumPy geometry:
 
 * (a) keys: the minimum of K3's, K3b's and K3g's (z order bits, row id)
   keys under the clear key (1.0, 0), and of K3d's (z order bits, row id,
@@ -19,18 +19,24 @@ NumPy geometry:
   ``raster_hier_band_plain`` (K3b: two bands at two row bases, the
   tiles' rows global and the planes band-local), ``depth_hier_plain`` and,
   on lit rows (random uv, normals and per-triangle materials),
-  ``gbuffer_hier_plain`` in all 13 planes as int32: the padded soup (its
-  rows below the geometry), the duplicated soup with items of one hit
-  block (exact ties split across items), the 20K lattice, the edge map, a
-  row at z == 1.0 (stays clear), a subnormal and a NaN z, and -0.0 ties
-  both ways;
+  ``gbuffer_hier_plain`` (K3g) and ``gbuffer_hbm_plain`` (K5g: its own
+  epilogue, which the den < 0 case tells from K3g's) in all 13 planes as
+  int32, K5 against ``raster_hier_plain``: the padded soup (its rows below
+  the geometry), the duplicated soup with items of one hit block (exact
+  ties split across items), the 20K lattice, the edge map, a row at z ==
+  1.0 (stays clear), a subnormal and a NaN z, and -0.0 ties both ways;
 * (d) the item table cuts each tile's hit blocks into consecutive shares,
   as the kernel's walk does over groups of 8 superblocks at any
   superblock count, and the hit blocks hold every row the walk admits, on
-  a prepare above 32768 rows too.
+  a prepare above 32768 rows too;
+* (e) K5's and K5g's walk over the hit words (``hier_hit_words``) gives
+  every hit block the item of ``hier_work_items``, up to 300 superblocks,
+  and on 135 168 rows (five groups of 8 superblocks) K5 and K5g equal
+  their plain versions at 1, 2 and 16 items, a share starting past a
+  group and ending inside one.
 
 The CUDA kernels are held against the plain versions on the card by
-chip_smoke.py (phases 4g, 4d, 5l and 5s).
+chip_smoke.py (phases 4k, 4b, 4g, 4d, 5b, 5l and 5s).
 """
 
 import numpy as np
@@ -84,12 +90,14 @@ def _walk_pairs(hier, blocks, supers, width: int, height: int,
 
 
 def _resolve_winners(keys, ti, tf, width: int, height: int,
-                     gbuffer: bool = True, row0: int = 0):
+                     gbuffer: bool = True, row0: int = 0,
+                     masked_inv: bool = False):
     """K3g's store: the winner of each (H, W) key (its id; none where the
     key is the clear one) re-evaluated at the pixel, its z (-0.0 kept),
     colour, uv and normal numerators and constants, then K3g's epilogue
-    covered ? buf * 1/den : 0.  Returns the GBUFFER_PLANES planes; without
-    ``gbuffer`` K3's store, the packed colour and depth planes.  The keys'
+    covered ? buf * 1/den : 0 (``masked_inv``: K5g's, buf * (covered ?
+    1/den : 0)).  Returns the GBUFFER_PLANES planes; without ``gbuffer``
+    K3's and K5's store, the packed colour and depth planes.  The keys'
     first row is global row ``row0`` (a band's)."""
     th, tw = tr.TILE_H, tr.TILE_W
     tiles_x = width // tw
@@ -112,20 +120,20 @@ def _resolve_winners(keys, ti, tf, width: int, height: int,
               for name, p in out.items()}
     if not gbuffer:
         return tr._resolve_planes(planes)
-    return tr._resolve_gbuffer(planes, masked_inv=False)
+    return tr._resolve_gbuffer(planes, masked_inv=masked_inv)
 
 
 def keyed_hier_plain(supers, blocks, ti, tf, width: int, height: int,
                      depth: bool, items: int, gbuffer: bool = True,
-                     row0: int = 0):
-    """K3g (or with ``depth`` K3d, without ``gbuffer`` K3) as the keyed
-    body computes it over the hierarchy alone: each tile's hit blocks cut
-    into ``items`` work items (``tr.hier_work_items``), each item's keys
-    over its rows' windows (a scatter min; a key at or above the clear one
-    lowers nothing), the items' keys merged by their minimum, then the
-    store.  ``row0``: K3b, the ``height`` rows from global row ``row0``
-    (tiles, windows and edge functions at global rows, the keys and planes
-    band-local)."""
+                     row0: int = 0, masked_inv: bool = False):
+    """K3g (with ``masked_inv`` K5g, with ``depth`` K3d, without
+    ``gbuffer`` K3 and K5) as the keyed body computes it over the hierarchy
+    alone: each tile's hit blocks cut into ``items`` work items
+    (``tr.hier_work_items``), each item's keys over its rows' windows (a
+    scatter min; a key at or above the clear one lowers nothing), the
+    items' keys merged by their minimum, then the store.  ``row0``: K3b,
+    the ``height`` rows from global row ``row0`` (tiles, windows and edge
+    functions at global rows, the keys and planes band-local)."""
     th, tw = tr.TILE_H, tr.TILE_W
     tiles_x = width // tw
     num_tiles = tiles_x * (height // th)
@@ -152,7 +160,8 @@ def keyed_hier_plain(supers, blocks, ti, tf, width: int, height: int,
     keys = tr._frame(merged.reshape(height // th, tiles_x, th, tw))
     if depth:
         return depth_key_z(keys)
-    return _resolve_winners(keys, ti, tf, width, height, gbuffer, row0)
+    return _resolve_winners(keys, ti, tf, width, height, gbuffer, row0,
+                            masked_inv)
 
 
 # (a) keys
@@ -327,36 +336,39 @@ def _bands(h: int):
     return [(0, r), (r, max(h - r, tr.TILE_H))]
 
 
-@pytest.mark.parametrize("kernel", ["k3", "k3b", "k3g", "k3d"])
+@pytest.mark.parametrize("kernel", ["k3", "k3b", "k3g", "k3d", "k5", "k5g"])
 @pytest.mark.parametrize("name", list(HIER_ITEM_CASES))
 def test_items_merged_equal_the_plain_versions(name, kernel):
     build, items, shows = HIER_ITEM_CASES[name]
     (ti, tf), (w, h) = build()
     prep = tr.prepare_raster_inputs(ti, tf)
-    depth, gbuffer = kernel == "k3d", kernel == "k3g"
+    depth, gbuffer = kernel == "k3d", kernel in ("k3g", "k5g")
     if depth:
         got = keyed_hier_plain(*prep, w, h, True, items)
         ref = tr.depth_hier_plain(*prep, w, h)
         _bits(got.numpy(), ref.numpy())
         z, color = ref, None
     elif gbuffer:
-        got = keyed_hier_plain(*prep, w, h, False, items)
-        ref = tr.gbuffer_hier_plain(*prep, w, h)
+        # K3g and K5g: one walk and key, each kernel's epilogue.
+        k5g = kernel == "k5g"
+        got = keyed_hier_plain(*prep, w, h, False, items, masked_inv=k5g)
+        ref = (tr.gbuffer_hbm_plain if k5g
+               else tr.gbuffer_hier_plain)(*prep, w, h)
         assert len(got) == len(ref) == tr.GBUFFER_PLANES
         for a, b in zip(got, ref):
             _bits(a.numpy(), b.numpy())
         z, color = ref[1], ref[0]
     else:
-        # K3, or K3b's two bands: colour and depth as int32, each band
-        # against the plain K3b at its row base, laid side by side equal
-        # to the plain K3 frame.
-        bands = [(0, h)] if kernel == "k3" else _bands(h)
+        # K3 and K5 (their plain version is one), or K3b's two bands:
+        # colour and depth as int32, each band against the plain K3b at its
+        # row base, laid side by side equal to the plain K3 frame.
+        bands = _bands(h) if kernel == "k3b" else [(0, h)]
         outs = []
         for row0, band_h in bands:
             got = keyed_hier_plain(*prep, w, band_h, False, items,
                                    gbuffer=False, row0=row0)
-            ref = (tr.raster_hier_plain(*prep, w, h) if kernel == "k3"
-                   else tr.raster_hier_band_plain(*prep, w, band_h, row0))
+            ref = (tr.raster_hier_band_plain(*prep, w, band_h, row0)
+                   if kernel == "k3b" else tr.raster_hier_plain(*prep, w, h))
             assert tuple(got[0].shape) == (band_h, w)
             for a, b in zip(got, ref):
                 _bits(a.numpy(), b.numpy())
@@ -391,8 +403,17 @@ def test_items_merged_equal_the_plain_versions(name, kernel):
         uncovered = (z < 1.0) & (color == -(1 << 24))
         assert int(uncovered.sum()) > 0
         if gbuffer:
-            for p in ref[2:7]:  # uv and normal: +0.0 where den <= 0
-                assert not bool(torch.signbit(p[uncovered]).any())
+            # uv and normal where den <= 0: K3g's epilogue writes +0.0,
+            # K5g's buf * 0 (-0.0 where buf < 0); the other planes agree.
+            k3g = tr.gbuffer_hier_plain(*prep, w, h)
+            signed = [bool(torch.signbit(p[uncovered]).any())
+                      for p in ref[2:7]]
+            assert any(signed) == (kernel == "k5g")
+            differ = [not torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                      for a, b in zip(ref, k3g)]
+            assert any(differ[2:7]) == (kernel == "k5g")
+            assert not any(differ[:2] + differ[7:])
     elif shows in ("neg_zero", "pos_zero"):
         neg = int((torch.signbit(z) & (z == 0.0)).sum())
         assert (neg > 0) == (shows == "neg_zero")
@@ -486,3 +507,142 @@ def test_hit_blocks_match_the_walk(build):
     # A band's tiles are the frame's tile rows from its row base.
     band = tr.hier_block_hits(supers, blocks, w, h // 2, h // 2)
     assert torch.equal(band, hits[hits.shape[0] // 2:])
+
+
+# K5 and K5g's walk reads the hit words (csrc/raster_hier.cu
+# hier_hit_words_kernel) a chunk of this many superblocks at a time when it
+# counts the superblocks before an item's share (THREADS), and this many
+# words at a time when it walks the share (HIT_WORDS).
+COUNT_CHUNK = 256
+HIT_WORDS = 32
+
+
+def _words_walk(words, before, count, items: int):
+    """The kernel's walk of one tile's hit words (``tr.hier_hit_words``,
+    one tile's row of each): item i's share [h0, h1) = [i H / n, (i + 1) H
+    / n); the superblocks whose hit blocks all lie before h0 counted a
+    COUNT_CHUNK at a time (stopping at the first chunk not all counted),
+    then the words from the first other superblock, HIT_WORDS at a time,
+    each set bit a rank.  Returns the item of each block (-1 where none)."""
+    s = len(words)
+    total = int(count)
+    out = [-1] * (s * tr.SUPER_BLOCK)
+    for i in range(items):
+        h0, h1 = i * total // items, (i + 1) * total // items
+        first = 0
+        for c in range(0, s + COUNT_CHUNK, COUNT_CHUNK):
+            n = sum(1 for sb in range(c, min(c + COUNT_CHUNK, s))
+                    if before[sb] + bin(words[sb]).count("1") <= h0)
+            first += n
+            if n < COUNT_CHUNK:
+                break
+        h = int(before[first]) if first < s else total
+        for c in range(first, s, HIT_WORDS):
+            if h >= h1:
+                break
+            for sb in range(c, min(c + HIT_WORDS, s)):
+                m = int(words[sb])
+                while m and h < h1:
+                    j = (m & -m).bit_length() - 1
+                    if h >= h0:
+                        out[sb * tr.SUPER_BLOCK + j] = i
+                    m &= m - 1
+                    h += 1
+                if h >= h1:
+                    break
+    return out
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_hit_words_walk_cuts_each_tiles_hit_blocks(seed):
+    """K5's and K5g's walk over ``tr.hier_hit_words`` gives every hit block
+    the item ``tr.hier_work_items`` names, at up to 300 superblocks (the
+    count's chunks of 256 and the walk's chunks of 32 crossed)."""
+    rng = np.random.default_rng(100 + seed)
+    tiles = int(rng.integers(1, 6))
+    supers = int(rng.choice([1, 9, 33, 257, 300]))
+    hits = torch.from_numpy(rng.random((tiles, supers * tr.SUPER_BLOCK))
+                            < rng.choice([0.0, 0.002, 0.05, 1.0]))
+    if supers > COUNT_CHUNK:  # a share that starts past the first chunk
+        hits[-1, :(COUNT_CHUNK + 3) * tr.SUPER_BLOCK] = False
+        hits[-1, -5 * tr.SUPER_BLOCK:] = True
+    hits[0] = False  # a tile no row meets
+    words, before, count = tr.hier_hit_words(hits)
+    assert words.shape == before.shape == (tiles, supers)
+    assert torch.equal(count, hits.sum(1))
+    for items in (1, 2, 16, int(rng.integers(3, 80))):
+        work = tr.hier_work_items(hits, items)
+        for t in range(tiles):
+            got = _words_walk(words[t].tolist(), before[t].tolist(),
+                              count[t], items)
+            assert got == work[t].tolist()
+
+
+def _many_groups(lit: bool):
+    """Five groups of the K3 walk's 8 superblocks (33 superblocks, 135 168
+    rows, at 256x64): a soup's live rows spread in order over 13
+    blocks in superblock groups 0, 2, 3 and 4 (none in group 1; group 4's in
+    superblock 32, past the first HIT_WORDS words), the other rows live with
+    an empty bbox, so the plain versions visit the soup's rows alone.  The
+    3 blocks of group 0 hold 30 rows left of column 128 (the right tiles'
+    items start past group 0), the other 10 the rows after them."""
+    from zrenderer_tpu.scene.procedural import make_triangle_soup
+    ti, tf = _rows(*make_triangle_soup(300, seed=9, extent=4.0), 256, 64,
+                   lit=lit, seed=3)
+    live = torch.nonzero(ti[:, g.I_VALID] > 0).flatten()
+    left = live[ti[live, g.I_JMAX] < 128][:30]
+    parts = (torch.tensor_split(left, 3)
+             + torch.tensor_split(live[live > left[-1]], 10))
+    hit_blocks = [3, 40, 200, 520, 530, 600, 700, 760, 767, 800, 900, 1000,
+                  1029]
+    rows = 33 * tr.SUPER_BLOCK * tr.RASTER_BLOCK
+    big_i = torch.zeros((rows, g.NI32), dtype=torch.int32)
+    big_i[:, g.I_VALID] = 1
+    big_i[:, [g.I_JMIN, g.I_IMIN]] = 1 << 30
+    big_i[:, [g.I_JMAX, g.I_IMAX]] = -(1 << 30)
+    big_i[:, g.I_BIAS0:g.I_BIAS2 + 1] = 2**31 - 1
+    big_f = torch.zeros((rows, g.NF32), dtype=torch.float32)
+    for b, part in zip(hit_blocks, parts):
+        dst = b * tr.RASTER_BLOCK + torch.arange(len(part))
+        big_i[dst], big_f[dst] = ti[part], tf[part]
+    return (big_i, big_f), (256, 64)
+
+
+@pytest.mark.parametrize("items", [1, 2, 16])
+@pytest.mark.parametrize("kernel", ["k5", "k5g"])
+def test_many_groups_items_equal_the_plain_versions(kernel, items):
+    """K5 and K5g over more than 98 304 rows: every plane equal to
+    ``raster_hier_plain``/``gbuffer_hbm_plain`` as int32, with a share that
+    starts past a superblock group and ends inside one, and the hit words'
+    walk equal to the item table."""
+    (ti, tf), (w, h) = _many_groups(lit=kernel == "k5g")
+    prep = tr.prepare_raster_inputs(ti, tf)
+    assert prep[2].shape[0] > 3 * GROUP_SUPERS * 4096
+    hits = tr.hier_block_hits(*prep[:2], w, h)
+    work = tr.hier_work_items(hits, items)
+    words, before, count = tr.hier_hit_words(hits)
+    group = GROUP_SUPERS * tr.SUPER_BLOCK  # blocks a group
+    inside = False
+    for t in range(hits.shape[0]):
+        assert _words_walk(words[t].tolist(), before[t].tolist(), count[t],
+                           items) == work[t].tolist()
+        for i in range(items):
+            mine = torch.nonzero(work[t] == i).flatten()
+            if not len(mine):
+                continue
+            first, last = int(mine[0]) // group, int(mine[-1]) // group
+            later = torch.nonzero(hits[t]).flatten() > mine[-1]
+            rest = torch.nonzero(hits[t]).flatten()[later] // group
+            inside |= first > 0 and bool((rest == last).any())
+    if items > 1:
+        assert inside
+    if kernel == "k5":
+        got = keyed_hier_plain(*prep, w, h, False, items, gbuffer=False)
+        ref = tr.raster_hier_plain(*prep, w, h)
+    else:
+        got = keyed_hier_plain(*prep, w, h, False, items, masked_inv=True)
+        ref = tr.gbuffer_hbm_plain(*prep, w, h)
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        _bits(a.numpy(), b.numpy())
+    assert int((ref[1] < 1.0).sum()) > 0

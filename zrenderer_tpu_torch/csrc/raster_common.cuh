@@ -183,9 +183,11 @@ __device__ __forceinline__ void resolve_winner(
 }
 
 // Per-thread tile state.  TIE selects the order-free depth test
-// (z, row id) of K1/K4/K6 over K3/K5's sequential strict-less test.
+// (z, row id) of K1/K6 over the sequential strict-less test of K3/K5
+// (the GBUF, DEPTH and VIS register kernels keep it; K3 and K5 run the
+// keyed body, raster_keyed.cuh).
 //
-// GBUF: the register G-buffer kernels (K2g, K5g, K6g, K9g; K4g and K3g run
+// GBUF: the register G-buffer kernels (K2g, K6g, K9g; K4g, K3g and K5g run
 // the keyed body, raster_keyed.cuh, with the same resolve).  Latching 11 more
 // planes the way the reference does would take 17 values a pixel, 272
 // registers a thread for 16 pixels: over the 255 cap.  Every latched value

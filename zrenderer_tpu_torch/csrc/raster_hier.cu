@@ -24,84 +24,59 @@
 // reference's epilogue: K3g writes covered ? buf * inv : 0, K5g buf *
 // (covered ? inv : 0) (sign of zero, NaN).  K3d replaces
 // rasterize_depth_pallas (_depth_kernel, :798), the shadow-map pass up to
-// 32768 rows.  K3b replaces rasterize_setup_pallas_band (:976, _band_kernel
-// :967, body _kernel_body with row_base): the band_h rows from global row
-// row_base, with the same walk, test and inputs as K3 (the gathered setup
-// rows, compacted), so its band equals rows [row_base, row_base + band_h)
-// of K3's frame (of K5's above 32768 rows; K3b has no row cap).
+// 32768 rows; above them K5's depth plane serves (rasterize_depth_hbm,
+// the first row of an exact tie keeping its sign).  K3b replaces
+// rasterize_setup_pallas_band (:976, _band_kernel :967, body _kernel_body
+// with row_base): the band_h rows from global row row_base, with the same
+// walk, test and inputs as K3 (the gathered setup rows, compacted), so its
+// band equals rows [row_base, row_base + band_h) of K3's frame (of K5's
+// above 32768 rows; K3b has no row cap).
 //
-// Which body each runs:
-// * K5 and K5g: the register body (raster_common.cuh TileState, one CUDA
-//   block a tile keeping the tile state in registers across the
-//   superblock -> block -> row walk; K5g keeps z and the winning row id,
-//   the last row that passed, and resolves through TileState::
-//   store_gbuffer).  ptxas (sm_90a, -O3 -fmad=false): K5 128 registers,
-//   K5g 108-110, no spills.
-// * K3, K3b, K3g and K3d: the keyed body (raster_keyed.cuh) over the
-//   hierarchy alone (keyed_hier), with the register body's planes bit for
-//   bit.  What bound the register body on the H100 (K3 1.00 ms, K3b 0.93
-//   ms a band of 2, K3g and K3d 1.10 ms each at 1080p and on the 1024^2
-//   map): each tile walked superblock -> block -> row one dependent load
-//   at a time, then evaluated every row that meets it at all 4096 pixels,
-//   8.6x (10.2x on the map) the pixels of the rows' bboxes; under half the
-//   tiles hold a row, and the busiest holds 324 (387), one block an SM.
-//   The keyed body tests a group of 8 superblocks' blocks and a block's
-//   rows in parallel, evaluates each row over its window only, and keys
-//   each pixel: K3 and K3b HierFlatKeys, K3g HierGbufKeys ((order bits of
-//   z, row id), clear (1.0, 0), whose minimum is the strict-less test in
-//   row order; the store resolves the winner, K3g's under its epilogue),
-//   K3d DepthKeys (visit index = row id: the first row of an exact tie
-//   keeps its sign).  A tile's hit blocks (those whose bbox and
-//   superblock's bbox meet it) are cut into `items` work items of about
-//   equal counts, one CUDA block each, so that the busiest tile's rows
-//   spread over several SMs: with one item a tile resolves in place (one
-//   device operation a call), with several the items merge through the key
-//   plane of the output's size (memset, items, resolve; a tile of at most
-//   one hit block still resolves in place).  ops/raster.py HIER_ITEMS
-//   holds the count, from a sweep on the H100.  Bound on the H100: the
-//   window pixels' edge work, or the output planes and the winners' rows
-//   (K3g: 13 planes, 109 MB at 1920x1088, 0.032 ms at 3.35 TB/s).
+// Every kernel here runs the keyed body (raster_keyed.cuh) over the
+// hierarchy alone, with the planes of the register body it replaced bit
+// for bit.  What bound that body on the H100 (K3 1.00 ms, K3b 0.93 ms a
+// band of 2, K3g and K3d 1.10 ms each on lattice20k and its 1024^2 map, K5
+// 13.27 ms and K5g 14.59 ms on lattice1M): one CUDA block a 32x128 tile
+// walked superblock -> block -> row one dependent load at a time, then
+// evaluated every row that meets the tile at all 4096 pixels, 8.6x (10.2x
+// on the map) the pixels of the rows' bboxes; under half the tiles hold a
+// row, and the busiest holds 324 (387), one block an SM.  The keyed body
+// tests a superblock's 32 blocks and a block's rows in parallel, evaluates
+// each row over its window only, and keys each pixel: K3, K3b and K5
+// HierFlatKeys, K3g HierGbufKeys and K5g HbmGbufKeys ((order bits of z,
+// row id), clear (1.0, 0), whose minimum is the strict-less test in row
+// order; the store resolves the winner, K3g's under covered ? buf * 1/den
+// : 0, K5g's under buf * (covered ? 1/den : 0)), K3d DepthKeys (visit
+// index = row id: the first row of an exact tie keeps its sign).  A
+// tile's hit blocks (those whose bbox and superblock's bbox meet it) are
+// cut into `items` work items of about equal counts, one CUDA block each,
+// so that the busiest tile's rows spread over several SMs: with one item a
+// tile resolves in place, with several the items merge through the key
+// plane of the output's size (memset, items, resolve; a tile of at most
+// one hit block still resolves in place).  ops/raster.py HIER_ITEMS holds
+// the count, from a sweep on the H100.  Bound on the H100: the window
+// pixels' edge work, or the output planes and the winners' rows (K3g: 13
+// planes, 109 MB at 1920x1088, 0.032 ms at 3.35 TB/s).
 //
-// The walk takes any number of superblocks: they are tested in groups of
-// WARPS (warp w tests superblock WARPS g + w of group g and its 32 blocks
-// at once).  A first pass counts a tile's hit blocks over every group; a
-// work item then walks its share of them, recomputing each group's hit
-// words (with one group, up to 32768 rows, the count's words serve).
+// Two walks find an item's hit blocks, both at any superblock count:
+// * K3, K3b, K3g and K3d (up to 32768 rows on the main path, one group):
+//   the superblocks are tested in groups of WARPS (warp w tests superblock
+//   WARPS g + w of group g and its 32 blocks at once).  A first pass counts
+//   a tile's hit blocks over every group; a work item then walks its share
+//   of them, recomputing each group's hit words (with one group the
+//   count's words serve), and the resolve counts them again.
+// * K5 and K5g (the streamed hierarchy: hundreds of superblocks, 268 at
+//   1M rows): a first kernel writes each tile's hit words once (warp w
+//   tests superblocks w, w + WARPS, ..., whose loads do not wait on one
+//   another) and, per superblock, the tile's hit blocks before it.  An item
+//   finds the superblock of its share's first block from those counts, then
+//   reads the words from there; the resolve reads the tile's count.
+//   Walking the groups would test each of the 34 groups of lattice1M twice
+//   in each of a tile's items, one dependent group after another.
 
 #include "raster_keyed.cuh"
 
 namespace zr {
-
-// K5: the register body over any number of rows.
-__global__ void __launch_bounds__(THREADS)
-    raster_hier_kernel(const int* __restrict__ supers, int num_supers,
-                       const int* __restrict__ blocks,
-                       const int* __restrict__ ti,
-                       const float* __restrict__ tf, int* __restrict__ color,
-                       float* __restrict__ depth, int width) {
-  const int tiles_x = width / TILE_W;
-  const int tile = blockIdx.x;
-  TileState<false> st;
-  st.init((tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
-  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
-  st.store(color, depth, width);
-}
-
-// K5g: the register body, the GBUF_PLANES planes of out (color bits,
-// depth, then the rest), width * height floats apart.
-__global__ void __launch_bounds__(THREADS)
-    gbuffer_hbm_kernel(const int* __restrict__ supers, int num_supers,
-                       const int* __restrict__ blocks,
-                       const int* __restrict__ ti,
-                       const float* __restrict__ tf, float* __restrict__ out,
-                       int width, int height) {
-  const int tiles_x = width / TILE_W;
-  const int tile = blockIdx.x;
-  TileState<false, true> st;
-  st.init((tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
-  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
-  st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
-}
 
 static_assert(SUPER_BLOCK == 32 && THREADS == WARPS * SUPER_BLOCK,
               "a warp tests a superblock's blocks");
@@ -230,9 +205,148 @@ __device__ __forceinline__ void keyed_hier_resolve(
                      height, row_base);
 }
 
+// K5 and K5g's walk.  The hit words of a launch's tiles, one int buffer
+// of tiles * (2 num_supers + 1) (ops/raster.py _hbm_args): word sb
+// of tile t has bit j set when block SUPER_BLOCK sb + j and superblock sb
+// meet the tile; before[sb] counts the tile's hit blocks in superblocks
+// [0, sb); count[t] is its H.  Int: int where the buffer is written, const
+// int where read.
+template <class Int>
+struct HitWords {
+  Int* words;
+  Int* before;
+  Int* count;
+};
+
+template <class Int>
+__device__ __forceinline__ HitWords<Int> hit_words(Int* buf, int tiles,
+                                                   int num_supers) {
+  const size_t n = (size_t)tiles * num_supers;
+  return {buf, buf + n, buf + 2 * n};
+}
+
+// Block blockIdx.x writes the hit words of its tile (of the height rows
+// from global row row_base).  Warp w tests superblocks w, w + WARPS, ...
+// and their 32 blocks, one ballot each; then the block scans the words'
+// counts.
+__global__ void __launch_bounds__(THREADS) hier_hit_words_kernel(
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, int* buf, int width, int height,
+    int row_base) {
+  __shared__ int warp_sums[WARPS];
+  const int tiles_x = width / TILE_W, tile = (int)blockIdx.x;
+  const HitWords<int> hw =
+      hit_words(buf, tiles_x * (height / TILE_H), num_supers);
+  int* words = hw.words + (size_t)tile * num_supers;
+  int* before = hw.before + (size_t)tile * num_supers;
+  const int row0 = row_base + (tile / tiles_x) * TILE_H;
+  const int col0 = (tile % tiles_x) * TILE_W;
+  const int lane = (int)threadIdx.x % SUPER_BLOCK;
+#pragma unroll 4
+  for (int sb = (int)threadIdx.x / SUPER_BLOCK; sb < num_supers;
+       sb += WARPS) {
+    const int* sp = supers + (size_t)sb * 8;
+    const int* bb = blocks + ((size_t)sb * SUPER_BLOCK + lane) * 8;
+    const bool hit =
+        tile_overlap(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3),
+                     row0, col0) &&
+        tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2), __ldg(bb + 3),
+                     row0, col0);
+    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) words[sb] = (int)m;
+  }
+  __syncthreads();  // the block's words visible to all its threads
+  int base = 0;     // block-uniform
+  for (int c = 0; c < num_supers; c += THREADS) {
+    const int sb = c + (int)threadIdx.x;
+    int total;
+    const int pre = block_exclusive_scan(
+        sb < num_supers ? __popc((unsigned)words[sb]) : 0, warp_sums, total);
+    if (sb < num_supers) before[sb] = base + pre;
+    base += total;
+  }
+  if (threadIdx.x == 0) hw.count[tile] = base;
+}
+
+// K5 and K5g: work item blockIdx.x is item i of tile blockIdx.x / items and
+// takes the tile's hit blocks [i * H / items, (i + 1) * H / items) in row
+// order, as keyed_hier's items do, read from the hit words: the
+// superblocks before its share's first block are those whose blocks all
+// lie before it (before + popcount <= i * H / items, a prefix of the
+// superblocks, counted a THREADS-long chunk at a time), then HIT_WORDS
+// words at a time from there.
+template <class Mode>
+__device__ __forceinline__ void keyed_hier_words(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
+    const float* __restrict__ tf, int items,
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, float* __restrict__ extra, int width,
+    int height, int row_base) {
+  extern __shared__ __align__(16) unsigned char keyed_smem[];
+  KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
+  const int tiles_x = width / TILE_W;
+  const int tile = (int)blockIdx.x / items, idx = (int)blockIdx.x % items;
+  const int row0 = row_base + (tile / tiles_x) * TILE_H;
+  const int col0 = (tile % tiles_x) * TILE_W;
+  const HitWords<const int> hw =
+      hit_words(buf, tiles_x * (height / TILE_H), num_supers);
+  const int* words = hw.words + (size_t)tile * num_supers;
+  const int* before = hw.before + (size_t)tile * num_supers;
+  const int total = __ldg(hw.count + tile);
+  const int h0 = idx * total / items, h1 = (idx + 1) * total / items;
+  const bool alone = items == 1 || (total <= 1 && idx == items - 1);
+  if (h0 == h1 && !alone) return;  // block-uniform
+  for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) s.key[p] = Mode::CLEAR;
+  int first = 0;  // block-uniform; the counts' barriers order the clear too
+  for (int c = 0;; c += THREADS) {
+    const int sb = c + (int)threadIdx.x;
+    const int n = __syncthreads_count(
+        sb < num_supers &&
+        __ldg(before + sb) + __popc((unsigned)__ldg(words + sb)) <= h0);
+    first += n;
+    if (n < THREADS) break;
+  }
+  int pending = 0;  // block-uniform
+  int h = first < num_supers ? __ldg(before + first) : total;
+  for (int c = first; c < num_supers && h < h1; c += HIT_WORDS) {
+    __syncthreads();  // every thread past the previous words
+    if (threadIdx.x < HIT_WORDS && c + (int)threadIdx.x < num_supers)
+      s.hits[threadIdx.x] = (unsigned)__ldg(words + c + threadIdx.x);
+    __syncthreads();
+    for (int k = 0; k < HIT_WORDS && c + k < num_supers && h < h1; ++k) {
+      for (unsigned m = s.hits[k]; m && h < h1; m &= m - 1, ++h)
+        if (h >= h0)
+          keyed_block_rows<Mode>(s, (c + k) * SUPER_BLOCK + __ffs(m) - 1,
+                                 pending, ti, tf, 0, row0, col0);
+    }
+  }
+  flush_pending<Mode>(s, pending, ti, tf, 0, row0, col0);
+  __syncthreads();
+  keyed_out<Mode>(s, alone, plane, row0, col0, ti, tf, color, depth, extra,
+                  width, height, row_base);
+}
+
+// The resolve of a tile of several items whose rows lie in two or more hit
+// blocks, its count read from the hit words.
+template <class Mode>
+__device__ __forceinline__ void keyed_hier_words_resolve(
+    const int* __restrict__ buf, int num_supers,
+    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
+    const float* __restrict__ tf, int* __restrict__ color,
+    float* __restrict__ depth, float* __restrict__ extra, int width,
+    int height, int row_base) {
+  const int tiles_x = width / TILE_W, tiles = tiles_x * (height / TILE_H);
+  const int tile = (int)blockIdx.x;
+  if (__ldg(hit_words(buf, tiles, num_supers).count + tile) <= 1)
+    return;  // resolved in place
+  resolve_tile<Mode>(plane, row_base + (tile / tiles_x) * TILE_H,
+                     (tile % tiles_x) * TILE_W, ti, tf, color, depth, extra,
+                     width, height, row_base);
+}
+
 // One entry point per kernel, so each has its own name in a profile.  Each
-// takes (..., width, height, row_base); K3, K3g and K3d draw a frame
-// (row_base 0), K3b a band of height rows.
+// takes (..., width, height, row_base); K3, K3g, K3d, K5 and K5g draw a
+// frame (row_base 0), K3b a band of height rows.
 // K3: packed colour and depth.
 __global__ void __launch_bounds__(THREADS) raster_hier_keyed_kernel(
     const int* __restrict__ supers, int num_supers,
@@ -324,19 +438,51 @@ __global__ void __launch_bounds__(THREADS) depth_hier_resolve_kernel(
                                 row_base);
 }
 
-}  // namespace zr
-
-// K5.
-extern "C" int zr_raster_hier(const int* supers, int num_supers,
-                              const int* blocks, const int* ti,
-                              const float* tf, int* color, float* depth,
-                              int height, int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::raster_hier_kernel<<<num_tiles, zr::THREADS, 0,
-                           (cudaStream_t)stream>>>(
-      supers, num_supers, blocks, ti, tf, color, depth, width);
-  return (int)cudaGetLastError();
+// K5: K3's store over the hit words, at any row count.
+__global__ void __launch_bounds__(THREADS) raster_hbm_keyed_kernel(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
+    const float* __restrict__ tf, int items,
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_hier_words<HierFlatKeys>(buf, num_supers, ti, tf, items, plane,
+                                 color, depth, nullptr, width, height,
+                                 row_base);
 }
+
+__global__ void __launch_bounds__(THREADS) raster_hbm_resolve_kernel(
+    const int* __restrict__ buf, int num_supers,
+    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
+    const float* __restrict__ tf, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_hier_words_resolve<HierFlatKeys>(buf, num_supers, plane, ti, tf,
+                                         color, depth, nullptr, width,
+                                         height, row_base);
+}
+
+// K5g: K5's walk, the GBUF_PLANES planes of out under K5g's epilogue.
+__global__ void __launch_bounds__(THREADS) gbuffer_hbm_keyed_kernel(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
+    const float* __restrict__ tf, int items,
+    unsigned long long* __restrict__ plane, float* __restrict__ out,
+    int width, int height, int row_base) {
+  const size_t frame = (size_t)width * height;
+  keyed_hier_words<HbmGbufKeys>(buf, num_supers, ti, tf, items, plane,
+                                reinterpret_cast<int*>(out), out + frame,
+                                out + 2 * frame, width, height, row_base);
+}
+
+__global__ void __launch_bounds__(THREADS) gbuffer_hbm_resolve_kernel(
+    const int* __restrict__ buf, int num_supers,
+    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
+    const float* __restrict__ tf, float* __restrict__ out, int width,
+    int height, int row_base) {
+  const size_t frame = (size_t)width * height;
+  keyed_hier_words_resolve<HbmGbufKeys>(
+      buf, num_supers, plane, ti, tf, reinterpret_cast<int*>(out),
+      out + frame, out + 2 * frame, width, height, row_base);
+}
+
+}  // namespace zr
 
 // K3, K3b, K3g and K3d launch the keyed body over the height rows from
 // global row row_base: num_tiles * items blocks, and with several items a
@@ -368,7 +514,7 @@ static int launch_keyed_hier(Items items_kernel, Resolve resolve_kernel,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a K3/K3b/K3g/K3d work item, in bytes.
+// Dynamic shared memory of a K3/K3b/K3g/K3d/K5/K5g work item, in bytes.
 extern "C" int zr_keyed_hier_smem_bytes() {
   return (int)sizeof(zr::KeyedSmem);
 }
@@ -412,18 +558,6 @@ extern "C" int zr_gbuffer_hier(const int* supers, int num_supers,
                            width, 0, stream, out);
 }
 
-// K5g.
-extern "C" int zr_gbuffer_hbm(const int* supers, int num_supers,
-                              const int* blocks, const int* ti,
-                              const float* tf, float* out, int height,
-                              int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::gbuffer_hbm_kernel<<<num_tiles, zr::THREADS, 0,
-                           (cudaStream_t)stream>>>(
-      supers, num_supers, blocks, ti, tf, out, width, height);
-  return (int)cudaGetLastError();
-}
-
 // K3d.
 extern "C" int zr_depth_hier(const int* supers, int num_supers,
                              const int* blocks, const int* ti,
@@ -434,4 +568,62 @@ extern "C" int zr_depth_hier(const int* supers, int num_supers,
                            zr::depth_hier_resolve_kernel, supers, num_supers,
                            blocks, ti, tf, items, plane, height, width, 0,
                            stream, depth);
+}
+
+// K5 and K5g launch the hit words' kernel over the height rows from global
+// row row_base (a frame: 0), then the keyed body over them as
+// launch_keyed_hier does: with several items a tile the key plane set to
+// all ones, the items, the resolve.  buf: tiles * (2 num_supers + 1) ints.
+template <class Items, class Resolve, class... Out>
+static int launch_keyed_hbm(Items items_kernel, Resolve resolve_kernel,
+                            const int* supers, int num_supers,
+                            const int* blocks, const int* ti,
+                            const float* tf, int items, int* buf,
+                            unsigned long long* plane, int height, int width,
+                            int row_base, void* stream, Out... out) {
+  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int smem = (int)sizeof(zr::KeyedSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      items_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  zr::hier_hit_words_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+      supers, num_supers, blocks, buf, width, height, row_base);
+  if (items > 1) {
+    err = cudaMemsetAsync(plane, 0xff,
+                          (size_t)height * width * sizeof(*plane), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  items_kernel<<<num_tiles * items, zr::THREADS, smem, s>>>(
+      buf, num_supers, ti, tf, items, plane, out..., width, height,
+      row_base);
+  if (items > 1)
+    resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+        buf, num_supers, plane, ti, tf, out..., width, height, row_base);
+  return (int)cudaGetLastError();
+}
+
+// K5.
+extern "C" int zr_raster_hier(const int* supers, int num_supers,
+                              const int* blocks, const int* ti,
+                              const float* tf, int items, int* buf,
+                              unsigned long long* plane, int* color,
+                              float* depth, int height, int width,
+                              void* stream) {
+  return launch_keyed_hbm(zr::raster_hbm_keyed_kernel,
+                          zr::raster_hbm_resolve_kernel, supers, num_supers,
+                          blocks, ti, tf, items, buf, plane, height, width, 0,
+                          stream, color, depth);
+}
+
+// K5g.
+extern "C" int zr_gbuffer_hbm(const int* supers, int num_supers,
+                              const int* blocks, const int* ti,
+                              const float* tf, int items, int* buf,
+                              unsigned long long* plane, float* out,
+                              int height, int width, void* stream) {
+  return launch_keyed_hbm(zr::gbuffer_hbm_keyed_kernel,
+                          zr::gbuffer_hbm_resolve_kernel, supers, num_supers,
+                          blocks, ti, tf, items, buf, plane, height, width, 0,
+                          stream, out);
 }

@@ -1,13 +1,13 @@
 // The keyed raster body, shared by raster_binned.cu (K4, K4c, K4g, K4d,
 // K9: a tile's record span, K4c's coarse bin too, then the leftover rows
-// of the hierarchy) and raster_hier.cu (K3, K3b, K3g, K3d: the hierarchy
-// alone).
+// of the hierarchy) and raster_hier.cu (K3, K3b, K3g, K3d, K5, K5g: the
+// hierarchy alone).
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
 //   atomicMin.  K4, K4c, K9 and K4g: (order bits of z, row id), whose
-//   minimum is the (z, row id) tie-break.  K3, K3b and K3g: the same key,
-//   whose minimum is the strict-less test z >= 0 && z < zb from 1.0 in
-//   row order (the first row of the least z wins, and
+//   minimum is the (z, row id) tie-break.  K3, K3b, K3g, K5 and K5g: the
+//   same key, whose minimum is the strict-less test z >= 0 && z < zb from
+//   1.0 in row order (the first row of the least z wins, and
 //   prepare_raster_inputs compacts stably, so a row's id is its submission
 //   order).  K4d and K3d: (order bits of z, visit index, sign of z), whose
 //   minimum is the strict-less test in visit order with the first visited
@@ -16,9 +16,9 @@
 //   -0.0 and +0.0 share order bits; z >= 0 filters first (NaN and negative
 //   z never compete).  The clear key is z 1.0 over the largest id for K4,
 //   K4c, K9 and K4g, so that a row at z == 1.0 latches as the (z, row id)
-//   test lets it; over id 0 (over visit 0) for K3, K3b and K3g (K3d, K4d),
-//   which no row at z == 1.0 goes below, as the strict-less test never
-//   lets 1.0 pass.
+//   test lets it; over id 0 (over visit 0) for K3, K3b, K3g, K5 and K5g
+//   (K3d, K4d), which no row at z == 1.0 goes below, as the strict-less
+//   test never lets 1.0 pass.
 // * Work in proportion to each row's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -30,8 +30,9 @@
 //   alike.  The edge functions step from the window's origin (int32 wrap,
 //   the same bits as edge_fn), then the same bias tests and interp3.
 // * The hierarchy walk: superblock -> block -> row bbox skips, as the
-//   register body's (keyed_leftovers; K3, K3b, K3g and K3d test a group of
-//   8 superblocks' blocks at once, raster_hier.cu), a hit block's 128 row
+//   register body's (keyed_leftovers; raster_hier.cu's K3, K3b, K3g and
+//   K3d test a group of 8 superblocks' blocks at once, K5 and K5g read
+//   each tile's hit words, written once a call), a hit block's 128 row
 //   bboxes tested by 128 threads at once (keyed_block_rows) and the hit
 //   rows compacted into batches.  A row is admitted by its clamped bbox
 //   (tile_overlap): a row whose bbox clamped to empty is skipped, as
@@ -45,10 +46,10 @@
 //   stored at row r - row_base (keyed_out, resolve_tile).
 // The store re-evaluates the winner from the setup rows through
 // raster_common.cuh's resolve_winner, the register bodies' epilogue: K4,
-// K4c, K9, K4g, K3, K3b and K3g their z (-0.0 kept) and colour, K4g and
-// K3g also the 11 further planes (K4g buf * (covered ? 1/den : 0), K3g
-// covered ? buf * 1/den : 0); K4d and K3d decode z from the key.  Nothing
-// moves the tensor cores.
+// K4c, K9, K4g, K3, K3b, K3g, K5 and K5g their z (-0.0 kept) and colour,
+// K4g, K3g and K5g also the 11 further planes (K4g and K5g buf * (covered
+// ? 1/den : 0), K3g covered ? buf * 1/den : 0); K4d and K3d decode z from
+// the key.  Nothing moves the tensor cores.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -64,8 +65,11 @@ constexpr int TILE_PIX = TILE_H * TILE_W;  // keys a tile
 constexpr int KEY_BATCH = 128;             // rows flattened together
 constexpr int KEY_PENDING = 2 * KEY_BATCH;  // leftover rows awaiting a batch
 constexpr int WARPS = THREADS / 32;
+constexpr int HIT_WORDS = 32;  // hit words a hierarchy item holds at once
 static_assert(KEY_BATCH == RASTER_BLOCK, "a block's rows fit one batch");
 static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
+static_assert(WARPS <= HIT_WORDS && HIT_WORDS <= THREADS,
+              "a group's words fit; a thread loads a word");
 
 // The (order bits of z, row id) key (the sign cleared, so -0.0 ties +0.0).
 // A span record's id is its last int, a leftover row's its index in the
@@ -74,14 +78,16 @@ static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
 // raster_common.cuh's resolve_winner, z included (its -0.0 kept), one IEEE
 // divide, RGBA8 packed; z 1.0 and alpha alone where no row latched.
 // PLANES: also the 11 further G-buffer planes from extra, frame floats
-// apart.  STRICT (K3, K3b, K3g): the clear key (1.0, 0), and the epilogue
-// covered ? buf * 1/den : 0; otherwise (K4, K4c, K9, K4g) the clear key
-// (1.0, INT32_MAX) and buf * (covered ? 1/den : 0).  Without PLANES the two
+// apart.  STRICT_CLEAR (K3, K3b, K3g, K5, K5g): the clear key (1.0, 0), the
+// strict-less test's; otherwise (K4, K4c, K9, K4g) (1.0, INT32_MAX).
+// MASKED_INV (K4g, K5g): the epilogue buf * (covered ? 1/den : 0);
+// otherwise (K3g) covered ? buf * 1/den : 0.  Without PLANES the two
 // epilogues are one: the colour's quantize is the same either way.
-template <bool PLANES, bool STRICT = false>
+template <bool PLANES, bool STRICT_CLEAR, bool MASKED_INV>
 struct WinnerKeys {
   static constexpr unsigned long long CLEAR =
-      (0x3f800000ull << 32) | (STRICT ? 0ull : (unsigned long long)INT_MAX32);
+      (0x3f800000ull << 32) |
+      (STRICT_CLEAR ? 0ull : (unsigned long long)INT_MAX32);
   static __device__ __forceinline__ uint32_t span_tag(const int* r, int) {
     return (uint32_t)r[NI32];
   }
@@ -97,16 +103,17 @@ struct WinnerKeys {
       const float* __restrict__ tf, int* __restrict__ color,
       float* __restrict__ depth, float* __restrict__ extra, size_t idx,
       size_t frame) {
-    resolve_winner<!STRICT, PLANES, true>(
+    resolve_winner<MASKED_INV, PLANES, true>(
         ti, tf, k == CLEAR ? INT_MAX32 : (int)(uint32_t)k, 1.0f,
         col * SUBPIXEL + HALF, row * SUBPIXEL + HALF, color, depth, extra,
         idx, frame);
   }
 };
-using FlatKeys = WinnerKeys<false>;
-using GbufKeys = WinnerKeys<true>;
-using HierFlatKeys = WinnerKeys<false, true>;
-using HierGbufKeys = WinnerKeys<true, true>;
+using FlatKeys = WinnerKeys<false, false, true>;      // K4, K4c, K9
+using GbufKeys = WinnerKeys<true, false, true>;       // K4g
+using HierFlatKeys = WinnerKeys<false, true, false>;  // K3, K3b, K5
+using HierGbufKeys = WinnerKeys<true, true, false>;   // K3g
+using HbmGbufKeys = WinnerKeys<true, true, true>;     // K5g
 
 // The depth key: the order bits of z over the visit index over the sign of
 // z.  The visit index of span record k is k; of leftover row t, the span's
@@ -151,9 +158,10 @@ struct KeyedSmem {
   int pending[KEY_PENDING];
   int scan[WARPS];
   int item[3];  // tile, item index within the tile, items of the tile
-  // K3, K3b, K3g, K3d: the blocks of one group of WARPS superblocks that
-  // meet the tile, a bit each (raster_hier.cu hier_group_hits).
-  unsigned hits[WARPS];
+  // The hierarchy walks' words of hit blocks, a bit each (raster_hier.cu):
+  // K3, K3b, K3g and K3d those of one group of WARPS superblocks
+  // (hier_group_hits), K5 and K5g HIT_WORDS superblocks' words at a time.
+  unsigned hits[HIT_WORDS];
 };
 
 // Exclusive prefix of v over the block's threads; total gets the sum.

@@ -124,7 +124,7 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.zr_raster_small.argtypes = [p, p, i, p, i, p, p, p, p, p, i, i, p]
     lib.zr_raster_small.restype = i
-    lib.zr_raster_hier.argtypes = [p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_hier.argtypes = [p, i, p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_raster_hier.restype = i
     lib.zr_raster_hier_keyed.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_raster_hier_keyed.restype = i
@@ -144,7 +144,7 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_small.restype = i
     lib.zr_gbuffer_hier.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
     lib.zr_gbuffer_hier.restype = i
-    lib.zr_gbuffer_hbm.argtypes = [p, i, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_hbm.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_gbuffer_hbm.restype = i
     lib.zr_gbuffer_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
                                              p, i, i, p]

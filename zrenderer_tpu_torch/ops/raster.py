@@ -13,8 +13,10 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   superblock union bboxes; the kernel walks the hierarchy in submission
   order with the strict-less depth test.  CUDA: ``csrc/raster_hier.cu``.
 * K5, the streamed hierarchy (``rasterize_setup_pallas_hbm``): K3's
-  walk and test without the 32768-row cap, on the register body (every
-  kernel reads its rows from device memory on the card).
+  walk and test without the 32768-row cap (every kernel reads its rows
+  from device memory on the card); on the card each tile's hit blocks are
+  written once a call as hit words (``hier_hit_words``), which its work
+  items read.
 * K4, the record-streaming binned raster
   (``rasterize_setup_pallas_binned_hbm``): ``prepare_binned_hbm_inputs``
   lists each small-footprint head row once per tile it touches, sorts the
@@ -24,9 +26,8 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   On the card K4 (and K4g, K4d) run the keyed body: per-pixel keys in
   shared memory, each record over its window (its vertices' pixel bbox in
   the tile), a tile's span cut into work items of ITEM_RECORDS
-  records; K3, K3b, K3g and K3d run it over the hierarchy alone, a
-  tile's blocks cut into HIER_ITEMS work items; K5 and K5g keep the
-  register body.  K4c adds the coarse class: rows too big for the fine lists
+  records; K3, K3b, K3g, K3d, K5 and K5g run it over the hierarchy
+  alone, a tile's blocks cut into HIER_ITEMS work items.  K4c adds the coarse class: rows too big for the fine lists
   listed per 4x4-tile bin, tested against the tile's bbox; on the card it
   runs K4's keyed body over the tile's span and then its bin's records,
   cut into work items together.
@@ -146,9 +147,9 @@ HBM_PAIR_BUDGET = 1 << 20
 # 256 ran K4 in 0.64 ms against 0.75 for 1024 and K4d in 0.40 against
 # 0.42 (PERF.md §6).
 ITEM_RECORDS = 256
-# K3/K3b/K3g/K3d: the blocks of the hierarchy that meet a tile are cut
-# into this many work items, one CUDA block each (csrc/raster_hier.cu, the
-# keyed body; ``hier_work_items``).  One item a tile resolves in place (one
+# K3/K3b/K3g/K3d/K5/K5g: the blocks of the hierarchy that meet a tile are
+# cut into this many work items, one CUDA block each (csrc/raster_hier.cu,
+# the keyed body; ``hier_work_items``).  One item a tile resolves in place (one
 # device operation a call); several merge through the output's key plane
 # (memset, items, resolve), except in tiles whose rows lie in at most one
 # block.  The wrappers read it at call time.  On the H100 at lattice20k,
@@ -989,8 +990,8 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
 
 
 # The keyed body's extent and work items (csrc/raster_keyed.cuh: K4, K4c,
-# K4g, K4d, K9 and K3, K3b, K3g, K3d), for the bounds in chip_smoke.py and
-# for the tests.
+# K4g, K4d, K9 and K3, K3b, K3g, K3d, K5, K5g), for the bounds in
+# chip_smoke.py and for the tests.
 
 
 def vertex_bbox(ri):
@@ -1053,7 +1054,7 @@ def hier_block_hits(supers, blocks, width: int, height: int,
     the ``height`` rows from global row ``row0`` (a band's), at any number
     of superblocks (the keyed hierarchy walk's hit blocks,
     csrc/raster_hier.cu hier_group_hits, which tests them in groups of 8
-    superblocks)."""
+    superblocks, and hier_hit_words_kernel)."""
     ty, tx = height // TILE_H, width // TILE_W
     return (_tile_hits(blocks, ty, tx, row0)
             & _tile_hits(supers, ty, tx, row0).repeat_interleave(SUPER_BLOCK,
@@ -1061,17 +1062,31 @@ def hier_block_hits(supers, blocks, width: int, height: int,
 
 
 def hier_work_items(block_hits, items: int):
-    """The keyed hierarchy walk's work items (K3, K3b, K3g, K3d): (tiles,
-    B) i64, the item of each of a tile's hit blocks (``block_hits``), -1
-    elsewhere.  A tile's H hit blocks, in row order over every superblock
-    group, are cut into ``items`` shares: item i takes hit blocks [i * H //
-    n, (i + 1) * H // n), so hit block k falls to item ceil((k + 1) * n /
-    H) - 1."""
+    """The keyed hierarchy walk's work items (K3, K3b, K3g, K3d, K5, K5g):
+    (tiles, B) i64, the item of each of a tile's hit blocks
+    (``block_hits``), -1 elsewhere.  A tile's H hit blocks, in row order
+    over every superblock, are cut into ``items`` shares: item i takes hit
+    blocks [i * H // n, (i + 1) * H // n), so hit block k falls to item
+    ceil((k + 1) * n / H) - 1."""
     h = block_hits.to(torch.int64)
     rank = torch.cumsum(h, 1) - h
     total = h.sum(1, keepdim=True).clamp(min=1)
     item = ((rank + 1) * items + total - 1) // total - 1
     return torch.where(block_hits, item, -1)
+
+
+def hier_hit_words(block_hits):
+    """K5's and K5g's hit words (csrc/raster_hier.cu
+    hier_hit_words_kernel) of the (tiles, B) ``block_hits`` of
+    ``hier_block_hits``: (words (tiles, S) i64, bit j of word s set when
+    block SUPER_BLOCK s + j is a hit block of the tile; before (tiles, S)
+    i64, the tile's hit blocks in superblocks before s; count (tiles,) i64,
+    its H)."""
+    bits = block_hits.reshape(block_hits.shape[0], -1,
+                              SUPER_BLOCK).to(torch.int64)
+    words = (bits << torch.arange(SUPER_BLOCK, device=bits.device)).sum(-1)
+    n = bits.sum(-1)
+    return words, torch.cumsum(n, 1) - n, n.sum(1)
 
 
 # Band plain versions: the (band_h, W) rows from global row ``row0``.
@@ -1261,9 +1276,10 @@ def raster_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
 
 
 def raster_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
-    """Launch K5 (``csrc/raster_hier.cu``, the register body) over any
-    number of setup rows."""
-    args = _hier_args(supers, blocks, ti, tf, width, height, None)
+    """Launch K5 (``csrc/raster_hier.cu``, the keyed body over the hit
+    words in HIER_ITEMS work items a tile) over any number of setup rows on
+    the current stream."""
+    args, _scratch = _hbm_args(supers, blocks, ti, tf, width, height)
     out = _run(_build.load_library().zr_raster_hier, ti.device, width,
                height, *args)
     raster_hbm_kernel.launches += 1
@@ -1272,8 +1288,9 @@ def raster_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
 
 def _keyed_hier_args(supers, blocks, ti, tf, width: int, height: int,
                      max_rows: int | None = MAX_RESIDENT_ROWS):
-    """Check K3/K3b/K3g/K3d inputs (``height``: the output's rows, a
-    band's for K3b, whose ``max_rows`` is None); returns the launch
+    """Check K3/K3b/K3g/K3d/K5/K5g inputs (``height``: the output's rows, a
+    band's for K3b; ``max_rows`` None for K3b, K5 and K5g); returns the
+    launch
     arguments before the outputs (the hierarchy's, the item count
     HIER_ITEMS, the key plane of the output's size or NULL with one item a
     tile) and the plane, which the call must hold until it has
@@ -1300,13 +1317,29 @@ def gbuffer_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
 
 
 def gbuffer_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
-    """Launch K5g (``csrc/raster_hier.cu``, no row cap) on the current
-    stream."""
-    args = _hier_args(supers, blocks, ti, tf, width, height, None)
+    """Launch K5g (``csrc/raster_hier.cu``, K5's walk with K5g's epilogue,
+    no row cap) on the current stream; returns the GBUFFER_PLANES
+    planes."""
+    args, _scratch = _hbm_args(supers, blocks, ti, tf, width, height)
     out = _run_gbuffer(_build.load_library().zr_gbuffer_hbm, ti.device,
                        width, height, *args)
     gbuffer_hbm_kernel.launches += 1
     return out
+
+
+def _hbm_args(supers, blocks, ti, tf, width: int, height: int):
+    """Check K5/K5g inputs (no row cap); returns the launch arguments before
+    the outputs (the hierarchy's, the item count HIER_ITEMS, the hit-word
+    buffer, the key plane or NULL with one item a tile) and the buffer and
+    plane, which the call must hold until it has launched.  The buffer
+    holds each tile's hit word and hit-block count before each superblock,
+    then each tile's count (csrc/raster_hier.cu HitWords)."""
+    args, plane = _keyed_hier_args(supers, blocks, ti, tf, width, height,
+                                   max_rows=None)
+    tiles = (height // TILE_H) * (width // TILE_W)
+    buf = torch.empty(tiles * (2 * supers.shape[0] + 1), dtype=I32,
+                      device=ti.device)
+    return (*args[:-1], _ptr(buf), args[-1]), (buf, plane)
 
 
 def _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
