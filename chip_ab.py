@@ -4,12 +4,10 @@ K4d, K5, K5g and K9 and the tiled light kernel K7, and of the frames whose
 pace they set, between this tree and another checkout (for example a
 parent commit unpacked with ``git archive``) on one CUDA card; or, with
 ``--sweep``, this tree's K5 and K5g on the 1M lattice at each work-item
-count of SWEEP_ITEMS; or, with ``--walk``, how their time splits between
-the hierarchy walk, the row tests and the window evaluations (WALK_CUTS).
+count of SWEEP_ITEMS.
 
     python3 chip_ab.py --other path/to/checkout
     python3 chip_ab.py --sweep
-    python3 chip_ab.py --walk
 
 Each tree runs in a process of its own, which builds that tree's kernels,
 in turns: other, this, this, other.  Every run uses chip_smoke.py's sizes
@@ -18,7 +16,7 @@ and builders (``lit_frame_rows``, ``deferred_frame_inputs``,
 package.  A run times, with CUDA events after a warm-up: K3 on the flat
 20K lattice's inputs (the hierarchy prepare, the padded 1080p target), K3b
 on band 0 of its 2 bands at 1920x544 (the rows gathered from 2 shards),
-K3g on the lit 20K lattice's inputs and K3d on its 1024x1024 shadow map,
+and so on the 40K lattice's (52 288 rows, 13 superblocks), K3g on the lit 20K lattice's inputs and K3d on its 1024x1024 shadow map,
 K5 on the flat 40K and 1M lattices' and the 1M lattice's shadow map's
 hierarchy inputs, K4 on the flat and K4g on
 the lit 1M lattice's inputs (``auto``), K9 on band 0 of the flat 1M
@@ -28,13 +26,13 @@ soup's ``tile_lists`` inputs (the coarse class), K4d on the 1M lattice's
 shadow map, K5g on the lit 1M lattice (``hierarchy``), K7 on the deferred
 test scene's 1080p G-buffer with BASELINE config 3's wide and r2 lights
 (f32 planes), and ms/frame of ``render_animation`` on the flat, the lit
-and the shadowed 20K lattice, the lit and the shadowed 1M lattice and the
-deferred test scene with the wide lights at 1080p, of the flat, lit and
-shadowed 1M lattice through ``binning="hierarchy"`` (K5, K5g, K5 on the
-map), and of the flat 20K and 1M lattices in 2 bands rendered in turn
-(``tiles.bands_in_turn``, 1920x1088), and the device busy ms per frame of
-the flat 20K frame, of the three ``hierarchy`` 1M frames and of those two
-banded frames (one traced run each: ``chip_smoke.device_trace``, the
+and the shadowed 20K lattice, the flat, lit and shadowed 1M lattice
+(``auto``) and the deferred test scene with the wide lights at 1080p, of
+the flat, lit and shadowed 1M lattice through ``binning="hierarchy"``
+(K5, K5g, K5 on the map), and of the flat 20K and 1M lattices in 2 bands
+rendered in turn (``tiles.bands_in_turn``, 1920x1088), and the device
+busy ms per frame of the flat 20K frame, of the six 1M frames and of
+those two banded frames (one traced run each: ``chip_smoke.device_trace``, the
 union of the device operations' intervals).  Every run must give the
 same planes (their digests are compared).  Prints the card's name and
 power limit first, then one JSON line per run.
@@ -55,19 +53,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SWEEP_ITEMS = (1, 4, 8, 16, 32, 64)
 # Frames of each traced 1M ``hierarchy`` run.
 BUSY_FRAMES_1M = 5
-# ``--walk``: copies of this tree's package under build/walk/<name>/ whose
-# csrc/raster_keyed.cuh has these edits (text, replacement): "noeval"
-# evaluates no window pixel (rows still tested and prepared), "norows"
-# tests no row of a hit block (the walk, the key clear, the memset, out
-# and resolve remain).  Their planes are wrong; only their times count.
-WALK_CUTS = {
-    "full": (),
-    "noeval": (("for (int f = threadIdx.x; f < total; f += THREADS) {",
-                "for (int f = threadIdx.x; f < 0; f += THREADS) {"),),
-    "norows": (("  const int t = b * RASTER_BLOCK + (int)threadIdx.x;\n",
-                "  if (b >= 0) return;\n"
-                "  const int t = b * RASTER_BLOCK + (int)threadIdx.x;\n"),),
-}
 
 
 def event_ms(fn, reps):
@@ -138,78 +123,6 @@ def sweep() -> dict:
     return out
 
 
-def walk() -> dict:
-    """K5 and K5g on the 1M lattice's hierarchy inputs through their hit
-    words, and through K3's and K3g's group walk with the row cap lifted
-    (the same keys; K3g's epilogue): ms a call (CUDA events) and each
-    device operation's ms a call (one trace of 5 calls)."""
-    from zrenderer_tpu_torch.ops import _build, raster
-    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
-
-    w, h = cs.PAD_W, cs.PAD_H
-    lib = _build.load_library()
-    lattice = make_stress_scene(cs.LARGE_TRIS)
-    r = renderer(lattice)
-    flat = raster.prepare_raster_inputs(*cs.frame_rows(r))
-    del r
-    r = renderer(lattice, pipeline="lit")
-    r.set_environment(texture=cs.checker_texture())
-    lit = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
-    del r
-
-    def grouped(fn, run, prep):
-        args, _plane = raster._keyed_hier_args(*prep, w, h, max_rows=None)
-        return run(fn, prep[2].device, w, h, *args)
-
-    calls = {
-        "k5 words": lambda: raster.raster_hbm_kernel(*flat, w, h),
-        "k5 groups": lambda: grouped(lib.zr_raster_hier_keyed, raster._run,
-                                     flat),
-        "k5g words": lambda: raster.gbuffer_hbm_kernel(*lit, w, h),
-        "k5g groups": lambda: grouped(lib.zr_gbuffer_hier,
-                                      raster._run_gbuffer, lit),
-    }
-    out = {"root": imported_root()}
-    for name, fn in calls.items():
-        events, _ = cs.device_trace(lambda: [fn() for _ in range(5)])
-        ops = {}
-        for n, _, d in events:
-            ops[n.split("(")[0]] = ops.get(n.split("(")[0], 0.0) + d / 5e3
-        out[name] = {"ms": event_ms(fn, 10), "ops_ms": ops}
-    return out
-
-
-def walk_roots() -> list:
-    """The package copies of WALK_CUTS under build/walk/, built at once."""
-    import shutil
-
-    roots = []
-    for name, cuts in WALK_CUTS.items():
-        root = os.path.join(HERE, "build", "walk", name)
-        shutil.rmtree(root, ignore_errors=True)
-        shutil.copytree(os.path.join(HERE, "zrenderer_tpu_torch"),
-                        os.path.join(root, "zrenderer_tpu_torch"),
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        path = os.path.join(root, "zrenderer_tpu_torch", "csrc",
-                            "raster_keyed.cuh")
-        with open(path) as f:
-            text = f.read()
-        for old, new in cuts:
-            if old not in text:
-                raise RuntimeError(f"{name}: {old!r} not in {path}")
-            text = text.replace(old, new)
-        with open(path, "w") as f:
-            f.write(text)
-        roots.append(root)
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
-         " from zrenderer_tpu_torch.ops import _build;"
-         " _build.build_library()", root]) for root in roots]
-    if any(b.wait() for b in builds):
-        raise RuntimeError("a --walk variant did not build")
-    return roots
-
-
 def measure() -> dict:
     """One run in the tree that ``zrenderer_tpu_torch`` imports from."""
     import torch
@@ -234,6 +147,15 @@ def measure() -> dict:
         """Device busy ms per frame of one traced run of ``fn``."""
         events, _ = cs.device_trace(fn)
         return cs.busy_us(events) / 1000.0 / frames
+
+    def frame_1m(r, label):
+        """ms/frame, busy ms a frame and the frame's digest of a 1M
+        renderer ``r``."""
+        out["frames"][label] = anim_ms(r, cs.LARGE_FRAMES)
+        out["busy"][label] = busy_ms(
+            lambda: r.render_animation(num_frames=BUSY_FRAMES_1M),
+            BUSY_FRAMES_1M)
+        out["digests"][label] = digest(r.render()[0])
 
     def indexed_args(r, height):
         """The renderer's indexed buffers and per-draw matrices at
@@ -302,7 +224,14 @@ def measure() -> dict:
     k5 = raster.raster_hbm_kernel
     out["k5"]["lattice40k"] = event_ms(lambda: k5(*prep, w, h), 20)
     out["digests"]["k5 lattice40k"] = digest(*k5(*prep, w, h))
-    del prep, r
+    args = indexed_args(r, h2)
+    _, ti, tf, _ = tiles.setups_in_turn(2, *args, w, h2)
+    prep = raster.prepare_raster_inputs(ti, tf)
+    out["k3b"]["lattice40k band 0 of 2"] = event_ms(
+        lambda: k3b(*prep, w, band_h, 0), 20)
+    out["digests"]["k3b lattice40k band 0 of 2"] = digest(
+        *k3b(*prep, w, band_h, 0))
+    del prep, args, ti, tf, r
 
     lattice = make_stress_scene(cs.LARGE_TRIS)
     r = renderer(lattice)
@@ -314,7 +243,8 @@ def measure() -> dict:
     prep = raster.prepare_raster_inputs(*rows)
     out["k5"]["lattice1M"] = event_ms(lambda: k5(*prep, w, h), 5)
     out["digests"]["k5 lattice1M"] = digest(*k5(*prep, w, h))
-    del rows
+    del rows, prep
+    frame_1m(r, "lattice1M")
     args = indexed_args(r, h2)
     _, ti, tf, s = tiles.setups_in_turn(2, *args, w, h2)
     prep = raster.prepare_binned_hbm_inputs(
@@ -355,7 +285,7 @@ def measure() -> dict:
     out["k5g"]["lit lattice1M"] = event_ms(lambda: k5g(*prep, w, h), 5)
     out["digests"]["k5g lit lattice1M"] = digest(*k5g(*prep, w, h))
     del prep, rows
-    out["frames"]["lit lattice1M"] = anim_ms(r, cs.LARGE_FRAMES)
+    frame_1m(r, "lit lattice1M")
     del r
     r = renderer(lattice, pipeline="shadowed", shadow_size=cs.SHADOW_SIZE)
     r.set_environment()
@@ -365,8 +295,7 @@ def measure() -> dict:
     out["k4d"]["lattice1M map"] = event_ms(lambda: k4d(*prep, s, s), 10)
     out["digests"]["k4d lattice1M map"] = digest(k4d(*prep, s, s))
     del prep
-    out["frames"]["shadowed lattice1M"] = anim_ms(r, cs.LARGE_FRAMES)
-    out["digests"]["shadowed lattice1M"] = digest(r.render()[0])
+    frame_1m(r, "shadowed lattice1M")
     del r
     # The 1M lattice's frames through `hierarchy`: K5, K5g, K5's depth
     # plane as the shadow map.
@@ -385,11 +314,7 @@ def measure() -> dict:
             out["k5"]["lattice1M map"] = event_ms(lambda: k5(*prep, s, s), 5)
             out["digests"]["k5 lattice1M map"] = digest(k5(*prep, s, s)[1])
             del prep
-        out["frames"][label] = anim_ms(r, cs.LARGE_FRAMES)
-        out["busy"][label] = busy_ms(
-            lambda: r.render_animation(num_frames=BUSY_FRAMES_1M),
-            BUSY_FRAMES_1M)
-        out["digests"][label] = digest(r.render()[0])
+        frame_1m(r, label)
         del r
     del lattice
 
@@ -421,43 +346,27 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's K5 and K5g at each item count "
                     "of SWEEP_ITEMS instead")
-    ap.add_argument("--walk", action="store_true",
-                    help="split this tree's K5 and K5g time by the parts "
-                    "WALK_CUTS leaves out, instead")
     ap.add_argument("--worker", help="(internal) measure the package of "
                     "this checkout root")
-    ap.add_argument("--walk-worker", action="store_true",
-                    help="(internal) the worker runs walk(), not measure()")
     args = ap.parse_args(argv)
     if args.worker:
         # The package from the given root, chip_smoke from this tree.
         root = os.path.abspath(args.worker)
         sys.path[:] = [root] + [p for p in sys.path
                                 if os.path.abspath(p or ".") != HERE]
-        res = walk() if args.walk_worker else measure()
+        res = measure()
         if os.path.abspath(res["root"]) != root:
             raise RuntimeError(f"imported {res['root']}, not {root}")
         print(json.dumps(res), flush=True)
         return 0
-    if not (args.sweep or args.walk or args.other):
-        ap.error("give --other, --sweep or --walk")
+    if not (args.sweep or args.other):
+        ap.error("give --other or --sweep")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card (name, power limit): {smi}", flush=True)
     if args.sweep:
         print(json.dumps(sweep()), flush=True)
-        return 0
-    if args.walk:
-        for name, root in zip(WALK_CUTS, walk_roots()):
-            res = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--worker", root,
-                 "--walk-worker"], capture_output=True, text=True)
-            if res.returncode != 0:
-                print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
-                return res.returncode
-            line = json.loads(res.stdout.strip().splitlines()[-1])
-            print(json.dumps({"variant": name, **line}), flush=True)
         return 0
     other = os.path.abspath(args.other)
     runs = []

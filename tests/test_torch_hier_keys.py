@@ -336,7 +336,7 @@ def _bands(h: int):
     return [(0, r), (r, max(h - r, tr.TILE_H))]
 
 
-@pytest.mark.parametrize("kernel", ["k3", "k3b", "k3g", "k3d", "k5", "k5g"])
+@pytest.mark.parametrize("kernel", ["k3", "k3b", "k3g", "k3d", "k5g"])
 @pytest.mark.parametrize("name", list(HIER_ITEM_CASES))
 def test_items_merged_equal_the_plain_versions(name, kernel):
     build, items, shows = HIER_ITEM_CASES[name]
@@ -359,7 +359,7 @@ def test_items_merged_equal_the_plain_versions(name, kernel):
             _bits(a.numpy(), b.numpy())
         z, color = ref[1], ref[0]
     else:
-        # K3 and K5 (their plain version is one), or K3b's two bands:
+        # K3 (K5's plain version and keys too), or K3b's two bands:
         # colour and depth as int32, each band against the plain K3b at its
         # row base, laid side by side equal to the plain K3 frame.
         bands = _bands(h) if kernel == "k3b" else [(0, h)]
