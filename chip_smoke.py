@@ -225,10 +225,10 @@ lines and seconds:
     each) and each entry point traced once (device ops, busy ms, idle
     share);
 6. timing, traces first: each kernel's device time from a torch.profiler
-   trace at its main-path shape (K4, K4c, K4g, K4d and K9, and K3, K3b,
-   K3g and K3d with more than one work item a tile: the sum of a call's
-   three device operations, the memset, the item kernel and the resolve;
-   K5 and K5g four, the hit words' kernel first;
+   trace at its main-path shape (K4, K4c, K4g, K4d and K9: the sum of a
+   call's three device operations, the memset, the item kernel and the
+   resolve; K3, K3b, K3g, K3d, K5 and K5g the hit words' kernel first, so
+   four with more than one work item a tile;
    K4 also on soup1M through ``auto``; the keyed kernels bounded by their
    window pixel evaluations and bytes, ``keyed_work``), and a profiled
    ``render_animation`` run
@@ -882,7 +882,7 @@ def main(argv=None) -> int:
     def many_supers_rows(lit, w, h, supers=300):
         """A 2000-triangle soup's live rows at (w, h) spread in order over
         the blocks MANY_SUPERS_BLOCKS of ``supers`` superblocks (1 228 800
-        rows: 38 groups of K3's walk, past K5's count chunk of 256
+        rows: 38 groups of 8 superblocks, past the walk's count chunk of 256
         superblocks and its word chunks of 32), every other row live with
         an empty bbox, so the plain versions visit the soup's rows alone."""
         ti, tf = (lit_rows if lit else setup_rows)(
@@ -3086,8 +3086,8 @@ def main(argv=None) -> int:
                           "k3d": "depth_hier_resolve_kernel",
                           "k5": "raster_hbm_resolve_kernel",
                           "k5g": "gbuffer_hbm_resolve_kernel"}
-    # K5 and K5g first write the tiles' hit words: one more device
-    # operation a call, before the others.
+    # The hierarchy kernels first write the tiles' hit words: one more
+    # device operation a call, before the others.
     HIT_WORDS_KERNEL = "hier_hit_words_kernel"
     port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
                     | set(hier_resolve_names.values()) | {HIT_WORDS_KERNEL})
@@ -3101,19 +3101,20 @@ def main(argv=None) -> int:
 
     def call_ops(key):
         """The device operations of a call of kernel ``key``, in order:
-        K5's and K5g's hit words, the key plane's memset where a resolve
-        follows, the item kernel (kernel_names), the resolve."""
+        the hierarchy kernels' hit words, the key plane's memset where a
+        resolve follows, the item kernel (kernel_names), the resolve."""
         resolve = resolve_of(key)
-        ops = [HIT_WORDS_KERNEL] if key in ("k5", "k5g") else []
+        ops = [HIT_WORDS_KERNEL] if key in hier_resolve_names else []
         ops += ["Memset"] if resolve else []
         return ops + [kernel_names[key]] + ([resolve] if resolve else [])
 
     def call_durations(key, events):
         """Device us of each call of kernel ``key`` in a trace's events:
         the sum of its ``call_ops``, adjacent in time order (for K1 its
-        kernel alone; for K4/K4g/K4d, or K3/K3b/K3g/K3d with several items
-        a tile, the memset, the item kernel and the resolve kernel; K5 and
-        K5g the hit words' kernel before them).  A call without all of them
+        kernel alone; for K4/K4g/K4d, the memset, the item kernel and the
+        resolve kernel; for K3/K3b/K3g/K3d/K5/K5g the hit words' kernel,
+        then the item kernel between the memset and the resolve with
+        several items a tile).  A call without all of them
         counts as no call, so the trace reads short."""
         ops = call_ops(key)
         if len(ops) == 1:

@@ -1,5 +1,5 @@
 """The keyed hierarchy body's rules (zrenderer_tpu_torch/csrc/raster_hier.cu
-``keyed_hier`` and ``keyed_hier_words`` over csrc/raster_keyed.cuh: K3,
+``keyed_hier`` over csrc/raster_keyed.cuh: K3,
 K3b, K3g, K3d, K5 and K5g), through the mirrors below, the work-item
 helpers ``hier_block_hits``, ``hier_work_items`` and ``hier_hit_words``
 and the window helper ``vertex_bbox`` of zrenderer_tpu_torch/ops/raster.py,
@@ -21,15 +21,15 @@ on setup rows from the JAX package's NumPy geometry:
   on lit rows (random uv, normals and per-triangle materials),
   ``gbuffer_hier_plain`` (K3g) and ``gbuffer_hbm_plain`` (K5g: its own
   epilogue, which the den < 0 case tells from K3g's) in all 13 planes as
-  int32, K5 against ``raster_hier_plain``: the padded soup (its rows below
+  int32 (K5's keys and plain version are K3's): the padded soup (its rows below
   the geometry), the duplicated soup with items of one hit block (exact
   ties split across items), the 20K lattice, the edge map, a row at z ==
   1.0 (stays clear), a subnormal and a NaN z, and -0.0 ties both ways;
 * (d) the item table cuts each tile's hit blocks into consecutive shares,
-  as the kernel's walk does over groups of 8 superblocks at any
-  superblock count, and the hit blocks hold every row the walk admits, on
-  a prepare above 32768 rows too;
-* (e) K5's and K5g's walk over the hit words (``hier_hit_words``) gives
+  as the kernel's walk over the hit words does at any superblock count,
+  and the hit blocks hold every row the walk admits, on a prepare above
+  32768 rows too;
+* (e) the walk over the hit words (``hier_hit_words``) gives
   every hit block the item of ``hier_work_items``, up to 300 superblocks,
   and on 135 168 rows (five groups of 8 superblocks) K5 and K5g equal
   their plain versions at 1, 2 and 16 items, a share starting past a
@@ -419,51 +419,24 @@ def test_items_merged_equal_the_plain_versions(name, kernel):
         assert (neg > 0) == (shows == "neg_zero")
 
 
-# The kernel's walk tests the superblocks in groups of this many, one a
-# warp (csrc/raster_hier.cu hier_group_hits: THREADS / SUPER_BLOCK).
+# Superblocks a group: one a warp in csrc/raster_hier.cu
+# hier_hit_words_kernel (THREADS / SUPER_BLOCK), which tests superblocks w,
+# w + 8, ... in warp w.
 GROUP_SUPERS = 8
-
-
-def _grouped_walk(hits, items: int):
-    """The kernel's walk of one tile's hit blocks (``hits`` (B,) bool):
-    the count over every group of GROUP_SUPERS superblocks, then each
-    item's share [h0, h1) of the count walked group by group in row order,
-    a group skipped whole when the share starts past it.  Returns the item
-    of each block (-1 where no row meets the tile)."""
-    group = GROUP_SUPERS * tr.SUPER_BLOCK
-    words = [hits[k:k + group] for k in range(0, len(hits), group)]
-    total = sum(int(w.sum()) for w in words)
-    out = [-1] * len(hits)
-    for i in range(items):
-        h0, h1 = i * total // items, (i + 1) * total // items
-        h = 0
-        for gi, w in enumerate(words):
-            n = int(w.sum())
-            if h >= h1:
-                break
-            if h + n <= h0:
-                h += n
-                continue
-            for j in np.flatnonzero(w):
-                if h >= h1:
-                    break
-                if h >= h0:
-                    out[gi * group + int(j)] = i
-                h += 1
-    return out
 
 
 @pytest.mark.parametrize("seed", range(8))
 def test_work_items_cut_each_tiles_hit_blocks(seed):
     rng = np.random.default_rng(seed)
     tiles = int(rng.integers(1, 30))
-    # Up to 24 superblocks: three groups of the kernel's walk.
+    # Up to 24 superblocks: three groups.
     blocks = tr.SUPER_BLOCK * int(rng.integers(1, 3 * GROUP_SUPERS + 1))
     hits = torch.from_numpy(rng.random((tiles, blocks))
                             < rng.choice([0.0, 0.02, 0.3, 1.0]))
     hits[0] = False  # a tile no row meets
     items = int(rng.integers(1, 80))
     work = tr.hier_work_items(hits, items)
+    words, before, count = tr.hier_hit_words(hits)
     assert (work[~hits] == -1).all()
     for t in range(tiles):
         mine = work[t][hits[t]].tolist()
@@ -473,7 +446,9 @@ def test_work_items_cut_each_tiles_hit_blocks(seed):
         want = [i for i in range(items)
                 for _ in range(i * n // items, (i + 1) * n // items)]
         assert mine == want
-        assert work[t].tolist() == _grouped_walk(hits[t].numpy(), items)
+        assert work[t].tolist() == _words_walk(words[t].tolist(),
+                                               before[t].tolist(), count[t],
+                                               items)
         if n:
             sizes = np.bincount(mine, minlength=items)
             assert int(sizes.max() - sizes.min()) <= 1
@@ -481,7 +456,7 @@ def test_work_items_cut_each_tiles_hit_blocks(seed):
 
 def _lattice40k_narrow():
     """The 40K lattice at 256x128: above 32768 rows, 12 superblocks (two
-    groups of the kernel's walk)."""
+    groups)."""
     return (_rows(*make_stress_scene(40000), 256, 128, tri_align=256),
             (256, 128))
 
@@ -509,7 +484,7 @@ def test_hit_blocks_match_the_walk(build):
     assert torch.equal(band, hits[hits.shape[0] // 2:])
 
 
-# K5 and K5g's walk reads the hit words (csrc/raster_hier.cu
+# The walk reads the hit words (csrc/raster_hier.cu
 # hier_hit_words_kernel) a chunk of this many superblocks at a time when it
 # counts the superblocks before an item's share (THREADS), and this many
 # words at a time when it walks the share (HIT_WORDS).
@@ -555,7 +530,7 @@ def _words_walk(words, before, count, items: int):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_hit_words_walk_cuts_each_tiles_hit_blocks(seed):
-    """K5's and K5g's walk over ``tr.hier_hit_words`` gives every hit block
+    """The walk over ``tr.hier_hit_words`` gives every hit block
     the item ``tr.hier_work_items`` names, at up to 300 superblocks (the
     count's chunks of 256 and the walk's chunks of 32 crossed)."""
     rng = np.random.default_rng(100 + seed)
@@ -579,7 +554,7 @@ def test_hit_words_walk_cuts_each_tiles_hit_blocks(seed):
 
 
 def _many_groups(lit: bool):
-    """Five groups of the K3 walk's 8 superblocks (33 superblocks, 135 168
+    """Five groups of 8 superblocks (33 superblocks, 135 168
     rows, at 256x64): a soup's live rows spread in order over 13
     blocks in superblock groups 0, 2, 3 and 4 (none in group 1; group 4's in
     superblock 32, past the first HIT_WORDS words), the other rows live with

@@ -58,21 +58,15 @@
 // pixels' edge work, or the output planes and the winners' rows (K3g: 13
 // planes, 109 MB at 1920x1088, 0.032 ms at 3.35 TB/s).
 //
-// Two walks find an item's hit blocks, both at any superblock count:
-// * K3, K3b, K3g and K3d (up to 32768 rows on the main path, one group):
-//   the superblocks are tested in groups of WARPS (warp w tests superblock
-//   WARPS g + w of group g and its 32 blocks at once).  A first pass counts
-//   a tile's hit blocks over every group; a work item then walks its share
-//   of them, recomputing each group's hit words (with one group the
-//   count's words serve), and the resolve counts them again.
-// * K5 and K5g (the streamed hierarchy: hundreds of superblocks, 268 at
-//   1M rows): a first kernel writes each tile's hit words once (warp w
-//   tests superblocks w, w + WARPS, ..., whose loads do not wait on one
-//   another) and, per superblock, the tile's hit blocks before it.  An item
-//   finds the superblock of its share's first block from those counts, then
-//   reads the words from there; the resolve reads the tile's count.
-//   Walking the groups would test each of the 34 groups of lattice1M twice
-//   in each of a tile's items, one dependent group after another.
+// The walk, at any superblock count (13 on lattice40k's band, 268 at 1M
+// rows): a first kernel writes each tile's hit words once a call (warp w
+// tests superblocks w, w + WARPS, ..., whose loads do not wait on one
+// another) and, per superblock, the tile's hit blocks before it.  An item
+// finds the superblock of its share's first block from those counts, then
+// reads the words from there; the resolve reads the tile's count.
+// Walking the superblocks in groups of WARPS inside each item instead
+// tested each of the 34 groups of lattice1M twice in each of a tile's
+// items, one dependent group after another.
 
 #include "raster_keyed.cuh"
 
@@ -81,132 +75,8 @@ namespace zr {
 static_assert(SUPER_BLOCK == 32 && THREADS == WARPS * SUPER_BLOCK,
               "a warp tests a superblock's blocks");
 
-// The blocks of superblock group g that meet the tile at (row0, col0),
-// their superblock too: warp w tests superblock WARPS g + w and its 32
-// blocks at once, bit j of hits[w] for its block j.  Returns their count.
-// Every thread calls it; a caller that calls it again syncs the block
-// first, as the words are read by every thread.
-__device__ __forceinline__ int hier_group_hits(
-    unsigned* hits, const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, int g, int row0, int col0) {
-  const int w = (int)threadIdx.x / SUPER_BLOCK;
-  const int sb = g * WARPS + w;
-  bool hit = false;
-  if (sb < num_supers) {
-    const int* sp = supers + (size_t)sb * 8;
-    const int* bb = blocks + ((size_t)g * THREADS + threadIdx.x) * 8;
-    hit = tile_overlap(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3),
-                       row0, col0) &&
-          tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2),
-                       __ldg(bb + 3), row0, col0);
-  }
-  const unsigned m = __ballot_sync(0xffffffffu, hit);
-  if (threadIdx.x % SUPER_BLOCK == 0) hits[w] = m;
-  __syncthreads();
-  int total = 0;
-#pragma unroll
-  for (int i = 0; i < WARPS; ++i) total += __popc(hits[i]);
-  return total;
-}
-
-// The number of superblock groups of num_supers superblocks.
-__device__ __forceinline__ int hier_groups(int num_supers) {
-  return (num_supers + WARPS - 1) / WARPS;
-}
-
-// The tile's hit blocks over every group; hits holds the last group's
-// words after it.  Every thread calls it.
-__device__ __forceinline__ int hier_hit_count(
-    unsigned* hits, const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, int row0, int col0) {
-  int total = 0;
-  for (int g = 0; g < hier_groups(num_supers); ++g) {
-    if (g > 0) __syncthreads();  // the previous group's words read
-    total += hier_group_hits(hits, supers, num_supers, blocks, g, row0, col0);
-  }
-  return total;
-}
-
-// K3, K3b, K3g and K3d: work item blockIdx.x is item i = blockIdx.x % items
-// of tile blockIdx.x / items, and takes the tile's hit blocks [i * H /
-// items, (i + 1) * H / items) in row order (H hit blocks), so a busy
-// tile's rows spread over its items; an item with none returns at once.
-// Its rows into the shared keys, then out (raster_keyed.cuh keyed_out):
-// the tile's planes from the item that holds all its hit blocks (one item
-// a tile, or at most one hit block: the last item), else into the key
-// plane.  The tiles are those of the height rows from global row row_base
-// (a band's; 0 for a frame).
-template <class Mode>
-__device__ __forceinline__ void keyed_hier(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
-    const float* __restrict__ tf, int items,
-    unsigned long long* __restrict__ plane, int* __restrict__ color,
-    float* __restrict__ depth, float* __restrict__ extra, int width,
-    int height, int row_base) {
-  extern __shared__ __align__(16) unsigned char keyed_smem[];
-  KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
-  const int tiles_x = width / TILE_W;
-  const int tile = (int)blockIdx.x / items, idx = (int)blockIdx.x % items;
-  const int row0 = row_base + (tile / tiles_x) * TILE_H;
-  const int col0 = (tile % tiles_x) * TILE_W;
-  const int groups = hier_groups(num_supers);
-  const int total =
-      hier_hit_count(s.hits, supers, num_supers, blocks, row0, col0);
-  const int h0 = idx * total / items, h1 = (idx + 1) * total / items;
-  const bool alone = items == 1 || (total <= 1 && idx == items - 1);
-  if (h0 == h1 && !alone) return;  // block-uniform
-  for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) s.key[p] = Mode::CLEAR;
-  // The keys cleared before the first batch: here with one group, else by
-  // hier_group_hits' own sync.
-  if (groups == 1) __syncthreads();
-  int pending = 0, h = 0;  // block-uniform
-  for (int g = 0; g < groups && h < h1; ++g) {
-    if (groups > 1) {  // else the count's words serve
-      __syncthreads();  // every thread past the previous words
-      const int n =
-          hier_group_hits(s.hits, supers, num_supers, blocks, g, row0, col0);
-      if (h + n <= h0) {  // the item's share starts past this group
-        h += n;
-        continue;
-      }
-    }
-    for (int w = 0; w < WARPS && h < h1; ++w) {
-      for (unsigned m = s.hits[w]; m && h < h1; m &= m - 1, ++h)
-        if (h >= h0)
-          keyed_block_rows<Mode>(s, (g * WARPS + w) * SUPER_BLOCK +
-                                        __ffs(m) - 1,
-                                 pending, ti, tf, 0, row0, col0);
-    }
-  }
-  flush_pending<Mode>(s, pending, ti, tf, 0, row0, col0);
-  __syncthreads();
-  keyed_out<Mode>(s, alone, plane, row0, col0, ti, tf, color, depth, extra,
-                  width, height, row_base);
-}
-
-// The resolve of a tile of several items whose rows lie in two or more hit
-// blocks: the merged keys in the plane.
-template <class Mode>
-__device__ __forceinline__ void keyed_hier_resolve(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks,
-    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
-    const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, float* __restrict__ extra, int width,
-    int height, int row_base) {
-  __shared__ unsigned hits[WARPS];
-  const int tiles_x = width / TILE_W;
-  const int row0 = row_base + ((int)blockIdx.x / tiles_x) * TILE_H;
-  const int col0 = ((int)blockIdx.x % tiles_x) * TILE_W;
-  if (hier_hit_count(hits, supers, num_supers, blocks, row0, col0) <= 1)
-    return;  // resolved in place
-  resolve_tile<Mode>(plane, row0, col0, ti, tf, color, depth, extra, width,
-                     height, row_base);
-}
-
-// K5 and K5g's walk.  The hit words of a launch's tiles, one int buffer
-// of tiles * (2 num_supers + 1) (ops/raster.py _hbm_args): word sb
+// The hit words of a launch's tiles, one int buffer of tiles * (2
+// num_supers + 1) (ops/raster.py _keyed_hier_args): word sb
 // of tile t has bit j set when block SUPER_BLOCK sb + j and superblock sb
 // meet the tile; before[sb] counts the tile's hit blocks in superblocks
 // [0, sb); count[t] is its H.  Int: int where the buffer is written, const
@@ -268,15 +138,20 @@ __global__ void __launch_bounds__(THREADS) hier_hit_words_kernel(
   if (threadIdx.x == 0) hw.count[tile] = base;
 }
 
-// K5 and K5g: work item blockIdx.x is item i of tile blockIdx.x / items and
-// takes the tile's hit blocks [i * H / items, (i + 1) * H / items) in row
-// order, as keyed_hier's items do, read from the hit words: the
-// superblocks before its share's first block are those whose blocks all
-// lie before it (before + popcount <= i * H / items, a prefix of the
-// superblocks, counted a THREADS-long chunk at a time), then HIT_WORDS
-// words at a time from there.
+// Work item blockIdx.x is item i = blockIdx.x % items of tile blockIdx.x /
+// items, and takes the tile's hit blocks [i * H / items, (i + 1) * H /
+// items) in row order (H hit blocks), so a busy tile's rows spread over its
+// items; an item with none returns at once.  It reads them from the hit
+// words: the superblocks before its share's first block are those whose
+// blocks all lie before it (before + popcount <= i * H / items, a prefix
+// of the superblocks, counted a THREADS-long chunk at a time), then
+// HIT_WORDS words at a time from there.  Its rows into the shared keys,
+// then out (raster_keyed.cuh keyed_out): the tile's planes from the item
+// that holds all its hit blocks (one item a tile, or at most one hit
+// block: the last item), else into the key plane.  The tiles are those of
+// the height rows from global row row_base (a band's; 0 for a frame).
 template <class Mode>
-__device__ __forceinline__ void keyed_hier_words(
+__device__ __forceinline__ void keyed_hier(
     const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
     const float* __restrict__ tf, int items,
     unsigned long long* __restrict__ plane, int* __restrict__ color,
@@ -329,7 +204,7 @@ __device__ __forceinline__ void keyed_hier_words(
 // The resolve of a tile of several items whose rows lie in two or more hit
 // blocks, its count read from the hit words.
 template <class Mode>
-__device__ __forceinline__ void keyed_hier_words_resolve(
+__device__ __forceinline__ void keyed_hier_resolve(
     const int* __restrict__ buf, int num_supers,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
@@ -349,104 +224,92 @@ __device__ __forceinline__ void keyed_hier_words_resolve(
 // frame (row_base 0), K3b a band of height rows.
 // K3: packed colour and depth.
 __global__ void __launch_bounds__(THREADS) raster_hier_keyed_kernel(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
     const float* __restrict__ tf, int items,
     unsigned long long* __restrict__ plane, int* __restrict__ color,
     float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_hier<HierFlatKeys>(supers, num_supers, blocks, ti, tf, items, plane,
-                           color, depth, nullptr, width, height, row_base);
+  keyed_hier<HierFlatKeys>(buf, num_supers, ti, tf, items, plane, color,
+                           depth, nullptr, width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) raster_hier_resolve_kernel(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks,
+    const int* __restrict__ buf, int num_supers,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
     float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_hier_resolve<HierFlatKeys>(supers, num_supers, blocks, plane, ti, tf,
-                                   color, depth, nullptr, width, height,
-                                   row_base);
+  keyed_hier_resolve<HierFlatKeys>(buf, num_supers, plane, ti, tf, color,
+                                   depth, nullptr, width, height, row_base);
 }
 
 // K3b: K3's body over a band.
 __global__ void __launch_bounds__(THREADS) raster_hier_band_keyed_kernel(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
     const float* __restrict__ tf, int items,
     unsigned long long* __restrict__ plane, int* __restrict__ color,
     float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_hier<HierFlatKeys>(supers, num_supers, blocks, ti, tf, items, plane,
-                           color, depth, nullptr, width, height, row_base);
+  keyed_hier<HierFlatKeys>(buf, num_supers, ti, tf, items, plane, color,
+                           depth, nullptr, width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) raster_hier_band_resolve_kernel(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks,
+    const int* __restrict__ buf, int num_supers,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
     float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_hier_resolve<HierFlatKeys>(supers, num_supers, blocks, plane, ti, tf,
-                                   color, depth, nullptr, width, height,
-                                   row_base);
+  keyed_hier_resolve<HierFlatKeys>(buf, num_supers, plane, ti, tf, color,
+                                   depth, nullptr, width, height, row_base);
 }
 
 // K3g: out holds the GBUF_PLANES planes, width * height floats apart.
 __global__ void __launch_bounds__(THREADS) gbuffer_hier_keyed_kernel(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
     const float* __restrict__ tf, int items,
     unsigned long long* __restrict__ plane, float* __restrict__ out,
     int width, int height, int row_base) {
   const size_t frame = (size_t)width * height;
-  keyed_hier<HierGbufKeys>(supers, num_supers, blocks, ti, tf, items, plane,
-                           reinterpret_cast<int*>(out), out + frame,
-                           out + 2 * frame, width, height, row_base);
+  keyed_hier<HierGbufKeys>(buf, num_supers, ti, tf, items, plane,
+                     reinterpret_cast<int*>(out), out + frame,
+                     out + 2 * frame, width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) gbuffer_hier_resolve_kernel(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks,
+    const int* __restrict__ buf, int num_supers,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, float* __restrict__ out, int width,
     int height, int row_base) {
   const size_t frame = (size_t)width * height;
-  keyed_hier_resolve<HierGbufKeys>(supers, num_supers, blocks, plane, ti, tf,
-                                   reinterpret_cast<int*>(out), out + frame,
-                                   out + 2 * frame, width, height, row_base);
+  keyed_hier_resolve<HierGbufKeys>(buf, num_supers, plane, ti, tf,
+                             reinterpret_cast<int*>(out), out + frame,
+                             out + 2 * frame, width, height, row_base);
 }
 
 // K3d: the depth plane alone.
 __global__ void __launch_bounds__(THREADS) depth_hier_keyed_kernel(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
     const float* __restrict__ tf, int items,
     unsigned long long* __restrict__ plane, float* __restrict__ depth,
     int width, int height, int row_base) {
-  keyed_hier<DepthKeys>(supers, num_supers, blocks, ti, tf, items, plane,
-                        nullptr, depth, nullptr, width, height, row_base);
+  keyed_hier<DepthKeys>(buf, num_supers, ti, tf, items, plane, nullptr,
+                        depth, nullptr, width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) depth_hier_resolve_kernel(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks,
+    const int* __restrict__ buf, int num_supers,
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, float* __restrict__ depth, int width,
     int height, int row_base) {
-  keyed_hier_resolve<DepthKeys>(supers, num_supers, blocks, plane, ti, tf,
-                                nullptr, depth, nullptr, width, height,
-                                row_base);
+  keyed_hier_resolve<DepthKeys>(buf, num_supers, plane, ti, tf, nullptr,
+                                depth, nullptr, width, height, row_base);
 }
 
-// K5: K3's store over the hit words, at any row count.
+// K5: K3's store, at any row count.
 __global__ void __launch_bounds__(THREADS) raster_hbm_keyed_kernel(
     const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
     const float* __restrict__ tf, int items,
     unsigned long long* __restrict__ plane, int* __restrict__ color,
     float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_hier_words<HierFlatKeys>(buf, num_supers, ti, tf, items, plane,
-                                 color, depth, nullptr, width, height,
-                                 row_base);
+  keyed_hier<HierFlatKeys>(buf, num_supers, ti, tf, items, plane, color,
+                           depth, nullptr, width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) raster_hbm_resolve_kernel(
@@ -454,21 +317,20 @@ __global__ void __launch_bounds__(THREADS) raster_hbm_resolve_kernel(
     const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
     const float* __restrict__ tf, int* __restrict__ color,
     float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_hier_words_resolve<HierFlatKeys>(buf, num_supers, plane, ti, tf,
-                                         color, depth, nullptr, width,
-                                         height, row_base);
+  keyed_hier_resolve<HierFlatKeys>(buf, num_supers, plane, ti, tf, color,
+                                   depth, nullptr, width, height, row_base);
 }
 
-// K5g: K5's walk, the GBUF_PLANES planes of out under K5g's epilogue.
+// K5g: K5's rows, the GBUF_PLANES planes of out under K5g's epilogue.
 __global__ void __launch_bounds__(THREADS) gbuffer_hbm_keyed_kernel(
     const int* __restrict__ buf, int num_supers, const int* __restrict__ ti,
     const float* __restrict__ tf, int items,
     unsigned long long* __restrict__ plane, float* __restrict__ out,
     int width, int height, int row_base) {
   const size_t frame = (size_t)width * height;
-  keyed_hier_words<HbmGbufKeys>(buf, num_supers, ti, tf, items, plane,
-                                reinterpret_cast<int*>(out), out + frame,
-                                out + 2 * frame, width, height, row_base);
+  keyed_hier<HbmGbufKeys>(buf, num_supers, ti, tf, items, plane,
+                     reinterpret_cast<int*>(out), out + frame,
+                     out + 2 * frame, width, height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) gbuffer_hbm_resolve_kernel(
@@ -477,110 +339,25 @@ __global__ void __launch_bounds__(THREADS) gbuffer_hbm_resolve_kernel(
     const float* __restrict__ tf, float* __restrict__ out, int width,
     int height, int row_base) {
   const size_t frame = (size_t)width * height;
-  keyed_hier_words_resolve<HbmGbufKeys>(
-      buf, num_supers, plane, ti, tf, reinterpret_cast<int*>(out),
-      out + frame, out + 2 * frame, width, height, row_base);
+  keyed_hier_resolve<HbmGbufKeys>(buf, num_supers, plane, ti, tf,
+                             reinterpret_cast<int*>(out), out + frame,
+                             out + 2 * frame, width, height, row_base);
 }
 
 }  // namespace zr
 
-// K3, K3b, K3g and K3d launch the keyed body over the height rows from
-// global row row_base: num_tiles * items blocks, and with several items a
-// tile the key plane (height * width keys) set to all ones first and the
-// resolve over the tiles after.
+// Every kernel here launches the hit words' kernel over the height rows
+// from global row row_base, then the keyed body over them: num_tiles *
+// items blocks, and with several items a tile the key plane (height *
+// width keys) set to all ones first and the resolve over the tiles after.
+// buf: tiles * (2 num_supers + 1) ints.
 template <class Items, class Resolve, class... Out>
 static int launch_keyed_hier(Items items_kernel, Resolve resolve_kernel,
                              const int* supers, int num_supers,
                              const int* blocks, const int* ti,
-                             const float* tf, int items,
+                             const float* tf, int items, int* buf,
                              unsigned long long* plane, int height, int width,
                              int row_base, void* stream, Out... out) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int smem = (int)sizeof(zr::KeyedSmem);
-  cudaError_t err = cudaFuncSetAttribute(
-      items_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && items > 1)
-    err = cudaMemsetAsync(plane, 0xff,
-                          (size_t)height * width * sizeof(*plane), s);
-  if (err != cudaSuccess) return (int)err;
-  items_kernel<<<num_tiles * items, zr::THREADS, smem, s>>>(
-      supers, num_supers, blocks, ti, tf, items, plane, out..., width,
-      height, row_base);
-  if (items > 1)
-    resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
-        supers, num_supers, blocks, plane, ti, tf, out..., width, height,
-        row_base);
-  return (int)cudaGetLastError();
-}
-
-// Dynamic shared memory of a K3/K3b/K3g/K3d/K5/K5g work item, in bytes.
-extern "C" int zr_keyed_hier_smem_bytes() {
-  return (int)sizeof(zr::KeyedSmem);
-}
-
-// K3.
-extern "C" int zr_raster_hier_keyed(const int* supers, int num_supers,
-                                    const int* blocks, const int* ti,
-                                    const float* tf, int items,
-                                    unsigned long long* plane, int* color,
-                                    float* depth, int height, int width,
-                                    void* stream) {
-  return launch_keyed_hier(zr::raster_hier_keyed_kernel,
-                           zr::raster_hier_resolve_kernel, supers,
-                           num_supers, blocks, ti, tf, items, plane, height,
-                           width, 0, stream, color, depth);
-}
-
-// K3b: the band_h rows from global row row_base.
-extern "C" int zr_raster_hier_band_keyed(const int* supers, int num_supers,
-                                         const int* blocks, const int* ti,
-                                         const float* tf, int items,
-                                         unsigned long long* plane,
-                                         int* color, float* depth,
-                                         int band_h, int width, int row_base,
-                                         void* stream) {
-  return launch_keyed_hier(zr::raster_hier_band_keyed_kernel,
-                           zr::raster_hier_band_resolve_kernel, supers,
-                           num_supers, blocks, ti, tf, items, plane, band_h,
-                           width, row_base, stream, color, depth);
-}
-
-// K3g.
-extern "C" int zr_gbuffer_hier(const int* supers, int num_supers,
-                               const int* blocks, const int* ti,
-                               const float* tf, int items,
-                               unsigned long long* plane, float* out,
-                               int height, int width, void* stream) {
-  return launch_keyed_hier(zr::gbuffer_hier_keyed_kernel,
-                           zr::gbuffer_hier_resolve_kernel, supers,
-                           num_supers, blocks, ti, tf, items, plane, height,
-                           width, 0, stream, out);
-}
-
-// K3d.
-extern "C" int zr_depth_hier(const int* supers, int num_supers,
-                             const int* blocks, const int* ti,
-                             const float* tf, int items,
-                             unsigned long long* plane, float* depth,
-                             int height, int width, void* stream) {
-  return launch_keyed_hier(zr::depth_hier_keyed_kernel,
-                           zr::depth_hier_resolve_kernel, supers, num_supers,
-                           blocks, ti, tf, items, plane, height, width, 0,
-                           stream, depth);
-}
-
-// K5 and K5g launch the hit words' kernel over the height rows from global
-// row row_base (a frame: 0), then the keyed body over them as
-// launch_keyed_hier does: with several items a tile the key plane set to
-// all ones, the items, the resolve.  buf: tiles * (2 num_supers + 1) ints.
-template <class Items, class Resolve, class... Out>
-static int launch_keyed_hbm(Items items_kernel, Resolve resolve_kernel,
-                            const int* supers, int num_supers,
-                            const int* blocks, const int* ti,
-                            const float* tf, int items, int* buf,
-                            unsigned long long* plane, int height, int width,
-                            int row_base, void* stream, Out... out) {
   const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
   const cudaStream_t s = (cudaStream_t)stream;
   const int smem = (int)sizeof(zr::KeyedSmem);
@@ -603,6 +380,62 @@ static int launch_keyed_hbm(Items items_kernel, Resolve resolve_kernel,
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of a K3/K3b/K3g/K3d/K5/K5g work item, in bytes.
+extern "C" int zr_keyed_hier_smem_bytes() {
+  return (int)sizeof(zr::KeyedSmem);
+}
+
+// K3.
+extern "C" int zr_raster_hier_keyed(const int* supers, int num_supers,
+                                    const int* blocks, const int* ti,
+                                    const float* tf, int items, int* buf,
+                                    unsigned long long* plane, int* color,
+                                    float* depth, int height, int width,
+                                    void* stream) {
+  return launch_keyed_hier(zr::raster_hier_keyed_kernel,
+                           zr::raster_hier_resolve_kernel, supers,
+                           num_supers, blocks, ti, tf, items, buf, plane,
+                           height, width, 0, stream, color, depth);
+}
+
+// K3b: the band_h rows from global row row_base.
+extern "C" int zr_raster_hier_band_keyed(const int* supers, int num_supers,
+                                         const int* blocks, const int* ti,
+                                         const float* tf, int items,
+                                         int* buf, unsigned long long* plane,
+                                         int* color, float* depth,
+                                         int band_h, int width, int row_base,
+                                         void* stream) {
+  return launch_keyed_hier(zr::raster_hier_band_keyed_kernel,
+                           zr::raster_hier_band_resolve_kernel, supers,
+                           num_supers, blocks, ti, tf, items, buf, plane,
+                           band_h, width, row_base, stream, color, depth);
+}
+
+// K3g.
+extern "C" int zr_gbuffer_hier(const int* supers, int num_supers,
+                               const int* blocks, const int* ti,
+                               const float* tf, int items, int* buf,
+                               unsigned long long* plane, float* out,
+                               int height, int width, void* stream) {
+  return launch_keyed_hier(zr::gbuffer_hier_keyed_kernel,
+                           zr::gbuffer_hier_resolve_kernel, supers,
+                           num_supers, blocks, ti, tf, items, buf, plane,
+                           height, width, 0, stream, out);
+}
+
+// K3d.
+extern "C" int zr_depth_hier(const int* supers, int num_supers,
+                             const int* blocks, const int* ti,
+                             const float* tf, int items, int* buf,
+                             unsigned long long* plane, float* depth,
+                             int height, int width, void* stream) {
+  return launch_keyed_hier(zr::depth_hier_keyed_kernel,
+                           zr::depth_hier_resolve_kernel, supers, num_supers,
+                           blocks, ti, tf, items, buf, plane, height, width,
+                           0, stream, depth);
+}
+
 // K5.
 extern "C" int zr_raster_hier(const int* supers, int num_supers,
                               const int* blocks, const int* ti,
@@ -610,10 +443,10 @@ extern "C" int zr_raster_hier(const int* supers, int num_supers,
                               unsigned long long* plane, int* color,
                               float* depth, int height, int width,
                               void* stream) {
-  return launch_keyed_hbm(zr::raster_hbm_keyed_kernel,
-                          zr::raster_hbm_resolve_kernel, supers, num_supers,
-                          blocks, ti, tf, items, buf, plane, height, width, 0,
-                          stream, color, depth);
+  return launch_keyed_hier(zr::raster_hbm_keyed_kernel,
+                           zr::raster_hbm_resolve_kernel, supers, num_supers,
+                           blocks, ti, tf, items, buf, plane, height, width,
+                           0, stream, color, depth);
 }
 
 // K5g.
@@ -622,8 +455,8 @@ extern "C" int zr_gbuffer_hbm(const int* supers, int num_supers,
                               const float* tf, int items, int* buf,
                               unsigned long long* plane, float* out,
                               int height, int width, void* stream) {
-  return launch_keyed_hbm(zr::gbuffer_hbm_keyed_kernel,
-                          zr::gbuffer_hbm_resolve_kernel, supers, num_supers,
-                          blocks, ti, tf, items, buf, plane, height, width, 0,
-                          stream, out);
+  return launch_keyed_hier(zr::gbuffer_hbm_keyed_kernel,
+                           zr::gbuffer_hbm_resolve_kernel, supers,
+                           num_supers, blocks, ti, tf, items, buf, plane,
+                           height, width, 0, stream, out);
 }

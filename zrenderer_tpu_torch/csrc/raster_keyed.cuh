@@ -30,9 +30,8 @@
 //   alike.  The edge functions step from the window's origin (int32 wrap,
 //   the same bits as edge_fn), then the same bias tests and interp3.
 // * The hierarchy walk: superblock -> block -> row bbox skips, as the
-//   register body's (keyed_leftovers; raster_hier.cu's K3, K3b, K3g and
-//   K3d test a group of 8 superblocks' blocks at once, K5 and K5g read
-//   each tile's hit words, written once a call), a hit block's 128 row
+//   register body's (keyed_leftovers; raster_hier.cu's kernels read each
+//   tile's hit words, written once a call), a hit block's 128 row
 //   bboxes tested by 128 threads at once (keyed_block_rows) and the hit
 //   rows compacted into batches.  A row is admitted by its clamped bbox
 //   (tile_overlap): a row whose bbox clamped to empty is skipped, as
@@ -68,8 +67,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int HIT_WORDS = 32;  // hit words a hierarchy item holds at once
 static_assert(KEY_BATCH == RASTER_BLOCK, "a block's rows fit one batch");
 static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
-static_assert(WARPS <= HIT_WORDS && HIT_WORDS <= THREADS,
-              "a group's words fit; a thread loads a word");
+static_assert(HIT_WORDS <= THREADS, "a thread loads a word");
 
 // The (order bits of z, row id) key (the sign cleared, so -0.0 ties +0.0).
 // A span record's id is its last int, a leftover row's its index in the
@@ -158,9 +156,8 @@ struct KeyedSmem {
   int pending[KEY_PENDING];
   int scan[WARPS];
   int item[3];  // tile, item index within the tile, items of the tile
-  // The hierarchy walks' words of hit blocks, a bit each (raster_hier.cu):
-  // K3, K3b, K3g and K3d those of one group of WARPS superblocks
-  // (hier_group_hits), K5 and K5g HIT_WORDS superblocks' words at a time.
+  // The hierarchy walk's words of hit blocks, a bit each, HIT_WORDS
+  // superblocks' words at a time (raster_hier.cu keyed_hier).
   unsigned hits[HIT_WORDS];
 };
 

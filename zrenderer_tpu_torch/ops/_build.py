@@ -126,7 +126,8 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_small.restype = i
     lib.zr_raster_hier.argtypes = [p, i, p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_raster_hier.restype = i
-    lib.zr_raster_hier_keyed.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
+    lib.zr_raster_hier_keyed.argtypes = [p, i, p, p, p, i, p, p, p, p, i, i,
+                                         p]
     lib.zr_raster_hier_keyed.restype = i
     lib.zr_raster_records.argtypes = [p, p, p, p, p, p, p, i, p, p, p, i, i,
                                       p, p, p, i, i, p]
@@ -142,7 +143,7 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_lists.restype = i
     lib.zr_gbuffer_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
     lib.zr_gbuffer_small.restype = i
-    lib.zr_gbuffer_hier.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
+    lib.zr_gbuffer_hier.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_gbuffer_hier.restype = i
     lib.zr_gbuffer_hbm.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_gbuffer_hbm.restype = i
@@ -153,15 +154,15 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_lists.restype = i
     lib.zr_depth_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
     lib.zr_depth_small.restype = i
-    lib.zr_depth_hier.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
+    lib.zr_depth_hier.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_depth_hier.restype = i
     lib.zr_depth_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
                                            p, i, i, p]
     lib.zr_depth_records_keyed.restype = i
     lib.zr_depth_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_depth_lists.restype = i
-    lib.zr_raster_hier_band_keyed.argtypes = [p, i, p, p, p, i, p, p, p, i,
-                                              i, i, p]
+    lib.zr_raster_hier_band_keyed.argtypes = [p, i, p, p, p, i, p, p, p, p,
+                                              i, i, i, p]
     lib.zr_raster_hier_band_keyed.restype = i
     lib.zr_raster_records_band.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
                                            p, p, i, i, i, i, p]

@@ -11,12 +11,12 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
 * K3, the hierarchy raster (``rasterize_setup_pallas``):
   ``prepare_raster_inputs`` compacts live rows and builds the block and
   superblock union bboxes; the kernel walks the hierarchy in submission
-  order with the strict-less depth test.  CUDA: ``csrc/raster_hier.cu``.
+  order with the strict-less depth test; on the card each tile's hit
+  blocks are written once a call as hit words (``hier_hit_words``), which
+  its work items read.  CUDA: ``csrc/raster_hier.cu``.
 * K5, the streamed hierarchy (``rasterize_setup_pallas_hbm``): K3's
   walk and test without the 32768-row cap (every kernel reads its rows
-  from device memory on the card); on the card each tile's hit blocks are
-  written once a call as hit words (``hier_hit_words``), which its work
-  items read.
+  from device memory on the card).
 * K4, the record-streaming binned raster
   (``rasterize_setup_pallas_binned_hbm``): ``prepare_binned_hbm_inputs``
   lists each small-footprint head row once per tile it touches, sorts the
@@ -149,10 +149,10 @@ HBM_PAIR_BUDGET = 1 << 20
 ITEM_RECORDS = 256
 # K3/K3b/K3g/K3d/K5/K5g: the blocks of the hierarchy that meet a tile are
 # cut into this many work items, one CUDA block each (csrc/raster_hier.cu,
-# the keyed body; ``hier_work_items``).  One item a tile resolves in place (one
-# device operation a call); several merge through the output's key plane
-# (memset, items, resolve), except in tiles whose rows lie in at most one
-# block.  The wrappers read it at call time.  On the H100 at lattice20k,
+# the keyed body; ``hier_work_items``).  Each call first writes the tiles'
+# hit words; then one item a tile resolves in place (two device operations a
+# call); several merge through the output's key plane (memset, items,
+# resolve), except in tiles whose rows lie in at most one block.  The wrappers read it at call time.  On the H100 at lattice20k,
 # 16 ran K3d on its 1024^2 map in 0.098 ms against 0.29 for 1, 0.15 for 4
 # and 0.11 for 64, and K3g in 0.161 against 0.30, 0.19 and 0.20 (PERF.md
 # §6).
@@ -1053,8 +1053,7 @@ def hier_block_hits(supers, blocks, width: int, height: int,
     """(tiles, B) bool: block b's bbox and its superblock's meet tile t of
     the ``height`` rows from global row ``row0`` (a band's), at any number
     of superblocks (the keyed hierarchy walk's hit blocks,
-    csrc/raster_hier.cu hier_group_hits, which tests them in groups of 8
-    superblocks, and hier_hit_words_kernel)."""
+    csrc/raster_hier.cu hier_hit_words_kernel)."""
     ty, tx = height // TILE_H, width // TILE_W
     return (_tile_hits(blocks, ty, tx, row0)
             & _tile_hits(supers, ty, tx, row0).repeat_interleave(SUPER_BLOCK,
@@ -1076,7 +1075,7 @@ def hier_work_items(block_hits, items: int):
 
 
 def hier_hit_words(block_hits):
-    """K5's and K5g's hit words (csrc/raster_hier.cu
+    """The keyed hierarchy walk's hit words (csrc/raster_hier.cu
     hier_hit_words_kernel) of the (tiles, B) ``block_hits`` of
     ``hier_block_hits``: (words (tiles, S) i64, bit j of word s set when
     block SUPER_BLOCK s + j is a hit block of the tile; before (tiles, S)
@@ -1268,7 +1267,7 @@ def _hier_args(supers, blocks, ti, tf, width: int, height: int,
 def raster_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
     """Launch K3 (``csrc/raster_hier.cu``, the keyed body over the
     hierarchy in HIER_ITEMS work items a tile) on the current stream."""
-    args, _plane = _keyed_hier_args(supers, blocks, ti, tf, width, height)
+    args, _scratch = _keyed_hier_args(supers, blocks, ti, tf, width, height)
     out = _run(_build.load_library().zr_raster_hier_keyed, ti.device, width,
                height, *args)
     raster_hier_kernel.launches += 1
@@ -1276,10 +1275,10 @@ def raster_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
 
 
 def raster_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
-    """Launch K5 (``csrc/raster_hier.cu``, the keyed body over the hit
-    words in HIER_ITEMS work items a tile) over any number of setup rows on
-    the current stream."""
-    args, _scratch = _hbm_args(supers, blocks, ti, tf, width, height)
+    """Launch K5 (``csrc/raster_hier.cu``, K3's keyed body) over any
+    number of setup rows on the current stream."""
+    args, _scratch = _keyed_hier_args(supers, blocks, ti, tf, width, height,
+                                      max_rows=None)
     out = _run(_build.load_library().zr_raster_hier, ti.device, width,
                height, *args)
     raster_hbm_kernel.launches += 1
@@ -1290,26 +1289,31 @@ def _keyed_hier_args(supers, blocks, ti, tf, width: int, height: int,
                      max_rows: int | None = MAX_RESIDENT_ROWS):
     """Check K3/K3b/K3g/K3d/K5/K5g inputs (``height``: the output's rows, a
     band's for K3b; ``max_rows`` None for K3b, K5 and K5g); returns the
-    launch
-    arguments before the outputs (the hierarchy's, the item count
-    HIER_ITEMS, the key plane of the output's size or NULL with one item a
-    tile) and the plane, which the call must hold until it has
-    launched."""
+    launch arguments before the outputs (the hierarchy's, the item count
+    HIER_ITEMS, the hit-word buffer, the key plane of the output's size or
+    NULL with one item a tile) and the buffer and plane, which the call
+    must hold until it has launched.  The buffer holds each tile's hit word
+    and hit-block count before each superblock, then each tile's count
+    (csrc/raster_hier.cu HitWords)."""
     args = _hier_args(supers, blocks, ti, tf, width, height, max_rows)
     items = HIER_ITEMS
     if items < 1:
         raise ValueError(f"HIER_ITEMS must be positive, got {items}")
+    tiles = (height // TILE_H) * (width // TILE_W)
+    buf = torch.empty(tiles * (2 * supers.shape[0] + 1), dtype=I32,
+                      device=ti.device)
     plane = None
     if items > 1:  # freed after the launch, as _keyed_launch's plane
         plane = torch.empty(height * width, dtype=torch.int64,
                             device=ti.device)
-    return (*args, items, None if plane is None else _ptr(plane)), plane
+    return ((*args, items, _ptr(buf),
+             None if plane is None else _ptr(plane)), (buf, plane))
 
 
 def gbuffer_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
     """Launch K3g (``csrc/raster_hier.cu``, the keyed body over the
     hierarchy in HIER_ITEMS work items a tile) on the current stream."""
-    args, _plane = _keyed_hier_args(supers, blocks, ti, tf, width, height)
+    args, _scratch = _keyed_hier_args(supers, blocks, ti, tf, width, height)
     out = _run_gbuffer(_build.load_library().zr_gbuffer_hier, ti.device,
                        width, height, *args)
     gbuffer_hier_kernel.launches += 1
@@ -1320,26 +1324,12 @@ def gbuffer_hbm_kernel(supers, blocks, ti, tf, width: int, height: int):
     """Launch K5g (``csrc/raster_hier.cu``, K5's walk with K5g's epilogue,
     no row cap) on the current stream; returns the GBUFFER_PLANES
     planes."""
-    args, _scratch = _hbm_args(supers, blocks, ti, tf, width, height)
+    args, _scratch = _keyed_hier_args(supers, blocks, ti, tf, width, height,
+                                      max_rows=None)
     out = _run_gbuffer(_build.load_library().zr_gbuffer_hbm, ti.device,
                        width, height, *args)
     gbuffer_hbm_kernel.launches += 1
     return out
-
-
-def _hbm_args(supers, blocks, ti, tf, width: int, height: int):
-    """Check K5/K5g inputs (no row cap); returns the launch arguments before
-    the outputs (the hierarchy's, the item count HIER_ITEMS, the hit-word
-    buffer, the key plane or NULL with one item a tile) and the buffer and
-    plane, which the call must hold until it has launched.  The buffer
-    holds each tile's hit word and hit-block count before each superblock,
-    then each tile's count (csrc/raster_hier.cu HitWords)."""
-    args, plane = _keyed_hier_args(supers, blocks, ti, tf, width, height,
-                                   max_rows=None)
-    tiles = (height // TILE_H) * (width // TILE_W)
-    buf = torch.empty(tiles * (2 * supers.shape[0] + 1), dtype=I32,
-                      device=ti.device)
-    return (*args[:-1], _ptr(buf), args[-1]), (buf, plane)
 
 
 def _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
@@ -1517,7 +1507,7 @@ def depth_small_kernel(counts, lists, supers, blocks, ti, tf, width: int,
 def depth_hier_kernel(supers, blocks, ti, tf, width: int, height: int):
     """Launch K3d (``csrc/raster_hier.cu``, the keyed body over the
     hierarchy in HIER_ITEMS work items a tile) on the current stream."""
-    args, _plane = _keyed_hier_args(supers, blocks, ti, tf, width, height)
+    args, _scratch = _keyed_hier_args(supers, blocks, ti, tf, width, height)
     out = _run_depth(_build.load_library().zr_depth_hier, ti.device, width,
                      height, *args)
     depth_hier_kernel.launches += 1
@@ -1587,8 +1577,8 @@ def raster_hier_band_kernel(supers, blocks, ti, tf, width: int, band_h: int,
     ``band_h`` rows from global row ``row0``, a band-sized key plane) at
     any row count (like K5); returns the band's (color, depth)."""
     _check_band(width, band_h, row0)
-    args, _plane = _keyed_hier_args(supers, blocks, ti, tf, width, band_h,
-                                    None)
+    args, _scratch = _keyed_hier_args(supers, blocks, ti, tf, width, band_h,
+                                      None)
     out = _run_band(_build.load_library().zr_raster_hier_band_keyed,
                     ti.device, width, band_h, row0, *args)
     raster_hier_band_kernel.launches += 1
