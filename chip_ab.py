@@ -16,26 +16,27 @@ and builders (``lit_frame_rows``, ``deferred_frame_inputs``,
 package.  A run times, with CUDA events after a warm-up: K3 on the flat
 20K lattice's inputs (the hierarchy prepare, the padded 1080p target), K3b
 on band 0 of its 2 bands at 1920x544 (the rows gathered from 2 shards),
-and so on the 40K lattice's (52 288 rows, 13 superblocks), K3g on the lit 20K lattice's inputs and K3d on its 1024x1024 shadow map,
-K5 on the flat 40K and 1M lattices' and the 1M lattice's shadow map's
-hierarchy inputs, K4 on the flat and K4g on
-the lit 1M lattice's inputs (``auto``), K9 on band 0 of the flat 1M
-lattice's 2 bands at 1920x544 (the rows gathered from 2 shards, the
-band-local prepare, as ``tiles.band_raster`` makes it), K4c on the 1M
-soup's ``tile_lists`` inputs (the coarse class), K4d on the 1M lattice's
-shadow map, K5g on the lit 1M lattice (``hierarchy``), K7 on the deferred
-test scene's 1080p G-buffer with BASELINE config 3's wide and r2 lights
-(f32 planes), and ms/frame of ``render_animation`` on the flat, the lit
-and the shadowed 20K lattice, the flat, lit and shadowed 1M lattice
-(``auto``) and the deferred test scene with the wide lights at 1080p, of
-the flat, lit and shadowed 1M lattice through ``binning="hierarchy"``
-(K5, K5g, K5 on the map), and of the flat 20K and 1M lattices in 2 bands
-rendered in turn (``tiles.bands_in_turn``, 1920x1088), and the device
-busy ms per frame of the flat 20K frame, of the six 1M frames and of
-those two banded frames (one traced run each: ``chip_smoke.device_trace``, the
-union of the device operations' intervals).  Every run must give the
-same planes (their digests are compared).  Prints the card's name and
-power limit first, then one JSON line per run.
+and so on the 40K lattice's (52 288 rows, 13 superblocks), K3g on the lit
+20K lattice's inputs and K3d on its 1024x1024 shadow map, K5 on the flat
+40K and 1M lattices' and the 1M lattice's shadow map's hierarchy inputs,
+K4 on the flat and K4g on the lit 1M lattice's inputs (``auto``), K9 on
+band 0 of the flat 1M lattice's 2 bands at 1920x544 (the rows gathered
+from 2 shards, the band-local prepare, as ``tiles.band_raster`` makes it),
+K4c on the 1M soup's ``tile_lists`` inputs (the coarse class), K4d on the
+1M lattice's shadow map, K5g on the lit 1M lattice (``hierarchy``), K7 on
+the deferred test scene's 1080p G-buffer with BASELINE config 3's wide and
+r2 lights (f32 planes), and ms/frame of ``render_animation`` on the flat,
+the lit and the shadowed 20K lattice, the flat, lit and shadowed 1M
+lattice (``auto``) and the deferred test scene with the wide lights at
+1080p, of the flat, lit and shadowed 1M lattice through
+``binning="hierarchy"`` (K5, K5g, K5 on the map), and of the flat 20K and
+1M lattices in 2 bands rendered in turn (``tiles.bands_in_turn``,
+1920x1088), and the device busy ms per frame of the flat 20K frame, of the
+six 1M frames and of those two banded frames (one traced run each:
+``chip_smoke.device_trace``, the union of the device operations'
+intervals).  Every run must give the same planes (their digests are
+compared).  Prints the card's name and power limit first, then one JSON
+line per run.
 """
 
 from __future__ import annotations

@@ -27,10 +27,11 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   shared memory, each record over its window (its vertices' pixel bbox in
   the tile), a tile's span cut into work items of ITEM_RECORDS
   records; K3, K3b, K3g, K3d, K5 and K5g run it over the hierarchy
-  alone, a tile's blocks cut into HIER_ITEMS work items.  K4c adds the coarse class: rows too big for the fine lists
-  listed per 4x4-tile bin, tested against the tile's bbox; on the card it
-  runs K4's keyed body over the tile's span and then its bin's records,
-  cut into work items together.
+  alone, a tile's blocks cut into HIER_ITEMS work items.  K4c adds the
+  coarse class: rows too big for the fine lists listed per 4x4-tile bin,
+  tested against the tile's bbox; on the card it runs K4's keyed body
+  over the tile's span and then its bin's records, cut into work items
+  together.
 * K6, the global pair-list raster (``rasterize_setup_pallas_binned``):
   ``prepare_binned_inputs`` sorts the same pairs but keeps row ids; the
   kernel reads its tile's rows through them.  K4, K4c and K6 live in
@@ -150,12 +151,12 @@ ITEM_RECORDS = 256
 # K3/K3b/K3g/K3d/K5/K5g: the blocks of the hierarchy that meet a tile are
 # cut into this many work items, one CUDA block each (csrc/raster_hier.cu,
 # the keyed body; ``hier_work_items``).  Each call first writes the tiles'
-# hit words; then one item a tile resolves in place (two device operations a
-# call); several merge through the output's key plane (memset, items,
-# resolve), except in tiles whose rows lie in at most one block.  The wrappers read it at call time.  On the H100 at lattice20k,
-# 16 ran K3d on its 1024^2 map in 0.098 ms against 0.29 for 1, 0.15 for 4
-# and 0.11 for 64, and K3g in 0.161 against 0.30, 0.19 and 0.20 (PERF.md
-# §6).
+# hit words; then one item a tile resolves in place (two device operations
+# a call); several merge through the output's key plane (memset, items,
+# resolve), except in tiles whose rows lie in at most one block.  The
+# wrappers read it at call time.  On the H100 at lattice20k, 16 ran K3d on
+# its 1024^2 map in 0.098 ms against 0.29 for 1, 0.15 for 4 and 0.11 for
+# 64, and K3g in 0.161 against 0.30, 0.19 and 0.20 (PERF.md §6).
 HIER_ITEMS = 16
 # K4c: coarse bins are COARSE_CB x COARSE_CB tiles; the tile_lists
 # dispatch lists a row in at most TILE_LISTS_COARSE_CAP of them.
