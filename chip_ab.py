@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the raster kernels K3, K3b, K3g, K3d, K4, K4c, K4g,
-K4d, K5, K5g and K9 and the tiled light kernel K7, and of the frames whose
-pace they set, between this tree and another checkout (for example a
+"""Same-call A/B of the raster kernels K3, K3b, K3g, K3d, K4, K4c, K4g, K4d,
+K5, K5g, K6d, K9 and K9d and the tiled light kernel K7, and of the frames
+whose pace they set, between this tree and another checkout (for example a
 parent commit unpacked with ``git archive``) on one CUDA card; or, with
 ``--sweep``, this tree's K5 and K5g on the 1M lattice at each work-item
-count of SWEEP_ITEMS.
+count of SWEEP_ITEMS, and K6d and K9d at each item size of SWEEP_RECORDS
+and halved toward each item count of SWEEP_MIN_ITEMS (``record_sweep``).
 
     python3 chip_ab.py --other path/to/checkout
     python3 chip_ab.py --sweep
@@ -13,30 +14,35 @@ Each tree runs in a process of its own, which builds that tree's kernels,
 in turns: other, this, this, other.  Every run uses chip_smoke.py's sizes
 and builders (``lit_frame_rows``, ``deferred_frame_inputs``,
 ``baseline_lights``, ``checker_texture``) from this tree on the tree's own
-package.  A run times, with CUDA events after a warm-up: K3 on the flat
-20K lattice's inputs (the hierarchy prepare, the padded 1080p target), K3b
-on band 0 of its 2 bands at 1920x544 (the rows gathered from 2 shards),
-and so on the 40K lattice's (52 288 rows, 13 superblocks), K3g on the lit
-20K lattice's inputs and K3d on its 1024x1024 shadow map, K5 on the flat
-40K and 1M lattices' and the 1M lattice's shadow map's hierarchy inputs,
-K4 on the flat and K4g on the lit 1M lattice's inputs (``auto``), K9 on
-band 0 of the flat 1M lattice's 2 bands at 1920x544 (the rows gathered
-from 2 shards, the band-local prepare, as ``tiles.band_raster`` makes it),
-K4c on the 1M soup's ``tile_lists`` inputs (the coarse class), K4d on the
-1M lattice's shadow map, K5g on the lit 1M lattice (``hierarchy``), K7 on
-the deferred test scene's 1080p G-buffer with BASELINE config 3's wide and
-r2 lights (f32 planes), and ms/frame of ``render_animation`` on the flat,
-the lit and the shadowed 20K lattice, the flat, lit and shadowed 1M
+package.  A run times, with CUDA events after a warm-up: K3 on the flat 20K
+lattice's inputs (the hierarchy prepare, the padded 1080p target), K3b on
+band 0 of its 2 bands at 1920x544 (the rows gathered from 2 shards), and so
+on the 40K lattice's (52 288 rows, 13 superblocks), K3g on the lit 20K
+lattice's inputs and K3d on its 1024x1024 shadow map, K6d on the same map's
+``tile_lists`` inputs (the row-id spans), K9d on band 0 of the 40K
+lattice's 2 ``dist`` bands at 1920x544 (each shard's slabs through the
+in-turn all-to-all, ``tiles.dist_exchange``, then the owner's prepare), K5
+on the flat 40K and 1M lattices' and the 1M lattice's shadow map's
+hierarchy inputs, K4 on the flat and K4g on the lit 1M lattice's inputs
+(``auto``), K9 on band 0 of the flat 1M lattice's 2 bands at 1920x544 (the
+rows gathered from 2 shards, the band-local prepare, as
+``tiles.band_raster`` makes it), K4c on the 1M soup's ``tile_lists`` inputs
+(the coarse class), K4d on the 1M lattice's shadow map, K5g on the lit 1M
+lattice (``hierarchy``), K7 on the deferred test scene's 1080p G-buffer
+with BASELINE config 3's wide and r2 lights (f32 planes), and ms/frame of
+``render_animation`` on the flat, the lit and the shadowed 20K lattice
+(``auto`` and ``tile_lists``, K6d and K6g), the flat, lit and shadowed 1M
 lattice (``auto``) and the deferred test scene with the wide lights at
 1080p, of the flat, lit and shadowed 1M lattice through
 ``binning="hierarchy"`` (K5, K5g, K5 on the map), and of the flat 20K and
 1M lattices in 2 bands rendered in turn (``tiles.bands_in_turn``,
-1920x1088), and the device busy ms per frame of the flat 20K frame, of the
-six 1M frames and of those two banded frames (one traced run each:
-``chip_smoke.device_trace``, the union of the device operations'
+1920x1088) and of the 40K lattice in 2 ``dist`` bands, and the device busy
+ms per frame of the flat 20K frame, of the shadowed 20K ``tile_lists``
+frame, of the six 1M frames and of those three banded frames (one traced
+run each: ``chip_smoke.device_trace``, the union of the device operations'
 intervals).  Every run must give the same planes (their digests are
-compared).  Prints the card's name and power limit first, then one JSON
-line per run.
+compared).  Prints the card's name and power limit first, then one JSON line
+per run.
 """
 
 from __future__ import annotations
@@ -52,6 +58,10 @@ import chip_smoke as cs
 HERE = os.path.dirname(os.path.abspath(__file__))
 # Work items a tile that ``--sweep`` times K5 and K5g at.
 SWEEP_ITEMS = (1, 4, 8, 16, 32, 64)
+# Records an item that ``--sweep`` times K6d and K9d at, never halved, and
+# the items their 256 records are halved to aim at.
+SWEEP_RECORDS = (16, 32, 64, 128, 256)
+SWEEP_MIN_ITEMS = (512, 1024, 2048, 4096)
 # Frames of each traced 1M ``hierarchy`` run.
 BUSY_FRAMES_1M = 5
 
@@ -91,10 +101,86 @@ def renderer(scene_md, **kw):
     return r
 
 
+def indexed_args(r, height):
+    """The renderer's indexed buffers and per-draw matrices at (WIDTH,
+    height): a sharded frame's inputs."""
+    import numpy as np
+    import torch
+
+    from zrenderer_tpu_torch.ops import geometry as tg
+
+    b = r._buffers()
+    vp = tg.view_proj_from_camera(r.scene.active_camera, cs.WIDTH, height)
+    mats = np.einsum("nij,jk->nik", r.flat.node_to_world,
+                     vp).astype(np.float32)
+    return (b["positions"], b["attrs"], b["tri_vidx"],
+            torch.from_numpy(mats).to("cuda"), b["vert_node"])
+
+
+def record_sweep() -> dict:
+    """K6d on the shadowed 20K lattice's 1024x1024 map (``tile_lists``:
+    its pair_tri as prepared, n_head * cap slots, and trimmed to the
+    spans' end, so that the launch's grid counts no empty slot) and K9d on
+    band 0 of the 40K lattice's 2 ``dist`` bands at 1920x544 (two slabs of
+    32768 rows) at each ITEM_RECORDS of SWEEP_RECORDS never halved
+    (KEYED_MIN_ITEMS 0) and at 256 halved toward each KEYED_MIN_ITEMS of
+    SWEEP_MIN_ITEMS: ms a call (CUDA events over 20 calls) and device busy
+    ms a call (one traced run of 5 calls), every setting's planes equal."""
+    from zrenderer_tpu_torch.ops import raster
+    from zrenderer_tpu_torch.parallel import tiles
+    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+
+    s = cs.SHADOW_SIZE
+    r = renderer(make_stress_scene(20000), pipeline="shadowed",
+                 shadow_size=s, binning="tile_lists")
+    r.set_environment()
+    k6 = raster.prepare_binned_inputs(*cs.light_rows(r), s, s)
+    r = renderer(make_stress_scene(cs.MID_TRIS))
+    locals_, ti, tf, s2 = tiles.setups_in_turn(
+        2, *indexed_args(r, 1088), cs.PAD_W, 1088)
+    k9 = raster.prepare_binned_dist_owner(ti, tf, *tiles.dist_exchange(
+        tiles.InTurnExchange(2), locals_, cs.PAD_W, 1088, s2)[0])
+    del r, locals_, ti, tf
+    cases = {
+        "k6d": (raster.depth_lists_kernel, k6, (s, s)),
+        "k6d trimmed": (raster.depth_lists_kernel,
+                        (k6[0], k6[1][:int(k6[0][-1].item())], *k6[2:]),
+                        (s, s)),
+        "k9d": (raster.raster_binned_band_dist_kernel, k9,
+                (cs.PAD_W, 544, 0)),
+    }
+    out = {"pair_tri slots": k6[1].shape[0],
+           "k6d span entries": int((k6[0][-1] - k6[0][0]).item()),
+           "k9d span records": int((k9[0][:, -1] - k9[0][:, 0]).sum().item())}
+    saved = raster.ITEM_RECORDS, raster.KEYED_MIN_ITEMS
+    settings = ([(n, 0) for n in SWEEP_RECORDS]
+                + [(256, m) for m in SWEEP_MIN_ITEMS])
+    for key, (kern, prep, tail) in cases.items():
+        ref = None
+        out[key] = {}
+        for n, m in settings:
+            raster.ITEM_RECORDS, raster.KEYED_MIN_ITEMS = n, m
+
+            def call():
+                planes = kern(*prep, *tail)
+                return planes if isinstance(planes, tuple) else (planes,)
+
+            events, _ = cs.device_trace(lambda: [call() for _ in range(5)])
+            out[key][f"{n}/{m}"] = {"ms": event_ms(call, 20),
+                                    "busy_ms": cs.busy_us(events) / 5000.0}
+            d = digest(*call())
+            if ref is not None and d != ref:
+                raise AssertionError(f"{key}: {n} records an item, {m} "
+                                     "aimed at, changed the planes")
+            ref = d
+    raster.ITEM_RECORDS, raster.KEYED_MIN_ITEMS = saved
+    return out
+
+
 def sweep() -> dict:
     """K5 on the flat and K5g on the lit 1M lattice's hierarchy inputs at
     each item count of SWEEP_ITEMS (ms a call, CUDA events), every count's
-    planes equal."""
+    planes equal; then ``record_sweep``."""
     from zrenderer_tpu_torch.ops import raster
     from zrenderer_tpu_torch.scene.procedural import make_stress_scene
 
@@ -121,6 +207,8 @@ def sweep() -> dict:
                                      "planes")
             ref = d
     raster.HIER_ITEMS = saved
+    del lattice, flat, lit
+    out["records"] = record_sweep()
     return out
 
 
@@ -128,9 +216,6 @@ def measure() -> dict:
     """One run in the tree that ``zrenderer_tpu_torch`` imports from."""
     import torch
 
-    import numpy as np
-
-    from zrenderer_tpu_torch.ops import geometry as tg
     from zrenderer_tpu_torch.ops import light_kernel, raster
     from zrenderer_tpu_torch.parallel import tiles
     from zrenderer_tpu_torch.scene.mesh import MeshData
@@ -158,23 +243,12 @@ def measure() -> dict:
             BUSY_FRAMES_1M)
         out["digests"][label] = digest(r.render()[0])
 
-    def indexed_args(r, height):
-        """The renderer's indexed buffers and per-draw matrices at
-        (WIDTH, height): a sharded frame's inputs."""
-        b = r._buffers()
-        vp = tg.view_proj_from_camera(r.scene.active_camera, cs.WIDTH,
-                                      height)
-        mats = np.einsum("nij,jk->nik", r.flat.node_to_world,
-                         vp).astype(np.float32)
-        return (b["positions"], b["attrs"], b["tri_vidx"],
-                torch.from_numpy(mats).to("cuda"), b["vert_node"])
-
     w, h = cs.PAD_W, cs.PAD_H
     h2, band_h = 1088, 544
     out = {"root": imported_root(), "k3": {}, "k3b": {}, "k3g": {},
            "k3d": {}, "k4": {}, "k4c": {}, "k4d": {}, "k4g": {}, "k5": {},
-           "k5g": {}, "k7": {}, "k9": {}, "frames": {}, "busy": {},
-           "digests": {}}
+           "k5g": {}, "k6d": {}, "k7": {}, "k9": {}, "k9d": {}, "frames": {},
+           "busy": {}, "digests": {}}
     lattice = make_stress_scene(20000)
     r = renderer(lattice)
     prep = raster.prepare_raster_inputs(*cs.frame_rows(r))
@@ -219,6 +293,20 @@ def measure() -> dict:
     out["frames"]["shadowed lattice20k"] = anim_ms(r, cs.ANIM_FRAMES)
     out["digests"]["shadowed lattice20k"] = digest(r.render()[0])
     del prep, r
+    r = renderer(lattice, pipeline="shadowed", shadow_size=cs.SHADOW_SIZE,
+                 binning="tile_lists")
+    r.set_environment()
+    prep = raster.prepare_binned_inputs(*cs.light_rows(r), s, s)
+    k6d = raster.depth_lists_kernel
+    out["k6d"]["lattice20k map"] = event_ms(lambda: k6d(*prep, s, s), 20)
+    out["digests"]["k6d lattice20k map"] = digest(k6d(*prep, s, s))
+    label = "shadowed lattice20k tile_lists"
+    out["frames"][label] = anim_ms(r, cs.ANIM_FRAMES)
+    out["busy"][label] = busy_ms(
+        lambda: r.render_animation(num_frames=cs.PROFILE_FRAMES),
+        cs.PROFILE_FRAMES)
+    out["digests"][label] = digest(r.render()[0])
+    del prep, r
 
     r = renderer(make_stress_scene(cs.MID_TRIS))
     prep = raster.prepare_raster_inputs(*cs.frame_rows(r))
@@ -232,7 +320,23 @@ def measure() -> dict:
         lambda: k3b(*prep, w, band_h, 0), 20)
     out["digests"]["k3b lattice40k band 0 of 2"] = digest(
         *k3b(*prep, w, band_h, 0))
-    del prep, args, ti, tf, r
+    locals_, ti, tf, s2 = tiles.setups_in_turn(2, *args, w, h2)
+    prep = raster.prepare_binned_dist_owner(ti, tf, *tiles.dist_exchange(
+        tiles.InTurnExchange(2), locals_, w, h2, s2)[0])
+    k9d = raster.raster_binned_band_dist_kernel
+    out["k9d"]["lattice40k band 0 of 2"] = event_ms(
+        lambda: k9d(*prep, w, band_h, 0), 20)
+    out["digests"]["k9d lattice40k band 0 of 2"] = digest(
+        *k9d(*prep, w, band_h, 0))
+    label = "lattice40k, 2 dist bands in turn"
+    out["frames"][label] = event_ms(
+        lambda: tiles.bands_in_turn(2, cs.WIDTH, h2, *args, "dist"), 10)
+    out["busy"][label] = busy_ms(
+        lambda: tiles.bands_in_turn(2, cs.WIDTH, h2, *args, "dist"))
+    out["digests"][label] = digest(
+        *(p for band in tiles.bands_in_turn(2, cs.WIDTH, h2, *args, "dist")
+          for p in band))
+    del prep, args, ti, tf, locals_, r
 
     lattice = make_stress_scene(cs.LARGE_TRIS)
     r = renderer(lattice)
@@ -346,7 +450,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's K5 and K5g at each item count "
-                    "of SWEEP_ITEMS instead")
+                    "of SWEEP_ITEMS, and K6d and K9d at each item size of "
+                    "SWEEP_RECORDS and SWEEP_MIN_ITEMS, instead")
     ap.add_argument("--worker", help="(internal) measure the package of "
                     "this checkout root")
     args = ap.parse_args(argv)
@@ -387,7 +492,7 @@ def main(argv=None) -> int:
         print("the trees' planes differ", file=sys.stderr)
         return 1
     print("every run gave the same K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, "
-          "K5, K5g, K7, K9 and frame planes")
+          "K5, K5g, K6d, K7, K9, K9d and frame planes")
     return 0
 
 

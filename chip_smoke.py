@@ -67,8 +67,9 @@ lines and seconds:
     wide soup with rows whose bbox clamps to empty at the map's bottom and
     right edges and past them, the depth planes of all four equal by
     value; the plain K2d, K3d, K6d and K6g calls give their plain_ms;
-    then ``keyed_cases`` for K4d (no pixel latched at z == 1.0, the first
-    visited row's zero sign kept) and ``hier_cases`` for K3d;
+    then ``keyed_cases`` for K4d and for K6d (K4d's keyed body over row-id
+    spans; no pixel latched at z == 1.0, the first visited row's zero sign
+    kept) and ``hier_cases`` for K3d;
 4l. the tiled light kernel K7 against its plain version, the 3 output
     planes bitwise as int32, f32 and bf16 planes: the 1080p deferred
     G-buffer of the test scene (padded to 1920x1088) with BASELINE config
@@ -162,11 +163,13 @@ lines and seconds:
     from 4 shards at 1920x1024, every band; K9g on the deferred test
     scene from 2 shards at 1920x1088, both bands (the main path's shape;
     its plain_ms); K9 with both span forms on the 40K lattice from 2
-    shards at 1920x1088, both bands (band 0 its plain_ms); K9d on a
-    2048-triangle clipped soup under a 16-record slab (256 after
-    rounding), so that rows are demoted to the owner's hierarchy, with 2
-    and 4 sources (the script fails if none is), and on the 40K lattice
-    from 2 shards (its plain_ms); the all-to-all is the in-turn exchange
+    shards at 1920x1088, both bands (band 0 its plain_ms); K9d (at the
+    default work-item size and at 16 records an item, the two equal, with
+    the launch's blocks and the items they find) on a 2048-triangle
+    clipped soup under a 16-record slab (256 after rounding), so that rows
+    are demoted to the owner's hierarchy, with 2 and 4 sources (the script
+    fails if none is), and on the 40K lattice from 2 shards (its
+    plain_ms); the all-to-all is the in-turn exchange
     of ``parallel/tiles.py`` (``dist_exchange``), which stacks piece b of
     every shard's ``prepare_binned_dist_local``, the tensor the collective
     delivers;
@@ -225,9 +228,10 @@ lines and seconds:
     each) and each entry point traced once (device ops, busy ms, idle
     share);
 6. timing, traces first: each kernel's device time from a torch.profiler
-   trace at its main-path shape (K4, K4c, K4g, K4d and K9: the sum of a
-   call's three device operations, the memset, the item kernel and the
-   resolve; K3, K3b, K3g, K3d, K5 and K5g the hit words' kernel first, so
+   trace at its main-path shape (K4, K4c, K4g, K4d, K6d, K9 and K9d: the
+   sum of a call's three device operations, the memset, the item kernel
+   and the resolve; K3, K3b, K3g, K3d, K5 and K5g the hit words' kernel
+   first, so
    four with more than one work item a tile;
    K4 also on soup1M through ``auto``; the keyed kernels bounded by their
    window pixel evaluations and bytes, ``keyed_work``), and a profiled
@@ -416,6 +420,9 @@ LIGHT_LOOP_FUNCTIONS = {
 LIGHT_ARITH_OPCODES = frozenset({"FADD", "FMUL", "FFMA", "MUFU", "FCHK",
                                  "FMNMX", "FSETP", "FSEL", "F2F"})
 OPS_PER_LIGHT = {}  # "k7", "k7_bf16": set by phase 2
+# Registers a thread of each kernel entry (its mangled name) from ptxas -v:
+# set by phase 2.
+PTXAS_REGISTERS = {}
 # K8, csrc/overlay.cu's triangle loop: every (pixel, triangle) of a listed
 # (tile, triangle) pair costs 3 edge functions (5 int ops each), 3 bias and
 # 4 rect compares and 6 ands (28); a covered pixel with a free slot adds 3
@@ -1108,14 +1115,16 @@ def main(argv=None) -> int:
     def keyed_pairs(prep, w, h, row0=0):
         """The (tile, row) pairs the keyed body evaluates on a record
         prepare (K4, K4c, K4g, K4d; K9 over the h rows from global row
-        ``row0``, its spans band-local or the frame's): every span record
-        of the tiles, K4c's (tile, coarse record) pairs (``coarse_pairs``),
-        then every leftover (tile, row) pair of the walk; on a hierarchy
-        prepare (K3, K3b, K3g, K3d: supers, blocks, rows, tf) the walk's
-        pairs alone.  Returns their setup rows (P, NI32), z coefficients
-        (P, 3), row ids, global tile rows and tile columns (P,), the number
-        of records read (span and coarse, each once) and the leftover
-        pairs' rows."""
+        ``row0``, its spans band-local or the frame's; K9d's (n_src,
+        band_tiles + 1) spans, every source's) or on a row-id prepare (K6d:
+        offsets, pair_tri, supers, blocks, hier, tf; each listed row read
+        through hier): every span entry of the tiles, K4c's (tile, coarse
+        record) pairs (``coarse_pairs``), then every leftover (tile, row)
+        pair of the walk; on a hierarchy prepare (K3, K3b, K3g, K3d:
+        supers, blocks, rows, tf) the walk's pairs alone.  Returns their
+        setup rows (P, NI32), z coefficients (P, 3), row ids, global tile
+        rows and tile columns (P,), the number of records read (span and
+        coarse entries, each once) and the leftover pairs' rows."""
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
         za = slice(tg.F_ZA0, tg.F_ZA0 + 3)
         ty0 = row0 // raster.TILE_H
@@ -1126,26 +1135,41 @@ def main(argv=None) -> int:
             band = ty >= ty0
             rows, ty, tx = rows[band], ty[band], tx[band]
             return hier[rows], tf[rows, za], rows, ty, tx, 0, rows
-        offsets, rec_i, rec_f, supers, blocks, hier, tf = prep[:7]
+        if len(prep) == 6:  # K6d: row ids into hier/tf
+            offsets, pair_tri, supers, blocks, hier, tf = prep
+            rec_i = rec_f = None
+        else:
+            offsets, rec_i, rec_f, supers, blocks, hier, tf = prep[:7]
         tiles_x = w // raster.TILE_W
         tiles = tiles_x * (h // raster.TILE_H)
-        if offsets.numel() != tiles + 1:  # K9's global spans: the band's
-            offsets = offsets[ty0 * tiles_x:(ty0 * tiles_x) + tiles + 1]
-        # Records before offsets[0] sort below tile 0 (off-screen rows'
-        # keys) and belong to no span.
-        first, end = int(offsets[0].item()), int(offsets[-1].item())
-        span = (offsets[1:] - offsets[:-1]).long()
-        tile = torch.repeat_interleave(
-            torch.arange(span.numel(), device=span.device), span)
+        offs = offsets if offsets.ndim == 2 else offsets[None]
+        if offs.shape[1] != tiles + 1:  # K9's global spans: the band's
+            offs = offs[:, ty0 * tiles_x:(ty0 * tiles_x) + tiles + 1]
         rows, ty, tx = hbm2.rect_pairs(hier[:, box], blocks, supers, w,
                                        row0 + h)
         band = ty >= ty0
         rows, ty, tx = rows[band], ty[band], tx[band]
-        ri = [rec_i[first:end, :tg.NI32]]
-        zs = [rec_f[first:end, za]]
-        ids = [rec_i[first:end, tg.NI32].long()]
-        tys, txs = [tile // tiles_x + ty0], [tile % tiles_x]
-        records = end - first
+        ri, zs, ids, tys, txs = [], [], [], [], []
+        records = 0
+        for o in offs:  # each source's spans (one list but for K9d)
+            # Records before o[0] sort below tile 0 (off-screen rows' keys)
+            # and belong to no span.
+            first, end = int(o[0].item()), int(o[-1].item())
+            span = (o[1:] - o[:-1]).long()
+            tile = torch.repeat_interleave(
+                torch.arange(span.numel(), device=span.device), span)
+            if rec_i is None:
+                listed = pair_tri[first:end].long()
+                ri.append(hier[listed])
+                zs.append(tf[listed, za])
+                ids.append(listed)
+            else:
+                ri.append(rec_i[first:end, :tg.NI32])
+                zs.append(rec_f[first:end, za])
+                ids.append(rec_i[first:end, tg.NI32].long())
+            tys.append(tile // tiles_x + ty0)
+            txs.append(tile % tiles_x)
+            records += end - first
         if len(prep) == 8 and prep[7] is not None:  # K4c: a frame
             coffsets, crec_i, crec_f = prep[7]
             k, ctile = coarse_pairs(prep[7], w, h)
@@ -1221,27 +1245,39 @@ def main(argv=None) -> int:
 
     def keyed_work(prep, w, h, visible, planes, depth=None,
                    winner_bytes=WINNER_BYTES, strict=False, row0=0):
-        """K4's, K4c's, K9's or K4g's (given its ``depth`` plane) or K4d's
-        work on a record prepare, K3's, K3b's or K3g's (given its plane;
-        ``strict``) or K3d's on a hierarchy prepare: (window pixel
-        evaluations, bytes needed); K3b's and K9's over the band, the h
-        rows from global row ``row0`` (``visible``: the frame's visible
-        rows, global).  The evaluations: each pair of ``keyed_pairs`` (K4c:
-        a coarse record in each tile of its bin that its bbox meets) at its
-        bbox's pixels in the tile, or in the padding rows' tiles at the
-        keyed body's extent (raster.vertex_bbox).  The bytes: each span
-        and coarse record's ints and 3 z floats, each leftover row's NI32
-        ints and 3 z floats once, each distinct winner's ``winner_bytes``
-        (K4, K4c, K9, K4g, K3, K3b, K3g; K4d and K3d read z from the key)
+        """K4's, K4c's, K9's, K9d's or K4g's (given its ``depth`` plane) or
+        K4d's work on a record prepare, K6d's on a row-id prepare, K3's,
+        K3b's or K3g's (given its plane; ``strict``) or K3d's on a
+        hierarchy prepare: (window pixel evaluations, bytes needed); K3b's,
+        K9's and K9d's over the band, the h rows from global row ``row0``
+        (``visible``: the frame's visible rows, global).  The evaluations:
+        each pair of ``keyed_pairs`` (K4c: a coarse record in each tile of
+        its bin that its bbox meets) at its bbox's pixels in the tile, or
+        in the padding rows' tiles at the keyed body's extent
+        (raster.vertex_bbox).  The bytes: each span and coarse record's
+        ints and 3 z floats (K6d: each row-id entry's id, its row's NI32
+        ints and 3 z floats, as many), each leftover row's NI32 ints and 3
+        z floats once, each distinct winner's ``winner_bytes`` (K4, K4c,
+        K9, K9d, K4g, K3, K3b, K3g; K4d, K6d and K3d read z from the key)
         and the ``planes`` output planes."""
         pairs = keyed_pairs(prep, w, h, row0)
         ri, ty, tx = pairs[0].long(), pairs[3], pairs[4]
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
-        evals = window_evals(ri[:, box], ty, tx, visible,
-                             raster.vertex_bbox(ri))
+        rect = ri[:, box]
+        if len(prep) == 6:
+            # K6d: hier holds the listed rows with their bbox emptied; the
+            # geometry's is the vertex bbox clamped to the frame
+            # (ops/geometry.py), which the span entries come first with.
+            n = pairs[5]
+            jmin, jmax, imin, imax = raster.vertex_bbox(ri[:n]).unbind(1)
+            rect = torch.cat([torch.stack(
+                [jmin.clamp(min=0), jmax.clamp(max=w - 1),
+                 imin.clamp(min=0), imax.clamp(max=visible - 1)], 1),
+                rect[n:]])
+        evals = window_evals(rect, ty, tx, visible, raster.vertex_bbox(ri))
         winners = (0 if depth is None
                    else k4_winners(pairs, w, h, depth, strict, row0))
-        nbytes = (pairs[5] * (prep[1].shape[1] * 4 + 12)
+        nbytes = (pairs[5] * ((tg.NI32 + 1) * 4 + 12)
                   + torch.unique(pairs[6]).numel() * (tg.NI32 * 4 + 12)
                   + winners * winner_bytes + planes * 4 * w * h)
         print(f"  keyed work at {w}x{h} from row {row0}: {pairs[5]} "
@@ -1318,10 +1354,16 @@ def main(argv=None) -> int:
         _build.load_library()
         print(f"  {info.path} built in {info.seconds:.2f} s "
               f"(flags: {' '.join(_build.NVCC_FLAGS)})")
+        entry = None
         for line in info.log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "error")):
                 print(f"  ptxas: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            entry = m.group(1) if m else entry
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                PTXAS_REGISTERS[entry] = int(m.group(1))
         cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
                                  "cuobjdump")
         sass = subprocess.run([cuobjdump, "-sass", str(info.path)],
@@ -1337,14 +1379,15 @@ def main(argv=None) -> int:
                   + "); left out: "
                   + ", ".join(f"{k} {n}" for k, n in left_out.most_common()))
         smem = _build.load_library().zr_keyed_smem_bytes()
-        for key in ("k4", "k4_coarse", "k4g", "k4d", "k9"):
+        for key in ("k4", "k4_coarse", "k4g", "k4d", "k9", "k9d", "k6d"):
             results[key]["smem_bytes"] = smem
-        print(f"  K4/K4c/K4g/K4d/K9 keyed body: {smem} bytes of dynamic "
-              "shared memory a block (raster_records_kernel, "
+        print(f"  K4/K4c/K4g/K4d/K9/K9d/K6d keyed body: {smem} bytes of "
+              "dynamic shared memory a block (raster_records_kernel, "
               "raster_records_coarse_keyed_kernel, "
               "gbuffer_records_keyed_kernel, depth_records_kernel, "
-              "raster_records_band_keyed_kernel; the resolve kernels "
-              "none)")
+              "raster_records_band_keyed_kernel, "
+              "raster_records_dist_keyed_kernel, depth_lists_keyed_kernel;"
+              " the resolve kernels none)")
         smem = _build.load_library().zr_keyed_hier_smem_bytes()
         for key in ("k3", "k3b", "k3g", "k3d", "k5", "k5g"):
             results[key]["smem_bytes"] = smem
@@ -1446,23 +1489,48 @@ def main(argv=None) -> int:
     # ties split across items.
     KEYED_SMALL_ITEMS = 16
 
-    def with_items(kern, item_records):
+    def with_items(kern, item_records, min_items=None):
         """``kern`` run with raster.ITEM_RECORDS set to ``item_records``
-        for the call (the wrappers read it at call time)."""
+        and, given, raster.KEYED_MIN_ITEMS to ``min_items`` (0: the item
+        size is never halved) for the call (the wrappers read both at call
+        time)."""
         def run(*args):
-            saved = raster.ITEM_RECORDS
+            saved = raster.ITEM_RECORDS, raster.KEYED_MIN_ITEMS
             raster.ITEM_RECORDS = item_records
+            if min_items is not None:
+                raster.KEYED_MIN_ITEMS = min_items
             try:
                 return kern(*args)
             finally:
-                raster.ITEM_RECORDS = saved
+                raster.ITEM_RECORDS, raster.KEYED_MIN_ITEMS = saved
         return run
+
+    def keyed_table(offsets, item, n_supers, n_tiles, coffsets=None,
+                    tiles_x=None, min_items=None):
+        """A keyed record launch's work items as the kernel cuts them at
+        ``item`` records an item: its item size (raster.keyed_item_records
+        over the lists' records, at ``min_items``, by default
+        raster.KEYED_MIN_ITEMS) and raster.keyed_work_items at that size.
+        ``offsets``: the launch's spans (K9d: (n_src, tiles + 1)); K4c's
+        ``coffsets`` and the frame's ``tiles_x``.  Returns (size, items)."""
+        offs = offsets if offsets.ndim == 2 else offsets[None]
+        records = int((offs[:, -1] - offs[:, 0]).sum().item())
+        cls = ()
+        if coffsets is not None:
+            records += raster.COARSE_CB**2 * int(
+                (coffsets[-1] - coffsets[0]).item())
+            cls = (coffsets, tiles_x)
+        size = raster.keyed_item_records(
+            records, n_tiles, item,
+            raster.KEYED_MIN_ITEMS if min_items is None else min_items)
+        return size, raster.keyed_work_items(offsets, size, n_supers, *cls)
 
     def keyed_cases(key):
         """The keyed body's own cases for K4 (``key`` "k4"), K4c
         ("k4_coarse": cap 1, so that every row over more than one tile
         falls to the coarse class), K4g ("k4g", on lit rows, all 13
-        planes) or K4d ("k4d"), each bit-exact against the plain version in
+        planes), K4d ("k4d") or K6d ("k6d": K4d's body over row-id spans,
+        ``prepare_binned_inputs``), each bit-exact against the plain version in
         every row, at the default item size and at KEYED_SMALL_ITEMS
         records: one tile whose span is many items long, exact ties split
         across items, a row at z == 1.0 (K4, K4c and K4g latch it, K4d
@@ -1470,19 +1538,23 @@ def main(argv=None) -> int:
         K4d the first visited row's sign), triangles that cover whole
         tiles, and an empty scene; K4c also a coarse bin busy enough to
         cut each of its tiles into several items at the default size."""
-        depth, lit = key == "k4d", key == "k4g"
-        kern = {"k4": k4, "k4_coarse": k4c, "k4g": k4g, "k4d": k4d}[key]
+        depth, lit = key in ("k4d", "k6d"), key == "k4g"
+        kern = {"k4": k4, "k4_coarse": k4c, "k4g": k4g, "k4d": k4d,
+                "k6d": k6d}[key]
         plain = {"k4": raster.raster_binned_plain,
                  "k4_coarse": raster.raster_binned_plain,
                  "k4g": raster.gbuffer_binned_plain,
-                 "k4d": raster.depth_binned_plain}[key]
+                 "k4d": raster.depth_binned_plain,
+                 "k6d": raster.depth_lists_plain}[key]
         cmp = {"k4": compare, "k4_coarse": compare, "k4g": compare_gbuffer,
-               "k4d": compare_depth}[key]
+               "k4d": compare_depth, "k6d": compare_depth}[key]
         rows_of = lit_rows if lit else setup_rows
         prep_kw = (dict(cap=1, coarse_cap=raster.TILE_LISTS_COARSE_CAP)
                    if key == "k4_coarse" else {})
 
         def prepare(rows, w, h, **kw):
+            if key == "k6d":
+                return raster.prepare_binned_inputs(*rows, w, h, **kw)
             return raster.prepare_binned_hbm_inputs(*rows, w, h,
                                                     **{**prep_kw, **kw})
 
@@ -1499,20 +1571,25 @@ def main(argv=None) -> int:
             n, longest, _ = span_stats(prep[0])
             cls = ()
             extra = ""
-            if prep[7] is not None:
+            if len(prep) == 8 and prep[7] is not None:
                 cls = (prep[7][0], w // raster.TILE_W)
                 extra = f", {span_stats(prep[7][0])[0]} coarse records"
-            items = [raster.keyed_work_items(prep[0], item,
-                                             prep[3].shape[0], *cls)
-                     for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS)]
+            supers = prep[2 if len(prep) == 6 else 3]
+            n_tiles = prep[0].shape[0] - 1
+            # ITEM_RECORDS never halved, then KEYED_SMALL_ITEMS.
+            items = [keyed_table(prep[0], item, supers.shape[0], n_tiles,
+                                 *cls, min_items=min_items)[1]
+                     for item, min_items in ((raster.ITEM_RECORDS, 0),
+                                             (KEYED_SMALL_ITEMS, None))]
             print(f"  {label}: {n} records, longest span {longest}{extra}, "
                   f"{items[1].shape[0]} items of {KEYED_SMALL_ITEMS} records "
                   f"(most in a tile {int(items[1][:, 2].max().item())}; "
                   f"{int(items[0][:, 2].max().item())} of "
                   f"{raster.ITEM_RECORDS})")
             outs = [cmp(key, f"{label}, items of {item}",
-                        with_items(kern, item), plain, prep, w, h)
-                    for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS)]
+                        with_items(kern, item, min_items), plain, prep, w, h)
+                    for item, min_items in ((raster.ITEM_RECORDS, 0),
+                                            (KEYED_SMALL_ITEMS, None))]
             return (outs[-1], int(items[1][:, 2].max().item()),
                     int(items[0][:, 2].min().item()))
 
@@ -1561,8 +1638,9 @@ def main(argv=None) -> int:
         ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
         prep = prepare((ti, torch.zeros((ti.shape[0], tg.NF32),
                                         device=dev)), w, h)
-        for item in (raster.ITEM_RECORDS, KEYED_SMALL_ITEMS):
-            if not same(with_items(kern, item)(*prep, w, h),
+        for item, min_items in ((raster.ITEM_RECORDS, 0),
+                                (KEYED_SMALL_ITEMS, None)):
+            if not same(with_items(kern, item, min_items)(*prep, w, h),
                         plain(*prep, w, h)):
                 raise AssertionError(f"{key}: empty scene differs")
         print(f"  empty scene: {key} equals its plain version (clear)")
@@ -1972,6 +2050,7 @@ def main(argv=None) -> int:
         print("  duplicated triangles leave every map equal by value "
               "(K2d, K3d, K4d, K6d)")
         keyed_cases("k4d")
+        keyed_cases("k6d")
         hier_cases("k3d")
 
         # K6g: the G-buffer over global pair lists, at the camera's frame.
@@ -3051,7 +3130,7 @@ def main(argv=None) -> int:
                     "k2d": "depth_small_kernel",
                     "k3d": "depth_hier_keyed_kernel",
                     "k4d": "depth_records_kernel",
-                    "k6d": "depth_lists_kernel",
+                    "k6d": "depth_lists_keyed_kernel",
                     "k7": "light_tiled_kernel<float,",
                     "k7_bf16": "light_tiled_kernel<__nv_bfloat16,",
                     "k8": "overlay_raster_kernel<8>",
@@ -3059,7 +3138,7 @@ def main(argv=None) -> int:
                     "k3b": "raster_hier_band_keyed_kernel",
                     "k9": "raster_records_band_keyed_kernel",
                     "k9g": "gbuffer_records_band_kernel",
-                    "k9d": "raster_records_dist_kernel",
+                    "k9d": "raster_records_dist_keyed_kernel",
                     "k10g8": "raster_group8_kernel",
                     "k10g8g": "gbuffer_group8_kernel",
                     "k10g8d": "depth_group8_kernel",
@@ -3069,14 +3148,16 @@ def main(argv=None) -> int:
                     "k10trans": "raster_trans_kernel",
                     "k10hbm2": "raster_hbm2_kernel",
                     "k10scan": "raster_scan_kernel"}
-    # K4, K4c, K4g, K4d and K9 make three device operations a call: the
-    # key plane's memset, the item kernel (kernel_names) and the resolve
-    # kernel.
+    # K4, K4c, K4g, K4d, K6d, K9 and K9d make three device operations a
+    # call: the key plane's memset, the item kernel (kernel_names) and the
+    # resolve kernel.
     resolve_names = {"k4": "raster_records_resolve_kernel",
                      "k4_coarse": "raster_records_coarse_resolve_kernel",
                      "k4g": "gbuffer_records_resolve_kernel",
                      "k4d": "depth_records_resolve_kernel",
-                     "k9": "raster_records_band_resolve_kernel"}
+                     "k6d": "depth_lists_resolve_kernel",
+                     "k9": "raster_records_band_resolve_kernel",
+                     "k9d": "raster_records_dist_resolve_kernel"}
     # K3, K3b, K3g, K3d, K5 and K5g, with more than one work item a tile
     # (raster.HIER_ITEMS), issue the same three; with one, the item kernel
     # alone.
@@ -3111,10 +3192,10 @@ def main(argv=None) -> int:
     def call_durations(key, events):
         """Device us of each call of kernel ``key`` in a trace's events:
         the sum of its ``call_ops``, adjacent in time order (for K1 its
-        kernel alone; for K4/K4g/K4d, the memset, the item kernel and the
-        resolve kernel; for K3/K3b/K3g/K3d/K5/K5g the hit words' kernel,
-        then the item kernel between the memset and the resolve with
-        several items a tile).  A call without all of them
+        kernel alone; for K4/K4c/K4g/K4d/K6d/K9/K9d, the memset, the item
+        kernel and the resolve kernel; for K3/K3b/K3g/K3d/K5/K5g the hit
+        words' kernel, then the item kernel between the memset and the
+        resolve with several items a tile).  A call without all of them
         counts as no call, so the trace reads short."""
         ops = call_ops(key)
         if len(ops) == 1:
@@ -3470,6 +3551,49 @@ def main(argv=None) -> int:
             raise AssertionError(f"{label}: K9 at {KEYED_SMALL_ITEMS} "
                                  "records an item differs")
 
+    def compare_k9d(label, prep, row0, band_h, plain_shape=None):
+        """K9d against its plain version at the defaults (ITEM_RECORDS,
+        halved while under KEYED_MIN_ITEMS items), then at ITEM_RECORDS
+        never halved and at KEYED_SMALL_ITEMS, whose planes must equal the
+        first's bit for bit; prints for each the item size, the launch's
+        blocks (``raster.keyed_items`` over the slabs' rows), those past
+        the kernel's bound from the spans' ends (csrc/raster_binned.cu
+        item_bound; they return before the scan), those that find no item
+        and the items."""
+        ck, dk = compare("k9d", f"{label} (K9d)", band_fn(k9d, row0),
+                         band_fn(raster.raster_binned_band_plain, row0),
+                         prep, PAD_W, band_h, plain_shape=plain_shape)
+        offsets = prep[0]
+        n_tiles = offsets.shape[1] - 1
+        used = int((offsets[:, -1] - offsets[:, 0]).sum().item())
+        for item, min_items in ((raster.ITEM_RECORDS, None),
+                                (raster.ITEM_RECORDS, 0),
+                                (KEYED_SMALL_ITEMS, None)):
+            mi = raster.KEYED_MIN_ITEMS if min_items is None else min_items
+            size, items = keyed_table(offsets, item, prep[3].shape[0],
+                                      n_tiles, min_items=mi)
+            blocks = raster.keyed_items(PAD_W, band_h, prep[1].shape[0],
+                                        item, 0, mi)
+            bound = n_tiles + used // size
+            same = True
+            if min_items is not None or item != raster.ITEM_RECORDS:
+                cs, ds = with_items(k9d, item, min_items)(*prep, PAD_W,
+                                                          band_h, row0)
+                sync()
+                same = (torch.equal(cs, ck) and torch.equal(
+                    ds.view(torch.int32), dk.view(torch.int32)))
+            print(f"    at {item} records an item, {mi} items aimed at: "
+                  f"items of {size} records; {offsets.shape[0]} sources, "
+                  f"{used} span records of {prep[1].shape[0]} slab rows; "
+                  f"{blocks} blocks launched, {max(blocks - bound, 0)} past "
+                  f"the spans' bound, {min(bound, blocks) - items.shape[0]} "
+                  f"more find no item, {items.shape[0]} items (at most "
+                  f"{int(items[:, 2].max().item())} a tile); equal to the "
+                  f"defaults' planes {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{label}: K9d at {item} records an "
+                                     f"item, {mi} aimed at, differs")
+
     @phase("4s K3b/K9/K9g/K9d band kernels vs plain versions")
     def band_cases():
         cases = {}
@@ -3598,12 +3722,10 @@ def main(argv=None) -> int:
                 wanted = int(whole[b][3][:, -1].sum().item())
                 demoted |= sent < wanted
                 prep = raster.prepare_binned_dist_owner(ti, tf, *small[b])
-                compare("k9d", f"(e) 2048-triangle clipped soup, slab 16, "
-                        f"band {b} of {n} (K9d, {sent} of {wanted} records "
-                        f"sent, the rest demoted)",
-                        band_fn(k9d, b * band_h),
-                        band_fn(raster.raster_binned_band_plain,
-                                b * band_h), prep, PAD_W, band_h)
+                compare_k9d(f"(e) 2048-triangle clipped soup, slab 16, "
+                            f"band {b} of {n} ({sent} of {wanted} records "
+                            f"sent, the rest demoted)", prep, b * band_h,
+                            band_h)
             if not demoted:
                 raise AssertionError(f"(e) {n} bands: the 16-record slab "
                                      "demoted nothing")
@@ -3624,9 +3746,8 @@ def main(argv=None) -> int:
                            plain_shape=label if b == 0 and local else None)
         prep = raster.prepare_binned_dist_owner(
             ti, tf, *dist_received(locals_, H2, 2, s)[0])
-        compare("k9d", "(f) lattice40k band 0 of 2 (K9d)", band_fn(k9d, 0),
-                band_fn(raster.raster_binned_band_plain, 0), prep,
-                PAD_W, 544, plain_shape="lattice40k band 0 of 2")
+        compare_k9d("(f) lattice40k band 0 of 2", prep, 0, 544,
+                    plain_shape="lattice40k band 0 of 2")
         cases["k9d"] = (prep, 0, 544, "lattice40k band 0 of 2",
                         band_pairs(ti, 0, 544))
         return cases
@@ -4652,7 +4773,7 @@ def main(argv=None) -> int:
             else:
                 inputs = flat_inputs(prep_k)
             evals = nbytes = None
-            if key in ("k3b", "k9"):  # the keyed body over the band
+            if key in ("k3b", "k9", "k9d"):  # the keyed body, the band
                 evals, nbytes = keyed_work(
                     prep_k, PAD_W, bh, HEIGHT, 2,
                     kern(*prep_k, PAD_W, bh, r0)[1], WINNER_BYTES,
@@ -4666,6 +4787,51 @@ def main(argv=None) -> int:
                   f" frame), launcher {res['wrapper_ms']:.4f} ms/call (CUDA "
                   f"events); plain version {res['plain_ms']:.4f} ms/call at "
                   f"{res['plain_shape']} (CUDA events)")
+        def registers(name):
+            """ptxas's registers a thread of kernel ``name`` (None when
+            phase 2 reused an earlier build and printed no log)."""
+            mangled = f"{len(name)}{name}E"
+            return next((n for e, n in PTXAS_REGISTERS.items()
+                         if mangled in e), None)
+
+        # K6d's grid counts every slot of pair_tri (n_head * cap).
+        prep_k, _, _ = cases["k6d"]
+        spans = int((prep_k[0][-1] - prep_k[0][0]).item())
+        slots = prep_k[1].shape[0]
+        n_tiles = prep_k[0].shape[0] - 1
+        size, items = keyed_table(prep_k[0], raster.ITEM_RECORDS,
+                                  prep_k[2].shape[0], n_tiles)
+        blocks = raster.keyed_items(S, S, slots, raster.ITEM_RECORDS, 0,
+                                    raster.KEYED_MIN_ITEMS)
+        bound = n_tiles + spans // size
+        print(f"  k6d lattice20k map: {spans} span entries of {slots} "
+              f"pair_tri slots, items of {size} records; {blocks} blocks "
+              f"launched, {blocks - bound} past the spans' bound (they "
+              f"return before the scan), {bound - items.shape[0]} more find "
+              f"no item, {items.shape[0]} items")
+        for key in resolve_names:  # the keyed record kernels
+            res = results[key]
+            res["registers"] = registers(kernel_names[key])
+            # Each prepare's spans index its output's tiles (K9's band).
+            prep_k = cases[key][0] if key in cases else band_prep[key][0]
+            coarse_k = prep_k[7] if len(prep_k) == 8 else None
+            res["item_records"], items_k = keyed_table(
+                prep_k[0], raster.ITEM_RECORDS,
+                prep_k[2 if len(prep_k) == 6 else 3].shape[0],
+                prep_k[0].shape[-1] - 1,
+                *(() if coarse_k is None else (coarse_k[0],
+                                               PAD_W // raster.TILE_W)))
+            print(f"  {key} keyed body at its main-path shape: items of "
+                  f"{res['item_records']} records, {items_k.shape[0]} items; "
+                  f"{kernel_names[key]} "
+                  f"{res['registers']} registers, "
+                  f"{registers(resolve_names[key])} in "
+                  f"{resolve_names[key]}; {res.get('smem_bytes')} bytes of "
+                  f"dynamic shared memory an item; bound "
+                  f"{res.get('bound_ms', float('nan')):.4f} ms by "
+                  f"{res.get('bound_by')} ({res.get('evals')} window pixel "
+                  f"evaluations, {res.get('bytes')} bytes); kernel "
+                  f"{res.get('ms', float('nan')):.4f} ms a call")
         ti_k, tf_k, s_k = s_rows["k9"]
         print(f"  per-band prepare, lattice1M band 0 of 2 (band-local "
               f"prepare_binned_hbm_inputs): "
@@ -5368,6 +5534,7 @@ def main(argv=None) -> int:
                    "short_pass_ms", "tall_pass_ms", "k5_ms",
                    "k5_uncompacted_ms", "bound_ms_tiles", "smem_bytes",
                    "device_ops_per_call", "ms_soup1m", "evals_soup1m",
+                   "registers", "item_records",
                    "bound_ms_soup1m", "wrapper_ms_soup1m", "bytes",
                    "bound_ms_inputs", "bytes_soup1m")}})
     if PHASE_PREFIXES is None:

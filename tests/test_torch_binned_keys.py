@@ -26,11 +26,29 @@ package's NumPy geometry:
   items merged equal ``raster_binned_plain`` with the coarse class (and
   K4's frame in the geometry's rows) on soups whose rows fall to the
   coarse class, and the item table covers each span, each tile's bin and
-  the leftover superblocks once.
+  the leftover superblocks once;
+* (f) K6d (K4d's keys over row-id spans: each listed row gathered from
+  ``hier``, whose bbox and valid flag the prepare emptied, by its id): the
+  windows from the vertices hold every pixel a listed row covers, while
+  the emptied bbox would hold none; the items merged equal
+  ``depth_lists_plain`` bit for bit on the padded soup, the duplicated
+  soup at 16-record items (ties split across items), the edge map, the
+  20K lattice, rows left to the hierarchy and -0.0 ties both ways; the
+  item table covers each tile's row-id span once;
+* (g) the kernels' item bound (csrc/raster_binned.cu ``item_bound``: one
+  item a tile and one per ``item_records`` of the lists' records, from the
+  lists' ends) holds every item of one span list, of several (K9d) and of
+  a span and a coarse bin (K4c); the item size the kernels halve to while
+  the lists would make fewer than ``KEYED_MIN_ITEMS`` items
+  (``keyed_item_records``, its floor the kernel's MIN_ITEM_RECORDS) keeps
+  the items within the launch's grid (``keyed_items``).
 
 The CUDA kernels are held against the plain versions on the card by
 chip_smoke.py (phases 4b, 4g, 4d, 5b, 5l and 5s).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -168,16 +186,18 @@ def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
                        item_records: int, gbuffer: bool = False,
                        coarse=None, row0: int = 0, band_local: bool = True):
     """K4 (or with ``depth`` K4d, with ``gbuffer`` K4g, with ``coarse`` K4c,
-    with ``row0`` K9) as the keyed body computes it: each work item's keys
-    over its records' and leftover rows' windows (a scatter min), the
-    items' keys merged by their minimum, then the resolve from the winner
-    (K4g: K4's keys, the 13 planes under the buf * (covered ? 1/den : 0)
-    epilogue).  ``coarse`` = (coffsets, crec_i, crec_f): each tile's items
-    also walk its bin's records, a record whose bbox misses the tile
-    skipped (record_hits).  ``row0``: the ``height`` rows from global row
-    ``row0`` (a band's; tiles, windows and edge functions global, the
-    planes band-local), the spans indexed by band tile (``band_local``) or
-    by frame tile."""
+    with ``row0`` K9, with 2-D ``offsets`` K9d) as the keyed body computes
+    it: each work item's keys over its records' and leftover rows' windows
+    (a scatter min), the items' keys merged by their minimum, then the
+    resolve from the winner (K4g: K4's keys, the 13 planes under the buf *
+    (covered ? 1/den : 0) epilogue).  ``coarse`` = (coffsets, crec_i,
+    crec_f): each tile's items also walk its bin's records, a record whose
+    bbox misses the tile skipped (record_hits).  ``row0``: the ``height``
+    rows from global row ``row0`` (a band's; tiles, windows and edge
+    functions global, the planes band-local), the spans indexed by band
+    tile (``band_local``) or by frame tile.  2-D ``offsets`` (n_src, tiles
+    + 1): each tile's spans of every source laid end to end (K9d).  K6d is
+    K4d over the records its row-id entry stages (``lists_as_records``)."""
     del blocks  # a row that meets a tile is in its block's union
     th, tw = tr.TILE_H, tr.TILE_W
     tiles_x = width // tw
@@ -193,9 +213,13 @@ def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
     hits = tr._tile_hits(hier[:, box], height // th, tiles_x,
                          row0)  # (tiles, rows)
     src_i, src_f, tags, owner = [], [], [], []
-    span_end = offsets[1:].long()
-    for it, (t, _, _, k0, k1, s0, s1, c0, c1) in enumerate(items.tolist()):
-        k = torch.arange(k0, k1)
+    n_src = offsets.shape[0] if offsets.ndim == 2 else 1
+    span_end = offsets.reshape(n_src, -1)[-1, 1:].long()
+    for it, (t, _, _, k0, k1, s0, s1, *further) in enumerate(
+            items.tolist()):
+        pieces = [(k0, k1)] + list(zip(further[0::2], further[1::2]))
+        k = torch.cat([torch.arange(a, b) for a, b in pieces[:n_src]])
+        c0, c1 = further[-2:]
         rows = torch.nonzero(hits[t]).flatten()
         rows = rows[(rows >= s0 * per_super) & (rows < s1 * per_super)]
         src_i += [rec_i[k, :tg.NI32], hier[rows]]
@@ -716,3 +740,204 @@ def test_coarse_work_items_cover_each_list_once(seed):
         assert int(mine[0, 5]) == 0 and int(mine[-1, 6]) == supers
         assert (mine[1:, 5] == mine[:-1, 6]).all()
     assert (items[1:, 0] >= items[:-1, 0]).all()
+
+
+# K6d: K4d's keyed body over row-id spans.  The entry stages each listed
+# row from hier (its bbox and valid flag emptied by the prepare, so that
+# the leftover walk skips it) and tf by its id, with the id after its ints:
+# the records of a K4 prepare whose spans are pair_tri's.
+
+
+def lists_as_records(prep):
+    """K6's prepare (offsets, pair_tri, supers, blocks, hier, tf) as K6d's
+    row-id entry stages it: a K4-shaped prepare whose record k is row
+    pair_tri[k] of hier and tf, its id last, and no coarse class."""
+    offsets, pair_tri, supers, blocks, hier, tf = prep
+    rec_i, rec_f = tr._gather_records(hier, tf, pair_tri)
+    return offsets, rec_i, rec_f, supers, blocks, hier, tf, None
+
+
+@pytest.mark.parametrize("name", list(INPUTS))
+def test_row_id_windows_hold_every_covered_pixel(name):
+    (ti, tf), (w, h) = INPUTS[name]()
+    prep = tr.prepare_binned_inputs(ti, tf, w, h)
+    recs = lists_as_records(prep)
+    first, end = int(prep[0][0]), int(prep[0][-1])
+    listed = recs[1][first:end]
+    assert end - first > 0
+    # The staged rows' bboxes are empty: a window from I_JMIN..I_IMAX, or a
+    # test of I_VALID, would let no listed row draw.
+    assert (listed[:, g.I_JMIN] > listed[:, g.I_JMAX]).all()
+    assert (listed[:, g.I_VALID] == 0).all()
+    ri, tile = _visited_pairs(recs, w, h)
+    covered, outside = _covered_outside(ri, tile, w)
+    span_covered, _ = _covered_outside(listed.long(), tile[:end - first], w)
+    assert span_covered > 0
+    assert covered > 0
+    assert outside == 0
+
+
+def _pair(za_a, za_b):
+    """_lit_pair's rows (A submitted before B, B inside A) with the z
+    planes ``za_a`` and ``za_b``."""
+    return _lit_pair(za_a=za_a, za_b=za_b)
+
+
+# name: (rows, prepare arguments, item size, what the map must show)
+LISTS_ITEM_CASES = {
+    "padding_soup_item2": (_padding_soup, {}, 2, "padding"),
+    "padding_soup_cap1_item5": (_padding_soup, dict(cap=1), 5, "leftovers"),
+    "duplicated_soup_item16": (_duplicated_soup, {}, 16, "split_ties"),
+    "edge_map_item7": (_edge_map, {}, 7, "split"),
+    "lattice20k_item64": (_lattice_narrow, {}, 64, "split"),
+    "neg_zero_first_item1": (
+        lambda: _pair((-0.0,) * 3, (0.0,) * 3), {}, 1, "neg_zero"),
+    "pos_zero_first_item1": (
+        lambda: _pair((0.0,) * 3, (-0.0,) * 3), {}, 1, "pos_zero"),
+}
+
+
+@pytest.mark.parametrize("name", list(LISTS_ITEM_CASES))
+def test_row_id_items_merged_equal_the_plain_k6d(name):
+    build, kw, item, shows = LISTS_ITEM_CASES[name]
+    (ti, tf), (w, h) = build()
+    prep = tr.prepare_binned_inputs(ti, tf, w, h, **kw)
+    z = tr.depth_lists_plain(*prep, w, h)
+    recs = lists_as_records(prep)
+    kz = keyed_binned_plain(*recs[:7], w, h, True, item)
+    _bits(kz.numpy(), z.numpy())
+    assert int((z < 1.0).sum()) > 0
+    items = tr.keyed_work_items(prep[0], item, prep[2].shape[0])
+    assert int(prep[0][-1] - prep[0][0]) > 0  # row-id spans
+    if shows in ("padding", "split", "split_ties"):
+        assert int((items[:, 2] > 1).sum()) > 0  # some tile is split
+    if shows == "padding":
+        assert (z[80:] < 1.0).sum() > 0  # rows below the geometry
+    elif shows == "leftovers":
+        assert int((prep[4][:, g.I_VALID] > 0).sum()) > 0
+    elif shows == "split_ties":
+        assert _ties_split_across_items(recs, items) > 0
+    elif shows.endswith("zero"):  # A is visited first: its sign stays
+        assert int((z == 0.0).sum()) > 0
+        neg = int((torch.signbit(z) & (z == 0.0)).sum())
+        assert (neg > 0) == (shows == "neg_zero")
+
+
+def test_row_id_work_items_cover_each_span_once():
+    (ti, tf), (w, h) = _lattice_narrow()
+    offsets, pair_tri, supers = tr.prepare_binned_inputs(ti, tf, w, h)[:3]
+    items = tr.keyed_work_items(offsets, ITEM_SMALL, supers.shape[0])
+    # The launch's grid counts every slot of pair_tri (n_head * cap, far
+    # more than the spans use): never fewer blocks than items.
+    assert pair_tri.shape[0] > 4 * int(offsets[-1])
+    assert items.shape[0] <= tr.keyed_items(w, h, pair_tri.shape[0],
+                                            ITEM_SMALL)
+    for t in range(offsets.shape[0] - 1):
+        mine = items[items[:, 0] == t]
+        assert mine.shape[0] == max(
+            1, -(-int(offsets[t + 1] - offsets[t]) // ITEM_SMALL))
+        assert int(mine[0, 3]) == int(offsets[t])
+        assert int(mine[-1, 4]) == int(offsets[t + 1])
+        assert (mine[1:, 3] == mine[:-1, 4]).all()
+        assert ((mine[:, 4] - mine[:, 3]) <= ITEM_SMALL).all()
+    assert int((items[:, 4] - items[:, 3]).sum()) == int(offsets[-1]
+                                                         - offsets[0])
+
+
+ITEM_SMALL = 16
+
+
+def item_bound(offsets, item_records, num_tiles, coffsets=None):
+    """csrc/raster_binned.cu ``item_bound``: the tiles plus one item per
+    ``item_records`` of every list's records (from its ends; a coarse
+    bin's records counted COARSE_CB**2 times)."""
+    offs = offsets.reshape(-1, offsets.shape[-1]).long()
+    n = int((offs[:, num_tiles] - offs[:, 0]).sum())
+    if coffsets is not None:
+        n += tr.COARSE_CB**2 * int(coffsets[-1] - coffsets[0])
+    return num_tiles + n // item_records
+
+
+@pytest.mark.parametrize("form", ["one_list", "sources", "coarse"])
+@pytest.mark.parametrize("seed", range(4))
+def test_item_bound_holds_every_item(seed, form):
+    rng = np.random.default_rng(20 + seed)
+    tiles_x, tiles_y = (int(x) for x in rng.integers(1, 10, 2))
+    tiles = tiles_x * tiles_y
+    n_src = int(rng.integers(2, 5)) if form == "sources" else 1
+
+    def spans(n, hi):
+        x = rng.integers(0, hi, n)
+        x[rng.random(n) < 0.3] = 0
+        return torch.from_numpy((int(rng.integers(0, 5)) + np.concatenate(
+            [[0], np.cumsum(x)])).astype(np.int32))
+
+    offsets = torch.stack([spans(tiles, 40) for _ in range(n_src)])
+    if form != "sources":
+        offsets = offsets[0]
+    coffsets = None
+    if form == "coarse":
+        ctiles_x = -(-tiles_x // tr.COARSE_CB)
+        coffsets = spans(ctiles_x * -(-tiles_y // tr.COARSE_CB), 60)
+    for item in (1, 3, 16, 256):
+        items = tr.keyed_work_items(offsets, item, 4, coffsets, tiles_x)
+        bound = item_bound(offsets, item, tiles, coffsets)
+        assert items.shape[0] <= bound
+        records = int(offsets.reshape(-1, tiles + 1)[:, -1].max())
+        coarse = 0 if coffsets is None else int(coffsets[-1])
+        assert bound <= tr.keyed_items(tr.TILE_W * tiles_x,
+                                       tr.TILE_H * tiles_y, n_src * records,
+                                       item, coarse)
+
+
+def test_min_item_records_equals_the_kernels():
+    """csrc/raster_binned.cu's MIN_ITEM_RECORDS, which item_size halves
+    to, against the mirror that keyed_item_records uses."""
+    cu = (Path(tr.__file__).resolve().parent.parent / "csrc"
+          / "raster_binned.cu")
+    found = re.findall(r"constexpr int MIN_ITEM_RECORDS = (\d+);",
+                       cu.read_text())
+    assert [int(x) for x in found] == [tr.MIN_ITEM_RECORDS]
+
+
+@pytest.mark.parametrize("form", ["one_list", "sources", "coarse"])
+@pytest.mark.parametrize("seed", range(4))
+def test_halved_item_size_stays_within_the_grid(seed, form):
+    """The item size the kernel picks from the lists' records: the largest
+    item, halved (while even and at least MIN_ITEM_RECORDS) only while the
+    lists would make fewer than min_items items; the items at that size fit
+    the launch's grid, which the buffers' sizes and min_items give."""
+    rng = np.random.default_rng(40 + seed)
+    tiles_x, tiles_y = (int(x) for x in rng.integers(1, 17, 2))
+    tiles = tiles_x * tiles_y
+    n_src = 3 if form == "sources" else 1
+    offsets = torch.stack([torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(rng.integers(0, 300, tiles))]).astype(np.int32))
+        for _ in range(n_src)])
+    coffsets = None
+    slots = n_src * int(offsets[:, -1].max()) + int(rng.integers(0, 5000))
+    coarse_slots = 0
+    if form == "coarse":
+        ctiles_x = -(-tiles_x // tr.COARSE_CB)
+        bins = ctiles_x * -(-tiles_y // tr.COARSE_CB)
+        coffsets = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(rng.integers(0, 200, bins))]).astype(np.int32))
+        coarse_slots = int(coffsets[-1])
+    else:
+        offsets = offsets if form == "sources" else offsets[0]
+    records = item_bound(offsets, 1, tiles, coffsets) - tiles
+    w, h = tr.TILE_W * tiles_x, tr.TILE_H * tiles_y
+    for item in (16, 48, 256):
+        for min_items in (0, 64, 2048):
+            size = tr.keyed_item_records(records, tiles, item, min_items)
+            assert tr.MIN_ITEM_RECORDS <= size <= item or size == item
+            assert item % size == 0
+            if size < item:  # halved: the size above made too few items
+                assert tiles + records // (2 * size) < min_items
+            if size % 2 == 0 and size // 2 >= tr.MIN_ITEM_RECORDS:
+                assert tiles + records // size >= min_items
+            items = tr.keyed_work_items(offsets, size, 4, coffsets, tiles_x)
+            assert items.shape[0] <= item_bound(offsets, size, tiles,
+                                                coffsets)
+            assert items.shape[0] <= tr.keyed_items(w, h, slots, item,
+                                                    coarse_slots, min_items)

@@ -15,14 +15,16 @@
 //        buf * where(covered, inv, 0) at :1452-1455);
 //   K4d, K6d  rasterize_depth_pallas_binned_hbm (_binned_hbm_depth_kernel,
 //        body :1887 with depth_only, :1939-1944, :2142-2144) and
-//        rasterize_depth_pallas_binned (_binned_depth_kernel);
+//        rasterize_depth_pallas_binned (:1582, _binned_depth_kernel :1490
+//        over _binned_body :1219);
 //   K9   rasterize_setup_pallas_binned_band (:2413; _binned_hbm_band_kernel
 //        :2388, global spans, and _binned_hbm_band_local_kernel :2400,
 //        band-local spans);
 //   K9g  rasterize_gbuffer_pallas_binned_band (:2501,
 //        _binned_hbm_gbuffer_band_kernel :2478);
 //   K9d  rasterize_setup_pallas_binned_band_dist (:2701,
-//        _binned_hbm_band_dist_kernel_factory :2686).
+//        _binned_hbm_band_dist_kernel_factory :2686; the per-source span
+//        loop of _binned_hbm_body at :2047-2069).
 // The Pallas functions differ in TPU memory placement (records streamed
 // from HBM in aligned slabs, or row ids into VMEM-resident rows); here all
 // read global memory.  Inputs are the outputs of prepare_binned_hbm_inputs,
@@ -30,9 +32,11 @@
 // (zrenderer_tpu_torch/ops/raster.py).
 //
 // What every kernel here computes, per 32x128 tile:
-//   phase 1:   every entry of [offsets[t], offsets[t+1]); each is a
-//              guaranteed bbox hit, so there is no bbox test.  Records are
-//              (NI32 + 1) ints (the row id last) + NF32 floats;
+//   phase 1:   every entry of [offsets[t], offsets[t+1]) (K9d: of each
+//              source's span in turn); each is a guaranteed bbox hit, so
+//              there is no bbox test.  Records are (NI32 + 1) ints (the row
+//              id last) + NF32 floats; a row-id entry (K6, K6g, K6d) names
+//              the setup row that holds them;
 //   phase 1.5: (K4c) every record of the tile's coarse bin
 //              (ty / COARSE_CB) * ctiles_x + tx / COARSE_CB whose bbox
 //              meets the tile (record_hits, the reference's four-sided
@@ -47,49 +51,52 @@
 // Two bodies compute it.
 //
 // The keyed body (raster_keyed.cuh; keyed_records below) runs K4, K4c,
-// K4g, K4d and K9: one 64-bit key a pixel in shared memory lowered by
-// atomicMin (K4, K4c, K9: FlatKeys, K4g: GbufKeys, (order bits of z, row
-// id), whose minimum is the (z, row id) tie-break; K4d: DepthKeys, (order
-// bits of z, visit index, sign of z), a span record's visit index its
-// record index, a leftover row's the span's end plus its row id), each
-// record evaluated over its window (its vertices' pixel bbox in the tile),
-// the leftover rows compacted into the same batches by the hierarchy walk.
-// * Records staged in shared memory with cp.async, double-buffered.
+// K4g, K4d, K9, K9d and K6d: one 64-bit key a pixel in shared memory
+// lowered by atomicMin (K4, K4c, K9, K9d: FlatKeys, K4g: GbufKeys, (order
+// bits of z, row id), whose minimum is the (z, row id) tie-break; K4d,
+// K6d: DepthKeys, (order bits of z, visit index, sign of z), a span
+// entry's visit index its index in the span list, a leftover row's the
+// span's end plus its row id), each record evaluated over its window (its
+// vertices' pixel bbox in the tile), the leftover rows compacted into the
+// same batches by the hierarchy walk.
+// * Records staged in shared memory with cp.async, double-buffered: copied
+//   from the gathered records (GatheredRecords), or gathered from the
+//   setup rows by row id (RowIdRecords, K6d: the row's NI32 ints, its id,
+//   its z coefficients), into the same layout.
 // * A tile's record lists are cut into work items of at most item_records
-//   records, one block each, which share the tile's leftover superblocks
-//   too.  K4, K4g, K4d and K9 walk one list, the tile's span; K4c two, its
-//   span and then its coarse bin's records, a coarse record kept by
-//   record_hits before its window is prepared (the window alone would let
-//   a record whose bbox was clamped away from the tile draw there).  A
-//   tile of one item resolves its keys in place; otherwise the items merge
-//   through a key plane of the output's size and a second kernel resolves
-//   it.  Three device operations a call (memset, items, resolve).
-// * K9 is K4's entry over one band: the band's tiles (row_base, its first
-//   global row), band-local planes and key plane (band_h * width keys),
-//   global tiles, windows and edge functions, as K3b's (raster_hier.cu).
-//   Band-local spans are indexed by band tile; global spans (band_local =
-//   0) by frame tile, which the launch passes as offsets from the band's
-//   first tile (list_base).
-// The resolve re-evaluates the winner from hier/tf: K4, K4c and K9 its z
-// (-0.0 kept) and colour, K4g the same and its 11 further planes under
-// buf * (covered ? 1/den : 0); K4d decodes z from the key.  A record's id
-// (its last int, the reference's L_PID) and a leftover row's id both index
+//   records (halved, down to 32, while the launch would have fewer than
+//   min_items items: item_size), one block each, which share the tile's
+//   leftover superblocks too.  K4, K4g, K4d, K9 and K6d walk one list, the
+//   tile's span; K9d its n_src spans, one per source shard, laid end to
+//   end; K4c its span and then its coarse bin's records, a coarse record kept by record_hits
+//   before its window is prepared (the window alone would let a record
+//   whose bbox was clamped away from the tile draw there).  A tile of one
+//   item resolves its keys in place; otherwise the items merge through a
+//   key plane of the output's size and a second kernel resolves it.  Three
+//   device operations a call (memset, items, resolve).
+// * K9 and K9d are K4's entry over one band: the band's tiles (row_base,
+//   its first global row), band-local planes and key plane (band_h * width
+//   keys), global tiles, windows and edge functions, as K3b's
+//   (raster_hier.cu).  Band-local spans are indexed by band tile; K9's
+//   global spans (band_local = 0) by frame tile, which the launch passes as
+//   offsets from the band's first tile (list_base).  K9d's offsets are
+//   laid out (n_src, band_tiles + 1), rebased to the concatenated slabs.
+// The resolve re-evaluates the winner from hier/tf: K4, K4c, K9 and K9d
+// its z (-0.0 kept) and colour, K4g the same and its 11 further planes
+// under buf * (covered ? 1/den : 0); K4d and K6d decode z from the key.  A
+// record's id (its last int, the reference's L_PID; K9d's the canonical
+// id, shard index * shard head + row) and a leftover row's id both index
 // the padded, uncompacted setup rows that hier/tf hold (the prepares
 // gather the records from them), so the resolve reads the winner from
 // hier/tf whichever list it came from.
 //
 // The register body (binned_scan below; raster_common.cuh TileState: the
 // tile's state in registers, each record of a span evaluated at all 4096
-// pixels of its tile, one block a tile) runs K6, K6g, K6d, K9g and K9d.
-// K6g keeps z and the winning row id and resolves its 13 planes from the
-// winner in hier/tf, as K4g; K6d keeps z alone under the strict-less test,
-// so its planes equal K3d's by value (the sign of a zero z may differ).
-// K9g (K4g over one band, band-local spans) and K9d (n_src band-local span
-// lists, one per source shard, from offsets laid out (n_src, band_tiles +
-// 1) and rebased to the concatenated slabs) start a tile's pixel rows at
-// row_base + i * 32 and write band-local (band_h, W) planes.  The (z, row
-// id) tie-break makes the order of the spans free, so every band equals
-// the rows of K4's frame.
+// pixels of its tile, one block a tile) runs K6, K6g and K9g.  K6g keeps z
+// and the winning row id and resolves its 13 planes from the winner in
+// hier/tf, as K4g.  K9g (K4g over one band, band-local spans) starts a
+// tile's pixel rows at row_base + i * 32 and writes band-local (band_h, W)
+// planes.
 //
 // Bound on the H100: the keyed kernels by their window pixel evaluations
 // x 26 ops or the bytes they need (chip_smoke.py keyed_work), the register
@@ -105,32 +112,27 @@ namespace zr {
 constexpr int COARSE_CB = 4;
 
 // Phases 1 and 2 of the register kernels.  RECORDS: spans of gathered
-// records (K9g/K9d) or of row ids (K6, K6g, K6d).  A band kernel passes
-// row_base (its first global row) and, for K9d, n_src span lists
-// src_stride apart.
+// records (K9g) or of row ids (K6, K6g).  A band kernel passes row_base,
+// its first global row.
 template <bool RECORDS, class State>
 __device__ __forceinline__ void binned_scan(
     State& st, const int* __restrict__ offsets,
     const int* __restrict__ span_i, const float* __restrict__ span_f,
     const int* __restrict__ supers, int num_supers,
     const int* __restrict__ blocks, const int* __restrict__ ti,
-    const float* __restrict__ tf, int width, int row_base = 0,
-    int n_src = 1, int src_stride = 0) {
+    const float* __restrict__ tf, int width, int row_base = 0) {
   const int tiles_x = width / TILE_W;
   const int tile = blockIdx.x;
   const int ty = tile / tiles_x, tx = tile % tiles_x;
   st.init(row_base + ty * TILE_H, tx * TILE_W);
 
-  for (int s = 0; s < n_src; ++s) {
-    const int* offs = offsets + (size_t)s * src_stride + tile;
-    const int end = __ldg(offs + 1);
-    for (int k = __ldg(offs); k < end; ++k) {
-      if constexpr (RECORDS) {
-        const int* r = span_i + (size_t)k * REC_I;
-        st.eval_row(r, span_f + (size_t)k * NF32, __ldg(r + NI32));
-      } else {
-        st.eval(ti, tf, __ldg(span_i + k));
-      }
+  const int end = __ldg(offsets + tile + 1);
+  for (int k = __ldg(offsets + tile); k < end; ++k) {
+    if constexpr (RECORDS) {
+      const int* r = span_i + (size_t)k * REC_I;
+      st.eval_row(r, span_f + (size_t)k * NF32, __ldg(r + NI32));
+    } else {
+      st.eval(ti, tf, __ldg(span_i + k));
     }
   }
 
@@ -166,20 +168,6 @@ __global__ void __launch_bounds__(THREADS)
   st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    depth_lists_kernel(const int* __restrict__ offsets,
-                       const int* __restrict__ pair_tri,
-                       const int* __restrict__ supers, int num_supers,
-                       const int* __restrict__ blocks,
-                       const int* __restrict__ ti,
-                       const float* __restrict__ tf,
-                       float* __restrict__ depth, int width) {
-  TileState<false, false, true> st;
-  binned_scan<false>(st, offsets, pair_tri, nullptr, supers, num_supers,
-                     blocks, ti, tf, width);
-  st.store_depth(depth, width);
-}
-
 // K9g: K4g's register body over one band (band-local spans); out holds
 // GBUF_PLANES (band_h, width) planes.
 __global__ void __launch_bounds__(THREADS) gbuffer_records_band_kernel(
@@ -195,22 +183,8 @@ __global__ void __launch_bounds__(THREADS) gbuffer_records_band_kernel(
                          row_base);
 }
 
-// K9d: n_src band-local span lists, one per source shard.
-__global__ void __launch_bounds__(THREADS) raster_records_dist_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
-    int num_supers, const int* __restrict__ blocks,
-    const int* __restrict__ ti, const float* __restrict__ tf,
-    int* __restrict__ color, float* __restrict__ depth, int width,
-    int row_base, int n_src) {
-  TileState<true> st;
-  binned_scan<true>(st, offsets, rec_i, rec_f, supers, num_supers, blocks,
-                    ti, tf, width, row_base, n_src, (int)gridDim.x + 1);
-  st.store(color, depth, width, row_base);
-}
-
 // ---------------------------------------------------------------------------
-// The keyed record raster (K4, K4c, K4g, K4d, K9): the body of
+// The keyed record raster (K4, K4c, K4g, K4d, K9, K9d, K6d): the body of
 // raster_keyed.cuh over a tile's record lists, then the leftover rows.
 // ---------------------------------------------------------------------------
 
@@ -221,16 +195,83 @@ struct KeyedSpanSmem : KeyedSmem {
   float raw_z[2][KEY_BATCH * 3];    // their z coefficients
 };
 
-// The record lists of a keyed launch.  Tile u of the launch (for K9 the
-// band's tile) owns span records [offsets[u], offsets[u + 1]) of
-// rec_i/rec_f.  K4c: bin b of the coarse class owns records [coffsets[b],
-// coffsets[b + 1]) of crec_i/crec_f (unused elsewhere).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  __pipeline_memcpy_async(dst, src, 4);
+}
+
+// Where a list's records come from.  Each stages records [k0, k0 + n) of
+// its list into staging buffer buf (REC_I ints a record, the row id last,
+// and its 3 z coefficients) by cp.async, one commit.
+//
+// GatheredRecords: setup records gathered in list order (K4, K4c's coarse
+// class, K4g, K4d, K9, K9d), record k at row k of rec_i/rec_f.
+struct GatheredRecords {
+  const int* rec_i;
+  const float* rec_f;
+
+  __device__ __forceinline__ void stage(KeyedSpanSmem& s, int buf, int k0,
+                                        int n) const {
+    const int* src = rec_i + (size_t)k0 * REC_I;
+    for (int w = threadIdx.x; w < n * REC_I; w += THREADS)
+      cp_async4(&s.raw_i[buf][w], src + w);
+    for (int w = threadIdx.x; w < n * 3; w += THREADS)
+      cp_async4(&s.raw_z[buf][w],
+                rec_f + (size_t)(k0 + w / 3) * NF32 + F_ZA0 + w % 3);
+    __pipeline_commit();
+  }
+};
+
+// RowIdRecords: row ids into the setup rows (K6d: pair_tri into hier/tf),
+// entry k setup row ids[k], gathered with its id in slot NI32.  The rows
+// the lists own have their bbox and valid flag emptied in ti (so the
+// leftover walk skips them); the window reads the vertices alone
+// (raster_keyed.cuh prepare_record).
+struct RowIdRecords {
+  const int* ids;
+  const int* ti;
+  const float* tf;
+
+  __device__ __forceinline__ void stage(KeyedSpanSmem& s, int buf, int k0,
+                                        int n) const {
+    for (int w = threadIdx.x; w < n * REC_I; w += THREADS) {
+      const int j = w / REC_I, c = w - j * REC_I;
+      const int t = __ldg(ids + k0 + j);
+      if (c < NI32)
+        cp_async4(&s.raw_i[buf][w], ti + (size_t)t * NI32 + c);
+      else
+        s.raw_i[buf][w] = t;
+    }
+    for (int w = threadIdx.x; w < n * 3; w += THREADS) {
+      const int t = __ldg(ids + k0 + w / 3);
+      cp_async4(&s.raw_z[buf][w], tf + (size_t)t * NF32 + F_ZA0 + w % 3);
+    }
+    __pipeline_commit();
+  }
+};
+
+// The record lists of a keyed launch and their cut into work items.  Tile
+// u of the launch (for K9 and K9d the band's tile) owns records
+// [offsets[s * src_stride + u], offsets[s * src_stride + u + 1]) of each
+// of its n_src span lists, laid end to end (K9d: one list per source
+// shard, src_stride = band_tiles + 1; elsewhere one list).  K4c: bin b of
+// the coarse class owns records [coffsets[b], coffsets[b + 1]) of
+// crec_i/crec_f (unused elsewhere).  Items hold at most item_records
+// records, fewer while the launch would have fewer than min_items items
+// (item_size).
 struct RecordLists {
   const int* offsets;
   const int* coffsets;
   const int* crec_i;
   const float* crec_f;
+  int n_src;
+  int src_stride;
+  int item_records;
+  int min_items;
 };
+
+// The least item size that item_size halves to (ops/raster.py
+// MIN_ITEM_RECORDS).
+constexpr int MIN_ITEM_RECORDS = 32;
 
 // The coarse bin of frame tile u.
 __device__ __forceinline__ int coarse_bin(int u, int tiles_x) {
@@ -246,22 +287,75 @@ __device__ __forceinline__ bool record_hits(const int* r, int row0,
          r[I_IMAX] >= row0 && r[I_IMIN] < row0 + TILE_H;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  __pipeline_memcpy_async(dst, src, 4);
-}
-
-// Work items of tile u: its records (its span, and with COARSE its bin's)
-// in pieces of at most item_records, and one item for none (the leftovers
-// and the resolve).
+// Records of tile u: its spans' (every source's), and with COARSE its
+// bin's.
 template <bool COARSE>
-__device__ __forceinline__ int tile_items(const RecordLists& l, int u,
-                                          int tiles_x, int item_records) {
-  int n = __ldg(l.offsets + u + 1) - __ldg(l.offsets + u);
+__device__ __forceinline__ int tile_records(const RecordLists& l, int u,
+                                            int tiles_x) {
+  int n = 0;
+  for (int s = 0; s < l.n_src; ++s) {
+    const int* o = l.offsets + (size_t)s * l.src_stride + u;
+    n += __ldg(o + 1) - __ldg(o);
+  }
   if constexpr (COARSE) {
     const int b = coarse_bin(u, tiles_x);
     n += __ldg(l.coffsets + b + 1) - __ldg(l.coffsets + b);
   }
-  return max(1, (n + item_records - 1) / item_records);
+  return n;
+}
+
+// Work items of tile u: its records in pieces of at most item_records, and
+// one item for none (the leftovers and the resolve).
+template <bool COARSE>
+__device__ __forceinline__ int tile_items(const RecordLists& l, int u,
+                                          int tiles_x, int item_records) {
+  return max(1, (tile_records<COARSE>(l, u, tiles_x) + item_records - 1) /
+                    item_records);
+}
+
+// The records of all tiles' lists, from the lists' ends alone (a coarse
+// bin's counted COARSE_CB^2 times: it serves at most that many tiles).
+template <bool COARSE>
+__device__ __forceinline__ long long lists_records(const RecordLists& l,
+                                                   int num_tiles,
+                                                   int tiles_x) {
+  long long n = 0;
+  for (int s = 0; s < l.n_src; ++s) {
+    const int* o = l.offsets + (size_t)s * l.src_stride;
+    n += __ldg(o + num_tiles) - __ldg(o);
+  }
+  if constexpr (COARSE) {
+    const int ctiles_x = (tiles_x + COARSE_CB - 1) / COARSE_CB;
+    const int bins = ctiles_x * ((num_tiles / tiles_x + COARSE_CB - 1) /
+                                 COARSE_CB);
+    n += (long long)COARSE_CB * COARSE_CB *
+         (__ldg(l.coffsets + bins) - __ldg(l.coffsets));
+  }
+  return n;
+}
+
+// A bound on the launch's work items at item size `size`: a tile of n
+// records has at most 1 + n / size items.
+__device__ __forceinline__ long long item_bound(int num_tiles,
+                                                long long records,
+                                                int size) {
+  return num_tiles + records / size;
+}
+
+// The launch's item size: l.item_records, halved while it stays even and
+// at least MIN_ITEM_RECORDS and the lists' records would make fewer than
+// l.min_items items (item_bound), so that small lists (a 20K-triangle
+// map, a 40K-triangle band) still spread over the card while large ones
+// keep l.item_records.  Halved, the items stay under 2 l.min_items, which
+// with the bound at l.item_records sizes the launch's grid (ops/raster.py
+// keyed_items) without a host sync.
+__device__ __forceinline__ int item_size(const RecordLists& l, int num_tiles,
+                                         long long records) {
+  int size = l.item_records;
+  while (size % 2 == 0 && size / 2 >= MIN_ITEM_RECORDS &&
+         item_bound(num_tiles, records, size) < l.min_items)
+    size /= 2;
+  return size;
 }
 
 // Items are numbered tile by tile.  Each block finds its own (tile, index,
@@ -292,39 +386,21 @@ __device__ __forceinline__ void find_item(KeyedSmem& s, const RecordLists& l,
   __syncthreads();
 }
 
-// Records [k0, k0 + n) into staging buffer buf by cp.async, one commit.
-__device__ __forceinline__ void stage_records(KeyedSpanSmem& s, int buf,
-                                              const int* __restrict__ rec_i,
-                                              const float* __restrict__ rec_f,
-                                              int k0, int n) {
-  const int* src = rec_i + (size_t)k0 * REC_I;
-  for (int w = threadIdx.x; w < n * REC_I; w += THREADS)
-    cp_async4(&s.raw_i[buf][w], src + w);
-  for (int w = threadIdx.x; w < n * 3; w += THREADS)
-    cp_async4(&s.raw_z[buf][w],
-              rec_f + (size_t)(k0 + w / 3) * NF32 + F_ZA0 + w % 3);
-  __pipeline_commit();
-}
-
 // Records [k_begin, k_end) of one list, KEY_BATCH at a time: the next
 // batch's copies fly while this one is evaluated.  MASKED (K4c's coarse
 // records): a record whose bbox misses the tile adds nothing.
-template <class Mode, bool MASKED = false>
+template <class Mode, bool MASKED, class Records>
 __device__ __forceinline__ void keyed_span(KeyedSpanSmem& s,
-                                           const int* __restrict__ rec_i,
-                                           const float* __restrict__ rec_f,
-                                           int k_begin, int k_end, int row0,
-                                           int col0) {
+                                           const Records& recs, int k_begin,
+                                           int k_end, int row0, int col0) {
   const int batches = (k_end - k_begin + KEY_BATCH - 1) / KEY_BATCH;
-  if (batches > 0)
-    stage_records(s, 0, rec_i, rec_f, k_begin,
-                  min(KEY_BATCH, k_end - k_begin));
+  if (batches > 0) recs.stage(s, 0, k_begin, min(KEY_BATCH, k_end - k_begin));
   for (int b = 0; b < batches; ++b) {
     const int k0 = k_begin + b * KEY_BATCH;
     const int nb = min(KEY_BATCH, k_end - k0);
     if (b + 1 < batches) {
-      stage_records(s, (b + 1) & 1, rec_i, rec_f, k0 + KEY_BATCH,
-                    min(KEY_BATCH, k_end - k0 - KEY_BATCH));
+      recs.stage(s, (b + 1) & 1, k0 + KEY_BATCH,
+                 min(KEY_BATCH, k_end - k0 - KEY_BATCH));
       __pipeline_wait_prior(1);
     } else {
       __pipeline_wait_prior(0);
@@ -342,51 +418,72 @@ __device__ __forceinline__ void keyed_span(KeyedSpanSmem& s,
   }
 }
 
+// The part of a list of n records from record `first` that an item taking
+// records [q, q + item_records) of the lists laid end to end reads, the
+// list's own records starting at q = 0: [first + lo, first + hi).
+__device__ __forceinline__ int2 item_piece(int first, int n, int q,
+                                           int item_records) {
+  return make_int2(first + min(max(q, 0), n),
+                   first + min(max(q + item_records, 0), n));
+}
+
 // Work item blockIdx.x: its share of the tile's record lists and of the
 // leftover superblocks into the shared keys, then out (raster_keyed.cuh
-// keyed_out).  Mode: FlatKeys (K4, K4c, K9), GbufKeys (K4g; extra: its 11
-// further planes) or DepthKeys (K4d).  COARSE (K4c): the tile's span, then
-// its bin's records, as one list cut into items.  The tiles are those of
-// the height rows from global row row_base (a band's; 0 for a frame).
-template <class Mode, bool COARSE = false>
+// keyed_out).  Mode: FlatKeys (K4, K4c, K9, K9d), GbufKeys (K4g; extra:
+// its 11 further planes) or DepthKeys (K4d, K6d).  Records: the span
+// lists' GatheredRecords, or RowIdRecords (K6d).  The item takes records
+// [q0, q0 + item_size) of the tile's lists laid end to end: its n_src
+// spans in source order, then with COARSE (K4c) its bin's records.  The
+// tiles are those of the height rows from global row row_base (a band's; 0
+// for a frame).
+template <class Mode, bool COARSE, class Records>
 __device__ __forceinline__ void keyed_records(
-    const RecordLists& l, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
-    int num_supers, const int* __restrict__ blocks,
-    const int* __restrict__ ti, const float* __restrict__ tf,
-    int item_records, unsigned long long* __restrict__ plane,
+    const RecordLists& l, const Records& recs,
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, const int* __restrict__ ti,
+    const float* __restrict__ tf, unsigned long long* __restrict__ plane,
     int* __restrict__ color, float* __restrict__ depth,
     float* __restrict__ extra, int width, int height, int row_base) {
   extern __shared__ __align__(16) unsigned char keyed_smem[];
   KeyedSpanSmem& s = *reinterpret_cast<KeyedSpanSmem*>(keyed_smem);
   const int tiles_x = width / TILE_W;
-  find_item<COARSE>(s, l, tiles_x * (height / TILE_H), tiles_x,
-                    item_records);
+  const int num_tiles = tiles_x * (height / TILE_H);
+  const long long records = lists_records<COARSE>(l, num_tiles, tiles_x);
+  const int item_records = item_size(l, num_tiles, records);
+  // The grid bounds the items by the record buffers' sizes, which a list
+  // may fill far less (K6d's pair_tri holds n_head * cap slots): the blocks
+  // past the lists' own bound return before they scan the tiles.
+  if (blockIdx.x >= item_bound(num_tiles, records, item_records))
+    return;  // (block-uniform)
+  find_item<COARSE>(s, l, num_tiles, tiles_x, item_records);
   const int tile = s.item[0], idx = s.item[1], n_items = s.item[2];
   if (tile < 0) return;  // past the last item
   const int row0 = row_base + (tile / tiles_x) * TILE_H;
   const int col0 = (tile % tiles_x) * TILE_W;
   for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) s.key[p] = Mode::CLEAR;
-  // The item's records: [q0, q0 + item_records) of the tile's lists.
-  const int q0 = idx * item_records;
-  const int span_begin = __ldg(l.offsets + tile);
-  const int span_end = __ldg(l.offsets + tile + 1);
-  const int k_begin = min(span_begin + q0, span_end);
-  const int k_end = min(k_begin + item_records, span_end);
   __syncthreads();
-  keyed_span<Mode>(s, rec_i, rec_f, k_begin, k_end, row0, col0);
+  int q = idx * item_records;  // the item's first record, from this list's
+  int lists_end = 0;           // the last span's end (DepthKeys' leftovers)
+  for (int src = 0; src < l.n_src; ++src) {
+    const int* o = l.offsets + (size_t)src * l.src_stride + tile;
+    const int first = __ldg(o), n = __ldg(o + 1) - first;
+    const int2 k = item_piece(first, n, q, item_records);
+    keyed_span<Mode, false>(s, recs, k.x, k.y, row0, col0);
+    q -= n;
+    lists_end = first + n;
+  }
   if constexpr (COARSE) {
     const int b = coarse_bin(tile, tiles_x);
-    const int c0 = __ldg(l.coffsets + b), n = __ldg(l.coffsets + b + 1) - c0;
-    const int skip = q0 - (span_end - span_begin);  // < 0: starts in the span
-    keyed_span<Mode, true>(s, l.crec_i, l.crec_f, c0 + min(max(skip, 0), n),
-                           c0 + min(max(skip + item_records, 0), n), row0,
-                           col0);
+    const int first = __ldg(l.coffsets + b);
+    const int2 k = item_piece(first, __ldg(l.coffsets + b + 1) - first, q,
+                              item_records);
+    keyed_span<Mode, true>(s, GatheredRecords{l.crec_i, l.crec_f}, k.x, k.y,
+                           row0, col0);
   }
   keyed_leftovers<Mode>(
       s, supers, (int)((long long)idx * num_supers / n_items),
       (int)((long long)(idx + 1) * num_supers / n_items), blocks, ti, tf,
-      span_end, row0, col0);
+      lists_end, row0, col0);
   __syncthreads();
   keyed_out<Mode>(s, n_items == 1, plane, row0, col0, ti, tf, color, depth,
                   extra, width, height, row_base);
@@ -395,12 +492,14 @@ __device__ __forceinline__ void keyed_records(
 // The tiles of several items: their merged keys in the plane, resolved.
 template <class Mode, bool COARSE = false>
 __device__ __forceinline__ void keyed_resolve(
-    const RecordLists& l, int item_records,
-    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
-    const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, float* __restrict__ extra, int width,
-    int height, int row_base) {
+    const RecordLists& l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int* __restrict__ color, float* __restrict__ depth,
+    float* __restrict__ extra, int width, int height, int row_base) {
   const int tile = blockIdx.x, tiles_x = width / TILE_W;
+  const int num_tiles = tiles_x * (height / TILE_H);
+  const int item_records = item_size(
+      l, num_tiles, lists_records<COARSE>(l, num_tiles, tiles_x));
   if (tile_items<COARSE>(l, tile, tiles_x, item_records) == 1) return;
   resolve_tile<Mode>(plane, row_base + (tile / tiles_x) * TILE_H,
                      (tile % tiles_x) * TILE_W, ti, tf, color, depth, extra,
@@ -408,140 +507,170 @@ __device__ __forceinline__ void keyed_resolve(
 }
 
 // One item kernel and one resolve kernel a keyed kernel.  Each takes (...,
-// width, height, row_base); all but K9 draw a frame (row_base 0).
+// width, height, row_base); all but K9 and K9d draw a frame (row_base 0).
 // K4: flat planes.
 __global__ void __launch_bounds__(THREADS) raster_records_kernel(
-    RecordLists l, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    RecordLists l, GatheredRecords recs, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
-    int item_records, unsigned long long* __restrict__ plane,
-    int* __restrict__ color, float* __restrict__ depth, int width,
-    int height, int row_base) {
-  keyed_records<FlatKeys>(l, rec_i, rec_f, supers, num_supers, blocks, ti,
-                          tf, item_records, plane, color, depth, nullptr,
-                          width, height, row_base);
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_records<FlatKeys, false>(l, recs, supers, num_supers, blocks, ti, tf,
+                                 plane, color, depth, nullptr, width, height,
+                                 row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) raster_records_resolve_kernel(
-    RecordLists l, int item_records,
-    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
-    const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_resolve<FlatKeys>(l, item_records, plane, ti, tf, color, depth,
-                          nullptr, width, height, row_base);
+    RecordLists l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height, int row_base) {
+  keyed_resolve<FlatKeys>(l, plane, ti, tf, color, depth, nullptr, width,
+                          height, row_base);
 }
 
 // K4c: K4 with the coarse class.
 __global__ void __launch_bounds__(THREADS) raster_records_coarse_keyed_kernel(
-    RecordLists l, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    RecordLists l, GatheredRecords recs, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
-    int item_records, unsigned long long* __restrict__ plane,
-    int* __restrict__ color, float* __restrict__ depth, int width,
-    int height, int row_base) {
-  keyed_records<FlatKeys, true>(l, rec_i, rec_f, supers, num_supers, blocks,
-                                ti, tf, item_records, plane, color, depth,
-                                nullptr, width, height, row_base);
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_records<FlatKeys, true>(l, recs, supers, num_supers, blocks, ti, tf,
+                                plane, color, depth, nullptr, width, height,
+                                row_base);
 }
 
 __global__ void __launch_bounds__(THREADS)
     raster_records_coarse_resolve_kernel(
-        RecordLists l, int item_records,
-        const unsigned long long* __restrict__ plane,
+        RecordLists l, const unsigned long long* __restrict__ plane,
         const int* __restrict__ ti, const float* __restrict__ tf,
         int* __restrict__ color, float* __restrict__ depth, int width,
         int height, int row_base) {
-  keyed_resolve<FlatKeys, true>(l, item_records, plane, ti, tf, color, depth,
-                                nullptr, width, height, row_base);
+  keyed_resolve<FlatKeys, true>(l, plane, ti, tf, color, depth, nullptr,
+                                width, height, row_base);
 }
 
 // K9: K4 over the band of height rows from global row row_base.
 __global__ void __launch_bounds__(THREADS) raster_records_band_keyed_kernel(
-    RecordLists l, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    RecordLists l, GatheredRecords recs, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
-    int item_records, unsigned long long* __restrict__ plane,
-    int* __restrict__ color, float* __restrict__ depth, int width,
-    int height, int row_base) {
-  keyed_records<FlatKeys>(l, rec_i, rec_f, supers, num_supers, blocks, ti,
-                          tf, item_records, plane, color, depth, nullptr,
-                          width, height, row_base);
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_records<FlatKeys, false>(l, recs, supers, num_supers, blocks, ti, tf,
+                                 plane, color, depth, nullptr, width, height,
+                                 row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) raster_records_band_resolve_kernel(
-    RecordLists l, int item_records,
-    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
-    const float* __restrict__ tf, int* __restrict__ color,
+    RecordLists l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height, int row_base) {
+  keyed_resolve<FlatKeys>(l, plane, ti, tf, color, depth, nullptr, width,
+                          height, row_base);
+}
+
+// K9d: K9 over the band's n_src span lists, one per source shard.
+__global__ void __launch_bounds__(THREADS) raster_records_dist_keyed_kernel(
+    RecordLists l, GatheredRecords recs, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
     float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_resolve<FlatKeys>(l, item_records, plane, ti, tf, color, depth,
-                          nullptr, width, height, row_base);
+  keyed_records<FlatKeys, false>(l, recs, supers, num_supers, blocks, ti, tf,
+                                 plane, color, depth, nullptr, width, height,
+                                 row_base);
+}
+
+__global__ void __launch_bounds__(THREADS) raster_records_dist_resolve_kernel(
+    RecordLists l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height, int row_base) {
+  keyed_resolve<FlatKeys>(l, plane, ti, tf, color, depth, nullptr, width,
+                          height, row_base);
 }
 
 // K4g: the GBUF_PLANES planes of out (color bits, depth, then the rest),
 // width * height floats apart.
 __global__ void __launch_bounds__(THREADS) gbuffer_records_keyed_kernel(
-    RecordLists l, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    RecordLists l, GatheredRecords recs, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
-    int item_records, unsigned long long* __restrict__ plane,
-    float* __restrict__ out, int width, int height, int row_base) {
+    unsigned long long* __restrict__ plane, float* __restrict__ out,
+    int width, int height, int row_base) {
   const size_t frame = (size_t)width * height;
-  keyed_records<GbufKeys>(l, rec_i, rec_f, supers, num_supers, blocks, ti,
-                          tf, item_records, plane,
-                          reinterpret_cast<int*>(out), out + frame,
-                          out + 2 * frame, width, height, row_base);
+  keyed_records<GbufKeys, false>(l, recs, supers, num_supers, blocks, ti, tf,
+                                 plane, reinterpret_cast<int*>(out),
+                                 out + frame, out + 2 * frame, width, height,
+                                 row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) gbuffer_records_resolve_kernel(
-    RecordLists l, int item_records,
-    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
-    const float* __restrict__ tf, float* __restrict__ out, int width,
-    int height, int row_base) {
+    RecordLists l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    float* __restrict__ out, int width, int height, int row_base) {
   const size_t frame = (size_t)width * height;
-  keyed_resolve<GbufKeys>(l, item_records, plane, ti, tf,
-                          reinterpret_cast<int*>(out), out + frame,
-                          out + 2 * frame, width, height, row_base);
+  keyed_resolve<GbufKeys>(l, plane, ti, tf, reinterpret_cast<int*>(out),
+                          out + frame, out + 2 * frame, width, height,
+                          row_base);
 }
 
 // K4d: the depth plane alone.
 __global__ void __launch_bounds__(THREADS) depth_records_kernel(
-    RecordLists l, const int* __restrict__ rec_i,
-    const float* __restrict__ rec_f, const int* __restrict__ supers,
+    RecordLists l, GatheredRecords recs, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
-    int item_records, unsigned long long* __restrict__ plane,
-    float* __restrict__ depth, int width, int height, int row_base) {
-  keyed_records<DepthKeys>(l, rec_i, rec_f, supers, num_supers, blocks, ti,
-                           tf, item_records, plane, nullptr, depth, nullptr,
-                           width, height, row_base);
+    unsigned long long* __restrict__ plane, float* __restrict__ depth,
+    int width, int height, int row_base) {
+  keyed_records<DepthKeys, false>(l, recs, supers, num_supers, blocks, ti,
+                                  tf, plane, nullptr, depth, nullptr, width,
+                                  height, row_base);
 }
 
 __global__ void __launch_bounds__(THREADS) depth_records_resolve_kernel(
-    RecordLists l, int item_records,
-    const unsigned long long* __restrict__ plane, const int* __restrict__ ti,
-    const float* __restrict__ tf, float* __restrict__ depth, int width,
-    int height, int row_base) {
-  keyed_resolve<DepthKeys>(l, item_records, plane, ti, tf, nullptr, depth,
-                           nullptr, width, height, row_base);
+    RecordLists l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_resolve<DepthKeys>(l, plane, ti, tf, nullptr, depth, nullptr, width,
+                           height, row_base);
+}
+
+// K6d: K4d over a tile's row-id span (the setup rows gathered by id).
+__global__ void __launch_bounds__(THREADS) depth_lists_keyed_kernel(
+    RecordLists l, RowIdRecords recs, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    unsigned long long* __restrict__ plane, float* __restrict__ depth,
+    int width, int height, int row_base) {
+  keyed_records<DepthKeys, false>(l, recs, supers, num_supers, blocks, ti,
+                                  tf, plane, nullptr, depth, nullptr, width,
+                                  height, row_base);
+}
+
+__global__ void __launch_bounds__(THREADS) depth_lists_resolve_kernel(
+    RecordLists l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_resolve<DepthKeys>(l, plane, ti, tf, nullptr, depth, nullptr, width,
+                           height, row_base);
 }
 
 }  // namespace zr
 
-// The keyed launches (K4, K4c, K4g, K4d, K9): the key plane (height * width
-// keys, a band's for K9) set to all ones, `items` blocks (a bound on the
-// work items: ops/raster.py keyed_items), then the resolve over the tiles.
-template <class Items, class Resolve, class... Out>
+// The keyed launches (K4, K4c, K4g, K4d, K9, K9d, K6d): the key plane
+// (height * width keys, a band's for K9 and K9d) set to all ones, `items`
+// blocks (a bound on the work items: ops/raster.py keyed_items), then the
+// resolve over the tiles.
+template <class Items, class Resolve, class Records, class... Out>
 static int launch_keyed(Items items_kernel, Resolve resolve_kernel,
-                        zr::RecordLists lists, const int* rec_i,
-                        const float* rec_f, const int* supers, int num_supers,
-                        const int* blocks, const int* ti, const float* tf,
-                        int item_records, int items, unsigned long long* plane,
-                        int height, int width, int row_base, void* stream,
-                        Out... out) {
+                        zr::RecordLists lists, Records recs,
+                        const int* supers, int num_supers, const int* blocks,
+                        const int* ti, const float* tf, int items,
+                        unsigned long long* plane, int height, int width,
+                        int row_base, void* stream, Out... out) {
   const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
   const cudaStream_t s = (cudaStream_t)stream;
   const int smem = (int)sizeof(zr::KeyedSpanSmem);
@@ -552,11 +681,19 @@ static int launch_keyed(Items items_kernel, Resolve resolve_kernel,
                           (size_t)height * width * sizeof(*plane), s);
   if (err != cudaSuccess) return (int)err;
   items_kernel<<<items, zr::THREADS, smem, s>>>(
-      lists, rec_i, rec_f, supers, num_supers, blocks, ti, tf, item_records,
-      plane, out..., width, height, row_base);
+      lists, recs, supers, num_supers, blocks, ti, tf, plane, out..., width,
+      height, row_base);
   resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
-      lists, item_records, plane, ti, tf, out..., width, height, row_base);
+      lists, plane, ti, tf, out..., width, height, row_base);
   return (int)cudaGetLastError();
+}
+
+// One span list a tile, at `offsets`, cut into items of at most
+// item_records (fewer while under min_items items).
+static zr::RecordLists span_lists(const int* offsets, int item_records,
+                                  int min_items) {
+  return zr::RecordLists{offsets, nullptr, nullptr,     nullptr,
+                         1,       0,       item_records, min_items};
 }
 
 // Dynamic shared memory of a keyed record work item, in bytes.
@@ -564,18 +701,21 @@ extern "C" int zr_keyed_smem_bytes() {
   return (int)sizeof(zr::KeyedSpanSmem);
 }
 
+// Each keyed entry takes (..., item_records, min_items, items, plane, ...):
+// the largest item, the items item_size aims at, the grid and the key
+// plane (ops/raster.py _keyed_launch).
 // K4.
 extern "C" int zr_raster_records_keyed(
     const int* offsets, const int* rec_i, const float* rec_f,
     const int* supers, int num_supers, const int* blocks, const int* ti,
-    const float* tf, int item_records, int items, unsigned long long* plane,
-    int* color, float* depth, int height, int width, void* stream) {
-  return launch_keyed(zr::raster_records_kernel,
-                      zr::raster_records_resolve_kernel,
-                      zr::RecordLists{offsets, nullptr, nullptr, nullptr},
-                      rec_i, rec_f, supers, num_supers, blocks, ti, tf,
-                      item_records, items, plane, height, width, 0, stream,
-                      color, depth);
+    const float* tf, int item_records, int min_items, int items,
+    unsigned long long* plane, int* color, float* depth, int height,
+    int width, void* stream) {
+  return launch_keyed(
+      zr::raster_records_kernel, zr::raster_records_resolve_kernel,
+      span_lists(offsets, item_records, min_items),
+      zr::GatheredRecords{rec_i, rec_f}, supers, num_supers, blocks, ti, tf,
+      items, plane, height, width, 0, stream, color, depth);
 }
 
 // K4c: K4's lists and the coarse class (coffsets, crec_i, crec_f).
@@ -583,14 +723,16 @@ extern "C" int zr_raster_records(
     const int* offsets, const int* rec_i, const float* rec_f,
     const int* coffsets, const int* crec_i, const float* crec_f,
     const int* supers, int num_supers, const int* blocks, const int* ti,
-    const float* tf, int item_records, int items, unsigned long long* plane,
-    int* color, float* depth, int height, int width, void* stream) {
-  return launch_keyed(zr::raster_records_coarse_keyed_kernel,
-                      zr::raster_records_coarse_resolve_kernel,
-                      zr::RecordLists{offsets, coffsets, crec_i, crec_f},
-                      rec_i, rec_f, supers, num_supers, blocks, ti, tf,
-                      item_records, items, plane, height, width, 0, stream,
-                      color, depth);
+    const float* tf, int item_records, int min_items, int items,
+    unsigned long long* plane, int* color, float* depth, int height,
+    int width, void* stream) {
+  return launch_keyed(
+      zr::raster_records_coarse_keyed_kernel,
+      zr::raster_records_coarse_resolve_kernel,
+      zr::RecordLists{offsets, coffsets, crec_i, crec_f, 1, 0, item_records,
+                      min_items},
+      zr::GatheredRecords{rec_i, rec_f}, supers, num_supers, blocks, ti, tf,
+      items, plane, height, width, 0, stream, color, depth);
 }
 
 // K6.
@@ -611,14 +753,14 @@ extern "C" int zr_raster_lists(const int* offsets, const int* pair_tri,
 extern "C" int zr_gbuffer_records_keyed(
     const int* offsets, const int* rec_i, const float* rec_f,
     const int* supers, int num_supers, const int* blocks, const int* ti,
-    const float* tf, int item_records, int items, unsigned long long* plane,
-    float* out, int height, int width, void* stream) {
-  return launch_keyed(zr::gbuffer_records_keyed_kernel,
-                      zr::gbuffer_records_resolve_kernel,
-                      zr::RecordLists{offsets, nullptr, nullptr, nullptr},
-                      rec_i, rec_f, supers, num_supers, blocks, ti, tf,
-                      item_records, items, plane, height, width, 0, stream,
-                      out);
+    const float* tf, int item_records, int min_items, int items,
+    unsigned long long* plane, float* out, int height, int width,
+    void* stream) {
+  return launch_keyed(
+      zr::gbuffer_records_keyed_kernel, zr::gbuffer_records_resolve_kernel,
+      span_lists(offsets, item_records, min_items),
+      zr::GatheredRecords{rec_i, rec_f}, supers, num_supers, blocks, ti, tf,
+      items, plane, height, width, 0, stream, out);
 }
 
 // K6g.
@@ -639,27 +781,30 @@ extern "C" int zr_gbuffer_lists(const int* offsets, const int* pair_tri,
 extern "C" int zr_depth_records_keyed(
     const int* offsets, const int* rec_i, const float* rec_f,
     const int* supers, int num_supers, const int* blocks, const int* ti,
-    const float* tf, int item_records, int items, unsigned long long* plane,
-    float* depth, int height, int width, void* stream) {
-  return launch_keyed(zr::depth_records_kernel,
-                      zr::depth_records_resolve_kernel,
-                      zr::RecordLists{offsets, nullptr, nullptr, nullptr},
-                      rec_i, rec_f, supers, num_supers, blocks, ti, tf,
-                      item_records, items, plane, height, width, 0, stream,
-                      depth);
+    const float* tf, int item_records, int min_items, int items,
+    unsigned long long* plane, float* depth, int height, int width,
+    void* stream) {
+  return launch_keyed(
+      zr::depth_records_kernel, zr::depth_records_resolve_kernel,
+      span_lists(offsets, item_records, min_items),
+      zr::GatheredRecords{rec_i, rec_f}, supers, num_supers, blocks, ti, tf,
+      items, plane, height, width, 0, stream, depth);
 }
 
-// K6d.
+// K6d: the row-id spans of pair_tri into ti/tf (hier: the listed rows'
+// bboxes emptied).
 extern "C" int zr_depth_lists(const int* offsets, const int* pair_tri,
                               const int* supers, int num_supers,
                               const int* blocks, const int* ti,
-                              const float* tf, float* depth, int height,
-                              int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::depth_lists_kernel<<<num_tiles, zr::THREADS, 0,
-                           (cudaStream_t)stream>>>(
-      offsets, pair_tri, supers, num_supers, blocks, ti, tf, depth, width);
-  return (int)cudaGetLastError();
+                              const float* tf, int item_records,
+                              int min_items, int items,
+                              unsigned long long* plane, float* depth,
+                              int height, int width, void* stream) {
+  return launch_keyed(
+      zr::depth_lists_keyed_kernel, zr::depth_lists_resolve_kernel,
+      span_lists(offsets, item_records, min_items),
+      zr::RowIdRecords{pair_tri, ti, tf}, supers, num_supers, blocks, ti, tf,
+      items, plane, height, width, 0, stream, depth);
 }
 
 // K9: the band_h rows from global row row_base, a band-sized key plane;
@@ -668,17 +813,17 @@ extern "C" int zr_depth_lists(const int* offsets, const int* pair_tri,
 extern "C" int zr_raster_records_band(
     const int* offsets, const int* rec_i, const float* rec_f,
     const int* supers, int num_supers, const int* blocks, const int* ti,
-    const float* tf, int item_records, int items, unsigned long long* plane,
-    int* color, float* depth, int band_h, int width, int row_base,
-    int band_local, void* stream) {
+    const float* tf, int item_records, int min_items, int items,
+    unsigned long long* plane, int* color, float* depth, int band_h,
+    int width, int row_base, int band_local, void* stream) {
   const int list_base =
       band_local ? 0 : (row_base / zr::TILE_H) * (width / zr::TILE_W);
   return launch_keyed(
       zr::raster_records_band_keyed_kernel,
       zr::raster_records_band_resolve_kernel,
-      zr::RecordLists{offsets + list_base, nullptr, nullptr, nullptr}, rec_i,
-      rec_f, supers, num_supers, blocks, ti, tf, item_records, items, plane,
-      band_h, width, row_base, stream, color, depth);
+      span_lists(offsets + list_base, item_records, min_items),
+      zr::GatheredRecords{rec_i, rec_f}, supers, num_supers, blocks, ti, tf,
+      items, plane, band_h, width, row_base, stream, color, depth);
 }
 
 // K9g.
@@ -696,18 +841,20 @@ extern "C" int zr_gbuffer_records_band(const int* offsets, const int* rec_i,
   return (int)cudaGetLastError();
 }
 
-// K9d: offsets (n_src, band_tiles + 1), rebased to the concatenated slabs.
-extern "C" int zr_raster_records_dist(const int* offsets, const int* rec_i,
-                                      const float* rec_f, const int* supers,
-                                      int num_supers, const int* blocks,
-                                      const int* ti, const float* tf,
-                                      int* color, float* depth, int band_h,
-                                      int width, int row_base, int n_src,
-                                      void* stream) {
-  const int num_tiles = (band_h / zr::TILE_H) * (width / zr::TILE_W);
-  zr::raster_records_dist_kernel<<<num_tiles, zr::THREADS, 0,
-                                   (cudaStream_t)stream>>>(
-      offsets, rec_i, rec_f, supers, num_supers, blocks, ti, tf, color, depth,
-      width, row_base, n_src);
-  return (int)cudaGetLastError();
+// K9d: K9 over offsets (n_src, band_tiles + 1), each source's band-local
+// spans rebased to the concatenated slabs rec_i/rec_f.
+extern "C" int zr_raster_records_dist(
+    const int* offsets, const int* rec_i, const float* rec_f,
+    const int* supers, int num_supers, const int* blocks, const int* ti,
+    const float* tf, int item_records, int min_items, int items,
+    unsigned long long* plane, int* color, float* depth, int band_h,
+    int width, int row_base, int n_src, void* stream) {
+  const int band_tiles = (band_h / zr::TILE_H) * (width / zr::TILE_W);
+  return launch_keyed(
+      zr::raster_records_dist_keyed_kernel,
+      zr::raster_records_dist_resolve_kernel,
+      zr::RecordLists{offsets, nullptr, nullptr, nullptr, n_src,
+                      band_tiles + 1, item_records, min_items},
+      zr::GatheredRecords{rec_i, rec_f}, supers, num_supers, blocks, ti, tf,
+      items, plane, band_h, width, row_base, stream, color, depth);
 }

@@ -11,8 +11,8 @@
 // depth-only kernel (the shadow-map pass) writes the depth plane alone.
 //
 // A band kernel (K3b, K9, K9g, K9d) rasterizes the band_h rows from global
-// row row_base: the tile state's pixel math uses global rows, and the
-// stores write band-local rows (global row minus row_base).
+// row row_base: the pixel math uses global rows, and the stores write
+// band-local rows (global row minus row_base).
 //
 // One CUDA block rasterizes one 32x128 screen tile (group8: 8x128).  Its
 // 256 threads each own one column and 16 rows of the tile (rows r0, r0 +
@@ -198,8 +198,8 @@ __device__ __forceinline__ void resolve_winner(
 // experiments (raster_group8.cu, raster_vec.cu) keep this state for their
 // flat kernels too, and resolve their colour from the winner.
 //
-// DEPTH: the depth-only register kernels (K2d, K6d; K4d and K3d run the
-// keyed body, with the same planes).  One value a pixel,
+// DEPTH: the depth-only register kernels (K2d, K10g8d; K4d, K6d and K3d
+// run the keyed body, with the same planes).  One value a pixel,
 // z, under the reference's strict-less test z >= 0 && z < zb in every
 // phase (no row id: on an exact tie the first row visited keeps the value,
 // which differs from a later one only in the sign of a zero z), and
@@ -389,12 +389,11 @@ struct TileState {
   }
 
   // Resolve: one IEEE divide per covered pixel, RGBA8 packed, alpha 255.
-  // The output's first row is global row row_base (a band's).
   __device__ __forceinline__ void store(int* __restrict__ color,
-                                        float* __restrict__ depth, int width,
-                                        int row_base = 0) const {
+                                        float* __restrict__ depth,
+                                        int width) const {
     const int col = col0 + (int)(threadIdx.x % TILE_W);
-    const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
+    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
 #pragma unroll
     for (int k = 0; k < NPIX; ++k) {
       const bool covered = den[k] > 0.0f;

@@ -1,24 +1,25 @@
 // The keyed raster body, shared by raster_binned.cu (K4, K4c, K4g, K4d,
-// K9: a tile's record span, K4c's coarse bin too, then the leftover rows
-// of the hierarchy) and raster_hier.cu (K3, K3b, K3g, K3d, K5, K5g: the
-// hierarchy alone).
+// K9, K9d, K6d: a tile's record spans, K4c's coarse bin too, then the
+// leftover rows of the hierarchy) and raster_hier.cu (K3, K3b, K3g, K3d,
+// K5, K5g: the hierarchy alone).
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
-//   atomicMin.  K4, K4c, K9 and K4g: (order bits of z, row id), whose
+//   atomicMin.  K4, K4c, K9, K9d and K4g: (order bits of z, row id), whose
 //   minimum is the (z, row id) tie-break.  K3, K3b, K3g, K5 and K5g: the
 //   same key, whose minimum is the strict-less test z >= 0 && z < zb from
 //   1.0 in row order (the first row of the least z wins, and
 //   prepare_raster_inputs compacts stably, so a row's id is its submission
-//   order).  K4d and K3d: (order bits of z, visit index, sign of z), whose
-//   minimum is the strict-less test in visit order with the first visited
-//   row kept: a span record's visit index is its record index, a leftover
-//   row's is the span's end plus its row id (K3d: no span, so its row id).
+//   order).  K4d, K6d and K3d: (order bits of z, visit index, sign of z),
+//   whose minimum is the strict-less test in visit order with the first
+//   visited row kept: a span entry's visit index is its index in the span
+//   list, a leftover row's is the span's end plus its row id (K3d: no
+//   span, so its row id).
 //   -0.0 and +0.0 share order bits; z >= 0 filters first (NaN and negative
 //   z never compete).  The clear key is z 1.0 over the largest id for K4,
-//   K4c, K9 and K4g, so that a row at z == 1.0 latches as the (z, row id)
-//   test lets it; over id 0 (over visit 0) for K3, K3b, K3g, K5 and K5g
-//   (K3d, K4d), which no row at z == 1.0 goes below, as the strict-less
-//   test never lets 1.0 pass.
+//   K4c, K9, K9d and K4g, so that a row at z == 1.0 latches as the (z, row
+//   id) test lets it; over id 0 (over visit 0) for K3, K3b, K3g, K5 and
+//   K5g (K3d, K4d, K6d), which no row at z == 1.0 goes below, as the
+//   strict-less test never lets 1.0 pass.
 // * Work in proportion to each row's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -40,15 +41,15 @@
 //   key plane of the output's size (8 bytes a pixel, set to all ones by a
 //   memset), and a second kernel resolves the plane's minimum, which is
 //   order-free; a tile of one item resolves its keys in place.
-// * A band (K3b, K9): tiles, windows and edge functions use global rows;
+// * A band (K3b, K9, K9d): tiles, windows and edge functions use global rows;
 //   the planes and the key plane are the band's, a pixel of global row r
 //   stored at row r - row_base (keyed_out, resolve_tile).
 // The store re-evaluates the winner from the setup rows through
 // raster_common.cuh's resolve_winner, the register bodies' epilogue: K4,
-// K4c, K9, K4g, K3, K3b, K3g, K5 and K5g their z (-0.0 kept) and colour,
-// K4g, K3g and K5g also the 11 further planes (K4g and K5g buf * (covered
-// ? 1/den : 0), K3g covered ? buf * 1/den : 0); K4d and K3d decode z from
-// the key.  Nothing moves the tensor cores.
+// K4c, K9, K9d, K4g, K3, K3b, K3g, K5 and K5g their z (-0.0 kept) and
+// colour, K4g, K3g and K5g also the 11 further planes (K4g and K5g buf *
+// (covered ? 1/den : 0), K3g covered ? buf * 1/den : 0); K4d, K6d and K3d
+// decode z from the key.  Nothing moves the tensor cores.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -70,14 +71,15 @@ static_assert(KEY_BATCH <= THREADS, "one thread prepares a record");
 static_assert(HIT_WORDS <= THREADS, "a thread loads a word");
 
 // The (order bits of z, row id) key (the sign cleared, so -0.0 ties +0.0).
-// A span record's id is its last int, a leftover row's its index in the
-// setup rows.  The store resolves the pixel at global (row, col), element
-// idx of the planes, from its key: the winner re-evaluated from ti/tf by
-// raster_common.cuh's resolve_winner, z included (its -0.0 kept), one IEEE
-// divide, RGBA8 packed; z 1.0 and alpha alone where no row latched.
+// A span record's id is its last int (a row-id entry's row id, staged
+// there), a leftover row's its index in the setup rows.  The store
+// resolves the pixel at global (row, col), element idx of the planes, from
+// its key: the winner re-evaluated from ti/tf by raster_common.cuh's
+// resolve_winner, z included (its -0.0 kept), one IEEE divide, RGBA8
+// packed; z 1.0 and alpha alone where no row latched.
 // PLANES: also the 11 further G-buffer planes from extra, frame floats
 // apart.  STRICT_CLEAR (K3, K3b, K3g, K5, K5g): the clear key (1.0, 0), the
-// strict-less test's; otherwise (K4, K4c, K9, K4g) (1.0, INT32_MAX).
+// strict-less test's; otherwise (K4, K4c, K9, K9d, K4g) (1.0, INT32_MAX).
 // MASKED_INV (K4g, K5g): the epilogue buf * (covered ? 1/den : 0);
 // otherwise (K3g) covered ? buf * 1/den : 0.  Without PLANES the two
 // epilogues are one: the colour's quantize is the same either way.
@@ -107,16 +109,16 @@ struct WinnerKeys {
         idx, frame);
   }
 };
-using FlatKeys = WinnerKeys<false, false, true>;      // K4, K4c, K9
+using FlatKeys = WinnerKeys<false, false, true>;      // K4, K4c, K9, K9d
 using GbufKeys = WinnerKeys<true, false, true>;       // K4g
 using HierFlatKeys = WinnerKeys<false, true, false>;  // K3, K3b, K5
 using HierGbufKeys = WinnerKeys<true, true, false>;   // K3g
 using HbmGbufKeys = WinnerKeys<true, true, true>;     // K5g
 
-// The depth key: the order bits of z over the visit index over the sign of
-// z.  The visit index of span record k is k; of leftover row t, the span's
-// end plus t (K3d: t): both below 2^31, so the key holds them shifted by
-// one.
+// The depth key (K4d, K6d, K3d): the order bits of z over the visit index
+// over the sign of z.  The visit index of span entry k is k; of leftover
+// row t, the span's end plus t (K3d: t): both below 2^31, so the key holds
+// them shifted by one.
 struct DepthKeys {
   static constexpr unsigned long long CLEAR = 0x3f800000ull << 32;
   static __device__ __forceinline__ uint32_t span_tag(const int*, int k) {

@@ -129,10 +129,10 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_hier_keyed.argtypes = [p, i, p, p, p, i, p, p, p, p, i, i,
                                          p]
     lib.zr_raster_hier_keyed.restype = i
-    lib.zr_raster_records.argtypes = [p, p, p, p, p, p, p, i, p, p, p, i, i,
+    lib.zr_raster_records.argtypes = [p, p, p, p, p, p, p, i, p, p, p, i, i, i,
                                       p, p, p, i, i, p]
     lib.zr_raster_records.restype = i
-    lib.zr_raster_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
+    lib.zr_raster_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, i, p,
                                             p, p, i, i, p]
     lib.zr_raster_records_keyed.restype = i
     lib.zr_keyed_smem_bytes.argtypes = []
@@ -147,8 +147,8 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_hier.restype = i
     lib.zr_gbuffer_hbm.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_gbuffer_hbm.restype = i
-    lib.zr_gbuffer_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
-                                             p, i, i, p]
+    lib.zr_gbuffer_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, i,
+                                             p, p, i, i, p]
     lib.zr_gbuffer_records_keyed.restype = i
     lib.zr_gbuffer_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_gbuffer_lists.restype = i
@@ -156,22 +156,22 @@ def load_library() -> ctypes.CDLL:
     lib.zr_depth_small.restype = i
     lib.zr_depth_hier.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_depth_hier.restype = i
-    lib.zr_depth_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
+    lib.zr_depth_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, i, p,
                                            p, i, i, p]
     lib.zr_depth_records_keyed.restype = i
-    lib.zr_depth_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
+    lib.zr_depth_lists.argtypes = [p, p, p, i, p, p, p, i, i, i, p, p, i, i, p]
     lib.zr_depth_lists.restype = i
     lib.zr_raster_hier_band_keyed.argtypes = [p, i, p, p, p, i, p, p, p, p,
                                               i, i, i, p]
     lib.zr_raster_hier_band_keyed.restype = i
-    lib.zr_raster_records_band.argtypes = [p, p, p, p, i, p, p, p, i, i, p,
+    lib.zr_raster_records_band.argtypes = [p, p, p, p, i, p, p, p, i, i, i, p,
                                            p, p, i, i, i, i, p]
     lib.zr_raster_records_band.restype = i
     lib.zr_gbuffer_records_band.argtypes = [p, p, p, p, i, p, p, p, p, i, i,
                                             i, p]
     lib.zr_gbuffer_records_band.restype = i
-    lib.zr_raster_records_dist.argtypes = [p, p, p, p, i, p, p, p, p, p, i,
-                                           i, i, i, p]
+    lib.zr_raster_records_dist.argtypes = [p, p, p, p, i, p, p, p, i, i, i, p,
+                                           p, p, i, i, i, i, p]
     lib.zr_raster_records_dist.restype = i
     lib.zr_light_tiled.argtypes = [p, i, p, p, p, i, p, i, p, i, i, p]
     lib.zr_light_tiled.restype = i

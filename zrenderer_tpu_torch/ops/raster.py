@@ -25,17 +25,19 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   leftover rows through the hierarchy, with the (z, row id) tie-break.
   On the card K4 (and K4g, K4d) run the keyed body: per-pixel keys in
   shared memory, each record over its window (its vertices' pixel bbox in
-  the tile), a tile's span cut into work items of ITEM_RECORDS
-  records; K3, K3b, K3g, K3d, K5 and K5g run it over the hierarchy
-  alone, a tile's blocks cut into HIER_ITEMS work items.  K4c adds the
+  the tile), a tile's span cut into work items of at most ITEM_RECORDS
+  records (fewer for small lists: KEYED_MIN_ITEMS); K3, K3b, K3g, K3d, K5
+  and K5g run it over the hierarchy alone, a tile's blocks cut into
+  HIER_ITEMS work items.  K4c adds the
   coarse class: rows too big for the fine lists listed per 4x4-tile bin,
   tested against the tile's bbox; on the card it runs K4's keyed body
   over the tile's span and then its bin's records, cut into work items
   together.
 * K6, the global pair-list raster (``rasterize_setup_pallas_binned``):
   ``prepare_binned_inputs`` sorts the same pairs but keeps row ids; the
-  kernel reads its tile's rows through them.  K4, K4c and K6 live in
-  ``csrc/raster_binned.cu``.
+  kernel reads its tile's rows through them (K6d, on the card, through
+  K4d's keyed body, each listed row gathered by its id).  K4, K4c and K6
+  live in ``csrc/raster_binned.cu``.
 
 All produce a packed RGBA8 plane (u32 bits carried in an ``int32``
 tensor; alpha 255 sets bit 31) and an f32 depth plane over the padded
@@ -60,7 +62,8 @@ rasterize one horizontal band of ``band_h`` rows starting at global row
 * K9d (``rasterize_setup_pallas_binned_band_dist``): K4 over one band
   whose records come from every triangle shard
   (``prepare_binned_dist_local`` on each shard, one all-to-all), one span
-  per source, then the hierarchy over the rows no shard listed.
+  per source, then the hierarchy over the rows no shard listed; on the
+  card K9's keyed body over a tile's spans laid end to end.
 
 Each kernel has a plain torch version beside it taking the same prepared
 inputs.  The ``rasterize_setup*`` wrappers take the plain version only for
@@ -142,12 +145,23 @@ BIN_PAIR_BUDGET = 1 << 20
 # K4 records: the static record-slot budget; listed rows past it are
 # demoted to the leftover hierarchy by an exact prefix clamp.
 HBM_PAIR_BUDGET = 1 << 20
-# K4/K4g/K4d: a tile's record span is cut into work items of at most this
-# many records, one CUDA block each (csrc/raster_binned.cu, the keyed
-# body); the wrappers read it at call time.  At 1M triangles on the H100,
-# 256 ran K4 in 0.64 ms against 0.75 for 1024 and K4d in 0.40 against
-# 0.42 (PERF.md §6).
+# K4/K4c/K4g/K4d/K9/K9d/K6d: a tile's record lists are cut into work
+# items of at most this many records, one CUDA block each
+# (csrc/raster_binned.cu, the keyed body); the wrappers read it at call
+# time.  At 1M triangles on the H100, 256 ran K4 in 0.64 ms against 0.75
+# for 1024 and K4d in 0.40 against 0.42 (PERF.md §6).
 ITEM_RECORDS = 256
+# The kernel halves the item size (down to MIN_ITEM_RECORDS, a constant of
+# csrc/raster_binned.cu) while the lists' records would make fewer than
+# KEYED_MIN_ITEMS items (``keyed_item_records``), so that the small lists
+# of a 20K-triangle map or a 40K-triangle band still spread over the card;
+# the wrappers read it at call time (0: never halve).  On the H100, K6d on
+# the 20K lattice's map and K9d on the 40K lattice's band took 0.21 and
+# 0.23 ms of device time a call at 256 records an item, 0.084 (pair_tri
+# cut to its spans) and 0.105 at 32; 1024 halves those to 32 and none of
+# the 1M lists (PERF.md §6).
+KEYED_MIN_ITEMS = 1024
+MIN_ITEM_RECORDS = 32
 # K3/K3b/K3g/K3d/K5/K5g: the blocks of the hierarchy that meet a tile are
 # cut into this many work items, one CUDA block each (csrc/raster_hier.cu,
 # the keyed body; ``hier_work_items``).  Each call first writes the tiles'
@@ -991,7 +1005,7 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
 
 
 # The keyed body's extent and work items (csrc/raster_keyed.cuh: K4, K4c,
-# K4g, K4d, K9 and K3, K3b, K3g, K3d, K5, K5g), for the bounds in
+# K4g, K4d, K9, K9d, K6d and K3, K3b, K3g, K3d, K5, K5g), for the bounds in
 # chip_smoke.py and for the tests.
 
 
@@ -1012,40 +1026,46 @@ def vertex_bbox(ri):
 
 def keyed_work_items(offsets, item_records: int, num_supers: int,
                      coffsets=None, tiles_x: int | None = None):
-    """The keyed body's work items, numbered tile by tile: (items, 9) i64
-    rows (tile, index, items of the tile, first record, end record, first
-    superblock, end superblock, first coarse record, end coarse record).
-    A tile's records, its span and then (K4c, given ``coffsets`` and the
-    frame's ``tiles_x``) its coarse bin's records, are cut into pieces of
-    at most ``item_records`` (one item for none), and item i of n takes
-    superblocks [i * S / n, (i + 1) * S / n) of the leftover walk.
-    Without ``coffsets`` the coarse ranges are empty."""
+    """The keyed body's work items, numbered tile by tile: (items, 7 + 2 L)
+    i64 rows (tile, index, items of the tile, first record, end record,
+    first superblock, end superblock, then the first and end record in
+    each further list), L >= 1 further lists.  A tile's records, its span
+    (2-D ``offsets`` (n_src, tiles + 1), K9d: each source's span, in source
+    order) and then (K4c, given ``coffsets`` and the frame's ``tiles_x``)
+    its coarse bin's records, laid end to end, are cut into pieces of at
+    most ``item_records`` (one item for none), and item i of n takes
+    superblocks [i * S / n, (i + 1) * S / n) of the leftover walk.  The
+    first record and end record are those of the first list; the further
+    lists follow in order.  With one list the further range is empty (L =
+    1, as K4c's without a coarse record)."""
     offs = offsets.to(torch.int64).cpu()
-    span = offs[1:] - offs[:-1]
-    cstart = torch.zeros_like(span)
-    ccount = torch.zeros_like(span)
+    offs = offs if offs.ndim == 2 else offs[None]
+    lists = [(o[:-1], o[1:] - o[:-1]) for o in offs]  # (start, count)
     if coffsets is not None:
         coffs = coffsets.to(torch.int64).cpu()
-        u = torch.arange(span.numel())
+        u = torch.arange(offs.shape[1] - 1)
         ctiles_x = -(-tiles_x // COARSE_CB)
         b = (u // tiles_x // COARSE_CB) * ctiles_x + u % tiles_x // COARSE_CB
-        cstart, ccount = coffs[b], coffs[b + 1] - coffs[b]
-    n = torch.clamp_min(-(-(span + ccount) // item_records), 1)
+        lists.append((coffs[b], coffs[b + 1] - coffs[b]))
+    total = sum(count for _, count in lists)
+    n = torch.clamp_min(-(-total // item_records), 1)
     tile = torch.repeat_interleave(torch.arange(n.numel()), n)
     first = torch.cumsum(n, 0) - n
     idx = torch.arange(tile.numel()) - first[tile]
     count = n[tile]
-    q0 = idx * item_records
-    begin = torch.minimum(offs[tile] + q0, offs[tile + 1])
-    end = torch.minimum(begin + item_records, offs[tile + 1])
-    skip = q0 - span[tile]  # < 0: the item starts in the span
-    cn = ccount[tile]
-    cbegin = cstart[tile] + torch.minimum(skip.clamp(min=0), cn)
-    cend = cstart[tile] + torch.minimum((skip + item_records).clamp(min=0),
-                                        cn)
-    return torch.stack([tile, idx, count, begin, end,
+    q = idx * item_records  # the item's first record, from each list's
+    pieces = []
+    for start, size in lists:
+        c = size[tile]
+        pieces += [start[tile] + torch.minimum(q.clamp(min=0), c),
+                   start[tile] + torch.minimum((q + item_records).clamp(
+                       min=0), c)]
+        q = q - c
+    if len(lists) == 1:
+        pieces += [torch.zeros_like(tile)] * 2
+    return torch.stack([tile, idx, count, *pieces[:2],
                         idx * num_supers // count,
-                        (idx + 1) * num_supers // count, cbegin, cend],
+                        (idx + 1) * num_supers // count, *pieces[2:]],
                        dim=1)
 
 
@@ -1354,32 +1374,57 @@ def _records_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
             supers.shape[0], _ptr(blocks), _ptr(hier), _ptr(tf))
 
 
+def keyed_item_records(records: int, tiles: int, item_records: int,
+                       min_items: int) -> int:
+    """The keyed record kernels' item size (csrc/raster_binned.cu
+    ``item_size``): ``item_records`` halved while it stays even and at
+    least MIN_ITEM_RECORDS and ``tiles`` plus ``records`` / size (a bound
+    on the items; ``records``: the lists' records, a coarse bin's counted
+    COARSE_CB**2 times) stays under ``min_items``."""
+    size = item_records
+    while (size % 2 == 0 and size // 2 >= MIN_ITEM_RECORDS
+           and tiles + records // size < min_items):
+        size //= 2
+    return size
+
+
 def keyed_items(width: int, height: int, records: int, item_records: int,
-                coarse_records: int = 0) -> int:
-    """Blocks of a keyed K4/K4c/K4g/K4d/K9 launch over the ``height`` rows
-    of its output: a bound on the work items, one per tile plus one per
-    ``item_records`` records (``tile_items``).  A tile's records are its
-    span and, for K4c, its coarse bin's; a bin serves at most COARSE_CB**2
-    tiles, so the tiles read at most that many times ``coarse_records``.
-    Sizes alone: no host sync."""
-    return ((width // TILE_W) * (height // TILE_H)
-            + -(-(records + COARSE_CB**2 * coarse_records) // item_records))
+                coarse_records: int = 0, min_items: int = 0) -> int:
+    """Blocks of a keyed K4/K4c/K4g/K4d/K9/K9d/K6d launch over the
+    ``height`` rows of its output: a bound on the work items, one per tile
+    plus one per ``item_records`` records (``tile_items``).  A tile's
+    records are its spans (K9d: every source's; the spans of all tiles lie
+    in ``records``, the record buffer's or row-id list's length) and, for
+    K4c, its coarse bin's; a bin serves at most COARSE_CB**2 tiles, so the
+    tiles read at most that many times ``coarse_records``.  With
+    ``min_items`` the kernel may halve the item size
+    (``keyed_item_records``); it does so only while a tile plus one item
+    per size's records stay under ``min_items``, so then under
+    2 ``min_items`` items.  Sizes alone: no host sync (the kernel's blocks
+    past the bound its lists' ends give return at once:
+    csrc/raster_binned.cu item_bound)."""
+    return max((width // TILE_W) * (height // TILE_H)
+               + -(-(records + COARSE_CB**2 * coarse_records)
+                   // item_records), 2 * min_items)
 
 
 def _keyed_launch(device, width: int, height: int, records: int,
                   coarse_records: int = 0):
-    """The keyed record launches' last arguments before the outputs: the
-    item size ITEM_RECORDS (read at call time), the item count and the key
-    plane of the ``height`` rows; and the plane, which the call must hold
-    until it has launched."""
-    item_records = ITEM_RECORDS
-    if item_records < 1:
-        raise ValueError(f"ITEM_RECORDS must be positive, got {item_records}")
-    items = keyed_items(width, height, records, item_records, coarse_records)
+    """The keyed record launches' (K4, K4c, K4g, K4d, K9, K9d, K6d) last
+    arguments before the outputs: the largest item ITEM_RECORDS and the
+    items KEYED_MIN_ITEMS the kernel's item size aims at (both read at
+    call time), the grid and the key plane of the ``height`` rows; and the
+    plane, which the call must hold until it has launched."""
+    item_records, min_items = ITEM_RECORDS, KEYED_MIN_ITEMS
+    if item_records < 1 or min_items < 0:
+        raise ValueError(f"ITEM_RECORDS {item_records} must be positive, "
+                         f"KEYED_MIN_ITEMS {min_items} not negative")
+    items = keyed_items(width, height, records, item_records, coarse_records,
+                        min_items)
     # Freed after the launch: the caching allocator hands the memory to
     # later work on the same stream only, which runs after both kernels.
     plane = torch.empty(height * width, dtype=torch.int64, device=device)
-    return (item_records, items, _ptr(plane)), plane
+    return (item_records, min_items, items, _ptr(plane)), plane
 
 
 def _keyed_args(offsets, rec_i, rec_f, supers, blocks, hier, tf, coarse,
@@ -1531,12 +1576,16 @@ def depth_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
 
 def depth_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
                        width: int, height: int):
-    """Launch K6d (``csrc/raster_binned.cu``, row-id spans, depth only) on
-    the current stream."""
+    """Launch K6d (``csrc/raster_binned.cu``, K4d's keyed body over row-id
+    spans: each listed row gathered from ``hier``/``tf`` by its id, in
+    work items of at most ITEM_RECORDS entries, then the resolve) on the
+    current stream."""
     args = _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width,
                        height)
+    launch, _plane = _keyed_launch(hier.device, width, height,
+                                   pair_tri.shape[0])
     out = _run_depth(_build.load_library().zr_depth_lists, hier.device,
-                     width, height, *args)
+                     width, height, *args, *launch)
     depth_lists_kernel.launches += 1
     return out
 
@@ -1654,15 +1703,18 @@ def gbuffer_binned_band_kernel(offsets, rec_i, rec_f, supers, blocks, hier,
 def raster_binned_band_dist_kernel(offsets, rec_i, rec_f, supers, blocks,
                                    hier, tf, coarse, width: int, band_h: int,
                                    row0: int):
-    """Launch K9d (``csrc/raster_binned.cu``) over
-    ``prepare_binned_dist_owner``'s outputs: every source's span of each
-    tile in source order, then the leftover hierarchy."""
+    """Launch K9d (``csrc/raster_binned.cu``, K9's keyed body) over
+    ``prepare_binned_dist_owner``'s outputs: each tile's spans of every
+    source laid end to end, cut into work items of at most ITEM_RECORDS
+    records, then the leftover hierarchy and the resolve."""
     if offsets.ndim != 2:
         raise ValueError("K9d takes (n_src, band_tiles + 1) offsets")
     args = _band_records_args(offsets, rec_i, rec_f, supers, blocks, hier,
                               tf, coarse, width, band_h, row0)
+    launch, _plane = _keyed_launch(hier.device, width, band_h,
+                                   rec_i.shape[0])
     out = _run_band(_build.load_library().zr_raster_records_dist,
-                    hier.device, width, band_h, row0, *args,
+                    hier.device, width, band_h, row0, *args, *launch,
                     extra=(offsets.shape[0],))
     raster_binned_band_dist_kernel.launches += 1
     return out
