@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Same-call A/B of the raster kernels K3, K3b, K3g, K3d, K4, K4c, K4g, K4d,
-K5, K5g, K6d, K9 and K9d and the tiled light kernel K7, and of the frames
-whose pace they set, between this tree and another checkout (for example a
-parent commit unpacked with ``git archive``) on one CUDA card; or, with
-``--sweep``, this tree's K5 and K5g on the 1M lattice at each work-item
-count of SWEEP_ITEMS, and K6d and K9d at each item size of SWEEP_RECORDS
-and halved toward each item count of SWEEP_MIN_ITEMS (``record_sweep``).
+K5, K5g, K6, K6g, K6d, K9 and K9d and the tiled light kernel K7, and of the
+frames whose pace they set, between this tree and another checkout (for
+example a parent commit unpacked with ``git archive``) on one CUDA card;
+or, with ``--sweep``, this tree's K5 and K5g on the 1M lattice at each
+work-item count of SWEEP_ITEMS, and K6, K6g, K6d and K9d at each item size
+of SWEEP_RECORDS and halved toward each item count of SWEEP_MIN_ITEMS
+(``record_sweep``).
 
     python3 chip_ab.py --other path/to/checkout
     python3 chip_ab.py --sweep
@@ -15,34 +16,35 @@ in turns: other, this, this, other.  Every run uses chip_smoke.py's sizes
 and builders (``lit_frame_rows``, ``deferred_frame_inputs``,
 ``baseline_lights``, ``checker_texture``) from this tree on the tree's own
 package.  A run times, with CUDA events after a warm-up: K3 on the flat 20K
-lattice's inputs (the hierarchy prepare, the padded 1080p target), K3b on
-band 0 of its 2 bands at 1920x544 (the rows gathered from 2 shards), and so
-on the 40K lattice's (52 288 rows, 13 superblocks), K3g on the lit 20K
-lattice's inputs and K3d on its 1024x1024 shadow map, K6d on the same map's
-``tile_lists`` inputs (the row-id spans), K9d on band 0 of the 40K
-lattice's 2 ``dist`` bands at 1920x544 (each shard's slabs through the
-in-turn all-to-all, ``tiles.dist_exchange``, then the owner's prepare), K5
-on the flat 40K and 1M lattices' and the 1M lattice's shadow map's
-hierarchy inputs, K4 on the flat and K4g on the lit 1M lattice's inputs
-(``auto``), K9 on band 0 of the flat 1M lattice's 2 bands at 1920x544 (the
-rows gathered from 2 shards, the band-local prepare, as
-``tiles.band_raster`` makes it), K4c on the 1M soup's ``tile_lists`` inputs
-(the coarse class), K4d on the 1M lattice's shadow map, K5g on the lit 1M
-lattice (``hierarchy``), K7 on the deferred test scene's 1080p G-buffer
-with BASELINE config 3's wide and r2 lights (f32 planes), and ms/frame of
+lattice's inputs (the hierarchy prepare, the padded 1080p target) and K6 on
+its ``tile_lists`` inputs (the row-id spans), K3b on band 0 of its 2 bands
+at 1920x544 (the rows gathered from 2 shards), and so on the 40K lattice's
+(52 288 rows, 13 superblocks), K3g on the lit 20K lattice's inputs and K6g
+on its ``tile_lists`` inputs, K3d on its 1024x1024 shadow map, K6d on the
+same map's ``tile_lists`` inputs, K9d on band 0 of the 40K lattice's 2
+``dist`` bands at 1920x544 (each shard's slabs through the in-turn
+all-to-all, ``tiles.dist_exchange``, then the owner's prepare), K5 on the
+flat 40K and 1M lattices' and the 1M lattice's shadow map's hierarchy
+inputs, K4 on the flat and K4g on the lit 1M lattice's inputs (``auto``),
+K9 on band 0 of the flat 1M lattice's 2 bands at 1920x544 (the rows
+gathered from 2 shards, the band-local prepare, as ``tiles.band_raster``
+makes it), K4c on the 1M soup's ``tile_lists`` inputs (the coarse class),
+K4d on the 1M lattice's shadow map, K5g on the lit 1M lattice
+(``hierarchy``), K7 on the deferred test scene's 1080p G-buffer with
+BASELINE config 3's wide and r2 lights (f32 planes), and ms/frame of
 ``render_animation`` on the flat, the lit and the shadowed 20K lattice
-(``auto`` and ``tile_lists``, K6d and K6g), the flat, lit and shadowed 1M
-lattice (``auto``) and the deferred test scene with the wide lights at
-1080p, of the flat, lit and shadowed 1M lattice through
+(``auto`` and ``tile_lists``: K6; K6g; K6d and K6g), the flat, lit and
+shadowed 1M lattice (``auto``) and the deferred test scene with the wide
+lights at 1080p, of the flat, lit and shadowed 1M lattice through
 ``binning="hierarchy"`` (K5, K5g, K5 on the map), and of the flat 20K and
 1M lattices in 2 bands rendered in turn (``tiles.bands_in_turn``,
 1920x1088) and of the 40K lattice in 2 ``dist`` bands, and the device busy
-ms per frame of the flat 20K frame, of the shadowed 20K ``tile_lists``
-frame, of the six 1M frames and of those three banded frames (one traced
-run each: ``chip_smoke.device_trace``, the union of the device operations'
-intervals).  Every run must give the same planes (their digests are
-compared).  Prints the card's name and power limit first, then one JSON line
-per run.
+ms per frame of the flat 20K frame, of the flat, the lit and the shadowed
+20K ``tile_lists`` frames, of the six 1M frames and of those three banded
+frames (one traced run each: ``chip_smoke.device_trace``, the union of the
+device operations' intervals). Every run must give the same planes (their
+digests are compared). Prints the card's name and power limit first, then
+one JSON line per run.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ import chip_smoke as cs
 HERE = os.path.dirname(os.path.abspath(__file__))
 # Work items a tile that ``--sweep`` times K5 and K5g at.
 SWEEP_ITEMS = (1, 4, 8, 16, 32, 64)
-# Records an item that ``--sweep`` times K6d and K9d at, never halved, and
+# Records an item that ``--sweep`` times K6, K6g, K6d and K9d at, never
+# halved, and
 # the items their 256 records are halved to aim at.
 SWEEP_RECORDS = (16, 32, 64, 128, 256)
 SWEEP_MIN_ITEMS = (512, 1024, 2048, 4096)
@@ -118,9 +121,10 @@ def indexed_args(r, height):
 
 
 def record_sweep() -> dict:
-    """K6d on the shadowed 20K lattice's 1024x1024 map (``tile_lists``:
-    its pair_tri as prepared, n_head * cap slots, and trimmed to the
-    spans' end, so that the launch's grid counts no empty slot) and K9d on
+    """K6 and K6g on the flat and the lit 20K lattice's 1080p frames and
+    K6d on its shadow map's 1024x1024 map (``tile_lists``: pair_tri as
+    prepared, n_head * cap slots; K6d's also trimmed to the spans' end, so
+    that the launch's grid counts no empty slot) and K9d on
     band 0 of the 40K lattice's 2 ``dist`` bands at 1920x544 (two slabs of
     32768 rows) at each ITEM_RECORDS of SWEEP_RECORDS never halved
     (KEYED_MIN_ITEMS 0) and at 256 halved toward each KEYED_MIN_ITEMS of
@@ -130,9 +134,15 @@ def record_sweep() -> dict:
     from zrenderer_tpu_torch.parallel import tiles
     from zrenderer_tpu_torch.scene.procedural import make_stress_scene
 
-    s = cs.SHADOW_SIZE
-    r = renderer(make_stress_scene(20000), pipeline="shadowed",
-                 shadow_size=s, binning="tile_lists")
+    s, w, h = cs.SHADOW_SIZE, cs.PAD_W, cs.PAD_H
+    lattice = make_stress_scene(20000)
+    r = renderer(lattice, binning="tile_lists")
+    flat = raster.prepare_binned_inputs(*cs.frame_rows(r), w, h)
+    r = renderer(lattice, pipeline="lit", binning="tile_lists")
+    r.set_environment(texture=cs.checker_texture())
+    lit = raster.prepare_binned_inputs(*cs.lit_frame_rows(r), w, h)
+    r = renderer(lattice, pipeline="shadowed", shadow_size=s,
+                 binning="tile_lists")
     r.set_environment()
     k6 = raster.prepare_binned_inputs(*cs.light_rows(r), s, s)
     r = renderer(make_stress_scene(cs.MID_TRIS))
@@ -142,6 +152,8 @@ def record_sweep() -> dict:
         tiles.InTurnExchange(2), locals_, cs.PAD_W, 1088, s2)[0])
     del r, locals_, ti, tf
     cases = {
+        "k6": (raster.raster_lists_kernel, flat, (w, h)),
+        "k6g": (raster.gbuffer_lists_kernel, lit, (w, h)),
         "k6d": (raster.depth_lists_kernel, k6, (s, s)),
         "k6d trimmed": (raster.depth_lists_kernel,
                         (k6[0], k6[1][:int(k6[0][-1].item())], *k6[2:]),
@@ -150,6 +162,8 @@ def record_sweep() -> dict:
                 (cs.PAD_W, 544, 0)),
     }
     out = {"pair_tri slots": k6[1].shape[0],
+           "k6 span entries": int((flat[0][-1] - flat[0][0]).item()),
+           "k6g span entries": int((lit[0][-1] - lit[0][0]).item()),
            "k6d span entries": int((k6[0][-1] - k6[0][0]).item()),
            "k9d span records": int((k9[0][:, -1] - k9[0][:, 0]).sum().item())}
     saved = raster.ITEM_RECORDS, raster.KEYED_MIN_ITEMS
@@ -163,7 +177,8 @@ def record_sweep() -> dict:
 
             def call():
                 planes = kern(*prep, *tail)
-                return planes if isinstance(planes, tuple) else (planes,)
+                return (tuple(planes) if isinstance(planes, (tuple, list))
+                        else (planes,))
 
             events, _ = cs.device_trace(lambda: [call() for _ in range(5)])
             out[key][f"{n}/{m}"] = {"ms": event_ms(call, 20),
@@ -247,8 +262,8 @@ def measure() -> dict:
     h2, band_h = 1088, 544
     out = {"root": imported_root(), "k3": {}, "k3b": {}, "k3g": {},
            "k3d": {}, "k4": {}, "k4c": {}, "k4d": {}, "k4g": {}, "k5": {},
-           "k5g": {}, "k6d": {}, "k7": {}, "k9": {}, "k9d": {}, "frames": {},
-           "busy": {}, "digests": {}}
+           "k5g": {}, "k6": {}, "k6g": {}, "k6d": {}, "k7": {}, "k9": {},
+           "k9d": {}, "frames": {}, "busy": {}, "digests": {}}
     lattice = make_stress_scene(20000)
     r = renderer(lattice)
     prep = raster.prepare_raster_inputs(*cs.frame_rows(r))
@@ -276,6 +291,25 @@ def measure() -> dict:
         *(p for band in tiles.bands_in_turn(2, cs.WIDTH, h2, *args)
           for p in band))
     del prep, args, r
+    # The 20K lattice's `tile_lists` frames: K6 flat, K6g lit.
+    for label, kw, kern, rows_of in (
+            ("lattice20k", {}, raster.raster_lists_kernel, cs.frame_rows),
+            ("lit lattice20k", dict(pipeline="lit"),
+             raster.gbuffer_lists_kernel, cs.lit_frame_rows)):
+        r = renderer(lattice, binning="tile_lists", **kw)
+        if kw:
+            r.set_environment(texture=cs.checker_texture())
+        prep = raster.prepare_binned_inputs(*rows_of(r), w, h)
+        key = "k6g" if kw else "k6"
+        out[key][label] = event_ms(lambda: kern(*prep, w, h), 20)
+        out["digests"][f"{key} {label}"] = digest(*kern(*prep, w, h))
+        label += " tile_lists"
+        out["frames"][label] = anim_ms(r, cs.ANIM_FRAMES)
+        out["busy"][label] = busy_ms(
+            lambda: r.render_animation(num_frames=cs.PROFILE_FRAMES),
+            cs.PROFILE_FRAMES)
+        out["digests"][label] = digest(r.render()[0])
+        del prep, r
     r = renderer(lattice, pipeline="lit")
     r.set_environment(texture=cs.checker_texture())
     prep = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
@@ -450,8 +484,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's K5 and K5g at each item count "
-                    "of SWEEP_ITEMS, and K6d and K9d at each item size of "
-                    "SWEEP_RECORDS and SWEEP_MIN_ITEMS, instead")
+                    "of SWEEP_ITEMS, and K6, K6g, K6d and K9d at each item "
+                    "size of SWEEP_RECORDS and SWEEP_MIN_ITEMS, instead")
     ap.add_argument("--worker", help="(internal) measure the package of "
                     "this checkout root")
     args = ap.parse_args(argv)
@@ -492,7 +526,7 @@ def main(argv=None) -> int:
         print("the trees' planes differ", file=sys.stderr)
         return 1
     print("every run gave the same K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, "
-          "K5, K5g, K6d, K7, K9, K9d and frame planes")
+          "K5, K5g, K6, K6g, K6d, K7, K9, K9d and frame planes")
     return 0
 
 

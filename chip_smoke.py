@@ -67,9 +67,10 @@ lines and seconds:
     wide soup with rows whose bbox clamps to empty at the map's bottom and
     right edges and past them, the depth planes of all four equal by
     value; the plain K2d, K3d, K6d and K6g calls give their plain_ms;
-    then ``keyed_cases`` for K4d and for K6d (K4d's keyed body over row-id
+    then ``keyed_cases`` for K4d, for K6d (K4d's keyed body over row-id
     spans; no pixel latched at z == 1.0, the first visited row's zero sign
-    kept) and ``hier_cases`` for K3d;
+    kept), for K6 (K4's over them; one pixel latched) and for K6g (K4g's
+    over them, on lit rows, all 13 planes) and ``hier_cases`` for K3d;
 4l. the tiled light kernel K7 against its plain version, the 3 output
     planes bitwise as int32, f32 and bf16 planes: the 1080p deferred
     G-buffer of the test scene (padded to 1920x1088) with BASELINE config
@@ -228,11 +229,10 @@ lines and seconds:
     each) and each entry point traced once (device ops, busy ms, idle
     share);
 6. timing, traces first: each kernel's device time from a torch.profiler
-   trace at its main-path shape (K4, K4c, K4g, K4d, K6d, K9 and K9d: the
-   sum of a call's three device operations, the memset, the item kernel
-   and the resolve; K3, K3b, K3g, K3d, K5 and K5g the hit words' kernel
-   first, so
-   four with more than one work item a tile;
+   trace at its main-path shape (K4, K4c, K4g, K4d, K6, K6g, K6d, K9 and
+   K9d: the sum of a call's three device operations, the memset, the item
+   kernel and the resolve; K3, K3b, K3g, K3d, K5 and K5g the hit words'
+   kernel first, so four with more than one work item a tile;
    K4 also on soup1M through ``auto``; the keyed kernels bounded by their
    window pixel evaluations and bytes, ``keyed_work``), and a profiled
    ``render_animation`` run
@@ -1116,15 +1116,15 @@ def main(argv=None) -> int:
         """The (tile, row) pairs the keyed body evaluates on a record
         prepare (K4, K4c, K4g, K4d; K9 over the h rows from global row
         ``row0``, its spans band-local or the frame's; K9d's (n_src,
-        band_tiles + 1) spans, every source's) or on a row-id prepare (K6d:
-        offsets, pair_tri, supers, blocks, hier, tf; each listed row read
-        through hier): every span entry of the tiles, K4c's (tile, coarse
-        record) pairs (``coarse_pairs``), then every leftover (tile, row)
-        pair of the walk; on a hierarchy prepare (K3, K3b, K3g, K3d:
-        supers, blocks, rows, tf) the walk's pairs alone.  Returns their
-        setup rows (P, NI32), z coefficients (P, 3), row ids, global tile
-        rows and tile columns (P,), the number of records read (span and
-        coarse entries, each once) and the leftover pairs' rows."""
+        band_tiles + 1) spans, every source's) or on a row-id prepare (K6,
+        K6g, K6d: offsets, pair_tri, supers, blocks, hier, tf; each listed
+        row read through hier): every span entry of the tiles, K4c's
+        (tile, coarse record) pairs (``coarse_pairs``), then every leftover
+        (tile, row) pair of the walk; on a hierarchy prepare (K3, K3b, K3g,
+        K3d: supers, blocks, rows, tf) the walk's pairs alone.  Returns
+        their setup rows (P, NI32), z coefficients (P, 3), row ids, global
+        tile rows and tile columns (P,), the number of records read (span
+        and coarse entries, each once) and the leftover pairs' rows."""
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
         za = slice(tg.F_ZA0, tg.F_ZA0 + 3)
         ty0 = row0 // raster.TILE_H
@@ -1135,7 +1135,7 @@ def main(argv=None) -> int:
             band = ty >= ty0
             rows, ty, tx = rows[band], ty[band], tx[band]
             return hier[rows], tf[rows, za], rows, ty, tx, 0, rows
-        if len(prep) == 6:  # K6d: row ids into hier/tf
+        if len(prep) == 6:  # K6, K6g, K6d: row ids into hier/tf
             offsets, pair_tri, supers, blocks, hier, tf = prep
             rec_i = rec_f = None
         else:
@@ -1246,27 +1246,28 @@ def main(argv=None) -> int:
     def keyed_work(prep, w, h, visible, planes, depth=None,
                    winner_bytes=WINNER_BYTES, strict=False, row0=0):
         """K4's, K4c's, K9's, K9d's or K4g's (given its ``depth`` plane) or
-        K4d's work on a record prepare, K6d's on a row-id prepare, K3's,
-        K3b's or K3g's (given its plane; ``strict``) or K3d's on a
-        hierarchy prepare: (window pixel evaluations, bytes needed); K3b's,
-        K9's and K9d's over the band, the h rows from global row ``row0``
-        (``visible``: the frame's visible rows, global).  The evaluations:
+        K4d's work on a record prepare, K6's or K6g's (given its plane) or
+        K6d's on a row-id prepare, K3's, K3b's or K3g's (given its plane;
+        ``strict``) or K3d's on a hierarchy prepare: (window pixel
+        evaluations, bytes needed); K3b's, K9's and K9d's over the band,
+        the h rows from global row ``row0`` (``visible``: the frame's
+        visible rows, global).  The evaluations:
         each pair of ``keyed_pairs`` (K4c: a coarse record in each tile of
         its bin that its bbox meets) at its bbox's pixels in the tile, or
         in the padding rows' tiles at the keyed body's extent
         (raster.vertex_bbox).  The bytes: each span and coarse record's
-        ints and 3 z floats (K6d: each row-id entry's id, its row's NI32
-        ints and 3 z floats, as many), each leftover row's NI32 ints and 3
-        z floats once, each distinct winner's ``winner_bytes`` (K4, K4c,
-        K9, K9d, K4g, K3, K3b, K3g; K4d, K6d and K3d read z from the key)
+        ints and 3 z floats (a row-id entry's id, its row's NI32 ints and 3
+        z floats, as many), each leftover row's NI32 ints and 3 z floats
+        once, each distinct winner's ``winner_bytes`` (K4, K4c, K9, K9d,
+        K6, K4g, K6g, K3, K3b, K3g; K4d, K6d and K3d read z from the key)
         and the ``planes`` output planes."""
         pairs = keyed_pairs(prep, w, h, row0)
         ri, ty, tx = pairs[0].long(), pairs[3], pairs[4]
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
         rect = ri[:, box]
         if len(prep) == 6:
-            # K6d: hier holds the listed rows with their bbox emptied; the
-            # geometry's is the vertex bbox clamped to the frame
+            # Row ids: hier holds the listed rows with their bbox emptied;
+            # the geometry's is the vertex bbox clamped to the frame
             # (ops/geometry.py), which the span entries come first with.
             n = pairs[5]
             jmin, jmax, imin, imax = raster.vertex_bbox(ri[:n]).unbind(1)
@@ -1379,15 +1380,17 @@ def main(argv=None) -> int:
                   + "); left out: "
                   + ", ".join(f"{k} {n}" for k, n in left_out.most_common()))
         smem = _build.load_library().zr_keyed_smem_bytes()
-        for key in ("k4", "k4_coarse", "k4g", "k4d", "k9", "k9d", "k6d"):
+        for key in ("k4", "k4_coarse", "k4g", "k4d", "k9", "k9d", "k6",
+                    "k6g", "k6d"):
             results[key]["smem_bytes"] = smem
-        print(f"  K4/K4c/K4g/K4d/K9/K9d/K6d keyed body: {smem} bytes of "
-              "dynamic shared memory a block (raster_records_kernel, "
+        print(f"  K4/K4c/K4g/K4d/K9/K9d/K6/K6g/K6d keyed body: {smem} bytes "
+              "of dynamic shared memory a block (raster_records_kernel, "
               "raster_records_coarse_keyed_kernel, "
               "gbuffer_records_keyed_kernel, depth_records_kernel, "
               "raster_records_band_keyed_kernel, "
-              "raster_records_dist_keyed_kernel, depth_lists_keyed_kernel;"
-              " the resolve kernels none)")
+              "raster_records_dist_keyed_kernel, raster_lists_keyed_kernel, "
+              "gbuffer_lists_keyed_kernel, depth_lists_keyed_kernel; the "
+              "resolve kernels none)")
         smem = _build.load_library().zr_keyed_hier_smem_bytes()
         for key in ("k3", "k3b", "k3g", "k3d", "k5", "k5g"):
             results[key]["smem_bytes"] = smem
@@ -1529,31 +1532,36 @@ def main(argv=None) -> int:
         """The keyed body's own cases for K4 (``key`` "k4"), K4c
         ("k4_coarse": cap 1, so that every row over more than one tile
         falls to the coarse class), K4g ("k4g", on lit rows, all 13
-        planes), K4d ("k4d") or K6d ("k6d": K4d's body over row-id spans,
-        ``prepare_binned_inputs``), each bit-exact against the plain version in
-        every row, at the default item size and at KEYED_SMALL_ITEMS
-        records: one tile whose span is many items long, exact ties split
-        across items, a row at z == 1.0 (K4, K4c and K4g latch it, K4d
-        does not), -0.0 ties (K4, K4c and K4g keep the lower row id's z,
-        K4d the first visited row's sign), triangles that cover whole
-        tiles, and an empty scene; K4c also a coarse bin busy enough to
-        cut each of its tiles into several items at the default size."""
-        depth, lit = key in ("k4d", "k6d"), key == "k4g"
+        planes), K4d ("k4d"), or K6, K6g and K6d ("k6", "k6g" on lit rows,
+        "k6d": K4's, K4g's and K4d's body over row-id spans,
+        ``prepare_binned_inputs``), each bit-exact against the plain
+        version in every row, at the default item size and at
+        KEYED_SMALL_ITEMS records: one tile whose span is many items long,
+        exact ties split across items, a row at z == 1.0 (K4, K4c, K4g, K6
+        and K6g latch it, K4d and K6d do not), -0.0 ties (K4, K4c, K4g, K6
+        and K6g keep the lower row id's z, K4d and K6d the first visited
+        row's sign), triangles that cover whole tiles, and an empty scene;
+        K4c also a coarse bin busy enough to cut each of its tiles into
+        several items at the default size."""
+        depth, lit = key in ("k4d", "k6d"), key in ("k4g", "k6g")
         kern = {"k4": k4, "k4_coarse": k4c, "k4g": k4g, "k4d": k4d,
-                "k6d": k6d}[key]
+                "k6": k6, "k6g": k6g, "k6d": k6d}[key]
         plain = {"k4": raster.raster_binned_plain,
                  "k4_coarse": raster.raster_binned_plain,
                  "k4g": raster.gbuffer_binned_plain,
                  "k4d": raster.depth_binned_plain,
+                 "k6": raster.raster_lists_plain,
+                 "k6g": raster.gbuffer_lists_plain,
                  "k6d": raster.depth_lists_plain}[key]
         cmp = {"k4": compare, "k4_coarse": compare, "k4g": compare_gbuffer,
-               "k4d": compare_depth, "k6d": compare_depth}[key]
+               "k4d": compare_depth, "k6": compare, "k6g": compare_gbuffer,
+               "k6d": compare_depth}[key]
         rows_of = lit_rows if lit else setup_rows
         prep_kw = (dict(cap=1, coarse_cap=raster.TILE_LISTS_COARSE_CAP)
                    if key == "k4_coarse" else {})
 
         def prepare(rows, w, h, **kw):
-            if key == "k6d":
+            if key in ("k6", "k6g", "k6d"):
                 return raster.prepare_binned_inputs(*rows, w, h, **kw)
             return raster.prepare_binned_hbm_inputs(*rows, w, h,
                                                     **{**prep_kw, **kw})
@@ -2051,6 +2059,8 @@ def main(argv=None) -> int:
               "(K2d, K3d, K4d, K6d)")
         keyed_cases("k4d")
         keyed_cases("k6d")
+        keyed_cases("k6")
+        keyed_cases("k6g")
         hier_cases("k3d")
 
         # K6g: the G-buffer over global pair lists, at the camera's frame.
@@ -3121,12 +3131,12 @@ def main(argv=None) -> int:
                     "k4": "raster_records_kernel",
                     "k4_coarse": "raster_records_coarse_keyed_kernel",
                     "k5": "raster_hbm_keyed_kernel",
-                    "k6": "raster_lists_kernel",
+                    "k6": "raster_lists_keyed_kernel",
                     "k2g": "gbuffer_small_kernel",
                     "k3g": "gbuffer_hier_keyed_kernel",
                     "k4g": "gbuffer_records_keyed_kernel",
                     "k5g": "gbuffer_hbm_keyed_kernel",
-                    "k6g": "gbuffer_lists_kernel",
+                    "k6g": "gbuffer_lists_keyed_kernel",
                     "k2d": "depth_small_kernel",
                     "k3d": "depth_hier_keyed_kernel",
                     "k4d": "depth_records_kernel",
@@ -3148,13 +3158,15 @@ def main(argv=None) -> int:
                     "k10trans": "raster_trans_kernel",
                     "k10hbm2": "raster_hbm2_kernel",
                     "k10scan": "raster_scan_kernel"}
-    # K4, K4c, K4g, K4d, K6d, K9 and K9d make three device operations a
-    # call: the key plane's memset, the item kernel (kernel_names) and the
-    # resolve kernel.
+    # K4, K4c, K4g, K4d, K6, K6g, K6d, K9 and K9d make three device
+    # operations a call: the key plane's memset, the item kernel
+    # (kernel_names) and the resolve kernel.
     resolve_names = {"k4": "raster_records_resolve_kernel",
                      "k4_coarse": "raster_records_coarse_resolve_kernel",
                      "k4g": "gbuffer_records_resolve_kernel",
                      "k4d": "depth_records_resolve_kernel",
+                     "k6": "raster_lists_resolve_kernel",
+                     "k6g": "gbuffer_lists_resolve_kernel",
                      "k6d": "depth_lists_resolve_kernel",
                      "k9": "raster_records_band_resolve_kernel",
                      "k9d": "raster_records_dist_resolve_kernel"}
@@ -3192,8 +3204,8 @@ def main(argv=None) -> int:
     def call_durations(key, events):
         """Device us of each call of kernel ``key`` in a trace's events:
         the sum of its ``call_ops``, adjacent in time order (for K1 its
-        kernel alone; for K4/K4c/K4g/K4d/K6d/K9/K9d, the memset, the item
-        kernel and the resolve kernel; for K3/K3b/K3g/K3d/K5/K5g the hit
+        kernel alone; for K4/K4c/K4g/K4d/K6/K6g/K6d/K9/K9d, the memset, the
+        item kernel and the resolve kernel; for K3/K3b/K3g/K3d/K5/K5g the hit
         words' kernel, then the item kernel between the memset and the
         resolve with several items a tile).  A call without all of them
         counts as no call, so the trace reads short."""
@@ -4794,21 +4806,25 @@ def main(argv=None) -> int:
             return next((n for e, n in PTXAS_REGISTERS.items()
                          if mangled in e), None)
 
-        # K6d's grid counts every slot of pair_tri (n_head * cap).
-        prep_k, _, _ = cases["k6d"]
-        spans = int((prep_k[0][-1] - prep_k[0][0]).item())
-        slots = prep_k[1].shape[0]
-        n_tiles = prep_k[0].shape[0] - 1
-        size, items = keyed_table(prep_k[0], raster.ITEM_RECORDS,
-                                  prep_k[2].shape[0], n_tiles)
-        blocks = raster.keyed_items(S, S, slots, raster.ITEM_RECORDS, 0,
-                                    raster.KEYED_MIN_ITEMS)
-        bound = n_tiles + spans // size
-        print(f"  k6d lattice20k map: {spans} span entries of {slots} "
-              f"pair_tri slots, items of {size} records; {blocks} blocks "
-              f"launched, {blocks - bound} past the spans' bound (they "
-              f"return before the scan), {bound - items.shape[0]} more find "
-              f"no item, {items.shape[0]} items")
+        # K6's, K6g's and K6d's grids count every slot of pair_tri (n_head
+        # * cap).
+        for key in ("k6", "k6g", "k6d"):
+            prep_k, shape, _ = cases[key]
+            w, h = size_of.get(key, (PAD_W, PAD_H))
+            spans = int((prep_k[0][-1] - prep_k[0][0]).item())
+            slots = prep_k[1].shape[0]
+            n_tiles = prep_k[0].shape[0] - 1
+            size, items = keyed_table(prep_k[0], raster.ITEM_RECORDS,
+                                      prep_k[2].shape[0], n_tiles)
+            blocks = raster.keyed_items(w, h, slots, raster.ITEM_RECORDS, 0,
+                                        raster.KEYED_MIN_ITEMS)
+            bound = n_tiles + spans // size
+            print(f"  {key} {shape} {w}x{h}: {spans} span entries of "
+                  f"{slots} pair_tri slots, items of {size} records; "
+                  f"{blocks} blocks launched, {blocks - bound} past the "
+                  f"spans' bound (they return before the scan), "
+                  f"{bound - items.shape[0]} more find no item, "
+                  f"{items.shape[0]} items")
         for key in resolve_names:  # the keyed record kernels
             res = results[key]
             res["registers"] = registers(kernel_names[key])

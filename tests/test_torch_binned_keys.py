@@ -34,7 +34,13 @@ package's NumPy geometry:
   ``depth_lists_plain`` bit for bit on the padded soup, the duplicated
   soup at 16-record items (ties split across items), the edge map, the
   20K lattice, rows left to the hierarchy and -0.0 ties both ways; the
-  item table covers each tile's row-id span once;
+  item table covers each tile's row-id span once; K6 and K6g (K4's and
+  K4g's keys over the same entry, the row id the tag) equal
+  ``raster_lists_plain`` and, on lit rows, ``gbuffer_lists_plain`` in all
+  13 planes on the same cases and a row at z == 1.0 (latched); their
+  resolve, which reads the winner back from ``hier``, gives the same
+  planes from the unemptied setup rows, and ``resolve_winner`` reads no
+  bbox or valid word;
 * (g) the kernels' item bound (csrc/raster_binned.cu ``item_bound``: one
   item a tile and one per ``item_records`` of the lists' records, from the
   lists' ends) holds every item of one span list, of several (K9d) and of
@@ -184,7 +190,8 @@ def _cover_z(ri, rf, row, col):
 def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
                        width: int, height: int, depth: bool,
                        item_records: int, gbuffer: bool = False,
-                       coarse=None, row0: int = 0, band_local: bool = True):
+                       coarse=None, row0: int = 0, band_local: bool = True,
+                       resolve_ti=None):
     """K4 (or with ``depth`` K4d, with ``gbuffer`` K4g, with ``coarse`` K4c,
     with ``row0`` K9, with 2-D ``offsets`` K9d) as the keyed body computes
     it: each work item's keys over its records' and leftover rows' windows
@@ -196,8 +203,10 @@ def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
     rows from global row ``row0`` (a band's; tiles, windows and edge
     functions global, the planes band-local), the spans indexed by band
     tile (``band_local``) or by frame tile.  2-D ``offsets`` (n_src, tiles
-    + 1): each tile's spans of every source laid end to end (K9d).  K6d is
-    K4d over the records its row-id entry stages (``lists_as_records``)."""
+    + 1): each tile's spans of every source laid end to end (K9d).  K6d,
+    K6 and K6g are K4d, K4 and K4g over the records their row-id entry
+    stages (``lists_as_records``).  ``resolve_ti``: the setup rows' ints
+    the resolve reads the winner from (by default ``hier``)."""
     del blocks  # a row that meets a tile is in its block's union
     th, tw = tr.TILE_H, tr.TILE_W
     tiles_x = width // tw
@@ -263,7 +272,8 @@ def keyed_binned_plain(offsets, rec_i, rec_f, supers, blocks, hier, tf,
     won = keys != FLAT_CLEAR_KEY
     ids = (keys & 0xFFFFFFFF)[won]
     row, col = torch.nonzero(won, as_tuple=True)
-    _, interp, zw = _cover_z(hier[ids], tf[ids], row + row0, col)
+    _, interp, zw = _cover_z((hier if resolve_ti is None else resolve_ti)[ids],
+                             tf[ids], row + row0, col)
     latches = tr._LATCHES + (tr._GBUF_LATCHES if gbuffer else ())
     consts = tr._CONSTS if gbuffer else ()
     out = {name: torch.zeros((height, width), dtype=torch.float32)
@@ -783,6 +793,30 @@ def _pair(za_a, za_b):
     return _lit_pair(za_a=za_a, za_b=za_b)
 
 
+def _lists_frame_shows(prep, recs, item, color, depth, shows):
+    """What a K6d, K6 or K6g case's frame (``color``, None for K6d's map;
+    ``depth``) must show: A, visited first and of the lower id, keeps its
+    zero's sign."""
+    assert int((depth < 1.0).sum()) > 0
+    items = tr.keyed_work_items(prep[0], item, prep[2].shape[0])
+    assert int(prep[0][-1] - prep[0][0]) > 0  # row-id spans
+    if shows in ("padding", "split", "split_ties"):
+        assert int((items[:, 2] > 1).sum()) > 0  # some tile is split
+    if shows == "padding":
+        assert (depth[80:] < 1.0).sum() > 0  # rows below the geometry
+    elif shows == "leftovers":
+        assert int((prep[4][:, g.I_VALID] > 0).sum()) > 0
+    elif shows == "split_ties":
+        assert _ties_split_across_items(recs, items) > 0
+    elif shows == "z_one":  # the (z, row id) test latches z == 1.0
+        latched = int(((depth == 1.0) & (color != -(1 << 24))).sum())
+        assert latched == 1
+    elif shows.endswith("zero"):
+        assert int((depth == 0.0).sum()) > 0
+        neg = int((torch.signbit(depth) & (depth == 0.0)).sum())
+        assert (neg > 0) == (shows == "neg_zero")
+
+
 # name: (rows, prepare arguments, item size, what the map must show)
 LISTS_ITEM_CASES = {
     "padding_soup_item2": (_padding_soup, {}, 2, "padding"),
@@ -806,21 +840,110 @@ def test_row_id_items_merged_equal_the_plain_k6d(name):
     recs = lists_as_records(prep)
     kz = keyed_binned_plain(*recs[:7], w, h, True, item)
     _bits(kz.numpy(), z.numpy())
-    assert int((z < 1.0).sum()) > 0
-    items = tr.keyed_work_items(prep[0], item, prep[2].shape[0])
-    assert int(prep[0][-1] - prep[0][0]) > 0  # row-id spans
-    if shows in ("padding", "split", "split_ties"):
-        assert int((items[:, 2] > 1).sum()) > 0  # some tile is split
-    if shows == "padding":
-        assert (z[80:] < 1.0).sum() > 0  # rows below the geometry
-    elif shows == "leftovers":
-        assert int((prep[4][:, g.I_VALID] > 0).sum()) > 0
-    elif shows == "split_ties":
-        assert _ties_split_across_items(recs, items) > 0
-    elif shows.endswith("zero"):  # A is visited first: its sign stays
-        assert int((z == 0.0).sum()) > 0
-        neg = int((torch.signbit(z) & (z == 0.0)).sum())
-        assert (neg > 0) == (shows == "neg_zero")
+    _lists_frame_shows(prep, recs, item, None, z, shows)
+
+
+# K6 and K6g: K4's and K4g's keys over the same row-id entry (FlatKeys and
+# GbufKeys: a listed row's tag is its row id, staged after its ints, which
+# the leftover walk tags its rows by too), the winner resolved from hier.
+
+
+LISTS_FLAT_CASES = {
+    **LISTS_ITEM_CASES,
+    "z_one_item1": (lambda: _pair((0.25, 0.0, 0.0), None), {}, 1, "z_one"),
+}
+
+
+@pytest.mark.parametrize("name", list(LISTS_FLAT_CASES))
+def test_row_id_items_merged_equal_the_plain_k6(name):
+    build, kw, item, shows = LISTS_FLAT_CASES[name]
+    (ti, tf), (w, h) = build()
+    prep = tr.prepare_binned_inputs(ti, tf, w, h, **kw)
+    color, depth = tr.raster_lists_plain(*prep, w, h)
+    recs = lists_as_records(prep)
+    kc, kd = keyed_binned_plain(*recs[:7], w, h, False, item)
+    np.testing.assert_array_equal(kc.numpy(), color.numpy())
+    _bits(kd.numpy(), depth.numpy())
+    _lists_frame_shows(prep, recs, item, color, depth, shows)
+
+
+def _lit_lattice_narrow():
+    """The 20K lattice at 256x128 with the lit columns."""
+    return (_rows(*make_stress_scene(20000), 256, 128, tri_align=256,
+                  lit=True, seed=7), (256, 128))
+
+
+# name: (lit rows, prepare arguments, item size, what the frame must show)
+LISTS_GBUFFER_CASES = {
+    "lattice20k_item64": (_lit_lattice_narrow, {}, 64, "split"),
+    "padding_soup_item2": (_lit_padding_soup, {}, 2, "padding"),
+    "padding_soup_cap1_item5": (_lit_padding_soup, dict(cap=1), 5,
+                                "leftovers"),
+    "duplicated_soup_item16": (_lit_duplicated_soup, {}, 16, "split_ties"),
+    "z_one_item1": (lambda: _pair((0.25, 0.0, 0.0), None), {}, 1, "z_one"),
+    "neg_zero_first_item1": (
+        lambda: _pair((-0.0,) * 3, (0.0,) * 3), {}, 1, "neg_zero"),
+    "pos_zero_first_item1": (
+        lambda: _pair((0.0,) * 3, (-0.0,) * 3), {}, 1, "pos_zero"),
+}
+
+
+@pytest.mark.parametrize("name", list(LISTS_GBUFFER_CASES))
+def test_row_id_items_merged_equal_the_plain_k6g(name):
+    build, kw, item, shows = LISTS_GBUFFER_CASES[name]
+    (ti, tf), (w, h) = build()
+    prep = tr.prepare_binned_inputs(ti, tf, w, h, **kw)
+    ref = tr.gbuffer_lists_plain(*prep, w, h)
+    recs = lists_as_records(prep)
+    got = keyed_binned_plain(*recs[:7], w, h, False, item, gbuffer=True)
+    assert len(got) == len(ref) == tr.GBUFFER_PLANES
+    for a, b in zip(got, ref):
+        _bits(a.numpy(), b.numpy())
+    if shows in ("padding", "split_ties"):  # many winners' materials
+        assert torch.unique(ref[12][ref[1] < 1.0]).numel() > 50
+    _lists_frame_shows(prep, recs, item, ref[0], ref[1], shows)
+
+
+@pytest.mark.parametrize("gbuffer", [False, True], ids=["k6", "k6g"])
+def test_row_id_resolve_reads_the_winner_unchanged_from_hier(gbuffer):
+    """The resolve reads each winner back from ``hier``, where the prepare
+    emptied the listed rows' bbox and valid flag: the planes equal those
+    resolved from the unemptied setup rows, while rows with moved vertices
+    would change them (so listed rows win pixels)."""
+    (ti, tf), (w, h) = (_lit_padding_soup if gbuffer else _padding_soup)()
+    prep = tr.prepare_binned_inputs(ti, tf, w, h)
+    offsets, pair_tri, hier = prep[0], prep[1], prep[4]
+    setup = tr._pad_rows(ti, tf)[0]
+    assert setup.shape == hier.shape
+    changed = torch.nonzero((hier != setup).any(0)).flatten().tolist()
+    assert changed == sorted([g.I_JMIN, g.I_JMAX, g.I_VALID])
+    listed = torch.unique(pair_tri[int(offsets[0]):int(offsets[-1])].long())
+    assert (hier[listed, g.I_JMIN] > hier[listed, g.I_JMAX]).all()
+    recs = lists_as_records(prep)
+
+    def resolved(rows):
+        return keyed_binned_plain(*recs[:7], w, h, False, 4, gbuffer=gbuffer,
+                                  resolve_ti=rows)
+
+    from_hier = resolved(None)
+    for a, b in zip(from_hier, resolved(setup)):
+        _bits(a.numpy(), b.numpy())
+    moved = setup.clone()
+    moved[listed, g.I_X1] += 8 * tg.SUBPIXEL
+    assert not torch.equal(resolved(moved)[1], from_hier[1])
+
+
+def test_resolve_winner_reads_no_bbox_or_valid_word():
+    """csrc/raster_common.cuh ``resolve_winner``, the keyed stores' and the
+    register bodies' epilogue, reads a winner's edge, z and colour words,
+    never the bbox or valid flag the prepares empty in ``hier``."""
+    src = (Path(tr.__file__).resolve().parent.parent / "csrc"
+           / "raster_common.cuh").read_text()
+    body = src[src.index("void resolve_winner("):]
+    body = body[:body.index("\n}\n")]
+    assert "I_DX0" in body and "F_ZA0" in body and "F_CR0" in body
+    for word in ("I_JMIN", "I_JMAX", "I_IMIN", "I_IMAX", "I_VALID"):
+        assert word not in body
 
 
 def test_row_id_work_items_cover_each_span_once():

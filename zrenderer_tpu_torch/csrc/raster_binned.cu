@@ -50,9 +50,9 @@
 //
 // Two bodies compute it.
 //
-// The keyed body (raster_keyed.cuh; keyed_records below) runs K4, K4c,
-// K4g, K4d, K9, K9d and K6d: one 64-bit key a pixel in shared memory
-// lowered by atomicMin (K4, K4c, K9, K9d: FlatKeys, K4g: GbufKeys, (order
+// The keyed body (raster_keyed.cuh; keyed_records below) runs every kernel
+// here but K9g: one 64-bit key a pixel in shared memory lowered by
+// atomicMin (K4, K4c, K9, K9d, K6: FlatKeys, K4g, K6g: GbufKeys, (order
 // bits of z, row id), whose minimum is the (z, row id) tie-break; K4d,
 // K6d: DepthKeys, (order bits of z, visit index, sign of z), a span
 // entry's visit index its index in the span list, a leftover row's the
@@ -61,19 +61,20 @@
 // same batches by the hierarchy walk.
 // * Records staged in shared memory with cp.async, double-buffered: copied
 //   from the gathered records (GatheredRecords), or gathered from the
-//   setup rows by row id (RowIdRecords, K6d: the row's NI32 ints, its id,
-//   its z coefficients), into the same layout.
+//   setup rows by row id (RowIdRecords, K6, K6g, K6d: the row's NI32 ints,
+//   its id, its z coefficients), into the same layout.
 // * A tile's record lists are cut into work items of at most item_records
 //   records (halved, down to 32, while the launch would have fewer than
 //   min_items items: item_size), one block each, which share the tile's
-//   leftover superblocks too.  K4, K4g, K4d, K9 and K6d walk one list, the
-//   tile's span; K9d its n_src spans, one per source shard, laid end to
-//   end; K4c its span and then its coarse bin's records, a coarse record kept by record_hits
-//   before its window is prepared (the window alone would let a record
-//   whose bbox was clamped away from the tile draw there).  A tile of one
-//   item resolves its keys in place; otherwise the items merge through a
-//   key plane of the output's size and a second kernel resolves it.  Three
-//   device operations a call (memset, items, resolve).
+//   leftover superblocks too.  K4, K4g, K4d, K9, K6, K6g and K6d walk one
+//   list, the tile's span; K9d its n_src spans, one per source shard, laid
+//   end to end; K4c its span and then its coarse bin's records, a coarse
+//   record kept by record_hits before its window is prepared (the window
+//   alone would let a record whose bbox was clamped away from the tile
+//   draw there).  A tile of one item resolves its keys in place; otherwise
+//   the items merge through a key plane of the output's size and a second
+//   kernel resolves it.  Three device operations a call (memset, items,
+//   resolve).
 // * K9 and K9d are K4's entry over one band: the band's tiles (row_base,
 //   its first global row), band-local planes and key plane (band_h * width
 //   keys), global tiles, windows and edge functions, as K3b's
@@ -81,26 +82,29 @@
 //   global spans (band_local = 0) by frame tile, which the launch passes as
 //   offsets from the band's first tile (list_base).  K9d's offsets are
 //   laid out (n_src, band_tiles + 1), rebased to the concatenated slabs.
-// The resolve re-evaluates the winner from hier/tf: K4, K4c, K9 and K9d
-// its z (-0.0 kept) and colour, K4g the same and its 11 further planes
-// under buf * (covered ? 1/den : 0); K4d and K6d decode z from the key.  A
-// record's id (its last int, the reference's L_PID; K9d's the canonical
-// id, shard index * shard head + row) and a leftover row's id both index
-// the padded, uncompacted setup rows that hier/tf hold (the prepares
-// gather the records from them), so the resolve reads the winner from
-// hier/tf whichever list it came from.
+// The resolve re-evaluates the winner from hier/tf: K4, K4c, K9, K9d and
+// K6 its z (-0.0 kept) and colour, K4g and K6g the same and their 11
+// further planes under buf * (covered ? 1/den : 0); K4d and K6d decode z
+// from the key.  A record's id (its last int, the reference's L_PID; K9d's
+// the canonical id, shard index * shard head + row; a row-id entry's the
+// row id itself) and a leftover row's id both index the padded,
+// uncompacted setup rows that hier/tf hold (the prepares gather the
+// records from them), so the resolve reads the winner from hier/tf
+// whichever list it came from.  It reads the winner's edge, z and colour
+// (G-buffer) words alone, never the bbox or valid flag that the prepares
+// empty in hier for the listed rows.
 //
-// The register body (binned_scan below; raster_common.cuh TileState: the
-// tile's state in registers, each record of a span evaluated at all 4096
-// pixels of its tile, one block a tile) runs K6, K6g and K9g.  K6g keeps z
-// and the winning row id and resolves its 13 planes from the winner in
-// hier/tf, as K4g.  K9g (K4g over one band, band-local spans) starts a
-// tile's pixel rows at row_base + i * 32 and writes band-local (band_h, W)
-// planes.
+// The register body (gbuffer_records_band_kernel below; raster_common.cuh
+// TileState: the tile's state in registers, each record of a span
+// evaluated at all 4096 pixels of its tile, one block a tile) runs K9g
+// (K4g over one band, band-local spans): it keeps z and the winning row
+// id, starts a tile's pixel rows at row_base + i * 32, resolves its 13
+// planes from the winner in hier/tf, as K4g, and writes band-local
+// (band_h, W) planes.
 //
 // Bound on the H100: the keyed kernels by their window pixel evaluations
 // x 26 ops or the bytes they need (chip_smoke.py keyed_work), the register
-// kernels by the per-pixel edge work over their (tile, triangle) pairs x
+// kernel by the per-pixel edge work over its (tile, triangle) pairs x
 // 4096 x 26 ops; the G-buffer kernels add their 13 output planes.
 
 #include "raster_keyed.cuh"
@@ -111,81 +115,33 @@ namespace zr {
 // reference's coarse_cb default).
 constexpr int COARSE_CB = 4;
 
-// Phases 1 and 2 of the register kernels.  RECORDS: spans of gathered
-// records (K9g) or of row ids (K6, K6g).  A band kernel passes row_base,
-// its first global row.
-template <bool RECORDS, class State>
-__device__ __forceinline__ void binned_scan(
-    State& st, const int* __restrict__ offsets,
-    const int* __restrict__ span_i, const float* __restrict__ span_f,
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
-    const float* __restrict__ tf, int width, int row_base = 0) {
-  const int tiles_x = width / TILE_W;
-  const int tile = blockIdx.x;
-  const int ty = tile / tiles_x, tx = tile % tiles_x;
-  st.init(row_base + ty * TILE_H, tx * TILE_W);
-
-  const int end = __ldg(offsets + tile + 1);
-  for (int k = __ldg(offsets + tile); k < end; ++k) {
-    if constexpr (RECORDS) {
-      const int* r = span_i + (size_t)k * REC_I;
-      st.eval_row(r, span_f + (size_t)k * NF32, __ldg(r + NI32));
-    } else {
-      st.eval(ti, tf, __ldg(span_i + k));
-    }
-  }
-
-  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
-}
-
-// One entry point per kernel, so each has its own name in a profile.
-__global__ void __launch_bounds__(THREADS)
-    raster_lists_kernel(const int* __restrict__ offsets,
-                        const int* __restrict__ pair_tri,
-                        const int* __restrict__ supers, int num_supers,
-                        const int* __restrict__ blocks,
-                        const int* __restrict__ ti,
-                        const float* __restrict__ tf, int* __restrict__ color,
-                        float* __restrict__ depth, int width) {
-  TileState<true> st;
-  binned_scan<false>(st, offsets, pair_tri, nullptr, supers, num_supers,
-                     blocks, ti, tf, width);
-  st.store(color, depth, width);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    gbuffer_lists_kernel(const int* __restrict__ offsets,
-                         const int* __restrict__ pair_tri,
-                         const int* __restrict__ supers, int num_supers,
-                         const int* __restrict__ blocks,
-                         const int* __restrict__ ti,
-                         const float* __restrict__ tf,
-                         float* __restrict__ out, int width, int height) {
-  TileState<true, true> st;
-  binned_scan<false>(st, offsets, pair_tri, nullptr, supers, num_supers,
-                     blocks, ti, tf, width);
-  st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);
-}
-
-// K9g: K4g's register body over one band (band-local spans); out holds
-// GBUF_PLANES (band_h, width) planes.
+// K9g: K4g's register body over one band: the tile's span of gathered
+// records (band-local), then the leftover rows, its pixel rows from global
+// row row_base; out holds GBUF_PLANES (band_h, width) planes.
 __global__ void __launch_bounds__(THREADS) gbuffer_records_band_kernel(
     const int* __restrict__ offsets, const int* __restrict__ rec_i,
     const float* __restrict__ rec_f, const int* __restrict__ supers,
     int num_supers, const int* __restrict__ blocks,
     const int* __restrict__ ti, const float* __restrict__ tf,
     float* __restrict__ out, int width, int band_h, int row_base) {
+  const int tiles_x = width / TILE_W;
+  const int tile = blockIdx.x;
   TileState<true, true> st;
-  binned_scan<true>(st, offsets, rec_i, rec_f, supers, num_supers, blocks,
-                    ti, tf, width, row_base);
+  st.init(row_base + (tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
+  const int end = __ldg(offsets + tile + 1);
+  for (int k = __ldg(offsets + tile); k < end; ++k) {
+    const int* r = rec_i + (size_t)k * REC_I;
+    st.eval_row(r, rec_f + (size_t)k * NF32, __ldg(r + NI32));
+  }
+  st.scan_hierarchy(supers, num_supers, blocks, ti, tf);
   st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * band_h,
                          row_base);
 }
 
 // ---------------------------------------------------------------------------
-// The keyed record raster (K4, K4c, K4g, K4d, K9, K9d, K6d): the body of
-// raster_keyed.cuh over a tile's record lists, then the leftover rows.
+// The keyed record raster (K4, K4c, K4g, K4d, K9, K9d, K6, K6g, K6d): the
+// body of raster_keyed.cuh over a tile's record lists, then the leftover
+// rows.
 // ---------------------------------------------------------------------------
 
 // Shared memory of a keyed record work item (dynamic: above the 48 KB
@@ -221,11 +177,13 @@ struct GatheredRecords {
   }
 };
 
-// RowIdRecords: row ids into the setup rows (K6d: pair_tri into hier/tf),
-// entry k setup row ids[k], gathered with its id in slot NI32.  The rows
+// RowIdRecords: row ids into the setup rows (K6, K6g, K6d: pair_tri into
+// hier/tf), entry k setup row ids[k], gathered with its id in slot NI32
+// (FlatKeys' and GbufKeys' tag, the row the resolve reads back).  The rows
 // the lists own have their bbox and valid flag emptied in ti (so the
 // leftover walk skips them); the window reads the vertices alone
-// (raster_keyed.cuh prepare_record).
+// (raster_keyed.cuh prepare_record), the resolve the edge, z and colour
+// words alone.
 struct RowIdRecords {
   const int* ids;
   const int* ti;
@@ -429,13 +387,13 @@ __device__ __forceinline__ int2 item_piece(int first, int n, int q,
 
 // Work item blockIdx.x: its share of the tile's record lists and of the
 // leftover superblocks into the shared keys, then out (raster_keyed.cuh
-// keyed_out).  Mode: FlatKeys (K4, K4c, K9, K9d), GbufKeys (K4g; extra:
-// its 11 further planes) or DepthKeys (K4d, K6d).  Records: the span
-// lists' GatheredRecords, or RowIdRecords (K6d).  The item takes records
-// [q0, q0 + item_size) of the tile's lists laid end to end: its n_src
-// spans in source order, then with COARSE (K4c) its bin's records.  The
-// tiles are those of the height rows from global row row_base (a band's; 0
-// for a frame).
+// keyed_out).  Mode: FlatKeys (K4, K4c, K9, K9d, K6), GbufKeys (K4g, K6g;
+// extra: the 11 further planes) or DepthKeys (K4d, K6d).  Records: the
+// span lists' GatheredRecords, or RowIdRecords (K6, K6g, K6d).  The item
+// takes records [q0, q0 + item_size) of the tile's lists laid end to end:
+// its n_src spans in source order, then with COARSE (K4c) its bin's
+// records.  The tiles are those of the height rows from global row
+// row_base (a band's; 0 for a frame).
 template <class Mode, bool COARSE, class Records>
 __device__ __forceinline__ void keyed_records(
     const RecordLists& l, const Records& recs,
@@ -451,7 +409,7 @@ __device__ __forceinline__ void keyed_records(
   const long long records = lists_records<COARSE>(l, num_tiles, tiles_x);
   const int item_records = item_size(l, num_tiles, records);
   // The grid bounds the items by the record buffers' sizes, which a list
-  // may fill far less (K6d's pair_tri holds n_head * cap slots): the blocks
+  // may fill far less (K6's pair_tri holds n_head * cap slots): the blocks
   // past the lists' own bound return before they scan the tiles.
   if (blockIdx.x >= item_bound(num_tiles, records, item_records))
     return;  // (block-uniform)
@@ -638,6 +596,51 @@ __global__ void __launch_bounds__(THREADS) depth_records_resolve_kernel(
                            height, row_base);
 }
 
+// K6: K4 over a tile's row-id span (the setup rows gathered by id).
+__global__ void __launch_bounds__(THREADS) raster_lists_keyed_kernel(
+    RecordLists l, RowIdRecords recs, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height, int row_base) {
+  keyed_records<FlatKeys, false>(l, recs, supers, num_supers, blocks, ti, tf,
+                                 plane, color, depth, nullptr, width, height,
+                                 row_base);
+}
+
+__global__ void __launch_bounds__(THREADS) raster_lists_resolve_kernel(
+    RecordLists l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height, int row_base) {
+  keyed_resolve<FlatKeys>(l, plane, ti, tf, color, depth, nullptr, width,
+                          height, row_base);
+}
+
+// K6g: K4g over a tile's row-id span; out as K4g's.
+__global__ void __launch_bounds__(THREADS) gbuffer_lists_keyed_kernel(
+    RecordLists l, RowIdRecords recs, const int* __restrict__ supers,
+    int num_supers, const int* __restrict__ blocks,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    unsigned long long* __restrict__ plane, float* __restrict__ out,
+    int width, int height, int row_base) {
+  const size_t frame = (size_t)width * height;
+  keyed_records<GbufKeys, false>(l, recs, supers, num_supers, blocks, ti, tf,
+                                 plane, reinterpret_cast<int*>(out),
+                                 out + frame, out + 2 * frame, width, height,
+                                 row_base);
+}
+
+__global__ void __launch_bounds__(THREADS) gbuffer_lists_resolve_kernel(
+    RecordLists l, const unsigned long long* __restrict__ plane,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    float* __restrict__ out, int width, int height, int row_base) {
+  const size_t frame = (size_t)width * height;
+  keyed_resolve<GbufKeys>(l, plane, ti, tf, reinterpret_cast<int*>(out),
+                          out + frame, out + 2 * frame, width, height,
+                          row_base);
+}
+
 // K6d: K4d over a tile's row-id span (the setup rows gathered by id).
 __global__ void __launch_bounds__(THREADS) depth_lists_keyed_kernel(
     RecordLists l, RowIdRecords recs, const int* __restrict__ supers,
@@ -660,7 +663,7 @@ __global__ void __launch_bounds__(THREADS) depth_lists_resolve_kernel(
 
 }  // namespace zr
 
-// The keyed launches (K4, K4c, K4g, K4d, K9, K9d, K6d): the key plane
+// The keyed launches (every kernel here but K9g): the key plane
 // (height * width keys, a band's for K9 and K9d) set to all ones, `items`
 // blocks (a bound on the work items: ops/raster.py keyed_items), then the
 // resolve over the tiles.
@@ -735,18 +738,21 @@ extern "C" int zr_raster_records(
       items, plane, height, width, 0, stream, color, depth);
 }
 
-// K6.
+// K6: the row-id spans of pair_tri into ti/tf (hier: the listed rows'
+// bboxes emptied).
 extern "C" int zr_raster_lists(const int* offsets, const int* pair_tri,
                                const int* supers, int num_supers,
                                const int* blocks, const int* ti,
-                               const float* tf, int* color, float* depth,
-                               int height, int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::raster_lists_kernel<<<num_tiles, zr::THREADS, 0,
-                            (cudaStream_t)stream>>>(
-      offsets, pair_tri, supers, num_supers, blocks, ti, tf, color, depth,
-      width);
-  return (int)cudaGetLastError();
+                               const float* tf, int item_records,
+                               int min_items, int items,
+                               unsigned long long* plane, int* color,
+                               float* depth, int height, int width,
+                               void* stream) {
+  return launch_keyed(
+      zr::raster_lists_keyed_kernel, zr::raster_lists_resolve_kernel,
+      span_lists(offsets, item_records, min_items),
+      zr::RowIdRecords{pair_tri, ti, tf}, supers, num_supers, blocks, ti, tf,
+      items, plane, height, width, 0, stream, color, depth);
 }
 
 // K4g.
@@ -763,18 +769,19 @@ extern "C" int zr_gbuffer_records_keyed(
       items, plane, height, width, 0, stream, out);
 }
 
-// K6g.
+// K6g: K6's row-id spans, the G-buffer planes.
 extern "C" int zr_gbuffer_lists(const int* offsets, const int* pair_tri,
                                 const int* supers, int num_supers,
                                 const int* blocks, const int* ti,
-                                const float* tf, float* out, int height,
-                                int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::gbuffer_lists_kernel<<<num_tiles, zr::THREADS, 0,
-                             (cudaStream_t)stream>>>(
-      offsets, pair_tri, supers, num_supers, blocks, ti, tf, out, width,
-      height);
-  return (int)cudaGetLastError();
+                                const float* tf, int item_records,
+                                int min_items, int items,
+                                unsigned long long* plane, float* out,
+                                int height, int width, void* stream) {
+  return launch_keyed(
+      zr::gbuffer_lists_keyed_kernel, zr::gbuffer_lists_resolve_kernel,
+      span_lists(offsets, item_records, min_items),
+      zr::RowIdRecords{pair_tri, ti, tf}, supers, num_supers, blocks, ti, tf,
+      items, plane, height, width, 0, stream, out);
 }
 
 // K4d.

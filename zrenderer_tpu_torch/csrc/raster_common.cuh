@@ -183,18 +183,18 @@ __device__ __forceinline__ void resolve_winner(
 }
 
 // Per-thread tile state.  TIE selects the order-free depth test
-// (z, row id) of K1/K6 over the sequential strict-less test of K3/K5
-// (the GBUF, DEPTH and VIS register kernels keep it; K3 and K5 run the
+// (z, row id) of K1 over the sequential strict-less test of K3/K5
+// (the GBUF, DEPTH and VIS register kernels keep it; K6, K3 and K5 run the
 // keyed body, raster_keyed.cuh).
 //
-// GBUF: the register G-buffer kernels (K2g, K6g, K9g; K4g, K3g and K5g run
-// the keyed body, raster_keyed.cuh, with the same resolve).  Latching 11 more
-// planes the way the reference does would take 17 values a pixel, 272
-// registers a thread for 16 pixels: over the 255 cap.  Every latched value
-// is a pure function of (row, pixel), so the loops keep only z and the
-// winning row id (with strict-less order the last row that passed), and
-// resolve re-evaluates the winner's edge functions and interpolants with
-// the same interp3: the same bits, two values a pixel.  The raster
+// GBUF: the register G-buffer kernels (K2g, K9g; K4g, K6g, K3g and K5g
+// run the keyed body, raster_keyed.cuh, with the same resolve).  Latching
+// 11 more planes the way the reference does would take 17 values a pixel,
+// 272 registers a thread for 16 pixels: over the 255 cap.  Every latched
+// value is a pure function of (row, pixel), so the loops keep only z and
+// the winning row id (with strict-less order the last row that passed),
+// and resolve re-evaluates the winner's edge functions and interpolants
+// with the same interp3: the same bits, two values a pixel.  The raster
 // experiments (raster_group8.cu, raster_vec.cu) keep this state for their
 // flat kernels too, and resolve their colour from the winner.
 //

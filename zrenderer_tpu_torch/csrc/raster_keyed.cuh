@@ -1,13 +1,13 @@
 // The keyed raster body, shared by raster_binned.cu (K4, K4c, K4g, K4d,
-// K9, K9d, K6d: a tile's record spans, K4c's coarse bin too, then the
-// leftover rows of the hierarchy) and raster_hier.cu (K3, K3b, K3g, K3d,
-// K5, K5g: the hierarchy alone).
+// K9, K9d, K6, K6g, K6d: a tile's record spans, K4c's coarse bin too, then
+// the leftover rows of the hierarchy) and raster_hier.cu (K3, K3b, K3g,
+// K3d, K5, K5g: the hierarchy alone).
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
-//   atomicMin.  K4, K4c, K9, K9d and K4g: (order bits of z, row id), whose
-//   minimum is the (z, row id) tie-break.  K3, K3b, K3g, K5 and K5g: the
-//   same key, whose minimum is the strict-less test z >= 0 && z < zb from
-//   1.0 in row order (the first row of the least z wins, and
+//   atomicMin.  K4, K4c, K9, K9d, K6, K4g and K6g: (order bits of z, row
+//   id), whose minimum is the (z, row id) tie-break.  K3, K3b, K3g, K5 and
+//   K5g: the same key, whose minimum is the strict-less test z >= 0 && z <
+//   zb from 1.0 in row order (the first row of the least z wins, and
 //   prepare_raster_inputs compacts stably, so a row's id is its submission
 //   order).  K4d, K6d and K3d: (order bits of z, visit index, sign of z),
 //   whose minimum is the strict-less test in visit order with the first
@@ -16,10 +16,10 @@
 //   span, so its row id).
 //   -0.0 and +0.0 share order bits; z >= 0 filters first (NaN and negative
 //   z never compete).  The clear key is z 1.0 over the largest id for K4,
-//   K4c, K9, K9d and K4g, so that a row at z == 1.0 latches as the (z, row
-//   id) test lets it; over id 0 (over visit 0) for K3, K3b, K3g, K5 and
-//   K5g (K3d, K4d, K6d), which no row at z == 1.0 goes below, as the
-//   strict-less test never lets 1.0 pass.
+//   K4c, K9, K9d, K6, K4g and K6g, so that a row at z == 1.0 latches as
+//   the (z, row id) test lets it; over id 0 (over visit 0) for K3, K3b,
+//   K3g, K5 and K5g (K3d, K4d, K6d), which no row at z == 1.0 goes below,
+//   as the strict-less test never lets 1.0 pass.
 // * Work in proportion to each row's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -46,10 +46,10 @@
 //   stored at row r - row_base (keyed_out, resolve_tile).
 // The store re-evaluates the winner from the setup rows through
 // raster_common.cuh's resolve_winner, the register bodies' epilogue: K4,
-// K4c, K9, K9d, K4g, K3, K3b, K3g, K5 and K5g their z (-0.0 kept) and
-// colour, K4g, K3g and K5g also the 11 further planes (K4g and K5g buf *
-// (covered ? 1/den : 0), K3g covered ? buf * 1/den : 0); K4d, K6d and K3d
-// decode z from the key.  Nothing moves the tensor cores.
+// K4c, K9, K9d, K6, K4g, K6g, K3, K3b, K3g, K5 and K5g their z (-0.0 kept)
+// and colour, K4g, K6g, K3g and K5g also the 11 further planes (K4g, K6g
+// and K5g buf * (covered ? 1/den : 0), K3g covered ? buf * 1/den : 0);
+// K4d, K6d and K3d decode z from the key.  Nothing moves the tensor cores.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -79,10 +79,11 @@ static_assert(HIT_WORDS <= THREADS, "a thread loads a word");
 // packed; z 1.0 and alpha alone where no row latched.
 // PLANES: also the 11 further G-buffer planes from extra, frame floats
 // apart.  STRICT_CLEAR (K3, K3b, K3g, K5, K5g): the clear key (1.0, 0), the
-// strict-less test's; otherwise (K4, K4c, K9, K9d, K4g) (1.0, INT32_MAX).
-// MASKED_INV (K4g, K5g): the epilogue buf * (covered ? 1/den : 0);
-// otherwise (K3g) covered ? buf * 1/den : 0.  Without PLANES the two
-// epilogues are one: the colour's quantize is the same either way.
+// strict-less test's; otherwise (K4, K4c, K9, K9d, K6, K4g, K6g) (1.0,
+// INT32_MAX).  MASKED_INV (K4g, K6g, K5g): the epilogue buf * (covered ?
+// 1/den : 0); otherwise (K3g) covered ? buf * 1/den : 0.  Without PLANES
+// the two epilogues are one: the colour's quantize is the same either
+// way.
 template <bool PLANES, bool STRICT_CLEAR, bool MASKED_INV>
 struct WinnerKeys {
   static constexpr unsigned long long CLEAR =
@@ -109,8 +110,8 @@ struct WinnerKeys {
         idx, frame);
   }
 };
-using FlatKeys = WinnerKeys<false, false, true>;      // K4, K4c, K9, K9d
-using GbufKeys = WinnerKeys<true, false, true>;       // K4g
+using FlatKeys = WinnerKeys<false, false, true>;  // K4, K4c, K9, K9d, K6
+using GbufKeys = WinnerKeys<true, false, true>;   // K4g, K6g
 using HierFlatKeys = WinnerKeys<false, true, false>;  // K3, K3b, K5
 using HierGbufKeys = WinnerKeys<true, true, false>;   // K3g
 using HbmGbufKeys = WinnerKeys<true, true, true>;     // K5g

@@ -139,7 +139,8 @@ def load_library() -> ctypes.CDLL:
     lib.zr_keyed_smem_bytes.restype = i
     lib.zr_keyed_hier_smem_bytes.argtypes = []
     lib.zr_keyed_hier_smem_bytes.restype = i
-    lib.zr_raster_lists.argtypes = [p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_lists.argtypes = [p, p, p, i, p, p, p, i, i, i, p, p, p, i,
+                                    i, p]
     lib.zr_raster_lists.restype = i
     lib.zr_gbuffer_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
     lib.zr_gbuffer_small.restype = i
@@ -150,7 +151,8 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, i,
                                              p, p, i, i, p]
     lib.zr_gbuffer_records_keyed.restype = i
-    lib.zr_gbuffer_lists.argtypes = [p, p, p, i, p, p, p, p, i, i, p]
+    lib.zr_gbuffer_lists.argtypes = [p, p, p, i, p, p, p, i, i, i, p, p, i, i,
+                                     p]
     lib.zr_gbuffer_lists.restype = i
     lib.zr_depth_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
     lib.zr_depth_small.restype = i

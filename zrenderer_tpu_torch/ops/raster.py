@@ -35,9 +35,10 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
   together.
 * K6, the global pair-list raster (``rasterize_setup_pallas_binned``):
   ``prepare_binned_inputs`` sorts the same pairs but keeps row ids; the
-  kernel reads its tile's rows through them (K6d, on the card, through
-  K4d's keyed body, each listed row gathered by its id).  K4, K4c and K6
-  live in ``csrc/raster_binned.cu``.
+  kernel reads its tile's rows through them.  On the card K6, K6g and K6d
+  run K4's, K4g's and K4d's keyed body, each listed row gathered from the
+  setup rows by its id.  K4, K4c and K6 live in
+  ``csrc/raster_binned.cu``.
 
 All produce a packed RGBA8 plane (u32 bits carried in an ``int32``
 tensor; alpha 255 sets bit 31) and an f32 depth plane over the padded
@@ -1005,8 +1006,8 @@ def depth_lists_plain(offsets, pair_tri, supers, blocks, hier, tf,
 
 
 # The keyed body's extent and work items (csrc/raster_keyed.cuh: K4, K4c,
-# K4g, K4d, K9, K9d, K6d and K3, K3b, K3g, K3d, K5, K5g), for the bounds in
-# chip_smoke.py and for the tests.
+# K4g, K4d, K9, K9d, K6, K6g, K6d and K3, K3b, K3g, K3d, K5, K5g), for the
+# bounds in chip_smoke.py and for the tests.
 
 
 def vertex_bbox(ri):
@@ -1390,7 +1391,7 @@ def keyed_item_records(records: int, tiles: int, item_records: int,
 
 def keyed_items(width: int, height: int, records: int, item_records: int,
                 coarse_records: int = 0, min_items: int = 0) -> int:
-    """Blocks of a keyed K4/K4c/K4g/K4d/K9/K9d/K6d launch over the
+    """Blocks of a keyed K4/K4c/K4g/K4d/K9/K9d/K6/K6g/K6d launch over the
     ``height`` rows of its output: a bound on the work items, one per tile
     plus one per ``item_records`` records (``tile_items``).  A tile's
     records are its spans (K9d: every source's; the spans of all tiles lie
@@ -1410,11 +1411,11 @@ def keyed_items(width: int, height: int, records: int, item_records: int,
 
 def _keyed_launch(device, width: int, height: int, records: int,
                   coarse_records: int = 0):
-    """The keyed record launches' (K4, K4c, K4g, K4d, K9, K9d, K6d) last
-    arguments before the outputs: the largest item ITEM_RECORDS and the
-    items KEYED_MIN_ITEMS the kernel's item size aims at (both read at
-    call time), the grid and the key plane of the ``height`` rows; and the
-    plane, which the call must hold until it has launched."""
+    """The keyed record launches' (K4, K4c, K4g, K4d, K9, K9d, K6, K6g,
+    K6d) last arguments before the outputs: the largest item ITEM_RECORDS
+    and the items KEYED_MIN_ITEMS the kernel's item size aims at (both
+    read at call time), the grid and the key plane of the ``height`` rows;
+    and the plane, which the call must hold until it has launched."""
     item_records, min_items = ITEM_RECORDS, KEYED_MIN_ITEMS
     if item_records < 1 or min_items < 0:
         raise ValueError(f"ITEM_RECORDS {item_records} must be positive, "
@@ -1479,10 +1480,12 @@ def raster_binned_coarse_kernel(offsets, rec_i, rec_f, supers, blocks, hier,
 
 def raster_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
                         width: int, height: int):
-    """Launch K6 (``csrc/raster_binned.cu``, row-id spans) on the current
-    stream."""
-    args = _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width,
-                       height)
+    """Launch K6 (``csrc/raster_binned.cu``, K4's keyed body over row-id
+    spans: each listed row gathered from ``hier``/``tf`` by its id, in
+    work items of at most ITEM_RECORDS entries, then the resolve) on the
+    current stream."""
+    args, _plane = _lists_args(offsets, pair_tri, supers, blocks, hier, tf,
+                               width, height)
     out = _run(_build.load_library().zr_raster_lists, hier.device, width,
                height, *args)
     raster_lists_kernel.launches += 1
@@ -1507,21 +1510,25 @@ def gbuffer_binned_kernel(offsets, rec_i, rec_f, supers, blocks, hier, tf,
 def _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width: int,
                 height: int):
     """Check K6/K6g/K6d inputs; returns the launch arguments before the
-    outputs."""
+    outputs (the lists' arguments, then ``_keyed_launch``'s over
+    ``pair_tri``'s slots) and the key plane, which the call must hold until
+    it has launched."""
     _check_frame(width, height)
     _require_spans(offsets, (width // TILE_W) * (height // TILE_H), pair_tri)
     _require_cuda(hier.device, None, offsets=offsets, pair_tri=pair_tri,
                   supers=supers, blocks=blocks, ti=hier, tf=tf)
+    launch, plane = _keyed_launch(hier.device, width, height,
+                                  pair_tri.shape[0])
     return (_ptr(offsets), _ptr(pair_tri), _ptr(supers), supers.shape[0],
-            _ptr(blocks), _ptr(hier), _ptr(tf))
+            _ptr(blocks), _ptr(hier), _ptr(tf), *launch), plane
 
 
 def gbuffer_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
                          width: int, height: int):
-    """Launch K6g (``csrc/raster_binned.cu``, row-id spans, G-buffer) on
-    the current stream."""
-    args = _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width,
-                       height)
+    """Launch K6g (``csrc/raster_binned.cu``, K4g's keyed body over row-id
+    spans, as K6's, with the G-buffer resolve) on the current stream."""
+    args, _plane = _lists_args(offsets, pair_tri, supers, blocks, hier, tf,
+                               width, height)
     out = _run_gbuffer(_build.load_library().zr_gbuffer_lists, hier.device,
                        width, height, *args)
     gbuffer_lists_kernel.launches += 1
@@ -1580,12 +1587,10 @@ def depth_lists_kernel(offsets, pair_tri, supers, blocks, hier, tf,
     spans: each listed row gathered from ``hier``/``tf`` by its id, in
     work items of at most ITEM_RECORDS entries, then the resolve) on the
     current stream."""
-    args = _lists_args(offsets, pair_tri, supers, blocks, hier, tf, width,
-                       height)
-    launch, _plane = _keyed_launch(hier.device, width, height,
-                                   pair_tri.shape[0])
+    args, _plane = _lists_args(offsets, pair_tri, supers, blocks, hier, tf,
+                               width, height)
     out = _run_depth(_build.load_library().zr_depth_lists, hier.device,
-                     width, height, *args, *launch)
+                     width, height, *args)
     depth_lists_kernel.launches += 1
     return out
 
