@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Same-call A/B of the raster kernels K3, K3b, K3g, K3d, K4, K4c, K4g, K4d,
-K5, K5g, K6, K6g, K6d, K9 and K9d and the tiled light kernel K7, and of the
-frames whose pace they set, between this tree and another checkout (for
-example a parent commit unpacked with ``git archive``) on one CUDA card;
-or, with ``--sweep``, this tree's K5 and K5g on the 1M lattice at each
-work-item count of SWEEP_ITEMS, and K6, K6g, K6d and K9d at each item size
-of SWEEP_RECORDS and halved toward each item count of SWEEP_MIN_ITEMS
-(``record_sweep``).
+"""Same-call A/B of the raster kernels K1, K2g, K2d, K3, K3b, K3g, K3d, K4,
+K4c, K4g, K4d, K5, K5g, K6, K6g, K6d, K9 and K9d and the tiled light kernel
+K7, and of the frames whose pace they set, between this tree and another
+checkout (for example a parent commit unpacked with ``git archive``) on
+one CUDA card; or, with ``--sweep``, this tree's K5 and K5g on the 1M
+lattice at each work-item count of SWEEP_ITEMS, K6, K6g, K6d and K9d at
+each item size of SWEEP_RECORDS and halved toward each item count of
+SWEEP_MIN_ITEMS (``record_sweep``), and K1 and K2d at each count of
+SWEEP_SMALL_BLOCKS blocks a tile (``small_sweep``).
 
-    python3 chip_ab.py --other path/to/checkout
+    python3 chip_ab.py --other path/to/checkout [--small]
     python3 chip_ab.py --sweep
 
 Each tree runs in a process of its own, which builds that tree's kernels,
 in turns: other, this, this, other.  Every run uses chip_smoke.py's sizes
 and builders (``lit_frame_rows``, ``deferred_frame_inputs``,
 ``baseline_lights``, ``checker_texture``) from this tree on the tree's own
-package.  A run times, with CUDA events after a warm-up: K3 on the flat 20K
-lattice's inputs (the hierarchy prepare, the padded 1080p target) and K6 on
-its ``tile_lists`` inputs (the row-id spans), K3b on band 0 of its 2 bands
+package.  A run times K1 on the flat 1080p test scene's inputs, K2g on
+the lit one's and K2d on the shadowed one's 1024x1024 map (CUDA events
+and device busy ms a call from a trace of as many calls, ``small_ms``:
+the launchers' host work outlasts these kernels), the flat and the
+shadowed test-scene frames, then, with CUDA events after a warm-up: K3 on
+the flat 20K lattice's inputs (the hierarchy prepare, the padded 1080p
+target) and K6 on its ``tile_lists`` inputs (the row-id spans), K3b on band 0 of its 2 bands
 at 1920x544 (the rows gathered from 2 shards), and so on the 40K lattice's
 (52 288 rows, 13 superblocks), K3g on the lit 20K lattice's inputs and K6g
 on its ``tile_lists`` inputs, K3d on its 1024x1024 shadow map, K6d on the
@@ -42,9 +47,11 @@ lights at 1080p, of the flat, lit and shadowed 1M lattice through
 ms per frame of the flat 20K frame, of the flat, the lit and the shadowed
 20K ``tile_lists`` frames, of the six 1M frames and of those three banded
 frames (one traced run each: ``chip_smoke.device_trace``, the union of the
-device operations' intervals). Every run must give the same planes (their
-digests are compared). Prints the card's name and power limit first, then
-one JSON line per run.
+device operations' intervals) and of the flat and the shadowed
+test-scene frames; with ``--small``, only K1, K2d, K2g and the two
+test-scene frames. Every run must give the same planes (their digests are
+compared). Prints the card's name and power limit first, then one JSON
+line per run.
 """
 
 from __future__ import annotations
@@ -67,6 +74,11 @@ SWEEP_RECORDS = (16, 32, 64, 128, 256)
 SWEEP_MIN_ITEMS = (512, 1024, 2048, 4096)
 # Frames of each traced 1M ``hierarchy`` run.
 BUSY_FRAMES_1M = 5
+# Blocks a tile that ``--sweep`` times K1 and K2d at (the C entries
+# zr_raster_small_blocks and zr_depth_small_blocks), and the calls a
+# small-kernel timing runs (CUDA events; the same count traced).
+SWEEP_SMALL_BLOCKS = (1, 2, 4, 8)
+SMALL_CALLS = 50
 
 
 def event_ms(fn, reps):
@@ -91,6 +103,73 @@ def digest(*planes):
 
     return int(sum(int(p.contiguous().view(torch.int32).to(torch.int64)
                        .sum().item()) for p in planes))
+
+
+def small_ms(fn, calls=SMALL_CALLS):
+    """A small kernel's ms a call from CUDA events around ``calls`` calls
+    (host dispatch included: the launcher's checks take longer than these
+    kernels), and its device busy ms a call from one traced run of as
+    many calls (``chip_smoke.device_trace``)."""
+    events, _ = cs.device_trace(lambda: [fn() for _ in range(calls)])
+    return {"ms": event_ms(fn, calls),
+            "busy_ms": cs.busy_us(events) / 1000.0 / calls}
+
+
+def test_scene():
+    from zrenderer_tpu_torch.scene.mesh import MeshData
+    from zrenderer_tpu_torch.scene.scene import Scene
+
+    return (Scene.load(os.path.join(cs.SCENE_DIR, "scene.bin")),
+            MeshData.load(os.path.join(cs.SCENE_DIR, "meshes.bin")))
+
+
+def small_prepares():
+    """K1's inputs of the flat 1080p test-scene frame and K2d's of the
+    shadowed one's 1024x1024 map: {key: (prepare, (w, h))}."""
+    from zrenderer_tpu_torch.ops import raster
+
+    scene_md, s = test_scene(), cs.SHADOW_SIZE
+    r = renderer(scene_md)
+    flat = raster.prepare_binned_small(*cs.frame_rows(r), cs.PAD_W, cs.PAD_H)
+    r = renderer(scene_md, pipeline="shadowed", shadow_size=s)
+    r.set_environment()
+    return {"k1": (flat, (cs.PAD_W, cs.PAD_H)),
+            "k2d": (raster.prepare_binned_small(*cs.light_rows(r), s, s),
+                    (s, s))}
+
+
+def small_sweep() -> dict:
+    """K1 on the flat test scene's inputs and K2d on the shadowed test
+    scene's map at each count of SWEEP_SMALL_BLOCKS blocks a tile
+    (``small_ms``), every count's planes equal."""
+    from zrenderer_tpu_torch.ops import _build, raster
+
+    lib = _build.load_library()
+    out = {"k1": {}, "k2d": {}}
+    for key, (prep, (w, h)) in small_prepares().items():
+        args = raster._small_args(*prep, w, h)
+        dev = prep[4].device
+        ref = None
+        for b in SWEEP_SMALL_BLOCKS:
+            if key == "k1":
+                def entry(*a, b=b):
+                    return lib.zr_raster_small_blocks(b, *a)
+
+                def call():
+                    return raster._run(entry, dev, w, h, *args)
+            else:
+                def entry(*a, b=b):
+                    return lib.zr_depth_small_blocks(b, *a)
+
+                def call():
+                    return (raster._run_depth(entry, dev, w, h, *args),)
+            out[key][b] = small_ms(call)
+            d = digest(*call())
+            if ref is not None and d != ref:
+                raise AssertionError(f"{key}: {b} blocks a tile changed the "
+                                     "planes")
+            ref = d
+    return out
 
 
 def renderer(scene_md, **kw):
@@ -224,19 +303,19 @@ def sweep() -> dict:
     raster.HIER_ITEMS = saved
     del lattice, flat, lit
     out["records"] = record_sweep()
+    out["small"] = small_sweep()
     return out
 
 
-def measure() -> dict:
-    """One run in the tree that ``zrenderer_tpu_torch`` imports from."""
+def measure(small=False) -> dict:
+    """One run in the tree that ``zrenderer_tpu_torch`` imports from;
+    ``small``: the test scene's kernels and frames alone."""
     import torch
 
     from zrenderer_tpu_torch.ops import light_kernel, raster
     from zrenderer_tpu_torch.parallel import tiles
-    from zrenderer_tpu_torch.scene.mesh import MeshData
     from zrenderer_tpu_torch.scene.procedural import (make_stress_scene,
                                                       make_triangle_soup)
-    from zrenderer_tpu_torch.scene.scene import Scene
 
     def anim_ms(r, frames):
         r.render_animation(num_frames=frames)
@@ -260,10 +339,44 @@ def measure() -> dict:
 
     w, h = cs.PAD_W, cs.PAD_H
     h2, band_h = 1088, 544
-    out = {"root": imported_root(), "k3": {}, "k3b": {}, "k3g": {},
-           "k3d": {}, "k4": {}, "k4c": {}, "k4d": {}, "k4g": {}, "k5": {},
-           "k5g": {}, "k6": {}, "k6g": {}, "k6d": {}, "k7": {}, "k9": {},
-           "k9d": {}, "frames": {}, "busy": {}, "digests": {}}
+    out = {"root": imported_root(), "k1": {}, "k2g": {}, "k2d": {},
+           "k3": {}, "k3b": {}, "k3g": {}, "k3d": {}, "k4": {}, "k4c": {},
+           "k4d": {}, "k4g": {}, "k5": {}, "k5g": {}, "k6": {}, "k6g": {},
+           "k6d": {}, "k7": {}, "k9": {}, "k9d": {}, "frames": {},
+           "busy": {}, "digests": {}}
+    # The test scene: K1 on the flat frame's inputs, K2g on the lit
+    # frame's, K2d on the shadowed frame's map; the flat and the shadowed
+    # frames.
+    scene_md = test_scene()
+    for key, (prep, (pw, ph)) in small_prepares().items():
+        kern = (raster.raster_small_kernel if key == "k1"
+                else raster.depth_small_kernel)
+        label = "test scene" if key == "k1" else "test scene map"
+        out[key][label] = small_ms(lambda: kern(*prep, pw, ph))
+        planes = kern(*prep, pw, ph)
+        out["digests"][f"{key} {label}"] = digest(
+            *(planes if key == "k1" else (planes,)))
+    r = renderer(scene_md, pipeline="lit")
+    r.set_environment(texture=cs.checker_texture())
+    prep = raster.prepare_binned_small(*cs.lit_frame_rows(r), w, h)
+    k2g = raster.gbuffer_small_kernel
+    out["k2g"]["lit test scene"] = small_ms(lambda: k2g(*prep, w, h))
+    out["digests"]["k2g lit test scene"] = digest(*k2g(*prep, w, h))
+    for label, kw in (("test scene", {}),
+                      ("shadowed test scene",
+                       dict(pipeline="shadowed",
+                            shadow_size=cs.SHADOW_SIZE))):
+        r = renderer(scene_md, **kw)
+        if kw:
+            r.set_environment()
+        out["frames"][label] = anim_ms(r, cs.ANIM_FRAMES)
+        out["busy"][label] = busy_ms(
+            lambda: r.render_animation(num_frames=cs.PROFILE_FRAMES),
+            cs.PROFILE_FRAMES)
+        out["digests"][label] = digest(r.render()[0])
+    del prep, r
+    if small:
+        return out
     lattice = make_stress_scene(20000)
     r = renderer(lattice)
     prep = raster.prepare_raster_inputs(*cs.frame_rows(r))
@@ -457,8 +570,6 @@ def measure() -> dict:
         del r
     del lattice
 
-    scene_md = (Scene.load(os.path.join(cs.SCENE_DIR, "scene.bin")),
-                MeshData.load(os.path.join(cs.SCENE_DIR, "meshes.bin")))
     k7 = light_kernel.tiled_light_kernel
     for name in ("wide", "r2"):
         r = renderer(scene_md, pipeline="deferred")
@@ -484,8 +595,12 @@ def main(argv=None) -> int:
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's K5 and K5g at each item count "
-                    "of SWEEP_ITEMS, and K6, K6g, K6d and K9d at each item "
-                    "size of SWEEP_RECORDS and SWEEP_MIN_ITEMS, instead")
+                    "of SWEEP_ITEMS, K6, K6g, K6d and K9d at each item "
+                    "size of SWEEP_RECORDS and SWEEP_MIN_ITEMS, and K1 and "
+                    "K2d at each count of SWEEP_SMALL_BLOCKS, instead")
+    ap.add_argument("--small", action="store_true",
+                    help="with --other: K1, K2d, K2g and the test-scene "
+                    "frames only")
     ap.add_argument("--worker", help="(internal) measure the package of "
                     "this checkout root")
     args = ap.parse_args(argv)
@@ -494,7 +609,7 @@ def main(argv=None) -> int:
         root = os.path.abspath(args.worker)
         sys.path[:] = [root] + [p for p in sys.path
                                 if os.path.abspath(p or ".") != HERE]
-        res = measure()
+        res = measure(args.small)
         if os.path.abspath(res["root"]) != root:
             raise RuntimeError(f"imported {res['root']}, not {root}")
         print(json.dumps(res), flush=True)
@@ -513,8 +628,9 @@ def main(argv=None) -> int:
     for label, root in (("other", other), ("this", HERE), ("this", HERE),
                         ("other", other)):
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", root], capture_output=True,
-                             text=True)
+                              "--worker", root]
+                             + (["--small"] if args.small else []),
+                             capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
             return res.returncode
@@ -525,8 +641,10 @@ def main(argv=None) -> int:
     if any(r["digests"] != runs[0]["digests"] for r in runs):
         print("the trees' planes differ", file=sys.stderr)
         return 1
-    print("every run gave the same K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, "
-          "K5, K5g, K6, K6g, K6d, K7, K9, K9d and frame planes")
+    print("every run gave the same "
+          + ("K1, K2g, K2d and frame" if args.small else
+             "K1, K2g, K2d, K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, K5, K5g, "
+             "K6, K6g, K6d, K7, K9, K9d and frame") + " planes")
     return 0
 
 

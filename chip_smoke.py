@@ -14,7 +14,11 @@ lines and seconds:
 2. build: the CUDA kernels from ``zrenderer_tpu_torch/csrc``;
 3. K1 (small-scene binned raster) against its plain torch version on the
    card, bit-exact: the test scene at 1080p, a triangle soup with clipped
-   fan rows, and exact depth ties between duplicated triangles;
+   fan rows, exact depth ties between duplicated triangles, a wide soup at
+   1920x1080 drawing into the padding rows 1080-1087 of the 1920x1088
+   target (their pixel count printed, 0 fails) and a 1000-triangle soup
+   whose one tile's list holds over 900 rows (K1's staging in many
+   chunks);
 4. K3 (hierarchy raster) against its plain version, bit-exact: the
    20K-triangle lattice at 1080p and the soup;
 4k. ``hier_cases`` for K3, K3b, K5 and K5g (the keyed body over the
@@ -66,8 +70,9 @@ lines and seconds:
     material table; each on the clipped soup, the duplicated soup and a
     wide soup with rows whose bbox clamps to empty at the map's bottom and
     right edges and past them, the depth planes of all four equal by
-    value; the plain K2d, K3d, K6d and K6g calls give their plain_ms;
-    then ``keyed_cases`` for K4d, for K6d (K4d's keyed body over row-id
+    value; the plain K2d, K3d, K6d and K6g calls give their plain_ms; K2d
+    also on a one-tile list of over 900 rows; then ``keyed_cases`` for
+    K4d, for K6d (K4d's keyed body over row-id
     spans; no pixel latched at z == 1.0, the first visited row's zero sign
     kept), for K6 (K4's over them; one pixel latched) and for K6g (K4g's
     over them, on lit rows, all 13 planes) and ``hier_cases`` for K3d;
@@ -318,7 +323,11 @@ the maximum SM clock); the keyed kernels' (K4, K4g, K4d; K3, K3b, K3g,
 K3d over the hierarchy alone) count each record's and leftover row's
 bbox pixels in each tile instead (in the padding rows' tiles the
 kernel's extent, ``window_evals``, the counter phase 6h uses too), with
-the whole-tile figure kept as bound_ms_tiles, and the bytes their keyed
+the whole-tile figure kept as bound_ms_tiles (K1 and K2d the same
+way, each listed row's and hit hierarchy row's vertex bbox in each tile
+it is evaluated in, with the bytes they need: the counts, the live list
+entries, each admitted row's staged words once and the planes,
+``small_work``), and the bytes their keyed
 body needs (``keyed_work``: each span record's ints and z coefficients, each
 leftover row's once, for K4, K3 and K3b each distinct winning row's edge
 and colour coefficients, for K4g and K3g also its uv, normal and constant
@@ -420,9 +429,10 @@ LIGHT_LOOP_FUNCTIONS = {
 LIGHT_ARITH_OPCODES = frozenset({"FADD", "FMUL", "FFMA", "MUFU", "FCHK",
                                  "FMNMX", "FSETP", "FSEL", "F2F"})
 OPS_PER_LIGHT = {}  # "k7", "k7_bf16": set by phase 2
-# Registers a thread of each kernel entry (its mangled name) from ptxas -v:
-# set by phase 2.
+# Registers a thread and static shared memory bytes a block of each
+# kernel entry (its mangled name) from ptxas -v: set by phase 2.
 PTXAS_REGISTERS = {}
+PTXAS_SMEM = {}
 # K8, csrc/overlay.cu's triangle loop: every (pixel, triangle) of a listed
 # (tile, triangle) pair costs 3 edge functions (5 int ops each), 3 bias and
 # 4 rect compares and 6 ands (28); a covered pixel with a free slot adds 3
@@ -522,6 +532,16 @@ def light_loop_ops(sass: str, prefix: str):
                        if k in LIGHT_ARITH_OPCODES})
     left_out = ops - counted
     return sum(counted.values()) / unroll, unroll, counted, left_out
+
+
+def ptxas_entry(name, table, blocks=None):
+    """``table``'s value (PTXAS_REGISTERS or PTXAS_SMEM) for the kernel
+    ``name`` in namespace zr, or for its instantiation at ``blocks``
+    blocks a tile (K1's and K2d's template argument); None when phase 2
+    reused an earlier build and printed no log."""
+    mangled = f"{len(name)}{name}" + ("E" if blocks is None
+                                       else f"ILi{blocks}EE")
+    return next((n for e, n in table.items() if mangled in e), None)
 
 
 def phase(name):
@@ -790,6 +810,7 @@ def main(argv=None) -> int:
         make_stress_scene,
         make_test_scene,
         make_triangle_soup,
+        one_tile_rows,
     )
     from zrenderer_tpu_torch.scene.scene import Scene
     from zrenderer_tpu_torch.utils.png import read_png
@@ -838,6 +859,13 @@ def main(argv=None) -> int:
             v[3 * t, 2] += 15.0
         return scene, md
 
+    def edge_soup():
+        """A wide soup whose rows, seen into a square map, include bboxes
+        clamped to empty at the bottom and right edges and past them;
+        at 1920x1080 into the 1920x1088 target its rows draw into the
+        padding rows 1080-1087."""
+        return make_triangle_soup(600, seed=3, extent=SOUP_EXTENT)
+
     def tie_soup(duplicate: bool):
         """Soup whose second half repeats the first with other colors:
         every duplicate ties its original's depth exactly."""
@@ -851,6 +879,18 @@ def main(argv=None) -> int:
         md2 = MeshData()
         md2.append_mesh(v, np.arange(len(v), dtype=np.uint32))
         return scene, md2
+
+    def long_list(rows, w=128, h=32):
+        """prepare_binned_small of ``rows`` at (w, h), raising unless a
+        tile's list holds at least 900 rows, so that K1's and K2d's
+        staging runs many chunks of STAGE_ROWS."""
+        prep = raster.prepare_binned_small(*rows, w, h)
+        longest = int(prep[0].max().item())
+        print(f"  long list: {longest} rows in the longest tile list "
+              f"({prep[0].numel()} tile(s))")
+        if longest < 900:
+            raise AssertionError(f"long list: {longest} rows, 900 wanted")
+        return prep
 
     def setup_rows(scene, md, width, height, tri_align=64):
         """Port geometry on the card: (tri_i32, tri_f32)."""
@@ -1089,6 +1129,39 @@ def main(argv=None) -> int:
                             padded if isinstance(padded, int)
                             else in_tile(padded), n)
         return int(n.sum().item())
+
+    def small_work(prep, w, h, planes):
+        """K1's or K2d's work on a small prepare: (window pixel
+        evaluations, bytes needed).  The evaluations: each (tile, listed
+        row) pair and each (tile, hierarchy row) pair whose clamped bbox
+        meets the tile (the kernels' admission), counted as the row's
+        vertices' pixel bbox in the tile (raster.vertex_bbox, the kernels'
+        skip; in the padding rows too).  The bytes: the counts, the live
+        list entries, the staged words of each distinct admitted row (its
+        vertices, edges, biases and clamped bbox, I_IMAX + 1 ints, and z's
+        3 floats) and the ``planes`` output planes."""
+        counts, lists, _, _, hier, _ = prep
+        tiles_x = w // raster.TILE_W
+        n_tiles = counts.numel()
+        l2 = lists.reshape(n_tiles, -1)
+        live = (torch.arange(l2.shape[1], device=dev)[None, :]
+                < counts[:, None])
+        tile_l = torch.nonzero(live)[:, 0]
+        row_l = l2[live].long()
+        hits = raster._tile_hits(
+            hier[:, [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]],
+            h // raster.TILE_H, tiles_x)
+        tile_h, row_h = torch.nonzero(hits).unbind(1)
+        tile, row = torch.cat([tile_l, tile_h]), torch.cat([row_l, row_h])
+        rect = raster.vertex_bbox(hier[row])
+        evals = window_evals(rect, tile // tiles_x, tile % tiles_x, h)
+        rows = torch.unique(row).numel()
+        nbytes = (4 * counts.numel() + 4 * row_l.numel()
+                  + rows * ((tg.I_IMAX + 1) * 4 + 12) + planes * 4 * w * h)
+        print(f"  small work at {w}x{h}: {row_l.numel()} list entries, "
+              f"{row_h.numel()} hierarchy pairs, {rows} distinct rows; "
+              f"{evals} window pixel evaluations, {nbytes} bytes")
+        return evals, nbytes
 
     def coarse_pairs(coarse, w, h):
         """K4c's (tile, coarse record) pairs: each record of a tile's bin
@@ -1365,6 +1438,8 @@ def main(argv=None) -> int:
             m = re.search(r"Used (\d+) registers", line)
             if m and entry:
                 PTXAS_REGISTERS[entry] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                PTXAS_SMEM[entry] = int(m.group(1)) if m else 0
         cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
                                  "cuobjdump")
         sass = subprocess.run([cuobjdump, "-sass", str(info.path)],
@@ -1391,6 +1466,16 @@ def main(argv=None) -> int:
               "raster_records_dist_keyed_kernel, raster_lists_keyed_kernel, "
               "gbuffer_lists_keyed_kernel, depth_lists_keyed_kernel; the "
               "resolve kernels none)")
+        small_blocks = _build.load_library().zr_small_blocks_per_tile()
+        for key, name in (("k1", "raster_small_kernel"),
+                          ("k2d", "depth_small_kernel")):
+            print(f"  {key} ({name}) at 1/2/4/8 blocks a tile "
+                  f"({small_blocks} on the main path): registers "
+                  + "/".join(str(ptxas_entry(name, PTXAS_REGISTERS, b))
+                             for b in (1, 2, 4, 8))
+                  + ", static shared memory bytes a block "
+                  + "/".join(str(ptxas_entry(name, PTXAS_SMEM, b))
+                             for b in (1, 2, 4, 8)))
         smem = _build.load_library().zr_keyed_hier_smem_bytes()
         for key in ("k3", "k3b", "k3g", "k3d", "k5", "k5g"):
             results[key]["smem_bytes"] = smem
@@ -1431,6 +1516,24 @@ def main(argv=None) -> int:
         if not (torch.equal(c_dup, c_one) and torch.equal(d_dup, d_one)):
             raise AssertionError("(c) a duplicate won an exact depth tie")
         print("  (c) every exact depth tie went to the first-submitted row")
+
+        # (d) The padding rows: the sub-tile blocks skip pixels by the
+        # rows' vertices' bbox alone, never by the bbox clamped to the
+        # frame, so rows 1080-1087 get every pixel the whole tile drew.
+        ti, tf = setup_rows(*edge_soup(), WIDTH, HEIGHT)
+        _, d = compare("k1", "(d) edge soup, padding rows", k1,
+                       raster.raster_small_plain,
+                       raster.prepare_binned_small(ti, tf, PAD_W, PAD_H),
+                       PAD_W, PAD_H)
+        pad = int((d[HEIGHT:] < 1.0).sum().item())
+        print(f"  (d) {pad} pixels drawn in the padding rows "
+              f"{HEIGHT}-{PAD_H - 1}")
+        if pad == 0:
+            raise AssertionError("(d) no pixel drawn in the padding rows")
+        # (e) A tile list past 900 rows: many staged chunks a block.
+        compare("k1", "(e) one-tile soup, long list", k1,
+                raster.raster_small_plain,
+                long_list(one_tile_rows(1000, device=dev)), 128, 32)
         return main_prep
 
     # -- 4. K3 vs plain ---------------------------------------------------
@@ -1984,11 +2087,6 @@ def main(argv=None) -> int:
         r.set_environment()  # BASELINE config 2: white, default light
         return r
 
-    def edge_soup():
-        """A wide soup whose rows, seen into a square map, include bboxes
-        clamped to empty at the bottom and right edges and past them."""
-        return make_triangle_soup(600, seed=3, extent=SOUP_EXTENT)
-
     def edge_rows_count(ti, w, h):
         """Live head rows whose bbox clamps to empty at the bottom or right
         edge (imin >= h or jmin >= w): (at the edge, past it)."""
@@ -2057,6 +2155,10 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{key}: duplicates changed the map")
         print("  duplicated triangles leave every map equal by value "
               "(K2d, K3d, K4d, K6d)")
+        compare_depth("k2d", "one-tile soup, long list", k2d,
+                      raster.depth_small_plain,
+                      long_list(one_tile_rows(1000, seed=1, device=dev)),
+                      128, 32)
         keyed_cases("k4d")
         keyed_cases("k6d")
         keyed_cases("k6")
@@ -4755,6 +4857,8 @@ def main(argv=None) -> int:
             planes = (raster.GBUFFER_PLANES if key.endswith("g")
                       else 1 if key.endswith("d") else 2)
             evals = nbytes = None
+            if key in ("k1", "k2d"):  # sub-tile blocks, vertex windows
+                evals, nbytes = small_work(prep_k, w, h, planes)
             if key in resolve_names or key in hier_resolve_names:
                 # the keyed body
                 evals, nbytes = keyed_work(
@@ -4800,12 +4904,24 @@ def main(argv=None) -> int:
                   f"events); plain version {res['plain_ms']:.4f} ms/call at "
                   f"{res['plain_shape']} (CUDA events)")
         def registers(name):
-            """ptxas's registers a thread of kernel ``name`` (None when
-            phase 2 reused an earlier build and printed no log)."""
-            mangled = f"{len(name)}{name}E"
-            return next((n for e, n in PTXAS_REGISTERS.items()
-                         if mangled in e), None)
+            """ptxas's registers a thread of kernel ``name``."""
+            return ptxas_entry(name, PTXAS_REGISTERS)
 
+        # The small-scene kernels: K1 and K2d at the library's blocks a
+        # tile, K2g one block a tile.
+        small_blocks = _build.load_library().zr_small_blocks_per_tile()
+        for key, blocks in (("k1", small_blocks), ("k2g", None),
+                            ("k2d", small_blocks)):
+            res = results[key]
+            res["registers"] = ptxas_entry(kernel_names[key],
+                                           PTXAS_REGISTERS, blocks)
+            res["smem_bytes"] = ptxas_entry(kernel_names[key], PTXAS_SMEM,
+                                            blocks)
+            print(f"  {key} {kernel_names[key]}: {res['registers']} "
+                  f"registers, {res['smem_bytes']} bytes of static shared "
+                  f"memory a block; bound {res['bound_ms']:.4f} ms by "
+                  f"{res['bound_by']} ({res.get('evals')} window pixel "
+                  f"evaluations); kernel {res['ms']:.4f} ms a call")
         # K6's, K6g's and K6d's grids count every slot of pair_tri (n_head
         # * cap).
         for key in ("k6", "k6g", "k6d"):

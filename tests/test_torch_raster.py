@@ -10,7 +10,14 @@ Contracts (docs/RASTER_SPEC.md §5):
 * plain K1/K3 vs ``raster_cpu.rasterize_setup``: coverage and depth exact,
   u8 within 1 LSB (the oracle divides where the kernels multiply by 1/den);
 * plain K1 equals plain K3 bit for bit ((z, id) tie-break == sequential
-  strict-less).
+  strict-less);
+* the cases the sub-tile K1 and K2d (csrc/raster_small.cu) could break:
+  the padding rows 56-63 of a 256x64 target under geometry at 256x56
+  (against interpret mode: coverage exact, colour bits equal, depth
+  within 2e-6, since the interpret kernels' f32 chains are contracted
+  into FMAs), a tile list of more than 900 rows (against the oracle), and
+  the premise of their skips: every pixel a listed or fan row covers lies
+  in that row's vertices' pixel bbox.
 The CUDA kernels themselves are held against the plain versions on the
 card by chip_smoke.py.
 """
@@ -30,7 +37,9 @@ from zrenderer_tpu.scene.procedural import make_triangle_soup
 from zrenderer_tpu.scene.scene import Scene
 from zrenderer_tpu_torch.engine.upload import flatten_scene
 from zrenderer_tpu_torch.ops import _build
+from zrenderer_tpu_torch.ops import geometry as tg
 from zrenderer_tpu_torch.ops import raster as tr
+from zrenderer_tpu_torch.scene.procedural import one_tile_rows
 
 SCENE_DIR = os.path.join(os.path.dirname(__file__), "..", "content",
                          "scenes", "test_scene")
@@ -87,6 +96,39 @@ def _plain(kind, ti, tf, w, h):
     color, depth = fn(torch.from_numpy(ti), torch.from_numpy(tf), w, h)
     assert color.dtype == torch.int32 and depth.dtype == torch.float32
     return color.numpy(), depth.numpy()
+
+
+# Scenes whose geometry at PAD_SIZE[0] x PAD_GEOM_H draws into the padding
+# rows of the PAD_SIZE target (the reference's whole-tile evaluation keeps
+# the pixels below the clamped bboxes there).
+PADDED = {
+    "clipped_soup": _clipped_soup,
+    "edge_soup": lambda: make_triangle_soup(600, seed=3, extent=6.0),
+}
+PAD_SIZE, PAD_GEOM_H = (256, 64), 56
+
+
+def _padded_setup(name):
+    scene, md = PADDED[name]()
+    w = PAD_SIZE[0]
+    flat = flatten_scene(scene, md, pad=True, tri_align=64)
+    vp = g.view_proj_from_camera(scene.active_camera, w, PAD_GEOM_H)
+    mats = np.einsum("nij,jk->nik", flat.node_to_world, vp).astype(np.float32)
+    ti, tf = g.geometry_pipeline_cols(np, *flat.expand_corner_cols(), mats,
+                                      w, PAD_GEOM_H)
+    return ti, tf, *PAD_SIZE
+
+
+def one_tile_soup(n=1000, w=128, h=32, seed=0):
+    """``one_tile_rows`` as numpy (tri_i32, tri_f32)."""
+    ti, tf = one_tile_rows(n, w, h, seed)
+    return ti.numpy(), tf.numpy()
+
+
+def longest_list(ti, tf, w, h):
+    counts = tr.prepare_binned_small(torch.from_numpy(ti),
+                                     torch.from_numpy(tf), w, h)[0]
+    return int(counts.max())
 
 
 def _u8(packed_i32):
@@ -260,3 +302,99 @@ def test_unpack_rgba8():
     np.testing.assert_array_equal(u8[0, 1], [0, 0, 0, 255])
     ref = np.asarray(rp.unpack_rgba8(jnp.asarray(packed.numpy().view(np.uint32))))
     np.testing.assert_array_equal(u8, ref)
+
+
+@pytest.mark.parametrize("name", list(PADDED))
+def test_padding_rows_match_pallas_interpret(name):
+    """Rows 56-63 of the 256x64 target, below geometry at 256x56: plain
+    K1 draws the pixels the reference's whole-tile evaluation draws."""
+    ti, tf, w, h = _padded_setup(name)
+    color, depth = _plain("k1", ti, tf, w, h)
+    ref_c, ref_d = rp.rasterize_setup_pallas_small(
+        jnp.asarray(ti), jnp.asarray(tf), w, h, interpret=True)
+    pad = slice(PAD_GEOM_H, h)
+    ref_c = np.asarray(ref_c).view(np.int32)[pad]
+    ref_d = np.asarray(ref_d)[pad]
+    assert (depth[pad] < 1.0).sum() > 0
+    np.testing.assert_array_equal(depth[pad] < 1.0, ref_d < 1.0)
+    np.testing.assert_array_equal(color[pad], ref_c)
+    np.testing.assert_allclose(depth[pad], ref_d, rtol=0, atol=2e-6)
+
+
+def test_long_tile_list_matches_oracle():
+    """A tile list of more than 900 rows (K1's staging: many chunks a
+    block): plain K1 against the oracle."""
+    ti, tf = one_tile_soup()
+    assert longest_list(ti, tf, 128, 32) >= 900
+    color, depth = _plain("k1", ti, tf, 128, 32)
+    rgba, ref_d = raster_cpu.rasterize_setup(ti, tf, 128, 32)
+    assert (depth < 1.0).mean() > 0.5
+    _bits(depth, ref_d)
+    assert np.abs(_u8(color).astype(np.int32)
+                  - raster_cpu.pack_u8(rgba).astype(np.int32)).max() <= 1
+
+
+def _covered_outside_vertex_bbox(ti, tf, w, h):
+    """Over the (tile, row) pairs K1 and K2d evaluate (each listed row in
+    its tile; each hierarchy row in the tiles its clamped bbox meets), the
+    pixels a row covers and those of them outside its vertices' pixel bbox
+    (``tr.vertex_bbox``, unclamped).  Returns (pairs, fan pairs, covered,
+    outside)."""
+    counts, lists, _, _, hier, _ = tr.prepare_binned_small(
+        torch.from_numpy(ti), torch.from_numpy(tf), w, h)
+    tiles_x = w // tr.TILE_W
+    l2 = lists.reshape(counts.numel(), -1)
+    live = torch.arange(l2.shape[1])[None, :] < counts[:, None]
+    tile_h, row_h = torch.nonzero(tr._tile_hits(
+        hier[:, [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]],
+        h // tr.TILE_H, tiles_x)).unbind(1)
+    tile = torch.cat([torch.nonzero(live)[:, 0], tile_h])
+    row = torch.cat([l2[live].long(), row_h])
+    covered = outside = 0
+    for part in torch.split(torch.arange(tile.numel()), 256):
+        t, r = tile[part], hier[row[part]].long()
+        box = tr.vertex_bbox(hier[row[part]]).long()
+        iy = ((t // tiles_x) * tr.TILE_H)[:, None, None] + torch.arange(
+            tr.TILE_H)[None, :, None]
+        ix = ((t % tiles_x) * tr.TILE_W)[:, None, None] + torch.arange(
+            tr.TILE_W)[None, None, :]
+        py, px = iy * tg.SUBPIXEL + tg.SUBPIXEL // 2, ix * tg.SUBPIXEL + (
+            tg.SUBPIXEL // 2)
+
+        def c(k):
+            return r[:, k, None, None]
+
+        def edge(dx, dy, x, y):  # int32 wrap, as the kernels' edge_fn
+            v = c(dx) * (py - c(y)) - c(dy) * (px - c(x))
+            return (v + 2**31) % 2**32 - 2**31
+
+        cov = ((edge(tg.I_DX0, tg.I_DY0, tg.I_X1, tg.I_Y1) >= c(tg.I_BIAS0))
+               & (edge(tg.I_DX1, tg.I_DY1, tg.I_X2, tg.I_Y2)
+                  >= c(tg.I_BIAS1))
+               & (edge(tg.I_DX2, tg.I_DY2, tg.I_X0, tg.I_Y0)
+                  >= c(tg.I_BIAS2)))
+        inside = ((ix >= box[:, 0, None, None]) & (ix <= box[:, 1, None, None])
+                  & (iy >= box[:, 2, None, None])
+                  & (iy <= box[:, 3, None, None]))
+        covered += int(cov.sum())
+        outside += int((cov & ~inside).sum())
+    return tile.numel(), row_h.numel(), covered, outside
+
+
+@pytest.mark.parametrize("case", list(CASES) + [f"padded_{n}" for n in PADDED]
+                         + ["one_tile_soup"])
+def test_covered_pixels_lie_in_the_vertex_bbox(case):
+    """The premise of the sub-tile kernels' skips: no listed or fan row
+    covers a pixel outside its vertices' pixel bbox, in the padding rows
+    too."""
+    if case.startswith("padded_"):
+        ti, tf, w, h = _padded_setup(case[len("padded_"):])
+    elif case == "one_tile_soup":
+        (ti, tf), w, h = one_tile_soup(), 128, 32
+    else:
+        ti, tf, w, h = _setup(case)
+    pairs, fan, covered, outside = _covered_outside_vertex_bbox(ti, tf, w, h)
+    assert pairs > 0 and covered > 0
+    if case.startswith("clipped_soup") or case == "padded_clipped_soup":
+        assert fan > 0
+    assert outside == 0

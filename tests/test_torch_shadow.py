@@ -13,6 +13,11 @@ Contract:
   map and past them in the guard band.  Without a row id an exact tie
   keeps the first row visited, so the planes may differ in the sign of a
   zero z only (compared with ``==``, not bitwise);
+* plain K2d in the padding rows 56-63 of a 256x64 target under geometry
+  at 256x56 against the reference's K2d in interpret mode (coverage
+  exact, depth within 2e-6: the interpret kernel's f32 chains are
+  contracted into FMAs), and over a tile list of more than 900 rows
+  against the oracle's depth;
 * plain K6g equals plain K2g bit for bit on all 13 planes, and the XLA
   G-buffer under the G-buffer contract of test_torch_gbuffer.py;
 * ``shadow_factor_pcf`` and ``shadow_factor_pcf_strided`` on the CPU give
@@ -37,7 +42,15 @@ import pytest
 import torch
 
 from test_torch_gbuffer import assert_gbuffer_close, lit_setup, plain_gbuffer
-from test_torch_raster import CASES, _setup
+from test_torch_raster import (
+    CASES,
+    PAD_GEOM_H,
+    PADDED,
+    _padded_setup,
+    _setup,
+    longest_list,
+    one_tile_soup,
+)
 from zrenderer_tpu.engine.config import RenderConfig as JaxConfig
 from zrenderer_tpu.engine.renderer import Renderer as JaxRenderer
 from zrenderer_tpu.ops import geometry as g
@@ -121,6 +134,33 @@ def test_plain_depth_equals_flat_planes_and_oracle(case, kind):
         np.testing.assert_array_equal(depth, flat(T(ti), T(tf), w, h)[1])
     np.testing.assert_array_equal(depth,
                                   raster_cpu.rasterize_setup(ti, tf, w, h)[1])
+
+
+@pytest.mark.parametrize("name", list(PADDED))
+def test_depth_padding_rows_match_pallas_interpret(name):
+    """Rows 56-63 of the 256x64 map, below geometry at 256x56: plain K2d
+    draws the pixels the reference's whole-tile evaluation draws."""
+    ti, tf, w, h = _padded_setup(name)
+    depth = plain_depth("k2d", ti, tf, w, h)[PAD_GEOM_H:]
+    ref = np.asarray(rp.rasterize_depth_pallas_small(
+        jnp.asarray(ti), jnp.asarray(tf), w, h,
+        interpret=True))[PAD_GEOM_H:]
+    assert (depth < 1.0).sum() > 0
+    np.testing.assert_array_equal(depth < 1.0, ref < 1.0)
+    np.testing.assert_allclose(depth, ref, rtol=0, atol=2e-6)
+
+
+def test_depth_long_tile_list_matches_oracle():
+    """A tile list of more than 900 rows (K2d's staging: many chunks a
+    block): plain K2d against the oracle's depth and plain K1's."""
+    ti, tf = one_tile_soup(seed=1)
+    assert longest_list(ti, tf, 128, 32) >= 900
+    depth = plain_depth("k2d", ti, tf, 128, 32)
+    assert (depth < 1.0).mean() > 0.5
+    np.testing.assert_array_equal(
+        depth, raster_cpu.rasterize_setup(ti, tf, 128, 32)[1])
+    np.testing.assert_array_equal(
+        depth, FLAT["k1"](T(ti), T(tf), 128, 32)[1])
 
 
 def test_edge_clamped_rows_list_nothing_outside_the_map():

@@ -104,6 +104,40 @@ __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
   return (uint32_t)(int)floorf(__fadd_rn(__fmul_rn(c, 255.0f), 0.5f));
 }
 
+// RGBA8 of the colour numerators (cr, cg, cb) times inv where covered,
+// alpha 255.
+__device__ __forceinline__ uint32_t pack_rgba(float cr, float cg, float cb,
+                                              bool covered, float inv) {
+  return quantize(cr, covered, inv) | (quantize(cg, covered, inv) << 8) |
+         (quantize(cb, covered, inv) << 16) | 0xFF000000u;
+}
+
+// Exclusive prefix of v over the block's NWARPS warps of 32 threads;
+// total gets the sum.  Every thread calls it.
+template <int NWARPS = THREADS / 32>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
+                                                    int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < NWARPS; ++w) {
+    const int c = warp_sums[w];
+    before += w < warp ? c : 0;
+    sum += c;
+  }
+  __syncthreads();
+  total = sum;
+  return before + x - v;
+}
+
 // The winner resolve of one pixel, shared by TileState::resolve (the
 // register bodies' epilogue) and the keyed body's store (raster_keyed.cuh
 // WinnerKeys): row t of ti/tf (strides RI and RF; INT_MAX32 where no row
@@ -160,10 +194,7 @@ __device__ __forceinline__ void resolve_winner(
   }
   const bool covered = d > 0.0f;
   const float inv = covered ? __fdiv_rn(1.0f, d) : 1.0f;
-  const uint32_t packed = quantize(cr, covered, inv) |
-                          (quantize(cg, covered, inv) << 8) |
-                          (quantize(cb, covered, inv) << 16) | 0xFF000000u;
-  color[idx] = (int)packed;
+  color[idx] = (int)pack_rgba(cr, cg, cb, covered, inv);
   depth[idx] = z;
   if constexpr (PLANES) {
 #pragma unroll
@@ -398,12 +429,8 @@ struct TileState {
     for (int k = 0; k < NPIX; ++k) {
       const bool covered = den[k] > 0.0f;
       const float inv = covered ? __fdiv_rn(1.0f, den[k]) : 1.0f;
-      const uint32_t packed = quantize(nr[k], covered, inv) |
-                              (quantize(ng[k], covered, inv) << 8) |
-                              (quantize(nb[k], covered, inv) << 16) |
-                              0xFF000000u;
       const size_t idx = (size_t)(rbase + k * ROW_STEP) * width + col;
-      color[idx] = (int)packed;
+      color[idx] = (int)pack_rgba(nr[k], ng[k], nb[k], covered, inv);
       depth[idx] = z[k];
     }
   }

@@ -164,31 +164,6 @@ struct KeyedSmem {
   unsigned hits[HIT_WORDS];
 };
 
-// Exclusive prefix of v over the block's threads; total gets the sum.
-// Every thread calls it.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
-                                                    int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  int before = 0, sum = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const int c = warp_sums[w];
-    before += w < warp ? c : 0;
-    sum += c;
-  }
-  __syncthreads();
-  total = sum;
-  return before + x - v;
-}
-
 // Batch column j from setup row r (NI32 ints) and its z coefficients zc:
 // the window (the vertices' pixel bbox in the tile), the edge values at
 // its origin and their steps.  Returns the window's area (0: empty).

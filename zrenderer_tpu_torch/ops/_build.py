@@ -156,6 +156,14 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_lists.restype = i
     lib.zr_depth_small.argtypes = [p, p, i, p, i, p, p, p, p, i, i, p]
     lib.zr_depth_small.restype = i
+    lib.zr_small_blocks_per_tile.argtypes = []
+    lib.zr_small_blocks_per_tile.restype = i
+    lib.zr_raster_small_blocks.argtypes = [i, p, p, i, p, i, p, p, p, p, p,
+                                           i, i, p]
+    lib.zr_raster_small_blocks.restype = i
+    lib.zr_depth_small_blocks.argtypes = [i, p, p, i, p, i, p, p, p, p, i, i,
+                                          p]
+    lib.zr_depth_small_blocks.restype = i
     lib.zr_depth_hier.argtypes = [p, i, p, p, p, i, p, p, p, i, i, p]
     lib.zr_depth_hier.restype = i
     lib.zr_depth_records_keyed.argtypes = [p, p, p, p, i, p, p, p, i, i, i, p,

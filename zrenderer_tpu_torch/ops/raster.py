@@ -132,8 +132,9 @@ from zrenderer_tpu_torch.ops import geometry as tg
 TILE_H = 32
 TILE_W = 128
 
-# Head-row bound of the sort-free small-scene lists (K1), as in the
-# reference's SMALL_BIN_MAX_ROWS; also the kernel's shared-memory list size.
+# Head-row bound of the sort-free small-scene lists (K1, K2g, K2d), as in
+# the reference's SMALL_BIN_MAX_ROWS; also the kernels' shared-memory list
+# size.
 SMALL_BIN_MAX_ROWS = 1024
 
 # The reference's VMEM_RESIDENT_MAX_TRIS: the dispatch sends frames with

@@ -1,18 +1,21 @@
 """Procedural scenes of the port: the cube-lattice stress scene and the
 random triangle soup, which ``chip_smoke.py`` drives through K3 and
-through the clipper.
+through the clipper; and ``one_tile_rows``, setup rows that crowd one
+tile's list (K1's and K2d's staging, ``chip_smoke.py`` and the tests).
 
-Copied from ``zrenderer_tpu/scene/procedural.py`` (only these fixtures) so
-the port and ``chip_smoke.py`` build them without the JAX package;
-``tests/test_torch_host.py`` holds each equal to the reference's.  Random
-draws come from ``numpy.random.default_rng(seed)``.
+The scenes are copied from ``zrenderer_tpu/scene/procedural.py`` (only
+these fixtures) so the port and ``chip_smoke.py`` build them without the
+JAX package; ``tests/test_torch_host.py`` holds each equal to the
+reference's.  Random draws come from ``numpy.random.default_rng(seed)``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from zrenderer_tpu_torch.math import zmath as zm
+from zrenderer_tpu_torch.ops import geometry as tg
 from zrenderer_tpu_torch.scene.mesh import MeshData, make_vertex
 from zrenderer_tpu_torch.scene.scene import Camera, Mobility, Node, Scene
 
@@ -198,3 +201,27 @@ def make_triangle_soup(
         )
     )
     return scene, mesh_data
+
+
+def one_tile_rows(n: int = 1000, w: int = 128, h: int = 32, seed: int = 0,
+                  device="cpu") -> tuple:
+    """Setup rows (tri_i32, tri_f32) of n small front-facing triangles
+    inside a (w, h) target through the identity matrix: at 128x32 one
+    tile whose list holds most of them (n <= SMALL_BIN_MAX_ROWS head
+    rows)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-0.9, 0.9, (n, 1, 2))
+    ang = np.sort(rng.uniform(0.0, 2.0 * np.pi, (n, 3)), axis=1)
+    r = rng.uniform(0.05, 0.3, (n, 1, 1))
+    pos = np.zeros((n * 3, 4), np.float32)
+    pos[:, :2] = (c + r * np.stack([np.cos(ang), np.sin(ang)],
+                                   -1)).reshape(-1, 2)
+    pos[:, 2] = np.repeat(rng.uniform(0.1, 0.9, n), 3)
+    pos[:, 3] = 1.0
+    attrs = rng.random((n * 3, 12), dtype=np.float32)
+    attrs[:, 3] = 1.0
+    return tg.geometry_pipeline(
+        torch.from_numpy(pos).to(device), torch.from_numpy(attrs).to(device),
+        torch.arange(n * 3, dtype=torch.int32, device=device).reshape(n, 3),
+        torch.eye(4, device=device)[None],
+        torch.zeros(n * 3, dtype=torch.int32, device=device), w, h)
