@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Same-call A/B of the raster kernels K1, K2g, K2d, K3, K3b, K3g, K3d, K4,
-K4c, K4g, K4d, K5, K5g, K6, K6g, K6d, K9 and K9d and the tiled light kernel
-K7, and of the frames whose pace they set, between this tree and another
-checkout (for example a parent commit unpacked with ``git archive``) on
-one CUDA card; or, with ``--sweep``, this tree's K5 and K5g on the 1M
-lattice at each work-item count of SWEEP_ITEMS, K6, K6g, K6d and K9d at
-each item size of SWEEP_RECORDS and halved toward each item count of
+K4c, K4g, K4d, K5, K5g, K6, K6g, K6d, K9 and K9d, the two-class
+experiments K10hbm2 and K10scan, and the tiled light kernel K7, and of the
+frames whose pace they set, between this tree and another checkout (for
+example a parent commit unpacked with ``git archive``) on one CUDA card;
+or, with ``--sweep``, this tree's K5 and K5g on the 1M lattice at each
+work-item count of SWEEP_ITEMS, K10hbm2 and K10scan at each count of
+SWEEP_TWOCLASS_ITEMS (``twoclass_sweep``), K6, K6g, K6d and K9d at each
+item size of SWEEP_RECORDS and halved toward each item count of
 SWEEP_MIN_ITEMS (``record_sweep``), and K1 and K2d at each count of
 SWEEP_SMALL_BLOCKS blocks a tile (``small_sweep``).
 
@@ -30,7 +32,8 @@ same map's ``tile_lists`` inputs, K9d on band 0 of the 40K lattice's 2
 ``dist`` bands at 1920x544 (each shard's slabs through the in-turn
 all-to-all, ``tiles.dist_exchange``, then the owner's prepare), K5 on the
 flat 40K and 1M lattices' and the 1M lattice's shadow map's hierarchy
-inputs, K4 on the flat and K4g on the lit 1M lattice's inputs (``auto``),
+inputs, K10hbm2 and K10scan on the flat 1M lattice's rows (their own
+prepares), K4 on the flat and K4g on the lit 1M lattice's inputs (``auto``),
 K9 on band 0 of the flat 1M lattice's 2 bands at 1920x544 (the rows
 gathered from 2 shards, the band-local prepare, as ``tiles.band_raster``
 makes it), K4c on the 1M soup's ``tile_lists`` inputs (the coarse class),
@@ -65,8 +68,10 @@ import sys
 import chip_smoke as cs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# Work items a tile that ``--sweep`` times K5 and K5g at.
+# Work items a tile that ``--sweep`` times K5 and K5g at, and K10hbm2 and
+# K10scan.
 SWEEP_ITEMS = (1, 4, 8, 16, 32, 64)
+SWEEP_TWOCLASS_ITEMS = (1, 4, 8, 16, 32)
 # Records an item that ``--sweep`` times K6, K6g, K6d and K9d at, never
 # halved, and
 # the items their 256 records are halved to aim at.
@@ -271,6 +276,46 @@ def record_sweep() -> dict:
     return out
 
 
+def twoclass_cases(rows, height):
+    """K10hbm2's and K10scan's (kernel, prepared inputs) on ``rows``."""
+    from zrenderer_tpu_torch.ops.experiments import (raster_hbm2,
+                                                     raster_scanline)
+
+    return {"k10hbm2": (raster_hbm2.raster_hbm2_kernel,
+                        raster_hbm2.prepare_raster_inputs_2class(*rows)),
+            "k10scan": (raster_scanline.raster_scanline_kernel,
+                        raster_scanline.prepare_scanline_inputs(*rows,
+                                                                height))}
+
+
+def twoclass_sweep(rows=None) -> dict:
+    """K10hbm2 and K10scan on the flat 1M lattice's rows (``rows``, or
+    the renderer's) at each work-item count of SWEEP_TWOCLASS_ITEMS (ms a
+    call, CUDA events), every count's planes equal."""
+    from zrenderer_tpu_torch.ops.experiments import raster_hbm2
+    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+
+    w, h = cs.PAD_W, cs.PAD_H
+    if rows is None:
+        rows = cs.frame_rows(renderer(make_stress_scene(cs.LARGE_TRIS)))
+    out = {}
+    saved = raster_hbm2.TWOCLASS_ITEMS
+    try:
+        for key, (kern, prep) in twoclass_cases(rows, h).items():
+            out[key], ref = {}, None
+            for n in SWEEP_TWOCLASS_ITEMS:
+                raster_hbm2.TWOCLASS_ITEMS = n
+                out[key][n] = event_ms(lambda: kern(*prep, w, h), 10)
+                d = digest(*kern(*prep, w, h))
+                if ref is not None and d != ref:
+                    raise AssertionError(f"{key}: {n} items a tile changed "
+                                         "the planes")
+                ref = d
+    finally:
+        raster_hbm2.TWOCLASS_ITEMS = saved
+    return out
+
+
 def sweep() -> dict:
     """K5 on the flat and K5g on the lit 1M lattice's hierarchy inputs at
     each item count of SWEEP_ITEMS (ms a call, CUDA events), every count's
@@ -282,8 +327,10 @@ def sweep() -> dict:
     lattice = make_stress_scene(cs.LARGE_TRIS)
     out = {"root": imported_root(), "k5": {}, "k5g": {}}
     r = renderer(lattice)
-    flat = raster.prepare_raster_inputs(*cs.frame_rows(r))
-    del r
+    rows = cs.frame_rows(r)
+    flat = raster.prepare_raster_inputs(*rows)
+    out["twoclass"] = twoclass_sweep(rows)
+    del r, rows
     r = renderer(lattice, pipeline="lit")
     r.set_environment(texture=cs.checker_texture())
     lit = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
@@ -342,8 +389,8 @@ def measure(small=False) -> dict:
     out = {"root": imported_root(), "k1": {}, "k2g": {}, "k2d": {},
            "k3": {}, "k3b": {}, "k3g": {}, "k3d": {}, "k4": {}, "k4c": {},
            "k4d": {}, "k4g": {}, "k5": {}, "k5g": {}, "k6": {}, "k6g": {},
-           "k6d": {}, "k7": {}, "k9": {}, "k9d": {}, "frames": {},
-           "busy": {}, "digests": {}}
+           "k6d": {}, "k7": {}, "k9": {}, "k9d": {}, "k10hbm2": {},
+           "k10scan": {}, "frames": {}, "busy": {}, "digests": {}}
     # The test scene: K1 on the flat frame's inputs, K2g on the lit
     # frame's, K2d on the shadowed frame's map; the flat and the shadowed
     # frames.
@@ -495,6 +542,9 @@ def measure(small=False) -> dict:
     prep = raster.prepare_raster_inputs(*rows)
     out["k5"]["lattice1M"] = event_ms(lambda: k5(*prep, w, h), 5)
     out["digests"]["k5 lattice1M"] = digest(*k5(*prep, w, h))
+    for key, (kern, prep) in twoclass_cases(rows, h).items():
+        out[key]["lattice1M"] = event_ms(lambda: kern(*prep, w, h), 5)
+        out["digests"][f"{key} lattice1M"] = digest(*kern(*prep, w, h))
     del rows, prep
     frame_1m(r, "lattice1M")
     args = indexed_args(r, h2)
@@ -595,7 +645,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's K5 and K5g at each item count "
-                    "of SWEEP_ITEMS, K6, K6g, K6d and K9d at each item "
+                    "of SWEEP_ITEMS, K10hbm2 and K10scan at each of "
+                    "SWEEP_TWOCLASS_ITEMS, K6, K6g, K6d and K9d at each item "
                     "size of SWEEP_RECORDS and SWEEP_MIN_ITEMS, and K1 and "
                     "K2d at each count of SWEEP_SMALL_BLOCKS, instead")
     ap.add_argument("--small", action="store_true",
@@ -644,7 +695,8 @@ def main(argv=None) -> int:
     print("every run gave the same "
           + ("K1, K2g, K2d and frame" if args.small else
              "K1, K2g, K2d, K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, K5, K5g, "
-             "K6, K6g, K6d, K7, K9, K9d and frame") + " planes")
+             "K6, K6g, K6d, K7, K9, K9d, K10hbm2, K10scan and frame")
+          + " planes")
     return 0
 
 

@@ -231,8 +231,10 @@ lines and seconds:
     (``resolve_flat_vis``, torch ops) traced once;
 6h. the two-class experiments' traces, before phase 6's untraced loops
     too: K10hbm2 and K10scan on the 1M lattice at 1920x1088 (five launches
-    each) and each entry point traced once (device ops, busy ms, idle
-    share);
+    each; a call is the sum of its device ops, the hit words of both
+    views, the key plane's memset, the work items and the resolve, whose
+    count is printed and checked) and each entry point traced once (device
+    ops, busy ms, idle share);
 6. timing, traces first: each kernel's device time from a torch.profiler
    trace at its main-path shape (K4, K4c, K4g, K4d, K6, K6g, K6d, K9 and
    K9d: the sum of a call's three device operations, the memset, the item
@@ -294,7 +296,9 @@ lines and seconds:
     56-63 printed), the reference test's cross-class exact tie (the tall
     row wins), its z == 1.0 case (one pixel latched that K5 leaves clear),
     its short row at z == -0.0 (K10hbm2 keeps -0.0 as K5 does, K10scan
-    stores +0.0) and an empty scene;
+    stores +0.0) and an empty scene, at hbm2.TWOCLASS_ITEMS work items a
+    tile; then the stress mix, the duplicated soup and the 40K lattice at
+    1 and 64 items a tile;
 5h. the two entry points once each on the 1M lattice at 1920x1088,
     launch counts set to 0 just before and read just after (one launch
     each), rows 0-1079 equal to K5's frame (RGBA and depth bits) but for
@@ -303,9 +307,12 @@ lines and seconds:
     then each kernel against its plain version on one 1M prepare, all
     1088 rows, unless its 40K time scaled to 1M rows exceeds 60 s;
 6h (untraced). the launchers and the prepares between CUDA events at 1M,
-    and the bounds: each (tile, row) pair's bbox pixels in the tile, or in
-    the tiles of the padding rows the kernel's own extent (the tile for a
-    tall row, K10hbm2's 8-row window), x OPS_PER_EVAL; then where
+    and the bounds: each (tile, row) pair's window pixels (its vertices'
+    bbox in the tile within the kernel's extent: the tile for a tall row,
+    K10hbm2's 8-row window; a K10scan record's rectangle) x OPS_PER_EVAL,
+    or the bytes the keyed body needs (tables, admitted rows and records,
+    winning rows, two planes); ptxas's registers, spills and shared memory
+    of each kernel's item, resolve and hit-word kernels; then where
     the time goes: each kernel with one view's superblocks emptied (each
     pass alone), and K5 over the same padded rows compacted and not;
 7. the app CLI writing PNGs: the test scene flat, shadowed, deferred and
@@ -433,6 +440,7 @@ OPS_PER_LIGHT = {}  # "k7", "k7_bf16": set by phase 2
 # kernel entry (its mangled name) from ptxas -v: set by phase 2.
 PTXAS_REGISTERS = {}
 PTXAS_SMEM = {}
+PTXAS_SPILLS = {}  # bytes of spill stores
 # K8, csrc/overlay.cu's triangle loop: every (pixel, triangle) of a listed
 # (tile, triangle) pair costs 3 edge functions (5 int ops each), 3 bias and
 # 4 rect compares and 6 ands (28); a covered pixel with a free slot adds 3
@@ -535,7 +543,8 @@ def light_loop_ops(sass: str, prefix: str):
 
 
 def ptxas_entry(name, table, blocks=None):
-    """``table``'s value (PTXAS_REGISTERS or PTXAS_SMEM) for the kernel
+    """``table``'s value (PTXAS_REGISTERS, PTXAS_SMEM or PTXAS_SPILLS) for
+    the kernel
     ``name`` in namespace zr, or for its instantiation at ``blocks``
     blocks a tile (K1's and K2d's template argument); None when phase 2
     reused an earlier build and printed no log."""
@@ -1435,6 +1444,9 @@ def main(argv=None) -> int:
                 print(f"  ptxas: {line.strip()}")
             m = re.search(r"Compiling entry function '(\w+)'", line)
             entry = m.group(1) if m else entry
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and entry:
+                PTXAS_SPILLS[entry] = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and entry:
                 PTXAS_REGISTERS[entry] = int(m.group(1))
@@ -1485,6 +1497,13 @@ def main(argv=None) -> int:
               "depth_hier_keyed_kernel, raster_hbm_keyed_kernel, "
               f"gbuffer_hbm_keyed_kernel; {raster.HIER_ITEMS} work item(s) "
               "a tile; hier_hit_words_kernel and the resolve kernels none)")
+        for key in ("k10hbm2", "k10scan"):
+            results[key]["smem_bytes"] = smem
+        print(f"  K10hbm2/K10scan keyed body: {smem} bytes of dynamic shared "
+              "memory a block (raster_hbm2_keyed_kernel, "
+              f"raster_scan_keyed_kernel; {hbm2.TWOCLASS_ITEMS} work "
+              "item(s) a tile; twoclass_hit_words_kernel and the resolve "
+              "kernels none)")
         return info.seconds
 
     # -- 3. K1 vs plain ---------------------------------------------------
@@ -3258,8 +3277,8 @@ def main(argv=None) -> int:
                     "k10vecg": "gbuffer_vec_kernel",
                     "k10vis": "raster_vis_kernel",
                     "k10trans": "raster_trans_kernel",
-                    "k10hbm2": "raster_hbm2_kernel",
-                    "k10scan": "raster_scan_kernel"}
+                    "k10hbm2": "raster_hbm2_keyed_kernel",
+                    "k10scan": "raster_scan_keyed_kernel"}
     # K4, K4c, K4g, K4d, K6, K6g, K6d, K9 and K9d make three device
     # operations a call: the key plane's memset, the item kernel
     # (kernel_names) and the resolve kernel.
@@ -3281,17 +3300,26 @@ def main(argv=None) -> int:
                           "k3d": "depth_hier_resolve_kernel",
                           "k5": "raster_hbm_resolve_kernel",
                           "k5g": "gbuffer_hbm_resolve_kernel"}
+    # K10hbm2 and K10scan likewise, with hbm2.TWOCLASS_ITEMS.
+    twoclass_resolve_names = {"k10hbm2": "raster_hbm2_resolve_kernel",
+                              "k10scan": "raster_scan_resolve_kernel"}
     # The hierarchy kernels first write the tiles' hit words: one more
-    # device operation a call, before the others.
+    # device operation a call, before the others (the two-class kernels
+    # both views' in one launch).
     HIT_WORDS_KERNEL = "hier_hit_words_kernel"
+    TWOCLASS_HIT_WORDS_KERNEL = "twoclass_hit_words_kernel"
     port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
-                    | set(hier_resolve_names.values()) | {HIT_WORDS_KERNEL})
+                    | set(hier_resolve_names.values())
+                    | set(twoclass_resolve_names.values())
+                    | {HIT_WORDS_KERNEL, TWOCLASS_HIT_WORDS_KERNEL})
 
     def resolve_of(key):
         """The resolve kernel of a call of kernel ``key``, or None for a
         call without one."""
         if key in hier_resolve_names and raster.HIER_ITEMS > 1:
             return hier_resolve_names[key]
+        if key in twoclass_resolve_names and hbm2.TWOCLASS_ITEMS > 1:
+            return twoclass_resolve_names[key]
         return resolve_names.get(key)
 
     def call_ops(key):
@@ -3299,7 +3327,9 @@ def main(argv=None) -> int:
         the hierarchy kernels' hit words, the key plane's memset where a
         resolve follows, the item kernel (kernel_names), the resolve."""
         resolve = resolve_of(key)
-        ops = [HIT_WORDS_KERNEL] if key in hier_resolve_names else []
+        ops = ([HIT_WORDS_KERNEL] if key in hier_resolve_names
+               else [TWOCLASS_HIT_WORDS_KERNEL]
+               if key in twoclass_resolve_names else [])
         ops += ["Memset"] if resolve else []
         return ops + [kernel_names[key]] + ([resolve] if resolve else [])
 
@@ -3309,7 +3339,8 @@ def main(argv=None) -> int:
         kernel alone; for K4/K4c/K4g/K4d/K6/K6g/K6d/K9/K9d, the memset, the
         item kernel and the resolve kernel; for K3/K3b/K3g/K3d/K5/K5g the hit
         words' kernel, then the item kernel between the memset and the
-        resolve with several items a tile).  A call without all of them
+        resolve with several items a tile; for K10hbm2 and K10scan the
+        same with their own hit words' kernel).  A call without all of them
         counts as no call, so the trace reads short."""
         ops = call_ops(key)
         if len(ops) == 1:
@@ -4473,17 +4504,28 @@ def main(argv=None) -> int:
 
     @phase("6h K10hbm2/K10scan traces")
     def twoclass_traces():
-        """Each kernel's device time from a trace at 1M (five launches) and
-        each entry point traced once (device ops, busy, idle share).
-        Returns the 1M prepares."""
+        """Each kernel's device time from a trace at 1M (five launches: a
+        call is the sum of its device ops, ``call_ops``, whose count the
+        trace must hold) and each entry point traced once (device ops,
+        busy, idle share).  Returns the 1M prepares."""
         ti, tf = rows_1m
         w, h = PAD_W, PAD_H
         preps = {}
         for key, (kern, _, fn, prepare) in th_cases.items():
             args = preps[key] = prepare(ti, tf, h)
-            _, _, ms = traced_kernel_ms(
-                (key,), lambda: [kern(*args, w, h) for _ in range(5)])
+            reps = 5
+            events, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*args, w, h) for _ in range(reps)])
             results[key]["ms"] = ms[key]
+            ops = call_ops(key)
+            results[key]["device_ops_per_call"] = len(ops)
+            names = sorted({n.split("(")[0] for n, _, _ in events})
+            print(f"  {key}: {len(events)} device ops for {reps} calls in "
+                  f"its trace ({len(ops)} a call: {', '.join(ops)}): "
+                  f"{names}; {ms[key]:.4f} ms a call (their sum)")
+            if len(events) != len(ops) * reps:
+                raise AssertionError(f"{key}: {len(events)} device ops for "
+                                     f"{reps} calls, not {len(ops)} a call")
             events, window, kms = traced_kernel_ms((key,),
                                                    lambda: fn(ti, tf, w, h))
             busy = busy_us(events)
@@ -5357,6 +5399,9 @@ def main(argv=None) -> int:
             print(f"  padded soup ({key}): rows 56-63: {drawn} pixels drawn,"
                   f" {other} differ from K5's, K5 "
                   f"{int((d5[pad] < 1.0).sum().item())}")
+            if drawn != {"k10hbm2": 246, "k10scan": 36}[key]:
+                raise AssertionError(f"padded soup: {key} drew {drawn} "
+                                     "pixels in rows 56-63")
             c, d, _, _, _ = th_check(key, "cross-class exact tie", tie, 128,
                                      32, 32)
             red = -(1 << 24) | 255
@@ -5379,6 +5424,21 @@ def main(argv=None) -> int:
                                 PAD_H, empty=True)
             if not bool((c == -(1 << 24)).all().item()):
                 raise AssertionError(f"empty scene: {key} drew something")
+        # One work item a tile (resolved in place) and 64 (a tile's rows
+        # spread thin, ties split across items).
+        saved = hbm2.TWOCLASS_ITEMS
+        try:
+            for n in (1, 64):
+                hbm2.TWOCLASS_ITEMS = n
+                for key in th_cases:
+                    th_check(key, f"stress mix, {n} item(s) a tile", stress,
+                             256, 64, 64)
+                    th_check(key, f"duplicated triangles, {n} item(s) a "
+                             "tile", dup, w, h, h)
+                    th_check(key, f"lattice40k, {n} item(s) a tile", rows40,
+                             PAD_W, PAD_H, HEIGHT)
+        finally:
+            hbm2.TWOCLASS_ITEMS = saved
         print("  every exact depth tie went to the first-submitted row "
               "(K10hbm2, K10scan)")
 
@@ -5456,43 +5516,69 @@ def main(argv=None) -> int:
               f"{ {k: counts[k] for k in th_cases} }")
 
     # -- 6h (untraced). launcher and prepare times; bounds --------------------
-    def twoclass_work(key, args, w, h, visible):
-        """The (pixel, row) evaluations that kernel ``key``'s frame needs on
-        ``args``: (tall (tile, row) pairs, short pairs, the tall pairs'
-        evaluations, the short pairs').  Inside rows [0, visible) a row
-        covers no pixel outside its bbox, so a pair there needs the bbox's
-        pixels in the tile.  In a tile that reaches the padding rows the
-        kernel's own extent decides the frame, so there a tall pair needs
-        the whole tile (4096) and a K10hbm2 short pair its 8-row window
-        (1024).  A K10scan short pair needs its record's rows imin..imin +
-        min(h, P - 1) and columns jmin..jmax in the tile in every tile: that
-        is its extent.  (The frame's width is a multiple of TILE_W.)"""
+    def twoclass_work(key, args, w, h):
+        """The work kernel ``key``'s keyed body needs on ``args``: (tall
+        (tile, row) pairs, short pairs, the tall pairs' window pixel
+        evaluations, the short pairs', bytes needed, distinct winning
+        rows).  A pair's window is its row's vertices' pixel bbox in the
+        tile within the kernel's extent (``hbm2.window_rects``: the tile
+        for a tall row, the 8 tile rows of a K10hbm2 short row), a K10scan
+        record's rectangle in the tile (inside its bbox): inside the
+        geometry's rows it holds every pixel the row covers, in the
+        padding rows the kernel's own extent.  The bytes: the four tables,
+        each admitted row's NI32 ints and 3 z floats once (a K10scan
+        record's lanes up to its id and 3 z floats), each distinct winning
+        row's WINNER_BYTES (the plain version's key plane) and the two
+        planes."""
         supers_s, blocks_s, short_rows, supers_t, blocks_t, ti_t, _ = args
         box = [tg.I_JMIN, tg.I_JMAX, tg.I_IMIN, tg.I_IMAX]
 
-        def evals(rect, blocks, supers, padded_extent):
-            rec, ty, tx = hbm2.rect_pairs(rect, blocks, supers, w, h)
-            return rec.numel(), window_evals(rect[rec], ty, tx, visible,
-                                             padded_extent)
+        def area(rect):
+            return int(((rect[:, 1] - rect[:, 0] + 1).clamp(min=0)
+                        * (rect[:, 3] - rect[:, 2] + 1).clamp(min=0))
+                       .sum().item())
 
-        tall, tall_evals = evals(ti_t[:, box], blocks_t, supers_t,
-                                 raster.TILE_H * raster.TILE_W)
+        rows_t, ty, tx = hbm2.rect_pairs(ti_t[:, box], blocks_t, supers_t, w,
+                                         h)
+        tall_evals = area(hbm2.window_rects(ti_t, rows_t, ty, tx, False))
+        row_bytes = tg.NI32 * 4 + 12
         if key == "k10hbm2":
-            short, short_evals = evals(short_rows[:, box], blocks_s, supers_s,
-                                       raster.SHORT_ROWS * raster.TILE_W)
+            rows_s, ty, tx = hbm2.rect_pairs(short_rows[:, box], blocks_s,
+                                             supers_s, w, h)
+            short_evals = area(hbm2.window_rects(short_rows, rows_s, ty, tx,
+                                                 True))
+            short_bytes = torch.unique(rows_s).numel() * row_bytes
+            keys = hbm2.hbm2_keys(*args, w, h)
         else:
-            short, short_evals = evals(
-                scanline.record_rects(blocks_s, short_rows), blocks_s,
-                supers_s, None)
-        return tall, short, tall_evals, short_evals
+            rect = scanline.record_rects(blocks_s, short_rows)
+            rows_s, ty, tx = hbm2.rect_pairs(rect, blocks_s, supers_s, w, h)
+            r0, c0 = ty * raster.TILE_H, tx * raster.TILE_W
+            r = rect[rows_s]
+            short_evals = area(torch.stack([
+                torch.maximum(r[:, 0], c0),
+                torch.minimum(r[:, 1], c0 + raster.TILE_W - 1),
+                torch.maximum(r[:, 2], r0),
+                torch.minimum(r[:, 3], r0 + raster.TILE_H - 1)], 1))
+            short_bytes = (torch.unique(rows_s).numel()
+                           * ((scanline.WL_IDF + 1) * 4 + 12))
+            keys = scanline.scanline_keys(*args, w, h)
+        won = keys != hbm2.KEY_CLEAR
+        winners = int(torch.unique(keys[won] & 0xFFFFFFFF).numel())
+        nbytes = (sum(t.numel() * t.element_size()
+                      for t in (supers_s, blocks_s, supers_t, blocks_t))
+                  + torch.unique(rows_t).numel() * row_bytes + short_bytes
+                  + winners * WINNER_BYTES + 2 * 4 * w * h)
+        return (rows_t.numel(), rows_s.numel(), tall_evals, short_evals,
+                nbytes, winners)
 
     @phase("6h K10hbm2/K10scan untraced times and bounds")
     def twoclass_timing():
         """The launchers and the prepares between CUDA events at 1M, and
-        the bounds: the evaluations each kernel's frame needs
-        (``twoclass_work``: each row's bbox in each tile it reaches, the
-        kernel's extent in the tiles of the padding rows) x OPS_PER_EVAL,
-        or the inputs and the two planes' bytes."""
+        the bounds: the window pixel evaluations each kernel needs
+        (``twoclass_work``) x OPS_PER_EVAL, or the bytes its keyed body
+        needs (every input read once and the two planes kept as
+        bound_ms_inputs); ptxas's registers, spills and shared memory of
+        its three kernels."""
         ti, tf = rows_1m
         w, h = PAD_W, PAD_H
         for key, (kern, _, _, prepare) in th_cases.items():
@@ -5500,24 +5586,37 @@ def main(argv=None) -> int:
             res = results[key]
             res["wrapper_ms"] = event_ms(lambda: kern(*args, w, h), 5)
             res["prepare_ms"] = event_ms(lambda: prepare(ti, tf, h), 5)
-            tall, short, tall_evals, short_evals = twoclass_work(
-                key, args, w, h, HEIGHT)
+            tall, short, tall_evals, short_evals, nbytes, winners = (
+                twoclass_work(key, args, w, h))
             evals = tall_evals + short_evals
-            nbytes = (sum(t.numel() * t.element_size() for t in args)
-                      + 2 * 4 * w * h)
+            all_bytes = (sum(t.numel() * t.element_size() for t in args)
+                         + 2 * 4 * w * h)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_all = all_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = evals * OPS_PER_EVAL / CUDA_CORE_OPS_PER_S * 1e3
             res.update(tall_pairs=tall, short_pairs=short,
                        tall_evals=tall_evals, short_evals=short_evals,
-                       evals=evals,
+                       evals=evals, bytes=nbytes,
+                       bound_ms_inputs=max(t_all, t_ops),
                        bound_ms=max(t_bytes, t_ops), shape="lattice1M",
                        bound_by="bytes" if t_bytes >= t_ops
                        else "operations")
+            names = (kernel_names[key], twoclass_resolve_names[key],
+                     TWOCLASS_HIT_WORDS_KERNEL)
+            res["registers"] = ptxas_entry(names[0], PTXAS_REGISTERS)
+            print(f"  {key} ptxas: " + "; ".join(
+                f"{n} {ptxas_entry(n, PTXAS_REGISTERS)} registers, "
+                f"{ptxas_entry(n, PTXAS_SPILLS)} bytes spilled, "
+                f"{ptxas_entry(n, PTXAS_SMEM)} bytes of static shared "
+                "memory" for n in names)
+                  + f"; {res.get('smem_bytes')} bytes of dynamic shared "
+                  "memory an item")
             print(f"  {key} lattice1M {w}x{h}: {tall} tall (tile, row) "
-                  f"pairs, {short} short; (pixel, row) evaluations the "
-                  f"frame needs: {tall_evals} tall, {short_evals} short, "
-                  f"{evals} in all "
-                  f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms; "
+                  f"pairs, {short} short; window pixel evaluations: "
+                  f"{tall_evals} tall, {short_evals} short, {evals} in all "
+                  f"-> {t_ops:.4f} ms; {nbytes} bytes needed ({winners} "
+                  f"winning rows) -> {t_bytes:.4f} ms (every input once "
+                  f"{all_bytes} bytes, {t_all:.4f} ms); "
                   f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}; "
                   f"kernel {res['ms']:.4f} ms device time (profiler; "
                   f"{res['anim_ms']:.4f} ms in the traced entry point), "

@@ -14,6 +14,10 @@ oracle, given shared setup rows.
   K10hbm2 246 (59 of them differ from K5).
 * A cross-class exact depth tie goes to the lower row id; a pixel whose
   least z is exactly 1.0 is latched, where K5 leaves it clear.
+* The CUDA kernel's window rule (``raster_hbm2.window_rects``: each
+  admitted row's vertices' pixel bbox in the tile, a short row's within
+  its 8-row extent) gives the plain version's key plane, padding rows
+  included; the tall extent in place of the short one would not.
 
 The CUDA kernel is held against the plain version on the card by
 chip_smoke.py; here its wrapper must refuse CPU tensors.
@@ -215,3 +219,75 @@ def test_constants_match_reference():
     assert tr.SHORT_ROWS == rp.SHORT_ROWS
     assert h2.KEY_CLEAR >> 32 == np.float32(1.0).view(np.int32)
     assert h2.KEY_CLEAR & 0xFFFFFFFF == int(rp._INT_MAX)
+
+
+def view_window_min(keys, ti, tf, blocks, supers, w, h, short):
+    """``raster_hbm2.view_min`` as the CUDA kernels evaluate a view: each
+    admitted (tile, row) pair over its window alone
+    (``raster_hbm2.window_rects``)."""
+    box = [g.I_JMIN, g.I_JMAX, g.I_IMIN, g.I_IMAX]
+    rows, ty, tx = h2.rect_pairs(ti[:, box], blocks, supers, w, h)
+    rect = h2.window_rects(ti, rows, ty, tx, short)
+    r = ti[rows]
+    y0, x0 = ty * tr.TILE_H, tx * tr.TILE_W
+    base, sy, sx = h2.edge_windows(r, y0, x0)
+    h2.window_min(keys, w, y0, x0, tr.TILE_H, base, sy, sx,
+                  r[:, g.I_BIAS0:g.I_BIAS0 + 3],
+                  tf[rows, g.F_ZA0:g.F_ZA0 + 3], rows, rows=rect[:, 2:],
+                  cols=rect[:, :2])
+    return rect
+
+
+def windowed_keys(prep, w, h, short_extent=True):
+    """K10hbm2's key plane as the CUDA kernel computes it: both views'
+    pairs over their windows (``short_extent=False``: a short row's window
+    over the whole tile, a tall row's extent).  Returns (keys, each view's
+    window rects)."""
+    supers_s, blocks_s, ti_s, supers_t, blocks_t, ti_t, tf = prep
+    keys = torch.full((h * w,), h2.KEY_CLEAR, dtype=torch.int64)
+    rects = [view_window_min(keys, ti_s, tf, blocks_s, supers_s, w, h,
+                             short_extent),
+             view_window_min(keys, ti_t, tf, blocks_t, supers_t, w, h, False)]
+    return keys, rects
+
+
+WINDOW_CASES = ["padded_soup_128x64", "stress_256x64", "tie_soup_256x128"]
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_rule_gives_the_plain_key_plane(case):
+    """Each (tile, row) pair over its window alone, as the CUDA kernel
+    evaluates it: the same (z, id) key at every pixel, all rows, and the
+    same frame from one resolve over the tall view's rows."""
+    ti, tf, w, h = setup(case)
+    prep = h2.prepare_raster_inputs_2class(T(ti), T(tf))
+    windowed, rects = windowed_keys(prep, w, h)
+    assert torch.equal(windowed, h2.hbm2_keys(*prep, w, h))
+    won, wid = h2.winners(windowed)
+    ti_tall, tf_p = prep[5], prep[6]
+    color, depth = h2.resolve(won, h2.pixel_edges(ti_tall[wid], w, h),
+                              tf_p[wid, g.F_ZA0:g.F_CB2 + 1], w, h)
+    c, d = h2.raster_hbm2_plain(*prep, w, h)
+    _bits(color, c)
+    _bits(depth, d)
+    # The windows hold fewer pixels than the extents they replace.
+    for rect, extent in zip(rects, (tr.SHORT_ROWS, tr.TILE_H)):
+        area = ((rect[:, 1] - rect[:, 0] + 1).clamp(min=0)
+                * (rect[:, 3] - rect[:, 2] + 1).clamp(min=0))
+        assert rect.shape[0] > 0
+        assert int(area.sum()) < rect.shape[0] * extent * tr.TILE_W
+
+
+def test_window_rule_keeps_the_short_extent():
+    """At 128x64 with geometry at 128x56, a short row's window must stay
+    inside its 8 tile rows: the vertices' bbox over the whole tile (a tall
+    row's extent) draws more of rows 56-63 than the reference."""
+    ti, tf, w, h = setup("padded_soup_128x64")
+    prep = h2.prepare_raster_inputs_2class(T(ti), T(tf))
+    keys = h2.hbm2_keys(*prep, w, h)
+    wrong, _ = windowed_keys(prep, w, h, short_extent=False)
+    pad = slice(56 * w, 64 * w)
+    assert torch.equal(wrong[:56 * w], keys[:56 * w])
+    drawn = int((keys[pad] != h2.KEY_CLEAR).sum())
+    assert drawn == 246
+    assert int((wrong[pad] != h2.KEY_CLEAR).sum()) > drawn

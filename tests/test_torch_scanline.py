@@ -14,6 +14,12 @@ port's plain K5 and the NumPy oracle, given shared setup rows.
   (263 differ from K5's 289).
 * Exact ties inside a same-row run and across the classes go to the lower
   row id; z == 1.0 is latched; a short winner's -0.0 is stored +0.0.
+* As the CUDA kernel computes it: each tall pair over its window and each
+  record over its rectangle in the tile (inside its row's vertices' bbox)
+  give the plain key plane; one key plane whose tag carries the class (id
+  << 1 | short), each winner re-evaluated from the tall view's row and a
+  short one's z plus 0.0, gives the plain frame, a short winner at -0.0
+  stored +0.0.
 
 The CUDA kernel is held against the plain version on the card by
 chip_smoke.py; here its wrapper must refuse CPU tensors.
@@ -25,7 +31,7 @@ import pytest
 import torch
 
 from test_torch_group8 import _bits
-from test_torch_hbm2 import RED, k5_frame, pair_setup, setup
+from test_torch_hbm2 import RED, k5_frame, pair_setup, setup, view_window_min
 from test_torch_raster import _u8
 from zrenderer_tpu.ops import geometry as g
 from zrenderer_tpu.ops.experiments import raster_scanline as rs
@@ -232,3 +238,79 @@ def test_constants_match_reference():
     assert [getattr(sc, n) for n in names] == [getattr(rs, n) for n in names]
     assert sc.WL_CB0 + 3 == sc.WIDE_LANES < rs.WIDE_LANES
     assert sc.GROUP * 4 == g.RASTER_BLOCK
+
+
+def keyed_scan_frame(prep, w, h):
+    """K10scan as the CUDA kernel stores it: the keys of the tall pass
+    over its windows and of the short records over their rectangles in one
+    plane, the tag each fragment's row id over its class (id << 1 | short,
+    in the order of the id), each winner re-evaluated from the tall view's
+    row (``kill_rows`` keeps its edge columns), a short winner's z plus
+    0.0.  Returns (keys without the class bit, color, depth, the
+    re-evaluated depth before the 0.0, the short winners' mask)."""
+    supers_s, blocks8, wide, supers_t, blocks_t, ti_tall, tf = prep
+    empty = supers_t.clone()
+    empty[:, 0], empty[:, 1] = 1, 0  # no tall pair: the records alone
+    short = sc.scanline_keys(supers_s, blocks8, wide, empty, blocks_t,
+                             ti_tall, tf, w, h)
+    tall = torch.full_like(short, h2.KEY_CLEAR)
+    view_window_min(tall, ti_tall, tf, blocks_t, supers_t, w, h, False)
+    mask = 0xFFFFFFFF
+
+    def tagged(keys, cls):
+        return torch.where(keys == h2.KEY_CLEAR, h2.KEY_CLEAR,
+                           (keys & ~mask) | ((keys & mask) << 1) | cls)
+
+    keys = torch.minimum(tagged(short, 1), tagged(tall, 0))
+    won = keys != h2.KEY_CLEAR
+    wid = torch.where(won, (keys & mask) >> 1, 0)
+    is_short = (won & ((keys & 1) == 1)).reshape(h, w)
+    color, depth = h2.resolve(won, h2.pixel_edges(ti_tall[wid], w, h),
+                              tf[wid, g.F_ZA0:g.F_CB2 + 1], w, h)
+    return (torch.minimum(short, tall), color,
+            torch.where(is_short, depth + 0.0, depth), depth, is_short)
+
+
+WINDOW_CASES = ["padded_soup_128x64", "stress_256x64", "tie_soup_256x128"]
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_rule_gives_the_plain_key_plane(case):
+    ti, tf, w, h = setup(case)
+    prep = sc.prepare_scanline_inputs(T(ti), T(tf), h)
+    keys, color, depth, _, is_short = keyed_scan_frame(prep, w, h)
+    assert torch.equal(keys, sc.scanline_keys(*prep, w, h))
+    c, d = sc.raster_scanline_plain(*prep, w, h)
+    _bits(color, c)
+    _bits(depth, d)
+    assert bool(is_short.any()) and bool((~is_short & (d < 1.0)).any())
+    # A short record's rectangle lies inside its row's vertices' pixel
+    # bbox, so the kernel needs no further cut.
+    wide = prep[2]
+    rect = sc.record_rects(prep[1], wide)
+    live = (wide[:, sc.WL_H] >= 0) & (rect[:, 0] <= rect[:, 1])
+    box = tr.vertex_bbox(prep[5][wide[live, sc.WL_IDF].long() - 1].long())
+    r = rect[live]
+    assert bool(live.any())
+    assert bool(((r[:, 0] >= box[:, 0]) & (r[:, 1] <= box[:, 1])
+                 & (r[:, 2] >= box[:, 2]) & (r[:, 3] <= box[:, 3])).all())
+
+
+def test_keyed_short_winner_negative_zero_resolved_positive():
+    """B's z plane (-0.0, -0.0, -0.0): B's winners, re-evaluated from the
+    tall view's row (killed there, its edges and coefficients kept), come
+    out -0.0 and are stored +0.0 by their tag's class bit, as the plain
+    version stores them; A's pixels keep their bits."""
+    ti, tf, w, h, a, b = pair_setup(za_b=(-0.0, -0.0, -0.0))
+    prep = sc.prepare_scanline_inputs(T(ti), T(tf), h)
+    ti_tall = prep[5]
+    assert int(ti_tall[b, g.I_VALID]) == 0 and int(ti_tall[a, g.I_VALID]) == 1
+    _, color, depth, raw, is_short = keyed_scan_frame(prep, w, h)
+    c, d = sc.raster_scanline_plain(*prep, w, h)
+    _bits(color, c)
+    _bits(depth, d)
+    neg = torch.signbit(raw) & (raw == 0.0)
+    assert int(neg.sum()) > 10 and bool((is_short == neg).all())
+    assert not torch.signbit(depth).any() and bool((depth[neg] == 0.0).all())
+    c2, d2 = h2.rasterize_setup_hbm2(T(ti), T(tf), w, h)
+    _bits(raw, d2)  # K10hbm2 keeps the -0.0

@@ -14,17 +14,15 @@
 // row row_base: the pixel math uses global rows, and the stores write
 // band-local rows (global row minus row_base).
 //
-// One CUDA block rasterizes one 32x128 screen tile (group8: 8x128).  Its
-// 256 threads each own one column and 16 rows of the tile (rows r0, r0 +
-// 2, ...; group8: 4), and keep the tile state for those pixels in
-// registers across the whole triangle loop: depth, winning row id (K1
-// only) and the r/g/b/(1/w) numerators.
-// The G-buffer kernels keep only depth and the winning row id, and
-// resolve every latch from the winner in the epilogue (TileState::GBUF);
-// the depth-only kernels keep depth alone (TileState::DEPTH).
-// Every triangle is evaluated by all threads of the block (the loops and
-// their bbox skips are block-uniform), so the per-triangle setup reads are
-// broadcast loads.
+// The register bodies (TileState, below): one CUDA block rasterizes one
+// 32x128 screen tile (group8: 8x128).  Its 256 threads each own one column
+// and 16 rows of the tile (rows r0, r0 + 2, ...; group8: 4), and keep the
+// tile state for those pixels in registers across the whole triangle
+// loop: depth and the winning row id, resolving every latch from the
+// winner in the epilogue (TileState::GBUF), or depth alone
+// (TileState::DEPTH).  Every triangle is evaluated by all threads of the
+// block (the loops and their bbox skips are block-uniform), so the
+// per-triangle setup reads are broadcast loads.
 //
 // Numerics (docs/RASTER_SPEC.md §2-§5), the bits the plain torch version
 // produces:
@@ -53,11 +51,6 @@ constexpr int NF32 = 40;
 constexpr int RASTER_BLOCK = 128;
 constexpr int SUPER_BLOCK = 32;
 constexpr int INT_MAX32 = 0x7fffffff;
-constexpr int SHORT_ROWS = 8;  // the two-class experiments' short-row span
-// A scanline wide record's int32 lanes (raster_scanline.py WL_*): edge k's
-// value A at (row imin, column 0), its per-column step D (8*dy) and per-row
-// step S (8*dx), and its coverage bias.
-constexpr int WL_A0 = 0, WL_D0 = 3, WL_S0 = 6, WL_B0 = 9;
 
 // Integer setup columns (geometry.I_*).
 enum : int {
@@ -139,13 +132,13 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
 }
 
 // The winner resolve of one pixel, shared by TileState::resolve (the
-// register bodies' epilogue) and the keyed body's store (raster_keyed.cuh
-// WinnerKeys): row t of ti/tf (strides RI and RF; INT_MAX32 where no row
+// register bodies' epilogue) and the keyed bodies' stores (raster_keyed.cuh
+// WinnerKeys, raster_twoclass.cu ScanKeys): row t of ti/tf (strides RI and RF; INT_MAX32 where no row
 // won) re-evaluated at the pixel centre (px, py) in subpixels, its edge
 // functions, 1/w and colour interpolated, one IEEE divide, RGBA8 packed
 // into color[idx] and z into depth[idx]: the given z, or with EVAL_Z the
-// winner's z re-evaluated (its -0.0 kept; z stays as given where none
-// won).  With PLANES also uv and normal times 1/den and the row's
+// winner's z re-evaluated (its -0.0 kept, or with pos_zero stored plus
+// 0.0f, -0.0 as +0.0; z stays as given where none won).  With PLANES also uv and normal times 1/den and the row's
 // constants into the GBUF_PLANES - 2 planes from extra, plane floats
 // apart.  MASKED_INV picks the divide's form, which the reference's
 // kernels differ in (sign of zero, NaN when a row passed with den <= 0):
@@ -156,7 +149,8 @@ template <bool MASKED_INV, bool PLANES, bool EVAL_Z = false, int RI = NI32,
 __device__ __forceinline__ void resolve_winner(
     const int* __restrict__ ti, const float* __restrict__ tf, int t, float z,
     int px, int py, int* __restrict__ color, float* __restrict__ depth,
-    float* __restrict__ extra, size_t idx, size_t plane) {
+    float* __restrict__ extra, size_t idx, size_t plane,
+    bool pos_zero = false) {
   float d = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
   float g[GBUF_INTERP] = {}, c[GBUF_CONSTS] = {};
   if (t != INT_MAX32) {
@@ -195,7 +189,7 @@ __device__ __forceinline__ void resolve_winner(
   const bool covered = d > 0.0f;
   const float inv = covered ? __fdiv_rn(1.0f, d) : 1.0f;
   color[idx] = (int)pack_rgba(cr, cg, cb, covered, inv);
-  depth[idx] = z;
+  depth[idx] = pos_zero ? __fadd_rn(z, 0.0f) : z;
   if constexpr (PLANES) {
 #pragma unroll
     for (int i = 0; i < GBUF_INTERP; ++i) {
@@ -213,10 +207,11 @@ __device__ __forceinline__ void resolve_winner(
   }
 }
 
-// Per-thread tile state.  TIE selects the order-free depth test
-// (z, row id) of K1 over the sequential strict-less test of K3/K5
-// (the GBUF, DEPTH and VIS register kernels keep it; K6, K3 and K5 run the
-// keyed body, raster_keyed.cuh).
+// Per-thread tile state of the register bodies (K2g, K9g and the
+// experiments raster_group8.cu, raster_vec.cu and raster_vis.cu; the other
+// kernels run the keyed body, raster_keyed.cuh, or K1's sub-tile blocks).
+// TIE selects the order-free depth test (z, row id) over the sequential
+// strict-less test.
 //
 // GBUF: the register G-buffer kernels (K2g, K9g; K4g, K6g, K3g and K5g
 // run the keyed body, raster_keyed.cuh, with the same resolve).  Latching
@@ -229,12 +224,12 @@ __device__ __forceinline__ void resolve_winner(
 // experiments (raster_group8.cu, raster_vec.cu) keep this state for their
 // flat kernels too, and resolve their colour from the winner.
 //
-// DEPTH: the depth-only register kernels (K2d, K10g8d; K4d, K6d and K3d
-// run the keyed body, with the same planes).  One value a pixel,
-// z, under the reference's strict-less test z >= 0 && z < zb in every
-// phase (no row id: on an exact tie the first row visited keeps the value,
-// which differs from a later one only in the sign of a zero z), and
-// store_depth writes the one plane.
+// DEPTH: the depth-only register kernels (K10g8d; K2d runs K1's sub-tile
+// blocks, K4d, K6d and K3d the keyed body, with the same planes).  One
+// value a pixel, z, under the reference's strict-less test z >= 0 && z <
+// zb in every phase (no row id: on an exact tie the first row visited
+// keeps the value, which differs from a later one only in the sign of a
+// zero z), and store_depth writes the one plane.
 //
 // TH: the tile's height (8 for the group8 experiment's tiles).  RI and RF:
 // the int and float strides of the setup rows that eval and resolve index
@@ -251,13 +246,11 @@ struct TileState {
   static_assert(!(DEPTH && (TIE || GBUF)), "depth-only state is strict-less");
   static_assert(!(VIS && (TIE || GBUF || DEPTH)),
                 "the visibility state is strict-less z and row id");
-  static constexpr bool LATCH = !GBUF && !DEPTH && !VIS;  // den/nr/ng/nb
-  static constexpr bool ROW_ID = TIE || GBUF || VIS;  // keeps the winner
+  static_assert(GBUF || DEPTH || VIS, "a state keeps z and the row id, or z");
+  static constexpr bool ROW_ID = GBUF || VIS;  // keeps the winner
   static constexpr int NPIX = TH * TILE_W / THREADS;  // pixels a thread
   float z[NPIX];
   int tid[ROW_ID ? NPIX : 1];
-  float den[LATCH ? NPIX : 1], nr[LATCH ? NPIX : 1], ng[LATCH ? NPIX : 1],
-      nb[LATCH ? NPIX : 1];
   int px;   // this thread's pixel-centre x, in subpixels
   int py0;  // pixel-centre y of its first row, in subpixels
   int row0, col0;
@@ -271,7 +264,6 @@ struct TileState {
     for (int k = 0; k < NPIX; ++k) {
       z[k] = 1.0f;
       if constexpr (ROW_ID) tid[k] = INT_MAX32;
-      if constexpr (LATCH) den[k] = nr[k] = ng[k] = nb[k] = 0.0f;
     }
   }
 
@@ -295,97 +287,42 @@ struct TileState {
     return true;
   }
 
-  // Global pixel row of this thread's pixel k.
-  __device__ __forceinline__ int row(int k) const {
-    return row0 + (int)(threadIdx.x / TILE_W) + k * ROW_STEP;
-  }
-
-  // Coverage, depth test and latch of setup row t at this thread's pixels;
-  // WINDOW as eval_row's.
-  template <bool WINDOW = false>
+  // Coverage and depth test of setup row t at this thread's pixels.
   __device__ __forceinline__ void eval(const int* __restrict__ ti,
-                                       const float* __restrict__ tf, int t,
-                                       int r_lo = 0, int r_hi = 0,
-                                       int c_lo = 0, int c_hi = 0) {
-    eval_row<WINDOW>(ti + (size_t)t * RI, tf + (size_t)t * RF, t, r_lo,
-                     r_hi, c_lo, c_hi);
+                                       const float* __restrict__ tf, int t) {
+    eval_row(ti + (size_t)t * RI, tf + (size_t)t * RF, t);
   }
 
   // The same for one setup record (r: NI32 ints, f: NF32 floats) whose
-  // tie-break id is t.  WINDOW: only at the pixels of global rows [r_lo,
-  // r_hi] and columns [c_lo, c_hi] (the two-class experiments' short
-  // rows).  WIDE: r is a scanline wide record instead (its int32 lanes
-  // WL_*; f its coefficients from WL_ZA0, at the F_ZA0..F_CB0 + 2
-  // offsets), whose first row is imin: edge k at a pixel is A + S*(row -
-  // imin) - D*column with int32 wrap, equal to edge_fn, and its z is
-  // stored plus 0.0f (-0.0 as +0.0, as the reference's one-hot sum).
-  template <bool WINDOW = false, bool WIDE = false>
+  // tie-break id is t.
   __device__ __forceinline__ void eval_row(const int* __restrict__ r,
                                            const float* __restrict__ f,
-                                           int t, int r_lo = 0, int r_hi = 0,
-                                           int c_lo = 0, int c_hi = 0,
-                                           int imin = 0) {
+                                           int t) {
     const int x0 = __ldg(r + I_X0), y0 = __ldg(r + I_Y0);
     const int x1 = __ldg(r + I_X1), y1 = __ldg(r + I_Y1);
     const int x2 = __ldg(r + I_X2), y2 = __ldg(r + I_Y2);
     const int dx0 = __ldg(r + I_DX0), dy0 = __ldg(r + I_DY0);
     const int dx1 = __ldg(r + I_DX1), dy1 = __ldg(r + I_DY1);
     const int dx2 = __ldg(r + I_DX2), dy2 = __ldg(r + I_DY2);
-    const int b0 = __ldg(r + (WIDE ? WL_B0 : I_BIAS0));
-    const int b1 = __ldg(r + (WIDE ? WL_B0 + 1 : I_BIAS1));
-    const int b2 = __ldg(r + (WIDE ? WL_B0 + 2 : I_BIAS2));
-    const int col = col0 + (int)(threadIdx.x % TILE_W);
+    const int b0 = __ldg(r + I_BIAS0);
+    const int b1 = __ldg(r + I_BIAS1);
+    const int b2 = __ldg(r + I_BIAS2);
 #pragma unroll
     for (int k = 0; k < NPIX; ++k) {
-      if constexpr (WINDOW) {
-        if (row(k) < r_lo || row(k) > r_hi || col < c_lo || col > c_hi)
-          continue;
-      }
-      int e0, e1, e2;
-      if constexpr (WIDE) {
-        e0 = wide_edge(r, 0, row(k) - imin, col);
-        e1 = wide_edge(r, 1, row(k) - imin, col);
-        e2 = wide_edge(r, 2, row(k) - imin, col);
-      } else {
-        e0 = edge_fn(dx0, dy0, x1, y1, px, py(k));
-        e1 = edge_fn(dx1, dy1, x2, y2, px, py(k));
-        e2 = edge_fn(dx2, dy2, x0, y0, px, py(k));
-      }
+      const int e0 = edge_fn(dx0, dy0, x1, y1, px, py(k));
+      const int e1 = edge_fn(dx1, dy1, x2, y2, px, py(k));
+      const int e2 = edge_fn(dx2, dy2, x0, y0, px, py(k));
       if (e0 < b0 || e1 < b1 || e2 < b2) continue;
-      const float f0 = __int2float_rn(e0);
-      const float f1 = __int2float_rn(e1);
-      const float f2 = __int2float_rn(e2);
-      float zz = interp3(f0, f1, f2, __ldg(f + F_ZA0), __ldg(f + F_ZA0 + 1),
-                         __ldg(f + F_ZA0 + 2));
-      if constexpr (WIDE) zz = __fadd_rn(zz, 0.0f);
-      if (!depth_test(k, zz, t)) continue;
-      if constexpr (LATCH) {
-        den[k] = interp3(f0, f1, f2, __ldg(f + F_RW0), __ldg(f + F_RW0 + 1),
-                         __ldg(f + F_RW0 + 2));
-        nr[k] = interp3(f0, f1, f2, __ldg(f + F_CR0), __ldg(f + F_CR0 + 1),
-                        __ldg(f + F_CR0 + 2));
-        ng[k] = interp3(f0, f1, f2, __ldg(f + F_CG0), __ldg(f + F_CG0 + 1),
-                        __ldg(f + F_CG0 + 2));
-        nb[k] = interp3(f0, f1, f2, __ldg(f + F_CB0), __ldg(f + F_CB0 + 1),
-                        __ldg(f + F_CB0 + 2));
-      }
+      const float zz = interp3(__int2float_rn(e0), __int2float_rn(e1),
+                               __int2float_rn(e2), __ldg(f + F_ZA0),
+                               __ldg(f + F_ZA0 + 1), __ldg(f + F_ZA0 + 2));
+      depth_test(k, zz, t);
     }
-  }
-
-  // Edge k of wide record r at row offset dh and column x.
-  static __device__ __forceinline__ int wide_edge(const int* __restrict__ r,
-                                                  int k, int dh, int x) {
-    return (int)((uint32_t)__ldg(r + WL_A0 + k) +
-                 (uint32_t)__ldg(r + WL_S0 + k) * (uint32_t)dh -
-                 (uint32_t)__ldg(r + WL_D0 + k) * (uint32_t)x);
   }
 
   // Superblock -> block -> row scan with block-uniform bbox skips, rows in
   // submission order (the reference's _scan_groups over the tables), over
-  // superblocks [s_begin, s_end).  SHORT_WINDOW: each hit row only on the
-  // SHORT_ROWS tile rows from clamp(imin - row0, 0, TH - SHORT_ROWS)
-  // (K10hbm2's short rows).
-  template <bool SHORT_WINDOW = false>
+  // superblocks [s_begin, s_end).
   __device__ __forceinline__ void scan_hierarchy(
       const int* __restrict__ supers, int s_end,
       const int* __restrict__ blocks, const int* __restrict__ ti,
@@ -404,34 +341,10 @@ struct TileState {
           const int* r = ti + (size_t)t * RI;
           if (tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
                            __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0,
-                           TH)) {
-            if constexpr (SHORT_WINDOW) {
-              const int rb = row0 + min(max(__ldg(r + I_IMIN) - row0, 0),
-                                        TH - SHORT_ROWS);
-              eval<true>(ti, tf, t, rb, rb + SHORT_ROWS - 1, col0,
-                         col0 + TILE_W - 1);
-            } else {
-              eval(ti, tf, t);
-            }
-          }
+                           TH))
+            eval(ti, tf, t);
         }
       }
-    }
-  }
-
-  // Resolve: one IEEE divide per covered pixel, RGBA8 packed, alpha 255.
-  __device__ __forceinline__ void store(int* __restrict__ color,
-                                        float* __restrict__ depth,
-                                        int width) const {
-    const int col = col0 + (int)(threadIdx.x % TILE_W);
-    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
-#pragma unroll
-    for (int k = 0; k < NPIX; ++k) {
-      const bool covered = den[k] > 0.0f;
-      const float inv = covered ? __fdiv_rn(1.0f, den[k]) : 1.0f;
-      const size_t idx = (size_t)(rbase + k * ROW_STEP) * width + col;
-      color[idx] = (int)pack_rgba(nr[k], ng[k], nb[k], covered, inv);
-      depth[idx] = z[k];
     }
   }
 

@@ -72,80 +72,25 @@
 
 namespace zr {
 
-static_assert(SUPER_BLOCK == 32 && THREADS == WARPS * SUPER_BLOCK,
-              "a warp tests a superblock's blocks");
-
-// The hit words of a launch's tiles, one int buffer of tiles * (2
-// num_supers + 1) (ops/raster.py _keyed_hier_args): word sb
-// of tile t has bit j set when block SUPER_BLOCK sb + j and superblock sb
-// meet the tile; before[sb] counts the tile's hit blocks in superblocks
-// [0, sb); count[t] is its H.  Int: int where the buffer is written, const
-// int where read.
-template <class Int>
-struct HitWords {
-  Int* words;
-  Int* before;
-  Int* count;
-};
-
-template <class Int>
-__device__ __forceinline__ HitWords<Int> hit_words(Int* buf, int tiles,
-                                                   int num_supers) {
-  const size_t n = (size_t)tiles * num_supers;
-  return {buf, buf + n, buf + 2 * n};
-}
-
 // Block blockIdx.x writes the hit words of its tile (of the height rows
-// from global row row_base).  Warp w tests superblocks w, w + WARPS, ...
-// and their 32 blocks, one ballot each; then the block scans the words'
-// counts.
+// from global row row_base; raster_keyed.cuh tile_hit_words).
 __global__ void __launch_bounds__(THREADS) hier_hit_words_kernel(
     const int* __restrict__ supers, int num_supers,
     const int* __restrict__ blocks, int* buf, int width, int height,
     int row_base) {
   __shared__ int warp_sums[WARPS];
   const int tiles_x = width / TILE_W, tile = (int)blockIdx.x;
-  const HitWords<int> hw =
-      hit_words(buf, tiles_x * (height / TILE_H), num_supers);
-  int* words = hw.words + (size_t)tile * num_supers;
-  int* before = hw.before + (size_t)tile * num_supers;
-  const int row0 = row_base + (tile / tiles_x) * TILE_H;
-  const int col0 = (tile % tiles_x) * TILE_W;
-  const int lane = (int)threadIdx.x % SUPER_BLOCK;
-#pragma unroll 4
-  for (int sb = (int)threadIdx.x / SUPER_BLOCK; sb < num_supers;
-       sb += WARPS) {
-    const int* sp = supers + (size_t)sb * 8;
-    const int* bb = blocks + ((size_t)sb * SUPER_BLOCK + lane) * 8;
-    const bool hit =
-        tile_overlap(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3),
-                     row0, col0) &&
-        tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2), __ldg(bb + 3),
-                     row0, col0);
-    const unsigned m = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) words[sb] = (int)m;
-  }
-  __syncthreads();  // the block's words visible to all its threads
-  int base = 0;     // block-uniform
-  for (int c = 0; c < num_supers; c += THREADS) {
-    const int sb = c + (int)threadIdx.x;
-    int total;
-    const int pre = block_exclusive_scan(
-        sb < num_supers ? __popc((unsigned)words[sb]) : 0, warp_sums, total);
-    if (sb < num_supers) before[sb] = base + pre;
-    base += total;
-  }
-  if (threadIdx.x == 0) hw.count[tile] = base;
+  tile_hit_words(supers, num_supers, blocks, buf,
+                 tiles_x * (height / TILE_H), tile,
+                 row_base + (tile / tiles_x) * TILE_H,
+                 (tile % tiles_x) * TILE_W, warp_sums);
 }
 
 // Work item blockIdx.x is item i = blockIdx.x % items of tile blockIdx.x /
 // items, and takes the tile's hit blocks [i * H / items, (i + 1) * H /
 // items) in row order (H hit blocks), so a busy tile's rows spread over its
 // items; an item with none returns at once.  It reads them from the hit
-// words: the superblocks before its share's first block are those whose
-// blocks all lie before it (before + popcount <= i * H / items, a prefix
-// of the superblocks, counted a THREADS-long chunk at a time), then
-// HIT_WORDS words at a time from there.  Its rows into the shared keys,
+// words (raster_keyed.cuh walk_hit_blocks).  Its rows into the shared keys,
 // then out (raster_keyed.cuh keyed_out): the tile's planes from the item
 // that holds all its hit blocks (one item a tile, or at most one hit
 // block: the last item), else into the key plane.  The tiles are those of
@@ -172,29 +117,10 @@ __device__ __forceinline__ void keyed_hier(
   const bool alone = items == 1 || (total <= 1 && idx == items - 1);
   if (h0 == h1 && !alone) return;  // block-uniform
   for (int p = threadIdx.x; p < TILE_PIX; p += THREADS) s.key[p] = Mode::CLEAR;
-  int first = 0;  // block-uniform; the counts' barriers order the clear too
-  for (int c = 0;; c += THREADS) {
-    const int sb = c + (int)threadIdx.x;
-    const int n = __syncthreads_count(
-        sb < num_supers &&
-        __ldg(before + sb) + __popc((unsigned)__ldg(words + sb)) <= h0);
-    first += n;
-    if (n < THREADS) break;
-  }
-  int pending = 0;  // block-uniform
-  int h = first < num_supers ? __ldg(before + first) : total;
-  for (int c = first; c < num_supers && h < h1; c += HIT_WORDS) {
-    __syncthreads();  // every thread past the previous words
-    if (threadIdx.x < HIT_WORDS && c + (int)threadIdx.x < num_supers)
-      s.hits[threadIdx.x] = (unsigned)__ldg(words + c + threadIdx.x);
-    __syncthreads();
-    for (int k = 0; k < HIT_WORDS && c + k < num_supers && h < h1; ++k) {
-      for (unsigned m = s.hits[k]; m && h < h1; m &= m - 1, ++h)
-        if (h >= h0)
-          keyed_block_rows<Mode>(s, (c + k) * SUPER_BLOCK + __ffs(m) - 1,
-                                 pending, ti, tf, 0, row0, col0);
-    }
-  }
+  int pending = 0;  // block-uniform; the walk's barriers order the clear
+  walk_hit_blocks(s, words, before, num_supers, total, h0, h1, [&](int b) {
+    keyed_block_rows<Mode>(s, b, pending, ti, tf, 0, row0, col0);
+  });
   flush_pending<Mode>(s, pending, ti, tf, 0, row0, col0);
   __syncthreads();
   keyed_out<Mode>(s, alone, plane, row0, col0, ti, tf, color, depth, extra,

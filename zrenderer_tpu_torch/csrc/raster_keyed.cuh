@@ -1,7 +1,8 @@
 // The keyed raster body, shared by raster_binned.cu (K4, K4c, K4g, K4d,
 // K9, K9d, K6, K6g, K6d: a tile's record spans, K4c's coarse bin too, then
-// the leftover rows of the hierarchy) and raster_hier.cu (K3, K3b, K3g,
-// K3d, K5, K5g: the hierarchy alone).
+// the leftover rows of the hierarchy), raster_hier.cu (K3, K3b, K3g, K3d,
+// K5, K5g: the hierarchy alone) and raster_twoclass.cu (K10hbm2, K10scan:
+// the hierarchies of two views of the rows, one key plane).
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
 //   atomicMin.  K4, K4c, K9, K9d, K6, K4g and K6g: (order bits of z, row
@@ -31,8 +32,9 @@
 //   alike.  The edge functions step from the window's origin (int32 wrap,
 //   the same bits as edge_fn), then the same bias tests and interp3.
 // * The hierarchy walk: superblock -> block -> row bbox skips, as the
-//   register body's (keyed_leftovers; raster_hier.cu's kernels read each
-//   tile's hit words, written once a call), a hit block's 128 row
+//   register body's (keyed_leftovers; raster_hier.cu's and
+//   raster_twoclass.cu's kernels read each tile's hit words, written once
+//   a call: tile_hit_words, walk_hit_blocks), a hit block's 128 row
 //   bboxes tested by 128 threads at once (keyed_block_rows) and the hit
 //   rows compacted into batches.  A row is admitted by its clamped bbox
 //   (tile_overlap): a row whose bbox clamped to empty is skipped, as
@@ -160,17 +162,31 @@ struct KeyedSmem {
   int scan[WARPS];
   int item[3];  // tile, item index within the tile, items of the tile
   // The hierarchy walk's words of hit blocks, a bit each, HIT_WORDS
-  // superblocks' words at a time (raster_hier.cu keyed_hier).
+  // superblocks' words at a time (walk_hit_blocks).
   unsigned hits[HIT_WORDS];
 };
 
+// Batch column j's window: its origin (dr, dc) in the tile, its width w
+// and the key's tag (the edge values, steps, biases and z coefficients
+// are the caller's to stage).
+__device__ __forceinline__ void stage_origin(KeyedSmem& s, int j, int dr,
+                                             int dc, int w, uint32_t tag) {
+  s.origin[j] = dr * TILE_W + dc;
+  s.wide[j] = w;
+  s.inv_wide[j] = __fdiv_rn(1.0f, __int2float_rn(w));
+  s.tag[j] = tag;
+}
+
 // Batch column j from setup row r (NI32 ints) and its z coefficients zc:
-// the window (the vertices' pixel bbox in the tile), the edge values at
-// its origin and their steps.  Returns the window's area (0: empty).
+// the window (the vertices' pixel bbox in the tile, within tile rows
+// [rows_lo, rows_lo + rows_n); the two-class kernels' short rows take 8
+// of them), the edge values at its origin and their steps.  Returns the
+// window's area (0: empty).
 __device__ __forceinline__ int prepare_record(KeyedSmem& s, int j,
                                               const int* r, const float* zc,
                                               uint32_t tag, int row0,
-                                              int col0) {
+                                              int col0, int rows_lo = 0,
+                                              int rows_n = TILE_H) {
   const int x0 = r[I_X0], y0 = r[I_Y0], x1 = r[I_X1], y1 = r[I_Y1];
   const int x2 = r[I_X2], y2 = r[I_Y2];
   const int c_lo =
@@ -180,9 +196,9 @@ __device__ __forceinline__ int prepare_record(KeyedSmem& s, int j,
       min((max(max(x0, x1), x2) - HALF) >> SUBPIXEL_BITS, col0 + TILE_W - 1);
   const int r_lo =
       max((min(min(y0, y1), y2) + (SUBPIXEL - 1 - HALF)) >> SUBPIXEL_BITS,
-          row0);
-  const int r_hi =
-      min((max(max(y0, y1), y2) - HALF) >> SUBPIXEL_BITS, row0 + TILE_H - 1);
+          row0 + rows_lo);
+  const int r_hi = min((max(max(y0, y1), y2) - HALF) >> SUBPIXEL_BITS,
+                       row0 + rows_lo + rows_n - 1);
   const int w = c_hi - c_lo + 1, h = r_hi - r_lo + 1;
   if (w <= 0 || h <= 0) return 0;
   const int px = c_lo * SUBPIXEL + HALF, py = r_lo * SUBPIXEL + HALF;
@@ -197,10 +213,7 @@ __device__ __forceinline__ int prepare_record(KeyedSmem& s, int j,
     s.bias[i][j] = r[I_BIAS0 + i];
     s.za[i][j] = zc[i];
   }
-  s.origin[j] = (r_lo - row0) * TILE_W + (c_lo - col0);
-  s.wide[j] = w;
-  s.inv_wide[j] = __fdiv_rn(1.0f, __int2float_rn(w));
-  s.tag[j] = tag;
+  stage_origin(s, j, r_lo - row0, c_lo - col0, w, tag);
   return w * h;
 }
 
@@ -266,10 +279,28 @@ __device__ __forceinline__ void flush_rows(KeyedSmem& s, int n,
   eval_batch<Mode>(s, area);
 }
 
+// This thread's entry, where hit, appended to s.pending after the
+// pending ones (in thread order); once KEY_BATCH wait, flush(KEY_BATCH)
+// evaluates the first KEY_BATCH as one batch.  pending is block-uniform.
+template <class Flush>
+__device__ __forceinline__ void keyed_pend(KeyedSmem& s, bool hit, int entry,
+                                           int& pending, Flush&& flush) {
+  int hits;
+  const int pos = block_exclusive_scan(hit ? 1 : 0, s.scan, hits);
+  if (hit) s.pending[pending + pos] = entry;
+  pending += hits;
+  if (pending >= KEY_BATCH) {
+    __syncthreads();
+    flush(KEY_BATCH);
+    const int rest = pending - KEY_BATCH;
+    if ((int)threadIdx.x < rest)
+      s.pending[threadIdx.x] = s.pending[KEY_BATCH + threadIdx.x];
+    pending = rest;
+  }
+}
+
 // The rows of hit block b (its bbox meets the tile): tested by the first
-// 128 threads at once, the hits compacted into s.pending after the
-// pending ones (in row order), KEY_BATCH of them evaluated once that many
-// wait.  pending is block-uniform.
+// 128 threads at once, the hits compacted into s.pending (keyed_pend).
 template <class Mode>
 __device__ __forceinline__ void keyed_block_rows(
     KeyedSmem& s, int b, int& pending, const int* __restrict__ ti,
@@ -281,18 +312,9 @@ __device__ __forceinline__ void keyed_block_rows(
     hit = tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
                        __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0);
   }
-  int hits;
-  const int pos = block_exclusive_scan(hit ? 1 : 0, s.scan, hits);
-  if (hit) s.pending[pending + pos] = t;
-  pending += hits;
-  if (pending >= KEY_BATCH) {
-    __syncthreads();
-    flush_rows<Mode>(s, KEY_BATCH, ti, tf, span_end, row0, col0);
-    const int rest = pending - KEY_BATCH;
-    if ((int)threadIdx.x < rest)
-      s.pending[threadIdx.x] = s.pending[KEY_BATCH + threadIdx.x];
-    pending = rest;
-  }
+  keyed_pend(s, hit, t, pending, [&](int n) {
+    flush_rows<Mode>(s, n, ti, tf, span_end, row0, col0);
+  });
 }
 
 // The pending rows left after a walk, as one batch.
@@ -330,6 +352,100 @@ __device__ __forceinline__ void keyed_leftovers(
     }
   }
   flush_pending<Mode>(s, pending, ti, tf, span_end, row0, col0);
+}
+
+// The hit words of a launch's tiles over one hierarchy (raster_hier.cu,
+// raster_twoclass.cu), one int buffer of tiles * (2 num_supers + 1)
+// (ops/raster.py _keyed_hier_args): word sb of tile t has bit j set when
+// block SUPER_BLOCK sb + j and superblock sb meet the tile; before[sb]
+// counts the tile's hit blocks in superblocks [0, sb); count[t] is its H.
+// Int: int where the buffer is written, const int where read.
+template <class Int>
+struct HitWords {
+  Int* words;
+  Int* before;
+  Int* count;
+};
+
+template <class Int>
+__device__ __forceinline__ HitWords<Int> hit_words(Int* buf, int tiles,
+                                                   int num_supers) {
+  const size_t n = (size_t)tiles * num_supers;
+  return {buf, buf + n, buf + 2 * n};
+}
+
+static_assert(SUPER_BLOCK == 32 && THREADS == WARPS * SUPER_BLOCK,
+              "a warp tests a superblock's blocks");
+
+// The block writes the hit words of tile `tile` (of `tiles`; its first
+// pixel at global (row0, col0)).  Warp w tests superblocks w, w + WARPS,
+// ... and their 32 blocks, one ballot each (their loads do not wait on one
+// another); then the block scans the words' counts.
+__device__ __forceinline__ void tile_hit_words(
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, int* buf, int tiles, int tile, int row0,
+    int col0, int* warp_sums) {
+  const HitWords<int> hw = hit_words(buf, tiles, num_supers);
+  int* words = hw.words + (size_t)tile * num_supers;
+  int* before = hw.before + (size_t)tile * num_supers;
+  const int lane = (int)threadIdx.x % SUPER_BLOCK;
+#pragma unroll 4
+  for (int sb = (int)threadIdx.x / SUPER_BLOCK; sb < num_supers;
+       sb += WARPS) {
+    const int* sp = supers + (size_t)sb * 8;
+    const int* bb = blocks + ((size_t)sb * SUPER_BLOCK + lane) * 8;
+    const bool hit =
+        tile_overlap(__ldg(sp), __ldg(sp + 1), __ldg(sp + 2), __ldg(sp + 3),
+                     row0, col0) &&
+        tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2), __ldg(bb + 3),
+                     row0, col0);
+    const unsigned m = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) words[sb] = (int)m;
+  }
+  __syncthreads();  // the block's words visible to all its threads
+  int base = 0;     // block-uniform
+  for (int c = 0; c < num_supers; c += THREADS) {
+    const int sb = c + (int)threadIdx.x;
+    int total;
+    const int pre = block_exclusive_scan(
+        sb < num_supers ? __popc((unsigned)words[sb]) : 0, warp_sums, total);
+    if (sb < num_supers) before[sb] = base + pre;
+    base += total;
+  }
+  if (threadIdx.x == 0) hw.count[tile] = base;
+}
+
+// visit(b) for each of a tile's hit blocks [h0, h1) in row order (of its
+// total H), from its rows of the hit words (words, before).  The
+// superblocks before the share's first block are those whose blocks all
+// lie before it (before + popcount <= h0, a prefix of the superblocks,
+// counted a THREADS-long chunk at a time); the words are read HIT_WORDS at
+// a time from there.  Block-uniform; its first count is a barrier.
+template <class Visit>
+__device__ __forceinline__ void walk_hit_blocks(
+    KeyedSmem& s, const int* __restrict__ words,
+    const int* __restrict__ before, int num_supers, int total, int h0,
+    int h1, Visit&& visit) {
+  int first = 0;  // block-uniform
+  for (int c = 0;; c += THREADS) {
+    const int sb = c + (int)threadIdx.x;
+    const int n = __syncthreads_count(
+        sb < num_supers &&
+        __ldg(before + sb) + __popc((unsigned)__ldg(words + sb)) <= h0);
+    first += n;
+    if (n < THREADS) break;
+  }
+  int h = first < num_supers ? __ldg(before + first) : total;
+  for (int c = first; c < num_supers && h < h1; c += HIT_WORDS) {
+    __syncthreads();  // every thread past the previous words
+    if (threadIdx.x < HIT_WORDS && c + (int)threadIdx.x < num_supers)
+      s.hits[threadIdx.x] = (unsigned)__ldg(words + c + threadIdx.x);
+    __syncthreads();
+    for (int k = 0; k < HIT_WORDS && c + k < num_supers && h < h1; ++k) {
+      for (unsigned m = s.hits[k]; m && h < h1; m &= m - 1, ++h)
+        if (h >= h0) visit((c + k) * SUPER_BLOCK + __ffs(m) - 1);
+    }
+  }
 }
 
 // A work item's keys out, after the block's last batch: the tile's planes

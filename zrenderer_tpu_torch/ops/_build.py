@@ -205,9 +205,11 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_vis.restype = i
     lib.zr_raster_trans.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
     lib.zr_raster_trans.restype = i
-    lib.zr_raster_hbm2.argtypes = [p, i, p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_hbm2.argtypes = [p, i, p, p, p, i, p, p, p, i, p, p, p, p,
+                                   i, i, p]
     lib.zr_raster_hbm2.restype = i
-    lib.zr_raster_scan.argtypes = [p, i, p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_raster_scan.argtypes = [p, i, p, p, p, i, p, p, p, i, p, p, p, p,
+                                   i, i, p]
     lib.zr_raster_scan.restype = i
     lib.zr_error_string.argtypes = [i]
     lib.zr_error_string.restype = ctypes.c_char_p

@@ -25,7 +25,11 @@ The reference's kernel does not run: ``_hbm2_kernel`` reads ``_INT_MAX``,
 ``I32_LANES``, ``F32_LANES`` and ``_tri_unroll``, which its module never
 imports, and raises ``NameError``.  Its 4-records-a-row packing
 (``_hbm_flat_inputs``) is TPU DMA layout: the views here stay (T, NI32)
-and (T, NF32).  CUDA: ``csrc/raster_twoclass.cu``.
+and (T, NF32).  CUDA: ``csrc/raster_twoclass.cu``, on K5's keyed
+hierarchy body: both views' hit words, each tile's hit blocks of both
+views cut into TWOCLASS_ITEMS work items, each row evaluated over its
+window (its vertices' pixel bbox in the tile, within the kernel's extent:
+``window_rects``) into one key plane, one resolve.
 
 The plain versions here and in ``raster_scanline`` share one form: every
 fragment the kernel evaluates becomes an int64 key (z bits << 32 | row
@@ -78,6 +82,13 @@ CHUNK_PIXELS = 1 << 22
 EDGES = ((I_DX0, I_DY0, I_X1, I_Y1), (I_DX1, I_DY1, I_X2, I_Y2),
          (I_DX2, I_DY2, I_X0, I_Y0))
 COEFS = F_CB2 + 1 - F_ZA0  # z, 1/w, r, g, b: three coefficients each
+# K10hbm2 and K10scan on the card: each tile's hit blocks of the two views
+# are cut into this many work items, one CUDA block each, merged through
+# the output's key plane (csrc/raster_twoclass.cu); one item a tile
+# resolves in place.  The wrappers read it at call time.  On the H100 at
+# lattice1M, 1/4/8/16/32 items took 1.78/0.96/0.67/0.60/0.59 ms a call
+# (K10hbm2) and 1.84/0.96/0.71/0.64/0.63 (K10scan; PERF.md §6).
+TWOCLASS_ITEMS = 32
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +228,26 @@ def view_min(keys, ti, tf, blocks, supers, width: int, height: int,
                r[:, I_BIAS0:I_BIAS0 + 3], tf[rows, F_ZA0:F_ZA0 + 3], rows)
 
 
+def window_rects(ti, rows, tile_y, tile_x, short: bool):
+    """The CUDA kernels' window of each (tile, row) pair of a view: (P, 4)
+    int64 [jmin, jmax, imin, imax], row ``rows``'s vertices' pixel bbox
+    (``raster.vertex_bbox``) in tile (tile_y, tile_x), with ``short``
+    within K10hbm2's short extent (the SHORT_ROWS tile rows from
+    clamp(imin - row0, 0, TILE_H - SHORT_ROWS)); empty where jmin > jmax or
+    imin > imax."""
+    jmin, jmax, imin, imax = tr.vertex_bbox(ti[rows].to(I64)).unbind(1)
+    r0, c0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    lo, hi = r0, r0 + tr.TILE_H - 1
+    if short:
+        lo = r0 + (ti[rows, I_IMIN].to(I64) - r0).clamp(
+            0, tr.TILE_H - tr.SHORT_ROWS)
+        hi = lo + tr.SHORT_ROWS - 1
+    return torch.stack([torch.maximum(jmin, c0),
+                        torch.minimum(jmax, c0 + tr.TILE_W - 1),
+                        torch.maximum(imin, lo), torch.minimum(imax, hi)],
+                       1)
+
+
 def winners(keys):
     """(won (H*W,) bool, winning row id (H*W,) int64, 0 where nothing
     won) of a key plane."""
@@ -257,16 +288,24 @@ def resolve(won, edges, coefs, width: int, height: int):
     return tr._resolve_planes(planes)
 
 
+def hbm2_keys(supers_s, blocks_s, ti_short, supers_t, blocks_t, ti_tall, tf,
+              width: int, height: int):
+    """K10hbm2's (H*W,) int64 (z, row id) key plane: each pixel's least
+    fragment of both passes."""
+    keys = torch.full((height * width,), KEY_CLEAR, dtype=I64,
+                      device=tf.device)
+    view_min(keys, ti_short, tf, blocks_s, supers_s, width, height, True)
+    view_min(keys, ti_tall, tf, blocks_t, supers_t, width, height, False)
+    return keys
+
+
 def raster_hbm2_plain(supers_s, blocks_s, ti_short, supers_t, blocks_t,
                       ti_tall, tf, width: int, height: int):
     """Plain torch K10hbm2 over ``prepare_raster_inputs_2class``'s
     outputs: (packed i32, depth f32)."""
     tr._check_frame(width, height)
-    keys = torch.full((height * width,), KEY_CLEAR, dtype=I64,
-                      device=tf.device)
-    view_min(keys, ti_short, tf, blocks_s, supers_s, width, height, True)
-    view_min(keys, ti_tall, tf, blocks_t, supers_t, width, height, False)
-    won, wid = winners(keys)
+    won, wid = winners(hbm2_keys(supers_s, blocks_s, ti_short, supers_t,
+                                 blocks_t, ti_tall, tf, width, height))
     # kill_rows keeps a row's edge columns: either view serves the winner.
     return resolve(won, pixel_edges(ti_tall[wid], width, height),
                    tf[wid, F_ZA0:F_CB2 + 1], width, height)
@@ -309,12 +348,24 @@ def require_views(supers_s, blocks_s, rec_s, supers_t, blocks_t, ti_t, tf,
 
 def launch_views(fn, width: int, height: int, supers_s, blocks_s, rec_s,
                  supers_t, blocks_t, ti_t, tf):
-    """Launch a two-class kernel on the current stream -> (packed i32,
-    depth f32)."""
+    """Launch a two-class kernel on the current stream in TWOCLASS_ITEMS
+    work items a tile -> (packed i32, depth f32).  Its scratch: both
+    views' hit words (tiles * (2 S + 1) ints each) and, with more than one
+    item, the key plane of the output's size."""
+    items = TWOCLASS_ITEMS
+    if items < 1:
+        raise ValueError(f"TWOCLASS_ITEMS must be positive, got {items}")
+    dev = tf.device
+    tiles = (height // tr.TILE_H) * (width // tr.TILE_W)
+    n_s, n_t = supers_s.shape[0], supers_t.shape[0]
+    buf = torch.empty(tiles * (2 * n_s + 1) + tiles * (2 * n_t + 1),
+                      dtype=I32, device=dev)
+    plane = (torch.empty(height * width, dtype=I64, device=dev)
+             if items > 1 else None)
     p = tr._ptr
-    return tr._run(fn, tf.device, width, height, p(supers_s),
-                   supers_s.shape[0], p(blocks_s), p(rec_s), p(supers_t),
-                   supers_t.shape[0], p(blocks_t), p(ti_t), p(tf))
+    return tr._run(fn, dev, width, height, p(supers_s), n_s, p(blocks_s),
+                   p(rec_s), p(supers_t), n_t, p(blocks_t), p(ti_t), p(tf),
+                   items, p(buf), None if plane is None else p(plane))
 
 
 def raster_hbm2_kernel(supers_s, blocks_s, ti_short, supers_t, blocks_t,

@@ -30,7 +30,11 @@ that gives the per-pixel (z, id) minimum of the same fragments, which is
 what the CUDA kernel and the plain version compute.  Its 128-lane records,
 f32 id carry and 12-bit sort key exist for the TPU's DMAs and Mosaic's
 casts: the records here hold the 32 lanes in use.  CUDA:
-``csrc/raster_twoclass.cu``.
+``csrc/raster_twoclass.cu``, on K10hbm2's keyed body: the short records
+and the tall rows of a tile's work item in one batch list, a record over
+its rectangle in the tile, one key plane whose tag carries each row's
+class, so that the resolve, which re-evaluates every winner from the tall
+view's row, adds 0.0 to a short winner's z.
 
 Against K5 the visible rows are equal bit for bit except where a pixel's
 least z is exactly 1.0 (latched here) or its winner's z is -0.0 (stored
@@ -164,13 +168,13 @@ def record_rects(blocks8_s, wide_p):
                         wide_p[:, WL_JMAXF].to(I64), imin, last], 1)
 
 
-def raster_scanline_plain(supers_s, blocks8_s, wide_p, supers_t, blocks_t,
-                          ti_tall, tf, width: int, height: int):
-    """Plain torch K10scan over ``prepare_scanline_inputs``' outputs:
-    (packed i32, depth f32)."""
+def scanline_keys(supers_s, blocks8_s, wide_p, supers_t, blocks_t, ti_tall,
+                  tf, width: int, height: int):
+    """K10scan's (H*W,) int64 (z, row id) key plane: each pixel's least
+    fragment of the tall pass and the short records."""
     tr._check_frame(width, height)
-    dev = tf.device
-    keys = torch.full((height * width,), h2.KEY_CLEAR, dtype=I64, device=dev)
+    keys = torch.full((height * width,), h2.KEY_CLEAR, dtype=I64,
+                      device=tf.device)
     h2.view_min(keys, ti_tall, tf, blocks_t, supers_t, width, height, False)
     # Short records: the fragments inside each record's rect.
     rect = record_rects(blocks8_s, wide_p)
@@ -187,6 +191,17 @@ def raster_scanline_plain(supers_s, blocks8_s, wide_p, supers_t, blocks_t,
     h2.window_min(keys, width, y0, x0, tr.SHORT_ROWS, base, s, d,
                   _wide_ints(w, WL_B0), w[:, WL_ZA0:WL_ZA0 + 3],
                   w[:, WL_IDF].to(I64) - 1, rows=r[:, 2:], cols=r[:, :2])
+    return keys
+
+
+def raster_scanline_plain(supers_s, blocks8_s, wide_p, supers_t, blocks_t,
+                          ti_tall, tf, width: int, height: int):
+    """Plain torch K10scan over ``prepare_scanline_inputs``' outputs:
+    (packed i32, depth f32)."""
+    tr._check_frame(width, height)
+    dev = tf.device
+    keys = scanline_keys(supers_s, blocks8_s, wide_p, supers_t, blocks_t,
+                         ti_tall, tf, width, height)
     won, wid = h2.winners(keys)
     # Each pixel's winner: a short row (h >= 0 in its record) from its
     # record, its z plus 0.0; a tall row from the tall view.
