@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Same-call A/B of the raster kernels K1, K2g, K2d, K3, K3b, K3g, K3d, K4,
 K4c, K4g, K4d, K5, K5g, K6, K6g, K6d, K9 and K9d, the two-class
-experiments K10hbm2 and K10scan, and the tiled light kernel K7, and of the
-frames whose pace they set, between this tree and another checkout (for
-example a parent commit unpacked with ``git archive``) on one CUDA card;
-or, with ``--sweep``, this tree's K5 and K5g on the 1M lattice at each
-work-item count of SWEEP_ITEMS, K10hbm2 and K10scan at each count of
-SWEEP_TWOCLASS_ITEMS (``twoclass_sweep``), K6, K6g, K6d and K9d at each
+experiments K10hbm2 and K10scan, the visibility-buffer experiments K10vis
+and K10trans, and the tiled light kernel K7, and of the frames whose pace
+they set, between this tree and another checkout (for example a parent
+commit unpacked with ``git archive``) on one CUDA card; or, with
+``--sweep``, this tree's K5 and K5g on the 1M lattice at each work-item
+count of SWEEP_ITEMS, K10hbm2 and K10scan at each count of
+SWEEP_TWOCLASS_ITEMS (``twoclass_sweep``), K10vis and K10trans at each
+count of SWEEP_VIS_ITEMS (``vis_sweep``), K6, K6g, K6d and K9d at each
 item size of SWEEP_RECORDS and halved toward each item count of
 SWEEP_MIN_ITEMS (``record_sweep``), and K1 and K2d at each count of
 SWEEP_SMALL_BLOCKS blocks a tile (``small_sweep``).
@@ -32,8 +34,9 @@ same map's ``tile_lists`` inputs, K9d on band 0 of the 40K lattice's 2
 ``dist`` bands at 1920x544 (each shard's slabs through the in-turn
 all-to-all, ``tiles.dist_exchange``, then the owner's prepare), K5 on the
 flat 40K and 1M lattices' and the 1M lattice's shadow map's hierarchy
-inputs, K10hbm2 and K10scan on the flat 1M lattice's rows (their own
-prepares), K4 on the flat and K4g on the lit 1M lattice's inputs (``auto``),
+inputs, K10hbm2, K10scan, K10vis and K10trans on the flat 1M lattice's
+rows (their own prepares), K4 on the flat and K4g on the lit 1M lattice's
+inputs (``auto``),
 K9 on band 0 of the flat 1M lattice's 2 bands at 1920x544 (the rows
 gathered from 2 shards, the band-local prepare, as ``tiles.band_raster``
 makes it), K4c on the 1M soup's ``tile_lists`` inputs (the coarse class),
@@ -72,6 +75,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # K10scan.
 SWEEP_ITEMS = (1, 4, 8, 16, 32, 64)
 SWEEP_TWOCLASS_ITEMS = (1, 4, 8, 16, 32)
+# Work items a tile that ``--sweep`` times K10vis and K10trans at.
+SWEEP_VIS_ITEMS = (1, 4, 8, 16, 32)
 # Records an item that ``--sweep`` times K6, K6g, K6d and K9d at, never
 # halved, and
 # the items their 256 records are halved to aim at.
@@ -316,6 +321,44 @@ def twoclass_sweep(rows=None) -> dict:
     return out
 
 
+def vis_cases(rows, width, height):
+    """K10vis's and K10trans's (kernel, prepared inputs) on ``rows``."""
+    from zrenderer_tpu_torch.ops.experiments import raster_vis_trans as vt
+
+    return {"k10vis": (vt.raster_vis_kernel,
+                       vt.prepare_vis_inputs(*rows, width, height)[:4]),
+            "k10trans": (vt.raster_trans_kernel,
+                         vt.prepare_trans_inputs(*rows)[:4])}
+
+
+def vis_sweep(rows=None) -> dict:
+    """K10vis and K10trans on the flat 1M lattice's rows (``rows``, or the
+    renderer's) at each work-item count of SWEEP_VIS_ITEMS (ms a call,
+    CUDA events), every count's planes equal."""
+    from zrenderer_tpu_torch.ops.experiments import raster_vis_trans as vt
+    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+
+    w, h = cs.PAD_W, cs.PAD_H
+    if rows is None:
+        rows = cs.frame_rows(renderer(make_stress_scene(cs.LARGE_TRIS)))
+    out = {}
+    saved = vt.VIS_ITEMS
+    try:
+        for key, (kern, prep) in vis_cases(rows, w, h).items():
+            out[key], ref = {}, None
+            for n in SWEEP_VIS_ITEMS:
+                vt.VIS_ITEMS = n
+                out[key][n] = event_ms(lambda: kern(*prep, w, h), 10)
+                d = digest(*kern(*prep, w, h))
+                if ref is not None and d != ref:
+                    raise AssertionError(f"{key}: {n} items a tile changed "
+                                         "the planes")
+                ref = d
+    finally:
+        vt.VIS_ITEMS = saved
+    return out
+
+
 def sweep() -> dict:
     """K5 on the flat and K5g on the lit 1M lattice's hierarchy inputs at
     each item count of SWEEP_ITEMS (ms a call, CUDA events), every count's
@@ -330,6 +373,7 @@ def sweep() -> dict:
     rows = cs.frame_rows(r)
     flat = raster.prepare_raster_inputs(*rows)
     out["twoclass"] = twoclass_sweep(rows)
+    out["vis"] = vis_sweep(rows)
     del r, rows
     r = renderer(lattice, pipeline="lit")
     r.set_environment(texture=cs.checker_texture())
@@ -390,7 +434,8 @@ def measure(small=False) -> dict:
            "k3": {}, "k3b": {}, "k3g": {}, "k3d": {}, "k4": {}, "k4c": {},
            "k4d": {}, "k4g": {}, "k5": {}, "k5g": {}, "k6": {}, "k6g": {},
            "k6d": {}, "k7": {}, "k9": {}, "k9d": {}, "k10hbm2": {},
-           "k10scan": {}, "frames": {}, "busy": {}, "digests": {}}
+           "k10scan": {}, "k10vis": {}, "k10trans": {}, "frames": {},
+           "busy": {}, "digests": {}}
     # The test scene: K1 on the flat frame's inputs, K2g on the lit
     # frame's, K2d on the shadowed frame's map; the flat and the shadowed
     # frames.
@@ -542,7 +587,8 @@ def measure(small=False) -> dict:
     prep = raster.prepare_raster_inputs(*rows)
     out["k5"]["lattice1M"] = event_ms(lambda: k5(*prep, w, h), 5)
     out["digests"]["k5 lattice1M"] = digest(*k5(*prep, w, h))
-    for key, (kern, prep) in twoclass_cases(rows, h).items():
+    for key, (kern, prep) in {**twoclass_cases(rows, h),
+                              **vis_cases(rows, w, h)}.items():
         out[key]["lattice1M"] = event_ms(lambda: kern(*prep, w, h), 5)
         out["digests"][f"{key} lattice1M"] = digest(*kern(*prep, w, h))
     del rows, prep
@@ -646,7 +692,8 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="time this tree's K5 and K5g at each item count "
                     "of SWEEP_ITEMS, K10hbm2 and K10scan at each of "
-                    "SWEEP_TWOCLASS_ITEMS, K6, K6g, K6d and K9d at each item "
+                    "SWEEP_TWOCLASS_ITEMS, K10vis and K10trans at each of "
+                    "SWEEP_VIS_ITEMS, K6, K6g, K6d and K9d at each item "
                     "size of SWEEP_RECORDS and SWEEP_MIN_ITEMS, and K1 and "
                     "K2d at each count of SWEEP_SMALL_BLOCKS, instead")
     ap.add_argument("--small", action="store_true",
@@ -695,7 +742,8 @@ def main(argv=None) -> int:
     print("every run gave the same "
           + ("K1, K2g, K2d and frame" if args.small else
              "K1, K2g, K2d, K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, K5, K5g, "
-             "K6, K6g, K6d, K7, K9, K9d, K10hbm2, K10scan and frame")
+             "K6, K6g, K6d, K7, K9, K9d, K10hbm2, K10scan, K10vis, "
+             "K10trans and frame")
           + " planes")
     return 0
 

@@ -226,9 +226,13 @@ lines and seconds:
 6xv. the visibility-buffer experiments' traces, taken before phase 6's
     untraced loops and their own plain versions (a trace after about 1.2M
     untraced launches loses a kernel record): K10vis and K10trans on the
-    1M lattice at 1920x1088 (five launches each), each entry point traced
-    once (device ops, busy ms, idle share) and the colour resolve
-    (``resolve_flat_vis``, torch ops) traced once;
+    1M lattice at 1920x1088 (five launches each; a call is the sum of its
+    device ops, the hit words, the key plane's memset, the work items and
+    the resolve, whose count is printed and checked, each op's time
+    printed), each entry point traced once (device ops, busy ms, idle
+    share, and its split into the prepare's ops, the kernel's and the
+    colour resolve's) and the colour resolve (``resolve_flat_vis``, torch
+    ops) traced once;
 6h. the two-class experiments' traces, before phase 6's untraced loops
     too: K10hbm2 and K10scan on the 1M lattice at 1920x1088 (five launches
     each; a call is the sum of its device ops, the hit words of both
@@ -269,22 +273,33 @@ lines and seconds:
    frames' ms, every band rendered in turn on the one card (no multi-card
    time);
 4xv. (after phase 6) K10vis (hit bitmap of 8-row groups) and K10trans
-    (8-row groups over 4-row chunks) against their plain versions: depth
-    bits and the winning row id equal, the colour resolved on the card
-    equal to the same resolve on the CPU: the 40K lattice at 1920x1088
-    (its plain calls give plain_ms), the test scene, the clipped soup, the
-    duplicated soup (its resolved frame equal to the soup's without the
-    duplicates: ties to the first row), the soup at 128x64 with geometry
-    at 128x56 (rows 56-63 drawn by each kernel's own extent, all 64 rows
-    held) and an empty scene; the visible rows of each frame equal K5's;
+    (8-row groups over 4-row chunks) against their plain versions, at
+    vis_trans.VIS_ITEMS work items a tile and at 1: depth bits and the
+    winning row id equal, the colour resolved on the card equal to the
+    same resolve on the CPU: the 40K lattice at 1920x1088 (its plain
+    calls give plain_ms), the test scene, the clipped soup, the duplicated
+    soup (its resolved frame equal to the soup's without the duplicates:
+    ties to the first row), the soup at 128x64 with geometry at 128x56
+    (rows 56-63 drawn by each kernel's own extent, all 64 rows held: 451
+    pixels for K10vis, none for K10trans), an exact tie at z == 0 between
+    a -0.0 and a +0.0 row both ways (the first row and its sign kept), a
+    row at z == 1.0 (left clear) and an empty scene; the visible rows of
+    each frame equal K5's;
 5xv. the two entry points once each on the 1M lattice at 1920x1088,
     launch counts set to 0 just before and read just after (one launch
-    each), rows 0-1079 equal K5's frame (RGBA and depth bits); then each
-    kernel against its plain version on one 1M prepare, all 1088 rows,
-    unless the plain version's 40K time scaled to 1M rows exceeds 60 s;
+    each), rows 0-1079 equal K5's frame (RGBA and depth bits), rows
+    1080-1087 holding 2610 (K10vis) and 745 (K10trans) drawn pixels; then
+    each kernel against its plain version on one 1M prepare, all 1088
+    rows, unless the plain version's 40K time scaled to 1M rows exceeds
+    60 s;
 6xv (untraced). the launchers, the resolve and the two prepares between
-    CUDA events at 1M, and the bounds (the (4x128 chunk, triangle) pairs,
-    K10trans's gate, for both kernels; the resolve by its bytes);
+    CUDA events at 1M; the bounds: each admitted (tile, row) pair's window
+    pixels (its vertices' bbox in the tile within the kernel's extent) x
+    OPS_PER_EVAL, or the bytes the keyed body needs (tables, bitmap,
+    admitted rows, the two planes), the register body's (4x128 chunk,
+    triangle) pairs kept beside them; the resolve by its bytes; ptxas's
+    registers, spills and shared memory of each kernel's item, resolve
+    and hit-word kernels;
 4h. K10hbm2 (short rows on an 8-row window, tall rows over the tile) and
     K10scan (the tall pass, then row-sorted wide records of the short
     rows) against their plain versions, colour and depth bits in every
@@ -351,7 +366,9 @@ and the live layers (12 bytes each) moved once and the live layers times
 OPS_PER_COMPOSITE_LAYER.  The group8 kernels' pairs are of their 8x128
 tiles, 1024 pixels each; the vec kernels' of 8x128 chunks, the
 granularity at which they gate a subgroup, 1024 pixels each; K10vis's and
-K10trans's of 4x128 chunks, 512 pixels each, times OPS_PER_VIS_PAIR.
+K10trans's their admitted pairs' window pixels, as K10hbm2's (their
+(4x128 chunk, triangle) pairs x 512 x OPS_PER_VIS_PAIR kept as
+bound_ms_chunks).
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1 at
 once.  The band kernels' bound counts the pairs and the output planes of
@@ -453,7 +470,8 @@ PTXAS_SPILLS = {}  # bytes of spill stores
 OPS_PER_OVERLAY_EVAL = 28
 OPS_PER_OVERLAY_HIT = 65
 OPS_PER_COMPOSITE_LAYER = 152
-# K10vis and K10trans, one (pixel, row) of their z + id body: the 26 ops of
+# K10vis and K10trans, one (pixel, row) of the register body they ran
+# before the keyed one (kept for bound_ms_chunks): the 26 ops of
 # OPS_PER_EVAL (3 edge functions of 5 int ops, 3 bias tests, 3 int ->
 # float conversions, the z plane's 3 mul + 2 add), the depth test z >= 0
 # && z < zb (2) and the latch of z and the row id (2): 30 ops.
@@ -1504,6 +1522,13 @@ def main(argv=None) -> int:
               f"raster_scan_keyed_kernel; {hbm2.TWOCLASS_ITEMS} work "
               "item(s) a tile; twoclass_hit_words_kernel and the resolve "
               "kernels none)")
+        for key in ("k10vis", "k10trans"):
+            results[key]["smem_bytes"] = smem
+        print(f"  K10vis/K10trans keyed body: {smem} bytes of dynamic shared "
+              "memory a block (raster_vis_keyed_kernel, "
+              f"raster_trans_keyed_kernel; {vis_trans.VIS_ITEMS} work "
+              "item(s) a tile; vis_hit_words_kernel, trans_hit_words_kernel "
+              "and the resolve kernels none)")
         return info.seconds
 
     # -- 3. K1 vs plain ---------------------------------------------------
@@ -3275,8 +3300,8 @@ def main(argv=None) -> int:
                     "k10g8d": "depth_group8_kernel",
                     "k10vec": "raster_vec_kernel",
                     "k10vecg": "gbuffer_vec_kernel",
-                    "k10vis": "raster_vis_kernel",
-                    "k10trans": "raster_trans_kernel",
+                    "k10vis": "raster_vis_keyed_kernel",
+                    "k10trans": "raster_trans_keyed_kernel",
                     "k10hbm2": "raster_hbm2_keyed_kernel",
                     "k10scan": "raster_scan_keyed_kernel"}
     # K4, K4c, K4g, K4d, K6, K6g, K6d, K9 and K9d make three device
@@ -3300,18 +3325,27 @@ def main(argv=None) -> int:
                           "k3d": "depth_hier_resolve_kernel",
                           "k5": "raster_hbm_resolve_kernel",
                           "k5g": "gbuffer_hbm_resolve_kernel"}
-    # K10hbm2 and K10scan likewise, with hbm2.TWOCLASS_ITEMS.
+    # K10hbm2 and K10scan likewise, with hbm2.TWOCLASS_ITEMS, and K10vis
+    # and K10trans with vis_trans.VIS_ITEMS.
     twoclass_resolve_names = {"k10hbm2": "raster_hbm2_resolve_kernel",
                               "k10scan": "raster_scan_resolve_kernel"}
+    vis_resolve_names = {"k10vis": "raster_vis_resolve_kernel",
+                         "k10trans": "raster_trans_resolve_kernel"}
     # The hierarchy kernels first write the tiles' hit words: one more
     # device operation a call, before the others (the two-class kernels
-    # both views' in one launch).
+    # both views' in one launch; K10vis from its bitmap).
     HIT_WORDS_KERNEL = "hier_hit_words_kernel"
     TWOCLASS_HIT_WORDS_KERNEL = "twoclass_hit_words_kernel"
+    hit_words_names = {
+        **{k: HIT_WORDS_KERNEL for k in hier_resolve_names},
+        **{k: TWOCLASS_HIT_WORDS_KERNEL for k in twoclass_resolve_names},
+        "k10vis": "vis_hit_words_kernel",
+        "k10trans": "trans_hit_words_kernel"}
     port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
                     | set(hier_resolve_names.values())
                     | set(twoclass_resolve_names.values())
-                    | {HIT_WORDS_KERNEL, TWOCLASS_HIT_WORDS_KERNEL})
+                    | set(vis_resolve_names.values())
+                    | set(hit_words_names.values()))
 
     def resolve_of(key):
         """The resolve kernel of a call of kernel ``key``, or None for a
@@ -3320,6 +3354,8 @@ def main(argv=None) -> int:
             return hier_resolve_names[key]
         if key in twoclass_resolve_names and hbm2.TWOCLASS_ITEMS > 1:
             return twoclass_resolve_names[key]
+        if key in vis_resolve_names and vis_trans.VIS_ITEMS > 1:
+            return vis_resolve_names[key]
         return resolve_names.get(key)
 
     def call_ops(key):
@@ -3327,9 +3363,7 @@ def main(argv=None) -> int:
         the hierarchy kernels' hit words, the key plane's memset where a
         resolve follows, the item kernel (kernel_names), the resolve."""
         resolve = resolve_of(key)
-        ops = ([HIT_WORDS_KERNEL] if key in hier_resolve_names
-               else [TWOCLASS_HIT_WORDS_KERNEL]
-               if key in twoclass_resolve_names else [])
+        ops = [hit_words_names[key]] if key in hit_words_names else []
         ops += ["Memset"] if resolve else []
         return ops + [kernel_names[key]] + ([resolve] if resolve else [])
 
@@ -4451,30 +4485,73 @@ def main(argv=None) -> int:
                          ti, tf)),
     }
 
+    # The 1M lattice's rows at 1080p: phase 5b's, or where ``--phases``
+    # skipped 5b, the port's geometry on the card.
+    rows_1m = rows_lattice or setup_rows(*make_stress_scene(LARGE_TRIS),
+                                         WIDTH, HEIGHT)
+
+    def entry_split(key, events):
+        """An entry point's device ops split around its kernel's call: (ops
+        and device ms before the call's first op, the call's, after its last
+        op), in time order: the prepare, the kernel, the resolve."""
+        ev = sorted(events, key=lambda e: e[1])
+        ops = call_ops(key)
+        first = next(i for i, e in enumerate(ev) if ops[0] in e[0])
+        last = max(i for i, e in enumerate(ev) if ops[-1] in e[0])
+        parts = (ev[:first], ev[first:last + 1], ev[last + 1:])
+        return [(len(p), sum(e[2] for e in p) / 1000.0) for p in parts]
+
     @phase("6xv K10vis/K10trans traces")
     def vis_traces():
-        """Each kernel's device time from a trace at 1M (five launches),
-        each entry point traced once (device ops, busy, idle share) and
-        the resolve traced once.  Returns the 1M prepares and the
-        resolve's busy ms."""
-        ti, tf = rows_lattice
+        """Each kernel's device time from a trace at 1M (five launches: a
+        call is the sum of its device ops, ``call_ops``, whose count the
+        trace must hold), each entry point traced once (device ops, busy,
+        idle share and its split into prepare, kernel and resolve,
+        ``entry_split``) and the resolve traced once.  Returns the 1M
+        prepares, the planes of K10vis with the table, and the resolve's
+        busy ms."""
+        ti, tf = rows_1m
         w, h = PAD_W, PAD_H
         preps = {}
         for key, (kern, _, fn, prepare) in vt_cases.items():
             *args, table = preps[key] = prepare(ti, tf, w, h)
-            _, _, ms = traced_kernel_ms(
-                (key,), lambda: [kern(*args, w, h) for _ in range(5)])
+            reps = 5
+            events, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*args, w, h) for _ in range(reps)])
             results[key]["ms"] = ms[key]
+            ops = call_ops(key)
+            results[key]["device_ops_per_call"] = len(ops)
+            names = sorted({n.split("(")[0] for n, _, _ in events})
+            per_op = {o: sum(d for n, _, d in events if o in n) / reps
+                      / 1000.0 for o in ops}
+            results[key]["op_ms"] = per_op
+            print(f"  {key}: {len(events)} device ops for {reps} calls in "
+                  f"its trace ({len(ops)} a call: {', '.join(ops)}): "
+                  f"{names}; {ms[key]:.4f} ms a call (their sum; each op: "
+                  + ", ".join(f"{o} {t:.4f}" for o, t in per_op.items())
+                  + ")")
+            if len(events) != len(ops) * reps:
+                raise AssertionError(f"{key}: {len(events)} device ops for "
+                                     f"{reps} calls, not {len(ops)} a call")
             events, window, kms = traced_kernel_ms((key,),
                                                    lambda: fn(ti, tf, w, h))
-            results[key]["anim_ms"] = kms[key]
             busy = busy_us(events)
+            (n_pre, pre_ms), (n_k, k_ms), (n_res, res_ms) = entry_split(
+                key, events)
+            results[key].update(anim_ms=kms[key], entry_ops=len(events),
+                                entry_busy_ms=busy / 1000.0,
+                                entry_idle_share=1.0 - busy / window,
+                                entry_prepare_ms=pre_ms,
+                                entry_kernel_ms=k_ms,
+                                entry_resolve_ms=res_ms)
             print(f"  profiled entry point {fn.__name__} on lattice1M {w}x"
                   f"{h}: {len(events)} device ops, device busy "
                   f"{busy / 1000.0:.4f} ms ({key} {kms[key]:.4f} ms), idle "
                   f"share {1.0 - busy / window:.4f} of "
                   f"{window / 1000.0:.4f} ms traced; kernel alone "
-                  f"{ms[key]:.4f} ms", flush=True)
+                  f"{ms[key]:.4f} ms; split (device ms, summed): prepare "
+                  f"{n_pre} ops {pre_ms:.4f}, kernel {n_k} ops {k_ms:.4f}, "
+                  f"resolve {n_res} ops {res_ms:.4f}", flush=True)
         *args, table = preps["k10vis"]
         depth, idx = kxvis(*args, w, h)
         events, window = device_trace(
@@ -4485,7 +4562,16 @@ def main(argv=None) -> int:
               f"{window / 1000.0:.4f} ms traced")
         return preps, (depth, idx, table), busy / 1000.0
 
-    vt_preps, vt_planes, vt_resolve_busy = vis_traces or (None,) * 3
+    def vis_inputs_1m():
+        """The 1M prepares, K10vis's planes with the table and the
+        resolve's busy ms: 6xv's, or where ``--phases`` skipped its traces,
+        new ones (the resolve's busy time then not measured)."""
+        if vis_traces is not None:
+            return vis_traces
+        preps = {key: case[3](*rows_1m, PAD_W, PAD_H)
+                 for key, case in vt_cases.items()}
+        *args, table = preps["k10vis"]
+        return preps, (*kxvis(*args, PAD_W, PAD_H), table), None
 
     # -- 6h. the two-class traces -------------------------------------------
     # Before phase 6's untraced loops and the plain versions, as 6xv's.
@@ -4497,11 +4583,6 @@ def main(argv=None) -> int:
                     scanline.rasterize_setup_scanline,
                     scanline.prepare_scanline_inputs),
     }
-    # The 1M lattice's rows at 1080p: phase 5b's, or where ``--phases``
-    # skipped 5b, the port's geometry on the card.
-    rows_1m = rows_lattice or setup_rows(*make_stress_scene(LARGE_TRIS),
-                                         WIDTH, HEIGHT)
-
     @phase("6h K10hbm2/K10scan traces")
     def twoclass_traces():
         """Each kernel's device time from a trace at 1M (five launches: a
@@ -4520,9 +4601,14 @@ def main(argv=None) -> int:
             ops = call_ops(key)
             results[key]["device_ops_per_call"] = len(ops)
             names = sorted({n.split("(")[0] for n, _, _ in events})
+            per_op = {o: sum(d for n, _, d in events if o in n) / reps
+                      / 1000.0 for o in ops}
+            results[key]["op_ms"] = per_op
             print(f"  {key}: {len(events)} device ops for {reps} calls in "
                   f"its trace ({len(ops)} a call: {', '.join(ops)}): "
-                  f"{names}; {ms[key]:.4f} ms a call (their sum)")
+                  f"{names}; {ms[key]:.4f} ms a call (their sum; each op: "
+                  + ", ".join(f"{o} {t:.4f}" for o, t in per_op.items())
+                  + ")")
             if len(events) != len(ops) * reps:
                 raise AssertionError(f"{key}: {len(events)} device ops for "
                                      f"{reps} calls, not {len(ops)} a call")
@@ -5140,12 +5226,6 @@ def main(argv=None) -> int:
     def vis_cases():
         rows40 = setup_rows(*make_stress_scene(MID_TRIS), WIDTH, HEIGHT,
                             tri_align=256)
-        for key in vt_cases:
-            t0 = time.perf_counter()
-            vt_check(key, "lattice40k", rows40, PAD_W, PAD_H, HEIGHT,
-                     plain_shape="lattice40k")
-            print(f"  (plain {key} included: "
-                  f"{time.perf_counter() - t0:.1f} s)")
         scene_rows = setup_rows(*load_test_scene(), WIDTH, HEIGHT)
         clipped = setup_rows(*clipped_soup(), WIDTH, HEIGHT)
         w, h = 1024, 512
@@ -5158,46 +5238,100 @@ def main(argv=None) -> int:
         pad = slice(56, 64)
         print(f"  padded soup 128x64: K5 draws {int((d5[pad] < 1.0).sum())} "
               "pixels in rows 56-63")
+        # A tall row A and a short row B inside it, B after A: an exact
+        # tie at z == 0 with A's -0.0 and B's +0.0, then the other way; A
+        # at z = e0 / 4, exactly 1.0 on one covered pixel.
+        neg_first = pair_rows(za_a=(-0.0,) * 3, za_b=(0.0,) * 3)
+        neg_second = pair_rows(za_a=(0.0,) * 3, za_b=(-0.0,) * 3)
+        z_one = pair_rows(za_a=(0.25, 0.0, 0.0))
         t = tg.capped_rows(64)
         ti = torch.zeros((t + (-t) % 64, tg.NI32), dtype=torch.int32,
                          device=dev)
         ti[:, tg.I_JMIN] = 1
         ti[:, tg.I_BIAS0:tg.I_BIAS2 + 1] = 2**31 - 1
         empty = (ti, torch.zeros((ti.shape[0], tg.NF32), device=dev))
-        for key in vt_cases:
-            vt_check(key, "test scene", scene_rows, PAD_W, PAD_H, HEIGHT)
-            vt_check(key, "clipped soup", clipped, PAD_W, PAD_H, HEIGHT)
-            c_dup, d_dup, _ = vt_check(key, "duplicated triangles", dup, w,
-                                       h, h)
-            c_one, d_one, _ = vt_check(key, "duplicates removed", one, w, h,
-                                       h)
-            if not same_planes((c_dup, d_dup), (c_one, d_one)):
-                raise AssertionError(f"{key}: a duplicate won a depth tie")
-            c, d, _ = vt_check(key, "padded soup", padded, 128, 64, 56)
-            drawn = int((d[pad] < 1.0).sum().item())
-            other = int(((d[pad] != d5[pad]) | (c[pad] != c5[pad])).sum()
-                        .item())
-            print(f"  padded soup ({key}): {drawn} pixels drawn in rows "
-                  f"56-63, {other} of them differ from K5's")
-            c, d, i = vt_check(key, "empty scene", empty, PAD_W, PAD_H,
-                               PAD_H, empty=True)
-            if not (bool((i == -1).all().item())
-                    and bool((c == -(1 << 24)).all().item())):
-                raise AssertionError(f"empty scene: {key} drew something")
+        drawn_in_pad = {"k10vis": 451, "k10trans": 0}
+        saved = vis_trans.VIS_ITEMS
+        try:
+            # The main path's items, then one item a tile (resolved in
+            # place): every case at both.
+            for n in (saved, 1):
+                vis_trans.VIS_ITEMS = n
+                print(f"  -- {n} work item(s) a tile")
+                for key in vt_cases:
+                    t0 = time.perf_counter()
+                    vt_check(key, "lattice40k", rows40, PAD_W, PAD_H,
+                             HEIGHT, plain_shape="lattice40k" if n == saved
+                             else None)
+                    print(f"  (plain {key} included: "
+                          f"{time.perf_counter() - t0:.1f} s)")
+                for key in vt_cases:
+                    vt_check(key, "test scene", scene_rows, PAD_W, PAD_H,
+                             HEIGHT)
+                    vt_check(key, "clipped soup", clipped, PAD_W, PAD_H,
+                             HEIGHT)
+                    c_dup, d_dup, _ = vt_check(key, "duplicated triangles",
+                                               dup, w, h, h)
+                    c_one, d_one, _ = vt_check(key, "duplicates removed",
+                                               one, w, h, h)
+                    if not same_planes((c_dup, d_dup), (c_one, d_one)):
+                        raise AssertionError(f"{key}: a duplicate won a "
+                                             "depth tie")
+                    c, d, _ = vt_check(key, "padded soup", padded, 128, 64,
+                                       56)
+                    drawn = int((d[pad] < 1.0).sum().item())
+                    other = int(((d[pad] != d5[pad]) | (c[pad] != c5[pad]))
+                                .sum().item())
+                    print(f"  padded soup ({key}): {drawn} pixels drawn in "
+                          f"rows 56-63, {other} of them differ from K5's")
+                    if drawn != drawn_in_pad[key]:
+                        raise AssertionError(
+                            f"padded soup: {key} drew {drawn} pixels in "
+                            f"rows 56-63, not {drawn_in_pad[key]}")
+                    for label, rows, sign in (("-0.0 then +0.0", neg_first,
+                                               True),
+                                              ("+0.0 then -0.0", neg_second,
+                                               False)):
+                        _, d, i = vt_check(key, f"exact tie at z == 0, "
+                                           f"{label}", rows, 128, 32, 32)
+                        zero = d == 0.0
+                        ids = torch.unique(i[zero]).tolist()
+                        neg = bool((torch.signbit(d[zero]) == sign).all()
+                                   .item())
+                        print(f"  tie at z == 0, {label} ({key}): "
+                              f"{int(zero.sum().item())} pixels, ids "
+                              f"{ids}, the first row's sign kept {neg}")
+                        if ids != [0] or not neg:
+                            raise AssertionError(f"{key}: the tie at z == "
+                                                 "0 went to the second row")
+                    _, d, i = vt_check(key, "z == 1.0", z_one, 128, 32, 32)
+                    if bool(((d == 1.0) & (i >= 0)).any().item()):
+                        raise AssertionError(f"{key}: a row at z == 1.0 "
+                                             "passed")
+                    c, d, i = vt_check(key, "empty scene", empty, PAD_W,
+                                       PAD_H, PAD_H, empty=True)
+                    if not (bool((i == -1).all().item())
+                            and bool((c == -(1 << 24)).all().item())):
+                        raise AssertionError(f"empty scene: {key} drew "
+                                             "something")
+        finally:
+            vis_trans.VIS_ITEMS = saved
         print("  every exact depth tie went to the first-submitted row "
-              "(K10vis, K10trans)")
+              f"(K10vis, K10trans; {saved} and 1 work item(s) a tile)")
 
     # -- 5xv. the visibility-buffer frames at 1M ------------------------------
     @phase("5xv K10vis/K10trans frames at 1M")
     def vis_frames():
         """Each entry point once on the 1M lattice at 1920x1088, with every
         launch count set to 0 just before and read just after; rows
-        0-1079 against K5's frame.  Then each kernel against its plain
-        version on one 1M prepare, all 1088 rows, where the plain
-        version's 40K time scaled to 1M rows stays under PLAIN_1M_MAX_S."""
-        ti, tf = rows_lattice
+        0-1079 against K5's frame, the pixels drawn in rows 1080-1087.
+        Then each kernel against its plain version on one 1M prepare, all
+        1088 rows, where the plain version's 40K time scaled to 1M rows
+        stays under PLAIN_1M_MAX_S."""
+        ti, tf = rows_1m
         c5, d5 = k5(*raster.prepare_raster_inputs(ti, tf), PAD_W, PAD_H)
         vis, pad = slice(0, HEIGHT), slice(HEIGHT, PAD_H)
+        drawn_in_pad = {"k10vis": 2610, "k10trans": 745}
         for key, (_, _, fn, _) in vt_cases.items():
             sync()
             for kern in kernel_of.values():
@@ -5212,19 +5346,27 @@ def main(argv=None) -> int:
             counts[key] = 1
             same5 = same_planes((c[vis], d[vis]), (c5[vis], d5[vis]))
             cov = (d[vis] < 1.0).float().mean().item()
+            drawn = int((d[pad] < 1.0).sum().item())
+            results[key]["pad_pixels_1m"] = drawn
             print(f"  lattice1M {PAD_W}x{PAD_H} ({key}, one launch): rows "
                   f"0-{HEIGHT - 1} equal K5's {same5} (RGBA and depth bits),"
                   f" coverage {cov:.4f}; rows {HEIGHT}-{PAD_H - 1}: "
-                  f"{int((d[pad] < 1.0).sum().item())} pixels drawn, K5 "
+                  f"{drawn} pixels drawn, K5 "
                   f"{int((d5[pad] < 1.0).sum().item())}")
             if not same5 or cov <= MIN_COVERAGE:
                 raise AssertionError(f"lattice1M: {key} differs from K5 in "
                                      "the visible rows")
+            if drawn != drawn_in_pad[key]:
+                raise AssertionError(f"lattice1M: {key} drew {drawn} "
+                                     f"pixels in rows {HEIGHT}-{PAD_H - 1}, "
+                                     f"not {drawn_in_pad[key]}")
+        vt_preps = vis_inputs_1m()[0]
         for key, (kern, plain, _, _) in vt_cases.items():
             *args, _ = vt_preps[key]
-            scale = ti.shape[0] / MID_TRIS
-            predicted = results[key]["plain_ms"] / 1e3 * scale
-            if predicted > PLAIN_1M_MAX_S:
+            plain_ms = results[key].get("plain_ms")
+            predicted = (None if plain_ms is None
+                         else plain_ms / 1e3 * ti.shape[0] / MID_TRIS)
+            if predicted is not None and predicted > PLAIN_1M_MAX_S:
                 print(f"  lattice1M ({key}): plain version not run, its "
                       f"40K time scaled by the rows predicts {predicted:.1f}"
                       f" s > {PLAIN_1M_MAX_S:.0f} s; held at 40K only")
@@ -5240,7 +5382,7 @@ def main(argv=None) -> int:
             print(f"  lattice1M {PAD_W}x{PAD_H} ({key}): kernel and plain "
                   f"version bit-exact in all {PAD_H} rows {same} (depth "
                   f"bits and ids; plain version {secs:.1f} s, predicted "
-                  f"{predicted:.1f} s)", flush=True)
+                  f"{predicted} s)", flush=True)
             if not same:
                 raise AssertionError(f"lattice1M: {key} and its plain "
                                      "version differ")
@@ -5248,14 +5390,51 @@ def main(argv=None) -> int:
               f"{ {k: counts[k] for k in vt_cases} }")
 
     # -- 6xv (untraced). launcher, resolve and prepare times; bounds ----------
+    def vis_work(key, args, w, h):
+        """The work kernel ``key``'s keyed body needs on ``args``: (admitted
+        (tile, row) pairs, their window pixel evaluations, bytes needed).
+        A pair's window is its row's vertices' pixel bbox in the tile
+        within the kernel's extent (``vis_trans.window_rects``: K10vis the
+        tile, K10trans its group's chunk rows): inside the geometry's rows
+        it holds every pixel the row covers, in the padding rows the
+        kernel's own extent.  The bytes: the tables (K10vis the superblocks
+        and the bitmap, K10trans the superblocks, blocks and group bounds),
+        each admitted row's 20 setup ints and 3 z floats once and the two
+        planes; the store reads no row."""
+        if key == "k10vis":
+            supers, bits, ti, _ = args
+            hits = vis_trans.vis_block_hits(supers, bits, ti.shape[0], w, h)
+            rows, ty, tx = vis_trans.admitted_rows(hits, w, bits=bits)
+            rect = vis_trans.window_rects(ti, rows, ty, tx)
+            tables = (supers, bits)
+        else:
+            supers, blocks, rec, gbounds = args
+            hits = raster.hier_block_hits(supers, blocks, w, h)
+            rows, ty, tx = vis_trans.admitted_rows(hits, w, gbounds=gbounds)
+            rect = vis_trans.window_rects(rec, rows, ty, tx,
+                                          gbounds=gbounds)
+            tables = (supers, blocks, gbounds)
+        evals = int(((rect[:, 1] - rect[:, 0] + 1).clamp(min=0)
+                     * (rect[:, 3] - rect[:, 2] + 1).clamp(min=0))
+                    .sum().item())
+        nbytes = (sum(t.numel() * t.element_size() for t in tables)
+                  + torch.unique(rows).numel() * (tg.NI32 * 4 + 12)
+                  + 2 * 4 * w * h)
+        return rows.numel(), evals, nbytes
+
     @phase("6xv K10vis/K10trans untraced times and bounds")
     def vis_timing():
         """The launchers, the resolve and the prepares between CUDA
-        events at 1M, and the bounds: (4x128 chunk, triangle) pairs,
-        K10trans's gate, for both kernels; the resolve by its bytes."""
-        ti, tf = rows_lattice
+        events at 1M, and the bounds: the window pixel evaluations each
+        kernel needs (``vis_work``) x OPS_PER_EVAL, or the bytes its keyed
+        body needs (every input read once and the two planes kept as
+        bound_ms_inputs, and the (4x128 chunk, triangle) pairs x 512 x
+        OPS_PER_VIS_PAIR as bound_ms_chunks, the register body's bound);
+        the resolve by its bytes; ptxas's registers, spills and shared
+        memory of each kernel's item, resolve and hit-word kernels."""
+        ti, tf = rows_1m
         w, h = PAD_W, PAD_H
-        depth, idx, table = vt_planes
+        vt_preps, (depth, idx, table), resolve_busy = vis_inputs_1m()
         res_ms = event_ms(
             lambda: vis_trans.resolve_flat_vis(depth, idx, table), 20)
         covered = int((idx >= 0).sum().item())
@@ -5263,27 +5442,58 @@ def main(argv=None) -> int:
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         for key in vt_cases:
             results[key].update(resolve_ms=res_ms,
-                                resolve_busy_ms=vt_resolve_busy,
+                                resolve_busy_ms=resolve_busy,
                                 resolve_bound_ms=bound)
         print(f"  resolve_flat_vis on lattice1M {w}x{h}: device busy "
-              f"{vt_resolve_busy:.4f} ms (6xv's trace); {res_ms:.4f} ms/call "
+              f"{resolve_busy} ms (6xv's trace); {res_ms:.4f} ms/call "
               f"(CUDA events, host dispatch included); bound {bound:.4f} ms "
               f"by bytes ({nbytes} bytes: depth, id and colour planes, "
               f"{covered} table rows)")
-        pairs = tile_pairs(ti, w, h, 4, raster.TILE_W)
+        chunk_pairs = tile_pairs(ti, w, h, 4, raster.TILE_W)
         for key, (kern, _, _, prepare) in vt_cases.items():
             *args, _ = vt_preps[key]
             res = results[key]
             res["wrapper_ms"] = event_ms(lambda: kern(*args, w, h), 5)
-            set_bound(key, args, pairs, w, h, "lattice1M", planes=2,
-                      tile_px=4 * raster.TILE_W, ops_per_px=OPS_PER_VIS_PAIR)
             res["prepare_ms"] = event_ms(lambda: prepare(ti, tf, w, h), 5)
-            print(f"  {key} lattice1M {w}x{h} (4x128 pairs): kernel "
-                  f"{res['ms']:.4f} ms device time (profiler; "
-                  f"{res['anim_ms']:.4f} ms in the traced entry point), "
+            pairs, evals, nbytes = vis_work(key, args, w, h)
+            all_bytes = (sum(t.numel() * t.element_size() for t in args)
+                         + 2 * 4 * w * h)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_all = all_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = evals * OPS_PER_EVAL / CUDA_CORE_OPS_PER_S * 1e3
+            t_chunks = (chunk_pairs * 4 * raster.TILE_W * OPS_PER_VIS_PAIR
+                        / CUDA_CORE_OPS_PER_S * 1e3)
+            res.update(pairs=pairs, evals=evals, bytes=nbytes,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_ms_inputs=max(t_all, t_ops),
+                       bound_ms_chunks=max(t_all, t_chunks),
+                       shape="lattice1M",
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations")
+            names = (kernel_names[key], vis_resolve_names[key],
+                     hit_words_names[key])
+            res["registers"] = ptxas_entry(names[0], PTXAS_REGISTERS)
+            print(f"  {key} ptxas: " + "; ".join(
+                f"{n} {ptxas_entry(n, PTXAS_REGISTERS)} registers, "
+                f"{ptxas_entry(n, PTXAS_SPILLS)} bytes spilled, "
+                f"{ptxas_entry(n, PTXAS_SMEM)} bytes of static shared "
+                "memory" for n in names)
+                  + f"; {res.get('smem_bytes')} bytes of dynamic shared "
+                  "memory an item")
+            print(f"  {key} lattice1M {w}x{h}: {pairs} admitted (tile, "
+                  f"row) pairs, {evals} window pixel evaluations -> "
+                  f"{t_ops:.4f} "
+                  f"ms; {nbytes} bytes needed -> {t_bytes:.4f} ms (every "
+                  f"input once {all_bytes} bytes, {t_all:.4f} ms); bound "
+                  f"{res['bound_ms']:.4f} ms by {res['bound_by']} "
+                  f"({chunk_pairs} 4x128 chunk pairs x 512 x "
+                  f"{OPS_PER_VIS_PAIR}: "
+                  f"{res['bound_ms_chunks']:.4f} ms); kernel "
+                  f"{res.get('ms')} ms device time (profiler; "
+                  f"{res.get('anim_ms')} ms in the traced entry point), "
                   f"launcher {res['wrapper_ms']:.4f} ms/call (CUDA events); "
-                  f"plain version {res['plain_ms']:.4f} ms/call at "
-                  f"{res['plain_shape']} (CUDA events); prepare "
+                  f"plain version {res.get('plain_ms')} ms/call at "
+                  f"{res.get('plain_shape')} (CUDA events); prepare "
                   f"{res['prepare_ms']:.4f} ms/call (CUDA events, host "
                   "dispatch included)")
 
@@ -5767,7 +5977,9 @@ def main(argv=None) -> int:
                    "device_ops_per_call", "ms_soup1m", "evals_soup1m",
                    "registers", "item_records",
                    "bound_ms_soup1m", "wrapper_ms_soup1m", "bytes",
-                   "bound_ms_inputs", "bytes_soup1m")}})
+                   "bound_ms_inputs", "bytes_soup1m", "bound_ms_chunks",
+                   "entry_prepare_ms", "entry_kernel_ms",
+                   "entry_resolve_ms", "op_ms")}})
     if PHASE_PREFIXES is None:
         missing = [(k["name"], f) for k in kernels for f in measured
                    if k[f] is None]

@@ -17,6 +17,18 @@ oracle, given shared setup rows.
 * Below the geometry's frame each kernel draws by its own extent: at
   128x64 with geometry at 128x56, K5 draws 289 pixels in rows 56-63,
   K10vis 451 (185 of them differ from K5), K10trans none.
+* The CUDA kernels' rules, in torch (``vis_block_hits``,
+  ``admitted_rows``, ``window_rects``, ``window_keys``, ``key_planes``):
+  every admitted (tile, row) pair over its window, one (z, row id, sign)
+  key a pixel, the work items merged by minimum, give the plain versions'
+  depth bits and ids in every row at 1 and VIS_ITEMS items a tile: the
+  padded soup (451 and 0 padding-row pixels), exact ties, a -0.0 tie
+  both ways, a row at z == 1.0, the empty scene.  Two counter-cases show
+  why the rules are what they are: K10vis admitting rows by their own
+  bbox, as K5 does, loses padding-row pixels; K10trans's windows over the
+  whole tile draw padding-row pixels.  The bitmap hit words give every hit
+  block a work item, and the hit blocks hold every group the plain
+  versions visit.
 
 The CUDA kernels are held against the plain versions on the card by
 chip_smoke.py; here their wrappers must refuse CPU tensors.
@@ -270,3 +282,192 @@ def test_constants_match_reference():
                                    rvt.VIS_BUFFER_MIN_TRIS,
                                    rvt.TRANS_MIN_TRIS)
     assert vt.REC_LANES == g.NI32 + 4 < 128
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' rules (raster_vis_trans.vis_block_hits, admitted_rows,
+# window_rects, window_keys, key_planes) against the plain versions
+# ---------------------------------------------------------------------------
+
+
+def pair_case(za_a=None, za_b=None):
+    """tests/test_raster_pallas.py's tall row A with a short row B inside
+    it, B submitted after A (``test_torch_hbm2.pair_setup``, imported when
+    the case is built: that module imports this one)."""
+    def build():
+        from test_torch_hbm2 import pair_setup
+
+        return pair_setup(za_a=za_a, za_b=za_b)[:4]
+
+    return build
+
+
+KEY_CASES = {
+    "padded_soup_128x64": padded_setup,
+    "twin_soup_256x64": twin_soup_setup,
+    "test_scene_256x64": lambda: _setup("test_scene_256x64"),
+    # An exact tie at z == 0: A's -0.0 against B's +0.0, then the other
+    # way; the first row, A, keeps its sign.
+    "neg_zero_first_128x32": pair_case((-0.0,) * 3, (0.0,) * 3),
+    "neg_zero_second_128x32": pair_case((0.0,) * 3, (-0.0,) * 3),
+    # A at z = e0 / 4: exactly 1.0 on one covered pixel, which stays clear.
+    "z_one_128x32": pair_case((0.25, 0.0, 0.0)),
+    "empty_128x32": empty_setup,
+}
+
+
+def kernel_inputs(kind, ti, tf, w, h):
+    """What ``kind``'s CUDA kernel walks, from the prepare: (hit blocks
+    (tiles, B), the setup ints its rows are read from, their z-plane
+    coefficients (T, 3) f32, group bounds or None, bitmap or None, its
+    plain version's planes)."""
+    if kind == "vis":
+        supers, bits, ti_c, tf_c, _ = vt.prepare_vis_inputs(T(ti), T(tf), w,
+                                                            h)
+        return (vt.vis_block_hits(supers, bits, ti_c.shape[0], w, h), ti_c,
+                tf_c[:, g.F_ZA0:g.F_ZA0 + 3], None, bits,
+                vt.raster_vis_plain(supers, bits, ti_c, tf_c, w, h))
+    supers, blocks, rec, gb, _ = vt.prepare_trans_inputs(T(ti), T(tf))
+    za = rec[:, vt.TRANS_ZA:vt.TRANS_ZA + 3].contiguous().view(torch.float32)
+    return (tr.hier_block_hits(supers, blocks, w, h), rec, za, gb, None,
+            vt.raster_trans_plain(supers, blocks, rec, gb, w, h))
+
+
+def kernel_planes(inputs, w, h, items, admit=None, windows=None):
+    """The CUDA kernel's planes from its rules: each admitted (tile, row)
+    pair (``admit``: (rows, tile y, tile x), by default the kernel's own)
+    over its window (``windows``: rects, by default ``window_rects`` with
+    the kernel's extent), keyed by each tile's work item of ``items``
+    (``raster.hier_work_items``), each item's keys minimum-merged into the
+    key plane, the planes decoded from it.  Returns (depth, id, admitted
+    pairs)."""
+    hits, ri, za, gb, bits, _ = inputs
+    rows, ty, tx = admit or vt.admitted_rows(hits, w, bits=bits, gbounds=gb)
+    rects = (vt.window_rects(ri, rows, ty, tx, gbounds=gb) if windows is None
+             else windows(ri, rows, ty, tx))
+    item = tr.hier_work_items(hits, items)[ty * (w // tr.TILE_W) + tx,
+                                           rows // g.RASTER_BLOCK]
+    assert bool((item >= 0).all())
+    plane = torch.full((h * w,), vt.KEY_CLEAR, dtype=torch.int64)
+    for i in range(items):
+        sel = item == i
+        keys = torch.full((h * w,), vt.KEY_CLEAR, dtype=torch.int64)
+        vt.window_keys(keys, ri, za, rows[sel], rects[sel], ty[sel], tx[sel],
+                       w)
+        plane = torch.minimum(plane, keys)
+    return (*vt.key_planes(plane, w, h), rows)
+
+
+@pytest.mark.parametrize("items", [1, vt.VIS_ITEMS])
+@pytest.mark.parametrize("kind", ["vis", "trans"])
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_key_plane_equals_plain(case, kind, items):
+    """The kernels' rules (hit words, admission, windows, one key a pixel,
+    items merged through the key plane, the store) give the plain
+    versions' depth bits and row ids in every row, the padding rows
+    included."""
+    ti, tf, w, h = KEY_CASES[case]()
+    inputs = kernel_inputs(kind, ti, tf, w, h)
+    depth, idx, rows = kernel_planes(inputs, w, h, items)
+    plain_d, plain_i = inputs[-1]
+    _bits(depth, plain_d)
+    _bits(idx, plain_i)
+    if case == "padded_soup_128x64":  # rows 56-63 are padding
+        assert int((depth[56:] < 1.0).sum()) == {"vis": 451, "trans": 0}[kind]
+    if case.startswith("neg_zero"):
+        zero = depth == 0.0
+        assert int(zero.sum()) > 100 and set(idx[zero].tolist()) == {0}
+        assert bool((torch.signbit(depth[zero])
+                     == case.startswith("neg_zero_first")).all())
+    if case == "z_one_128x32":
+        assert not bool(((depth == 1.0) & (idx >= 0)).any())
+    if case == "empty_128x32":
+        assert rows.numel() == 0 and bool((idx == vt.NO_ROW).all())
+    else:
+        assert bool((idx >= 0).any())
+
+
+def test_vis_admission_by_own_bbox_loses_padding_pixels():
+    """K10vis must admit every row of a hit group: admitting each row by
+    its own clamped bbox, as K5 does, leaves the visible rows as they
+    were but loses the padding-row pixels of the rows clamped empty below
+    the frame."""
+    ti, tf, w, h = padded_setup()
+    inputs = kernel_inputs("vis", ti, tf, w, h)
+    hits, ri, _, _, bits, (plain_d, plain_i) = inputs
+    rows, ty, tx = vt.admitted_rows(hits, w, bits=bits)
+    r = ri[rows].to(torch.int64)
+    r0, c0 = ty * tr.TILE_H, tx * tr.TILE_W
+    own = ((r[:, g.I_JMAX] >= c0) & (r[:, g.I_JMIN] < c0 + tr.TILE_W)
+           & (r[:, g.I_IMAX] >= r0) & (r[:, g.I_IMIN] < r0 + tr.TILE_H)
+           & (r[:, g.I_JMIN] <= r[:, g.I_JMAX])
+           & (r[:, g.I_IMIN] <= r[:, g.I_IMAX]))
+    depth, idx, _ = kernel_planes(inputs, w, h, 1,
+                                  admit=(rows[own], ty[own], tx[own]))
+    _bits(depth[:56], plain_d[:56])
+    _bits(idx[:56], plain_i[:56])
+    drawn = int((depth[56:] < 1.0).sum())
+    assert int((plain_d[56:] < 1.0).sum()) == 451 and drawn < 451
+
+
+def test_trans_whole_tile_window_draws_padding_rows():
+    """K10trans's windows must stay inside its groups' 4-row chunks: the
+    vertices' bbox over the whole tile leaves the visible rows as they
+    were but draws in rows 56-63, which the chunks never reach."""
+    ti, tf, w, h = padded_setup()
+    inputs = kernel_inputs("trans", ti, tf, w, h)
+    plain_d, plain_i = inputs[-1]
+    depth, idx, _ = kernel_planes(
+        inputs, w, h, 1, windows=lambda ri, rows, ty, tx: vt.window_rects(
+            ri, rows, ty, tx))
+    _bits(depth[:56], plain_d[:56])
+    _bits(idx[:56], plain_i[:56])
+    assert int((plain_d[56:] < 1.0).sum()) == 0
+    assert int((depth[56:] < 1.0).sum()) > 0
+
+
+ITEM_CASES = ["padded_soup_128x64", "clipped_soup_384x128",
+              "test_scene_256x64"]
+
+
+@pytest.mark.parametrize("kind", ["vis", "trans"])
+@pytest.mark.parametrize("case", ITEM_CASES)
+def test_work_items_cover_the_admitted_groups(case, kind):
+    """Each tile's hit words (``raster.hier_hit_words`` of the kernel's hit
+    blocks; K10vis's from the bitmap) give every hit block one of the
+    tile's work items at any count, and the hit blocks hold every (tile,
+    8-row group) pair the plain version visits: the bitmap's bits under
+    the superblock test (K10vis), the group, block and superblock bbox
+    tests (K10trans)."""
+    ti, tf, w, h = setup(case)
+    hits, _, _, gb, bits, _ = kernel_inputs(kind, ti, tf, w, h)
+    _, before, count = tr.hier_hit_words(hits)
+    assert torch.equal(count, hits.sum(1)) and not before[:, 0].any()
+    for n in (1, 4, vt.VIS_ITEMS, 64):
+        item = tr.hier_work_items(hits, n)
+        assert torch.equal(item >= 0, hits) and int(item.max()) < n
+        # Each item takes a run of hit blocks in row order.
+        assert bool(((item.cummax(1).values == item) | ~hits).all())
+    rows, ty, tx = vt.admitted_rows(hits, w, bits=bits, gbounds=gb)
+    tiles = (h // tr.TILE_H) * (w // tr.TILE_W)
+    walked = torch.zeros((tiles, hits.shape[1] * g.RASTER_BLOCK // vt.GROUP),
+                         dtype=torch.bool)
+    walked[ty * (w // tr.TILE_W) + tx, rows // vt.GROUP] = True
+    ty_n, tx_n = h // tr.TILE_H, w // tr.TILE_W
+    if kind == "vis":
+        supers, bits, ti_c, _, _ = vt.prepare_vis_inputs(T(ti), T(tf), w, h)
+        ng = ti_c.shape[0] // vt.GROUP
+        word_bits = (bits[:, :, None] >> torch.arange(32, dtype=torch.int32)
+                     ) & 1
+        want = word_bits.bool().reshape(tiles, -1)[:, :ng] & tr._tile_hits(
+            supers, ty_n, tx_n)[:, torch.arange(ng) // (
+                g.SUPER_BLOCK * g.RASTER_BLOCK // vt.GROUP)]
+    else:
+        supers, blocks, rec, gb, _ = vt.prepare_trans_inputs(T(ti), T(tf))
+        ng = gb.shape[0]
+        block = torch.arange(ng) // (g.RASTER_BLOCK // vt.TRANS_GROUP)
+        want = (tr._tile_hits(gb, ty_n, tx_n)
+                & tr._tile_hits(blocks, ty_n, tx_n)[:, block]
+                & tr._tile_hits(supers, ty_n, tx_n)[:, block // g.SUPER_BLOCK])
+    assert torch.equal(walked[:, :ng], want)
+    assert not walked[:, ng:].any() and bool(want.any())

@@ -208,8 +208,8 @@ __device__ __forceinline__ void resolve_winner(
 }
 
 // Per-thread tile state of the register bodies (K2g, K9g and the
-// experiments raster_group8.cu, raster_vec.cu and raster_vis.cu; the other
-// kernels run the keyed body, raster_keyed.cuh, or K1's sub-tile blocks).
+// experiments raster_group8.cu and raster_vec.cu; the other kernels run the
+// keyed body, raster_keyed.cuh, or K1's sub-tile blocks).
 // TIE selects the order-free depth test (z, row id) over the sequential
 // strict-less test.
 //
@@ -235,22 +235,14 @@ __device__ __forceinline__ void resolve_winner(
 // the int and float strides of the setup rows that eval and resolve index
 // by row id (the lane-parallel experiment's records hold both, REC_LANES
 // lanes apart).
-//
-// VIS: the visibility-buffer experiments (K10vis, K10trans).  z and the
-// winning row id under the strict-less test, as GBUF, but no resolve:
-// store_vis writes the depth and id planes, and the colour is resolved
-// outside the kernel.
 template <bool TIE, bool GBUF = false, bool DEPTH = false, int TH = TILE_H,
-          int RI = NI32, int RF = NF32, bool VIS = false>
+          int RI = NI32, int RF = NF32>
 struct TileState {
   static_assert(!(DEPTH && (TIE || GBUF)), "depth-only state is strict-less");
-  static_assert(!(VIS && (TIE || GBUF || DEPTH)),
-                "the visibility state is strict-less z and row id");
-  static_assert(GBUF || DEPTH || VIS, "a state keeps z and the row id, or z");
-  static constexpr bool ROW_ID = GBUF || VIS;  // keeps the winner
+  static_assert(GBUF || DEPTH, "a state keeps z and the row id, or z");
   static constexpr int NPIX = TH * TILE_W / THREADS;  // pixels a thread
   float z[NPIX];
-  int tid[ROW_ID ? NPIX : 1];
+  int tid[GBUF ? NPIX : 1];  // the winning row id
   int px;   // this thread's pixel-centre x, in subpixels
   int py0;  // pixel-centre y of its first row, in subpixels
   int row0, col0;
@@ -263,7 +255,7 @@ struct TileState {
 #pragma unroll
     for (int k = 0; k < NPIX; ++k) {
       z[k] = 1.0f;
-      if constexpr (ROW_ID) tid[k] = INT_MAX32;
+      if constexpr (GBUF) tid[k] = INT_MAX32;
     }
   }
 
@@ -283,7 +275,7 @@ struct TileState {
     }
     if (!ok) return false;
     z[k] = zz;
-    if constexpr (ROW_ID) tid[k] = t;
+    if constexpr (GBUF) tid[k] = t;
     return true;
   }
 
@@ -345,22 +337,6 @@ struct TileState {
             eval(ti, tf, t);
         }
       }
-    }
-  }
-
-  // The visibility epilogue: z, and the winning row id (-1 where no row
-  // passed).
-  __device__ __forceinline__ void store_vis(float* __restrict__ depth,
-                                            int* __restrict__ idx,
-                                            int width) const {
-    static_assert(VIS, "store_vis needs the visibility state");
-    const int col = col0 + (int)(threadIdx.x % TILE_W);
-    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
-#pragma unroll
-    for (int k = 0; k < NPIX; ++k) {
-      const size_t i = (size_t)(rbase + k * ROW_STEP) * width + col;
-      depth[i] = z[k];
-      idx[i] = tid[k] == INT_MAX32 ? -1 : tid[k];
     }
   }
 

@@ -1,8 +1,10 @@
 // The keyed raster body, shared by raster_binned.cu (K4, K4c, K4g, K4d,
 // K9, K9d, K6, K6g, K6d: a tile's record spans, K4c's coarse bin too, then
 // the leftover rows of the hierarchy), raster_hier.cu (K3, K3b, K3g, K3d,
-// K5, K5g: the hierarchy alone) and raster_twoclass.cu (K10hbm2, K10scan:
-// the hierarchies of two views of the rows, one key plane).
+// K5, K5g: the hierarchy alone), raster_twoclass.cu (K10hbm2, K10scan:
+// the hierarchies of two views of the rows, one key plane) and
+// raster_vis.cu (K10vis, K10trans: the hierarchy with 8-row group
+// admission, the depth and row id planes).
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
 //   atomicMin.  K4, K4c, K9, K9d, K6, K4g and K6g: (order bits of z, row
@@ -10,17 +12,17 @@
 //   K5g: the same key, whose minimum is the strict-less test z >= 0 && z <
 //   zb from 1.0 in row order (the first row of the least z wins, and
 //   prepare_raster_inputs compacts stably, so a row's id is its submission
-//   order).  K4d, K6d and K3d: (order bits of z, visit index, sign of z),
-//   whose minimum is the strict-less test in visit order with the first
-//   visited row kept: a span entry's visit index is its index in the span
-//   list, a leftover row's is the span's end plus its row id (K3d: no
-//   span, so its row id).
+//   order).  K4d, K6d, K3d, K10vis and K10trans: (order bits of z, visit
+//   index, sign of z), whose minimum is the strict-less test in visit order
+//   with the first visited row kept: a span entry's visit index is its
+//   index in the span list, a leftover row's is the span's end plus its row
+//   id (K3d, K10vis, K10trans: no span, so its row id).
 //   -0.0 and +0.0 share order bits; z >= 0 filters first (NaN and negative
 //   z never compete).  The clear key is z 1.0 over the largest id for K4,
 //   K4c, K9, K9d, K6, K4g and K6g, so that a row at z == 1.0 latches as
 //   the (z, row id) test lets it; over id 0 (over visit 0) for K3, K3b,
-//   K3g, K5 and K5g (K3d, K4d, K6d), which no row at z == 1.0 goes below,
-//   as the strict-less test never lets 1.0 pass.
+//   K3g, K5 and K5g (K3d, K4d, K6d, K10vis, K10trans), which no row at z
+//   == 1.0 goes below, as the strict-less test never lets 1.0 pass.
 // * Work in proportion to each row's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -51,7 +53,8 @@
 // K4c, K9, K9d, K6, K4g, K6g, K3, K3b, K3g, K5 and K5g their z (-0.0 kept)
 // and colour, K4g, K6g, K3g and K5g also the 11 further planes (K4g, K6g
 // and K5g buf * (covered ? 1/den : 0), K3g covered ? buf * 1/den : 0);
-// K4d, K6d and K3d decode z from the key.  Nothing moves the tensor cores.
+// K4d, K6d and K3d decode z from the key, K10vis and K10trans z and the
+// row id.  Nothing moves the tensor cores.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -118,9 +121,10 @@ using HierFlatKeys = WinnerKeys<false, true, false>;  // K3, K3b, K5
 using HierGbufKeys = WinnerKeys<true, true, false>;   // K3g
 using HbmGbufKeys = WinnerKeys<true, true, true>;     // K5g
 
-// The depth key (K4d, K6d, K3d): the order bits of z over the visit index
-// over the sign of z.  The visit index of span entry k is k; of leftover
-// row t, the span's end plus t (K3d: t): both below 2^31, so the key holds
+// The depth key (K4d, K6d, K3d; K10vis and K10trans, raster_vis.cu
+// VisKeys): the order bits of z over the visit index over the sign of z.
+// The visit index of span entry k is k; of leftover row t, the span's end
+// plus t (K3d, K10vis, K10trans: t): both below 2^31, so the key holds
 // them shifted by one.
 struct DepthKeys {
   static constexpr unsigned long long CLEAR = 0x3f800000ull << 32;
@@ -355,9 +359,10 @@ __device__ __forceinline__ void keyed_leftovers(
 }
 
 // The hit words of a launch's tiles over one hierarchy (raster_hier.cu,
-// raster_twoclass.cu), one int buffer of tiles * (2 num_supers + 1)
-// (ops/raster.py _keyed_hier_args): word sb of tile t has bit j set when
-// block SUPER_BLOCK sb + j and superblock sb meet the tile; before[sb]
+// raster_twoclass.cu, raster_vis.cu), one int buffer of tiles * (2
+// num_supers + 1) (ops/raster.py _keyed_hier_args): word sb of tile t has
+// bit j set when block SUPER_BLOCK sb + j is a hit block (its bbox and
+// superblock sb's meet the tile; K10vis: its group bits); before[sb]
 // counts the tile's hit blocks in superblocks [0, sb); count[t] is its H.
 // Int: int where the buffer is written, const int where read.
 template <class Int>
@@ -377,17 +382,38 @@ __device__ __forceinline__ HitWords<Int> hit_words(Int* buf, int tiles,
 static_assert(SUPER_BLOCK == 32 && THREADS == WARPS * SUPER_BLOCK,
               "a warp tests a superblock's blocks");
 
+// The block scans the counts of tile `tile`'s hit words (written by its
+// threads before): before[sb] and count[tile].
+__device__ __forceinline__ void hit_word_counts(const HitWords<int>& hw,
+                                                int num_supers, int tile,
+                                                int* warp_sums) {
+  const int* words = hw.words + (size_t)tile * num_supers;
+  int* before = hw.before + (size_t)tile * num_supers;
+  __syncthreads();  // the block's words visible to all its threads
+  int base = 0;     // block-uniform
+  for (int c = 0; c < num_supers; c += THREADS) {
+    const int sb = c + (int)threadIdx.x;
+    int total;
+    const int pre = block_exclusive_scan(
+        sb < num_supers ? __popc((unsigned)words[sb]) : 0, warp_sums, total);
+    if (sb < num_supers) before[sb] = base + pre;
+    base += total;
+  }
+  if (threadIdx.x == 0) hw.count[tile] = base;
+}
+
 // The block writes the hit words of tile `tile` (of `tiles`; its first
-// pixel at global (row0, col0)).  Warp w tests superblocks w, w + WARPS,
-// ... and their 32 blocks, one ballot each (their loads do not wait on one
-// another); then the block scans the words' counts.
+// pixel at global (row0, col0)): block b of superblock sb is a hit block
+// when its bbox and the superblock's meet the tile.  Warp w tests
+// superblocks w, w + WARPS, ... and their 32 blocks, one ballot each
+// (their loads do not wait on one another); then the block scans the
+// words' counts.
 __device__ __forceinline__ void tile_hit_words(
     const int* __restrict__ supers, int num_supers,
     const int* __restrict__ blocks, int* buf, int tiles, int tile, int row0,
     int col0, int* warp_sums) {
   const HitWords<int> hw = hit_words(buf, tiles, num_supers);
   int* words = hw.words + (size_t)tile * num_supers;
-  int* before = hw.before + (size_t)tile * num_supers;
   const int lane = (int)threadIdx.x % SUPER_BLOCK;
 #pragma unroll 4
   for (int sb = (int)threadIdx.x / SUPER_BLOCK; sb < num_supers;
@@ -402,17 +428,7 @@ __device__ __forceinline__ void tile_hit_words(
     const unsigned m = __ballot_sync(0xffffffffu, hit);
     if (lane == 0) words[sb] = (int)m;
   }
-  __syncthreads();  // the block's words visible to all its threads
-  int base = 0;     // block-uniform
-  for (int c = 0; c < num_supers; c += THREADS) {
-    const int sb = c + (int)threadIdx.x;
-    int total;
-    const int pre = block_exclusive_scan(
-        sb < num_supers ? __popc((unsigned)words[sb]) : 0, warp_sums, total);
-    if (sb < num_supers) before[sb] = base + pre;
-    base += total;
-  }
-  if (threadIdx.x == 0) hw.count[tile] = base;
+  hit_word_counts(hw, num_supers, tile, warp_sums);
 }
 
 // visit(b) for each of a tile's hit blocks [h0, h1) in row order (of its

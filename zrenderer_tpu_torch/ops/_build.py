@@ -201,9 +201,10 @@ def load_library() -> ctypes.CDLL:
     lib.zr_raster_vec.restype = i
     lib.zr_gbuffer_vec.argtypes = [p, i, p, p, p, i, i, p]
     lib.zr_gbuffer_vec.restype = i
-    lib.zr_raster_vis.argtypes = [p, i, p, i, p, p, i, p, p, i, i, p]
+    lib.zr_raster_vis.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, i, i,
+                                  p]
     lib.zr_raster_vis.restype = i
-    lib.zr_raster_trans.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
+    lib.zr_raster_trans.argtypes = [p, i, p, p, p, i, p, p, p, p, i, i, p]
     lib.zr_raster_trans.restype = i
     lib.zr_raster_hbm2.argtypes = [p, i, p, p, p, i, p, p, p, i, p, p, p, p,
                                    i, i, p]

@@ -152,15 +152,25 @@ def rect_pairs(rect, blocks, supers, width: int, height: int):
     return item[keep], tile_y[keep], tile_x[keep]
 
 
+def zid_key(z, ids):
+    """The (z, id) int64 key of fragments at depth ``z`` of rows ``ids``:
+    z's bits over the id, -0.0 keyed as +0.0."""
+    zbits = torch.where(z == 0.0, 0.0, z).view(I32).to(I64)
+    return (zbits << 32) | ids.to(I64)
+
+
 def window_min(keys, width: int, y0, x0, win_h: int, base, sy, sx, bias,
-               za, ids, rows=None, cols=None):
-    """Scatter-min the (z, id) keys of the fragments of P window
-    evaluations into ``keys`` (H * W int64, in place).  Evaluation p covers
-    the win_h x TILE_W pixels from global (row y0[p], column x0[p]); its
-    edge function k at window pixel (i, j) is base[p, k] + sy[p, k] * i -
-    sx[p, k] * j (int32, wrapping), its coverage biases bias[p], z plane
-    za[p] ((e0*za0 + e1*za1) + e2*za2) and id ids[p].  ``rows``/``cols``:
-    (P, 2) inclusive global ranges a fragment must lie in, or None."""
+               za, ids, rows=None, cols=None, key_of=zid_key,
+               clear=KEY_CLEAR):
+    """Scatter-min the keys of the fragments of P window evaluations into
+    ``keys`` (H * W int64, in place).  Evaluation p covers the win_h x
+    TILE_W pixels from global (row y0[p], column x0[p]); its edge function
+    k at window pixel (i, j) is base[p, k] + sy[p, k] * i - sx[p, k] * j
+    (int32, wrapping), its coverage biases bias[p], z plane za[p] ((e0*za0
+    + e1*za1) + e2*za2) and id ids[p].  ``rows``/``cols``: (P, 2) inclusive
+    global ranges a fragment must lie in, or None.  A fragment's key is
+    ``key_of(z, id)`` (the (z, id) key by default), a pixel outside the
+    fragments ``clear``."""
     total = y0.shape[0]
     step = max(1, CHUNK_PIXELS // (win_h * tr.TILE_W))
     dev = keys.device
@@ -185,9 +195,7 @@ def window_min(keys, width: int, y0, x0, win_h: int, base, sy, sx, bias,
             ok &= (y >= rows[c, 0, None, None]) & (y <= rows[c, 1, None, None])
         if cols is not None:
             ok &= (x >= cols[c, 0, None, None]) & (x <= cols[c, 1, None, None])
-        zbits = torch.where(z == 0.0, 0.0, z).view(I32).to(I64)
-        key = torch.where(ok, (zbits << 32) | ids[c, None, None].to(I64),
-                          KEY_CLEAR)
+        key = torch.where(ok, key_of(z, ids[c, None, None]), clear)
         keys.scatter_reduce_(0, (y.to(I64) * width + x).reshape(-1),
                              key.reshape(-1), reduce="amin")
 

@@ -38,7 +38,19 @@ table.  Here the bitmap has ceil(G/32) words a tile, one row a tile; a
 trans record holds the 20 setup ints and the 3 bitcast z-plane floats;
 the table the 24 lanes the resolve reads.  The reference's
 ``_hbm_vis_kernel`` is passed to no ``pallas_call`` (dead code) and has
-no counterpart.  CUDA: ``csrc/raster_vis.cu``.
+no counterpart.
+
+CUDA: ``csrc/raster_vis.cu``, on K5's keyed hierarchy body.  Each tile's
+hit blocks (K10vis: ``vis_block_hits``, from the bitmap; K10trans: K5's,
+``raster.hier_block_hits``) are cut into VIS_ITEMS work items; an item
+pends the rows of each hit block that its kernel admits (``admitted_rows``:
+every row of a group whose bit is set, or whose bbox meets the tile) and
+evaluates each over its window (``window_rects``: the row's vertices'
+pixel bbox in the tile, K10trans's within its group's chunk rows) into
+one key a pixel, (order bits of z, row id, sign of z) (``vis_key``), whose
+minimum is both kernels' strict-less result; the items merge through a key
+plane, and the depth and id planes are decoded from it
+(``key_planes``).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ import torch
 
 from zrenderer_tpu_torch.ops import _build
 from zrenderer_tpu_torch.ops import raster as tr
+from zrenderer_tpu_torch.ops.experiments import raster_hbm2 as h2
 from zrenderer_tpu_torch.ops.geometry import (
     F_CB0,
     F_CG0,
@@ -91,6 +104,15 @@ NO_ROW = -1       # id plane where no row passed
 # The reference's selection thresholds (its API); nothing selects by them.
 VIS_BUFFER_MIN_TRIS = 131072
 TRANS_MIN_TRIS = 1 << 62
+# K10vis and K10trans on the card: each tile's hit blocks are cut into this
+# many work items, one CUDA block each, merged through the output's key
+# plane (csrc/raster_vis.cu); one item a tile resolves in place.  The
+# wrappers read it at call time.  On the H100 at lattice1M, 1/4/8/16/32
+# items took 1.66/0.60/0.48/0.44/0.43 ms a call (K10vis) and
+# 1.62/0.62/0.49/0.45/0.46 (K10trans; PERF.md §6): 16 and 32 tie in sum.
+VIS_ITEMS = 16
+# The key of a pixel no row lowered: z 1.0 over row id 0 and sign 0.
+KEY_CLEAR = 0x3F800000 << 32
 
 # Resolve table lanes: the 12 edge ints (dx, dy, x, y of each edge), then
 # the 1/w and colour coefficients bitcast to int32.
@@ -334,6 +356,106 @@ def raster_trans_plain(supers, blocks, rec, gbounds, width: int,
 
 
 # ---------------------------------------------------------------------------
+# The CUDA kernels' rules (csrc/raster_vis.cu), in torch
+# ---------------------------------------------------------------------------
+
+
+def vis_block_hits(supers, bits, rows: int, width: int, height: int):
+    """(tiles, S * SUPER_BLOCK) bool: K10vis's hit blocks over ``rows``
+    rows, the blocks b < rows / RASTER_BLOCK whose superblock meets the
+    tile and whose 16 group bits are not all clear
+    (``raster.hier_hit_words`` gives their hit words)."""
+    ty, tx = height // tr.TILE_H, width // tr.TILE_W
+    b = torch.arange(supers.shape[0] * SUPER_BLOCK, device=bits.device)
+    live = b < rows // RASTER_BLOCK
+    words = bits[:, torch.where(live, b // 2, 0)].to(torch.int64)
+    half = (words >> (16 * (b % 2))) & 0xFFFF
+    return ((half != 0) & live
+            & tr._tile_hits(supers, ty, tx).repeat_interleave(SUPER_BLOCK,
+                                                              1))
+
+
+def admitted_rows(block_hits, width: int, bits=None, gbounds=None):
+    """The (tile, row) pairs a kernel pends: (rows, tile y, tile x), int64.
+    Each hit block's (``block_hits`` (tiles, B)) rows whose group is
+    admitted: K10vis (``bits``) every row of a group whose bitmap bit is
+    set, K10trans (``gbounds``) every row of a group whose bbox meets the
+    tile."""
+    tx = width // tr.TILE_W
+    tile, blk = torch.nonzero(block_hits, as_tuple=True)
+    rows = blk[:, None] * RASTER_BLOCK + torch.arange(
+        RASTER_BLOCK, device=blk.device)
+    grp = rows // GROUP
+    tile = tile[:, None].expand_as(rows)
+    if gbounds is None:
+        word = bits[tile, grp // 32].to(torch.int64)
+        keep = ((word >> (grp % 32)) & 1) == 1
+    else:
+        gb = gbounds[grp].to(torch.int64)
+        r0, c0 = tile // tx * tr.TILE_H, tile % tx * tr.TILE_W
+        keep = ((gb[..., 1] >= c0) & (gb[..., 0] < c0 + tr.TILE_W)
+                & (gb[..., 3] >= r0) & (gb[..., 2] < r0 + tr.TILE_H)
+                & (gb[..., 0] <= gb[..., 1]) & (gb[..., 2] <= gb[..., 3]))
+    tile = tile[keep]
+    return rows[keep], tile // tx, tile % tx
+
+
+def window_rects(ri, rows, tile_y, tile_x, gbounds=None):
+    """The window of each (tile, row) pair: (P, 4) int64 [jmin, jmax, imin,
+    imax], row ``rows``'s (setup ints ``ri``) vertices' pixel bbox
+    (``raster.vertex_bbox``) in tile (tile_y, tile_x); with ``gbounds``
+    (K10trans) within its group's chunk rows, [min(lo, TILE_H - TRANS_R),
+    min(lo + TRANS_R * nch, TILE_H)) of the tile, lo = max(imin - row0, 0),
+    nch = (min(imax - row0, TILE_H - 1) - lo) // TRANS_R + 1.  Empty where
+    jmin > jmax or imin > imax."""
+    jmin, jmax, imin, imax = tr.vertex_bbox(ri[rows].to(torch.int64)).unbind(1)
+    r0, c0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    lo, hi = r0, r0 + tr.TILE_H - 1
+    if gbounds is not None:
+        gb = gbounds[rows // GROUP].to(torch.int64)
+        first = (gb[:, 2] - r0).clamp(min=0)
+        nch = torch.div((gb[:, 3] - r0).clamp(max=tr.TILE_H - 1) - first,
+                        TRANS_R, rounding_mode="floor") + 1
+        lo = r0 + first.clamp(max=tr.TILE_H - TRANS_R)
+        hi = r0 + (first + TRANS_R * nch).clamp(max=tr.TILE_H) - 1
+    return torch.stack([torch.maximum(jmin, c0),
+                        torch.minimum(jmax, c0 + tr.TILE_W - 1),
+                        torch.maximum(imin, lo), torch.minimum(imax, hi)], 1)
+
+
+def vis_key(z, ids):
+    """The kernels' int64 key of fragments at depth ``z`` of rows ``ids``:
+    the order bits of z (its sign cleared), the row id, the sign of z."""
+    zb = z.view(I32).to(torch.int64)
+    return (((zb & 0x7FFFFFFF) << 32) | (ids.to(torch.int64) << 1)
+            | ((zb >> 31) & 1))
+
+
+def window_keys(keys, ri, za, rows, rects, tile_y, tile_x, width: int):
+    """Scatter-min into ``keys`` (H * W int64, in place) the ``vis_key`` of
+    each (tile, row) pair's fragments inside its window ``rects``: setup
+    ints ``ri`` (T, >= 15), z-plane coefficients ``za`` (T, 3) f32."""
+    r = ri[rows]
+    y0, x0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    base, sy, sx = h2.edge_windows(r, y0, x0)
+    h2.window_min(keys, width, y0, x0, tr.TILE_H, base, sy, sx,
+                  r[:, I_BIAS0:I_BIAS0 + 3], za[rows], rows,
+                  rows=rects[:, 2:], cols=rects[:, :2], key_of=vis_key,
+                  clear=KEY_CLEAR)
+
+
+def key_planes(keys, width: int, height: int):
+    """The kernels' store of a key plane: (depth f32, row id i32), 1.0 and
+    NO_ROW under KEY_CLEAR, else z with its sign and the row id."""
+    won = keys != KEY_CLEAR
+    bits = (keys >> 32) | ((keys & 1) << 31)
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(I32)
+    depth = torch.where(won, bits.view(F32), 1.0)
+    idx = torch.where(won, (keys & 0xFFFFFFFF) >> 1, NO_ROW).to(I32)
+    return depth.reshape(height, width), idx.reshape(height, width)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels (csrc/raster_vis.cu)
 # ---------------------------------------------------------------------------
 
@@ -361,14 +483,26 @@ def _require_tables(supers, blocks, rows: int):
         raise ValueError("blocks do not cover the rows")
 
 
-def _run_vis(fn, dev, width: int, height: int, *args):
-    """Allocate the (depth, row id) planes and launch ``fn(*args, depth,
-    idx, height, width, stream)`` on the current stream of ``dev``."""
+def _run_vis(fn, dev, width: int, height: int, num_supers: int, *args):
+    """Allocate the (depth, row id) planes, the hit words (tiles * (2
+    num_supers + 1) ints) and, with more than one of VIS_ITEMS work items a
+    tile, the key plane of the output's size, and launch ``fn(*args,
+    items, buf, plane, depth, idx, height, width, stream)`` on the current
+    stream of ``dev``."""
+    items = VIS_ITEMS
+    if items < 1:
+        raise ValueError(f"VIS_ITEMS must be positive, got {items}")
+    tiles = (height // tr.TILE_H) * (width // tr.TILE_W)
+    buf = torch.empty(tiles * (2 * num_supers + 1), dtype=I32, device=dev)
+    plane = (torch.empty(height * width, dtype=torch.int64, device=dev)
+             if items > 1 else None)
     depth = torch.empty((height, width), dtype=F32, device=dev)
     idx = torch.empty((height, width), dtype=I32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        tr._launch(fn, *args, tr._ptr(depth), tr._ptr(idx), height, width,
+        tr._launch(fn, *args, items, tr._ptr(buf),
+                   None if plane is None else tr._ptr(plane),
+                   tr._ptr(depth), tr._ptr(idx), height, width,
                    ctypes.c_void_p(stream))
     return depth, idx
 
@@ -387,8 +521,9 @@ def raster_vis_kernel(supers, bits, ti, tf, width: int, height: int):
         raise ValueError("ti/tf/bits do not match the rows and tile grid")
     p = tr._ptr
     out = _run_vis(_build.load_library().zr_raster_vis, ti.device, width,
-                   height, p(supers), supers.shape[0], p(bits),
-                   bits.shape[1], p(ti), p(tf), rows // RASTER_BLOCK)
+                   height, supers.shape[0], p(supers), supers.shape[0],
+                   p(bits), bits.shape[1], p(ti), p(tf),
+                   rows // RASTER_BLOCK)
     raster_vis_kernel.launches += 1
     return out
 
@@ -402,14 +537,16 @@ def raster_trans_kernel(supers, blocks, rec, gbounds, width: int,
              gbounds=gbounds)
     rows = rec.shape[0]
     _require_tables(supers, blocks, rows)
+    if blocks.shape[0] != supers.shape[0] * SUPER_BLOCK:
+        raise ValueError("blocks: SUPER_BLOCK rows a superblock expected")
     if (rec.ndim != 2 or rec.shape[1] != REC_LANES
             or tuple(gbounds.shape) != (rows // TRANS_GROUP, 4)):
         raise ValueError(f"rec: (T, {REC_LANES}) and gbounds: (T / "
                          f"{TRANS_GROUP}, 4) expected")
     p = tr._ptr
     out = _run_vis(_build.load_library().zr_raster_trans, rec.device, width,
-                   height, p(supers), supers.shape[0], p(blocks), p(rec),
-                   p(gbounds), rows // RASTER_BLOCK)
+                   height, supers.shape[0], p(supers), supers.shape[0],
+                   p(blocks), p(rec), p(gbounds))
     raster_trans_kernel.launches += 1
     return out
 
