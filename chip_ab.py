@@ -2,13 +2,15 @@
 """Same-call A/B of the raster kernels K1, K2g, K2d, K3, K3b, K3g, K3d, K4,
 K4c, K4g, K4d, K5, K5g, K6, K6g, K6d, K9 and K9d, the two-class
 experiments K10hbm2 and K10scan, the visibility-buffer experiments K10vis
-and K10trans, and the tiled light kernel K7, and of the frames whose pace
-they set, between this tree and another checkout (for example a parent
-commit unpacked with ``git archive``) on one CUDA card; or, with
-``--sweep``, this tree's K5 and K5g on the 1M lattice at each work-item
-count of SWEEP_ITEMS, K10hbm2 and K10scan at each count of
+and K10trans, the group-tile and lane-parallel experiments K10g8, K10g8g,
+K10g8d, K10vec and K10vecg, and the tiled light kernel K7, and of the
+frames whose pace they set, between this tree and another checkout (for
+example a parent commit unpacked with ``git archive``) on one CUDA card;
+or, with ``--sweep``, this tree's K5 and K5g on the 1M lattice at each
+work-item count of SWEEP_ITEMS, K10hbm2 and K10scan at each count of
 SWEEP_TWOCLASS_ITEMS (``twoclass_sweep``), K10vis and K10trans at each
-count of SWEEP_VIS_ITEMS (``vis_sweep``), K6, K6g, K6d and K9d at each
+count of SWEEP_VIS_ITEMS (``vis_sweep``), K10vec and K10g8 at each count
+of SWEEP_X_ITEMS (``x_sweep``), K6, K6g, K6d and K9d at each
 item size of SWEEP_RECORDS and halved toward each item count of
 SWEEP_MIN_ITEMS (``record_sweep``), and K1 and K2d at each count of
 SWEEP_SMALL_BLOCKS blocks a tile (``small_sweep``).
@@ -34,9 +36,10 @@ same map's ``tile_lists`` inputs, K9d on band 0 of the 40K lattice's 2
 ``dist`` bands at 1920x544 (each shard's slabs through the in-turn
 all-to-all, ``tiles.dist_exchange``, then the owner's prepare), K5 on the
 flat 40K and 1M lattices' and the 1M lattice's shadow map's hierarchy
-inputs, K10hbm2, K10scan, K10vis and K10trans on the flat 1M lattice's
-rows (their own prepares), K4 on the flat and K4g on the lit 1M lattice's
-inputs (``auto``),
+inputs, K10hbm2, K10scan, K10vis, K10trans, K10vec and K10g8 on the flat
+1M lattice's rows (their own prepares), K10vecg and K10g8g on the lit 40K
+lattice's, K10g8d on the 20K lattice's 1024x1024 shadow map, K4 on the
+flat and K4g on the lit 1M lattice's inputs (``auto``),
 K9 on band 0 of the flat 1M lattice's 2 bands at 1920x544 (the rows
 gathered from 2 shards, the band-local prepare, as ``tiles.band_raster``
 makes it), K4c on the 1M soup's ``tile_lists`` inputs (the coarse class),
@@ -75,8 +78,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # K10scan.
 SWEEP_ITEMS = (1, 4, 8, 16, 32, 64)
 SWEEP_TWOCLASS_ITEMS = (1, 4, 8, 16, 32)
-# Work items a tile that ``--sweep`` times K10vis and K10trans at.
+# Work items a tile that ``--sweep`` times K10vis and K10trans at, and
+# K10vec and K10g8.
 SWEEP_VIS_ITEMS = (1, 4, 8, 16, 32)
+SWEEP_X_ITEMS = (1, 4, 8, 16, 32)
 # Records an item that ``--sweep`` times K6, K6g, K6d and K9d at, never
 # halved, and
 # the items their 256 records are halved to aim at.
@@ -359,6 +364,48 @@ def vis_sweep(rows=None) -> dict:
     return out
 
 
+def x_cases(rows, width, height):
+    """K10vec's and K10g8's (kernel, prepared inputs) on ``rows``."""
+    from zrenderer_tpu_torch.ops.experiments import raster_group8, raster_vec
+
+    return {"k10vec": (raster_vec.raster_vec_kernel,
+                       raster_vec.prepare_vec_inputs(*rows)),
+            "k10g8": (raster_group8.raster_group8_kernel,
+                      raster_group8.prepare_group8_inputs(*rows, width,
+                                                          height))}
+
+
+def x_sweep(rows=None) -> dict:
+    """K10vec and K10g8 on the flat 1M lattice's rows (``rows``, or the
+    renderer's) at each work-item count of SWEEP_X_ITEMS (ms a call, CUDA
+    events), every count's planes equal."""
+    from zrenderer_tpu_torch.ops.experiments import raster_group8, raster_vec
+    from zrenderer_tpu_torch.scene.procedural import make_stress_scene
+
+    w, h = cs.PAD_W, cs.PAD_H
+    if rows is None:
+        rows = cs.frame_rows(renderer(make_stress_scene(cs.LARGE_TRIS)))
+    out = {}
+    items = {"k10vec": (raster_vec, "VEC_ITEMS"),
+             "k10g8": (raster_group8, "G8_ITEMS")}
+    for key, (kern, prep) in x_cases(rows, w, h).items():
+        mod, attr = items[key]
+        saved = getattr(mod, attr)
+        out[key], ref = {}, None
+        try:
+            for n in SWEEP_X_ITEMS:
+                setattr(mod, attr, n)
+                out[key][n] = event_ms(lambda: kern(*prep, w, h), 10)
+                d = digest(*kern(*prep, w, h))
+                if ref is not None and d != ref:
+                    raise AssertionError(f"{key}: {n} items a tile changed "
+                                         "the planes")
+                ref = d
+        finally:
+            setattr(mod, attr, saved)
+    return out
+
+
 def sweep() -> dict:
     """K5 on the flat and K5g on the lit 1M lattice's hierarchy inputs at
     each item count of SWEEP_ITEMS (ms a call, CUDA events), every count's
@@ -374,6 +421,7 @@ def sweep() -> dict:
     flat = raster.prepare_raster_inputs(*rows)
     out["twoclass"] = twoclass_sweep(rows)
     out["vis"] = vis_sweep(rows)
+    out["x"] = x_sweep(rows)
     del r, rows
     r = renderer(lattice, pipeline="lit")
     r.set_environment(texture=cs.checker_texture())
@@ -404,6 +452,7 @@ def measure(small=False) -> dict:
     import torch
 
     from zrenderer_tpu_torch.ops import light_kernel, raster
+    from zrenderer_tpu_torch.ops.experiments import raster_group8, raster_vec
     from zrenderer_tpu_torch.parallel import tiles
     from zrenderer_tpu_torch.scene.procedural import (make_stress_scene,
                                                       make_triangle_soup)
@@ -434,7 +483,9 @@ def measure(small=False) -> dict:
            "k3": {}, "k3b": {}, "k3g": {}, "k3d": {}, "k4": {}, "k4c": {},
            "k4d": {}, "k4g": {}, "k5": {}, "k5g": {}, "k6": {}, "k6g": {},
            "k6d": {}, "k7": {}, "k9": {}, "k9d": {}, "k10hbm2": {},
-           "k10scan": {}, "k10vis": {}, "k10trans": {}, "frames": {},
+           "k10scan": {}, "k10vis": {}, "k10trans": {}, "k10vec": {},
+           "k10g8": {}, "k10vecg": {}, "k10g8g": {}, "k10g8d": {},
+           "frames": {},
            "busy": {}, "digests": {}}
     # The test scene: K1 on the flat frame's inputs, K2g on the lit
     # frame's, K2d on the shadowed frame's map; the flat and the shadowed
@@ -529,6 +580,11 @@ def measure(small=False) -> dict:
     k3d, s = raster.depth_hier_kernel, cs.SHADOW_SIZE
     out["k3d"]["lattice20k map"] = event_ms(lambda: k3d(*prep, s, s), 20)
     out["digests"]["k3d lattice20k map"] = digest(k3d(*prep, s, s))
+    prep = raster_group8.prepare_group8_inputs(*cs.light_rows(r), s, s)
+    k10g8d = raster_group8.depth_group8_kernel
+    out["k10g8d"]["lattice20k map"] = event_ms(lambda: k10g8d(*prep, s, s),
+                                               20)
+    out["digests"]["k10g8d lattice20k map"] = digest(k10g8d(*prep, s, s))
     out["frames"]["shadowed lattice20k"] = anim_ms(r, cs.ANIM_FRAMES)
     out["digests"]["shadowed lattice20k"] = digest(r.render()[0])
     del prep, r
@@ -576,6 +632,17 @@ def measure(small=False) -> dict:
         *(p for band in tiles.bands_in_turn(2, cs.WIDTH, h2, *args, "dist")
           for p in band))
     del prep, args, ti, tf, locals_, r
+    r = renderer(make_stress_scene(cs.MID_TRIS), pipeline="lit")
+    r.set_environment(texture=cs.checker_texture())
+    rows = cs.lit_frame_rows(r)
+    for key, kern, prep in (
+            ("k10vecg", raster_vec.gbuffer_vec_kernel,
+             raster_vec.prepare_vec_inputs(*rows)),
+            ("k10g8g", raster_group8.gbuffer_group8_kernel,
+             raster_group8.prepare_group8_inputs(*rows, w, h))):
+        out[key]["lit lattice40k"] = event_ms(lambda: kern(*prep, w, h), 20)
+        out["digests"][f"{key} lit lattice40k"] = digest(*kern(*prep, w, h))
+    del prep, rows, r
 
     lattice = make_stress_scene(cs.LARGE_TRIS)
     r = renderer(lattice)
@@ -588,7 +655,8 @@ def measure(small=False) -> dict:
     out["k5"]["lattice1M"] = event_ms(lambda: k5(*prep, w, h), 5)
     out["digests"]["k5 lattice1M"] = digest(*k5(*prep, w, h))
     for key, (kern, prep) in {**twoclass_cases(rows, h),
-                              **vis_cases(rows, w, h)}.items():
+                              **vis_cases(rows, w, h),
+                              **x_cases(rows, w, h)}.items():
         out[key]["lattice1M"] = event_ms(lambda: kern(*prep, w, h), 5)
         out["digests"][f"{key} lattice1M"] = digest(*kern(*prep, w, h))
     del rows, prep
@@ -693,7 +761,8 @@ def main(argv=None) -> int:
                     help="time this tree's K5 and K5g at each item count "
                     "of SWEEP_ITEMS, K10hbm2 and K10scan at each of "
                     "SWEEP_TWOCLASS_ITEMS, K10vis and K10trans at each of "
-                    "SWEEP_VIS_ITEMS, K6, K6g, K6d and K9d at each item "
+                    "SWEEP_VIS_ITEMS, K10vec and K10g8 at each of "
+                    "SWEEP_X_ITEMS, K6, K6g, K6d and K9d at each item "
                     "size of SWEEP_RECORDS and SWEEP_MIN_ITEMS, and K1 and "
                     "K2d at each count of SWEEP_SMALL_BLOCKS, instead")
     ap.add_argument("--small", action="store_true",
@@ -743,7 +812,7 @@ def main(argv=None) -> int:
           + ("K1, K2g, K2d and frame" if args.small else
              "K1, K2g, K2d, K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, K5, K5g, "
              "K6, K6g, K6d, K7, K9, K9d, K10hbm2, K10scan, K10vis, "
-             "K10trans and frame")
+             "K10trans, K10vec, K10vecg, K10g8, K10g8g, K10g8d and frame")
           + " planes")
     return 0
 

@@ -200,7 +200,9 @@ lines and seconds:
 4x. the raster experiments, K10g8/K10g8g/K10g8d (group-tile lists, then
     the leftover mega/super/block hierarchy) and K10vec/K10vecg
     (lane-parallel subgroups), against their plain versions, every plane
-    bitwise as int32: K10g8 and K10vec on the 40K lattice at 1920x1088,
+    bitwise as int32 (K10g8 and K10vec, on the keyed body, at their
+    default work items a tile and again at one): K10g8 and K10vec on the
+    40K lattice at 1920x1088,
     K10g8g and K10vecg on the test scene and the 40K lattice (random
     normals and per-triangle materials), K10g8d on the 20K lattice's light
     view into the 1024x1024 map (each path's shape; those plain calls give
@@ -219,10 +221,16 @@ lines and seconds:
     the G-buffer kernels on the 40K lattice against K5g, K10g8d on the map
     against K3d;
 6x. each experiment kernel's device time from a trace at its main shape
-    (the 1M lattice, the 40K lattice and the test scene, the map), its
-    entry point traced once, launcher times, the two prepares' times on
-    the 1M lattice and the bounds at each kernel's own granularity (8x128
-    tiles for group8, 8x128 chunks for vec);
+    (the 1M lattice, the 40K lattice and the test scene, the map; K10g8's
+    and K10vec's calls the sum of their device ops, the hit words, the key
+    plane's memset, the work items and the resolve, whose count is printed
+    and checked, each op's time printed), its entry point traced once
+    (K10g8's and K10vec's split into the prepare's ops and the kernel's),
+    launcher times, the two prepares' times on the 1M lattice and the
+    bounds (K10g8 and K10vec: their window pixel evaluations or the bytes
+    their keyed body needs, their register body's 8x128 tile and chunk
+    pairs kept as bound_ms_tiles; the G-buffer and depth kernels at their
+    own granularity, 8x128 tiles for group8, 8x128 chunks for vec);
 6xv. the visibility-buffer experiments' traces, taken before phase 6's
     untraced loops and their own plain versions (a trace after about 1.2M
     untraced launches loses a kernel record): K10vis and K10trans on the
@@ -363,9 +371,10 @@ draw list's (tile, triangle) pairs times 4096 pixels times
 OPS_PER_OVERLAY_EVAL plus its covered (pixel, triangle) times
 OPS_PER_OVERLAY_HIT; K8b's the larger of the frame, the count, the output
 and the live layers (12 bytes each) moved once and the live layers times
-OPS_PER_COMPOSITE_LAYER.  The group8 kernels' pairs are of their 8x128
-tiles, 1024 pixels each; the vec kernels' of 8x128 chunks, the
-granularity at which they gate a subgroup, 1024 pixels each; K10vis's and
+OPS_PER_COMPOSITE_LAYER.  K10g8g's and K10g8d's pairs are of their 8x128
+tiles, 1024 pixels each; K10vecg's of 8x128 chunks, the granularity at
+which it gates a subgroup, 1024 pixels each (K10g8's and K10vec's too, as
+bound_ms_tiles, beside their window pixels, ``x_work``); K10vis's and
 K10trans's their admitted pairs' window pixels, as K10hbm2's (their
 (4x128 chunk, triangle) pairs x 512 x OPS_PER_VIS_PAIR kept as
 bound_ms_chunks).
@@ -1522,13 +1531,18 @@ def main(argv=None) -> int:
               f"raster_scan_keyed_kernel; {hbm2.TWOCLASS_ITEMS} work "
               "item(s) a tile; twoclass_hit_words_kernel and the resolve "
               "kernels none)")
-        for key in ("k10vis", "k10trans"):
+        for key in ("k10vis", "k10trans", "k10vec", "k10g8"):
             results[key]["smem_bytes"] = smem
         print(f"  K10vis/K10trans keyed body: {smem} bytes of dynamic shared "
               "memory a block (raster_vis_keyed_kernel, "
               f"raster_trans_keyed_kernel; {vis_trans.VIS_ITEMS} work "
               "item(s) a tile; vis_hit_words_kernel, trans_hit_words_kernel "
               "and the resolve kernels none)")
+        print(f"  K10vec/K10g8 keyed body: {smem} bytes of dynamic shared "
+              "memory a block (raster_vec_keyed_kernel, "
+              f"raster_group8_keyed_kernel; {vec.VEC_ITEMS} and "
+              f"{group8.G8_ITEMS} work item(s) a tile; vec_hit_words_kernel, "
+              "group8_hit_words_kernel and the resolve kernels none)")
         return info.seconds
 
     # -- 3. K1 vs plain ---------------------------------------------------
@@ -3295,10 +3309,10 @@ def main(argv=None) -> int:
                     "k9": "raster_records_band_keyed_kernel",
                     "k9g": "gbuffer_records_band_kernel",
                     "k9d": "raster_records_dist_keyed_kernel",
-                    "k10g8": "raster_group8_kernel",
+                    "k10g8": "raster_group8_keyed_kernel",
                     "k10g8g": "gbuffer_group8_kernel",
                     "k10g8d": "depth_group8_kernel",
-                    "k10vec": "raster_vec_kernel",
+                    "k10vec": "raster_vec_keyed_kernel",
                     "k10vecg": "gbuffer_vec_kernel",
                     "k10vis": "raster_vis_keyed_kernel",
                     "k10trans": "raster_trans_keyed_kernel",
@@ -3331,6 +3345,24 @@ def main(argv=None) -> int:
                               "k10scan": "raster_scan_resolve_kernel"}
     vis_resolve_names = {"k10vis": "raster_vis_resolve_kernel",
                          "k10trans": "raster_trans_resolve_kernel"}
+    # K10vec and K10g8 likewise, with vec.VEC_ITEMS and group8.G8_ITEMS.
+    x_resolve_names = {"k10vec": "raster_vec_resolve_kernel",
+                       "k10g8": "raster_group8_resolve_kernel"}
+
+    def x_items(key):
+        """Work items a tile of K10vec or K10g8, as read at call time."""
+        return vec.VEC_ITEMS if key == "k10vec" else group8.G8_ITEMS
+
+    def at_x_items(key, n, fn):
+        """``fn()`` with K10vec's or K10g8's work items a tile set to n."""
+        mod, attr = ((vec, "VEC_ITEMS") if key == "k10vec"
+                     else (group8, "G8_ITEMS"))
+        saved = getattr(mod, attr)
+        setattr(mod, attr, n)
+        try:
+            return fn()
+        finally:
+            setattr(mod, attr, saved)
     # The hierarchy kernels first write the tiles' hit words: one more
     # device operation a call, before the others (the two-class kernels
     # both views' in one launch; K10vis from its bitmap).
@@ -3340,11 +3372,14 @@ def main(argv=None) -> int:
         **{k: HIT_WORDS_KERNEL for k in hier_resolve_names},
         **{k: TWOCLASS_HIT_WORDS_KERNEL for k in twoclass_resolve_names},
         "k10vis": "vis_hit_words_kernel",
-        "k10trans": "trans_hit_words_kernel"}
+        "k10trans": "trans_hit_words_kernel",
+        "k10vec": "vec_hit_words_kernel",
+        "k10g8": "group8_hit_words_kernel"}
     port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
                     | set(hier_resolve_names.values())
                     | set(twoclass_resolve_names.values())
                     | set(vis_resolve_names.values())
+                    | set(x_resolve_names.values())
                     | set(hit_words_names.values()))
 
     def resolve_of(key):
@@ -3356,6 +3391,8 @@ def main(argv=None) -> int:
             return twoclass_resolve_names[key]
         if key in vis_resolve_names and vis_trans.VIS_ITEMS > 1:
             return vis_resolve_names[key]
+        if key in x_resolve_names and x_items(key) > 1:
+            return x_resolve_names[key]
         return resolve_names.get(key)
 
     def call_ops(key):
@@ -4136,8 +4173,16 @@ def main(argv=None) -> int:
                        .sum().item())
             print(f"  {label} ({key}, {w}x{h}): {prep[2].shape[0]} records, "
                   f"{live} of {sg.shape[0]} subgroups live")
-        return prep, cmp(key, f"{label} ({key})", kern, plain, prep, w, h,
-                         plain_shape)
+        out = cmp(key, f"{label} ({key})", kern, plain, prep, w, h,
+                  plain_shape)
+        if key in x_resolve_names:
+            one = at_x_items(key, 1, lambda: kern(*prep, w, h))
+            same = same_planes(one, out)
+            print(f"    ({key} at 1 work item a tile: bit-exact against "
+                  f"{x_items(key)} items {same})")
+            if not same:
+                raise AssertionError(f"{label}: {key} at 1 item differs")
+        return prep, out
 
     def blow_up_soup():
         """The reference experiment tests' soup (tests/test_raster_group8.py
@@ -4294,6 +4339,11 @@ def main(argv=None) -> int:
 
     x_lit40, x_map20, x_scene_rows = experiment_cases or (None,) * 3
 
+    # The 1M lattice's rows at 1080p: phase 5b's, or where ``--phases``
+    # skipped 5b, the port's geometry on the card.
+    rows_1m = rows_lattice or setup_rows(*make_stress_scene(LARGE_TRIS),
+                                         WIDTH, HEIGHT)
+
     # -- 5x. the experiment frames at 1M --------------------------------------
     @phase("5x experiment frames at 1M")
     def experiment_frames():
@@ -4306,7 +4356,7 @@ def main(argv=None) -> int:
         version's too.  Then the G-buffer and depth entry points once each
         at their main shapes (lattice40k, the 20K lattice's map), against
         K5g and K3d."""
-        ti, tf = rows_lattice
+        ti, tf = rows_1m
         c5, d5 = k5(*raster.prepare_raster_inputs(ti, tf), PAD_W, PAD_H)
         c4, d4 = k4(*raster.prepare_binned_hbm_inputs(ti, tf, PAD_W, PAD_H),
                     PAD_W, PAD_H)
@@ -4387,6 +4437,62 @@ def main(argv=None) -> int:
         print(f"  launches in one main-path frame: "
               f"{ {k: counts[k] for k in x_cases} }")
 
+    def entry_split(key, events):
+        """An entry point's device ops split around its kernel's call: (ops
+        and device ms before the call's first op, the call's, after its last
+        op), in time order: the prepare, the kernel, the resolve."""
+        ev = sorted(events, key=lambda e: e[1])
+        ops = call_ops(key)
+        first = next(i for i, e in enumerate(ev) if ops[0] in e[0])
+        last = max(i for i, e in enumerate(ev) if ops[-1] in e[0])
+        parts = (ev[:first], ev[first:last + 1], ev[last + 1:])
+        return [(len(p), sum(e[2] for e in p) / 1000.0) for p in parts]
+
+    def x_work(key, prep, w, h):
+        """The work K10vec's or K10g8's keyed body needs on ``prep``:
+        (admitted (tile, row) pairs and list entries, their window pixel
+        evaluations, bytes needed).  A pair's window is its row's vertices'
+        pixel bbox in the tile within the kernel's extent
+        (``vec.window_rects``: its subgroup's hit chunks;
+        ``group8.window_rects``: an entry's list tile, a leftover row's
+        gated list tiles): inside the geometry's rows it holds every pixel
+        the row covers, in the padding rows the kernel's own extent.  The
+        bytes: the tables (K10vec the superblocks and blocks and each hit
+        block's four subgroup bboxes; K10g8 the spans, the gate, the
+        entries' row ids, the superblocks and blocks), each admitted row's
+        20 setup ints and 3 z floats once, each winning row's 20 ints and 12
+        floats the store reads, and the two planes."""
+        if key == "k10vec":
+            supers, blocks, rec = prep
+            hits = raster.hier_block_hits(supers, blocks, w, h)
+            rows, ty, tx = vec.admitted_rows(hits, rec, w)
+            rect = vec.window_rects(rec, rows, ty, tx)
+            tables = (sum(t.numel() * t.element_size()
+                          for t in (supers, blocks))
+                      + int(hits.any(0).sum().item())
+                      * (tg.RASTER_BLOCK // vec.SUBGROUP) * 16)
+            kh = h
+        else:
+            rows_l, ly, tx_l, _, _ = group8.list_pairs(prep, w, h)
+            rect_l = group8.window_rects(prep, rows_l, ly // group8.LISTS,
+                                         tx_l, w, h, list_y=ly)
+            _, rows_o, ty_o, tx_o = group8.leftover_pairs(prep, w, h)
+            rect_o = group8.window_rects(prep, rows_o, ty_o, tx_o, w, h)
+            rows, rect = (torch.cat([rows_l, rows_o]),
+                          torch.cat([rect_l, rect_o]))
+            nsup = prep.blocks.shape[0] // tg.SUPER_BLOCK
+            tables = (sum(t.numel() * t.element_size()
+                          for t in (prep.offs, prep.tile_any,
+                                    prep.supers[:nsup], prep.blocks))
+                      + rows_l.numel() * 4)
+            kh = group8.key_height(h)
+        evals = int(((rect[:, 1] - rect[:, 0] + 1).clamp(min=0)
+                     * (rect[:, 3] - rect[:, 2] + 1).clamp(min=0))
+                    .sum().item())
+        nbytes = (tables + torch.unique(rows).numel() * (tg.NI32 * 4 + 12)
+                  + 2 * 4 * w * kh)
+        return rows.numel(), evals, nbytes
+
     # -- 6x. the experiment kernels' times ------------------------------------
     @phase("6x experiment kernel timing")
     def experiment_timing():
@@ -4395,12 +4501,17 @@ def main(argv=None) -> int:
         lattice and the test scene for the G-buffer ones, the 20K
         lattice's map for K10g8d), its entry point traced once (prepare
         and launch: device ops, busy, idle share), then the untraced
-        launcher and prepare loops and the bounds."""
+        launcher and prepare loops and the bounds.  K10g8 and K10vec: a
+        call is the sum of its device ops (``call_ops``), whose count the
+        trace must hold, each op's time printed; the entry point's trace
+        split into the prepare's ops and the kernel's (``entry_split``);
+        ptxas's registers, spills and shared memory of the item, resolve
+        and hit-word kernels; the bound by ``x_work``."""
         S = SHADOW_SIZE
         main = {  # key: (rows, shape, (w, h), reps, entry point)
-            "k10g8": (rows_lattice, "lattice1M", (PAD_W, PAD_H), 5,
+            "k10g8": (rows_1m, "lattice1M", (PAD_W, PAD_H), 5,
                       group8.rasterize_setup_group8),
-            "k10vec": (rows_lattice, "lattice1M", (PAD_W, PAD_H), 5,
+            "k10vec": (rows_1m, "lattice1M", (PAD_W, PAD_H), 5,
                        vec.rasterize_setup_vec),
             "k10g8g": (x_lit40, "lattice40k", (PAD_W, PAD_H), 20,
                        group8.rasterize_gbuffer_group8),
@@ -4413,18 +4524,45 @@ def main(argv=None) -> int:
         for key, (rows, shape, (w, h), reps, fn) in main.items():
             kern, _, prepare, _ = x_cases[key]
             prep = preps[key] = prepare(*rows, w, h)
-            _, _, ms = traced_kernel_ms(
+            events, _, ms = traced_kernel_ms(
                 (key,), lambda: [kern(*prep, w, h) for _ in range(reps)])
             results[key]["ms"] = ms[key]
+            keyed = key in x_resolve_names
+            if keyed:
+                ops = call_ops(key)
+                per_op = {o: sum(d for n, _, d in events if o in n) / reps
+                          / 1000.0 for o in ops}
+                results[key].update(device_ops_per_call=len(ops),
+                                    op_ms=per_op)
+                print(f"  {key}: {len(events)} device ops for {reps} calls "
+                      f"in its trace ({len(ops)} a call: {', '.join(ops)}; "
+                      f"{x_items(key)} work items a tile); {ms[key]:.4f} ms "
+                      "a call (their sum; each op: "
+                      + ", ".join(f"{o} {t:.4f}" for o, t in per_op.items())
+                      + ")")
+                if len(events) != len(ops) * reps:
+                    raise AssertionError(f"{key}: {len(events)} device ops "
+                                         f"for {reps} calls, not "
+                                         f"{len(ops)} a call")
             events, window, kms = traced_kernel_ms(
                 (key,), lambda: fn(*rows, w, h))
             results[key]["anim_ms"] = kms[key]
             busy = busy_us(events)
+            split = ""
+            if keyed:
+                (n_pre, pre_ms), (n_k, k_ms), _ = entry_split(key, events)
+                results[key].update(entry_ops=len(events),
+                                    entry_busy_ms=busy / 1000.0,
+                                    entry_idle_share=1.0 - busy / window,
+                                    entry_prepare_ms=pre_ms,
+                                    entry_kernel_ms=k_ms)
+                split = (f"; split (device ms, summed): prepare {n_pre} ops "
+                         f"{pre_ms:.4f}, kernel {n_k} ops {k_ms:.4f}")
             print(f"  profiled entry point {fn.__name__} on {shape} {w}x{h}:"
                   f" {len(events)} device ops, device busy "
                   f"{busy / 1000.0:.4f} ms ({key} {kms[key]:.4f} ms), idle "
                   f"share {1.0 - busy / window:.4f} of "
-                  f"{window / 1000.0:.4f} ms traced", flush=True)
+                  f"{window / 1000.0:.4f} ms traced{split}", flush=True)
         for key in ("k10g8g", "k10vecg"):
             kern, _, prepare, _ = x_cases[key]
             prep = prepare(*x_scene_rows, PAD_W, PAD_H)
@@ -4448,8 +4586,25 @@ def main(argv=None) -> int:
                 inputs, tile = list(prep), (vec.CHUNK_H, raster.TILE_W)
             planes = (raster.GBUFFER_PLANES if key.endswith("g")
                       else 1 if key.endswith("d") else 2)
+            work = {}
+            if key in x_resolve_names:
+                admitted, evals, nbytes = x_work(key, prep, w, h)
+                work = dict(evals=evals, nbytes=nbytes)
+                res["admitted"] = admitted
+                names = (kernel_names[key], x_resolve_names[key],
+                         hit_words_names[key])
+                res["registers"] = ptxas_entry(names[0], PTXAS_REGISTERS)
+                print(f"  {key} {shape}: {admitted} admitted (tile, row) "
+                      "pairs and list entries; ptxas: " + "; ".join(
+                          f"{n} {ptxas_entry(n, PTXAS_REGISTERS)} registers, "
+                          f"{ptxas_entry(n, PTXAS_SPILLS)} bytes spilled, "
+                          f"{ptxas_entry(n, PTXAS_SMEM)} bytes of static "
+                          "shared memory" for n in names)
+                      + f"; {res.get('smem_bytes')} bytes of dynamic shared "
+                      "memory an item")
             set_bound(key, inputs, tile_pairs(rows[0], w, h, *tile), w, h,
-                      shape, planes=planes, tile_px=tile[0] * tile[1])
+                      shape, planes=planes, tile_px=tile[0] * tile[1],
+                      **work)
             extra = ""
             if "ms_test_scene" in res:
                 extra = f", test scene {res['ms_test_scene']:.4f} ms"
@@ -4459,7 +4614,7 @@ def main(argv=None) -> int:
                   f"launcher {res['wrapper_ms']:.4f} ms/call (CUDA events);"
                   f" plain version {res['plain_ms']:.4f} ms/call at "
                   f"{res['plain_shape']} (CUDA events)")
-        ti, tf = rows_lattice
+        ti, tf = rows_1m
         g8_ms = event_ms(lambda: group8.prepare_group8_inputs(
             ti, tf, PAD_W, PAD_H), 5)
         vec_ms = event_ms(lambda: vec.prepare_vec_inputs(ti, tf), 5)
@@ -4484,22 +4639,6 @@ def main(argv=None) -> int:
                      lambda ti, tf, w, h: vis_trans.prepare_trans_inputs(
                          ti, tf)),
     }
-
-    # The 1M lattice's rows at 1080p: phase 5b's, or where ``--phases``
-    # skipped 5b, the port's geometry on the card.
-    rows_1m = rows_lattice or setup_rows(*make_stress_scene(LARGE_TRIS),
-                                         WIDTH, HEIGHT)
-
-    def entry_split(key, events):
-        """An entry point's device ops split around its kernel's call: (ops
-        and device ms before the call's first op, the call's, after its last
-        op), in time order: the prepare, the kernel, the resolve."""
-        ev = sorted(events, key=lambda e: e[1])
-        ops = call_ops(key)
-        first = next(i for i, e in enumerate(ev) if ops[0] in e[0])
-        last = max(i for i, e in enumerate(ev) if ops[-1] in e[0])
-        parts = (ev[:first], ev[first:last + 1], ev[last + 1:])
-        return [(len(p), sum(e[2] for e in p) / 1000.0) for p in parts]
 
     @phase("6xv K10vis/K10trans traces")
     def vis_traces():
@@ -5979,7 +6118,7 @@ def main(argv=None) -> int:
                    "bound_ms_soup1m", "wrapper_ms_soup1m", "bytes",
                    "bound_ms_inputs", "bytes_soup1m", "bound_ms_chunks",
                    "entry_prepare_ms", "entry_kernel_ms",
-                   "entry_resolve_ms", "op_ms")}})
+                   "entry_resolve_ms", "op_ms", "admitted")}})
     if PHASE_PREFIXES is None:
         missing = [(k["name"], f) for k in kernels for f in measured
                    if k[f] is None]

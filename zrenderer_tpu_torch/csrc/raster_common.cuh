@@ -208,21 +208,21 @@ __device__ __forceinline__ void resolve_winner(
 }
 
 // Per-thread tile state of the register bodies (K2g, K9g and the
-// experiments raster_group8.cu and raster_vec.cu; the other kernels run the
+// experiments K10g8g, K10g8d in raster_group8.cu and K10vecg in
+// raster_vec.cu; the other kernels, K10g8 and K10vec among them, run the
 // keyed body, raster_keyed.cuh, or K1's sub-tile blocks).
 // TIE selects the order-free depth test (z, row id) over the sequential
 // strict-less test.
 //
-// GBUF: the register G-buffer kernels (K2g, K9g; K4g, K6g, K3g and K5g
-// run the keyed body, raster_keyed.cuh, with the same resolve).  Latching
+// GBUF: the register G-buffer kernels (K2g, K9g, K10g8g, K10vecg; K4g,
+// K6g, K3g and K5g run the keyed body, raster_keyed.cuh, with the same
+// resolve).  Latching
 // 11 more planes the way the reference does would take 17 values a pixel,
 // 272 registers a thread for 16 pixels: over the 255 cap.  Every latched
 // value is a pure function of (row, pixel), so the loops keep only z and
 // the winning row id (with strict-less order the last row that passed),
 // and resolve re-evaluates the winner's edge functions and interpolants
-// with the same interp3: the same bits, two values a pixel.  The raster
-// experiments (raster_group8.cu, raster_vec.cu) keep this state for their
-// flat kernels too, and resolve their colour from the winner.
+// with the same interp3: the same bits, two values a pixel.
 //
 // DEPTH: the depth-only register kernels (K10g8d; K2d runs K1's sub-tile
 // blocks, K4d, K6d and K3d the keyed body, with the same planes).  One

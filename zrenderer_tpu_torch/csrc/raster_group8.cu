@@ -5,17 +5,17 @@
 // and rasterize_depth_pallas_group8
 // (zrenderer_tpu/ops/experiments/raster_group8.py, _run :650, body
 // _group8_body :259).  Inputs are the outputs of prepare_group8_inputs
-// (zrenderer_tpu_torch/ops/experiments/raster_group8.py): per 8x128 tile a
-// span [offs[t], offs[t+1]) of list rows (ROW_LANES int32 lanes, sorted by
-// row id), a per-tile gate tile_any, the leftover setup rows (listed rows'
-// bboxes emptied) and their block, superblock and megablock union bboxes.
+// (zrenderer_tpu_torch/ops/experiments/raster_group8.py): per 8x128 list
+// tile a span [offs[t], offs[t+1]) of list rows (ROW_LANES int32 lanes,
+// sorted by row id, the row id in lane C_ID), a per-tile gate tile_any, the
+// leftover setup rows (listed rows' bbox and valid flag emptied, their
+// vertices, edges and floats intact) and their block, superblock and
+// megablock union bboxes.
 //
-// What it computes, per 8x128 tile (one CUDA block of 256 threads, each
-// owning one column and 4 rows: r0, r0 + 2, r0 + 4, r0 + 6):
-// * phase 1: the tile's span, staged in shared memory STAGE rows at a
-//   time; each row evaluated at the thread's pixels with the list row's
-//   edge form e = (dx*py + c) - dy*px, c = dy*x_ref - dx*y_ref (wrapping
-//   like the reference's int32: computed in uint32_t), and its bias bits;
+// What the reference computes, per 8x128 tile:
+// * phase 1: the tile's span, each row evaluated at the tile's pixels with
+//   the list row's edge form e = (dx*py + c) - dy*px, c = dy*x_ref -
+//   dx*y_ref (wrapping like the reference's int32), and its bias bits;
 // * phase 2, if tile_any: megablocks -> superblocks -> blocks -> rows
 //   whose bbox meets the tile, in row order, with the setup rows' own edge
 //   form dx*(py - y) - dy*(px - x) (the same int32 value);
@@ -24,28 +24,63 @@
 //   a lower id than a listed one, so the test is not strict-less in visit
 //   order), or for the depth-only pass the strict-less z test z >= 0 &&
 //   z < zb in visit order, z alone kept;
-// * the epilogue resolves the winner from the leftover setup rows (its
-//   edge values are the same integers in either form): colour where
-//   (covered, numer*inv, 0) packed RGBA8 with alpha 255, depth, and for
-//   the G-buffer the interpolants as buf * (covered ? inv : 0)
-//   (the reference's :584-600, K2g/K4g/K5g's form) and the constants as
-//   they are.
+// * the epilogue from the winner's setup row (its edge values are the
+//   same integers in either form): colour where(covered, numer*inv, 0)
+//   packed RGBA8 with alpha 255, depth, and for the G-buffer the
+//   interpolants as buf * (covered ? inv : 0) (the reference's :584-600,
+//   K2g/K4g/K5g's form) and the constants as they are.
 //
-// The tile state is raster_common.cuh's TileState at an 8-row tile: z and
-// the winning row id for the thread's 4 pixels (8 registers), not the
-// latches, as the G-buffer kernels keep; its row evaluation for phase 2,
-// its superblock walk under each megablock, its resolve for the epilogue.
-// New here: the list-row evaluation and the megablock level.
+// K10g8 runs the keyed body (raster_keyed.cuh) on 32x128 key tiles, each
+// the four 8x128 list tiles below one another, with the planes of the
+// register body it ran before bit for bit.  What bound that body on the
+// H100 (3.49 ms a call on lattice1M at 1920x1088, 2040 blocks of 4 pixels
+// a thread): each list row evaluated at all 1024 pixels of its tile, and
+// every gated tile re-walking the megablock -> superblock -> block -> row
+// tables from the start.  Here:
+// * group8_hit_words_kernel writes each key tile's hit words over the
+//   leftover hierarchy once a call (K5's tile_hit_words: a block is a hit
+//   block when its bbox and its superblock's meet the key tile; a
+//   superblock that meets one of the key tile's list tiles meets the key
+//   tile, and lies in a megablock that does, so the megablock level adds
+//   no skip);
+// * a key tile's work, its four list tiles' spans laid end to end (E
+//   entries) and its hit blocks (H), is cut into `items` work items, one
+//   CUDA block each: item i takes entries [i E / items, (i + 1) E / items)
+//   and hit blocks [i H / items, (i + 1) H / items);
+// * a list entry names its setup row by id (lane C_ID): the row is read
+//   from the leftover rows, whose vertices the prepare leaves intact, as
+//   K6's RowIdRecords stage them, and evaluated over its window, its
+//   vertices' pixel bbox cut to its own 8x128 list tile;
+// * a hit block's rows whose bbox meets the key tile are pended (K5's
+//   keyed_block_rows test), each over its vertices' pixel bbox cut to the
+//   8x128 list tiles its bbox meets whose tile_any is set (every one: a
+//   row with a non-empty bbox is valid, so in its superblock's bbox);
+//   entries and rows share the pending batches (an entry marked by
+//   LIST_ENTRY);
+// * one key a pixel, FlatKeys: (order bits of z, row id) from the clear
+//   key (1.0, INT_MAX), so a row at z == 1.0 latches as the (z, row id)
+//   test lets it; items merge by atomicMin into a key plane (memset to all
+//   ones) and a resolve writes the planes (a key tile whose work is at
+//   most one entry and one hit block resolves in place in its last item),
+//   the winner re-evaluated from the leftover rows (its -0.0 kept).
+// The windows never reach past the list tiles the reference evaluates, so
+// rows below the last listed or gated tile (the padding rows of a 1080-row
+// frame in a 1088-row target) stay clear.  A target whose height is not a
+// multiple of 32 is run on planes padded to one (the wrapper returns the
+// target's rows).  Four device ops a call: hit words, memset, items,
+// resolve.  Bound on the H100: the window pixels' edge work (26 ops each),
+// or the bytes the body needs (spans, tables, entries and admitted rows,
+// the two planes).
 //
-// What bounds it on the H100: the per-pixel edge work over the (tile, row)
-// pairs of both phases (26 ops a pixel evaluation, 1024 pixels a pair),
-// against the output planes' bytes on a sparse frame.  The 8-row tile
-// quadruples the blocks of a 32x128 tiling and the pairs of rows taller
-// than 8 pixels; the lists make phase 1 free of bbox tests, and the
-// staged span is read by broadcast from shared memory.  Later work: the
-// leftover walk re-reads the bbox tables from the start in every tile.
+// K10g8g and K10g8d keep the register body (raster_common.cuh TileState
+// at an 8-row tile, one CUDA block of 256 threads a tile, each owning one
+// column and 4 rows): z and the winning row id (K10g8g) or z alone
+// (K10g8d) for the thread's 4 pixels; phase 1 stages the span STAGE rows
+// at a time in shared memory and evaluates each row at every pixel of the
+// tile, phase 2 runs TileState's superblock walk under each megablock;
+// K10g8g resolves its 13 planes from the winner, K10g8d stores z.
 
-#include "raster_common.cuh"
+#include "raster_keyed.cuh"
 
 namespace zr {
 namespace g8 {
@@ -53,6 +88,8 @@ namespace g8 {
 constexpr int GT_H = 8;
 constexpr int ROW_LANES = 47;
 constexpr int STAGE = 64;  // list rows staged in shared memory at a time
+constexpr int LISTS = TILE_H / GT_H;  // list tiles a key tile
+constexpr int LIST_ENTRY = 1 << 30;   // a pending entry that is a list entry
 
 // List-row lanes (raster_group8.py C_*).
 enum : int {
@@ -60,9 +97,9 @@ enum : int {
   C_BIAS, C_ID, C_ZA
 };
 
-enum Mode : int { FLAT = 0, GBUF = 1, DEPTH = 2 };
+enum Mode : int { GBUF = 1, DEPTH = 2 };
 
-// Flat and G-buffer: the (z, row id) winner; depth-only: strict-less z.
+// G-buffer: the (z, row id) winner; depth-only: strict-less z.
 template <int MODE>
 using Group8State = TileState<MODE != DEPTH, MODE != DEPTH, MODE == DEPTH,
                               GT_H>;
@@ -140,22 +177,174 @@ __device__ __forceinline__ void group8_tile(
   }
 }
 
-// One entry point per kernel, so each has its own name in a profile.
-__global__ void __launch_bounds__(THREADS)
-    raster_group8_kernel(const int* __restrict__ offs,
-                         const int* __restrict__ tile_any,
-                         const int* __restrict__ rows,
-                         const int* __restrict__ megas, int num_megas,
-                         const int* __restrict__ supers,
-                         const int* __restrict__ blocks,
-                         const int* __restrict__ ti,
-                         const float* __restrict__ tf,
-                         int* __restrict__ color, float* __restrict__ depth,
-                         int width, int height) {
-  group8_tile<FLAT>(offs, tile_any, rows, megas, num_megas, supers, blocks,
-                    ti, tf, color, depth, nullptr, width, height);
+// One call's list inputs: the spans (offs, tiles8_y * tiles_x + 1 of
+// them), the gate and the list rows, of a target of tiles8_y list-tile
+// rows.
+struct Lists {
+  const int* offs;
+  const int* tile_any;
+  const int* rows;
+  int tiles8_y;
+};
+
+// The spans of key tile (ty, tx)'s list tiles, top to bottom: list tile k
+// (global list-tile row 4 ty + k, absent past tiles8_y: no entries) holds
+// its span's first entry first[k] and ends[k] entries in all up to it.
+// Returns the key tile's entries E.
+__device__ __forceinline__ int key_tile_spans(const Lists& l, int ty, int tx,
+                                              int tiles_x, int* first,
+                                              int* ends) {
+  int e = 0;
+#pragma unroll
+  for (int k = 0; k < LISTS; ++k) {
+    const int ly = ty * LISTS + k;
+    first[k] = 0;
+    if (ly < l.tiles8_y) {
+      const int* o = l.offs + (size_t)ly * tiles_x + tx;
+      first[k] = __ldg(o);
+      e += __ldg(o + 1) - first[k];
+    }
+    ends[k] = e;
+  }
+  return e;
 }
 
+// List tile k of the key tile from global row row0 is gated: it exists
+// (row0 / GT_H + k < tiles8_y) and its tile_any is set.
+__device__ __forceinline__ bool gated(const Lists& l, int row0, int col0,
+                                      int tiles_x, int k) {
+  const int ly = row0 / GT_H + k;
+  return ly < l.tiles8_y &&
+         __ldg(l.tile_any + (size_t)ly * tiles_x + col0 / TILE_W) > 0;
+}
+
+// Hit words of key tile blockIdx.x over the leftover hierarchy, as K5's.
+__global__ void __launch_bounds__(THREADS) group8_hit_words_kernel(
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, int* buf, int width, int key_h) {
+  __shared__ int warp_sums[WARPS];
+  const int tiles_x = width / TILE_W, tile = (int)blockIdx.x;
+  tile_hit_words(supers, num_supers, blocks, buf,
+                 tiles_x * (key_h / TILE_H), tile, (tile / tiles_x) * TILE_H,
+                 (tile % tiles_x) * TILE_W, warp_sums);
+}
+
+// Work item blockIdx.x is item i = blockIdx.x % items of key tile
+// blockIdx.x / items: its share of the key tile's list entries and of its
+// hit blocks (an item with neither returns at once), pended together;
+// each pending entry is evaluated over its window in its list tile, each
+// pending leftover row over its window in its gated list tiles.  Then out
+// (keyed_out): the tile's planes from the item that holds all its work
+// (one item a tile, or at most one entry and one hit block: the last
+// item), else into the key plane.  The planes and the key plane hold key_h
+// rows.
+__global__ void __launch_bounds__(THREADS) raster_group8_keyed_kernel(
+    Lists l, const int* __restrict__ buf, int num_supers,
+    const int* __restrict__ ti, const float* __restrict__ tf, int items,
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int key_h) {
+  extern __shared__ __align__(16) unsigned char keyed_smem[];
+  KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
+  const int tiles_x = width / TILE_W, tiles = tiles_x * (key_h / TILE_H);
+  const int tile = (int)blockIdx.x / items, item = (int)blockIdx.x % items;
+  const int ty = tile / tiles_x, tx = tile % tiles_x;
+  const int row0 = ty * TILE_H, col0 = tx * TILE_W;
+  int first[LISTS], ends[LISTS];
+  const int entries = key_tile_spans(l, ty, tx, tiles_x, first, ends);
+  const HitWords<const int> hw = hit_words(buf, tiles, num_supers);
+  const int total = __ldg(hw.count + tile);
+  const int e0 = (int)((long long)item * entries / items);
+  const int e1 = (int)((long long)(item + 1) * entries / items);
+  const int h0 = item * total / items, h1 = (item + 1) * total / items;
+  const bool alone =
+      items == 1 || (entries <= 1 && total <= 1 && item == items - 1);
+  if (e0 == e1 && h0 == h1 && !alone) return;  // block-uniform
+  for (int p = threadIdx.x; p < TILE_PIX; p += THREADS)
+    s.key[p] = FlatKeys::CLEAR;
+  __syncthreads();
+  // The first n pending entries and rows as one batch.
+  auto flush = [&](int n) {
+    int area = 0;
+    const int j = threadIdx.x;
+    if (j < n) {
+      const int code = s.pending[j];
+      int t, lo = 0, k1 = -1;
+      if (code & LIST_ENTRY) {
+        const int q = code - LIST_ENTRY;
+        int k = 0, at = first[0] + q;  // its list tile, its list row
+#pragma unroll
+        for (int i = 0; i < LISTS - 1; ++i)
+          if (q >= ends[i]) {
+            k = i + 1;
+            at = first[i + 1] + q - ends[i];
+          }
+        t = __ldg(l.rows + (size_t)at * ROW_LANES + C_ID);
+        lo = k1 = k;
+      } else {
+        t = code;
+        const int* r = ti + (size_t)t * NI32;
+        lo = (max(__ldg(r + I_IMIN), row0) - row0) / GT_H;
+        k1 = (min(__ldg(r + I_IMAX), row0 + TILE_H - 1) - row0) / GT_H;
+        while (lo <= k1 && !gated(l, row0, col0, tiles_x, lo)) ++lo;
+        while (k1 >= lo && !gated(l, row0, col0, tiles_x, k1)) --k1;
+      }
+      if (lo <= k1)
+        area = prepare_record(s, j, ti + (size_t)t * NI32,
+                              tf + (size_t)t * NF32 + F_ZA0,
+                              FlatKeys::row_tag(t, 0), row0, col0, lo * GT_H,
+                              (k1 - lo + 1) * GT_H);
+    }
+    eval_batch<FlatKeys>(s, area);
+  };
+  int pending = 0;  // block-uniform
+  for (int base = e0; base < e1; base += KEY_BATCH) {
+    const int q = base + (int)threadIdx.x;
+    keyed_pend(s, threadIdx.x < KEY_BATCH && q < e1, q | LIST_ENTRY,
+               pending, flush);
+  }
+  walk_hit_blocks(
+      s, hw.words + (size_t)tile * num_supers,
+      hw.before + (size_t)tile * num_supers, num_supers, total, h0, h1,
+      [&](int b) {
+        const int t = b * RASTER_BLOCK + (int)threadIdx.x;
+        bool hit = false;
+        if (threadIdx.x < RASTER_BLOCK) {
+          const int* r = ti + (size_t)t * NI32;
+          hit = tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
+                             __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0,
+                             col0);
+        }
+        keyed_pend(s, hit, t, pending, flush);
+      });
+  if (pending > 0) {
+    __syncthreads();
+    flush(pending);
+  }
+  __syncthreads();
+  keyed_out<FlatKeys>(s, alone, plane, row0, col0, ti, tf, color, depth,
+                      nullptr, width, key_h);
+}
+
+// The resolve of a key tile of several items with more than one entry or
+// more than one hit block.
+__global__ void __launch_bounds__(THREADS) raster_group8_resolve_kernel(
+    Lists l, const int* __restrict__ buf, int num_supers,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    const unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int key_h) {
+  const int tiles_x = width / TILE_W, tiles = tiles_x * (key_h / TILE_H);
+  const int tile = (int)blockIdx.x;
+  const int ty = tile / tiles_x, tx = tile % tiles_x;
+  int first[LISTS], ends[LISTS];
+  const int entries = key_tile_spans(l, ty, tx, tiles_x, first, ends);
+  if (entries <= 1 &&
+      __ldg(hit_words(buf, tiles, num_supers).count + tile) <= 1)
+    return;  // resolved in place
+  resolve_tile<FlatKeys>(plane, ty * TILE_H, tx * TILE_W, ti, tf, color,
+                         depth, nullptr, width, key_h);
+}
+
+// One entry point per kernel, so each has its own name in a profile.
 __global__ void __launch_bounds__(THREADS)
     gbuffer_group8_kernel(const int* __restrict__ offs,
                           const int* __restrict__ tile_any,
@@ -189,18 +378,43 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace g8
 }  // namespace zr
 
-// K10g8: packed color (int bits) and depth.
+// K10g8: packed color (int bits) and depth of key_h rows (the target's
+// height rounded up to TILE_H), the target's tiles8_y list-tile rows
+// first.  num_supers: the superblocks that hold blocks (blocks /
+// SUPER_BLOCK); buf: key tiles * (2 num_supers + 1) ints of hit words;
+// plane: key_h * width keys, unused with one item a tile.  The hit words,
+// then with several items a tile the key plane set to all ones, key tiles
+// * items work items and the resolve over the key tiles.
 extern "C" int zr_raster_group8(const int* offs, const int* tile_any,
-                                const int* rows, const int* megas,
-                                int num_megas, const int* supers,
+                                const int* rows, int tiles8_y,
+                                const int* supers, int num_supers,
                                 const int* blocks, const int* ti,
-                                const float* tf, int* color, float* depth,
-                                int height, int width, void* stream) {
-  const int num_tiles = (height / zr::g8::GT_H) * (width / zr::TILE_W);
-  zr::g8::raster_group8_kernel<<<num_tiles, zr::THREADS, 0,
-                                 (cudaStream_t)stream>>>(
-      offs, tile_any, rows, megas, num_megas, supers, blocks, ti, tf, color,
-      depth, width, height);
+                                const float* tf, int items, int* buf,
+                                unsigned long long* plane, int* color,
+                                float* depth, int key_h, int width,
+                                void* stream) {
+  const int num_tiles = (key_h / zr::TILE_H) * (width / zr::TILE_W);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const zr::g8::Lists l{offs, tile_any, rows, tiles8_y};
+  const int smem = (int)sizeof(zr::KeyedSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      zr::g8::raster_group8_keyed_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  zr::g8::group8_hit_words_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+      supers, num_supers, blocks, buf, width, key_h);
+  if (items > 1) {
+    err = cudaMemsetAsync(plane, 0xff,
+                          (size_t)key_h * width * sizeof(*plane), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  zr::g8::raster_group8_keyed_kernel<<<num_tiles * items, zr::THREADS, smem,
+                                       s>>>(l, buf, num_supers, ti, tf, items,
+                                            plane, color, depth, width,
+                                            key_h);
+  if (items > 1)
+    zr::g8::raster_group8_resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+        l, buf, num_supers, ti, tf, plane, color, depth, width, key_h);
   return (int)cudaGetLastError();
 }
 

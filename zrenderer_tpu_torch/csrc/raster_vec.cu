@@ -11,39 +11,62 @@
 // floats bitcast from lane 32), with the block and superblock union-bbox
 // tables.
 //
-// What it computes, per 32x128 tile (one CUDA block of 256 threads, each
-// owning one column and 16 rows: r0, r0 + 2, ..., as raster_common.cuh):
-// * the superblocks, then the blocks, whose bbox meets the tile; each such
-//   block's 128 records staged in shared memory;
+// What the reference computes, per 32x128 tile:
+// * the superblocks, then the blocks, whose bbox meets the tile;
 // * per 32-record subgroup whose bbox meets the tile's columns, and per
-//   8-row chunk of the tile its bbox meets (thread pixel k lies in chunk
-//   k / 4), every live record (valid, non-empty bbox; no per-record bbox
-//   test) evaluated at the chunk's pixels with e_k = (a_k + dx_k*py) -
-//   dy_k*px, wrapping like the reference's int32 (uint32_t here);
-// * the depth test: the records of a subgroup in order under the strict-
-//   less test z >= 0 && z < zb, which keeps the subgroup's (z, row id)
-//   winner when it beats the tile's depth: the reference's group winner
-//   then strict-less merge, ties to the first row;
-// * the epilogue reads the winner's coefficients from its record and
-//   re-evaluates its edge values: colour where(covered, numer*inv, 0),
-//   packed RGBA8 with alpha 255, depth, and for the G-buffer the
-//   interpolants as covered ? buf*inv : 0 (the reference's :341, K3g's
-//   form) and the constants as latched.
+//   8-row chunk of the tile its bbox meets, every live record (valid,
+//   non-empty bbox; no per-record bbox test) evaluated at the chunk's
+//   pixels with e_k = (a_k + dx_k*py) - dy_k*px, wrapping like the
+//   reference's int32;
+// * the subgroup's (z, row id) winner merged into the tile by the
+//   strict-less test z >= 0 && z < zb from 1.0: the least z, ties to the
+//   first row, never z >= 1.0;
+// * the epilogue from the winner's record: colour where(covered,
+//   numer*inv, 0), packed RGBA8 with alpha 255, depth, and for the
+//   G-buffer the interpolants as covered ? buf*inv : 0 (the reference's
+//   :341, K3g's form) and the constants as latched.
 //
-// The TPU kernel evaluates a subgroup as a (32, 8, 128) array and gathers
-// the winner's coefficients with a one-hot matrix product; here each
-// thread keeps z and the winning row id for its 16 pixels (raster_common.cuh
-// TileState, its G-buffer state over records REC_LANES lanes apart) and
-// its resolve reads the winner's record once at the end.  Its edge_fn on
-// the record's setup ints gives the same int32 values as the a_k form.
+// K10vec runs the keyed hierarchy body (raster_keyed.cuh, as K10trans in
+// raster_vis.cu), with the planes of the register body it ran before bit
+// for bit.  What bound that body on the H100 (10.37 ms a call on lattice1M
+// at 1920x1088, 60 registers): one CUDA block a tile read every
+// superblock's bbox, staged each hit block's 128 records (36 KB) and ran
+// every live record of a hit subgroup over each 8-row chunk its subgroup
+// bbox meets, 1024 pixels a chunk, most of them outside the triangle.
+// Here:
+// * vec_hit_words_kernel writes each tile's hit words once a call (K5's
+//   tile_hit_words over the blocks and superblocks);
+// * a tile's hit blocks are cut into `items` work items of about equal
+//   counts, one CUDA block each (walk_hit_blocks); in a hit block warp w
+//   reads subgroup w's bbox and its 32 threads pend their rows when the
+//   subgroup is admitted (its bbox meets the tile's columns and a chunk's
+//   rows) and the row is live (the reference's own rule, no per-row bbox
+//   test);
+// * each pending row is evaluated over its window: its vertices' pixel
+//   bbox in the tile (prepare_record) within the rows of its subgroup's
+//   hit chunks.  A pixel a row covers lies in that bbox, so the window
+//   holds every pixel the chunks drew, the padding rows included (a
+//   subgroup bbox clamped above them meets no chunk there);
+// * one key a pixel, VecKeys: HierFlatKeys' (order bits of z, row id),
+//   whose minimum from the strict clear key (1.0, 0) is the strict-less
+//   merge of the subgroup winners; items merge by atomicMin into a key
+//   plane of the output's size (memset to all ones) and a resolve writes
+//   the planes (a tile of one item resolves in place), the winner
+//   re-evaluated from its 72-lane record (its -0.0 kept).
+// Four device ops a call: hit words, memset, items, resolve.  Bound on the
+// H100: the window pixels' edge work (26 ops each), or the bytes the body
+// needs (tables, the subgroup bboxes, admitted rows, the two planes).
 //
-// What bounds it on the H100: the per-pixel edge work, every live record
-// of a hit subgroup at the 1024 pixels of each chunk its bbox meets (26
-// ops each), against the output planes' bytes on a sparse frame.  Staging
-// a block costs 36 KB of shared memory reads and writes per (tile, block)
-// pair that hits.
+// K10vecg keeps the register body (raster_common.cuh TileState, one CUDA
+// block of 256 threads a tile, each owning one column and 16 rows): z and
+// the winning row id for its 16 pixels, every live record of a hit
+// subgroup at its pixels of each hit chunk, its G-buffer state over
+// records REC_LANES lanes apart, resolved from the winner's record once
+// at the end.  Its edge_fn on the record's setup ints gives the same int32
+// values as the a_k form.  Staging a block costs 36 KB of shared memory
+// reads and writes per (tile, block) pair that hits.
 
-#include "raster_common.cuh"
+#include "raster_keyed.cuh"
 
 namespace zr {
 namespace vec {
@@ -56,12 +79,14 @@ constexpr int F_BASE = 32;
 constexpr int REC_LANES = F_BASE + NF32;  // 72
 constexpr int SUBGROUPS = RASTER_BLOCK / SUBGROUP;  // 4
 constexpr int CHUNKS = TILE_H / CHUNK_H;            // 4
+static_assert(SUBGROUP == 32, "a warp admits a subgroup");
 
 // Strict-less (z, then first row) winner, resolved from the records.
 using VecState = TileState<false, true, false, TILE_H, REC_LANES, REC_LANES>;
 static_assert(ROW_STEP * (VecState::NPIX / CHUNKS) == CHUNK_H,
               "pixel k of a thread lies in chunk k / (NPIX / CHUNKS)");
 
+// One tile on the register body; vec_tile<true> is K10vecg.
 template <bool GBUF>
 __device__ __forceinline__ void vec_tile(
     const int* __restrict__ supers, int num_supers,
@@ -141,14 +166,131 @@ __device__ __forceinline__ void vec_tile(
       width, (size_t)width * height);
 }
 
-// One entry point per kernel, so each has its own name in a profile.
-__global__ void __launch_bounds__(THREADS)
-    raster_vec_kernel(const int* __restrict__ supers, int num_supers,
-                      const int* __restrict__ blocks,
-                      const int* __restrict__ rec, int* __restrict__ color,
-                      float* __restrict__ depth, int width, int height) {
-  vec_tile<false>(supers, num_supers, blocks, rec, color, depth, nullptr,
-                  width, height);
+// K10vec's key: HierFlatKeys' (order bits of z, row id) from the strict
+// clear key (1.0, 0), the winner resolved from its record (ti: the
+// records, tf: their floats from lane F_BASE, both REC_LANES lanes a row).
+struct VecKeys : HierFlatKeys {
+  static __device__ __forceinline__ void store(
+      unsigned long long k, int row, int col, const int* __restrict__ ti,
+      const float* __restrict__ tf, int* __restrict__ color,
+      float* __restrict__ depth, float* __restrict__ extra, size_t idx,
+      size_t frame) {
+    resolve_winner<false, false, true, REC_LANES, REC_LANES>(
+        ti, tf, k == CLEAR ? INT_MAX32 : (int)(uint32_t)k, 1.0f,
+        col * SUBPIXEL + HALF, row * SUBPIXEL + HALF, color, depth, extra,
+        idx, frame);
+  }
+};
+
+// Subgroup s0's (its first record's) hit chunks at a tile from global
+// (row0, col0): the tile rows [lo, lo + n) of the 8-row chunks its bbox
+// meets, n 0 when the bbox misses the tile's columns or every chunk.
+__device__ __forceinline__ void hit_chunks(const int* __restrict__ rec,
+                                           int s0, int row0, int col0,
+                                           int& lo, int& n) {
+  const int* h = rec + (size_t)s0 * REC_LANES + SG_BBOX;
+  const int sj0 = __ldg(h), sj1 = __ldg(h + 1);
+  const int si0 = __ldg(h + 2), si1 = __ldg(h + 3);
+  lo = n = 0;
+  if (!tile_overlap(sj0, sj1, si0, si1, row0, col0)) return;
+  const int c0 = max(si0 - row0, 0) / CHUNK_H;
+  const int c1 = min(si1 - row0, TILE_H - 1) / CHUNK_H;
+  lo = c0 * CHUNK_H;
+  n = (c1 - c0 + 1) * CHUNK_H;
+}
+
+// Block blockIdx.x writes the hit words of its tile, as K5's.
+__global__ void __launch_bounds__(THREADS) vec_hit_words_kernel(
+    const int* __restrict__ supers, int num_supers,
+    const int* __restrict__ blocks, int* buf, int width, int height) {
+  __shared__ int warp_sums[WARPS];
+  const int tiles_x = width / TILE_W, tile = (int)blockIdx.x;
+  tile_hit_words(supers, num_supers, blocks, buf,
+                 tiles_x * (height / TILE_H), tile, (tile / tiles_x) * TILE_H,
+                 (tile % tiles_x) * TILE_W, warp_sums);
+}
+
+// Work item blockIdx.x is item i = blockIdx.x % items of tile blockIdx.x /
+// items, and takes the tile's hit blocks [i * H / items, (i + 1) * H /
+// items) in row order (an item with none returns at once).  In each hit
+// block thread t < 128 pends row 128 b + t when its subgroup has a hit
+// chunk and the row is live; each pending row is evaluated over its window
+// within its subgroup's hit chunks.  Then out (keyed_out): the tile's
+// planes from the item that holds all its hit blocks (one item a tile, or
+// at most one hit block: the last item), else into the key plane.
+__global__ void __launch_bounds__(THREADS) raster_vec_keyed_kernel(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ rec,
+    int items, unsigned long long* __restrict__ plane,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height) {
+  extern __shared__ __align__(16) unsigned char keyed_smem[];
+  KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
+  const float* recf = reinterpret_cast<const float*>(rec + F_BASE);
+  const int tiles_x = width / TILE_W, tiles = tiles_x * (height / TILE_H);
+  const int tile = (int)blockIdx.x / items, item = (int)blockIdx.x % items;
+  const int row0 = (tile / tiles_x) * TILE_H;
+  const int col0 = (tile % tiles_x) * TILE_W;
+  const HitWords<const int> hw = hit_words(buf, tiles, num_supers);
+  const int total = __ldg(hw.count + tile);
+  const int h0 = item * total / items, h1 = (item + 1) * total / items;
+  const bool alone = items == 1 || (total <= 1 && item == items - 1);
+  if (h0 == h1 && !alone) return;  // block-uniform
+  for (int p = threadIdx.x; p < TILE_PIX; p += THREADS)
+    s.key[p] = VecKeys::CLEAR;
+  // The first n pending rows as one batch.
+  auto flush = [&](int n) {
+    int area = 0;
+    const int j = threadIdx.x;
+    if (j < n) {
+      const int t = s.pending[j];
+      int lo, rows;
+      hit_chunks(rec, t & -SUBGROUP, row0, col0, lo, rows);
+      area = prepare_record(s, j, rec + (size_t)t * REC_LANES,
+                            recf + (size_t)t * REC_LANES + F_ZA0,
+                            VecKeys::row_tag(t, 0), row0, col0, lo, rows);
+    }
+    eval_batch<VecKeys>(s, area);
+  };
+  int pending = 0;  // block-uniform; the walk's barriers order the clear
+  walk_hit_blocks(
+      s, hw.words + (size_t)tile * num_supers,
+      hw.before + (size_t)tile * num_supers, num_supers, total, h0, h1,
+      [&](int b) {
+        const int t = b * RASTER_BLOCK + (int)threadIdx.x;
+        bool hit = false;
+        if (threadIdx.x < RASTER_BLOCK) {
+          int lo, rows;
+          hit_chunks(rec, t & -SUBGROUP, row0, col0, lo, rows);
+          const int* r = rec + (size_t)t * REC_LANES;
+          hit = rows > 0 && __ldg(r + I_JMIN) <= __ldg(r + I_JMAX) &&
+                __ldg(r + I_IMIN) <= __ldg(r + I_IMAX) &&
+                __ldg(r + I_VALID) > 0;
+        }
+        keyed_pend(s, hit, t, pending, flush);
+      });
+  if (pending > 0) {
+    __syncthreads();
+    flush(pending);
+  }
+  __syncthreads();
+  keyed_out<VecKeys>(s, alone, plane, row0, col0, rec, recf, color, depth,
+                     nullptr, width, height);
+}
+
+// The resolve of a tile of several items whose rows lie in two or more hit
+// blocks.
+__global__ void __launch_bounds__(THREADS) raster_vec_resolve_kernel(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ rec,
+    const unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height) {
+  const int tiles_x = width / TILE_W, tiles = tiles_x * (height / TILE_H);
+  const int tile = (int)blockIdx.x;
+  if (__ldg(hit_words(buf, tiles, num_supers).count + tile) <= 1)
+    return;  // resolved in place
+  resolve_tile<VecKeys>(plane, (tile / tiles_x) * TILE_H,
+                        (tile % tiles_x) * TILE_W, rec,
+                        reinterpret_cast<const float*>(rec + F_BASE), color,
+                        depth, nullptr, width, height);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -162,18 +304,39 @@ __global__ void __launch_bounds__(THREADS)
                  width, height);
 }
 
+
 }  // namespace vec
 }  // namespace zr
 
-// K10vec: packed color (int bits) and depth.
+// K10vec: packed color (int bits) and depth.  buf: tiles * (2 num_supers +
+// 1) ints of hit words; plane: height * width keys, unused with one item a
+// tile.  The hit words, then with several items a tile the key plane set
+// to all ones, tiles * items work items and the resolve over the tiles.
 extern "C" int zr_raster_vec(const int* supers, int num_supers,
-                             const int* blocks, const int* rec, int* color,
+                             const int* blocks, const int* rec, int items,
+                             int* buf, unsigned long long* plane, int* color,
                              float* depth, int height, int width,
                              void* stream) {
   const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::vec::raster_vec_kernel<<<num_tiles, zr::THREADS, 0,
-                               (cudaStream_t)stream>>>(
-      supers, num_supers, blocks, rec, color, depth, width, height);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int smem = (int)sizeof(zr::KeyedSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      zr::vec::raster_vec_keyed_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  zr::vec::vec_hit_words_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+      supers, num_supers, blocks, buf, width, height);
+  if (items > 1) {
+    err = cudaMemsetAsync(plane, 0xff,
+                          (size_t)height * width * sizeof(*plane), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  zr::vec::raster_vec_keyed_kernel<<<num_tiles * items, zr::THREADS, smem,
+                                     s>>>(buf, num_supers, rec, items, plane,
+                                          color, depth, width, height);
+  if (items > 1)
+    zr::vec::raster_vec_resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+        buf, num_supers, rec, plane, color, depth, width, height);
   return (int)cudaGetLastError();
 }
 

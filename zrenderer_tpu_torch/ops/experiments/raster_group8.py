@@ -26,6 +26,17 @@ reads the leftover setup rows as they are.  The prepare treats a valid
 head row whose bbox clamps to empty as dead (it covers no pixel centre):
 the reference lists it, so its footprint can overrun the budget or key a
 tile its bbox misses (ROADMAP Queue 3).  CUDA: ``csrc/raster_group8.cu``.
+K10g8 runs the keyed body on 32x128 key tiles, four list tiles each: a key
+tile's list entries (``list_pairs``) and its hit blocks of the leftover
+hierarchy (``raster.hier_block_hits`` at the key tiles), whose rows it
+admits by their bbox (``leftover_pairs``), are cut into G8_ITEMS work
+items; each entry is evaluated over its vertices' pixel bbox in its own
+list tile, each leftover row over its vertices' pixel bbox in the gated
+list tiles its bbox meets (``window_rects``), into one key a pixel, (order
+bits of z, row id) from (1.0, INT_MAX) (``raster_hbm2.KEY_CLEAR``); the
+items merge through a key plane and the planes are resolved from the
+winners' setup rows (``key_planes``).  K10g8g and K10g8d keep the
+register body.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import torch
 from zrenderer_tpu_torch.ops import _build
 from zrenderer_tpu_torch.ops import geometry as tg
 from zrenderer_tpu_torch.ops import raster as tr
+from zrenderer_tpu_torch.ops.experiments import raster_hbm2 as h2
 from zrenderer_tpu_torch.ops.geometry import (
     F_CB0,
     F_CG0,
@@ -77,6 +89,9 @@ GT_W = 128  # group-tile width
 GROUP = 8   # the TPU kernel's triangles per vector step
 CHUNK = 256  # list rows per TPU slab; here it only rounds the budget
 PAIR_CAP = 4  # largest bbox footprint (tiles) of a listed row
+LISTS = tr.TILE_H // GT_H  # list tiles a K10g8 key tile
+# K10g8's work items a key tile, read at call time (a sweep may set it).
+G8_ITEMS = 16
 
 # List-row lanes (int32; float fields bitcast).  Edge k uses reference
 # vertex (k + 1) mod 3, as the setup rows' edge functions do.
@@ -324,6 +339,119 @@ def depth_group8_plain(offs, tile_any, rows, megas, supers, blocks, hier,
 
 
 # ---------------------------------------------------------------------------
+# K10g8's rules (csrc/raster_group8.cu), in torch
+# ---------------------------------------------------------------------------
+
+
+def key_height(height: int) -> int:
+    """K10g8's planes' rows: the target's height rounded up to TILE_H."""
+    return -(-height // tr.TILE_H) * tr.TILE_H
+
+
+def list_pairs(inp: Group8Inputs, width: int, height: int):
+    """K10g8's list entries: (rows, list tile y, tile x, index of the entry
+    in its key tile's spans laid end to end, that key tile's entries),
+    int64, in span order."""
+    offs = inp.offs.to(torch.int64)
+    n = offs[1:] - offs[:-1]
+    dev = n.device
+    lt = torch.repeat_interleave(torch.arange(n.numel(), device=dev), n)
+    rows = inp.rows[:int(offs[-1]), C_ID].to(torch.int64)
+    tiles_x = width // GT_W
+    ly, tx = lt // tiles_x, lt % tiles_x
+    key = ly // LISTS * tiles_x + tx
+    count = torch.zeros(key_height(height) // tr.TILE_H * tiles_x,
+                        dtype=torch.int64, device=dev)
+    count.index_add_(0, key, torch.ones_like(key))
+    # The spans in list-tile order; a key tile's lie tiles_x apart, top
+    # to bottom: a stable sort by key tile ranks its entries.
+    order = torch.sort(key, stable=True).indices
+    rank = torch.empty_like(order)
+    first = torch.cumsum(count, 0) - count
+    rank[order] = (torch.arange(order.numel(), device=dev)
+                   - first[key[order]])
+    return rows, ly, tx, rank, count[key]
+
+
+def leftover_pairs(inp: Group8Inputs, width: int, height: int):
+    """K10g8's hit blocks and leftover rows: (block hits (key tiles, B)
+    bool, rows, key tile y, tile x) int64, each hit block's rows whose
+    bbox meets the key tile."""
+    tiles_x = width // GT_W
+    hits = tr.hier_block_hits(
+        inp.supers[:inp.blocks.shape[0] // tg.SUPER_BLOCK], inp.blocks,
+        width, key_height(height))
+    tile, blk = torch.nonzero(hits, as_tuple=True)
+    rows = (blk[:, None] * tg.RASTER_BLOCK + torch.arange(
+        tg.RASTER_BLOCK, device=blk.device)).reshape(-1)
+    tile = tile.repeat_interleave(tg.RASTER_BLOCK)
+    ty, tx = tile // tiles_x, tile % tiles_x
+    b = inp.hier[rows].to(torch.int64)
+    r0, c0 = ty * tr.TILE_H, tx * tr.TILE_W
+    keep = ((b[:, I_JMAX] >= c0) & (b[:, I_JMIN] < c0 + tr.TILE_W)
+            & (b[:, I_IMAX] >= r0) & (b[:, I_IMIN] < r0 + tr.TILE_H)
+            & (b[:, I_JMIN] <= b[:, I_JMAX]) & (b[:, I_IMIN] <= b[:, I_IMAX]))
+    return hits, rows[keep], ty[keep], tx[keep]
+
+
+def window_rects(inp: Group8Inputs, rows, tile_y, tile_x, width: int,
+                 height: int, list_y=None):
+    """The window of each K10g8 pair in key tile (tile_y, tile_x): (P, 4)
+    int64 [jmin, jmax, imin, imax], the vertices' pixel bbox
+    (``raster.vertex_bbox``) of setup row ``rows`` in the key tile's
+    columns, in rows: a list entry's (``list_y``: its list tile row) its
+    list tile's; a leftover row's (``list_y`` None) the list tiles its bbox
+    meets in the key tile, from the first to the last whose ``tile_any``
+    is set.  Empty where jmin > jmax or imin > imax."""
+    b = inp.hier[rows].to(torch.int64)
+    jmin, jmax, imin, imax = tr.vertex_bbox(b).unbind(1)
+    r0, c0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    if list_y is not None:
+        lo, hi = list_y * GT_H, list_y * GT_H + GT_H - 1
+    else:
+        tiles_x, tiles8_y = width // GT_W, height // GT_H
+        k0 = (torch.maximum(b[:, I_IMIN], r0) - r0) // GT_H
+        k1 = (torch.minimum(b[:, I_IMAX], r0 + tr.TILE_H - 1) - r0) // GT_H
+        k = torch.arange(LISTS, device=rows.device)
+        ly = tile_y[:, None] * LISTS + k
+        live = ly < tiles8_y
+        gate = live & (inp.tile_any.to(torch.int64)[
+            torch.where(live, ly * tiles_x + tile_x[:, None], 0)] > 0)
+        met = gate & (k >= k0[:, None]) & (k <= k1[:, None])
+        first = torch.where(met, k, LISTS).amin(1)
+        last = torch.where(met, k, -1).amax(1)
+        lo, hi = r0 + first * GT_H, r0 + last * GT_H + GT_H - 1
+    return torch.stack([torch.maximum(jmin, c0),
+                        torch.minimum(jmax, c0 + tr.TILE_W - 1),
+                        torch.maximum(imin, lo), torch.minimum(imax, hi)], 1)
+
+
+def window_keys(keys, inp: Group8Inputs, rows, rects, tile_y, tile_x,
+                width: int):
+    """Scatter-min into ``keys`` (key_height * W int64, in place) the (z,
+    row id) key of each pair's fragments inside its window ``rects``."""
+    r = inp.hier[rows]
+    y0, x0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    base, sy, sx = h2.edge_windows(r, y0, x0)
+    h2.window_min(keys, width, y0, x0, tr.TILE_H, base, sy, sx,
+                  r[:, I_BIAS0:I_BIAS0 + 3],
+                  inp.hier_f[rows, F_ZA0:F_ZA0 + 3], rows,
+                  rows=rects[:, 2:], cols=rects[:, :2])
+
+
+def key_planes(keys, inp: Group8Inputs, width: int, height: int):
+    """K10g8's store of a key plane of key_height rows: each pixel's winner
+    re-evaluated from the setup rows and resolved -> (packed i32, depth
+    f32) of the target's rows."""
+    won, ids = h2.winners(keys)
+    kh = key_height(height)
+    color, depth = h2.resolve(
+        won, h2.pixel_edges(inp.hier[ids], width, kh),
+        inp.hier_f[ids, F_ZA0:F_ZA0 + h2.COEFS], width, kh)
+    return color[:height], depth[:height]
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels (csrc/raster_group8.cu)
 # ---------------------------------------------------------------------------
 
@@ -369,15 +497,32 @@ def _group8_args(inp: Group8Inputs, width: int, height: int):
 
 def raster_group8_kernel(offs, tile_any, rows, megas, supers, blocks,
                          hier, hier_f, width: int, height: int):
-    """Launch K10g8 (``csrc/raster_group8.cu``) on the current stream ->
-    (packed i32, depth f32)."""
+    """Launch K10g8 (``csrc/raster_group8.cu``) on the current stream in
+    G8_ITEMS work items a key tile -> (packed i32, depth f32).  Its
+    scratch: the hit words (key tiles * (2 S + 1) ints, S the superblocks
+    that hold blocks) and, with more than one item, the key plane; its
+    planes hold key_height rows, the target's returned."""
     inp = Group8Inputs(offs, tile_any, rows, megas, supers, blocks, hier,
                        hier_f)
-    args = _group8_args(inp, width, height)
-    out = tr._run(_build.load_library().zr_raster_group8, hier.device, width,
-                  height, *args)
+    _group8_args(inp, width, height)
+    items = G8_ITEMS
+    if items < 1:
+        raise ValueError(f"G8_ITEMS must be positive, got {items}")
+    kh = key_height(height)
+    num_supers = blocks.shape[0] // tg.SUPER_BLOCK
+    tiles = (kh // tr.TILE_H) * (width // tr.TILE_W)
+    buf = torch.empty(tiles * (2 * num_supers + 1), dtype=I32,
+                      device=hier.device)
+    plane = (torch.empty(kh * width, dtype=torch.int64, device=hier.device)
+             if items > 1 else None)
+    p = tr._ptr
+    color, depth = tr._run(
+        _build.load_library().zr_raster_group8, hier.device, width, kh,
+        p(offs), p(tile_any), p(rows), height // GT_H, p(supers), num_supers,
+        p(blocks), p(hier), p(hier_f), items, p(buf),
+        None if plane is None else p(plane))
     raster_group8_kernel.launches += 1
-    return out
+    return color[:height], depth[:height]
 
 
 def gbuffer_group8_kernel(offs, tile_any, rows, megas, supers, blocks,

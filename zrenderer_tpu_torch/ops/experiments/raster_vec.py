@@ -24,7 +24,15 @@ Counterpart of ``zrenderer_tpu/ops/experiments/raster_vec.py``
 The TPU kernel's 128-lane records exist for its DMAs, and its one-hot
 matrix product only gathers the winner's coefficients: records here keep
 the REC_LANES lanes in use, and the winner's attributes are read from its
-record.  CUDA: ``csrc/raster_vec.cu``.
+record.  CUDA: ``csrc/raster_vec.cu``.  K10vec runs the keyed hierarchy
+body: each tile's hit blocks (``raster.hier_block_hits``) are cut into
+VEC_ITEMS work items; an item pends the live rows of each hit subgroup
+(``admitted_rows``) and evaluates each over its window (``window_rects``:
+the row's vertices' pixel bbox in the tile, within its subgroup's hit
+chunks) into one key a pixel, (order bits of z, row id) from the strict
+clear key (``KEY_CLEAR``); the items merge through a key plane and the
+planes are resolved from the winners' records (``key_planes``).  K10vecg
+keeps the register body.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from zrenderer_tpu_torch.ops import _build
 from zrenderer_tpu_torch.ops import geometry as tg
 from zrenderer_tpu_torch.ops import raster as tr
+from zrenderer_tpu_torch.ops.experiments import raster_hbm2 as h2
 from zrenderer_tpu_torch.ops.geometry import (
     F_CB0,
     F_CG0,
@@ -78,6 +87,11 @@ _SG_BBOX = 24  # lanes of the subgroup bbox (rows 0 mod SUBGROUP)
 _F_BASE = 32   # lanes of the bitcast setup floats
 REC_LANES = _F_BASE + NF32  # 72 lanes in use of the reference's 128
 BIG_Z = 2.0    # beyond any passing depth
+# K10vec's work items a tile, read at call time (a sweep may set it).
+VEC_ITEMS = 32
+# K10vec's clear key: z 1.0 over row 0, which no row at z >= 1.0 goes
+# below (the strict-less merge from 1.0).
+KEY_CLEAR = 0x3F800000 << 32
 
 _LATCHES = (("den", F_RW0), ("nr", F_CR0), ("ng", F_CG0), ("nb", F_CB0))
 _GBUF_LATCHES = (("u", F_U0), ("v", F_V0), ("nx", F_NX0), ("ny", F_NY0),
@@ -205,6 +219,86 @@ def gbuffer_vec_plain(supers, blocks, rec, width: int, height: int):
 
 
 # ---------------------------------------------------------------------------
+# K10vec's rules (csrc/raster_vec.cu), in torch
+# ---------------------------------------------------------------------------
+
+
+def hit_chunk_rows(rec, rows, tile_y, tile_x):
+    """(lo, hi) int64 global rows of the 8-row chunks of tile (tile_y,
+    tile_x) that the bbox of row ``rows``'s subgroup meets (``rec``: the
+    prepare's records), hi < lo where its bbox misses the tile's columns or
+    every chunk."""
+    sg = rec[rows - rows % SUBGROUP, _SG_BBOX:_SG_BBOX + 4].to(torch.int64)
+    sj0, sj1, si0, si1 = sg.unbind(1)
+    r0, c0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    hit = ((sj1 >= c0) & (sj0 < c0 + tr.TILE_W) & (si1 >= r0)
+           & (si0 < r0 + tr.TILE_H) & (sj0 <= sj1) & (si0 <= si1))
+    lo = r0 + (si0 - r0).clamp(min=0) // CHUNK_H * CHUNK_H
+    hi = r0 + ((si1 - r0).clamp(max=tr.TILE_H - 1) // CHUNK_H + 1) * CHUNK_H
+    return lo, torch.where(hit, hi - 1, lo - 1)
+
+
+def admitted_rows(block_hits, rec, width: int):
+    """The (tile, row) pairs K10vec pends: (rows, tile y, tile x), int64.
+    Each hit block's (``block_hits`` (tiles, B)) rows that are live
+    (valid, with a non-empty bbox) in a subgroup with a hit chunk, with no
+    per-row bbox test."""
+    tx = width // tr.TILE_W
+    tile, blk = torch.nonzero(block_hits, as_tuple=True)
+    rows = (blk[:, None] * RASTER_BLOCK + torch.arange(
+        RASTER_BLOCK, device=blk.device)).reshape(-1)
+    tile = tile.repeat_interleave(RASTER_BLOCK)
+    lo, hi = hit_chunk_rows(rec, rows, tile // tx, tile % tx)
+    r = rec[rows]
+    keep = ((hi >= lo) & (r[:, I_JMIN] <= r[:, I_JMAX])
+            & (r[:, I_IMIN] <= r[:, I_IMAX]) & (r[:, I_VALID] > 0))
+    tile = tile[keep]
+    return rows[keep], tile // tx, tile % tx
+
+
+def window_rects(rec, rows, tile_y, tile_x, chunks: bool = True):
+    """The window of each (tile, row) pair: (P, 4) int64 [jmin, jmax, imin,
+    imax], row ``rows``'s vertices' pixel bbox (``raster.vertex_bbox``) in
+    tile (tile_y, tile_x), with ``chunks`` within its subgroup's hit chunks
+    (``hit_chunk_rows``).  Empty where jmin > jmax or imin > imax."""
+    jmin, jmax, imin, imax = tr.vertex_bbox(
+        rec[rows, :NI32].to(torch.int64)).unbind(1)
+    r0, c0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    lo, hi = r0, r0 + tr.TILE_H - 1
+    if chunks:
+        lo, hi = hit_chunk_rows(rec, rows, tile_y, tile_x)
+    return torch.stack([torch.maximum(jmin, c0),
+                        torch.minimum(jmax, c0 + tr.TILE_W - 1),
+                        torch.maximum(imin, lo), torch.minimum(imax, hi)], 1)
+
+
+def window_keys(keys, rec, rows, rects, tile_y, tile_x, width: int):
+    """Scatter-min into ``keys`` (H * W int64, in place) the (z, row id)
+    key of each (tile, row) pair's fragments inside its window
+    ``rects``."""
+    r = rec[rows, :NI32]
+    za = rec[rows, _F_BASE + F_ZA0:_F_BASE + F_ZA0 + 3].contiguous().view(
+        F32)
+    y0, x0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    base, sy, sx = h2.edge_windows(r, y0, x0)
+    h2.window_min(keys, width, y0, x0, tr.TILE_H, base, sy, sx,
+                  r[:, I_BIAS0:I_BIAS0 + 3], za, rows, rows=rects[:, 2:],
+                  cols=rects[:, :2], clear=KEY_CLEAR)
+
+
+def key_planes(keys, rec, width: int, height: int):
+    """K10vec's store of a key plane: each pixel's winner (its key's row
+    id; none under KEY_CLEAR) re-evaluated from its record and resolved
+    -> (packed i32, depth f32)."""
+    won = keys != KEY_CLEAR
+    ids = torch.where(won, keys & 0xFFFFFFFF, 0)
+    r = rec[ids]
+    coefs = r[:, _F_BASE + F_ZA0:_F_BASE + F_ZA0 + h2.COEFS].contiguous()
+    return h2.resolve(won, h2.pixel_edges(r[:, :NI32], width, height),
+                      coefs.view(F32), width, height)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels (csrc/raster_vec.cu)
 # ---------------------------------------------------------------------------
 
@@ -235,11 +329,22 @@ def _vec_args(supers, blocks, rec, width: int, height: int):
 
 
 def raster_vec_kernel(supers, blocks, rec, width: int, height: int):
-    """Launch K10vec (``csrc/raster_vec.cu``) on the current stream ->
-    (packed i32, depth f32)."""
+    """Launch K10vec (``csrc/raster_vec.cu``) on the current stream in
+    VEC_ITEMS work items a tile -> (packed i32, depth f32).  Its scratch:
+    the hit words (tiles * (2 S + 1) ints) and, with more than one item,
+    the key plane of the output's size."""
     args = _vec_args(supers, blocks, rec, width, height)
+    items = VEC_ITEMS
+    if items < 1:
+        raise ValueError(f"VEC_ITEMS must be positive, got {items}")
+    tiles = (height // tr.TILE_H) * (width // tr.TILE_W)
+    buf = torch.empty(tiles * (2 * supers.shape[0] + 1), dtype=I32,
+                      device=rec.device)
+    plane = (torch.empty(height * width, dtype=torch.int64,
+                         device=rec.device) if items > 1 else None)
     out = tr._run(_build.load_library().zr_raster_vec, rec.device, width,
-                  height, *args)
+                  height, *args, items, tr._ptr(buf),
+                  None if plane is None else tr._ptr(plane))
     raster_vec_kernel.launches += 1
     return out
 
