@@ -9,8 +9,9 @@ example a parent commit unpacked with ``git archive``) on one CUDA card;
 or, with ``--sweep``, this tree's K5 and K5g on the 1M lattice at each
 work-item count of SWEEP_ITEMS, K10hbm2 and K10scan at each count of
 SWEEP_TWOCLASS_ITEMS (``twoclass_sweep``), K10vis and K10trans at each
-count of SWEEP_VIS_ITEMS (``vis_sweep``), K10vec and K10g8 at each count
-of SWEEP_X_ITEMS (``x_sweep``), K6, K6g, K6d and K9d at each
+count of SWEEP_VIS_ITEMS (``vis_sweep``), K10vec and K10g8, and K10vecg
+and K10g8g on the lit rows, at each count of SWEEP_X_ITEMS (``x_sweep``),
+K6, K6g, K6d and K9d at each
 item size of SWEEP_RECORDS and halved toward each item count of
 SWEEP_MIN_ITEMS (``record_sweep``), and K1 and K2d at each count of
 SWEEP_SMALL_BLOCKS blocks a tile (``small_sweep``).
@@ -38,7 +39,7 @@ all-to-all, ``tiles.dist_exchange``, then the owner's prepare), K5 on the
 flat 40K and 1M lattices' and the 1M lattice's shadow map's hierarchy
 inputs, K10hbm2, K10scan, K10vis, K10trans, K10vec and K10g8 on the flat
 1M lattice's rows (their own prepares), K10vecg and K10g8g on the lit 40K
-lattice's, K10g8d on the 20K lattice's 1024x1024 shadow map, K4 on the
+and 1M lattices', K10g8d on the 20K lattice's 1024x1024 shadow map, K4 on the
 flat and K4g on the lit 1M lattice's inputs (``auto``),
 K9 on band 0 of the flat 1M lattice's 2 bands at 1920x544 (the rows
 gathered from 2 shards, the band-local prepare, as ``tiles.band_raster``
@@ -364,32 +365,48 @@ def vis_sweep(rows=None) -> dict:
     return out
 
 
-def x_cases(rows, width, height):
-    """K10vec's and K10g8's (kernel, prepared inputs) on ``rows``."""
+def x_cases(rows, width, height, gbuffer=False):
+    """K10vec's and K10g8's (kernel, prepared inputs) on ``rows``, or with
+    ``gbuffer`` K10vecg's and K10g8g's (lit rows)."""
     from zrenderer_tpu_torch.ops.experiments import raster_group8, raster_vec
 
-    return {"k10vec": (raster_vec.raster_vec_kernel,
-                       raster_vec.prepare_vec_inputs(*rows)),
-            "k10g8": (raster_group8.raster_group8_kernel,
-                      raster_group8.prepare_group8_inputs(*rows, width,
-                                                          height))}
+    g = "g" if gbuffer else ""
+    return {"k10vec" + g: (raster_vec.gbuffer_vec_kernel if gbuffer
+                           else raster_vec.raster_vec_kernel,
+                           raster_vec.prepare_vec_inputs(*rows)),
+            "k10g8" + g: (raster_group8.gbuffer_group8_kernel if gbuffer
+                          else raster_group8.raster_group8_kernel,
+                          raster_group8.prepare_group8_inputs(*rows, width,
+                                                              height))}
 
 
-def x_sweep(rows=None) -> dict:
+def lit_lattice_rows(scene_md):
+    """The lit renderer's setup rows of ``scene_md`` (the checker
+    texture)."""
+    r = renderer(scene_md, pipeline="lit")
+    r.set_environment(texture=cs.checker_texture())
+    return cs.lit_frame_rows(r)
+
+
+def x_sweep(rows=None, lit_rows=None) -> dict:
     """K10vec and K10g8 on the flat 1M lattice's rows (``rows``, or the
-    renderer's) at each work-item count of SWEEP_X_ITEMS (ms a call, CUDA
-    events), every count's planes equal."""
+    renderer's), K10vecg and K10g8g on its lit rows (``lit_rows``, or the
+    lit renderer's), at each work-item count of SWEEP_X_ITEMS (ms a call,
+    CUDA events), every count's planes equal."""
     from zrenderer_tpu_torch.ops.experiments import raster_group8, raster_vec
     from zrenderer_tpu_torch.scene.procedural import make_stress_scene
 
     w, h = cs.PAD_W, cs.PAD_H
-    if rows is None:
-        rows = cs.frame_rows(renderer(make_stress_scene(cs.LARGE_TRIS)))
+    if rows is None or lit_rows is None:
+        lattice = make_stress_scene(cs.LARGE_TRIS)
+        rows = rows or cs.frame_rows(renderer(lattice))
+        lit_rows = lit_rows or lit_lattice_rows(lattice)
     out = {}
     items = {"k10vec": (raster_vec, "VEC_ITEMS"),
              "k10g8": (raster_group8, "G8_ITEMS")}
-    for key, (kern, prep) in x_cases(rows, w, h).items():
-        mod, attr = items[key]
+    for key, (kern, prep) in {**x_cases(rows, w, h),
+                              **x_cases(lit_rows, w, h, True)}.items():
+        mod, attr = items[key.rstrip("g")]
         saved = getattr(mod, attr)
         out[key], ref = {}, None
         try:
@@ -421,12 +438,11 @@ def sweep() -> dict:
     flat = raster.prepare_raster_inputs(*rows)
     out["twoclass"] = twoclass_sweep(rows)
     out["vis"] = vis_sweep(rows)
-    out["x"] = x_sweep(rows)
+    lit_rows = lit_lattice_rows(lattice)
+    out["x"] = x_sweep(rows, lit_rows)
     del r, rows
-    r = renderer(lattice, pipeline="lit")
-    r.set_environment(texture=cs.checker_texture())
-    lit = raster.prepare_raster_inputs(*cs.lit_frame_rows(r))
-    del r
+    lit = raster.prepare_raster_inputs(*lit_rows)
+    del lit_rows
     saved = raster.HIER_ITEMS
     for key, kern, prep in (("k5", raster.raster_hbm_kernel, flat),
                             ("k5g", raster.gbuffer_hbm_kernel, lit)):
@@ -452,7 +468,7 @@ def measure(small=False) -> dict:
     import torch
 
     from zrenderer_tpu_torch.ops import light_kernel, raster
-    from zrenderer_tpu_torch.ops.experiments import raster_group8, raster_vec
+    from zrenderer_tpu_torch.ops.experiments import raster_group8
     from zrenderer_tpu_torch.parallel import tiles
     from zrenderer_tpu_torch.scene.procedural import (make_stress_scene,
                                                       make_triangle_soup)
@@ -632,17 +648,11 @@ def measure(small=False) -> dict:
         *(p for band in tiles.bands_in_turn(2, cs.WIDTH, h2, *args, "dist")
           for p in band))
     del prep, args, ti, tf, locals_, r
-    r = renderer(make_stress_scene(cs.MID_TRIS), pipeline="lit")
-    r.set_environment(texture=cs.checker_texture())
-    rows = cs.lit_frame_rows(r)
-    for key, kern, prep in (
-            ("k10vecg", raster_vec.gbuffer_vec_kernel,
-             raster_vec.prepare_vec_inputs(*rows)),
-            ("k10g8g", raster_group8.gbuffer_group8_kernel,
-             raster_group8.prepare_group8_inputs(*rows, w, h))):
+    rows = lit_lattice_rows(make_stress_scene(cs.MID_TRIS))
+    for key, (kern, prep) in x_cases(rows, w, h, True).items():
         out[key]["lit lattice40k"] = event_ms(lambda: kern(*prep, w, h), 20)
         out["digests"][f"{key} lit lattice40k"] = digest(*kern(*prep, w, h))
-    del prep, rows, r
+    del prep, rows
 
     lattice = make_stress_scene(cs.LARGE_TRIS)
     r = renderer(lattice)
@@ -700,6 +710,9 @@ def measure(small=False) -> dict:
     k5g = raster.gbuffer_hbm_kernel
     out["k5g"]["lit lattice1M"] = event_ms(lambda: k5g(*prep, w, h), 5)
     out["digests"]["k5g lit lattice1M"] = digest(*k5g(*prep, w, h))
+    for key, (kern, prep) in x_cases(rows, w, h, True).items():
+        out[key]["lit lattice1M"] = event_ms(lambda: kern(*prep, w, h), 5)
+        out["digests"][f"{key} lit lattice1M"] = digest(*kern(*prep, w, h))
     del prep, rows
     frame_1m(r, "lit lattice1M")
     del r

@@ -200,9 +200,9 @@ lines and seconds:
 4x. the raster experiments, K10g8/K10g8g/K10g8d (group-tile lists, then
     the leftover mega/super/block hierarchy) and K10vec/K10vecg
     (lane-parallel subgroups), against their plain versions, every plane
-    bitwise as int32 (K10g8 and K10vec, on the keyed body, at their
-    default work items a tile and again at one): K10g8 and K10vec on the
-    40K lattice at 1920x1088,
+    bitwise as int32 (K10g8, K10g8g, K10vec and K10vecg, on the keyed
+    body, at their default work items a tile and again at one): K10g8 and
+    K10vec on the 40K lattice at 1920x1088,
     K10g8g and K10vecg on the test scene and the 40K lattice (random
     normals and per-triangle materials), K10g8d on the 20K lattice's light
     view into the 1024x1024 map (each path's shape; those plain calls give
@@ -218,19 +218,22 @@ lines and seconds:
     (RGBA and depth bits), the padding rows 1080-1087 clear where K5 and K4
     draw; then K10g8 and K10vec against their plain versions on one 1M
     prepare, all 1088 rows bitwise (the plain versions' seconds printed);
-    the G-buffer kernels on the 40K lattice against K5g, K10g8d on the map
+    K10g8g and K10vecg on the 1M lattice's lit rows, the 13 planes of
+    rows 0-1079 equal to K5g's and rows 1080-1087 clear; K10g8d on the map
     against K3d;
 6x. each experiment kernel's device time from a trace at its main shape
-    (the 1M lattice, the 40K lattice and the test scene, the map; K10g8's
-    and K10vec's calls the sum of their device ops, the hit words, the key
-    plane's memset, the work items and the resolve, whose count is printed
-    and checked, each op's time printed), its entry point traced once
-    (K10g8's and K10vec's split into the prepare's ops and the kernel's),
-    launcher times, the two prepares' times on the 1M lattice and the
-    bounds (K10g8 and K10vec: their window pixel evaluations or the bytes
-    their keyed body needs, their register body's 8x128 tile and chunk
-    pairs kept as bound_ms_tiles; the G-buffer and depth kernels at their
-    own granularity, 8x128 tiles for group8, 8x128 chunks for vec);
+    (the 1M lattice, its lit rows, the map; the G-buffer kernels also on
+    the lit 40K lattice and the test scene; the keyed kernels' calls,
+    K10g8's, K10g8g's, K10vec's and K10vecg's, the sum of their device
+    ops, the hit words, the key plane's memset, the work items and the
+    resolve, whose count is printed and checked, each op's time printed),
+    its entry point traced once (the keyed kernels' split into the
+    prepare's ops and the kernel's), launcher times, the two prepares'
+    times on the 1M lattice and the bounds (the keyed kernels: their
+    window pixel evaluations or the bytes their keyed body needs, the
+    G-buffer ones at 40K too, the register body's 8x128 tile and chunk
+    pairs kept as bound_ms_tiles; K10g8d at its own granularity, 8x128
+    tiles);
 6xv. the visibility-buffer experiments' traces, taken before phase 6's
     untraced loops and their own plain versions (a trace after about 1.2M
     untraced launches loses a kernel record): K10vis and K10trans on the
@@ -371,10 +374,11 @@ draw list's (tile, triangle) pairs times 4096 pixels times
 OPS_PER_OVERLAY_EVAL plus its covered (pixel, triangle) times
 OPS_PER_OVERLAY_HIT; K8b's the larger of the frame, the count, the output
 and the live layers (12 bytes each) moved once and the live layers times
-OPS_PER_COMPOSITE_LAYER.  K10g8g's and K10g8d's pairs are of their 8x128
-tiles, 1024 pixels each; K10vecg's of 8x128 chunks, the granularity at
-which it gates a subgroup, 1024 pixels each (K10g8's and K10vec's too, as
-bound_ms_tiles, beside their window pixels, ``x_work``); K10vis's and
+OPS_PER_COMPOSITE_LAYER.  K10g8d's pairs are of its 8x128 tiles, 1024
+pixels each; K10g8's, K10g8g's, K10vec's and K10vecg's their window
+pixels and the bytes their keyed body needs (``x_work``), their register
+body's 8x128 tiles and chunks (the granularity at which it gated a
+subgroup), 1024 pixels each, kept as bound_ms_tiles; K10vis's and
 K10trans's their admitted pairs' window pixels, as K10hbm2's (their
 (4x128 chunk, triangle) pairs x 512 x OPS_PER_VIS_PAIR kept as
 bound_ms_chunks).
@@ -1531,16 +1535,18 @@ def main(argv=None) -> int:
               f"raster_scan_keyed_kernel; {hbm2.TWOCLASS_ITEMS} work "
               "item(s) a tile; twoclass_hit_words_kernel and the resolve "
               "kernels none)")
-        for key in ("k10vis", "k10trans", "k10vec", "k10g8"):
+        for key in ("k10vis", "k10trans", "k10vec", "k10vecg", "k10g8",
+                    "k10g8g"):
             results[key]["smem_bytes"] = smem
         print(f"  K10vis/K10trans keyed body: {smem} bytes of dynamic shared "
               "memory a block (raster_vis_keyed_kernel, "
               f"raster_trans_keyed_kernel; {vis_trans.VIS_ITEMS} work "
               "item(s) a tile; vis_hit_words_kernel, trans_hit_words_kernel "
               "and the resolve kernels none)")
-        print(f"  K10vec/K10g8 keyed body: {smem} bytes of dynamic shared "
-              "memory a block (raster_vec_keyed_kernel, "
-              f"raster_group8_keyed_kernel; {vec.VEC_ITEMS} and "
+        print(f"  K10vec/K10vecg/K10g8/K10g8g keyed body: {smem} bytes of "
+              "dynamic shared memory a block (raster_vec_keyed_kernel, "
+              "gbuffer_vec_keyed_kernel, raster_group8_keyed_kernel, "
+              f"gbuffer_group8_keyed_kernel; {vec.VEC_ITEMS} and "
               f"{group8.G8_ITEMS} work item(s) a tile; vec_hit_words_kernel, "
               "group8_hit_words_kernel and the resolve kernels none)")
         return info.seconds
@@ -3310,10 +3316,10 @@ def main(argv=None) -> int:
                     "k9g": "gbuffer_records_band_kernel",
                     "k9d": "raster_records_dist_keyed_kernel",
                     "k10g8": "raster_group8_keyed_kernel",
-                    "k10g8g": "gbuffer_group8_kernel",
+                    "k10g8g": "gbuffer_group8_keyed_kernel",
                     "k10g8d": "depth_group8_kernel",
                     "k10vec": "raster_vec_keyed_kernel",
-                    "k10vecg": "gbuffer_vec_kernel",
+                    "k10vecg": "gbuffer_vec_keyed_kernel",
                     "k10vis": "raster_vis_keyed_kernel",
                     "k10trans": "raster_trans_keyed_kernel",
                     "k10hbm2": "raster_hbm2_keyed_kernel",
@@ -3345,17 +3351,23 @@ def main(argv=None) -> int:
                               "k10scan": "raster_scan_resolve_kernel"}
     vis_resolve_names = {"k10vis": "raster_vis_resolve_kernel",
                          "k10trans": "raster_trans_resolve_kernel"}
-    # K10vec and K10g8 likewise, with vec.VEC_ITEMS and group8.G8_ITEMS.
+    # K10vec and K10vecg likewise, with vec.VEC_ITEMS, and K10g8 and
+    # K10g8g with group8.G8_ITEMS.
     x_resolve_names = {"k10vec": "raster_vec_resolve_kernel",
-                       "k10g8": "raster_group8_resolve_kernel"}
+                       "k10vecg": "gbuffer_vec_resolve_kernel",
+                       "k10g8": "raster_group8_resolve_kernel",
+                       "k10g8g": "gbuffer_group8_resolve_kernel"}
 
     def x_items(key):
-        """Work items a tile of K10vec or K10g8, as read at call time."""
-        return vec.VEC_ITEMS if key == "k10vec" else group8.G8_ITEMS
+        """Work items a tile of K10vec, K10vecg, K10g8 or K10g8g, as read
+        at call time."""
+        return (vec.VEC_ITEMS if key.startswith("k10vec")
+                else group8.G8_ITEMS)
 
     def at_x_items(key, n, fn):
-        """``fn()`` with K10vec's or K10g8's work items a tile set to n."""
-        mod, attr = ((vec, "VEC_ITEMS") if key == "k10vec"
+        """``fn()`` with the work items a tile of K10vec and K10vecg, or of
+        K10g8 and K10g8g, set to n."""
+        mod, attr = ((vec, "VEC_ITEMS") if key.startswith("k10vec")
                      else (group8, "G8_ITEMS"))
         saved = getattr(mod, attr)
         setattr(mod, attr, n)
@@ -3374,7 +3386,9 @@ def main(argv=None) -> int:
         "k10vis": "vis_hit_words_kernel",
         "k10trans": "trans_hit_words_kernel",
         "k10vec": "vec_hit_words_kernel",
-        "k10g8": "group8_hit_words_kernel"}
+        "k10vecg": "vec_hit_words_kernel",
+        "k10g8": "group8_hit_words_kernel",
+        "k10g8g": "group8_hit_words_kernel"}
     port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
                     | set(hier_resolve_names.values())
                     | set(twoclass_resolve_names.values())
@@ -4343,6 +4357,25 @@ def main(argv=None) -> int:
     # skipped 5b, the port's geometry on the card.
     rows_1m = rows_lattice or setup_rows(*make_stress_scene(LARGE_TRIS),
                                          WIDTH, HEIGHT)
+    # Its lit rows: phase 5l's, or where ``--phases`` skipped 5l, built on
+    # the card once, when 5x or 6x first asks.
+    lit_1m_built = []
+
+    def lit_rows_1m():
+        if rows_lit_big is not None:
+            return rows_lit_big
+        if not lit_1m_built:
+            lit_1m_built.append(lit_rows(*make_stress_scene(LARGE_TRIS),
+                                         WIDTH, HEIGHT))
+        return lit_1m_built[0]
+
+    def gbuffer_clear(planes):
+        """Every pixel of the G-buffer ``planes`` holds the clear values:
+        alpha alone, depth 1.0, every further plane 0.0."""
+        return (bool((planes[0] == -(1 << 24)).all().item())
+                and bool((planes[1] == 1.0).all().item())
+                and not any(bool(p.view(torch.int32).any().item())
+                            for p in planes[2:]))
 
     # -- 5x. the experiment frames at 1M --------------------------------------
     @phase("5x experiment frames at 1M")
@@ -4353,9 +4386,10 @@ def main(argv=None) -> int:
         is held against its plain version at 1M in phase 5b).  Then each
         kernel against its own plain version on one 1M prepare, all 1088
         rows bitwise, so that the padding rows' rule is the plain
-        version's too.  Then the G-buffer and depth entry points once each
-        at their main shapes (lattice40k, the 20K lattice's map), against
-        K5g and K3d."""
+        version's too.  Then the G-buffer entry points once each on the
+        1M lattice's lit rows, the 13 planes of rows 0-1079 against K5g's
+        and rows 1080-1087 clear, and the depth entry point on the 20K
+        lattice's map against K3d."""
         ti, tf = rows_1m
         c5, d5 = k5(*raster.prepare_raster_inputs(ti, tf), PAD_W, PAD_H)
         c4, d4 = k4(*raster.prepare_binned_hbm_inputs(ti, tf, PAD_W, PAD_H),
@@ -4417,15 +4451,26 @@ def main(argv=None) -> int:
             if not same:
                 raise AssertionError(f"lattice1M: {key} and its plain "
                                      "version differ")
-        g5 = k5g(*raster.prepare_raster_inputs(*x_lit40), PAD_W, PAD_H)
+        lit = lit_rows_1m()
+        g5 = k5g(*raster.prepare_raster_inputs(*lit), PAD_W, PAD_H)
         for key, fn in (("k10g8g", group8.rasterize_gbuffer_group8),
                         ("k10vecg", vec.rasterize_gbuffer_vec)):
-            out = entry(key, fn, *x_lit40, PAD_W, PAD_H)
+            out = entry(key, fn, *lit, PAD_W, PAD_H)
             same = same_planes([p[vis] for p in out], [p[vis] for p in g5])
-            print(f"  lattice40k G-buffer ({key}, one launch): the 13 "
-                  f"visible planes equal K5g's {same}")
-            if not same:
-                raise AssertionError(f"lattice40k: {key} differs from K5g")
+            clear = gbuffer_clear([p[pad] for p in out])
+            cov = (out[1][vis] < 1.0).float().mean().item()
+            print(f"  lit lattice1M {PAD_W}x{PAD_H} G-buffer ({key}, one "
+                  f"launch): the 13 planes of rows 0-{HEIGHT - 1} equal "
+                  f"K5g's {same}, coverage {cov:.4f}; rows {HEIGHT}-"
+                  f"{PAD_H - 1} clear in every plane {clear} (K5g draws "
+                  f"{drawn(g5[1])} pixels there)")
+            if not same or cov <= MIN_COVERAGE:
+                raise AssertionError(f"lit lattice1M: {key} differs from "
+                                     "K5g in the visible rows")
+            if not clear:
+                raise AssertionError(f"lit lattice1M: {key} drew padding "
+                                     "rows")
+        del g5, out
         S = SHADOW_SIZE
         dmap = entry("k10g8d", group8.rasterize_depth_group8, *x_map20, S, S)
         same = torch.equal(dmap, k3d(*raster.prepare_raster_inputs(*x_map20),
@@ -4449,20 +4494,25 @@ def main(argv=None) -> int:
         return [(len(p), sum(e[2] for e in p) / 1000.0) for p in parts]
 
     def x_work(key, prep, w, h):
-        """The work K10vec's or K10g8's keyed body needs on ``prep``:
-        (admitted (tile, row) pairs and list entries, their window pixel
-        evaluations, bytes needed).  A pair's window is its row's vertices'
-        pixel bbox in the tile within the kernel's extent
-        (``vec.window_rects``: its subgroup's hit chunks;
+        """The work K10vec's, K10vecg's, K10g8's or K10g8g's keyed body
+        needs on ``prep`` (K10g8d's: what K10g8's body with its depth key
+        would need): (admitted (tile, row) pairs and list entries, their
+        window pixel evaluations, bytes needed).  A pair's window is
+        its row's vertices' pixel bbox in the tile within the kernel's
+        extent (``vec.window_rects``: its subgroup's hit chunks;
         ``group8.window_rects``: an entry's list tile, a leftover row's
         gated list tiles): inside the geometry's rows it holds every pixel
         the row covers, in the padding rows the kernel's own extent.  The
-        bytes: the tables (K10vec the superblocks and blocks and each hit
-        block's four subgroup bboxes; K10g8 the spans, the gate, the
-        entries' row ids, the superblocks and blocks), each admitted row's
-        20 setup ints and 3 z floats once, each winning row's 20 ints and 12
-        floats the store reads, and the two planes."""
-        if key == "k10vec":
+        bytes: the tables (the vec kernels the superblocks and blocks and
+        each hit block's four subgroup bboxes; the group8 kernels the
+        spans, the gate, the entries' row ids, the superblocks and
+        blocks), each admitted row's 20 setup ints and 3 z floats once,
+        each distinct winning row's WINNER_BYTES the store reads
+        (WINNER_GBUF_BYTES for the G-buffer forms, none for K10g8d, whose
+        key holds z; the winners from the pairs' keys scatter-minned over
+        their windows, the kernels' rule in torch) and the 2, 13 or 1
+        planes."""
+        if key.startswith("k10vec"):
             supers, blocks, rec = prep
             hits = raster.hier_block_hits(supers, blocks, w, h)
             rows, ty, tx = vec.admitted_rows(hits, rec, w)
@@ -4472,6 +4522,10 @@ def main(argv=None) -> int:
                       + int(hits.any(0).sum().item())
                       * (tg.RASTER_BLOCK // vec.SUBGROUP) * 16)
             kh = h
+            keys = torch.full((kh * w,), vec.KEY_CLEAR, dtype=torch.int64,
+                              device=dev)
+            vec.window_keys(keys, rec, rows, rect, ty, tx, w)
+            won = keys != vec.KEY_CLEAR
         else:
             rows_l, ly, tx_l, _, _ = group8.list_pairs(prep, w, h)
             rect_l = group8.window_rects(prep, rows_l, ly // group8.LISTS,
@@ -4480,42 +4534,58 @@ def main(argv=None) -> int:
             rect_o = group8.window_rects(prep, rows_o, ty_o, tx_o, w, h)
             rows, rect = (torch.cat([rows_l, rows_o]),
                           torch.cat([rect_l, rect_o]))
+            ty = torch.cat([ly // group8.LISTS, ty_o])
+            tx = torch.cat([tx_l, tx_o])
             nsup = prep.blocks.shape[0] // tg.SUPER_BLOCK
             tables = (sum(t.numel() * t.element_size()
                           for t in (prep.offs, prep.tile_any,
                                     prep.supers[:nsup], prep.blocks))
                       + rows_l.numel() * 4)
             kh = group8.key_height(h)
+            keys = torch.full((kh * w,), hbm2.KEY_CLEAR, dtype=torch.int64,
+                              device=dev)
+            group8.window_keys(keys, prep, rows, rect, ty, tx, w)
+            won = keys != hbm2.KEY_CLEAR
+        gbuffer, depth = key.endswith("g"), key.endswith("d")
+        winners = int(torch.unique(keys[won] & 0xFFFFFFFF).numel())
         evals = int(((rect[:, 1] - rect[:, 0] + 1).clamp(min=0)
                      * (rect[:, 3] - rect[:, 2] + 1).clamp(min=0))
                     .sum().item())
+        planes = raster.GBUFFER_PLANES if gbuffer else 1 if depth else 2
         nbytes = (tables + torch.unique(rows).numel() * (tg.NI32 * 4 + 12)
-                  + 2 * 4 * w * kh)
+                  + winners * (WINNER_GBUF_BYTES if gbuffer else 0 if depth
+                               else WINNER_BYTES)
+                  + planes * 4 * w * kh)
+        print(f"  {key} work at {w}x{h}: {rows.numel()} pairs of "
+              f"{torch.unique(rows).numel()} rows, {winners} winning rows; "
+              f"{evals} window pixel evaluations, {nbytes} bytes")
         return rows.numel(), evals, nbytes
 
     # -- 6x. the experiment kernels' times ------------------------------------
     @phase("6x experiment kernel timing")
     def experiment_timing():
         """Each kernel's device time from a trace holding all its launches
-        at its main shape (the 1M lattice for the flat kernels, the 40K
-        lattice and the test scene for the G-buffer ones, the 20K
-        lattice's map for K10g8d), its entry point traced once (prepare
-        and launch: device ops, busy, idle share), then the untraced
-        launcher and prepare loops and the bounds.  K10g8 and K10vec: a
+        at its main shape (the 1M lattice for the flat kernels, its lit
+        rows for the G-buffer ones, the 20K lattice's map for K10g8d), its
+        entry point traced once (prepare and launch: device ops, busy, idle
+        share), then the untraced launcher and prepare loops and the
+        bounds; the G-buffer kernels also on the lit 40K lattice and the
+        test scene.  The keyed kernels (K10g8, K10g8g, K10vec, K10vecg): a
         call is the sum of its device ops (``call_ops``), whose count the
         trace must hold, each op's time printed; the entry point's trace
         split into the prepare's ops and the kernel's (``entry_split``);
         ptxas's registers, spills and shared memory of the item, resolve
         and hit-word kernels; the bound by ``x_work``."""
         S = SHADOW_SIZE
+        lit = lit_rows_1m()
         main = {  # key: (rows, shape, (w, h), reps, entry point)
             "k10g8": (rows_1m, "lattice1M", (PAD_W, PAD_H), 5,
                       group8.rasterize_setup_group8),
             "k10vec": (rows_1m, "lattice1M", (PAD_W, PAD_H), 5,
                        vec.rasterize_setup_vec),
-            "k10g8g": (x_lit40, "lattice40k", (PAD_W, PAD_H), 20,
+            "k10g8g": (lit, "lit lattice1M", (PAD_W, PAD_H), 5,
                        group8.rasterize_gbuffer_group8),
-            "k10vecg": (x_lit40, "lattice40k", (PAD_W, PAD_H), 20,
+            "k10vecg": (lit, "lit lattice1M", (PAD_W, PAD_H), 5,
                         vec.rasterize_gbuffer_vec),
             "k10g8d": (x_map20, "lattice20k map", (S, S), 20,
                        group8.rasterize_depth_group8),
@@ -4563,8 +4633,20 @@ def main(argv=None) -> int:
                   f"{busy / 1000.0:.4f} ms ({key} {kms[key]:.4f} ms), idle "
                   f"share {1.0 - busy / window:.4f} of "
                   f"{window / 1000.0:.4f} ms traced{split}", flush=True)
+        preps40 = {}
         for key in ("k10g8g", "k10vecg"):
             kern, _, prepare, _ = x_cases[key]
+            prep = preps40[key] = prepare(*x_lit40, PAD_W, PAD_H)
+            events, _, ms = traced_kernel_ms(
+                (key,), lambda: [kern(*prep, PAD_W, PAD_H)
+                                 for _ in range(20)])
+            ops = call_ops(key)
+            results[key]["ms_40k"] = ms[key]
+            print(f"  {key} lit lattice40k: {len(events)} device ops for 20 "
+                  f"calls ({len(ops)} a call); {ms[key]:.4f} ms a call")
+            if len(events) != len(ops) * 20:
+                raise AssertionError(f"{key}: {len(events)} device ops for "
+                                     f"20 calls, not {len(ops)} a call")
             prep = prepare(*x_scene_rows, PAD_W, PAD_H)
             _, _, ms = traced_kernel_ms(
                 (key,), lambda: [kern(*prep, PAD_W, PAD_H)
@@ -4605,6 +4687,16 @@ def main(argv=None) -> int:
             set_bound(key, inputs, tile_pairs(rows[0], w, h, *tile), w, h,
                       shape, planes=planes, tile_px=tile[0] * tile[1],
                       **work)
+            if key == "k10g8d":  # restated by window evaluations, as K10g8's
+                _, evals, nbytes = x_work(key, prep, w, h)
+                t_ops = evals * OPS_PER_EVAL / CUDA_CORE_OPS_PER_S * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                res.update(bound_ms_windows=max(t_ops, t_bytes),
+                           evals_windows=evals, bytes_windows=nbytes)
+                print(f"  bound {key} at {shape} by K10g8's windows: "
+                      f"{res['bound_ms_windows']:.4f} ms (operations "
+                      f"{t_ops:.4f}: {evals} window pixel evaluations; "
+                      f"bytes {t_bytes:.4f}: {nbytes})")
             extra = ""
             if "ms_test_scene" in res:
                 extra = f", test scene {res['ms_test_scene']:.4f} ms"
@@ -4614,6 +4706,21 @@ def main(argv=None) -> int:
                   f"launcher {res['wrapper_ms']:.4f} ms/call (CUDA events);"
                   f" plain version {res['plain_ms']:.4f} ms/call at "
                   f"{res['plain_shape']} (CUDA events)")
+        for key, prep in preps40.items():
+            kern, res = x_cases[key][0], results[key]
+            res["wrapper_ms_40k"] = event_ms(
+                lambda: kern(*prep, PAD_W, PAD_H), 20)
+            _, evals, nbytes = x_work(key, prep, PAD_W, PAD_H)
+            t_ops = evals * OPS_PER_EVAL / CUDA_CORE_OPS_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            res.update(bound_ms_40k=max(t_ops, t_bytes), evals_40k=evals,
+                       bytes_40k=nbytes)
+            print(f"  {key} lit lattice40k {PAD_W}x{PAD_H}: kernel "
+                  f"{res['ms_40k']:.4f} ms device time (profiler), launcher "
+                  f"{res['wrapper_ms_40k']:.4f} ms/call (CUDA events); bound "
+                  f"{res['bound_ms_40k']:.4f} ms (operations {t_ops:.4f}: "
+                  f"{evals} window pixel evaluations; bytes {t_bytes:.4f}: "
+                  f"{nbytes})")
         ti, tf = rows_1m
         g8_ms = event_ms(lambda: group8.prepare_group8_inputs(
             ti, tf, PAD_W, PAD_H), 5)
@@ -6118,7 +6225,10 @@ def main(argv=None) -> int:
                    "bound_ms_soup1m", "wrapper_ms_soup1m", "bytes",
                    "bound_ms_inputs", "bytes_soup1m", "bound_ms_chunks",
                    "entry_prepare_ms", "entry_kernel_ms",
-                   "entry_resolve_ms", "op_ms", "admitted")}})
+                   "entry_resolve_ms", "op_ms", "admitted", "ms_40k",
+                   "wrapper_ms_40k", "bound_ms_40k", "evals_40k",
+                   "bytes_40k", "bound_ms_windows", "evals_windows",
+                   "bytes_windows")}})
     if PHASE_PREFIXES is None:
         missing = [(k["name"], f) for k in kernels for f in measured
                    if k[f] is None]

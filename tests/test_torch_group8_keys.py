@@ -13,11 +13,15 @@ G8_ITEMS items a key tile: the padded soup (no padding-row pixel), exact
 duplicates (the first row wins), the test scene, a -0.0/+0.0 tie both
 ways, a row at z == 1.0 (it latches), the empty scene, the blow-up soup
 with both phases drawing and with a 32-row list budget, and a 40-row
-target (planes of 64 rows).  A counter-case shows why an entry's window
-is cut to its own list tile: over the whole key tile the visible rows
-stay equal but the padding rows draw.
+target (planes of 64 rows).  K10g8g's store (``key_planes(...,
+gbuffer=True)``: GbufKeys, the epilogue buf * (covered ? inv : 0)) on the
+same cases at 1, 2 and 16 items: its 13 planes bit-equal to
+``gbuffer_group8_plain``.  A counter-case shows why an entry's window is
+cut to its own list tile: over the whole key tile the visible rows stay
+equal but the padding rows draw, in every G-buffer plane too.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,18 +53,34 @@ CASES = {
 }
 
 
+def lit_columns(tf, seed=0):
+    """``tf`` with a lit frame's further columns, seeded: each uv and
+    normal numerator a vertex's value in [0, 1) times its 1/w coefficient
+    (so a covered pixel's num / den lies in [0, 1]), and each row's six
+    constants in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    tf = tf.copy()
+    n = tf.shape[0]
+    for c in (g.F_U0, g.F_V0, g.F_NX0, g.F_NY0, g.F_NZ0):
+        tf[:, c:c + 3] = (tf[:, g.F_RW0:g.F_RW0 + 3]
+                          * rng.random((n, 3), dtype=np.float32))
+    tf[:, g.F_MET:g.F_MET + 6] = rng.random((n, 6), dtype=np.float32)
+    return tf
+
+
 def item_of(rank, count, items):
     """The work item of entry (or hit block) ``rank`` of ``count``: item i
     takes [i * count // items, (i + 1) * count // items)."""
     return ((rank + 1) * items + count - 1) // count - 1
 
 
-def kernel_planes(inp, w, h, items, entry_windows=None):
+def kernel_planes(inp, w, h, items, entry_windows=None, gbuffer=False):
     """K10g8's planes from its rules: every list entry and admitted
     leftover (key tile, row) pair over its window (an entry's in its own
     list tile, or ``entry_windows(rows, ty, tx)``), keyed by its key tile's
     work item of ``items``, the items' keys minimum-merged into the key
-    plane, resolved.  Returns (packed, depth, entries, leftover pairs)."""
+    plane, resolved.  Returns (packed, depth, entries, leftover pairs);
+    with ``gbuffer`` K10g8g's 13 planes in place of the two."""
     tiles_x = w // g8.GT_W
     rows_l, ly, tx_l, rank, count = g8.list_pairs(inp, w, h)
     ty_l = ly // g8.LISTS
@@ -82,23 +102,46 @@ def kernel_planes(inp, w, h, items, entry_windows=None):
         keys = torch.full((n,), h2.KEY_CLEAR, dtype=torch.int64)
         g8.window_keys(keys, inp, rows[sel], rects[sel], ty[sel], tx[sel], w)
         plane = torch.minimum(plane, keys)
-    return (*g8.key_planes(plane, inp, w, h), rows_l.numel(), rows_o.numel())
+    return (*g8.key_planes(plane, inp, w, h, gbuffer=gbuffer),
+            rows_l.numel(), rows_o.numel())
 
 
-@pytest.mark.parametrize("items", [1, g8.G8_ITEMS])
+def gbuffer_clear(planes):
+    """Each pixel's G-buffer planes hold the clear values: alpha alone,
+    depth 1.0, every further plane 0.0."""
+    return (planes[0] == tr._ALPHA_BITS) & (planes[1] == 1.0) & torch.stack(
+        [p.view(torch.int32) == 0 for p in planes[2:]]).all(0)
+
+
+# (G-buffer, work items a key tile): K10g8 at 1 and G8_ITEMS, K10g8g at 1,
+# 2 and 16.
+FORMS = [(False, 1), (False, g8.G8_ITEMS), (True, 1), (True, 2), (True, 16)]
+FORM_IDS = ["1", str(g8.G8_ITEMS), "gbuffer-1", "gbuffer-2", "gbuffer-16"]
+
+
+@pytest.mark.parametrize("gbuffer,items", FORMS, ids=FORM_IDS)
 @pytest.mark.parametrize("case", list(CASES))
-def test_key_plane_equals_plain(case, items):
+def test_key_plane_equals_plain(case, gbuffer, items):
     build, kw = CASES[case]
     ti, tf, w, h = build()
+    if gbuffer:
+        tf = lit_columns(tf)
     inp = g8.prepare_group8_inputs(T(ti), T(tf), w, h, **kw)
-    color, depth, n_list, n_left = kernel_planes(inp, w, h, items)
-    assert tuple(color.shape) == (h, w)
-    plain_c, plain_d = g8.raster_group8_plain(*inp, w, h)
-    _bits(color, plain_c)
-    _bits(depth, plain_d)
+    *planes, n_list, n_left = kernel_planes(inp, w, h, items,
+                                            gbuffer=gbuffer)
+    plain = (g8.gbuffer_group8_plain if gbuffer
+             else g8.raster_group8_plain)(*inp, w, h)
+    assert len(planes) == len(plain) == (tr.GBUFFER_PLANES if gbuffer
+                                         else 2)
+    for got, want in zip(planes, plain):
+        assert tuple(got.shape) == (h, w)
+        _bits(got, want)
+    color, depth = planes[:2]
     if case == "padded_soup_128x64":  # rows 56-63 are padding
         assert int((depth[56:] < 1.0).sum()) == 0
         assert int((depth[:56] < 1.0).sum()) > 1000
+        if gbuffer:
+            assert bool(gbuffer_clear([p[56:] for p in planes]).all())
     if case.startswith("neg_zero"):
         zero = depth == 0.0
         assert int(zero.sum()) > 100
@@ -111,8 +154,12 @@ def test_key_plane_equals_plain(case, items):
     if case == "empty_128x32":
         assert n_list + n_left == 0 and bool((depth == 1.0).all())
         assert bool((color == tr._ALPHA_BITS).all())
+        assert not gbuffer or bool(gbuffer_clear(planes).all())
     else:
         assert n_list + n_left > 0
+    if gbuffer and case != "empty_128x32":
+        # Every further plane carries the winners' values.
+        assert all(bool((p != 0).any()) for p in planes[2:])
 
 
 def test_each_phase_draws_alone_and_the_budget_moves_rows():
@@ -175,3 +222,30 @@ def test_key_tile_window_draws_padding_rows():
     _bits(depth[:56], plain_d[:56])
     assert int((plain_d[56:] < 1.0).sum()) == 0
     assert int((depth[56:] < 1.0).sum()) > 0
+
+
+def test_gbuffer_key_tile_window_draws_padding_rows():
+    """K10g8g's entries too must keep to their own list tile: over the
+    whole 32x128 key tile every plane of the visible rows stays equal to
+    the plain version's, but rows 56-63, where the plain planes are all
+    clear, draw."""
+    ti, tf, w, h = padded_setup()
+    inp = g8.prepare_group8_inputs(T(ti), T(lit_columns(tf)), w, h)
+    plain = g8.gbuffer_group8_plain(*inp, w, h)
+
+    def key_tile(rows, ty, tx):
+        jmin, jmax, imin, imax = tr.vertex_bbox(
+            inp.hier[rows].to(torch.int64)).unbind(1)
+        r0, c0 = ty * tr.TILE_H, tx * tr.TILE_W
+        return torch.stack([torch.maximum(jmin, c0),
+                            torch.minimum(jmax, c0 + tr.TILE_W - 1),
+                            torch.maximum(imin, r0),
+                            torch.minimum(imax, r0 + tr.TILE_H - 1)], 1)
+
+    *planes, _, _ = kernel_planes(inp, w, h, 2, entry_windows=key_tile,
+                                  gbuffer=True)
+    for got, want in zip(planes, plain):
+        _bits(got[:56], want[:56])
+    assert bool(gbuffer_clear([p[56:] for p in plain]).all())
+    drawn = ~gbuffer_clear([p[56:] for p in planes])
+    assert int(drawn.sum()) > 0

@@ -10,15 +10,20 @@ minimum, the planes resolved from the winners' records.  Packed colour and
 depth bits equal in every row, the padding rows included, at 1 and
 VEC_ITEMS items a tile: the padded soup (no padding-row pixel), exact
 twins (the first row wins), the test scene, a -0.0/+0.0 tie both ways, a
-row at z == 1.0 (the pixel stays clear) and the empty scene.  A
-counter-case shows why the windows are cut to the hit chunks: over the
-whole tile the visible rows stay equal but the padding rows draw.
+row at z == 1.0 (the pixel stays clear) and the empty scene.  K10vecg's
+store (``key_planes(..., gbuffer=True)``: K3g's epilogue covered ? buf *
+inv : 0 from the winner's record) on the same cases at 1, 2 and 16
+items: its 13 planes bit-equal to ``gbuffer_vec_plain``.  A counter-case
+shows why the windows are cut to the hit chunks: over the whole tile the
+visible rows stay equal but the padding rows draw, in every G-buffer
+plane too.
 """
 
 import pytest
 import torch
 
 from test_torch_group8 import _bits
+from test_torch_group8_keys import gbuffer_clear, lit_columns
 from test_torch_vec import twin_soup_setup
 from test_torch_vis_trans import empty_setup, padded_setup, pair_case, setup
 from zrenderer_tpu.ops import geometry as g
@@ -43,12 +48,13 @@ CASES = {
 }
 
 
-def kernel_planes(prep, w, h, items, chunks=True):
+def kernel_planes(prep, w, h, items, chunks=True, gbuffer=False):
     """K10vec's planes from its rules: each admitted (tile, row) pair over
     its window (within its subgroup's hit chunks unless ``chunks`` is
     False), keyed by its tile's work item of ``items``, the items' keys
     minimum-merged into the key plane, resolved.  Returns (packed, depth,
-    admitted rows)."""
+    admitted rows); with ``gbuffer`` K10vecg's 13 planes in place of the
+    two."""
     supers, blocks, rec = prep
     hits = tr.hier_block_hits(supers, blocks, w, h)
     rows, ty, tx = rv.admitted_rows(hits, rec, w)
@@ -62,21 +68,36 @@ def kernel_planes(prep, w, h, items, chunks=True):
         keys = torch.full((h * w,), rv.KEY_CLEAR, dtype=torch.int64)
         rv.window_keys(keys, rec, rows[sel], rects[sel], ty[sel], tx[sel], w)
         plane = torch.minimum(plane, keys)
-    return (*rv.key_planes(plane, rec, w, h), rows)
+    return (*rv.key_planes(plane, rec, w, h, gbuffer=gbuffer), rows)
 
 
-@pytest.mark.parametrize("items", [1, rv.VEC_ITEMS])
+# (G-buffer, work items a tile): K10vec at 1 and VEC_ITEMS, K10vecg at 1, 2
+# and 16.
+FORMS = [(False, 1), (False, rv.VEC_ITEMS), (True, 1), (True, 2), (True, 16)]
+FORM_IDS = ["1", str(rv.VEC_ITEMS), "gbuffer-1", "gbuffer-2", "gbuffer-16"]
+
+
+@pytest.mark.parametrize("gbuffer,items", FORMS, ids=FORM_IDS)
 @pytest.mark.parametrize("case", list(CASES))
-def test_key_plane_equals_plain(case, items):
+def test_key_plane_equals_plain(case, gbuffer, items):
     ti, tf, w, h = CASES[case]()
+    if gbuffer:
+        tf = lit_columns(tf)
     prep = rv.prepare_vec_inputs(T(ti), T(tf))
-    color, depth, rows = kernel_planes(prep, w, h, items)
-    plain_c, plain_d = rv.raster_vec_plain(*prep, w, h)
-    _bits(color, plain_c)
-    _bits(depth, plain_d)
+    *planes, rows = kernel_planes(prep, w, h, items, gbuffer=gbuffer)
+    plain = (rv.gbuffer_vec_plain if gbuffer
+             else rv.raster_vec_plain)(*prep, w, h)
+    assert len(planes) == len(plain) == (tr.GBUFFER_PLANES if gbuffer
+                                         else 2)
+    for got, want in zip(planes, plain):
+        assert tuple(got.shape) == (h, w)
+        _bits(got, want)
+    color, depth = planes[:2]
     if case == "padded_soup_128x64":  # rows 56-63 are padding
         assert int((depth[56:] < 1.0).sum()) == 0
         assert int((depth[:56] < 1.0).sum()) > 1000
+        if gbuffer:
+            assert bool(gbuffer_clear([p[56:] for p in planes]).all())
     if case.startswith("neg_zero"):
         zero = depth == 0.0
         assert int(zero.sum()) > 100
@@ -89,8 +110,12 @@ def test_key_plane_equals_plain(case, items):
     if case == "empty_128x32":
         assert rows.numel() == 0 and bool((depth == 1.0).all())
         assert bool((color == tr._ALPHA_BITS).all())
+        assert not gbuffer or bool(gbuffer_clear(planes).all())
     else:
         assert rows.numel() > 0
+    if gbuffer and case not in ("empty_128x32", "z_one_128x32"):
+        # Every further plane carries the winners' values.
+        assert all(bool((p != 0).any()) for p in planes[2:])
 
 
 def test_admission_is_the_subgroups_not_the_rows():
@@ -127,6 +152,21 @@ def test_whole_tile_window_draws_padding_rows():
     _bits(depth[:56], plain_d[:56])
     assert int((plain_d[56:] < 1.0).sum()) == 0
     assert int((depth[56:] < 1.0).sum()) > 0
+
+
+def test_gbuffer_whole_tile_window_draws_padding_rows():
+    """K10vecg's windows too must stay inside the subgroup's hit chunks:
+    over the whole tile every plane of the visible rows stays equal to the
+    plain version's, but rows 56-63, where the plain planes are all clear,
+    draw."""
+    ti, tf, w, h = padded_setup()
+    prep = rv.prepare_vec_inputs(T(ti), T(lit_columns(tf)))
+    plain = rv.gbuffer_vec_plain(*prep, w, h)
+    *planes, _ = kernel_planes(prep, w, h, 2, chunks=False, gbuffer=True)
+    for got, want in zip(planes, plain):
+        _bits(got[:56], want[:56])
+    assert bool(gbuffer_clear([p[56:] for p in plain]).all())
+    assert int((~gbuffer_clear([p[56:] for p in planes])).sum()) > 0
 
 
 def test_work_items_cover_the_hit_blocks():

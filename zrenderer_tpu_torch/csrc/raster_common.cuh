@@ -15,8 +15,8 @@
 // band-local rows (global row minus row_base).
 //
 // The register bodies (TileState, below): one CUDA block rasterizes one
-// 32x128 screen tile (group8: 8x128).  Its 256 threads each own one column
-// and 16 rows of the tile (rows r0, r0 + 2, ...; group8: 4), and keep the
+// 32x128 screen tile (K10g8d: 8x128).  Its 256 threads each own one column
+// and 16 rows of the tile (rows r0, r0 + 2, ...; K10g8d: 4), and keep the
 // tile state for those pixels in registers across the whole triangle
 // loop: depth and the winning row id, resolving every latch from the
 // winner in the epilogue (TileState::GBUF), or depth alone
@@ -131,7 +131,7 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
   return before + x - v;
 }
 
-// The winner resolve of one pixel, shared by TileState::resolve (the
+// The winner resolve of one pixel, shared by TileState::store_gbuffer (the
 // register bodies' epilogue) and the keyed bodies' stores (raster_keyed.cuh
 // WinnerKeys, raster_twoclass.cu ScanKeys): row t of ti/tf (strides RI and RF; INT_MAX32 where no row
 // won) re-evaluated at the pixel centre (px, py) in subpixels, its edge
@@ -208,14 +208,13 @@ __device__ __forceinline__ void resolve_winner(
 }
 
 // Per-thread tile state of the register bodies (K2g, K9g and the
-// experiments K10g8g, K10g8d in raster_group8.cu and K10vecg in
-// raster_vec.cu; the other kernels, K10g8 and K10vec among them, run the
-// keyed body, raster_keyed.cuh, or K1's sub-tile blocks).
+// experiment K10g8d in raster_group8.cu; the other kernels run the keyed
+// body, raster_keyed.cuh, or K1's sub-tile blocks).
 // TIE selects the order-free depth test (z, row id) over the sequential
 // strict-less test.
 //
-// GBUF: the register G-buffer kernels (K2g, K9g, K10g8g, K10vecg; K4g,
-// K6g, K3g and K5g run the keyed body, raster_keyed.cuh, with the same
+// GBUF: the register G-buffer kernels (K2g, K9g; K4g, K6g, K3g, K5g,
+// K10g8g and K10vecg run the keyed body, raster_keyed.cuh, with the same
 // resolve).  Latching
 // 11 more planes the way the reference does would take 17 values a pixel,
 // 272 registers a thread for 16 pixels: over the 255 cap.  Every latched
@@ -231,12 +230,8 @@ __device__ __forceinline__ void resolve_winner(
 // keeps the value, which differs from a later one only in the sign of a
 // zero z), and store_depth writes the one plane.
 //
-// TH: the tile's height (8 for the group8 experiment's tiles).  RI and RF:
-// the int and float strides of the setup rows that eval and resolve index
-// by row id (the lane-parallel experiment's records hold both, REC_LANES
-// lanes apart).
-template <bool TIE, bool GBUF = false, bool DEPTH = false, int TH = TILE_H,
-          int RI = NI32, int RF = NF32>
+// TH: the tile's height (8 for K10g8d's tiles).
+template <bool TIE, bool GBUF = false, bool DEPTH = false, int TH = TILE_H>
 struct TileState {
   static_assert(!(DEPTH && (TIE || GBUF)), "depth-only state is strict-less");
   static_assert(GBUF || DEPTH, "a state keeps z and the row id, or z");
@@ -282,7 +277,7 @@ struct TileState {
   // Coverage and depth test of setup row t at this thread's pixels.
   __device__ __forceinline__ void eval(const int* __restrict__ ti,
                                        const float* __restrict__ tf, int t) {
-    eval_row(ti + (size_t)t * RI, tf + (size_t)t * RF, t);
+    eval_row(ti + (size_t)t * NI32, tf + (size_t)t * NF32, t);
   }
 
   // The same for one setup record (r: NI32 ints, f: NF32 floats) whose
@@ -330,7 +325,7 @@ struct TileState {
                           __ldg(bb + 3), row0, col0, TH))
           continue;
         for (int t = b * RASTER_BLOCK; t < (b + 1) * RASTER_BLOCK; ++t) {
-          const int* r = ti + (size_t)t * RI;
+          const int* r = ti + (size_t)t * NI32;
           if (tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
                            __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0,
                            TH))
@@ -350,34 +345,24 @@ struct TileState {
       depth[(size_t)(rbase + k * ROW_STEP) * width + col] = z[k];
   }
 
-  // Winner resolve (ti/tf: the rows tid indexes) of this thread's pixels
-  // through resolve_winner, z as the loops left it.  The output's first
-  // row is global row row_base.
-  template <bool MASKED_INV, bool PLANES = true>
-  __device__ __forceinline__ void resolve(
-      const int* __restrict__ ti, const float* __restrict__ tf,
-      int* __restrict__ color, float* __restrict__ depth,
-      float* __restrict__ extra, int width, size_t plane,
-      int row_base = 0) const {
-    static_assert(GBUF, "resolve needs the winner's row id");
-    const int col = col0 + (int)(threadIdx.x % TILE_W);
-    const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
-#pragma unroll
-    for (int k = 0; k < NPIX; ++k)
-      resolve_winner<MASKED_INV, PLANES, false, RI, RF>(
-          ti, tf, tid[k], z[k], px, py(k), color, depth, extra,
-          (size_t)(rbase + k * ROW_STEP) * width + col, plane);
-  }
-
-  // The G-buffer resolve into out's GBUF_PLANES planes of plane floats
-  // each (color bits, depth, then the rest).
+  // The G-buffer resolve (ti/tf: the rows tid indexes) of this thread's
+  // pixels through resolve_winner, z as the loops left it, into out's
+  // GBUF_PLANES planes of plane floats each (color bits, depth, then the
+  // rest).  The output's first row is global row row_base.
   template <bool MASKED_INV>
   __device__ __forceinline__ void store_gbuffer(
       const int* __restrict__ ti, const float* __restrict__ tf,
       float* __restrict__ out, int width, size_t plane,
       int row_base = 0) const {
-    resolve<MASKED_INV>(ti, tf, reinterpret_cast<int*>(out), out + plane,
-                        out + 2 * plane, width, plane, row_base);
+    static_assert(GBUF, "the resolve needs the winner's row id");
+    const int col = col0 + (int)(threadIdx.x % TILE_W);
+    const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
+#pragma unroll
+    for (int k = 0; k < NPIX; ++k)
+      resolve_winner<MASKED_INV, true>(
+          ti, tf, tid[k], z[k], px, py(k), reinterpret_cast<int*>(out),
+          out + plane, out + 2 * plane,
+          (size_t)(rbase + k * ROW_STEP) * width + col, plane);
   }
 };
 

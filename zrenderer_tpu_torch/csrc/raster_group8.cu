@@ -30,13 +30,14 @@
 //   interpolants as buf * (covered ? inv : 0) (the reference's :584-600,
 //   K2g/K4g/K5g's form) and the constants as they are.
 //
-// K10g8 runs the keyed body (raster_keyed.cuh) on 32x128 key tiles, each
-// the four 8x128 list tiles below one another, with the planes of the
-// register body it ran before bit for bit.  What bound that body on the
-// H100 (3.49 ms a call on lattice1M at 1920x1088, 2040 blocks of 4 pixels
-// a thread): each list row evaluated at all 1024 pixels of its tile, and
-// every gated tile re-walking the megablock -> superblock -> block -> row
-// tables from the start.  Here:
+// K10g8 and K10g8g run the keyed body (raster_keyed.cuh) on 32x128 key
+// tiles, each the four 8x128 list tiles below one another, with the planes
+// of the register body they ran before bit for bit.  What bound that body
+// on the H100 (K10g8 3.49 ms a call on lattice1M at 1920x1088, K10g8g 1.50
+// on lattice40k; 2040 blocks of 4 pixels a thread): each list row
+// evaluated at all 1024 pixels of its tile, and every gated tile
+// re-walking the megablock -> superblock -> block -> row tables from the
+// start.  Here (group8_items, one template on the key type):
 // * group8_hit_words_kernel writes each key tile's hit words over the
 //   leftover hierarchy once a call (K5's tile_hit_words: a block is a hit
 //   block when its bbox and its superblock's meet the key tile; a
@@ -57,12 +58,14 @@
 //   row with a non-empty bbox is valid, so in its superblock's bbox);
 //   entries and rows share the pending batches (an entry marked by
 //   LIST_ENTRY);
-// * one key a pixel, FlatKeys: (order bits of z, row id) from the clear
-//   key (1.0, INT_MAX), so a row at z == 1.0 latches as the (z, row id)
-//   test lets it; items merge by atomicMin into a key plane (memset to all
-//   ones) and a resolve writes the planes (a key tile whose work is at
-//   most one entry and one hit block resolves in place in its last item),
-//   the winner re-evaluated from the leftover rows (its -0.0 kept).
+// * one key a pixel, (order bits of z, row id) from the clear key (1.0,
+//   INT_MAX), so a row at z == 1.0 latches as the (z, row id) test lets it:
+//   FlatKeys for K10g8, GbufKeys (K4g's and K6g's, the epilogue buf *
+//   (covered ? inv : 0)) for K10g8g; items merge by atomicMin into a key
+//   plane (memset to all ones) and a resolve writes the planes (a key tile
+//   whose work is at most one entry and one hit block resolves in place in
+//   its last item), the winner re-evaluated from the leftover rows (its
+//   -0.0 kept).
 // The windows never reach past the list tiles the reference evaluates, so
 // rows below the last listed or gated tile (the padding rows of a 1080-row
 // frame in a 1088-row target) stay clear.  A target whose height is not a
@@ -70,15 +73,14 @@
 // target's rows).  Four device ops a call: hit words, memset, items,
 // resolve.  Bound on the H100: the window pixels' edge work (26 ops each),
 // or the bytes the body needs (spans, tables, entries and admitted rows,
-// the two planes).
+// the 2 or 13 planes).
 //
-// K10g8g and K10g8d keep the register body (raster_common.cuh TileState
-// at an 8-row tile, one CUDA block of 256 threads a tile, each owning one
-// column and 4 rows): z and the winning row id (K10g8g) or z alone
-// (K10g8d) for the thread's 4 pixels; phase 1 stages the span STAGE rows
-// at a time in shared memory and evaluates each row at every pixel of the
-// tile, phase 2 runs TileState's superblock walk under each megablock;
-// K10g8g resolves its 13 planes from the winner, K10g8d stores z.
+// K10g8d keeps the register body (raster_common.cuh TileState at an 8-row
+// tile, one CUDA block of 256 threads a tile, each owning one column and 4
+// rows): z alone for the thread's 4 pixels; phase 1 stages the span STAGE
+// rows at a time in shared memory and evaluates each row at every pixel of
+// the tile, phase 2 runs TileState's superblock walk under each megablock,
+// and the strict-less z is stored.
 
 #include "raster_keyed.cuh"
 
@@ -97,17 +99,12 @@ enum : int {
   C_BIAS, C_ID, C_ZA
 };
 
-enum Mode : int { GBUF = 1, DEPTH = 2 };
-
-// G-buffer: the (z, row id) winner; depth-only: strict-less z.
-template <int MODE>
-using Group8State = TileState<MODE != DEPTH, MODE != DEPTH, MODE == DEPTH,
-                              GT_H>;
+// K10g8d's state: strict-less z alone.
+using DepthState = TileState<false, false, true, GT_H>;
 
 // Phase 1: one list row r (shared memory) at the thread's pixels, with
 // the edge form e = (dx*py + c) - dy*px and the bias bits.
-template <class State>
-__device__ __forceinline__ void eval_list(State& st, const int* r) {
+__device__ __forceinline__ void eval_list(DepthState& st, const int* r) {
   const uint32_t dx0 = r[C_DX0], dy0 = r[C_DY0], c0 = r[C_C0];
   const uint32_t dx1 = r[C_DX1], dy1 = r[C_DY1], c1 = r[C_C1];
   const uint32_t dx2 = r[C_DX2], dy2 = r[C_DY2], c2 = r[C_C2];
@@ -120,7 +117,7 @@ __device__ __forceinline__ void eval_list(State& st, const int* r) {
   const uint32_t upx = (uint32_t)st.px;
   const uint32_t ex0 = dy0 * upx, ex1 = dy1 * upx, ex2 = dy2 * upx;
 #pragma unroll
-  for (int k = 0; k < State::NPIX; ++k) {
+  for (int k = 0; k < DepthState::NPIX; ++k) {
     const uint32_t py = (uint32_t)st.py(k);
     const int e0 = (int)((dx0 * py + c0) - ex0);
     const int e1 = (int)((dx1 * py + c1) - ex1);
@@ -131,19 +128,21 @@ __device__ __forceinline__ void eval_list(State& st, const int* r) {
   }
 }
 
-template <int MODE>
-__device__ __forceinline__ void group8_tile(
-    const int* __restrict__ offs, const int* __restrict__ tile_any,
-    const int* __restrict__ rows, const int* __restrict__ megas,
-    int num_megas, const int* __restrict__ supers,
-    const int* __restrict__ blocks, const int* __restrict__ ti,
-    const float* __restrict__ tf, int* __restrict__ color,
-    float* __restrict__ depth, float* __restrict__ extra, int width,
-    int height) {
+// K10g8d: one 8x128 tile a block, the depth plane alone.
+__global__ void __launch_bounds__(THREADS)
+    depth_group8_kernel(const int* __restrict__ offs,
+                        const int* __restrict__ tile_any,
+                        const int* __restrict__ rows,
+                        const int* __restrict__ megas, int num_megas,
+                        const int* __restrict__ supers,
+                        const int* __restrict__ blocks,
+                        const int* __restrict__ ti,
+                        const float* __restrict__ tf,
+                        float* __restrict__ depth, int width, int height) {
   __shared__ int slab[STAGE * ROW_LANES];  // 12 032 bytes
   const int tiles_x = width / TILE_W;
   const int lin = blockIdx.x;
-  Group8State<MODE> st;
+  DepthState st;
   st.init((lin / tiles_x) * GT_H, (lin % tiles_x) * TILE_W);
 
   const int start = __ldg(offs + lin), end = __ldg(offs + lin + 1);
@@ -168,13 +167,7 @@ __device__ __forceinline__ void group8_tile(
                           m * SUPER_BLOCK);
     }
   }
-  const size_t plane = (size_t)width * height;
-  if constexpr (MODE == DEPTH) {
-    st.store_depth(depth, width);
-  } else {
-    st.template resolve<true, MODE == GBUF>(ti, tf, color, depth, extra,
-                                            width, plane);
-  }
+  st.store_depth(depth, width);
 }
 
 // One call's list inputs: the spans (offs, tiles8_y * tiles_x + 1 of
@@ -236,13 +229,15 @@ __global__ void __launch_bounds__(THREADS) group8_hit_words_kernel(
 // pending leftover row over its window in its gated list tiles.  Then out
 // (keyed_out): the tile's planes from the item that holds all its work
 // (one item a tile, or at most one entry and one hit block: the last
-// item), else into the key plane.  The planes and the key plane hold key_h
-// rows.
-__global__ void __launch_bounds__(THREADS) raster_group8_keyed_kernel(
-    Lists l, const int* __restrict__ buf, int num_supers,
+// item), else into the key plane.  The planes (extra: Keys's further
+// planes) and the key plane hold key_h rows.
+template <class Keys>
+__device__ __forceinline__ void group8_items(
+    const Lists& l, const int* __restrict__ buf, int num_supers,
     const int* __restrict__ ti, const float* __restrict__ tf, int items,
     unsigned long long* __restrict__ plane, int* __restrict__ color,
-    float* __restrict__ depth, int width, int key_h) {
+    float* __restrict__ depth, float* __restrict__ extra, int width,
+    int key_h) {
   extern __shared__ __align__(16) unsigned char keyed_smem[];
   KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
   const int tiles_x = width / TILE_W, tiles = tiles_x * (key_h / TILE_H);
@@ -260,7 +255,7 @@ __global__ void __launch_bounds__(THREADS) raster_group8_keyed_kernel(
       items == 1 || (entries <= 1 && total <= 1 && item == items - 1);
   if (e0 == e1 && h0 == h1 && !alone) return;  // block-uniform
   for (int p = threadIdx.x; p < TILE_PIX; p += THREADS)
-    s.key[p] = FlatKeys::CLEAR;
+    s.key[p] = Keys::CLEAR;
   __syncthreads();
   // The first n pending entries and rows as one batch.
   auto flush = [&](int n) {
@@ -291,10 +286,10 @@ __global__ void __launch_bounds__(THREADS) raster_group8_keyed_kernel(
       if (lo <= k1)
         area = prepare_record(s, j, ti + (size_t)t * NI32,
                               tf + (size_t)t * NF32 + F_ZA0,
-                              FlatKeys::row_tag(t, 0), row0, col0, lo * GT_H,
+                              Keys::row_tag(t, 0), row0, col0, lo * GT_H,
                               (k1 - lo + 1) * GT_H);
     }
-    eval_batch<FlatKeys>(s, area);
+    eval_batch<Keys>(s, area);
   };
   int pending = 0;  // block-uniform
   for (int base = e0; base < e1; base += KEY_BATCH) {
@@ -321,17 +316,19 @@ __global__ void __launch_bounds__(THREADS) raster_group8_keyed_kernel(
     flush(pending);
   }
   __syncthreads();
-  keyed_out<FlatKeys>(s, alone, plane, row0, col0, ti, tf, color, depth,
-                      nullptr, width, key_h);
+  keyed_out<Keys>(s, alone, plane, row0, col0, ti, tf, color, depth, extra,
+                  width, key_h);
 }
 
 // The resolve of a key tile of several items with more than one entry or
 // more than one hit block.
-__global__ void __launch_bounds__(THREADS) raster_group8_resolve_kernel(
-    Lists l, const int* __restrict__ buf, int num_supers,
+template <class Keys>
+__device__ __forceinline__ void group8_resolve(
+    const Lists& l, const int* __restrict__ buf, int num_supers,
     const int* __restrict__ ti, const float* __restrict__ tf,
     const unsigned long long* __restrict__ plane, int* __restrict__ color,
-    float* __restrict__ depth, int width, int key_h) {
+    float* __restrict__ depth, float* __restrict__ extra, int width,
+    int key_h) {
   const int tiles_x = width / TILE_W, tiles = tiles_x * (key_h / TILE_H);
   const int tile = (int)blockIdx.x;
   const int ty = tile / tiles_x, tx = tile % tiles_x;
@@ -340,66 +337,77 @@ __global__ void __launch_bounds__(THREADS) raster_group8_resolve_kernel(
   if (entries <= 1 &&
       __ldg(hit_words(buf, tiles, num_supers).count + tile) <= 1)
     return;  // resolved in place
-  resolve_tile<FlatKeys>(plane, ty * TILE_H, tx * TILE_W, ti, tf, color,
-                         depth, nullptr, width, key_h);
+  resolve_tile<Keys>(plane, ty * TILE_H, tx * TILE_W, ti, tf, color, depth,
+                     extra, width, key_h);
 }
 
 // One entry point per kernel, so each has its own name in a profile.
-__global__ void __launch_bounds__(THREADS)
-    gbuffer_group8_kernel(const int* __restrict__ offs,
-                          const int* __restrict__ tile_any,
-                          const int* __restrict__ rows,
-                          const int* __restrict__ megas, int num_megas,
-                          const int* __restrict__ supers,
-                          const int* __restrict__ blocks,
-                          const int* __restrict__ ti,
-                          const float* __restrict__ tf,
-                          float* __restrict__ out, int width, int height) {
-  const size_t plane = (size_t)width * height;
-  group8_tile<GBUF>(offs, tile_any, rows, megas, num_megas, supers, blocks,
-                    ti, tf, reinterpret_cast<int*>(out), out + plane,
-                    out + 2 * plane, width, height);
+// K10g8: packed colour and depth.
+__global__ void __launch_bounds__(THREADS) raster_group8_keyed_kernel(
+    Lists l, const int* __restrict__ buf, int num_supers,
+    const int* __restrict__ ti, const float* __restrict__ tf, int items,
+    unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int key_h) {
+  group8_items<FlatKeys>(l, buf, num_supers, ti, tf, items, plane, color,
+                         depth, nullptr, width, key_h);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    depth_group8_kernel(const int* __restrict__ offs,
-                        const int* __restrict__ tile_any,
-                        const int* __restrict__ rows,
-                        const int* __restrict__ megas, int num_megas,
-                        const int* __restrict__ supers,
-                        const int* __restrict__ blocks,
-                        const int* __restrict__ ti,
-                        const float* __restrict__ tf,
-                        float* __restrict__ depth, int width, int height) {
-  group8_tile<DEPTH>(offs, tile_any, rows, megas, num_megas, supers, blocks,
-                     ti, tf, nullptr, depth, nullptr, width, height);
+__global__ void __launch_bounds__(THREADS) raster_group8_resolve_kernel(
+    Lists l, const int* __restrict__ buf, int num_supers,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    const unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int key_h) {
+  group8_resolve<FlatKeys>(l, buf, num_supers, ti, tf, plane, color, depth,
+                           nullptr, width, key_h);
+}
+
+// K10g8g: out holds the GBUF_PLANES planes, width * key_h floats apart.
+__global__ void __launch_bounds__(THREADS) gbuffer_group8_keyed_kernel(
+    Lists l, const int* __restrict__ buf, int num_supers,
+    const int* __restrict__ ti, const float* __restrict__ tf, int items,
+    unsigned long long* __restrict__ plane, float* __restrict__ out,
+    int width, int key_h) {
+  const size_t frame = (size_t)width * key_h;
+  group8_items<GbufKeys>(l, buf, num_supers, ti, tf, items, plane,
+                         reinterpret_cast<int*>(out), out + frame,
+                         out + 2 * frame, width, key_h);
+}
+
+__global__ void __launch_bounds__(THREADS) gbuffer_group8_resolve_kernel(
+    Lists l, const int* __restrict__ buf, int num_supers,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    const unsigned long long* __restrict__ plane, float* __restrict__ out,
+    int width, int key_h) {
+  const size_t frame = (size_t)width * key_h;
+  group8_resolve<GbufKeys>(l, buf, num_supers, ti, tf, plane,
+                           reinterpret_cast<int*>(out), out + frame,
+                           out + 2 * frame, width, key_h);
 }
 
 }  // namespace g8
 }  // namespace zr
 
-// K10g8: packed color (int bits) and depth of key_h rows (the target's
-// height rounded up to TILE_H), the target's tiles8_y list-tile rows
-// first.  num_supers: the superblocks that hold blocks (blocks /
-// SUPER_BLOCK); buf: key tiles * (2 num_supers + 1) ints of hit words;
-// plane: key_h * width keys, unused with one item a tile.  The hit words,
-// then with several items a tile the key plane set to all ones, key tiles
-// * items work items and the resolve over the key tiles.
-extern "C" int zr_raster_group8(const int* offs, const int* tile_any,
-                                const int* rows, int tiles8_y,
-                                const int* supers, int num_supers,
-                                const int* blocks, const int* ti,
-                                const float* tf, int items, int* buf,
-                                unsigned long long* plane, int* color,
-                                float* depth, int key_h, int width,
-                                void* stream) {
+// K10g8 and K10g8g: the hit words, then with several items a tile the key
+// plane set to all ones, key tiles * items work items and the resolve over
+// the key tiles.  The planes (out...) hold key_h rows (the target's height
+// rounded up to TILE_H), the target's tiles8_y list-tile rows first.
+// num_supers: the superblocks that hold blocks (blocks / SUPER_BLOCK);
+// buf: key tiles * (2 num_supers + 1) ints of hit words; plane: key_h *
+// width keys, unused with one item a tile.
+template <class Items, class Resolve, class... Out>
+static int launch_group8(Items items_kernel, Resolve resolve_kernel,
+                         const int* offs, const int* tile_any,
+                         const int* rows, int tiles8_y, const int* supers,
+                         int num_supers, const int* blocks, const int* ti,
+                         const float* tf, int items, int* buf,
+                         unsigned long long* plane, int key_h, int width,
+                         void* stream, Out... out) {
   const int num_tiles = (key_h / zr::TILE_H) * (width / zr::TILE_W);
   const cudaStream_t s = (cudaStream_t)stream;
   const zr::g8::Lists l{offs, tile_any, rows, tiles8_y};
   const int smem = (int)sizeof(zr::KeyedSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      zr::g8::raster_group8_keyed_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      items_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   zr::g8::group8_hit_words_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
       supers, num_supers, blocks, buf, width, key_h);
@@ -408,29 +416,42 @@ extern "C" int zr_raster_group8(const int* offs, const int* tile_any,
                           (size_t)key_h * width * sizeof(*plane), s);
     if (err != cudaSuccess) return (int)err;
   }
-  zr::g8::raster_group8_keyed_kernel<<<num_tiles * items, zr::THREADS, smem,
-                                       s>>>(l, buf, num_supers, ti, tf, items,
-                                            plane, color, depth, width,
-                                            key_h);
+  items_kernel<<<num_tiles * items, zr::THREADS, smem, s>>>(
+      l, buf, num_supers, ti, tf, items, plane, out..., width, key_h);
   if (items > 1)
-    zr::g8::raster_group8_resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
-        l, buf, num_supers, ti, tf, plane, color, depth, width, key_h);
+    resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+        l, buf, num_supers, ti, tf, plane, out..., width, key_h);
   return (int)cudaGetLastError();
+}
+
+// K10g8: packed color (int bits) and depth.
+extern "C" int zr_raster_group8(const int* offs, const int* tile_any,
+                                const int* rows, int tiles8_y,
+                                const int* supers, int num_supers,
+                                const int* blocks, const int* ti,
+                                const float* tf, int items, int* buf,
+                                unsigned long long* plane, int* color,
+                                float* depth, int key_h, int width,
+                                void* stream) {
+  return launch_group8(zr::g8::raster_group8_keyed_kernel,
+                       zr::g8::raster_group8_resolve_kernel, offs, tile_any,
+                       rows, tiles8_y, supers, num_supers, blocks, ti, tf,
+                       items, buf, plane, key_h, width, stream, color,
+                       depth);
 }
 
 // K10g8g: the GBUF_PLANES planes back to back.
 extern "C" int zr_gbuffer_group8(const int* offs, const int* tile_any,
-                                 const int* rows, const int* megas,
-                                 int num_megas, const int* supers,
+                                 const int* rows, int tiles8_y,
+                                 const int* supers, int num_supers,
                                  const int* blocks, const int* ti,
-                                 const float* tf, float* out, int height,
-                                 int width, void* stream) {
-  const int num_tiles = (height / zr::g8::GT_H) * (width / zr::TILE_W);
-  zr::g8::gbuffer_group8_kernel<<<num_tiles, zr::THREADS, 0,
-                                  (cudaStream_t)stream>>>(
-      offs, tile_any, rows, megas, num_megas, supers, blocks, ti, tf, out,
-      width, height);
-  return (int)cudaGetLastError();
+                                 const float* tf, int items, int* buf,
+                                 unsigned long long* plane, float* out,
+                                 int key_h, int width, void* stream) {
+  return launch_group8(zr::g8::gbuffer_group8_keyed_kernel,
+                       zr::g8::gbuffer_group8_resolve_kernel, offs,
+                       tile_any, rows, tiles8_y, supers, num_supers, blocks,
+                       ti, tf, items, buf, plane, key_h, width, stream, out);
 }
 
 // K10g8d: the one depth plane.

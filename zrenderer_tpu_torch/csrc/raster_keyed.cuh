@@ -4,33 +4,33 @@
 // K5, K5g: the hierarchy alone), raster_twoclass.cu (K10hbm2, K10scan:
 // the hierarchies of two views of the rows, one key plane),
 // raster_vis.cu (K10vis, K10trans: the hierarchy with 8-row group
-// admission, the depth and row id planes), raster_vec.cu (K10vec: the
-// hierarchy with 32-row subgroup admission, each row's window cut to its
-// subgroup's hit 8-row chunks, the winner read from its 72-lane record) and
-// raster_group8.cu (K10g8: 32x128 key tiles of four 8x128 list tiles, the
-// list entries' rows read by id, each window cut to its list tile, then
-// the leftover hierarchy's hit blocks).  The register body
-// (raster_common.cuh TileState) serves K2g, K9g, K10vecg, K10g8g and
-// K10g8d.
+// admission, the depth and row id planes), raster_vec.cu (K10vec, K10vecg:
+// the hierarchy with 32-row subgroup admission, each row's window cut to
+// its subgroup's hit 8-row chunks, the winner read from its 72-lane
+// record) and raster_group8.cu (K10g8, K10g8g: 32x128 key tiles of four
+// 8x128 list tiles, the list entries' rows read by id, each window cut to
+// its list tile, then the leftover hierarchy's hit blocks).  The register
+// body (raster_common.cuh TileState) serves K2g, K9g and K10g8d.
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
-//   atomicMin.  K4, K4c, K9, K9d, K6, K4g, K6g and K10g8: (order bits of
-//   z, row id), whose minimum is the (z, row id) tie-break.  K3, K3b, K3g,
-//   K5, K5g and K10vec: the same key, whose minimum is the strict-less test
-//   z >= 0 && z < zb from 1.0 in row order (the first row of the least z wins, and
-//   prepare_raster_inputs compacts stably, so a row's id is its submission
-//   order).  K4d, K6d, K3d, K10vis and K10trans: (order bits of z, visit
-//   index, sign of z), whose minimum is the strict-less test in visit order
-//   with the first visited row kept: a span entry's visit index is its
-//   index in the span list, a leftover row's is the span's end plus its row
-//   id (K3d, K10vis, K10trans: no span, so its row id).
+//   atomicMin.  K4, K4c, K9, K9d, K6, K4g, K6g, K10g8 and K10g8g: (order
+//   bits of z, row id), whose minimum is the (z, row id) tie-break.  K3,
+//   K3b, K3g, K5, K5g, K10vec and K10vecg: the same key, whose minimum is
+//   the strict-less test z >= 0 && z < zb from 1.0 in row order (the first
+//   row of the least z wins, and prepare_raster_inputs compacts stably, so
+//   a row's id is its submission order).  K4d, K6d, K3d, K10vis and
+//   K10trans: (order bits of z, visit index, sign of z), whose minimum is
+//   the strict-less test in visit order with the first visited row kept:
+//   a span entry's visit index is its index in the span list, a leftover
+//   row's is the span's end plus its row id (K3d, K10vis, K10trans: no
+//   span, so its row id).
 //   -0.0 and +0.0 share order bits; z >= 0 filters first (NaN and negative
 //   z never compete).  The clear key is z 1.0 over the largest id for K4,
-//   K4c, K9, K9d, K6, K4g, K6g and K10g8, so that a row at z == 1.0
-//   latches as the (z, row id) test lets it; over id 0 (over visit 0) for
-//   K3, K3b, K3g, K5, K5g and K10vec (K3d, K4d, K6d, K10vis, K10trans),
-//   which no row at z == 1.0 goes below, as the strict-less test never
-//   lets 1.0 pass.
+//   K4c, K9, K9d, K6, K4g, K6g, K10g8 and K10g8g, so that a row at z ==
+//   1.0 latches as the (z, row id) test lets it; over id 0 (over visit 0)
+//   for K3, K3b, K3g, K5, K5g, K10vec and K10vecg (K3d, K4d, K6d, K10vis,
+//   K10trans), which no row at z == 1.0 goes below, as the strict-less
+//   test never lets 1.0 pass.
 // * Work in proportion to each row's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -59,8 +59,9 @@
 // The store re-evaluates the winner from the setup rows through
 // raster_common.cuh's resolve_winner, the register bodies' epilogue: K4,
 // K4c, K9, K9d, K6, K4g, K6g, K3, K3b, K3g, K5 and K5g their z (-0.0 kept)
-// and colour, K4g, K6g, K3g and K5g also the 11 further planes (K4g, K6g
-// and K5g buf * (covered ? 1/den : 0), K3g covered ? buf * 1/den : 0);
+// and colour, K4g, K6g, K3g and K5g also the 11 further planes (K4g, K6g,
+// K5g and K10g8g buf * (covered ? 1/den : 0), K3g and K10vecg covered ?
+// buf * 1/den : 0);
 // K4d, K6d and K3d decode z from the key, K10vis and K10trans z and the
 // row id.  Nothing moves the tensor cores.
 #pragma once
@@ -123,6 +124,7 @@ struct WinnerKeys {
         idx, frame);
   }
 };
+// K10g8 and K10g8g take FlatKeys and GbufKeys too (raster_group8.cu).
 using FlatKeys = WinnerKeys<false, false, true>;  // K4, K4c, K9, K9d, K6
 using GbufKeys = WinnerKeys<true, false, true>;   // K4g, K6g
 using HierFlatKeys = WinnerKeys<false, true, false>;  // K3, K3b, K5

@@ -26,14 +26,15 @@
 //   G-buffer the interpolants as covered ? buf*inv : 0 (the reference's
 //   :341, K3g's form) and the constants as latched.
 //
-// K10vec runs the keyed hierarchy body (raster_keyed.cuh, as K10trans in
-// raster_vis.cu), with the planes of the register body it ran before bit
-// for bit.  What bound that body on the H100 (10.37 ms a call on lattice1M
-// at 1920x1088, 60 registers): one CUDA block a tile read every
-// superblock's bbox, staged each hit block's 128 records (36 KB) and ran
-// every live record of a hit subgroup over each 8-row chunk its subgroup
-// bbox meets, 1024 pixels a chunk, most of them outside the triangle.
-// Here:
+// K10vec and K10vecg run the keyed hierarchy body (raster_keyed.cuh, as
+// K10trans in raster_vis.cu), with the planes of the register body they ran
+// before bit for bit.  What bound that body on the H100 (K10vec 10.37 ms a
+// call on lattice1M at 1920x1088, 60 registers; K10vecg 1.45 on
+// lattice40k, 111): one CUDA block a tile read every superblock's bbox,
+// staged each hit block's 128 records (36 KB) and ran every live record of
+// a hit subgroup over each 8-row chunk its subgroup bbox meets, 1024
+// pixels a chunk, most of them outside the triangle.  Here (vec_items, one
+// template on the key type):
 // * vec_hit_words_kernel writes each tile's hit words once a call (K5's
 //   tile_hit_words over the blocks and superblocks);
 // * a tile's hit blocks are cut into `items` work items of about equal
@@ -52,19 +53,14 @@
 //   merge of the subgroup winners; items merge by atomicMin into a key
 //   plane of the output's size (memset to all ones) and a resolve writes
 //   the planes (a tile of one item resolves in place), the winner
-//   re-evaluated from its 72-lane record (its -0.0 kept).
+//   re-evaluated from its 72-lane record (its -0.0 kept); K10vecg's
+//   VecKeys<true> adds the 11 further planes under K3g's epilogue,
+//   covered ? buf * inv : 0.
 // Four device ops a call: hit words, memset, items, resolve.  Bound on the
 // H100: the window pixels' edge work (26 ops each), or the bytes the body
-// needs (tables, the subgroup bboxes, admitted rows, the two planes).
-//
-// K10vecg keeps the register body (raster_common.cuh TileState, one CUDA
-// block of 256 threads a tile, each owning one column and 16 rows): z and
-// the winning row id for its 16 pixels, every live record of a hit
-// subgroup at its pixels of each hit chunk, its G-buffer state over
-// records REC_LANES lanes apart, resolved from the winner's record once
-// at the end.  Its edge_fn on the record's setup ints gives the same int32
-// values as the a_k form.  Staging a block costs 36 KB of shared memory
-// reads and writes per (tile, block) pair that hits.
+// needs (tables, the subgroup bboxes, admitted rows, the 2 or 13 planes).
+// The records' setup ints give the same int32 edge values as the a_k
+// form.
 
 #include "raster_keyed.cuh"
 
@@ -73,110 +69,26 @@ namespace vec {
 
 constexpr int SUBGROUP = 32;
 constexpr int CHUNK_H = 8;
-constexpr int A_BASE = 20;
 constexpr int SG_BBOX = 24;
 constexpr int F_BASE = 32;
 constexpr int REC_LANES = F_BASE + NF32;  // 72
-constexpr int SUBGROUPS = RASTER_BLOCK / SUBGROUP;  // 4
-constexpr int CHUNKS = TILE_H / CHUNK_H;            // 4
 static_assert(SUBGROUP == 32, "a warp admits a subgroup");
 
-// Strict-less (z, then first row) winner, resolved from the records.
-using VecState = TileState<false, true, false, TILE_H, REC_LANES, REC_LANES>;
-static_assert(ROW_STEP * (VecState::NPIX / CHUNKS) == CHUNK_H,
-              "pixel k of a thread lies in chunk k / (NPIX / CHUNKS)");
-
-// One tile on the register body; vec_tile<true> is K10vecg.
-template <bool GBUF>
-__device__ __forceinline__ void vec_tile(
-    const int* __restrict__ supers, int num_supers,
-    const int* __restrict__ blocks, const int* __restrict__ rec,
-    int* __restrict__ color, float* __restrict__ depth,
-    float* __restrict__ extra, int width, int height) {
-  __shared__ int slab[RASTER_BLOCK * REC_LANES];  // 36 864 bytes
-  constexpr int NPIX = VecState::NPIX;
-  const int tiles_x = width / TILE_W;
-  VecState st;
-  st.init((blockIdx.x / tiles_x) * TILE_H, (blockIdx.x % tiles_x) * TILE_W);
-  const int row0 = st.row0, col0 = st.col0;
-  const uint32_t upx = (uint32_t)st.px;
-
-  for (int s = 0; s < num_supers; ++s) {
-    const int* sb = supers + (size_t)s * 8;
-    if (!tile_overlap(__ldg(sb), __ldg(sb + 1), __ldg(sb + 2), __ldg(sb + 3),
-                      row0, col0))
-      continue;
-    for (int b = s * SUPER_BLOCK; b < (s + 1) * SUPER_BLOCK; ++b) {
-      const int* bb = blocks + (size_t)b * 8;
-      if (!tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2),
-                        __ldg(bb + 3), row0, col0))
-        continue;
-      __syncthreads();  // the previous block's records are consumed
-      const int* src = rec + (size_t)b * RASTER_BLOCK * REC_LANES;
-      for (int i = threadIdx.x; i < RASTER_BLOCK * REC_LANES; i += THREADS)
-        slab[i] = __ldg(src + i);
-      __syncthreads();
-      for (int g = 0; g < SUBGROUPS; ++g) {
-        const int* h = slab + g * SUBGROUP * REC_LANES + SG_BBOX;
-        const int sj0 = h[0], sj1 = h[1], si0 = h[2], si1 = h[3];
-        if (!(sj1 >= col0 && sj0 < col0 + TILE_W && sj0 <= sj1)) continue;
-        bool hit[CHUNKS];
-        bool any = false;
-#pragma unroll
-        for (int c = 0; c < CHUNKS; ++c) {
-          const int crow0 = row0 + c * CHUNK_H;
-          hit[c] = si1 >= crow0 && si0 < crow0 + CHUNK_H && si0 <= si1;
-          any |= hit[c];
-        }
-        if (!any) continue;
-        for (int i = 0; i < SUBGROUP; ++i) {
-          const int* r = slab + (g * SUBGROUP + i) * REC_LANES;
-          if (!(r[I_JMIN] <= r[I_JMAX] && r[I_IMIN] <= r[I_IMAX] &&
-                r[I_VALID] > 0))
-            continue;
-          const uint32_t a0 = r[A_BASE], a1 = r[A_BASE + 1];
-          const uint32_t a2 = r[A_BASE + 2];
-          const uint32_t dx0 = r[I_DX0], dx1 = r[I_DX1], dx2 = r[I_DX2];
-          const uint32_t ex0 = (uint32_t)r[I_DY0] * upx;
-          const uint32_t ex1 = (uint32_t)r[I_DY1] * upx;
-          const uint32_t ex2 = (uint32_t)r[I_DY2] * upx;
-          const int b0 = r[I_BIAS0], b1 = r[I_BIAS1], b2 = r[I_BIAS2];
-          const float za0 = __int_as_float(r[F_BASE + F_ZA0]);
-          const float za1 = __int_as_float(r[F_BASE + F_ZA0 + 1]);
-          const float za2 = __int_as_float(r[F_BASE + F_ZA0 + 2]);
-          const int t = b * RASTER_BLOCK + g * SUBGROUP + i;
-#pragma unroll
-          for (int k = 0; k < NPIX; ++k) {
-            if (!hit[k / (NPIX / CHUNKS)]) continue;
-            const uint32_t py = (uint32_t)st.py(k);
-            const int e0 = (int)((a0 + dx0 * py) - ex0);
-            const int e1 = (int)((a1 + dx1 * py) - ex1);
-            const int e2 = (int)((a2 + dx2 * py) - ex2);
-            if (e0 < b0 || e1 < b1 || e2 < b2) continue;
-            st.depth_test(k, interp3(__int2float_rn(e0), __int2float_rn(e1),
-                                     __int2float_rn(e2), za0, za1, za2),
-                          t);
-          }
-        }
-      }
-    }
-  }
-  st.template resolve<false, GBUF>(
-      rec, reinterpret_cast<const float*>(rec + F_BASE), color, depth, extra,
-      width, (size_t)width * height);
-}
-
-// K10vec's key: HierFlatKeys' (order bits of z, row id) from the strict
-// clear key (1.0, 0), the winner resolved from its record (ti: the
-// records, tf: their floats from lane F_BASE, both REC_LANES lanes a row).
-struct VecKeys : HierFlatKeys {
+// K10vec's and K10vecg's key: HierFlatKeys' (order bits of z, row id) from
+// the strict clear key (1.0, 0), the winner resolved from its record (ti:
+// the records, tf: their floats from lane F_BASE, both REC_LANES lanes a
+// row); PLANES (K10vecg): the 11 further planes too, covered ? buf * inv :
+// 0.
+template <bool PLANES>
+struct VecKeys : WinnerKeys<PLANES, true, false> {
+  using Base = WinnerKeys<PLANES, true, false>;
   static __device__ __forceinline__ void store(
       unsigned long long k, int row, int col, const int* __restrict__ ti,
       const float* __restrict__ tf, int* __restrict__ color,
       float* __restrict__ depth, float* __restrict__ extra, size_t idx,
       size_t frame) {
-    resolve_winner<false, false, true, REC_LANES, REC_LANES>(
-        ti, tf, k == CLEAR ? INT_MAX32 : (int)(uint32_t)k, 1.0f,
+    resolve_winner<false, PLANES, true, REC_LANES, REC_LANES>(
+        ti, tf, k == Base::CLEAR ? INT_MAX32 : (int)(uint32_t)k, 1.0f,
         col * SUBPIXEL + HALF, row * SUBPIXEL + HALF, color, depth, extra,
         idx, frame);
   }
@@ -216,13 +128,15 @@ __global__ void __launch_bounds__(THREADS) vec_hit_words_kernel(
 // block thread t < 128 pends row 128 b + t when its subgroup has a hit
 // chunk and the row is live; each pending row is evaluated over its window
 // within its subgroup's hit chunks.  Then out (keyed_out): the tile's
-// planes from the item that holds all its hit blocks (one item a tile, or
-// at most one hit block: the last item), else into the key plane.
-__global__ void __launch_bounds__(THREADS) raster_vec_keyed_kernel(
+// planes (extra: Keys's further planes) from the item that holds all its
+// hit blocks (one item a tile, or at most one hit block: the last item),
+// else into the key plane.
+template <class Keys>
+__device__ __forceinline__ void vec_items(
     const int* __restrict__ buf, int num_supers, const int* __restrict__ rec,
     int items, unsigned long long* __restrict__ plane,
-    int* __restrict__ color, float* __restrict__ depth, int width,
-    int height) {
+    int* __restrict__ color, float* __restrict__ depth,
+    float* __restrict__ extra, int width, int height) {
   extern __shared__ __align__(16) unsigned char keyed_smem[];
   KeyedSmem& s = *reinterpret_cast<KeyedSmem*>(keyed_smem);
   const float* recf = reinterpret_cast<const float*>(rec + F_BASE);
@@ -236,7 +150,7 @@ __global__ void __launch_bounds__(THREADS) raster_vec_keyed_kernel(
   const bool alone = items == 1 || (total <= 1 && item == items - 1);
   if (h0 == h1 && !alone) return;  // block-uniform
   for (int p = threadIdx.x; p < TILE_PIX; p += THREADS)
-    s.key[p] = VecKeys::CLEAR;
+    s.key[p] = Keys::CLEAR;
   // The first n pending rows as one batch.
   auto flush = [&](int n) {
     int area = 0;
@@ -247,9 +161,9 @@ __global__ void __launch_bounds__(THREADS) raster_vec_keyed_kernel(
       hit_chunks(rec, t & -SUBGROUP, row0, col0, lo, rows);
       area = prepare_record(s, j, rec + (size_t)t * REC_LANES,
                             recf + (size_t)t * REC_LANES + F_ZA0,
-                            VecKeys::row_tag(t, 0), row0, col0, lo, rows);
+                            Keys::row_tag(t, 0), row0, col0, lo, rows);
     }
-    eval_batch<VecKeys>(s, area);
+    eval_batch<Keys>(s, area);
   };
   int pending = 0;  // block-uniform; the walk's barriers order the clear
   walk_hit_blocks(
@@ -273,56 +187,86 @@ __global__ void __launch_bounds__(THREADS) raster_vec_keyed_kernel(
     flush(pending);
   }
   __syncthreads();
-  keyed_out<VecKeys>(s, alone, plane, row0, col0, rec, recf, color, depth,
-                     nullptr, width, height);
+  keyed_out<Keys>(s, alone, plane, row0, col0, rec, recf, color, depth,
+                  extra, width, height);
 }
 
 // The resolve of a tile of several items whose rows lie in two or more hit
 // blocks.
-__global__ void __launch_bounds__(THREADS) raster_vec_resolve_kernel(
+template <class Keys>
+__device__ __forceinline__ void vec_resolve(
     const int* __restrict__ buf, int num_supers, const int* __restrict__ rec,
     const unsigned long long* __restrict__ plane, int* __restrict__ color,
-    float* __restrict__ depth, int width, int height) {
+    float* __restrict__ depth, float* __restrict__ extra, int width,
+    int height) {
   const int tiles_x = width / TILE_W, tiles = tiles_x * (height / TILE_H);
   const int tile = (int)blockIdx.x;
   if (__ldg(hit_words(buf, tiles, num_supers).count + tile) <= 1)
     return;  // resolved in place
-  resolve_tile<VecKeys>(plane, (tile / tiles_x) * TILE_H,
-                        (tile % tiles_x) * TILE_W, rec,
-                        reinterpret_cast<const float*>(rec + F_BASE), color,
-                        depth, nullptr, width, height);
+  resolve_tile<Keys>(plane, (tile / tiles_x) * TILE_H,
+                     (tile % tiles_x) * TILE_W, rec,
+                     reinterpret_cast<const float*>(rec + F_BASE), color,
+                     depth, extra, width, height);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    gbuffer_vec_kernel(const int* __restrict__ supers, int num_supers,
-                       const int* __restrict__ blocks,
-                       const int* __restrict__ rec, float* __restrict__ out,
-                       int width, int height) {
-  const size_t plane = (size_t)width * height;
-  vec_tile<true>(supers, num_supers, blocks, rec,
-                 reinterpret_cast<int*>(out), out + plane, out + 2 * plane,
-                 width, height);
+// One entry point per kernel, so each has its own name in a profile.
+// K10vec: packed colour and depth.
+__global__ void __launch_bounds__(THREADS) raster_vec_keyed_kernel(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ rec,
+    int items, unsigned long long* __restrict__ plane,
+    int* __restrict__ color, float* __restrict__ depth, int width,
+    int height) {
+  vec_items<VecKeys<false>>(buf, num_supers, rec, items, plane, color, depth,
+                            nullptr, width, height);
 }
 
+__global__ void __launch_bounds__(THREADS) raster_vec_resolve_kernel(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ rec,
+    const unsigned long long* __restrict__ plane, int* __restrict__ color,
+    float* __restrict__ depth, int width, int height) {
+  vec_resolve<VecKeys<false>>(buf, num_supers, rec, plane, color, depth,
+                              nullptr, width, height);
+}
+
+// K10vecg: out holds the GBUF_PLANES planes, width * height floats apart.
+__global__ void __launch_bounds__(THREADS) gbuffer_vec_keyed_kernel(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ rec,
+    int items, unsigned long long* __restrict__ plane,
+    float* __restrict__ out, int width, int height) {
+  const size_t frame = (size_t)width * height;
+  vec_items<VecKeys<true>>(buf, num_supers, rec, items, plane,
+                           reinterpret_cast<int*>(out), out + frame,
+                           out + 2 * frame, width, height);
+}
+
+__global__ void __launch_bounds__(THREADS) gbuffer_vec_resolve_kernel(
+    const int* __restrict__ buf, int num_supers, const int* __restrict__ rec,
+    const unsigned long long* __restrict__ plane, float* __restrict__ out,
+    int width, int height) {
+  const size_t frame = (size_t)width * height;
+  vec_resolve<VecKeys<true>>(buf, num_supers, rec, plane,
+                             reinterpret_cast<int*>(out), out + frame,
+                             out + 2 * frame, width, height);
+}
 
 }  // namespace vec
 }  // namespace zr
 
-// K10vec: packed color (int bits) and depth.  buf: tiles * (2 num_supers +
-// 1) ints of hit words; plane: height * width keys, unused with one item a
-// tile.  The hit words, then with several items a tile the key plane set
-// to all ones, tiles * items work items and the resolve over the tiles.
-extern "C" int zr_raster_vec(const int* supers, int num_supers,
-                             const int* blocks, const int* rec, int items,
-                             int* buf, unsigned long long* plane, int* color,
-                             float* depth, int height, int width,
-                             void* stream) {
+// K10vec and K10vecg: the hit words, then with several items a tile the
+// key plane set to all ones, tiles * items work items and the resolve over
+// the tiles.  buf: tiles * (2 num_supers + 1) ints of hit words; plane:
+// height * width keys, unused with one item a tile.
+template <class Items, class Resolve, class... Out>
+static int launch_vec(Items items_kernel, Resolve resolve_kernel,
+                      const int* supers, int num_supers, const int* blocks,
+                      const int* rec, int items, int* buf,
+                      unsigned long long* plane, int height, int width,
+                      void* stream, Out... out) {
   const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
   const cudaStream_t s = (cudaStream_t)stream;
   const int smem = (int)sizeof(zr::KeyedSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      zr::vec::raster_vec_keyed_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      items_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   zr::vec::vec_hit_words_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
       supers, num_supers, blocks, buf, width, height);
@@ -331,22 +275,34 @@ extern "C" int zr_raster_vec(const int* supers, int num_supers,
                           (size_t)height * width * sizeof(*plane), s);
     if (err != cudaSuccess) return (int)err;
   }
-  zr::vec::raster_vec_keyed_kernel<<<num_tiles * items, zr::THREADS, smem,
-                                     s>>>(buf, num_supers, rec, items, plane,
-                                          color, depth, width, height);
+  items_kernel<<<num_tiles * items, zr::THREADS, smem, s>>>(
+      buf, num_supers, rec, items, plane, out..., width, height);
   if (items > 1)
-    zr::vec::raster_vec_resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
-        buf, num_supers, rec, plane, color, depth, width, height);
+    resolve_kernel<<<num_tiles, zr::THREADS, 0, s>>>(
+        buf, num_supers, rec, plane, out..., width, height);
   return (int)cudaGetLastError();
+}
+
+// K10vec: packed color (int bits) and depth.
+extern "C" int zr_raster_vec(const int* supers, int num_supers,
+                             const int* blocks, const int* rec, int items,
+                             int* buf, unsigned long long* plane, int* color,
+                             float* depth, int height, int width,
+                             void* stream) {
+  return launch_vec(zr::vec::raster_vec_keyed_kernel,
+                    zr::vec::raster_vec_resolve_kernel, supers, num_supers,
+                    blocks, rec, items, buf, plane, height, width, stream,
+                    color, depth);
 }
 
 // K10vecg: the GBUF_PLANES planes back to back.
 extern "C" int zr_gbuffer_vec(const int* supers, int num_supers,
-                              const int* blocks, const int* rec, float* out,
-                              int height, int width, void* stream) {
-  const int num_tiles = (height / zr::TILE_H) * (width / zr::TILE_W);
-  zr::vec::gbuffer_vec_kernel<<<num_tiles, zr::THREADS, 0,
-                                (cudaStream_t)stream>>>(
-      supers, num_supers, blocks, rec, out, width, height);
-  return (int)cudaGetLastError();
+                              const int* blocks, const int* rec, int items,
+                              int* buf, unsigned long long* plane,
+                              float* out, int height, int width,
+                              void* stream) {
+  return launch_vec(zr::vec::gbuffer_vec_keyed_kernel,
+                    zr::vec::gbuffer_vec_resolve_kernel, supers, num_supers,
+                    blocks, rec, items, buf, plane, height, width, stream,
+                    out);
 }

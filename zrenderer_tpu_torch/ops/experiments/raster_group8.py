@@ -35,8 +35,9 @@ list tile, each leftover row over its vertices' pixel bbox in the gated
 list tiles its bbox meets (``window_rects``), into one key a pixel, (order
 bits of z, row id) from (1.0, INT_MAX) (``raster_hbm2.KEY_CLEAR``); the
 items merge through a key plane and the planes are resolved from the
-winners' setup rows (``key_planes``).  K10g8g and K10g8d keep the
-register body.
+winners' setup rows (``key_planes``).  K10g8g runs the same body with
+K4g's G-buffer key and epilogue (``key_planes(..., gbuffer=True)``);
+K10g8d keeps the register body.
 """
 
 from __future__ import annotations
@@ -439,16 +440,18 @@ def window_keys(keys, inp: Group8Inputs, rows, rects, tile_y, tile_x,
                   rows=rects[:, 2:], cols=rects[:, :2])
 
 
-def key_planes(keys, inp: Group8Inputs, width: int, height: int):
+def key_planes(keys, inp: Group8Inputs, width: int, height: int,
+               gbuffer: bool = False):
     """K10g8's store of a key plane of key_height rows: each pixel's winner
     re-evaluated from the setup rows and resolved -> (packed i32, depth
-    f32) of the target's rows."""
+    f32) of the target's rows; with ``gbuffer`` K10g8g's, the 13 planes
+    under the epilogue buf * (covered ? inv : 0)."""
     won, ids = h2.winners(keys)
     kh = key_height(height)
-    color, depth = h2.resolve(
-        won, h2.pixel_edges(inp.hier[ids], width, kh),
-        inp.hier_f[ids, F_ZA0:F_ZA0 + h2.COEFS], width, kh)
-    return color[:height], depth[:height]
+    out = h2.resolve(won, h2.pixel_edges(inp.hier[ids], width, kh),
+                     inp.hier_f[ids], width, kh,
+                     masked_inv=True if gbuffer else None)
+    return [x[:height] for x in out]
 
 
 # ---------------------------------------------------------------------------
@@ -495,44 +498,53 @@ def _group8_args(inp: Group8Inputs, width: int, height: int):
             m[0], p(inp.supers), p(inp.blocks), p(inp.hier), p(inp.hier_f))
 
 
-def raster_group8_kernel(offs, tile_any, rows, megas, supers, blocks,
-                         hier, hier_f, width: int, height: int):
-    """Launch K10g8 (``csrc/raster_group8.cu``) on the current stream in
-    G8_ITEMS work items a key tile -> (packed i32, depth f32).  Its
-    scratch: the hit words (key tiles * (2 S + 1) ints, S the superblocks
-    that hold blocks) and, with more than one item, the key plane; its
-    planes hold key_height rows, the target's returned."""
-    inp = Group8Inputs(offs, tile_any, rows, megas, supers, blocks, hier,
-                       hier_f)
+def _launch_keyed(entry, run, inp: Group8Inputs, width: int, height: int):
+    """Launch K10g8 or K10g8g (the C entry named ``entry``, through
+    ``run``: ``raster._run`` or ``raster._run_gbuffer``) on the current
+    stream in G8_ITEMS work items a key tile.  Its scratch: the hit words
+    (key tiles * (2 S + 1) ints, S the superblocks that hold blocks) and,
+    with more than one item, the key plane; its planes hold key_height
+    rows, the target's returned."""
     _group8_args(inp, width, height)
     items = G8_ITEMS
     if items < 1:
         raise ValueError(f"G8_ITEMS must be positive, got {items}")
     kh = key_height(height)
-    num_supers = blocks.shape[0] // tg.SUPER_BLOCK
+    dev = inp.hier.device
+    num_supers = inp.blocks.shape[0] // tg.SUPER_BLOCK
     tiles = (kh // tr.TILE_H) * (width // tr.TILE_W)
-    buf = torch.empty(tiles * (2 * num_supers + 1), dtype=I32,
-                      device=hier.device)
-    plane = (torch.empty(kh * width, dtype=torch.int64, device=hier.device)
+    buf = torch.empty(tiles * (2 * num_supers + 1), dtype=I32, device=dev)
+    plane = (torch.empty(kh * width, dtype=torch.int64, device=dev)
              if items > 1 else None)
     p = tr._ptr
-    color, depth = tr._run(
-        _build.load_library().zr_raster_group8, hier.device, width, kh,
-        p(offs), p(tile_any), p(rows), height // GT_H, p(supers), num_supers,
-        p(blocks), p(hier), p(hier_f), items, p(buf),
-        None if plane is None else p(plane))
+    out = run(getattr(_build.load_library(), entry), dev, width, kh,
+              p(inp.offs), p(inp.tile_any), p(inp.rows), height // GT_H,
+              p(inp.supers), num_supers, p(inp.blocks), p(inp.hier),
+              p(inp.hier_f), items, p(buf),
+              None if plane is None else p(plane))
+    return [x[:height] for x in out]
+
+
+def raster_group8_kernel(offs, tile_any, rows, megas, supers, blocks,
+                         hier, hier_f, width: int, height: int):
+    """Launch K10g8 (``csrc/raster_group8.cu``) -> (packed i32, depth
+    f32)."""
+    color, depth = _launch_keyed(
+        "zr_raster_group8", tr._run,
+        Group8Inputs(offs, tile_any, rows, megas, supers, blocks, hier,
+                     hier_f), width, height)
     raster_group8_kernel.launches += 1
-    return color[:height], depth[:height]
+    return color, depth
 
 
 def gbuffer_group8_kernel(offs, tile_any, rows, megas, supers, blocks,
                           hier, hier_f, width: int, height: int):
-    """Launch K10g8g: the 13 G-buffer planes."""
-    inp = Group8Inputs(offs, tile_any, rows, megas, supers, blocks, hier,
-                       hier_f)
-    args = _group8_args(inp, width, height)
-    out = tr._run_gbuffer(_build.load_library().zr_gbuffer_group8,
-                          hier.device, width, height, *args)
+    """Launch K10g8g, K10g8's body with the G-buffer key: the 13 G-buffer
+    planes."""
+    out = _launch_keyed(
+        "zr_gbuffer_group8", tr._run_gbuffer,
+        Group8Inputs(offs, tile_any, rows, megas, supers, blocks, hier,
+                     hier_f), width, height)
     gbuffer_group8_kernel.launches += 1
     return out
 

@@ -276,24 +276,38 @@ def pixel_edges(ti, width: int, height: int):
             for dx, dy, x, y in EDGES]
 
 
-def resolve(won, edges, coefs, width: int, height: int):
+def resolve(won, edges, coefs, width: int, height: int,
+            masked_inv: bool | None = None):
     """The winners' planes and K5's epilogue: z, 1/w and colour numerators
     ((e0*c0 + e1*c1) + e2*c2) from each pixel's winner's edge functions
-    ``edges`` and coefficients ``coefs`` (H*W, COEFS) (z, 1/w, r, g, b),
-    the clear values where nothing ``won``; one divide a pixel.  Returns
-    (packed i32, depth f32), (height, width)."""
+    ``edges`` and setup floats ``coefs`` (H*W, COEFS or more) (z, 1/w, r,
+    g, b, ...), the clear values where nothing ``won``; one divide a
+    pixel.  Returns (packed i32, depth f32), (height, width).  With
+    ``masked_inv`` a bool, ``coefs`` holds each winner's NF32 setup floats
+    and the GBUFFER_PLANES planes are returned, the uv and normal
+    numerators interpolated and the constants read from the winner, in
+    ``raster._resolve_gbuffer``'s epilogue form (``masked_inv``: buf *
+    (covered ? inv : 0); else covered ? buf * inv : 0)."""
     ef = [e.to(F32) for e in edges]
+    shape = (1, 1, height, width)
 
     def interp(c):
         v = (ef[0] * coefs[:, c] + ef[1] * coefs[:, c + 1]) \
             + ef[2] * coefs[:, c + 2]
-        return v.reshape(1, 1, height, width)
+        return v.reshape(shape)
 
-    clear = won.logical_not().reshape(1, 1, height, width)
+    clear = won.logical_not().reshape(shape)
+    gbuffer = masked_inv is not None
+    latches = tr._LATCHES + (tr._GBUF_LATCHES if gbuffer else ())
     planes = {name: torch.where(clear, 1.0 if name == "z" else 0.0,
                                 interp(c - F_ZA0))
-              for name, c in (("z", F_ZA0),) + tr._LATCHES}
-    return tr._resolve_planes(planes)
+              for name, c in (("z", F_ZA0),) + latches}
+    if not gbuffer:
+        return tr._resolve_planes(planes)
+    for name, c in tr._CONSTS:
+        planes[name] = torch.where(clear, 0.0,
+                                   coefs[:, c - F_ZA0].reshape(shape))
+    return tr._resolve_gbuffer(planes, masked_inv)
 
 
 def hbm2_keys(supers_s, blocks_s, ti_short, supers_t, blocks_t, ti_tall, tf,

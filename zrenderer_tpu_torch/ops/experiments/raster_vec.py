@@ -32,7 +32,8 @@ the row's vertices' pixel bbox in the tile, within its subgroup's hit
 chunks) into one key a pixel, (order bits of z, row id) from the strict
 clear key (``KEY_CLEAR``); the items merge through a key plane and the
 planes are resolved from the winners' records (``key_planes``).  K10vecg
-keeps the register body.
+runs the same body with the 13 planes under K3g's epilogue
+(``key_planes(..., gbuffer=True)``).
 """
 
 from __future__ import annotations
@@ -286,16 +287,17 @@ def window_keys(keys, rec, rows, rects, tile_y, tile_x, width: int):
                   cols=rects[:, :2], clear=KEY_CLEAR)
 
 
-def key_planes(keys, rec, width: int, height: int):
+def key_planes(keys, rec, width: int, height: int, gbuffer: bool = False):
     """K10vec's store of a key plane: each pixel's winner (its key's row
     id; none under KEY_CLEAR) re-evaluated from its record and resolved
-    -> (packed i32, depth f32)."""
+    -> (packed i32, depth f32); with ``gbuffer`` K10vecg's, the 13 planes
+    under K3g's epilogue covered ? buf * inv : 0."""
     won = keys != KEY_CLEAR
     ids = torch.where(won, keys & 0xFFFFFFFF, 0)
     r = rec[ids]
-    coefs = r[:, _F_BASE + F_ZA0:_F_BASE + F_ZA0 + h2.COEFS].contiguous()
     return h2.resolve(won, h2.pixel_edges(r[:, :NI32], width, height),
-                      coefs.view(F32), width, height)
+                      r[:, _F_BASE:].contiguous().view(F32), width, height,
+                      masked_inv=False if gbuffer else None)
 
 
 # ---------------------------------------------------------------------------
@@ -328,11 +330,13 @@ def _vec_args(supers, blocks, rec, width: int, height: int):
     return p(supers), supers.shape[0], p(blocks), p(rec)
 
 
-def raster_vec_kernel(supers, blocks, rec, width: int, height: int):
-    """Launch K10vec (``csrc/raster_vec.cu``) on the current stream in
-    VEC_ITEMS work items a tile -> (packed i32, depth f32).  Its scratch:
-    the hit words (tiles * (2 S + 1) ints) and, with more than one item,
-    the key plane of the output's size."""
+def _launch_keyed(entry, run, supers, blocks, rec, width: int,
+                  height: int):
+    """Launch K10vec or K10vecg (the C entry named ``entry``, through
+    ``run``: ``raster._run`` or ``raster._run_gbuffer``) on the current
+    stream in VEC_ITEMS work items a tile.  Its scratch: the hit words
+    (tiles * (2 S + 1) ints) and, with more than one item, the key plane of
+    the output's size."""
     args = _vec_args(supers, blocks, rec, width, height)
     items = VEC_ITEMS
     if items < 1:
@@ -342,18 +346,25 @@ def raster_vec_kernel(supers, blocks, rec, width: int, height: int):
                       device=rec.device)
     plane = (torch.empty(height * width, dtype=torch.int64,
                          device=rec.device) if items > 1 else None)
-    out = tr._run(_build.load_library().zr_raster_vec, rec.device, width,
-                  height, *args, items, tr._ptr(buf),
-                  None if plane is None else tr._ptr(plane))
+    return run(getattr(_build.load_library(), entry), rec.device, width,
+               height, *args, items, tr._ptr(buf),
+               None if plane is None else tr._ptr(plane))
+
+
+def raster_vec_kernel(supers, blocks, rec, width: int, height: int):
+    """Launch K10vec (``csrc/raster_vec.cu``) -> (packed i32, depth
+    f32)."""
+    out = _launch_keyed("zr_raster_vec", tr._run, supers, blocks, rec,
+                        width, height)
     raster_vec_kernel.launches += 1
     return out
 
 
 def gbuffer_vec_kernel(supers, blocks, rec, width: int, height: int):
-    """Launch K10vecg: the 13 G-buffer planes."""
-    args = _vec_args(supers, blocks, rec, width, height)
-    out = tr._run_gbuffer(_build.load_library().zr_gbuffer_vec, rec.device,
-                          width, height, *args)
+    """Launch K10vecg, K10vec's body with the G-buffer key: the 13
+    G-buffer planes."""
+    out = _launch_keyed("zr_gbuffer_vec", tr._run_gbuffer, supers, blocks,
+                        rec, width, height)
     gbuffer_vec_kernel.launches += 1
     return out
 
