@@ -3,15 +3,16 @@
 K4c, K4g, K4d, K5, K5g, K6, K6g, K6d, K9 and K9d, the two-class
 experiments K10hbm2 and K10scan, the visibility-buffer experiments K10vis
 and K10trans, the group-tile and lane-parallel experiments K10g8, K10g8g,
-K10g8d, K10vec and K10vecg, and the tiled light kernel K7, and of the
+K10g8d, K10vec and K10vecg, the tiled light kernel K7 and the overlay
+kernels K8 and K8b, and of the
 frames whose pace they set, between this tree and another checkout (for
 example a parent commit unpacked with ``git archive``) on one CUDA card;
 or, with ``--sweep``, this tree's K5 and K5g on the 1M lattice at each
 work-item count of SWEEP_ITEMS, K10hbm2 and K10scan at each count of
 SWEEP_TWOCLASS_ITEMS (``twoclass_sweep``), K10vis and K10trans at each
-count of SWEEP_VIS_ITEMS (``vis_sweep``), K10vec and K10g8, and K10vecg
-and K10g8g on the lit rows, at each count of SWEEP_X_ITEMS (``x_sweep``),
-K6, K6g, K6d and K9d at each
+count of SWEEP_VIS_ITEMS (``vis_sweep``), K10vec and K10g8, K10vecg and
+K10g8g on the lit rows, and K10g8d on the 20K lattice's shadow map, at
+each count of SWEEP_X_ITEMS (``x_sweep``), K6, K6g, K6d and K9d at each
 item size of SWEEP_RECORDS and halved toward each item count of
 SWEEP_MIN_ITEMS (``record_sweep``), and K1 and K2d at each count of
 SWEEP_SMALL_BLOCKS blocks a tile (``small_sweep``).
@@ -27,10 +28,13 @@ package.  A run times K1 on the flat 1080p test scene's inputs, K2g on
 the lit one's and K2d on the shadowed one's 1024x1024 map (CUDA events
 and device busy ms a call from a trace of as many calls, ``small_ms``:
 the launchers' host work outlasts these kernels), the flat and the
-shadowed test-scene frames, then, with CUDA events after a warm-up: K3 on
-the flat 20K lattice's inputs (the hierarchy prepare, the padded 1080p
-target) and K6 on its ``tile_lists`` inputs (the row-id spans), K3b on band 0 of its 2 bands
-at 1920x544 (the rows gathered from 2 shards), and so on the 40K lattice's
+shadowed test-scene frames, K8 and K8b on the --ui windows' draw list
+over the flat test scene (``small_ms``) and K8b a launch inside traced
+--ui app frames (``ui_frame_ms``), then, with CUDA events after a
+warm-up: K3 on the flat 20K lattice's inputs (the hierarchy prepare, the
+padded 1080p target) and K6 on its ``tile_lists`` inputs (the row-id
+spans), K3b on band 0 of its 2 bands at 1920x544 (the rows gathered from
+2 shards), and so on the 40K lattice's
 (52 288 rows, 13 superblocks), K3g on the lit 20K lattice's inputs and K6g
 on its ``tile_lists`` inputs, K3d on its 1024x1024 shadow map, K6d on the
 same map's ``tile_lists`` inputs, K9d on band 0 of the 40K lattice's 2
@@ -58,10 +62,10 @@ ms per frame of the flat 20K frame, of the flat, the lit and the shadowed
 20K ``tile_lists`` frames, of the six 1M frames and of those three banded
 frames (one traced run each: ``chip_smoke.device_trace``, the union of the
 device operations' intervals) and of the flat and the shadowed
-test-scene frames; with ``--small``, only K1, K2d, K2g and the two
-test-scene frames. Every run must give the same planes (their digests are
-compared). Prints the card's name and power limit first, then one JSON
-line per run.
+test-scene frames; with ``--small``, only K1, K2d, K2g, the two
+test-scene frames, K8 and K8b. Every run must give the same planes
+(their digests are compared). Prints the card's name and power limit
+first, then one JSON line per run.
 """
 
 from __future__ import annotations
@@ -95,6 +99,8 @@ BUSY_FRAMES_1M = 5
 # small-kernel timing runs (CUDA events; the same count traced).
 SWEEP_SMALL_BLOCKS = (1, 2, 4, 8)
 SMALL_CALLS = 50
+# --ui app frames traced for K8b's time a launch inside the frame.
+UI_FRAMES = 10
 
 
 def event_ms(fn, reps):
@@ -186,6 +192,38 @@ def small_sweep() -> dict:
                                      "planes")
             ref = d
     return out
+
+
+def ui_inputs(scene_md):
+    """K8's and K8b's inputs of the --ui windows over the flat 1080p test
+    scene: (K8's setup rows, the rendered frame, the atlas), on the card,
+    and the renderer and the --ui overlay that made them."""
+    import torch
+
+    from zrenderer_tpu_torch.app.draw_list import padded_count
+    from zrenderer_tpu_torch.app.font import UIAtlas
+    from zrenderer_tpu_torch.app.overlay_ui import ImguiOverlay, atlas_on
+
+    ui = ImguiOverlay(cs.WIDTH, cs.HEIGHT, device="cuda")
+    dl = ui.draw_list(cs.UI_STATS_TEXT, scene_md[0])
+    ti, tf = dl.setup(padded_count(len(dl)))
+    rows = (torch.from_numpy(ti).to("cuda"), torch.from_numpy(tf).to("cuda"))
+    r = renderer(scene_md)
+    return (rows, r.render()[0], atlas_on(UIAtlas(), "cuda")), (r, ui)
+
+
+def ui_frame_ms(r, ui) -> float:
+    """K8b's device ms a launch inside UI_FRAMES traced --ui app frames of
+    renderer ``r`` (rendered, composited by ``ui``, read back), its inputs
+    fresh from the frame rather than L2-warm from a loop over them."""
+    events, _ = cs.device_trace(lambda: [
+        ui.compose(r.render()[0], cs.UI_STATS_TEXT, r.scene)
+        for _ in range(UI_FRAMES)])
+    durs = [d for n, _, d in events if "overlay_composite_kernel" in n]
+    if len(durs) != UI_FRAMES:
+        raise AssertionError(f"k8b: {len(durs)} launches traced in "
+                             f"{UI_FRAMES} --ui app frames")
+    return sum(durs) / len(durs) / 1000.0
 
 
 def renderer(scene_md, **kw):
@@ -391,29 +429,41 @@ def lit_lattice_rows(scene_md):
 def x_sweep(rows=None, lit_rows=None) -> dict:
     """K10vec and K10g8 on the flat 1M lattice's rows (``rows``, or the
     renderer's), K10vecg and K10g8g on its lit rows (``lit_rows``, or the
-    lit renderer's), at each work-item count of SWEEP_X_ITEMS (ms a call,
-    CUDA events), every count's planes equal."""
+    lit renderer's), and K10g8d on the 20K lattice's 1024x1024 shadow map,
+    at each work-item count of SWEEP_X_ITEMS (ms a call, CUDA events),
+    every count's planes equal."""
     from zrenderer_tpu_torch.ops.experiments import raster_group8, raster_vec
     from zrenderer_tpu_torch.scene.procedural import make_stress_scene
 
-    w, h = cs.PAD_W, cs.PAD_H
+    w, h, s = cs.PAD_W, cs.PAD_H, cs.SHADOW_SIZE
     if rows is None or lit_rows is None:
         lattice = make_stress_scene(cs.LARGE_TRIS)
         rows = rows or cs.frame_rows(renderer(lattice))
         lit_rows = lit_rows or lit_lattice_rows(lattice)
+    r = renderer(make_stress_scene(20000), pipeline="shadowed",
+                 shadow_size=s)
+    r.set_environment()
+    cases = {key: (kern, prep, (w, h))
+             for key, (kern, prep) in {**x_cases(rows, w, h),
+                                       **x_cases(lit_rows, w, h,
+                                                 True)}.items()}
+    cases["k10g8d"] = (raster_group8.depth_group8_kernel,
+                       raster_group8.prepare_group8_inputs(
+                           *cs.light_rows(r), s, s), (s, s))
+    del r
     out = {}
-    items = {"k10vec": (raster_vec, "VEC_ITEMS"),
-             "k10g8": (raster_group8, "G8_ITEMS")}
-    for key, (kern, prep) in {**x_cases(rows, w, h),
-                              **x_cases(lit_rows, w, h, True)}.items():
-        mod, attr = items[key.rstrip("g")]
+    for key, (kern, prep, (kw, kh)) in cases.items():
+        mod, attr = ((raster_vec, "VEC_ITEMS") if key.startswith("k10vec")
+                     else (raster_group8, "G8_ITEMS"))
         saved = getattr(mod, attr)
         out[key], ref = {}, None
         try:
             for n in SWEEP_X_ITEMS:
                 setattr(mod, attr, n)
-                out[key][n] = event_ms(lambda: kern(*prep, w, h), 10)
-                d = digest(*kern(*prep, w, h))
+                out[key][n] = event_ms(lambda: kern(*prep, kw, kh), 10)
+                planes = kern(*prep, kw, kh)
+                d = digest(*(planes if isinstance(planes, (list, tuple))
+                             else (planes,)))
                 if ref is not None and d != ref:
                     raise AssertionError(f"{key}: {n} items a tile changed "
                                          "the planes")
@@ -467,7 +517,7 @@ def measure(small=False) -> dict:
     ``small``: the test scene's kernels and frames alone."""
     import torch
 
-    from zrenderer_tpu_torch.ops import light_kernel, raster
+    from zrenderer_tpu_torch.ops import light_kernel, overlay, raster
     from zrenderer_tpu_torch.ops.experiments import raster_group8
     from zrenderer_tpu_torch.parallel import tiles
     from zrenderer_tpu_torch.scene.procedural import (make_stress_scene,
@@ -501,7 +551,7 @@ def measure(small=False) -> dict:
            "k6d": {}, "k7": {}, "k9": {}, "k9d": {}, "k10hbm2": {},
            "k10scan": {}, "k10vis": {}, "k10trans": {}, "k10vec": {},
            "k10g8": {}, "k10vecg": {}, "k10g8g": {}, "k10g8d": {},
-           "frames": {},
+           "k8": {}, "k8b": {}, "frames": {},
            "busy": {}, "digests": {}}
     # The test scene: K1 on the flat frame's inputs, K2g on the lit
     # frame's, K2d on the shadowed frame's map; the flat and the shadowed
@@ -534,6 +584,20 @@ def measure(small=False) -> dict:
             cs.PROFILE_FRAMES)
         out["digests"][label] = digest(r.render()[0])
     del prep, r
+    # K8 and K8b on the --ui windows' draw list over the flat test scene,
+    # then K8b inside traced --ui app frames.
+    (rows, frame, atlas), (r, ui) = ui_inputs(scene_md)
+    k8, k8b = overlay.overlay_raster_kernel, overlay.overlay_composite_kernel
+    out["k8"]["--ui windows"] = small_ms(lambda: k8(*rows, cs.WIDTH,
+                                                    cs.HEIGHT))
+    cnt, over, layers = k8(*rows, cs.WIDTH, cs.HEIGHT)
+    out["digests"]["k8 --ui windows"] = digest(cnt, over, *layers)
+    out["k8b"]["--ui windows"] = small_ms(lambda: k8b(frame, cnt, layers,
+                                                      atlas))
+    out["digests"]["k8b --ui windows"] = digest(k8b(frame, cnt, layers,
+                                                    atlas))
+    out["k8b"]["--ui app frame"] = ui_frame_ms(r, ui)
+    del rows, frame, cnt, over, layers, r, ui
     if small:
         return out
     lattice = make_stress_scene(20000)
@@ -775,12 +839,13 @@ def main(argv=None) -> int:
                     "of SWEEP_ITEMS, K10hbm2 and K10scan at each of "
                     "SWEEP_TWOCLASS_ITEMS, K10vis and K10trans at each of "
                     "SWEEP_VIS_ITEMS, K10vec and K10g8 at each of "
-                    "SWEEP_X_ITEMS, K6, K6g, K6d and K9d at each item "
-                    "size of SWEEP_RECORDS and SWEEP_MIN_ITEMS, and K1 and "
-                    "K2d at each count of SWEEP_SMALL_BLOCKS, instead")
+                    "SWEEP_X_ITEMS (K10vecg and K10g8g, K10g8d too), K6, "
+                    "K6g, K6d and K9d at each item size of SWEEP_RECORDS "
+                    "and SWEEP_MIN_ITEMS, and K1 and K2d at each count of "
+                    "SWEEP_SMALL_BLOCKS, instead")
     ap.add_argument("--small", action="store_true",
-                    help="with --other: K1, K2d, K2g and the test-scene "
-                    "frames only")
+                    help="with --other: K1, K2d, K2g, the test-scene "
+                    "frames, K8 and K8b only")
     ap.add_argument("--worker", help="(internal) measure the package of "
                     "this checkout root")
     args = ap.parse_args(argv)
@@ -822,9 +887,9 @@ def main(argv=None) -> int:
         print("the trees' planes differ", file=sys.stderr)
         return 1
     print("every run gave the same "
-          + ("K1, K2g, K2d and frame" if args.small else
+          + ("K1, K2g, K2d, K8, K8b and frame" if args.small else
              "K1, K2g, K2d, K3, K3b, K3g, K3d, K4, K4c, K4g, K4d, K5, K5g, "
-             "K6, K6g, K6d, K7, K9, K9d, K10hbm2, K10scan, K10vis, "
+             "K6, K6g, K6d, K7, K8, K8b, K9, K9d, K10hbm2, K10scan, K10vis, "
              "K10trans, K10vec, K10vecg, K10g8, K10g8g, K10g8d and frame")
           + " planes")
     return 0

@@ -95,7 +95,9 @@ lines and seconds:
     the test scene at 1080p (the --ui calls give both plain_ms), the
     reference test's busy draw list scaled to 1080p, a random soup of 4096
     translucent triangles with scissors (some pixels deeper than K), the
-    overflow stack for K = 8 and 2, and a 1000x517 frame;
+    overflow stack for K = 8 and 2, a 1000x517 frame, a 127x33 frame (K8b's
+    scalar tail: 4191 pixels) and the 1080p frame with no live layer (K8b's
+    copy path: the frame with alpha 255);
 5. the main path: ``Renderer.render_and_read`` at 1080p on the test scene
    (K1) and the lattice (K3), with the launch counts of that run, and the
    256x144 frame against the NumPy oracle (the port's geometry on CPU
@@ -200,8 +202,8 @@ lines and seconds:
 4x. the raster experiments, K10g8/K10g8g/K10g8d (group-tile lists, then
     the leftover mega/super/block hierarchy) and K10vec/K10vecg
     (lane-parallel subgroups), against their plain versions, every plane
-    bitwise as int32 (K10g8, K10g8g, K10vec and K10vecg, on the keyed
-    body, at their default work items a tile and again at one): K10g8 and
+    bitwise as int32 (the sign of a zero z counts; on the keyed body, at
+    their default work items a tile and again at one): K10g8 and
     K10vec on the 40K lattice at 1920x1088,
     K10g8g and K10vecg on the test scene and the 40K lattice (random
     normals and per-triangle materials), K10g8d on the 20K lattice's light
@@ -224,16 +226,16 @@ lines and seconds:
 6x. each experiment kernel's device time from a trace at its main shape
     (the 1M lattice, its lit rows, the map; the G-buffer kernels also on
     the lit 40K lattice and the test scene; the keyed kernels' calls,
-    K10g8's, K10g8g's, K10vec's and K10vecg's, the sum of their device
-    ops, the hit words, the key plane's memset, the work items and the
-    resolve, whose count is printed and checked, each op's time printed),
+    K10g8's, K10g8g's, K10g8d's, K10vec's and K10vecg's, the sum of their
+    device ops, the hit words, the key plane's memset, the work items and
+    the resolve, whose count is printed and checked, each op's time
+    printed),
     its entry point traced once (the keyed kernels' split into the
     prepare's ops and the kernel's), launcher times, the two prepares'
     times on the 1M lattice and the bounds (the keyed kernels: their
     window pixel evaluations or the bytes their keyed body needs, the
     G-buffer ones at 40K too, the register body's 8x128 tile and chunk
-    pairs kept as bound_ms_tiles; K10g8d at its own granularity, 8x128
-    tiles);
+    pairs kept as bound_ms_tiles);
 6xv. the visibility-buffer experiments' traces, taken before phase 6's
     untraced loops and their own plain versions (a trace after about 1.2M
     untraced launches loses a kernel record): K10vis and K10trans on the
@@ -374,8 +376,8 @@ draw list's (tile, triangle) pairs times 4096 pixels times
 OPS_PER_OVERLAY_EVAL plus its covered (pixel, triangle) times
 OPS_PER_OVERLAY_HIT; K8b's the larger of the frame, the count, the output
 and the live layers (12 bytes each) moved once and the live layers times
-OPS_PER_COMPOSITE_LAYER.  K10g8d's pairs are of its 8x128 tiles, 1024
-pixels each; K10g8's, K10g8g's, K10vec's and K10vecg's their window
+OPS_PER_COMPOSITE_LAYER.  K10g8's, K10g8g's, K10g8d's, K10vec's and
+K10vecg's their window
 pixels and the bytes their keyed body needs (``x_work``), their register
 body's 8x128 tiles and chunks (the granularity at which it gated a
 subgroup), 1024 pixels each, kept as bound_ms_tiles; K10vis's and
@@ -418,6 +420,9 @@ EXPERIMENTS = "zrenderer_tpu/ops/experiments"
 # target, the card, and the animation length of the timing phase.
 DEVICE = "cuda"
 WIDTH, HEIGHT = 1920, 1080
+# The stats line of the --overlay panel and the --ui windows.
+UI_STATS_TEXT = ("FPS: 60.0  CPU time: 16.667 ms  0.01 Mtri/s  0.12 Gpix/s"
+                 " | zrenderer-tpu-torch")
 PAD_W, PAD_H = 1920, 1088
 ANIM_FRAMES = 200
 PROFILE_FRAMES = 20  # frames of the profiled render_animation run
@@ -1536,7 +1541,7 @@ def main(argv=None) -> int:
               "item(s) a tile; twoclass_hit_words_kernel and the resolve "
               "kernels none)")
         for key in ("k10vis", "k10trans", "k10vec", "k10vecg", "k10g8",
-                    "k10g8g"):
+                    "k10g8g", "k10g8d"):
             results[key]["smem_bytes"] = smem
         print(f"  K10vis/K10trans keyed body: {smem} bytes of dynamic shared "
               "memory a block (raster_vis_keyed_kernel, "
@@ -2457,8 +2462,7 @@ def main(argv=None) -> int:
 
     # -- 4o. K8/K8b vs plain ----------------------------------------------
     atlas_dev = atlas_on(UIAtlas(), dev)
-    stats_text = ("FPS: 60.0  CPU time: 16.667 ms  0.01 Mtri/s  0.12 Gpix/s"
-                  " | zrenderer-tpu-torch")
+    stats_text = UI_STATS_TEXT
 
     def ui_lines(scene):
         """The --overlay panel's lines: a stats line and the outliner."""
@@ -2610,6 +2614,23 @@ def main(argv=None) -> int:
                                      "expected")
         compare_overlay("random soup, not a tile multiple",
                         *overlay_soup(2, 300, 1000, 517), 1000, 517)
+        # K8b's scalar tail: 127 x 33 = 4191 pixels, 3 past the last quad.
+        compare_overlay("random soup, a pixel count not a multiple of 4",
+                        *overlay_soup(3, 200, 127, 33), 127, 33)
+        # No live layer anywhere: K8b's copy path alone, over the --ui
+        # frame's layer planes with every count 0.
+        _, _, lay = k8(*main["ImguiOverlay"], WIDTH, HEIGHT)
+        frame = random_frame(seed=5, w=WIDTH, h=HEIGHT)
+        cnt0 = torch.zeros((HEIGHT, WIDTH), dtype=torch.int32, device=dev)
+        outk = k8b(frame, cnt0, lay, atlas_dev)
+        outp = overlay.composite_layers_plain(frame, cnt0, lay, atlas_dev)
+        want = frame.clone()
+        want[..., 3] = 255
+        same = torch.equal(outk, outp) and torch.equal(outk, want)
+        print(f"  no live layer, {WIDTH}x{HEIGHT}: K8b bit-exact against its "
+              f"plain version and the frame with alpha 255 {same}")
+        if not same:
+            raise AssertionError("no live layer: K8b is not the frame")
         return main
 
     # -- 5. main path -----------------------------------------------------
@@ -3317,7 +3338,7 @@ def main(argv=None) -> int:
                     "k9d": "raster_records_dist_keyed_kernel",
                     "k10g8": "raster_group8_keyed_kernel",
                     "k10g8g": "gbuffer_group8_keyed_kernel",
-                    "k10g8d": "depth_group8_kernel",
+                    "k10g8d": "depth_group8_keyed_kernel",
                     "k10vec": "raster_vec_keyed_kernel",
                     "k10vecg": "gbuffer_vec_keyed_kernel",
                     "k10vis": "raster_vis_keyed_kernel",
@@ -3351,22 +3372,23 @@ def main(argv=None) -> int:
                               "k10scan": "raster_scan_resolve_kernel"}
     vis_resolve_names = {"k10vis": "raster_vis_resolve_kernel",
                          "k10trans": "raster_trans_resolve_kernel"}
-    # K10vec and K10vecg likewise, with vec.VEC_ITEMS, and K10g8 and
-    # K10g8g with group8.G8_ITEMS.
+    # K10vec and K10vecg likewise, with vec.VEC_ITEMS, and K10g8, K10g8g
+    # and K10g8d with group8.G8_ITEMS.
     x_resolve_names = {"k10vec": "raster_vec_resolve_kernel",
                        "k10vecg": "gbuffer_vec_resolve_kernel",
                        "k10g8": "raster_group8_resolve_kernel",
-                       "k10g8g": "gbuffer_group8_resolve_kernel"}
+                       "k10g8g": "gbuffer_group8_resolve_kernel",
+                       "k10g8d": "depth_group8_resolve_kernel"}
 
     def x_items(key):
-        """Work items a tile of K10vec, K10vecg, K10g8 or K10g8g, as read
-        at call time."""
+        """Work items a tile of K10vec, K10vecg, K10g8, K10g8g or K10g8d,
+        as read at call time."""
         return (vec.VEC_ITEMS if key.startswith("k10vec")
                 else group8.G8_ITEMS)
 
     def at_x_items(key, n, fn):
         """``fn()`` with the work items a tile of K10vec and K10vecg, or of
-        K10g8 and K10g8g, set to n."""
+        K10g8, K10g8g and K10g8d, set to n."""
         mod, attr = ((vec, "VEC_ITEMS") if key.startswith("k10vec")
                      else (group8, "G8_ITEMS"))
         saved = getattr(mod, attr)
@@ -3388,7 +3410,8 @@ def main(argv=None) -> int:
         "k10vec": "vec_hit_words_kernel",
         "k10vecg": "vec_hit_words_kernel",
         "k10g8": "group8_hit_words_kernel",
-        "k10g8g": "group8_hit_words_kernel"}
+        "k10g8g": "group8_hit_words_kernel",
+        "k10g8d": "group8_hit_words_kernel"}
     port_kernels = (set(kernel_names.values()) | set(resolve_names.values())
                     | set(hier_resolve_names.values())
                     | set(twoclass_resolve_names.values())
@@ -4258,14 +4281,10 @@ def main(argv=None) -> int:
             _, out_dup = x_check(key, "duplicated triangles",
                                  x_rows(key, dup, w, h), w, h)
             out_one = kern(*prepare(*x_rows(key, one, w, h), w, h), w, h)
-            if key == "k10g8d":
-                same = torch.equal(out_dup, out_one)  # by value
-            else:
-                same = same_planes(out_dup, out_one)
-            if not same:
+            if not same_planes(out_dup, out_one):
                 raise AssertionError(f"{key}: a duplicate won a depth tie")
         print("  every exact depth tie went to the first-submitted row "
-              "(K10g8, K10g8g, K10g8d by value, K10vec, K10vecg)")
+              "(K10g8, K10g8g, K10g8d, K10vec, K10vecg)")
         # The blow-up soup at the reference test's 256x64: oversized rows
         # past pair_cap and fan rows, so both of group8's phases draw (at
         # 1080p its triangles span too many tiles to be listed); then a
@@ -4494,10 +4513,10 @@ def main(argv=None) -> int:
         return [(len(p), sum(e[2] for e in p) / 1000.0) for p in parts]
 
     def x_work(key, prep, w, h):
-        """The work K10vec's, K10vecg's, K10g8's or K10g8g's keyed body
-        needs on ``prep`` (K10g8d's: what K10g8's body with its depth key
-        would need): (admitted (tile, row) pairs and list entries, their
-        window pixel evaluations, bytes needed).  A pair's window is
+        """The work K10vec's, K10vecg's, K10g8's, K10g8g's or K10g8d's
+        keyed body needs on ``prep``: (admitted (tile, row) pairs and list
+        entries, their window pixel evaluations, bytes needed).  A pair's
+        window is
         its row's vertices' pixel bbox in the tile within the kernel's
         extent (``vec.window_rects``: its subgroup's hit chunks;
         ``group8.window_rects``: an entry's list tile, a leftover row's
@@ -4570,9 +4589,9 @@ def main(argv=None) -> int:
         entry point traced once (prepare and launch: device ops, busy, idle
         share), then the untraced launcher and prepare loops and the
         bounds; the G-buffer kernels also on the lit 40K lattice and the
-        test scene.  The keyed kernels (K10g8, K10g8g, K10vec, K10vecg): a
-        call is the sum of its device ops (``call_ops``), whose count the
-        trace must hold, each op's time printed; the entry point's trace
+        test scene.  Each kernel, on the keyed body: a call is the sum of
+        its device ops (``call_ops``), whose count the trace must hold,
+        each op's time printed; the entry point's trace
         split into the prepare's ops and the kernel's (``entry_split``);
         ptxas's registers, spills and shared memory of the item, resolve
         and hit-word kernels; the bound by ``x_work``."""
@@ -4687,16 +4706,6 @@ def main(argv=None) -> int:
             set_bound(key, inputs, tile_pairs(rows[0], w, h, *tile), w, h,
                       shape, planes=planes, tile_px=tile[0] * tile[1],
                       **work)
-            if key == "k10g8d":  # restated by window evaluations, as K10g8's
-                _, evals, nbytes = x_work(key, prep, w, h)
-                t_ops = evals * OPS_PER_EVAL / CUDA_CORE_OPS_PER_S * 1e3
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                res.update(bound_ms_windows=max(t_ops, t_bytes),
-                           evals_windows=evals, bytes_windows=nbytes)
-                print(f"  bound {key} at {shape} by K10g8's windows: "
-                      f"{res['bound_ms_windows']:.4f} ms (operations "
-                      f"{t_ops:.4f}: {evals} window pixel evaluations; "
-                      f"bytes {t_bytes:.4f}: {nbytes})")
             extra = ""
             if "ms_test_scene" in res:
                 extra = f", test scene {res['ms_test_scene']:.4f} ms"
@@ -6227,8 +6236,7 @@ def main(argv=None) -> int:
                    "entry_prepare_ms", "entry_kernel_ms",
                    "entry_resolve_ms", "op_ms", "admitted", "ms_40k",
                    "wrapper_ms_40k", "bound_ms_40k", "evals_40k",
-                   "bytes_40k", "bound_ms_windows", "evals_windows",
-                   "bytes_windows")}})
+                   "bytes_40k")}})
     if PHASE_PREFIXES is None:
         missing = [(k["name"], f) for k in kernels for f in measured
                    if k[f] is None]

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_binned_keys import DEPTH_CLEAR_KEY, depth_key_z, depth_keys
 from test_torch_group8 import _bits, empty_setup
 from test_torch_group8 import setup as g8_setup
 from test_torch_vis_trans import demo_setup, padded_setup, pair_case, setup
@@ -50,6 +51,11 @@ CASES = {
     "blow_up_256x64_budget32": (lambda: g8_setup("blow_up_256x64"),
                                 dict(list_budget=32, chunk=16)),
     "demo_128x40": (lambda: demo_setup(128, 40), {}),
+    # A (-0.0) past pair_cap rides the hierarchy, B (+0.0) is listed: at
+    # their tie the (z, row id) forms keep A's -0.0, the depth-only pass
+    # the first visited row's, B's +0.0.
+    "leftover_neg_zero_128x32": (pair_case((-0.0,) * 3, (0.0,) * 3),
+                                 dict(pair_cap=3)),
 }
 
 
@@ -74,13 +80,41 @@ def item_of(rank, count, items):
     return ((rank + 1) * items + count - 1) // count - 1
 
 
-def kernel_planes(inp, w, h, items, entry_windows=None, gbuffer=False):
+def key_tile_entries(inp, w, h):
+    """Each key tile's entries E: its four list tiles' spans (a list tile
+    past the target's rows has none), (key tiles,) int64."""
+    tiles_x = w // g8.GT_W
+    n = (inp.offs[1:] - inp.offs[:-1]).to(torch.int64).view(-1, tiles_x)
+    pad = g8.key_height(h) // g8.GT_H - n.shape[0]
+    n = torch.cat([n, n.new_zeros(pad, tiles_x)])
+    return n.view(-1, g8.LISTS, tiles_x).sum(1).reshape(-1)
+
+
+def depth_window_keys(keys, inp, rows, tags, rects, tile_y, tile_x, w):
+    """K10g8d's ``window_keys``: the (order bits of z, tag, sign of z) key
+    (K4d's, ``depth_keys``) of each pair's fragments inside its window."""
+    r = inp.hier[rows]
+    y0, x0 = tile_y * tr.TILE_H, tile_x * tr.TILE_W
+    base, sy, sx = h2.edge_windows(r, y0, x0)
+    h2.window_min(keys, w, y0, x0, tr.TILE_H, base, sy, sx,
+                  r[:, g.I_BIAS0:g.I_BIAS0 + 3],
+                  inp.hier_f[rows, g.F_ZA0:g.F_ZA0 + 3], tags,
+                  rows=rects[:, 2:], cols=rects[:, :2], key_of=depth_keys,
+                  clear=DEPTH_CLEAR_KEY)
+
+
+def kernel_planes(inp, w, h, items, entry_windows=None, gbuffer=False,
+                  depth=False, row_tags=False):
     """K10g8's planes from its rules: every list entry and admitted
     leftover (key tile, row) pair over its window (an entry's in its own
     list tile, or ``entry_windows(rows, ty, tx)``), keyed by its key tile's
     work item of ``items``, the items' keys minimum-merged into the key
     plane, resolved.  Returns (packed, depth, entries, leftover pairs);
-    with ``gbuffer`` K10g8g's 13 planes in place of the two."""
+    with ``gbuffer`` K10g8g's 13 planes in place of the two; with
+    ``depth`` K10g8d's one plane, decoded from DepthKeys' keys whose tag
+    is the visit index (an entry's rank in its key tile, a leftover row's
+    the key tile's entries plus its row id), or with ``row_tags`` the row
+    id."""
     tiles_x = w // g8.GT_W
     rows_l, ly, tx_l, rank, count = g8.list_pairs(inp, w, h)
     ty_l = ly // g8.LISTS
@@ -96,12 +130,24 @@ def kernel_planes(inp, w, h, items, entry_windows=None, gbuffer=False):
     rects = torch.cat([rect_l, rect_o])
     item = torch.cat([item_of(rank, count, items), item_o])
     n = g8.key_height(h) * w
-    plane = torch.full((n,), h2.KEY_CLEAR, dtype=torch.int64)
+    clear = DEPTH_CLEAR_KEY if depth else h2.KEY_CLEAR
+    if depth:
+        entries = key_tile_entries(inp, w, h)[ty_o * tiles_x + tx_o]
+        tags = rows if row_tags else torch.cat([rank, entries + rows_o])
+    plane = torch.full((n,), clear, dtype=torch.int64)
     for i in range(items):
         sel = item == i
-        keys = torch.full((n,), h2.KEY_CLEAR, dtype=torch.int64)
-        g8.window_keys(keys, inp, rows[sel], rects[sel], ty[sel], tx[sel], w)
+        keys = torch.full((n,), clear, dtype=torch.int64)
+        if depth:
+            depth_window_keys(keys, inp, rows[sel], tags[sel], rects[sel],
+                              ty[sel], tx[sel], w)
+        else:
+            g8.window_keys(keys, inp, rows[sel], rects[sel], ty[sel],
+                           tx[sel], w)
         plane = torch.minimum(plane, keys)
+    if depth:
+        return (depth_key_z(plane).view(-1, w)[:h], rows_l.numel(),
+                rows_o.numel())
     return (*g8.key_planes(plane, inp, w, h, gbuffer=gbuffer),
             rows_l.numel(), rows_o.numel())
 
@@ -160,6 +206,60 @@ def test_key_plane_equals_plain(case, gbuffer, items):
     if gbuffer and case != "empty_128x32":
         # Every further plane carries the winners' values.
         assert all(bool((p != 0).any()) for p in planes[2:])
+
+
+@pytest.mark.parametrize("items", [1, 2, g8.G8_ITEMS])
+@pytest.mark.parametrize("case", list(CASES))
+def test_depth_key_plane_equals_plain(case, items):
+    """K10g8d's rules: DepthKeys over K10g8's windows and items, the tag
+    the visit index, give ``depth_group8_plain``'s plane bit for bit."""
+    build, kw = CASES[case]
+    ti, tf, w, h = build()
+    inp = g8.prepare_group8_inputs(T(ti), T(tf), w, h, **kw)
+    depth, n_list, n_left = kernel_planes(inp, w, h, items, depth=True)
+    plain = g8.depth_group8_plain(*inp, w, h)
+    assert tuple(depth.shape) == tuple(plain.shape) == (h, w)
+    _bits(depth, plain)
+    if case == "padded_soup_128x64":  # rows 56-63 are padding
+        assert int((depth[56:] < 1.0).sum()) == 0
+        assert int((depth[:56] < 1.0).sum()) > 1000
+    if case.startswith("neg_zero"):  # a tie in span order: the first wins
+        zero = depth == 0.0
+        assert int(zero.sum()) > 100
+        assert bool((torch.signbit(depth[zero])
+                     == case.startswith("neg_zero_first")).all())
+    if case == "leftover_neg_zero_128x32":  # the entry B is visited first
+        assert n_list > 0 and n_left > 0
+        assert bool((depth == 0.0).any())
+        assert not bool(torch.signbit(depth[depth == 0.0]).all())
+    if case == "z_one_128x32":  # z == 1.0 never passes the strict-less test
+        assert bool((depth <= 1.0).all())
+        flat = kernel_planes(inp, w, h, items)
+        assert bool(((flat[1] == 1.0)
+                     & (flat[0] != tr._ALPHA_BITS)).any())
+    if case == "empty_128x32":
+        assert n_list + n_left == 0 and bool((depth == 1.0).all())
+    else:
+        assert n_list + n_left > 0 and bool((depth < 1.0).any())
+
+
+def test_depth_row_id_key_keeps_the_wrong_zero():
+    """Why K10g8d's tag is the visit index: with the row id as its tag, a
+    leftover row of lower id (A, -0.0) wins its tie with a listed entry
+    visited first (B, +0.0), and the map takes the other sign of zero
+    where they overlap."""
+    build, kw = CASES["leftover_neg_zero_128x32"]
+    ti, tf, w, h = build()
+    inp = g8.prepare_group8_inputs(T(ti), T(tf), w, h, **kw)
+    plain = g8.depth_group8_plain(*inp, w, h)
+    by_id, n_list, n_left = kernel_planes(inp, w, h, 1, depth=True,
+                                          row_tags=True)
+    assert n_list > 0 and n_left > 0
+    assert torch.equal(by_id, plain)  # equal by value
+    flipped = torch.signbit(by_id) != torch.signbit(plain)
+    assert int(flipped.sum()) > 10
+    assert bool((plain[flipped] == 0.0).all())
+    assert not bool(torch.signbit(plain[flipped]).any())
 
 
 def test_each_phase_draws_alone_and_the_budget_moves_rows():

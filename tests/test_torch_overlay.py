@@ -368,6 +368,57 @@ def test_composite_plain_is_the_reference_formula(atlases):
     np.testing.assert_allclose(tex, tex_ref, rtol=0, atol=2 ** -22)
 
 
+def test_count_zero_round_trip_is_exact():
+    """K8b writes a pixel with no live layer as the frame's word with alpha
+    255, skipping the divide and the quantize: for every byte x,
+    floor(clip(f32(x) / 255, 0, 1) * 255 + 0.5) == x in IEEE f32, each
+    op rounded as the plain version rounds it."""
+    x = np.arange(256, dtype=np.float32)
+    d = x / np.float32(255.0)
+    q = np.floor(np.clip(d, np.float32(0.0), np.float32(1.0))
+                 * np.float32(255.0) + np.float32(0.5))
+    assert d.dtype == q.dtype == np.float32
+    np.testing.assert_array_equal(q.astype(np.int64), np.arange(256))
+    # The plain version's own quantize of the same plane agrees.
+    dt = torch.arange(256, dtype=torch.float32) / torch.tensor(255.0)
+    qt = torch.floor(torch.clamp(dt, 0.0, 1.0) * 255.0 + 0.5)
+    assert torch.equal(qt.to(torch.int64), torch.arange(256))
+
+
+def test_byte_table_equals_the_plain_division():
+    """K8b's 256-entry table, float32(i) / float32(255) rounded once,
+    holds for every byte the bits of the plain version's dst, the frame
+    divided by a 255.0 tensor."""
+    table = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    frame = T(np.arange(256, dtype=np.uint8).repeat(4).reshape(16, 16, 4))
+    dst = frame[..., :3].to(torch.float32) / torch.tensor(255.0,
+                                                          dtype=torch.float32)
+    want = table[frame[..., :3].numpy()]
+    np.testing.assert_array_equal(dst.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_composite_plain_without_layers_is_the_frame():
+    """composite_layers_plain with a count of 0 everywhere returns the
+    frame with alpha 255, whatever the layer planes hold: K8b's copy
+    path."""
+    rng = np.random.default_rng(11)
+    h, w, K = 33, 127, ov.DEFAULT_K
+    frame = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    # Every byte in every channel.
+    frame.reshape(-1, 4)[:256, :3] = np.arange(256, dtype=np.uint8)[:, None]
+    cnt = torch.zeros((h, w), dtype=torch.int32)
+    layers = (T(rng.uniform(-2, 2, (K, h, w)).astype(np.float32)),
+              T(rng.uniform(-2, 2, (K, h, w)).astype(np.float32)),
+              T(rng.integers(-2**31, 2**31, (K, h, w), dtype=np.int64)
+                .astype(np.int32)))
+    got = ov.composite_layers_plain(T(frame), cnt, layers,
+                                    atlas_on(UIAtlas(), "cpu"), K).numpy()
+    want = frame.copy()
+    want[..., 3] = 255
+    np.testing.assert_array_equal(got, want)
+
+
 def test_submission_order_and_scissor():
     """Red over blue differs from blue over red (the last draw
     dominates), and a full-screen draw under a scissor covers exactly the

@@ -31,15 +31,19 @@
 // unpacked to f32 / 255 before the lerp), modulated by the layer's colour,
 // blended src*a + dst*(1-a) in f32; then quantized with alpha 255.  A
 // layer past the count blends with a = 0 in the reference, which leaves
-// dst's bits unchanged, so K8b skips it.
+// dst's bits unchanged, so K8b skips it, and a pixel with no live layer
+// (about 95% of a --ui frame) is the frame's word with alpha 255, no
+// divide, layer read or sample.  K8b takes four consecutive pixels a
+// thread: the frame and the count as one 16-byte load each, the output as
+// one 16-byte store, a scalar tail for num_pixels % 4.
 //
 // Numerics: the bits of the plain versions (ops/overlay.py).  Edge
 // functions wrap like int32 (raster_common.cuh edge_fn); every
 // interpolation is ((e0*c0) + (e1*c1)) + e2*c2 and every lerp and blend is
 // rounded after each op with __fmul_rn/__fadd_rn/__fsub_rn in the
 // reference's order (-fmad=false backs it up); the frame's u8 -> f32 is an
-// IEEE divide by 255 (__fdiv_rn), texels and colours multiply by
-// float32(1/255).
+// IEEE divide by 255 (__fdiv_rn, a 256-entry table a block), texels and
+// colours multiply by float32(1/255).
 //
 // What bounds them on the H100.  K8: bytes at 1080p, 26 planes of 4 bytes
 // written (216 MB, 0.064 ms at 3.35 TB/s); the coverage tests of the
@@ -212,27 +216,33 @@ __device__ __forceinline__ float channel(uint32_t texel, int ch) {
   return mul((float)((texel >> (8 * ch)) & 0xFFu), INV255);
 }
 
-__global__ void __launch_bounds__(256)
-    overlay_composite_kernel(const uchar4* __restrict__ frame,
-                             const int* __restrict__ cnt,
-                             const float* __restrict__ lu,
-                             const float* __restrict__ lv,
-                             const uint32_t* __restrict__ lc, int K,
-                             const uint32_t* __restrict__ atlas,
-                             int atlas_h, int atlas_w,
-                             uchar4* __restrict__ out, int num_pixels) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= num_pixels) return;
-  const uchar4 f = frame[idx];
-  float dst[3] = {__fdiv_rn((float)f.x, 255.0f), __fdiv_rn((float)f.y, 255.0f),
-                  __fdiv_rn((float)f.z, 255.0f)};
-  const int live = min(cnt[idx], K);
+// K8b's block: 256 threads, one pixel quad each.  Timed on the H100 at
+// 1080p (PERF.md): a grid-stride loop over 2-8 blocks an SM and blocks
+// of 128 threads came within the runs' spread of this form.
+constexpr int COMPOSITE_THREADS = 256;
+
+// One pixel of K8b: frame word f (RGBA8, R in the low byte) under its
+// live layers.  A pixel with no live layer is the frame with alpha 255:
+// floor(clip(f32(x) / 255, 0, 1) * 255 + 0.5) == x for every byte x
+// (tests/test_torch_overlay.py test_count_zero_round_trip_is_exact), so
+// it needs no divide, no layer and no sample.  Otherwise dst starts from
+// the table inv[x] = __fdiv_rn(x, 255) (the plain version's frame / 255).
+__device__ __forceinline__ uint32_t composite_pixel(
+    uint32_t f, int count, int idx, const float* __restrict__ inv,
+    const float* __restrict__ lu, const float* __restrict__ lv,
+    const uint32_t* __restrict__ lc, int K,
+    const uint32_t* __restrict__ atlas, int atlas_h, int atlas_w,
+    int num_pixels) {
+  const int live = min(count, K);
+  if (live <= 0) return f | 0xFF000000u;
+  float dst[3] = {inv[f & 0xFFu], inv[(f >> 8) & 0xFFu],
+                  inv[(f >> 16) & 0xFFu]};
   const float aw = (float)atlas_w, ah = (float)atlas_h;
   for (int k = 0; k < live; ++k) {
     const size_t at = (size_t)k * num_pixels + idx;
     // sample_atlas_bilinear: WRAP addressing, texels / 255 before the lerp.
-    const float x = sub(mul(lu[at], aw), 0.5f);
-    const float y = sub(mul(lv[at], ah), 0.5f);
+    const float x = sub(mul(__ldg(lu + at), aw), 0.5f);
+    const float y = sub(mul(__ldg(lv + at), ah), 0.5f);
     const int x0 = (int)floorf(x);
     const int y0 = (int)floorf(y);
     const float fx = sub(x, (float)x0);
@@ -240,10 +250,10 @@ __global__ void __launch_bounds__(256)
     const float omfx = sub(1.0f, fx), omfy = sub(1.0f, fy);
     const int ix0 = wrap(x0, atlas_w), ix1 = wrap(x0 + 1, atlas_w);
     const int iy0 = wrap(y0, atlas_h), iy1 = wrap(y0 + 1, atlas_h);
-    const uint32_t t00 = atlas[iy0 * atlas_w + ix0];
-    const uint32_t t10 = atlas[iy0 * atlas_w + ix1];
-    const uint32_t t01 = atlas[iy1 * atlas_w + ix0];
-    const uint32_t t11 = atlas[iy1 * atlas_w + ix1];
+    const uint32_t t00 = __ldg(atlas + iy0 * atlas_w + ix0);
+    const uint32_t t10 = __ldg(atlas + iy0 * atlas_w + ix1);
+    const uint32_t t01 = __ldg(atlas + iy1 * atlas_w + ix0);
+    const uint32_t t11 = __ldg(atlas + iy1 * atlas_w + ix1);
     float tex[4];
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) {
@@ -254,7 +264,7 @@ __global__ void __launch_bounds__(256)
       tex[ch] = add(mul(top, omfy), mul(bot, fy));
     }
     // composite_layers: modulate, then src*a + dst*(1-a).
-    const uint32_t col = lc[at];
+    const uint32_t col = __ldg(lc + at);
     const float a = mul(channel(col, 3), tex[3]);
     const float oma = sub(1.0f, a);
 #pragma unroll
@@ -263,12 +273,49 @@ __global__ void __launch_bounds__(256)
       dst[ch] = add(mul(src, a), mul(dst[ch], oma));
     }
   }
-  uchar4 o;
-  o.x = (unsigned char)quantize_channel(dst[0]);
-  o.y = (unsigned char)quantize_channel(dst[1]);
-  o.z = (unsigned char)quantize_channel(dst[2]);
-  o.w = 255;
-  out[idx] = o;
+  return quantize_channel(dst[0]) | (quantize_channel(dst[1]) << 8) |
+         (quantize_channel(dst[2]) << 16) | 0xFF000000u;
+}
+
+// K8b: four consecutive pixels a thread (pixel quad q: the frame and the
+// count read as 16 bytes each, the output written as 16); the thread of
+// the quad past the last full one writes the num_pixels % 4 tail, pixel
+// by pixel.  frame, cnt and out are 16-byte aligned (the wrapper checks).
+__global__ void __launch_bounds__(COMPOSITE_THREADS)
+    overlay_composite_kernel(const uint32_t* __restrict__ frame,
+                             const int* __restrict__ cnt,
+                             const float* __restrict__ lu,
+                             const float* __restrict__ lv,
+                             const uint32_t* __restrict__ lc, int K,
+                             const uint32_t* __restrict__ atlas,
+                             int atlas_h, int atlas_w,
+                             uint32_t* __restrict__ out, int num_pixels) {
+  __shared__ float inv[256];
+  for (int i = threadIdx.x; i < 256; i += COMPOSITE_THREADS)
+    inv[i] = __fdiv_rn((float)i, 255.0f);
+  __syncthreads();
+  const int quads = num_pixels / 4;
+  const int q = blockIdx.x * COMPOSITE_THREADS + threadIdx.x;
+  if (q < quads) {
+    const uint4 f = __ldg(reinterpret_cast<const uint4*>(frame) + q);
+    const int4 c = __ldg(reinterpret_cast<const int4*>(cnt) + q);
+    const int p = 4 * q;
+    uint4 o;
+    o.x = composite_pixel(f.x, c.x, p, inv, lu, lv, lc, K, atlas, atlas_h,
+                          atlas_w, num_pixels);
+    o.y = composite_pixel(f.y, c.y, p + 1, inv, lu, lv, lc, K, atlas,
+                          atlas_h, atlas_w, num_pixels);
+    o.z = composite_pixel(f.z, c.z, p + 2, inv, lu, lv, lc, K, atlas,
+                          atlas_h, atlas_w, num_pixels);
+    o.w = composite_pixel(f.w, c.w, p + 3, inv, lu, lv, lc, K, atlas,
+                          atlas_h, atlas_w, num_pixels);
+    reinterpret_cast<uint4*>(out)[q] = o;
+  } else if (q == quads) {
+    for (int p = 4 * quads; p < num_pixels; ++p)
+      out[p] = composite_pixel(__ldg(frame + p), __ldg(cnt + p), p, inv, lu,
+                               lv, lc, K, atlas, atlas_h, atlas_w,
+                               num_pixels);
+  }
 }
 
 }  // namespace overlay
@@ -311,9 +358,11 @@ extern "C" int zr_overlay_composite(const void* frame, const int* cnt,
   if (height <= 0 || width <= 0 || k < 1 || atlas_h <= 0 || atlas_w <= 0)
     return (int)cudaErrorInvalidValue;
   const int n = height * width;
-  overlay_composite_kernel<<<(n + 255) / 256, 256, 0,
-                             (cudaStream_t)stream>>>(
-      (const uchar4*)frame, cnt, lu, lv, lc, k, atlas, atlas_h, atlas_w,
-      (uchar4*)out, n);
+  const int quads = n / 4 + 1;  // the full quads and the tail's thread
+  overlay_composite_kernel<<<(quads + COMPOSITE_THREADS - 1) /
+                                 COMPOSITE_THREADS,
+                             COMPOSITE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)frame, cnt, lu, lv, lc, k, atlas, atlas_h, atlas_w,
+      (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }

@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(THREADS) gbuffer_records_band_kernel(
     float* __restrict__ out, int width, int band_h, int row_base) {
   const int tiles_x = width / TILE_W;
   const int tile = blockIdx.x;
-  TileState<true, true> st;
+  TileState st;
   st.init(row_base + (tile / tiles_x) * TILE_H, (tile % tiles_x) * TILE_W);
   const int end = __ldg(offsets + tile + 1);
   for (int k = __ldg(offsets + tile); k < end; ++k) {

@@ -14,15 +14,14 @@
 // row row_base: the pixel math uses global rows, and the stores write
 // band-local rows (global row minus row_base).
 //
-// The register bodies (TileState, below): one CUDA block rasterizes one
-// 32x128 screen tile (K10g8d: 8x128).  Its 256 threads each own one column
-// and 16 rows of the tile (rows r0, r0 + 2, ...; K10g8d: 4), and keep the
-// tile state for those pixels in registers across the whole triangle
-// loop: depth and the winning row id, resolving every latch from the
-// winner in the epilogue (TileState::GBUF), or depth alone
-// (TileState::DEPTH).  Every triangle is evaluated by all threads of the
-// block (the loops and their bbox skips are block-uniform), so the
-// per-triangle setup reads are broadcast loads.
+// The register body (TileState, below): one CUDA block rasterizes one
+// 32x128 screen tile.  Its 256 threads each own one column and 16 rows of
+// the tile (rows r0, r0 + 2, ...), and keep the tile state for those
+// pixels in registers across the whole triangle loop: depth and the
+// winning row id, resolving every latch from the winner in the epilogue.
+// Every triangle is evaluated by all threads of the block (the loops and
+// their bbox skips are block-uniform), so the per-triangle setup reads are
+// broadcast loads.
 //
 // Numerics (docs/RASTER_SPEC.md §2-§5), the bits the plain torch version
 // produces:
@@ -84,10 +83,9 @@ __device__ __forceinline__ float interp3(float e0, float e1, float e2,
 }
 
 __device__ __forceinline__ bool tile_overlap(int jmin, int jmax, int imin,
-                                             int imax, int row0, int col0,
-                                             int tile_h = TILE_H) {
+                                             int imax, int row0, int col0) {
   return jmax >= col0 && jmin < col0 + TILE_W && imax >= row0 &&
-         imin < row0 + tile_h && jmin <= jmax && imin <= imax;
+         imin < row0 + TILE_H && jmin <= jmax && imin <= imax;
 }
 
 __device__ __forceinline__ uint32_t quantize(float numer, bool covered,
@@ -207,37 +205,20 @@ __device__ __forceinline__ void resolve_winner(
   }
 }
 
-// Per-thread tile state of the register bodies (K2g, K9g and the
-// experiment K10g8d in raster_group8.cu; the other kernels run the keyed
-// body, raster_keyed.cuh, or K1's sub-tile blocks).
-// TIE selects the order-free depth test (z, row id) over the sequential
-// strict-less test.
+// Per-thread tile state of the register body (K2g and K9g; the other
+// kernels run the keyed body, raster_keyed.cuh, or K1's sub-tile blocks),
+// under the order-free depth test (z, row id).
 //
-// GBUF: the register G-buffer kernels (K2g, K9g; K4g, K6g, K3g, K5g,
-// K10g8g and K10vecg run the keyed body, raster_keyed.cuh, with the same
-// resolve).  Latching
-// 11 more planes the way the reference does would take 17 values a pixel,
-// 272 registers a thread for 16 pixels: over the 255 cap.  Every latched
-// value is a pure function of (row, pixel), so the loops keep only z and
-// the winning row id (with strict-less order the last row that passed),
-// and resolve re-evaluates the winner's edge functions and interpolants
-// with the same interp3: the same bits, two values a pixel.
-//
-// DEPTH: the depth-only register kernels (K10g8d; K2d runs K1's sub-tile
-// blocks, K4d, K6d and K3d the keyed body, with the same planes).  One
-// value a pixel, z, under the reference's strict-less test z >= 0 && z <
-// zb in every phase (no row id: on an exact tie the first row visited
-// keeps the value, which differs from a later one only in the sign of a
-// zero z), and store_depth writes the one plane.
-//
-// TH: the tile's height (8 for K10g8d's tiles).
-template <bool TIE, bool GBUF = false, bool DEPTH = false, int TH = TILE_H>
+// K4g, K6g, K3g, K5g, K10g8g and K10vecg run the keyed body with the same
+// resolve.  Latching 11 more planes the way the reference does would take
+// 17 values a pixel, 272 registers a thread for 16 pixels: over the 255
+// cap.  Every latched value is a pure function of (row, pixel), so the
+// loops keep only z and the winning row id, and resolve re-evaluates the
+// winner's edge functions and interpolants with the same interp3: the same
+// bits, two values a pixel.
 struct TileState {
-  static_assert(!(DEPTH && (TIE || GBUF)), "depth-only state is strict-less");
-  static_assert(GBUF || DEPTH, "a state keeps z and the row id, or z");
-  static constexpr int NPIX = TH * TILE_W / THREADS;  // pixels a thread
-  float z[NPIX];
-  int tid[GBUF ? NPIX : 1];  // the winning row id
+  float z[PIX];
+  int tid[PIX];  // the winning row id
   int px;   // this thread's pixel-centre x, in subpixels
   int py0;  // pixel-centre y of its first row, in subpixels
   int row0, col0;
@@ -248,9 +229,9 @@ struct TileState {
     px = (col0 + (int)(threadIdx.x % TILE_W)) * SUBPIXEL + HALF;
     py0 = (row0 + (int)(threadIdx.x / TILE_W)) * SUBPIXEL + HALF;
 #pragma unroll
-    for (int k = 0; k < NPIX; ++k) {
+    for (int k = 0; k < PIX; ++k) {
       z[k] = 1.0f;
-      if constexpr (GBUF) tid[k] = INT_MAX32;
+      tid[k] = INT_MAX32;
     }
   }
 
@@ -259,19 +240,13 @@ struct TileState {
     return py0 + k * ROW_STEP * SUBPIXEL;
   }
 
-  // The depth test of row t at covered pixel k with depth zz; on a pass
-  // it keeps zz (and t).
-  __device__ __forceinline__ bool depth_test(int k, float zz, int t) {
-    bool ok;
-    if constexpr (TIE) {
-      ok = zz >= 0.0f && (zz < z[k] || (zz == z[k] && t < tid[k]));
-    } else {
-      ok = zz >= 0.0f && zz < z[k];
+  // The (z, row id) test of row t at covered pixel k with depth zz; on a
+  // pass it keeps zz and t.
+  __device__ __forceinline__ void depth_test(int k, float zz, int t) {
+    if (zz >= 0.0f && (zz < z[k] || (zz == z[k] && t < tid[k]))) {
+      z[k] = zz;
+      tid[k] = t;
     }
-    if (!ok) return false;
-    z[k] = zz;
-    if constexpr (GBUF) tid[k] = t;
-    return true;
   }
 
   // Coverage and depth test of setup row t at this thread's pixels.
@@ -295,7 +270,7 @@ struct TileState {
     const int b1 = __ldg(r + I_BIAS1);
     const int b2 = __ldg(r + I_BIAS2);
 #pragma unroll
-    for (int k = 0; k < NPIX; ++k) {
+    for (int k = 0; k < PIX; ++k) {
       const int e0 = edge_fn(dx0, dy0, x1, y1, px, py(k));
       const int e1 = edge_fn(dx1, dy1, x2, y2, px, py(k));
       const int e2 = edge_fn(dx2, dy2, x0, y0, px, py(k));
@@ -309,40 +284,30 @@ struct TileState {
 
   // Superblock -> block -> row scan with block-uniform bbox skips, rows in
   // submission order (the reference's _scan_groups over the tables), over
-  // superblocks [s_begin, s_end).
+  // superblocks [0, num_supers).
   __device__ __forceinline__ void scan_hierarchy(
-      const int* __restrict__ supers, int s_end,
+      const int* __restrict__ supers, int num_supers,
       const int* __restrict__ blocks, const int* __restrict__ ti,
-      const float* __restrict__ tf, int s_begin = 0) {
-    for (int s = s_begin; s < s_end; ++s) {
+      const float* __restrict__ tf) {
+    for (int s = 0; s < num_supers; ++s) {
       const int* sb = supers + (size_t)s * 8;
       if (!tile_overlap(__ldg(sb), __ldg(sb + 1), __ldg(sb + 2),
-                        __ldg(sb + 3), row0, col0, TH))
+                        __ldg(sb + 3), row0, col0))
         continue;
       for (int b = s * SUPER_BLOCK; b < (s + 1) * SUPER_BLOCK; ++b) {
         const int* bb = blocks + (size_t)b * 8;
         if (!tile_overlap(__ldg(bb), __ldg(bb + 1), __ldg(bb + 2),
-                          __ldg(bb + 3), row0, col0, TH))
+                          __ldg(bb + 3), row0, col0))
           continue;
         for (int t = b * RASTER_BLOCK; t < (b + 1) * RASTER_BLOCK; ++t) {
           const int* r = ti + (size_t)t * NI32;
           if (tile_overlap(__ldg(r + I_JMIN), __ldg(r + I_JMAX),
-                           __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0, col0,
-                           TH))
+                           __ldg(r + I_IMIN), __ldg(r + I_IMAX), row0,
+                           col0))
             eval(ti, tf, t);
         }
       }
     }
-  }
-
-  // The depth-only epilogue: the z plane as the loops left it.
-  __device__ __forceinline__ void store_depth(float* __restrict__ depth,
-                                              int width) const {
-    const int col = col0 + (int)(threadIdx.x % TILE_W);
-    const int rbase = row0 + (int)(threadIdx.x / TILE_W);
-#pragma unroll
-    for (int k = 0; k < NPIX; ++k)
-      depth[(size_t)(rbase + k * ROW_STEP) * width + col] = z[k];
   }
 
   // The G-buffer resolve (ti/tf: the rows tid indexes) of this thread's
@@ -354,11 +319,10 @@ struct TileState {
       const int* __restrict__ ti, const float* __restrict__ tf,
       float* __restrict__ out, int width, size_t plane,
       int row_base = 0) const {
-    static_assert(GBUF, "the resolve needs the winner's row id");
     const int col = col0 + (int)(threadIdx.x % TILE_W);
     const int rbase = row0 - row_base + (int)(threadIdx.x / TILE_W);
 #pragma unroll
-    for (int k = 0; k < NPIX; ++k)
+    for (int k = 0; k < PIX; ++k)
       resolve_winner<MASKED_INV, true>(
           ti, tf, tid[k], z[k], px, py(k), reinterpret_cast<int*>(out),
           out + plane, out + 2 * plane,

@@ -30,14 +30,15 @@
 //   interpolants as buf * (covered ? inv : 0) (the reference's :584-600,
 //   K2g/K4g/K5g's form) and the constants as they are.
 //
-// K10g8 and K10g8g run the keyed body (raster_keyed.cuh) on 32x128 key
-// tiles, each the four 8x128 list tiles below one another, with the planes
-// of the register body they ran before bit for bit.  What bound that body
-// on the H100 (K10g8 3.49 ms a call on lattice1M at 1920x1088, K10g8g 1.50
-// on lattice40k; 2040 blocks of 4 pixels a thread): each list row
-// evaluated at all 1024 pixels of its tile, and every gated tile
-// re-walking the megablock -> superblock -> block -> row tables from the
-// start.  Here (group8_items, one template on the key type):
+// All three run the keyed body (raster_keyed.cuh) on 32x128 key tiles,
+// each the four 8x128 list tiles below one another, with the planes of the
+// register body they ran before bit for bit.  What bound that body on the
+// H100 (K10g8 3.49 ms a call on lattice1M at 1920x1088, K10g8g 1.50 on
+// lattice40k, K10g8d 1.00 on the 20K lattice's 1024x1024 map; 4 pixels a
+// thread): each list row evaluated at all 1024 pixels of its tile, and
+// every gated tile re-walking the megablock -> superblock -> block -> row
+// tables from the start.  Here (group8_items, one template on the key
+// type):
 // * group8_hit_words_kernel writes each key tile's hit words over the
 //   leftover hierarchy once a call (K5's tile_hit_words: a block is a hit
 //   block when its bbox and its superblock's meet the key tile; a
@@ -58,14 +59,23 @@
 //   row with a non-empty bbox is valid, so in its superblock's bbox);
 //   entries and rows share the pending batches (an entry marked by
 //   LIST_ENTRY);
-// * one key a pixel, (order bits of z, row id) from the clear key (1.0,
-//   INT_MAX), so a row at z == 1.0 latches as the (z, row id) test lets it:
-//   FlatKeys for K10g8, GbufKeys (K4g's and K6g's, the epilogue buf *
-//   (covered ? inv : 0)) for K10g8g; items merge by atomicMin into a key
-//   plane (memset to all ones) and a resolve writes the planes (a key tile
-//   whose work is at most one entry and one hit block resolves in place in
-//   its last item), the winner re-evaluated from the leftover rows (its
-//   -0.0 kept).
+// * one key a pixel.  K10g8 and K10g8g: (order bits of z, row id) from
+//   the clear key (1.0, INT_MAX), so a row at z == 1.0 latches as the (z,
+//   row id) test lets it: FlatKeys, and GbufKeys (K4g's and K6g's, the
+//   epilogue buf * (covered ? inv : 0)).  K10g8d: DepthKeys, (order bits
+//   of z, visit index, sign of z) from (1.0, 0), the strict-less test in
+//   visit order, whose minimum keeps the first visited row of the least z
+//   (only the sign of a zero z tells two such rows apart): an entry's
+//   visit index is q, its index in the key tile's spans laid end to end,
+//   which rises in span order within each list tile; a leftover row t's
+//   is E + t, above every entry of every list tile its window meets, in
+//   row order.  A pixel is only written by its own list tile's entries and
+//   by leftovers, so the key's order is the reference's per list tile.
+//   Items merge by atomicMin into a key plane (memset to all ones) and a
+//   resolve writes the planes (a key tile whose work is at most one entry
+//   and one hit block resolves in place in its last item): K10g8 and
+//   K10g8g re-evaluate the winner from the leftover rows (its -0.0 kept),
+//   K10g8d decodes z and its sign from the key.
 // The windows never reach past the list tiles the reference evaluates, so
 // rows below the last listed or gated tile (the padding rows of a 1080-row
 // frame in a 1088-row target) stay clear.  A target whose height is not a
@@ -73,14 +83,7 @@
 // target's rows).  Four device ops a call: hit words, memset, items,
 // resolve.  Bound on the H100: the window pixels' edge work (26 ops each),
 // or the bytes the body needs (spans, tables, entries and admitted rows,
-// the 2 or 13 planes).
-//
-// K10g8d keeps the register body (raster_common.cuh TileState at an 8-row
-// tile, one CUDA block of 256 threads a tile, each owning one column and 4
-// rows): z alone for the thread's 4 pixels; phase 1 stages the span STAGE
-// rows at a time in shared memory and evaluates each row at every pixel of
-// the tile, phase 2 runs TileState's superblock walk under each megablock,
-// and the strict-less z is stored.
+// the 2, 13 or 1 planes).
 
 #include "raster_keyed.cuh"
 
@@ -89,86 +92,10 @@ namespace g8 {
 
 constexpr int GT_H = 8;
 constexpr int ROW_LANES = 47;
-constexpr int STAGE = 64;  // list rows staged in shared memory at a time
 constexpr int LISTS = TILE_H / GT_H;  // list tiles a key tile
 constexpr int LIST_ENTRY = 1 << 30;   // a pending entry that is a list entry
 
-// List-row lanes (raster_group8.py C_*).
-enum : int {
-  C_DX0 = 0, C_DY0, C_C0, C_DX1, C_DY1, C_C1, C_DX2, C_DY2, C_C2,
-  C_BIAS, C_ID, C_ZA
-};
-
-// K10g8d's state: strict-less z alone.
-using DepthState = TileState<false, false, true, GT_H>;
-
-// Phase 1: one list row r (shared memory) at the thread's pixels, with
-// the edge form e = (dx*py + c) - dy*px and the bias bits.
-__device__ __forceinline__ void eval_list(DepthState& st, const int* r) {
-  const uint32_t dx0 = r[C_DX0], dy0 = r[C_DY0], c0 = r[C_C0];
-  const uint32_t dx1 = r[C_DX1], dy1 = r[C_DY1], c1 = r[C_C1];
-  const uint32_t dx2 = r[C_DX2], dy2 = r[C_DY2], c2 = r[C_C2];
-  const int bias = r[C_BIAS];
-  const int b0 = bias & 1, b1 = (bias >> 1) & 1, b2 = (bias >> 2) & 1;
-  const float za0 = __int_as_float(r[C_ZA]);
-  const float za1 = __int_as_float(r[C_ZA + 1]);
-  const float za2 = __int_as_float(r[C_ZA + 2]);
-  const int t = r[C_ID];
-  const uint32_t upx = (uint32_t)st.px;
-  const uint32_t ex0 = dy0 * upx, ex1 = dy1 * upx, ex2 = dy2 * upx;
-#pragma unroll
-  for (int k = 0; k < DepthState::NPIX; ++k) {
-    const uint32_t py = (uint32_t)st.py(k);
-    const int e0 = (int)((dx0 * py + c0) - ex0);
-    const int e1 = (int)((dx1 * py + c1) - ex1);
-    const int e2 = (int)((dx2 * py + c2) - ex2);
-    if (e0 < b0 || e1 < b1 || e2 < b2) continue;
-    st.depth_test(k, interp3(__int2float_rn(e0), __int2float_rn(e1),
-                             __int2float_rn(e2), za0, za1, za2), t);
-  }
-}
-
-// K10g8d: one 8x128 tile a block, the depth plane alone.
-__global__ void __launch_bounds__(THREADS)
-    depth_group8_kernel(const int* __restrict__ offs,
-                        const int* __restrict__ tile_any,
-                        const int* __restrict__ rows,
-                        const int* __restrict__ megas, int num_megas,
-                        const int* __restrict__ supers,
-                        const int* __restrict__ blocks,
-                        const int* __restrict__ ti,
-                        const float* __restrict__ tf,
-                        float* __restrict__ depth, int width, int height) {
-  __shared__ int slab[STAGE * ROW_LANES];  // 12 032 bytes
-  const int tiles_x = width / TILE_W;
-  const int lin = blockIdx.x;
-  DepthState st;
-  st.init((lin / tiles_x) * GT_H, (lin % tiles_x) * TILE_W);
-
-  const int start = __ldg(offs + lin), end = __ldg(offs + lin + 1);
-  for (int base = start; base < end; base += STAGE) {
-    const int n = min(STAGE, end - base);
-    __syncthreads();  // the previous stage is consumed
-    const int* src = rows + (size_t)base * ROW_LANES;
-    for (int i = threadIdx.x; i < n * ROW_LANES; i += THREADS)
-      slab[i] = __ldg(src + i);
-    __syncthreads();
-    for (int j = 0; j < n; ++j) eval_list(st, slab + j * ROW_LANES);
-  }
-  // Phase 2, if the tile meets a leftover: megablock -> superblock ->
-  // block -> row, each level's bbox against the tile, rows in order (the
-  // reference's nested _scan_groups).
-  if (__ldg(tile_any + lin) > 0) {
-    for (int m = 0; m < num_megas; ++m) {
-      const int* mb = megas + (size_t)m * 8;
-      if (tile_overlap(__ldg(mb), __ldg(mb + 1), __ldg(mb + 2),
-                       __ldg(mb + 3), st.row0, st.col0, GT_H))
-        st.scan_hierarchy(supers, (m + 1) * SUPER_BLOCK, blocks, ti, tf,
-                          m * SUPER_BLOCK);
-    }
-  }
-  st.store_depth(depth, width);
-}
+constexpr int C_ID = 10;  // a list row's row id lane (raster_group8.py)
 
 // One call's list inputs: the spans (offs, tiles8_y * tiles_x + 1 of
 // them), the gate and the list rows, of a target of tiles8_y list-tile
@@ -263,7 +190,12 @@ __device__ __forceinline__ void group8_items(
     const int j = threadIdx.x;
     if (j < n) {
       const int code = s.pending[j];
+      // The key's tag (Keys::entry_tag, Keys::row_tag): a row id, or
+      // DepthKeys' visit index, q for entry q and entries + t for leftover
+      // row t: both codes are below LIST_ENTRY (2^30), so the index is
+      // below 2^31 and the key holds it shifted by one.
       int t, lo = 0, k1 = -1;
+      uint32_t tag;
       if (code & LIST_ENTRY) {
         const int q = code - LIST_ENTRY;
         int k = 0, at = first[0] + q;  // its list tile, its list row
@@ -274,9 +206,11 @@ __device__ __forceinline__ void group8_items(
             at = first[i + 1] + q - ends[i];
           }
         t = __ldg(l.rows + (size_t)at * ROW_LANES + C_ID);
+        tag = Keys::entry_tag(t, q);
         lo = k1 = k;
       } else {
         t = code;
+        tag = Keys::row_tag(t, entries);
         const int* r = ti + (size_t)t * NI32;
         lo = (max(__ldg(r + I_IMIN), row0) - row0) / GT_H;
         k1 = (min(__ldg(r + I_IMAX), row0 + TILE_H - 1) - row0) / GT_H;
@@ -286,7 +220,7 @@ __device__ __forceinline__ void group8_items(
       if (lo <= k1)
         area = prepare_record(s, j, ti + (size_t)t * NI32,
                               tf + (size_t)t * NF32 + F_ZA0,
-                              Keys::row_tag(t, 0), row0, col0, lo * GT_H,
+                              tag, row0, col0, lo * GT_H,
                               (k1 - lo + 1) * GT_H);
     }
     eval_batch<Keys>(s, area);
@@ -384,13 +318,33 @@ __global__ void __launch_bounds__(THREADS) gbuffer_group8_resolve_kernel(
                            out + 2 * frame, width, key_h);
 }
 
+// K10g8d: the one depth plane.
+__global__ void __launch_bounds__(THREADS) depth_group8_keyed_kernel(
+    Lists l, const int* __restrict__ buf, int num_supers,
+    const int* __restrict__ ti, const float* __restrict__ tf, int items,
+    unsigned long long* __restrict__ plane, float* __restrict__ depth,
+    int width, int key_h) {
+  group8_items<DepthKeys>(l, buf, num_supers, ti, tf, items, plane, nullptr,
+                          depth, nullptr, width, key_h);
+}
+
+__global__ void __launch_bounds__(THREADS) depth_group8_resolve_kernel(
+    Lists l, const int* __restrict__ buf, int num_supers,
+    const int* __restrict__ ti, const float* __restrict__ tf,
+    const unsigned long long* __restrict__ plane, float* __restrict__ depth,
+    int width, int key_h) {
+  group8_resolve<DepthKeys>(l, buf, num_supers, ti, tf, plane, nullptr,
+                            depth, nullptr, width, key_h);
+}
+
 }  // namespace g8
 }  // namespace zr
 
-// K10g8 and K10g8g: the hit words, then with several items a tile the key
-// plane set to all ones, key tiles * items work items and the resolve over
-// the key tiles.  The planes (out...) hold key_h rows (the target's height
-// rounded up to TILE_H), the target's tiles8_y list-tile rows first.
+// K10g8, K10g8g and K10g8d: the hit words, then with several items a tile
+// the key plane set to all ones, key tiles * items work items and the
+// resolve over the key tiles.  The planes (out...) hold key_h rows (the
+// target's height rounded up to TILE_H), the target's tiles8_y list-tile
+// rows first.
 // num_supers: the superblocks that hold blocks (blocks / SUPER_BLOCK);
 // buf: key tiles * (2 num_supers + 1) ints of hit words; plane: key_h *
 // width keys, unused with one item a tile.
@@ -456,15 +410,14 @@ extern "C" int zr_gbuffer_group8(const int* offs, const int* tile_any,
 
 // K10g8d: the one depth plane.
 extern "C" int zr_depth_group8(const int* offs, const int* tile_any,
-                               const int* rows, const int* megas,
-                               int num_megas, const int* supers,
+                               const int* rows, int tiles8_y,
+                               const int* supers, int num_supers,
                                const int* blocks, const int* ti,
-                               const float* tf, float* depth, int height,
-                               int width, void* stream) {
-  const int num_tiles = (height / zr::g8::GT_H) * (width / zr::TILE_W);
-  zr::g8::depth_group8_kernel<<<num_tiles, zr::THREADS, 0,
-                                (cudaStream_t)stream>>>(
-      offs, tile_any, rows, megas, num_megas, supers, blocks, ti, tf, depth,
-      width, height);
-  return (int)cudaGetLastError();
+                               const float* tf, int items, int* buf,
+                               unsigned long long* plane, float* depth,
+                               int key_h, int width, void* stream) {
+  return launch_group8(zr::g8::depth_group8_keyed_kernel,
+                       zr::g8::depth_group8_resolve_kernel, offs, tile_any,
+                       rows, tiles8_y, supers, num_supers, blocks, ti, tf,
+                       items, buf, plane, key_h, width, stream, depth);
 }

@@ -7,10 +7,10 @@
 // admission, the depth and row id planes), raster_vec.cu (K10vec, K10vecg:
 // the hierarchy with 32-row subgroup admission, each row's window cut to
 // its subgroup's hit 8-row chunks, the winner read from its 72-lane
-// record) and raster_group8.cu (K10g8, K10g8g: 32x128 key tiles of four
-// 8x128 list tiles, the list entries' rows read by id, each window cut to
-// its list tile, then the leftover hierarchy's hit blocks).  The register
-// body (raster_common.cuh TileState) serves K2g, K9g and K10g8d.
+// record) and raster_group8.cu (K10g8, K10g8g, K10g8d: 32x128 key tiles of
+// four 8x128 list tiles, the list entries' rows read by id, each window
+// cut to its list tile, then the leftover hierarchy's hit blocks).  The
+// register body (raster_common.cuh TileState) serves K2g and K9g.
 //
 // * One 64-bit key a pixel in shared memory (32 KB a tile), lowered by
 //   atomicMin.  K4, K4c, K9, K9d, K6, K4g, K6g, K10g8 and K10g8g: (order
@@ -18,19 +18,20 @@
 //   K3b, K3g, K5, K5g, K10vec and K10vecg: the same key, whose minimum is
 //   the strict-less test z >= 0 && z < zb from 1.0 in row order (the first
 //   row of the least z wins, and prepare_raster_inputs compacts stably, so
-//   a row's id is its submission order).  K4d, K6d, K3d, K10vis and
-//   K10trans: (order bits of z, visit index, sign of z), whose minimum is
+//   a row's id is its submission order).  K4d, K6d, K3d, K10vis, K10trans
+//   and K10g8d: (order bits of z, visit index, sign of z), whose minimum is
 //   the strict-less test in visit order with the first visited row kept:
 //   a span entry's visit index is its index in the span list, a leftover
 //   row's is the span's end plus its row id (K3d, K10vis, K10trans: no
-//   span, so its row id).
+//   span, so its row id; K10g8d: the key tile's four spans laid end to
+//   end).
 //   -0.0 and +0.0 share order bits; z >= 0 filters first (NaN and negative
 //   z never compete).  The clear key is z 1.0 over the largest id for K4,
 //   K4c, K9, K9d, K6, K4g, K6g, K10g8 and K10g8g, so that a row at z ==
 //   1.0 latches as the (z, row id) test lets it; over id 0 (over visit 0)
 //   for K3, K3b, K3g, K5, K5g, K10vec and K10vecg (K3d, K4d, K6d, K10vis,
-//   K10trans), which no row at z == 1.0 goes below, as the strict-less
-//   test never lets 1.0 pass.
+//   K10trans, K10g8d), which no row at z == 1.0 goes below, as the
+//   strict-less test never lets 1.0 pass.
 // * Work in proportion to each row's window: its vertices' pixel bbox in
 //   the tile.  A pixel a row covers lies in the closed triangle (exact int32
 //   edge functions inside the guard band), so in that bbox, wherever the
@@ -62,8 +63,8 @@
 // and colour, K4g, K6g, K3g and K5g also the 11 further planes (K4g, K6g,
 // K5g and K10g8g buf * (covered ? 1/den : 0), K3g and K10vecg covered ?
 // buf * 1/den : 0);
-// K4d, K6d and K3d decode z from the key, K10vis and K10trans z and the
-// row id.  Nothing moves the tensor cores.
+// K4d, K6d, K3d and K10g8d decode z from the key, K10vis and K10trans z
+// and the row id.  Nothing moves the tensor cores.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -109,6 +110,10 @@ struct WinnerKeys {
   static __device__ __forceinline__ uint32_t row_tag(int t, int) {
     return (uint32_t)t;
   }
+  // A list entry naming setup row t, at visit index q (raster_group8.cu).
+  static __device__ __forceinline__ uint32_t entry_tag(int t, int) {
+    return (uint32_t)t;
+  }
   static __device__ __forceinline__ unsigned long long key(uint32_t zbits,
                                                            uint32_t tag) {
     return ((unsigned long long)(zbits & 0x7fffffffu) << 32) | tag;
@@ -131,7 +136,7 @@ using HierFlatKeys = WinnerKeys<false, true, false>;  // K3, K3b, K5
 using HierGbufKeys = WinnerKeys<true, true, false>;   // K3g
 using HbmGbufKeys = WinnerKeys<true, true, true>;     // K5g
 
-// The depth key (K4d, K6d, K3d; K10vis and K10trans, raster_vis.cu
+// The depth key (K4d, K6d, K3d, K10g8d; K10vis and K10trans, raster_vis.cu
 // VisKeys): the order bits of z over the visit index over the sign of z.
 // The visit index of span entry k is k; of leftover row t, the span's end
 // plus t (K3d, K10vis, K10trans: t): both below 2^31, so the key holds
@@ -143,6 +148,9 @@ struct DepthKeys {
   }
   static __device__ __forceinline__ uint32_t row_tag(int t, int span_end) {
     return (uint32_t)(span_end + t);
+  }
+  static __device__ __forceinline__ uint32_t entry_tag(int, int q) {
+    return (uint32_t)q;
   }
   static __device__ __forceinline__ unsigned long long key(uint32_t zbits,
                                                            uint32_t tag) {

@@ -505,7 +505,7 @@ __global__ void __launch_bounds__(THREADS)
                          const int* __restrict__ ti,
                          const float* __restrict__ tf,
                          float* __restrict__ out, int width, int height) {
-  TileState<true, true> st;
+  TileState st;
   small_scan(st, counts, lists, n_head, supers, num_supers, blocks, ti, tf,
              width);
   st.store_gbuffer<true>(ti, tf, out, width, (size_t)width * height);

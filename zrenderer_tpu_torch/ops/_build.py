@@ -196,7 +196,8 @@ def load_library() -> ctypes.CDLL:
     lib.zr_gbuffer_group8.argtypes = [p, p, p, i, p, i, p, p, p, i, p, p, p,
                                       i, i, p]
     lib.zr_gbuffer_group8.restype = i
-    lib.zr_depth_group8.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, p]
+    lib.zr_depth_group8.argtypes = [p, p, p, i, p, i, p, p, p, i, p, p, p,
+                                    i, i, p]
     lib.zr_depth_group8.restype = i
     lib.zr_raster_vec.argtypes = [p, i, p, p, i, p, p, p, p, i, i, p]
     lib.zr_raster_vec.restype = i

@@ -16,7 +16,7 @@ Counterpart of ``zrenderer_tpu/ops/experiments/raster_group8.py``
   three-level (mega, super, block) hierarchy whose bbox meets the tile,
   gated per tile by ``tile_any``;
 * the winner is the (z, row id) lexicographic minimum over both phases
-  (depth-only: the strict-less z test, compared by value); colour and
+  (depth-only: the strict-less z test in visit order); colour and
   depth as the production kernels, the G-buffer interpolants as
   ``buf * where(covered, inv, 0)`` (K2g/K4g/K5g's form).
 
@@ -36,8 +36,13 @@ list tiles its bbox meets (``window_rects``), into one key a pixel, (order
 bits of z, row id) from (1.0, INT_MAX) (``raster_hbm2.KEY_CLEAR``); the
 items merge through a key plane and the planes are resolved from the
 winners' setup rows (``key_planes``).  K10g8g runs the same body with
-K4g's G-buffer key and epilogue (``key_planes(..., gbuffer=True)``);
-K10g8d keeps the register body.
+K4g's G-buffer key and epilogue (``key_planes(..., gbuffer=True)``),
+K10g8d with K4d's depth key, (order bits of z, visit index, sign of z)
+from (1.0, 0): an entry's visit index is its index in its key tile's
+spans laid end to end (``list_pairs``' rank), a leftover row's that key
+tile's entries plus its row id, so that the strict-less test holds in
+visit order within each list tile (span order, then row order) and the
+store decodes z and its sign from the key.
 """
 
 from __future__ import annotations
@@ -91,7 +96,8 @@ GROUP = 8   # the TPU kernel's triangles per vector step
 CHUNK = 256  # list rows per TPU slab; here it only rounds the budget
 PAIR_CAP = 4  # largest bbox footprint (tiles) of a listed row
 LISTS = tr.TILE_H // GT_H  # list tiles a K10g8 key tile
-# K10g8's work items a key tile, read at call time (a sweep may set it).
+# K10g8's, K10g8g's and K10g8d's work items a key tile, read at call time
+# (a sweep may set it).
 G8_ITEMS = 16
 
 # List-row lanes (int32; float fields bitcast).  Edge k uses reference
@@ -499,8 +505,9 @@ def _group8_args(inp: Group8Inputs, width: int, height: int):
 
 
 def _launch_keyed(entry, run, inp: Group8Inputs, width: int, height: int):
-    """Launch K10g8 or K10g8g (the C entry named ``entry``, through
-    ``run``: ``raster._run`` or ``raster._run_gbuffer``) on the current
+    """Launch K10g8, K10g8g or K10g8d (the C entry named ``entry``, through
+    ``run``: ``raster._run``, ``raster._run_gbuffer`` or a one-plane
+    ``raster._run_depth``) on the current
     stream in G8_ITEMS work items a key tile.  Its scratch: the hit words
     (key tiles * (2 S + 1) ints, S the superblocks that hold blocks) and,
     with more than one item, the key plane; its planes hold key_height
@@ -551,14 +558,14 @@ def gbuffer_group8_kernel(offs, tile_any, rows, megas, supers, blocks,
 
 def depth_group8_kernel(offs, tile_any, rows, megas, supers, blocks,
                         hier, hier_f, width: int, height: int):
-    """Launch K10g8d: the f32 depth plane."""
-    inp = Group8Inputs(offs, tile_any, rows, megas, supers, blocks, hier,
-                       hier_f)
-    args = _group8_args(inp, width, height)
-    out = tr._run_depth(_build.load_library().zr_depth_group8, hier.device,
-                        width, height, *args)
+    """Launch K10g8d, K10g8's body with K4d's depth key (visit order): the
+    f32 depth plane."""
+    (depth,) = _launch_keyed(
+        "zr_depth_group8", lambda *a: (tr._run_depth(*a),),
+        Group8Inputs(offs, tile_any, rows, megas, supers, blocks, hier,
+                     hier_f), width, height)
     depth_group8_kernel.launches += 1
-    return out
+    return depth
 
 
 KERNELS = (raster_group8_kernel, gbuffer_group8_kernel, depth_group8_kernel)
