@@ -97,7 +97,11 @@ lines and seconds:
     translucent triangles with scissors (some pixels deeper than K), the
     overflow stack for K = 8 and 2, a 1000x517 frame, a 127x33 frame (K8b's
     scalar tail: 4191 pixels) and the 1080p frame with no live layer (K8b's
-    copy path: the frame with alpha 255);
+    copy path: the frame with alpha 255); then K8b on a 1000x517 frame
+    view at a 4-byte offset into a larger buffer, alone and with the count
+    such a view too (the wrapper copies a view off a 16-byte boundary
+    before the launch), bit-exact against the plain version and the
+    kernel on a copy;
 5. the main path: ``Renderer.render_and_read`` at 1080p on the test scene
    (K1) and the lattice (K3), with the launch counts of that run, and the
    256x144 frame against the NumPy oracle (the port's geometry on CPU
@@ -223,6 +227,50 @@ lines and seconds:
     K10g8g and K10vecg on the 1M lattice's lit rows, the 13 planes of
     rows 0-1079 equal to K5g's and rows 1080-1087 clear; K10g8d on the map
     against K3d;
+4f. K1 and K4 at 3840x2176 (the SSAA 2 extent) against their plain
+    versions, bitwise, on the rows phase 5f's supersample=2 frames give
+    them: the test scene (K1) and the culled rows of a 196 608-triangle
+    sphere field (K4; its budgets printed);
+Phases 5e, 5f and 7t run after 5x and 4f and just before 6x: they take
+the process's first profiler traces, and once a process has traced, some
+1M further launches (the plain versions' loops of phases 3-5x and 4f)
+cost a later trace its kernel records;
+5e. the engine API at 1080p, each path driven with every launch count set
+    to 0 just before and read just after: a vertex shader (x + 0.5, exact)
+    on the test scene's flat (K1), lit (K2g), shadowed (K2d, K2g; the
+    shadow pass runs no shader, as the reference's: its map equal to the
+    unshaded frame's, the other renderer given the frustum of the bound
+    buffers and that map) and deferred (K2g, K7) frames, each bit-equal to
+    the same pipeline's frame of the scene whose vertices the host moved,
+    and after
+    ``set_vertex_shader(None)`` to the unshaded frame; the 1M lattice
+    through the indexed entry (K4), an identity shader's frame bit-equal to
+    the column path's, the shift shader's frame timed against the column
+    path; the mesh pipeline, a 708 x 708-quad grid (1 002 528 triangles)
+    generated on the card (K4), its generator and padding run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no synchronisation) and
+    timed, the dispatch's synchronisations counted, its frame bit-equal to
+    the same buffers through ``load_scene``; ``generate_mip_chain`` of a
+    2048^2 texture through ``create_compute_pipeline``/``dispatch`` equal to
+    a direct call, a stale handle raising; a ``debug=True`` frame equal to
+    the frame without it, a NaN depth raising ``FloatingPointError``;
+5f. SSAA and meshlet culling at 1080p, launch counts as in 5e: the test
+    scene at ``supersample=2`` (K1 at 3840x2160), bit-equal to the resolve
+    of the 3840x2160 frame a ``supersample=1`` Renderer renders, the card's
+    resolve bit-equal to the host's, its ``render_animation`` digests the
+    resolved frames'; ``make_sphere_field(1_000_000)`` with and without
+    ``meshlet_cull`` (K4), the kept share printed, the card's keep mask equal
+    to the host's, at most max(2, pixels // 1000) pixels apart, the culled
+    frame bit-equal to the kernel frame of the rows killed on the host; the
+    field at ``supersample=2`` with ``meshlet_cull`` (K4 at 3840x2176), its
+    budgets printed (a clipper drop raises ``ValueError``), within the same
+    bound of the unculled resolved frame; each frame's ms (CUDA events)
+    and device busy ms beside the card's name and power limit;
+7t. the app with ``--debug --trace DIR`` on the test scene for 3 frames:
+    the trace JSON holds one
+    ``load_scene`` zone, three ``render`` and ``present`` zones and three
+    frame spans, and each frame's K1 kernel lies inside a render zone and
+    was launched inside one;
 6x. each experiment kernel's device time from a trace at its main shape
     (the 1M lattice, its lit rows, the map; the G-buffer kernels also on
     the lit 40K lattice and the test scene; the keyed kernels' calls,
@@ -347,7 +395,7 @@ lines and seconds:
    deferred with ``--taa``, the showcase lit; the test scene flat with
    ``--overlay``, ``--orbit`` and ``--ui --orbit``, the showcase lit with
    ``--ui`` (each UI frame against the same run without the UI flag; the
-   orbit's frames 0 and 1 differ);
+   orbit's frames 0 and 1 differ); the test scene flat with ``--ssaa 2``;
 8. hygiene: neither jax nor the JAX package (``zrenderer_tpu``) loaded.
 
 Each kernel's bound is the larger of its inputs and outputs (2 planes
@@ -394,6 +442,8 @@ kernels), the last line
 
 from __future__ import annotations
 
+import copy
+import glob
 import json
 import os
 import re
@@ -401,6 +451,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCENE_DIR = os.path.join(HERE, "content", "scenes", "test_scene")
@@ -427,6 +478,10 @@ PAD_W, PAD_H = 1920, 1088
 ANIM_FRAMES = 200
 PROFILE_FRAMES = 20  # frames of the profiled render_animation run
 LARGE_TRIS = 1_000_000  # the large-scene main path (BASELINE's stretch scene)
+# The sphere field of phase 5f's K4-against-plain case at 3840x2176: 12
+# spheres, 196 608 triangles, well under 1M (the plain version's time grows
+# with the longest tile list).
+SMALL_FIELD_TRIS = 200_000
 MID_TRIS = 40_000  # above the 32768-row bound, small enough for the plain K5
 LARGE_FRAMES = 20  # render_animation frames of the 1M lattice
 SOUP_EXTENT = 6.0
@@ -841,6 +896,7 @@ def main(argv=None) -> int:
         taa,
     )
     from zrenderer_tpu_torch.ops import geometry as tg
+    from zrenderer_tpu_torch.ops.mipmap import generate_mip_chain
     from zrenderer_tpu_torch.ops.experiments import raster_group8 as group8
     from zrenderer_tpu_torch.ops.experiments import raster_vec as vec
     from zrenderer_tpu_torch.ops.experiments import (
@@ -852,12 +908,13 @@ def main(argv=None) -> int:
     from zrenderer_tpu_torch.raster_ref import raster_cpu
     from zrenderer_tpu_torch.scene.mesh import V_COLOR, MeshData
     from zrenderer_tpu_torch.scene.procedural import (
+        make_sphere_field,
         make_stress_scene,
         make_test_scene,
         make_triangle_soup,
         one_tile_rows,
     )
-    from zrenderer_tpu_torch.scene.scene import Scene
+    from zrenderer_tpu_torch.scene.scene import Camera, Node, Scene
     from zrenderer_tpu_torch.utils.png import read_png
 
     dev = torch.device(DEVICE)
@@ -2631,6 +2688,31 @@ def main(argv=None) -> int:
               f"plain version and the frame with alpha 255 {same}")
         if not same:
             raise AssertionError("no live layer: K8b is not the frame")
+        # K8b on views off a 16-byte boundary: the frame, then the frame
+        # and the count, at a 4-byte offset into larger buffers (the
+        # wrapper copies them before the launch).
+        w5, h5 = 1000, 517
+        ck, _, lk = k8(*overlay_soup(4, 300, w5, h5), w5, h5)
+        fbuf = random_frame(seed=6, w=w5 * h5 + 1, h=1).reshape(-1)
+        fview = fbuf[4:].view(h5, w5, 4)
+        cbuf = torch.zeros(h5 * w5 + 1, dtype=torch.int32, device=dev)
+        cview = cbuf[1:].view(h5, w5)
+        cview.copy_(ck)
+        for label, cnt in (("the frame", ck), ("the frame and the count",
+                                               cview)):
+            aligned = overlay.composite_aligned(fview, cnt)
+            outk = k8b(fview, cnt, lk, atlas_dev)
+            outp = overlay.composite_layers_plain(fview, cnt, lk, atlas_dev)
+            outa = k8b(fview.clone(), ck, lk, atlas_dev)
+            same = torch.equal(outk, outp) and torch.equal(outk, outa)
+            err = (outk.int() - outp.int()).abs().max().item()
+            results["k8b"]["err"] = max(results["k8b"]["err"], float(err))
+            print(f"  {label} at a 4-byte offset, {w5}x{h5}: off a 16-byte "
+                  f"boundary {not aligned}, K8b bit-exact against its plain "
+                  f"version and the kernel on a copy {same} (max {err} LSB), "
+                  f"live layers {int(ck.sum().item())}")
+            if aligned or not same:
+                raise AssertionError(f"{label} at an offset: K8b differs")
         return main
 
     # -- 5. main path -----------------------------------------------------
@@ -4581,6 +4663,499 @@ def main(argv=None) -> int:
         return rows.numel(), evals, nbytes
 
     # -- 6x. the experiment kernels' times ------------------------------------
+    # -- 5e. the engine API -----------------------------------------------
+    def flat_renderer(scene_md, **kw):
+        """A flat 1080p Renderer on the card with ``scene_md`` loaded;
+        ``kw``: further RenderConfig fields."""
+        r = Renderer(RenderConfig(width=WIDTH, height=HEIGHT, **kw),
+                     device=DEVICE)
+        r.load_scene(*scene_md)
+        return r
+
+    def shift_x(positions, attrs):
+        """The exact vertex shader: x + 0.5 (a power of two) in object
+        space, as the host moves the vertices in ``host_moved``."""
+        return (torch.cat([positions[:, :1] + 0.5, positions[:, 1:]], 1),
+                attrs)
+
+    def host_moved(scene_md):
+        """The scene with every vertex's x moved by 0.5 on the host."""
+        scene, md = scene_md
+        md = copy.deepcopy(md)
+        md.vertex_data.reshape(-1, 16)[:, 0] += np.float32(0.5)
+        return scene, md
+
+    def launched_in(fn):
+        """``fn``'s result and the launches of each kernel in it, every
+        count set to 0 just before and read just after."""
+        for kern in kernel_of.values():
+            kern.launches = 0
+        out = fn()
+        return out, {k: kern.launches for k, kern in kernel_of.items()
+                     if kern.launches}
+
+    def frame_time(fn, reps=5):
+        """(ms a call of ``fn`` between CUDA events over ``reps`` calls,
+        device busy ms of one traced call, its device ops, idle share)."""
+        fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        events, window = device_trace(fn)
+        busy = busy_us(events)
+        return (start.elapsed_time(end) / reps, busy / 1000.0, len(events),
+                1.0 - busy / window)
+
+    def print_time(label, t):
+        ms, busy, ops, idle = t
+        print(f"  {label}: {ms:.4f} ms a frame (CUDA events), device busy "
+              f"{busy:.4f} ms in {ops} device ops, idle share {idle:.4f} "
+              f"({card})", flush=True)
+
+    def same_frame(a, b):
+        """Two (rgba, depth) host frames equal, depth as int32 bits."""
+        return (np.array_equal(a[0], b[0])
+                and np.array_equal(a[1].view(np.int32), b[1].view(np.int32)))
+
+    def expect_launches(label, launched, want):
+        """``want``: each kernel key launched exactly once, nothing else."""
+        print(f"  {label}: launches {launched}", flush=True)
+        if launched != {k: 1 for k in want}:
+            raise AssertionError(f"{label}: launches {launched}, expected "
+                                 f"{sorted(want)} once each")
+
+    MESH_QUADS = 708  # the mesh pipeline's grid: 708 x 708 quads
+
+    def grid_geometry():
+        """The mesh pipeline's generator: a grid of MESH_QUADS^2 quads
+        (1 002 528 triangles) in the z = 0 plane over [-1, 1]^2, coloured by
+        position, every tensor made on the card."""
+        n = MESH_QUADS
+        xs = torch.linspace(-1.0, 1.0, n + 1, device=dev)
+        py, px = torch.meshgrid(xs, xs, indexing="ij")
+        v = (n + 1) * (n + 1)
+        px, py = px.reshape(-1), py.reshape(-1)
+        zeros = torch.zeros(v, device=dev)
+        positions = torch.stack([px, py, zeros, zeros + 1.0], 1)
+        attrs = torch.zeros((v, 12), device=dev)
+        attrs[:, 0] = (px + 1.0) * 0.5
+        attrs[:, 1] = (py + 1.0) * 0.5
+        attrs[:, 2] = 0.3
+        attrs[:, 3] = 1.0
+        cell = torch.arange(n * n, dtype=torch.int32, device=dev)
+        r0 = (cell // n) * (n + 1) + cell % n
+        tri = torch.stack([r0, r0 + 1, r0 + n + 2, r0, r0 + n + 2,
+                           r0 + n + 1], 1).reshape(-1, 3)
+        return (positions, attrs, tri,
+                torch.zeros(v, dtype=torch.int32, device=dev))
+
+    def grid_scene(camera):
+        """The grid's buffers as a one-node scene on the host, seen from
+        ``camera``: the same geometry through load_scene."""
+        p, a, t, _ = (x.cpu().numpy() for x in grid_geometry())
+        verts = np.zeros((len(p), 16), np.float32)
+        verts[:, 0:3] = p[:, :3]
+        verts[:, 5:9] = a[:, 0:4]
+        verts[:, 3:5] = a[:, 4:6]
+        verts[:, 9:12] = a[:, 6:9]
+        verts[:, 12:15] = a[:, 9:12]
+        md = MeshData()
+        md.append_mesh(verts, t.reshape(-1).astype(np.uint32))
+        scene = Scene()
+        scene.nodes.append(Node(mesh_indices=[0], transform_index=0,
+                                name="grid"))
+        scene.transforms.append(np.eye(4, dtype=np.float32))
+        scene.cameras.append(camera)
+        return scene, md
+
+    # -- 4f and 5f: the frame at its rendered extent ------------------------
+    def target_rows(r):
+        """The setup rows of a flat renderer's current frame at its
+        rendered extent (supersample times the frame), on its device."""
+        b = r._buffers()
+        mats = torch.from_numpy(r.camera_matrices()).to(r.device)
+        w, h = r._flat_target()[:2]
+        return tg.geometry_pipeline_cols(b["corner_cols"], b["tri_node"],
+                                         mats, w, h), mats
+
+    def keep_share(r):
+        """(the device keep mask of r's current frame, the host's on the
+        same inputs)."""
+        mats = torch.from_numpy(r.camera_matrices())
+        cam = torch.from_numpy(r.cam_local_constants())
+        keep = tg.meshlet_keep_mask(*r._meshlet_table, mats.to(dev),
+                                    cam.to(dev))
+        host = tg.meshlet_keep_mask(*(t.cpu() for t in r._meshlet_table),
+                                    mats, cam)
+        return keep, host
+
+    def budgets(label, ti, tf, w, h):
+        """Print the record prepare's budgets at this frame: its caps, the
+        listed pairs against the pair budget, the leftover rows and the
+        keyed blocks.  A row past a budget falls to the leftover hierarchy
+        and is drawn; only the capped clipper drops rows (checked by the
+        caller)."""
+        n_head = tg.head_count(ti.shape[0])
+        cap = raster.hbm_cap_for(n_head)
+        prep = raster.prepare_binned_hbm_inputs(ti, tf, w, h)
+        pairs = int(prep[0][-1].item())
+        budget = min(raster.HBM_PAIR_BUDGET, n_head * cap)
+        leftover = int((prep[5][:, tg.I_VALID] > 0).sum().item())
+        items = raster.keyed_items(w, h, prep[1].shape[0],
+                                   raster.ITEM_RECORDS,
+                                   min_items=raster.KEYED_MIN_ITEMS)
+        print(f"    {label} {w}x{h}: {n_head} head rows, hbm_cap_for "
+              f"{cap}, bin_cap_for {raster.bin_cap_for(n_head)}, listed "
+              f"pairs {pairs} of the {budget} budget, leftover rows "
+              f"{leftover}, keyed blocks {items}")
+
+    # -- 4f. K1 and K4 at 3840x2176 against their plain versions ----------
+    @phase("4f K1/K4 at the SSAA 2 extent vs plain versions")
+    def ssaa_extent_plain():
+        """K1 and K4 bitwise against their plain versions at 3840x2176, on
+        the rows phase 5f's supersample=2 frames give them: the test scene
+        (K1), and the culled rows of a field well under 1M (K4; the plain
+        version's time grows with the longest tile list).  Run before 5e:
+        a plain version's loops after the process's first trace cost a
+        later trace its kernel records."""
+        rs = flat_renderer(load_test_scene(), supersample=2)
+        (ti, tf), _ = target_rows(rs)
+        _, _, ph, pw = rs._flat_target()
+        compare("k1", "test scene, supersample=2", k1,
+                raster.raster_small_plain,
+                raster.prepare_binned_small(ti, tf, pw, ph), pw, ph)
+        r_s = flat_renderer(make_sphere_field(SMALL_FIELD_TRIS),
+                            supersample=2, meshlet_cull=True)
+        (ti, tf), mats = target_rows(r_s)
+        _, _, ph, pw = r_s._flat_target()
+        cam = torch.from_numpy(r_s.cam_local_constants()).to(dev)
+        killed = raster.cull_meshlets(ti, mats, (*r_s._meshlet_table, cam))
+        budgets(f"sphere field {SMALL_FIELD_TRIS}, supersample=2, "
+                "meshlet_cull", killed, tf, pw, ph)
+        if raster.select_raster("auto", ti.shape[0]) is not \
+                raster.rasterize_setup_binned_hbm:
+            raise AssertionError("the small field's frame does not run K4")
+        compare("k4", f"sphere field {SMALL_FIELD_TRIS}, supersample=2 and "
+                "meshlet_cull", k4, raster.raster_binned_plain,
+                raster.prepare_binned_hbm_inputs(killed, tf, pw, ph), pw, ph)
+
+    @phase("5e engine API: vertex shaders, mesh and compute pipelines, "
+           "debug")
+    def engine_api():
+        scene_md = load_test_scene()
+        moved_md = host_moved(scene_md)
+        tex = checker_texture()
+        makers = {
+            "flat": (lambda md: flat_renderer(md), {"k1"}),
+            "lit": (lambda md: lit_renderer(md, texture=tex), {"k2g"}),
+            "shadowed": (lambda md: shadow_renderer(md), {"k2d", "k2g"}),
+            "deferred": (lambda md: deferred_renderer(
+                md, baseline_lights("wide")), {"k2g", "k7"}),
+        }
+        for name, (make, want) in makers.items():
+            r = make(scene_md)
+            base = r.render_and_read()
+            base_map = r._shadow_map
+            r.set_vertex_shader(shift_x, name="shift-x")
+            shaded, launched = launched_in(r.render_and_read)
+            expect_launches(f"test scene {name} {WIDTH}x{HEIGHT} with the "
+                            "shader", launched, want)
+            moved = make(moved_md)
+            same = True
+            depth_only = passes._depth_only
+            if name == "shadowed":
+                # The shadow pass runs no shader (as the reference's): the
+                # map is the unshaded frame's, and the moved scene's frame,
+                # in the frustum of the bound buffers, is lit by that map.
+                same = torch.equal(r._shadow_map, base_map)
+                moved._static_light_vp = r._light_view_proj()
+                passes._depth_only = lambda *args, **kw: base_map
+            try:
+                ref = moved.render_and_read()
+            finally:
+                passes._depth_only = depth_only
+            same = same and same_frame(shaded, ref)
+            r.set_vertex_shader(None)
+            restored = same_frame(r.render_and_read(), base)
+            cov = (shaded[1] < 1.0).mean()
+            print(f"    equal to the host-moved scene's frame {same}, "
+                  f"unbound equal to the unshaded frame {restored}, "
+                  f"coverage {cov:.4f}, differs from unshaded "
+                  f"{not same_frame(shaded, base)}")
+            if not (same and restored) or cov <= MIN_COVERAGE:
+                raise AssertionError(f"{name}: the shaded frame is not the "
+                                     "host-moved scene's")
+
+        lattice_big = make_stress_scene(LARGE_TRIS)
+        r = flat_renderer(lattice_big)
+        column, launched = launched_in(r.render_and_read)
+        expect_launches("lattice1M, column path", launched, {"k4"})
+        t_col = frame_time(r.render)
+        r.set_vertex_shader(lambda p, a: (p, a), name="identity")
+        ident, launched = launched_in(r.render_and_read)
+        expect_launches("lattice1M, identity shader (indexed entry)",
+                        launched, {"k4"})
+        r.set_vertex_shader(shift_x, name="shift-x")
+        shifted, launched = launched_in(r.render_and_read)
+        expect_launches("lattice1M, shift shader", launched, {"k4"})
+        t_shader = frame_time(r.render)
+        print(f"    identity shader equal to the column path "
+              f"{same_frame(ident, column)}; shift shader coverage "
+              f"{(shifted[1] < 1.0).mean():.4f}")
+        if not same_frame(ident, column):
+            raise AssertionError("lattice1M: the indexed entry is not the "
+                                 "column path")
+        print_time("lattice1M column path", t_col)
+        print_time("lattice1M with the shift shader (indexed entry)",
+                   t_shader)
+        del r, lattice_big
+
+        camera = make_test_scene()[0].active_camera
+        rm = Renderer(RenderConfig(width=WIDTH, height=HEIGHT),
+                      device=DEVICE)
+        handle = rm.create_mesh_pipeline(grid_geometry)
+        rb = flat_renderer(grid_scene(camera))
+        mats = torch.from_numpy(rb.camera_matrices()).to(dev)
+        pipe = rm.pipelines.lookup_pipeline(handle)
+        pipe.geometry()  # warm-up
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            geometry = pipe.geometry()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        end.record()
+        end.synchronize()
+        gen_ms = start.elapsed_time(end)
+        def syncs_in(fn):
+            """fn's result and the synchronising operations torch's sync
+            debug mode reports in it."""
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return out, sum("synchroniz" in str(w.message) for w in caught)
+
+        (mesh_frame, launched), syncs = syncs_in(
+            lambda: launched_in(lambda: rm.dispatch(handle, mats)))
+        _, buffer_syncs = syncs_in(rb.render)
+        expect_launches(f"mesh pipeline, {2 * MESH_QUADS ** 2} generated "
+                        "triangles", launched, {"k4"})
+        mesh_frame = tuple(x.cpu().numpy() for x in mesh_frame)
+        buffer_frame = rb.render_and_read()
+        same = same_frame(mesh_frame, buffer_frame)
+        cov = (mesh_frame[1] < 1.0).mean()
+        print(f"    generator and padding {gen_ms:.4f} ms (CUDA events) with "
+              f"no synchronisation (sync debug mode 'error'), padded to "
+              f"{[tuple(x.shape) for x in geometry]}; the whole dispatch "
+              f"synchronised {syncs} times, a render of the same buffers "
+              f"through load_scene {buffer_syncs} times; equal to that "
+              f"frame {same}, coverage {cov:.4f}")
+        if not same or cov <= MIN_COVERAGE:
+            raise AssertionError("mesh pipeline frame differs from the "
+                                 "buffer path's")
+        print_time("mesh pipeline frame (generator, padding, K4)",
+                   frame_time(lambda: rm.dispatch(handle, mats)))
+        rm.destroy_pipeline(handle)
+        del rb, geometry
+
+        gen = torch.Generator(device=dev).manual_seed(3)
+        texture = torch.rand((2048, 2048, 4), device=dev, generator=gen)
+        hc = rm.create_compute_pipeline(generate_mip_chain)
+        chain = rm.dispatch(hc, texture)
+        direct = generate_mip_chain(texture)
+        same = len(chain) == len(direct) == 12 and all(
+            torch.equal(a, b) for a, b in zip(chain, direct))
+        rm.destroy_pipeline(hc)
+        try:
+            rm.dispatch(hc, texture)
+            stale = False
+        except RuntimeError as e:
+            stale = "stale" in str(e)
+        print(f"  compute pipeline: generate_mip_chain of a 2048^2 texture, "
+              f"{len(chain)} levels equal to a direct call {same}; dispatch "
+              f"after destroy_pipeline raises {stale}")
+        if not (same and stale):
+            raise AssertionError("compute pipeline dispatch")
+
+        rd = Renderer(RenderConfig(width=WIDTH, height=HEIGHT, debug=True),
+                      device=DEVICE)
+        rd.load_scene(*scene_md)
+        debug_frame, launched = launched_in(rd.render_and_read)
+        expect_launches("debug frame", launched, {"k1"})
+        same = same_frame(debug_frame, flat_renderer(scene_md)
+                          .render_and_read())
+        color, depth = rd._pending
+        bad = depth.clone()
+        bad[HEIGHT // 2, WIDTH // 2] = float("nan")
+        try:
+            rd._validate_frame(color, bad)
+            raised = False
+        except FloatingPointError:
+            raised = True
+        print(f"    debug frame passed validation, equal to the frame "
+              f"without debug {same}, clip drops {rd.stats.clip_dropped}; a "
+              f"NaN depth raises FloatingPointError {raised}")
+        if not (same and raised):
+            raise AssertionError("debug layer")
+
+    @phase("5f SSAA and meshlet culling")
+    def frame_options():
+        scene_md = load_test_scene()
+        rs = flat_renderer(scene_md, supersample=2)
+        img, launched = launched_in(rs.render_and_read)
+        expect_launches(f"test scene supersample=2 at {WIDTH}x{HEIGHT} "
+                        f"(rendered {2 * WIDTH}x{2 * HEIGHT})", launched,
+                        {"k1"})
+        rb = Renderer(RenderConfig(width=2 * WIDTH, height=2 * HEIGHT),
+                      device=DEVICE)
+        rb.load_scene(*scene_md)
+        big = rb.render_and_read()
+        card_res = [x.cpu().numpy() for x in raster.ssaa_resolve(
+            *(torch.from_numpy(x).to(dev) for x in big), 2)]
+        host_res = [x.numpy() for x in raster.ssaa_resolve(
+            *(torch.from_numpy(x) for x in big), 2)]
+        cam = scene_md[0].active_camera
+        moved = Camera(position=cam.position + np.float32([0.5, 0.2, -0.4]),
+                       forward=cam.forward, yfov=cam.yfov, znear=cam.znear,
+                       zfar=cam.zfar)
+        digests, _ = rs.render_animation(cameras=[cam, moved])
+        want = [rgba_digest(rs.render(camera=c)[0]).item()
+                for c in (cam, moved)]
+        ok = (same_frame(img, card_res) and same_frame(card_res, host_res)
+              and digests.tolist() == want and want[0] != want[1])
+        print(f"    equal to the resolve of the {2 * WIDTH}x{2 * HEIGHT} "
+              f"frame {same_frame(img, card_res)}, the card's resolve equal "
+              f"to the host's {same_frame(card_res, host_res)}, "
+              f"render_animation digests {digests.tolist()} equal to the "
+              f"resolved frames' {want}")
+        if not ok:
+            raise AssertionError("SSAA frame")
+        print_time("test scene supersample=2", frame_time(rs.render))
+        print_time("test scene supersample=1", frame_time(
+            flat_renderer(scene_md).render))
+
+        field = make_sphere_field(LARGE_TRIS)
+        r_off = flat_renderer(field)
+        r_on = flat_renderer(field, meshlet_cull=True)
+        off, launched = launched_in(r_off.render_and_read)
+        expect_launches("sphere field 1M, no cull", launched, {"k4"})
+        on, launched = launched_in(r_on.render_and_read)
+        expect_launches("sphere field 1M, meshlet_cull", launched, {"k4"})
+        keep, host_keep = keep_share(r_on)
+        npx = WIDTH * HEIGHT
+        d_diff = int((on[1] != off[1]).sum())
+        c_diff = int((on[0] != off[0]).any(-1).sum())
+        (ti, tf), _ = target_rows(r_on)
+        kill = torch.cat([
+            torch.repeat_interleave(~host_keep, tg.RASTER_BLOCK),
+            torch.zeros(ti.shape[0] - host_keep.numel() * tg.RASTER_BLOCK,
+                        dtype=torch.bool)])
+        killed = raster.kill_rows(ti.cpu(), kill).to(dev)
+        packed, depth = raster.select_raster("auto", ti.shape[0])(
+            killed, tf, PAD_W, PAD_H)
+        host_killed = (raster.unpack_rgba8(packed[:HEIGHT, :WIDTH]).cpu()
+                       .numpy(), depth[:HEIGHT, :WIDTH].cpu().numpy())
+        same = same_frame(on, host_killed)
+        print(f"    kept {int(keep.sum())} of {keep.numel()} meshlets "
+              f"({keep.float().mean().item():.4f}), the card's keep mask "
+              f"equal to the host's {torch.equal(keep.cpu(), host_keep)}; "
+              f"against the unculled frame {d_diff} depth and {c_diff} colour "
+              f"pixels differ (bound {max(2, npx // 1000)}); equal to the "
+              f"kernel frame of the rows killed on the host {same}; "
+              f"coverage {(on[1] < 1.0).mean():.4f}")
+        if (not same or not torch.equal(keep.cpu(), host_keep)
+                or max(d_diff, c_diff) > max(2, npx // 1000)
+                or bool(keep.all())):
+            raise AssertionError("meshlet-culled frame")
+        print_time("sphere field 1M without meshlet_cull",
+                   frame_time(r_off.render))
+        print_time("sphere field 1M with meshlet_cull",
+                   frame_time(r_on.render))
+        del r_off
+
+        r_c = flat_renderer(field, supersample=2, meshlet_cull=True)
+        (ti, tf), mats = target_rows(r_c)
+        w, h, ph, pw = r_c._flat_target()
+        dropped = r_c.clip_overflow(mats)
+        budgets("sphere field 1M, supersample=2, meshlet_cull", ti, tf, pw,
+                ph)
+        if dropped:
+            raise ValueError(f"the capped clipper drops {dropped} rows at "
+                             f"{w}x{h}")
+        both, launched = launched_in(r_c.render_and_read)
+        expect_launches(f"sphere field 1M, supersample=2 and meshlet_cull "
+                        f"(K4 at {pw}x{ph})", launched, {"k4"})
+        packed, depth = raster.select_raster("auto", ti.shape[0])(
+            ti, tf, pw, ph)
+        unculled = [x.cpu().numpy() for x in raster.ssaa_resolve(
+            raster.unpack_rgba8(packed[:h, :w]), depth[:h, :w], 2)]
+        d_diff = int((both[1] != unculled[1]).sum())
+        c_diff = int((both[0] != unculled[0]).any(-1).sum())
+        print(f"    against the unculled resolved frame {d_diff} depth and "
+              f"{c_diff} colour pixels differ (bound {max(2, npx // 1000)}),"
+              f" clip drops {dropped}, coverage {(both[1] < 1.0).mean():.4f}")
+        if max(d_diff, c_diff) > max(2, npx // 1000):
+            raise AssertionError("supersampled culled frame")
+        print_time("sphere field 1M with supersample=2 and meshlet_cull",
+                   frame_time(r_c.render))
+
+    # -- 7t. the app's trace ----------------------------------------------
+    @phase("7t app --debug --trace")
+    def app_trace():
+        """The app with --debug --trace on the test scene for 3 frames: the
+        trace names the load_scene, render and present zones and three
+        frame spans, and each frame's K1 kernel lies inside a render zone
+        and was launched inside one."""
+        with tempfile.TemporaryDirectory() as tmp:
+            rc = app_main(["--scene", SCENE_DIR, "--width", str(WIDTH),
+                           "--height", str(HEIGHT), "--frames", "3",
+                           "--device", DEVICE, "--debug", "--trace", tmp])
+            paths = glob.glob(os.path.join(tmp, "*.json"))
+            if rc != 0 or len(paths) != 1:
+                raise AssertionError("--trace wrote no trace")
+            with open(paths[0]) as f:
+                events = [e for e in json.load(f)["traceEvents"]
+                          if e.get("ph") == "X"]
+        def spans(name, cats):
+            return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e["name"] == name and e.get("cat") in cats]
+        cpu = ("user_annotation",)
+        zones = {z: len(spans(z, cpu))
+                 for z in ("load_scene", "render", "present", "frame")}
+        renders = spans("render", cpu) + spans("render",
+                                               ("gpu_user_annotation",))
+        k1_events = [e for e in events if e.get("cat") == "kernel"
+                     and "raster_small_kernel" in e["name"]]
+        launch_ts = {e["args"].get("correlation"): e["ts"] for e in events
+                     if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+        inside = sum(any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                         for a, b in renders) for e in k1_events)
+        launched_inside = sum(
+            any(a <= launch_ts.get(e["args"].get("correlation"), -1) <= b
+                for a, b in spans("render", cpu)) for e in k1_events)
+        print(f"  app test scene flat --debug --trace, 3 frames: rc={rc}, "
+              f"zones {zones}, {len(k1_events)} K1 kernel events, "
+              f"{inside} inside a render zone, {launched_inside} launched "
+              f"inside one")
+        if (zones["load_scene"] != 1 or zones["render"] != 3
+                or zones["present"] != 3 or zones["frame"] != 3
+                or len(k1_events) != 3 or inside != 3
+                or launched_inside != 3):
+            raise AssertionError("--trace: zones, frame spans or K1 events "
+                                 "missing")
+
     @phase("6x experiment kernel timing")
     def experiment_timing():
         """Each kernel's device time from a trace holding all its launches
@@ -6161,6 +6736,19 @@ def main(argv=None) -> int:
                 raise AssertionError("app frame lacks the UI")
             if "--orbit" in extra and not moved:
                 raise AssertionError("--orbit did not move the camera")
+
+        # --ssaa 2 (the --debug --trace run is phase 7t).
+        with tempfile.TemporaryDirectory() as tmp:
+            rc = app_main(["--scene", SCENE_DIR, "--width", str(WIDTH),
+                           "--height", str(HEIGHT), "--frames", "2",
+                           "--out", tmp, "--device", DEVICE, "--ssaa", "2"])
+            img = read_png(os.path.join(tmp, "frame_0001.png"))
+        cov = (img[..., :3].astype(np.int32).sum(-1) > 0).mean()
+        print(f"  app test scene flat --ssaa 2: rc={rc}, frame_0001.png "
+              f"{img.shape} coverage={cov:.4f}")
+        if (rc != 0 or img.shape[:2] != (HEIGHT, WIDTH)
+                or cov <= MIN_COVERAGE):
+            raise AssertionError("--ssaa 2 app frame missing or empty")
 
     # -- 8. hygiene -------------------------------------------------------
     @phase("8 hygiene")

@@ -145,6 +145,11 @@ PROCEDURAL = {
     "soup": lambda p: p.make_triangle_soup(
         60, seed=5, extent=2.0, behind_camera_fraction=0.1),
     "test_scene": lambda p: p.make_test_scene(),
+    "sphere_field": lambda p: p.make_sphere_field(8192, seed=3, stacks=32,
+                                                  slices=64),
+    "sphere_field_ring_major": lambda p: p.make_sphere_field(
+        3000, seed=1, stacks=12, slices=20),
+    "material_scene": lambda p: p.make_material_scene(),
 }
 
 
@@ -154,6 +159,37 @@ def test_procedural_scenes_match_reference(name):
     ref, ref_md = PROCEDURAL[name](ref_proc)
     assert scene.serialize() == ref.serialize()
     assert md.serialize() == ref_md.serialize()
+
+
+def test_material_scene_materials_match_reference():
+    _, md = proc.make_material_scene()
+    _, ref_md = ref_proc.make_material_scene()
+    assert md.mesh_material == ref_md.mesh_material
+    assert [m.pack() for m in md.materials] == [
+        m.pack() for m in ref_md.materials]
+
+
+@pytest.mark.parametrize("name", ["sphere_field", "lattice3000",
+                                  "test_scene"])
+def test_meshlet_table_matches_reference(name):
+    """FlatScene.build_meshlet_table's bounds, draws and enabled flags,
+    bit for bit, on the port's and the reference's flattening of the same
+    scene (the test scene's two draws share a block: disabled)."""
+    from zrenderer_tpu.engine.upload import flatten_scene as ref_flatten
+
+    scene, md = PROCEDURAL[name](proc)
+    ref_scene_, ref_md = PROCEDURAL[name](ref_proc)
+    out = flatten_scene(scene, md, pad=True, tri_align=128).build_meshlet_table(
+        128)
+    ref = ref_flatten(ref_scene_, ref_md, pad=True,
+                      tri_align=128).build_meshlet_table(128)
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    assert out[0].shape[1] == 8 and out[2].dtype == bool
+    with pytest.raises(ValueError, match="multiple of 96"):
+        flatten_scene(scene, md, pad=True,
+                      tri_align=64).build_meshlet_table(96)
 
 
 def test_png_matches_reference(tmp_path):

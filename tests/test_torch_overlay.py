@@ -419,6 +419,30 @@ def test_composite_plain_without_layers_is_the_frame():
     np.testing.assert_array_equal(got, want)
 
 
+def test_composite_copies_misaligned_views():
+    """K8b's wrapper copies a frame or count that does not start on a
+    16-byte boundary (``composite_aligned``) before the launch: a frame
+    view at a 4-byte offset is one.  The plain version takes the view
+    too, and gives the contiguous copy's frame."""
+    h, w, K = 33, 127, ov.DEFAULT_K
+    rng = np.random.default_rng(12)
+    buf = T(rng.integers(0, 256, (h * w * 4 + 4,), dtype=np.uint8))
+    view = buf[4:].view(h, w, 4)
+    cnt = torch.zeros((h, w), dtype=torch.int32)
+    assert ov.composite_aligned(buf, cnt)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    assert not ov.composite_aligned(view, cnt)
+    layers = (torch.zeros((K, h, w)), torch.zeros((K, h, w)),
+              torch.zeros((K, h, w), dtype=torch.int32))
+    cnt[::3, ::5] = 1
+    layers[2][0] = -1  # opaque white layer
+    atlas = atlas_on(UIAtlas(), "cpu")
+    np.testing.assert_array_equal(
+        ov.composite_layers_plain(view, cnt, layers, atlas, K).numpy(),
+        ov.composite_layers_plain(view.clone(), cnt, layers, atlas,
+                                  K).numpy())
+
+
 def test_submission_order_and_scissor():
     """Red over blue differs from blue over red (the last draw
     dominates), and a full-screen draw under a scissor covers exactly the

@@ -246,8 +246,13 @@ def test_config_rejects_unported_options():
     assert RenderConfig(pipeline="shadowed", shadow_size=384).shadow_size
     with pytest.raises(ValueError, match="stride"):
         RenderConfig(pipeline="shadowed", shadow_lookup_stride=3)
-    with pytest.raises(NotImplementedError):
-        RenderConfig(supersample=2)
+    assert RenderConfig(supersample=2).supersample == 2  # flat SSAA
+    for pipeline in ("lit", "shadowed", "deferred"):
+        with pytest.raises(NotImplementedError):
+            RenderConfig(pipeline=pipeline, supersample=2)
+    for unread in ("readback", "profile"):  # the reference's unread fields
+        with pytest.raises(TypeError):
+            RenderConfig(**{unread: False})
     with pytest.raises(NotImplementedError):
         RenderConfig(clear_color=(1.0, 0.0, 0.0, 1.0))
     cfg = RenderConfig(width=1920, height=1080)
@@ -291,6 +296,7 @@ def test_port_never_imports_jax():
         [:-3].replace(os.sep, ".").removesuffix(".__init__")
         for p in glob.glob(ROOT + "/zrenderer_tpu_torch/**/*.py",
                            recursive=True))
+    assert "zrenderer_tpu_torch.profiling.ztracy" in modules
     code = (
         "import importlib, sys\n"
         "class Block:\n"

@@ -7,7 +7,8 @@ renders frames on the chosen device and writes them as PNGs:
 
     python -m zrenderer_tpu_torch.app.main --scene content/scenes/test_scene \
         --width 1920 --height 1080 --frames 60 --out out/ --device cuda \
-        [--pipeline lit|shadowed|deferred] [--taa] [--overlay|--ui] [--orbit]
+        [--pipeline lit|shadowed|deferred] [--taa] [--overlay|--ui] [--orbit] \
+        [--debug] [--ssaa N] [--trace DIR]
 
 The lit and shadowed pipelines bind the scene's TEXS textures (PNG) where
 it has them, else a 256x256 checkerboard; the deferred pipeline lights the
@@ -18,6 +19,10 @@ scene outliner into each frame as one panel, ``--ui`` as the imgui Stats
 and Scene Outliner windows: the frame is composited on the renderer's
 device (K8 and K8b on a card), read back, and written or dropped.
 ``--orbit`` moves the camera on a turntable around the scene.
+``--debug`` validates each frame (the debug layer), ``--ssaa N`` renders
+the flat pipeline at N times the size and box-resolves it, and ``--trace
+DIR`` records the run, scene load included, under torch.profiler with the
+profiling zones on and writes a Chrome trace JSON in DIR.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from zrenderer_tpu_torch.engine.textures import (
 )
 from zrenderer_tpu_torch.ops import taa
 from zrenderer_tpu_torch.ops.raster import BINNINGS
+from zrenderer_tpu_torch.profiling import ztracy
 from zrenderer_tpu_torch.scene.mesh import MeshData
 from zrenderer_tpu_torch.scene.scene import Scene
 from zrenderer_tpu_torch.utils.png import write_png
@@ -84,14 +90,33 @@ def main(argv=None) -> int:
                              "windows) instead of the simple overlay panel")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda, cuda:N or cpu")
+    parser.add_argument("--debug", action="store_true",
+                        help="the debug layer: validate each frame's depth "
+                             "and count the clipper's drops")
+    parser.add_argument("--ssaa", type=int, default=1,
+                        help="ordered-grid supersampling factor (flat "
+                             "pipeline only)")
+    parser.add_argument("--trace", default=None,
+                        help="write a torch.profiler Chrome trace of the "
+                             "run to this folder")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    if args.trace:
+        with ztracy.trace(args.trace) as capture:
+            _run(args)
+        print(f"trace: {capture.path}")
+    else:
+        _run(args)
+    return 0
 
+
+def _run(args) -> None:
     scene = Scene.load(os.path.join(args.scene, "scene.bin"))
     mesh_data = MeshData.load(os.path.join(args.scene, "meshes.bin"))
     config = RenderConfig(width=args.width, height=args.height,
-                          binning=args.binning, pipeline=args.pipeline)
+                          binning=args.binning, pipeline=args.pipeline,
+                          debug=args.debug, supersample=args.ssaa)
     renderer = Renderer(config, device=args.device)
     renderer.load_scene(scene, mesh_data)
     if args.pipeline != "flat":
@@ -144,17 +169,14 @@ def main(argv=None) -> int:
             else:
                 img = overlay.compose(
                     color, [line] + scene_outliner(scene).split("\n"))
-            renderer.present()
+        renderer.present()  # fence pacing; the frame stays on the device
         if args.out:
             if img is None:
                 img, _depth = renderer.read_frame()
             write_png(os.path.join(args.out, f"frame_{frame_i:04d}.png"), img)
-        elif img is None:
-            renderer.present()  # fence pacing only; the frame stays on device
         if frame_i % 30 == 0 or frame_i == args.frames - 1:
             print(renderer.stats.format_line())
     renderer.finish_gpu_commands()
-    return 0
 
 
 if __name__ == "__main__":

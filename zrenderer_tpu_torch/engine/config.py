@@ -2,8 +2,13 @@
 pipelines.
 
 Counterpart of ``zrenderer_tpu/engine/config.py``, with the fields those
-paths read.  Options whose passes are not ported yet raise
-``NotImplementedError`` instead of being ignored.
+paths read.  An option the port does not give an effect raises instead of
+being ignored: ``supersample != 1`` off the flat pipeline and a clear
+color other than the default raise ``NotImplementedError``; the
+reference's ``readback`` and ``profile`` fields, which nothing reads, are
+left out, so passing either raises ``TypeError`` (the profiling zones are
+turned on by ``profiling.ztracy.enable``, ``ZRENDERER_TRACE`` or
+``ztracy.trace``).
 """
 
 from __future__ import annotations
@@ -11,10 +16,14 @@ from __future__ import annotations
 import zlib
 from dataclasses import dataclass, replace
 
+from zrenderer_tpu_torch.ops.geometry import MAX_SPAN_PX
 from zrenderer_tpu_torch.ops.raster import TILE_H, TILE_W
 
 PIPELINES = ("flat", "lit", "shadowed", "deferred")
 LIGHTING_PLANES = ("f32", "bf16")
+# The largest viewport extent the geometry stage's guard band allows
+# (geometry.guard_px).
+MAX_EXTENT = MAX_SPAN_PX - 64
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,8 +63,10 @@ class RenderConfig:
     # The kernels and the lit tonemap resolve uncovered pixels to (0, 0, 0,
     # 255): the default clear color is the only one the port produces.
     clear_color: tuple = (0.0, 0.0, 0.0, 1.0)
-    # Ordered-grid supersampling: only 1 is ported (SSAA is ROADMAP Queue 1
-    # item 6).
+    # Ordered-grid supersampling of the flat pipeline: the frame renders at
+    # (supersample * width, supersample * height), padded to the tile, and
+    # box-resolves down (raster.ssaa_resolve).  The other pipelines take 1
+    # only.
     supersample: int = 1
     vert_align: int = 128
     tri_align: int = 256
@@ -66,10 +77,17 @@ class RenderConfig:
     # Host/device pipelining depth: present() fences only when the host is
     # this many frames ahead.  1 = fully synchronous present.
     frames_in_flight: int = 2
-    # The debug layer: each frame counts the plane-crossing triangles the
-    # capped clipper dropped (a host sync), records them in
-    # stats.clip_dropped and raises on a drop.
+    # The debug layer: each frame is validated (finite depth in [0, 1],
+    # Renderer._validate_frame) and counts the plane-crossing triangles the
+    # capped clipper dropped (both a host sync), records them in
+    # stats.clip_dropped and raises on a drop.  The kernels stay the card's
+    # own under debug.
     debug: bool = False
+    # Meshlet culling on the flat pipeline (the others raise): load_scene
+    # builds the per-128-triangle meshlet table (tri_align a multiple of
+    # 128), each frame kills the rows of the meshlets outside the frustum
+    # or facing away (ops/geometry.meshlet_keep_mask).
+    meshlet_cull: bool = False
 
     def __post_init__(self):
         if self.pipeline not in PIPELINES:
@@ -78,11 +96,18 @@ class RenderConfig:
         if self.lighting_planes not in LIGHTING_PLANES:
             raise ValueError(f"lighting_planes {self.lighting_planes!r}: one "
                              f"of {LIGHTING_PLANES}")
-        if self.supersample != 1:
+        if int(self.supersample) != self.supersample or self.supersample < 1:
+            raise ValueError(f"supersample {self.supersample}: a positive "
+                             "integer")
+        if self.supersample != 1 and self.pipeline != "flat":
             raise NotImplementedError(
-                "supersample != 1: SSAA is not ported (ROADMAP.md Queue 1 "
-                "item 6)"
+                f"supersample != 1 on the {self.pipeline} pipeline: SSAA "
+                "is the flat pipeline's only"
             )
+        if self.meshlet_cull and self.pipeline != "flat":
+            raise NotImplementedError(
+                f"meshlet_cull on the {self.pipeline} pipeline: the cull is "
+                "the flat frame's only")
         if tuple(self.clear_color) != (0.0, 0.0, 0.0, 1.0):
             raise NotImplementedError(
                 "the port resolves uncovered pixels to the default clear "
@@ -90,6 +115,11 @@ class RenderConfig:
             )
         if self.width <= 0 or self.height <= 0:
             raise ValueError(f"bad frame size {self.width}x{self.height}")
+        if max(self.width, self.height) * self.supersample > MAX_EXTENT:
+            raise ValueError(
+                f"{self.width}x{self.height} at supersample "
+                f"{self.supersample}: the rendered extent exceeds the "
+                f"geometry stage's {MAX_EXTENT} pixels")
         if self.shadow_size <= 0 or self.shadow_size % TILE_W \
                 or self.shadow_size % TILE_H:
             raise ValueError(

@@ -29,21 +29,38 @@ from zrenderer_tpu_torch.ops.light_kernel import light_inputs, tiled_light
 F32 = torch.float32
 
 
+def _indexed(b):
+    """The indexed buffers a vertex shader runs on: positions, attrs,
+    tri_vidx, vert_node."""
+    return b["positions"], b["attrs"], b["tri_vidx"], b["vert_node"]
+
+
 def _gbuffer(b, matrices, normal_mats, width: int, height: int,
-             pad_height: int, pad_width: int, binning: str = "auto"):
+             pad_height: int, pad_width: int, binning: str = "auto",
+             vertex_shader=None):
     """Returns (rgba u8 (H, W, 4), depth, u, v, nx, ny, nz, metallic,
     roughness, emissive r/g/b, texture layer), cropped to (height, width).
-    The per-triangle material table rides the buffers as b['materials']."""
-    planes = raster.render_gbuffer(
-        b["corner_cols"], b["tri_node"], matrices, normal_mats,
-        b.get("materials"), width, height, pad_height, pad_width,
-        binning=binning)
+    The per-triangle material table rides the buffers as b['materials'].
+    Without a vertex shader the column buffers feed the geometry stage;
+    with one, the indexed buffers (the shader runs on per-vertex rows), as
+    the reference's ``_geom_buffers`` chooses."""
+    frame = (width, height, pad_height, pad_width)
+    if vertex_shader is None:
+        planes = raster.render_gbuffer(
+            b["corner_cols"], b["tri_node"], matrices, normal_mats,
+            b.get("materials"), *frame, binning=binning)
+    else:
+        planes = raster.render_gbuffer_indexed(
+            *_indexed(b), matrices, normal_mats, b.get("materials"), *frame,
+            binning=binning, vertex_shader=vertex_shader)
     return [raster.unpack_rgba8(planes[0])] + planes[1:]
 
 
 def _depth_only(b, light_matrices, size: int, binning: str = "auto"):
     """Depth-only pass from the light's view (the shadow-map pass):
-    (size, size) f32."""
+    (size, size) f32.  It takes the column buffers with no vertex shader,
+    as the reference's ``_depth_only`` does: a shaded mesh casts the shadow
+    of its unshaded vertices."""
     return raster.render_depth(b["corner_cols"], b["tri_node"],
                                light_matrices, size, binning=binning)
 
@@ -65,14 +82,16 @@ def _sample_albedo(rgba, atlas_u32, u, v, tex_layer, th: int, tw: int,
 
 
 def build_lit_frame(width: int, height: int, pad_height: int,
-                    pad_width: int, texture, binning: str = "auto"):
+                    pad_width: int, texture, binning: str = "auto",
+                    vertex_shader=None):
     """Config 1: textured + Blinn-Phong point light, Z-buffered.
 
     Materials modulate the Blinn-Phong knobs per pixel and emissive adds
     after lighting; ``texture`` is a Texture or a TextureArray (per-draw
     texture layers).  The returned ``frame(b, atlas_u32, matrices,
     normal_mats, inv_view_proj, cam_pos, light_pos, light_color)`` gives
-    (rgba u8 (H, W, 4), depth (H, W))."""
+    (rgba u8 (H, W, 4), depth (H, W)).  ``vertex_shader``: optional
+    ``fn(positions (N, 4), attrs (N, 12)) -> (positions, attrs)``."""
     th, tw = int(texture.base_shape[0]), int(texture.base_shape[1])
     levels = texture.num_levels
     layered = texture.num_layers > 1
@@ -82,7 +101,7 @@ def build_lit_frame(width: int, height: int, pad_height: int,
         (rgba, depth, u, v, nx, ny, nz,
          met, rgh, emr, emg, emb, tex_layer) = _gbuffer(
             b, matrices, normal_mats, width, height, pad_height, pad_width,
-            binning)
+            binning, vertex_shader)
         covered = depth < 1.0
         albedo = _sample_albedo(rgba, atlas_u32, u, v, tex_layer, th, tw,
                                 levels, layered)
@@ -104,7 +123,7 @@ def build_shadowed_frame(width: int, height: int, pad_height: int,
                          shadow_bias: float = 2e-3,
                          shadow_slope_bias: float = 3e-3, pcf_taps: int = 1,
                          shadow_lookup_stride: int = 1,
-                         binning: str = "auto"):
+                         binning: str = "auto", vertex_shader=None):
     """Config 2: directional-light shadow map (depth-only pass + PCF).
 
     The returned ``frame(b, atlas_u32, matrices, normal_mats,
@@ -112,7 +131,8 @@ def build_shadowed_frame(width: int, height: int, pad_height: int,
     light_color)`` gives (rgba u8 (H, W, 4), depth (H, W), shadow_depth
     (shadow_size, shadow_size)); ``light_matrices`` are the per-draw
     object-to-light-clip matrices, ``light_dir`` the unit direction from
-    the light."""
+    the light.  A ``vertex_shader`` runs in the camera's G-buffer pass
+    only, as in the reference."""
     th, tw = int(texture.base_shape[0]), int(texture.base_shape[1])
     levels = texture.num_levels
     layered = texture.num_layers > 1
@@ -124,7 +144,7 @@ def build_shadowed_frame(width: int, height: int, pad_height: int,
         (rgba, depth, u, v, nx, ny, nz,
          met, rgh, emr, emg, emb, tex_layer) = _gbuffer(
             b, matrices, normal_mats, width, height, pad_height, pad_width,
-            binning)
+            binning, vertex_shader)
         covered = depth < 1.0
         albedo = _sample_albedo(rgba, atlas_u32, u, v, tex_layer, th, tw,
                                 levels, layered)
@@ -174,7 +194,7 @@ def deferred_light_inputs(gbuffer, world, cam_pos, view_proj, light_pos,
 
 def build_deferred_frame(width: int, height: int, pad_height: int,
                          pad_width: int, lighting_planes: str = "f32",
-                         binning: str = "auto"):
+                         binning: str = "auto", vertex_shader=None):
     """Config 3: deferred G-buffer + GGX lighting with many point lights.
 
     The returned ``frame(b, matrices, normal_mats, inv_view_proj, cam_pos,
@@ -188,7 +208,7 @@ def build_deferred_frame(width: int, height: int, pad_height: int,
     def frame(b, matrices, normal_mats, inv_view_proj, cam_pos, view_proj,
               light_pos, light_color):
         g = _gbuffer(b, matrices, normal_mats, width, height, pad_height,
-                     pad_width, binning)
+                     pad_width, binning, vertex_shader)
         depth = g[1]
         world = shading.reconstruct_world_pos(depth, inv_view_proj, width,
                                               height)

@@ -4,7 +4,9 @@ Resources are referenced by (index, generation) handles so a stale handle
 is detected after its slot is destroyed or reused.  The pipeline cache
 keeps one frame function per content key (the PSO-cache analog); on the
 port a "pipeline" is a Python callable closing over the frame's static
-sizes, so building one is cheap and nothing is compiled.
+sizes, so building one is cheap and nothing is compiled.  Pipelines made
+by handle (``add_pipeline``: the Renderer's compute and mesh pipelines)
+live in the same pool and are looked up and destroyed by that handle.
 """
 
 from __future__ import annotations
@@ -90,6 +92,21 @@ class PipelineCache:
         payload = make()
         self._cache[key] = self._pool.add(payload)
         return payload
+
+    def add_pipeline(self, payload: Any) -> Handle:
+        """Pool a pipeline by handle, outside the content-key cache."""
+        return self._pool.add(payload)
+
+    def lookup_pipeline(self, h: Handle) -> Optional[Any]:
+        """The pipeline behind ``h``, or None for a stale handle."""
+        return self._pool.lookup(h)
+
+    def destroy_pipeline(self, h: Handle) -> None:
+        """Free ``h``'s slot and drop every content key that points at it."""
+        self._pool.destroy(h)
+        for key, cached in list(self._cache.items()):
+            if cached == h:
+                del self._cache[key]
 
     def __len__(self) -> int:
         return len(self._cache)

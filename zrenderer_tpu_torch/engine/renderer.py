@@ -14,8 +14,10 @@
   matrices; for lit also normal matrices, the inverse view-projection and
   the camera position), stages them in the pinned upload ring, copies them
   to the device without blocking and enqueues the frame.  Flat: column
-  geometry, the raster dispatch (``raster.select_raster``: K1, K3, K4, K4c,
-  K5 or K6), the RGBA8 unpack and the crop.  Lit
+  geometry (indexed with a vertex shader bound), the meshlet cull under
+  ``meshlet_cull``, the raster dispatch (``raster.select_raster``: K1, K3,
+  K4, K4c, K5 or K6) at ``supersample`` times the frame size, the RGBA8
+  unpack, the crop and, above 1x, the SSAA box resolve.  Lit
   (``passes.build_lit_frame``): the G-buffer dispatch
   (``raster.select_gbuffer_raster``: K2g, K3g, K4g, K5g or K6g), sampling,
   Blinn-Phong and the tonemap.  Shadowed (``passes.build_shadowed_frame``)
@@ -31,7 +33,18 @@
   CUDA events, ``read_frame`` copies the newest frame back.
 * ``render_animation`` renders N frames back to back with no host sync
   inside the loop, reducing each frame to a digest: flat frames as padded
-  packed planes, the other pipelines' as the u8 sum of the visible frame.
+  packed planes (resolved u8 frames under SSAA), the other pipelines' as
+  the u8 sum of the visible frame.
+* ``set_vertex_shader`` binds an object-space vertex stage on tensors
+  for every pipeline's camera pass (the indexed buffers then feed the
+  geometry stage; the shadow pass stays unshaded, as the reference's);
+  ``create_compute_pipeline`` and ``create_mesh_pipeline`` pool a device
+  program by generational handle, ``dispatch`` runs one and
+  ``destroy_pipeline`` frees it.  ``debug`` validates each frame's depth
+  (``_validate_frame``) and counts the clipper's drops; the kernels stay
+  the card's own.  ``load_scene``, ``render``, ``present``, ``read_frame``
+  and ``dispatch`` run in profiling zones (``profiling/ztracy.py``), and
+  ``render`` marks a frame.
 
 Everything runs on the one explicit ``device``; ``device="cuda"`` on a
 host without a card raises.
@@ -64,10 +77,13 @@ from zrenderer_tpu_torch.math import zmath as zm
 from zrenderer_tpu_torch.ops import raster
 from zrenderer_tpu_torch.ops.geometry import (
     MATERIAL_COLS,
+    RASTER_BLOCK,
     clip_overflow_count,
+    clip_overflow_count_indexed,
     view_proj_from_camera,
 )
 from zrenderer_tpu_torch.ops.taa import jittered_view_proj
+from zrenderer_tpu_torch.profiling import ztracy
 
 log = logging.getLogger("zrenderer_torch.engine")
 
@@ -105,13 +121,21 @@ class Renderer:
         self._draw_corners = None  # (D, 8, 4) local AABB corners per draw
         self._static_light_vp = None  # light frustum of the static scene
         self._shadow_map = None  # the newest shadowed frame's map
+        self._vertex_shader = None
+        self._vertex_shader_key = None
+        self._meshlet_table = None  # (bounds, mdraw, enabled) on the device
         log.info("Renderer on %s", self.device)
 
     # -- resource upload ----------------------------------------------------
 
     def load_scene(self, scene, mesh_data) -> None:
         """Flatten the scene and upload its buffers (reloading destroys the
-        previous buffers' slots)."""
+        previous buffers' slots); under ``meshlet_cull`` also the meshlet
+        table."""
+        with ztracy.zone("load_scene"):
+            self._load_scene(scene, mesh_data)
+
+    def _load_scene(self, scene, mesh_data) -> None:
         self.scene = scene
         self.mesh_data = mesh_data
         cfg = self.config
@@ -129,6 +153,11 @@ class Renderer:
         self._upload_material_table()
         self._draw_corners = _draw_aabb_corners(self.flat)
         self._static_light_vp = None
+        self._meshlet_table = None
+        if cfg.meshlet_cull:
+            self._meshlet_table = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in self.flat.build_meshlet_table(RASTER_BLOCK))
         f = self.flat
         log.info(
             "scene uploaded: %d draws, %d verts (%d padded), %d tris "
@@ -236,8 +265,10 @@ class Renderer:
 
     def _frame_fn(self):
         cfg = self.config
+        vs = self._vertex_shader
         key = (cfg.content_hash(), len(self.flat.positions),
-               len(self.flat.tri_vidx), self.flat.draw_count)
+               len(self.flat.tri_vidx), self.flat.draw_count,
+               self._vertex_shader_key)
         if cfg.pipeline != "flat":
             if not hasattr(self, "texture"):
                 self.set_environment()
@@ -248,12 +279,12 @@ class Renderer:
                     key, lambda: passes.build_deferred_frame(
                         cfg.width, cfg.height, cfg.pad_height, cfg.pad_width,
                         lighting_planes=cfg.lighting_planes,
-                        binning=cfg.binning))
+                        binning=cfg.binning, vertex_shader=vs))
             args = (cfg.width, cfg.height, cfg.pad_height, cfg.pad_width, tex)
             if cfg.pipeline == "lit":
                 return self.pipelines.get_or_create(
                     key, lambda: passes.build_lit_frame(
-                        *args, binning=cfg.binning))
+                        *args, binning=cfg.binning, vertex_shader=vs))
             return self.pipelines.get_or_create(
                 key, lambda: passes.build_shadowed_frame(
                     *args, shadow_size=cfg.shadow_size,
@@ -261,19 +292,51 @@ class Renderer:
                     shadow_slope_bias=cfg.shadow_slope_bias,
                     pcf_taps=cfg.pcf_taps,
                     shadow_lookup_stride=cfg.shadow_lookup_stride,
-                    binning=cfg.binning))
+                    binning=cfg.binning, vertex_shader=vs))
+        return self.pipelines.get_or_create(key, self._build_flat_frame)
 
-        def build():
-            def frame(ccols, tri_node, matrices):
+    def _flat_target(self):
+        """The flat frame's rendered size and its tile-padded target:
+        (width, height, pad_height, pad_width) at ``supersample``x."""
+        s = self.config.supersample
+        w, h = self.config.width * s, self.config.height * s
+        return (w, h, -(-h // raster.TILE_H) * raster.TILE_H,
+                -(-w // raster.TILE_W) * raster.TILE_W)
+
+    def _build_flat_frame(self):
+        """The flat frame function ``frame(b, matrices, cull=None,
+        raw_packed=False)``: the column buffers, or the indexed ones
+        through the bound vertex shader; ``cull`` the meshlet cull's
+        (bounds, mdraw, enabled, cam_local).  Returns (rgba u8 (H, W, 4),
+        depth (H, W)), resolved from the supersampled frame above 1x; with
+        ``raw_packed`` the padded packed planes as the kernel wrote them."""
+        cfg = self.config
+        vs = self._vertex_shader
+        target = self._flat_target()
+
+        def frame(b, matrices, cull=None, raw_packed=False):
+            kw = dict(binning=cfg.binning, raw_packed=raw_packed,
+                      meshlet_cull=cull)
+            if vs is None:
                 color, depth = raster.render_frame(
-                    ccols, tri_node, matrices, cfg.width, cfg.height,
-                    cfg.pad_height, cfg.pad_width, binning=cfg.binning,
-                )
-                return raster.unpack_rgba8(color), depth
+                    b["corner_cols"], b["tri_node"], matrices, *target, **kw)
+            else:
+                color, depth = raster.render_frame_indexed(
+                    b["positions"], b["attrs"], b["tri_vidx"], b["vert_node"],
+                    matrices, *target, vertex_shader=vs, **kw)
+            if raw_packed:
+                return color, depth
+            return self._finish_flat(color, depth)
 
-            return frame
+        return frame
 
-        return self.pipelines.get_or_create(key, build)
+    def _finish_flat(self, packed, depth):
+        """Unpack a cropped flat frame and, above 1x, box-resolve it."""
+        color = raster.unpack_rgba8(packed)
+        s = self.config.supersample
+        if s > 1:
+            color, depth = raster.ssaa_resolve(color, depth, s)
+        return color, depth
 
     def _view_proj(self, camera=None, jitter=None) -> np.ndarray:
         """The camera's view-projection, offset by ``jitter`` (jx, jy)
@@ -296,6 +359,24 @@ class Renderer:
         if transforms is not None:
             node_to_world = np.asarray(transforms, np.float32)
         return np.einsum("nij,jk->nik", node_to_world, vp).astype(np.float32)
+
+    def cam_local_constants(self, camera=None, transforms=None) -> np.ndarray:
+        """(D, 4) f32: the camera position in each draw's local space, the
+        backface-cone input of meshlet culling (inverted in f64)."""
+        camera = camera if camera is not None else self.scene.active_camera
+        n2w = self.flat.node_to_world
+        if transforms is not None:
+            n2w = np.asarray(transforms, np.float32)
+        cam = np.asarray([*camera.position[:3], 1.0], np.float32)
+        inv = np.linalg.inv(n2w.astype(np.float64)).astype(np.float32)
+        return np.einsum("j,djk->dk", cam, inv).astype(np.float32)
+
+    def _cull(self, cam_local=None):
+        """The flat frame's ``cull`` argument: the meshlet table and the
+        frame's staged camera positions, or None without the table."""
+        if self._meshlet_table is None:
+            return None
+        return (*self._meshlet_table, cam_local)
 
     def _lit_constants(self, camera=None, transforms=None,
                        jitter=None) -> dict:
@@ -425,9 +506,17 @@ class Renderer:
     def render(self, camera=None, transforms=None, jitter=None):
         """Enqueue one frame; returns the device frame
         (rgba (H, W, 4) u8, depth (H, W) f32) without waiting for it.
-        ``jitter``: optional (jx, jy) sub-pixel TAA offset."""
+        ``jitter``: optional (jx, jy) sub-pixel TAA offset.  The frame is
+        marked after the render zone closes, so that the frame spans nest
+        around the zones."""
         if self.flat is None:
             raise RuntimeError("load_scene first")
+        with ztracy.zone("render"):
+            out = self._render(camera, transforms, jitter)
+        ztracy.frame_mark()
+        return out
+
+    def _render(self, camera, transforms, jitter):
         self._pace()
         frame = self._frame_fn()
         b = self._buffers()
@@ -441,10 +530,13 @@ class Renderer:
                 self._shadow_map = shadow[0]
             matrices = staged[0]
         else:
-            (matrices,) = self._stage_constants(
-                [self.camera_matrices(camera, transforms, jitter)])
-            color, depth = frame(b["corner_cols"], b["tri_node"], matrices)
+            host = [self.camera_matrices(camera, transforms, jitter)]
+            if self._meshlet_table is not None:
+                host.append(self.cam_local_constants(camera, transforms))
+            matrices, *cam_local = self._stage_constants(host)
+            color, depth = frame(b, matrices, self._cull(*cam_local))
         if self.config.debug:
+            self._validate_frame(color, depth)
             dropped = self.clip_overflow(matrices)
             self.stats.clip_dropped = dropped
             if dropped:
@@ -463,21 +555,46 @@ class Renderer:
     def clip_overflow(self, matrices) -> int:
         """Triangles the capped clipper drops for these per-draw
         object_to_clip matrices ((D, 4, 4), host or device): run each frame
-        under ``config.debug``, or on demand.  Reads the count back."""
+        under ``config.debug``, or on demand.  Reads the count back.  With
+        a vertex shader bound it counts the shaded vertices; the viewport
+        is the rendered one (``supersample`` times the frame on the flat
+        pipeline)."""
         b = self._buffers()
         mats = torch.as_tensor(matrices, dtype=torch.float32).to(self.device)
-        return int(clip_overflow_count(b["corner_cols"], b["tri_node"], mats,
-                                       self.config.width,
-                                       self.config.height).item())
+        w, h = self.config.width, self.config.height
+        if self.config.pipeline == "flat":
+            w, h = self._flat_target()[:2]
+        if self._vertex_shader is None:
+            n = clip_overflow_count(b["corner_cols"], b["tri_node"], mats,
+                                    w, h)
+        else:
+            n = clip_overflow_count_indexed(
+                b["positions"], b["attrs"], b["tri_vidx"], mats,
+                b["vert_node"], w, h, vertex_shader=self._vertex_shader)
+        return int(n.item())
+
+    def _validate_frame(self, color, depth) -> None:
+        """The debug layer's frame check: ``FloatingPointError`` when the
+        depth plane holds a non-finite value or one outside [0, 1] (a host
+        sync).  ``color`` is accepted for the reference's signature."""
+        del color
+        d = torch.as_tensor(depth)
+        if not bool(torch.isfinite(d).all()):
+            raise FloatingPointError("debug validation: non-finite depth")
+        lo, hi = float(d.min()), float(d.max())
+        if lo < 0.0 or hi > 1.0:
+            raise FloatingPointError(
+                f"debug validation: depth outside [0,1] ({lo}, {hi})")
 
     def present(self):
         """Fence pacing, then rotate the staging ring.  Returns the newest
         frame's device tensors (not necessarily complete yet)."""
         if self._pending is None:
             raise RuntimeError("render first")
-        self._pace()
-        self.upload_ring.begin_frame()
-        return self._pending
+        with ztracy.zone("present"):
+            self._pace()
+            self.upload_ring.begin_frame()
+            return self._pending
 
     def read_frame(self):
         """Device -> host copy of the newest frame: (rgba_u8 (H, W, 4),
@@ -485,7 +602,8 @@ class Renderer:
         if self._pending is None:
             raise RuntimeError("render first")
         color, depth = self._pending
-        out = color.cpu().numpy(), depth.cpu().numpy()
+        with ztracy.zone("read_frame"):
+            out = color.cpu().numpy(), depth.cpu().numpy()
         # The copy waited for the newest frame; older ones finished first.
         self._in_flight.clear()
         return out
@@ -493,6 +611,53 @@ class Renderer:
     def render_and_read(self, camera=None, transforms=None, jitter=None):
         self.render(camera, transforms, jitter)
         return self.read_frame()
+
+    # -- vertex shaders, compute and mesh pipelines -------------------------
+
+    def set_vertex_shader(self, fn, name: str | None = None) -> None:
+        """Bind a vertex stage: ``fn(positions (N, 4), attrs (N, 12)) ->
+        (positions, attrs)`` on tensors of the renderer's device, applied
+        in object space before the transform, in every pipeline's camera
+        pass (the shadow pass runs unshaded, as the reference's) and in
+        ``clip_overflow``.  The indexed
+        buffers feed those stages while one is bound.  ``name`` keys the
+        pipeline cache (default: the function's identity).
+        ``set_vertex_shader(None)`` restores the column path."""
+        self._vertex_shader = fn
+        self._vertex_shader_key = (None if fn is None
+                                   else (name or f"vs-{id(fn)}"))
+
+    def create_compute_pipeline(self, fn, static_argnums=()):
+        """Pool ``fn`` (any device program on tensors) as a pipeline and
+        return its generational handle; ``dispatch`` runs it.  ``fn`` is
+        pooled as it is: nothing is compiled, so ``static_argnums`` (the
+        reference's jit argument) has no effect and is accepted for the
+        API's sake."""
+        del static_argnums
+        return self.pipelines.add_pipeline(fn)
+
+    def create_mesh_pipeline(self, fn):
+        """Pool a flat frame whose geometry a device program generates:
+        ``fn(*args) -> (positions (V, 4) f32, attrs (V, 12) f32, tri_vidx
+        (T, 3) i32, vert_node (V,) i32)``, tensors on the renderer's
+        device.  ``dispatch(handle, matrices, *args)`` pads them on the
+        device with zero rows to ``vert_align``/``tri_align`` (degenerate
+        triangles), renders them through the indexed flat entry under the
+        config's binning (and supersample) and returns (rgba u8, depth);
+        nothing goes to the host.  The pipeline's ``geometry(*args)``
+        returns the padded buffers alone."""
+        return self.pipelines.add_pipeline(_MeshPipeline(self, fn))
+
+    def dispatch(self, handle, *args, **kwargs):
+        """Run a pooled pipeline; a destroyed handle raises."""
+        fn = self.pipelines.lookup_pipeline(handle)
+        if fn is None:
+            raise RuntimeError("dispatch on a stale/destroyed pipeline handle")
+        with ztracy.zone("dispatch"):
+            return fn(*args, **kwargs)
+
+    def destroy_pipeline(self, handle) -> None:
+        self.pipelines.destroy_pipeline(handle)
 
     def finish_gpu_commands(self) -> None:
         """Drain the device."""
@@ -514,8 +679,9 @@ class Renderer:
         Per-frame constants for all N frames are computed on the host and
         uploaded once; then every frame is rendered and reduced to a
         digest with no host sync in the loop: flat frames at the padded
-        size as packed planes (``frame_digest``), then the presented frame
-        once more, cropped and unpacked; the other pipelines' frames as the
+        size as packed planes (``frame_digest``), or under SSAA as the
+        resolved u8 frame (``rgba_digest``), then the presented frame once
+        more, cropped and unpacked; the other pipelines' frames as the
         visible u8 frame (``rgba_digest``), the last one presented.
         ``jitters``: optional (N, 2) sub-pixel TAA offsets.  Returns
         ``(digests (N,) f32, (color, depth))``; reading the digests is a
@@ -556,9 +722,15 @@ class Renderer:
             if shadow:
                 self._shadow_map = shadow[0]
         else:
-            digests, (color, depth) = self._flat_animation(
-                digests, upload(np.stack([self.camera_matrices(*per_frame(i))
-                                          for i in range(num_frames)])))
+            mats = upload(np.stack([self.camera_matrices(*per_frame(i))
+                                    for i in range(num_frames)]))
+            cam_local = None
+            if self._meshlet_table is not None:
+                cam_local = upload(np.stack([
+                    self.cam_local_constants(*per_frame(i)[:2])
+                    for i in range(num_frames)]))
+            digests, (color, depth) = self._flat_animation(digests, mats,
+                                                           cam_local)
         self._pending = (color, depth)
         self._in_flight.append(self._fence())
         self.stats.update(
@@ -567,21 +739,54 @@ class Renderer:
         )
         return digests, (color, depth)
 
-    def _flat_animation(self, digests, mats):
+    def _flat_animation(self, digests, mats, cam_local=None):
         """The flat frames of ``render_animation``: each padded packed
-        plane digested, then the presented frame rendered once more."""
-        cfg = self.config
-        num_frames = digests.shape[0]
+        plane digested (the resolved frame under SSAA), then the presented
+        frame rendered once more."""
+        frame = self._frame_fn()
         b = self._buffers()
-        ccols, tri_node = b["corner_cols"], b["tri_node"]
-        for i in range(num_frames):
-            packed, _ = raster.render_frame(
-                ccols, tri_node, mats[i], cfg.width, cfg.height,
-                cfg.pad_height, cfg.pad_width, binning=cfg.binning,
-                raw_packed=True,
-            )
-            digests[i] = frame_digest(packed)
-        return digests, self._frame_fn()(ccols, tri_node, mats[-1])
+
+        def cull(i):
+            return self._cull(None if cam_local is None else cam_local[i])
+
+        for i in range(digests.shape[0]):
+            if self.config.supersample == 1:
+                packed, _ = frame(b, mats[i], cull(i), raw_packed=True)
+                digests[i] = frame_digest(packed)
+            else:
+                digests[i] = rgba_digest(frame(b, mats[i], cull(i))[0])
+        return digests, frame(b, mats[-1], cull(-1))
+
+
+class _MeshPipeline:
+    """A pooled mesh pipeline (``Renderer.create_mesh_pipeline``)."""
+
+    def __init__(self, renderer: Renderer, fn):
+        self._renderer = renderer
+        self._fn = fn
+
+    def geometry(self, *args):
+        """``fn(*args)``'s buffers padded on the device with zero rows to
+        the config's vertex and triangle alignments."""
+        cfg = self._renderer.config
+        positions, attrs, tri_vidx, vert_node = self._fn(*args)
+
+        def pad(t, align):
+            extra = -t.shape[0] % align
+            zeros = torch.zeros((extra, *t.shape[1:]), dtype=t.dtype,
+                                device=t.device)
+            return torch.cat([t, zeros])
+
+        return (pad(positions, cfg.vert_align), pad(attrs, cfg.vert_align),
+                pad(tri_vidx, cfg.tri_align), pad(vert_node, cfg.vert_align))
+
+    def __call__(self, matrices, *args):
+        r = self._renderer
+        mats = torch.as_tensor(matrices, dtype=torch.float32).to(r.device)
+        color, depth = raster.render_frame_indexed(
+            *self.geometry(*args), mats, *r._flat_target(),
+            binning=r.config.binning)
+        return r._finish_flat(color, depth)
 
 
 def _draw_aabb_corners(flat: FlatScene) -> np.ndarray:

@@ -50,6 +50,56 @@ class FlatScene:
     def draw_count(self) -> int:
         return len(self.node_to_world)
 
+    def build_meshlet_table(self, block: int = 128):
+        """Per-meshlet culling metadata: a meshlet is a block of ``block``
+        consecutive triangles of the flattened submission order, aligned
+        with the raster's RASTER_BLOCK so that a culled meshlet's rows
+        leave whole blocks.
+
+        Returns (bounds (M, 8) f32, mdraw (M,) i32, enabled (M,) bool):
+        bounds rows are [cx, cy, cz, radius, ax, ay, az, cone_cutoff] in
+        draw-local space (cutoff < 0: the cone never culls).  Blocks that
+        mix draws are disabled (kept)."""
+        B = block
+        T = len(self.tri_vidx)
+        if T % B:
+            raise ValueError(f"{T} triangles: pad to a multiple of {B}")
+        M = T // B
+        tnode = self.vert_node[self.tri_vidx[:, 0]].reshape(M, B)
+        enabled = (tnode == tnode[:, :1]).all(axis=1)
+        mdraw = tnode[:, 0].astype(np.int32)
+
+        p = self.positions[self.tri_vidx.reshape(-1), :3].astype(np.float32)
+        p = p.reshape(M, B, 3, 3)
+        flatp = p.reshape(M, B * 3, 3)
+        lo = flatp.min(axis=1)
+        hi = flatp.max(axis=1)
+        center = (lo + hi) * np.float32(0.5)
+        radius = np.sqrt(
+            ((flatp - center[:, None]) ** 2).sum(axis=2).max(axis=1)
+        )
+
+        e1 = p[:, :, 1] - p[:, :, 0]
+        e2 = p[:, :, 2] - p[:, :, 0]
+        nrm = np.cross(e1, e2)
+        ln = np.linalg.norm(nrm, axis=2, keepdims=True)
+        live = ln[..., 0] > 0
+        nrm = np.where(ln > 0, nrm / np.where(ln > 0, ln, 1), 0.0)
+        axis = nrm.sum(axis=1)
+        alen = np.linalg.norm(axis, axis=1, keepdims=True)
+        axis = np.where(alen > 1e-20, axis / np.where(alen > 1e-20, alen, 1),
+                        0.0)
+        dots = (nrm * axis[:, None]).sum(axis=2)
+        cutoff = np.where(live, dots, 2.0).min(axis=1)
+        cutoff = np.where(
+            (alen[:, 0] > 1e-20) & live.any(axis=1), cutoff, -1.0
+        ).astype(np.float32)
+
+        bounds = np.concatenate(
+            [center, radius[:, None], axis, cutoff[:, None]], axis=1
+        ).astype(np.float32)
+        return bounds, mdraw, enabled
+
     def expand_corner_cols(self):
         """Column (SoA) per-corner expansion: one (48, T) f32 buffer whose
         row c*16+j holds channel j of triangle corner c (channels 0:4

@@ -5,9 +5,9 @@ Counterpart of ``zrenderer_tpu/ops/geometry.py``: the column path
 the indexed path the sharded frames call (``geometry_pipeline`` with
 ``transform_positions``, ``transform_normals``, ``assemble_triangles``, the
 capped and the dense clipper, the vertex-shader hook), the binning helpers
-(``compact_triangles``, ``block_bounds``, ``super_bounds``), plus the
-setup-row layout, the size rules and the per-frame view-projection they
-depend on.
+(``compact_triangles``, ``block_bounds``, ``super_bounds``), the
+meshlet visibility test (``meshlet_keep_mask``), plus the setup-row
+layout, the size rules and the per-frame view-projection they depend on.
 
 The indexed path transforms each vertex once, gathers the triangles'
 corners into the column form and shares the column path's clipper and
@@ -570,3 +570,68 @@ def super_bounds(blocks, super_block: int = SUPER_BLOCK):
         [jmin, jmax, imin, imax, any_valid, zero, zero, zero], dim=1
     ).to(I32)
     return blocks, supers
+
+
+# ---------------------------------------------------------------------------
+# Meshlet (cluster) visibility
+# ---------------------------------------------------------------------------
+
+# Clip-space half-space planes p with "visible => v_clip . p >= 0" in the
+# row-vector convention with D3D [0, 1] depth: left, right, bottom, top,
+# near, far (the reference's ``_FRUSTUM_PLANES``).
+_FRUSTUM_PLANES = (
+    (1.0, 0.0, 0.0, 1.0),
+    (-1.0, 0.0, 0.0, 1.0),
+    (0.0, 1.0, 0.0, 1.0),
+    (0.0, -1.0, 0.0, 1.0),
+    (0.0, 0.0, 1.0, 0.0),
+    (0.0, 0.0, -1.0, 1.0),
+)
+
+
+def _sum3(a, b):
+    """Row-wise dot of the last dimension's three channels, summed as
+    ((a0 b0 + a1 b1) + a2 b2): NumPy's reduction and einsum order."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def meshlet_keep_mask(bounds, mdraw, enabled, matrices, cam_local,
+                      backface_margin: float = 0.1):
+    """(M,) bool: the meshlets that may be visible this frame (the
+    reference's ``meshlet_keep_mask``, op for op).
+
+    ``bounds`` (M, 8) f32 draw-local [center, radius, cone axis, cone
+    cutoff] (``FlatScene.build_meshlet_table``), ``mdraw`` (M,) i32 each
+    meshlet's draw, ``enabled`` (M,) bool (a disabled meshlet is kept),
+    ``matrices`` (D, 4, 4) object_to_clip (row-vector), ``cam_local``
+    (D, 4) the camera position in each draw's local space.  A meshlet is
+    culled when its bounding sphere lies outside a frustum plane pulled to
+    local space (lp = M @ p), or when its normal cone faces away from the
+    camera by more than ``backface_margin``; both tests are conservative
+    for float geometry.  The reference's two einsums are written as
+    explicit products: the 4-term plane transform summed as
+    (p0 + p1) + (p2 + p3), the 3-term dots in order, as NumPy sums them,
+    so every keep bit is the reference's."""
+    planes = torch.tensor(_FRUSTUM_PLANES, dtype=F32, device=matrices.device)
+    # lp[d, k, i] = sum_j matrices[d, i, j] * planes[k, j].
+    prod = [matrices[:, None, :, j] * planes[None, :, None, j]
+            for j in range(4)]
+    lp = (prod[0] + prod[1]) + (prod[2] + prod[3])  # (D, 6, 4)
+    lpm = lp[mdraw.long()]  # (M, 6, 4)
+    c = bounds[:, 0:3]
+    r = bounds[:, 3]
+    dist_to_plane = _sum3(c[:, None, :], lpm[:, :, 0:3]) + lpm[:, :, 3]
+    plane_norm = torch.sqrt(_sum3(lpm[:, :, 0:3], lpm[:, :, 0:3]))
+    outside = (dist_to_plane < -r[:, None] * plane_norm).any(dim=1)
+
+    axis = bounds[:, 4:7]
+    w = bounds[:, 7]
+    cam = cam_local[mdraw.long(), 0:3]
+    d = cam - c
+    dist = torch.sqrt(_sum3(d, d))
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - w * w, 0.0))
+    backface = (w >= 0.0) & (
+        (_sum3(d, axis) * w + dist * sin_t) + r
+        < _f32(-backface_margin) * dist
+    )
+    return ~enabled | ~(outside | backface)

@@ -352,13 +352,20 @@ def composite_layers_plain(frame_u8, cnt, layers, atlas, K: int = DEFAULT_K):
     return torch.cat([q, alpha], dim=-1)
 
 
+def composite_aligned(*tensors) -> bool:
+    """True when every tensor starts on a 16-byte boundary, as K8b's
+    16-byte loads and stores need."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def overlay_composite_kernel(frame_u8, cnt, layers, atlas,
                              K: int = DEFAULT_K):
     """Launch K8b (``csrc/overlay.cu``: four pixels a thread, a pixel
     without a live layer copied with alpha 255) on the current stream;
     returns the composited (H, W, 4) uint8 frame.  The kernel reads the
-    frame and the count and writes the output 16 bytes at a time, so each
-    must start on a 16-byte boundary."""
+    frame and the count and writes the output 16 bytes at a time: a frame
+    or count that does not start on a 16-byte boundary (a view into a
+    larger buffer) is copied into a fresh tensor first."""
     lu, lv, lc = layers
     dev = cnt.device
     h, w = cnt.shape
@@ -374,10 +381,11 @@ def overlay_composite_kernel(frame_u8, cnt, layers, atlas,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {shape} expected, got "
                              f"{tuple(t.shape)}")
+    if not composite_aligned(frame_u8):
+        frame_u8 = frame_u8.clone()
+    if not composite_aligned(cnt):
+        cnt = cnt.clone()
     out = torch.empty((h, w, 4), dtype=U8, device=dev)
-    for name, t in (("frame_u8", frame_u8), ("cnt", cnt), ("out", out)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: a 16-byte aligned tensor expected")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch(_build.load_library().zr_overlay_composite, _ptr(frame_u8),

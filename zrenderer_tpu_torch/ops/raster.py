@@ -43,6 +43,10 @@ Counterpart of the flat path of ``zrenderer_tpu/ops/raster_pallas.py``:
 All produce a packed RGBA8 plane (u32 bits carried in an ``int32``
 tensor; alpha 255 sets bit 31) and an f32 depth plane over the padded
 (H, W) frame, resolved with one divide per pixel (docs/RASTER_SPEC.md §4).
+The frame entries (``render_frame`` from the column buffers,
+``render_frame_indexed`` from the indexed ones with an optional vertex
+shader) can kill the rows of culled meshlets before the dispatch
+(``cull_meshlets``); ``ssaa_resolve`` box-filters a supersampled frame.
 
 The G-buffer kernels (K2g, K3g, K4g, K5g, K6g) add the lit planes; the
 depth-only kernels of the shadow-map pass (K2d, K3d, K4d, K6d) keep z
@@ -1847,22 +1851,92 @@ def select_raster(binning: str, rows: int):
     return rasterize_setup
 
 
+def cull_meshlets(tri_i32, matrices, meshlet_cull):
+    """Kill the head rows of the meshlets that ``meshlet_keep_mask``
+    culls (``kill_rows``), as ``render_frame_pallas`` does before its
+    dispatch.  ``meshlet_cull``: (bounds (M, 8), mdraw (M,), enabled (M,),
+    cam_local (D, 4)) on the rows' device.  The M * RASTER_BLOCK head rows
+    lie first, in triangle order (``geometry_pipeline``'s layout); the fan
+    rows after them stay."""
+    bounds, mdraw, enabled, cam_local = meshlet_cull
+    keep = tg.meshlet_keep_mask(bounds, mdraw, enabled, matrices, cam_local)
+    n_tris = keep.shape[0] * RASTER_BLOCK
+    if n_tris != head_count(tri_i32.shape[0]):
+        raise ValueError(f"{keep.shape[0]} meshlets of {RASTER_BLOCK} rows "
+                         f"for a frame of {head_count(tri_i32.shape[0])} "
+                         "head rows")
+    kill = torch.cat([
+        torch.repeat_interleave(~keep, RASTER_BLOCK),
+        torch.zeros(tri_i32.shape[0] - n_tris, dtype=torch.bool,
+                    device=tri_i32.device),
+    ])
+    return kill_rows(tri_i32, kill)
+
+
+def _flat_dispatch(tri_i32, tri_f32, matrices, height: int, width: int,
+                   pad_height: int, pad_width: int, binning: str,
+                   raw_packed: bool, meshlet_cull):
+    """The flat frame after its geometry: the meshlet cull, the raster
+    dispatch over the padded target, the crop."""
+    if meshlet_cull is not None:
+        tri_i32 = cull_meshlets(tri_i32, matrices, meshlet_cull)
+    raster = select_raster(binning, tri_i32.shape[0])
+    color, depth = raster(tri_i32, tri_f32, pad_width, pad_height)
+    if raw_packed:
+        return color, depth
+    return color[:height, :width], depth[:height, :width]
+
+
 def render_frame(ccols, tri_node, matrices, width: int, height: int,
                  pad_height: int, pad_width: int, binning: str = "auto",
-                 raw_packed: bool = False):
+                 raw_packed: bool = False, meshlet_cull=None):
     """Full flat frame: column geometry at the true (width, height)
     viewport, then the raster kernel over the padded target.
+    ``meshlet_cull``: None, or (bounds, mdraw, enabled, cam_local) to kill
+    the rows of culled meshlets first (``cull_meshlets``).
 
     Returns (packed (height, width) i32, depth f32), cropped; with
     ``raw_packed`` the padded planes as the kernel wrote them.
     """
     tri_i32, tri_f32 = tg.geometry_pipeline_cols(
         ccols, tri_node, matrices, width, height)
-    raster = select_raster(binning, tri_i32.shape[0])
-    color, depth = raster(tri_i32, tri_f32, pad_width, pad_height)
-    if raw_packed:
-        return color, depth
-    return color[:height, :width], depth[:height, :width]
+    return _flat_dispatch(tri_i32, tri_f32, matrices, height, width,
+                          pad_height, pad_width, binning, raw_packed,
+                          meshlet_cull)
+
+
+def render_frame_indexed(positions, attrs, tri_vidx, vert_node, matrices,
+                         width: int, height: int, pad_height: int,
+                         pad_width: int, binning: str = "auto",
+                         vertex_shader=None, raw_packed: bool = False,
+                         meshlet_cull=None):
+    """``render_frame`` from the indexed buffers (per-vertex positions
+    (N, 4) and attrs (N, 12), ``tri_vidx`` (T, 3), ``vert_node`` (N,)):
+    the indexed geometry stage with the optional vertex shader
+    (``geometry_pipeline``), then the same cull, dispatch and crop.  The
+    path of ``render_frame_pallas`` with a shader bound, and of the mesh
+    pipeline's generated geometry."""
+    tri_i32, tri_f32 = tg.geometry_pipeline(
+        positions, attrs, tri_vidx, matrices, vert_node, width, height,
+        vertex_shader=vertex_shader)
+    return _flat_dispatch(tri_i32, tri_f32, matrices, height, width,
+                          pad_height, pad_width, binning, raw_packed,
+                          meshlet_cull)
+
+
+def ssaa_resolve(color_u8, depth, s: int):
+    """Ordered-grid supersample resolve of an (s*H, s*W, 4) u8 frame and
+    its depth to (H, W): the box sum of each s x s block with round-half-up
+    ((sum + s*s // 2) // (s*s), integer), depth the block's minimum (the
+    reference's ``raster_xla.ssaa_resolve``; plain torch ops)."""
+    h2, w2 = depth.shape
+    h, w = h2 // s, w2 // s
+    c = color_u8.to(torch.int32).reshape(h, s, w, s, 4)
+    csum = c.sum(dim=(1, 3), dtype=torch.int32)
+    n = s * s
+    out = torch.div(csum + n // 2, n, rounding_mode="floor").to(torch.uint8)
+    d = depth.reshape(h, s, w, s).amin(dim=(1, 3))
+    return out, d
 
 
 # ---------------------------------------------------------------------------
@@ -1962,6 +2036,26 @@ def render_gbuffer(ccols, tri_node, matrices, normal_matrices,
     tri_i32, tri_f32 = tg.geometry_pipeline_cols(
         ccols, tri_node, matrices, width, height,
         normal_matrices=normal_matrices, material_table=material_table)
+    return _gbuffer_dispatch(tri_i32, tri_f32, width, height, pad_height,
+                             pad_width, binning)
+
+
+def render_gbuffer_indexed(positions, attrs, tri_vidx, vert_node, matrices,
+                           normal_matrices, material_table, width: int,
+                           height: int, pad_height: int, pad_width: int,
+                           binning: str = "auto", vertex_shader=None):
+    """``render_gbuffer`` from the indexed buffers, through the indexed
+    geometry stage with the optional vertex shader."""
+    tri_i32, tri_f32 = tg.geometry_pipeline(
+        positions, attrs, tri_vidx, matrices, vert_node, width, height,
+        normal_matrices=normal_matrices, material_table=material_table,
+        vertex_shader=vertex_shader)
+    return _gbuffer_dispatch(tri_i32, tri_f32, width, height, pad_height,
+                             pad_width, binning)
+
+
+def _gbuffer_dispatch(tri_i32, tri_f32, width: int, height: int,
+                      pad_height: int, pad_width: int, binning: str):
     raster = select_gbuffer_raster(binning, tri_i32.shape[0])
     planes = raster(tri_i32, tri_f32, pad_width, pad_height)
     return [p[:height, :width] for p in planes]

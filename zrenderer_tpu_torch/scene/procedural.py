@@ -1,6 +1,7 @@
 """Procedural scenes of the port: the cube-lattice stress scene and the
 random triangle soup, which ``chip_smoke.py`` drives through K3 and
-through the clipper; and ``one_tile_rows``, setup rows that crowd one
+through the clipper; the sphere field of the meshlet-culling frames; the
+two-material cube pair; and ``one_tile_rows``, setup rows that crowd one
 tile's list (K1's and K2d's staging, ``chip_smoke.py`` and the tests).
 
 The scenes are copied from ``zrenderer_tpu/scene/procedural.py`` (only
@@ -16,7 +17,7 @@ import torch
 
 from zrenderer_tpu_torch.math import zmath as zm
 from zrenderer_tpu_torch.ops import geometry as tg
-from zrenderer_tpu_torch.scene.mesh import MeshData, make_vertex
+from zrenderer_tpu_torch.scene.mesh import Material, MeshData, make_vertex
 from zrenderer_tpu_torch.scene.scene import Camera, Mobility, Node, Scene
 
 # Placement constants of the reference test scene (test.gltf nodes).
@@ -39,14 +40,34 @@ _FACES = [
 ]
 
 
-def make_cube_mesh(mesh_data: MeshData, size: float = 1.0) -> int:
+def _morton_sorted(grid):
+    """The (n, 3) integer grid cells in 3D Morton order."""
+    def spread(x):
+        x = x.astype(np.uint64)
+        x = (x | (x << 32)) & np.uint64(0x1F00000000FFFF)
+        x = (x | (x << 16)) & np.uint64(0x1F0000FF0000FF)
+        x = (x | (x << 8)) & np.uint64(0x100F00F00F00F00F)
+        x = (x | (x << 4)) & np.uint64(0x10C30C30C30C30C3)
+        x = (x | (x << 2)) & np.uint64(0x1249249249249249)
+        return x
+
+    morton = (spread(grid[:, 0]) | (spread(grid[:, 1]) << np.uint64(1))
+              | (spread(grid[:, 2]) << np.uint64(2)))
+    return grid[np.argsort(morton)]
+
+
+def make_cube_mesh(mesh_data: MeshData, size: float = 1.0,
+                   face_colors: bool = True) -> int:
     """Append a unit cube with one color per face (24 verts, 36
-    indices); returns the mesh index."""
+    indices); returns the mesh index.  ``face_colors=False`` makes every
+    vertex white (the material fixture)."""
     verts = []
     indices = []
     uvs = [(0, 0), (1, 0), (1, 1), (0, 1)]
     for normal, tangent, corners, color in _FACES:
         base = len(verts)
+        if not face_colors:
+            color = (1, 1, 1, 1)
         for corner, uv in zip(corners, uvs):
             pos = tuple(c * size for c in corner)
             verts.append(make_vertex(pos, uv=uv, color=color, normal=normal, tangent=tangent))
@@ -54,6 +75,33 @@ def make_cube_mesh(mesh_data: MeshData, size: float = 1.0) -> int:
     return mesh_data.append_mesh(
         np.stack(verts), np.array(indices, np.uint32)
     )
+
+
+def make_material_scene() -> tuple:
+    """Two side-by-side white cubes with different materials: a smooth
+    metal (left) and a rough dielectric with a green emissive (right)."""
+    mesh_data = MeshData()
+    left = make_cube_mesh(mesh_data, face_colors=False)
+    right = make_cube_mesh(mesh_data, face_colors=False)
+    mesh_data.materials = [
+        Material(metallic=1.0, roughness=0.15, name="metal"),
+        Material(metallic=0.0, roughness=0.9, emissive=(0.0, 0.35, 0.0),
+                 name="rough-glow"),
+    ]
+    mesh_data.mesh_material = [0, 1]
+
+    scene = Scene()
+    scene.nodes.append(Node(mesh_indices=[left], transform_index=0,
+                            name="MetalCube"))
+    scene.transforms.append(zm.translation(-1.6, 0.0, 0.0))
+    scene.nodes.append(Node(mesh_indices=[right], transform_index=1,
+                            name="GlowCube"))
+    scene.transforms.append(zm.translation(1.6, 0.0, 0.0))
+    scene.cameras.append(
+        Camera(position=np.array([0.0, 0.0, 7.0], np.float32),
+               forward=np.array([0.0, 0.0, -1.0], np.float32),
+               yfov=0.8, znear=0.1, zfar=100.0, name="Camera"))
+    return scene, mesh_data
 
 
 def make_test_camera() -> Camera:
@@ -106,21 +154,7 @@ def make_stress_scene(num_triangles: int = 1_000_000, seed: int = 0) -> tuple:
                     indexing="ij"),
         axis=-1,
     ).reshape(-1, 3)[:cubes]
-
-    def _spread(x):
-        x = x.astype(np.uint64)
-        x = (x | (x << 32)) & np.uint64(0x1F00000000FFFF)
-        x = (x | (x << 16)) & np.uint64(0x1F0000FF0000FF)
-        x = (x | (x << 8)) & np.uint64(0x100F00F00F00F00F)
-        x = (x | (x << 4)) & np.uint64(0x10C30C30C30C30C3)
-        x = (x | (x << 2)) & np.uint64(0x1249249249249249)
-        return x
-
-    morton = (
-        _spread(grid[:, 0]) | (_spread(grid[:, 1]) << np.uint64(1))
-        | (_spread(grid[:, 2]) << np.uint64(2))
-    )
-    grid = grid[np.argsort(morton)]
+    grid = _morton_sorted(grid)
 
     spacing = 2.6
     centers = (grid - (side - 1) / 2.0) * spacing  # centered lattice
@@ -198,6 +232,89 @@ def make_triangle_soup(
             znear=0.1,
             zfar=100.0,
             name="soupcam",
+        )
+    )
+    return scene, mesh_data
+
+
+def make_sphere_field(num_triangles: int = 1_000_000, seed: int = 0,
+                      stacks: int = 64, slices: int = 128) -> tuple:
+    """A field of UV spheres, the meshlet-culling fixture: closed convex
+    surfaces where about half of every sphere's 128-triangle meshlets face
+    away from any camera.  Spheres are Morton-ordered on a grid and each
+    sphere's triangles go in 8x8 (stack, slice) patches, so each meshlet
+    is one compact angular patch with a tight normal cone."""
+    rng = np.random.default_rng(seed)
+    per_sphere = 2 * stacks * slices
+    count = max(1, num_triangles // per_sphere)
+    side = int(np.ceil(count ** (1.0 / 3.0)))
+    grid = np.stack(
+        np.meshgrid(np.arange(side), np.arange(side), np.arange(side),
+                    indexing="ij"),
+        axis=-1,
+    ).reshape(-1, 3)[:count]
+    grid = _morton_sorted(grid)
+    spacing = 3.0
+    centers = (grid - (side - 1) / 2.0) * spacing
+
+    # One canonical UV sphere.
+    theta = np.linspace(0.0, np.pi, stacks + 1)
+    phi = np.linspace(0.0, 2.0 * np.pi, slices + 1)
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")
+    sx = np.sin(tt) * np.cos(pp)
+    sy = np.cos(tt)
+    sz = np.sin(tt) * np.sin(pp)
+    sv = np.stack([sx, sy, sz], axis=-1).reshape(-1, 3).astype(np.float32)
+    nv = len(sv)
+    base_verts = np.zeros((nv, 16), np.float32)
+    base_verts[:, 0:3] = sv
+    base_verts[:, 8] = 1.0
+    base_verts[:, 9:12] = sv  # outward normal
+
+    i0 = (np.arange(stacks)[:, None] * (slices + 1)
+          + np.arange(slices)[None, :])
+    quads = np.stack(
+        [i0, i0 + slices + 1, i0 + slices + 2, i0 + 1], axis=-1
+    ).reshape(-1, 4)
+    # Patch-major quad order: 8x8 (stack, slice) tiles, one patch a
+    # 128-triangle meshlet.
+    P = 8
+    if stacks % P == 0 and slices % P == 0:
+        tiles = (np.arange(stacks * slices)
+                 .reshape(stacks // P, P, slices // P, P)
+                 .transpose(0, 2, 1, 3).reshape(-1))
+        quads = quads[tiles]
+    # CCW front faces seen from outside; both halves of a quad in one
+    # meshlet.
+    base_idx = np.stack(
+        [quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]], axis=1
+    ).reshape(-1, 3).astype(np.int64)
+
+    verts = np.tile(base_verts, (count, 1)).reshape(count, nv, 16)
+    verts[:, :, 0:3] += centers[:, None, :].astype(np.float32)
+    colors = rng.uniform(0.1, 1.0, (count, 1, 3)).astype(np.float32)
+    verts[:, :, 5:8] = colors
+    verts = verts.reshape(count * nv, 16)
+    idx = (base_idx[None] + (np.arange(count) * nv)[:, None, None])
+    idx = idx.reshape(-1)
+
+    mesh_data = MeshData()
+    mesh_data.append_mesh(verts, idx.astype(np.uint32))
+    scene = Scene()
+    scene.nodes.append(
+        Node(mesh_indices=[0], transform_index=0, name="sphere-field"))
+    scene.transforms.append(zm.identity())
+    dist = max(side * spacing * 1.35, 6.0)
+    eye = np.array([dist * 0.55, dist * 0.4, dist], np.float32)
+    fwd = -eye / np.linalg.norm(eye)
+    scene.cameras.append(
+        Camera(
+            position=eye,
+            forward=fwd.astype(np.float32),
+            yfov=0.9,
+            znear=0.5,
+            zfar=float(6 * dist),
+            name="sphere-cam",
         )
     )
     return scene, mesh_data
