@@ -159,6 +159,22 @@ lines and seconds:
     frame), each held against the port's CPU composite of the same frame
     (count and overflow exact, u8 within 1 LSB), and the 160x96 frame
     against ``tests/goldens/overlay_160x96.png`` within 1 LSB;
+5a. assets: libzrt built (phase 2 runs g++ beside nvcc) and loaded; the
+    showcase's ``showcase.gltf`` loaded at run time (its time printed,
+    default and ``optimize=True``), the optimized load serializing to the
+    committed bins; the lit (K2g), shadowed (K2d, K2g) and flat (K1)
+    1080p frames from that load bit-equal to the bins' frames, with each
+    lit and shadowed frame's time (CUDA events) and busy time (one traced
+    frame); the default load's lit frame against its CPU frame (coverage
+    equal, LIT_MAX_LSB); the two textures written as uncompressed DDS,
+    BMP, TGA, PNM and TIFF, decoded through ``read_image`` (times
+    printed) and bound through a copy of the glTF whose image uris name
+    them, each lit frame bit-equal to the PNG-textured one; the quad, oct
+    and pvar samplers on the card over a 1080p uv/lod/layer plane
+    bit-equal to ``sample_trilinear``; the app off the .gltf, its frame
+    equal to the default load's and textured (the four showcase frames'
+    busy times come from phase 6a, which traces them after 7t, since no
+    trace may come before the plain loops);
 4s. the band kernels of the sharded frames against their plain versions,
     bit-exact (int32 bits), on rows gathered from triangle shards (the
     indexed geometry of every shard, then the canonical order): K3b on the
@@ -271,6 +287,8 @@ cost a later trace its kernel records;
     ``load_scene`` zone, three ``render`` and ``present`` zones and three
     frame spans, and each frame's K1 kernel lies inside a render zone and
     was launched inside one;
+6a. one traced frame of each of phase 5a's lit and shadowed 1080p
+    showcase renderers, from the glTF and from the bins: busy ms a frame;
 6x. each experiment kernel's device time from a trace at its main shape
     (the 1M lattice, its lit rows, the map; the G-buffer kernels also on
     the lit 40K lattice and the test scene; the keyed kernels' calls,
@@ -396,7 +414,8 @@ cost a later trace its kernel records;
    ``--overlay``, ``--orbit`` and ``--ui --orbit``, the showcase lit with
    ``--ui`` (each UI frame against the same run without the UI flag; the
    orbit's frames 0 and 1 differ); the test scene flat with ``--ssaa 2``;
-8. hygiene: neither jax nor the JAX package (``zrenderer_tpu``) loaded.
+8. hygiene: neither jax, the JAX package (``zrenderer_tpu``) nor PIL
+   loaded.
 
 Each kernel's bound is the larger of its inputs and outputs (2 planes
 flat, 13 G-buffer, 1 depth-only) moved once at the card's memory rate and
@@ -447,15 +466,20 @@ import glob
 import json
 import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCENE_DIR = os.path.join(HERE, "content", "scenes", "test_scene")
 SHOWCASE_DIR = os.path.join(HERE, "content", "scenes", "showcase")
+SHOWCASE_SRC = os.path.join(HERE, "content", "scenes", "showcase_src")
+SHOWCASE_GLTF = os.path.join(SHOWCASE_SRC, "showcase.gltf")
 LIT_GOLDEN = os.path.join(HERE, "tests", "goldens", "lit_160x96.png")
 SHADOWED_GOLDEN = os.path.join(HERE, "tests", "goldens",
                                "shadowed_160x96.png")
@@ -862,6 +886,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from zrenderer_tpu_torch.app.draw_list import DrawList, padded_count
+    from zrenderer_tpu_torch.app.main import bind_scene_textures
     from zrenderer_tpu_torch.app.main import main as app_main
     from zrenderer_tpu_torch.app.main import scene_outliner
     from zrenderer_tpu_torch.app.overlay_ui import (
@@ -914,7 +939,10 @@ def main(argv=None) -> int:
         make_triangle_soup,
         one_tile_rows,
     )
+    from zrenderer_tpu_torch.scene.gltf_runtime import load_gltf
     from zrenderer_tpu_torch.scene.scene import Camera, Node, Scene
+    from zrenderer_tpu_torch.utils import native
+    from zrenderer_tpu_torch.utils.image import read_image
     from zrenderer_tpu_torch.utils.png import read_png
 
     dev = torch.device(DEVICE)
@@ -1526,10 +1554,28 @@ def main(argv=None) -> int:
     # -- 2. build ---------------------------------------------------------
     @phase("2 build")
     def build():
+        # libzrt (native/zrt_native.cpp, g++) builds beside nvcc's sources.
+        native_build = {}
+
+        def build_native():
+            t0 = time.perf_counter()
+            try:
+                native_build["path"] = native.build_library()
+            except Exception as e:  # reported after nvcc's build
+                native_build["error"] = e
+            native_build["s"] = time.perf_counter() - t0
+
+        native_thread = threading.Thread(target=build_native)
+        native_thread.start()
         info = _build.build_library()
         _build.load_library()
+        native_thread.join()
+        if "error" in native_build:
+            raise native_build["error"]
         print(f"  {info.path} built in {info.seconds:.2f} s "
               f"(flags: {' '.join(_build.NVCC_FLAGS)})")
+        print(f"  {native_build['path']} (g++ {' '.join(native.CXX_FLAGS)}) "
+              f"ready in {native_build['s']:.2f} s, alongside")
         entry = None
         for line in info.log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers",
@@ -3929,6 +3975,229 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{label}: K9d at {item} records an "
                                      f"item, {mi} aimed at, differs")
 
+    # -- 5a. assets: runtime glTF, image containers, samplers ----------------
+    def container_bytes(rgba, ext):
+        """An RGBA8 image as one uncompressed file of the container ``ext``
+        (dds, bmp, tga, ppm, tif), written with numpy alone."""
+        h, w = rgba.shape[:2]
+        if ext == "dds":
+            head = bytearray(128)
+            head[:4] = b"DDS "
+            struct.pack_into("<5I", head, 4, 124, 0x1007, h, w, 0)
+            struct.pack_into("<7I", head, 76, 32, 0x41, 0, 32, 0x00FF0000,
+                             0x0000FF00, 0x000000FF)
+            struct.pack_into("<I", head, 104, 0xFF000000)
+            return bytes(head) + rgba[..., [2, 1, 0, 3]].tobytes()
+        if ext == "bmp":  # 32 bpp BGRA, top-down
+            return (b"BM" + struct.pack("<IHHI", 54 + rgba.size, 0, 0, 54)
+                    + struct.pack("<IiiHHIIiiII", 40, w, -h, 1, 32, 0,
+                                  rgba.size, 0, 0, 0, 0)
+                    + rgba[..., [2, 1, 0, 3]].tobytes())
+        if ext == "tga":  # type 2, 32 bpp BGRA, top-left origin
+            head = bytearray(18)
+            head[2], head[16], head[17] = 2, 32, 0x20
+            head[12:16] = struct.pack("<HH", w, h)
+            return bytes(head) + rgba[..., [2, 1, 0, 3]].tobytes()
+        if ext == "ppm":  # P6: RGB, alpha 255 on decode
+            return f"P6\n{w} {h}\n255\n".encode() + rgba[..., :3].tobytes()
+        if ext == "tif":  # little-endian, one uncompressed RGBA strip
+            tags = ((256, w), (257, h), (262, 2), (273, 0), (277, 4),
+                    (278, h), (279, rgba.size))
+            data_off = 8 + 2 + 12 * len(tags) + 4
+            out = b"II" + struct.pack("<HIH", 42, 8, len(tags))
+            for tag, v in tags:
+                out += struct.pack("<HHII", tag, 4, 1,
+                                   data_off if tag == 273 else v)
+            return out + struct.pack("<I", 0) + rgba.tobytes()
+        raise ValueError(ext)
+
+    @phase("5a assets: runtime glTF, image containers, samplers")
+    def assets():
+        if not native.available():
+            raise AssertionError("libzrt did not build or load: the "
+                                 "converter would run its Python fallbacks")
+        print(f"  libzrt {native._lib_path()} (version "
+              f"{native.load().zrt_version()})")
+        load_ms = {}
+        for optimize in (False, True):
+            t0 = time.perf_counter()
+            loaded = load_gltf(SHOWCASE_GLTF, optimize=optimize)
+            load_ms[optimize] = (time.perf_counter() - t0) * 1000.0
+            if optimize:
+                scene_o, md_o = loaded
+            else:
+                scene_d, md_d = loaded
+        bins = (Scene.load(os.path.join(SHOWCASE_DIR, "scene.bin")),
+                MeshData.load(os.path.join(SHOWCASE_DIR, "meshes.bin")))
+        same_bins = (scene_o.serialize() == bins[0].serialize()
+                     and md_o.serialize() == bins[1].serialize())
+        print(f"  runtime glTF load of showcase.gltf: {load_ms[False]:.3f} ms"
+              f" (default), {load_ms[True]:.3f} ms (optimize=True, libzrt); "
+              f"the optimized load serializes to the committed bins "
+              f"{same_bins}")
+        if not same_bins:
+            raise AssertionError("optimized glTF load differs from the bins")
+
+        def textured(scene_md, tex_dir, make):
+            r = make((scene_md[0], scene_md[1]))
+            tex, mat = textures_from_mesh_data(scene_md[1], tex_dir)
+            if tex is None:
+                raise AssertionError(f"textures in {tex_dir} did not load")
+            r.set_environment(textures=tex, material_textures=mat)
+            return r
+
+        # Lit (K2g), shadowed (K2d, K2g) and flat (K1) frames from the
+        # optimized glTF load, bit-equal to the bins' frames.
+        lit_of, shadowed_of = {}, {}
+        for name, scene_md, tex_dir in (
+                ("bins", bins, SHOWCASE_DIR),
+                ("glTF", (scene_o, md_o), SHOWCASE_SRC)):
+            r = textured(scene_md, tex_dir, lit_renderer)
+            lit_of[name] = (r, drive_lit(f"showcase from {name}", r, "k2g"))
+            r = textured(scene_md, tex_dir, shadow_renderer)
+            shadowed_of[name] = (r, drive_shadowed(
+                f"showcase from {name}", r, ("k2d", "k2g")))
+        _, flat_bins, *_ = drive("showcase from bins", bins, "auto", "k1")
+        _, flat_gltf, *_ = drive("showcase from glTF", (scene_o, md_o),
+                                 "auto", "k1")
+        for label, a, b in (
+                ("lit", lit_of["glTF"][1][:2], lit_of["bins"][1][:2]),
+                ("shadowed", shadowed_of["glTF"][1][:3],
+                 shadowed_of["bins"][1][:3]),
+                ("flat", flat_gltf, flat_bins)):
+            same = (np.array_equal(a[0], b[0])
+                    and np.array_equal(a[1].view(np.int32),
+                                       b[1].view(np.int32))
+                    and (len(a) < 3 or torch.equal(a[2], b[2])))
+            print(f"  showcase {label} frame, optimized glTF load vs bins: "
+                  f"bit-equal {same}")
+            if not same:
+                raise AssertionError(f"showcase {label}: glTF frame differs "
+                                     "from the bins frame")
+        # Their busy time is traced in phase 6a: no trace may come before
+        # the plain loops of the phases that follow.
+        for label, of in (("lit", lit_of), ("shadowed", shadowed_of)):
+            for name, (r, _) in of.items():
+                ms = event_ms(r.render, 10)
+                print(f"  showcase {label} 1080p from {name}: {ms:.4f} ms a "
+                      f"frame (CUDA events, 10 frames)")
+
+        # The default load (the app's) against its CPU frame, 5l's rule.
+        r = textured((scene_d, md_d), SHOWCASE_SRC, lit_renderer)
+        img_d, depth_d, _ = drive_lit("showcase from glTF, default load", r,
+                                      "k2g")
+        rc = textured((scene_d, md_d), SHOWCASE_SRC,
+                      lambda smd: lit_renderer(smd, device="cpu"))
+        img_c, depth_c = rc.render_and_read()
+        lsb, over1 = lsb_diff(img_d, img_c)
+        cov_same = np.array_equal(depth_d < 1.0, depth_c < 1.0)
+        print(f"  showcase default glTF load card vs CPU frame: coverage "
+              f"equal {cov_same}, max {lsb} LSB, {over1} px over 1 LSB")
+        if not cov_same or lsb > LIT_MAX_LSB:
+            raise AssertionError("default glTF load: card frame differs "
+                                 "from the CPU frame")
+
+        # The textures in other containers, through read_image.
+        png_frame = lit_of["glTF"][1][:2]
+        with open(SHOWCASE_GLTF) as f:
+            doc = json.load(f)
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copyfile(os.path.join(SHOWCASE_SRC, "buffer.bin"),
+                            os.path.join(tmp, "buffer.bin"))
+            images = {uri: read_png(os.path.join(SHOWCASE_SRC, uri))
+                      for uri in (im["uri"] for im in doc["images"])}
+            for ext in ("dds", "bmp", "tga", "ppm", "tif"):
+                decode_ms = []
+                for uri, rgba in images.items():
+                    path = os.path.join(tmp, uri.replace(".png", f".{ext}"))
+                    with open(path, "wb") as f:
+                        f.write(container_bytes(rgba, ext))
+                    t0 = time.perf_counter()
+                    same = np.array_equal(read_image(path), rgba)
+                    decode_ms.append((time.perf_counter() - t0) * 1000.0)
+                    if not same:
+                        raise AssertionError(f"{path}: decodes differently")
+                doc_x = copy.deepcopy(doc)
+                for im in doc_x["images"]:
+                    im["uri"] = im["uri"].replace(".png", f".{ext}")
+                gltf_x = os.path.join(tmp, f"showcase_{ext}.gltf")
+                with open(gltf_x, "w") as f:
+                    json.dump(doc_x, f)
+                r = textured(load_gltf(gltf_x, optimize=True), tmp,
+                             lit_renderer)
+                img_x, depth_x, _ = drive_lit(f"showcase, {ext} textures", r,
+                                              "k2g")
+                same = (np.array_equal(img_x, png_frame[0])
+                        and np.array_equal(depth_x.view(np.int32),
+                                           png_frame[1].view(np.int32)))
+                print(f"  {ext}: decode {decode_ms[0]:.3f} + "
+                      f"{decode_ms[1]:.3f} ms (read_image, the two 32x32 "
+                      f"textures), frame bit-equal to the PNG-textured one "
+                      f"{same}")
+                if not same:
+                    raise AssertionError(f"{ext}-textured frame differs")
+
+        # The quad, oct and pvar samplers on the card over a 1080p plane.
+        arr = lit_of["glTF"][0].texture
+        h, w = arr.base_shape
+        n = arr.num_levels
+        rng = np.random.default_rng(27)
+        uv = torch.from_numpy(rng.random((HEIGHT, WIDTH, 2), np.float32)
+                              * 3 - 1).to(dev)
+        lod = torch.from_numpy(rng.random((HEIGHT, WIDTH), np.float32)
+                               * (n - 1)).to(dev)
+        layer = torch.from_numpy(rng.integers(
+            0, arr.num_layers, (HEIGHT, WIDTH)).astype(np.int32)).to(dev)
+        plain = sampling.sample_trilinear(arr.atlas_u32, h, w, n, uv, lod,
+                                          layer)
+        plain_ms = event_ms(lambda: sampling.sample_trilinear(
+            arr.atlas_u32, h, w, n, uv, lod, layer), 10)
+        print(f"  sample_trilinear over {WIDTH}x{HEIGHT} uv/lod/layer "
+              f"({arr.num_layers} layers of {h}x{w}, {n} levels): "
+              f"{plain_ms:.4f} ms")
+        for kind in ("quad", "oct", "pvar"):
+            t0 = time.perf_counter()
+            atlas = getattr(arr, f"{kind}_atlas_u32")
+            sync()
+            build_ms = (time.perf_counter() - t0) * 1000.0
+            fn = getattr(sampling, f"sample_trilinear_{kind}")
+            got = fn(atlas, h, w, n, uv, lod, layer)
+            same = (got.device == atlas.device == uv.device and torch.equal(
+                got.view(torch.int32), plain.view(torch.int32)))
+            ms = event_ms(lambda: fn(atlas, h, w, n, uv, lod, layer), 10)
+            print(f"  sample_trilinear_{kind}: bit-equal to "
+                  f"sample_trilinear {same}; {ms:.4f} ms (CUDA events), "
+                  f"atlas {tuple(atlas.shape)} built on {atlas.device} in "
+                  f"{build_ms:.3f} ms")
+            if not same:
+                raise AssertionError(f"sample_trilinear_{kind} differs")
+
+        # The app off the .gltf: its textures bound, its frame the default
+        # load's through the same config.
+        with tempfile.TemporaryDirectory() as tmp:
+            if app_main(["--scene", SHOWCASE_GLTF, "--pipeline", "lit",
+                         "--frames", "1", "--out", tmp]) != 0:
+                raise AssertionError("app --scene showcase.gltf failed")
+            img_app = read_png(os.path.join(tmp, "frame_0000.png"))
+        ra = Renderer(RenderConfig(width=WIDTH, height=HEIGHT,
+                                   pipeline="lit"), device=DEVICE)
+        ra.load_scene(scene_d, md_d)
+        bind_scene_textures(ra, md_d, SHOWCASE_SRC)
+        img_ref, _ = ra.render_and_read()
+        spread = img_app[..., :3].reshape(-1, 3).std(axis=0)
+        same = np.array_equal(img_app, img_ref)
+        print(f"  app --scene showcase.gltf --pipeline lit: frame equal to "
+              f"the default load's {same}, channel spread "
+              f"{spread.round(2).tolist()}")
+        if not same or not (spread > 5).all():
+            raise AssertionError("app off the glTF: frame differs or "
+                                 "textures not bound")
+        return {label: {name: r for name, (r, _) in of.items()}
+                for label, of in (("lit", lit_of),
+                                  ("shadowed", shadowed_of))}
+
+    asset_renderers = assets
+
     @phase("4s K3b/K9/K9g/K9d band kernels vs plain versions")
     def band_cases():
         cases = {}
@@ -5155,6 +5424,17 @@ def main(argv=None) -> int:
                 or launched_inside != 3):
             raise AssertionError("--trace: zones, frame spans or K1 events "
                                  "missing")
+
+    @phase("6a showcase frames traced, glTF against bins")
+    def asset_traces():
+        """Phase 5a's lit and shadowed 1080p showcase renderers, loaded
+        from the glTF and from the bins: one traced frame each."""
+        for label, of in asset_renderers.items():
+            for name, r in of.items():
+                events, _ = device_trace(r.render)
+                print(f"  showcase {label} 1080p from {name}: "
+                      f"{busy_us(events) / 1000.0:.4f} ms busy a frame "
+                      f"({len(events)} device ops, one traced frame)")
 
     @phase("6x experiment kernel timing")
     def experiment_timing():
@@ -6754,10 +7034,11 @@ def main(argv=None) -> int:
     @phase("8 hygiene")
     def hygiene():
         loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "zrenderer_tpu"))
+                        if m.split(".")[0] in ("jax", "zrenderer_tpu", "PIL"))
         if loaded:
             raise AssertionError(f"reference modules loaded: {loaded[:5]}")
-        print("  neither jax nor the JAX package (zrenderer_tpu) loaded")
+        print("  neither jax, the JAX package (zrenderer_tpu) nor PIL "
+              "loaded")
 
     sources = {
         "k1": ("raster_small.cu", 2915), "k3": ("raster_hier.cu", 750),

@@ -45,6 +45,8 @@ from zrenderer_tpu_torch.engine.upload_ring import UploadRing
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SCENE_DIR = os.path.join(ROOT, "content", "scenes", "test_scene")
 SHOWCASE_DIR = os.path.join(ROOT, "content", "scenes", "showcase")
+SHOWCASE_GLTF = os.path.join(ROOT, "content", "scenes", "showcase_src",
+                             "showcase.gltf")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
 
 
@@ -289,8 +291,9 @@ def _reference_module(name: str) -> bool:
 
 
 def test_port_never_imports_jax():
-    """Every port module imports, and the app renders, with jax and the
-    JAX package made unimportable; neither is loaded afterwards."""
+    """Every port module imports, and the app renders (off scene folders
+    and off the showcase's glTF), with jax, the JAX package and PIL made
+    unimportable; none is loaded afterwards."""
     modules = sorted(
         "zrenderer_tpu_torch." + os.path.relpath(p, ROOT + "/zrenderer_tpu_torch")
         [:-3].replace(os.sep, ".").removesuffix(".__init__")
@@ -301,7 +304,7 @@ def test_port_never_imports_jax():
         "import importlib, sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'zrenderer_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'zrenderer_tpu', 'PIL'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {modules!r}:\n"
@@ -311,8 +314,10 @@ def test_port_never_imports_jax():
         " '64', '--frames', '1', '--device', 'cpu'])\n"
         f"main(['--scene', {SHOWCASE_DIR!r}, '--width', '128', '--height',"
         " '64', '--frames', '1', '--device', 'cpu', '--pipeline', 'lit'])\n"
+        f"main(['--scene', {SHOWCASE_GLTF!r}, '--width', '128', '--height',"
+        " '64', '--frames', '1', '--device', 'cpu', '--pipeline', 'lit'])\n"
         "loaded = [m for m in sys.modules"
-        " if m.split('.')[0] in ('jax', 'zrenderer_tpu')]\n"
+        " if m.split('.')[0] in ('jax', 'zrenderer_tpu', 'PIL')]\n"
         "assert not loaded, loaded\n"
         "print('no-jax-ok')\n"
     )

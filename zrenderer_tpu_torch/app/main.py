@@ -2,23 +2,28 @@
 pipelines, with optional TAA, UI overlay and camera orbit (counterpart of
 ``zrenderer_tpu/app/main.py``).
 
-Loads a scene folder (scene.bin + meshes.bin), prints the scene outliner,
-renders frames on the chosen device and writes them as PNGs:
+Loads a scene folder (scene.bin + meshes.bin) or a .gltf/.glb file (read
+at run time by ``scene/gltf_runtime.load_gltf``, no conversion step),
+prints the scene outliner, renders frames on the chosen device and writes
+them as PNGs:
 
     python -m zrenderer_tpu_torch.app.main --scene content/scenes/test_scene \
         --width 1920 --height 1080 --frames 60 --out out/ --device cuda \
         [--pipeline lit|shadowed|deferred] [--taa] [--overlay|--ui] [--orbit] \
         [--debug] [--ssaa N] [--trace DIR]
+    python -m zrenderer_tpu_torch.app.main \
+        --scene content/scenes/showcase_src/showcase.gltf --pipeline lit
 
-The lit and shadowed pipelines bind the scene's TEXS textures (PNG) where
-it has them, else a 256x256 checkerboard; the deferred pipeline lights the
-frame with the default point light.  ``--taa`` jitters each frame's
-projection by the 8-frame Halton sequence and resolves it into a history
-carried from frame to frame.  ``--overlay`` burns the stats line and the
-scene outliner into each frame as one panel, ``--ui`` as the imgui Stats
-and Scene Outliner windows: the frame is composited on the renderer's
-device (K8 and K8b on a card), read back, and written or dropped.
-``--orbit`` moves the camera on a turntable around the scene.
+The lit and shadowed pipelines bind the scene's TEXS textures (any format
+``utils/image.read_image`` decodes, resolved against the scene folder or
+the glTF file's folder) where it has them, else a 256x256 checkerboard; the
+deferred pipeline lights the frame with the default point light. ``--taa``
+jitters each frame's projection by the 8-frame Halton sequence and resolves
+it into a history carried from frame to frame. ``--overlay`` burns the
+stats line and the scene outliner into each frame as one panel, ``--ui`` as
+the imgui Stats and Scene Outliner windows: the frame is composited on the
+renderer's device (K8 and K8b on a card), read back, and written or
+dropped. ``--orbit`` moves the camera on a turntable around the scene.
 ``--debug`` validates each frame (the debug layer), ``--ssaa N`` renders
 the flat pipeline at N times the size and box-resolves it, and ``--trace
 DIR`` records the run, scene load included, under torch.profiler with the
@@ -47,6 +52,7 @@ from zrenderer_tpu_torch.engine.textures import (
 from zrenderer_tpu_torch.ops import taa
 from zrenderer_tpu_torch.ops.raster import BINNINGS
 from zrenderer_tpu_torch.profiling import ztracy
+from zrenderer_tpu_torch.scene.gltf_runtime import load_gltf
 from zrenderer_tpu_torch.scene.mesh import MeshData
 from zrenderer_tpu_torch.scene.scene import Scene
 from zrenderer_tpu_torch.utils.png import write_png
@@ -60,10 +66,34 @@ def scene_outliner(scene) -> str:
     return "\n".join(lines)
 
 
+def load_scene_path(path):
+    """``--scene``: a folder of scene.bin + meshes.bin, or a .gltf/.glb
+    file.  Returns (scene, mesh_data, the folder its texture uris resolve
+    against)."""
+    if path.endswith((".gltf", ".glb")):
+        scene, mesh_data = load_gltf(path)
+        return scene, mesh_data, os.path.dirname(path)
+    return (Scene.load(os.path.join(path, "scene.bin")),
+            MeshData.load(os.path.join(path, "meshes.bin")), path)
+
+
+def bind_scene_textures(renderer, mesh_data, texture_dir) -> None:
+    """Per-material textures from the scene's TEXS table when present,
+    the checker otherwise."""
+    tex_list, mat_tex = textures_from_mesh_data(mesh_data, texture_dir)
+    if tex_list is not None:
+        renderer.set_environment(textures=tex_list,
+                                 material_textures=mat_tex)
+    else:
+        renderer.set_environment(
+            texture=Texture.from_array(checkerboard(256)))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="zrenderer-tpu-torch")
     parser.add_argument("--scene", default="content/scenes/test_scene",
-                        help="folder containing scene.bin + meshes.bin")
+                        help="folder containing scene.bin + meshes.bin, "
+                             "or a .gltf/.glb file")
     parser.add_argument("--width", type=int, default=1920)
     parser.add_argument("--height", type=int, default=1080)
     parser.add_argument("--frames", type=int, default=60)
@@ -112,23 +142,14 @@ def main(argv=None) -> int:
 
 
 def _run(args) -> None:
-    scene = Scene.load(os.path.join(args.scene, "scene.bin"))
-    mesh_data = MeshData.load(os.path.join(args.scene, "meshes.bin"))
+    scene, mesh_data, texture_dir = load_scene_path(args.scene)
     config = RenderConfig(width=args.width, height=args.height,
                           binning=args.binning, pipeline=args.pipeline,
                           debug=args.debug, supersample=args.ssaa)
     renderer = Renderer(config, device=args.device)
     renderer.load_scene(scene, mesh_data)
     if args.pipeline != "flat":
-        # Per-material textures from the scene's TEXS table when present,
-        # the checker otherwise.
-        tex_list, mat_tex = textures_from_mesh_data(mesh_data, args.scene)
-        if tex_list is not None:
-            renderer.set_environment(textures=tex_list,
-                                     material_textures=mat_tex)
-        else:
-            renderer.set_environment(
-                texture=Texture.from_array(checkerboard(256)))
+        bind_scene_textures(renderer, mesh_data, texture_dir)
     orbit_ctl = None
     if args.orbit:
         orbit_ctl = CameraController(scene.active_camera)

@@ -19,6 +19,8 @@ and K8b on a card) and publishes the PNG.
 
     python -m zrenderer_tpu_torch.app.viewer --scene content/scenes/test_scene \
         --width 960 --height 540 --port 8765 --device cuda
+
+``--scene`` takes a scene folder or a .gltf/.glb file, as the app's does.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import os
 import sys
 import threading
 import time
@@ -39,13 +40,7 @@ from zrenderer_tpu_torch.app.imgui import Context
 from zrenderer_tpu_torch.app.overlay_ui import ImguiOverlay
 from zrenderer_tpu_torch.engine.config import PIPELINES, RenderConfig
 from zrenderer_tpu_torch.engine.renderer import Renderer
-from zrenderer_tpu_torch.engine.textures import (
-    Texture,
-    checkerboard,
-    textures_from_mesh_data,
-)
-from zrenderer_tpu_torch.scene.mesh import MeshData
-from zrenderer_tpu_torch.scene.scene import Scene
+from zrenderer_tpu_torch.app.main import bind_scene_textures, load_scene_path
 from zrenderer_tpu_torch.utils.png import encode_png
 
 log = logging.getLogger("zrenderer_torch.viewer")
@@ -305,7 +300,8 @@ class Viewer:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="zrenderer-tpu-torch-viewer")
     parser.add_argument("--scene", default="content/scenes/test_scene",
-                        help="folder containing scene.bin + meshes.bin")
+                        help="folder containing scene.bin + meshes.bin, "
+                             "or a .gltf/.glb file")
     parser.add_argument("--width", type=int, default=960)
     parser.add_argument("--height", type=int, default=540)
     parser.add_argument("--port", type=int, default=8765)
@@ -319,20 +315,13 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
-    scene = Scene.load(os.path.join(args.scene, "scene.bin"))
-    mesh_data = MeshData.load(os.path.join(args.scene, "meshes.bin"))
+    scene, mesh_data, texture_dir = load_scene_path(args.scene)
     config = RenderConfig(width=args.width, height=args.height,
                           pipeline=args.pipeline)
     viewer = Viewer(scene, mesh_data, config, port=args.port, host=args.host,
                     device=args.device)
     if config.pipeline != "flat":
-        tex_list, mat_tex = textures_from_mesh_data(mesh_data, args.scene)
-        if tex_list is not None:
-            viewer.renderer.set_environment(textures=tex_list,
-                                            material_textures=mat_tex)
-        else:
-            viewer.renderer.set_environment(
-                texture=Texture.from_array(checkerboard(256)))
+        bind_scene_textures(viewer.renderer, mesh_data, texture_dir)
     try:
         viewer.run(max_frames=args.frames, target_fps=args.fps)
     except KeyboardInterrupt:

@@ -1,25 +1,30 @@
 """Texture resources (counterpart of ``zrenderer_tpu/engine/textures.py``):
 host decode, mip pyramid, RGBA8 mip atlas, texture arrays.
 
-Images decode on the host (PNG through the port's ``utils/png.py``); the
-mip chain and the atlas are built once at load on CPU tensors, and
-``Renderer.set_environment`` uploads the atlas once to the renderer's
-device.  The sampler reads the atlas directly (``ops/sampling.py``), so
-the reference's derived gather atlases (quad, oct, pvar) have no
-counterpart here.
+Images decode on the host through ``utils/image.read_image`` (PNG, JPEG,
+GIF, HDR, TIFF, DDS, ICO, BMP, TGA, PNM); the mip chain and the atlas are
+built once at load on CPU tensors, and ``Renderer.set_environment``
+uploads the atlas once to the renderer's device.  The lit pass samples
+the atlas directly (``ops/sampling.py``); the reference's derived gather
+atlases (quad, oct, pvar) are built lazily on the atlas's device, on
+first use, for the samplers that read them.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from zrenderer_tpu_torch.ops.mipmap import generate_mip_chain, pack_mip_atlas
-from zrenderer_tpu_torch.ops.sampling import pack_texels_u32
+from zrenderer_tpu_torch.ops.sampling import (build_oct_atlas,
+                                               build_pvar_atlas,
+                                               build_quad_atlas,
+                                               pack_texels_u32)
+from zrenderer_tpu_torch.utils.image import read_image
 from zrenderer_tpu_torch.utils.png import decode_png
 
 log = logging.getLogger("zrenderer_torch.textures")
@@ -33,12 +38,46 @@ class Texture:
     sizes: torch.Tensor  # (L, 2) i32 per-level (h, w)
     num_levels: int
     base_shape: tuple
+    # The derived gather atlases, built on first use (``_derived``).
+    _quad: torch.Tensor | None = field(default=None, init=False, repr=False)
+    _oct: torch.Tensor | None = field(default=None, init=False, repr=False)
+    _pvar: torch.Tensor | None = field(default=None, init=False, repr=False)
 
     num_layers = 1
 
     def to(self, device) -> "Texture":
-        """The sampler's atlas on ``device`` (the f32 atlas stays put)."""
+        """The sampler's atlas on ``device`` (the f32 atlas stays put; the
+        derived atlases are built anew there on first use)."""
         return replace(self, atlas_u32=self.atlas_u32.to(device))
+
+    def _derived(self, attr, builder):
+        """The derived atlas ``attr``: ``builder`` run once per layer on
+        ``atlas_u32``'s device, the layers stacked as ``atlas_u32``'s."""
+        val = getattr(self, attr)
+        if val is None:
+            h, w = self.base_shape
+            val = torch.cat([
+                builder(self.atlas_u32[i * h:(i + 1) * h], h, w,
+                        self.num_levels)
+                for i in range(self.num_layers)])
+            setattr(self, attr, val)
+        return val
+
+    @property
+    def quad_atlas_u32(self):
+        """(L*h, 2w, 4) RGBA8 2x2 neighbourhoods (one-row bilinear)."""
+        return self._derived("_quad", build_quad_atlas)
+
+    @property
+    def oct_atlas_u32(self):
+        """(L*h, 2w, 16) RGBA8: the quad and the parent 3x3."""
+        return self._derived("_oct", build_oct_atlas)
+
+    @property
+    def pvar_atlas_u32(self):
+        """(L*h, 2w, 32) RGBA8: the quad and the selected parent quad for
+        each of the four anchor offsets."""
+        return self._derived("_pvar", build_pvar_atlas)
 
     @classmethod
     def from_array(cls, image: np.ndarray, num_levels: int | None = None):
@@ -58,14 +97,22 @@ class Texture:
 
     @classmethod
     def from_png(cls, path, num_levels: int | None = None):
-        """Decode a PNG file and create the texture.  Other formats raise
-        ValueError (the reference's other decoders are not ported)."""
+        """Decode a PNG file and create the texture (``from_image_file``
+        takes every supported format)."""
         with open(path, "rb") as f:
             data = f.read()
         if data[:8] != b"\x89PNG\r\n\x1a\n":
-            raise ValueError(f"{path}: not a PNG (only PNG textures are "
-                             "decoded by the port)")
+            raise ValueError(f"{path}: not a PNG (from_image_file decodes "
+                             "the other formats)")
         return cls.from_array(decode_png(data), num_levels)
+
+    @classmethod
+    def from_image_file(cls, path, num_levels: int | None = None):
+        """Decode any supported image file (``utils/image.read_image``)
+        and create the texture.  An HDR image arrives as f32 radiance;
+        the mip chain filters it as it is and the RGBA8 packing clamps it
+        to [0, 1], as in the reference."""
+        return cls.from_array(read_image(path), num_levels)
 
 
 @dataclass
@@ -78,9 +125,15 @@ class TextureArray:
     num_levels: int
     base_shape: tuple  # (h, w) of one layer
     num_layers: int
+    _quad: torch.Tensor | None = field(default=None, init=False, repr=False)
+    _oct: torch.Tensor | None = field(default=None, init=False, repr=False)
+    _pvar: torch.Tensor | None = field(default=None, init=False, repr=False)
 
-    def to(self, device) -> "TextureArray":
-        return replace(self, atlas_u32=self.atlas_u32.to(device))
+    to = Texture.to
+    _derived = Texture._derived
+    quad_atlas_u32 = Texture.quad_atlas_u32
+    oct_atlas_u32 = Texture.oct_atlas_u32
+    pvar_atlas_u32 = Texture.pvar_atlas_u32
 
     @classmethod
     def from_textures(cls, textures):
@@ -99,6 +152,12 @@ class TextureArray:
                    num_levels=base.num_levels,
                    base_shape=tuple(base.base_shape),
                    num_layers=len(textures))
+
+    @classmethod
+    def from_images(cls, images, num_levels: int | None = None):
+        """Stack (h, w, 3|4) host images of one size."""
+        return cls.from_textures(
+            [Texture.from_array(img, num_levels) for img in images])
 
 
 def checkerboard(size: int = 256, cells: int = 8, color_a=(1.0, 1.0, 1.0),
@@ -121,8 +180,8 @@ def textures_from_mesh_data(mesh_data, base_dir):
     """Load the meshes.bin TEXS table (uris relative to the scene folder).
     Returns (textures, material_textures) for Renderer.set_environment, or
     (None, None) when the scene has no textures, one fails to load (a
-    missing file, a format other than PNG) or their sizes differ; the
-    caller then binds its default texture."""
+    missing file, an unsupported or corrupt image) or their sizes differ;
+    the caller then binds its default texture."""
     uris = getattr(mesh_data, "texture_uris", None)
     if not uris:
         return None, None
@@ -130,7 +189,7 @@ def textures_from_mesh_data(mesh_data, base_dir):
     for uri in uris:
         path = os.path.join(base_dir, uri)
         try:
-            textures.append(Texture.from_png(path))
+            textures.append(Texture.from_image_file(path))
         except (OSError, ValueError) as e:
             log.warning("texture %s failed to load (%s); falling back",
                         path, e)

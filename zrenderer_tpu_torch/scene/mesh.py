@@ -207,6 +207,10 @@ class MeshData:
                 out.write(np.asarray(mt, np.int32).tobytes())
         return out.getvalue()
 
+    def save(self, path) -> None:
+        with open(path, "wb") as f:
+            f.write(self.serialize())
+
     @classmethod
     def deserialize(cls, data: bytes) -> "MeshData":
         magic, num_meshes, data_start, index_size, vertex_size = _HEADER.unpack_from(

@@ -177,6 +177,10 @@ class Scene:
             out.write(cam.pack())
         return out.getvalue()
 
+    def save(self, path) -> None:
+        with open(path, "wb") as f:
+            f.write(self.serialize())
+
     @classmethod
     def deserialize(cls, data: bytes) -> "Scene":
         magic, num_nodes, num_transforms, num_cameras = _HEADER.unpack_from(data, 0)
